@@ -19,9 +19,14 @@
 // shared-memory buffer [64][H]: a warp only ever reads the rows it writes,
 // and it overwrites them after the block-wide barrier that ends the
 // product, so no ping-pong copy is needed.  Weights, packed (in, out)
-// row-major, stream through shared memory in chunks of 16 rows (16 x H x 4
-// bytes); all of them (about 2.5 MB at H = 256) stay resident in L2, so the
-// kernel's device-memory traffic is its inputs and outputs.  Each product
+// row-major, stream through a 16-row shared-memory buffer (16 x H x 4
+// bytes) in stages of 8 rows, double-buffered: cp.async copies the next
+// stage while the block multiplies the current one, one barrier a stage.
+// That hides the L2 latency of the weights where one block runs per SM
+// (the training backward); with two blocks per SM (the forward kernels)
+// the other block already hid it.  All of the weights (about 2.5 MB at
+// H = 256) stay resident in L2, so the kernel's device-memory traffic is
+// its inputs and outputs.  Each product
 // step reads a float4 of four k-values of a row (one broadcast per warp)
 // and one weight per column (32 consecutive floats per warp, no bank
 // conflicts), then runs 8 x (H/32) x 4 fp32 FMAs.  Plain fp32 FMA, no TF32:
@@ -36,7 +41,8 @@ constexpr int kTileRows = 64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kTileRows / kWarps;
-constexpr int kChunk = 16;  // weight rows per staged chunk
+constexpr int kChunk = 16;  // weight rows the staging buffer holds
+constexpr int kStage = kChunk / 2;  // rows per double-buffered stage of gemm_acc
 constexpr float kLnEps = 1e-5f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -85,48 +91,105 @@ __device__ inline void load_tile(float* dst, const float* __restrict__ src,
   }
 }
 
+// acc += A[rows of this warp, k0:k0+kc4] @ wbuf[0:kc4, 0:H], wbuf the
+// staged weight chunk with row stride WLD.
+template <int H, int WLD>
+__device__ __forceinline__ void chunk_fma(float (&acc)[kRowsPerWarp][H / 32],
+                                          const float* a_rows, int lda, int k0, int kc4,
+                                          const float* wbuf) {
+  constexpr int kCols = H / 32;
+  const int lane = threadIdx.x & 31;
+  for (int kk = 0; kk < kc4; kk += 4) {
+    float4 a[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r)
+      a[r] = *reinterpret_cast<const float4*>(a_rows + r * lda + k0 + kk);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float w[kCols];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) w[j] = wbuf[(kk + q) * WLD + lane + 32 * j];
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const float av = q == 0 ? a[r].x : q == 1 ? a[r].y : q == 2 ? a[r].z : a[r].w;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) acc[r][j] = fmaf(av, w[j], acc[r][j]);
+      }
+    }
+  }
+}
+
+// 16 bytes global -> shared without a register (cp.async, L2 only); with
+// valid false the 16 bytes are zero-filled and nothing is read.
+__device__ __forceinline__ void cp_async16(float4* dst, const float4* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
 // acc += A[rows of this warp, 0:K] @ W[0:K, 0:H].  A is shared memory with
 // row stride lda (a multiple of 4, columns K..round_up4(K) zero); W is
-// global, row-major [K, H].  Ends with a block-wide barrier.
+// global, row-major [K, H], 16-byte aligned.  wbuf holds kChunk x H floats:
+// two stages of kStage rows.  Ends with a block-wide barrier.
 template <int H>
 __device__ __forceinline__ void gemm_acc(float (&acc)[kRowsPerWarp][H / 32],
                                          const float* A, int lda, int K,
                                          const float* __restrict__ W,
                                          float* wbuf) {
-  constexpr int kCols = H / 32;
-  constexpr int kVec = kChunk * H / 4;
-  const int tid = threadIdx.x, lane = tid & 31;
+  constexpr int kVec = kStage * H / 4;  // float4s per stage
+  const int tid = threadIdx.x;
   const float* a_rows = A + (tid >> 5) * kRowsPerWarp * lda;
-  for (int k0 = 0; k0 < K; k0 += kChunk) {
-    const int kc = min(kChunk, K - k0);
+  const int stages = (K + kStage - 1) / kStage;
+  auto copy_stage = [&](int st) {  // stage st -> half st & 1 of wbuf
+    float4* dst = reinterpret_cast<float4*>(wbuf) + (st & 1) * kVec;
     for (int i = tid; i < kVec; i += kThreads) {
-      const int kk = i / (H / 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (kk < kc)
-        v = __ldg(reinterpret_cast<const float4*>(W + static_cast<size_t>(k0 + kk) * H) +
-                  i % (H / 4));
-      reinterpret_cast<float4*>(wbuf)[i] = v;
+      const int k = st * kStage + i / (H / 4);
+      const bool ok = k < K;
+      cp_async16(dst + i,
+                 reinterpret_cast<const float4*>(W + static_cast<size_t>(ok ? k : 0) * H) +
+                     i % (H / 4),
+                 ok);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  copy_stage(0);
+  for (int st = 0; st < stages; ++st) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    // Stage st has landed for every thread, and every warp is done with
+    // stage st - 1, whose half the next copy overwrites.
+    __syncthreads();
+    if (st + 1 < stages) copy_stage(st + 1);
+    const int k0 = st * kStage;
+    chunk_fma<H, H>(acc, a_rows, lda, k0, round_up4(min(kStage, K - k0)),
+                    wbuf + (st & 1) * kStage * H);
+  }
+  __syncthreads();
+}
+
+// Floats of the staged chunk of a transposed product (gemm_acc_t): rows
+// padded to H + 1 so the transposing stores do not collide in one bank.
+template <int H>
+__host__ __device__ constexpr int chunk_t_floats() { return kChunk * (H + 1); }
+
+// acc[:, j] += A[rows of this warp, 0:H] @ W[j, 0:H]^T for j < ncols (the
+// other columns get 0): the product with the transpose of a weight slab W,
+// row-major [ncols, H] (a forward layer's [in, out] weight read as
+// [out -> in]).  A is shared memory with row stride lda; wbuf holds
+// chunk_t_floats<H>() floats.  Ends with a block-wide barrier.
+template <int H>
+__device__ __forceinline__ void gemm_acc_t(float (&acc)[kRowsPerWarp][H / 32],
+                                           const float* A, int lda,
+                                           const float* __restrict__ W, int ncols,
+                                           float* wbuf) {
+  const int tid = threadIdx.x;
+  const float* a_rows = A + (tid >> 5) * kRowsPerWarp * lda;
+  for (int k0 = 0; k0 < H; k0 += kChunk) {
+    for (int i = tid; i < kChunk * H; i += kThreads) {
+      const int j = i / kChunk, kk = i % kChunk;
+      wbuf[kk * (H + 1) + j] = j < ncols ? __ldg(W + static_cast<size_t>(j) * H + k0 + kk) : 0.f;
     }
     __syncthreads();
-    const int kc4 = round_up4(kc);
-    for (int kk = 0; kk < kc4; kk += 4) {
-      float4 a[kRowsPerWarp];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        a[r] = *reinterpret_cast<const float4*>(a_rows + r * lda + k0 + kk);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float w[kCols];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) w[j] = wbuf[(kk + q) * H + lane + 32 * j];
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          const float av = q == 0 ? a[r].x : q == 1 ? a[r].y : q == 2 ? a[r].z : a[r].w;
-#pragma unroll
-          for (int j = 0; j < kCols; ++j) acc[r][j] = fmaf(av, w[j], acc[r][j]);
-        }
-      }
-    }
+    chunk_fma<H, H + 1>(acc, a_rows, lda, k0, kChunk, wbuf);
     __syncthreads();
   }
 }
@@ -139,12 +202,26 @@ __device__ __forceinline__ void zero(float (&acc)[kRowsPerWarp][H / 32]) {
     for (int j = 0; j < H / 32; ++j) acc[r][j] = 0.f;
 }
 
+// Where the training kernels keep a tile's forward for the backward: the
+// normalised LayerNorm input xhat of every layer, [layers][P][H], and the
+// per-row (1/sigma, -mu/sigma), [layers][P][2].  The ReLU mask of the
+// backward is xhat > -mu/sigma.
+struct Save {
+  float* xhat;
+  float* stats;
+  size_t P;     // rows of the whole call
+  size_t row0;  // first row of this tile
+  int nvalid;   // valid rows of this tile
+};
+
 // acc <- LayerNorm(relu(acc + b)) * g + beta, row by row, in registers.
-template <int H>
+// With kSave, also writes layer `layer`'s xhat and statistics to save.
+template <int H, bool kSave = false>
 __device__ __forceinline__ void bias_relu_ln(float (&acc)[kRowsPerWarp][H / 32],
                                              const float* __restrict__ b,
                                              const float* __restrict__ g,
-                                             const float* __restrict__ beta) {
+                                             const float* __restrict__ beta,
+                                             const Save* save = nullptr, int layer = 0) {
   constexpr int kCols = H / 32;
   const int lane = threadIdx.x & 31;
   float bj[kCols], gj[kCols], betaj[kCols];
@@ -170,6 +247,19 @@ __device__ __forceinline__ void bias_relu_ln(float (&acc)[kRowsPerWarp][H / 32],
       q = fmaf(dv, dv, q);
     }
     const float inv = rsqrtf(warp_sum(q) * (1.0f / H) + kLnEps);
+    if constexpr (kSave) {
+      const int row = (threadIdx.x >> 5) * kRowsPerWarp + r;
+      if (row < save->nvalid) {
+        const size_t at = static_cast<size_t>(layer) * save->P + save->row0 + row;
+        float* xh = save->xhat + at * H;
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) xh[lane + 32 * j] = (acc[r][j] - mu) * inv;
+        if (lane == 0) {
+          save->stats[2 * at] = inv;
+          save->stats[2 * at + 1] = (0.f - mu) * inv;
+        }
+      }
+    }
 #pragma unroll
     for (int j = 0; j < kCols; ++j) acc[r][j] = (acc[r][j] - mu) * inv * gj[j] + betaj[j];
   }
@@ -214,23 +304,25 @@ __device__ __forceinline__ void head(const float (&h)[kRowsPerWarp][H / 32],
 // The whole network on one 64-row tile whose inputs are already in shared
 // memory (xs, ds; see load_tile).  Writes [density, color...] rows to out
 // (global or shared memory, row stride ld).  act is the [64][H] activation
-// buffer, wbuf the [kChunk][H] weight chunk.
-template <int H>
+// buffer, wbuf the [kChunk][H] weight chunk.  With kSave every layer's
+// xhat and statistics go to save (the training kernels' backward input).
+template <int H, bool kSave = false>
 __device__ void mlp_tile(const Weights& w, const float* xs, const float* ds,
-                         float* act, float* wbuf, float* out, int ld, int nvalid) {
+                         float* act, float* wbuf, float* out, int ld, int nvalid,
+                         const Save* save = nullptr) {
   const int xld = round_up4(w.xe), dld = round_up4(w.de);
   const size_t hh = static_cast<size_t>(H) * H;
   float acc[kRowsPerWarp][H / 32];
 
   zero<H>(acc);
   gemm_acc<H>(acc, xs, xld, w.xe, w.w0, wbuf);
-  bias_relu_ln<H>(acc, w.b, w.g, w.beta);
+  bias_relu_ln<H, kSave>(acc, w.b, w.g, w.beta, save, 0);
   store_rows<H>(acc, act);
   for (int i = 1; i < 8; ++i) {
     zero<H>(acc);
     gemm_acc<H>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
     if (i == 4) gemm_acc<H>(acc, xs, xld, w.xe, w.wx, wbuf);
-    bias_relu_ln<H>(acc, w.b + i * H, w.g + i * H, w.beta + i * H);
+    bias_relu_ln<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
     store_rows<H>(acc, act);
   }
   head<H>(acc, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
@@ -239,7 +331,7 @@ __device__ void mlp_tile(const Weights& w, const float* xs, const float* ds,
       zero<H>(acc);
       gemm_acc<H>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
       if (i == 8) gemm_acc<H>(acc, ds, dld, w.de, w.wd, wbuf);
-      bias_relu_ln<H>(acc, w.b + i * H, w.g + i * H, w.beta + i * H);
+      bias_relu_ln<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
       if (i == 8) store_rows<H>(acc, act);
     }
   }

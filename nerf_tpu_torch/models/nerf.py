@@ -6,10 +6,11 @@ PyTorch counterpart of ``RenderOutput``, ``ClassicNeRF`` and
 the pdf uniforms, density noise) comes from a ``torch.Generator`` passed in.
 
 With ``cfg.use_pallas`` every MLP evaluation goes through the K1 kernel
-(``ops/kernels/classic_mlp.py``) and the deterministic hierarchical-reuse
-fine stage of ``render_image`` through the K4 kernel
-(``ops/kernels/union_eval.py``).  The kernels have no backward yet, so that
-path runs under ``torch.no_grad()``.
+(``ops/kernels/classic_mlp.py``; under autograd its backward is K1-bwd)
+and the deterministic hierarchical-reuse fine stage of ``render_image``
+through the forward-only K4 kernel (``ops/kernels/union_eval.py``).
+``render_rays`` also takes a step's random draws made beforehand
+(``sampling.StepDraws``), as the train steps pass them.
 """
 
 from __future__ import annotations
@@ -36,9 +37,13 @@ class RenderOutput(NamedTuple):
 
 
 def _maybe_add_density_noise(
-    generator: Optional[torch.Generator], density: torch.Tensor, std: float
+    generator: Optional[torch.Generator], density: torch.Tensor, std: float,
+    noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Gaussian density-logit noise, drawn from ``generator``."""
+    """Gaussian density-logit noise: ``noise [..., S]`` (already scaled)
+    when given, else drawn from ``generator``."""
+    if noise is not None:
+        return density + noise[..., None]
     if std == 0.0 or generator is None:
         return density
     noise = torch.randn(
@@ -104,6 +109,34 @@ class ClassicNeRF(nn.Module):
             d_enc = per_ray[..., None, :].expand(points.shape[:-1] + per_ray.shape[-1:])
         return points, x_enc, d_enc
 
+    def encode_inputs_flat(
+        self,
+        rays_o: torch.Tensor,
+        rays_d: torch.Tensor,
+        t_vals: torch.Tensor,
+        states_x: Optional[torch.Tensor] = None,
+        states_d: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """Encodings for the fused train kernels: positions encoded on
+        ``[rays * S, 3]`` rows with the per-ray latents broadcast to them,
+        directions encoded once per ray and broadcast over its samples.
+        Returns ``(x_enc [rays, S, XE], d_enc [rays, S, DE] or None)``."""
+        n_rays, s = t_vals.shape[0], t_vals.shape[-1]
+        points = rays_o[:, None, :] + rays_d[:, None, :] * t_vals[..., None]
+
+        def flat_states(st):
+            if st is None or st.shape[-1] == 0:
+                return None
+            return st[:, None, :].expand(n_rays, s, st.shape[-1]).reshape(-1, st.shape[-1])
+
+        x_enc = self.encode_position(points.reshape(-1, 3), flat_states(states_x))
+        x_enc = x_enc.reshape(n_rays, s, -1)
+        d_enc = None
+        if self.cfg.use_viewdirs:
+            per_ray = self.encode_direction(rays_d, states_d)
+            d_enc = per_ray[:, None, :].expand(n_rays, s, per_ray.shape[-1])
+        return x_enc, d_enc
+
     def _compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
@@ -141,11 +174,12 @@ class ClassicNeRF(nn.Module):
         states_d: Optional[torch.Tensor],
         density_noise_std: float,
         white_background: bool = False,
+        noise: Optional[torch.Tensor] = None,
     ):
         """One coarse or fine pass: evaluate, composite.  Returns
         ``(rgb, weights [..., S, 1], depth, noised_density, color)``."""
         _, density, color = self.forward(rays_o, rays_d, t_vals, states_x, states_d)
-        density = _maybe_add_density_noise(generator, density, density_noise_std)
+        density = _maybe_add_density_noise(generator, density, density_noise_std, noise)
         weights = compositing.weights_from_density(
             density, compositing.distances_from_tvals(t_vals, rays_d)
         )
@@ -174,6 +208,7 @@ class ClassicNeRF(nn.Module):
         states_d: Optional[torch.Tensor] = None,
         fused_eval: bool = False,
         generator: Optional[torch.Generator] = None,
+        draws: Optional[sampling.StepDraws] = None,
     ) -> RenderOutput:
         """Render a batch of rays: stratified coarse pass plus, with
         ``render.num_fine_samples``, the inverse-CDF fine pass (weights
@@ -182,16 +217,22 @@ class ClassicNeRF(nn.Module):
         ``fused_eval=True`` lets a deterministic render take the K4 kernel
         (``_use_fused_union``); ``render_image`` sets it.  ``generator``
         draws the stratified jitter, the pdf uniforms and the density noise
-        (required when ``render.randomly_sample``).
+        (required when ``render.randomly_sample``), unless ``draws`` holds
+        them already made (flat rays; ``sampling.draw_step``).
         """
         batch_shape = rays_o.shape[:-1]
-        t_coarse = sampling.sample_linear(
-            generator, batch_shape, render.num_coarse_samples, render.near, render.far,
-            randomly_sample=render.randomly_sample, dtype=rays_o.dtype, device=rays_o.device,
-        )
+        if draws is not None:
+            t_coarse = draws.t_coarse
+        else:
+            t_coarse = sampling.sample_linear(
+                generator, batch_shape, render.num_coarse_samples, render.near, render.far,
+                randomly_sample=render.randomly_sample, dtype=rays_o.dtype, device=rays_o.device,
+            )
+        noise_c = None if draws is None else draws.noise_c
+        noise_f = None if draws is None else draws.noise_f
         rgb_c, weights_c, depth_c, density_c, color_c = self._render_stage(
             generator, rays_o, rays_d, t_coarse, states_x, states_d,
-            render.density_noise_std, render.white_background,
+            render.density_noise_std, render.white_background, noise_c,
         )
 
         stages = [rgb_c]
@@ -202,6 +243,7 @@ class ClassicNeRF(nn.Module):
             t_fine = sampling.sample_pdf(
                 generator, t_mids, weights_c[..., 1:-1, 0].detach(),
                 render.num_fine_samples, randomly_sample=render.randomly_sample,
+                u=None if draws is None else draws.u,
             )
             if fused_eval and render.reuse_coarse_in_fine and self._use_fused_union(render, rays_o):
                 # Fine MLP and union compositing in the K4 kernel, which
@@ -232,7 +274,7 @@ class ClassicNeRF(nn.Module):
                 # composited order-free.
                 _, density_f, color_f = self.forward(rays_o, rays_d, t_fine, states_x, states_d)
                 density_f = _maybe_add_density_noise(
-                    generator, density_f, render.density_noise_std
+                    generator, density_f, render.density_noise_std, noise_f
                 )
                 t_cat = torch.cat([t_coarse, t_fine], dim=-1)
                 weights = compositing.weights_from_union_sorted(
@@ -248,7 +290,7 @@ class ClassicNeRF(nn.Module):
                 t_all = sampling.merge_samples(t_coarse, t_fine)
                 rgb_f, weights, depth_f, _, _ = self._render_stage(
                     generator, rays_o, rays_d, t_all, states_x, states_d,
-                    render.density_noise_std, render.white_background,
+                    render.density_noise_std, render.white_background, noise_f,
                 )
             stages.append(rgb_f)
             depth = depth_f

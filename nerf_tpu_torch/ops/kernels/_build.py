@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("classic_mlp_fwd", "union_eval")
+KERNELS = ("classic_mlp_fwd", "union_eval", "classic_mlp_bwd", "train_grads", "fine_stage_train")
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -36,12 +36,24 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _WEIGHT_ARGS = (_P,) * 11  # w0 wx wd whh b g beta w_dens b_dens w_col b_col
 ARGTYPES = {
     # x d out P xe de hidden c, weights, stream
     "classic_mlp_fwd": (_P, _P, _P, _I, _I, _I, _I, _I) + _WEIGHT_ARGS + (_P,),
     # xf d t_c t_f dens_c col_c dnorm out R Sc Sf xe de hidden c, weights, stream
     "union_eval": (_P,) * 8 + (_I,) * 7 + _WEIGHT_ARGS + (_P,),
+    # x d gout dx dd grads P xe de hidden c, weights,
+    # xhat stats dpre wpart tpart tmp wt out splits stream
+    "classic_mlp_bwd": (_P,) * 6 + (_I,) * 5 + _WEIGHT_ARGS + (_P,) * 8 + (_I, _P),
+    # x d dists noise pix loss grads weights_out R S xe de hidden c white
+    # loss_weight, weights, xhat stats dpre wpart tpart tmp wt out gout
+    # ray_loss splits stream
+    "train_grads": (_P,) * 8 + (_I,) * 7 + (_F,) + _WEIGHT_ARGS + (_P,) * 10 + (_I, _P),
+    # xf d t_c t_f dens_c col_c dnorm noise_f pix loss grads g_dens_c g_col_c
+    # R Sc Sf xe de hidden c white loss_weight, weights, xhat stats dpre
+    # wpart tpart tmp wt out gout ray_loss splits stream
+    "fine_stage_train": (_P,) * 13 + (_I,) * 8 + (_F,) + _WEIGHT_ARGS + (_P,) * 10 + (_I, _P),
 }
 
 

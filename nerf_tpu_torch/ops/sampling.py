@@ -11,11 +11,13 @@ package sums with a doubling ladder, ``torch.cumsum`` in order).
 
 Randomness is explicit: every random draw takes a ``torch.Generator`` on the
 tensors' device, and ``sample_pdf`` also accepts its uniforms precomputed.
+``draw_step`` makes all the draws of one training step at once
+(``StepDraws``), so the train steps take them as inputs.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -136,3 +138,47 @@ def merge_samples(coarse: torch.Tensor, fine: torch.Tensor) -> torch.Tensor:
     ``[..., Sc + Sf]``.  A stable sort keeps coarse before fine on ties."""
     merged = torch.cat([coarse, fine], dim=-1)
     return torch.sort(merged, dim=-1, stable=True).values
+
+
+class StepDraws(NamedTuple):
+    """Every random draw of one training step, made beforehand so a step
+    can be replayed or fed the JAX package's draws: the coarse t-values
+    ``[B, Sc]``, the coarse density noise ``[B, Sc]``, the pdf uniforms
+    ``[B, Sf]`` and the fine density noise ``[B, Sf]`` (``[B, Sc + Sf]`` in
+    the re-evaluate formulation, whose fine pass covers the merged set).
+    Noise is already scaled by the noise std (zeros without noise); the
+    uniforms are ``None`` without a fine stage."""
+
+    t_coarse: torch.Tensor
+    noise_c: torch.Tensor
+    u: Optional[torch.Tensor] = None
+    noise_f: Optional[torch.Tensor] = None
+
+
+def draw_step(
+    generator: Optional[torch.Generator],
+    render,
+    num_rays: int,
+    device="cuda",
+) -> StepDraws:
+    """The draws of one step under ``render`` (a ``RenderConfig``), in the
+    JAX package's order: stratified t-values, coarse noise, pdf uniforms,
+    fine noise."""
+    sc, sf = render.num_coarse_samples, render.num_fine_samples
+    std = render.density_noise_std
+
+    def noise(n):
+        if std == 0.0:
+            return torch.zeros((num_rays, n), device=device)
+        if generator is None:
+            raise ValueError("density noise requires a torch.Generator")
+        return std * torch.randn((num_rays, n), generator=generator, device=device)
+
+    t_coarse = sample_linear(generator, (num_rays,), sc, render.near, render.far,
+                             randomly_sample=render.randomly_sample, device=device)
+    noise_c = noise(sc)
+    if sf == 0:
+        return StepDraws(t_coarse, noise_c)
+    u = pdf_uniforms(generator, (num_rays,), sf, randomly_sample=render.randomly_sample,
+                     device=device)
+    return StepDraws(t_coarse, noise_c, u, noise(sf if render.reuse_coarse_in_fine else sc + sf))

@@ -1,5 +1,6 @@
-"""Analytic operation counts (counterpart of ``classic_flops_per_point`` in
-``nerf_tpu/utils/profiling.py``), used for the kernels' bounds."""
+"""Analytic operation counts (counterpart of ``classic_flops_per_point`` and
+``train_step_flops`` in ``nerf_tpu/utils/profiling.py``), used for the
+kernels' bounds."""
 
 from __future__ import annotations
 
@@ -19,3 +20,9 @@ def classic_flops_per_point(cfg) -> int:
         flops += 2 * h * h * (cfg.view_branch_depth - 1)
     flops += 2 * h * cfg.color_outputs
     return flops
+
+
+def train_step_flops(cfg, num_rays: int, num_samples: int) -> int:
+    """Forward plus backward (about twice the forward) matmul FLOPs of one
+    classic train step over ``num_rays * num_samples`` MLP points."""
+    return 3 * classic_flops_per_point(cfg) * num_rays * num_samples

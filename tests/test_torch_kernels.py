@@ -146,12 +146,21 @@ def test_bfloat16_is_not_implemented():
 
 
 def test_requires_grad_is_not_implemented():
+    """K1 has a backward now: under autograd it returns the gradient of
+    autograd through its plain version.  K4 is forward-only, as its JAX
+    counterpart, and still refuses inputs that require grad."""
     cfg, _, mlp = setup_variant("view")
     mlp.requires_grad_(True)
     packed = classic_mlp.pack_classic_params(mlp)  # built with autograd on
     x, d = mlp_inputs(cfg, n=8)
-    with pytest.raises(NotImplementedError, match="backward"):
-        classic_mlp.classic_mlp_fwd(packed, torch.from_numpy(x), torch.from_numpy(d))
+    g_out = torch.from_numpy(np.random.default_rng(1).normal(size=(8, 4)).astype(np.float32))
+    out = classic_mlp.classic_mlp_fwd(packed, torch.from_numpy(x), torch.from_numpy(d))
+    got = torch.autograd.grad(out, list(mlp.parameters()), g_out)
+    ref_out = classic_mlp.classic_mlp_fwd_plain(
+        classic_mlp.pack_classic_params(mlp), torch.from_numpy(x), torch.from_numpy(d))
+    ref = torch.autograd.grad(ref_out, list(mlp.parameters()), g_out)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
     a = to_torch(union_inputs(cfg, rays=2))
     with pytest.raises(NotImplementedError, match="backward"):
         union_eval.union_eval(packed, **a)

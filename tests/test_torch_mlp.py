@@ -93,6 +93,8 @@ def test_full_width_param_count_and_state_dict_keys():
     assert len(mlp.state_dict()) == 44
     assert profiling.classic_flops_per_point(cfg) == jprof.classic_flops_per_point(JaxConfig())
     assert profiling.classic_flops_per_point(cfg) == 2 * 630_784
+    assert profiling.train_step_flops(cfg, 4096, 64) == jprof.train_step_flops(
+        JaxConfig(), 4096, 64)
 
 
 def test_init_is_torch_default_distribution_and_seeded():
