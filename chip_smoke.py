@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit (``nvidia-smi``).
-2. Builds the port's five CUDA kernels from ``nerf_tpu_torch/csrc`` with
+2. Builds the port's nine CUDA kernels from ``nerf_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together) and prints the
    seconds it took and each kernel's registers and spills.
 3. Serving (slice 1): holds K1-fwd (``classic_mlp_fwd``, 262,144 points)
@@ -29,17 +29,39 @@
 6. Holds K1-bwd, K2 and K3 against their plain versions on the inputs the
    trainer gave them (K1-bwd with random cotangents), with their times and
    bounds.
-7. Prints the kernels' JSON line, the card line, then, last, the device
+7. Mip serving (slice 3): holds K7 (``mip_eval``) against its plain version
+   on the first 4000-ray tile of the frame, then renders one 400x400 frame
+   of 64 log-bbox fenceposts (63 intervals) through ``MipNeRF.render_image``
+   with the kernels (the counters are zeroed just before and must read 40
+   ``mip_eval`` and nothing else after) and once through the plain path,
+   and compares the rgb and segmentation images; the segmentation output
+   must satisfy logsumexp_c seg_c = log(acc + 63e-10) at every pixel.
+8. Mip fused training, the main path: the full-width MipNeRF on a
+   labelled synthetic scene through ``make_fused_multi_step_train_fn`` at
+   4096 rays x 64 fenceposts, stratified jitter, density noise 1.0,
+   segmentation weight 0.1, Adam at lr 1e-4.  One step's loss and
+   gradients against the plain path, then warm-up and timed steps, each
+   launching one K6 (``mip_train_grads``) and nothing else; every loss
+   finite, the probe batch's loss lower after the run; ms/step and rays/s.
+9. Mip general path: one ``make_train_step`` step of ``MipNeRF(use_pallas=
+   True)`` launches one K5-fwd and one K5-bwd, and its gradients match the
+   ``use_pallas=False`` step's.
+10. Holds K5-fwd (258,048 random feature rows), K5-bwd (the same rows,
+   random cotangents) and K6 (the trainer's inputs) against their plain
+   versions, with their times and bounds.
+11. Prints the kernels' JSON line, the card line, then, last, the device
    line.
 
-The model is the full-width ClassicNeRF (hidden 256, 60 + 36 encoding
-widths, 638,468 parameters) with random weights from seed 0.  Its density
+The classic model is the full-width ClassicNeRF (hidden 256, 60 + 36
+encoding widths, 638,468 parameters) with random weights from seed 0.  Its density
 head is set to a small positive density everywhere (bias 0.5, weights
 x 0.05): with the raw init about half the coarse intervals are empty, and
 the fine sampler inverts a cdf with bins of 1e-5 mass, which turns a 1-ulp
 difference of the coarse weights into a visible shift of the fine samples;
 with mass in every bin the kernel path and the plain path agree to float32
-rounding.
+rounding.  The mip model is the full-width MipNeRF (hidden 256, 96 IPE
+features, 5 layers, 3 + 50 outputs, 304,438 parameters) with random
+weights from seed 0.
 
 Exits non-zero, with no result line, when there is no CUDA device or a
 check fails.
@@ -56,7 +78,7 @@ import time
 
 import torch
 
-from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, RenderConfig
+from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, MipNeRF, MipNeRFConfig, RenderConfig
 from nerf_tpu_torch.data import RayBank, synthesize_scene
 from nerf_tpu_torch.data.scenes import spherical_poses
 from nerf_tpu_torch.ops import sampling
@@ -65,16 +87,24 @@ from nerf_tpu_torch.ops.kernels import (
     _build,
     classic_mlp,
     fine_stage_train,
+    mip_mlp,
+    mip_train,
     train_grads,
     union_eval,
 )
 from nerf_tpu_torch.train import (
     create_train_state,
+    loop,
     make_fused_loss_and_grads,
     make_fused_multi_step_train_fn,
     make_loss_fn,
+    make_train_step,
 )
-from nerf_tpu_torch.utils.profiling import classic_flops_per_point, train_step_flops
+from nerf_tpu_torch.utils.profiling import (
+    classic_flops_per_point,
+    mip_flops_per_point,
+    train_step_flops,
+)
 
 # Published H100 SXM peaks (NVIDIA's data sheet): float32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -99,6 +129,15 @@ COARSE_RENDER = RenderConfig(
 COARSE_RAYS = 4096
 LEARNING_RATE = 1e-4
 WARMUP_STEPS, TIMED_STEPS = 2, 20
+# The mip configurations (bench.py's mip cell with the segmentation CE on,
+# as __graft_entry__.py trains it, and the mip serving frame).
+MIP_RENDER = RenderConfig(num_coarse_samples=64, randomly_sample=False, density_noise_std=0.0,
+                          rays_per_tile=4000)
+MIP_TRAIN_RENDER = RenderConfig(num_coarse_samples=64, randomly_sample=True,
+                                density_noise_std=1.0)
+MIP_RAYS = 4096
+SEG_WEIGHT = 0.1
+K5_POINTS = MIP_RAYS * (MIP_TRAIN_RENDER.num_coarse_samples - 1)
 # Stated tolerances.  K1: float32 FMAs summed in another order than
 # cuBLAS's, through ten LayerNorm'd layers.  K4: the same MLP, then the
 # transmittance summed in merged order where the plain version sums two
@@ -108,10 +147,21 @@ WARMUP_STEPS, TIMED_STEPS = 2, 20
 # within rounding of 0 and take the other branch in one of two float32
 # evaluations, each moving its row's gradient.  Losses: sums of per-ray
 # terms in another order.
+# K5-fwd: float32 FMAs summed in another order than cuBLAS's, through five
+# LayerNorm'd layers.  K7: the same, then the transmittance as the
+# exponential of a prefix sum of logs where the plain version takes a
+# cumulative product, and the class composite's max and exp-sum over the
+# rows in another order.  Mip frame: both paths' differences; the
+# segmentation images are log-probabilities, compared absolutely.  The
+# seg/acc identity: a log-sum-exp of 50 float32 log-probabilities.
 TOL = {
     "classic_mlp_fwd": dict(rtol=1e-4, atol=1e-4),
     "union_eval": dict(rtol=5e-4, atol=1e-4),
     "frame": dict(rtol=0.0, atol=1e-3),
+    "mip_mlp_fwd": dict(rtol=1e-4, atol=1e-4),
+    "mip_eval": dict(rtol=1e-4, atol=1e-4),
+    "mip_frame": dict(rtol=0.0, atol=1e-3),
+    "seg_identity": dict(rtol=0.0, atol=1e-4),
 }
 GRAD_REL_L2 = 1e-2
 LOSS_RTOL = 1e-4
@@ -126,6 +176,14 @@ SOURCES = {
                     "nerf_tpu/ops/pallas/fused_train.py:524"),
     "fine_stage_train": ("nerf_tpu_torch/csrc/fine_stage_train.cu",
                          "nerf_tpu/ops/pallas/fused_hier.py:769"),
+    "mip_mlp_fwd": ("nerf_tpu_torch/csrc/mip_mlp_fwd.cu",
+                    "nerf_tpu/ops/pallas/fused_mip_mlp.py:207"),
+    "mip_mlp_bwd": ("nerf_tpu_torch/csrc/mip_mlp_bwd.cu",
+                    "nerf_tpu/ops/pallas/fused_mip_mlp.py:244"),
+    "mip_eval": ("nerf_tpu_torch/csrc/mip_eval.cu",
+                 "nerf_tpu/ops/pallas/fused_mip_train.py:515"),
+    "mip_train_grads": ("nerf_tpu_torch/csrc/mip_train_grads.cu",
+                        "nerf_tpu/ops/pallas/fused_mip_train.py:366"),
 }
 
 
@@ -255,6 +313,11 @@ def make_model(use_pallas: bool, device) -> ClassicNeRF:
         model.mlp.density.bias.fill_(0.5)
         model.mlp.density.weight.mul_(0.05)
     return model
+
+
+def make_mip_model(use_pallas: bool, device) -> MipNeRF:
+    cfg = MipNeRFConfig(use_pallas=use_pallas)
+    return MipNeRF(cfg, generator=torch.Generator().manual_seed(0), device=device)
 
 
 def kernel_row(name, launches, max_abs, ms, plain_ms, flops, nbytes) -> dict:
@@ -482,6 +545,236 @@ def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
     return rows
 
 
+def mip_serving(device, flops_per_point: int) -> dict:
+    """Phase 7: K7 against its plain version, then the mip frame.  Returns
+    K7's row."""
+    model = make_mip_model(True, device).eval().requires_grad_(False)
+    plain_model = make_mip_model(False, device).eval().requires_grad_(False)
+    weight_bytes = tensor_bytes(*mip_mlp.pack_mip_params(model.mlp).values())
+    pose_o, pose_r = spherical_poses(1, radius=4.0, device=device)
+    rows_per_ray = MIP_RENDER.num_coarse_samples - 1
+
+    store = {}
+    rays_o, rays_d = (r.reshape(-1, 3)[: MIP_RENDER.rays_per_tile] for r in
+                      pose_to_rays(pose_o, pose_r, IMAGE, IMAGE, FOCAL))
+    with torch.no_grad(), capture_args(mip_train, "mip_eval", store):
+        model.render_rays(rays_o, rays_d, MIP_RENDER, fused_eval=True)
+    args = store["mip_eval"][0]
+    with torch.no_grad():
+        got = mip_train.mip_eval(*args)
+        ref = mip_train.mip_eval_plain(*args)
+        torch.cuda.synchronize()
+        err = compare("mip_eval", got, ref)
+        ms = cuda_ms(lambda: mip_train.mip_eval(*args), iters=5)
+        plain_ms = cuda_ms(lambda: mip_train.mip_eval_plain(*args), iters=5)
+    feat, dists, t_mids = args[1:4]
+    k7 = dict(max_abs=err, ms=ms, plain_ms=plain_ms,
+              flops=feat.shape[0] * feat.shape[1] * flops_per_point,
+              nbytes=tensor_bytes(feat, dists, t_mids, *got) + weight_bytes)
+
+    n_tiles = -(-IMAGE * IMAGE // MIP_RENDER.rays_per_tile)
+
+    def render(m):
+        return m.render_image(pose_o, pose_r, IMAGE, IMAGE, FOCAL, MIP_RENDER)
+
+    render(model)  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    rgb, seg = render(model)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.launch_counts)
+    print(f"mip frame through the kernels: {frame_ms:.1f} ms; launches {launches}", flush=True)
+    check(launches == {"mip_eval": n_tiles},
+          f"K7 launched once per tile ({n_tiles} tiles), nothing else")
+
+    render(plain_model)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_rgb, plain_seg = render(plain_model)
+    torch.cuda.synchronize()
+    plain_frame_ms = (time.perf_counter() - t0) * 1e3
+    print(f"mip frame through the plain path: {plain_frame_ms:.1f} ms", flush=True)
+    classes = model.cfg.segmentation_outputs
+    check(rgb.shape == (1, IMAGE, IMAGE, 3) and seg.shape == (1, IMAGE, IMAGE, classes),
+          f"mip image shapes {tuple(rgb.shape)}, {tuple(seg.shape)}")
+    check(bool(torch.isfinite(rgb).all() and torch.isfinite(seg).all()), "mip images are finite")
+    check(float(rgb.min()) >= -1e-5 and float(rgb.max()) <= 1.0 + 1e-5,
+          f"mip pixels in [0, 1] (min {float(rgb.min()):.4f}, max {float(rgb.max()):.4f})")
+    check(float(rgb.std()) > 1e-3, f"mip image is not flat (std {float(rgb.std()):.4f})")
+    pixel_err = compare("mip_frame", [rgb, seg], [plain_rgb, plain_seg])
+    # sum_c exp(seg_c) = sum_i (w_i + 1e-10) sum_c softmax_ic = acc + R * 1e-10
+    # at every pixel, acc from the same kernel tile by tile.
+    all_o, all_d = (r.reshape(-1, 3) for r in pose_to_rays(pose_o, pose_r, IMAGE, IMAGE, FOCAL))
+    tile = MIP_RENDER.rays_per_tile
+    with torch.no_grad():
+        acc = torch.cat([model.render_rays(all_o[i:i + tile], all_d[i:i + tile], MIP_RENDER,
+                                           fused_eval=True).acc
+                         for i in range(0, all_o.shape[0], tile)])
+    lse = torch.logsumexp(seg.reshape(-1, classes), dim=-1)
+    identity_err = compare("seg_identity", [lse], [torch.log(acc + rows_per_ray * 1e-10)])
+    print(f"mip frame: {frame_ms:.1f} ms through the kernels, {plain_frame_ms:.1f} ms plain, "
+          f"max pixel difference {pixel_err:.3e}, seg/acc identity error {identity_err:.3e}")
+    return {"mip_eval": (launches["mip_eval"], k7)}
+
+
+def mip_training(device, store: dict) -> dict:
+    """Phases 8 and 9.  Returns the launches of the timed fused steps and of
+    the general-path step; the first call of K6 in the warm-up has its
+    arguments recorded in ``store``."""
+    t0 = time.perf_counter()
+    scene = synthesize_scene(num_views=8, image_hw=64, focal=80.0, with_labels=True,
+                             device=device)
+    bank = RayBank.from_images(scene.images, scene.pose_o, scene.pose_r, scene.focal,
+                               labels=scene.labels)
+    torch.cuda.synchronize()
+    print(f"labelled synthetic scene: {tuple(scene.images.shape)} on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    render = MIP_TRAIN_RENDER
+
+    def draws_for(gen, model):
+        return loop.draws_for_model(gen, model, render, MIP_RAYS, device)
+
+    # One fused step against the plain path: same weights, same draws.
+    gen = torch.Generator(device=device).manual_seed(7)
+    batch = bank.sample_batch(gen, MIP_RAYS)
+    draws = draws_for(gen, make_mip_model(True, device))
+    loss, grads, _ = make_fused_loss_and_grads(make_mip_model(True, device), render,
+                                               SEG_WEIGHT)(batch, draws)
+    plain = make_mip_model(False, device)
+    with torch.enable_grad():
+        ref_loss, _ = make_loss_fn(plain, render, SEG_WEIGHT)(batch, draws)
+    names, params = zip(*plain.named_parameters())
+    ref = dict(zip(names, torch.autograd.grad(ref_loss, params)))
+    compare_grads("mip fused step", grads, ref, loss, ref_loss.detach())
+
+    # Warm-up, then timed fused steps with the counters zeroed just before.
+    model = make_mip_model(True, device)
+    state = create_train_state(model, LEARNING_RATE, seed=0)
+    gen = torch.Generator(device=device).manual_seed(99)
+    probe = (bank.sample_batch(gen, MIP_RAYS), draws_for(gen, model))
+    probe_loss = make_fused_loss_and_grads(model, render, SEG_WEIGHT)
+    loss_before = float(probe_loss(*probe)[0])
+    warm = make_fused_multi_step_train_fn(model, render, bank, MIP_RAYS, WARMUP_STEPS,
+                                          SEG_WEIGHT)
+    timed = make_fused_multi_step_train_fn(model, render, bank, MIP_RAYS, TIMED_STEPS,
+                                           SEG_WEIGHT)
+    with capture_args(mip_train, "mip_train_grads", store):
+        state, aux_w = warm(state)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    state, aux = timed(state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    launches = dict(_build.launch_counts)
+    loss_after = float(probe_loss(*probe)[0])
+    losses = torch.cat([aux_w["loss"], aux["loss"]]).cpu()
+    name = "mip train 4096x64 seg 0.1"
+    print(f"{name}: {ms:.2f} ms/step, {MIP_RAYS / ms * 1e3:.0f} rays/s over {TIMED_STEPS} "
+          f"steps; launches {launches}; step losses {[round(float(v), 5) for v in losses]}",
+          flush=True)
+    check(launches == {"mip_train_grads": TIMED_STEPS},
+          f"{name}: each step launched {{'mip_train_grads': 1}} and nothing else")
+    check(bool(torch.isfinite(losses).all()), f"{name}: every loss is finite")
+    check(loss_after < loss_before,
+          f"{name}: the probe batch's loss fell from {loss_before:.6f} to {loss_after:.6f} "
+          f"over {WARMUP_STEPS + TIMED_STEPS} steps")
+
+    # Phase 9: one general-path step through K5 against the plain step.
+    step_grads = {}
+    for use_pallas in (True, False):
+        m = make_mip_model(use_pallas, device)
+        kept = {}
+        with capture_args(loop, "_apply", kept):
+            _build.launch_counts.clear()
+            make_train_step(m, render, SEG_WEIGHT)(create_train_state(m, LEARNING_RATE),
+                                                    batch, draws)
+            torch.cuda.synchronize()
+            if use_pallas:
+                general = dict(_build.launch_counts)
+        _, g, step_aux = kept["_apply"][0]
+        step_grads[use_pallas] = (g, step_aux["loss"].detach())
+    print(f"mip general step: launches {general}")
+    check(general == {"mip_mlp_fwd": 1, "mip_mlp_bwd": 1},
+          "mip general step launched one K5-fwd and one K5-bwd, nothing else")
+    compare_grads("mip general step", step_grads[True][0], step_grads[False][0],
+                  step_grads[True][1], step_grads[False][1])
+    return {"fused": (launches, ms), "general": general}
+
+
+def mip_kernels_against_plain(store: dict, device) -> dict:
+    """Phase 10: K5-fwd and K5-bwd on random rows, K6 on the trainer's
+    recorded arguments, against their plain versions with their times;
+    returns their rows' numbers."""
+    cfg = MipNeRFConfig()
+    flops_per_point = mip_flops_per_point(cfg)
+    packed = mip_mlp.pack_mip_params(make_mip_model(True, device).mlp.requires_grad_(False))
+    weight_bytes = tensor_bytes(*packed.values())
+    gen = torch.Generator(device=device).manual_seed(9)
+    feat = torch.rand((K5_POINTS, cfg.feature_dim), generator=gen, device=device) * 2 - 1
+    g_out = torch.rand((K5_POINTS, cfg.num_outputs), generator=gen, device=device) * 2 - 1
+    rows = {}
+    got = mip_mlp.mip_mlp_fwd(packed, feat)
+    ref = mip_mlp.mip_mlp_fwd_plain(packed, feat)
+    torch.cuda.synchronize()
+    err = compare("mip_mlp_fwd", [got], [ref])
+    ms = cuda_ms(lambda: mip_mlp.mip_mlp_fwd(packed, feat), iters=10)
+    plain_ms = cuda_ms(lambda: mip_mlp.mip_mlp_fwd_plain(packed, feat), iters=10)
+    rows["mip_mlp_fwd"] = dict(max_abs=err, ms=ms, plain_ms=plain_ms,
+                               flops=K5_POINTS * flops_per_point,
+                               nbytes=tensor_bytes(feat, got) + weight_bytes)
+
+    # As the general path calls it: the features need no gradient.
+    got = mip_mlp.mip_mlp_bwd(packed, feat, g_out, input_grads=False)
+    ref = mip_mlp.mip_mlp_bwd_plain(packed, feat, g_out, input_grads=False)
+    err = compare_grads("mip_mlp_bwd", got[1], ref[1])
+    ms = cuda_ms(lambda: mip_mlp.mip_mlp_bwd(packed, feat, g_out, input_grads=False), iters=5)
+    plain_ms = cuda_ms(
+        lambda: mip_mlp.mip_mlp_bwd_plain(packed, feat, g_out, input_grads=False), iters=3)
+    rows["mip_mlp_bwd"] = dict(max_abs=err, ms=ms, plain_ms=plain_ms,
+                               flops=train_step_flops(cfg, K5_POINTS, 1, mip=True),
+                               nbytes=tensor_bytes(feat, g_out) + 2 * weight_bytes)
+
+    args, kwargs = store["mip_train_grads"]
+    got = mip_train.mip_train_grads(*args, **kwargs)
+    ref = mip_train.mip_train_grads_plain(*args, **kwargs)
+    err = compare_grads("mip_train_grads", got[2], ref[2], got[0] + SEG_WEIGHT * got[1],
+                        ref[0] + SEG_WEIGHT * ref[1])
+    ms = cuda_ms(lambda: mip_train.mip_train_grads(*args, **kwargs), iters=5)
+    plain_ms = cuda_ms(lambda: mip_train.mip_train_grads_plain(*args, **kwargs), iters=3)
+    feat_t = args[1]
+    print(f"mip_train_grads at {feat_t.shape[0]} rays x {feat_t.shape[1]} rows, "
+          f"seg weight {args[7]}")
+    rows["mip_train_grads"] = dict(
+        max_abs=err, ms=ms, plain_ms=plain_ms,
+        flops=train_step_flops(cfg, *feat_t.shape[:2], mip=True),
+        nbytes=tensor_bytes(*[a for a in args[1:6] if isinstance(a, torch.Tensor)])
+        + 2 * weight_bytes + 8)
+    return rows
+
+
+def mip_phases(device) -> dict:
+    """Phases 7-10 (slice 3).  Returns the four mip kernels' rows."""
+    cfg = MipNeRFConfig()
+    rows = mip_serving(device, mip_flops_per_point(cfg))
+    store = {}
+    runs = mip_training(device, store)
+    with torch.no_grad():
+        k_rows = mip_kernels_against_plain(store, device)
+    fused_launches, fused_ms = runs["fused"]
+    rows["mip_mlp_fwd"] = (runs["general"]["mip_mlp_fwd"], k_rows["mip_mlp_fwd"])
+    rows["mip_mlp_bwd"] = (runs["general"]["mip_mlp_bwd"], k_rows["mip_mlp_bwd"])
+    rows["mip_train_grads"] = (fused_launches["mip_train_grads"], k_rows["mip_train_grads"])
+    bound_ms = train_step_flops(cfg, MIP_RAYS, MIP_TRAIN_RENDER.num_coarse_samples - 1,
+                                mip=True) / PEAK_FP32_FLOPS * 1e3
+    print(f"mip training: fused 4096x64 with seg CE {fused_ms:.2f} ms/step = "
+          f"{MIP_RAYS / fused_ms * 1e3:.0f} rays/s (bound {bound_ms:.2f} ms = "
+          f"{MIP_RAYS / bound_ms * 1e3:.0f} rays/s)")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -513,11 +806,12 @@ def main() -> int:
     cfg = ClassicNeRFConfig(normalize_position=6.0)
     rows = serving(device, classic_flops_per_point(cfg))
     rows.update(training(device, cfg))
+    rows.update(mip_phases(device))
 
-    # 7. Result lines.
-    print(card)
+    # 11. Result lines.
     print(json.dumps({"kernels": [kernel_row(name, launches, **row)
                                   for name, (launches, row) in rows.items()]}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,7 @@ from nerf_tpu_torch.config import (
     RenderConfig,
     TrainConfig,
 )
-from nerf_tpu_torch.models.nerf import ClassicNeRF, RenderOutput
+from nerf_tpu_torch.models.nerf import ClassicNeRF, MipNeRF, RenderOutput
 
 __version__ = "0.1.0"
 
@@ -22,6 +22,7 @@ __all__ = [
     "ClassicNeRF",
     "ClassicNeRFConfig",
     "MeshConfig",
+    "MipNeRF",
     "MipNeRFConfig",
     "RenderConfig",
     "RenderOutput",

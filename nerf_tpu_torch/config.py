@@ -97,7 +97,11 @@ class MipNeRFConfig:
     bbox_min: Tuple[float, float, float] = (-20.0, -20.0, -20.0)
     bbox_max: Tuple[float, float, float] = (20.0, 20.0, 20.0)
     ray_shape: str = "cone"
-    # Fused point-MLP kernel (not ported yet: the mip family runs plain).
+    # Take the fused path through the hand-written CUDA kernels
+    # (ops/kernels/mip_mlp.py for the MLP under autograd, and
+    # ops/kernels/mip_train.py for the deterministic render and the fused
+    # train step).  The name is kept from the JAX package.  Given CPU
+    # tensors the kernel wrappers run their plain PyTorch versions.
     use_pallas: bool = False
     # Matmul input dtype ("float32" or "bfloat16"); see ClassicNeRFConfig.
     compute_dtype: str = "float32"

@@ -1,6 +1,7 @@
 // Device code of the classic NeRF point MLP, shared by the K1 forward
 // kernel (classic_mlp_fwd.cu) and the K4 fine-stage union kernel
-// (union_eval.cu).
+// (union_eval.cu); its product, epilogue and head also carry the mip MLP
+// (mip_mlp.cuh).
 //
 // The network (nerf_tpu_torch/models/mlp.py): ten layers of
 // Linear -> ReLU -> LayerNorm(eps 1e-5),
@@ -74,6 +75,12 @@ __host__ inline size_t mlp_side_floats(int xe, int de) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
   return v;
 }
 
@@ -214,10 +221,12 @@ struct Save {
   int nvalid;   // valid rows of this tile
 };
 
-// acc <- LayerNorm(relu(acc + b)) * g + beta, row by row, in registers.
-// With kSave, also writes layer `layer`'s xhat and statistics to save.
-template <int H, bool kSave = false>
-__device__ __forceinline__ void bias_relu_ln(float (&acc)[kRowsPerWarp][H / 32],
+// A layer's epilogue, row by row, in registers: acc <- LayerNorm(relu(acc
+// + b)) * g + beta (the classic order) or, with kLnFirst, relu(LayerNorm(acc
+// + b) * g + beta) (the mip order).  With kSave, also writes layer
+// `layer`'s xhat (the normalised LayerNorm input) and statistics to save.
+template <int H, bool kSave = false, bool kLnFirst = false>
+__device__ __forceinline__ void layer_epilogue(float (&acc)[kRowsPerWarp][H / 32],
                                              const float* __restrict__ b,
                                              const float* __restrict__ g,
                                              const float* __restrict__ beta,
@@ -236,7 +245,7 @@ __device__ __forceinline__ void bias_relu_ln(float (&acc)[kRowsPerWarp][H / 32],
     float s = 0.f;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-      acc[r][j] = fmaxf(acc[r][j] + bj[j], 0.f);
+      acc[r][j] = kLnFirst ? acc[r][j] + bj[j] : fmaxf(acc[r][j] + bj[j], 0.f);
       s += acc[r][j];
     }
     const float mu = warp_sum(s) * (1.0f / H);
@@ -261,7 +270,10 @@ __device__ __forceinline__ void bias_relu_ln(float (&acc)[kRowsPerWarp][H / 32],
       }
     }
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[r][j] = (acc[r][j] - mu) * inv * gj[j] + betaj[j];
+    for (int j = 0; j < kCols; ++j) {
+      const float y = (acc[r][j] - mu) * inv * gj[j] + betaj[j];
+      acc[r][j] = kLnFirst ? fmaxf(y, 0.f) : y;
+    }
   }
 }
 
@@ -316,13 +328,13 @@ __device__ void mlp_tile(const Weights& w, const float* xs, const float* ds,
 
   zero<H>(acc);
   gemm_acc<H>(acc, xs, xld, w.xe, w.w0, wbuf);
-  bias_relu_ln<H, kSave>(acc, w.b, w.g, w.beta, save, 0);
+  layer_epilogue<H, kSave>(acc, w.b, w.g, w.beta, save, 0);
   store_rows<H>(acc, act);
   for (int i = 1; i < 8; ++i) {
     zero<H>(acc);
     gemm_acc<H>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
     if (i == 4) gemm_acc<H>(acc, xs, xld, w.xe, w.wx, wbuf);
-    bias_relu_ln<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
+    layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
     store_rows<H>(acc, act);
   }
   head<H>(acc, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
@@ -331,7 +343,7 @@ __device__ void mlp_tile(const Weights& w, const float* xs, const float* ds,
       zero<H>(acc);
       gemm_acc<H>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
       if (i == 8) gemm_acc<H>(acc, ds, dld, w.de, w.wd, wbuf);
-      bias_relu_ln<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
+      layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
       if (i == 8) store_rows<H>(acc, act);
     }
   }

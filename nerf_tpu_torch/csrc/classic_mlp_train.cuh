@@ -1,6 +1,7 @@
 // Device code of the classic NeRF MLP's backward, shared by the K1 backward
 // (classic_mlp_bwd.cu), the coarse-only train kernel K2 (train_grads.cu)
-// and the fine-stage train kernel K3 (fine_stage_train.cu).
+// and the fine-stage train kernel K3 (fine_stage_train.cu); the mip MLP's
+// backward (mip_mlp.cuh) runs the same passes.
 //
 // The TPU kernels keep a tile's whole activation chain in VMEM and carry
 // the weight gradients in one VMEM block across a grid that runs in order.
@@ -176,9 +177,15 @@ __device__ void head_bwd(float (&acc)[kRowsPerWarp][H / 32], const float* gs, in
 
 // Layer i's LayerNorm and ReLU backward: acc holds dL/dh_i on entry and
 // dL/dpre_i on exit (also stored to dpre [L][P][H]); the tile's column
-// sums of dpre, dh * xhat and dh go to part_b, part_g, part_beta.
-template <int H>
-__device__ void layer_bwd(float (&acc)[kRowsPerWarp][H / 32], int i, const Weights& w,
+// sums of dpre, dy * xhat and dy go to part_b, part_g, part_beta, with dy
+// the cotangent of the LayerNorm's output.  The classic order (LayerNorm
+// after ReLU): dy = dh, and dpre takes the ReLU mask xhat > -mu/sigma.
+// kLnFirst, the mip order (ReLU after LayerNorm): dy = dh where the
+// LayerNorm output xhat * g + beta > 0, else 0.  g, beta: the layer's
+// LayerNorm scale and bias.
+template <int H, bool kLnFirst = false>
+__device__ void layer_bwd(float (&acc)[kRowsPerWarp][H / 32], int i,
+                          const float* __restrict__ g, const float* __restrict__ beta,
                           size_t P, size_t row0, int nvalid, const float* xhat,
                           const float* stats, float* dpre, float* part_b, float* part_g,
                           float* part_beta, float* red) {
@@ -197,10 +204,11 @@ __device__ void layer_bwd(float (&acc)[kRowsPerWarp][H / 32], int i, const Weigh
 #pragma unroll
     for (int j = 0; j < kCols; ++j) xh[r][j] = valid ? xhat[at * H + lane + 32 * j] : 0.f;
   }
-  float gj[kCols], s_b[kCols], s_g[kCols], s_beta[kCols];
+  float gj[kCols], bj[kCols], s_b[kCols], s_g[kCols], s_beta[kCols];
 #pragma unroll
   for (int j = 0; j < kCols; ++j) {
-    gj[j] = __ldg(w.g + i * H + lane + 32 * j);
+    gj[j] = __ldg(g + lane + 32 * j);
+    bj[j] = kLnFirst ? __ldg(beta + lane + 32 * j) : 0.f;
     s_b[j] = s_g[j] = s_beta[j] = 0.f;
   }
 #pragma unroll
@@ -210,6 +218,7 @@ __device__ void layer_bwd(float (&acc)[kRowsPerWarp][H / 32], int i, const Weigh
     float m1 = 0.f, m2 = 0.f;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
+      if (kLnFirst && !(fmaf(xh[r][j], gj[j], bj[j]) > 0.f)) acc[r][j] = 0.f;
       s_beta[j] += acc[r][j];
       s_g[j] = fmaf(acc[r][j], xh[r][j], s_g[j]);
       const float dxh = acc[r][j] * gj[j];
@@ -221,8 +230,9 @@ __device__ void layer_bwd(float (&acc)[kRowsPerWarp][H / 32], int i, const Weigh
     m2 = warp_sum(m2) * (1.0f / H);
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-      const float dp =
-          xh[r][j] > st[r].y ? st[r].x * (acc[r][j] - m1 - xh[r][j] * m2) : 0.f;
+      const float dp = kLnFirst || xh[r][j] > st[r].y
+                           ? st[r].x * (acc[r][j] - m1 - xh[r][j] * m2)
+                           : 0.f;
       acc[r][j] = dp;
       s_b[j] += dp;
       if (row < nvalid) dpre[at * H + lane + 32 * j] = dp;
@@ -337,7 +347,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     head_bwd<H>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H, nvalid,
                 p_wdens, wbuf);
   for (int i = last; i >= 0; --i) {
-    layer_bwd<H>(acc, i, w, PP, row0, nvalid, xhat, stats, dpre, p_b, p_g, p_beta, wbuf);
+    layer_bwd<H>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats, dpre, p_b,
+                 p_g, p_beta, wbuf);
     if (i == 0) break;
     store_rows<H>(acc, act);
     __syncthreads();
@@ -366,13 +377,16 @@ constexpr int kMaxProds = 12;
 
 // One weight slab's product.  The left operand is the raw encoding a
 // ([rows / div][a_ld], g == nullptr) or a layer's output rebuilt from its
-// xhat ([P][H], h = xhat * g + beta); the right one is dpre of layer
-// out_layer.  The result [M][N] goes to out_off of the flat gradient.
+// xhat ([P][H], h = xhat * g + beta, then relu(h) where relu is set: the
+// mip order); the right one, b [P][n], is a layer's dpre or a head's
+// output cotangents.  The result [M][n] goes to out_off of the flat
+// gradient.
 struct WProd {
   const float* a;
   const float* g;
   const float* beta;
-  int a_ld, M, div, out_layer;
+  const float* b;
+  int a_ld, M, n, div, relu;
   size_t out_off;
   int tiles_m, tiles_n;
 };
@@ -389,8 +403,7 @@ struct WProds {
 // buffered: the next step's operands are fetched into registers while the
 // current step's products run.  At most 128 registers, two blocks per SM.
 __global__ void __launch_bounds__(256, 2)
-    wgrad_kernel(WProds prods, const float* __restrict__ dpre, int P, int N, int k_chunk,
-                 float* __restrict__ wpart, size_t wfloats) {
+    wgrad_kernel(WProds prods, int P, int k_chunk, float* __restrict__ wpart, size_t wfloats) {
   constexpr int kSteps = kWK * kWT / 256;  // staged values per thread and operand
   __shared__ float4 As4[2][kWK * kWT / 4];
   __shared__ float4 Bs4[2][kWK * kWT / 4];
@@ -400,6 +413,7 @@ __global__ void __launch_bounds__(256, 2)
     ++pi;
   }
   const WProd pr = prods.p[pi];
+  const int N = pr.n;
   const int m0 = (t / pr.tiles_n) * kWT, n0 = (t % pr.tiles_n) * kWT;
   const int k_begin = blockIdx.y * k_chunk;
   const int k_end = min(P, k_begin + k_chunk);
@@ -410,7 +424,7 @@ __global__ void __launch_bounds__(256, 2)
   const float ga = a_ok && pr.g != nullptr ? __ldg(pr.g + m0 + sm) : 1.f;
   const float ba = a_ok && pr.g != nullptr ? __ldg(pr.beta + m0 + sm) : 0.f;
   const float* A = pr.a + m0 + sm;
-  const float* B = dpre + static_cast<size_t>(pr.out_layer) * P * N + n0 + sm;
+  const float* B = pr.b + n0 + sm;
 
   float ra[kSteps], rb[kSteps];
   auto fetch = [&](int k0) {
@@ -419,7 +433,8 @@ __global__ void __launch_bounds__(256, 2)
       const int p = k0 + kk0 + 2 * e;
       const bool in_k = p < k_end;
       const int row = pr.div == 1 ? p : p / pr.div;  // no division on the common path
-      ra[e] = in_k && a_ok ? fmaf(A[static_cast<size_t>(row) * pr.a_ld], ga, ba) : 0.f;
+      const float av = in_k && a_ok ? fmaf(A[static_cast<size_t>(row) * pr.a_ld], ga, ba) : 0.f;
+      ra[e] = pr.relu ? fmaxf(av, 0.f) : av;
       rb[e] = in_k && b_ok ? B[static_cast<size_t>(p) * N] : 0.f;
     }
   };
@@ -552,17 +567,18 @@ cudaError_t launch_mlp_backward(const Weights& w, const float* x, const float* d
   WProds prods{};
   int n = 0;
   size_t off = 0;
-  prods.p[n++] = WProd{x, nullptr, nullptr, w.xe, w.xe, 1, 0, off, tx, tn};
+  auto dpre = [&](int layer) { return s.dpre + layer * PP * H; };
+  prods.p[n++] = WProd{x, nullptr, nullptr, dpre(0), w.xe, w.xe, H, 1, 0, off, tx, tn};
   off += static_cast<size_t>(w.xe) * H;
-  prods.p[n++] = WProd{x, nullptr, nullptr, w.xe, w.xe, 1, 4, off, tx, tn};
+  prods.p[n++] = WProd{x, nullptr, nullptr, dpre(4), w.xe, w.xe, H, 1, 0, off, tx, tn};
   off += static_cast<size_t>(w.xe) * H;
   if (w.wd != nullptr) {
-    prods.p[n++] = WProd{d, nullptr, nullptr, w.de, w.de, d_div, 8, off, td, tn};
+    prods.p[n++] = WProd{d, nullptr, nullptr, dpre(8), w.de, w.de, H, d_div, 0, off, td, tn};
     off += static_cast<size_t>(w.de) * H;
   }
   for (int k = 0; k < L - 1; ++k) {
-    prods.p[n++] = WProd{s.xhat + k * PP * H, w.g + k * H, w.beta + k * H, H, H, 1, k + 1,
-                         off, tn, tn};
+    prods.p[n++] = WProd{s.xhat + k * PP * H, w.g + k * H, w.beta + k * H, dpre(k + 1), H, H,
+                         H, 1, 0, off, tn, tn};
     off += static_cast<size_t>(H) * H;
   }
   prods.n = n;
@@ -571,8 +587,8 @@ cudaError_t launch_mlp_backward(const Weights& w, const float* x, const float* d
   const size_t wf = wgrad_floats(w, H);
   int k_chunk = (P + s.splits - 1) / s.splits;
   k_chunk = (k_chunk + kWK - 1) / kWK * kWK;
-  wgrad_kernel<<<dim3(total_tiles, s.splits), 256, 0, stream>>>(prods, s.dpre, P, H, k_chunk,
-                                                                 s.wpart, wf);
+  wgrad_kernel<<<dim3(total_tiles, s.splits), 256, 0, stream>>>(prods, P, k_chunk, s.wpart,
+                                                                 wf);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = colsum(s.wpart, s.splits, wf, grads, s.tmp, stream)) != cudaSuccess) return err;
   return colsum(s.tpart, tiles, tile_floats(w, H), grads + wf, s.tmp, stream);
@@ -605,42 +621,68 @@ __device__ __forceinline__ float runs_exclusive_suffix(float part) {
   return lane == 31 ? 0.f : excl;
 }
 
+// A ray's alphas and transmittances on one warp: al[p] = exp(-relu(sigma(p))
+// * dist(p)) and tr[p] = prod_{q<p} (al[q] + 1e-10), the latter as the
+// exponential of the exclusive prefix of log(alpha + 1e-10): lane l owns
+// run l of ray_run_len(n) consecutive samples, and the prefix over runs is
+// a warp scan in fp32.  al and tr hold n floats each; tr[p] is written by
+// the lane that owns p.
+__device__ __forceinline__ int ray_run_len(int n) { return (n + 31) / 32; }
+
+template <class Sigma, class Dist>
+__device__ void ray_transmittance(int n, float* al, float* tr, Sigma sigma, Dist dist) {
+  const int lane = threadIdx.x & 31;
+  for (int p = lane; p < n; p += 32) al[p] = expf(-fmaxf(sigma(p), 0.f) * dist(p));
+  __syncwarp();
+  const int begin = min(n, lane * ray_run_len(n)), end = min(n, begin + ray_run_len(n));
+  float part = 0.f;
+  for (int p = begin; p < end; ++p) part += logf(al[p] + 1e-10f);
+  float prefix = runs_exclusive_prefix(part);
+  for (int p = begin; p < end; ++p) {
+    tr[p] = expf(prefix);
+    prefix += logf(al[p] + 1e-10f);
+  }
+}
+
+// A term of the objective that depends on the compositing weights beyond
+// the colour MSE, for composite_ray: forward(begin, end, al, tr) runs after
+// the weights are known (this lane's run [begin, end); a warp-wide call),
+// and grad(p, w) returns its dL/dw_p for the shared backward.  The K2 and
+// K3 objectives have none.
+struct NoWeightTerm {
+  __device__ void forward(int, int, const float*, const float*) {}
+  __device__ float grad(int, float) { return 0.f; }
+};
+
 // One ray's alpha compositing, its MSE against the pixel pix [c] and the
-// backward of both, on one warp (the K2 and K3 objectives).  The ray's n
-// samples in depth order come from functors: sigma(p), the noised density
-// logit; logit(p, ch), the colour logits; dist(p), the interval to the
-// next sample.  Lane l owns a run of consecutive samples; the exclusive
-// prefix of log(alpha + 1e-10) and the exclusive suffix of w * dL/dw are
-// warp scans in fp32.  The results go to on_weight(p, w), on_color_grad(p,
-// ch, g) and on_sigma_grad(p, g) (relu' = sigma > 0); returns loss_scale *
-// mean_c(err^2), err = rgb (+ off * (1 - acc)) - pix.  scratch: 3 n floats.
+// backward of both, on one warp (the K2, K3 and K6 objectives).  The ray's
+// n samples in depth order come from functors: sigma(p), the noised
+// density logit; logit(p, ch), the colour logits; dist(p), the interval to
+// the next sample.  The transmittances come from ray_transmittance; the
+// exclusive suffix of w * dL/dw is a warp scan in fp32, and term adds its
+// part of dL/dw (NoWeightTerm for none).  The results go to on_weight(p,
+// w), on_color_grad(p, ch, g) and on_sigma_grad(p, g) (relu' = sigma >
+// 0); returns loss_scale * mean_c(err^2), err = rgb (+ off * (1 - acc)) -
+// pix.  scratch: 3 n floats.
 template <class Sigma, class Logit, class Dist, class OnWeight, class OnColorGrad,
-          class OnSigmaGrad>
+          class OnSigmaGrad, class Term>
 __device__ float composite_ray(int n, int c, float off, const float* pix, float g_scale,
                                float loss_scale, float* scratch, Sigma sigma, Logit logit,
                                Dist dist, OnWeight on_weight, OnColorGrad on_color_grad,
-                               OnSigmaGrad on_sigma_grad) {
+                               OnSigmaGrad on_sigma_grad, Term& term) {
   const int lane = threadIdx.x & 31;
   float* al = scratch;  // alpha
   float* tr = al + n;   // transmittance
   float* gw = tr + n;   // dL/dw
-  for (int p = lane; p < n; p += 32) al[p] = expf(-fmaxf(sigma(p), 0.f) * dist(p));
-  __syncwarp();
-  const int run_len = (n + 31) / 32;
-  const int begin = min(n, lane * run_len), end = min(n, begin + run_len);
-  float part = 0.f;
-  for (int p = begin; p < end; ++p) part += logf(al[p] + 1e-10f);
-  float prefix = runs_exclusive_prefix(part);
+  ray_transmittance(n, al, tr, sigma, dist);
+  const int begin = min(n, lane * ray_run_len(n)), end = min(n, begin + ray_run_len(n));
 
   float rgb[kMaxColors];
 #pragma unroll
   for (int ch = 0; ch < kMaxColors; ++ch) rgb[ch] = 0.f;
   float acc = 0.f;
   for (int p = begin; p < end; ++p) {
-    const float t = expf(prefix);
-    tr[p] = t;
-    const float wgt = (1.f - al[p]) * t;
-    prefix += logf(al[p] + 1e-10f);
+    const float wgt = (1.f - al[p]) * tr[p];
 #pragma unroll
     for (int ch = 0; ch < kMaxColors; ++ch)
       if (ch < c) rgb[ch] = fmaf(wgt, sigmoid(logit(p, ch)), rgb[ch]);
@@ -659,10 +701,11 @@ __device__ float composite_ray(int n, int c, float off, const float* pix, float 
       g_rgb[ch] = err * g_scale;
     }
   }
+  term.forward(begin, end, al, tr);
 
   // Backward: colour cotangents and dL/dw per sample, then the suffix of
   // dL/dlog(T) = w * dL/dw.
-  part = 0.f;
+  float part = 0.f;
   for (int p = begin; p < end; ++p) {
     const float wgt = (1.f - al[p]) * tr[p];
     float g = 0.f;
@@ -674,6 +717,7 @@ __device__ float composite_ray(int n, int c, float off, const float* pix, float 
         on_color_grad(p, ch, wgt * sg * (1.f - sg) * g_rgb[ch]);
       }
     }
+    g += term.grad(p, wgt);
     gw[p] = g;
     part = fmaf(wgt, g, part);
   }

@@ -84,6 +84,7 @@ __global__ void __launch_bounds__(kThreads)
 
   // Merged position p holds coarse sample s = src[p] < Sc, or fine sample
   // s - Sc.
+  NoWeightTerm none;
   const float loss = composite_ray(
       n, c, white ? 1.f : 0.f, pix + static_cast<size_t>(ray) * c, g_scale, loss_scale,
       mt + 2 * n,
@@ -106,7 +107,8 @@ __global__ void __launch_bounds__(kThreads)
         const int s = src[p];
         if (s < Sc) g_dens_c[cbase + s] = gs;
         else gout[(fbase + s - Sc) * ld] = gs;
-      });
+      },
+      none);
   if (lane == 0) ray_loss[ray] = loss;
 }
 

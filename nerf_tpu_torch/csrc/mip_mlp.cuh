@@ -1,0 +1,297 @@
+// Device code of the HEAD (mip) NeRF point MLP, shared by K5-fwd
+// (mip_mlp_fwd.cu), K5-bwd (mip_mlp_bwd.cu), K6 (mip_train_grads.cu) and
+// K7 (mip_eval.cu).
+//
+// The network (nerf_tpu_torch/models/mlp.py::MipMLP): L layers of
+// Linear -> LayerNorm(eps 1e-5) -> ReLU, LayerNorm BEFORE ReLU (the reverse
+// of the classic order), L0 F -> H and L1..L(L-1) H -> H, then one head
+// Linear H -> O = 1 + colours + classes.  No skip, no view branch.
+//
+// The TPU kernels (fused_mip_mlp.py, fused_mip_train.py) keep all weights
+// and a tile's whole chain in VMEM.  Here the passes are the classic MLP's
+// (classic_mlp.cuh, classic_mlp_train.cuh), instantiated for this chain:
+//   * the forward tile: 64 rows per block of 8 warps, the product gemm_acc
+//     (weights streamed from L2 in double-buffered 8-row stages), the
+//     epilogue in registers with the LayerNorm first (layer_epilogue
+//     <kLnFirst>), and the 54-wide head as a register-tiled product
+//     (head_wide); with kSave it stores every layer's xhat and (1/sigma,
+//     -mu/sigma) for the backward;
+//   * mip_bwd_rows: the head's input cotangent (head_dh, the head's
+//     weights staged transposed), then per layer the mask on
+//     the rebuilt LayerNorm output xhat * g + beta > 0 and the LayerNorm
+//     backward (layer_bwd<kLnFirst>), dh = dpre @ W^T on the transposed
+//     hidden slabs, and optionally the features' cotangent;
+//   * wgrad: every dW as a product over the points, the head's too (its
+//     left operand relu(xhat * g + beta) of the last layer, its right one
+//     the output cotangents), then colsum of the partials in a fixed order.
+// The flat gradient: w_in, whh, w_out | b, g, beta, b_out.
+#pragma once
+
+#include "classic_mlp_train.cuh"
+
+namespace nerf_mlp {
+
+struct MipWeights {
+  const float* w_in;   // [F, H]
+  const float* whh;    // [L-1, H, H]
+  const float* b;      // [L, H] Linear biases
+  const float* g;      // [L, H] LayerNorm scales
+  const float* beta;   // [L, H] LayerNorm biases
+  const float* w_out;  // [H, O]
+  const float* b_out;  // [O]
+  int F, L, O;
+};
+
+// Floats of the weight-slab part (w_in, whh, w_out) of the flat gradient.
+__host__ inline size_t mip_wgrad_floats(const MipWeights& w, int H) {
+  return static_cast<size_t>(w.F) * H + static_cast<size_t>(w.L - 1) * H * H +
+         static_cast<size_t>(H) * w.O;
+}
+
+// Floats of one tile's partials: b, g, beta [L][H], b_out [O].
+__host__ __device__ inline size_t mip_tile_floats(const MipWeights& w, int H) {
+  return static_cast<size_t>(3 * w.L) * H + w.O;
+}
+
+// out[row * n + c] = h[row] . W[:, c] + bias[c] for c < n and the tile's
+// valid rows: a head wider than the classic ones (W row-major [H, n]).  A
+// dot product per output across the warp would cost five shuffles a row
+// and output; instead h goes through act (each warp its own rows) and each
+// lane accumulates columns c0 + lane and c0 + 32 + lane of a 64-column
+// block, W staged through wbuf (kChunk x H floats) in chunks of H / 4 rows
+// x 64 columns, read once per block.
+template <int H>
+__device__ void head_wide(const float (&h)[kRowsPerWarp][H / 32], float* act, float* wbuf,
+                          const float* __restrict__ W, const float* __restrict__ bias, int n,
+                          float* out, int nvalid) {
+  constexpr int kRows = H / 4;  // W rows per staged chunk: kRows * 64 = kChunk * H floats
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  store_rows<H>(h, act);
+  const float* a_rows = act + warp * kRowsPerWarp * H;
+  for (int c0 = 0; c0 < n; c0 += 64) {
+    float acc[kRowsPerWarp][2];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) acc[r][0] = acc[r][1] = 0.f;
+    for (int k0 = 0; k0 < H; k0 += kRows) {
+      // The chunk before is consumed, and this warp's rows of act written.
+      __syncthreads();
+      for (int i = threadIdx.x; i < kRows * 64; i += kThreads) {
+        const int c = c0 + i % 64;
+        wbuf[i] = c < n ? __ldg(W + static_cast<size_t>(k0 + i / 64) * n + c) : 0.f;
+      }
+      __syncthreads();
+      for (int kk = 0; kk < kRows; kk += 4) {
+        float4 a[kRowsPerWarp];
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r)
+          a[r] = *reinterpret_cast<const float4*>(a_rows + r * H + k0 + kk);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float wa = wbuf[(kk + q) * 64 + lane], wb = wbuf[(kk + q) * 64 + 32 + lane];
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r) {
+            const float av = q == 0 ? a[r].x : q == 1 ? a[r].y : q == 2 ? a[r].z : a[r].w;
+            acc[r][0] = fmaf(av, wa, acc[r][0]);
+            acc[r][1] = fmaf(av, wb, acc[r][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int row = warp * kRowsPerWarp + r;
+      if (row >= nvalid) continue;
+      if (c0 + lane < n) out[row * n + c0 + lane] = acc[r][0] + __ldg(bias + c0 + lane);
+      if (c0 + 32 + lane < n)
+        out[row * n + c0 + 32 + lane] = acc[r][1] + __ldg(bias + c0 + 32 + lane);
+    }
+  }
+}
+
+// The whole network on one 64-row tile whose features are already in
+// shared memory (xs, rows of round_up4(F) floats; see load_tile).  Writes
+// the O outputs of the tile's valid rows to out (row stride O).  act is the
+// [64][H] activation buffer, wbuf the [kChunk][H] weight chunk.
+template <int H, bool kSave>
+__device__ void mip_tile(const MipWeights& w, const float* xs, float* act, float* wbuf,
+                         float* out, int nvalid, const Save* save) {
+  const size_t hh = static_cast<size_t>(H) * H;
+  float acc[kRowsPerWarp][H / 32];
+  zero<H>(acc);
+  gemm_acc<H>(acc, xs, round_up4(w.F), w.F, w.w_in, wbuf);
+  layer_epilogue<H, kSave, true>(acc, w.b, w.g, w.beta, save, 0);
+  for (int i = 1; i < w.L; ++i) {
+    store_rows<H>(acc, act);
+    zero<H>(acc);
+    gemm_acc<H>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
+    layer_epilogue<H, kSave, true>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
+  }
+  head_wide<H>(acc, act, wbuf, w.w_out, w.b_out, w.O, out, nvalid);
+}
+
+// The forward over features x [P][F] in 64-row tiles -> out [P][O].  With
+// kSave every layer's xhat [L][P][H] and statistics [L][P][2] are stored
+// for the backward passes.  Two blocks per SM (at most 128 registers).
+template <int H, bool kSave>
+__global__ void __launch_bounds__(kThreads, 2)
+    mip_fwd_kernel(MipWeights w, const float* __restrict__ x, float* __restrict__ out, int P,
+                   float* xhat, float* stats) {
+  extern __shared__ float4 smem4[];
+  float* act = reinterpret_cast<float*>(smem4);
+  float* wbuf = act + kTileRows * H;
+  float* xs = wbuf + kChunk * H;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
+  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
+  load_tile(xs, x, row0, nvalid, w.F, 1);
+  __syncthreads();
+  const Save save{xhat, stats, static_cast<size_t>(P), row0, nvalid};
+  mip_tile<H, kSave>(w, xs, act, wbuf, out + row0 * w.O, nvalid, &save);
+}
+
+template <int H, bool kSave>
+cudaError_t launch_mip_fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
+                           float* stats, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(kTileRows) * H + static_cast<size_t>(kChunk) * H +
+                       static_cast<size_t>(kTileRows) * round_up4(w.F)) *
+                      sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      mip_fwd_kernel<H, kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int tiles = (P + kTileRows - 1) / kTileRows;
+  mip_fwd_kernel<H, kSave><<<tiles, kThreads, smem, stream>>>(w, x, out, P, xhat, stats);
+  return cudaGetLastError();
+}
+
+// acc += gs[:, 0:n] @ W^T for this warp's rows: the input cotangent of a
+// head W, row-major [H, n], from its output cotangents gs (shared memory,
+// row stride ldg, a multiple of 4 with columns n..ldg zero).  W^T streams
+// through wbuf (chunk_t_floats<H>()) in chunks of kChunk outputs, read
+// once per block, as gemm_acc_t stages a transposed slab.  Ends with a
+// block-wide barrier.
+template <int H>
+__device__ void head_dh(float (&acc)[kRowsPerWarp][H / 32], const float* gs, int ldg, int n,
+                        const float* __restrict__ W, float* wbuf) {
+  const float* a_rows = gs + (threadIdx.x >> 5) * kRowsPerWarp * ldg;
+  for (int q0 = 0; q0 < n; q0 += kChunk) {
+    for (int i = threadIdx.x; i < kChunk * H; i += kThreads) {
+      const int j = i / kChunk, qq = i % kChunk;
+      wbuf[qq * (H + 1) + j] = q0 + qq < n ? __ldg(W + static_cast<size_t>(j) * n + q0 + qq) : 0.f;
+    }
+    __syncthreads();
+    chunk_fma<H, H + 1>(acc, a_rows, ldg, q0, min(kChunk, round_up4(n - q0)), wbuf);
+    __syncthreads();
+  }
+}
+
+template <int H>
+__host__ inline size_t mip_bwd_rows_smem(const MipWeights& w) {
+  return (static_cast<size_t>(kTileRows) * H + chunk_t_floats<H>() +
+          static_cast<size_t>(kTileRows) * round_up4(w.O)) *
+         sizeof(float);
+}
+
+// One block per 64-row tile: from the output cotangents gout [P][O] down
+// through the layers, storing every layer's dpre and the tile's column sums
+// (b, g, beta, b_out) to its row of tpart; wt holds the hidden slabs
+// transposed; dx [P][F] is written when not null.  One block per SM, as the
+// classic bwd_rows.
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+    mip_bwd_rows_kernel(MipWeights w, const float* __restrict__ gout, int P, const float* xhat,
+                        const float* stats, const float* __restrict__ wt, float* dpre,
+                        float* tpart, float* dx) {
+  extern __shared__ float4 smem4[];
+  float* act = reinterpret_cast<float*>(smem4);  // dpre of the current layer
+  float* wbuf = act + kTileRows * H;             // weight chunk, or colsum scratch
+  float* gs = wbuf + chunk_t_floats<H>();        // [64][ldg] output cotangents
+  const int L = w.L, O = w.O, ldg = round_up4(O);
+  const size_t hh = static_cast<size_t>(H) * H, PP = static_cast<size_t>(P);
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
+  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
+  float* p_b = tpart + blockIdx.x * mip_tile_floats(w, H);
+  float* p_g = p_b + L * H;
+  float* p_beta = p_g + L * H;
+  float* p_bout = p_beta + L * H;
+
+  for (int i = threadIdx.x; i < kTileRows * ldg; i += kThreads) {
+    const int r = i / ldg, c = i % ldg;
+    gs[i] = r < nvalid && c < O ? gout[(row0 + r) * O + c] : 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x < O) {
+    float s = 0.f;
+    for (int r = 0; r < kTileRows; ++r) s += gs[r * ldg + threadIdx.x];
+    p_bout[threadIdx.x] = s;
+  }
+
+  float acc[kRowsPerWarp][H / 32];
+  zero<H>(acc);
+  head_dh<H>(acc, gs, ldg, O, w.w_out, wbuf);
+  for (int i = L - 1; i >= 0; --i) {
+    layer_bwd<H, true>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats,
+                       dpre, p_b, p_g, p_beta, wbuf);
+    if (i == 0) break;
+    store_rows<H>(acc, act);
+    __syncthreads();
+    zero<H>(acc);
+    gemm_acc<H>(acc, act, H, H, wt + (i - 1) * hh, wbuf);
+  }
+  // The features' cotangent dx = dpre_0 @ w_in^T, from the stored dpre.
+  __syncthreads();
+  if (dx != nullptr)
+    input_grad<H>(acc, act, wbuf, dpre, PP, row0, nvalid, 0, w.w_in, 0, nullptr, w.F, dx);
+}
+
+// The backward passes from the output cotangents gout [P][O] (the forward
+// ran with kSave into s): grads (the flat gradient, mip_wgrad_floats +
+// mip_tile_floats) and, when not null, dx.  x is the forward's features.
+template <int H>
+cudaError_t launch_mip_backward(const MipWeights& w, const float* x, const float* gout, int P,
+                                const Scratch& s, float* dx, float* grads,
+                                cudaStream_t stream) {
+  const int L = w.L;
+  transpose_slabs_kernel<<<dim3(H / 32, H / 32, L - 1), dim3(32, 8), 0, stream>>>(w.whh, H,
+                                                                                  s.wt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = mip_bwd_rows_smem<H>(w);
+  err = cudaFuncSetAttribute(mip_bwd_rows_kernel<H>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int tiles = (P + kTileRows - 1) / kTileRows;
+  mip_bwd_rows_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats, s.wt,
+                                                             s.dpre, s.tpart, dx);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const size_t PP = static_cast<size_t>(P);
+  const int th = (H + kWT - 1) / kWT;
+  auto xhat = [&](int layer) { return s.xhat + layer * PP * H; };
+  auto dpre = [&](int layer) { return s.dpre + layer * PP * H; };
+  WProds prods{};
+  int n = 0;
+  size_t off = 0;
+  prods.p[n++] = WProd{x, nullptr, nullptr, dpre(0), w.F, w.F, H, 1, 0, off,
+                       (w.F + kWT - 1) / kWT, th};
+  off += static_cast<size_t>(w.F) * H;
+  for (int k = 0; k < L - 1; ++k) {
+    prods.p[n++] = WProd{xhat(k), w.g + k * H, w.beta + k * H, dpre(k + 1), H, H, H, 1, 1, off,
+                         th, th};
+    off += static_cast<size_t>(H) * H;
+  }
+  prods.p[n++] = WProd{xhat(L - 1), w.g + (L - 1) * H, w.beta + (L - 1) * H, gout, H, H, w.O,
+                       1, 1, off, th, (w.O + kWT - 1) / kWT};
+  prods.n = n;
+  int total_tiles = 0;
+  for (int i = 0; i < n; ++i) total_tiles += prods.p[i].tiles_m * prods.p[i].tiles_n;
+  const size_t wf = mip_wgrad_floats(w, H);
+  int k_chunk = (P + s.splits - 1) / s.splits;
+  k_chunk = (k_chunk + kWK - 1) / kWK * kWK;
+  wgrad_kernel<<<dim3(total_tiles, s.splits), 256, 0, stream>>>(prods, P, k_chunk, s.wpart, wf);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = colsum(s.wpart, s.splits, wf, grads, s.tmp, stream)) != cudaSuccess) return err;
+  return colsum(s.tpart, tiles, mip_tile_floats(w, H), grads + wf, s.tmp, stream);
+}
+
+}  // namespace nerf_mlp

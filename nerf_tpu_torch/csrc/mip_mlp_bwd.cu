@@ -1,0 +1,55 @@
+// K5-bwd: the backward of the HEAD (mip) NeRF point MLP.  Given the IPE
+// features x [P, F] and the output cotangents g_out [P, O], returns dx
+// (optional) and the gradient of every packed weight, summed over the
+// points.
+//
+// Replaces the TPU kernel nerf_tpu/ops/pallas/fused_mip_mlp.py::_bwd_kernel
+// (pallas_call in _bwd_rule, the custom-VJP backward of mip_mlp_pallas),
+// which recomputes the forward per tile in VMEM and accumulates the weight
+// gradients across its sequential grid.
+//
+// Bound: operations.  The forward ran in another kernel (K5-fwd), so this
+// one recomputes it, as the TPU kernel does: forward + dh + dW = 3 x
+// 300,544 multiply-adds per point at the full-width model, against 384
+// bytes of input, 216 of cotangents and 384 of dx per point and 1.2 MB of
+// gradients.  At 258,048 points the operations bound is 6.94 ms at 67
+// TFLOP/s; the stored chain (xhat and dpre, 2 x 5 x 256 x 4 bytes per row
+// written and read) adds about 2.6 GB, 0.8 ms at 3.35 TB/s.
+//
+// Design (mip_mlp.cuh on classic_mlp_train.cuh): the recomputed forward
+// stores the chain to global scratch, a per-tile backward writes every
+// layer's dpre and the tile's column sums, a hand-written product over the
+// points gives dW in split chunks, and fixed-order sums of the partials
+// make the gradients repeatable (no atomics).
+//
+// Plain C interface for ctypes: returns a cudaError_t (0 on success).
+#include "mip_mlp.cuh"
+
+namespace {
+
+using namespace nerf_mlp;
+
+template <int H>
+cudaError_t run(const MipWeights& w, const float* x, const float* gout, float* dx, float* grads,
+                float* out, int P, const Scratch& s, cudaStream_t stream) {
+  cudaError_t err = launch_mip_fwd<H, true>(w, x, out, P, s.xhat, s.stats, stream);
+  if (err != cudaSuccess) return err;
+  return launch_mip_backward<H>(w, x, gout, P, s, dx, grads, stream);
+}
+
+}  // namespace
+
+extern "C" int mip_mlp_bwd(const float* x, const float* gout, float* dx, float* grads, int P,
+                           int F, int hidden, int L, int O, const float* w_in, const float* whh,
+                           const float* b, const float* g, const float* beta,
+                           const float* w_out, const float* b_out, float* xhat, float* stats,
+                           float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
+                           float* out, int splits, void* stream) {
+  if (L < 2 || L + 1 > kMaxProds || O < 1 || O > kThreads) return cudaErrorInvalidValue;
+  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
+  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H) static_cast<int>(run<H>(w, x, gout, dx, grads, out, P, s, st))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
+}

@@ -45,6 +45,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t base = static_cast<size_t>(ray) * S;
   const float* o = out + base * ld;
   float* g = gout + base * ld;
+  NoWeightTerm none;
   const float loss = composite_ray(
       S, c, white ? 1.f : 0.f, pix + static_cast<size_t>(ray) * c, g_scale, loss_scale,
       scratch + warp * 3 * S,
@@ -55,7 +56,7 @@ __global__ void __launch_bounds__(kThreads)
         if (weights_out != nullptr) weights_out[base + p] = wgt;
       },
       [&](int p, int ch, float gl) { g[p * ld + 1 + ch] = gl; },
-      [&](int p, float gs) { g[p * ld] = gs; });
+      [&](int p, float gs) { g[p * ld] = gs; }, none);
   if (lane == 0) ray_loss[ray] = loss;
 }
 

@@ -1,7 +1,9 @@
-"""The classic (v1.2-generation) NeRF MLP as a PyTorch module.
+"""The NeRF MLPs as PyTorch modules: the classic (v1.2-generation) MLP and
+the HEAD-generation (mip) MLP.
 
-Counterpart of the classic half of ``nerf_tpu/models/mlp.py``
-(``init_classic_mlp``, ``apply_classic_mlp``, ``count_params``):
+Counterpart of ``nerf_tpu/models/mlp.py`` (``init_classic_mlp``,
+``apply_classic_mlp``, ``init_mip_mlp``, ``apply_mip_mlp``,
+``count_params``).  The classic MLP:
 
 * ``block_0``: 4 x (Linear -> ReLU -> LayerNorm) on the x encoding;
 * ``block_1``: 4 more, the first on the skip concat ``[h, x_enc]``;
@@ -16,6 +18,12 @@ reference ``.pth`` checkpoint (``block_0.{0,3,6,9}`` Linears,
 ``block_0.{2,5,8,11}`` LayerNorms, ...).  Weights keep torch's
 ``(out, in)`` layout; ``utils/pth_import.py`` transposes to and from the JAX
 package's ``(in, out)``.
+
+The mip MLP (``MipMLP``) is ``num_hidden_layers`` x (Linear -> LayerNorm ->
+ReLU), LayerNorm BEFORE ReLU (the reverse of the classic order), then one
+Linear to ``1 + color + segmentation`` logits, in one ``nn.Sequential``
+named ``prediction_heads`` as the reference HEAD model has it (Linear at
+3i, LayerNorm at 3i+1, ReLU at 3i+2, the output Linear last).
 """
 
 from __future__ import annotations
@@ -26,9 +34,24 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from nerf_tpu_torch.config import ClassicNeRFConfig
+from nerf_tpu_torch.config import ClassicNeRFConfig, MipNeRFConfig
 
 LAYER_NORM_EPS = 1e-5
+
+
+@torch.no_grad()
+def _reset_parameters(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """torch's ``nn.Linear`` default distribution, U(+-1/sqrt(in)) for
+    weights and biases, drawn from ``generator`` (a CPU generator, so a
+    seed gives the same weights on every device); LayerNorms at identity."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            bound = 1.0 / math.sqrt(m.in_features)
+            for p in (m.weight, m.bias):
+                values = torch.empty(p.shape).uniform_(-bound, bound, generator=generator)
+                p.copy_(values)
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
 
 
 def _block(first_in: int, hidden: int, depth: int) -> nn.Sequential:
@@ -65,20 +88,9 @@ class ClassicMLP(nn.Module):
         self.reset_parameters(generator)
         self.to(device)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """torch's ``nn.Linear`` default distribution, U(+-1/sqrt(in)) for
-        weights and biases, drawn from ``generator`` (a CPU generator, so a
-        seed gives the same weights on every device); LayerNorms at
-        identity."""
-        for m in self.modules():
-            if isinstance(m, nn.Linear):
-                bound = 1.0 / math.sqrt(m.in_features)
-                for p in (m.weight, m.bias):
-                    values = torch.empty(p.shape).uniform_(-bound, bound, generator=generator)
-                    p.copy_(values)
-            elif isinstance(m, nn.LayerNorm):
-                m.reset_parameters()
+        """Weights drawn anew from ``generator`` (``_reset_parameters``)."""
+        _reset_parameters(self, generator)
 
     def forward(
         self, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor] = None
@@ -91,6 +103,40 @@ class ClassicMLP(nn.Module):
                 raise ValueError("use_viewdirs=True requires encoded directions")
             h = self.block_2(torch.cat([h, d_enc], dim=-1))
         return density, self.color(h)
+
+
+class MipMLP(nn.Module):
+    """The HEAD MLP: ``forward(features) -> (density, color_logits,
+    segmentation_logits)``, all raw, split off one output Linear."""
+
+    def __init__(
+        self,
+        cfg: MipNeRFConfig,
+        generator: Optional[torch.Generator] = None,
+        device="cuda",
+    ):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        layers = []
+        for i in range(cfg.num_hidden_layers):
+            layers += [
+                nn.Linear(cfg.feature_dim if i == 0 else h, h),
+                nn.LayerNorm(h, eps=LAYER_NORM_EPS),
+                nn.ReLU(),
+            ]
+        self.prediction_heads = nn.Sequential(*layers, nn.Linear(h, cfg.num_outputs))
+        self.reset_parameters(generator)
+        self.to(device)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """Weights drawn anew from ``generator`` (``_reset_parameters``)."""
+        _reset_parameters(self, generator)
+
+    def forward(self, features: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        out = self.prediction_heads(features)
+        c = self.cfg.color_outputs
+        return out[..., :1], out[..., 1:1 + c], out[..., 1 + c:]
 
 
 def count_params(module: nn.Module) -> int:

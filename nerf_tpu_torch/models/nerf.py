@@ -1,29 +1,33 @@
-"""The classic NeRF renderer: ray rendering and tiled full-image rendering.
+"""The NeRF renderers: ray rendering and tiled full-image rendering.
 
-PyTorch counterpart of ``RenderOutput``, ``ClassicNeRF`` and
-``_tiled_over_rays`` in ``nerf_tpu/models/nerf.py``.  The model is an
-``nn.Module`` that owns its ``ClassicMLP``; randomness (stratified jitter,
-the pdf uniforms, density noise) comes from a ``torch.Generator`` passed in.
+PyTorch counterpart of ``RenderOutput``, ``ClassicNeRF``, ``MipNeRF`` and
+``_tiled_over_rays`` in ``nerf_tpu/models/nerf.py``.  Each model is an
+``nn.Module`` that owns its MLP; randomness (stratified jitter, the pdf
+uniforms, density noise) comes from a ``torch.Generator`` passed in.
 
-With ``cfg.use_pallas`` every MLP evaluation goes through the K1 kernel
-(``ops/kernels/classic_mlp.py``; under autograd its backward is K1-bwd)
-and the deterministic hierarchical-reuse fine stage of ``render_image``
-through the forward-only K4 kernel (``ops/kernels/union_eval.py``).
+With ``cfg.use_pallas`` the classic model runs every MLP evaluation
+through the K1 kernel (``ops/kernels/classic_mlp.py``; under autograd its
+backward is K1-bwd) and the deterministic hierarchical-reuse fine stage of
+``render_image`` through the forward-only K4 kernel
+(``ops/kernels/union_eval.py``); the mip model runs its MLP through K5
+(``ops/kernels/mip_mlp.py``, backward K5-bwd) and its deterministic render
+through the forward-only K7 (``ops/kernels/mip_train.py``).
 ``render_rays`` also takes a step's random draws made beforehand
 (``sampling.StepDraws``), as the train steps pass them.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
-from nerf_tpu_torch.config import ClassicNeRFConfig, RenderConfig
-from nerf_tpu_torch.models.mlp import ClassicMLP
+from nerf_tpu_torch.config import ClassicNeRFConfig, MipNeRFConfig, RenderConfig
+from nerf_tpu_torch.models.mlp import ClassicMLP, MipMLP
 from nerf_tpu_torch.ops import cameras, compositing, encoding, sampling
-from nerf_tpu_torch.ops.kernels import classic_mlp, union_eval
+from nerf_tpu_torch.ops.kernels import classic_mlp, mip_mlp, mip_train, union_eval
 
 
 class RenderOutput(NamedTuple):
@@ -327,6 +331,162 @@ class ClassicNeRF(nn.Module):
             render.rays_per_tile, self.cfg.color_outputs, states_x, states_d,
             use_ndc=render.use_ndc,
         )
+
+
+class MipNeRF(nn.Module):
+    """The HEAD-generation model: IPE cone casting, log-spaced bbox
+    sampling, density + RGB + segmentation heads.  S fencepost t-values
+    give S - 1 interval Gaussians.  Weights are drawn from ``generator`` (a
+    CPU generator; torch's global one when ``None``) and the module is
+    placed on ``device``."""
+
+    def __init__(
+        self,
+        cfg: MipNeRFConfig,
+        generator: Optional[torch.Generator] = None,
+        device="cuda",
+    ):
+        super().__init__()
+        self.cfg = cfg
+        self.mlp = MipMLP(cfg, generator=generator, device="cpu")
+        self.to(device)
+
+    def integrated_pe(
+        self, rays_o: torch.Tensor, rays_d: torch.Tensor, t_vals: torch.Tensor
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Cone-cast and IPE-featurize: ``(means [..., S-1, 3], covs,
+        features [..., S-1, F])``."""
+        cfg = self.cfg
+        r_dot = 1.0 / (math.sqrt(3.0) * cfg.focal_length)
+        means, covs = encoding.cast_rays(t_vals, rays_o, rays_d, r_dot, cfg.ray_shape)
+        features = encoding.integrated_pos_enc(means, covs, cfg.min_deg, cfg.max_deg)
+        return means, covs, features
+
+    def forward(
+        self,
+        rays_o: torch.Tensor,
+        rays_d: torch.Tensor,
+        t_vals: torch.Tensor,
+        states_x: Optional[torch.Tensor] = None,
+        states_d: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(means, density [..., S-1, 1], color, segmentation)`` of the
+        interval Gaussians; ``states_*`` are accepted and ignored, as in
+        the JAX package."""
+        del states_x, states_d
+        means, _, features = self.integrated_pe(rays_o, rays_d, t_vals)
+        if self.cfg.use_pallas and mip_mlp.supports_mip_config(self.cfg):
+            lead = features.shape[:-1]
+            out = mip_mlp.mip_mlp_fwd(
+                mip_mlp.pack_mip_params(self.mlp),
+                features.reshape(-1, features.shape[-1]).to(self._compute_dtype()).contiguous(),
+            ).reshape(lead + (-1,))
+            c = self.cfg.color_outputs
+            return means, out[..., :1], out[..., 1:1 + c], out[..., 1 + c:]
+        density, color, segmentation = self.mlp(features)
+        return means, density, color, segmentation
+
+    def _compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.compute_dtype)
+
+    def _use_fused_eval(self, render: RenderConfig, rays_o: torch.Tensor) -> bool:
+        """Gate for the forward-only K7 kernel: fused path on, no density
+        noise, a flat ray batch.  ``render_image`` opts in; differentiable
+        paths must not (K7 has no backward)."""
+        return (
+            self.cfg.use_pallas
+            and mip_mlp.supports_mip_config(self.cfg)
+            and render.density_noise_std == 0.0
+            and rays_o.ndim == 2
+        )
+
+    def render_rays(
+        self,
+        rays_o: torch.Tensor,
+        rays_d: torch.Tensor,
+        render: RenderConfig,
+        states_x: Optional[torch.Tensor] = None,
+        states_d: Optional[torch.Tensor] = None,
+        fused_eval: bool = False,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[sampling.StepDraws] = None,
+    ) -> RenderOutput:
+        """Render a batch of rays over ``render.num_coarse_samples``
+        log-bbox fenceposts; rgb and segmentation carry one stage entry.
+        ``generator`` draws the jitter and the density noise unless
+        ``draws`` holds them already made (``sampling.draw_step`` with the
+        model's ``bbox_diagonal``)."""
+        if draws is not None:
+            t_vals, noise = draws.t_coarse, draws.noise_c
+        else:
+            t_vals = sampling.sample_log_bbox(
+                generator, rays_o.shape[:-1], render.num_coarse_samples,
+                self.cfg.bbox_diagonal, randomly_sample=render.randomly_sample,
+                dtype=rays_o.dtype, device=rays_o.device,
+            )
+            noise = None
+        t_mids = 0.5 * (t_vals[..., 1:] + t_vals[..., :-1])
+        if fused_eval and self._use_fused_eval(render, rays_o):
+            # MLP, compositing and the seg composite in one K7 launch.
+            del states_x, states_d
+            means, _, features = self.integrated_pe(rays_o, rays_d, t_vals)
+            rgb, seg, depth, acc = mip_train.mip_eval(
+                mip_mlp.pack_mip_params(self.mlp),
+                features.to(self._compute_dtype()).contiguous(),
+                compositing.distances_from_points(means).contiguous(),
+                t_mids.contiguous(),
+                None,
+                self.cfg.color_outputs,
+                render.white_background,
+            )
+            return RenderOutput(rgb=rgb[..., None, :], segmentation=seg[..., None, :],
+                                depth=depth, acc=acc)
+        means, density, color, segmentation = self.forward(
+            rays_o, rays_d, t_vals, states_x, states_d
+        )
+        density = _maybe_add_density_noise(generator, density, render.density_noise_std, noise)
+        weights = compositing.compositing_weights(means, density)
+        rgb = compositing.composite_rgb_with_background(
+            weights, color, 1.0 if render.white_background else None
+        )
+        seg = compositing.composite_segmentation(weights, segmentation)
+        return RenderOutput(
+            rgb=rgb[..., None, :],
+            segmentation=seg[..., None, :],
+            depth=compositing.composite_depth(weights, t_mids),
+            acc=compositing.composite_acc(weights),
+        )
+
+    @torch.no_grad()
+    def render_image(
+        self,
+        camera_o: torch.Tensor,
+        camera_r: torch.Tensor,
+        image_h: int,
+        image_w: int,
+        focal_length: float,
+        render: RenderConfig,
+        states_x: Optional[torch.Tensor] = None,
+        states_d: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full images ``([B, H, W, C], [B, H, W, num_classes])``, tile by
+        tile of ``render.rays_per_tile`` rays."""
+        cfg = self.cfg
+
+        def per_tile(tile_o, tile_d, tile_sx, tile_sd):
+            out = self.render_rays(
+                tile_o, tile_d, render, tile_sx, tile_sd,
+                fused_eval=True, generator=generator,
+            )
+            return torch.cat([out.rgb[..., -1, :], out.segmentation[..., -1, :]], dim=-1)
+
+        both = _tiled_over_rays(
+            per_tile, camera_o, camera_r, image_h, image_w, focal_length,
+            render.rays_per_tile, cfg.color_outputs + cfg.segmentation_outputs,
+            states_x, states_d,
+        )
+        return both[..., :cfg.color_outputs], both[..., cfg.color_outputs:]
 
 
 def _tiled_over_rays(

@@ -1,13 +1,14 @@
 """Volume-rendering quadrature: alpha compositing along rays.
 
-PyTorch counterpart of the classic half of ``nerf_tpu/ops/compositing.py``:
-interval lengths from t-values with the ``1e10`` far pad,
+PyTorch counterpart of ``nerf_tpu/ops/compositing.py``: interval lengths
+from t-values or from 3-D points with the ``1e10`` far pad,
 ``alpha = exp(-relu(sigma) * dist)``, transmittance as the shifted product
-of ``alpha + 1e-10``, and the order-free union compositing of two sorted
-sample blocks that the hierarchical-reuse renderer uses.
+of ``alpha + 1e-10``, the order-free union compositing of two sorted
+sample blocks that the hierarchical-reuse renderer uses, and the mip
+family's log-space segmentation composite.
 
-Shapes: density ``[..., S, 1]``, t-values ``[..., S]``, weights
-``[..., S, 1]``.
+Shapes: density ``[..., S, 1]``, t-values ``[..., S]``, points
+``[..., S, 3]``, weights ``[..., S, 1]``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,15 @@ def distances_from_tvals(t_vals: torch.Tensor, rays_d: torch.Tensor) -> torch.Te
     return torch.cat([dists, pad], dim=-2)
 
 
+def distances_from_points(points: torch.Tensor) -> torch.Tensor:
+    """Euclidean distances between adjacent 3-D sample points, the last
+    padded to ``1e10``; ``[..., S, 1]``."""
+    deltas = points[..., 1:, :] - points[..., :-1, :]
+    dists = torch.linalg.norm(deltas, dim=-1, keepdim=True)
+    pad = torch.full_like(dists[..., :1, :], _FAR)
+    return torch.cat([dists, pad], dim=-2)
+
+
 def weights_from_density(density: torch.Tensor, dists: torch.Tensor) -> torch.Tensor:
     """``w_i = (1 - alpha_i) * prod_{j<i}(alpha_j + 1e-10)`` with
     ``alpha = exp(-relu(sigma) * dist)``."""
@@ -37,6 +47,11 @@ def weights_from_density(density: torch.Tensor, dists: torch.Tensor) -> torch.Te
     trans = torch.cumprod(alpha[..., :-1, :] + 1e-10, dim=-2)
     transmittance = torch.cat([torch.ones_like(trans[..., :1, :]), trans], dim=-2)
     return (1.0 - alpha) * transmittance
+
+
+def compositing_weights(points: torch.Tensor, density: torch.Tensor) -> torch.Tensor:
+    """Weights from 3-D sample points and density (the mip family)."""
+    return weights_from_density(density, distances_from_points(points))
 
 
 def _union_cross_masks(
@@ -135,6 +150,14 @@ def weights_from_union_sorted(
 def composite_rgb(weights: torch.Tensor, color_logits: torch.Tensor) -> torch.Tensor:
     """``sum_i w_i * sigmoid(c_i)`` over the sample axis."""
     return torch.sum(weights * torch.sigmoid(color_logits), dim=-2)
+
+
+def composite_segmentation(weights: torch.Tensor, seg_logits: torch.Tensor) -> torch.Tensor:
+    """Log-space composite of per-sample class log-probabilities,
+    ``logsumexp_i(log(w_i + 1e-10) + log_softmax(seg_i))`` over the sample
+    axis: ``[..., K]``."""
+    log_w = torch.log(weights + 1e-10)
+    return torch.logsumexp(log_w + torch.log_softmax(seg_logits, dim=-1), dim=-2)
 
 
 def composite_depth(weights: torch.Tensor, t_vals: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,15 @@
-"""Classic NeRF frequency encoding (the v1.2-generation encoder).
+"""Positional encoders: classic NeRF frequency encoding and mip-NeRF IPE.
 
-PyTorch counterpart of the classic half of ``nerf_tpu/ops/encoding.py``:
-``bbox_frequency_scales``, ``frequency_scales_np`` and
-``frequency_encoding``, with the same ``[sin(x*f_0..f_{L-1}),
-cos(x*f_0..f_{L-1})]`` per-scalar feature layout.
+PyTorch counterpart of ``nerf_tpu/ops/encoding.py``:
+
+* the classic half, ``bbox_frequency_scales``, ``frequency_scales_np`` and
+  ``frequency_encoding``, with the same ``[sin(x*f_0..f_{L-1}),
+  cos(x*f_0..f_{L-1})]`` per-scalar feature layout;
+* the mip half, ``expected_sin``, ``lift_gaussian``,
+  ``conical_frustum_to_gaussian``, ``cylinder_to_gaussian``, ``cast_rays``
+  and ``integrated_pos_enc``, term for term (the same closed forms, the
+  same feature layout: scale outer, coordinate inner, sin block then cos
+  block).
 
 The scale constants are computed here (``torch.linspace`` exponents in
 float32, ``torch.pow``) and cached per ``(size, bound)``.  They agree with
@@ -59,3 +65,118 @@ def frequency_encoding(x: torch.Tensor, frequency_scales: torch.Tensor) -> torch
     xf = x[..., :, None] * frequency_scales  # [..., D, L]
     emb = torch.cat([torch.sin(xf), torch.cos(xf)], dim=-1)  # [..., D, 2L]
     return emb.reshape(emb.shape[:-2] + (-1,))
+
+
+# -- mip-NeRF integrated positional encoding ---------------------------------
+
+
+def expected_sin(x: torch.Tensor, x_var: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and variance of ``sin(z)`` for ``z ~ N(x, x_var)``."""
+    y = torch.exp(-0.5 * x_var) * torch.sin(x)
+    y_var = torch.clamp(
+        0.5 * (1.0 - torch.exp(-2.0 * x_var) * torch.cos(2.0 * x)) - y ** 2, min=0.0
+    )
+    return y, y_var
+
+
+def lift_gaussian(
+    d: torch.Tensor, t_mean, t_var, r_var, diag: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lift a 1-D Gaussian along ray direction ``d`` to a 3-D mean and
+    covariance: the diagonal ``[..., N, 3]`` with ``diag``, else full
+    ``[..., N, 3, 3]`` covariances."""
+    t_mean = torch.as_tensor(t_mean, dtype=d.dtype, device=d.device)
+    t_var = torch.as_tensor(t_var, dtype=d.dtype, device=d.device)
+    r_var = torch.as_tensor(r_var, dtype=d.dtype, device=d.device)
+    mean = d[..., None, :] * t_mean[..., None]
+    d_mag_sq = torch.clamp(torch.sum(d ** 2, dim=-1, keepdim=True), min=1e-10)
+    if diag:
+        d_outer_diag = d ** 2
+        null_outer_diag = 1.0 - d_outer_diag / d_mag_sq
+        t_cov_diag = t_var[..., None] * d_outer_diag[..., None, :]
+        xy_cov_diag = r_var[..., None] * null_outer_diag[..., None, :]
+        return mean, t_cov_diag + xy_cov_diag
+    d_outer = d[..., :, None] * d[..., None, :]
+    eye = torch.eye(d.shape[-1], dtype=d.dtype, device=d.device)
+    null_outer = eye - d[..., :, None] * (d / d_mag_sq)[..., None, :]
+    t_cov = t_var[..., None, None] * d_outer[..., None, :, :]
+    xy_cov = r_var[..., None, None] * null_outer[..., None, :, :]
+    return mean, t_cov + xy_cov
+
+
+def conical_frustum_to_gaussian(
+    d: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor, base_radius,
+    diag: bool = True, stable: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Moment-matched Gaussian of the cone section ``[t0, t1]``;
+    ``base_radius`` is the cone's radius at distance 1.  ``stable`` picks
+    mip-NeRF's numerically stable closed form."""
+    if stable:
+        mu = (t0 + t1) / 2.0
+        hw = (t1 - t0) / 2.0
+        t_mean = mu + (2.0 * mu * hw ** 2) / (3.0 * mu ** 2 + hw ** 2)
+        t_var = (hw ** 2) / 3.0 - (4.0 / 15.0) * (
+            (hw ** 4 * (12.0 * mu ** 2 - hw ** 2)) / (3.0 * mu ** 2 + hw ** 2) ** 2
+        )
+        r_var = base_radius ** 2 * (
+            (mu ** 2) / 4.0
+            + (5.0 / 12.0) * hw ** 2
+            - (4.0 / 15.0) * (hw ** 4) / (3.0 * mu ** 2 + hw ** 2)
+        )
+    else:
+        t_mean = (3.0 * (t1 ** 4 - t0 ** 4)) / (4.0 * (t1 ** 3 - t0 ** 3))
+        r_var = base_radius ** 2 * (3.0 / 20.0 * (t1 ** 5 - t0 ** 5) / (t1 ** 3 - t0 ** 3))
+        t_mosq = 3.0 / 5.0 * (t1 ** 5 - t0 ** 5) / (t1 ** 3 - t0 ** 3)
+        t_var = t_mosq - t_mean ** 2
+    return lift_gaussian(d, t_mean, t_var, r_var, diag)
+
+
+def cylinder_to_gaussian(
+    d: torch.Tensor, t0: torch.Tensor, t1: torch.Tensor, radius, diag: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Moment-matched Gaussian of a cylinder section ``[t0, t1]``."""
+    t_mean = (t0 + t1) / 2.0
+    r_var = radius ** 2 / 4.0
+    t_var = (t1 - t0) ** 2 / 12.0
+    return lift_gaussian(d, t_mean, t_var, r_var, diag)
+
+
+def cast_rays(
+    t_vals: torch.Tensor,
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    radii,
+    ray_shape: str = "cone",
+    diag: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``[..., S]`` fencepost distances -> the ``S - 1`` interval
+    Gaussians' means ``[..., S-1, 3]`` (offset by the ray origins) and
+    covariances."""
+    t0 = t_vals[..., :-1]
+    t1 = t_vals[..., 1:]
+    if ray_shape == "cone":
+        gaussian_fn = conical_frustum_to_gaussian
+    elif ray_shape == "cylinder":
+        gaussian_fn = cylinder_to_gaussian
+    else:
+        raise ValueError(f"unknown ray_shape: {ray_shape!r}")
+    means, covs = gaussian_fn(directions, t0, t1, radii, diag)
+    return means + origins[..., None, :], covs
+
+
+def integrated_pos_enc(
+    means: torch.Tensor, covs_diag: torch.Tensor, min_deg: int, max_deg: int
+) -> torch.Tensor:
+    """Integrated positional encoding of Gaussians: ``expected_sin`` of the
+    means and diagonal covariances scaled by ``2^[min_deg, max_deg)``, at
+    ``y`` and ``y + pi/2``; width ``2 * D * (max_deg - min_deg)``, laid out
+    ``[sin(x0*s0), sin(x1*s0), sin(x2*s0), sin(x0*s1), ..., cos(...)]``."""
+    scales = torch.tensor(
+        [2.0 ** i for i in range(min_deg, max_deg)], dtype=means.dtype, device=means.device
+    )
+    shape = means.shape[:-1] + (-1,)
+    y = (means[..., None, :] * scales[:, None]).reshape(shape)
+    y_var = (covs_diag[..., None, :] * scales[:, None] ** 2).reshape(shape)
+    return expected_sin(
+        torch.cat([y, y + 0.5 * math.pi], dim=-1), torch.cat([y_var, y_var], dim=-1)
+    )[0]

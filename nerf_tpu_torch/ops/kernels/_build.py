@@ -28,7 +28,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-KERNELS = ("classic_mlp_fwd", "union_eval", "classic_mlp_bwd", "train_grads", "fine_stage_train")
+KERNELS = (
+    "classic_mlp_fwd", "union_eval", "classic_mlp_bwd", "train_grads", "fine_stage_train",
+    "mip_mlp_fwd", "mip_mlp_bwd", "mip_eval", "mip_train_grads",
+)
 
 launch_counts: collections.Counter = collections.Counter()
 
@@ -38,6 +41,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _WEIGHT_ARGS = (_P,) * 11  # w0 wx wd whh b g beta w_dens b_dens w_col b_col
+_MIP_WEIGHT_ARGS = (_P,) * 7  # w_in whh b g beta w_out b_out
 ARGTYPES = {
     # x d out P xe de hidden c, weights, stream
     "classic_mlp_fwd": (_P, _P, _P, _I, _I, _I, _I, _I) + _WEIGHT_ARGS + (_P,),
@@ -54,6 +58,18 @@ ARGTYPES = {
     # R Sc Sf xe de hidden c white loss_weight, weights, xhat stats dpre
     # wpart tpart tmp wt out gout ray_loss splits stream
     "fine_stage_train": (_P,) * 13 + (_I,) * 8 + (_F,) + _WEIGHT_ARGS + (_P,) * 10 + (_I, _P),
+    # x out P F hidden L O, weights, stream
+    "mip_mlp_fwd": (_P,) * 2 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,),
+    # x gout dx grads P F hidden L O, weights,
+    # xhat stats dpre wpart tpart tmp wt out splits stream
+    "mip_mlp_bwd": (_P,) * 4 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 8 + (_I, _P),
+    # x dists t_mids noise per_ray R n F hidden L C O white, weights,
+    # mlp_out stream
+    "mip_eval": (_P,) * 5 + (_I,) * 8 + _MIP_WEIGHT_ARGS + (_P,) * 2,
+    # x dists noise pix labels loss grads R n F hidden L C O white
+    # seg_weight, weights, xhat stats dpre wpart tpart tmp wt out gout
+    # ray_loss splits stream
+    "mip_train_grads": (_P,) * 7 + (_I,) * 8 + (_F,) + _MIP_WEIGHT_ARGS + (_P,) * 10 + (_I, _P),
 }
 
 

@@ -108,12 +108,16 @@ def classic_mlp_fwd_plain(
     return torch.cat([density, color], dim=-1)
 
 
-def check_inputs(name: str, packed: Packed, tensors: Dict[str, Optional[torch.Tensor]]) -> torch.device:
+def check_inputs(
+    name: str, packed: Packed, tensors: Dict[str, Optional[torch.Tensor]],
+    aligned: Tuple[str, ...] = PACK_ORDER,
+) -> torch.device:
     """Shared argument checks of the kernel wrappers: one device, float32
-    (bfloat16 is not implemented yet), contiguous, and no autograd graph
-    (a wrapper has no autograd backward of its own; ``classic_mlp_fwd``
-    routes through ``ClassicMLPFunction`` before it gets here).  Returns
-    the device."""
+    (bfloat16 is not implemented yet), contiguous, no autograd graph (a
+    wrapper has no autograd backward of its own; ``classic_mlp_fwd``
+    routes through ``ClassicMLPFunction`` before it gets here), and on the
+    card the ``aligned`` weight slabs 16-byte aligned.  Returns the
+    device."""
     given = {k: v for k, v in tensors.items() if v is not None}
     given.update({f"packed[{k}]": v for k, v in packed.items()})
     device = next(iter(given.values())).device
@@ -129,7 +133,7 @@ def check_inputs(name: str, packed: Packed, tensors: Dict[str, Optional[torch.Te
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(f"{name}: has no autograd backward; {key} requires grad")
     if device.type == "cuda":
-        for key in PACK_ORDER:
+        for key in aligned:
             if key in packed and packed[key].data_ptr() % 16:
                 raise ValueError(f"{name}: packed[{key}] must be 16-byte aligned")
     elif device.type != "cpu":
@@ -255,23 +259,32 @@ def flat_grads_to_packed(flat: torch.Tensor, packed: Packed) -> Packed:
 
 
 def train_scratch(packed: Packed, n_rows: int, device: torch.device) -> Dict[str, object]:
-    """Global scratch of the MLP backward passes for ``n_rows`` rows
-    (``csrc/classic_mlp_train.cuh``): the stored chain (xhat and
-    statistics), every layer's dpre, the split weight-gradient partials,
-    the per-tile partials, the sum's staging buffer, the hidden weight
-    slabs transposed, the MLP output and the flat gradient.  The points are split so that the weight-gradient
-    product's blocks (two run on each SM at a time) fill about four
-    waves."""
+    """Global scratch of the classic MLP backward passes for ``n_rows``
+    rows (``scratch_for``)."""
     layers, hidden = packed["b"].shape
     xe = packed["w0"].shape[0]
     de = packed["wd_in"].shape[0] if "wd_in" in packed else 0
-    cols = 1 + packed["w_col"].shape[1]
     tiles_n = math.ceil(hidden / WGRAD_TILE)
     prod_tiles = tiles_n * (2 * math.ceil(xe / WGRAD_TILE) + math.ceil(de / WGRAD_TILE)
                             + (layers - 1) * tiles_n)
+    return scratch_for(layers, hidden, 1 + packed["w_col"].shape[1], n_rows, prod_tiles,
+                       *flat_grad_numels(packed), device)
+
+
+def scratch_for(
+    layers: int, hidden: int, cols: int, n_rows: int, prod_tiles: int, wfloats: int,
+    tfloats: int, device: torch.device,
+) -> Dict[str, object]:
+    """Global scratch of the MLP backward passes for ``n_rows`` rows
+    (``csrc/classic_mlp_train.cuh``): the stored chain (xhat and
+    statistics), every layer's dpre, the split weight-gradient partials
+    (``wfloats`` each), the per-tile partials (``tfloats`` each), the sum's
+    staging buffer, the hidden weight slabs transposed, the MLP output
+    (``cols`` wide) and the flat gradient.  The points are split so that
+    the weight-gradient product's ``prod_tiles`` output tiles, in blocks of
+    which two run on each SM at a time, fill about four waves."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     splits = max(1, min(64, 8 * sms // prod_tiles, math.ceil(n_rows / 1024)))
-    wfloats, tfloats = flat_grad_numels(packed)
     tiles = math.ceil(n_rows / TILE_ROWS)
 
     def buf(*shape):

@@ -1,0 +1,243 @@
+"""K5: the HEAD (mip) point MLP, forward and backward, as CUDA kernels.
+
+Counterpart of ``nerf_tpu/ops/pallas/fused_mip_mlp.py``
+(``pack_mip_params``, ``supports_mip_config`` and ``mip_mlp_pallas`` with
+its custom VJP).  K5-fwd is ``csrc/mip_mlp_fwd.cu``, K5-bwd
+``csrc/mip_mlp_bwd.cu``, both on the device code of ``csrc/mip_mlp.cuh``.
+``mip_mlp_fwd_plain`` and ``mip_mlp_bwd_plain`` are their plain PyTorch
+versions, which the wrappers run for CPU tensors and the tests and
+``chip_smoke.py`` hold the kernels against.  Under autograd
+``mip_mlp_fwd`` runs as ``MipMLPFunction``, whose backward is
+``mip_mlp_bwd``.
+
+The network: ``L`` x (Linear -> LayerNorm -> ReLU), then one Linear to
+``O = 1 + color + segmentation`` logits.  The packed slabs, Linear weights
+``(in, out)``: ``w_in [F, H]``, ``whh [L-1, H, H]``, ``b``, ``g``, ``beta``
+``[L, H]``, ``w_out [H, O]``, ``b_out [O]``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from nerf_tpu_torch.models.mlp import LAYER_NORM_EPS, MipMLP
+from nerf_tpu_torch.ops.kernels import _build
+from nerf_tpu_torch.ops.kernels.classic_mlp import (
+    HIDDEN_WIDTHS,
+    WGRAD_TILE,
+    Packed,
+    check_inputs,
+    packed_grads_plain,
+    scratch_for,
+    scratch_pointers,
+)
+
+NAME = "mip_mlp_fwd"
+BWD_NAME = "mip_mlp_bwd"
+PACK_ORDER = ("w_in", "whh", "b", "g", "beta", "w_out", "b_out")
+# Order of the flat gradient the backward kernels write: the weight slabs
+# (summed by the split product over points), then the per-tile column sums.
+FLAT_ORDER = ("w_in", "whh", "w_out", "b", "g", "beta", "b_out")
+ALIGNED = ("w_in", "whh")  # slabs the kernels stage with 16-byte copies
+MAX_LAYERS = 11  # the weight-gradient pass takes at most 12 products
+MAX_OUTPUTS = 256  # head width: one thread per output sums b_out's partials
+
+
+def supports_mip_config(cfg) -> bool:
+    return cfg.num_hidden_layers >= 2
+
+
+def pack_mip_params(mlp: MipMLP) -> Packed:
+    """The MLP's weights as the kernels' contiguous float32 slabs, Linear
+    weights ``(in, out)``."""
+    seq = list(mlp.prediction_heads)
+    linears, norms, out = seq[0:-1:3], seq[1:-1:3], seq[-1]
+    packed = {
+        "w_in": linears[0].weight.t(),
+        "whh": torch.stack([lin.weight.t() for lin in linears[1:]]),
+        "b": torch.stack([lin.bias for lin in linears]),
+        "g": torch.stack([n.weight for n in norms]),
+        "beta": torch.stack([n.bias for n in norms]),
+        "w_out": out.weight.t(),
+        "b_out": out.bias,
+    }
+    return {k: v.contiguous() for k, v in packed.items()}
+
+
+def mip_mlp_fwd_plain(packed: Packed, features: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: ``[P, O]`` rows of
+    ``[density, color logits, segmentation logits]``."""
+    h = features
+    for i in range(packed["b"].shape[0]):
+        w = packed["w_in"] if i == 0 else packed["whh"][i - 1]
+        z = h @ w + packed["b"][i]
+        h = torch.relu(F.layer_norm(z, z.shape[-1:], packed["g"][i], packed["beta"][i],
+                                    LAYER_NORM_EPS))
+    return h @ packed["w_out"] + packed["b_out"]
+
+
+def check_kernel_shapes(name: str, packed: Packed) -> None:
+    """What the mip kernels take beyond ``check_inputs``: an instantiated
+    hidden width, 2..MAX_LAYERS layers and at most MAX_OUTPUTS outputs."""
+    layers, hidden = packed["b"].shape
+    outputs = packed["w_out"].shape[1]
+    if hidden not in HIDDEN_WIDTHS:
+        raise ValueError(f"{name}: hidden width {hidden} not in {HIDDEN_WIDTHS}")
+    if not 2 <= layers <= MAX_LAYERS:
+        raise ValueError(f"{name}: takes 2..{MAX_LAYERS} hidden layers, got {layers}")
+    if outputs > MAX_OUTPUTS:
+        raise ValueError(f"{name}: at most {MAX_OUTPUTS} outputs, got {outputs}")
+
+
+def weight_pointers(packed: Packed):
+    return [packed[k].data_ptr() for k in PACK_ORDER]
+
+
+def _packed_from_args(weights) -> Packed:
+    return dict(zip(PACK_ORDER, weights))
+
+
+def mip_mlp_fwd(packed: Packed, features: torch.Tensor) -> torch.Tensor:
+    """Mip MLP forward on IPE features ``[P, F]`` -> ``[P, O]`` rows of
+    ``[density, color logits, segmentation logits]``.
+
+    CPU tensors run ``mip_mlp_fwd_plain``; CUDA tensors launch the kernel
+    (raising on what it does not take).  When autograd records and an
+    input requires grad, the call runs as ``MipMLPFunction``, whose
+    backward is ``mip_mlp_bwd`` (K5-bwd).
+    """
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (features, *packed.values())
+    ):
+        return MipMLPFunction.apply(features, *[packed[k] for k in PACK_ORDER])
+    device = check_inputs(NAME, packed, {"features": features}, ALIGNED)
+    n_feat = packed["w_in"].shape[0]
+    if features.ndim != 2 or features.shape[1] != n_feat:
+        raise ValueError(f"{NAME}: features must be [P, {n_feat}], got {tuple(features.shape)}")
+    if device.type == "cpu":
+        return mip_mlp_fwd_plain(packed, features)
+    check_kernel_shapes(NAME, packed)
+    layers, hidden = packed["b"].shape
+    outputs = packed["w_out"].shape[1]
+    n_points = features.shape[0]
+    out = torch.empty((n_points, outputs), dtype=torch.float32, device=device)
+    if n_points == 0:
+        return out
+    fn = getattr(_build.load(NAME), NAME)
+    err = fn(
+        features.data_ptr(), out.data_ptr(), n_points, n_feat, hidden, layers, outputs,
+        *weight_pointers(packed), torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check_launch(NAME, err)
+    _build.launch_counts[NAME] += 1
+    return out
+
+
+# -- backward (K5-bwd) -------------------------------------------------------
+
+
+def mip_mlp_bwd_plain(
+    packed: Packed, features: torch.Tensor, g_out: torch.Tensor, input_grads: bool = True,
+) -> Tuple[Optional[torch.Tensor], Packed]:
+    """The backward kernel's function in plain PyTorch: the vector-Jacobian
+    product of ``mip_mlp_fwd_plain`` with ``g_out [P, O]``."""
+    if not input_grads:
+        _, d_packed = packed_grads_plain(
+            packed, (), lambda w: (mip_mlp_fwd_plain(w, features), g_out)
+        )
+        return None, d_packed
+    (dfeat,), d_packed = packed_grads_plain(
+        packed, (features,), lambda w, x: (mip_mlp_fwd_plain(w, x), g_out)
+    )
+    return dfeat, d_packed
+
+
+def flat_grad_numels(packed: Packed) -> Tuple[int, int]:
+    """(weight-slab floats, per-tile floats) of the flat gradient."""
+    sizes = [packed[k].numel() for k in FLAT_ORDER]
+    return sum(sizes[:3]), sum(sizes[3:])
+
+
+def flat_grads_to_packed(flat: torch.Tensor, packed: Packed) -> Packed:
+    """Split the kernels' flat gradient into the packed weights' shapes."""
+    out, at = {}, 0
+    for k in FLAT_ORDER:
+        n = packed[k].numel()
+        out[k] = flat[at:at + n].view(packed[k].shape)
+        at += n
+    return out
+
+
+def mip_scratch(packed: Packed, n_rows: int, device: torch.device) -> Dict[str, object]:
+    """Global scratch of the mip MLP backward passes for ``n_rows`` rows
+    (``classic_mlp.scratch_for``)."""
+    layers, hidden = packed["b"].shape
+    n_feat, outputs = packed["w_in"].shape[0], packed["w_out"].shape[1]
+    tiles_h = math.ceil(hidden / WGRAD_TILE)
+    prod_tiles = (tiles_h * math.ceil(n_feat / WGRAD_TILE) + (layers - 1) * tiles_h * tiles_h
+                  + tiles_h * math.ceil(outputs / WGRAD_TILE))
+    return scratch_for(layers, hidden, outputs, n_rows, prod_tiles, *flat_grad_numels(packed),
+                       device)
+
+
+def mip_mlp_bwd(
+    packed: Packed, features: torch.Tensor, g_out: torch.Tensor, input_grads: bool = True,
+) -> Tuple[Optional[torch.Tensor], Packed]:
+    """Backward of ``mip_mlp_fwd``: given ``g_out [P, O]``, the cotangent
+    of its output, returns ``(dfeat [P, F], d_packed)`` with ``d_packed``
+    the gradient of every packed weight, summed over the points.  With
+    ``input_grads=False`` the kernel skips the features' cotangent and
+    ``dfeat`` is ``None``.  The kernel recomputes the forward, as the TPU
+    kernel does.
+
+    CPU tensors run ``mip_mlp_bwd_plain``; CUDA tensors launch the kernel
+    (raising on what it does not take).
+    """
+    device = check_inputs(BWD_NAME, packed, {"features": features, "g_out": g_out}, ALIGNED)
+    layers, hidden = packed["b"].shape
+    n_feat, outputs = packed["w_in"].shape[0], packed["w_out"].shape[1]
+    n_points = features.shape[0]
+    for key, t, shape in (("features", features, (n_points, n_feat)),
+                          ("g_out", g_out, (n_points, outputs))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{BWD_NAME}: {key} must be {shape}, got {tuple(t.shape)}")
+    if device.type == "cpu":
+        return mip_mlp_bwd_plain(packed, features, g_out, input_grads)
+    check_kernel_shapes(BWD_NAME, packed)
+    dfeat = torch.empty_like(features) if input_grads else None
+    if n_points == 0:
+        return dfeat, {k: torch.zeros_like(v) for k, v in packed.items()}
+    s = mip_scratch(packed, n_points, device)
+    fn = getattr(_build.load(BWD_NAME), BWD_NAME)
+    err = fn(
+        features.data_ptr(), g_out.data_ptr(), _build.ptr(dfeat), s["grads"].data_ptr(),
+        n_points, n_feat, hidden, layers, outputs, *weight_pointers(packed),
+        *scratch_pointers(s), s["splits"], torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check_launch(BWD_NAME, err)
+    _build.launch_counts[BWD_NAME] += 1
+    return dfeat, flat_grads_to_packed(s["grads"], packed)
+
+
+class MipMLPFunction(torch.autograd.Function):
+    """``mip_mlp_fwd`` under autograd: forward K5-fwd, backward K5-bwd.
+    Arguments ``(features, *weights)`` with the weights in
+    ``PACK_ORDER``."""
+
+    @staticmethod
+    def forward(ctx, features, *weights):
+        ctx.save_for_backward(features, *weights)
+        return mip_mlp_fwd(_packed_from_args(weights), features)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        features, *weights = ctx.saved_tensors
+        dfeat, d_packed = mip_mlp_bwd(
+            _packed_from_args(weights), features, g_out.contiguous(),
+            input_grads=ctx.needs_input_grad[0],
+        )
+        return (dfeat, *[d_packed[k] for k in PACK_ORDER])

@@ -1,8 +1,9 @@
-"""Ray samplers: linear stratified coarse sampling and inverse-CDF fine
-sampling.
+"""Ray samplers: linear stratified and log-spaced bbox coarse sampling, and
+inverse-CDF fine sampling.
 
-PyTorch counterpart of ``sample_linear``, ``pdf_uniforms``, ``sample_pdf``
-and ``merge_samples`` in ``nerf_tpu/ops/sampling.py``.  The JAX package
+PyTorch counterpart of ``sample_log_bbox``, ``sample_linear``,
+``pdf_uniforms``, ``sample_pdf`` and ``merge_samples`` in
+``nerf_tpu/ops/sampling.py``.  The JAX package
 avoids sort, searchsorted and gathers because a TPU serialises them; on a
 GPU they are the plain tools, so this module uses ``torch.searchsorted``,
 ``torch.gather`` and a stable sort where the JAX code builds dense masks.
@@ -21,17 +22,51 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+# The HEAD-generation sampler's near end: 2^-9.43633744014 of the bbox
+# diagonal (about 0.1 world units for the default +-20 box).
+LOG_SAMPLING_MIN_EXPONENT = -9.43633744014
 
-def _stratified_jitter(generator: torch.Generator, samples: torch.Tensor) -> torch.Tensor:
+
+def _stratified_jitter(
+    generator: Optional[torch.Generator], samples: torch.Tensor,
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
     """Jitter fencepost samples uniformly within midpoint-bounded bins (the
-    first and last bins are clamped at the endpoints)."""
+    first and last bins are clamped at the endpoints); ``u``, the uniforms,
+    are drawn from ``generator`` unless given."""
     midpoints = 0.5 * (samples[..., 1:] + samples[..., :-1])
     lower = torch.cat([samples[..., :1], midpoints], dim=-1)
     upper = torch.cat([midpoints, samples[..., -1:]], dim=-1)
-    u = torch.rand(
-        samples.shape, generator=generator, dtype=samples.dtype, device=samples.device
-    )
+    if u is None:
+        if generator is None:
+            raise ValueError("randomly_sample=True requires a torch.Generator")
+        u = torch.rand(
+            samples.shape, generator=generator, dtype=samples.dtype, device=samples.device
+        )
     return lower + (upper - lower) * u
+
+
+def sample_log_bbox(
+    generator: Optional[torch.Generator],
+    batch_shape: Sequence[int],
+    num_samples: int,
+    bbox_diagonal: float,
+    randomly_sample: bool = True,
+    dtype=torch.float32,
+    device="cuda",
+    u: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """HEAD-generation fenceposts, ``batch_shape + (num_samples,)``:
+    ``2^linspace(LOG_SAMPLING_MIN_EXPONENT, 0, S) * bbox_diagonal``, jittered
+    within midpoint-bounded bins when ``randomly_sample`` (uniforms ``u``
+    drawn from ``generator`` unless given)."""
+    samples = torch.pow(
+        2.0, torch.linspace(LOG_SAMPLING_MIN_EXPONENT, 0.0, num_samples, dtype=dtype, device=device)
+    )
+    samples = samples.expand(tuple(batch_shape) + (num_samples,))
+    if randomly_sample:
+        samples = _stratified_jitter(generator, samples, u)
+    return samples * bbox_diagonal
 
 
 def sample_linear(
@@ -49,8 +84,6 @@ def sample_linear(
     samples = torch.linspace(near, far, num_samples, dtype=dtype, device=device)
     samples = samples.expand(tuple(batch_shape) + (num_samples,))
     if randomly_sample:
-        if generator is None:
-            raise ValueError("randomly_sample=True requires a torch.Generator")
         samples = _stratified_jitter(generator, samples)
     return samples
 
@@ -147,7 +180,9 @@ class StepDraws(NamedTuple):
     ``[B, Sf]`` and the fine density noise ``[B, Sf]`` (``[B, Sc + Sf]`` in
     the re-evaluate formulation, whose fine pass covers the merged set).
     Noise is already scaled by the noise std (zeros without noise); the
-    uniforms are ``None`` without a fine stage."""
+    uniforms are ``None`` without a fine stage.  For the mip family the
+    coarse t-values are the ``Sc`` log-bbox fenceposts and the noise is per
+    interval, ``[B, Sc - 1]``."""
 
     t_coarse: torch.Tensor
     noise_c: torch.Tensor
@@ -160,10 +195,12 @@ def draw_step(
     render,
     num_rays: int,
     device="cuda",
+    bbox_diagonal: Optional[float] = None,
 ) -> StepDraws:
     """The draws of one step under ``render`` (a ``RenderConfig``), in the
     JAX package's order: stratified t-values, coarse noise, pdf uniforms,
-    fine noise."""
+    fine noise.  With ``bbox_diagonal`` (the mip family) the draws are the
+    log-bbox fenceposts and the per-interval noise."""
     sc, sf = render.num_coarse_samples, render.num_fine_samples
     std = render.density_noise_std
 
@@ -174,6 +211,10 @@ def draw_step(
             raise ValueError("density noise requires a torch.Generator")
         return std * torch.randn((num_rays, n), generator=generator, device=device)
 
+    if bbox_diagonal is not None:
+        t_coarse = sample_log_bbox(generator, (num_rays,), sc, bbox_diagonal,
+                                   randomly_sample=render.randomly_sample, device=device)
+        return StepDraws(t_coarse, noise(sc - 1))
     t_coarse = sample_linear(generator, (num_rays,), sc, render.near, render.far,
                              randomly_sample=render.randomly_sample, device=device)
     noise_c = noise(sc)

@@ -8,16 +8,18 @@ and the ``Trainer`` (counterpart of ``nerf_tpu/train/loop.py``).
   from ``state.step_generator``, a function of (seed, step), so K chained
   steps equal K single steps and a resumed run continues the same
   trajectory.
+* The mip family adds the log-space segmentation cross-entropy,
+  ``segmentation_loss_weight`` times ``-mean log p(label)`` of the finest
+  stage's composite, to the loss when the weight is positive.
 * ``make_fused_loss_and_grads`` dispatches, as the JAX package does, to
-  the reuse step (K1-fwd, K3, one K1-bwd), the coarse-only step (K2 once)
-  or the re-evaluate step (K2 twice).
+  the mip step (K6 once), the reuse step (K1-fwd, K3, one K1-bwd), the
+  coarse-only step (K2 once) or the re-evaluate step (K2 twice).
 * PyTorch runs eagerly: the K-step functions are Python loops over the
   one-step function (the JAX package's ``lax.scan``).
 
 Not ported yet, and refused rather than skipped: checkpoints and resume
 from disk (``Trainer`` raises ``NotImplementedError`` for a
-``logging_dir``), the watchdog heartbeat, the segmentation loss and the
-``mesh`` argument.
+``logging_dir``), the watchdog heartbeat and the ``mesh`` argument.
 """
 
 from __future__ import annotations
@@ -30,10 +32,16 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from nerf_tpu_torch.config import ClassicNeRFConfig, RenderConfig, TrainConfig
+from nerf_tpu_torch.config import ClassicNeRFConfig, MipNeRFConfig, RenderConfig, TrainConfig
 from nerf_tpu_torch.data.rays import RayBank
 from nerf_tpu_torch.ops import compositing, sampling
-from nerf_tpu_torch.ops.kernels import classic_mlp, fine_stage_train, train_grads
+from nerf_tpu_torch.ops.kernels import (
+    classic_mlp,
+    fine_stage_train,
+    mip_mlp,
+    mip_train,
+    train_grads,
+)
 from nerf_tpu_torch.train.metrics import MetricsLogger, mse_to_psnr
 from nerf_tpu_torch.train.state import TrainState, create_train_state, step_generator
 
@@ -61,10 +69,15 @@ def _check_finite_losses(losses, first_step: int) -> None:
     )
 
 
-def make_loss_fn(model, render: RenderConfig) -> Callable[[Batch, sampling.StepDraws], Tuple]:
+def make_loss_fn(
+    model, render: RenderConfig, segmentation_loss_weight: float = 0.0
+) -> Callable[[Batch, sampling.StepDraws], Tuple]:
     """The per-batch loss ``loss_fn(batch, draws) -> (loss, aux)``: the MSE
     averaged over all stages (gradients reach the coarse and the fine
-    pass), with ``aux["fine_mse"]`` the finest stage's MSE."""
+    pass), with ``aux["fine_mse"]`` the finest stage's MSE, plus
+    ``segmentation_loss_weight`` times the segmentation cross-entropy of
+    the finest stage when the weight is positive and the model has a
+    segmentation head (``batch["labels"]``)."""
 
     def loss_fn(batch: Batch, draws: sampling.StepDraws):
         out = model.render_rays(
@@ -73,17 +86,35 @@ def make_loss_fn(model, render: RenderConfig) -> Callable[[Batch, sampling.StepD
         )
         sq = (out.rgb - batch["pixels"][..., None, :]) ** 2
         rgb_loss = torch.mean(sq)
-        aux = {"loss": rgb_loss, "rgb_loss": rgb_loss, "fine_mse": torch.mean(sq[..., -1, :])}
-        return rgb_loss, aux
+        total = rgb_loss
+        aux = {"rgb_loss": rgb_loss, "fine_mse": torch.mean(sq[..., -1, :])}
+        if segmentation_loss_weight > 0.0 and out.segmentation is not None:
+            log_probs = out.segmentation[..., -1, :]
+            seg_loss = -torch.mean(
+                torch.take_along_dim(log_probs, batch["labels"][..., None], dim=-1)
+            )
+            total = total + segmentation_loss_weight * seg_loss
+            aux["seg_loss"] = seg_loss
+        aux["loss"] = total
+        return total, aux
 
     return loss_fn
+
+
+def draws_for_model(generator: Optional[torch.Generator], model, render: RenderConfig,
+                    num_rays: int, device) -> sampling.StepDraws:
+    """One step's draws for ``model``'s family (``sampling.draw_step``):
+    log-bbox fenceposts for the mip family, linear ones for the classic."""
+    cfg = getattr(model, "cfg", None)
+    bbox = cfg.bbox_diagonal if isinstance(cfg, MipNeRFConfig) else None
+    return sampling.draw_step(generator, render, num_rays, device, bbox_diagonal=bbox)
 
 
 def _draws_for(state: TrainState, render: RenderConfig, batch: Batch,
                generator: Optional[torch.Generator] = None) -> sampling.StepDraws:
     device = batch["rays_o"].device
     gen = generator if generator is not None else step_generator(state, device)
-    return sampling.draw_step(gen, render, batch["rays_o"].shape[0], device)
+    return draws_for_model(gen, state.model, render, batch["rays_o"].shape[0], device)
 
 
 def _apply(state: TrainState, grads: Dict[str, torch.Tensor], aux: Aux) -> Aux:
@@ -100,11 +131,12 @@ def _apply(state: TrainState, grads: Dict[str, torch.Tensor], aux: Aux) -> Aux:
     return aux
 
 
-def make_train_step(model, render: RenderConfig) -> Callable:
+def make_train_step(model, render: RenderConfig,
+                    segmentation_loss_weight: float = 0.0) -> Callable:
     """One SGD step through the general (autograd) path:
     ``step(state, batch, draws=None) -> aux``, updating ``state`` in place.
     Without ``draws`` the step draws from ``step_generator(state)``."""
-    loss_fn = make_loss_fn(model, render)
+    loss_fn = make_loss_fn(model, render, segmentation_loss_weight)
 
     def step(state: TrainState, batch: Batch, draws: Optional[sampling.StepDraws] = None) -> Aux:
         draws = draws if draws is not None else _draws_for(state, render, batch)
@@ -124,10 +156,11 @@ def _sample(state: TrainState, bank: RayBank, batch_size: int, render: RenderCon
     return batch, _draws_for(state, render, batch, gen)
 
 
-def make_sampling_train_step(model, render: RenderConfig, bank: RayBank, batch_size: int):
+def make_sampling_train_step(model, render: RenderConfig, bank: RayBank, batch_size: int,
+                             segmentation_loss_weight: float = 0.0):
     """Train step with the batch gather from the device-resident bank:
     ``step(state) -> aux``."""
-    inner = make_train_step(model, render)
+    inner = make_train_step(model, render, segmentation_loss_weight)
 
     def step(state: TrainState) -> Aux:
         return inner(state, *_sample(state, bank, batch_size, render))
@@ -144,25 +177,34 @@ def _multi_step(one_step: Callable, num_steps: int) -> Callable:
 
 
 def make_multi_step_train_fn(model, render: RenderConfig, bank: RayBank, batch_size: int,
-                             num_steps: int) -> Callable:
+                             num_steps: int, segmentation_loss_weight: float = 0.0) -> Callable:
     """``num_steps`` general-path steps: ``run(state) -> (state, aux)``,
     each aux entry stacked to ``[num_steps]``."""
-    return _multi_step(make_sampling_train_step(model, render, bank, batch_size), num_steps)
+    return _multi_step(
+        make_sampling_train_step(model, render, bank, batch_size, segmentation_loss_weight),
+        num_steps,
+    )
 
 
 def supports_fused_train(model, render: RenderConfig, bank=None) -> bool:
     """True when the fused train kernels cover the configuration: the
     classic architecture family, with or without the view branch and at
-    any latent width (the MIP family is not ported yet)."""
+    any latent width, and the HEAD mip model with its segmentation CE."""
     del render, bank
     cfg = getattr(model, "cfg", None)
+    if isinstance(cfg, MipNeRFConfig):
+        return mip_mlp.supports_mip_config(cfg)
     return isinstance(cfg, ClassicNeRFConfig) and classic_mlp.supports_classic_config(cfg)
 
 
-def make_fused_loss_and_grads(model, render: RenderConfig) -> Callable:
+def make_fused_loss_and_grads(model, render: RenderConfig,
+                              segmentation_loss_weight: float = 0.0) -> Callable:
     """``fn(batch, draws) -> (loss, grads, aux)`` with every MLP
     evaluation in a kernel:
 
+    * the HEAD mip model: K6 once, the MLP, compositing, MSE, log-space
+      segmentation CE (``segmentation_loss_weight``) and the backward
+      (``mip_train.mip_train_loss_and_grads``);
     * hierarchical ``reuse_coarse_in_fine=True`` (the default): K1-fwd on
       the coarse samples, K3 on the fine stage, one K1-bwd on the summed
       coarse cotangents (``fine_stage_train.reuse_train_loss_and_grads``);
@@ -175,8 +217,16 @@ def make_fused_loss_and_grads(model, render: RenderConfig) -> Callable:
     if not supports_fused_train(model, render):
         raise ValueError(
             "fused train path requires the classic architecture family "
-            "(ClassicNeRF, trunk_blocks=(4, 4), view_branch_depth=2 when use_viewdirs)"
+            "(ClassicNeRF, trunk_blocks=(4, 4), view_branch_depth=2 when use_viewdirs) "
+            "or the HEAD MipNeRF"
         )
+    if isinstance(model.cfg, MipNeRFConfig):
+        def mip_fn(batch: Batch, draws: sampling.StepDraws):
+            return mip_train.mip_train_loss_and_grads(
+                model, render, batch, draws, segmentation_loss_weight
+            )
+
+        return mip_fn
     hierarchical = render.num_fine_samples > 0
     if hierarchical and render.reuse_coarse_in_fine:
         def reuse_fn(batch: Batch, draws: sampling.StepDraws):
@@ -222,10 +272,11 @@ def make_fused_loss_and_grads(model, render: RenderConfig) -> Callable:
     return fn
 
 
-def make_fused_train_step(model, render: RenderConfig) -> Callable:
+def make_fused_train_step(model, render: RenderConfig,
+                          segmentation_loss_weight: float = 0.0) -> Callable:
     """One step through ``make_fused_loss_and_grads``:
     ``step(state, batch, draws=None) -> aux``."""
-    loss_and_grads = make_fused_loss_and_grads(model, render)
+    loss_and_grads = make_fused_loss_and_grads(model, render, segmentation_loss_weight)
 
     def step(state: TrainState, batch: Batch, draws: Optional[sampling.StepDraws] = None) -> Aux:
         draws = draws if draws is not None else _draws_for(state, render, batch)
@@ -236,10 +287,11 @@ def make_fused_train_step(model, render: RenderConfig) -> Callable:
 
 
 def make_fused_multi_step_train_fn(model, render: RenderConfig, bank: RayBank,
-                                   batch_size: int, num_steps: int) -> Callable:
+                                   batch_size: int, num_steps: int,
+                                   segmentation_loss_weight: float = 0.0) -> Callable:
     """``num_steps`` fused steps, each batch drawn from the bank:
     ``run(state) -> (state, aux)``."""
-    inner = make_fused_train_step(model, render)
+    inner = make_fused_train_step(model, render, segmentation_loss_weight)
 
     def one_step(state: TrainState) -> Aux:
         return inner(state, *_sample(state, bank, batch_size, render))
@@ -257,7 +309,8 @@ def evaluate(
     states_d: Optional[torch.Tensor] = None,
 ):
     """Render one holdout view deterministically (no jitter, no density
-    noise) and return ``(image [1, H, W, 3], psnr)``."""
+    noise) and return ``(image [1, H, W, 3], psnr)``; of the mip family's
+    ``(rgb, seg)`` the rgb."""
     eval_render = dataclasses.replace(render, randomly_sample=False, density_noise_std=0.0)
     b, h, w = scene.images.shape[:3]
     idx = view_index % b
@@ -265,11 +318,12 @@ def evaluate(
         states_x = getattr(scene, "states_x", None)
     if states_d is None:
         states_d = getattr(scene, "states_d", None)
-    image = model.render_image(
+    out = model.render_image(
         scene.pose_o[idx:idx + 1], scene.pose_r[idx:idx + 1], h, w, scene.focal, eval_render,
         states_x=None if states_x is None else states_x[idx:idx + 1],
         states_d=None if states_d is None else states_d[idx:idx + 1],
     )
+    image = out[0] if isinstance(out, tuple) else out
     gt = scene.images[idx:idx + 1]
     return image, mse_to_psnr(torch.mean((image - gt) ** 2))
 
@@ -285,6 +339,7 @@ class Trainer:
         render: RenderConfig,
         train: TrainConfig,
         logging_dir: Optional[str] = None,
+        segmentation_loss_weight: float = 0.0,
         optimizer: Optional[torch.optim.Optimizer] = None,
     ):
         if logging_dir is not None:
@@ -295,6 +350,7 @@ class Trainer:
         self.model = model
         self.render = render
         self.train_cfg = train
+        self.seg_weight = segmentation_loss_weight
         self.optimizer = optimizer
         self.metrics = MetricsLogger()
 
@@ -308,7 +364,8 @@ class Trainer:
 
     def _make_run_fn(self, bank: RayBank, num_steps: int, fused: bool) -> Callable:
         maker = make_fused_multi_step_train_fn if fused else make_multi_step_train_fn
-        return maker(self.model, self.render, bank, self.train_cfg.batch_size, num_steps)
+        return maker(self.model, self.render, bank, self.train_cfg.batch_size, num_steps,
+                     self.seg_weight)
 
     def fit(
         self,
@@ -326,8 +383,13 @@ class Trainer:
         cfg = self.train_cfg
         num_steps = num_steps or cfg.num_steps
         state = state if state is not None else self.init_state()
-        fused = bool(getattr(self.model.cfg, "use_pallas", False)) and supports_fused_train(
-            self.model, self.render, bank
+        # The mip kernel carries the segmentation CE; the classic family
+        # has no segmentation head, so a seg weight keeps it off the fused
+        # path, as in the JAX package.
+        fused = (
+            (self.seg_weight == 0.0 or isinstance(self.model.cfg, MipNeRFConfig))
+            and bool(getattr(self.model.cfg, "use_pallas", False))
+            and supports_fused_train(self.model, self.render, bank)
         )
         chunk = math.gcd(math.gcd(cfg.log_interval, cfg.eval_interval), cfg.checkpoint_interval)
 

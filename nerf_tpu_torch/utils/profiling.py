@@ -1,6 +1,6 @@
-"""Analytic operation counts (counterpart of ``classic_flops_per_point`` and
-``train_step_flops`` in ``nerf_tpu/utils/profiling.py``), used for the
-kernels' bounds."""
+"""Analytic operation counts (counterpart of ``classic_flops_per_point``,
+``mip_flops_per_point`` and ``train_step_flops`` in
+``nerf_tpu/utils/profiling.py``), used for the kernels' bounds."""
 
 from __future__ import annotations
 
@@ -22,7 +22,17 @@ def classic_flops_per_point(cfg) -> int:
     return flops
 
 
-def train_step_flops(cfg, num_rays: int, num_samples: int) -> int:
+def mip_flops_per_point(cfg) -> int:
+    """Matmul FLOPs for one point through the HEAD (mip) MLP (forward only)."""
+    h = cfg.hidden_size
+    flops = 2 * cfg.feature_dim * h
+    flops += 2 * h * h * (cfg.num_hidden_layers - 1)
+    flops += 2 * h * cfg.num_outputs
+    return flops
+
+
+def train_step_flops(cfg, num_rays: int, num_samples: int, mip: bool = False) -> int:
     """Forward plus backward (about twice the forward) matmul FLOPs of one
-    classic train step over ``num_rays * num_samples`` MLP points."""
-    return 3 * classic_flops_per_point(cfg) * num_rays * num_samples
+    train step over ``num_rays * num_samples`` MLP points."""
+    per_point = mip_flops_per_point(cfg) if mip else classic_flops_per_point(cfg)
+    return 3 * per_point * num_rays * num_samples

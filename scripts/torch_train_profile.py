@@ -2,12 +2,13 @@
 
     python scripts/torch_train_profile.py [--steps 5] [--out profile.json]
 
-Trains the model of ``chip_smoke.py`` (full-width ClassicNeRF, seed 0) on
-its synthetic scene through ``make_fused_multi_step_train_fn`` in both of
-its training configurations: the reuse step at 2048 rays x (64 + 128)
-samples (K1-fwd, K3, one K1-bwd) and the coarse-only step at 4096 x 64
-(K2).  For each, after two warm-up steps it times ``--steps`` steps on the
-host clock (ending in ``torch.cuda.synchronize()``), then runs the same
+Trains the models of ``chip_smoke.py`` (seed 0) on its synthetic scenes
+through ``make_fused_multi_step_train_fn`` in each of its training
+configurations: the full-width ClassicNeRF's reuse step at 2048 rays x (64
++ 128) samples (K1-fwd, K3, one K1-bwd) and its coarse-only step at 4096
+x 64 (K2), and the full-width MipNeRF's step at 4096 rays x 64 fenceposts
+with the segmentation CE at weight 0.1 (K6) on the labelled scene.  For
+each, after two warm-up steps it times ``--steps`` steps on the host clock (ending in ``torch.cuda.synchronize()``), then runs the same
 number of steps under ``torch.profiler`` and sums the device time of every
 kernel by name.  Prints the card, ms/step, rays/s, device time per step by
 kernel (largest first) and the device's idle share (1 - busy / span of the
@@ -35,11 +36,10 @@ from nerf_tpu_torch.data import RayBank, synthesize_scene  # noqa: E402
 from nerf_tpu_torch.train import create_train_state, make_fused_multi_step_train_fn  # noqa: E402
 
 
-def profile_config(name, render, n_rays, bank, steps, device) -> dict:
-    model = chip_smoke.make_model(True, device)
+def profile_config(name, model, render, n_rays, bank, steps, device, seg_weight=0.0) -> dict:
     state = create_train_state(model, chip_smoke.LEARNING_RATE, seed=0)
-    run = make_fused_multi_step_train_fn(model, render, bank, n_rays, steps)
-    make_fused_multi_step_train_fn(model, render, bank, n_rays, 2)(state)  # warm-up
+    run = make_fused_multi_step_train_fn(model, render, bank, n_rays, steps, seg_weight)
+    make_fused_multi_step_train_fn(model, render, bank, n_rays, 2, seg_weight)(state)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run(state)
@@ -92,11 +92,19 @@ def main(argv=None) -> int:
     bank = RayBank.from_images(scene.images, scene.pose_o, scene.pose_r, scene.focal)
     result = {"card": card}
     result["reuse_2048x(64+128)"] = profile_config(
-        "reuse 2048x(64+128)", chip_smoke.TRAIN_RENDER, chip_smoke.TRAIN_RAYS, bank,
-        args.steps, device)
+        "reuse 2048x(64+128)", chip_smoke.make_model(True, device), chip_smoke.TRAIN_RENDER,
+        chip_smoke.TRAIN_RAYS, bank, args.steps, device)
     result["coarse_4096x64"] = profile_config(
-        "coarse-only 4096x64", chip_smoke.COARSE_RENDER, chip_smoke.COARSE_RAYS, bank,
-        args.steps, device)
+        "coarse-only 4096x64", chip_smoke.make_model(True, device), chip_smoke.COARSE_RENDER,
+        chip_smoke.COARSE_RAYS, bank, args.steps, device)
+    scene = synthesize_scene(num_views=8, image_hw=64, focal=80.0, with_labels=True,
+                             device=device)
+    bank = RayBank.from_images(scene.images, scene.pose_o, scene.pose_r, scene.focal,
+                               labels=scene.labels)
+    result["mip_4096x64_seg"] = profile_config(
+        "mip 4096x64 seg 0.1", chip_smoke.make_mip_model(True, device),
+        chip_smoke.MIP_TRAIN_RENDER, chip_smoke.MIP_RAYS, bank, args.steps, device,
+        chip_smoke.SEG_WEIGHT)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=2))
     return 0

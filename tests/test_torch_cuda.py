@@ -8,16 +8,27 @@ package, so it runs on a machine that has only PyTorch:
 
 Tolerances: K1 sums float32 products in another order than cuBLAS (TF32
 off), through ten LayerNorm'd layers; K4 adds the transmittance summed in
-merged order where the plain version sums two blocks and cross terms.
+merged order where the plain version sums two blocks and cross terms.  The
+mip kernels (K5-K7) the same through five layers; K7's transmittance is
+the exponential of a prefix sum of logs where the plain version takes a
+cumulative product.
 """
 
 import pytest
 import torch
 
-from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, RenderConfig
-from nerf_tpu_torch.models.mlp import ClassicMLP
+from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, MipNeRF, MipNeRFConfig, RenderConfig
+from nerf_tpu_torch.models.mlp import ClassicMLP, MipMLP
 from nerf_tpu_torch.ops import compositing
-from nerf_tpu_torch.ops.kernels import _build, classic_mlp, fine_stage_train, train_grads, union_eval
+from nerf_tpu_torch.ops.kernels import (
+    _build,
+    classic_mlp,
+    fine_stage_train,
+    mip_mlp,
+    mip_train,
+    train_grads,
+    union_eval,
+)
 
 K1_TOL = dict(rtol=1e-4, atol=1e-4)
 K4_TOL = dict(rtol=5e-4, atol=1e-4)
@@ -305,4 +316,174 @@ def test_fused_train_step_matches_plain_on_card(cuda, branch):
     names, params = zip(*models[False].named_parameters())
     ref = dict(zip(names, torch.autograd.grad(ref_loss, params)))
     torch.testing.assert_close(loss, ref_loss.detach(), rtol=LOSS_RTOL, atol=0)
+    assert_grads_close(grads, ref)
+
+
+# -- the mip kernels: K5-fwd, K5-bwd, K6, K7 ----------------------------------
+
+MIP_VARIANTS = {
+    "full_width": dict(),
+    "small": dict(hidden_size=64, num_hidden_layers=3, encoding_size=8, segmentation_outputs=5),
+}
+
+
+def mip_packed(variant, device):
+    cfg = MipNeRFConfig(**MIP_VARIANTS[variant])
+    mlp = MipMLP(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    with torch.no_grad():  # LayerNorms off identity, so their gradients mean something
+        for m in mlp.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.uniform_(-0.3, 0.3)
+    return cfg, mip_mlp.pack_mip_params(mlp.requires_grad_(False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", [1, 1000])
+@pytest.mark.parametrize("variant", sorted(MIP_VARIANTS))
+def test_mip_mlp_fwd_kernel_matches_plain(cuda, variant, points):
+    cfg, packed = mip_packed(variant, cuda)
+    x = rand(torch.Generator(device=cuda).manual_seed(1), points, cfg.feature_dim)
+    before = _build.launch_counts[mip_mlp.NAME]
+    out = mip_mlp.mip_mlp_fwd(packed, x)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[mip_mlp.NAME] == before + 1
+    torch.testing.assert_close(out, mip_mlp.mip_mlp_fwd_plain(packed, x), **K1_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_grads", [True, False])
+@pytest.mark.parametrize("points", [1, 200])
+@pytest.mark.parametrize("variant", sorted(MIP_VARIANTS))
+def test_mip_mlp_bwd_kernel_matches_plain(cuda, variant, points, input_grads):
+    cfg, packed = mip_packed(variant, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x, g_out = rand(gen, points, cfg.feature_dim), rand(gen, points, cfg.num_outputs)
+    before = _build.launch_counts[mip_mlp.BWD_NAME]
+    dx, d_packed = mip_mlp.mip_mlp_bwd(packed, x, g_out, input_grads=input_grads)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[mip_mlp.BWD_NAME] == before + 1
+    rdx, r_packed = mip_mlp.mip_mlp_bwd_plain(packed, x, g_out, input_grads=input_grads)
+    assert (dx is None) == (not input_grads)
+    assert_grads_close(d_packed | ({"dx": dx} if input_grads else {}),
+                       r_packed | ({"dx": rdx} if input_grads else {}))
+
+
+def mip_inputs(cfg, device, rays, rows, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    points = torch.cumsum(rand(gen, rays, rows, 3, lo=0.0, hi=1.0), dim=1)
+    return dict(
+        features=rand(gen, rays, rows, cfg.feature_dim),
+        dists=compositing.distances_from_points(points).contiguous(),
+        noise=rand(gen, rays, rows),
+        pixels=rand(gen, rays, cfg.color_outputs, lo=0.0, hi=1.0),
+        labels=torch.randint(0, cfg.segmentation_outputs, (rays,), generator=gen, device=device),
+        t_mids=rand(gen, rays, rows, lo=0.1, hi=60.0),
+    )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white,noise", [(False, False), (True, True)])
+@pytest.mark.parametrize("rows", [13, 63])
+@pytest.mark.parametrize("variant", sorted(MIP_VARIANTS))
+def test_mip_eval_kernel_matches_plain(cuda, variant, rows, white, noise):
+    cfg, packed = mip_packed(variant, cuda)
+    a = mip_inputs(cfg, cuda, rays=37, rows=rows)
+    args = (packed, a["features"], a["dists"], a["t_mids"], a["noise"] if noise else None,
+            cfg.color_outputs, white)
+    before = _build.launch_counts[mip_train.EVAL_NAME]
+    got = mip_train.mip_eval(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[mip_train.EVAL_NAME] == before + 1
+    for g, r in zip(got, mip_train.mip_eval_plain(*args)):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_weight,white", [(0.0, False), (0.1, False), (0.25, True)])
+@pytest.mark.parametrize("rows", [13, 63])
+@pytest.mark.parametrize("variant", sorted(MIP_VARIANTS))
+def test_mip_train_grads_kernel_matches_plain(cuda, variant, rows, seg_weight, white):
+    cfg, packed = mip_packed(variant, cuda)
+    a = mip_inputs(cfg, cuda, rays=3, rows=rows)
+    args = (packed, a["features"], a["dists"], a["noise"], a["pixels"], a["labels"],
+            cfg.color_outputs, seg_weight, white)
+    before = _build.launch_counts[mip_train.TRAIN_NAME]
+    rgb_loss, seg_loss, d_packed = mip_train.mip_train_grads(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[mip_train.TRAIN_NAME] == before + 1
+    r_rgb, r_seg, r_packed = mip_train.mip_train_grads_plain(*args)
+    torch.testing.assert_close(rgb_loss, r_rgb, rtol=LOSS_RTOL, atol=0)
+    torch.testing.assert_close(seg_loss, r_seg, rtol=LOSS_RTOL, atol=0)
+    assert_grads_close(d_packed, r_packed)
+    if seg_weight == 0.0:  # the segmentation head gets zero gradients, as in JAX
+        assert not bool(d_packed["w_out"][:, 1 + cfg.color_outputs:].any())
+        assert not bool(d_packed["b_out"][1 + cfg.color_outputs:].any())
+
+
+@pytest.mark.cuda
+def test_mip_wrappers_raise_instead_of_falling_back(cuda):
+    cfg, packed = mip_packed("small", cuda)
+    with pytest.raises(ValueError, match="cpu"):
+        mip_mlp.mip_mlp_fwd(packed, torch.zeros(4, cfg.feature_dim))
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        mip_mlp.mip_mlp_fwd(packed, torch.zeros(4, cfg.feature_dim, device=cuda,
+                                                dtype=torch.bfloat16))
+    packed48 = mip_mlp.pack_mip_params(
+        MipMLP(MipNeRFConfig(hidden_size=48), device=cuda).requires_grad_(False))
+    with pytest.raises(ValueError, match="hidden width"):
+        mip_mlp.mip_mlp_bwd(packed48, torch.zeros(4, 96, device=cuda),
+                            torch.zeros(4, 54, device=cuda))
+    a = mip_inputs(cfg, cuda, rays=2, rows=mip_train.MAX_ROWS + 1)
+    with pytest.raises(ValueError, match="rows"):
+        mip_train.mip_eval(packed, a["features"], a["dists"], a["t_mids"])
+    a = mip_inputs(cfg, cuda, rays=2, rows=7)
+    with pytest.raises(ValueError, match="labels"):
+        mip_train.mip_train_grads(packed, a["features"], a["dists"], a["noise"], a["pixels"],
+                                  None, seg_weight=0.1)
+    with pytest.raises(ValueError, match="cpu"):
+        mip_train.mip_train_grads(packed, a["features"], a["dists"], a["noise"],
+                                  a["pixels"].cpu(), a["labels"], seg_weight=0.1)
+
+
+@pytest.mark.cuda
+def test_mip_paths_launch_their_kernels_and_match_plain(cuda):
+    from nerf_tpu_torch.train import loop
+
+    models = {}
+    for use_pallas in (False, True):
+        cfg = MipNeRFConfig(**MIP_VARIANTS["small"], use_pallas=use_pallas)
+        models[use_pallas] = MipNeRF(cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    rays_o, rays_d = rand(gen, 300, 3, lo=-0.5, hi=0.5), rand(gen, 300, 3)
+    render = RenderConfig(num_coarse_samples=16, randomly_sample=False)
+    _build.launch_counts.clear()
+    with torch.no_grad():
+        got = models[True].render_rays(rays_o, rays_d, render, fused_eval=True)
+        ref = models[False].render_rays(rays_o, rays_d, render, fused_eval=True)
+    assert _build.launch_counts == {mip_train.EVAL_NAME: 1}
+    for g, r in zip(got[:4], ref[:4]):
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-3)
+
+    train_render = RenderConfig(num_coarse_samples=16, randomly_sample=True, density_noise_std=1.0)
+    batch = {"rays_o": rays_o[:8], "rays_d": rays_d[:8], "pixels": rand(gen, 8, 3, lo=0.0, hi=1.0),
+             "labels": torch.randint(0, 5, (8,), generator=gen, device=cuda)}
+    draws = loop.draws_for_model(gen, models[True], train_render, 8, cuda)
+    with torch.enable_grad():
+        ref_loss, _ = loop.make_loss_fn(models[False], train_render, 0.1)(batch, draws)
+    names, params = zip(*models[False].named_parameters())
+    ref = dict(zip(names, torch.autograd.grad(ref_loss, params)))
+    _build.launch_counts.clear()
+    loss, grads, _ = loop.make_fused_loss_and_grads(models[True], train_render, 0.1)(batch, draws)
+    torch.cuda.synchronize()
+    assert _build.launch_counts == {mip_train.TRAIN_NAME: 1}
+    torch.testing.assert_close(loss, ref_loss.detach(), rtol=LOSS_RTOL, atol=0)
+    assert_grads_close(grads, ref)
+    _build.launch_counts.clear()
+    with torch.enable_grad():
+        loss, _ = loop.make_loss_fn(models[True], train_render, 0.1)(batch, draws)
+    names, params = zip(*models[True].named_parameters())
+    grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    assert _build.launch_counts == {mip_mlp.NAME: 1, mip_mlp.BWD_NAME: 1}
+    torch.testing.assert_close(loss.detach(), ref_loss.detach(), rtol=LOSS_RTOL, atol=0)
     assert_grads_close(grads, ref)
