@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit (``nvidia-smi``).
-2. Builds the port's nine CUDA kernels from ``nerf_tpu_torch/csrc`` with
+2. Builds the port's twelve CUDA kernels from ``nerf_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together) and prints the
    seconds it took and each kernel's registers and spills.
 3. Serving (slice 1): holds K1-fwd (``classic_mlp_fwd``, 262,144 points)
@@ -49,7 +49,25 @@
 10. Holds K5-fwd (258,048 random feature rows), K5-bwd (the same rows,
    random cotangents) and K6 (the trainer's inputs) against their plain
    versions, with their times and bounds.
-11. Prints the kernels' JSON line, the card line, then, last, the device
+11. K8 (slice 4), the MLP on raw points: one forward and backward of
+   ``point_mlp.classic_pointmlp`` under autograd on the 262,144 raw points
+   and directions of 4096 training rays x 64 stratified samples (the
+   counters are zeroed just before and must read one K8-fwd and one
+   K8-bwd after); then K8-fwd and K8-bwd against their plain versions and
+   K8-fwd against K1-fwd on the same encodings, with their times and
+   bounds.
+12. K9 (slice 4), the whole reuse step in one call: one
+   ``mega_train.mega_train_loss_and_grads`` step at 2048 rays x (64 +
+   128) of the training phase's settings, held against ``mega_train_plain``
+   (its own fine t-values held, and the plain resample's t-values against
+   the kernel's) and against the reuse route
+   (``reuse_train_loss_and_grads``); then 2 warm-up and 20 timed steps
+   with ``torch.optim.Adam`` at lr 1e-4, the counters zeroed just before:
+   each step must launch one ``mega_train`` and nothing else; every loss
+   finite, the probe batch's loss lower after the run; ms/step and rays/s
+   beside the reuse step's of phase 4.  Then K9 against its plain version
+   with its time and bound.
+13. Prints the kernels' JSON line, the card line, then, last, the device
    line.
 
 The classic model is the full-width ClassicNeRF (hidden 256, 60 + 36
@@ -87,8 +105,10 @@ from nerf_tpu_torch.ops.kernels import (
     _build,
     classic_mlp,
     fine_stage_train,
+    mega_train,
     mip_mlp,
     mip_train,
+    point_mlp,
     train_grads,
     union_eval,
 )
@@ -165,6 +185,23 @@ TOL = {
 }
 GRAD_REL_L2 = 1e-2
 LOSS_RTOL = 1e-4
+# K8: K1's tolerance (the same products; the encodings are the device's
+# sines of the same arguments in both versions).  K9 against the reuse
+# route: the JAX package's bound for its kernel against that route (loss
+# rtol 1e-4, every gradient within 5e-3 of the largest entry): the
+# fine samples move by a few ulp where the coarse weights are rounded
+# otherwise, and the top encoding octave magnifies that.  K9's fine
+# t-values against the plain resample, in probability: the plain cdf at
+# the kernel's t-values equals the uniforms within 2e-5 beyond the mass
+# that 4 ulp of t carry (the two versions' coarse weights differ by float32
+# rounding, about 1e-6 of the mass, and a bin holding less than the 1e-5
+# floor of mass is read as flat).  In t a sample in a nearly empty bin
+# moves by that rounding over the bin's mass, so t is only reported: its
+# share beyond 1e-4.
+TOL["classic_pointmlp_fwd"] = TOL["classic_mlp_fwd"]
+MEGA_VS_REUSE = dict(loss_rtol=1e-4, grad_of_max=5e-3)
+T_FINE_MASS, T_FINE_ATOL = 2e-5, 1e-4
+K8_RAYS, K8_SAMPLES = 4096, 64
 SOURCES = {
     "classic_mlp_fwd": ("nerf_tpu_torch/csrc/classic_mlp_fwd.cu",
                         "nerf_tpu/ops/pallas/fused_mlp.py:608"),
@@ -184,6 +221,12 @@ SOURCES = {
                  "nerf_tpu/ops/pallas/fused_mip_train.py:515"),
     "mip_train_grads": ("nerf_tpu_torch/csrc/mip_train_grads.cu",
                         "nerf_tpu/ops/pallas/fused_mip_train.py:366"),
+    "classic_pointmlp_fwd": ("nerf_tpu_torch/csrc/classic_pointmlp_fwd.cu",
+                             "nerf_tpu/ops/pallas/fused_mlp.py:608"),
+    "classic_pointmlp_bwd": ("nerf_tpu_torch/csrc/classic_pointmlp_bwd.cu",
+                             "nerf_tpu/ops/pallas/fused_mlp.py:673"),
+    "mega_train": ("nerf_tpu_torch/csrc/mega_train.cu",
+                   "nerf_tpu/ops/pallas/fused_mega.py:765"),
 }
 
 
@@ -448,8 +491,9 @@ def train_run(name, render, n_rays, bank, device, expected: dict, store: dict):
     return launches, ms
 
 
-def training(device, cfg: ClassicNeRFConfig) -> dict:
-    """Phases 4-6.  Returns the three training kernels' rows."""
+def training(device, cfg: ClassicNeRFConfig):
+    """Phases 4-6.  Returns the three training kernels' rows, the ray bank
+    and the reuse step's ms/step."""
     t0 = time.perf_counter()
     scene = synthesize_scene(num_views=8, image_hw=64, focal=80.0, device=device)
     bank = RayBank.from_images(scene.images, scene.pose_o, scene.pose_r, scene.focal)
@@ -489,7 +533,7 @@ def training(device, cfg: ClassicNeRFConfig) -> dict:
     print(f"training: reuse 2048x(64+128) {reuse_ms:.2f} ms/step = "
           f"{TRAIN_RAYS / reuse_ms * 1e3:.0f} rays/s; coarse-only 4096x64 {coarse_ms:.2f} ms/step "
           f"= {COARSE_RAYS / coarse_ms * 1e3:.0f} rays/s")
-    return rows
+    return rows, bank, reuse_ms
 
 
 def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
@@ -775,6 +819,196 @@ def mip_phases(device) -> dict:
     return rows
 
 
+def resample_mass_error(t_c, weights_c, u, t_fine):
+    """How far the plain cdf at K9's fine t-values is from their uniforms,
+    less the mass that 4 ulp of t carry there (where a narrow bin holds
+    much mass, one ulp of t is many ulp of mass)."""
+    bins, w = 0.5 * (t_c[:, 1:] + t_c[:, :-1]), weights_c[:, 1:-1]
+    step = 4 * 2.0 ** -23 * t_fine.abs()
+    slack = (sampling.pdf_cdf_at(bins, w, t_fine + step)
+             - sampling.pdf_cdf_at(bins, w, t_fine - step)) / 2
+    return ((sampling.pdf_cdf_at(bins, w, t_fine) - u).abs() - slack).clamp_min(0.0)
+
+
+def point_mlp_phase(device, cfg: ClassicNeRFConfig, bank) -> dict:
+    """Phase 11: K8 through ``classic_pointmlp`` under autograd, then K8-fwd
+    and K8-bwd against their plain versions.  Returns their rows."""
+    model = make_model(True, device)
+    args = (cfg.x_positional_encoding_size, cfg.normalize_position,
+            cfg.d_positional_encoding_size, cfg.direction_bound)
+    gen = torch.Generator(device=device).manual_seed(11)
+    batch = bank.sample_batch(gen, K8_RAYS)
+    t_vals = sampling.sample_linear(gen, (K8_RAYS,), K8_SAMPLES, TRAIN_RENDER.near,
+                                    TRAIN_RENDER.far, device=device)
+    points = (batch["rays_o"][:, None] + batch["rays_d"][:, None] * t_vals[..., None]).reshape(-1, 3)
+    dirs = batch["rays_d"][:, None].expand(K8_RAYS, K8_SAMPLES, 3).reshape(-1, 3).contiguous()
+    n_points = points.shape[0]
+
+    # The main path: one forward and backward through the kernels.
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    density, color = point_mlp.classic_pointmlp(model, points, dirs, *args)
+    loss = torch.mean((torch.sigmoid(color) - 0.5) ** 2) + torch.mean(torch.relu(density))
+    names, params = zip(*model.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    print(f"K8 at {n_points} raw points ({K8_RAYS} rays x {K8_SAMPLES}): launches {launches}",
+          flush=True)
+    check(launches == {point_mlp.NAME: 1, point_mlp.BWD_NAME: 1},
+          "K8: the forward and backward launched one K8-fwd and one K8-bwd, nothing else")
+    check(all(bool(torch.isfinite(g).all()) for g in grads) and bool(torch.isfinite(loss)),
+          "K8: loss and gradients are finite")
+
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    weight_bytes = tensor_bytes(*packed.values())
+    consts = point_mlp.encoding_consts(*args, device)
+    flops = n_points * classic_flops_per_point(cfg)
+    rows = {}
+    with torch.no_grad():
+        got = point_mlp.classic_pointmlp_fwd(packed, points, dirs, consts)
+        ref = point_mlp.classic_pointmlp_fwd_plain(packed, points, dirs, consts)
+        torch.cuda.synchronize()
+        err = compare("classic_pointmlp_fwd", [got], [ref])
+        x_enc = torch.sin(points @ consts[0] + consts[1])
+        d_enc = torch.sin(dirs @ consts[2] + consts[3])
+        k1 = classic_mlp.classic_mlp_fwd(packed, x_enc, d_enc)
+        torch.cuda.synchronize()
+        print("K8-fwd against K1-fwd on the same encodings:")
+        compare("classic_pointmlp_fwd", [got], [k1])
+        ms = cuda_ms(lambda: point_mlp.classic_pointmlp_fwd(packed, points, dirs, consts), iters=10)
+        plain_ms = cuda_ms(
+            lambda: point_mlp.classic_pointmlp_fwd_plain(packed, points, dirs, consts), iters=10)
+        k1_ms = cuda_ms(lambda: classic_mlp.classic_mlp_fwd(packed, x_enc, d_enc), iters=10)
+        print(f"K8-fwd {ms:.3f} ms, K1-fwd on the encodings {k1_ms:.3f} ms, at {n_points} points")
+    rows["classic_pointmlp_fwd"] = (launches[point_mlp.NAME], dict(
+        max_abs=err, ms=ms, plain_ms=plain_ms, flops=flops,
+        nbytes=tensor_bytes(points, dirs, got, *consts) + weight_bytes))
+
+    g_out = torch.rand((n_points, 4), generator=gen, device=device) * 2 - 1
+    got = point_mlp.classic_pointmlp_bwd(packed, points, dirs, consts, g_out)
+    ref = point_mlp.classic_pointmlp_bwd_plain(packed, points, dirs, consts, g_out)
+    err = compare_grads("classic_pointmlp_bwd", {"dpoints": got[0], "ddirs": got[1], **got[2]},
+                        {"dpoints": ref[0], "ddirs": ref[1], **ref[2]})
+    ms = cuda_ms(lambda: point_mlp.classic_pointmlp_bwd(packed, points, dirs, consts, g_out),
+                 iters=5)
+    plain_ms = cuda_ms(
+        lambda: point_mlp.classic_pointmlp_bwd_plain(packed, points, dirs, consts, g_out), iters=3)
+    no_input_ms = cuda_ms(lambda: point_mlp.classic_pointmlp_bwd(
+        packed, points, dirs, consts, g_out, input_grads=False), iters=5)
+    print(f"K8-bwd {ms:.3f} ms with the raw inputs' cotangents, {no_input_ms:.3f} ms without "
+          f"(as the main path calls it), at {n_points} points")
+    rows["classic_pointmlp_bwd"] = (launches[point_mlp.BWD_NAME], dict(
+        max_abs=err, ms=ms, plain_ms=plain_ms, flops=3 * flops,
+        nbytes=tensor_bytes(points, dirs, g_out, *got[:2], *consts) + 2 * weight_bytes))
+    return rows
+
+
+def mega_phase(device, cfg: ClassicNeRFConfig, bank, reuse_ms: float) -> dict:
+    """Phase 12: one K9 step against its plain version and the reuse route,
+    then the K9 train loop, then K9 against its plain version with its
+    time.  Returns K9's row."""
+    render, n_rays = TRAIN_RENDER, TRAIN_RAYS
+    gen = torch.Generator(device=device).manual_seed(7)
+    batch = bank.sample_batch(gen, n_rays)
+    draws = sampling.draw_step(gen, render, n_rays, device)
+    model = make_model(True, device)
+    check(mega_train.supports_mega(model, render, batch), "K9 covers the reuse configuration")
+    _build.launch_counts.clear()
+    loss, grads, aux = mega_train.mega_train_loss_and_grads(model, render, batch, draws,
+                                                            emit_t_fine=True)
+    torch.cuda.synchronize()
+    check(dict(_build.launch_counts) == {mega_train.NAME: 1}, "K9 step: one mega_train launch")
+
+    # Against the plain version with the kernel's own fine t-values, and
+    # the plain resample's t-values against the kernel's.
+    inputs = mega_train.mega_inputs(model, batch, draws)
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    p_loss_c, p_loss_f, p_grads, _ = mega_train.mega_train_plain(packed, *inputs,
+                                                                 t_fine=aux["t_fine"])
+    names, params = zip(*model.named_parameters())
+    k_loss_c, k_loss_f, k_grads, t_fine = mega_train.mega_train(packed, *inputs)
+    err = compare_grads("mega_train", k_grads, p_grads, k_loss_c + k_loss_f,
+                        p_loss_c + p_loss_f)
+    x_enc_c, d_ray, t_c, noise_c, u, _, _, rays_d = inputs[:8]
+    weights_c = mega_train.coarse_weights_plain(packed, x_enc_c, d_ray, t_c, noise_c, rays_d)
+    mass_err = float(resample_mass_error(t_c, weights_c, u, t_fine).max())
+    *_, plain_t = mega_train.mega_train_plain(packed, *inputs)
+    t_err = (t_fine - plain_t).abs()
+    print(f"mega_train t_fine against the plain resample: the plain cdf at them is within "
+          f"{mass_err:.3e} of the uniforms (tolerance {T_FINE_MASS}); in t max abs err "
+          f"{float(t_err.max()):.3e}, share beyond {T_FINE_ATOL}: "
+          f"{float((t_err > T_FINE_ATOL).float().mean()):.2e}")
+    check(mass_err <= T_FINE_MASS, "K9's fine t-values match the plain resample")
+
+    # Against the reuse route (K1-fwd, K3, K1-bwd).
+    model.requires_grad_(True)
+    r_loss, r_grads, r_aux = fine_stage_train.reuse_train_loss_and_grads(model, render, batch,
+                                                                         draws)
+    flat = torch.cat([grads[k].ravel() for k in names])
+    r_flat = torch.cat([r_grads[k].ravel() for k in names])
+    grad_err = float((flat - r_flat).abs().max() / r_flat.abs().max())
+    loss_err = abs(float(loss) - float(r_loss)) / abs(float(r_loss))
+    print(f"K9 step against the reuse route: loss {float(loss):.7g} vs {float(r_loss):.7g} "
+          f"(rel err {loss_err:.3e}, tolerance {MEGA_VS_REUSE['loss_rtol']}); largest gradient "
+          f"difference {grad_err:.3e} of the largest entry (tolerance "
+          f"{MEGA_VS_REUSE['grad_of_max']})")
+    check(loss_err <= MEGA_VS_REUSE["loss_rtol"] and grad_err <= MEGA_VS_REUSE["grad_of_max"],
+          "K9 step matches the reuse route")
+
+    # The K9 train loop.
+    model = make_model(True, device)
+    names, params = zip(*model.named_parameters())
+    opt = torch.optim.Adam(params, lr=LEARNING_RATE)
+    gen = torch.Generator(device=device).manual_seed(99)
+    probe = (bank.sample_batch(gen, n_rays), sampling.draw_step(gen, render, n_rays, device))
+
+    def probe_loss():
+        return float(mega_train.mega_train_loss_and_grads(model, render, *probe)[0])
+
+    def step():
+        b = bank.sample_batch(gen, n_rays)
+        d = sampling.draw_step(gen, render, n_rays, device)
+        step_loss, step_grads, _ = mega_train.mega_train_loss_and_grads(model, render, b, d)
+        for name, p in zip(names, params):
+            p.grad = step_grads[name]
+        opt.step()
+        return step_loss
+
+    loss_before = probe_loss()
+    losses = [step() for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    launches = dict(_build.launch_counts)
+    loss_after = probe_loss()
+    losses = torch.stack(losses).cpu()
+    name = "train 2048x(64+128) K9"
+    print(f"{name}: {ms:.2f} ms/step, {n_rays / ms * 1e3:.0f} rays/s over {TIMED_STEPS} steps "
+          f"(reuse route {reuse_ms:.2f} ms/step, {n_rays / reuse_ms * 1e3:.0f} rays/s); launches "
+          f"{launches}; step losses {[round(float(v), 5) for v in losses]}", flush=True)
+    check(launches == {mega_train.NAME: TIMED_STEPS},
+          f"{name}: each step launched one mega_train and nothing else")
+    check(bool(torch.isfinite(losses).all()), f"{name}: every loss is finite")
+    check(loss_after < loss_before,
+          f"{name}: the probe batch's loss fell from {loss_before:.6f} to {loss_after:.6f} "
+          f"over {WARMUP_STEPS + TIMED_STEPS} steps")
+
+    with torch.no_grad():
+        kernel_ms = cuda_ms(lambda: mega_train.mega_train(packed, *inputs), iters=5)
+        plain_ms = cuda_ms(lambda: mega_train.mega_train_plain(packed, *inputs), iters=3)
+    sc, sf = render.num_coarse_samples, render.num_fine_samples
+    print(f"mega_train at {n_rays} rays x ({sc} + {sf}): {kernel_ms:.3f} ms")
+    nbytes = (tensor_bytes(*[a for a in inputs if a is not None], t_fine) + 8
+              + 2 * tensor_bytes(*packed.values()))
+    return {"mega_train": (launches[mega_train.NAME], dict(
+        max_abs=err, ms=kernel_ms, plain_ms=plain_ms, flops=train_step_flops(cfg, n_rays, sc + sf),
+        nbytes=nbytes))}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -805,10 +1039,13 @@ def main() -> int:
 
     cfg = ClassicNeRFConfig(normalize_position=6.0)
     rows = serving(device, classic_flops_per_point(cfg))
-    rows.update(training(device, cfg))
+    train_rows, bank, reuse_ms = training(device, cfg)
+    rows.update(train_rows)
     rows.update(mip_phases(device))
+    rows.update(point_mlp_phase(device, cfg, bank))
+    rows.update(mega_phase(device, cfg, bank, reuse_ms))
 
-    # 11. Result lines.
+    # 13. Result lines.
     print(json.dumps({"kernels": [kernel_row(name, launches, **row)
                                   for name, (launches, row) in rows.items()]}))
     print(card)

@@ -87,10 +87,30 @@ __global__ void transpose_slabs_kernel(const float* __restrict__ in, int H,
 // 1. Forward that stores the chain.
 // ---------------------------------------------------------------------------
 
-template <int H>
+// The encodings of a tile read from global memory: x [P][xe] and d, whose
+// row r / d_div serves row r (d_div > 1: per-ray view encodings).
+struct TileLoad {
+  const float* x;
+  const float* d;
+  int d_div;
+  __device__ void operator()(const Weights& w, float* xs, float* ds, size_t row0,
+                             int nvalid) const {
+    load_tile(xs, x, row0, nvalid, w.xe, 1);
+    if (w.wd != nullptr) load_tile(ds, d, row0, nvalid, w.de, d_div);
+  }
+};
+
+// The stored-chain forward of the P rows of a call: tile row r of block b
+// is row 64 b + r of the call and row base + 64 b + r of the chain, whose
+// layers are `stride` rows apart (base 0 and stride P but where two calls
+// fill one chain, as K9's coarse and fine stages do).  load(w, xs, ds,
+// row0, nvalid) fills the tile's zero-padded encoding tiles (load_tile's
+// layout): TileLoad reads them from global memory, the K8 and K9 loaders
+// compute them.
+template <int H, class Load>
 __global__ void __launch_bounds__(kThreads, 2)
-    fwd_store_kernel(Weights w, const float* __restrict__ x, const float* __restrict__ d,
-                     int d_div, float* __restrict__ out, int P, float* xhat, float* stats) {
+    fwd_store_kernel(Weights w, Load load, float* __restrict__ out, int P, float* xhat,
+                     float* stats, size_t stride, size_t base) {
   extern __shared__ float4 smem4[];
   float* act = reinterpret_cast<float*>(smem4);
   float* wbuf = act + kTileRows * H;
@@ -98,10 +118,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* ds = xs + kTileRows * round_up4(w.xe);
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  load_tile(xs, x, row0, nvalid, w.xe, 1);
-  if (w.wd != nullptr) load_tile(ds, d, row0, nvalid, w.de, d_div);
+  load(w, xs, ds, row0, nvalid);
   __syncthreads();
-  const Save save{xhat, stats, static_cast<size_t>(P), row0, nvalid};
+  const Save save{xhat, stats, stride, base + row0, nvalid};
   mlp_tile<H, true>(w, xs, ds, act, wbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid, &save);
 }
 
@@ -389,6 +408,10 @@ struct WProd {
   int a_ld, M, n, div, relu;
   size_t out_off;
   int tiles_m, tiles_n;
+  // With split > 0 the raw encoding's rows serve two stages: point p <
+  // split reads row p / div, point p >= split row (p - split) / div2 (K9's
+  // per-ray view encodings under its coarse-then-fine rows).
+  int split, div2;
 };
 
 struct WProds {
@@ -432,7 +455,8 @@ __global__ void __launch_bounds__(256, 2)
     for (int e = 0; e < kSteps; ++e) {
       const int p = k0 + kk0 + 2 * e;
       const bool in_k = p < k_end;
-      const int row = pr.div == 1 ? p : p / pr.div;  // no division on the common path
+      int row = p;  // no division on the common path
+      if (pr.div != 1) row = pr.split > 0 && p >= pr.split ? (p - pr.split) / pr.div2 : p / pr.div;
       const float av = in_k && a_ok ? fmaf(A[static_cast<size_t>(row) * pr.a_ld], ga, ba) : 0.f;
       ra[e] = pr.relu ? fmaxf(av, 0.f) : av;
       rb[e] = in_k && b_ok ? B[static_cast<size_t>(p) * N] : 0.f;
@@ -526,27 +550,40 @@ inline cudaError_t colsum(const float* in, int T, size_t F, float* out, float* t
 // Host side.
 // ---------------------------------------------------------------------------
 
+// Pass 1 on the P rows of a call, their tiles from `load`; the chain's
+// rows base .. base + P - 1 of `stride` (fwd_store_kernel).
+template <int H, class Load>
+cudaError_t launch_fwd_store_with(const Weights& w, const Load& load, float* out, int P,
+                                  const Scratch& s, cudaStream_t stream, size_t stride,
+                                  size_t base) {
+  const size_t smem =
+      (static_cast<size_t>(kTileRows) * H + mlp_side_floats<H>(w.xe, w.de)) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(fwd_store_kernel<H, Load>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int tiles = (P + kTileRows - 1) / kTileRows;
+  fwd_store_kernel<H, Load><<<tiles, kThreads, smem, stream>>>(w, load, out, P, s.xhat,
+                                                                s.stats, stride, base);
+  return cudaGetLastError();
+}
+
 template <int H>
 cudaError_t launch_fwd_store(const Weights& w, const float* x, const float* d, int d_div,
                              float* out, int P, const Scratch& s, cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(kTileRows) * H + mlp_side_floats<H>(w.xe, w.de)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_store_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int tiles = (P + kTileRows - 1) / kTileRows;
-  fwd_store_kernel<H><<<tiles, kThreads, smem, stream>>>(w, x, d, d_div, out, P, s.xhat,
-                                                          s.stats);
-  return cudaGetLastError();
+  return launch_fwd_store_with<H>(w, TileLoad{x, d, d_div}, out, P, s, stream,
+                                  static_cast<size_t>(P), 0);
 }
 
 // Passes 2-4 from the output cotangents gout: grads (the flat gradient,
 // wgrad_floats + tile_floats) and, when not null, dx and dd.  x, d and
-// d_div are the forward's encoded inputs.
+// d_div are the forward's encoded inputs; with d_split > 0, d's rows serve
+// points p >= d_split as row (p - d_split) / d_div2 (WProd::split).
 template <int H>
 cudaError_t launch_mlp_backward(const Weights& w, const float* x, const float* d, int d_div,
                                 const float* gout, int P, const Scratch& s, float* dx,
-                                float* dd, float* grads, cudaStream_t stream) {
+                                float* dd, float* grads, cudaStream_t stream,
+                                int d_split = 0, int d_div2 = 1) {
   const int L = num_layers(w);
   transpose_slabs_kernel<<<dim3(H / 32, H / 32, L - 1), dim3(32, 8), 0, stream>>>(w.whh, H,
                                                                                   s.wt);
@@ -573,7 +610,8 @@ cudaError_t launch_mlp_backward(const Weights& w, const float* x, const float* d
   prods.p[n++] = WProd{x, nullptr, nullptr, dpre(4), w.xe, w.xe, H, 1, 0, off, tx, tn};
   off += static_cast<size_t>(w.xe) * H;
   if (w.wd != nullptr) {
-    prods.p[n++] = WProd{d, nullptr, nullptr, dpre(8), w.de, w.de, H, d_div, 0, off, td, tn};
+    prods.p[n++] = WProd{d, nullptr, nullptr, dpre(8), w.de, w.de, H, d_div, 0, off, td, tn,
+                         d_split, d_div2};
     off += static_cast<size_t>(w.de) * H;
   }
   for (int k = 0; k < L - 1; ++k) {

@@ -3,7 +3,8 @@ the HEAD-generation (mip) MLP.
 
 Counterpart of ``nerf_tpu/models/mlp.py`` (``init_classic_mlp``,
 ``apply_classic_mlp``, ``init_mip_mlp``, ``apply_mip_mlp``,
-``count_params``).  The classic MLP:
+``init_residual_block``, ``apply_residual_block``, ``count_params``).  The
+classic MLP:
 
 * ``block_0``: 4 x (Linear -> ReLU -> LayerNorm) on the x encoding;
 * ``block_1``: 4 more, the first on the skip concat ``[h, x_enc]``;
@@ -137,6 +138,38 @@ class MipMLP(nn.Module):
         out = self.prediction_heads(features)
         c = self.cfg.color_outputs
         return out[..., :1], out[..., 1:1 + c], out[..., 1 + c:]
+
+
+class ResidualBlock(nn.Module):
+    """The reference's residual block (dead code there, kept for parity):
+    ``LayerNorm(x + Linear(GELU(Linear(x))))``, GELU in its exact erf
+    form, with the reference's ``state_dict`` keys (``linear_one``,
+    ``linear_two``, ``layer_norm``)."""
+
+    def __init__(self, hidden_size: int, feedforward_size: int,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        super().__init__()
+        self.linear_one = nn.Linear(hidden_size, feedforward_size)
+        self.linear_two = nn.Linear(feedforward_size, hidden_size)
+        self.layer_norm = nn.LayerNorm(hidden_size, eps=LAYER_NORM_EPS)
+        _reset_parameters(self, generator)
+        self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.linear_two(torch.nn.functional.gelu(self.linear_one(x)))
+        return self.layer_norm(x + h)
+
+
+def init_residual_block(hidden_size: int, feedforward_size: int,
+                        generator: Optional[torch.Generator] = None,
+                        device="cuda") -> ResidualBlock:
+    """A ``ResidualBlock`` with torch's ``nn.Linear`` initialisation drawn
+    from ``generator`` and the LayerNorm at identity."""
+    return ResidualBlock(hidden_size, feedforward_size, generator, device)
+
+
+def apply_residual_block(block: ResidualBlock, x: torch.Tensor) -> torch.Tensor:
+    return block(x)
 
 
 def count_params(module: nn.Module) -> int:

@@ -4,8 +4,10 @@ PyTorch counterpart of ``nerf_tpu/ops/compositing.py``: interval lengths
 from t-values or from 3-D points with the ``1e10`` far pad,
 ``alpha = exp(-relu(sigma) * dist)``, transmittance as the shifted product
 of ``alpha + 1e-10``, the order-free union compositing of two sorted
-sample blocks that the hierarchical-reuse renderer uses, and the mip
-family's log-space segmentation composite.
+sample blocks that the hierarchical-reuse renderer uses, the order-free
+compositing of samples in any order (``unsorted_dists``,
+``weights_from_unsorted``), and the mip family's log-space segmentation
+composite.
 
 Shapes: density ``[..., S, 1]``, t-values ``[..., S]``, points
 ``[..., S, 3]``, weights ``[..., S, 1]``.
@@ -52,6 +54,43 @@ def weights_from_density(density: torch.Tensor, dists: torch.Tensor) -> torch.Te
 def compositing_weights(points: torch.Tensor, density: torch.Tensor) -> torch.Tensor:
     """Weights from 3-D sample points and density (the mip family)."""
     return weights_from_density(density, distances_from_points(points))
+
+
+def _after_mask(t_vals: torch.Tensor) -> torch.Tensor:
+    """``after[..., i, j]``: sample j comes after sample i in the total
+    order (t value, then array index)."""
+    t_i, t_j = t_vals[..., :, None], t_vals[..., None, :]
+    idx = torch.arange(t_vals.shape[-1], device=t_vals.device)
+    return (t_j > t_i) | ((t_j == t_i) & (idx[None, :] > idx[:, None]))
+
+
+def unsorted_dists(t_vals: torch.Tensor, rays_d: torch.Tensor) -> torch.Tensor:
+    """Interval lengths of samples in ANY order along each ray: each
+    sample's successor in the total order (t value, the array index
+    breaking ties) minus its t, times ``||d||``; the ray's last sample
+    gets ``1e10``.  ``t_vals [..., S]``, ``rays_d [..., 3]`` ->
+    ``[..., S, 1]``."""
+    succ = torch.amin(torch.where(_after_mask(t_vals), t_vals[..., None, :], float("inf")),
+                      dim=-1)
+    norm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    return torch.where(torch.isfinite(succ), (succ - t_vals) * norm, _FAR)[..., None]
+
+
+def weights_from_unsorted(
+    density: torch.Tensor, t_vals: torch.Tensor, rays_d: torch.Tensor
+) -> torch.Tensor:
+    """Compositing weights of samples in ANY order, without sorting them:
+    ``alpha`` over ``unsorted_dists`` and each sample's transmittance the
+    exponential of the summed ``log(alpha + 1e-10)`` of the samples before
+    it in the same total order (t value, then array index, so a tied pair
+    composites as a stable sort would order it).  ``density [..., S, 1]``
+    -> ``[..., S, 1]`` in the input order; the order-free oracle of the
+    union weights of K3, K4 and K9."""
+    before = _after_mask(t_vals).transpose(-1, -2)
+    alpha = torch.exp(-torch.relu(density) * unsorted_dists(t_vals, rays_d))
+    log_a = torch.log(alpha[..., 0] + 1e-10)
+    log_t = torch.sum(torch.where(before, log_a[..., None, :], 0.0), dim=-1)
+    return (1.0 - alpha) * torch.exp(log_t)[..., None]
 
 
 def _union_cross_masks(

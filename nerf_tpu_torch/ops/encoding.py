@@ -2,9 +2,12 @@
 
 PyTorch counterpart of ``nerf_tpu/ops/encoding.py``:
 
-* the classic half, ``bbox_frequency_scales``, ``frequency_scales_np`` and
-  ``frequency_encoding``, with the same ``[sin(x*f_0..f_{L-1}),
-  cos(x*f_0..f_{L-1})]`` per-scalar feature layout;
+* the classic half, ``bbox_frequency_scales``, ``frequency_scales_np``,
+  ``frequency_encoding`` and ``attenuated_frequency_encoding``, with the
+  same ``[sin(x*f_0..f_{L-1}), cos(x*f_0..f_{L-1})]`` per-scalar feature
+  layout, and the constants of the kernels that encode inside themselves:
+  ``enc_consts`` (K8, ``nerf_tpu/ops/pallas/fused_mlp.py::_enc_consts``)
+  and ``frequency_placement`` (K9);
 * the mip half, ``expected_sin``, ``lift_gaussian``,
   ``conical_frustum_to_gaussian``, ``cylinder_to_gaussian``, ``cast_rays``
   and ``integrated_pos_enc``, term for term (the same closed forms, the
@@ -65,6 +68,60 @@ def frequency_encoding(x: torch.Tensor, frequency_scales: torch.Tensor) -> torch
     xf = x[..., :, None] * frequency_scales  # [..., D, L]
     emb = torch.cat([torch.sin(xf), torch.cos(xf)], dim=-1)  # [..., D, 2L]
     return emb.reshape(emb.shape[:-2] + (-1,))
+
+
+def attenuated_frequency_encoding(
+    x: torch.Tensor, diag_covariance: torch.Tensor, frequency_scales: torch.Tensor
+) -> torch.Tensor:
+    """``frequency_encoding`` with IPE-style attenuation: each feature is
+    scaled by ``exp(-0.5 * f^2 * var)`` of its scalar's variance
+    ``diag_covariance [..., D]`` (the amplitude the reference computes and
+    never applies), an anti-aliased classic encoder."""
+    xf = x[..., :, None] * frequency_scales
+    amplitude = torch.exp(-0.5 * (frequency_scales ** 2) * diag_covariance[..., :, None])
+    emb = torch.cat([amplitude * torch.sin(xf), amplitude * torch.cos(xf)], dim=-1)
+    return emb.reshape(emb.shape[:-2] + (-1,))
+
+
+def enc_consts(size: int, bound: float, dims: int = 3) -> Tuple[np.ndarray, np.ndarray]:
+    """K8's encoding constants ``(S [dims, dims*size], phase [1, dims*size])``
+    with ``sin(x @ S + phase)`` the frequency encoding of ``x [..., dims]``:
+    row ``c`` holds the ``size // 2`` frequencies in scalar ``c``'s sin and
+    cos blocks, the cos block with phase ``pi/2``.  The frequencies are
+    computed in float64 and rounded to float32 once, as
+    ``nerf_tpu/ops/pallas/fused_mlp.py::_enc_consts`` computes them, so
+    both give the same bits (they are not ``frequency_scales_np``'s)."""
+    half = size // 2
+    start = -np.log2(bound)
+    f = np.power(2.0, np.linspace(start, start + half - 1.0, half)) * (np.pi / 2.0)
+    s = np.zeros((dims, dims * size), np.float32)
+    phase = np.zeros((1, dims * size), np.float32)
+    for c in range(dims):
+        s[c, c * size:c * size + half] = f
+        s[c, c * size + half:c * size + 2 * half] = f
+        phase[0, c * size + half:c * size + 2 * half] = np.pi / 2.0
+    return s, phase
+
+
+def frequency_placement(
+    scales: torch.Tensor, dims: int = 3
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The lane placement of the flat frequency encoder (K9's fine
+    encoding): ``(S [dims, dims*2L], is_cos [1, dims*2L])`` on ``scales``'s
+    device, row ``c`` carrying the given ``L`` scales in scalar ``c``'s sin
+    and cos blocks and ``is_cos`` 1 on the cos lanes.  It takes the scale
+    tensor itself (a model's ``x_scales`` buffer) and computes nothing
+    anew, so ``sum_c x_c * S[c]`` is bitwise ``frequency_encoding``'s
+    sine argument for the same scales."""
+    half = scales.shape[-1]
+    size = 2 * half
+    s = torch.zeros((dims, dims * size), dtype=scales.dtype, device=scales.device)
+    is_cos = torch.zeros((1, dims * size), dtype=scales.dtype, device=scales.device)
+    for c in range(dims):
+        s[c, c * size:c * size + half] = scales
+        s[c, c * size + half:c * size + size] = scales
+        is_cos[0, c * size + half:c * size + size] = 1.0
+    return s, is_cos
 
 
 # -- mip-NeRF integrated positional encoding ---------------------------------

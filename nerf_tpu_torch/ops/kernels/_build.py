@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 KERNELS = (
     "classic_mlp_fwd", "union_eval", "classic_mlp_bwd", "train_grads", "fine_stage_train",
     "mip_mlp_fwd", "mip_mlp_bwd", "mip_eval", "mip_train_grads",
+    "classic_pointmlp_fwd", "classic_pointmlp_bwd", "mega_train",
 )
 
 launch_counts: collections.Counter = collections.Counter()
@@ -70,6 +71,17 @@ ARGTYPES = {
     # seg_weight, weights, xhat stats dpre wpart tpart tmp wt out gout
     # ray_loss splits stream
     "mip_train_grads": (_P,) * 7 + (_I,) * 8 + (_F,) + _MIP_WEIGHT_ARGS + (_P,) * 10 + (_I, _P),
+    # pts dirs out P xe de hidden c sx phx sd phd, weights, stream
+    "classic_pointmlp_fwd": (_P,) * 3 + (_I,) * 5 + (_P,) * 4 + _WEIGHT_ARGS + (_P,),
+    # pts dirs gout dpts ddirs grads P xe de hidden c sx phx sd phd, weights,
+    # xhat stats dpre wpart tpart tmp wt out x_enc d_enc dx_enc dd_enc splits
+    # stream
+    "classic_pointmlp_bwd": (_P,) * 6 + (_I,) * 5 + (_P,) * 4 + _WEIGHT_ARGS + (_P,) * 12
+    + (_I, _P),
+    # xc d_ray t_c noise_c u noise_f rays_o rays_d pix S is_cos loss grads
+    # t_fine R Sc Sf xe de hidden c white exact_trig, weights, xhat stats dpre
+    # wpart tpart tmp wt out gout x_all dnorm ray_loss splits stream
+    "mega_train": (_P,) * 14 + (_I,) * 9 + _WEIGHT_ARGS + (_P,) * 12 + (_I, _P),
 }
 
 

@@ -1,0 +1,244 @@
+"""K8: the classic NeRF point MLP on RAW points and view directions, the
+frequency encoding computed inside the kernel, forward and backward.
+
+Counterpart of ``nerf_tpu/ops/pallas/fused_mlp.py::classic_pointmlp_pallas``
+(K1's two ``pallas_call``s with ``fuse_encoding=True``).  The encoding is
+``sin(x @ S + phase)`` on the constants of ``encoding.enc_consts``.
+K8-fwd is ``csrc/classic_pointmlp_fwd.cu``, K8-bwd
+``csrc/classic_pointmlp_bwd.cu`` (device code in ``csrc/encode.cuh`` and
+K1's ``csrc/classic_mlp{,_train}.cuh``); ``classic_pointmlp_fwd_plain`` and
+``classic_pointmlp_bwd_plain`` are their plain PyTorch versions, which the
+wrappers run for CPU tensors.  Under autograd the call runs as
+``ClassicPointMLPFunction``, whose backward is K8-bwd: it returns the
+weights' gradients and the raw points' and directions'.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+
+from nerf_tpu_torch.ops import encoding
+from nerf_tpu_torch.ops.kernels import _build
+from nerf_tpu_torch.ops.kernels.classic_mlp import (
+    HIDDEN_WIDTHS,
+    MAX_COLORS,
+    PACK_ORDER,
+    Packed,
+    _packed_from_args,
+    check_inputs,
+    classic_mlp_fwd_plain,
+    flat_grads_to_packed,
+    pack_classic_params,
+    packed_grads_plain,
+    scratch_pointers,
+    train_scratch,
+    weight_pointers,
+)
+
+NAME = "classic_pointmlp_fwd"
+BWD_NAME = "classic_pointmlp_bwd"
+
+Consts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]  # sx, phx, sd, phd
+
+
+def encoding_consts(x_size: int, x_bound: float, d_size: int, d_bound: float,
+                    device) -> Consts:
+    """``(sx [3, 3 x_size], phx [3 x_size], sd [3, 3 d_size], phd [3 d_size])``
+    from ``encoding.enc_consts`` on ``device``."""
+    sx, phx = encoding.enc_consts(x_size, x_bound)
+    sd, phd = encoding.enc_consts(d_size, d_bound)
+    return tuple(torch.as_tensor(a, device=device) for a in (sx, phx[0], sd, phd[0]))
+
+
+def _encode(points: torch.Tensor, s: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
+    return torch.sin(points @ s + phase)
+
+
+def classic_pointmlp_fwd_plain(packed: Packed, points: torch.Tensor, dirs: torch.Tensor,
+                               consts: Consts) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: ``sin(x @ S + phase)`` of
+    both inputs, then ``classic_mlp_fwd_plain``; ``[P, 1 + C]``."""
+    sx, phx, sd, phd = consts
+    return classic_mlp_fwd_plain(packed, _encode(points, sx, phx), _encode(dirs, sd, phd))
+
+
+def classic_pointmlp_bwd_plain(
+    packed: Packed, points: torch.Tensor, dirs: torch.Tensor, consts: Consts,
+    g_out: torch.Tensor, input_grads: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Packed]:
+    """The backward kernel's function in plain PyTorch: the vector-Jacobian
+    product of ``classic_pointmlp_fwd_plain`` with ``g_out [P, 1 + C]``."""
+    ins = (points, dirs) if input_grads else ()
+
+    def objective(w, *raw):
+        p, d = raw if input_grads else (points, dirs)
+        return classic_pointmlp_fwd_plain(w, p, d, consts), g_out
+
+    in_grads, d_packed = packed_grads_plain(packed, ins, objective)
+    return (*in_grads, d_packed) if input_grads else (None, None, d_packed)
+
+
+def _check(name: str, packed: Packed, points, dirs, consts, extra=None) -> torch.device:
+    if "wd_in" not in packed:
+        raise ValueError(f"{name}: covers the view-conditioned architecture only; use "
+                         "classic_mlp.classic_mlp_fwd(x_enc, None) without the view branch")
+    sx, phx, sd, phd = consts
+    tensors = {"points": points, "dirs": dirs, "sx": sx, "phx": phx, "sd": sd, "phd": phd}
+    device = check_inputs(name, packed, {**tensors, **(extra or {})})
+    n_points = points.shape[0]
+    expected = {
+        "points": (points, (n_points, 3)), "dirs": (dirs, (n_points, 3)),
+        "sx": (sx, (3, packed["w0"].shape[0])), "phx": (phx, (packed["w0"].shape[0],)),
+        "sd": (sd, (3, packed["wd_in"].shape[0])), "phd": (phd, (packed["wd_in"].shape[0],)),
+    }
+    if extra:
+        expected["g_out"] = (extra["g_out"], (n_points, 1 + packed["w_col"].shape[1]))
+    for key, (t, shape) in expected.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} must be {shape}, got {tuple(t.shape)}")
+    if device.type == "cuda":
+        hidden = packed["w0"].shape[1]
+        if hidden not in HIDDEN_WIDTHS:
+            raise ValueError(f"{name}: hidden width {hidden} not in {HIDDEN_WIDTHS}")
+        if packed["w_col"].shape[1] > MAX_COLORS:
+            raise ValueError(f"{name}: at most {MAX_COLORS} color outputs")
+    return device
+
+
+def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tensor,
+                         consts: Consts) -> torch.Tensor:
+    """K8-fwd on ``points [P, 3]``, ``dirs [P, 3]`` -> ``[P, 1 + C]`` rows of
+    ``[density, color logits]``.  CPU tensors run
+    ``classic_pointmlp_fwd_plain``; CUDA tensors launch the kernel (raising
+    on what it does not take)."""
+    device = _check(NAME, packed, points, dirs, consts)
+    if device.type == "cpu":
+        return classic_pointmlp_fwd_plain(packed, points, dirs, consts)
+    n_points = points.shape[0]
+    out = torch.empty((n_points, 1 + packed["w_col"].shape[1]), dtype=torch.float32,
+                      device=device)
+    if n_points == 0:
+        return out
+    xe, hidden = packed["w0"].shape
+    fn = getattr(_build.load(NAME), NAME)
+    err = fn(
+        points.data_ptr(), dirs.data_ptr(), out.data_ptr(), n_points, xe,
+        packed["wd_in"].shape[0], hidden, packed["w_col"].shape[1],
+        *[c.data_ptr() for c in consts], *weight_pointers(packed),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check_launch(NAME, err)
+    _build.launch_counts[NAME] += 1
+    return out
+
+
+def classic_pointmlp_bwd(
+    packed: Packed, points: torch.Tensor, dirs: torch.Tensor, consts: Consts,
+    g_out: torch.Tensor, input_grads: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Packed]:
+    """K8-bwd: given ``g_out [P, 1 + C]``, returns ``(dpoints [P, 3], ddirs
+    [P, 3], d_packed)``, the weights' gradients summed over the points;
+    with ``input_grads=False`` the raw inputs' cotangents are skipped and
+    ``None``.  CPU tensors run ``classic_pointmlp_bwd_plain``; CUDA tensors
+    launch the kernel (raising on what it does not take)."""
+    device = _check(BWD_NAME, packed, points, dirs, consts, {"g_out": g_out})
+    if device.type == "cpu":
+        return classic_pointmlp_bwd_plain(packed, points, dirs, consts, g_out, input_grads)
+    n_points = points.shape[0]
+    dpts = torch.empty_like(points) if input_grads else None
+    ddirs = torch.empty_like(dirs) if input_grads else None
+    if n_points == 0:
+        return dpts, ddirs, {k: torch.zeros_like(v) for k, v in packed.items()}
+    xe, hidden = packed["w0"].shape
+    de = packed["wd_in"].shape[0]
+    s = train_scratch(packed, n_points, device)
+
+    def buf(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    x_enc, d_enc = buf(n_points, xe), buf(n_points, de)
+    dx_enc = buf(n_points, xe) if input_grads else None
+    dd_enc = buf(n_points, de) if input_grads else None
+    fn = getattr(_build.load(BWD_NAME), BWD_NAME)
+    err = fn(
+        points.data_ptr(), dirs.data_ptr(), g_out.data_ptr(), _build.ptr(dpts),
+        _build.ptr(ddirs), s["grads"].data_ptr(), n_points, xe, de, hidden,
+        packed["w_col"].shape[1], *[c.data_ptr() for c in consts], *weight_pointers(packed),
+        *scratch_pointers(s), x_enc.data_ptr(), d_enc.data_ptr(), _build.ptr(dx_enc),
+        _build.ptr(dd_enc), s["splits"], torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check_launch(BWD_NAME, err)
+    _build.launch_counts[BWD_NAME] += 1
+    return dpts, ddirs, flat_grads_to_packed(s["grads"], packed)
+
+
+class ClassicPointMLPFunction(torch.autograd.Function):
+    """K8 under autograd: forward K8-fwd, backward K8-bwd.  Arguments
+    ``(consts, points, dirs, *weights)`` with the weights in
+    ``PACK_ORDER``; the backward returns the raw inputs' cotangents and the
+    weights' gradients."""
+
+    @staticmethod
+    def forward(ctx, consts: Consts, points, dirs, *weights):
+        ctx.consts = consts
+        ctx.save_for_backward(points, dirs, *weights)
+        return classic_pointmlp_fwd(_packed_from_args(weights), points, dirs, consts)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        points, dirs, *weights = ctx.saved_tensors
+        packed = _packed_from_args(weights)
+        dpts, ddirs, d_packed = classic_pointmlp_bwd(
+            packed, points, dirs, ctx.consts, g_out.contiguous(),
+            input_grads=any(ctx.needs_input_grad[1:3]),
+        )
+        return (None, dpts, ddirs, *[d_packed.get(k) for k in PACK_ORDER])
+
+
+def classic_pointmlp(
+    model_or_packed: Union[torch.nn.Module, Packed],
+    points: torch.Tensor,
+    dirs: torch.Tensor,
+    x_encoding_size: int,
+    x_bound: float,
+    d_encoding_size: int,
+    d_bound: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encoder and classic MLP on RAW positions and view directions: the
+    counterpart of ``classic_pointmlp_pallas``.
+
+    Args:
+        model_or_packed: a ``ClassicNeRF``, its ``ClassicMLP``, or
+            ``classic_mlp.pack_classic_params`` of one; view-conditioned
+            (``ValueError`` otherwise, as in JAX).
+        points: ``[..., 3]`` sample positions.
+        dirs: ``[..., 3]`` view directions (broadcast to ``points``).
+        x_encoding_size / x_bound: ``cfg.x_positional_encoding_size`` and
+            ``cfg.normalize_position``.
+        d_encoding_size / d_bound: the same for the directions.
+
+    Returns ``(density [..., 1], color_logits [..., C])``.  Under autograd
+    (an input or weight that requires grad) the call runs as
+    ``ClassicPointMLPFunction``.
+    """
+    if isinstance(model_or_packed, torch.nn.Module):
+        mlp = getattr(model_or_packed, "mlp", model_or_packed)
+        if getattr(mlp.cfg, "compute_dtype", "float32") == "bfloat16":
+            raise NotImplementedError(f"{NAME}: bfloat16 is not implemented yet")
+        packed = pack_classic_params(mlp)
+    else:
+        packed = model_or_packed
+    lead = points.shape[:-1]
+    p2 = points.reshape(-1, 3).contiguous()
+    d2 = dirs.expand(points.shape).reshape(-1, 3).contiguous()
+    consts = encoding_consts(x_encoding_size, x_bound, d_encoding_size, d_bound, p2.device)
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (p2, d2, *packed.values())
+    ):
+        out = ClassicPointMLPFunction.apply(consts, p2, d2, *[packed.get(k) for k in PACK_ORDER])
+    else:
+        out = classic_pointmlp_fwd(packed, p2, d2, consts)
+    out = out.reshape(*lead, out.shape[-1])
+    return out[..., :1], out[..., 1:]

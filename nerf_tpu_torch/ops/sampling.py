@@ -3,7 +3,8 @@ inverse-CDF fine sampling.
 
 PyTorch counterpart of ``sample_log_bbox``, ``sample_linear``,
 ``pdf_uniforms``, ``sample_pdf`` and ``merge_samples`` in
-``nerf_tpu/ops/sampling.py``.  The JAX package
+``nerf_tpu/ops/sampling.py``, with ``pdf_cdf_at``, the inverse of
+``sample_pdf``, in which the port's checks compare fine samples.  The JAX package
 avoids sort, searchsorted and gathers because a TPU serialises them; on a
 GPU they are the plain tools, so this module uses ``torch.searchsorted``,
 ``torch.gather`` and a stable sort where the JAX code builds dense masks.
@@ -108,6 +109,38 @@ def pdf_uniforms(
     return ((grid + 0.5) / num_samples).expand(shape)
 
 
+def _cdf_fenceposts(weights: torch.Tensor, eps: float) -> torch.Tensor:
+    """``sample_pdf``'s cdf at the ``B + 1`` fenceposts of ``B`` weighted
+    bins: ``eps`` added to every bin, normalised, summed, made monotone,
+    0 at the first fencepost and exactly 1 at the last."""
+    weights = weights + eps
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cummax(torch.cumsum(pdf, dim=-1), dim=-1).values
+    return torch.cat(
+        [torch.zeros_like(cdf[..., :1]), cdf[..., :-1], torch.ones_like(cdf[..., :1])],
+        dim=-1,
+    )
+
+
+def pdf_cdf_at(bins: torch.Tensor, weights: torch.Tensor, t_vals: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """The piecewise-linear cdf that ``sample_pdf`` inverts, at ``t_vals
+    [..., S]`` (``bins [..., B+1]``, ``weights [..., B]`` as there): the
+    inverse of ``sample_pdf``, so ``pdf_cdf_at(bins, w, sample_pdf(...,
+    u=u)) = u`` up to rounding (and to less than ``eps`` of mass in a bin
+    that holds less).  A comparison of fine samples in this probability
+    space does not magnify the rounding of a bin that holds almost no
+    mass, as one in t does."""
+    cdf = _cdf_fenceposts(weights, eps)
+    n_bins = bins.shape[-1] - 1
+    idx = torch.clamp(torch.searchsorted(bins.contiguous(), t_vals.contiguous(), right=True) - 1,
+                      0, n_bins - 1)
+    lo_b, hi_b = torch.gather(bins, -1, idx), torch.gather(bins, -1, idx + 1)
+    lo_c, hi_c = torch.gather(cdf, -1, idx), torch.gather(cdf, -1, idx + 1)
+    frac = torch.clamp((t_vals - lo_b) / (hi_b - lo_b), 0.0, 1.0)
+    return lo_c + frac * (hi_c - lo_c)
+
+
 def sample_pdf(
     generator: Optional[torch.Generator],
     bins: torch.Tensor,
@@ -134,14 +167,7 @@ def sample_pdf(
     Returns:
         ``[..., S]`` sorted fine t-values.
     """
-    weights = weights + eps
-    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
-    cdf = torch.cummax(torch.cumsum(pdf, dim=-1), dim=-1).values
-    # cdf[0] = 0 and the top clamped to exactly 1.
-    cdf = torch.cat(
-        [torch.zeros_like(cdf[..., :1]), cdf[..., :-1], torch.ones_like(cdf[..., :1])],
-        dim=-1,
-    )
+    cdf = _cdf_fenceposts(weights, eps)
     if u is None:
         u = pdf_uniforms(
             generator, bins.shape[:-1], num_samples,

@@ -7,10 +7,13 @@ through ``make_fused_multi_step_train_fn`` in each of its training
 configurations: the full-width ClassicNeRF's reuse step at 2048 rays x (64
 + 128) samples (K1-fwd, K3, one K1-bwd) and its coarse-only step at 4096
 x 64 (K2), and the full-width MipNeRF's step at 4096 rays x 64 fenceposts
-with the segmentation CE at weight 0.1 (K6) on the labelled scene.  For
-each, after two warm-up steps it times ``--steps`` steps on the host clock (ending in ``torch.cuda.synchronize()``), then runs the same
+with the segmentation CE at weight 0.1 (K6) on the labelled scene; and the
+reuse step through K9 (``mega_train.mega_train_loss_and_grads``, one
+``mega_train`` call a step) with ``torch.optim.Adam``, as ``chip_smoke.py``
+trains it.  For each, after two warm-up steps it times ``--steps`` steps on
+the host clock (ending in ``torch.cuda.synchronize()``), then runs the same
 number of steps under ``torch.profiler`` and sums the device time of every
-kernel by name.  Prints the card, ms/step, rays/s, device time per step by
+kernel by name (K9's passes are separate kernels of its one call).  Prints the card, ms/step, rays/s, device time per step by
 kernel (largest first) and the device's idle share (1 - busy / span of the
 first to the last kernel); ``--out`` also writes them as JSON.  Exits
 non-zero without a GPU.
@@ -33,21 +36,48 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402  (the smoke run's model and settings)
 from nerf_tpu_torch.data import RayBank, synthesize_scene  # noqa: E402
+from nerf_tpu_torch.ops import sampling  # noqa: E402
+from nerf_tpu_torch.ops.kernels import mega_train  # noqa: E402
 from nerf_tpu_torch.train import create_train_state, make_fused_multi_step_train_fn  # noqa: E402
 
 
 def profile_config(name, model, render, n_rays, bank, steps, device, seg_weight=0.0) -> dict:
     state = create_train_state(model, chip_smoke.LEARNING_RATE, seed=0)
     run = make_fused_multi_step_train_fn(model, render, bank, n_rays, steps, seg_weight)
-    make_fused_multi_step_train_fn(model, render, bank, n_rays, 2, seg_weight)(state)  # warm-up
+    warm = make_fused_multi_step_train_fn(model, render, bank, n_rays, 2, seg_weight)
+    return profile_steps(name, lambda: warm(state), lambda: run(state), n_rays, steps)
+
+
+def mega_steps(model, render, bank, n_rays, device):
+    """``run(num_steps)``: K9 train steps with ``torch.optim.Adam``, each
+    batch and its draws from one generator (``chip_smoke.py``'s loop)."""
+    names, params = zip(*model.named_parameters())
+    opt = torch.optim.Adam(params, lr=chip_smoke.LEARNING_RATE)
+    gen = torch.Generator(device=device).manual_seed(99)
+
+    def run(num_steps):
+        for _ in range(num_steps):
+            batch = bank.sample_batch(gen, n_rays)
+            draws = sampling.draw_step(gen, render, n_rays, device)
+            _, grads, _ = mega_train.mega_train_loss_and_grads(model, render, batch, draws)
+            for name, p in zip(names, params):
+                p.grad = grads[name]
+            opt.step()
+
+    return run
+
+
+def profile_steps(name, warm, run, n_rays, steps) -> dict:
+    """Times ``run()`` (``steps`` steps) after ``warm()``, then profiles it."""
+    warm()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run(state)
+    run()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run(state)
+        run()
         torch.cuda.synchronize()
     by_name = defaultdict(float)
     start, end = float("inf"), 0.0
@@ -94,6 +124,11 @@ def main(argv=None) -> int:
     result["reuse_2048x(64+128)"] = profile_config(
         "reuse 2048x(64+128)", chip_smoke.make_model(True, device), chip_smoke.TRAIN_RENDER,
         chip_smoke.TRAIN_RAYS, bank, args.steps, device)
+    run_mega = mega_steps(chip_smoke.make_model(True, device), chip_smoke.TRAIN_RENDER, bank,
+                          chip_smoke.TRAIN_RAYS, device)
+    result["mega_2048x(64+128)"] = profile_steps(
+        "K9 reuse 2048x(64+128)", lambda: run_mega(2), lambda: run_mega(args.steps),
+        chip_smoke.TRAIN_RAYS, args.steps)
     result["coarse_4096x64"] = profile_config(
         "coarse-only 4096x64", chip_smoke.make_model(True, device), chip_smoke.COARSE_RENDER,
         chip_smoke.COARSE_RAYS, bank, args.steps, device)

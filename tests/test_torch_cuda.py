@@ -11,21 +11,26 @@ off), through ten LayerNorm'd layers; K4 adds the transmittance summed in
 merged order where the plain version sums two blocks and cross terms.  The
 mip kernels (K5-K7) the same through five layers; K7's transmittance is
 the exponential of a prefix sum of logs where the plain version takes a
-cumulative product.
+cumulative product.  K8 adds the device's sine of the same arguments; K9
+is held against its plain version with its own fine t-values (its resample
+against the plain one separately), as the JAX package holds its kernel.
 """
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, MipNeRF, MipNeRFConfig, RenderConfig
 from nerf_tpu_torch.models.mlp import ClassicMLP, MipMLP
-from nerf_tpu_torch.ops import compositing
+from nerf_tpu_torch.ops import compositing, sampling
 from nerf_tpu_torch.ops.kernels import (
     _build,
     classic_mlp,
     fine_stage_train,
+    mega_train,
     mip_mlp,
     mip_train,
+    point_mlp,
     train_grads,
     union_eval,
 )
@@ -487,3 +492,225 @@ def test_mip_paths_launch_their_kernels_and_match_plain(cuda):
     assert _build.launch_counts == {mip_mlp.NAME: 1, mip_mlp.BWD_NAME: 1}
     torch.testing.assert_close(loss.detach(), ref_loss.detach(), rtol=LOSS_RTOL, atol=0)
     assert_grads_close(grads, ref)
+
+
+# -- K8 (the MLP on raw points) and K9 (the whole reuse step) ------------------
+
+POINT_VARIANTS = ("full_width", "h128")  # K8 covers the view-conditioned 3-D inputs
+
+
+def point_consts(cfg, device):
+    return point_mlp.encoding_consts(cfg.x_positional_encoding_size, cfg.normalize_position,
+                                     cfg.d_positional_encoding_size, cfg.direction_bound, device)
+
+
+def raw_points(gen, n):
+    return rand(gen, n, 3, lo=-2.0, hi=2.0), rand(gen, n, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", [1, 300])
+@pytest.mark.parametrize("variant", POINT_VARIANTS)
+def test_classic_pointmlp_fwd_kernel_matches_plain(cuda, variant, points):
+    cfg, packed = packed_weights(variant, cuda)
+    consts = point_consts(cfg, cuda)
+    pts, dirs = raw_points(torch.Generator(device=cuda).manual_seed(11), points)
+    before = _build.launch_counts[point_mlp.NAME]
+    out = point_mlp.classic_pointmlp_fwd(packed, pts, dirs, consts)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[point_mlp.NAME] == before + 1
+    torch.testing.assert_close(
+        out, point_mlp.classic_pointmlp_fwd_plain(packed, pts, dirs, consts), **K1_TOL)
+    # K1-fwd on the same encodings, made outside.
+    x_enc = torch.sin(pts @ consts[0] + consts[1])
+    d_enc = torch.sin(dirs @ consts[2] + consts[3])
+    torch.testing.assert_close(out, classic_mlp.classic_mlp_fwd(packed, x_enc, d_enc), **K1_TOL)
+
+
+def kink_margin(packed, x_enc, d_enc):
+    """Per row, the smallest |ReLU input| of the plain forward
+    (``classic_mlp_fwd_plain``'s layers)."""
+    whh, margins = packed["whh"], []
+
+    def layer(i, pre):
+        a = pre + packed["b"][i]
+        margins.append(a.abs().amin(-1))
+        return F.layer_norm(torch.relu(a), a.shape[-1:], packed["g"][i], packed["beta"][i], 1e-5)
+
+    h = layer(0, x_enc @ packed["w0"])
+    for i in (1, 2, 3):
+        h = layer(i, h @ whh[i - 1])
+    h = layer(4, h @ whh[3] + x_enc @ packed["wx"])
+    for i in (5, 6, 7):
+        h = layer(i, h @ whh[i - 1])
+    if "wd_in" in packed:
+        layer(9, layer(8, h @ whh[7] + d_enc @ packed["wd_in"]) @ whh[8])
+    return torch.stack(margins).amin(0)
+
+
+def away_from_kinks(packed, consts, gen, n):
+    """``n`` raw points and directions whose every ReLU input lies farther
+    than 1e-5 from 0, the first of more candidates drawn from ``gen``: two
+    float32 evaluations of a ReLU input differ by about 1e-6 (sums of a few
+    hundred products in another order), so nearer the kink one of them can
+    take the other branch and move that row's whole gradient.  The
+    encodings of raw points put some ReLU inputs there (measured on the
+    card: within 2e-7 at 200 points); a few % of the candidates are left
+    out."""
+    pts, dirs = raw_points(gen, 2 * n + 8)
+    with torch.no_grad():
+        keep = kink_margin(packed, torch.sin(pts @ consts[0] + consts[1]),
+                           torch.sin(dirs @ consts[2] + consts[3])) > 1e-5
+    idx = torch.nonzero(keep)[:n, 0]
+    assert idx.numel() == n
+    return pts[idx], dirs[idx]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", [1, 200])
+@pytest.mark.parametrize("variant", POINT_VARIANTS)
+def test_classic_pointmlp_bwd_kernel_matches_plain(cuda, variant, points):
+    """K8-bwd is K1-bwd's passes on the encodings it computes, then the
+    chain rule to the raw inputs: held against K1-bwd on the same encodings
+    (the same sums in the same order), the chain rule applied to K1-bwd's
+    encoding cotangents, and its plain version on the rows away from the
+    ReLU's kink (``away_from_kinks``)."""
+    cfg, packed = packed_weights(variant, cuda)
+    consts = point_consts(cfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    pts, dirs = away_from_kinks(packed, consts, gen, points)
+    g_out = rand(gen, points, 1 + cfg.color_outputs)
+    before = _build.launch_counts[point_mlp.BWD_NAME]
+    dp, dd, d_packed = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[point_mlp.BWD_NAME] == before + 1
+    x_arg, d_arg = pts @ consts[0] + consts[1], dirs @ consts[2] + consts[3]
+    dx, ddir, k1_packed = classic_mlp.classic_mlp_bwd(packed, torch.sin(x_arg), torch.sin(d_arg),
+                                                      g_out)
+    assert_grads_close(d_packed, k1_packed)
+    assert_grads_close({"dpoints": dp, "ddirs": dd},
+                       {"dpoints": (dx * torch.cos(x_arg)) @ consts[0].T,
+                        "ddirs": (ddir * torch.cos(d_arg)) @ consts[2].T})
+    rdp, rdd, r_packed = point_mlp.classic_pointmlp_bwd_plain(packed, pts, dirs, consts, g_out)
+    assert_grads_close(d_packed | {"dpoints": dp, "ddirs": dd},
+                       r_packed | {"dpoints": rdp, "ddirs": rdd})
+    dp, dd, no_inputs = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out,
+                                                       input_grads=False)
+    assert dp is None and dd is None
+    assert_grads_close(no_inputs, d_packed)
+
+
+@pytest.mark.cuda
+def test_classic_pointmlp_autograd_runs_both_kernels(cuda):
+    model = ClassicNeRF(ClassicNeRFConfig(hidden_size=64, normalize_position=6.0),
+                        generator=torch.Generator().manual_seed(0), device=cuda)
+    cfg = model.cfg
+    args = (cfg.x_positional_encoding_size, cfg.normalize_position,
+            cfg.d_positional_encoding_size, cfg.direction_bound)
+    with torch.no_grad():
+        pts, dirs = away_from_kinks(classic_mlp.pack_classic_params(model.mlp),
+                                    point_consts(cfg, cuda),
+                                    torch.Generator(device=cuda).manual_seed(13), 150)
+    grads = {}
+    for kernel in (True, False):
+        x, d = pts.clone().requires_grad_(True), dirs.clone().requires_grad_(True)
+        _build.launch_counts.clear()
+        if kernel:
+            dens, col = point_mlp.classic_pointmlp(model, x, d, *args)
+        else:
+            out = point_mlp.classic_pointmlp_fwd_plain(
+                classic_mlp.pack_classic_params(model.mlp), x, d, point_consts(cfg, cuda))
+            dens, col = out[:, :1], out[:, 1:]
+        loss = torch.mean(col ** 2) + torch.mean(dens ** 2)
+        names, params = zip(*model.named_parameters())
+        grads[kernel] = dict(zip(["points", "dirs", *names],
+                                 torch.autograd.grad(loss, [x, d, *params])))
+        torch.cuda.synchronize()
+        if kernel:
+            assert _build.launch_counts == {point_mlp.NAME: 1, point_mlp.BWD_NAME: 1}
+    assert_grads_close(grads[True], grads[False])
+
+
+def mega_setup(device, view, sc, sf, white, rays=5, seed=14):
+    model = ClassicNeRF(ClassicNeRFConfig(hidden_size=64, normalize_position=6.0,
+                                          use_viewdirs=view, use_pallas=True),
+                        generator=torch.Generator().manual_seed(0), device=device)
+    with torch.no_grad():  # mass in every bin (see chip_smoke.py)
+        model.mlp.density.bias.fill_(0.5)
+        model.mlp.density.weight.mul_(0.05)
+    render = RenderConfig(num_coarse_samples=sc, num_fine_samples=sf, randomly_sample=True,
+                          density_noise_std=1.0, white_background=white,
+                          reuse_coarse_in_fine=True)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batch = {"rays_o": rand(gen, rays, 3, lo=-0.5, hi=0.5), "rays_d": rand(gen, rays, 3),
+             "pixels": rand(gen, rays, 3, lo=0.0, hi=1.0)}
+    return model, render, batch, sampling.draw_step(gen, render, rays, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white,exact", [(False, False), (True, True)])
+@pytest.mark.parametrize("sc,sf", [(8, 16), (64, 128), (7, 33)])
+@pytest.mark.parametrize("view", [True, False])
+def test_mega_train_kernel_matches_plain(cuda, view, sc, sf, white, exact):
+    model, render, batch, draws = mega_setup(cuda, view, sc, sf, white)
+    inputs = mega_train.mega_inputs(model, batch, draws)
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    before = _build.launch_counts[mega_train.NAME]
+    loss_c, loss_f, d_packed, t_fine = mega_train.mega_train(packed, *inputs, white, exact)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[mega_train.NAME] == before + 1
+    # The resample against the plain one, in probability (see chip_smoke.py).
+    x_enc_c, d_ray, t_c, noise_c, u, _, _, rays_d = inputs[:8]
+    weights_c = mega_train.coarse_weights_plain(packed, x_enc_c, d_ray, t_c, noise_c, rays_d)
+    bins, w = 0.5 * (t_c[:, 1:] + t_c[:, :-1]), weights_c[:, 1:-1]
+    step = 4 * 2.0 ** -23 * t_fine.abs()  # 4 ulp of t, and the mass they carry
+    slack = (sampling.pdf_cdf_at(bins, w, t_fine + step)
+             - sampling.pdf_cdf_at(bins, w, t_fine - step)) / 2
+    assert bool(((sampling.pdf_cdf_at(bins, w, t_fine) - u).abs() <= 2e-5 + slack).all())
+    r_loss_c, *_ = mega_train.mega_train_plain(packed, *inputs, white, exact)
+    torch.testing.assert_close(loss_c, r_loss_c, rtol=LOSS_RTOL, atol=0)
+    # Everything downstream with the kernel's own fine t-values.
+    r_loss_c, r_loss_f, r_packed, _ = mega_train.mega_train_plain(packed, *inputs, white, exact,
+                                                                  t_fine=t_fine)
+    torch.testing.assert_close(loss_c, r_loss_c, rtol=LOSS_RTOL, atol=0)
+    torch.testing.assert_close(loss_f, r_loss_f, rtol=LOSS_RTOL, atol=0)
+    assert_grads_close(d_packed, r_packed)
+
+
+@pytest.mark.cuda
+def test_mega_step_launches_one_kernel_and_tracks_reuse(cuda):
+    model, render, batch, draws = mega_setup(cuda, True, 16, 24, False, rays=8)
+    _build.launch_counts.clear()
+    loss, grads, aux = mega_train.mega_train_loss_and_grads(model, render, batch, draws,
+                                                            emit_t_fine=True)
+    torch.cuda.synchronize()
+    assert _build.launch_counts == {mega_train.NAME: 1}
+    assert aux["t_fine"].shape == (8, 24)
+    ref_loss, ref, _ = fine_stage_train.reuse_train_loss_and_grads(model, render, batch, draws)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=0)
+    flat = torch.cat([grads[k].ravel() for k in sorted(ref)])
+    ref_flat = torch.cat([ref[k].ravel() for k in sorted(ref)])
+    assert float((flat - ref_flat).abs().max()) < 5e-3 * float(ref_flat.abs().max())
+
+
+@pytest.mark.cuda
+def test_point_and_mega_wrappers_raise_instead_of_falling_back(cuda):
+    cfg, packed = packed_weights("h128", cuda)
+    consts = point_consts(cfg, cuda)
+    with pytest.raises(ValueError, match="cpu"):
+        point_mlp.classic_pointmlp_fwd(packed, torch.zeros(4, 3), torch.zeros(4, 3, device=cuda),
+                                       consts)
+    _, no_view = packed_weights("no_view", cuda)
+    with pytest.raises(ValueError, match="view"):
+        point_mlp.classic_pointmlp_fwd(no_view, torch.zeros(4, 3, device=cuda),
+                                       torch.zeros(4, 3, device=cuda), consts)
+    model, render, batch, draws = mega_setup(cuda, True, 8, mega_train.MAX_SAMPLES + 1, False)
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    inputs = mega_train.mega_inputs(model, batch, draws)
+    with pytest.raises(ValueError, match="samples"):
+        mega_train.mega_train(packed, *inputs)
+    model, render, batch, draws = mega_setup(cuda, True, 8, 16, False)
+    inputs = list(mega_train.mega_inputs(model, batch, draws))
+    inputs[8] = inputs[8].cpu()  # the pixels
+    with pytest.raises(ValueError, match="cpu"):
+        mega_train.mega_train(packed, *inputs)
