@@ -6,7 +6,10 @@
 1. Prints the card's name and power limit (``nvidia-smi``).
 2. Builds the port's twelve CUDA kernels from ``nerf_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together) and prints the
-   seconds it took and each kernel's registers and spills.
+   seconds it took and each kernel's registers and spills, labelled with
+   the pass it runs (K4's and K9's MLP products run as 3xTF32 ``wgmma`` on
+   the tensor cores, ``csrc/tc_mlp.cuh``; the other kernels' in float32
+   SIMT).
 3. Serving (slice 1): holds K1-fwd (``classic_mlp_fwd``, 262,144 points)
    and K4 (``union_eval``, the first 4000-ray tile of the frame) against
    their plain PyTorch versions, then renders one 400x400 frame of 64
@@ -67,8 +70,9 @@
    finite, the probe batch's loss lower after the run; ms/step and rays/s
    beside the reuse step's of phase 4.  Then K9 against its plain version
    with its time and bound.
-13. Prints the kernels' JSON line, the card line, then, last, the device
-   line.
+13. Prints the kernels' JSON line (each row with its float32 bound and
+   its 3xTF32 tensor-core bound, ``bound_tc_ms``, and the achieved share
+   of each), the card line, then, last, the device line.
 
 The classic model is the full-width ClassicNeRF (hidden 256, 60 + 36
 encoding widths, 638,468 parameters) with random weights from seed 0.  Its density
@@ -127,8 +131,12 @@ from nerf_tpu_torch.utils.profiling import (
 )
 
 # Published H100 SXM peaks (NVIDIA's data sheet): float32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores, TF32 on the tensor cores, and HBM3 bandwidth.  The
+# tensor-core bound of float32-accurate work is three TF32 products
+# (3xTF32): FLOP / (495 / 3) TFLOP/s.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES_PER_S = 3.35e12
 IMAGE = 400
 FOCAL = 555.0
@@ -262,6 +270,29 @@ def kernel_label(mangled: str) -> str:
     return f"{label}<{arg.group(1)}>" if arg else label
 
 
+# The passes of the MLP kernels by kernel name, for reports and profiles:
+# K4's and K9's products run on the tensor cores (csrc/tc_mlp.cuh), the
+# other kernels' in float32 SIMT.
+PASSES = {
+    "fwd_store_tc_kernel": "fwd_store, 3xTF32 wgmma",
+    "bwd_rows_tc_kernel": "bwd_rows, 3xTF32 wgmma",
+    "wgrad_tc_kernel": "wgrad, 3xTF32 wgmma",
+    "union_eval_kernel": "K4 tile, 3xTF32 wgmma MLP + compositing",
+    "fwd_store_kernel": "fwd_store, fp32 SIMT",
+    "bwd_rows_kernel": "bwd_rows, fp32 SIMT",
+    "wgrad_kernel": "wgrad, fp32 SIMT",
+    "colsum_kernel": "colsum",
+}
+
+
+def pass_label(kernel: str) -> str:
+    """The pass a kernel name (mangled, demangled or a label) runs, or ''."""
+    for key, label in PASSES.items():
+        if re.search(rf"\b{key}\b|\d{key}[IE]", kernel):
+            return label
+    return ""
+
+
 def ptxas_usage(report: str):
     """(kernel, 'registers; spills') pairs from an ``nvcc -Xptxas -v`` report."""
     label, spills = "?", ""
@@ -269,9 +300,11 @@ def ptxas_usage(report: str):
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             label = kernel_label(entry.group(1))
+            if pass_label(label):
+                label += f" [{pass_label(label)}]"
         elif "spill" in line:
             spills = line.strip()
-        elif "registers" in line:
+        elif re.search(r"Used \d+ registers", line):
             yield label, f"{line.split(':', 1)[-1].strip()}; {spills}"
 
 
@@ -294,10 +327,12 @@ def tensor_bytes(*tensors) -> int:
 
 
 def bound(flops: float, nbytes: float) -> tuple:
-    """(bound_ms, bound_by): the larger of operations over the fp32 peak and
-    bytes over the memory rate."""
+    """(bound_ms, bound_by, bound_tc_ms): the larger of operations over the
+    fp32 peak and bytes over the memory rate; and the same with the
+    operations at the 3xTF32 tensor-core rate."""
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    t_tc = max(flops / PEAK_3XTF32_FLOPS * 1e3, t_bytes)
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")) + (t_tc,)
 
 
 def compare(name: str, got, ref) -> float:
@@ -364,14 +399,18 @@ def make_mip_model(use_pallas: bool, device) -> MipNeRF:
 
 
 def kernel_row(name, launches, max_abs, ms, plain_ms, flops, nbytes) -> dict:
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by, bound_tc_ms = bound(flops, nbytes)
     print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
-          f"({bound_by}), {flops / ms / 1e9:.2f} TFLOP/s achieved, {launches} launches")
+          f"({bound_by}; {bound_ms / ms:.3f} of it), 3xTF32 tensor-core bound {bound_tc_ms:.3f} ms "
+          f"({bound_tc_ms / ms:.3f} of it), {flops / ms / 1e9:.2f} TFLOP/s achieved, "
+          f"{launches} launches")
     source, replaces = SOURCES[name]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "bound_tc_ms": bound_tc_ms, "share_of_bound": bound_ms / ms,
+        "share_of_bound_tc": bound_tc_ms / ms,
     }
 
 
@@ -1024,8 +1063,9 @@ def main() -> int:
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     print(f"card: {card}; {props.multi_processor_count} SMs, max SM clock {clock_mhz:.0f} MHz, "
           f"fp32 FMA peak {props.multi_processor_count * 128 * 2 * clock_mhz / 1e6:.1f} TFLOP/s "
-          f"(bounds use the published {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s and "
-          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
+          f"(bounds use the published {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s float32, "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s TF32, so {PEAK_3XTF32_FLOPS / 1e12:.0f} TFLOP/s "
+          f"for 3xTF32, and {PEAK_BYTES_PER_S / 1e12:.2f} TB/s)", flush=True)
 
     # 2. Build.
     t0 = time.perf_counter()

@@ -30,6 +30,12 @@
 //   4. colsum: the partials summed in a fixed order (two stages), so the
 //      gradients are the same from run to run (no atomics).
 //
+// Passes 1-3 run their products through a policy: SimtProducts (below,
+// float32 SIMT FMAs: gemm_acc, wgrad_kernel) for K1-bwd, K2, K3 and
+// K8-bwd; TcProducts (tc_mlp.cuh, 3xTF32 on the tensor cores) for K9.
+// The mip passes (mip_mlp.cuh) launch gemm_acc and wgrad_kernel
+// themselves.
+//
 // The flat gradient the passes produce is the packed weights' order
 // (ops/kernels/classic_mlp.py): w0, wx, wd, whh | b, g, beta, w_dens,
 // w_col, b_dens, b_col.
@@ -68,6 +74,9 @@ struct Scratch {
   float* tmp;    // [kColsumGroups][max(wgrad_floats, tile_floats)]
   float* wt;     // [L - 1][H][H]: the hidden slabs whh, each transposed
   int splits;
+  // The tensor-core passes' operand images (tc_mlp.cuh; TcProducts only).
+  const float* tc_fwd = nullptr;
+  const float* tc_bwd = nullptr;
 };
 
 // out[s][j][k] = in[s][k][j] for the [H][H] slabs s (H a multiple of 32).
@@ -550,22 +559,61 @@ inline cudaError_t colsum(const float* in, int T, size_t F, float* out, float* t
 // Host side.
 // ---------------------------------------------------------------------------
 
+// The float32 SIMT products (gemm_acc and wgrad_kernel): the passes' product
+// policy for every kernel but K9, whose policy is tc_mlp.cuh's TcProducts.
+// A policy launches pass 1 (fwd_store), pass 2 (bwd_rows) and pass 3
+// (wgrad); launch_fwd_store_with and launch_mlp_backward do the rest.
+struct SimtProducts {
+  template <int H, class Load>
+  static cudaError_t fwd_store(const Weights& w, const Load& load, float* out, int P,
+                               const Scratch& s, cudaStream_t stream, size_t stride,
+                               size_t base) {
+    const size_t smem =
+        (static_cast<size_t>(kTileRows) * H + mlp_side_floats<H>(w.xe, w.de)) * sizeof(float);
+    cudaError_t err = cudaFuncSetAttribute(fwd_store_kernel<H, Load>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const int tiles = (P + kTileRows - 1) / kTileRows;
+    fwd_store_kernel<H, Load><<<tiles, kThreads, smem, stream>>>(w, load, out, P, s.xhat,
+                                                                  s.stats, stride, base);
+    return cudaGetLastError();
+  }
+
+  template <int H>
+  static cudaError_t bwd_rows(const Weights& w, const float* gout, int P, const Scratch& s,
+                              float* dx, float* dd, cudaStream_t stream) {
+    const int L = num_layers(w);
+    transpose_slabs_kernel<<<dim3(H / 32, H / 32, L - 1), dim3(32, 8), 0, stream>>>(w.whh, H,
+                                                                                    s.wt);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t smem = bwd_rows_smem<H>(w);
+    err = cudaFuncSetAttribute(bwd_rows_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const int tiles = (P + kTileRows - 1) / kTileRows;
+    bwd_rows_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats, s.wt,
+                                                           s.dpre, s.tpart, dx, dd);
+    return cudaGetLastError();
+  }
+
+  static cudaError_t wgrad(const WProds& prods, int total_tiles, int P, int k_chunk,
+                           const Scratch& s, size_t wfloats, cudaStream_t stream) {
+    wgrad_kernel<<<dim3(total_tiles, s.splits), 256, 0, stream>>>(prods, P, k_chunk, s.wpart,
+                                                                   wfloats);
+    return cudaGetLastError();
+  }
+};
+
 // Pass 1 on the P rows of a call, their tiles from `load`; the chain's
-// rows base .. base + P - 1 of `stride` (fwd_store_kernel).
-template <int H, class Load>
+// rows base .. base + P - 1 of `stride` (fwd_store_kernel, or the
+// policy's).
+template <int H, class Products = SimtProducts, class Load>
 cudaError_t launch_fwd_store_with(const Weights& w, const Load& load, float* out, int P,
                                   const Scratch& s, cudaStream_t stream, size_t stride,
                                   size_t base) {
-  const size_t smem =
-      (static_cast<size_t>(kTileRows) * H + mlp_side_floats<H>(w.xe, w.de)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fwd_store_kernel<H, Load>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int tiles = (P + kTileRows - 1) / kTileRows;
-  fwd_store_kernel<H, Load><<<tiles, kThreads, smem, stream>>>(w, load, out, P, s.xhat,
-                                                                s.stats, stride, base);
-  return cudaGetLastError();
+  return Products::template fwd_store<H, Load>(w, load, out, P, s, stream, stride, base);
 }
 
 template <int H>
@@ -579,24 +627,15 @@ cudaError_t launch_fwd_store(const Weights& w, const float* x, const float* d, i
 // wgrad_floats + tile_floats) and, when not null, dx and dd.  x, d and
 // d_div are the forward's encoded inputs; with d_split > 0, d's rows serve
 // points p >= d_split as row (p - d_split) / d_div2 (WProd::split).
-template <int H>
+template <int H, class Products = SimtProducts>
 cudaError_t launch_mlp_backward(const Weights& w, const float* x, const float* d, int d_div,
                                 const float* gout, int P, const Scratch& s, float* dx,
                                 float* dd, float* grads, cudaStream_t stream,
                                 int d_split = 0, int d_div2 = 1) {
   const int L = num_layers(w);
-  transpose_slabs_kernel<<<dim3(H / 32, H / 32, L - 1), dim3(32, 8), 0, stream>>>(w.whh, H,
-                                                                                  s.wt);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem = bwd_rows_smem<H>(w);
-  err = cudaFuncSetAttribute(bwd_rows_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  cudaError_t err = Products::template bwd_rows<H>(w, gout, P, s, dx, dd, stream);
   if (err != cudaSuccess) return err;
   const int tiles = (P + kTileRows - 1) / kTileRows;
-  bwd_rows_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats, s.wt,
-                                                         s.dpre, s.tpart, dx, dd);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t PP = static_cast<size_t>(P);
   const int tn = (H + kWT - 1) / kWT;
@@ -625,9 +664,8 @@ cudaError_t launch_mlp_backward(const Weights& w, const float* x, const float* d
   const size_t wf = wgrad_floats(w, H);
   int k_chunk = (P + s.splits - 1) / s.splits;
   k_chunk = (k_chunk + kWK - 1) / kWK * kWK;
-  wgrad_kernel<<<dim3(total_tiles, s.splits), 256, 0, stream>>>(prods, P, k_chunk, s.wpart,
-                                                                 wf);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = Products::wgrad(prods, total_tiles, P, k_chunk, s, wf, stream)) != cudaSuccess)
+    return err;
   if ((err = colsum(s.wpart, s.splits, wf, grads, s.tmp, stream)) != cudaSuccess) return err;
   return colsum(s.tpart, tiles, tile_floats(w, H), grads + wf, s.tmp, stream);
 }

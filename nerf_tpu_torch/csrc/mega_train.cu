@@ -14,12 +14,19 @@
 //
 // Bound: operations.  Forward + dh + dW = 3 x 630,784 multiply-adds per
 // row at the full-width model on R (Sc + Sf) rows: 393,216 rows at 2048 x
-// (64 + 128), 1.488e12 FLOP, 22.2 ms at 67 TFLOP/s (the reuse route's
-// bound is 24.7 ms with its coarse recompute).  The per-ray passes and
-// the encodings are O(Sc + Sf) per ray.
+// (64 + 128), 1.488e12 FLOP, 22.212 ms at the float32 SIMT rate (67
+// TFLOP/s; the reuse route's bound is 24.7 ms with its coarse recompute)
+// and 9.019 ms as three TF32 products at 495 TFLOP/s.  The per-ray passes
+// and the encodings are O(Sc + Sf) per ray.  The chain's traffic is a
+// co-bound: xhat and dpre, about 4 GB each, move about 20 GB a step, some
+// 6 ms at 3.35 TB/s.
 //
 // Design: an SM has 227 KB, so the chains go to global scratch (about 8 GB
-// at that shape) and the step is the passes of classic_mlp_train.cuh,
+// at that shape) and the step is the passes of classic_mlp_train.cuh with
+// the tensor-core product policy of tc_mlp.cuh (TcProducts: fwd_store,
+// bwd_rows and wgrad run every hidden and encoding product as 3xTF32
+// wgmma on operand images of the weights the wrapper builds once per
+// call; the epilogues, heads, per-ray passes and colsums are unchanged),
 // launched in order on the caller's stream:
 //   0. the coarse encodings (computed by the caller) copied into the first
 //      R Sc rows of a coarse-then-fine encoding buffer;
@@ -45,6 +52,7 @@
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "encode.cuh"
+#include "tc_mlp.cuh"
 #include "union_train.cuh"
 
 namespace {
@@ -166,8 +174,8 @@ cudaError_t run(const Weights& w, const Inputs& in, const Work& k, float* loss, 
   cudaError_t err = cudaMemcpyAsync(k.x_all, in.xc, static_cast<size_t>(Pc) * w.xe * sizeof(float),
                                     cudaMemcpyDeviceToDevice, stream);
   if (err != cudaSuccess) return err;
-  err = launch_fwd_store_with<H>(w, TileLoad{k.x_all, in.d_ray, Sc}, k.out, Pc, s, stream,
-                                 static_cast<size_t>(P), 0);
+  err = launch_fwd_store_with<H, TcProducts>(w, TileLoad{k.x_all, in.d_ray, Sc}, k.out, Pc, s,
+                                             stream, static_cast<size_t>(P), 0);
   if (err != cudaSuccess) return err;
 
   const int ray_blocks = (R + kWarps - 1) / kWarps;
@@ -182,8 +190,9 @@ cudaError_t run(const Weights& w, const Inputs& in, const Work& k, float* loss, 
 
   const RayEncodeLoad fine_load{in.rays_o, in.rays_d, t_fine,  Sf, in.S, in.is_cos,
                                 exact,     in.d_ray,  k.x_all + static_cast<size_t>(Pc) * w.xe};
-  err = launch_fwd_store_with<H>(w, fine_load, k.out + static_cast<size_t>(Pc) * ld, Pf, s,
-                                 stream, static_cast<size_t>(P), static_cast<size_t>(Pc));
+  err = launch_fwd_store_with<H, TcProducts>(w, fine_load,
+                                             k.out + static_cast<size_t>(Pc) * ld, Pf, s, stream,
+                                             static_cast<size_t>(P), static_cast<size_t>(Pc));
   if (err != cudaSuccess) return err;
 
   smem = union_composite_smem(Sc, Sf);
@@ -199,8 +208,8 @@ cudaError_t run(const Weights& w, const Inputs& in, const Work& k, float* loss, 
 
   if ((err = colsum(k.ray_loss, R, 1, loss, s.tmp, stream)) != cudaSuccess) return err;
   if ((err = colsum(k.ray_loss + R, R, 1, loss + 1, s.tmp, stream)) != cudaSuccess) return err;
-  return launch_mlp_backward<H>(w, k.x_all, in.d_ray, Sc, k.gout, P, s, nullptr, nullptr, grads,
-                                stream, Pc, Sf);
+  return launch_mlp_backward<H, TcProducts>(w, k.x_all, in.d_ray, Sc, k.gout, P, s, nullptr,
+                                            nullptr, grads, stream, Pc, Sf);
 }
 
 }  // namespace
@@ -216,11 +225,12 @@ extern "C" int mega_train(const float* xc, const float* d_ray, const float* t_c,
                           const float* w_col, const float* b_col, float* xhat, float* stats,
                           float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
                           float* out, float* gout, float* x_all, float* dnorm,
-                          float* ray_loss, int splits, void* stream) {
+                          float* ray_loss, int splits, const float* tc_fwd,
+                          const float* tc_bwd, void* stream) {
   if (c > kMaxColors || c < 1 || Sc < 3 || Sf < 1) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits};
+  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
   const Inputs in{xc, d_ray, t_c, noise_c, u, noise_f, rays_o, rays_d, pix, S, is_cos};
   const Work k{out, gout, x_all, dnorm, ray_loss};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,0 +1,838 @@
+// Tensor-core products for the MLP passes of K9 (mega_train.cu) and K4
+// (union_eval.cu): every hidden and encoding product as 3xTF32 on Hopper's
+// wgmma, A.B = hi(A)hi(B) + hi(A)lo(B) + lo(A)hi(B) with lo = x - hi, both
+// cut to TF32 by bit masking (hi keeps 10 mantissa bits, hi + lo about 21;
+// the dropped lo.lo term is about 2^-22 of a product), each product a
+// wgmma.mma_async ... .f32.tf32.tf32 into float32 accumulators.  Written by
+// hand in PTX (wgmma, fences, smem descriptors); no CUTLASS.  The policy
+// TcProducts gives classic_mlp_train.cuh's launch_fwd_store_with and
+// launch_mlp_backward these passes; the other kernels keep SimtProducts.
+//
+// Bounds at the full-width model (H = 256, xe 60, de 36, view branch on):
+// 630,784 multiply-adds a row each for the forward, dh and dW.  Against
+// the float32 SIMT rate (67 TFLOP/s) and the 3xTF32 rate (three TF32
+// products at 495 TFLOP/s, so FLOP / 165 TFLOP/s): K9 at 2048 x (64 + 128)
+// 22.212 and 9.019 ms; K4 at a 4000-ray tile 9.641 and 3.915 ms.
+//
+// The constraints the design answers:
+// 1. TF32 wgmma takes both operands K-major (the transpose flags exist only
+//    for f16/bf16).  The forward's B is the slab as [out][in] (nn.Linear's
+//    layout), bwd_rows' B (dh = dpre W^T) the packed [in][out] slab as it
+//    stands: the transpose moves from the backward to the forward, it does
+//    not multiply.  Both are built once per call on the card as operand
+//    images (ops/kernels/tc_mlp.py::operand_image): K zero-padded to a
+//    multiple of 16 (xe 60 -> 64, de 36 -> 48), split into hi and lo, in
+//    chunks of kTcK = 16 k-values laid out as wgmma's 64-byte-swizzled
+//    K-major operand (a row of 16 TF32 values is one swizzle row; an
+//    unswizzled layout puts the eight rows the tensor cores read together
+//    on one bank), so a chunk is one contiguous copy (2 x 2.5 MB a
+//    direction, resident in L2).  wgrad's dW = h_in^T dpre sums over the
+//    points while both are stored [P][H]: A (h_in) is read straight from
+//    the raw rows into register fragments, B (dpre) transposed into the
+//    swizzled order in the pass that splits it.
+// 2. Shared memory (227 KB a block; one 256 x 256 float32 slab is 256 KB):
+//    the weights stream in chunks of 16 k-values through four buffers
+//    (4 x 32 KB at H = 256, see tc_gemm); the A operand comes from registers,
+//    loaded from the float32 activation tile [64][H + 4] (66,560 B; the 4
+//    floats of padding make the fragment loads free of bank conflicts) and
+//    split as it is loaded, so no hi/lo copy of the tile is kept.  Bytes a
+//    block at H = 256, 1024 bytes of alignment slack included: fwd_store
+//    223,232 (with the 64 x 60 and 64 x 36 encoding tiles), K4's tile
+//    227,328 at 128 fine samples (with its [256][1 + c] outputs), bwd_rows
+//    199,680, wgrad 136,192.
+// 3. Accumulators and LayerNorm: in a wgmma accumulator a row's values sit
+//    in a quad of one warp and, here, in both warpgroups (each takes H / 2
+//    columns).  Each product's accumulators go once through the activation
+//    tile in shared memory into the row-per-warp layout of
+//    classic_mlp.cuh, so the epilogues (layer_epilogue, head, layer_bwd,
+//    head_bwd) run unchanged: two-pass mean and variance as warp
+//    reductions, and xhat and dpre stored coalesced, 32 consecutive floats
+//    a warp.  That costs one 64 x H x 4 B round trip through shared memory
+//    a layer against 64 x H x H x 6 FLOP of tensor-core work.
+// 4. Widths not a multiple of 16: the images pad K with zeros; A fragments
+//    past the width read 0.  The density and colour heads stay SIMT (head,
+//    head_bwd).  Tails of P are zero-filled as load_tile does.
+// 5. The chain (xhat, dpre: ~4 GB each at 393,216 rows) stays float32 in
+//    global memory: no hi/lo copy, no extra pass.  wgrad keeps the tiles of
+//    one chunk of points adjacent in launch order (blockIdx.x runs over the
+//    output tiles first), so the re-reads of a chunk hit L2.
+// 6. Registers: the forward and bwd_rows hold H / 4 accumulator floats a
+//    thread (64 at H = 256; an m64n128 product per warpgroup) plus two
+//    sets of A fragments (32), not both the wgmma and the row-per-warp
+//    accumulators at once; wgrad holds 64 accumulators, their 64-float
+//    float32 sum and one chunk's A fragments (32).
+// 7. The tensor cores accumulate with truncation below the accumulator's
+//    leading bits (scripts/torch_tc_accuracy.py: a K = 256 product within
+//    about 3e-6 of the largest entry against 7e-7 for float32, its error
+//    biased toward zero).  Over the few hundred products of a row tile that
+//    is within the kernels' tolerances; wgrad's sums over thousands of
+//    points would drift, so each 32-point chunk's products go to a fresh
+//    accumulator that is then added to a float32 sum.
+// 8. 3xTF32 rounds otherwise than SIMT float32: rows within rounding of a
+//    ReLU kink and fine samples in bins of ~1e-5 mass move, as the checks
+//    of K1-K9 already allow (card tests draw rows away from kinks; K9's
+//    fine samples are compared in probability).
+//
+// The products are deterministic: a fixed order of wgmma per k-chunk, no
+// atomics; wgrad's partials go through colsum's fixed order as before.
+#pragma once
+
+#include <cstdint>
+
+#include "classic_mlp_train.cuh"
+
+namespace nerf_mlp {
+
+constexpr int kTcK = 16;                 // k-values per chunk of an operand image
+constexpr int kTcStages = 4;             // chunk buffers of the row-tile product
+constexpr unsigned kTf32Mask = 0xffffe000u;
+constexpr int kWgK = 32;                 // points per staged chunk of wgrad_tc_kernel
+
+__host__ __device__ inline int round_up_chunk(int n) { return (n + kTcK - 1) / kTcK * kTcK; }
+
+// The swizzled operands' 1024-byte alignment: the dynamic shared memory is
+// requested kSmemAlign bytes larger and its start rounded up.
+constexpr size_t kSmemAlign = 1024;
+__device__ __forceinline__ float* tc_smem_base(float4* smem) {
+  const size_t a = reinterpret_cast<size_t>(smem);
+  return reinterpret_cast<float*>((a + kSmemAlign - 1) & ~(kSmemAlign - 1));
+}
+
+// Row stride of the activation tile, padded against bank conflicts.
+template <int H>
+__host__ __device__ constexpr int act_ld() { return H + 4; }
+
+// Floats of the kTcStages buffers of B chunks.
+template <int H>
+__host__ __device__ constexpr int tc_bbuf_floats() { return kTcStages * 2 * H * kTcK; }
+
+// ---------------------------------------------------------------------------
+// PTX: the split, descriptors, fences and the wgmma instructions.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  const uint32_t h = __float_as_uint(x) & kTf32Mask;
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h)) & kTf32Mask;
+}
+
+// Shared-memory matrix descriptors of K-major operands with a swizzle
+// (an unswizzled layout puts the eight rows the tensor cores read together
+// on one bank).  128-byte swizzle (layout type 1, wgrad's images): rows of
+// 32 TF32 values, the 16-byte group j of row r stored at group j ^ (r %
+// 8), 8-row groups 1024 bytes apart.  64-byte swizzle (layout type 2, the
+// weight chunks of tc_gemm): rows of 16 values, group j of row r at j ^
+// ((r / 2) % 4), 8-row groups 512 bytes apart.  A tile starts 1024-byte
+// aligned, and a k-step of 8 values moves the start by 32 bytes inside the
+// swizzle atom.
+__device__ __forceinline__ uint64_t smem_desc(const float* p, uint32_t sbo, uint64_t layout) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+__device__ __forceinline__ uint64_t smem_desc_sw128(const float* p) { return smem_desc(p, 1024, 1); }
+__device__ __forceinline__ uint64_t smem_desc_sw64(const float* p) { return smem_desc(p, 512, 2); }
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+// Generic-proxy writes to shared memory (stores, cp.async) made visible to
+// the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of the accumulators across a
+// wgmma wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for A fragments: used again after a wait, they stay allocated
+// while the products that read them run (else the compiler reuses their
+// registers and ptxas has to wait for the products first).
+template <int S>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[S][4]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[s][j])::"memory");
+}
+
+// m64nNk8 with A from registers (a0 = A[g][q], a1 = A[g + 8][q], a2 =
+// A[g][q + 4], a3 = A[g + 8][q + 4] of the warp's 16 rows; g = lane / 4,
+// q = lane % 4) and B from shared memory; d += A B.  One overload per N in
+// 16, 32, 64, 128 (d holds N / 2 floats), and the all-shared m64n128k8,
+// d = A B + (scale_d ? d : 0).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// The row-tile product: d += A[64][0:K] @ B^T for a B image [H][round_up_chunk(K)].
+// ---------------------------------------------------------------------------
+
+// The weights of a call as forward operand images (tc_mlp.py::tc_images):
+// w0, wx, wd ([H][round_up_chunk(width)] each, wd absent without the view
+// branch), then the hidden slabs [H][H], each 2 H round_up_chunk(K) floats.
+struct TcImages {
+  const float* w0;
+  const float* wx;
+  const float* wd;
+  const float* whh;
+  __host__ static TcImages forward(const Weights& w, const float* base, int H) {
+    const size_t x = 2 * static_cast<size_t>(H) * round_up_chunk(w.xe);
+    const size_t d = w.wd != nullptr ? 2 * static_cast<size_t>(H) * round_up_chunk(w.de) : 0;
+    return TcImages{base, base + x, base + 2 * x, base + 2 * x + d};
+  }
+};
+
+template <int H>
+__device__ __forceinline__ void tc_zero(float (&d)[H / 4]) {
+#pragma unroll
+  for (int i = 0; i < H / 4; ++i) d[i] = 0.f;
+}
+
+// d += A[tile rows, 0:K] @ B[0:H, 0:K]^T.  A is shared memory, row stride
+// lda (columns past K are not read); img is B's operand image in global
+// memory; bbuf holds tc_bbuf_floats<H>() floats.  Warpgroup wg (threads
+// 128 wg ..) computes the output columns [wg H / 2, (wg + 1) H / 2) of the
+// tile's 64 rows, warp w of it rows 16 w .. 16 w + 15: d holds that
+// warp's m64n(H/2) accumulator fragment (classic mma layout: d[4 j ..4 j
+// + 1] row g, columns 8 j + 2 q, + 1; d[4 j + 2 ..] row g + 8).
+//
+// The pipeline: kTcStages = 4 buffers of 16-value chunks of B, copied
+// with cp.async two chunks ahead, and one chunk's 6 products (three per
+// k-step) left in flight while the next chunk's A fragments are loaded
+// and its products issued; a buffer is refilled once the products two
+// chunks back are done.  (Waiting for each chunk's products at its end
+// left the tensor cores idle much of the time: the product alone ran
+// nearly as long with two thirds of its products removed.)  The A
+// fragments alternate between two register sets, each kept allocated
+// until its products are done.  Each warpgroup copies and waits for only
+// its half of B (named barrier 1 + wg), so the two do not run in
+// lockstep.  Every branch here is uniform and the fragments load
+// without branches: ptxas serializes all wgmma of a kernel whose wgmma
+// operands come from divergent code.  Starts (after the first copies) and
+// ends with a block-wide barrier.
+template <int H>
+__device__ void tc_gemm(float (&d)[H / 4], const float* A, int lda, int K,
+                        const float* __restrict__ img, float* bbuf) {
+  constexpr int kStage = 2 * H * kTcK;  // floats of a chunk, hi and lo
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const float* a0 = A + (((tid >> 5) & 3) * 16 + g) * lda;
+  const float* a1 = a0 + 8 * lda;
+  const int chunks = round_up_chunk(K) / kTcK;
+  // Each warpgroup copies, and waits for, only its own half of B (its hi
+  // and lo rows): the two warpgroups never wait for each other here.
+  constexpr int kHalf4 = H / 2 * kTcK / 4;  // float4s of a warpgroup's hi (or lo) rows
+  const int t = tid & 127;
+  auto stage = [&](int c) {  // commits a group, empty past the last chunk
+    if (c < chunks) {
+      const float4* src = reinterpret_cast<const float4*>(img + static_cast<size_t>(c) * kStage) +
+                          wg * kHalf4;
+      float4* dst = reinterpret_cast<float4*>(bbuf + (c % kTcStages) * kStage) + wg * kHalf4;
+      if constexpr (kHalf4 % 128 == 0) {
+#pragma unroll
+        for (int j = 0; j < kHalf4 / 128; ++j) {
+          cp_async16(dst + t + 128 * j, src + t + 128 * j, true);
+          cp_async16(dst + 2 * kHalf4 + t + 128 * j, src + 2 * kHalf4 + t + 128 * j, true);
+        }
+      } else {
+        for (int i = t; i < kHalf4; i += 128) {
+          cp_async16(dst + i, src + i, true);
+          cp_async16(dst + 2 * kHalf4 + i, src + 2 * kHalf4 + i, true);
+        }
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  using Frags = uint32_t[kTcK / 8][4];
+  auto chunk = [&](int c, Frags& ahi, Frags& alo, Frags& prev_hi, Frags& prev_lo) {
+    asm volatile("cp.async.wait_group 1;\n" ::);
+    fence_async_smem();
+    // This warpgroup's half of chunk c has landed, and its products of
+    // chunk c - 2, whose buffer takes chunk c + 2, are done.
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
+    stage(c + 2);
+    const int k0 = c * kTcK;
+#pragma unroll
+    for (int s = 0; s < kTcK / 8; ++s) {
+      const int k = k0 + 8 * s + q, ka = min(k, K - 1), kb = min(k + 4, K - 1);
+      const float v[4] = {a0[ka], a1[ka], a0[kb], a1[kb]};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        split_tf32((j < 2 ? k : k + 4) < K ? v[j] : 0.f, ahi[s][j], alo[s][j]);
+    }
+    // This warpgroup's half of the chunk: rows n of B are 16 floats apart;
+    // hi block, then lo block.
+    const float* hi = bbuf + (c % kTcStages) * kStage + wg * (H / 2) * kTcK;
+    const float* lo = hi + H * kTcK;
+    fence_regs(ahi);
+    fence_regs(alo);
+    fence_regs(d);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kTcK / 8; ++s) {
+      const uint64_t bh = smem_desc_sw64(hi + 8 * s), bl = smem_desc_sw64(lo + 8 * s);
+      wgmma_rs(d, ahi[s], bh);
+      wgmma_rs(d, ahi[s], bl);
+      wgmma_rs(d, alo[s], bh);
+    }
+    wgmma_commit();
+    wgmma_wait1();  // this warpgroup's products of chunk c - 1 are done
+    fence_regs(d);
+    fence_regs(prev_hi);
+    fence_regs(prev_lo);
+  };
+  Frags ahi0, alo0, ahi1, alo1;
+  stage(0);
+  stage(1);
+  __syncthreads();  // A was written by all eight warps; both warpgroups read all of it
+  for (int c = 0; c < chunks; c += 2) {
+    chunk(c, ahi0, alo0, ahi1, alo1);
+    if (c + 1 < chunks) chunk(c + 1, ahi1, alo1, ahi0, alo0);
+  }
+  wgmma_wait0();
+  fence_regs(d);
+  fence_regs(ahi0);
+  fence_regs(alo0);
+  fence_regs(ahi1);
+  fence_regs(alo1);
+  asm volatile("cp.async.wait_group 0;\n" ::);  // the empty groups
+  __syncthreads();
+}
+
+// The wgmma fragments d -> act [64][act_ld<H>()] -> this warp's rows in the
+// row-per-warp layout of classic_mlp.cuh (acc[r][j]: row 8 warp + r,
+// column lane + 32 j).  Called by the whole block after tc_gemm.
+template <int H>
+__device__ __forceinline__ void tc_to_rows(const float (&d)[H / 4], float* act,
+                                           float (&acc)[kRowsPerWarp][H / 32]) {
+  constexpr int ld = act_ld<H>();
+  const int tid = threadIdx.x, lane = tid & 31;
+  float* r0 = act + (((tid >> 5) & 3) * 16 + (lane >> 2)) * ld + (tid >> 7) * (H / 2) +
+              2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < H / 16; ++j) {
+    *reinterpret_cast<float2*>(r0 + 8 * j) = make_float2(d[4 * j], d[4 * j + 1]);
+    *reinterpret_cast<float2*>(r0 + 8 * ld + 8 * j) = make_float2(d[4 * j + 2], d[4 * j + 3]);
+  }
+  __syncthreads();
+  const float* rows = act + (tid >> 5) * kRowsPerWarp * ld;
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+    for (int j = 0; j < H / 32; ++j) acc[r][j] = rows[r * ld + lane + 32 * j];
+}
+
+// This warp's rows of acc -> act [64][act_ld<H>()].
+template <int H>
+__device__ __forceinline__ void tc_store_rows(const float (&acc)[kRowsPerWarp][H / 32],
+                                              float* act) {
+  constexpr int ld = act_ld<H>();
+  const int lane = threadIdx.x & 31;
+  float* rows = act + (threadIdx.x >> 5) * kRowsPerWarp * ld;
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+    for (int j = 0; j < H / 32; ++j) rows[r * ld + lane + 32 * j] = acc[r][j];
+}
+
+// Bytes of shared memory of the tensor-core MLP tile: the B chunks, the
+// activation tile and the zero-padded x / d input tiles (load_tile's
+// layout), and the alignment slack.
+template <int H>
+__host__ inline size_t tc_tile_bytes(int xe, int de) {
+  return (static_cast<size_t>(tc_bbuf_floats<H>()) + static_cast<size_t>(kTileRows) * act_ld<H>() +
+          static_cast<size_t>(kTileRows) * (round_up4(xe) + round_up4(de))) *
+             sizeof(float) +
+         kSmemAlign;
+}
+
+// mlp_tile (classic_mlp.cuh) with the products on the tensor cores: the
+// whole network on one 64-row tile whose inputs are in shared memory (xs,
+// ds); [density, color...] rows to out (row stride ld).  act is the
+// [64][act_ld<H>()] activation tile, bbuf the B chunks; with kSave every
+// layer's xhat and statistics go to save.
+template <int H, bool kSave = false>
+__device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const float* xs,
+                            const float* ds, float* act, float* bbuf, float* out, int ld,
+                            int nvalid, const Save* save = nullptr) {
+  constexpr int ald = act_ld<H>();
+  const int xld = round_up4(w.xe), dld = round_up4(w.de);
+  const size_t slab = 2 * static_cast<size_t>(H) * H;
+  float d[H / 4];
+  float acc[kRowsPerWarp][H / 32];
+  auto epilogue = [&](int i) {
+    tc_to_rows<H>(d, act, acc);
+    layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
+  };
+
+  tc_zero<H>(d);
+  tc_gemm<H>(d, xs, xld, w.xe, im.w0, bbuf);
+  epilogue(0);
+  tc_store_rows<H>(acc, act);
+  for (int i = 1; i < 8; ++i) {
+    tc_zero<H>(d);
+    tc_gemm<H>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
+    if (i == 4) tc_gemm<H>(d, xs, xld, w.xe, im.wx, bbuf);
+    epilogue(i);
+    tc_store_rows<H>(acc, act);
+  }
+  head<H>(acc, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
+  if (w.wd != nullptr) {
+    for (int i = 8; i < 10; ++i) {
+      tc_zero<H>(d);
+      tc_gemm<H>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
+      if (i == 8) tc_gemm<H>(d, ds, dld, w.de, im.wd, bbuf);
+      epilogue(i);
+      if (i == 8) tc_store_rows<H>(acc, act);
+    }
+  }
+  head<H>(acc, w.w_col, w.b_col, w.c, out, ld, 1, nvalid);
+}
+
+// ---------------------------------------------------------------------------
+// Pass 1: the stored-chain forward (fwd_store_kernel's contract).
+// ---------------------------------------------------------------------------
+
+template <int H, class Load>
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_store_tc_kernel(Weights w, TcImages im, Load load, float* __restrict__ out, int P,
+                        float* xhat, float* stats, size_t stride, size_t base) {
+  extern __shared__ float4 smem4[];
+  float* bbuf = tc_smem_base(smem4);
+  float* act = bbuf + tc_bbuf_floats<H>();
+  float* xs = act + kTileRows * act_ld<H>();
+  float* ds = xs + kTileRows * round_up4(w.xe);
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
+  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
+  load(w, xs, ds, row0, nvalid);
+  __syncthreads();
+  const Save save{xhat, stats, stride, base + row0, nvalid};
+  mlp_tile_tc<H, true>(w, im, xs, ds, act, bbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid,
+                       &save);
+}
+
+// ---------------------------------------------------------------------------
+// Pass 2: the backward over the rows of a tile (bwd_rows_kernel's contract,
+// without the encodings' cotangents, which K9 does not need).
+// ---------------------------------------------------------------------------
+
+template <int H>
+__host__ inline size_t bwd_rows_tc_smem(const Weights& w) {
+  return (static_cast<size_t>(tc_bbuf_floats<H>()) + static_cast<size_t>(kTileRows) * act_ld<H>() +
+          static_cast<size_t>(kTileRows) * (1 + w.c)) *
+             sizeof(float) +
+         kSmemAlign;
+}
+
+// bwd is the hidden slabs' backward operand images (the packed [in][out]
+// slabs, 2 H H floats each).
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+    bwd_rows_tc_kernel(Weights w, const float* __restrict__ gout, int P, const float* xhat,
+                       const float* stats, const float* __restrict__ bwd, float* dpre,
+                       float* tpart) {
+  extern __shared__ float4 smem4[];
+  float* bbuf = tc_smem_base(smem4);  // B chunks, or colsum scratch
+  float* act = bbuf + tc_bbuf_floats<H>();        // dpre of the current layer
+  float* gs = act + kTileRows * act_ld<H>();      // [64][1 + c] output cotangents
+  const int L = num_layers(w), last = L - 1, ldo = 1 + w.c;
+  const size_t slab = 2 * static_cast<size_t>(H) * H, PP = static_cast<size_t>(P);
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
+  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
+  float* part = tpart + blockIdx.x * tile_floats(w, H);
+  float* p_b = part;
+  float* p_g = p_b + L * H;
+  float* p_beta = p_g + L * H;
+  float* p_wdens = p_beta + L * H;
+  float* p_wcol = p_wdens + H;
+  float* p_bdens = p_wcol + H * w.c;
+  float* p_bcol = p_bdens + 1;
+
+  for (int i = threadIdx.x; i < kTileRows * ldo; i += kThreads)
+    gs[i] = i / ldo < nvalid ? gout[row0 * ldo + i] : 0.f;
+  __syncthreads();
+  if (threadIdx.x < ldo) {
+    float s = 0.f;
+    for (int r = 0; r < kTileRows; ++r) s += gs[r * ldo + threadIdx.x];
+    if (threadIdx.x == 0) *p_bdens = s; else p_bcol[threadIdx.x - 1] = s;
+  }
+
+  float acc[kRowsPerWarp][H / 32];
+  float d[H / 4];
+  zero<H>(acc);
+  auto xh_of = [&](int layer) { return xhat + (layer * PP + row0) * H; };
+  head_bwd<H>(acc, gs, ldo, 1, w.c, w.w_col, xh_of(last), w.g + last * H, w.beta + last * H,
+              nvalid, p_wcol, bbuf);
+  if (w.wd == nullptr)
+    head_bwd<H>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H, nvalid,
+                p_wdens, bbuf);
+  for (int i = last; i >= 0; --i) {
+    layer_bwd<H>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats, dpre, p_b,
+                 p_g, p_beta, bbuf);
+    if (i == 0) break;
+    tc_store_rows<H>(acc, act);
+    tc_zero<H>(d);
+    tc_gemm<H>(d, act, act_ld<H>(), H, bwd + (i - 1) * slab, bbuf);
+    tc_to_rows<H>(d, act, acc);
+    if (i == 8)
+      head_bwd<H>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H,
+                  nvalid, p_wdens, bbuf);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Pass 3: dW = h_in^T dpre on the tensor cores (wgrad_kernel's contract).
+// ---------------------------------------------------------------------------
+
+// Shared memory of wgrad_tc_kernel: two stages of the raw operands as
+// loaded ([2 operands][kWgK points][kWgLd], a row padded to kWgLd floats so
+// the transposing reads are free of bank conflicts) and two images of B
+// ([hi, lo][kWT x kWgK]), 136,192 bytes with the alignment slack.
+constexpr int kWgLd = kWT + 8;
+constexpr int kWgRawFloats = 2 * kWgK * kWgLd;
+constexpr int kWgImgFloats = 2 * kWT * kWgK;
+constexpr size_t kWgradTcSmem = 2 * (kWgRawFloats + kWgImgFloats) * sizeof(float) + kSmemAlign;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+// A block of 256 threads owns one 128 x 128 output tile over one chunk of
+// points; warpgroup wg takes the tile's rows 64 wg .. 64 wg + 63 (M) and
+// all 128 columns (N) as one m64n128 accumulator.  A = h_in^T and B =
+// dpre are stored [P][M] and [P][N], and TF32 wgmma wants both K-major
+// (points contiguous).  Per 32-point chunk:
+//   1. cp.async copies the chunk's raw rows of both operands (128 columns,
+//      16 bytes a copy where the rows allow it, else 4; zero-filled past P
+//      and past M or N) one chunk ahead, so no load's latency is waited
+//      for;
+//   2. B is transposed out of the raw stage, split into hi and lo and
+//      stored in the 128-byte-swizzled K-major order (the 32 lanes of a
+//      store hit 32 banks), into the image the products of two chunks ago
+//      have released;
+//   3. A needs no image: each thread loads its m64n128k8 A fragments (rows
+//      g, g + 8 of its warp, points q, q + 4 of each k-step) straight from
+//      the raw rows (free of bank conflicts), rebuilds h = xhat g + beta
+//      (relu for the mip order) and splits them in registers;
+//   4. the chunk's 12 products are issued and left running while the next
+//      chunk is copied and transformed; before the next products, this
+//      chunk's partial sum is added to a float32 sum (the tensor cores add
+//      with truncation below the accumulator's leading bits, so a sum over
+//      thousands of points in one accumulator drifts: measured 1e-5 of the
+//      largest entry at 1000 points).
+// One block an SM (the float32 sum beside the accumulators).
+__global__ void __launch_bounds__(256, 1)
+    wgrad_tc_kernel(WProds prods, int P, int k_chunk, float* __restrict__ wpart,
+                    size_t wfloats) {
+  extern __shared__ float4 smem4[];
+  float* raw = tc_smem_base(smem4);    // [2 stages][A, B][kWgK][kWgLd]
+  float* img = raw + 2 * kWgRawFloats;  // [2 buffers][B hi, B lo][kWT][kWgK]
+  int t = blockIdx.x, pi = 0;
+  while (t >= prods.p[pi].tiles_m * prods.p[pi].tiles_n) {
+    t -= prods.p[pi].tiles_m * prods.p[pi].tiles_n;
+    ++pi;
+  }
+  const WProd pr = prods.p[pi];
+  const int N = pr.n;
+  const int m0 = (t / pr.tiles_n) * kWT, n0 = (t % pr.tiles_n) * kWT;
+  const int k_begin = blockIdx.y * k_chunk;
+  const int k_end = min(P, k_begin + k_chunk);
+  const int chunks = (k_end - k_begin + kWgK - 1) / kWgK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = tid >> 7;
+  const int g = lane >> 2, q = lane & 3;
+
+  // Step 1.  The row of A that point p reads (the view encodings are per
+  // ray: WProd::div, split).
+  auto a_row = [&](int p) {
+    if (pr.div == 1) return p;  // no division on the common path
+    const int r1 = p / pr.div, r2 = (p - pr.split) / pr.div2;
+    return pr.split > 0 && p >= pr.split ? r2 : r1;
+  };
+  const bool vec = pr.a_ld % 4 == 0 && pr.M % 4 == 0 && N % 4 == 0;
+  auto copy_raw = [&](int c) {
+    float* dst_a = raw + (c & 1) * kWgRawFloats;
+    float* dst_b = dst_a + kWgK * kWgLd;
+    const int p0 = k_begin + c * kWgK;
+    if (vec) {  // 16-byte copies: thread tid takes columns 4 (tid % 32) ..
+      const int col = 4 * (tid & 31);
+      const bool a_col = m0 + col < pr.M, b_col = n0 + col < N;
+#pragma unroll
+      for (int e = 0; e < kWgK * 32 / kThreads; ++e) {
+        const int pl = (tid >> 5) + e * (kThreads / 32), p = p0 + pl;
+        const bool in_k = p < k_end;
+        const bool va = in_k && a_col, vb = in_k && b_col;
+        cp_async16(reinterpret_cast<float4*>(dst_a + pl * kWgLd + col),
+                   reinterpret_cast<const float4*>(
+                       pr.a + static_cast<size_t>(va ? a_row(p) : 0) * pr.a_ld + (va ? m0 + col : 0)),
+                   va);
+        cp_async16(reinterpret_cast<float4*>(dst_b + pl * kWgLd + col),
+                   reinterpret_cast<const float4*>(
+                       pr.b + static_cast<size_t>(vb ? p : 0) * N + (vb ? n0 + col : 0)),
+                   vb);
+      }
+    } else {  // 4-byte copies: thread tid takes column tid % 128
+      const int col = tid % kWT;
+      const bool a_col = m0 + col < pr.M, b_col = n0 + col < N;
+#pragma unroll 4
+      for (int e = 0; e < kWgK * kWT / kThreads; ++e) {
+        const int pl = tid / kWT + e * (kThreads / kWT), p = p0 + pl;
+        const bool in_k = p < k_end;
+        const bool va = in_k && a_col, vb = in_k && b_col;
+        cp_async4(dst_a + pl * kWgLd + col,
+                  pr.a + static_cast<size_t>(va ? a_row(p) : 0) * pr.a_ld + (va ? m0 + col : 0),
+                  va);
+        cp_async4(dst_b + pl * kWgLd + col,
+                  pr.b + static_cast<size_t>(vb ? p : 0) * N + (vb ? n0 + col : 0), vb);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  // Step 2: the thread's two columns x, x + 8 and its points 4 e + lane % 4
+  // (e < 8); value (e, h) goes to row x + 8 h of the image, 16-byte group
+  // e ^ (x % 8) (the 128-byte swizzle), word lane % 4.
+  const int x = warp * 16 + g;
+  auto transform_b = [&](int c) {
+    const float* rb = raw + (c & 1) * kWgRawFloats + kWgK * kWgLd;
+    float* im = img + (c & 1) * kWgImgFloats;
+#pragma unroll
+    for (int e = 0; e < kWgK / 4; ++e) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int at = (x + 8 * h) * kWgK + ((e ^ (x & 7)) << 2) + q;
+        uint32_t hi, lo;
+        split_tf32(rb[(4 * e + q) * kWgLd + x + 8 * h], hi, lo);
+        im[at] = __uint_as_float(hi);
+        im[kWT * kWgK + at] = __uint_as_float(lo);
+      }
+    }
+  };
+
+  // Step 3: this thread's A rows (tile rows 64 wg + 16 (warp % 4) + g, + 8).
+  const int ar = 64 * wg + 16 * (warp & 3) + g;
+  float ga[2], ba[2];
+  bool a_ok[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + ar + 8 * h;
+    a_ok[h] = m < pr.M;
+    ga[h] = a_ok[h] && pr.g != nullptr ? __ldg(pr.g + m) : 1.f;
+    ba[h] = a_ok[h] && pr.g != nullptr ? __ldg(pr.beta + m) : 0.f;
+  }
+  // Both warpgroups run the products, also where this one's rows all lie
+  // past M (an encoding's slab): a branch around them would serialize
+  // every wgmma of the kernel.
+  float d[64], acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  // A fragments of the chunk in flight: kept allocated until it retires,
+  // so the next chunk's staging runs beside its products.
+  uint32_t ahi[kWgK / 8][4], alo[kWgK / 8][4];
+  auto issue = [&](int c) {
+    const float* ra = raw + (c & 1) * kWgRawFloats;
+    const int valid = k_end - (k_begin + c * kWgK);  // points of this chunk
+#pragma unroll
+    for (int s = 0; s < kWgK / 8; ++s) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // a_j: row g + 8 (j & 1), point q + 4 (j >> 1)
+        const int p = 8 * s + q + 4 * (j >> 1), h = j & 1;
+        float v = fmaf(ra[p * kWgLd + ar + 8 * h], ga[h], ba[h]);
+        v = a_ok[h] && p < valid ? v : 0.f;  // a select, not a branch (see tc_gemm)
+        if (pr.relu) v = fmaxf(v, 0.f);
+        split_tf32(v, ahi[s][j], alo[s][j]);
+      }
+    }
+    const float* b_hi = img + (c & 1) * kWgImgFloats;
+    const float* b_lo = b_hi + kWT * kWgK;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) d[i] = 0.f;
+    fence_regs(d);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < kWgK / 8; ++s) {
+      const uint64_t bh = smem_desc_sw128(b_hi + 8 * s), bl = smem_desc_sw128(b_lo + 8 * s);
+      wgmma_rs(d, ahi[s], bh);
+      wgmma_rs(d, ahi[s], bl);
+      wgmma_rs(d, alo[s], bh);
+    }
+    wgmma_commit();
+  };
+  auto retire = [&]() {  // the products in flight are done: add their sum
+    wgmma_wait0();
+    fence_regs(d);
+    fence_regs(ahi);
+    fence_regs(alo);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += d[i];
+  };
+
+  if (chunks > 0) copy_raw(0);
+  for (int c = 0; c < chunks; ++c) {
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    // Chunk c's raw rows have landed for every thread; every thread is
+    // done with chunk c - 1's raw rows, whose stage the next copy reuses.
+    __syncthreads();
+    if (c + 1 < chunks) copy_raw(c + 1);
+    // Image c & 1 was last read by chunk c - 2's products, retired before
+    // the previous barrier.
+    transform_b(c);
+    fence_async_smem();
+    __syncthreads();
+    if (c > 0) retire();
+    issue(c);
+  }
+  if (chunks > 0) retire();
+  float* out = wpart + blockIdx.y * wfloats + pr.out_off;
+#pragma unroll
+  for (int hrow = 0; hrow < 2; ++hrow) {
+    const int m = m0 + ar + 8 * hrow;
+    if (m >= pr.M) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * q;
+      if (n < N)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(m) * N + n) =
+            make_float2(acc[4 * j + 2 * hrow], acc[4 * j + 2 * hrow + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The policy.
+// ---------------------------------------------------------------------------
+
+// The tensor-core passes for launch_fwd_store_with and launch_mlp_backward:
+// the Scratch's tc_fwd and tc_bwd hold the call's operand images.  The
+// encodings' cotangents (dx, dd) are not implemented: requesting them
+// returns cudaErrorInvalidValue.
+struct TcProducts {
+  template <int H, class Load>
+  static cudaError_t fwd_store(const Weights& w, const Load& load, float* out, int P,
+                               const Scratch& s, cudaStream_t stream, size_t stride,
+                               size_t base) {
+    if (s.tc_fwd == nullptr) return cudaErrorInvalidValue;
+    const size_t smem = tc_tile_bytes<H>(w.xe, w.de);
+    cudaError_t err = cudaFuncSetAttribute(fwd_store_tc_kernel<H, Load>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const int tiles = (P + kTileRows - 1) / kTileRows;
+    fwd_store_tc_kernel<H, Load><<<tiles, kThreads, smem, stream>>>(
+        w, TcImages::forward(w, s.tc_fwd, H), load, out, P, s.xhat, s.stats, stride, base);
+    return cudaGetLastError();
+  }
+
+  template <int H>
+  static cudaError_t bwd_rows(const Weights& w, const float* gout, int P, const Scratch& s,
+                              float* dx, float* dd, cudaStream_t stream) {
+    if (s.tc_bwd == nullptr || dx != nullptr || dd != nullptr) return cudaErrorInvalidValue;
+    const size_t smem = bwd_rows_tc_smem<H>(w);
+    cudaError_t err = cudaFuncSetAttribute(
+        bwd_rows_tc_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const int tiles = (P + kTileRows - 1) / kTileRows;
+    bwd_rows_tc_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats,
+                                                              s.tc_bwd, s.dpre, s.tpart);
+    return cudaGetLastError();
+  }
+
+  static cudaError_t wgrad(const WProds& prods, int total_tiles, int P, int k_chunk,
+                           const Scratch& s, size_t wfloats, cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(wgrad_tc_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(kWgradTcSmem));
+    if (err != cudaSuccess) return err;
+    wgrad_tc_kernel<<<dim3(total_tiles, s.splits), 256, kWgradTcSmem, stream>>>(
+        prods, P, k_chunk, s.wpart, wfloats);
+    return cudaGetLastError();
+  }
+};
+
+}  // namespace nerf_mlp

@@ -1,0 +1,85 @@
+// The tensor-core products of tc_mlp.cuh alone, for the card tests of the
+// 3xTF32 arithmetic and the operand layouts (tests/test_torch_cuda.py):
+// no TPU kernel corresponds to these entry points and no path of the port
+// calls them.
+//
+//   tc_linear: out [P][H] = A [P][K] @ W [K][H] through tc_gemm, one
+//     64-row tile a block, the accumulators through tc_to_rows (img is the
+//     operand image of W^T, tc_mlp.py::operand_image).  A's tile sits in
+//     the activation tile where it fits (K <= H), as a hidden layer's
+//     input does, else beside it.
+//   tc_wgrad: out [M][N] = a^T b for a [P][M], b [P][N] through
+//     wgrad_tc_kernel (one product, the points in one chunk).
+//
+// Plain C interface for ctypes: returns a cudaError_t (0 on success).
+#include "tc_mlp.cuh"
+
+namespace {
+
+using namespace nerf_mlp;
+
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+    tc_linear_kernel(const float* __restrict__ a, int P, int K, const float* __restrict__ img,
+                     float* __restrict__ out) {
+  extern __shared__ float4 smem4[];
+  float* bbuf = tc_smem_base(smem4);
+  float* act = bbuf + tc_bbuf_floats<H>();
+  float* as = K <= H ? act : act + kTileRows * act_ld<H>();  // [64][round_up4(K)]
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
+  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
+  load_tile(as, a, row0, nvalid, K, 1);
+  __syncthreads();
+  float d[H / 4];
+  float acc[kRowsPerWarp][H / 32];
+  tc_zero<H>(d);
+  tc_gemm<H>(d, as, round_up4(K), K, img, bbuf);
+  tc_to_rows<H>(d, act, acc);
+  const int lane = threadIdx.x & 31;
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int row = (threadIdx.x >> 5) * kRowsPerWarp + r;
+    if (row >= nvalid) continue;
+#pragma unroll
+    for (int j = 0; j < H / 32; ++j) out[(row0 + row) * H + lane + 32 * j] = acc[r][j];
+  }
+}
+
+template <int H>
+cudaError_t linear(const float* a, int P, int K, const float* img, float* out,
+                   cudaStream_t stream) {
+  const size_t smem =
+      (static_cast<size_t>(tc_bbuf_floats<H>()) +
+       static_cast<size_t>(kTileRows) * (act_ld<H>() + (K <= H ? 0 : round_up4(K)))) *
+          sizeof(float) +
+      kSmemAlign;
+  cudaError_t err = cudaFuncSetAttribute(
+      tc_linear_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  tc_linear_kernel<H><<<(P + kTileRows - 1) / kTileRows, kThreads, smem, stream>>>(a, P, K, img,
+                                                                                  out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int tc_linear(const float* a, const float* img, float* out, int P, int K, int hidden,
+                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H) static_cast<int>(linear<H>(a, P, K, img, out, st))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
+}
+
+extern "C" int tc_wgrad(const float* a, const float* b, float* out, int P, int M, int N,
+                        void* stream) {
+  WProds prods{};
+  prods.p[0] = WProd{a, nullptr, nullptr, b, M, M, N, 1, 0, 0, (M + kWT - 1) / kWT,
+                     (N + kWT - 1) / kWT};
+  prods.n = 1;
+  Scratch s{};
+  s.wpart = out;
+  s.splits = 1;
+  return static_cast<int>(TcProducts::wgrad(prods, prods.p[0].tiles_m * prods.p[0].tiles_n, P,
+                                            P, s, static_cast<size_t>(M) * N,
+                                            static_cast<cudaStream_t>(stream)));
+}

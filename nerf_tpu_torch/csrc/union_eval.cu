@@ -11,13 +11,20 @@
 // Bound: operations.  The fine MLP is 630,784 multiply-adds per fine
 // sample at the full-width model against 240 bytes of encoding read per
 // sample; the compositing is O(Sc + Sf) per ray and the coarse inputs
-// (t, density, c logits) are (2 + c) x 4 bytes per coarse sample.
+// (t, density, c logits) are (2 + c) x 4 bytes per coarse sample.  At a
+// 4000-ray tile of 128 fine samples: 9.641 ms at the float32 SIMT rate (67
+// TFLOP/s), 3.915 ms as three TF32 products at 495 TFLOP/s.
 //
 // Design.  A block (8 warps) owns whole rays, 256 / Sf of them (at least
-// one).  It runs the shared MLP (classic_mlp.cuh) over the block's fine
-// rows in 64-row sub-tiles, broadcasting each ray's view encoding to its
-// rows, and keeps only [density, color logits] per fine row in shared
-// memory.  Then one warp per ray:
+// one).  It runs the MLP over the block's fine rows in 64-row sub-tiles,
+// broadcasting each ray's view encoding to its rows, with every hidden and
+// encoding product as 3xTF32 on the tensor cores (mlp_tile_tc,
+// tc_mlp.cuh: the weights as operand images the wrapper builds once per
+// call, streamed in chunks of 16 k-values; the epilogues and heads in
+// float32 SIMT), and keeps only [density, color logits] per fine row in
+// shared memory: 227,328 bytes a block at H = 256 and 128 fine samples,
+// the 1024-byte alignment of the swizzled weight chunks included (one
+// block an SM).  Then one warp per ray:
 //   1. merges the sorted coarse and fine t lists by rank (binary search in
 //      the other list; a coarse sample tied with a fine one comes first);
 //   2. takes each merged sample's interval to its successor, times ||d||,
@@ -25,19 +32,15 @@
 //   3. runs the exclusive sum of log(alpha + 1e-10) in merged order in fp32
 //      (each lane sums a contiguous run, a warp scan joins the runs), and
 //      accumulates w = (1 - alpha) exp(prefix) into rgb, depth and acc.
-// The activation buffer of the MLP phase is reused as the compositing
+// The activation tile of the MLP phase is reused as the compositing
 // scratch (4 arrays of Sc + Sf per warp).
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
-#include "classic_mlp.cuh"
+#include "tc_mlp.cuh"
 
 namespace {
 
 using namespace nerf_mlp;
-
-constexpr int kMaxColors = 8;
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
 // Composite one ray with the calling warp; fo is the ray's [Sf][1 + c]
 // block of fine MLP outputs, scratch is this warp's 4 (Sc + Sf) floats.
@@ -136,22 +139,22 @@ __device__ void composite_ray(int ray, int Sc, int Sf, int c,
 
 template <int H>
 __host__ __device__ inline size_t scratch_floats(int Sc, int Sf) {
-  const size_t act = static_cast<size_t>(kTileRows) * H;
+  const size_t act = static_cast<size_t>(kTileRows) * act_ld<H>();
   const size_t comp = static_cast<size_t>(kWarps) * 4 * (Sc + Sf);
   return act > comp ? act : comp;
 }
 
 template <int H>
-__global__ void __launch_bounds__(kThreads, 2)
-    union_eval_kernel(Weights w, const float* __restrict__ xf, const float* __restrict__ d,
-                      const float* __restrict__ t_c, const float* __restrict__ t_f,
-                      const float* __restrict__ dens_c, const float* __restrict__ col_c,
-                      const float* __restrict__ dnorm, float* __restrict__ out, int R, int Sc,
-                      int Sf, int rays_per_block) {
+__global__ void __launch_bounds__(kThreads, 1)
+    union_eval_kernel(Weights w, TcImages im, const float* __restrict__ xf,
+                      const float* __restrict__ d, const float* __restrict__ t_c,
+                      const float* __restrict__ t_f, const float* __restrict__ dens_c,
+                      const float* __restrict__ col_c, const float* __restrict__ dnorm,
+                      float* __restrict__ out, int R, int Sc, int Sf, int rays_per_block) {
   extern __shared__ float4 smem4[];
-  float* act = reinterpret_cast<float*>(smem4);  // MLP activations, then scratch
-  float* wbuf = act + scratch_floats<H>(Sc, Sf);
-  float* xs = wbuf + kChunk * H;
+  float* bbuf = tc_smem_base(smem4);  // the weights' chunks
+  float* act = bbuf + tc_bbuf_floats<H>();        // MLP activations, then scratch
+  float* xs = act + scratch_floats<H>(Sc, Sf);
   float* ds = xs + kTileRows * round_up4(w.xe);
   float* fout = ds + kTileRows * round_up4(w.de);  // [rays_per_block * Sf][1 + c]
   const int ld = 1 + w.c;
@@ -165,7 +168,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     load_tile(xs, xf, frow0 + sub, nvalid, w.xe, 1);
     if (w.wd != nullptr) load_tile(ds, d, frow0 + sub, nvalid, w.de, Sf);
     __syncthreads();
-    mlp_tile<H>(w, xs, ds, act, wbuf, fout + sub * ld, ld, nvalid);
+    mlp_tile_tc<H>(w, im, xs, ds, act, bbuf, fout + sub * ld, ld, nvalid);
     __syncthreads();
   }
 
@@ -179,22 +182,23 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 template <int H>
-cudaError_t launch(const Weights& w, const float* xf, const float* d, const float* t_c,
-                   const float* t_f, const float* dens_c, const float* col_c,
-                   const float* dnorm, float* out, int R, int Sc, int Sf,
-                   cudaStream_t stream) {
+cudaError_t launch(const Weights& w, const float* tcw, const float* xf, const float* d,
+                   const float* t_c, const float* t_f, const float* dens_c, const float* col_c,
+                   const float* dnorm, float* out, int R, int Sc, int Sf, cudaStream_t stream) {
   const int rays_per_block = Sf >= 256 ? 1 : 256 / Sf;
-  const size_t smem = (scratch_floats<H>(Sc, Sf) + mlp_side_floats<H>(w.xe, w.wd ? w.de : 0) +
+  const size_t smem = (tc_bbuf_floats<H>() + scratch_floats<H>(Sc, Sf) +
+                       static_cast<size_t>(kTileRows) * (round_up4(w.xe) + round_up4(w.de)) +
                        static_cast<size_t>(rays_per_block) * Sf * (1 + w.c)) *
-                      sizeof(float);
+                          sizeof(float) +
+                      kSmemAlign;
   cudaError_t err = cudaFuncSetAttribute(
       union_eval_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = (R + rays_per_block - 1) / rays_per_block;
-  union_eval_kernel<H><<<blocks, kThreads, smem, stream>>>(w, xf, d, t_c, t_f, dens_c, col_c,
-                                                          dnorm, out, R, Sc, Sf,
-                                                          rays_per_block);
+  union_eval_kernel<H><<<blocks, kThreads, smem, stream>>>(
+      w, TcImages::forward(w, tcw, H), xf, d, t_c, t_f, dens_c, col_c, dnorm, out, R, Sc, Sf,
+      rays_per_block);
   return cudaGetLastError();
 }
 
@@ -206,13 +210,13 @@ extern "C" int union_eval(const float* xf, const float* d, const float* t_c, con
                           const float* w0, const float* wx, const float* wd, const float* whh,
                           const float* b, const float* g, const float* beta,
                           const float* w_dens, const float* b_dens, const float* w_col,
-                          const float* b_col, void* stream) {
+                          const float* b_col, const float* tcw, void* stream) {
   if (c > kMaxColors) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) \
-  static_cast<int>(launch<H>(w, xf, d, t_c, t_f, dens_c, col_c, dnorm, out, R, Sc, Sf, s))
+  static_cast<int>(launch<H>(w, tcw, xf, d, t_c, t_f, dens_c, col_c, dnorm, out, R, Sc, Sf, s))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }

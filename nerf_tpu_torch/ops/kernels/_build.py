@@ -46,8 +46,9 @@ _MIP_WEIGHT_ARGS = (_P,) * 7  # w_in whh b g beta w_out b_out
 ARGTYPES = {
     # x d out P xe de hidden c, weights, stream
     "classic_mlp_fwd": (_P, _P, _P, _I, _I, _I, _I, _I) + _WEIGHT_ARGS + (_P,),
-    # xf d t_c t_f dens_c col_c dnorm out R Sc Sf xe de hidden c, weights, stream
-    "union_eval": (_P,) * 8 + (_I,) * 7 + _WEIGHT_ARGS + (_P,),
+    # xf d t_c t_f dens_c col_c dnorm out R Sc Sf xe de hidden c, weights,
+    # tc_fwd stream
+    "union_eval": (_P,) * 8 + (_I,) * 7 + _WEIGHT_ARGS + (_P,) * 2,
     # x d gout dx dd grads P xe de hidden c, weights,
     # xhat stats dpre wpart tpart tmp wt out splits stream
     "classic_mlp_bwd": (_P,) * 6 + (_I,) * 5 + _WEIGHT_ARGS + (_P,) * 8 + (_I, _P),
@@ -80,9 +81,16 @@ ARGTYPES = {
     + (_I, _P),
     # xc d_ray t_c noise_c u noise_f rays_o rays_d pix S is_cos loss grads
     # t_fine R Sc Sf xe de hidden c white exact_trig, weights, xhat stats dpre
-    # wpart tpart tmp wt out gout x_all dnorm ray_loss splits stream
-    "mega_train": (_P,) * 14 + (_I,) * 9 + _WEIGHT_ARGS + (_P,) * 12 + (_I, _P),
+    # wpart tpart tmp wt out gout x_all dnorm ray_loss splits tc_fwd tc_bwd
+    # stream
+    "mega_train": (_P,) * 14 + (_I,) * 9 + _WEIGHT_ARGS + (_P,) * 12 + (_I,) + (_P,) * 3,
+    # The tensor-core products alone (csrc/tc_product.cu, for the card
+    # tests): a img out P K hidden stream; a b out P M N stream.
+    "tc_linear": (_P,) * 3 + (_I,) * 3 + (_P,),
+    "tc_wgrad": (_P,) * 3 + (_I,) * 3 + (_P,),
 }
+# Functions of a library other than its own name.
+FUNCTIONS = {"tc_product": ("tc_linear", "tc_wgrad")}
 
 
 def nvcc_path() -> str:
@@ -141,9 +149,10 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         build([name])
         lib = ctypes.CDLL(str(_lib_path(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        for fn_name in FUNCTIONS.get(name, (name,)):
+            fn = getattr(lib, fn_name)
+            fn.argtypes = ARGTYPES[fn_name]
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return _LIBS[name]
 

@@ -82,10 +82,13 @@ def pack_classic_params(mlp: ClassicMLP) -> Packed:
 
 
 def classic_mlp_fwd_plain(
-    packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor] = None
+    packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor] = None,
+    matmul=torch.matmul,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``[P, 1 + C]`` rows of
-    ``[density, color logits]``."""
+    ``[density, color logits]``.  ``matmul`` computes the hidden and
+    encoding products (the heads stay float32): ``tc_mlp.tc_matmul_autograd``
+    emulates the tensor-core kernels' 3xTF32."""
 
     def layer(i: int, pre: torch.Tensor) -> torch.Tensor:
         a = torch.relu(pre + packed["b"][i])
@@ -94,16 +97,16 @@ def classic_mlp_fwd_plain(
         )
 
     whh = packed["whh"]
-    h = layer(0, x_enc @ packed["w0"])
+    h = layer(0, matmul(x_enc, packed["w0"]))
     for i in (1, 2, 3):
-        h = layer(i, h @ whh[i - 1])
-    h = layer(4, h @ whh[3] + x_enc @ packed["wx"])
+        h = layer(i, matmul(h, whh[i - 1]))
+    h = layer(4, matmul(h, whh[3]) + matmul(x_enc, packed["wx"]))
     for i in (5, 6, 7):
-        h = layer(i, h @ whh[i - 1])
+        h = layer(i, matmul(h, whh[i - 1]))
     density = h @ packed["w_dens"] + packed["b_dens"]
     if "wd_in" in packed:
-        h = layer(8, h @ whh[7] + d_enc @ packed["wd_in"])
-        h = layer(9, h @ whh[8])
+        h = layer(8, matmul(h, whh[7]) + matmul(d_enc, packed["wd_in"]))
+        h = layer(9, matmul(h, whh[8]))
     color = h @ packed["w_col"] + packed["b_col"]
     return torch.cat([density, color], dim=-1)
 

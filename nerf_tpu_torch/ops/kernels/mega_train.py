@@ -5,11 +5,14 @@ backwards, with no forward run twice.
 
 Counterpart of ``nerf_tpu/ops/pallas/fused_mega.py`` (``supports_mega``,
 ``_encode_fine`` and ``mega_train_loss_and_grads``).  The kernel is
-``csrc/mega_train.cu``, on the passes of ``csrc/classic_mlp_train.cuh``,
-K3's union pass (``csrc/union_train.cuh``) and the in-kernel encoder of
-``csrc/encode.cuh``; ``mega_train_plain`` is its plain PyTorch version:
-autograd through ``classic_mlp_fwd_plain``, the compositing and
-``sampling.sample_pdf`` on the detached coarse weights.  The JAX function's
+``csrc/mega_train.cu``, on the passes of ``csrc/classic_mlp_train.cuh`` with
+the tensor-core products of ``csrc/tc_mlp.cuh`` (3xTF32 on operand images
+``tc_mlp.tc_images`` builds once per call), K3's union pass
+(``csrc/union_train.cuh``) and the in-kernel encoder of ``csrc/encode.cuh``;
+``mega_train_plain`` is its plain PyTorch version: autograd through
+``classic_mlp_fwd_plain``, the compositing and ``sampling.sample_pdf`` on
+the detached coarse weights (with ``matmul=tc_mlp.tc_matmul_autograd`` it
+emulates the kernel's products, forward and backward).  The JAX function's
 TPU knobs (``interpret``, ``rays_per_tile``, ``splits``, ``ablate``) have
 no counterpart here.
 """
@@ -23,7 +26,7 @@ import torch
 
 from nerf_tpu_torch.config import ClassicNeRFConfig
 from nerf_tpu_torch.ops import compositing, encoding, sampling
-from nerf_tpu_torch.ops.kernels import _build
+from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
     HIDDEN_WIDTHS,
     MAX_COLORS,
@@ -78,38 +81,39 @@ def encode_fine_plain(
     return torch.sin(arg + is_cos * (math.pi / 2.0))  # float32(pi/2): a float32 op
 
 
-def _stage_out(w: Packed, x_enc, d_ray, n_rays: int, per_ray: int) -> torch.Tensor:
+def _stage_out(w: Packed, x_enc, d_ray, n_rays: int, per_ray: int, matmul) -> torch.Tensor:
     d = None if d_ray is None else d_ray[:, None, :].expand(n_rays, per_ray, -1).reshape(
         n_rays * per_ray, -1)
-    return classic_mlp_fwd_plain(w, x_enc, d).reshape(n_rays, per_ray, -1)
+    return classic_mlp_fwd_plain(w, x_enc, d, matmul).reshape(n_rays, per_ray, -1)
 
 
-def _coarse_plain(w: Packed, x_enc_c, d_ray, t_coarse, noise_c, rays_d):
+def _coarse_plain(w: Packed, x_enc_c, d_ray, t_coarse, noise_c, rays_d, matmul):
     n_rays, s_coarse = t_coarse.shape
-    out_c = _stage_out(w, x_enc_c, d_ray, n_rays, s_coarse)
+    out_c = _stage_out(w, x_enc_c, d_ray, n_rays, s_coarse, matmul)
     dens_c = out_c[..., :1] + noise_c[..., None]
     weights_c = compositing.weights_from_density(
         dens_c, compositing.distances_from_tvals(t_coarse, rays_d))
     return dens_c, out_c[..., 1:], weights_c
 
 
-def coarse_weights_plain(packed: Packed, x_enc_c, d_ray, t_coarse, noise_c, rays_d
-                         ) -> torch.Tensor:
+def coarse_weights_plain(packed: Packed, x_enc_c, d_ray, t_coarse, noise_c, rays_d,
+                         matmul=torch.matmul) -> torch.Tensor:
     """The coarse stage's compositing weights ``[R, Sc]`` in plain PyTorch,
     which the resample inverts (``mega_train``'s arguments)."""
     with torch.no_grad():
-        return _coarse_plain(packed, x_enc_c, d_ray, t_coarse, noise_c, rays_d)[2][..., 0]
+        return _coarse_plain(packed, x_enc_c, d_ray, t_coarse, noise_c, rays_d,
+                             matmul)[2][..., 0]
 
 
 def mega_train_plain(
     packed: Packed, x_enc_c, d_ray, t_coarse, noise_c, u, noise_f, rays_o, rays_d, pixels,
     placement, is_cos, white_background: bool = False, exact_trig: bool = False,
-    t_fine: Optional[torch.Tensor] = None,
+    t_fine: Optional[torch.Tensor] = None, matmul=torch.matmul,
 ):
     """The kernel's function in plain PyTorch (see ``mega_train``).
     ``t_fine``, when given, takes the place of the resample's result (the
     fine t-values held constant, as the JAX package's exactness oracle
-    holds them)."""
+    holds them); ``matmul`` as in ``classic_mlp_fwd_plain``."""
     n_rays, s_coarse = t_coarse.shape
     s_fine = u.shape[-1]
     bg = 1.0 if white_background else None
@@ -117,7 +121,8 @@ def mega_train_plain(
     kept = {}
 
     def objective(w):
-        dens_c, col_c, weights_c = _coarse_plain(w, x_enc_c, d_ray, t_coarse, noise_c, rays_d)
+        dens_c, col_c, weights_c = _coarse_plain(w, x_enc_c, d_ray, t_coarse, noise_c, rays_d,
+                                                 matmul)
         rgb_c = compositing.composite_rgb_with_background(weights_c, col_c, bg)
         loss_c = STAGE_WEIGHT * torch.mean((rgb_c - pixels) ** 2)
         t_f = t_fine
@@ -126,7 +131,7 @@ def mega_train_plain(
             t_f = sampling.sample_pdf(None, t_mids, weights_c[..., 1:-1, 0].detach(), s_fine,
                                       u=u)
         out_f = _stage_out(w, encode_fine_plain(t_f, rays_o, rays_d, placement, is_cos,
-                                                exact_trig), d_ray, n_rays, s_fine)
+                                                exact_trig), d_ray, n_rays, s_fine, matmul)
         weights = compositing.weights_from_union_norm(
             dens_c, out_f[..., :1] + noise_f[..., None], t_coarse, t_f, dnorm[:, None])
         rgb = compositing.composite_rgb_with_background(
@@ -227,6 +232,7 @@ def mega_train(
     loss, t_fine = buf(2), buf(n_rays, s_fine)
     gout, x_all = torch.empty_like(s["out"]), buf(n_rows, xe)
     dnorm, ray_loss = buf(n_rays), buf(2, n_rays)
+    tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
     fn = getattr(_build.load(NAME), NAME)
     err = fn(
         x_enc_c.data_ptr(), _build.ptr(d_ray), t_coarse.data_ptr(), noise_c.data_ptr(),
@@ -236,7 +242,7 @@ def mega_train(
         d_ray.shape[1] if has_view else 0, hidden, colors, int(white_background),
         int(exact_trig), *weight_pointers(packed), *scratch_pointers(s), gout.data_ptr(),
         x_all.data_ptr(), dnorm.data_ptr(), ray_loss.data_ptr(), s["splits"],
-        torch.cuda.current_stream(device).cuda_stream,
+        tc_fwd.data_ptr(), tc_bwd.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1

@@ -1,0 +1,138 @@
+"""The tensor-core products of K4 and K9: 3xTF32 on Hopper's ``wgmma``.
+
+K4 (``union_eval``) and K9 (``mega_train``) run their hidden and encoding
+products as three TF32 products, ``hi(A) hi(B) + hi(A) lo(B) + lo(A) hi(B)``
+with ``lo = x - hi``, into float32 accumulators (``csrc/tc_mlp.cuh``).  TF32
+keeps 10 mantissa bits; the split keeps about 21, which is what float32
+accuracy through ten LayerNorm'd layers needs.
+
+TF32 ``wgmma`` takes both operands K-major, so every B operand is held as
+``[N][K]`` (``N`` the output columns, ``K`` the summed index): the forward's
+slabs as ``[out][in]`` (``nn.Linear``'s own layout, which
+``pack_classic_params`` transposes away) and the backward's ``dh = dpre
+W^T`` slabs as the packed ``[in][out]``.  The wrappers build each B operand
+once per call, on the card, as an *operand image* (``operand_image``): K
+padded with zeros to a multiple of 16 (the encodings 60 -> 64 and 36 -> 48:
+16 TF32 values are one 64-byte row of the swizzle atom), split into hi and
+lo by bit masking, and laid out chunk by chunk (16 k-values a chunk) as the
+kernel copies it to shared memory: per chunk the hi block, then the lo
+block, each ``[N][16]`` with the 16-byte group ``j`` of row ``n`` stored at
+group ``j ^ ((n // 2) % 4)`` (the 64-byte swizzle of ``wgmma``'s
+shared-memory operands, which keeps the tensor cores' reads of eight rows
+off one bank).
+
+``tf32_split`` and ``tc_matmul`` are the plain emulation of the product
+(the same masking, three float32 products); ``TcMatmul`` carries it through
+autograd with the backward's two products emulated too, so the plain
+versions of K4 and K9 can run on the CPU with the card's arithmetic
+(``matmul=tc_matmul_autograd``) and be held against their float32 selves.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+CHUNK = 16  # k-values per chunk of an operand image (kTcK in csrc/tc_mlp.cuh)
+TF32_MASK = -8192  # 0xffffe000 as an int32: sign, exponent and 10 mantissa bits
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(hi, lo)``: ``hi`` is ``x`` truncated to TF32 and ``lo`` the rest
+    (exact in float32) truncated to TF32, both by bit masking."""
+    x = x.contiguous()
+    hi = (x.view(torch.int32) & TF32_MASK).view(torch.float32)
+    lo = ((x - hi).view(torch.int32) & TF32_MASK).view(torch.float32)
+    return hi, lo
+
+
+def tc_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the kernels compute it: three TF32 products summed in
+    float32 (the ``lo lo`` term, about 2^-22 of the product, is dropped)."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
+class TcMatmul(torch.autograd.Function):
+    """``tc_matmul`` under autograd; the backward's products (``dh = g
+    b^T``, ``dW = a^T g``) are 3xTF32 as well, as in the kernels'
+    ``bwd_rows`` and ``wgrad`` passes."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return tc_matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        return tc_matmul(g, b.t()), tc_matmul(a.t(), g)
+
+
+def tc_matmul_autograd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return TcMatmul.apply(a, b)
+
+
+def round_up_chunk(n: int) -> int:
+    return -(-n // CHUNK) * CHUNK
+
+
+def _swizzle_index(n: int, device) -> torch.Tensor:
+    """For row ``r`` and 16-byte group ``j`` of a ``[n][16]`` block, the
+    group it is stored at: ``j ^ ((r // 2) % 4)``."""
+    r = torch.arange(n, device=device)[:, None]
+    j = torch.arange(CHUNK // 4, device=device)[None, :]
+    return j ^ ((r // 2) % 4)
+
+
+def operand_image(b: torch.Tensor) -> torch.Tensor:
+    """The operand image of ``b [..., N, K]`` (K-major, N a multiple of 8):
+    ``[..., 2 N round_up_chunk(K)]`` floats (see the module docstring)."""
+    *lead, n, k = b.shape
+    if n % 8:
+        raise ValueError(f"operand_image: N must be a multiple of 8, got {n}")
+    kp = round_up_chunk(k)
+    hi, lo = tf32_split(F.pad(b, (0, kp - k)))
+    hl = torch.stack([hi, lo], -3).reshape(*lead, 2, n, kp // CHUNK, CHUNK // 4, 4)
+    hl = hl.movedim(-3, -5)  # [..., chunk, 2, n, group, 4]
+    dst = _swizzle_index(n, b.device)[:, :, None].expand(n, CHUNK // 4, 4)
+    out = torch.empty_like(hl).scatter_(-2, dst.expand_as(hl), hl)
+    return out.reshape(*lead, -1)
+
+
+def operand_image_unpack(img: torch.Tensor, n: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of ``operand_image``: ``(hi, lo)``, each ``[..., N,
+    round_up_chunk(K)]``."""
+    *lead, _ = img.shape
+    kp = round_up_chunk(k)
+    hl = img.reshape(*lead, kp // CHUNK, 2, n, CHUNK // 4, 4)
+    src = _swizzle_index(n, img.device)[:, :, None].expand(n, CHUNK // 4, 4)
+    hl = hl.gather(-2, src.expand_as(hl)).movedim(-5, -3).reshape(*lead, 2, n, kp)
+    return hl[..., 0, :, :], hl[..., 1, :, :]
+
+
+def forward_slabs(packed) -> dict:
+    """The packed weights' slabs as the forward's B operands, ``[out][in]``:
+    ``w0 [H, XE]``, ``wx [H, XE]``, ``wd_in [H, DE]`` (with the view
+    branch) and ``whh [L - 1, H, H]``."""
+    out = {k: packed[k].t() for k in ("w0", "wx", "wd_in") if k in packed}
+    out["whh"] = packed["whh"].transpose(1, 2)
+    return out
+
+
+def tc_images(packed, backward: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The operand images a kernel reads, built on the weights' device:
+    ``(forward, backward)``.  The forward images, in this order: ``w0``,
+    ``wx``, ``wd_in`` (with the view branch), then each hidden slab (the
+    order ``csrc/tc_mlp.cuh``'s ``TcImages`` reads).  With ``backward`` also
+    the hidden slabs as ``bwd_rows``' B operands (the packed ``[in][out]``
+    slabs); else ``None``."""
+    with torch.no_grad():
+        slabs = forward_slabs(packed)
+        fwd = [operand_image(slabs[k]) for k in ("w0", "wx", "wd_in") if k in slabs]
+        fwd.append(operand_image(slabs["whh"]).reshape(-1))
+        bwd = operand_image(packed["whh"]).reshape(-1) if backward else None
+        return torch.cat(fwd), bwd

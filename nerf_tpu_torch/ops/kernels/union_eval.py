@@ -3,10 +3,13 @@ CUDA kernel: the fine MLP, then the union of the reused coarse samples and
 the new fine ones composited in t order.
 
 Counterpart of ``nerf_tpu/ops/pallas/fused_hier.py::fine_union_eval_pallas``.
-The kernel is ``csrc/union_eval.cu`` (MLP device code shared with K1 in
-``csrc/classic_mlp.cuh``); ``union_eval_plain`` is its plain PyTorch
-version: ``classic_mlp_fwd_plain`` followed by ``weights_from_union_sorted``
-and the ``composite_*`` functions.
+The kernel is ``csrc/union_eval.cu``: the MLP's hidden and encoding products
+run as 3xTF32 on the tensor cores (``csrc/tc_mlp.cuh``, on the operand images
+``tc_mlp.tc_images`` builds once per call), the epilogues, heads and
+compositing in float32.  ``union_eval_plain`` is its plain PyTorch version:
+``classic_mlp_fwd_plain`` followed by ``weights_from_union_sorted`` and the
+``composite_*`` functions (with ``matmul=tc_mlp.tc_matmul`` it emulates the
+kernel's products).
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from nerf_tpu_torch.ops import compositing
-from nerf_tpu_torch.ops.kernels import _build
+from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
     HIDDEN_WIDTHS,
     Packed,
@@ -39,14 +42,16 @@ def union_eval_plain(
     dens_c: torch.Tensor,
     col_c: torch.Tensor,
     dnorm: torch.Tensor,
+    matmul=torch.matmul,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch (see ``union_eval``)."""
+    """The kernel's function in plain PyTorch (see ``union_eval``);
+    ``matmul`` as in ``classic_mlp_fwd_plain``."""
     n_rays, s_fine = t_fine.shape
     d_rows = None
     if d_enc is not None:
         d_rows = d_enc[:, None, :].expand(n_rays, s_fine, d_enc.shape[-1])
         d_rows = d_rows.reshape(n_rays * s_fine, -1)
-    out = classic_mlp_fwd_plain(packed, x_enc.reshape(n_rays * s_fine, -1), d_rows)
+    out = classic_mlp_fwd_plain(packed, x_enc.reshape(n_rays * s_fine, -1), d_rows, matmul)
     out = out.reshape(n_rays, s_fine, -1)
     weights = compositing.weights_from_union_norm(
         dens_c, out[..., :1], t_coarse, t_fine, dnorm[:, None]
@@ -118,12 +123,14 @@ def union_eval(
         raise ValueError(f"{NAME}: at most {MAX_COLORS} color outputs, got {colors}")
     out = torch.empty((n_rays, colors + 2), dtype=torch.float32, device=device)
     if n_rays:
+        tc_fwd, _ = tc_mlp.tc_images(packed)
         fn = getattr(_build.load(NAME), NAME)
         err = fn(
             x_enc.data_ptr(), _build.ptr(d_enc), t_coarse.data_ptr(), t_fine.data_ptr(),
             dens_c.data_ptr(), col_c.data_ptr(), dnorm.data_ptr(), out.data_ptr(),
             n_rays, s_coarse, s_fine, xe, d_enc.shape[1] if has_view else 0, hidden, colors,
-            *weight_pointers(packed), torch.cuda.current_stream(device).cuda_stream,
+            *weight_pointers(packed), tc_fwd.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
         )
         _build.check_launch(NAME, err)
         _build.launch_counts[NAME] += 1

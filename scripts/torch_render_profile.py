@@ -10,8 +10,9 @@ log-bbox fenceposts (K7).  For each, first it times ``--frames`` frames on
 the host clock (ending in ``torch.cuda.synchronize()``, after a warm-up
 frame); then it renders the same number of frames under ``torch.profiler``
 and sums the device time of every kernel by name.  Prints the card, the
-frame's wall time, device time per frame by kernel (largest first), the
-ported kernels' share, and the device's idle share (1 - busy / span of the
+frame's wall time, device time per frame by kernel (largest first; K4's
+``union_eval_kernel``, whose MLP runs as 3xTF32 on the tensor cores, is
+labelled as ``chip_smoke.PASSES`` names it), the ported kernels' share, and the device's idle share (1 - busy / span of the
 first to the last kernel); ``--out`` also writes them as JSON.  Exits
 non-zero without a GPU.
 """
@@ -86,7 +87,8 @@ def profile_family(family: str, n_frames: int, device) -> dict:
           f"{result['device_span_ms_per_frame']:.1f} ms, idle share {result['idle_share']:.4f}; "
           f"ported kernels {ported:.1f} ms")
     for name, ms in list(per_frame.items())[:15]:
-        print(f"  {ms:9.3f} ms  {name[:110]}")
+        label = chip_smoke.pass_label(name)
+        print(f"  {ms:9.3f} ms  {f'[{label}] ' if label else ''}{name[:110]}")
     return result
 
 

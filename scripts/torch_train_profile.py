@@ -13,9 +13,13 @@ reuse step through K9 (``mega_train.mega_train_loss_and_grads``, one
 trains it.  For each, after two warm-up steps it times ``--steps`` steps on
 the host clock (ending in ``torch.cuda.synchronize()``), then runs the same
 number of steps under ``torch.profiler`` and sums the device time of every
-kernel by name (K9's passes are separate kernels of its one call).  Prints the card, ms/step, rays/s, device time per step by
-kernel (largest first) and the device's idle share (1 - busy / span of the
-first to the last kernel); ``--out`` also writes them as JSON.  Exits
+kernel by name (K9's passes are separate kernels of its one call).  Prints
+the card, ms/step, rays/s, device time per step by kernel (largest first,
+each MLP pass labelled as ``chip_smoke.PASSES`` names it: K9's
+``fwd_store``, ``bwd_rows`` and ``wgrad`` run their products as 3xTF32 on
+the tensor cores, K1-K3's and K6's in float32 SIMT) and the device's idle
+share (1 - busy / span of the first to the last kernel); ``--out`` also
+writes them as JSON.  Exits
 non-zero without a GPU.
 """
 
@@ -102,7 +106,8 @@ def profile_steps(name, warm, run, n_rays, steps) -> dict:
           f"device busy {result['device_busy_ms_per_step']:.2f} ms, span "
           f"{result['device_span_ms_per_step']:.2f} ms, idle share {result['idle_share']:.4f}")
     for kernel, ms in list(per_step.items())[:20]:
-        print(f"  {ms:9.3f} ms  {kernel[:110]}")
+        label = chip_smoke.pass_label(kernel)
+        print(f"  {ms:9.3f} ms  {f'[{label}] ' if label else ''}{kernel[:110]}")
     return result
 
 

@@ -14,6 +14,15 @@ the exponential of a prefix sum of logs where the plain version takes a
 cumulative product.  K8 adds the device's sine of the same arguments; K9
 is held against its plain version with its own fine t-values (its resample
 against the plain one separately), as the JAX package holds its kernel.
+
+K4 and K9 run their MLP products as 3xTF32 on the tensor cores
+(``csrc/tc_mlp.cuh``), at the same tolerances: their cases cover every
+hidden width, row counts that are not a multiple of 64, encoding widths
+that are not a multiple of 8 and runs with and without the view branch,
+and two calls must agree bitwise.  The products alone (``tc_linear``,
+``tc_wgrad`` of ``csrc/tc_product.cu``) are held against the CPU
+emulation of the same arithmetic (``tc_mlp.tc_matmul``) and against the
+float64 product.
 """
 
 import pytest
@@ -31,6 +40,7 @@ from nerf_tpu_torch.ops.kernels import (
     mip_mlp,
     mip_train,
     point_mlp,
+    tc_mlp,
     train_grads,
     union_eval,
 )
@@ -103,6 +113,18 @@ def test_union_eval_kernel_matches_plain(cuda, variant, sc, sf):
     assert _build.launch_counts[union_eval.NAME] == before + 1
     for g, r in zip(got, union_eval.union_eval_plain(*args)):
         torch.testing.assert_close(g, r, **K4_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_union_eval_kernel_is_deterministic(cuda, variant):
+    """Two K4 calls give bitwise the same outputs (a fixed order of
+    tensor-core products; every width, with and without the view branch)."""
+    cfg, packed = packed_weights(variant, cuda)
+    args = union_args(cfg, packed, cuda, rays=37, sc=64, sf=128)
+    first, second = union_eval.union_eval(*args), union_eval.union_eval(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
@@ -631,8 +653,8 @@ def test_classic_pointmlp_autograd_runs_both_kernels(cuda):
     assert_grads_close(grads[True], grads[False])
 
 
-def mega_setup(device, view, sc, sf, white, rays=5, seed=14):
-    model = ClassicNeRF(ClassicNeRFConfig(hidden_size=64, normalize_position=6.0,
+def mega_setup(device, view, sc, sf, white, rays=5, seed=14, hidden=64):
+    model = ClassicNeRF(ClassicNeRFConfig(hidden_size=hidden, normalize_position=6.0,
                                           use_viewdirs=view, use_pallas=True),
                         generator=torch.Generator().manual_seed(0), device=device)
     with torch.no_grad():  # mass in every bin (see chip_smoke.py)
@@ -652,7 +674,11 @@ def mega_setup(device, view, sc, sf, white, rays=5, seed=14):
 @pytest.mark.parametrize("sc,sf", [(8, 16), (64, 128), (7, 33)])
 @pytest.mark.parametrize("view", [True, False])
 def test_mega_train_kernel_matches_plain(cuda, view, sc, sf, white, exact):
-    model, render, batch, draws = mega_setup(cuda, view, sc, sf, white)
+    check_mega_against_plain(*mega_setup(cuda, view, sc, sf, white), white, exact)
+
+
+def check_mega_against_plain(model, render, batch, draws, white, exact):
+    """One K9 call against its plain version; returns the call's outputs."""
     inputs = mega_train.mega_inputs(model, batch, draws)
     packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
     before = _build.launch_counts[mega_train.NAME]
@@ -675,6 +701,104 @@ def test_mega_train_kernel_matches_plain(cuda, view, sc, sf, white, exact):
     torch.testing.assert_close(loss_c, r_loss_c, rtol=LOSS_RTOL, atol=0)
     torch.testing.assert_close(loss_f, r_loss_f, rtol=LOSS_RTOL, atol=0)
     assert_grads_close(d_packed, r_packed)
+    return packed, inputs, (loss_c, loss_f, d_packed, t_fine)
+
+
+def mega_setup_away_from_kinks(device, view, sc, sf, hidden, rays=5):
+    """``mega_setup``'s step on the first ``rays`` of 4 rays + 8 candidates
+    whose every coarse and fine row (at the plain resample's fine samples)
+    has all its ReLU inputs farther than 1e-5 from 0: nearer the kink one
+    of two float32-accurate evaluations can take the other branch and move
+    that row's gradient (see ``away_from_kinks``; at hidden 256 one such
+    input among 200 rows moved ``w0``'s gradient by up to 3.8e-4 of its
+    largest entry on the card)."""
+    model, render, batch, draws = mega_setup(device, view, sc, sf, False, rays=4 * rays + 8,
+                                             hidden=hidden)
+    inputs = mega_train.mega_inputs(model, batch, draws)
+    x_c, d_ray, t_c, _, _, _, rays_o, rays_d, _, placement, is_cos = inputs
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    *_, t_fine = mega_train.mega_train_plain(packed, *inputs)
+    n = t_c.shape[0]
+    with torch.no_grad():
+        x_f = mega_train.encode_fine_plain(t_fine, rays_o, rays_d, placement, is_cos)
+        d_c = None if d_ray is None else d_ray.repeat_interleave(sc, 0)
+        d_f = None if d_ray is None else d_ray.repeat_interleave(sf, 0)
+        margin = torch.minimum(kink_margin(packed, x_c, d_c).reshape(n, sc).amin(1),
+                               kink_margin(packed, x_f, d_f).reshape(n, sf).amin(1))
+    keep = torch.nonzero(margin > 1e-5).flatten()[:rays]
+    assert keep.numel() == rays, f"only {keep.numel()} of {n} rays are away from the kinks"
+    model.mlp.requires_grad_(True)
+    return (model, render, {k: v[keep] for k, v in batch.items()},
+            sampling.StepDraws(*(None if t is None else t[keep] for t in draws)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [True, False])
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_mega_train_kernel_matches_plain_at_every_width(cuda, hidden, view):
+    """K9's tensor-core passes at every hidden width, 5 rays x (7 + 33):
+    200 rows (not a multiple of 64), encodings 60 + 36 (not multiples of
+    8), rays away from the ReLU kinks; then a second call gives bitwise the
+    same losses, gradients and fine samples (a fixed order of products, no
+    atomics)."""
+    packed, inputs, first = check_mega_against_plain(
+        *mega_setup_away_from_kinks(cuda, view, 7, 33, hidden), False, False)
+    second = mega_train.mega_train(packed, *inputs)
+    torch.cuda.synchronize()
+    for a, b in ((first[0], second[0]), (first[1], second[1]), (first[3], second[3])):
+        assert torch.equal(a, b)
+    assert first[2].keys() == second[2].keys()
+    assert all(torch.equal(first[2][k], second[2][k]) for k in first[2])
+
+
+def tc_product(name):
+    return getattr(_build.load("tc_product"), name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 100])
+@pytest.mark.parametrize("k", [5, 36, 60, 256])
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_tc_linear_is_the_3xtf32_product(cuda, hidden, k, rows):
+    """The row-tile product of K4 and K9's forward and bwd_rows
+    (tc_gemm) alone: out = a @ w on an operand image of w^T, against the
+    CPU emulation of the same arithmetic (the sums in another order: within
+    1e-6 sqrt(k) of the largest entry) and within 1e-5 of the largest
+    entry of the float64 product."""
+    gen = torch.Generator(device=cuda).manual_seed(hidden + k + rows)
+    a, w = rand(gen, rows, k), rand(gen, k, hidden)
+    out = torch.empty((rows, hidden), device=cuda)
+    img = tc_mlp.operand_image(w.t())
+    err = tc_product("tc_linear")(a.data_ptr(), img.data_ptr(), out.data_ptr(), rows, k,
+                                  hidden, torch.cuda.current_stream(cuda).cuda_stream)
+    _build.check_launch("tc_linear", err)
+    torch.cuda.synchronize()
+    exact = a.double() @ w.double()
+    scale = float(exact.abs().max())
+    emulated = tc_mlp.tc_matmul(a.cpu(), w.cpu()).to(cuda)
+    assert float((out - emulated).abs().max()) <= 1e-6 * scale * k ** 0.5
+    assert float((out.double() - exact).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", [1, 100, 1000])
+@pytest.mark.parametrize("m,n", [(60, 256), (256, 256), (36, 32), (256, 64)])
+def test_tc_wgrad_is_the_3xtf32_product(cuda, m, n, points):
+    """wgrad's product alone: out = a^T b over the points, both operands
+    transposed and split while staged, against the CPU emulation and the
+    float64 product."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n + points)
+    a, b = rand(gen, points, m), rand(gen, points, n)
+    out = torch.empty((m, n), device=cuda)
+    err = tc_product("tc_wgrad")(a.data_ptr(), b.data_ptr(), out.data_ptr(), points, m, n,
+                                 torch.cuda.current_stream(cuda).cuda_stream)
+    _build.check_launch("tc_wgrad", err)
+    torch.cuda.synchronize()
+    exact = a.double().t() @ b.double()
+    scale = float(exact.abs().max())
+    emulated = tc_mlp.tc_matmul(a.cpu().t(), b.cpu()).to(cuda)
+    assert float((out - emulated).abs().max()) <= 1e-6 * scale * points ** 0.5
+    assert float((out.double() - exact).abs().max()) <= 1e-5 * scale
 
 
 @pytest.mark.cuda
