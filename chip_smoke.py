@@ -7,15 +7,17 @@
 2. Builds the port's twelve CUDA kernels from ``nerf_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together) and prints the
    seconds it took and each kernel's registers and spills, labelled with
-   the pass it runs (K4's and K9's MLP products run as 3xTF32 ``wgmma`` on
-   the tensor cores, ``csrc/tc_mlp.cuh``; the other kernels' in float32
+   the pass it runs (K2's, K3's, K4's and K9's MLP products run as 3xTF32
+   ``wgmma`` on the tensor cores, ``csrc/tc_mlp.cuh``, with a float32 SIMT
+   tile for encodings too wide for theirs; the other kernels' in float32
    SIMT).
 3. Serving (slice 1): holds K1-fwd (``classic_mlp_fwd``, 262,144 points)
    and K4 (``union_eval``, the first 4000-ray tile of the frame) against
    their plain PyTorch versions, then renders one 400x400 frame of 64
    coarse + 128 fine samples through ``ClassicNeRF.render_image`` with the
    kernels (the launch counters are zeroed just before and must read 40
-   each after) and once through the plain path, and compares the images.
+   each after, every K4 on the tensor cores) and once through the plain
+   path, and compares the images.
 4. Training (slice 2), the main path: a synthetic scene (8 views of
    64x64, on the card) and the full-width model trained through
    ``make_fused_multi_step_train_fn`` at 2048 rays x (64 + 128) samples,
@@ -23,12 +25,12 @@
    Adam at lr 1e-4.  First one step's loss and gradients are held against
    the plain path (the same weights and draws through autograd); then
    warm-up steps, and timed steps with the counters zeroed just before:
-   each step must launch one K1-fwd, one K1-bwd and one K3 and nothing
-   else.  Every loss must be finite, and the loss of a fixed probe batch
-   (fixed draws) must be lower after the run than before.  Prints ms/step
-   and rays/s.
-5. Coarse-only training at 4096 rays x 64 samples: one K2 per step;
-   prints ms/step and rays/s.
+   each step must launch one K1-fwd, one K1-bwd and one K3 (on the tensor
+   cores) and nothing else.  Every loss must be finite, and the loss of a
+   fixed probe batch (fixed draws) must be lower after the run than
+   before.  Prints ms/step and rays/s.
+5. Coarse-only training at 4096 rays x 64 samples: one K2 per step (on
+   the tensor cores); prints ms/step and rays/s.
 6. Holds K1-bwd, K2 and K3 against their plain versions on the inputs the
    trainer gave them (K1-bwd with random cotangents), with their times and
    bounds.
@@ -66,11 +68,21 @@
    the kernel's) and against the reuse route
    (``reuse_train_loss_and_grads``); then 2 warm-up and 20 timed steps
    with ``torch.optim.Adam`` at lr 1e-4, the counters zeroed just before:
-   each step must launch one ``mega_train`` and nothing else; every loss
-   finite, the probe batch's loss lower after the run; ms/step and rays/s
-   beside the reuse step's of phase 4.  Then K9 against its plain version
-   with its time and bound.
-13. Prints the kernels' JSON line (each row with its float32 bound and
+   each step must launch one ``mega_train`` (on the tensor cores) and
+   nothing else; every loss finite, the probe batch's loss lower after the
+   run; ms/step and rays/s beside the reuse step's of phase 4.  Then K9
+   against its plain version with its time and bound.
+13. Latent widths (slice 6): the full-width ClassicNeRF conditioned on
+   2 + 1 latent scalars (``density_inputs=5, color_inputs=4``: encodings
+   100 + 48, past the tensor-core tiles of K2, K3 and K4 at hidden 256).
+   One 4000-ray tile of the frame through ``render_rays`` with per-image
+   states (one K1-fwd and one K4, which must record the float32 SIMT
+   tile), held against the plain path, and K4 against its plain version
+   on its arguments; then one reuse step at 2048 x (64 + 128) (one
+   K1-fwd, one K1-bwd and one K3, K3 recording the SIMT ``fwd_store``)
+   and one coarse-only step at 4096 x 64 (one K2, the same) against the
+   plain path.  Prints the policy each ran.
+14. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, and the achieved share
    of each), the card line, then, last, the device line.
 
@@ -210,6 +222,9 @@ TOL["classic_pointmlp_fwd"] = TOL["classic_mlp_fwd"]
 MEGA_VS_REUSE = dict(loss_rtol=1e-4, grad_of_max=5e-3)
 T_FINE_MASS, T_FINE_ATOL = 2e-5, 1e-4
 K8_RAYS, K8_SAMPLES = 4096, 64
+# Slice 6: the latent-conditioned model (2 + 1 latent scalars: encodings
+# 100 + 48), too wide for the tensor-core tiles at hidden 256.
+LATENT = dict(density_inputs=5, color_inputs=4)
 SOURCES = {
     "classic_mlp_fwd": ("nerf_tpu_torch/csrc/classic_mlp_fwd.cu",
                         "nerf_tpu/ops/pallas/fused_mlp.py:608"),
@@ -271,13 +286,15 @@ def kernel_label(mangled: str) -> str:
 
 
 # The passes of the MLP kernels by kernel name, for reports and profiles:
-# K4's and K9's products run on the tensor cores (csrc/tc_mlp.cuh), the
-# other kernels' in float32 SIMT.
+# K2's, K3's, K4's and K9's products run on the tensor cores
+# (csrc/tc_mlp.cuh; their float32 SIMT fwd_store and K4 tile serve
+# encodings too wide for it), the other kernels' in float32 SIMT.
 PASSES = {
     "fwd_store_tc_kernel": "fwd_store, 3xTF32 wgmma",
     "bwd_rows_tc_kernel": "bwd_rows, 3xTF32 wgmma",
     "wgrad_tc_kernel": "wgrad, 3xTF32 wgmma",
     "union_eval_kernel": "K4 tile, 3xTF32 wgmma MLP + compositing",
+    "union_eval_simt_kernel": "K4 tile, fp32 SIMT MLP (wide encodings) + compositing",
     "fwd_store_kernel": "fwd_store, fp32 SIMT",
     "bwd_rows_kernel": "bwd_rows, fp32 SIMT",
     "wgrad_kernel": "wgrad, fp32 SIMT",
@@ -384,8 +401,8 @@ def capture_args(module, fn_name: str, store: dict):
         setattr(module, fn_name, original)
 
 
-def make_model(use_pallas: bool, device) -> ClassicNeRF:
-    cfg = ClassicNeRFConfig(normalize_position=6.0, use_pallas=use_pallas)
+def make_model(use_pallas: bool, device, **cfg_kwargs) -> ClassicNeRF:
+    cfg = ClassicNeRFConfig(normalize_position=6.0, use_pallas=use_pallas, **cfg_kwargs)
     model = ClassicNeRF(cfg, generator=torch.Generator().manual_seed(0), device=device)
     with torch.no_grad():
         model.mlp.density.bias.fill_(0.5)
@@ -396,6 +413,15 @@ def make_model(use_pallas: bool, device) -> ClassicNeRF:
 def make_mip_model(use_pallas: bool, device) -> MipNeRF:
     cfg = MipNeRFConfig(use_pallas=use_pallas)
     return MipNeRF(cfg, generator=torch.Generator().manual_seed(0), device=device)
+
+
+def check_policies(what: str, launches: dict, policies: dict, policy: str) -> None:
+    """Every launch of a tensor-core kernel among ``launches`` ran the
+    ``policy`` tile: ``policies`` is ``_build.policy_counts`` read with
+    ``launches`` (both zeroed together before the run)."""
+    print(f"{what}: tile policies {policies}", flush=True)
+    check(policies == {(k, policy): n for k, n in launches.items() if k in _build.PLANNED},
+          f"{what}: every tensor-core kernel ran its {policy} tile")
 
 
 def kernel_row(name, launches, max_abs, ms, plain_ms, flops, nbytes) -> dict:
@@ -463,14 +489,16 @@ def serving(device, flops_per_point: int) -> dict:
     render(model)  # warm-up
     torch.cuda.synchronize()
     _build.launch_counts.clear()
+    _build.policy_counts.clear()
     t0 = time.perf_counter()
     image = render(model)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(_build.launch_counts)
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
     print(f"frame through the kernels: {frame_ms:.1f} ms; launches {launches}", flush=True)
     check(launches == {"classic_mlp_fwd": n_tiles, "union_eval": n_tiles},
           f"K1-fwd and K4 launched once per tile ({n_tiles} tiles), nothing else")
+    check_policies("frame", launches, policies, "tc")
 
     render(plain_model)  # warm-up
     torch.cuda.synchronize()
@@ -512,17 +540,19 @@ def train_run(name, render, n_rays, bank, device, expected: dict, store: dict):
         state, aux_w = warm(state)
     torch.cuda.synchronize()
     _build.launch_counts.clear()
+    _build.policy_counts.clear()
     t0 = time.perf_counter()
     state, aux = timed(state)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    launches = dict(_build.launch_counts)
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
     loss_after = float(probe_loss(*probe)[0])
     losses = torch.cat([aux_w["loss"], aux["loss"]]).cpu()
     print(f"{name}: {ms:.2f} ms/step, {n_rays / ms * 1e3:.0f} rays/s over {TIMED_STEPS} steps; "
           f"launches {launches}; step losses {[round(float(v), 5) for v in losses]}", flush=True)
     check(launches == {k: v * TIMED_STEPS for k, v in expected.items()},
           f"{name}: each step launched {expected} and nothing else")
+    check_policies(name, launches, policies, "tc")
     check(bool(torch.isfinite(losses).all()), f"{name}: every loss is finite")
     check(loss_after < loss_before,
           f"{name}: the probe batch's loss fell from {loss_before:.6f} to {loss_after:.6f} "
@@ -751,7 +781,7 @@ def mip_training(device, store: dict) -> dict:
     state, aux = timed(state)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    launches = dict(_build.launch_counts)
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
     loss_after = float(probe_loss(*probe)[0])
     losses = torch.cat([aux_w["loss"], aux["loss"]]).cpu()
     name = "mip train 4096x64 seg 0.1"
@@ -1018,11 +1048,12 @@ def mega_phase(device, cfg: ClassicNeRFConfig, bank, reuse_ms: float) -> dict:
     losses = [step() for _ in range(WARMUP_STEPS)]
     torch.cuda.synchronize()
     _build.launch_counts.clear()
+    _build.policy_counts.clear()
     t0 = time.perf_counter()
     losses += [step() for _ in range(TIMED_STEPS)]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    launches = dict(_build.launch_counts)
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
     loss_after = probe_loss()
     losses = torch.stack(losses).cpu()
     name = "train 2048x(64+128) K9"
@@ -1031,6 +1062,7 @@ def mega_phase(device, cfg: ClassicNeRFConfig, bank, reuse_ms: float) -> dict:
           f"{launches}; step losses {[round(float(v), 5) for v in losses]}", flush=True)
     check(launches == {mega_train.NAME: TIMED_STEPS},
           f"{name}: each step launched one mega_train and nothing else")
+    check_policies(name, launches, policies, "tc")
     check(bool(torch.isfinite(losses).all()), f"{name}: every loss is finite")
     check(loss_after < loss_before,
           f"{name}: the probe batch's loss fell from {loss_before:.6f} to {loss_after:.6f} "
@@ -1046,6 +1078,70 @@ def mega_phase(device, cfg: ClassicNeRFConfig, bank, reuse_ms: float) -> dict:
     return {"mega_train": (launches[mega_train.NAME], dict(
         max_abs=err, ms=kernel_ms, plain_ms=plain_ms, flops=train_step_flops(cfg, n_rays, sc + sf),
         nbytes=nbytes))}
+
+
+def latent_phase(device, bank) -> None:
+    """Phase 13: the full-width model conditioned on 2 + 1 latent scalars
+    (encodings 100 + 48), whose K2, K3 and K4 run the float32 SIMT tile
+    where the tensor-core one does not fit: a frame tile through K1-fwd and
+    K4, one reuse step (K1-fwd, K3, K1-bwd) and one coarse-only step (K2),
+    each against the plain path, with the launches and tile policies."""
+    model = make_model(True, device, **LATENT)
+    plain = make_model(False, device, **LATENT)
+    cfg = model.cfg
+    print(f"latent model: density_inputs {cfg.density_inputs}, color_inputs "
+          f"{cfg.color_inputs}, encodings {cfg.x_encoding_dim} + {cfg.d_encoding_dim}", flush=True)
+    gen = torch.Generator(device=device).manual_seed(13)
+
+    # One tile of the frame, per-image states broadcast to its rays.
+    pose_o, pose_r = spherical_poses(1, radius=4.0, device=device)
+    rays_o, rays_d = (r.reshape(-1, 3)[: RENDER.rays_per_tile] for r in
+                      pose_to_rays(pose_o, pose_r, IMAGE, IMAGE, FOCAL))
+    n = rays_o.shape[0]
+    states = {"states_x": (torch.rand((1, 2), generator=gen, device=device) * 2 - 1).expand(n, 2),
+              "states_d": (torch.rand((1, 1), generator=gen, device=device) * 2 - 1).expand(n, 1)}
+    store = {}
+    with torch.no_grad(), capture_args(union_eval, "union_eval", store):
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        _build.policy_counts.clear()
+        got = model.render_rays(rays_o, rays_d, RENDER, **states, fused_eval=True)
+        torch.cuda.synchronize()
+        launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+        print(f"latent frame tile ({n} rays, {RENDER.num_coarse_samples} + "
+              f"{RENDER.num_fine_samples}): launches {launches}", flush=True)
+        check(launches == {"classic_mlp_fwd": 1, "union_eval": 1},
+              "latent frame tile: one K1-fwd and one K4, nothing else")
+        check_policies("latent frame tile", launches, policies, "simt")
+        ref = plain.render_rays(rays_o, rays_d, RENDER, **states, fused_eval=True)
+        compare("frame", [got.rgb, got.acc], [ref.rgb, ref.acc])
+        args = store["union_eval"][0]
+        compare("union_eval", union_eval.union_eval(*args), union_eval.union_eval_plain(*args))
+
+    # One reuse step and one coarse-only step with per-ray states.
+    for name, render, n_rays, expected in (
+            ("latent reuse step 2048x(64+128)", TRAIN_RENDER, TRAIN_RAYS,
+             {"classic_mlp_fwd": 1, "classic_mlp_bwd": 1, "fine_stage_train": 1}),
+            ("latent coarse-only step 4096x64", COARSE_RENDER, COARSE_RAYS,
+             {"train_grads": 1})):
+        batch = bank.sample_batch(gen, n_rays)
+        batch["states_x"] = torch.rand((n_rays, 2), generator=gen, device=device) * 2 - 1
+        batch["states_d"] = torch.rand((n_rays, 1), generator=gen, device=device) * 2 - 1
+        draws = sampling.draw_step(gen, render, n_rays, device)
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        _build.policy_counts.clear()
+        loss, grads, _ = make_fused_loss_and_grads(model, render)(batch, draws)
+        torch.cuda.synchronize()
+        launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+        print(f"{name}: launches {launches}", flush=True)
+        check(launches == expected, f"{name}: launched {expected} and nothing else")
+        check_policies(name, launches, policies, "simt")
+        with torch.enable_grad():
+            ref_loss, _ = make_loss_fn(plain, render)(batch, draws)
+        names, params = zip(*plain.named_parameters())
+        ref = dict(zip(names, torch.autograd.grad(ref_loss, params)))
+        compare_grads(name, grads, ref, loss, ref_loss.detach())
 
 
 def main() -> int:
@@ -1084,8 +1180,9 @@ def main() -> int:
     rows.update(mip_phases(device))
     rows.update(point_mlp_phase(device, cfg, bank))
     rows.update(mega_phase(device, cfg, bank, reuse_ms))
+    latent_phase(device, bank)
 
-    # 13. Result lines.
+    # 14. Result lines.
     print(json.dumps({"kernels": [kernel_row(name, launches, **row)
                                   for name, (launches, row) in rows.items()]}))
     print(card)

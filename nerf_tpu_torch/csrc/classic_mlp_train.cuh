@@ -31,10 +31,11 @@
 //      gradients are the same from run to run (no atomics).
 //
 // Passes 1-3 run their products through a policy: SimtProducts (below,
-// float32 SIMT FMAs: gemm_acc, wgrad_kernel) for K1-bwd, K2, K3 and
-// K8-bwd; TcProducts (tc_mlp.cuh, 3xTF32 on the tensor cores) for K9.
-// The mip passes (mip_mlp.cuh) launch gemm_acc and wgrad_kernel
-// themselves.
+// float32 SIMT FMAs: gemm_acc, wgrad_kernel) for K1-bwd and K8-bwd;
+// TcProducts (tc_mlp.cuh, 3xTF32 on the tensor cores) for K2, K3 and K9,
+// whose fwd_store runs SimtProducts' pass where the encodings are too wide
+// for the tensor-core tile (tc_mlp.cuh, the width rule).  The mip passes
+// (mip_mlp.cuh) launch gemm_acc and wgrad_kernel themselves.
 //
 // The flat gradient the passes produce is the packed weights' order
 // (ops/kernels/classic_mlp.py): w0, wx, wd, whh | b, g, beta, w_dens,
@@ -559,8 +560,15 @@ inline cudaError_t colsum(const float* in, int T, size_t F, float* out, float* t
 // Host side.
 // ---------------------------------------------------------------------------
 
+// Bytes of shared memory of fwd_store_kernel: the activation tile, the
+// weight chunk and the encoding tiles.
+template <int H>
+__host__ inline size_t fwd_store_smem(int xe, int de) {
+  return (static_cast<size_t>(kTileRows) * H + mlp_side_floats<H>(xe, de)) * sizeof(float);
+}
+
 // The float32 SIMT products (gemm_acc and wgrad_kernel): the passes' product
-// policy for every kernel but K9, whose policy is tc_mlp.cuh's TcProducts.
+// policy for K1-bwd and K8-bwd; K2, K3 and K9 take tc_mlp.cuh's TcProducts.
 // A policy launches pass 1 (fwd_store), pass 2 (bwd_rows) and pass 3
 // (wgrad); launch_fwd_store_with and launch_mlp_backward do the rest.
 struct SimtProducts {
@@ -568,8 +576,7 @@ struct SimtProducts {
   static cudaError_t fwd_store(const Weights& w, const Load& load, float* out, int P,
                                const Scratch& s, cudaStream_t stream, size_t stride,
                                size_t base) {
-    const size_t smem =
-        (static_cast<size_t>(kTileRows) * H + mlp_side_floats<H>(w.xe, w.de)) * sizeof(float);
+    const size_t smem = fwd_store_smem<H>(w.xe, w.de);
     cudaError_t err = cudaFuncSetAttribute(fwd_store_kernel<H, Load>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));

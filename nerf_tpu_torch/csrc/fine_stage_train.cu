@@ -13,17 +13,24 @@
 //
 // Bound: operations.  Forward + dh + dW = 3 x 630,784 multiply-adds per
 // fine sample at the full-width model (the forward stores its chain, no
-// recompute), 14.8 ms at 2048 x 128 fine samples at 67 TFLOP/s; the
+// recompute), 14.808 ms at 2048 x 128 fine samples at the float32 SIMT
+// rate (67 TFLOP/s), 6.013 ms as three TF32 products at 495 TFLOP/s; the
 // compositing is O(Sc + Sf) per ray.
 //
 // Design: the MLP passes of classic_mlp_train.cuh on the fine rows (the
-// per-ray view encoding is read once per ray, d_div = Sf), with one
-// compositing pass between forward and backward: one warp per ray merges
+// per-ray view encoding is read once per ray, d_div = Sf, also by wgrad's
+// row function) with the tensor-core product policy of tc_mlp.cuh
+// (TcProducts: fwd_store, bwd_rows and wgrad as 3xTF32 wgmma on the
+// operand images the wrapper builds once per call; fwd_store runs the
+// float32 SIMT pass where the encodings are too wide for its tile,
+// tc_mlp.cuh note 9), with one compositing pass between forward and
+// backward: one warp per ray merges
 // the two sorted t lists by rank and scans them in fp32, then scatters the
 // cotangents back to the coarse slots and the fine rows
 // (union_train.cuh, shared with K9).
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
+#include "tc_mlp.cuh"
 #include "union_train.cuh"
 
 namespace {
@@ -38,7 +45,8 @@ cudaError_t run(const Weights& w, const float* xf, const float* d, const float* 
                 float* loss, float* grads, float* g_dens_c, float* g_col_c, const Scratch& s,
                 cudaStream_t stream) {
   const int P = R * Sf;
-  cudaError_t err = launch_fwd_store<H>(w, xf, d, Sf, out, P, s, stream);
+  cudaError_t err = launch_fwd_store_with<H, TcProducts>(w, TileLoad{xf, d, Sf}, out, P, s,
+                                                        stream, static_cast<size_t>(P), 0);
   if (err != cudaSuccess) return err;
   const size_t smem = union_composite_smem(Sc, Sf);
   err = cudaFuncSetAttribute(union_composite_kernel,
@@ -50,7 +58,8 @@ cudaError_t run(const Weights& w, const float* xf, const float* d, const float* 
       dnorm, pix, R, Sc, Sf, w.c, white, g_scale, loss_scale, gout, ray_loss);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = colsum(ray_loss, R, 1, loss, s.tmp, stream)) != cudaSuccess) return err;
-  return launch_mlp_backward<H>(w, xf, d, Sf, gout, P, s, nullptr, nullptr, grads, stream);
+  return launch_mlp_backward<H, TcProducts>(w, xf, d, Sf, gout, P, s, nullptr, nullptr, grads,
+                                           stream);
 }
 
 }  // namespace
@@ -66,11 +75,12 @@ extern "C" int fine_stage_train(const float* xf, const float* d, const float* t_
                                 const float* b_dens, const float* w_col, const float* b_col,
                                 float* xhat, float* stats, float* dpre, float* wpart,
                                 float* tpart, float* tmp, float* wt, float* out, float* gout,
-                                float* ray_loss, int splits, void* stream) {
+                                float* ray_loss, int splits, const float* tc_fwd,
+                                const float* tc_bwd, void* stream) {
   if (c > kMaxColors || c < 1) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits};
+  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
   const float g_scale = loss_weight * 2.f / (static_cast<float>(c) * R);
   const float loss_scale = loss_weight / R;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -80,4 +90,10 @@ extern "C" int fine_stage_train(const float* xf, const float* d, const float* t_
                           g_dens_c, g_col_c, s, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
+}
+
+// The plan fine_stage_train's fwd_store follows for these widths (de 0
+// without the view branch): out as train_grads_plan's.
+extern "C" int fine_stage_train_plan(int xe, int de, int hidden, long long* out) {
+  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

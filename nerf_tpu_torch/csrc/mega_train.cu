@@ -26,7 +26,9 @@
 // the tensor-core product policy of tc_mlp.cuh (TcProducts: fwd_store,
 // bwd_rows and wgrad run every hidden and encoding product as 3xTF32
 // wgmma on operand images of the weights the wrapper builds once per
-// call; the epilogues, heads, per-ray passes and colsums are unchanged),
+// call; fwd_store in float32 SIMT where the encodings are too wide for its
+// tile, tc_mlp.cuh note 9; the epilogues, heads, per-ray passes and
+// colsums are unchanged),
 // launched in order on the caller's stream:
 //   0. the coarse encodings (computed by the caller) copied into the first
 //      R Sc rows of a coarse-then-fine encoding buffer;
@@ -238,4 +240,10 @@ extern "C" int mega_train(const float* xc, const float* d_ray, const float* t_c,
   static_cast<int>(run<H>(w, in, k, loss, grads, t_fine, R, Sc, Sf, white, exact_trig, s, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
+}
+
+// The plan mega_train's two fwd_store launches follow for these widths (de
+// 0 without the view branch): out as train_grads_plan's.
+extern "C" int mega_train_plan(int xe, int de, int hidden, long long* out) {
+  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

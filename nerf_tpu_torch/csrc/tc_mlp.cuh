@@ -1,18 +1,20 @@
-// Tensor-core products for the MLP passes of K9 (mega_train.cu) and K4
-// (union_eval.cu): every hidden and encoding product as 3xTF32 on Hopper's
+// Tensor-core products for the MLP passes of K2 (train_grads.cu), K3
+// (fine_stage_train.cu), K9 (mega_train.cu) and K4 (union_eval.cu): every
+// hidden and encoding product as 3xTF32 on Hopper's
 // wgmma, A.B = hi(A)hi(B) + hi(A)lo(B) + lo(A)hi(B) with lo = x - hi, both
 // cut to TF32 by bit masking (hi keeps 10 mantissa bits, hi + lo about 21;
 // the dropped lo.lo term is about 2^-22 of a product), each product a
 // wgmma.mma_async ... .f32.tf32.tf32 into float32 accumulators.  Written by
 // hand in PTX (wgmma, fences, smem descriptors); no CUTLASS.  The policy
 // TcProducts gives classic_mlp_train.cuh's launch_fwd_store_with and
-// launch_mlp_backward these passes; the other kernels keep SimtProducts.
+// launch_mlp_backward these passes; K1-bwd and K8-bwd keep SimtProducts.
 //
 // Bounds at the full-width model (H = 256, xe 60, de 36, view branch on):
 // 630,784 multiply-adds a row each for the forward, dh and dW.  Against
 // the float32 SIMT rate (67 TFLOP/s) and the 3xTF32 rate (three TF32
 // products at 495 TFLOP/s, so FLOP / 165 TFLOP/s): K9 at 2048 x (64 + 128)
-// 22.212 and 9.019 ms; K4 at a 4000-ray tile 9.641 and 3.915 ms.
+// 22.212 and 9.019 ms; K2 at 4096 x 64 and K3 at 2048 x 128 14.808 and
+// 6.013 ms each; K4 at a 4000-ray tile 9.641 and 3.915 ms.
 //
 // The constraints the design answers:
 // 1. TF32 wgmma takes both operands K-major (the transpose flags exist only
@@ -72,6 +74,25 @@
 //    ReLU kink and fine samples in bins of ~1e-5 mass move, as the checks
 //    of K1-K9 already allow (card tests draw rows away from kinks; K9's
 //    fine samples are compared in probability).
+// 9. The width rule.  The tile's bytes grow with the encoding widths (256
+//    bytes a float of xe' + de', the widths rounded up to 4, at H = 256):
+//    fwd_store's tile holds xe' + de' <= 132 and K4's, which also keeps
+//    the fine outputs, <= 116 within the 232,448 bytes a block may opt in
+//    to.  The full-width model has 60 + 36; a latent-conditioned one
+//    widens both by its state vector (2 + 1 latent scalars: 100 + 48).
+//    Before any launch the launcher compares the tile's bytes with the
+//    device's opt-in limit (cudaDevAttrMaxSharedMemoryPerBlockOptin) and,
+//    where it does not fit, runs the float32 SIMT pass of the same kernel
+//    (fwd_store_kernel; K4's mlp_tile, its product before the tensor
+//    cores): 16 weight rows in place of four 16-value chunk buffers, so it
+//    holds xe' + de' <= 588 (K4 572), and it is the pass the card tests
+//    have held against plain at every width since slice 2.  (A two-stage
+//    ring on the tensor cores would hold 64 KB more, xe' + de' <= 388, at
+//    the cost of a second pipeline in tc_gemm for a path few models take.)
+//    bwd_rows' and wgrad's tiles do not depend on the widths and always
+//    run here.  The choice is made from the shapes, never after an error;
+//    past the SIMT tile's limit the call returns cudaErrorInvalidValue
+//    before launching (the wrappers raise first, from the same plan).
 //
 // The products are deterministic: a fixed order of wgmma per k-chunk, no
 // atomics; wgrad's partials go through colsum's fixed order as before.
@@ -785,23 +806,79 @@ __global__ void __launch_bounds__(256, 1)
 }
 
 // ---------------------------------------------------------------------------
+// The width rule (note 9).
+// ---------------------------------------------------------------------------
+
+// The product a width-dependent tile runs; the values are the plan's codes.
+enum TilePolicy { kTileTc = 0, kTileSimt = 1, kTileNone = 2 };
+
+// The shared memory a block of the current device may opt in to.
+__host__ inline cudaError_t smem_optin_limit(size_t* limit) {
+  int dev = 0, bytes = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *limit = static_cast<size_t>(bytes);
+  return err;
+}
+
+// The tensor-core tile where it fits, else the float32 SIMT one where that
+// fits; out = [policy, tensor-core bytes, SIMT bytes, limit] (the plan the
+// wrappers query through each library's <name>_plan).
+__host__ inline cudaError_t tile_plan(size_t tc_bytes, size_t simt_bytes, TilePolicy* policy,
+                                      long long* out = nullptr) {
+  size_t limit = 0;
+  const cudaError_t err = smem_optin_limit(&limit);
+  if (err != cudaSuccess) return err;
+  *policy = tc_bytes <= limit ? kTileTc : simt_bytes <= limit ? kTileSimt : kTileNone;
+  if (out != nullptr) {
+    out[0] = *policy;
+    out[1] = static_cast<long long>(tc_bytes);
+    out[2] = static_cast<long long>(simt_bytes);
+    out[3] = static_cast<long long>(limit);
+  }
+  return cudaSuccess;
+}
+
+// fwd_store's plan for the encoding widths xe, de (de 0 without the view
+// branch).
+template <int H>
+__host__ inline cudaError_t fwd_store_plan(int xe, int de, TilePolicy* policy,
+                                           long long* out = nullptr) {
+  return tile_plan(tc_tile_bytes<H>(xe, de), fwd_store_smem<H>(xe, de), policy, out);
+}
+
+// The plan for hidden width `hidden`, for the libraries' <name>_plan.
+__host__ inline cudaError_t fwd_store_plan_at(int xe, int de, int hidden, long long* out) {
+  TilePolicy policy;
+#define NERF_PLAN(H) fwd_store_plan<H>(xe, de, &policy, out)
+  NERF_DISPATCH_HIDDEN(hidden, NERF_PLAN)
+#undef NERF_PLAN
+}
+
+// ---------------------------------------------------------------------------
 // The policy.
 // ---------------------------------------------------------------------------
 
 // The tensor-core passes for launch_fwd_store_with and launch_mlp_backward:
-// the Scratch's tc_fwd and tc_bwd hold the call's operand images.  The
-// encodings' cotangents (dx, dd) are not implemented: requesting them
+// the Scratch's tc_fwd and tc_bwd hold the call's operand images.
+// fwd_store runs SimtProducts' pass where its tile does not fit (note 9).
+// The encodings' cotangents (dx, dd) are not implemented: requesting them
 // returns cudaErrorInvalidValue.
 struct TcProducts {
   template <int H, class Load>
   static cudaError_t fwd_store(const Weights& w, const Load& load, float* out, int P,
                                const Scratch& s, cudaStream_t stream, size_t stride,
                                size_t base) {
-    if (s.tc_fwd == nullptr) return cudaErrorInvalidValue;
+    TilePolicy policy;
+    cudaError_t err = fwd_store_plan<H>(w.xe, w.de, &policy);
+    if (err != cudaSuccess) return err;
+    if (policy == kTileSimt)
+      return SimtProducts::fwd_store<H, Load>(w, load, out, P, s, stream, stride, base);
+    if (policy == kTileNone || s.tc_fwd == nullptr) return cudaErrorInvalidValue;
     const size_t smem = tc_tile_bytes<H>(w.xe, w.de);
-    cudaError_t err = cudaFuncSetAttribute(fwd_store_tc_kernel<H, Load>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    err = cudaFuncSetAttribute(fwd_store_tc_kernel<H, Load>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
     fwd_store_tc_kernel<H, Load><<<tiles, kThreads, smem, stream>>>(

@@ -11,17 +11,23 @@
 //
 // Bound: operations.  Forward + dh + dW = 3 x 630,784 multiply-adds per
 // point at the full-width model (no recompute: the forward stores its
-// chain), 14.8 ms at 4096 x 64 points at 67 TFLOP/s; the bytes (the
+// chain), 14.808 ms at 4096 x 64 points at the float32 SIMT rate (67
+// TFLOP/s), 6.013 ms as three TF32 products at 495 TFLOP/s; the bytes (the
 // encodings, 384 per point, and 2.55 MB of gradients) take well under
 // 1 ms.
 //
-// Design: the MLP passes of classic_mlp_train.cuh, with one compositing
-// pass between forward and backward: one warp per ray, each lane a run of
-// consecutive samples; the exclusive prefix of log(alpha + 1e-10) and the
-// exclusive suffix of the transmittance cotangent are warp scans in fp32.
+// Design: the MLP passes of classic_mlp_train.cuh with the tensor-core
+// product policy of tc_mlp.cuh (TcProducts: fwd_store, bwd_rows and wgrad
+// run every hidden and encoding product as 3xTF32 wgmma on the operand
+// images the wrapper builds once per call; fwd_store runs the float32
+// SIMT pass where the encodings are too wide for its tile, tc_mlp.cuh
+// note 9), with one compositing pass between forward and backward: one
+// warp per ray, each lane a run of consecutive samples; the exclusive
+// prefix of log(alpha + 1e-10) and the exclusive suffix of the
+// transmittance cotangent are warp scans in fp32.
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
-#include "classic_mlp_train.cuh"
+#include "tc_mlp.cuh"
 
 namespace {
 
@@ -67,7 +73,8 @@ cudaError_t run(const Weights& w, const float* x, const float* d, const float* d
                 float* ray_loss, float* loss, float* grads, const Scratch& s,
                 cudaStream_t stream) {
   const int P = R * S;
-  cudaError_t err = launch_fwd_store<H>(w, x, d, 1, out, P, s, stream);
+  cudaError_t err = launch_fwd_store_with<H, TcProducts>(w, TileLoad{x, d, 1}, out, P, s, stream,
+                                                        static_cast<size_t>(P), 0);
   if (err != cudaSuccess) return err;
   const size_t smem = static_cast<size_t>(kWarps) * 3 * S * sizeof(float);
   err = cudaFuncSetAttribute(composite_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -78,7 +85,8 @@ cudaError_t run(const Weights& w, const float* x, const float* d, const float* d
       weights_out);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = colsum(ray_loss, R, 1, loss, s.tmp, stream)) != cudaSuccess) return err;
-  return launch_mlp_backward<H>(w, x, d, 1, gout, P, s, nullptr, nullptr, grads, stream);
+  return launch_mlp_backward<H, TcProducts>(w, x, d, 1, gout, P, s, nullptr, nullptr, grads,
+                                           stream);
 }
 
 }  // namespace
@@ -92,11 +100,11 @@ extern "C" int train_grads(const float* x, const float* d, const float* dists,
                            const float* w_col, const float* b_col, float* xhat, float* stats,
                            float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
                            float* out, float* gout, float* ray_loss, int splits,
-                           void* stream) {
+                           const float* tc_fwd, const float* tc_bwd, void* stream) {
   if (c > kMaxColors || c < 1) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits};
+  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
   const float g_scale = loss_weight * 2.f / (static_cast<float>(c) * R);
   const float loss_scale = loss_weight / R;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -105,4 +113,11 @@ extern "C" int train_grads(const float* x, const float* d, const float* dists,
                           weights_out, out, gout, ray_loss, loss, grads, s, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
+}
+
+// The plan train_grads' fwd_store follows for these widths (de 0 without
+// the view branch): out = [policy (0 tensor cores, 1 float32 SIMT, 2
+// neither fits), tensor-core bytes, SIMT bytes, the device's limit].
+extern "C" int train_grads_plan(int xe, int de, int hidden, long long* out) {
+  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

@@ -24,7 +24,11 @@
 // float32 SIMT), and keeps only [density, color logits] per fine row in
 // shared memory: 227,328 bytes a block at H = 256 and 128 fine samples,
 // the 1024-byte alignment of the swizzled weight chunks included (one
-// block an SM).  Then one warp per ray:
+// block an SM).  That tile holds encodings of xe' + de' <= 116 floats a row
+// (the widths rounded up to 4); a latent-conditioned model's wider ones
+// (100 + 48 with 2 + 1 latent scalars) run the float32 SIMT product of
+// classic_mlp.cuh (mlp_tile, union_eval_simt_kernel), chosen from the
+// shapes before the launch (tc_mlp.cuh, note 9).  Then one warp per ray:
 //   1. merges the sorted coarse and fine t lists by rank (binary search in
 //      the other list; a coarse sample tied with a fine one comes first);
 //   2. takes each merged sample's interval to its successor, times ||d||,
@@ -137,38 +141,70 @@ __device__ void composite_ray(int ray, int Sc, int Sf, int c,
   __syncwarp();
 }
 
-template <int H>
+// The fine MLP's product: the tensor cores (kTc, mlp_tile_tc) or float32
+// SIMT FMAs (mlp_tile, for encodings too wide for the tensor-core tile:
+// tc_mlp.cuh, note 9).  Each reserves its weight buffer and activation tile.
+template <int H, bool kTc>
+__host__ __device__ constexpr size_t wbuf_floats() {
+  return kTc ? static_cast<size_t>(tc_bbuf_floats<H>()) : static_cast<size_t>(kChunk) * H;
+}
+
+template <int H, bool kTc>
 __host__ __device__ inline size_t scratch_floats(int Sc, int Sf) {
-  const size_t act = static_cast<size_t>(kTileRows) * act_ld<H>();
+  const size_t act = static_cast<size_t>(kTileRows) * (kTc ? act_ld<H>() : H);
   const size_t comp = static_cast<size_t>(kWarps) * 4 * (Sc + Sf);
   return act > comp ? act : comp;
 }
 
-template <int H>
-__global__ void __launch_bounds__(kThreads, 1)
-    union_eval_kernel(Weights w, TcImages im, const float* __restrict__ xf,
-                      const float* __restrict__ d, const float* __restrict__ t_c,
-                      const float* __restrict__ t_f, const float* __restrict__ dens_c,
-                      const float* __restrict__ col_c, const float* __restrict__ dnorm,
-                      float* __restrict__ out, int R, int Sc, int Sf, int rays_per_block) {
+__host__ __device__ inline int rays_per_block(int Sf) { return Sf >= 256 ? 1 : 256 / Sf; }
+
+// Bytes of shared memory a block takes: the weight buffer, the activation
+// tile (then the compositing scratch), the encoding tiles and the block's
+// fine outputs, with the swizzle's alignment slack on the tensor cores.
+template <int H, bool kTc>
+__host__ inline size_t block_bytes(int xe, int de, int c, int Sc, int Sf) {
+  return (wbuf_floats<H, kTc>() + scratch_floats<H, kTc>(Sc, Sf) +
+          static_cast<size_t>(kTileRows) * (round_up4(xe) + round_up4(de)) +
+          static_cast<size_t>(rays_per_block(Sf)) * Sf * (1 + c)) *
+             sizeof(float) +
+         (kTc ? kSmemAlign : 0);
+}
+
+struct Inputs {
+  const float* xf;      // [R * Sf][xe] fine encodings
+  const float* d;       // [R][de] view encodings, or nullptr
+  const float* t_c;     // [R][Sc]
+  const float* t_f;     // [R][Sf]
+  const float* dens_c;  // [R][Sc]
+  const float* col_c;   // [R][Sc][c]
+  const float* dnorm;   // [R]
+};
+
+template <int H, bool kTc>
+__device__ __forceinline__ void union_eval_block(const Weights& w, const TcImages& im,
+                                                 const Inputs& in, float* __restrict__ out,
+                                                 int R, int Sc, int Sf) {
   extern __shared__ float4 smem4[];
-  float* bbuf = tc_smem_base(smem4);  // the weights' chunks
-  float* act = bbuf + tc_bbuf_floats<H>();        // MLP activations, then scratch
-  float* xs = act + scratch_floats<H>(Sc, Sf);
+  float* wbuf = kTc ? tc_smem_base(smem4) : reinterpret_cast<float*>(smem4);  // the weights
+  float* act = wbuf + wbuf_floats<H, kTc>();        // MLP activations, then scratch
+  float* xs = act + scratch_floats<H, kTc>(Sc, Sf);
   float* ds = xs + kTileRows * round_up4(w.xe);
   float* fout = ds + kTileRows * round_up4(w.de);  // [rays_per_block * Sf][1 + c]
   const int ld = 1 + w.c;
-  const int ray0 = blockIdx.x * rays_per_block;
-  const int nrays = min(rays_per_block, R - ray0);
+  const int ray0 = blockIdx.x * rays_per_block(Sf);
+  const int nrays = min(rays_per_block(Sf), R - ray0);
   const int rows = nrays * Sf;
   const size_t frow0 = static_cast<size_t>(ray0) * Sf;
 
   for (int sub = 0; sub < rows; sub += kTileRows) {
     const int nvalid = min(kTileRows, rows - sub);
-    load_tile(xs, xf, frow0 + sub, nvalid, w.xe, 1);
-    if (w.wd != nullptr) load_tile(ds, d, frow0 + sub, nvalid, w.de, Sf);
+    load_tile(xs, in.xf, frow0 + sub, nvalid, w.xe, 1);
+    if (w.wd != nullptr) load_tile(ds, in.d, frow0 + sub, nvalid, w.de, Sf);
     __syncthreads();
-    mlp_tile_tc<H>(w, im, xs, ds, act, bbuf, fout + sub * ld, ld, nvalid);
+    if constexpr (kTc)
+      mlp_tile_tc<H>(w, im, xs, ds, act, wbuf, fout + sub * ld, ld, nvalid);
+    else
+      mlp_tile<H>(w, xs, ds, act, wbuf, fout + sub * ld, ld, nvalid);
     __syncthreads();
   }
 
@@ -176,29 +212,52 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* scratch = act + warp * 4 * (Sc + Sf);
   for (int i = warp; i < nrays; i += kWarps) {
     const int ray = ray0 + i;
-    composite_ray(ray, Sc, Sf, w.c, t_c, t_f, dens_c, col_c, __ldg(dnorm + ray),
+    composite_ray(ray, Sc, Sf, w.c, in.t_c, in.t_f, in.dens_c, in.col_c, __ldg(in.dnorm + ray),
                   fout + i * Sf * ld, scratch, out);
   }
 }
 
 template <int H>
-cudaError_t launch(const Weights& w, const float* tcw, const float* xf, const float* d,
-                   const float* t_c, const float* t_f, const float* dens_c, const float* col_c,
-                   const float* dnorm, float* out, int R, int Sc, int Sf, cudaStream_t stream) {
-  const int rays_per_block = Sf >= 256 ? 1 : 256 / Sf;
-  const size_t smem = (tc_bbuf_floats<H>() + scratch_floats<H>(Sc, Sf) +
-                       static_cast<size_t>(kTileRows) * (round_up4(w.xe) + round_up4(w.de)) +
-                       static_cast<size_t>(rays_per_block) * Sf * (1 + w.c)) *
-                          sizeof(float) +
-                      kSmemAlign;
-  cudaError_t err = cudaFuncSetAttribute(
-      union_eval_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+__global__ void __launch_bounds__(kThreads, 1)
+    union_eval_kernel(Weights w, TcImages im, Inputs in, float* __restrict__ out, int R, int Sc,
+                      int Sf) {
+  union_eval_block<H, true>(w, im, in, out, R, Sc, Sf);
+}
+
+template <int H>
+__global__ void __launch_bounds__(kThreads, 2)
+    union_eval_simt_kernel(Weights w, Inputs in, float* __restrict__ out, int R, int Sc,
+                           int Sf) {
+  union_eval_block<H, false>(w, TcImages{}, in, out, R, Sc, Sf);
+}
+
+// The block's product by the width rule (tc_mlp.cuh, note 9).
+template <int H>
+cudaError_t plan(int xe, int de, int c, int Sc, int Sf, TilePolicy* policy, long long* out) {
+  return tile_plan(block_bytes<H, true>(xe, de, c, Sc, Sf),
+                   block_bytes<H, false>(xe, de, c, Sc, Sf), policy, out);
+}
+
+template <int H>
+cudaError_t launch(const Weights& w, const float* tcw, const Inputs& in, float* out, int R,
+                   int Sc, int Sf, cudaStream_t stream) {
+  TilePolicy policy;
+  cudaError_t err = plan<H>(w.xe, w.de, w.c, Sc, Sf, &policy, nullptr);
   if (err != cudaSuccess) return err;
-  const int blocks = (R + rays_per_block - 1) / rays_per_block;
-  union_eval_kernel<H><<<blocks, kThreads, smem, stream>>>(
-      w, TcImages::forward(w, tcw, H), xf, d, t_c, t_f, dens_c, col_c, dnorm, out, R, Sc, Sf,
-      rays_per_block);
+  if (policy == kTileNone || (policy == kTileTc && tcw == nullptr)) return cudaErrorInvalidValue;
+  const bool tc = policy == kTileTc;
+  const size_t smem = tc ? block_bytes<H, true>(w.xe, w.de, w.c, Sc, Sf)
+                         : block_bytes<H, false>(w.xe, w.de, w.c, Sc, Sf);
+  constexpr cudaFuncAttribute kSmemAttr = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  err = tc ? cudaFuncSetAttribute(union_eval_kernel<H>, kSmemAttr, static_cast<int>(smem))
+           : cudaFuncSetAttribute(union_eval_simt_kernel<H>, kSmemAttr, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int blocks = (R + rays_per_block(Sf) - 1) / rays_per_block(Sf);
+  if (tc)
+    union_eval_kernel<H><<<blocks, kThreads, smem, stream>>>(w, TcImages::forward(w, tcw, H), in,
+                                                            out, R, Sc, Sf);
+  else
+    union_eval_simt_kernel<H><<<blocks, kThreads, smem, stream>>>(w, in, out, R, Sc, Sf);
   return cudaGetLastError();
 }
 
@@ -214,9 +273,20 @@ extern "C" int union_eval(const float* xf, const float* d, const float* t_c, con
   if (c > kMaxColors) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
+  const Inputs in{xf, d, t_c, t_f, dens_c, col_c, dnorm};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) \
-  static_cast<int>(launch<H>(w, tcw, xf, d, t_c, t_f, dens_c, col_c, dnorm, out, R, Sc, Sf, s))
+#define NERF_LAUNCH(H) static_cast<int>(launch<H>(w, tcw, in, out, R, Sc, Sf, s))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
+}
+
+// The plan union_eval follows for these shapes (de 0 without the view
+// branch): out = [policy (0 tensor cores, 1 float32 SIMT, 2 neither fits),
+// tensor-core bytes, SIMT bytes, the device's limit].
+extern "C" int union_eval_plan(int xe, int de, int hidden, int c, int Sc, int Sf,
+                               long long* out) {
+  TilePolicy policy;
+#define NERF_PLAN(H) static_cast<int>(plan<H>(xe, de, c, Sc, Sf, &policy, out))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_PLAN)
+#undef NERF_PLAN
 }

@@ -7,7 +7,12 @@ source under ``csrc/`` is newer than it.  Nothing here runs at import time,
 so machines without ``nvcc`` import the package freely.
 
 ``launch_counts`` counts kernel launches by kernel name: each wrapper adds
-one where it launches its kernel, and nowhere else.
+one where it launches its kernel, and nowhere else.  ``policy_counts``
+counts, by ``(kernel name, policy)``, which product the width-dependent
+tile of a tensor-core kernel (K2, K3 and K9's ``fwd_store``, K4's block)
+ran in those calls: ``"tc"``, 3xTF32 on the tensor cores, or ``"simt"``,
+the float32 SIMT pass, where the encodings are too wide for the
+tensor-core tile (``csrc/tc_mlp.cuh``, note 9; ``tile_plan``).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, NamedTuple, Optional
 
 import torch
 
@@ -35,6 +40,11 @@ KERNELS = (
 )
 
 launch_counts: collections.Counter = collections.Counter()
+policy_counts: collections.Counter = collections.Counter()
+POLICIES = ("tc", "simt")  # by the plans' codes; 2: neither tile fits
+# The kernels with a width-dependent tensor-core tile, each exporting
+# <name>_plan beside <name>.
+PLANNED = ("union_eval", "train_grads", "fine_stage_train", "mega_train")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -49,17 +59,25 @@ ARGTYPES = {
     # xf d t_c t_f dens_c col_c dnorm out R Sc Sf xe de hidden c, weights,
     # tc_fwd stream
     "union_eval": (_P,) * 8 + (_I,) * 7 + _WEIGHT_ARGS + (_P,) * 2,
+    # xe de hidden c Sc Sf out[4]
+    "union_eval_plan": (_I,) * 6 + (_P,),
     # x d gout dx dd grads P xe de hidden c, weights,
     # xhat stats dpre wpart tpart tmp wt out splits stream
     "classic_mlp_bwd": (_P,) * 6 + (_I,) * 5 + _WEIGHT_ARGS + (_P,) * 8 + (_I, _P),
     # x d dists noise pix loss grads weights_out R S xe de hidden c white
     # loss_weight, weights, xhat stats dpre wpart tpart tmp wt out gout
-    # ray_loss splits stream
-    "train_grads": (_P,) * 8 + (_I,) * 7 + (_F,) + _WEIGHT_ARGS + (_P,) * 10 + (_I, _P),
+    # ray_loss splits tc_fwd tc_bwd stream
+    "train_grads": (_P,) * 8 + (_I,) * 7 + (_F,) + _WEIGHT_ARGS + (_P,) * 10 + (_I,)
+    + (_P,) * 3,
     # xf d t_c t_f dens_c col_c dnorm noise_f pix loss grads g_dens_c g_col_c
     # R Sc Sf xe de hidden c white loss_weight, weights, xhat stats dpre
-    # wpart tpart tmp wt out gout ray_loss splits stream
-    "fine_stage_train": (_P,) * 13 + (_I,) * 8 + (_F,) + _WEIGHT_ARGS + (_P,) * 10 + (_I, _P),
+    # wpart tpart tmp wt out gout ray_loss splits tc_fwd tc_bwd stream
+    "fine_stage_train": (_P,) * 13 + (_I,) * 8 + (_F,) + _WEIGHT_ARGS + (_P,) * 10 + (_I,)
+    + (_P,) * 3,
+    # xe de hidden out[4] (fwd_store's plan)
+    "train_grads_plan": (_I,) * 3 + (_P,),
+    "fine_stage_train_plan": (_I,) * 3 + (_P,),
+    "mega_train_plan": (_I,) * 3 + (_P,),
     # x out P F hidden L O, weights, stream
     "mip_mlp_fwd": (_P,) * 2 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,),
     # x gout dx grads P F hidden L O, weights,
@@ -90,7 +108,10 @@ ARGTYPES = {
     "tc_wgrad": (_P,) * 3 + (_I,) * 3 + (_P,),
 }
 # Functions of a library other than its own name.
-FUNCTIONS = {"tc_product": ("tc_linear", "tc_wgrad")}
+FUNCTIONS = {
+    "tc_product": ("tc_linear", "tc_wgrad"),
+    **{name: (name, f"{name}_plan") for name in PLANNED},
+}
 
 
 def nvcc_path() -> str:
@@ -164,3 +185,32 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError_t {err}")
+
+
+class TilePlan(NamedTuple):
+    policy: str  # "tc" or "simt"
+    tc_bytes: int  # shared memory a block of the tensor-core tile takes
+    simt_bytes: int  # the same of the float32 SIMT tile
+    limit: int  # the device's opt-in shared memory a block
+
+
+def tile_plan(name: str, xe: int, de: int, hidden: int, *shape: int) -> TilePlan:
+    """The plan kernel ``name``'s width-dependent tile follows for these
+    shapes (``de`` 0 without the view branch; K4 also takes ``c, Sc, Sf``),
+    from the library's ``<name>_plan``, the rule its launcher applies
+    (``csrc/tc_mlp.cuh``, note 9): policy ``"tc"`` where the tensor-core
+    tile fits the device's opt-in shared memory a block, else ``"simt"``.
+    Raises a ``ValueError`` naming the limit, before any launch, where
+    neither fits."""
+    out = (ctypes.c_longlong * 4)()
+    err = getattr(load(name), f"{name}_plan")(xe, de, hidden, *shape, out)
+    if err != 0:
+        raise RuntimeError(f"{name}_plan failed with cudaError_t {err}")
+    policy, tc_bytes, simt_bytes, limit = out
+    if policy >= len(POLICIES):
+        raise ValueError(
+            f"{name}: encoding widths {xe} + {de} at hidden {hidden} need {simt_bytes} bytes of "
+            f"shared memory a block even in the float32 SIMT tile ({tc_bytes} on the tensor "
+            f"cores), past the device's limit of {limit}"
+        )
+    return TilePlan(POLICIES[policy], tc_bytes, simt_bytes, limit)

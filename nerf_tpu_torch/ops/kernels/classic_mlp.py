@@ -40,8 +40,16 @@ PACK_ORDER = (
 
 
 def supports_classic_config(cfg: ClassicNeRFConfig) -> bool:
-    """The kernel covers the reference architecture family, with or without
-    the view branch, at any encoding width."""
+    """The kernels cover the reference architecture family, with or without
+    the view branch, at every encoding width whose tile fits the card's
+    shared memory a block (232,448 bytes on an H100).  At hidden 256 the
+    float32 SIMT tiles hold 588 encoding floats a row (``xe + de``, each
+    rounded up to 4; 572 in K4's block, which also keeps its outputs); the
+    tensor-core tiles of K2, K3, K4 and K9 hold fewer (132 in ``fwd_store``,
+    116 in K4's block) and give way to the SIMT tile past that
+    (``_build.tile_plan``), so latent-conditioned models run at full width.
+    Past the SIMT tile's limit the K2, K3, K4 and K9 wrappers raise a
+    ``ValueError``."""
     return cfg.trunk_blocks == (4, 4) and (
         not cfg.use_viewdirs or cfg.view_branch_depth == 2
     )

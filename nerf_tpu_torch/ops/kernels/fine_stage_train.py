@@ -3,11 +3,15 @@ gradients as one CUDA call, and the whole reuse step built on it.
 
 Counterpart of ``nerf_tpu/ops/pallas/fused_hier.py``
 (``fine_stage_train_pallas`` and ``reuse_train_loss_and_grads``).  The
-kernel is ``csrc/fine_stage_train.cu`` (MLP passes shared with K1-bwd and
-K2 in ``csrc/classic_mlp_train.cuh``); ``fine_stage_train_plain`` is its
-plain PyTorch version: ``classic_mlp_fwd_plain``,
+kernel is ``csrc/fine_stage_train.cu``: K2's tensor-core MLP passes
+(``csrc/classic_mlp_train.cuh`` with ``csrc/tc_mlp.cuh``'s 3xTF32 products;
+``fwd_store`` in float32 SIMT where the encodings are too wide for its
+tile: ``_build.tile_plan``, recorded in ``_build.policy_counts``) around
+the union pass of ``csrc/union_train.cuh``.  ``fine_stage_train_plain`` is
+its plain PyTorch version: ``classic_mlp_fwd_plain``,
 ``weights_from_union_norm`` and the MSE, with gradients from
-``torch.autograd``.
+``torch.autograd`` (with ``matmul=tc_mlp.tc_matmul_autograd`` it emulates
+the kernel's products).
 
 ``reuse_train_loss_and_grads`` runs one reuse step: the coarse MLP through
 K1 under autograd, the coarse compositing, loss and inverse-CDF resample
@@ -24,7 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from nerf_tpu_torch.ops import compositing, sampling
-from nerf_tpu_torch.ops.kernels import _build
+from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
     HIDDEN_WIDTHS,
     MAX_COLORS,
@@ -48,11 +52,11 @@ STAGE_WEIGHT = 0.5  # the stage-mean MSE over (coarse, fine)
 
 
 def _fine_loss(w, x_enc, d_enc, t_coarse, t_fine, dens_c, col_c, dnorm, noise_f, pixels,
-               white_background, loss_weight):
+               white_background, loss_weight, matmul):
     n_rays, s_fine = t_fine.shape
     rows = n_rays * s_fine
     out = classic_mlp_fwd_plain(
-        w, x_enc.reshape(rows, -1), None if d_enc is None else d_enc.reshape(rows, -1)
+        w, x_enc.reshape(rows, -1), None if d_enc is None else d_enc.reshape(rows, -1), matmul
     ).reshape(n_rays, s_fine, -1)
     weights = compositing.weights_from_union_norm(
         dens_c, out[..., :1] + noise_f[..., None], t_coarse, t_fine, dnorm[:, None]
@@ -65,14 +69,15 @@ def _fine_loss(w, x_enc, d_enc, t_coarse, t_fine, dens_c, col_c, dnorm, noise_f,
 
 def fine_stage_train_plain(
     packed: Packed, x_enc, d_enc, t_coarse, t_fine, dens_c, col_c, dnorm, noise_f, pixels,
-    white_background: bool = False, loss_weight: float = 1.0,
+    white_background: bool = False, loss_weight: float = 1.0, matmul=torch.matmul,
 ):
-    """The kernel's function in plain PyTorch (see ``fine_stage_train``)."""
+    """The kernel's function in plain PyTorch (see ``fine_stage_train``);
+    ``matmul`` as in ``classic_mlp_fwd_plain``."""
     kept = {}
 
     def objective(w, dc, cc):
         loss = _fine_loss(w, x_enc, d_enc, t_coarse, t_fine, dc, cc, dnorm, noise_f, pixels,
-                          white_background, loss_weight)
+                          white_background, loss_weight, matmul)
         kept["loss"] = loss.detach()
         return loss, None
 
@@ -151,7 +156,10 @@ def fine_stage_train(
         raise ValueError(f"{NAME}: at most {MAX_COLORS} color outputs, got {colors}")
     if n_rays == 0:
         raise ValueError(f"{NAME}: needs at least one ray")
+    de = d_enc.shape[-1] if has_view else 0
+    policy = _build.tile_plan(NAME, xe, de, hidden).policy
     sc = train_scratch(packed, n_rays * s_fine, device)
+    tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
     d_ray = d_enc[:, 0, :].contiguous() if has_view else None
     loss = torch.empty((1,), dtype=torch.float32, device=device)
     g_dens_c = torch.empty_like(dens_c)
@@ -163,14 +171,14 @@ def fine_stage_train(
         x_enc.data_ptr(), _build.ptr(d_ray), t_coarse.data_ptr(), t_fine.data_ptr(),
         dens_c.data_ptr(), col_c.data_ptr(), dnorm.data_ptr(), noise_f.data_ptr(),
         pixels.data_ptr(), loss.data_ptr(), sc["grads"].data_ptr(), g_dens_c.data_ptr(),
-        g_col_c.data_ptr(), n_rays, s_coarse, s_fine, xe,
-        d_enc.shape[-1] if has_view else 0, hidden, colors, int(white_background),
-        float(loss_weight), *weight_pointers(packed), *scratch_pointers(sc),
-        gout.data_ptr(), ray_loss.data_ptr(), sc["splits"],
-        torch.cuda.current_stream(device).cuda_stream,
+        g_col_c.data_ptr(), n_rays, s_coarse, s_fine, xe, de, hidden, colors,
+        int(white_background), float(loss_weight), *weight_pointers(packed),
+        *scratch_pointers(sc), gout.data_ptr(), ray_loss.data_ptr(), sc["splits"],
+        tc_fwd.data_ptr(), tc_bwd.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1
+    _build.policy_counts[(NAME, policy)] += 1
     return loss[0], flat_grads_to_packed(sc["grads"], packed), (g_dens_c, g_col_c)
 
 

@@ -224,6 +224,8 @@ def mega_train(
     if n_rays == 0:
         raise ValueError(f"{NAME}: needs at least one ray")
     n_rows = n_rays * (s_coarse + s_fine)
+    de = d_ray.shape[1] if has_view else 0
+    policy = _build.tile_plan(NAME, xe, de, hidden).policy
     s = train_scratch(packed, n_rows, device)
 
     def buf(*shape):
@@ -238,14 +240,15 @@ def mega_train(
         x_enc_c.data_ptr(), _build.ptr(d_ray), t_coarse.data_ptr(), noise_c.data_ptr(),
         u.data_ptr(), noise_f.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(),
         pixels.data_ptr(), placement.data_ptr(), is_cos.data_ptr(), loss.data_ptr(),
-        s["grads"].data_ptr(), t_fine.data_ptr(), n_rays, s_coarse, s_fine, xe,
-        d_ray.shape[1] if has_view else 0, hidden, colors, int(white_background),
-        int(exact_trig), *weight_pointers(packed), *scratch_pointers(s), gout.data_ptr(),
+        s["grads"].data_ptr(), t_fine.data_ptr(), n_rays, s_coarse, s_fine, xe, de, hidden,
+        colors, int(white_background), int(exact_trig), *weight_pointers(packed),
+        *scratch_pointers(s), gout.data_ptr(),
         x_all.data_ptr(), dnorm.data_ptr(), ray_loss.data_ptr(), s["splits"],
         tc_fwd.data_ptr(), tc_bwd.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1
+    _build.policy_counts[(NAME, policy)] += 1
     return loss[0], loss[1], flat_grads_to_packed(s["grads"], packed), t_fine
 
 

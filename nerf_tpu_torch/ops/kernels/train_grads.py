@@ -3,12 +3,18 @@ CUDA call: MLP forward, density noise, alpha compositing, sigmoid colour,
 the stage-weighted MSE, and the backward through all of it.
 
 Counterpart of ``nerf_tpu/ops/pallas/fused_train.py::
-classic_train_grads_pallas``.  The kernel is ``csrc/train_grads.cu`` (MLP
-passes shared with K1-bwd and K3 in ``csrc/classic_mlp_train.cuh``);
-``classic_train_grads_plain`` is its plain PyTorch version:
-``classic_mlp_fwd_plain``, ``weights_from_density`` and the MSE, with
-gradients from ``torch.autograd``.  ``TrainGradsFunction`` puts the call
-under autograd: its backward hands back the gradients the kernel already
+classic_train_grads_pallas``.  The kernel is ``csrc/train_grads.cu``: the
+MLP passes of ``csrc/classic_mlp_train.cuh`` with their hidden and encoding
+products as 3xTF32 on the tensor cores (``csrc/tc_mlp.cuh``, on the operand
+images ``tc_mlp.tc_images`` builds once per call; ``fwd_store`` in float32
+SIMT where the encodings are too wide for its tile, more than 132 floats a
+row together at hidden 256: ``_build.tile_plan``, recorded in
+``_build.policy_counts``).  ``classic_train_grads_plain`` is its plain
+PyTorch version: ``classic_mlp_fwd_plain``, ``weights_from_density`` and
+the MSE, with gradients from ``torch.autograd`` (with
+``matmul=tc_mlp.tc_matmul_autograd`` it emulates the kernel's products,
+forward and backward).  ``TrainGradsFunction`` puts the call under
+autograd: its backward hands back the gradients the kernel already
 computed.
 """
 
@@ -19,7 +25,7 @@ from typing import Optional, Tuple
 import torch
 
 from nerf_tpu_torch.ops import compositing
-from nerf_tpu_torch.ops.kernels import _build
+from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
     HIDDEN_WIDTHS,
     MAX_COLORS,
@@ -39,11 +45,12 @@ NAME = "train_grads"
 MAX_SAMPLES = 1024
 
 
-def _loss_and_weights(w, x_enc, d_enc, dists, noise, pixels, white_background, loss_weight):
+def _loss_and_weights(w, x_enc, d_enc, dists, noise, pixels, white_background, loss_weight,
+                      matmul):
     n_rays, s = noise.shape
     rows = n_rays * s
     out = classic_mlp_fwd_plain(
-        w, x_enc.reshape(rows, -1), None if d_enc is None else d_enc.reshape(rows, -1)
+        w, x_enc.reshape(rows, -1), None if d_enc is None else d_enc.reshape(rows, -1), matmul
     ).reshape(n_rays, s, -1)
     weights = compositing.weights_from_density(out[..., :1] + noise[..., None], dists)
     rgb = compositing.composite_rgb_with_background(
@@ -63,14 +70,16 @@ def classic_train_grads_plain(
     white_background: bool = False,
     loss_weight: float = 1.0,
     return_weights: bool = False,
+    matmul=torch.matmul,
 ):
-    """The kernel's function in plain PyTorch (see ``classic_train_grads``)."""
+    """The kernel's function in plain PyTorch (see ``classic_train_grads``);
+    ``matmul`` as in ``classic_mlp_fwd_plain``."""
     del num_samples  # the shapes carry it
     kept = {}
 
     def objective(w):
         loss, weights = _loss_and_weights(
-            w, x_enc, d_enc, dists, noise, pixels, white_background, loss_weight
+            w, x_enc, d_enc, dists, noise, pixels, white_background, loss_weight, matmul
         )
         kept["loss"], kept["weights"] = loss.detach(), weights.detach()
         return loss, None
@@ -148,7 +157,10 @@ def classic_train_grads(
     if n_rays == 0:
         raise ValueError(f"{NAME}: needs at least one ray")
     rows = n_rays * s
+    de = d_enc.shape[-1] if has_view else 0
+    policy = _build.tile_plan(NAME, xe, de, hidden).policy
     sc = train_scratch(packed, rows, device)
+    tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
     loss = torch.empty((1,), dtype=torch.float32, device=device)
     weights = torch.empty((n_rays, s), dtype=torch.float32, device=device) if return_weights else None
     gout = torch.empty_like(sc["out"])
@@ -157,13 +169,14 @@ def classic_train_grads(
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_enc), dists.data_ptr(), noise.data_ptr(),
         pixels.data_ptr(), loss.data_ptr(), sc["grads"].data_ptr(), _build.ptr(weights),
-        n_rays, s, xe, d_enc.shape[-1] if has_view else 0, hidden, colors,
-        int(white_background), float(loss_weight),
+        n_rays, s, xe, de, hidden, colors, int(white_background), float(loss_weight),
         *weight_pointers(packed), *scratch_pointers(sc), gout.data_ptr(), ray_loss.data_ptr(),
-        sc["splits"], torch.cuda.current_stream(device).cuda_stream,
+        sc["splits"], tc_fwd.data_ptr(), tc_bwd.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1
+    _build.policy_counts[(NAME, policy)] += 1
     d_packed = flat_grads_to_packed(sc["grads"], packed)
     if return_weights:
         return loss[0], d_packed, weights

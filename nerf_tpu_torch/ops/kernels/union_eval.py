@@ -6,10 +6,13 @@ Counterpart of ``nerf_tpu/ops/pallas/fused_hier.py::fine_union_eval_pallas``.
 The kernel is ``csrc/union_eval.cu``: the MLP's hidden and encoding products
 run as 3xTF32 on the tensor cores (``csrc/tc_mlp.cuh``, on the operand images
 ``tc_mlp.tc_images`` builds once per call), the epilogues, heads and
-compositing in float32.  ``union_eval_plain`` is its plain PyTorch version:
-``classic_mlp_fwd_plain`` followed by ``weights_from_union_sorted`` and the
-``composite_*`` functions (with ``matmul=tc_mlp.tc_matmul`` it emulates the
-kernel's products).
+compositing in float32.  Encodings too wide for the tensor-core tile (more
+than 116 floats a row together at hidden 256, as a latent-conditioned
+model's are) run the float32 SIMT product instead, chosen from the shapes
+(``_build.tile_plan``; ``_build.policy_counts`` records which).
+``union_eval_plain`` is its plain PyTorch version: ``classic_mlp_fwd_plain``
+followed by ``weights_from_union_sorted`` and the ``composite_*`` functions
+(with ``matmul=tc_mlp.tc_matmul`` it emulates the kernel's products).
 """
 
 from __future__ import annotations
@@ -123,15 +126,18 @@ def union_eval(
         raise ValueError(f"{NAME}: at most {MAX_COLORS} color outputs, got {colors}")
     out = torch.empty((n_rays, colors + 2), dtype=torch.float32, device=device)
     if n_rays:
-        tc_fwd, _ = tc_mlp.tc_images(packed)
+        de = d_enc.shape[1] if has_view else 0
+        policy = _build.tile_plan(NAME, xe, de, hidden, colors, s_coarse, s_fine).policy
+        tc_fwd = tc_mlp.tc_images(packed)[0] if policy == "tc" else None
         fn = getattr(_build.load(NAME), NAME)
         err = fn(
             x_enc.data_ptr(), _build.ptr(d_enc), t_coarse.data_ptr(), t_fine.data_ptr(),
             dens_c.data_ptr(), col_c.data_ptr(), dnorm.data_ptr(), out.data_ptr(),
-            n_rays, s_coarse, s_fine, xe, d_enc.shape[1] if has_view else 0, hidden, colors,
-            *weight_pointers(packed), tc_fwd.data_ptr(),
+            n_rays, s_coarse, s_fine, xe, de, hidden, colors,
+            *weight_pointers(packed), _build.ptr(tc_fwd),
             torch.cuda.current_stream(device).cuda_stream,
         )
         _build.check_launch(NAME, err)
         _build.launch_counts[NAME] += 1
+        _build.policy_counts[(NAME, policy)] += 1
     return out[:, :colors], out[:, colors], out[:, colors + 1]

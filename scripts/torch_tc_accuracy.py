@@ -1,13 +1,14 @@
-"""How accurate the tensor-core products of K4 and K9 are, on the card.
+"""How accurate the tensor-core products of K2, K3, K4 and K9 are, on the card.
 
     python scripts/torch_tc_accuracy.py
 
 Runs the products of ``csrc/tc_mlp.cuh`` alone (``csrc/tc_product.cu``):
-the row-tile product (``tc_linear``: out = a @ w, as K4's tile and K9's
-forward and ``bwd_rows`` run it) at 4096 rows, K = 256, H = 256, and the
-weight-gradient product (``tc_wgrad``: out = a^T b over the points, as K9's
-``wgrad`` runs it) at 256 x 256 over 1000 and 15,744 points (one split of
-K9's step at 2048 x (64 + 128)), on uniform inputs in [-1, 1) from a seed.
+the row-tile product (``tc_linear``: out = a @ w, as K4's tile and K2's,
+K3's and K9's forward and ``bwd_rows`` run it) at 4096 rows, K = 256, H =
+256, and the weight-gradient product (``tc_wgrad``: out = a^T b over the
+points, as their ``wgrad`` runs it) at 256 x 256 over 1000 and 15,744
+points (one split of K9's step at 2048 x (64 + 128)), on uniform inputs in
+[-1, 1) from a seed.
 For each it prints, relative to the largest entry of the float64 product,
 the largest error, the root-mean-square error and the mean error in the
 direction of each entry (a bias toward zero is negative) of the kernel,

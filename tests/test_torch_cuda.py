@@ -15,14 +15,18 @@ cumulative product.  K8 adds the device's sine of the same arguments; K9
 is held against its plain version with its own fine t-values (its resample
 against the plain one separately), as the JAX package holds its kernel.
 
-K4 and K9 run their MLP products as 3xTF32 on the tensor cores
+K2, K3, K4 and K9 run their MLP products as 3xTF32 on the tensor cores
 (``csrc/tc_mlp.cuh``), at the same tolerances: their cases cover every
 hidden width, row counts that are not a multiple of 64, encoding widths
 that are not a multiple of 8 and runs with and without the view branch,
-and two calls must agree bitwise.  The products alone (``tc_linear``,
-``tc_wgrad`` of ``csrc/tc_product.cu``) are held against the CPU
-emulation of the same arithmetic (``tc_mlp.tc_matmul``) and against the
-float64 product.
+and two calls must agree bitwise.  Where a latent-conditioned model's
+encodings are too wide for the tensor-core tile the kernels run the
+float32 SIMT tile (``_build.tile_plan``): the ``latent_full_width`` cases
+check that the policy each call recorded is the one its byte count
+predicts; past the SIMT tile the wrappers raise before any launch.  The
+products alone (``tc_linear``, ``tc_wgrad`` of ``csrc/tc_product.cu``) are
+held against the CPU emulation of the same arithmetic
+(``tc_mlp.tc_matmul``) and against the float64 product.
 """
 
 import pytest
@@ -54,6 +58,14 @@ VARIANTS = {
     "no_view": dict(hidden_size=64, use_viewdirs=False),
     "latent": dict(hidden_size=32, density_inputs=5, color_inputs=4),
 }
+# Encoding widths beside VARIANTS' 60 + 36 (and the small latent model's):
+# a latent-conditioned full-width model (2 + 1 latent scalars: xe 100, de
+# 48), past the tensor-core tiles at hidden 256; and encodings past every
+# tile (xe 600 + de 36, past the float32 SIMT tiles' 588 and K4's 572).
+WIDE_VARIANTS = {
+    "latent_full_width": dict(hidden_size=256, density_inputs=5, color_inputs=4),
+    "too_wide": dict(hidden_size=256, density_inputs=30),
+}
 
 
 @pytest.fixture
@@ -65,7 +77,7 @@ def cuda():
 
 
 def packed_weights(variant, device):
-    cfg = ClassicNeRFConfig(**VARIANTS[variant])
+    cfg = ClassicNeRFConfig(**{**VARIANTS, **WIDE_VARIANTS}[variant])
     mlp = ClassicMLP(cfg, generator=torch.Generator().manual_seed(0), device=device)
     return cfg, classic_mlp.pack_classic_params(mlp.requires_grad_(False))
 
@@ -157,6 +169,20 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     a["pixels"] = a["pixels"].cpu()
     with pytest.raises(ValueError, match="cpu"):
         fine_stage_train.fine_stage_train(packed, **a)
+    # Encodings past every tile's shared memory, the float32 SIMT tile's
+    # too: each wrapper raises, naming the limit, before any launch.
+    cfg, packed = packed_weights("too_wide", cuda)
+    torch.cuda.synchronize()
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+    with pytest.raises(ValueError, match="limit"):
+        union_eval.union_eval(*union_args(cfg, packed, cuda, rays=2, sc=8, sf=16))
+    with pytest.raises(ValueError, match="limit"):
+        train_grads.classic_train_grads(packed, **train_inputs(cfg, cuda, rays=1, s=8),
+                                        num_samples=8)
+    with pytest.raises(ValueError, match="limit"):
+        fine_stage_train.fine_stage_train(packed, **fine_inputs(cfg, cuda, rays=2, sc=8, sf=8))
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == launches and dict(_build.policy_counts) == policies
 
 
 @pytest.mark.cuda
@@ -225,13 +251,37 @@ def test_classic_mlp_bwd_kernel_matches_plain(cuda, variant, points):
     assert_grads_close(d_packed, r_packed)
 
 
-def train_inputs(cfg, device, rays, s, seed=0):
+def rows_away_from_kinks(packed, gen, rays, s, xe, d_ray):
+    """``[rays, s, xe]`` encodings whose every row, with its ray's view
+    encoding ``d_ray [rays, de]`` (``None`` without the view branch), has
+    all its ReLU inputs farther than 1e-5 from 0: per ray the first ``s``
+    of ``2 s + 8`` candidate rows drawn from ``gen`` (see
+    ``away_from_kinks``: nearer the kink two float32-accurate evaluations,
+    the kernel's and the plain one, can take different branches and move
+    that row's whole gradient)."""
+    m = 2 * s + 8
+    cand = rand(gen, rays, m, xe)
+    d = None if d_ray is None else d_ray[:, None].expand(rays, m, -1).reshape(rays * m, -1)
+    with torch.no_grad():
+        keep = (kink_margin(packed, cand.reshape(rays * m, xe), d) > 1e-5).reshape(rays, m)
+    idx = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)[:, :s]
+    assert bool(keep.gather(1, idx).all()), "too few candidate rows away from the kinks"
+    return cand.gather(1, idx[..., None].expand(rays, s, xe)).contiguous()
+
+
+def train_inputs(cfg, device, rays, s, seed=0, packed=None):
+    """K2's inputs; with ``packed`` the encodings are drawn away from the
+    ReLU kinks of those weights (``rows_away_from_kinks``)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     t = torch.sort(rand(gen, rays, s, lo=2.0, hi=6.0), -1).values
     dists = compositing.distances_from_tvals(t, rand(gen, rays, 3))
     d_ray = rand(gen, rays, 1, cfg.d_encoding_dim)
+    x_enc = rand(gen, rays, s, cfg.x_encoding_dim)
+    if packed is not None:
+        x_enc = rows_away_from_kinks(packed, gen, rays, s, cfg.x_encoding_dim,
+                                     d_ray[:, 0] if cfg.use_viewdirs else None)
     return dict(
-        x_enc=rand(gen, rays, s, cfg.x_encoding_dim),
+        x_enc=x_enc,
         d_enc=d_ray.expand(rays, s, -1).contiguous() if cfg.use_viewdirs else None,
         dists=dists.contiguous(), noise=rand(gen, rays, s),
         pixels=rand(gen, rays, cfg.color_outputs, lo=0.0, hi=1.0),
@@ -244,7 +294,7 @@ def train_inputs(cfg, device, rays, s, seed=0):
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_train_grads_kernel_matches_plain(cuda, variant, s, white, with_weights):
     cfg, packed = packed_weights(variant, cuda)
-    a = train_inputs(cfg, cuda, rays=3, s=s)
+    a = train_inputs(cfg, cuda, rays=3, s=s, packed=packed)
     opts = dict(white_background=white, loss_weight=0.5, return_weights=with_weights)
     before = _build.launch_counts[train_grads.NAME]
     got = train_grads.classic_train_grads(packed, **a, num_samples=s, **opts)
@@ -257,10 +307,14 @@ def test_train_grads_kernel_matches_plain(cuda, variant, s, white, with_weights)
         torch.testing.assert_close(got[2], ref[2], rtol=1e-4, atol=1e-5)
 
 
-def fine_inputs(cfg, device, rays, sc, sf, seed=0):
+def fine_inputs(cfg, device, rays, sc, sf, seed=0, packed=None):
+    """K3's inputs; with ``packed`` the fine encodings are drawn away from
+    the ReLU kinks of those weights (``rows_away_from_kinks``)."""
     args = union_args(cfg, None, device, rays, sc, sf, seed)
     _, x_enc, d_ray, t_c, t_f, dens_c, col_c, dnorm = args
     gen = torch.Generator(device=device).manual_seed(seed + 1)
+    if packed is not None:
+        x_enc = rows_away_from_kinks(packed, gen, rays, sf, cfg.x_encoding_dim, d_ray)
     return dict(
         x_enc=x_enc,
         d_enc=d_ray[:, None, :].expand(rays, sf, -1).contiguous() if d_ray is not None else None,
@@ -275,7 +329,7 @@ def fine_inputs(cfg, device, rays, sc, sf, seed=0):
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_fine_stage_train_kernel_matches_plain(cuda, variant, sc, sf, white):
     cfg, packed = packed_weights(variant, cuda)
-    a = fine_inputs(cfg, cuda, rays=3, sc=sc, sf=sf)
+    a = fine_inputs(cfg, cuda, rays=3, sc=sc, sf=sf, packed=packed)
     before = _build.launch_counts[fine_stage_train.NAME]
     loss, d_packed, (gdc, gcc) = fine_stage_train.fine_stage_train(
         packed, **a, white_background=white, loss_weight=0.5)
@@ -286,6 +340,135 @@ def test_fine_stage_train_kernel_matches_plain(cuda, variant, sc, sf, white):
     torch.testing.assert_close(loss, r_loss, rtol=LOSS_RTOL, atol=0)
     assert_grads_close(d_packed | {"g_dens_c": gdc, "g_col_c": gcc},
                        r_packed | {"g_dens_c": rgdc, "g_col_c": rgcc})
+
+
+def width_packed(device, hidden, view):
+    cfg = ClassicNeRFConfig(hidden_size=hidden, use_viewdirs=view)
+    mlp = ClassicMLP(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    return cfg, classic_mlp.pack_classic_params(mlp.requires_grad_(False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [True, False])
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_train_grads_kernel_matches_plain_at_every_width(cuda, hidden, view):
+    """K2's tensor-core passes at every hidden width: 3 rays x 67 samples
+    (201 rows, not a multiple of 64), encodings 60 + 36 (not multiples of
+    8), rows away from the ReLU kinks, against plain at LOSS_RTOL and
+    GRAD_ATOL; the call ran the tensor-core tile, and a second call gives
+    bitwise the same loss, gradients and compositing weights (a fixed
+    order of products, no atomics)."""
+    cfg, packed = width_packed(cuda, hidden, view)
+    a = train_inputs(cfg, cuda, rays=3, s=67, seed=hidden, packed=packed)
+    opts = dict(num_samples=67, loss_weight=0.5, return_weights=True)
+    before = _build.policy_counts[(train_grads.NAME, "tc")]
+    first = train_grads.classic_train_grads(packed, **a, **opts)
+    second = train_grads.classic_train_grads(packed, **a, **opts)
+    torch.cuda.synchronize()
+    assert _build.policy_counts[(train_grads.NAME, "tc")] == before + 2
+    ref = train_grads.classic_train_grads_plain(packed, **a, **opts)
+    torch.testing.assert_close(first[0], ref[0], rtol=LOSS_RTOL, atol=0)
+    assert_grads_close(first[1], ref[1])
+    torch.testing.assert_close(first[2], ref[2], rtol=1e-4, atol=1e-5)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[2], second[2])
+    assert all(torch.equal(first[1][k], second[1][k]) for k in first[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [True, False])
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_fine_stage_train_kernel_matches_plain_at_every_width(cuda, hidden, view):
+    """K3's tensor-core passes at every hidden width: 3 rays x (7 + 67)
+    (201 fine rows; wgrad reads the view encoding once per ray), encodings
+    60 + 36, fine rows away from the ReLU kinks, against plain at LOSS_RTOL
+    and GRAD_ATOL (the coarse cotangents too); the call ran the tensor-core
+    tile, and a second call gives bitwise the same results."""
+    cfg, packed = width_packed(cuda, hidden, view)
+    a = fine_inputs(cfg, cuda, rays=3, sc=7, sf=67, seed=hidden, packed=packed)
+    before = _build.policy_counts[(fine_stage_train.NAME, "tc")]
+    first = fine_stage_train.fine_stage_train(packed, **a, loss_weight=0.5)
+    second = fine_stage_train.fine_stage_train(packed, **a, loss_weight=0.5)
+    torch.cuda.synchronize()
+    assert _build.policy_counts[(fine_stage_train.NAME, "tc")] == before + 2
+    ref = fine_stage_train.fine_stage_train_plain(packed, **a, loss_weight=0.5)
+    torch.testing.assert_close(first[0], ref[0], rtol=LOSS_RTOL, atol=0)
+    assert_grads_close(first[1] | {"g_dens_c": first[2][0], "g_col_c": first[2][1]},
+                       ref[1] | {"g_dens_c": ref[2][0], "g_col_c": ref[2][1]})
+    assert torch.equal(first[0], second[0])
+    assert all(torch.equal(a_, b_) for a_, b_ in zip(first[2], second[2]))
+    assert all(torch.equal(first[1][k], second[1][k]) for k in first[1])
+
+
+def round_up4(n):
+    return -(-n // 4) * 4
+
+
+def predicted_tile_bytes(kernel, hidden, xe, de, colors, sc, sf):
+    """(tensor-core, float32 SIMT) bytes of shared memory a block of the
+    kernel's width-dependent tile takes, counted from the layouts of
+    ``csrc/tc_mlp.cuh`` (K2's and K3's ``fwd_store``: four 16-value chunk
+    buffers of hi and lo weights, the ``[64][H + 4]`` activation tile, the
+    encoding tiles, 1024 bytes of alignment) and ``csrc/union_eval.cu``
+    (K4's block: also the compositing scratch in the activation tile's
+    place where larger, and the block's fine outputs); the SIMT tiles hold
+    16 weight rows and a ``[64][H]`` activation tile."""
+    enc = 64 * (round_up4(xe) + round_up4(de))
+    ring, act_tc, act = 4 * 2 * hidden * 16, 64 * (hidden + 4), 64 * hidden
+    if kernel != union_eval.NAME:
+        return 4 * (ring + act_tc + enc) + 1024, 4 * (16 * hidden + act + enc)
+    comp = 8 * 4 * (sc + sf)
+    outs = (1 if sf >= 256 else 256 // sf) * sf * (1 + colors)
+    return (4 * (ring + max(act_tc, comp) + enc + outs) + 1024,
+            4 * (16 * hidden + max(act, comp) + enc + outs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [union_eval.NAME, train_grads.NAME, fine_stage_train.NAME])
+@pytest.mark.parametrize("variant", ["full_width", "latent_full_width"])
+def test_tile_policy_follows_the_byte_count(cuda, variant, kernel):
+    """K4, K2 and K3 at full width with the default encodings (60 + 36)
+    and a latent-conditioned model's (100 + 48): the call matches plain at
+    the kernel's tolerances (K2 and K3 on rows away from the ReLU kinks)
+    and records the policy its byte count predicts, the tensor cores where
+    their tile fits the device's opt-in shared memory a block, else the
+    float32 SIMT tile.  On the H100 (232,448 bytes) that is the tensor
+    cores at 60 + 36 and the SIMT tile at 100 + 48 in all three."""
+    cfg, packed = packed_weights(variant, cuda)
+    xe, de, colors, sc, sf = cfg.x_encoding_dim, cfg.d_encoding_dim, cfg.color_outputs, 64, 128
+    tc_bytes, simt_bytes = predicted_tile_bytes(kernel, 256, xe, de, colors, sc, sf)
+    plan = _build.tile_plan(kernel, xe, de, 256,
+                            *((colors, sc, sf) if kernel == union_eval.NAME else ()))
+    assert (plan.tc_bytes, plan.simt_bytes) == (tc_bytes, simt_bytes)
+    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    assert plan.limit == limit
+    want = "tc" if tc_bytes <= limit else "simt"
+    assert plan.policy == want and simt_bytes <= limit
+    assert want == ("tc" if variant == "full_width" else "simt")
+    before = dict(_build.policy_counts)
+    if kernel == union_eval.NAME:
+        args = union_args(cfg, packed, cuda, rays=37, sc=sc, sf=sf)
+        got = union_eval.union_eval(*args)
+        torch.cuda.synchronize()
+        for g, r in zip(got, union_eval.union_eval_plain(*args)):
+            torch.testing.assert_close(g, r, **K4_TOL)
+    elif kernel == train_grads.NAME:
+        a = train_inputs(cfg, cuda, rays=3, s=sc, packed=packed)
+        got = train_grads.classic_train_grads(packed, **a, num_samples=sc, loss_weight=0.5)
+        torch.cuda.synchronize()
+        ref = train_grads.classic_train_grads_plain(packed, **a, num_samples=sc, loss_weight=0.5)
+        torch.testing.assert_close(got[0], ref[0], rtol=LOSS_RTOL, atol=0)
+        assert_grads_close(got[1], ref[1])
+    else:
+        a = fine_inputs(cfg, cuda, rays=3, sc=sc, sf=sf, packed=packed)
+        got = fine_stage_train.fine_stage_train(packed, **a, loss_weight=0.5)
+        torch.cuda.synchronize()
+        ref = fine_stage_train.fine_stage_train_plain(packed, **a, loss_weight=0.5)
+        torch.testing.assert_close(got[0], ref[0], rtol=LOSS_RTOL, atol=0)
+        assert_grads_close(got[1] | {"g_dens_c": got[2][0], "g_col_c": got[2][1]},
+                           ref[1] | {"g_dens_c": ref[2][0], "g_col_c": ref[2][1]})
+    moved = {k: v - before.get(k, 0) for k, v in _build.policy_counts.items()
+             if v != before.get(k, 0)}
+    assert moved == {(kernel, want): 1}
 
 
 @pytest.mark.cuda
@@ -653,9 +836,9 @@ def test_classic_pointmlp_autograd_runs_both_kernels(cuda):
     assert_grads_close(grads[True], grads[False])
 
 
-def mega_setup(device, view, sc, sf, white, rays=5, seed=14, hidden=64):
+def mega_setup(device, view, sc, sf, white, rays=5, seed=14, hidden=64, **cfg):
     model = ClassicNeRF(ClassicNeRFConfig(hidden_size=hidden, normalize_position=6.0,
-                                          use_viewdirs=view, use_pallas=True),
+                                          use_viewdirs=view, use_pallas=True, **cfg),
                         generator=torch.Generator().manual_seed(0), device=device)
     with torch.no_grad():  # mass in every bin (see chip_smoke.py)
         model.mlp.density.bias.fill_(0.5)
@@ -838,3 +1021,14 @@ def test_point_and_mega_wrappers_raise_instead_of_falling_back(cuda):
     inputs[8] = inputs[8].cpu()  # the pixels
     with pytest.raises(ValueError, match="cpu"):
         mega_train.mega_train(packed, *inputs)
+    # Encodings past every tile (xe 600 + de 36 at hidden 256): raises,
+    # naming the limit, before any launch.
+    model, render, batch, draws = mega_setup(cuda, True, 8, 16, False, hidden=256,
+                                             x_positional_encoding_size=200)
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    inputs = mega_train.mega_inputs(model, batch, draws)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    with pytest.raises(ValueError, match="limit"):
+        mega_train.mega_train(packed, *inputs)
+    assert dict(_build.launch_counts) == launches

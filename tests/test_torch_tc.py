@@ -1,13 +1,16 @@
-"""The tensor-core arithmetic of K4 and K9 on the CPU: the 3xTF32 split, the
-operand images the wrappers build for ``wgmma`` (``ops/kernels/tc_mlp.py``),
-and the plain versions of K4 and K9 run with their products emulated as the
-kernels compute them, held against their float32 selves at the tolerances
-the card holds the kernels to (``chip_smoke.py``, ``tests/test_torch_cuda.py``):
+"""The tensor-core arithmetic of K2, K3, K4 and K9 on the CPU: the 3xTF32
+split, the operand images the wrappers build for ``wgmma``
+(``ops/kernels/tc_mlp.py``), and the plain versions of the four kernels run
+with their products emulated as the kernels compute them, held against
+their float32 selves at the tolerances the card holds the kernels to
+(``chip_smoke.py``, ``tests/test_torch_cuda.py``):
 
 * K4: rtol 5e-4, atol 1e-4;
 * K9: loss rtol 1e-4, every gradient within a relative L2 error of 1e-2,
   the fine samples' plain cdf within 2e-5 of their uniforms (beyond the mass
-  that 4 ulp of t carry).
+  that 4 ulp of t carry);
+* K2 and K3: loss rtol 1e-4, every gradient (K3's coarse cotangents too)
+  within a relative L2 error of 1e-2 and within 1e-4 of its largest entry.
 
 That shows, before any card run, that the precision scheme meets the bounds.
 Inputs come from numpy seeds; the models are the full-width ClassicNeRF
@@ -22,10 +25,19 @@ import torch.nn.functional as F
 from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, RenderConfig
 from nerf_tpu_torch.models.mlp import ClassicMLP
 from nerf_tpu_torch.ops import sampling
-from nerf_tpu_torch.ops.kernels import classic_mlp, mega_train, tc_mlp, union_eval
+from nerf_tpu_torch.ops import compositing
+from nerf_tpu_torch.ops.kernels import (
+    classic_mlp,
+    fine_stage_train,
+    mega_train,
+    tc_mlp,
+    train_grads,
+    union_eval,
+)
 
 K4_TOL = dict(rtol=5e-4, atol=1e-4)
 GRAD_REL_L2 = 1e-2
+GRAD_ATOL = 1e-4  # of the largest entry, as the card tests hold K2 and K3
 LOSS_RTOL = 1e-4
 T_FINE_MASS = 2e-5
 
@@ -201,3 +213,115 @@ def test_mega_step_with_3xtf32_products_meets_the_card_tolerance(view):
     slack = (sampling.pdf_cdf_at(bins, w, t_fine + step)
              - sampling.pdf_cdf_at(bins, w, t_fine - step)) / 2
     assert bool(((sampling.pdf_cdf_at(bins, w, t_fine) - u).abs() <= T_FINE_MASS + slack).all())
+
+
+def k2_case(view, rays=2, s=64, seed=6):
+    """K2's inputs at full width (hidden 256, encodings 60 + 36), the view
+    encoding constant along each ray as the trainer gives it."""
+    cfg = ClassicNeRFConfig(use_viewdirs=view)
+    packed = classic_mlp.pack_classic_params(full_width_mlp(256, view))
+    rng = np.random.default_rng(seed)
+    t_vals = torch.sort(uniform(rng, rays, s, lo=2.0, hi=6.0), -1).values
+    d_ray = uniform(rng, rays, 1, cfg.d_encoding_dim)
+    return packed, dict(
+        x_enc=uniform(rng, rays, s, cfg.x_encoding_dim),
+        d_enc=d_ray.expand(rays, s, -1).contiguous() if view else None,
+        dists=compositing.distances_from_tvals(t_vals, uniform(rng, rays, 3)).contiguous(),
+        noise=uniform(rng, rays, s), pixels=uniform(rng, rays, 3, lo=0.0, hi=1.0),
+    )
+
+
+def k3_case(view, rays=2, sc=64, sf=128, seed=7):
+    cfg = ClassicNeRFConfig(use_viewdirs=view)
+    packed = classic_mlp.pack_classic_params(full_width_mlp(256, view))
+    _, x_enc, d_ray, t_c, t_f, dens_c, col_c, dnorm = union_inputs(packed, cfg, rays, sc, sf,
+                                                                  seed)
+    rng = np.random.default_rng(seed + 1)
+    return packed, dict(
+        x_enc=x_enc, d_enc=None if d_ray is None else d_ray[:, None].expand(rays, sf, -1),
+        t_coarse=t_c, t_fine=t_f, dens_c=dens_c, col_c=col_c, dnorm=dnorm,
+        noise_f=uniform(rng, rays, sf), pixels=uniform(rng, rays, 3, lo=0.0, hi=1.0),
+    )
+
+
+def assert_grads_within_card_bounds(got: dict, ref: dict):
+    assert got.keys() == ref.keys()
+    for k, r in ref.items():
+        rel = float((got[k] - r).norm() / r.norm().clamp_min(1e-30))
+        assert rel <= GRAD_REL_L2, (k, rel)
+        scale = float(r.abs().max()) + 1e-12
+        assert float((got[k] - r).abs().max()) <= GRAD_ATOL * scale, k
+
+
+@pytest.mark.parametrize("view", [True, False])
+def test_train_grads_with_3xtf32_products_meets_the_card_tolerance(view):
+    """K2's plain version at full width, 2 rays x 64 samples (128 rows),
+    with the forward, ``dh`` and ``dW`` products emulated as 3xTF32."""
+    packed, a = k2_case(view)
+    opts = dict(num_samples=64, white_background=view, loss_weight=0.5, return_weights=True)
+    r_loss, r_grads, r_weights = train_grads.classic_train_grads_plain(packed, **a, **opts)
+    e_loss, e_grads, e_weights = train_grads.classic_train_grads_plain(
+        packed, **a, **opts, matmul=tc_mlp.tc_matmul_autograd)
+    torch.testing.assert_close(e_loss, r_loss, rtol=LOSS_RTOL, atol=0)
+    assert_grads_within_card_bounds(e_grads, r_grads)
+    torch.testing.assert_close(e_weights, r_weights, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("view", [True, False])
+def test_fine_stage_train_with_3xtf32_products_meets_the_card_tolerance(view):
+    """K3's plain version at full width, 2 rays x (64 + 128) (256 fine
+    rows), with its products emulated as 3xTF32; the coarse cotangents
+    too."""
+    packed, a = k3_case(view)
+    opts = dict(white_background=not view, loss_weight=0.5)
+    r_loss, r_grads, (r_gd, r_gc) = fine_stage_train.fine_stage_train_plain(packed, **a, **opts)
+    e_loss, e_grads, (e_gd, e_gc) = fine_stage_train.fine_stage_train_plain(
+        packed, **a, **opts, matmul=tc_mlp.tc_matmul_autograd)
+    torch.testing.assert_close(e_loss, r_loss, rtol=LOSS_RTOL, atol=0)
+    assert_grads_within_card_bounds(e_grads | {"g_dens_c": e_gd, "g_col_c": e_gc},
+                                    r_grads | {"g_dens_c": r_gd, "g_col_c": r_gc})
+
+
+def test_k2_and_k3_plain_default_matmul_is_bitwise_unchanged():
+    """The ``matmul`` argument leaves the default path as it was: the plain
+    versions equal, bitwise, autograd through their objective written out
+    with ``classic_mlp_fwd_plain``'s own products (hidden 64, one ray)."""
+    mlp = full_width_mlp(64)
+    packed = classic_mlp.pack_classic_params(mlp)
+    _, a = k2_case(True, rays=1, s=16)
+    loss, grads = train_grads.classic_train_grads_plain(packed, **a, num_samples=16)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in packed.items()}
+    with torch.enable_grad():
+        out = classic_mlp.classic_mlp_fwd_plain(
+            leaves, a["x_enc"].reshape(16, -1), a["d_enc"].reshape(16, -1)).reshape(1, 16, -1)
+        weights = compositing.weights_from_density(out[..., :1] + a["noise"][..., None],
+                                                   a["dists"])
+        rgb = compositing.composite_rgb_with_background(weights, out[..., 1:], None)
+        ref_loss = torch.mean((rgb - a["pixels"]) ** 2)
+        ref = dict(zip(leaves, torch.autograd.grad(ref_loss, list(leaves.values()))))
+    assert torch.equal(loss, ref_loss.detach())
+    assert all(torch.equal(grads[k], ref[k]) for k in ref)
+    explicit = train_grads.classic_train_grads_plain(packed, **a, num_samples=16,
+                                                     matmul=torch.matmul)
+    assert torch.equal(explicit[0], loss)
+    assert all(torch.equal(explicit[1][k], grads[k]) for k in grads)
+
+    _, f = k3_case(True, rays=1, sc=8, sf=16)
+    f_loss, f_grads, f_cot = fine_stage_train.fine_stage_train_plain(packed, **f)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in packed.items()}
+    dens_c = f["dens_c"].clone().requires_grad_(True)
+    col_c = f["col_c"].clone().requires_grad_(True)
+    with torch.enable_grad():
+        out = classic_mlp.classic_mlp_fwd_plain(
+            leaves, f["x_enc"].reshape(16, -1), f["d_enc"].reshape(16, -1)).reshape(1, 16, -1)
+        weights = compositing.weights_from_union_norm(
+            dens_c, out[..., :1] + f["noise_f"][..., None], f["t_coarse"], f["t_fine"],
+            f["dnorm"][:, None])
+        rgb = compositing.composite_rgb_with_background(
+            weights, torch.cat([col_c, out[..., 1:]], dim=-2), None)
+        ref_loss = torch.mean((rgb - f["pixels"]) ** 2)
+        wrt = [dens_c, col_c, *leaves.values()]
+        g_dens, g_col, *g_w = torch.autograd.grad(ref_loss, wrt)
+    assert torch.equal(f_loss, ref_loss.detach())
+    assert torch.equal(f_cot[0], g_dens) and torch.equal(f_cot[1], g_col)
+    assert all(torch.equal(f_grads[k], g) for k, g in zip(leaves, g_w))
