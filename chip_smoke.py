@@ -7,16 +7,17 @@
 2. Builds the port's twelve CUDA kernels from ``nerf_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together) and prints the
    seconds it took and each kernel's registers and spills, labelled with
-   the pass it runs (K2's, K3's, K4's and K9's MLP products run as 3xTF32
-   ``wgmma`` on the tensor cores, ``csrc/tc_mlp.cuh``, with a float32 SIMT
-   tile for encodings too wide for theirs; the other kernels' in float32
-   SIMT).
+   the pass it runs (K1-fwd's, K1-bwd's, K2's, K3's, K4's and K9's MLP
+   products run as 3xTF32 ``wgmma`` on the tensor cores,
+   ``csrc/tc_mlp.cuh``, with a float32 SIMT tile for encodings too wide
+   for theirs, and K1-bwd's float32 SIMT passes where the encodings'
+   cotangents are asked for; the other kernels' in float32 SIMT).
 3. Serving (slice 1): holds K1-fwd (``classic_mlp_fwd``, 262,144 points)
    and K4 (``union_eval``, the first 4000-ray tile of the frame) against
    their plain PyTorch versions, then renders one 400x400 frame of 64
    coarse + 128 fine samples through ``ClassicNeRF.render_image`` with the
    kernels (the launch counters are zeroed just before and must read 40
-   each after, every K4 on the tensor cores) and once through the plain
+   each after, every call on the tensor cores) and once through the plain
    path, and compares the images.
 4. Training (slice 2), the main path: a synthetic scene (8 views of
    64x64, on the card) and the full-width model trained through
@@ -25,15 +26,16 @@
    Adam at lr 1e-4.  First one step's loss and gradients are held against
    the plain path (the same weights and draws through autograd); then
    warm-up steps, and timed steps with the counters zeroed just before:
-   each step must launch one K1-fwd, one K1-bwd and one K3 (on the tensor
-   cores) and nothing else.  Every loss must be finite, and the loss of a
-   fixed probe batch (fixed draws) must be lower after the run than
-   before.  Prints ms/step and rays/s.
+   each step must launch one K1-fwd, one K1-bwd and one K3, each on the
+   tensor cores, and nothing else.  Every loss must be finite, and the
+   loss of a fixed probe batch (fixed draws) must be lower after the run
+   than before.  Prints ms/step and rays/s.
 5. Coarse-only training at 4096 rays x 64 samples: one K2 per step (on
    the tensor cores); prints ms/step and rays/s.
 6. Holds K1-bwd, K2 and K3 against their plain versions on the inputs the
-   trainer gave them (K1-bwd with random cotangents), with their times and
-   bounds.
+   trainer gave them (K1-bwd with random cotangents, as the reuse step
+   calls it, on the tensor cores, and once with the encodings' cotangents,
+   on the float32 SIMT passes), with their times and bounds.
 7. Mip serving (slice 3): holds K7 (``mip_eval``) against its plain version
    on the first 4000-ray tile of the frame, then renders one 400x400 frame
    of 64 log-bbox fenceposts (63 intervals) through ``MipNeRF.render_image``
@@ -79,7 +81,7 @@
    states (one K1-fwd and one K4, which must record the float32 SIMT
    tile), held against the plain path, and K4 against its plain version
    on its arguments; then one reuse step at 2048 x (64 + 128) (one
-   K1-fwd, one K1-bwd and one K3, K3 recording the SIMT ``fwd_store``)
+   K1-fwd, one K1-bwd and one K3, each recording the SIMT tile)
    and one coarse-only step at 4096 x 64 (one K2, the same) against the
    plain path.  Prints the policy each ran.
 14. Prints the kernels' JSON line (each row with its float32 bound and
@@ -178,8 +180,9 @@ MIP_TRAIN_RENDER = RenderConfig(num_coarse_samples=64, randomly_sample=True,
 MIP_RAYS = 4096
 SEG_WEIGHT = 0.1
 K5_POINTS = MIP_RAYS * (MIP_TRAIN_RENDER.num_coarse_samples - 1)
-# Stated tolerances.  K1: float32 FMAs summed in another order than
-# cuBLAS's, through ten LayerNorm'd layers.  K4: the same MLP, then the
+# Stated tolerances.  K1: float32-accurate products (3xTF32 on the tensor
+# cores, or float32 FMAs) summed in another order than cuBLAS's, through
+# ten LayerNorm'd layers.  K4: the same MLP, then the
 # transmittance summed in merged order where the plain version sums two
 # blocks and the cross terms.  Frame: both paths' differences, plus the
 # fine samples' sensitivity to the coarse weights' rounding.  Gradients
@@ -286,10 +289,13 @@ def kernel_label(mangled: str) -> str:
 
 
 # The passes of the MLP kernels by kernel name, for reports and profiles:
-# K2's, K3's, K4's and K9's products run on the tensor cores
-# (csrc/tc_mlp.cuh; their float32 SIMT fwd_store and K4 tile serve
-# encodings too wide for it), the other kernels' in float32 SIMT.
+# K1-fwd's, K1-bwd's, K2's, K3's, K4's and K9's products run on the tensor
+# cores (csrc/tc_mlp.cuh; their float32 SIMT fwd_store and K1-fwd and K4
+# tiles serve encodings too wide for it, and K1-bwd's SIMT passes the
+# encodings' cotangents), the other kernels' in float32 SIMT.
 PASSES = {
+    "fwd_tc_kernel": "K1-fwd tile, 3xTF32 wgmma",
+    "classic_mlp_fwd_kernel": "K1-fwd tile, fp32 SIMT (wide encodings)",
     "fwd_store_tc_kernel": "fwd_store, 3xTF32 wgmma",
     "bwd_rows_tc_kernel": "bwd_rows, 3xTF32 wgmma",
     "wgrad_tc_kernel": "wgrad, 3xTF32 wgmma",
@@ -454,9 +460,12 @@ def serving(device, flops_per_point: int) -> dict:
     x_enc = torch.rand((K1_POINTS, cfg.x_encoding_dim), generator=gen, device=device) * 2 - 1
     d_enc = torch.rand((K1_POINTS, cfg.d_encoding_dim), generator=gen, device=device) * 2 - 1
     with torch.no_grad():
+        _build.policy_counts.clear()
         got = classic_mlp.classic_mlp_fwd(packed, x_enc, d_enc)
         ref = classic_mlp.classic_mlp_fwd_plain(packed, x_enc, d_enc)
         torch.cuda.synchronize()
+        check(dict(_build.policy_counts) == {("classic_mlp_fwd", "tc"): 1},
+              "K1-fwd at 60 + 36 ran its tensor-core tile")
         err = compare("classic_mlp_fwd", [got], [ref])
         ms = cuda_ms(lambda: classic_mlp.classic_mlp_fwd(packed, x_enc, d_enc), iters=10)
         plain_ms = cuda_ms(lambda: classic_mlp.classic_mlp_fwd_plain(packed, x_enc, d_enc), iters=10)
@@ -605,27 +614,47 @@ def training(device, cfg: ClassicNeRFConfig):
     return rows, bank, reuse_ms
 
 
+def without_images(kwargs: dict) -> dict:
+    """A recorded call's keyword arguments without the operand images the
+    step built beforehand: the call is repeated with its own."""
+    return {k: v for k, v in kwargs.items() if k not in ("tc_fwd", "tc_bwd")}
+
+
 def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
     """Phase 6: K1-bwd, K2 and K3 against their plain versions on the
     recorded arguments, with their times; returns their rows' numbers."""
     rows = {}
     # K1-bwd as the reuse step calls it (no encoding cotangents: the
-    # encodings need no gradient), with random cotangents.
+    # encodings need no gradient; on the tensor cores), with random
+    # cotangents; then once with the encodings' cotangents (the float32
+    # SIMT passes).  Each call builds its own operand images, as the step's
+    # were built for the weights of its own step.
     args, kwargs = store["classic_mlp_bwd"]
+    check(without_images(kwargs) == {"input_grads": False},
+          "the reuse step asks K1-bwd for no encoding cotangents")
     packed, x, d, _ = args
     weight_bytes = tensor_bytes(*packed.values())
     gen = torch.Generator(device=device).manual_seed(8)
     g_out = torch.rand((x.shape[0], 4), generator=gen, device=device) * 2 - 1
-    got = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, **kwargs)
-    ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, **kwargs)
     named = lambda r: {"dx": r[0], "dd": r[1], **r[2]} if r[0] is not None else r[2]  # noqa: E731
-    err = compare_grads("classic_mlp_bwd", named(got), named(ref))
-    ms = cuda_ms(lambda: classic_mlp.classic_mlp_bwd(packed, x, d, g_out, **kwargs), iters=5)
+    ms = {}
+    for input_grads, policy in ((True, "simt"), (False, "tc")):
+        _build.policy_counts.clear()
+        got = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads)
+        torch.cuda.synchronize()
+        check(dict(_build.policy_counts) == {("classic_mlp_bwd", policy): 1},
+              f"classic_mlp_bwd with input_grads={input_grads} ran its {policy} passes")
+        ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads)
+        err = compare_grads("classic_mlp_bwd", named(got), named(ref))
+        ms[input_grads] = cuda_ms(
+            lambda: classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads), iters=5)
+        print(f"classic_mlp_bwd at {x.shape[0]} points, input_grads={input_grads} ({policy}): "
+              f"{ms[input_grads]:.3f} ms")
     plain_ms = cuda_ms(
-        lambda: classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, **kwargs), iters=3)
-    print(f"classic_mlp_bwd at {x.shape[0]} points, {kwargs}")
+        lambda: classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, False), iters=3)
     rows["classic_mlp_bwd"] = dict(
-        max_abs=err, ms=ms, plain_ms=plain_ms, flops=train_step_flops(cfg, x.shape[0], 1),
+        max_abs=err, ms=ms[False], plain_ms=plain_ms,
+        flops=train_step_flops(cfg, x.shape[0], 1),
         nbytes=tensor_bytes(x, d, g_out, *got[:2]) + 2 * weight_bytes)
 
     args, kwargs = store["classic_train_grads"]
@@ -641,6 +670,7 @@ def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
         nbytes=tensor_bytes(*args[1:6], *got[2:]) + 2 * weight_bytes + 4)
 
     args, kwargs = store["fine_stage_train"]
+    kwargs = without_images(kwargs)
     got = fine_stage_train.fine_stage_train(*args, **kwargs)
     ref = fine_stage_train.fine_stage_train_plain(*args, **kwargs)
     err = compare_grads("fine_stage_train", {**got[1], "g_dens_c": got[2][0], "g_col_c": got[2][1]},
@@ -1082,8 +1112,8 @@ def mega_phase(device, cfg: ClassicNeRFConfig, bank, reuse_ms: float) -> dict:
 
 def latent_phase(device, bank) -> None:
     """Phase 13: the full-width model conditioned on 2 + 1 latent scalars
-    (encodings 100 + 48), whose K2, K3 and K4 run the float32 SIMT tile
-    where the tensor-core one does not fit: a frame tile through K1-fwd and
+    (encodings 100 + 48), whose K1-fwd, K1-bwd, K2, K3 and K4 run the
+    float32 SIMT tile where the tensor-core one does not fit: a frame tile through K1-fwd and
     K4, one reuse step (K1-fwd, K3, K1-bwd) and one coarse-only step (K2),
     each against the plain path, with the launches and tile policies."""
     model = make_model(True, device, **LATENT)

@@ -1,7 +1,9 @@
 // Device code of the classic NeRF point MLP, shared by the K1 forward
 // kernel (classic_mlp_fwd.cu) and the K4 fine-stage union kernel
-// (union_eval.cu); its product, epilogue and head also carry the mip MLP
-// (mip_mlp.cuh).
+// (union_eval.cu), whose SIMT tiles run mlp_tile where the encodings are
+// too wide for their tensor-core tiles (tc_mlp.cuh, which reuses the
+// epilogues and heads); its product, epilogue and head also carry the mip
+// MLP (mip_mlp.cuh).
 //
 // The network (nerf_tpu_torch/models/mlp.py): ten layers of
 // Linear -> ReLU -> LayerNorm(eps 1e-5),

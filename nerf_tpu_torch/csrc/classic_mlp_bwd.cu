@@ -12,17 +12,24 @@
 // one recomputes it: forward + dh + dW = 3 x 630,784 multiply-adds per
 // point at the full-width model (H = 256, xe = 60, de = 36), against 384
 // bytes of input, 400 of output per point and 2.55 MB of gradients: far
-// above the card's fp32 ridge.  At 131,072 points the operations bound is
-// 7.4 ms at 67 TFLOP/s.  Plain fp32 FMA, no TF32.
+// above the card's ridge.  At 131,072 points the operations bound is
+// 7.404 ms at the float32 SIMT rate (67 TFLOP/s), 3.006 ms as three TF32
+// products on the tensor cores (FLOP / 165 TFLOP/s).
 //
 // Design (classic_mlp_train.cuh): the recomputed forward stores the chain
 // (xhat and LayerNorm statistics) to global scratch, a per-tile backward
-// writes every layer's dpre and the tile's column sums, a hand-written
-// product over the points gives dW in split chunks, and fixed-order sums
-// of the partials make the gradients repeatable.
+// writes every layer's dpre and the tile's column sums, a product over the
+// points gives dW in split chunks, and fixed-order sums of the partials
+// make the gradients repeatable.  Without the encodings' cotangents (dx
+// and dd null: autograd asks for none where the encodings need no
+// gradient, as on the reuse step) the three passes are K2's tensor-core
+// ones (tc_mlp.cuh's TcProducts: 3xTF32 wgmma on the operand images the
+// wrapper builds, fwd_store in float32 SIMT where the encodings are too
+// wide for its tile); with them, the float32 SIMT passes (SimtProducts),
+// whose bwd_rows also writes dx and dd.
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
-#include "classic_mlp_train.cuh"
+#include "tc_mlp.cuh"
 
 namespace {
 
@@ -32,6 +39,13 @@ template <int H>
 cudaError_t run(const Weights& w, const float* x, const float* d, const float* gout,
                 float* dx, float* dd, float* grads, float* out, int P, const Scratch& s,
                 cudaStream_t stream) {
+  if (dx == nullptr && dd == nullptr) {
+    cudaError_t err = launch_fwd_store_with<H, TcProducts>(
+        w, TileLoad{x, d, 1}, out, P, s, stream, static_cast<size_t>(P), 0);
+    if (err != cudaSuccess) return err;
+    return launch_mlp_backward<H, TcProducts>(w, x, d, 1, gout, P, s, nullptr, nullptr, grads,
+                                             stream);
+  }
   cudaError_t err = launch_fwd_store<H>(w, x, d, 1, out, P, s, stream);
   if (err != cudaSuccess) return err;
   return launch_mlp_backward<H>(w, x, d, 1, gout, P, s, dx, dd, grads, stream);
@@ -46,13 +60,22 @@ extern "C" int classic_mlp_bwd(const float* x, const float* d, const float* gout
                                const float* beta, const float* w_dens, const float* b_dens,
                                const float* w_col, const float* b_col, float* xhat,
                                float* stats, float* dpre, float* wpart, float* tpart,
-                               float* tmp, float* wt, float* out, int splits, void* stream) {
+                               float* tmp, float* wt, float* out, int splits,
+                               const float* tc_fwd, const float* tc_bwd, void* stream) {
   if (c > kMaxColors) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits};
+  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) static_cast<int>(run<H>(w, x, d, gout, dx, dd, grads, out, P, s, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
+}
+
+// The plan of the tensor-core passes' fwd_store for these widths (de 0
+// without the view branch): out = [policy (0 tensor cores, 1 float32
+// SIMT, 2 neither fits), tensor-core bytes, SIMT bytes, the device's
+// limit].  Calls with the encodings' cotangents run the SIMT passes.
+extern "C" int classic_mlp_bwd_plan(int xe, int de, int hidden, long long* out) {
+  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

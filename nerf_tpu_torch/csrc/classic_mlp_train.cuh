@@ -31,9 +31,9 @@
 //      gradients are the same from run to run (no atomics).
 //
 // Passes 1-3 run their products through a policy: SimtProducts (below,
-// float32 SIMT FMAs: gemm_acc, wgrad_kernel) for K1-bwd and K8-bwd;
-// TcProducts (tc_mlp.cuh, 3xTF32 on the tensor cores) for K2, K3 and K9,
-// whose fwd_store runs SimtProducts' pass where the encodings are too wide
+// float32 SIMT FMAs: gemm_acc, wgrad_kernel) for K8-bwd and for K1-bwd
+// with the encodings' cotangents; TcProducts (tc_mlp.cuh, 3xTF32 on the
+// tensor cores) for K2, K3, K9 and K1-bwd without them, whose fwd_store runs SimtProducts' pass where the encodings are too wide
 // for the tensor-core tile (tc_mlp.cuh, the width rule).  The mip passes
 // (mip_mlp.cuh) launch gemm_acc and wgrad_kernel themselves.
 //

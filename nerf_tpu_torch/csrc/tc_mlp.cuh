@@ -1,5 +1,6 @@
 // Tensor-core products for the MLP passes of K2 (train_grads.cu), K3
-// (fine_stage_train.cu), K9 (mega_train.cu) and K4 (union_eval.cu): every
+// (fine_stage_train.cu), K9 (mega_train.cu), K4 (union_eval.cu), K1-fwd
+// (classic_mlp_fwd.cu) and K1-bwd (classic_mlp_bwd.cu): every
 // hidden and encoding product as 3xTF32 on Hopper's
 // wgmma, A.B = hi(A)hi(B) + hi(A)lo(B) + lo(A)hi(B) with lo = x - hi, both
 // cut to TF32 by bit masking (hi keeps 10 mantissa bits, hi + lo about 21;
@@ -7,14 +8,18 @@
 // wgmma.mma_async ... .f32.tf32.tf32 into float32 accumulators.  Written by
 // hand in PTX (wgmma, fences, smem descriptors); no CUTLASS.  The policy
 // TcProducts gives classic_mlp_train.cuh's launch_fwd_store_with and
-// launch_mlp_backward these passes; K1-bwd and K8-bwd keep SimtProducts.
+// launch_mlp_backward these passes (K1-bwd takes it where no encoding
+// cotangents are asked for; with them, and in K8-bwd, SimtProducts).
+// fwd_tc_kernel is K1-fwd's tile: fwd_store_tc_kernel with nothing saved.
 //
 // Bounds at the full-width model (H = 256, xe 60, de 36, view branch on):
 // 630,784 multiply-adds a row each for the forward, dh and dW.  Against
 // the float32 SIMT rate (67 TFLOP/s) and the 3xTF32 rate (three TF32
 // products at 495 TFLOP/s, so FLOP / 165 TFLOP/s): K9 at 2048 x (64 + 128)
 // 22.212 and 9.019 ms; K2 at 4096 x 64 and K3 at 2048 x 128 14.808 and
-// 6.013 ms each; K4 at a 4000-ray tile 9.641 and 3.915 ms.
+// 6.013 ms each; K4 at a 4000-ray tile 9.641 and 3.915 ms; K1-fwd at
+// 262,144 rows 4.936 and 2.004 ms; K1-bwd (forward recomputed) at 131,072
+// rows 7.404 and 3.006 ms.
 //
 // The constraints the design answers:
 // 1. TF32 wgmma takes both operands K-major (the transpose flags exist only
@@ -76,15 +81,16 @@
 //    fine samples are compared in probability).
 // 9. The width rule.  The tile's bytes grow with the encoding widths (256
 //    bytes a float of xe' + de', the widths rounded up to 4, at H = 256):
-//    fwd_store's tile holds xe' + de' <= 132 and K4's, which also keeps
+//    fwd_store's tile (and K1-fwd's, the same bytes) holds xe' + de' <=
+//    132 and K4's, which also keeps
 //    the fine outputs, <= 116 within the 232,448 bytes a block may opt in
 //    to.  The full-width model has 60 + 36; a latent-conditioned one
 //    widens both by its state vector (2 + 1 latent scalars: 100 + 48).
 //    Before any launch the launcher compares the tile's bytes with the
 //    device's opt-in limit (cudaDevAttrMaxSharedMemoryPerBlockOptin) and,
 //    where it does not fit, runs the float32 SIMT pass of the same kernel
-//    (fwd_store_kernel; K4's mlp_tile, its product before the tensor
-//    cores): 16 weight rows in place of four 16-value chunk buffers, so it
+//    (fwd_store_kernel; K1-fwd's classic_mlp_fwd_kernel and K4's
+//    mlp_tile, their products before the tensor cores): 16 weight rows in place of four 16-value chunk buffers, so it
 //    holds xe' + de' <= 588 (K4 572), and it is the pass the card tests
 //    have held against plain at every width since slice 2.  (A two-stage
 //    ring on the tensor cores would hold 64 KB more, xe' + de' <= 388, at
@@ -515,6 +521,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Save save{xhat, stats, stride, base + row0, nvalid};
   mlp_tile_tc<H, true>(w, im, xs, ds, act, bbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid,
                        &save);
+}
+
+// The forward alone (K1-fwd; classic_mlp_fwd_kernel's contract): the tile
+// of fwd_store_tc_kernel, nothing saved.  `load` as in fwd_store_kernel.
+template <int H, class Load>
+__global__ void __launch_bounds__(kThreads, 1)
+    fwd_tc_kernel(Weights w, TcImages im, Load load, float* __restrict__ out, int P) {
+  extern __shared__ float4 smem4[];
+  float* bbuf = tc_smem_base(smem4);
+  float* act = bbuf + tc_bbuf_floats<H>();
+  float* xs = act + kTileRows * act_ld<H>();
+  float* ds = xs + kTileRows * round_up4(w.xe);
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
+  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
+  load(w, xs, ds, row0, nvalid);
+  __syncthreads();
+  mlp_tile_tc<H>(w, im, xs, ds, act, bbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid);
 }
 
 // ---------------------------------------------------------------------------

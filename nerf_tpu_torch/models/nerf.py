@@ -9,7 +9,9 @@ With ``cfg.use_pallas`` the classic model runs every MLP evaluation
 through the K1 kernel (``ops/kernels/classic_mlp.py``; under autograd its
 backward is K1-bwd) and the deterministic hierarchical-reuse fine stage of
 ``render_image`` through the forward-only K4 kernel
-(``ops/kernels/union_eval.py``); the mip model runs its MLP through K5
+(``ops/kernels/union_eval.py``), ``render_image`` packing the weights and
+building their tensor-core operand images once a frame
+(``classic_mlp.prepare_weights``); the mip model runs its MLP through K5
 (``ops/kernels/mip_mlp.py``, backward K5-bwd) and its deterministic render
 through the forward-only K7 (``ops/kernels/mip_train.py``).
 ``render_rays`` also takes a step's random draws made beforehand
@@ -151,22 +153,32 @@ class ClassicNeRF(nn.Module):
         t_vals: torch.Tensor,
         states_x: Optional[torch.Tensor] = None,
         states_d: Optional[torch.Tensor] = None,
+        mlp_weights: Optional[classic_mlp.PreparedWeights] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Density and color logits at ``o + t*d`` for every sample:
-        ``(points [..., S, 3], density [..., S, 1], color [..., S, C])``."""
+        ``(points [..., S, 3], density [..., S, 1], color [..., S, C])``.
+        On the kernel path ``mlp_weights`` are the MLP's weights prepared
+        beforehand (``classic_mlp.prepare_weights``), else packed here."""
         points, x_enc, d_enc = self._encode_inputs(rays_o, rays_d, t_vals, states_x, states_d)
-        if self.cfg.use_pallas and classic_mlp.supports_classic_config(self.cfg):
+        if self._uses_kernels():
             dt = self._compute_dtype()
             lead = x_enc.shape[:-1]
+            if mlp_weights is None:
+                mlp_weights = classic_mlp.PreparedWeights(
+                    classic_mlp.pack_classic_params(self.mlp))
             out = classic_mlp.classic_mlp_fwd(
-                classic_mlp.pack_classic_params(self.mlp),
+                mlp_weights.packed,
                 x_enc.reshape(-1, x_enc.shape[-1]).to(dt).contiguous(),
                 None if d_enc is None else d_enc.reshape(-1, d_enc.shape[-1]).to(dt).contiguous(),
+                mlp_weights.tc_fwd,
             )
             out = out.reshape(lead + (-1,))
             return points, out[..., :1], out[..., 1:]
         density, color = self.mlp(x_enc, d_enc)
         return points, density, color
+
+    def _uses_kernels(self) -> bool:
+        return self.cfg.use_pallas and classic_mlp.supports_classic_config(self.cfg)
 
     def _render_stage(
         self,
@@ -179,10 +191,12 @@ class ClassicNeRF(nn.Module):
         density_noise_std: float,
         white_background: bool = False,
         noise: Optional[torch.Tensor] = None,
+        mlp_weights: Optional[classic_mlp.PreparedWeights] = None,
     ):
         """One coarse or fine pass: evaluate, composite.  Returns
         ``(rgb, weights [..., S, 1], depth, noised_density, color)``."""
-        _, density, color = self.forward(rays_o, rays_d, t_vals, states_x, states_d)
+        _, density, color = self.forward(rays_o, rays_d, t_vals, states_x, states_d,
+                                         mlp_weights)
         density = _maybe_add_density_noise(generator, density, density_noise_std, noise)
         weights = compositing.weights_from_density(
             density, compositing.distances_from_tvals(t_vals, rays_d)
@@ -196,12 +210,7 @@ class ClassicNeRF(nn.Module):
     def _use_fused_union(self, render: RenderConfig, rays_o: torch.Tensor) -> bool:
         """Gate for the K4 union kernel: fused path on, the kernel's
         architecture family, deterministic (no density noise), flat rays."""
-        return (
-            self.cfg.use_pallas
-            and classic_mlp.supports_classic_config(self.cfg)
-            and render.density_noise_std == 0.0
-            and rays_o.ndim == 2
-        )
+        return self._uses_kernels() and render.density_noise_std == 0.0 and rays_o.ndim == 2
 
     def render_rays(
         self,
@@ -213,6 +222,7 @@ class ClassicNeRF(nn.Module):
         fused_eval: bool = False,
         generator: Optional[torch.Generator] = None,
         draws: Optional[sampling.StepDraws] = None,
+        mlp_weights: Optional[classic_mlp.PreparedWeights] = None,
     ) -> RenderOutput:
         """Render a batch of rays: stratified coarse pass plus, with
         ``render.num_fine_samples``, the inverse-CDF fine pass (weights
@@ -222,9 +232,15 @@ class ClassicNeRF(nn.Module):
         (``_use_fused_union``); ``render_image`` sets it.  ``generator``
         draws the stratified jitter, the pdf uniforms and the density noise
         (required when ``render.randomly_sample``), unless ``draws`` holds
-        them already made (flat rays; ``sampling.draw_step``).
+        them already made (flat rays; ``sampling.draw_step``).  On the
+        kernel path ``mlp_weights`` are the MLP's weights as
+        ``classic_mlp.prepare_weights`` built them for several calls
+        (``render_image`` passes them to every tile; no gradient reaches
+        the parameters through them), else the call packs them once.
         """
         batch_shape = rays_o.shape[:-1]
+        if mlp_weights is None and self._uses_kernels():
+            mlp_weights = classic_mlp.PreparedWeights(classic_mlp.pack_classic_params(self.mlp))
         if draws is not None:
             t_coarse = draws.t_coarse
         else:
@@ -236,7 +252,7 @@ class ClassicNeRF(nn.Module):
         noise_f = None if draws is None else draws.noise_f
         rgb_c, weights_c, depth_c, density_c, color_c = self._render_stage(
             generator, rays_o, rays_d, t_coarse, states_x, states_d,
-            render.density_noise_std, render.white_background, noise_c,
+            render.density_noise_std, render.white_background, noise_c, mlp_weights,
         )
 
         stages = [rgb_c]
@@ -260,7 +276,7 @@ class ClassicNeRF(nn.Module):
                 if self.cfg.use_viewdirs:
                     df_ray = self.encode_direction(rays_d, states_d).to(self._compute_dtype())
                 rgb_f, depth_f, acc_f = union_eval.union_eval(
-                    classic_mlp.pack_classic_params(self.mlp),
+                    mlp_weights.packed,
                     xf_enc.contiguous(),
                     None if df_ray is None else df_ray.contiguous(),
                     t_coarse.contiguous(),
@@ -268,6 +284,7 @@ class ClassicNeRF(nn.Module):
                     density_c.contiguous(),
                     color_c.contiguous(),
                     torch.linalg.norm(rays_d, dim=-1),
+                    tc_fwd=mlp_weights.tc_fwd,
                 )
                 if render.white_background:
                     rgb_f = rgb_f + (1.0 - acc_f[..., None])
@@ -276,7 +293,8 @@ class ClassicNeRF(nn.Module):
                 # The network runs only on the new fine samples; the coarse
                 # evaluations (noise included) are reused and the union is
                 # composited order-free.
-                _, density_f, color_f = self.forward(rays_o, rays_d, t_fine, states_x, states_d)
+                _, density_f, color_f = self.forward(rays_o, rays_d, t_fine, states_x, states_d,
+                                                     mlp_weights)
                 density_f = _maybe_add_density_noise(
                     generator, density_f, render.density_noise_std, noise_f
                 )
@@ -294,7 +312,7 @@ class ClassicNeRF(nn.Module):
                 t_all = sampling.merge_samples(t_coarse, t_fine)
                 rgb_f, weights, depth_f, _, _ = self._render_stage(
                     generator, rays_o, rays_d, t_all, states_x, states_d,
-                    render.density_noise_std, render.white_background, noise_f,
+                    render.density_noise_std, render.white_background, noise_f, mlp_weights,
                 )
             stages.append(rgb_f)
             depth = depth_f
@@ -317,12 +335,15 @@ class ClassicNeRF(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Render full images ``[B, H, W, C]`` (the finest stage per ray),
-        tile by tile of ``render.rays_per_tile`` rays."""
+        tile by tile of ``render.rays_per_tile`` rays.  On the kernel path
+        the weights are packed, and their operand images built, once for
+        the frame's kernel calls."""
+        mlp_weights = classic_mlp.prepare_weights(self.mlp) if self._uses_kernels() else None
 
         def per_tile(tile_o, tile_d, tile_sx, tile_sd):
             out = self.render_rays(
                 tile_o, tile_d, render, tile_sx, tile_sd,
-                fused_eval=True, generator=generator,
+                fused_eval=True, generator=generator, mlp_weights=mlp_weights,
             )
             return out.rgb[..., -1, :]
 

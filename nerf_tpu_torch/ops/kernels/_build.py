@@ -9,10 +9,12 @@ so machines without ``nvcc`` import the package freely.
 ``launch_counts`` counts kernel launches by kernel name: each wrapper adds
 one where it launches its kernel, and nowhere else.  ``policy_counts``
 counts, by ``(kernel name, policy)``, which product the width-dependent
-tile of a tensor-core kernel (K2, K3 and K9's ``fwd_store``, K4's block)
-ran in those calls: ``"tc"``, 3xTF32 on the tensor cores, or ``"simt"``,
-the float32 SIMT pass, where the encodings are too wide for the
-tensor-core tile (``csrc/tc_mlp.cuh``, note 9; ``tile_plan``).
+tile of a tensor-core kernel (K1-bwd's, K2's, K3's and K9's ``fwd_store``,
+K1-fwd's and K4's block) ran in those calls: ``"tc"``, 3xTF32 on the
+tensor cores, or ``"simt"``, the float32 SIMT pass, where the encodings
+are too wide for the tensor-core tile (``csrc/tc_mlp.cuh``, note 9; ``tile_plan``), or where a
+K1-bwd call asks for the encodings' cotangents, which only the float32
+SIMT passes compute.
 """
 
 from __future__ import annotations
@@ -44,7 +46,10 @@ policy_counts: collections.Counter = collections.Counter()
 POLICIES = ("tc", "simt")  # by the plans' codes; 2: neither tile fits
 # The kernels with a width-dependent tensor-core tile, each exporting
 # <name>_plan beside <name>.
-PLANNED = ("union_eval", "train_grads", "fine_stage_train", "mega_train")
+PLANNED = (
+    "classic_mlp_fwd", "union_eval", "classic_mlp_bwd", "train_grads", "fine_stage_train",
+    "mega_train",
+)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -54,16 +59,16 @@ _F = ctypes.c_float
 _WEIGHT_ARGS = (_P,) * 11  # w0 wx wd whh b g beta w_dens b_dens w_col b_col
 _MIP_WEIGHT_ARGS = (_P,) * 7  # w_in whh b g beta w_out b_out
 ARGTYPES = {
-    # x d out P xe de hidden c, weights, stream
-    "classic_mlp_fwd": (_P, _P, _P, _I, _I, _I, _I, _I) + _WEIGHT_ARGS + (_P,),
+    # x d out P xe de hidden c, weights, tc_fwd stream
+    "classic_mlp_fwd": (_P, _P, _P, _I, _I, _I, _I, _I) + _WEIGHT_ARGS + (_P,) * 2,
     # xf d t_c t_f dens_c col_c dnorm out R Sc Sf xe de hidden c, weights,
     # tc_fwd stream
     "union_eval": (_P,) * 8 + (_I,) * 7 + _WEIGHT_ARGS + (_P,) * 2,
     # xe de hidden c Sc Sf out[4]
     "union_eval_plan": (_I,) * 6 + (_P,),
     # x d gout dx dd grads P xe de hidden c, weights,
-    # xhat stats dpre wpart tpart tmp wt out splits stream
-    "classic_mlp_bwd": (_P,) * 6 + (_I,) * 5 + _WEIGHT_ARGS + (_P,) * 8 + (_I, _P),
+    # xhat stats dpre wpart tpart tmp wt out splits tc_fwd tc_bwd stream
+    "classic_mlp_bwd": (_P,) * 6 + (_I,) * 5 + _WEIGHT_ARGS + (_P,) * 8 + (_I,) + (_P,) * 3,
     # x d dists noise pix loss grads weights_out R S xe de hidden c white
     # loss_weight, weights, xhat stats dpre wpart tpart tmp wt out gout
     # ray_loss splits tc_fwd tc_bwd stream
@@ -75,6 +80,8 @@ ARGTYPES = {
     "fine_stage_train": (_P,) * 13 + (_I,) * 8 + (_F,) + _WEIGHT_ARGS + (_P,) * 10 + (_I,)
     + (_P,) * 3,
     # xe de hidden out[4] (fwd_store's plan)
+    "classic_mlp_fwd_plan": (_I,) * 3 + (_P,),
+    "classic_mlp_bwd_plan": (_I,) * 3 + (_P,),
     "train_grads_plan": (_I,) * 3 + (_P,),
     "fine_stage_train_plan": (_I,) * 3 + (_P,),
     "mega_train_plan": (_I,) * 3 + (_P,),

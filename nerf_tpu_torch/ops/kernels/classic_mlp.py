@@ -2,13 +2,26 @@
 
 Counterpart of ``nerf_tpu/ops/pallas/fused_mlp.py`` (``pack_classic_params``,
 ``supports_classic_config`` and ``classic_mlp_pallas`` with its custom VJP).
-K1-fwd is ``csrc/classic_mlp_fwd.cu`` (device code in
-``csrc/classic_mlp.cuh``), K1-bwd ``csrc/classic_mlp_bwd.cu`` (device code
-in ``csrc/classic_mlp_train.cuh``).  ``classic_mlp_fwd_plain`` and
-``classic_mlp_bwd_plain`` are their plain PyTorch versions, which the
-wrappers run for CPU tensors and the tests and ``chip_smoke.py`` hold the
-kernels against.  Under autograd ``classic_mlp_fwd`` runs as a
+K1-fwd is ``csrc/classic_mlp_fwd.cu``: the MLP's hidden and encoding
+products as 3xTF32 on the tensor cores (``csrc/tc_mlp.cuh``'s
+``mlp_tile_tc``, K4's tile), or the float32 SIMT tile of
+``csrc/classic_mlp.cuh`` where the encodings are too wide for the
+tensor-core one (``_build.tile_plan``).  K1-bwd is
+``csrc/classic_mlp_bwd.cu``, the passes of ``csrc/classic_mlp_train.cuh``:
+K2's tensor-core passes where no encoding cotangents are asked for, the
+float32 SIMT passes where they are.  ``_build.policy_counts`` records which
+each call ran.  ``classic_mlp_fwd_plain`` and ``classic_mlp_bwd_plain`` are
+their plain PyTorch versions, which the wrappers run for CPU tensors and
+the tests and ``chip_smoke.py`` hold the kernels against (with
+``matmul=tc_mlp.tc_matmul`` or ``tc_matmul_autograd`` they emulate the
+tensor-core products).  Under autograd ``classic_mlp_fwd`` runs as a
 ``torch.autograd.Function`` whose backward is ``classic_mlp_bwd``.
+
+The kernels read the weights as ``pack_classic_params`` packs them and,
+on the tensor cores, as the operand images ``tc_mlp.tc_images`` builds.
+The wrappers build both per call unless given them: ``prepare_weights``
+builds them once for the calls of a frame or a step, between which the
+weights do not change.
 
 The scratch helpers below (``train_scratch``, ``flat_grads_to_packed``)
 serve the three kernels that run the MLP backward (K1-bwd, K2, K3).
@@ -17,14 +30,14 @@ serve the three kernels that run the MLP backward (K1-bwd, K2, K3).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from nerf_tpu_torch.config import ClassicNeRFConfig
 from nerf_tpu_torch.models.mlp import LAYER_NORM_EPS, ClassicMLP
-from nerf_tpu_torch.ops.kernels import _build
+from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 
 Packed = Dict[str, torch.Tensor]
 
@@ -45,11 +58,10 @@ def supports_classic_config(cfg: ClassicNeRFConfig) -> bool:
     shared memory a block (232,448 bytes on an H100).  At hidden 256 the
     float32 SIMT tiles hold 588 encoding floats a row (``xe + de``, each
     rounded up to 4; 572 in K4's block, which also keeps its outputs); the
-    tensor-core tiles of K2, K3, K4 and K9 hold fewer (132 in ``fwd_store``,
-    116 in K4's block) and give way to the SIMT tile past that
+    tensor-core tiles hold fewer (132 in K1-fwd's and ``fwd_store``, 116 in
+    K4's block) and give way to the SIMT tile past that
     (``_build.tile_plan``), so latent-conditioned models run at full width.
-    Past the SIMT tile's limit the K2, K3, K4 and K9 wrappers raise a
-    ``ValueError``."""
+    Past the SIMT tile's limit the wrappers raise a ``ValueError``."""
     return cfg.trunk_blocks == (4, 4) and (
         not cfg.use_viewdirs or cfg.view_branch_depth == 2
     )
@@ -87,6 +99,28 @@ def pack_classic_params(mlp: ClassicMLP) -> Packed:
     if b2:
         packed["wd_in"] = w(b2[0])[h:]
     return {k: v.contiguous() for k, v in packed.items()}
+
+
+class PreparedWeights(NamedTuple):
+    """A model's weights as the kernels read them: ``packed``
+    (``pack_classic_params``) and, for weights on the card, the operand
+    images (``tc_mlp.tc_images``; ``tc_bwd`` where asked for)."""
+
+    packed: Packed
+    tc_fwd: Optional[torch.Tensor] = None
+    tc_bwd: Optional[torch.Tensor] = None
+
+
+def prepare_weights(mlp: ClassicMLP, backward: bool = False) -> PreparedWeights:
+    """Pack the weights, and build their operand images where they lie on
+    the card, once for several kernel calls: the tiles of one frame, the
+    passes of one step.  Valid only while the weights do not change (build
+    them anew after each optimizer step).  Under autograd ``packed`` keeps
+    the graph to the parameters; the images carry none."""
+    packed = pack_classic_params(mlp)
+    if packed["w0"].device.type != "cuda":
+        return PreparedWeights(packed)
+    return PreparedWeights(packed, *tc_mlp.tc_images(packed, backward))
 
 
 def classic_mlp_fwd_plain(
@@ -157,25 +191,34 @@ def weight_pointers(packed: Packed):
 
 
 def classic_mlp_fwd(
-    packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor] = None
+    packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor] = None,
+    tc_fwd: Optional[torch.Tensor] = None, tc_bwd: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Classic MLP forward on encoded points: ``x_enc [P, XE]`` and, with
     the view branch, ``d_enc [P, DE]`` -> ``[P, 1 + C]`` rows of ``[density,
     color logits]``.
 
     CPU tensors run ``classic_mlp_fwd_plain``; CUDA tensors launch the
-    kernel (raising on what it does not take).  When autograd records and
+    kernel (raising on what it does not take): the tensor-core tile where
+    the encodings fit it, else the float32 SIMT tile, chosen from the
+    shapes (``_build.tile_plan``; past the SIMT tile a ``ValueError``
+    before any launch).  ``tc_fwd`` is the weights' forward operand image
+    (``tc_mlp.tc_images(packed)[0]``) built beforehand, else the call
+    builds it where the tensor-core tile runs.  When autograd records and
     an input requires grad, the call runs as ``ClassicMLPFunction``, whose
-    backward is ``classic_mlp_bwd`` (K1-bwd).
+    backward is ``classic_mlp_bwd`` (K1-bwd), given ``tc_fwd`` and
+    ``tc_bwd``.
     """
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x_enc, d_enc, *packed.values())
     ):
-        return ClassicMLPFunction.apply(x_enc, d_enc, *[packed.get(k) for k in PACK_ORDER])
+        return ClassicMLPFunction.apply(
+            (tc_fwd, tc_bwd), x_enc, d_enc, *[packed.get(k) for k in PACK_ORDER])
     has_view = "wd_in" in packed
     if has_view != (d_enc is not None):
         raise ValueError(f"{NAME}: d_enc must be given iff the weights have a view branch")
-    device = check_inputs(NAME, packed, {"x_enc": x_enc, "d_enc": d_enc})
+    device = check_inputs(NAME, packed, {"x_enc": x_enc, "d_enc": d_enc, "tc_fwd": tc_fwd})
+    tc_mlp.check_images(NAME, packed, tc_fwd)
     hidden = packed["w0"].shape[1]
     cols = 1 + packed["w_col"].shape[1]
     if x_enc.ndim != 2 or x_enc.shape[1] != packed["w0"].shape[0]:
@@ -190,14 +233,19 @@ def classic_mlp_fwd(
     out = torch.empty((n_points, cols), dtype=torch.float32, device=device)
     if n_points == 0:
         return out
+    de = d_enc.shape[1] if has_view else 0
+    policy = _build.tile_plan(NAME, x_enc.shape[1], de, hidden).policy
+    if policy == "tc" and tc_fwd is None:
+        tc_fwd = tc_mlp.tc_images(packed)[0]
     fn = getattr(_build.load(NAME), NAME)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_enc), out.data_ptr(), n_points,
-        x_enc.shape[1], d_enc.shape[1] if has_view else 0, hidden, cols - 1,
-        *weight_pointers(packed), torch.cuda.current_stream(device).cuda_stream,
+        x_enc.shape[1], de, hidden, cols - 1, *weight_pointers(packed), _build.ptr(tc_fwd),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1
+    _build.policy_counts[(NAME, policy)] += 1
     return out
 
 
@@ -236,17 +284,19 @@ def packed_grads_plain(
 
 def classic_mlp_bwd_plain(
     packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor], g_out: torch.Tensor,
-    input_grads: bool = True,
+    input_grads: bool = True, matmul=torch.matmul,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Packed]:
     """The backward kernel's function in plain PyTorch: the vector-Jacobian
-    product of ``classic_mlp_fwd_plain`` with ``g_out [P, 1 + C]``."""
+    product of ``classic_mlp_fwd_plain`` with ``g_out [P, 1 + C]``;
+    ``matmul`` as in ``classic_mlp_fwd_plain`` (``tc_mlp.tc_matmul_autograd``
+    emulates the tensor-core passes, forward and backward)."""
     if not input_grads:
         _, d_packed = packed_grads_plain(
-            packed, (), lambda w: (classic_mlp_fwd_plain(w, x_enc, d_enc), g_out)
+            packed, (), lambda w: (classic_mlp_fwd_plain(w, x_enc, d_enc, matmul), g_out)
         )
         return None, None, d_packed
     (dx, dd), d_packed = packed_grads_plain(
-        packed, (x_enc, d_enc), lambda w, x, d: (classic_mlp_fwd_plain(w, x, d), g_out)
+        packed, (x_enc, d_enc), lambda w, x, d: (classic_mlp_fwd_plain(w, x, d, matmul), g_out)
     )
     return dx, dd, d_packed
 
@@ -320,7 +370,8 @@ def scratch_pointers(s: Dict[str, object]):
 
 def classic_mlp_bwd(
     packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor], g_out: torch.Tensor,
-    input_grads: bool = True,
+    input_grads: bool = True, tc_fwd: Optional[torch.Tensor] = None,
+    tc_bwd: Optional[torch.Tensor] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Packed]:
     """Backward of ``classic_mlp_fwd``: given ``g_out [P, 1 + C]``, the
     cotangent of its output, returns ``(dx [P, XE], dd [P, DE] or None,
@@ -329,12 +380,24 @@ def classic_mlp_bwd(
     the encodings' cotangents and ``dx`` and ``dd`` are ``None``.
 
     CPU tensors run ``classic_mlp_bwd_plain``; CUDA tensors launch the
-    kernel (raising on what it does not take).
+    kernel (raising on what it does not take).  Which passes it runs
+    follows from the arguments, not from a failure: with
+    ``input_grads=False`` (autograd's call where the encodings need no
+    gradient, as on the reuse step) the tensor-core passes of K2
+    (``fwd_store`` in float32 SIMT where the encodings are too wide for its
+    tile), on the operand images ``tc_fwd`` and ``tc_bwd``
+    (``tc_mlp.tc_images(packed, backward=True)``) when given, else built
+    here; with ``input_grads=True`` the float32 SIMT passes, the only ones
+    that compute the encodings' cotangents.  ``_build.policy_counts``
+    records ``"tc"`` where ``fwd_store`` ran on the tensor cores, else
+    ``"simt"``.
     """
     has_view = "wd_in" in packed
     if has_view != (d_enc is not None):
         raise ValueError(f"{BWD_NAME}: d_enc must be given iff the weights have a view branch")
-    device = check_inputs(BWD_NAME, packed, {"x_enc": x_enc, "d_enc": d_enc, "g_out": g_out})
+    device = check_inputs(BWD_NAME, packed, {"x_enc": x_enc, "d_enc": d_enc, "g_out": g_out,
+                                             "tc_fwd": tc_fwd, "tc_bwd": tc_bwd})
+    tc_mlp.check_images(BWD_NAME, packed, tc_fwd, tc_bwd)
     xe, hidden = packed["w0"].shape
     colors = packed["w_col"].shape[1]
     n_points = x_enc.shape[0]
@@ -354,28 +417,37 @@ def classic_mlp_bwd(
     dd = torch.empty_like(d_enc) if has_view and input_grads else None
     if n_points == 0:
         return dx, dd, {k: torch.zeros_like(v) for k, v in packed.items()}
+    de = d_enc.shape[1] if has_view else 0
+    plan = _build.tile_plan(BWD_NAME, xe, de, hidden)  # raises past the SIMT tile
+    policy = "simt" if input_grads else plan.policy
+    if not input_grads and (tc_fwd is None or tc_bwd is None):
+        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
     s = train_scratch(packed, n_points, device)
     fn = getattr(_build.load(BWD_NAME), BWD_NAME)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_enc), g_out.data_ptr(), _build.ptr(dx), _build.ptr(dd),
-        s["grads"].data_ptr(), n_points, xe, d_enc.shape[1] if has_view else 0, hidden, colors,
-        *weight_pointers(packed), *scratch_pointers(s), s["splits"],
-        torch.cuda.current_stream(device).cuda_stream,
+        s["grads"].data_ptr(), n_points, xe, de, hidden, colors,
+        *weight_pointers(packed), *scratch_pointers(s), s["splits"], _build.ptr(tc_fwd),
+        _build.ptr(tc_bwd), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(BWD_NAME, err)
     _build.launch_counts[BWD_NAME] += 1
+    _build.policy_counts[(BWD_NAME, policy)] += 1
     return dx, dd, flat_grads_to_packed(s["grads"], packed)
 
 
 class ClassicMLPFunction(torch.autograd.Function):
     """``classic_mlp_fwd`` under autograd: forward K1-fwd, backward K1-bwd.
-    Arguments ``(x_enc, d_enc, *weights)`` with the weights in
-    ``PACK_ORDER`` (``None`` for an absent ``wd_in``)."""
+    Arguments ``(images, x_enc, d_enc, *weights)``: ``images`` is ``(tc_fwd,
+    tc_bwd)``, operand images built beforehand (``None`` where not), the
+    weights in ``PACK_ORDER`` (``None`` for an absent ``wd_in``).  The
+    backward recomputes the forward, as the JAX kernel's does."""
 
     @staticmethod
-    def forward(ctx, x_enc, d_enc, *weights):
+    def forward(ctx, images, x_enc, d_enc, *weights):
         ctx.save_for_backward(x_enc, d_enc, *weights)
-        return classic_mlp_fwd(_packed_from_args(weights), x_enc, d_enc)
+        ctx.images = images
+        return classic_mlp_fwd(_packed_from_args(weights), x_enc, d_enc, images[0])
 
     @staticmethod
     def backward(ctx, g_out):
@@ -383,6 +455,7 @@ class ClassicMLPFunction(torch.autograd.Function):
         packed = _packed_from_args(weights)
         dx, dd, d_packed = classic_mlp_bwd(
             packed, x_enc, d_enc, g_out.contiguous(),
-            input_grads=any(ctx.needs_input_grad[:2]),
+            input_grads=any(ctx.needs_input_grad[1:3]), tc_fwd=ctx.images[0],
+            tc_bwd=ctx.images[1],
         )
-        return (dx, dd, *[d_packed.get(k) for k in PACK_ORDER])
+        return (None, dx, dd, *[d_packed.get(k) for k in PACK_ORDER])

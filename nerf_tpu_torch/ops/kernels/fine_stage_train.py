@@ -39,8 +39,8 @@ from nerf_tpu_torch.ops.kernels.classic_mlp import (
     classic_mlp_fwd,
     classic_mlp_fwd_plain,
     flat_grads_to_packed,
-    pack_classic_params,
     packed_grads_plain,
+    prepare_weights,
     scratch_pointers,
     train_scratch,
     weight_pointers,
@@ -98,6 +98,8 @@ def fine_stage_train(
     pixels: torch.Tensor,
     white_background: bool = False,
     loss_weight: float = 1.0,
+    tc_fwd: Optional[torch.Tensor] = None,
+    tc_bwd: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Packed, Tuple[torch.Tensor, torch.Tensor]]:
     """One evaluation of the disjoint-stage fine objective.
 
@@ -114,6 +116,9 @@ def fine_stage_train(
         noise_f: ``[B, Sf]`` fine density noise, drawn beforehand.
         pixels: ``[B, C]`` targets.
         loss_weight: the stage weight (0.5 under the stage-mean MSE).
+        tc_fwd, tc_bwd: the weights' operand images
+            (``tc_mlp.tc_images(packed, backward=True)``) built
+            beforehand, else the call builds them.
 
     Returns ``(loss, d_packed, (g_dens_c [B, Sc, 1], g_col_c [B, Sc, C]))``.
     CPU tensors run ``fine_stage_train_plain``; CUDA tensors launch the
@@ -125,7 +130,9 @@ def fine_stage_train(
     device = check_inputs(NAME, packed, {
         "x_enc": x_enc, "d_enc": d_enc, "t_coarse": t_coarse, "t_fine": t_fine,
         "dens_c": dens_c, "col_c": col_c, "dnorm": dnorm, "noise_f": noise_f, "pixels": pixels,
+        "tc_fwd": tc_fwd, "tc_bwd": tc_bwd,
     })
+    tc_mlp.check_images(NAME, packed, tc_fwd, tc_bwd)
     n_rays, s_fine = t_fine.shape
     s_coarse = t_coarse.shape[-1]
     xe, hidden = packed["w0"].shape
@@ -159,7 +166,8 @@ def fine_stage_train(
     de = d_enc.shape[-1] if has_view else 0
     policy = _build.tile_plan(NAME, xe, de, hidden).policy
     sc = train_scratch(packed, n_rays * s_fine, device)
-    tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
+    if tc_fwd is None or tc_bwd is None:
+        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
     d_ray = d_enc[:, 0, :].contiguous() if has_view else None
     loss = torch.empty((1,), dtype=torch.float32, device=device)
     g_dens_c = torch.empty_like(dens_c)
@@ -188,15 +196,16 @@ class FineStageFunction(torch.autograd.Function):
     with the weights in ``PACK_ORDER`` returns the loss, differentiable
     with respect to ``dens_c``, ``col_c`` and the weights; the backward
     scales the gradients the call returned.  ``options`` is
-    ``(white_background, loss_weight)``."""
+    ``(white_background, loss_weight, tc_fwd, tc_bwd)``, the last two the
+    operand images built beforehand or ``None``."""
 
     @staticmethod
     def forward(ctx, options: Tuple, x_enc, d_enc, t_coarse, t_fine, dens_c, col_c, dnorm,
                 noise_f, pixels, *weights):
-        white, loss_weight = options
+        white, loss_weight, tc_fwd, tc_bwd = options
         loss, d_packed, (g_dens_c, g_col_c) = fine_stage_train(
             _packed_from_args(weights), x_enc, d_enc, t_coarse, t_fine, dens_c, col_c, dnorm,
-            noise_f, pixels, white, loss_weight,
+            noise_f, pixels, white, loss_weight, tc_fwd=tc_fwd, tc_bwd=tc_bwd,
         )
         ctx.save_for_backward(g_dens_c, g_col_c, *[d_packed.get(k) for k in PACK_ORDER])
         return loss
@@ -217,7 +226,9 @@ def reuse_train_loss_and_grads(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Loss and parameter gradients of ONE hierarchical reuse step, every
     MLP evaluation through a kernel: K1-fwd on the coarse samples, K3 on
-    the fine stage, and one K1-bwd on the summed coarse cotangents.
+    the fine stage, and one K1-bwd on the summed coarse cotangents.  The
+    weights are packed, and their operand images built, once for the
+    three (``prepare_weights``).
 
     ``draws`` holds the step's random draws (``sampling.draw_step``).
     Returns ``(loss, grads, aux)`` with ``grads`` keyed by
@@ -231,12 +242,12 @@ def reuse_train_loss_and_grads(
     names, params = zip(*model.named_parameters())
     t_coarse = draws.t_coarse
     with torch.enable_grad():
-        packed = pack_classic_params(model.mlp)
+        packed, tc_fwd, tc_bwd = prepare_weights(model.mlp, backward=True)
         # Coarse stage: K1 under autograd, compositing and loss in PyTorch.
         _, xc_enc, dc_enc = model._encode_inputs(rays_o, rays_d, t_coarse, states_x, states_d)
         out_c = classic_mlp_fwd(
             packed, _flat(xc_enc, n_rays * sc),
-            None if dc_enc is None else _flat(dc_enc, n_rays * sc),
+            None if dc_enc is None else _flat(dc_enc, n_rays * sc), tc_fwd, tc_bwd,
         ).reshape(n_rays, sc, -1)
         dens_c = out_c[..., :1] + draws.noise_c[..., None]
         col_c = out_c[..., 1:].contiguous()
@@ -254,7 +265,7 @@ def reuse_train_loss_and_grads(
         # Fine stage: K3, whose backward returns its gradients.
         xf_enc, df_enc = model.encode_inputs_flat(rays_o, rays_d, t_fine, states_x, states_d)
         loss_f = FineStageFunction.apply(
-            (render.white_background, STAGE_WEIGHT), xf_enc.contiguous(),
+            (render.white_background, STAGE_WEIGHT, tc_fwd, tc_bwd), xf_enc.contiguous(),
             None if df_enc is None else df_enc.contiguous(), t_coarse.contiguous(), t_fine,
             dens_c, col_c, torch.linalg.norm(rays_d, dim=-1), draws.noise_f.contiguous(),
             pixels.contiguous(), *[packed.get(k) for k in PACK_ORDER],

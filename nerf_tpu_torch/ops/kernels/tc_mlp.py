@@ -1,7 +1,9 @@
-"""The tensor-core products of K4 and K9: 3xTF32 on Hopper's ``wgmma``.
+"""The tensor-core products of the classic kernels: 3xTF32 on Hopper's
+``wgmma``.
 
-K4 (``union_eval``) and K9 (``mega_train``) run their hidden and encoding
-products as three TF32 products, ``hi(A) hi(B) + hi(A) lo(B) + lo(A) hi(B)``
+K1-fwd and K1-bwd (``classic_mlp``), K2 (``train_grads``), K3
+(``fine_stage_train``), K4 (``union_eval``) and K9 (``mega_train``) run their
+hidden and encoding products as three TF32 products, ``hi(A) hi(B) + hi(A) lo(B) + lo(A) hi(B)``
 with ``lo = x - hi``, into float32 accumulators (``csrc/tc_mlp.cuh``).  TF32
 keeps 10 mantissa bits; the split keeps about 21, which is what float32
 accuracy through ten LayerNorm'd layers needs.
@@ -24,7 +26,7 @@ off one bank).
 ``tf32_split`` and ``tc_matmul`` are the plain emulation of the product
 (the same masking, three float32 products); ``TcMatmul`` carries it through
 autograd with the backward's two products emulated too, so the plain
-versions of K4 and K9 can run on the CPU with the card's arithmetic
+versions of the kernels can run on the CPU with the card's arithmetic
 (``matmul=tc_matmul_autograd``) and be held against their float32 selves.
 """
 
@@ -136,3 +138,23 @@ def tc_images(packed, backward: bool = False) -> Tuple[torch.Tensor, Optional[to
         fwd.append(operand_image(slabs["whh"]).reshape(-1))
         bwd = operand_image(packed["whh"]).reshape(-1) if backward else None
         return torch.cat(fwd), bwd
+
+
+def image_numels(packed) -> Tuple[int, int]:
+    """Floats of the forward and the backward image ``tc_images(packed,
+    backward=True)`` builds."""
+    hidden = packed["w0"].shape[1]
+    widths = [packed[k].shape[0] for k in ("w0", "wx", "wd_in") if k in packed]
+    slabs = packed["whh"].shape[0] * 2 * hidden * hidden
+    return 2 * hidden * sum(round_up_chunk(w) for w in widths) + slabs, slabs
+
+
+def check_images(name: str, packed, tc_fwd: Optional[torch.Tensor],
+                 tc_bwd: Optional[torch.Tensor] = None) -> None:
+    """Raise a ``ValueError`` where operand images built beforehand are not
+    the flat sizes ``tc_images(packed)`` gives them (the wrappers' own
+    checks take their device, type and layout)."""
+    for key, img, n in zip(("tc_fwd", "tc_bwd"), (tc_fwd, tc_bwd), image_numels(packed)):
+        if img is not None and tuple(img.shape) != (n,):
+            raise ValueError(f"{name}: {key} must be tc_mlp.tc_images' [{n}] image of these "
+                             f"weights, got {tuple(img.shape)}")

@@ -5,7 +5,8 @@ the new fine ones composited in t order.
 Counterpart of ``nerf_tpu/ops/pallas/fused_hier.py::fine_union_eval_pallas``.
 The kernel is ``csrc/union_eval.cu``: the MLP's hidden and encoding products
 run as 3xTF32 on the tensor cores (``csrc/tc_mlp.cuh``, on the operand images
-``tc_mlp.tc_images`` builds once per call), the epilogues, heads and
+``tc_mlp.tc_images`` builds, once per call unless the caller built them
+once per frame), the epilogues, heads and
 compositing in float32.  Encodings too wide for the tensor-core tile (more
 than 116 floats a row together at hidden 256, as a latent-conditioned
 model's are) run the float32 SIMT product instead, chosen from the shapes
@@ -73,6 +74,7 @@ def union_eval(
     dens_c: torch.Tensor,
     col_c: torch.Tensor,
     dnorm: torch.Tensor,
+    tc_fwd: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fine MLP plus order-free union compositing, forward only.
 
@@ -87,6 +89,9 @@ def union_eval(
         dens_c: ``[R, Sc, 1]`` raw coarse densities (reused, not recomputed).
         col_c: ``[R, Sc, C]`` raw coarse color logits.
         dnorm: ``[R]`` ray direction norms ``||d||``.
+        tc_fwd: the weights' forward operand image
+            (``tc_mlp.tc_images(packed)[0]``) built beforehand, else the
+            call builds it where the tensor-core tile runs.
 
     Returns ``(rgb [R, C], depth [R], acc [R])`` over the union, without a
     background.  CPU tensors run ``union_eval_plain``; CUDA tensors launch
@@ -97,8 +102,9 @@ def union_eval(
         raise ValueError(f"{NAME}: d_enc must be given iff the weights have a view branch")
     device = check_inputs(NAME, packed, {
         "x_enc": x_enc, "d_enc": d_enc, "t_coarse": t_coarse, "t_fine": t_fine,
-        "dens_c": dens_c, "col_c": col_c, "dnorm": dnorm,
+        "dens_c": dens_c, "col_c": col_c, "dnorm": dnorm, "tc_fwd": tc_fwd,
     })
+    tc_mlp.check_images(NAME, packed, tc_fwd)
     n_rays, s_fine = t_fine.shape
     s_coarse = t_coarse.shape[-1]
     xe, hidden = packed["w0"].shape
@@ -128,7 +134,8 @@ def union_eval(
     if n_rays:
         de = d_enc.shape[1] if has_view else 0
         policy = _build.tile_plan(NAME, xe, de, hidden, colors, s_coarse, s_fine).policy
-        tc_fwd = tc_mlp.tc_images(packed)[0] if policy == "tc" else None
+        if policy == "tc" and tc_fwd is None:
+            tc_fwd = tc_mlp.tc_images(packed)[0]
         fn = getattr(_build.load(NAME), NAME)
         err = fn(
             x_enc.data_ptr(), _build.ptr(d_enc), t_coarse.data_ptr(), t_fine.data_ptr(),

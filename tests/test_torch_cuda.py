@@ -6,8 +6,8 @@ package, so it runs on a machine that has only PyTorch:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 sums float32 products in another order than cuBLAS (TF32
-off), through ten LayerNorm'd layers; K4 adds the transmittance summed in
+Tolerances: K1 sums float32-accurate products in another order than
+cuBLAS (TF32 off), through ten LayerNorm'd layers; K4 adds the transmittance summed in
 merged order where the plain version sums two blocks and cross terms.  The
 mip kernels (K5-K7) the same through five layers; K7's transmittance is
 the exponential of a prefix sum of logs where the plain version takes a
@@ -15,8 +15,9 @@ cumulative product.  K8 adds the device's sine of the same arguments; K9
 is held against its plain version with its own fine t-values (its resample
 against the plain one separately), as the JAX package holds its kernel.
 
-K2, K3, K4 and K9 run their MLP products as 3xTF32 on the tensor cores
-(``csrc/tc_mlp.cuh``), at the same tolerances: their cases cover every
+K1-fwd, K1-bwd (without the encodings' cotangents), K2, K3, K4 and K9 run
+their MLP products as 3xTF32 on the tensor cores (``csrc/tc_mlp.cuh``),
+at the same tolerances: their cases cover every
 hidden width, row counts that are not a multiple of 64, encoding widths
 that are not a multiple of 8 and runs with and without the view branch,
 and two calls must agree bitwise.  Where a latent-conditioned model's
@@ -181,6 +182,14 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                                         num_samples=8)
     with pytest.raises(ValueError, match="limit"):
         fine_stage_train.fine_stage_train(packed, **fine_inputs(cfg, cuda, rays=2, sc=8, sf=8))
+    x = torch.zeros(4, cfg.x_encoding_dim, device=cuda)
+    d = torch.zeros(4, cfg.d_encoding_dim, device=cuda)
+    with pytest.raises(ValueError, match="limit"):
+        classic_mlp.classic_mlp_fwd(packed, x, d)
+    for input_grads in (True, False):
+        with pytest.raises(ValueError, match="limit"):
+            classic_mlp.classic_mlp_bwd(packed, x, d, torch.zeros(4, 4, device=cuda),
+                                        input_grads=input_grads)
     torch.cuda.synchronize()
     assert dict(_build.launch_counts) == launches and dict(_build.policy_counts) == policies
 
@@ -232,23 +241,44 @@ def assert_grads_close(got: dict, ref: dict):
 @pytest.mark.parametrize("points", [1, 200])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_classic_mlp_bwd_kernel_matches_plain(cuda, variant, points):
+    """K1-bwd with the encodings' cotangents (float32 SIMT passes) and
+    without (the tensor-core passes where the widths fit), on rows away
+    from the ReLU kinks (``rows_away_from_kinks``, each row with its own
+    view encoding): on plain random rows the tensor-core call of the
+    full-width case met a kink (``scripts/torch_kink_rows.py``)."""
     cfg, packed = packed_weights(variant, cuda)
     gen = torch.Generator(device=cuda).manual_seed(3)
-    x = rand(gen, points, cfg.x_encoding_dim)
     d = rand(gen, points, cfg.d_encoding_dim) if cfg.use_viewdirs else None
+    x = rows_away_from_kinks(packed, gen, points, 1, cfg.x_encoding_dim, d).reshape(points, -1)
     g_out = rand(gen, points, 1 + cfg.color_outputs)
     before = _build.launch_counts[classic_mlp.BWD_NAME]
+    policies = dict(_build.policy_counts)
     dx, dd, d_packed = classic_mlp.classic_mlp_bwd(packed, x, d, g_out)
     torch.cuda.synchronize()
     assert _build.launch_counts[classic_mlp.BWD_NAME] == before + 1
+    # The encodings' cotangents: the float32 SIMT passes.
+    assert policy_moves(policies) == {(classic_mlp.BWD_NAME, "simt"): 1}
     rdx, rdd, r_packed = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out)
     assert_grads_close(d_packed, r_packed)
     assert_grads_close({"dx": dx} | ({"dd": dd} if d is not None else {}),
                        {"dx": rdx} | ({"dd": rdd} if d is not None else {}))
-    # As autograd calls it when the encodings need no gradient.
+    # As autograd calls it when the encodings need no gradient: the
+    # tensor-core passes where the widths fit their fwd_store tile.
+    policies = dict(_build.policy_counts)
     dx, dd, d_packed = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads=False)
+    torch.cuda.synchronize()
     assert dx is None and dd is None
+    want = _build.tile_plan(classic_mlp.BWD_NAME, cfg.x_encoding_dim,
+                            cfg.d_encoding_dim if cfg.use_viewdirs else 0, cfg.hidden_size).policy
+    assert policy_moves(policies) == {(classic_mlp.BWD_NAME, want): 1}
     assert_grads_close(d_packed, r_packed)
+
+
+def policy_moves(before: dict) -> dict:
+    """The tile policies recorded since ``before`` (a copy of
+    ``_build.policy_counts``), by how many calls."""
+    return {k: v - before.get(k, 0) for k, v in _build.policy_counts.items()
+            if v != before.get(k, 0)}
 
 
 def rows_away_from_kinks(packed, gen, rays, s, xe, d_ray):
@@ -399,6 +429,44 @@ def test_fine_stage_train_kernel_matches_plain_at_every_width(cuda, hidden, view
     assert all(torch.equal(first[1][k], second[1][k]) for k in first[1])
 
 
+def k1_inputs(cfg, packed, device, rays, s, seed=0):
+    """K1's inputs: ``rays * s`` encoded rows away from the ReLU kinks of
+    ``packed`` (``rows_away_from_kinks``), the view encoding constant along
+    each ray as the reuse step gives it, and random output cotangents."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d_ray = rand(gen, rays, cfg.d_encoding_dim) if cfg.use_viewdirs else None
+    x = rows_away_from_kinks(packed, gen, rays, s, cfg.x_encoding_dim, d_ray)
+    d = None if d_ray is None else d_ray[:, None].expand(rays, s, -1).reshape(rays * s, -1)
+    return (x.reshape(rays * s, -1), None if d is None else d.contiguous(),
+            rand(gen, rays * s, 1 + cfg.color_outputs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [True, False])
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_classic_mlp_kernels_match_plain_at_every_width(cuda, hidden, view):
+    """K1-fwd and K1-bwd (as the reuse step calls it, no encoding
+    cotangents) on the tensor cores at every hidden width: 3 rays x 67
+    samples (201 rows, not a multiple of 64), encodings 60 + 36, rows away
+    from the ReLU kinks, against plain at K1_TOL and GRAD_ATOL; every call
+    ran the tensor-core tile, and a second call of each gives bitwise the
+    same result (a fixed order of products, no atomics)."""
+    cfg, packed = width_packed(cuda, hidden, view)
+    x, d, g_out = k1_inputs(cfg, packed, cuda, rays=3, s=67, seed=hidden + 1)
+    before = dict(_build.policy_counts)
+    first, second = (classic_mlp.classic_mlp_fwd(packed, x, d) for _ in range(2))
+    b_first, b_second = (classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads=False)
+                         for _ in range(2))
+    torch.cuda.synchronize()
+    assert policy_moves(before) == {(classic_mlp.NAME, "tc"): 2, (classic_mlp.BWD_NAME, "tc"): 2}
+    torch.testing.assert_close(first, classic_mlp.classic_mlp_fwd_plain(packed, x, d), **K1_TOL)
+    _, _, ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads=False)
+    assert b_first[0] is None and b_first[1] is None
+    assert_grads_close(b_first[2], ref)
+    assert torch.equal(first, second)
+    assert all(torch.equal(b_first[2][k], b_second[2][k]) for k in ref)
+
+
 def round_up4(n):
     return -(-n // 4) * 4
 
@@ -423,16 +491,19 @@ def predicted_tile_bytes(kernel, hidden, xe, de, colors, sc, sf):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", [union_eval.NAME, train_grads.NAME, fine_stage_train.NAME])
+@pytest.mark.parametrize("kernel", [union_eval.NAME, train_grads.NAME, fine_stage_train.NAME,
+                                    classic_mlp.NAME, classic_mlp.BWD_NAME])
 @pytest.mark.parametrize("variant", ["full_width", "latent_full_width"])
 def test_tile_policy_follows_the_byte_count(cuda, variant, kernel):
-    """K4, K2 and K3 at full width with the default encodings (60 + 36)
-    and a latent-conditioned model's (100 + 48): the call matches plain at
-    the kernel's tolerances (K2 and K3 on rows away from the ReLU kinks)
-    and records the policy its byte count predicts, the tensor cores where
-    their tile fits the device's opt-in shared memory a block, else the
-    float32 SIMT tile.  On the H100 (232,448 bytes) that is the tensor
-    cores at 60 + 36 and the SIMT tile at 100 + 48 in all three."""
+    """K4, K2, K3, K1-fwd and K1-bwd (no encoding cotangents) at full
+    width with the default encodings (60 + 36) and a latent-conditioned
+    model's (100 + 48): the call matches plain at the kernel's tolerances
+    (K1-bwd, K2 and K3 on rows away from the ReLU kinks) and records the
+    policy its byte count predicts, the tensor cores where their tile fits
+    the device's opt-in shared memory a block, else the float32 SIMT tile
+    (K1-fwd's tiles take ``fwd_store``'s bytes).  On the H100 (232,448
+    bytes) that is the tensor cores at 60 + 36 and the SIMT tile at 100 +
+    48 in all five."""
     cfg, packed = packed_weights(variant, cuda)
     xe, de, colors, sc, sf = cfg.x_encoding_dim, cfg.d_encoding_dim, cfg.color_outputs, 64, 128
     tc_bytes, simt_bytes = predicted_tile_bytes(kernel, 256, xe, de, colors, sc, sf)
@@ -451,6 +522,17 @@ def test_tile_policy_follows_the_byte_count(cuda, variant, kernel):
         torch.cuda.synchronize()
         for g, r in zip(got, union_eval.union_eval_plain(*args)):
             torch.testing.assert_close(g, r, **K4_TOL)
+    elif kernel == classic_mlp.NAME:
+        x, d, _ = k1_inputs(cfg, packed, cuda, rays=3, s=sc)
+        got = classic_mlp.classic_mlp_fwd(packed, x, d)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, classic_mlp.classic_mlp_fwd_plain(packed, x, d), **K1_TOL)
+    elif kernel == classic_mlp.BWD_NAME:
+        x, d, g_out = k1_inputs(cfg, packed, cuda, rays=3, s=sc)
+        got = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads=False)
+        torch.cuda.synchronize()
+        ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads=False)
+        assert_grads_close(got[2], ref[2])
     elif kernel == train_grads.NAME:
         a = train_inputs(cfg, cuda, rays=3, s=sc, packed=packed)
         got = train_grads.classic_train_grads(packed, **a, num_samples=sc, loss_weight=0.5)
@@ -466,9 +548,7 @@ def test_tile_policy_follows_the_byte_count(cuda, variant, kernel):
         torch.testing.assert_close(got[0], ref[0], rtol=LOSS_RTOL, atol=0)
         assert_grads_close(got[1] | {"g_dens_c": got[2][0], "g_col_c": got[2][1]},
                            ref[1] | {"g_dens_c": ref[2][0], "g_col_c": ref[2][1]})
-    moved = {k: v - before.get(k, 0) for k, v in _build.policy_counts.items()
-             if v != before.get(k, 0)}
-    assert moved == {(kernel, want): 1}
+    assert policy_moves(before) == {(kernel, want): 1}
 
 
 @pytest.mark.cuda

@@ -1,17 +1,19 @@
-"""The tensor-core arithmetic of K2, K3, K4 and K9 on the CPU: the 3xTF32
-split, the operand images the wrappers build for ``wgmma``
-(``ops/kernels/tc_mlp.py``), and the plain versions of the four kernels run
+"""The tensor-core arithmetic of K1, K2, K3, K4 and K9 on the CPU: the
+3xTF32 split, the operand images the wrappers build for ``wgmma``
+(``ops/kernels/tc_mlp.py``), and the plain versions of the kernels run
 with their products emulated as the kernels compute them, held against
 their float32 selves at the tolerances the card holds the kernels to
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``):
 
+* K1-fwd: rtol 1e-4, atol 1e-4;
+* K1-bwd (without the encodings' cotangents, the call the tensor cores
+  serve), K2 and K3: every gradient within a relative L2 error of 1e-2 and
+  within 1e-4 of its largest entry (K2 and K3: and the loss within rtol
+  1e-4);
 * K4: rtol 5e-4, atol 1e-4;
 * K9: loss rtol 1e-4, every gradient within a relative L2 error of 1e-2,
   the fine samples' plain cdf within 2e-5 of their uniforms (beyond the mass
   that 4 ulp of t carry);
-* K2 and K3: loss rtol 1e-4, every gradient (K3's coarse cotangents too)
-  within a relative L2 error of 1e-2 and within 1e-4 of its largest entry.
-
 That shows, before any card run, that the precision scheme meets the bounds.
 Inputs come from numpy seeds; the models are the full-width ClassicNeRF
 (hidden 256, encodings 60 + 36, view branch on) and its no-view variant.
@@ -35,6 +37,7 @@ from nerf_tpu_torch.ops.kernels import (
     union_eval,
 )
 
+K1_TOL = dict(rtol=1e-4, atol=1e-4)
 K4_TOL = dict(rtol=5e-4, atol=1e-4)
 GRAD_REL_L2 = 1e-2
 GRAD_ATOL = 1e-4  # of the largest entry, as the card tests hold K2 and K3
@@ -325,3 +328,89 @@ def test_k2_and_k3_plain_default_matmul_is_bitwise_unchanged():
     assert torch.equal(f_loss, ref_loss.detach())
     assert torch.equal(f_cot[0], g_dens) and torch.equal(f_cot[1], g_col)
     assert all(torch.equal(f_grads[k], g) for k, g in zip(leaves, g_w))
+
+
+def k1_case(view, rows=256, seed=8):
+    """K1's inputs at full width: ``rows`` encoded points (60 + 36 wide)
+    and output cotangents, from a numpy seed."""
+    cfg = ClassicNeRFConfig(use_viewdirs=view)
+    packed = classic_mlp.pack_classic_params(full_width_mlp(256, view))
+    rng = np.random.default_rng(seed)
+    x = uniform(rng, rows, cfg.x_encoding_dim)
+    d = uniform(rng, rows, cfg.d_encoding_dim) if view else None
+    return packed, x, d, uniform(rng, rows, 1 + cfg.color_outputs)
+
+
+@pytest.mark.parametrize("view", [True, False])
+def test_classic_mlp_fwd_with_3xtf32_products_meets_the_card_tolerance(view):
+    """K1-fwd's plain version at full width on 256 rows with its products
+    emulated as 3xTF32, against its float32 self at K1's card tolerance."""
+    packed, x, d, _ = k1_case(view)
+    ref = classic_mlp.classic_mlp_fwd_plain(packed, x, d)
+    got = classic_mlp.classic_mlp_fwd_plain(packed, x, d, matmul=tc_mlp.tc_matmul)
+    assert not torch.equal(got, ref)  # the emulation is not the float32 path
+    torch.testing.assert_close(got, ref, **K1_TOL)
+
+
+@pytest.mark.parametrize("view", [True, False])
+def test_classic_mlp_bwd_with_3xtf32_products_meets_the_card_tolerance(view):
+    """K1-bwd's plain version at full width on 256 rows, as the reuse step
+    calls it (no encoding cotangents), with the forward, ``dh`` and ``dW``
+    products emulated as 3xTF32, against its float32 self at the card's
+    gradient bounds."""
+    packed, x, d, g_out = k1_case(view)
+    _, _, ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads=False)
+    dx, dd, got = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads=False,
+                                                    matmul=tc_mlp.tc_matmul_autograd)
+    assert dx is None and dd is None
+    assert_grads_within_card_bounds(got, ref)
+
+
+def test_classic_mlp_bwd_plain_default_matmul_is_bitwise_unchanged():
+    """``classic_mlp_bwd_plain``'s default path equals, bitwise, autograd
+    through ``classic_mlp_fwd_plain`` with its own products, with and
+    without the encodings' cotangents, and so does an explicit
+    ``matmul=torch.matmul`` (hidden 64, 32 rows)."""
+    cfg = ClassicNeRFConfig(hidden_size=64)
+    packed = classic_mlp.pack_classic_params(full_width_mlp(64))
+    rng = np.random.default_rng(9)
+    x, d = uniform(rng, 32, cfg.x_encoding_dim), uniform(rng, 32, cfg.d_encoding_dim)
+    g_out = uniform(rng, 32, 4)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in packed.items()}
+    xs, ds = x.clone().requires_grad_(True), d.clone().requires_grad_(True)
+    with torch.enable_grad():
+        out = classic_mlp.classic_mlp_fwd_plain(leaves, xs, ds)
+        rdx, rdd, *rw = torch.autograd.grad(out, [xs, ds, *leaves.values()], g_out)
+    ref = dict(zip(leaves, rw))
+    for kwargs in ({}, {"matmul": torch.matmul}):
+        dx, dd, got = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, **kwargs)
+        assert torch.equal(dx, rdx) and torch.equal(dd, rdd)
+        assert got.keys() == ref.keys() and all(torch.equal(got[k], ref[k]) for k in ref)
+        _, _, got = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads=False,
+                                                      **kwargs)
+        assert all(torch.equal(got[k], ref[k]) for k in ref)
+
+
+def test_render_image_packs_the_weights_once_a_frame(monkeypatch):
+    """On the kernel path ``render_image`` packs the weights once for the
+    frame's kernel calls (here 4 tiles, each through K1-fwd and K4's plain
+    versions on the CPU), and renders what the plain path renders."""
+    cfg = dict(hidden_size=32, normalize_position=6.0)
+    models = {p: ClassicNeRF(ClassicNeRFConfig(use_pallas=p, **cfg),
+                             generator=torch.Generator().manual_seed(0), device="cpu")
+              for p in (True, False)}
+    for m in models.values():
+        with torch.no_grad():  # mass in every bin (see chip_smoke.py)
+            m.mlp.density.bias.fill_(0.5)
+            m.mlp.density.weight.mul_(0.05)
+    calls = []
+    pack = classic_mlp.pack_classic_params
+    monkeypatch.setattr(classic_mlp, "pack_classic_params",
+                        lambda mlp: calls.append(1) or pack(mlp))
+    render = RenderConfig(num_coarse_samples=8, num_fine_samples=16, randomly_sample=False,
+                          rays_per_tile=16)
+    pose_o = torch.tensor([[0.0, -4.0, 0.5]])
+    pose_r = torch.eye(3)[None]
+    images = {p: m.render_image(pose_o, pose_r, 8, 8, 10.0, render) for p, m in models.items()}
+    assert len(calls) == 1
+    torch.testing.assert_close(images[True], images[False], rtol=1e-4, atol=1e-5)
