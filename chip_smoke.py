@@ -6,12 +6,13 @@
 1. Prints the card's name and power limit (``nvidia-smi``).
 2. Builds the port's twelve CUDA kernels from ``nerf_tpu_torch/csrc`` with
    ``nvcc`` (one process per source, started together) and prints the
-   seconds it took and each kernel's registers and spills, labelled with
-   the pass it runs (K1-fwd's, K1-bwd's, K2's, K3's, K4's and K9's MLP
-   products run as 3xTF32 ``wgmma`` on the tensor cores,
-   ``csrc/tc_mlp.cuh``, with a float32 SIMT tile for encodings too wide
-   for theirs, and K1-bwd's float32 SIMT passes where the encodings'
-   cotangents are asked for; the other kernels' in float32 SIMT).
+   seconds it took and each kernel's registers, spills and ptxas C75xx
+   notes (a ``wgmma`` serialized), labelled with the pass it runs
+   (K1-fwd's, K1-bwd's, K2's, K3's, K4's, K6's, K7's and K9's MLP products
+   run as 3xTF32 ``wgmma`` on the tensor cores, ``csrc/tc_mlp.cuh``, with
+   a float32 SIMT tile for encodings or features too wide for theirs, and
+   K1-bwd's float32 SIMT passes where the encodings' cotangents are asked
+   for; the other kernels' in float32 SIMT).
 3. Serving (slice 1): holds K1-fwd (``classic_mlp_fwd``, 262,144 points)
    and K4 (``union_eval``, the first 4000-ray tile of the frame) against
    their plain PyTorch versions, then renders one 400x400 frame of 64
@@ -40,22 +41,25 @@
    on the first 4000-ray tile of the frame, then renders one 400x400 frame
    of 64 log-bbox fenceposts (63 intervals) through ``MipNeRF.render_image``
    with the kernels (the counters are zeroed just before and must read 40
-   ``mip_eval`` and nothing else after) and once through the plain path,
-   and compares the rgb and segmentation images; the segmentation output
-   must satisfy logsumexp_c seg_c = log(acc + 63e-10) at every pixel.
+   ``mip_eval`` and nothing else after, every call on the tensor cores)
+   and once through the plain path, and compares the rgb and segmentation
+   images; the segmentation output must satisfy logsumexp_c seg_c =
+   log(acc + 63e-10) at every pixel.
 8. Mip fused training, the main path: the full-width MipNeRF on a
    labelled synthetic scene through ``make_fused_multi_step_train_fn`` at
    4096 rays x 64 fenceposts, stratified jitter, density noise 1.0,
    segmentation weight 0.1, Adam at lr 1e-4.  One step's loss and
    gradients against the plain path, then warm-up and timed steps, each
-   launching one K6 (``mip_train_grads``) and nothing else; every loss
-   finite, the probe batch's loss lower after the run; ms/step and rays/s.
+   launching one K6 (``mip_train_grads``, on the tensor cores) and nothing
+   else; every loss finite, the probe batch's loss lower after the run;
+   ms/step and rays/s.
 9. Mip general path: one ``make_train_step`` step of ``MipNeRF(use_pallas=
    True)`` launches one K5-fwd and one K5-bwd, and its gradients match the
    ``use_pallas=False`` step's.
 10. Holds K5-fwd (258,048 random feature rows), K5-bwd (the same rows,
-   random cotangents) and K6 (the trainer's inputs) against their plain
-   versions, with their times and bounds.
+   random cotangents), both float32 SIMT, and K6 (the trainer's inputs, on
+   the tensor cores) against their plain versions, with their times and
+   bounds.
 11. K8 (slice 4), the MLP on raw points: one forward and backward of
    ``point_mlp.classic_pointmlp`` under autograd on the 262,144 raw points
    and directions of 4096 training rays x 64 stratified samples (the
@@ -289,10 +293,11 @@ def kernel_label(mangled: str) -> str:
 
 
 # The passes of the MLP kernels by kernel name, for reports and profiles:
-# K1-fwd's, K1-bwd's, K2's, K3's, K4's and K9's products run on the tensor
-# cores (csrc/tc_mlp.cuh; their float32 SIMT fwd_store and K1-fwd and K4
-# tiles serve encodings too wide for it, and K1-bwd's SIMT passes the
-# encodings' cotangents), the other kernels' in float32 SIMT.
+# K1-fwd's, K1-bwd's, K2's, K3's, K4's, K6's, K7's and K9's products run on
+# the tensor cores (csrc/tc_mlp.cuh; their float32 SIMT fwd_store, K1-fwd,
+# K4 and mip forward tiles serve encodings or features too wide for it, and
+# K1-bwd's SIMT passes the encodings' cotangents), the other kernels' (K5,
+# K8) in float32 SIMT.
 PASSES = {
     "fwd_tc_kernel": "K1-fwd tile, 3xTF32 wgmma",
     "classic_mlp_fwd_kernel": "K1-fwd tile, fp32 SIMT (wide encodings)",
@@ -305,6 +310,13 @@ PASSES = {
     "bwd_rows_kernel": "bwd_rows, fp32 SIMT",
     "wgrad_kernel": "wgrad, fp32 SIMT",
     "colsum_kernel": "colsum",
+    "mip_fwd_store_tc_kernel": "mip fwd_store (K6), 3xTF32 wgmma",
+    "mip_fwd_tc_kernel": "mip forward tile (K7), 3xTF32 wgmma",
+    "mip_bwd_rows_tc_kernel": "mip bwd_rows (K6), 3xTF32 wgmma",
+    "mip_fwd_kernel": "mip forward tile, fp32 SIMT (K5; K6, K7 wide features)",
+    "mip_bwd_rows_kernel": "mip bwd_rows (K5), fp32 SIMT",
+    "mip_objective_kernel": "K6 compositing and losses",
+    "mip_eval_rays_kernel": "K7 compositing",
 }
 
 
@@ -317,14 +329,21 @@ def pass_label(kernel: str) -> str:
 
 
 def ptxas_usage(report: str):
-    """(kernel, 'registers; spills') pairs from an ``nvcc -Xptxas -v`` report."""
+    """(kernel, 'registers; spills') pairs from an ``nvcc -Xptxas -v`` report,
+    and (kernel, the note) for each C75xx performance note (a ``wgmma``
+    serialized)."""
     label, spills = "?", ""
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
+        note = re.search(r"\b(C75\d\d)\b.*", line)
         if entry:
             label = kernel_label(entry.group(1))
             if pass_label(label):
                 label += f" [{pass_label(label)}]"
+        elif note:
+            func = re.search(r"function '(\w+)'", line)
+            yield (kernel_label(func.group(1)) if func else label), \
+                "(" + note.group(0).split(" in the function")[0]
         elif "spill" in line:
             spills = line.strip()
         elif re.search(r"Used \d+ registers", line):
@@ -702,11 +721,14 @@ def mip_serving(device, flops_per_point: int) -> dict:
                       pose_to_rays(pose_o, pose_r, IMAGE, IMAGE, FOCAL))
     with torch.no_grad(), capture_args(mip_train, "mip_eval", store):
         model.render_rays(rays_o, rays_d, MIP_RENDER, fused_eval=True)
-    args = store["mip_eval"][0]
+    args = store["mip_eval"][0]  # without the frame's images: the call builds its own
     with torch.no_grad():
+        _build.policy_counts.clear()
         got = mip_train.mip_eval(*args)
         ref = mip_train.mip_eval_plain(*args)
         torch.cuda.synchronize()
+        check(dict(_build.policy_counts) == {("mip_eval", "tc"): 1},
+              f"K7 at {args[1].shape[-1]} features ran its tensor-core tile")
         err = compare("mip_eval", got, ref)
         ms = cuda_ms(lambda: mip_train.mip_eval(*args), iters=5)
         plain_ms = cuda_ms(lambda: mip_train.mip_eval_plain(*args), iters=5)
@@ -723,14 +745,16 @@ def mip_serving(device, flops_per_point: int) -> dict:
     render(model)  # warm-up
     torch.cuda.synchronize()
     _build.launch_counts.clear()
+    _build.policy_counts.clear()
     t0 = time.perf_counter()
     rgb, seg = render(model)
     torch.cuda.synchronize()
     frame_ms = (time.perf_counter() - t0) * 1e3
-    launches = dict(_build.launch_counts)
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
     print(f"mip frame through the kernels: {frame_ms:.1f} ms; launches {launches}", flush=True)
     check(launches == {"mip_eval": n_tiles},
           f"K7 launched once per tile ({n_tiles} tiles), nothing else")
+    check_policies("mip frame", launches, policies, "tc")
 
     render(plain_model)  # warm-up
     torch.cuda.synchronize()
@@ -807,6 +831,7 @@ def mip_training(device, store: dict) -> dict:
         state, aux_w = warm(state)
     torch.cuda.synchronize()
     _build.launch_counts.clear()
+    _build.policy_counts.clear()
     t0 = time.perf_counter()
     state, aux = timed(state)
     torch.cuda.synchronize()
@@ -820,6 +845,7 @@ def mip_training(device, store: dict) -> dict:
           flush=True)
     check(launches == {"mip_train_grads": TIMED_STEPS},
           f"{name}: each step launched {{'mip_train_grads': 1}} and nothing else")
+    check_policies(name, launches, policies, "tc")
     check(bool(torch.isfinite(losses).all()), f"{name}: every loss is finite")
     check(loss_after < loss_before,
           f"{name}: the probe batch's loss fell from {loss_before:.6f} to {loss_after:.6f} "
@@ -880,8 +906,15 @@ def mip_kernels_against_plain(store: dict, device) -> dict:
                                flops=train_step_flops(cfg, K5_POINTS, 1, mip=True),
                                nbytes=tensor_bytes(feat, g_out) + 2 * weight_bytes)
 
+    # K6 on the trainer's inputs, each call with its own operand images (the
+    # step's were built for the weights of its own step).
     args, kwargs = store["mip_train_grads"]
+    kwargs = without_images(kwargs)
+    _build.policy_counts.clear()
     got = mip_train.mip_train_grads(*args, **kwargs)
+    torch.cuda.synchronize()
+    check(dict(_build.policy_counts) == {("mip_train_grads", "tc"): 1},
+          "K6 on the trainer's inputs ran its tensor-core passes")
     ref = mip_train.mip_train_grads_plain(*args, **kwargs)
     err = compare_grads("mip_train_grads", got[2], ref[2], got[0] + SEG_WEIGHT * got[1],
                         ref[0] + SEG_WEIGHT * ref[1])
@@ -910,11 +943,12 @@ def mip_phases(device) -> dict:
     rows["mip_mlp_fwd"] = (runs["general"]["mip_mlp_fwd"], k_rows["mip_mlp_fwd"])
     rows["mip_mlp_bwd"] = (runs["general"]["mip_mlp_bwd"], k_rows["mip_mlp_bwd"])
     rows["mip_train_grads"] = (fused_launches["mip_train_grads"], k_rows["mip_train_grads"])
-    bound_ms = train_step_flops(cfg, MIP_RAYS, MIP_TRAIN_RENDER.num_coarse_samples - 1,
-                                mip=True) / PEAK_FP32_FLOPS * 1e3
+    flops = train_step_flops(cfg, MIP_RAYS, MIP_TRAIN_RENDER.num_coarse_samples - 1, mip=True)
+    bound_ms, bound_tc_ms = flops / PEAK_FP32_FLOPS * 1e3, flops / PEAK_3XTF32_FLOPS * 1e3
     print(f"mip training: fused 4096x64 with seg CE {fused_ms:.2f} ms/step = "
           f"{MIP_RAYS / fused_ms * 1e3:.0f} rays/s (bound {bound_ms:.2f} ms = "
-          f"{MIP_RAYS / bound_ms * 1e3:.0f} rays/s)")
+          f"{MIP_RAYS / bound_ms * 1e3:.0f} rays/s; 3xTF32 bound {bound_tc_ms:.2f} ms = "
+          f"{MIP_RAYS / bound_tc_ms * 1e3:.0f} rays/s)")
     return rows
 
 

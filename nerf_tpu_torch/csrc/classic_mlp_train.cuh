@@ -35,7 +35,8 @@
 // with the encodings' cotangents; TcProducts (tc_mlp.cuh, 3xTF32 on the
 // tensor cores) for K2, K3, K9 and K1-bwd without them, whose fwd_store runs SimtProducts' pass where the encodings are too wide
 // for the tensor-core tile (tc_mlp.cuh, the width rule).  The mip passes
-// (mip_mlp.cuh) launch gemm_acc and wgrad_kernel themselves.
+// (mip_mlp.cuh) take their own policies on the same pieces: MipSimt (K5)
+// and MipTc (K6, K7).
 //
 // The flat gradient the passes produce is the packed weights' order
 // (ops/kernels/classic_mlp.py): w0, wx, wd, whh | b, g, beta, w_dens,

@@ -11,11 +11,16 @@
 //
 // Bound: operations.  300,544 multiply-adds per row at the full-width model
 // (H = 256, F = 96, 5 layers, O = 54): a 4000-ray tile of 63 rows is
-// 1.515e11 FLOP, 2.26 ms at 67 TFLOP/s; its bytes (384 per row of
-// features, 12 of distance and midpoint, 220 per ray of output) take under
-// 0.1 ms.
+// 1.515e11 FLOP, 2.261 ms at the float32 SIMT rate (67 TFLOP/s), 0.918 ms
+// as three TF32 products on the tensor cores (FLOP / 165 TFLOP/s); its
+// bytes (384 per row of features, 12 of distance and midpoint, 220 per ray
+// of output) take under 0.1 ms.
 //
-// Design: the mip forward (mip_mlp.cuh) writes the head's outputs [R*n][O]
+// Design: the mip forward (mip_mlp.cuh, MipTc: every hidden and feature
+// product as 3xTF32 wgmma on the forward images the wrapper builds once a
+// frame, mip_fwd_tc_kernel, one block an SM; LayerNorm and the 54-wide
+// head float32; the float32 SIMT tile, mip_fwd_kernel, where the features
+// are too wide for it, tc_mlp.cuh note 9) writes the head's outputs [R*n][O]
 // to a scratch buffer (0.1 ms of traffic each way at this shape), then one
 // warp per ray composites: the transmittances as a warp scan
 // (ray_transmittance), rgb, depth and acc by runs of rows per lane, each
@@ -104,8 +109,9 @@ __global__ void __launch_bounds__(kThreads)
 template <int H>
 cudaError_t run(const MipWeights& w, const float* x, const float* dists, const float* t_mids,
                 const float* noise, int R, int n, int C, int white, float* per_ray,
-                float* mlp_out, cudaStream_t stream) {
-  cudaError_t err = launch_mip_fwd<H, false>(w, x, mlp_out, R * n, nullptr, nullptr, stream);
+                float* mlp_out, const float* tc_fwd, cudaStream_t stream) {
+  cudaError_t err =
+      launch_mip_fwd<H, false, MipTc>(w, x, mlp_out, R * n, nullptr, nullptr, tc_fwd, stream);
   if (err != cudaSuccess) return err;
   const size_t smem = static_cast<size_t>(kWarps) * 4 * n * sizeof(float);
   err = cudaFuncSetAttribute(mip_eval_rays_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -122,12 +128,22 @@ extern "C" int mip_eval(const float* x, const float* dists, const float* t_mids,
                         const float* noise, float* per_ray, int R, int n, int F, int hidden,
                         int L, int C, int O, int white, const float* w_in, const float* whh,
                         const float* b, const float* g, const float* beta, const float* w_out,
-                        const float* b_out, float* mlp_out, void* stream) {
+                        const float* b_out, float* mlp_out, const float* tc_fwd,
+                        void* stream) {
   if (L < 2 || C < 1 || C > kMaxColors || O < C + 2) return cudaErrorInvalidValue;
   const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) \
-  static_cast<int>(run<H>(w, x, dists, t_mids, noise, R, n, C, white, per_ray, mlp_out, st))
+#define NERF_LAUNCH(H)                                                                     \
+  static_cast<int>(                                                                        \
+      run<H>(w, x, dists, t_mids, noise, R, n, C, white, per_ray, mlp_out, tc_fwd, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
+}
+
+// The plan of K7's forward tile for F = xe features (de must be 0: the mip
+// tile has no view encodings): out = [policy (0 tensor cores, 1 float32
+// SIMT, 2 neither fits), tensor-core bytes, SIMT bytes, the device's limit].
+extern "C" int mip_eval_plan(int xe, int de, int hidden, long long* out) {
+  if (de != 0) return cudaErrorInvalidValue;
+  return static_cast<int>(fwd_store_plan_at(xe, 0, hidden, out));
 }

@@ -9,25 +9,33 @@
 //
 // The TPU kernels (fused_mip_mlp.py, fused_mip_train.py) keep all weights
 // and a tile's whole chain in VMEM.  Here the passes are the classic MLP's
-// (classic_mlp.cuh, classic_mlp_train.cuh), instantiated for this chain:
-//   * the forward tile: 64 rows per block of 8 warps, the product gemm_acc
-//     (weights streamed from L2 in double-buffered 8-row stages), the
-//     epilogue in registers with the LayerNorm first (layer_epilogue
-//     <kLnFirst>), and the 54-wide head as a register-tiled product
-//     (head_wide); with kSave it stores every layer's xhat and (1/sigma,
-//     -mu/sigma) for the backward;
-//   * mip_bwd_rows: the head's input cotangent (head_dh, the head's
-//     weights staged transposed), then per layer the mask on
-//     the rebuilt LayerNorm output xhat * g + beta > 0 and the LayerNorm
-//     backward (layer_bwd<kLnFirst>), dh = dpre @ W^T on the transposed
-//     hidden slabs, and optionally the features' cotangent;
+// (classic_mlp.cuh, classic_mlp_train.cuh, tc_mlp.cuh), instantiated for
+// this chain, their products through a policy as the classic passes':
+// MipSimt (float32 SIMT FMAs; K5-fwd and K5-bwd) and MipTc (3xTF32 wgmma on
+// the tensor cores; K6 and K7, whose forward tile gives way to MipSimt's
+// where the features are too wide for it, tc_mlp.cuh note 9):
+//   * the forward tile: 64 rows per block of 8 warps, the epilogue in
+//     registers with the LayerNorm first (layer_epilogue<kLnFirst>), and the
+//     54-wide head as a register-tiled float32 product (head_wide); with
+//     kSave it stores every layer's xhat and (1/sigma, -mu/sigma) for the
+//     backward.  The products: gemm_acc (weights streamed from L2 in
+//     double-buffered 8-row stages; mip_tile, two blocks an SM) or tc_gemm
+//     on the operand images (mip_tile_tc, one block an SM);
+//   * bwd_rows: the head's input cotangent (head_dh, float32, the head's
+//     weights staged transposed), then per layer the mask on the rebuilt
+//     LayerNorm output xhat * g + beta > 0 and the LayerNorm backward
+//     (layer_bwd<kLnFirst>), and dh = dpre @ W^T: gemm_acc on the hidden
+//     slabs transposed (mip_bwd_rows_kernel, which also writes the features'
+//     cotangent where asked) or tc_gemm on the slabs' backward images
+//     (mip_bwd_rows_tc_kernel, no features' cotangent);
 //   * wgrad: every dW as a product over the points, the head's too (its
 //     left operand relu(xhat * g + beta) of the last layer, its right one
-//     the output cotangents), then colsum of the partials in a fixed order.
+//     the output cotangents: N = O, not a multiple of 4), then colsum of the
+//     partials in a fixed order.
 // The flat gradient: w_in, whh, w_out | b, g, beta, b_out.
 #pragma once
 
-#include "classic_mlp_train.cuh"
+#include "tc_mlp.cuh"
 
 namespace nerf_mlp {
 
@@ -40,6 +48,17 @@ struct MipWeights {
   const float* w_out;  // [H, O]
   const float* b_out;  // [O]
   int F, L, O;
+};
+
+// The forward operand images of a mip call (tc_mlp.py::tc_images): w_in as
+// [H][round_up_chunk(F)], then the hidden slabs as [out][in], each 2 H H
+// floats.
+struct MipImages {
+  const float* w_in;
+  const float* whh;
+  __host__ static MipImages forward(const MipWeights& w, const float* base, int H) {
+    return MipImages{base, base + 2 * static_cast<size_t>(H) * round_up_chunk(w.F)};
+  }
 };
 
 // Floats of the weight-slab part (w_in, whh, w_out) of the flat gradient.
@@ -56,18 +75,23 @@ __host__ __device__ inline size_t mip_tile_floats(const MipWeights& w, int H) {
 // out[row * n + c] = h[row] . W[:, c] + bias[c] for c < n and the tile's
 // valid rows: a head wider than the classic ones (W row-major [H, n]).  A
 // dot product per output across the warp would cost five shuffles a row
-// and output; instead h goes through act (each warp its own rows) and each
-// lane accumulates columns c0 + lane and c0 + 32 + lane of a 64-column
+// and output; instead h goes through act (each warp its own rows, row
+// stride LD: H in the SIMT tile, act_ld<H>() in the tensor-core one, whose
+// other warps may still be reading their rows of act at that stride) and
+// each lane accumulates columns c0 + lane and c0 + 32 + lane of a 64-column
 // block, W staged through wbuf (kChunk x H floats) in chunks of H / 4 rows
 // x 64 columns, read once per block.
-template <int H>
+template <int H, int LD = H>
 __device__ void head_wide(const float (&h)[kRowsPerWarp][H / 32], float* act, float* wbuf,
                           const float* __restrict__ W, const float* __restrict__ bias, int n,
                           float* out, int nvalid) {
   constexpr int kRows = H / 4;  // W rows per staged chunk: kRows * 64 = kChunk * H floats
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  store_rows<H>(h, act);
-  const float* a_rows = act + warp * kRowsPerWarp * H;
+  float* a_rows = act + warp * kRowsPerWarp * LD;
+#pragma unroll
+  for (int r = 0; r < kRowsPerWarp; ++r)
+#pragma unroll
+    for (int j = 0; j < H / 32; ++j) a_rows[r * LD + lane + 32 * j] = h[r][j];
   for (int c0 = 0; c0 < n; c0 += 64) {
     float acc[kRowsPerWarp][2];
 #pragma unroll
@@ -84,7 +108,7 @@ __device__ void head_wide(const float (&h)[kRowsPerWarp][H / 32], float* act, fl
         float4 a[kRowsPerWarp];
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r)
-          a[r] = *reinterpret_cast<const float4*>(a_rows + r * H + k0 + kk);
+          a[r] = *reinterpret_cast<const float4*>(a_rows + r * LD + k0 + kk);
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float wa = wbuf[(kk + q) * 64 + lane], wb = wbuf[(kk + q) * 64 + 32 + lane];
@@ -129,6 +153,35 @@ __device__ void mip_tile(const MipWeights& w, const float* xs, float* act, float
   head_wide<H>(acc, act, wbuf, w.w_out, w.b_out, w.O, out, nvalid);
 }
 
+// mip_tile with the products on the tensor cores (mlp_tile_tc's order,
+// tc_mlp.cuh): layer 0 is tc_gemm on the feature tile xs, layers 1..L-1 on
+// the activation tile act ([64][act_ld<H>()]) with the hidden slabs'
+// forward images; each product's accumulators go through act into the
+// row-per-warp layout, where layer_epilogue<kLnFirst> runs as in mip_tile.
+// The head stays float32 (head_wide), its weights staged through the B
+// chunk buffers bbuf, free once the last product has retired (tc_gemm ends
+// with every wgmma waited for and a block-wide barrier).
+template <int H, bool kSave>
+__device__ void mip_tile_tc(const MipWeights& w, const MipImages& im, const float* xs,
+                            float* act, float* bbuf, float* out, int nvalid, const Save* save) {
+  constexpr int ald = act_ld<H>();
+  const size_t slab = 2 * static_cast<size_t>(H) * H;
+  float d[H / 4];
+  float acc[kRowsPerWarp][H / 32];
+  tc_zero<H>(d);
+  tc_gemm<H>(d, xs, round_up4(w.F), w.F, im.w_in, bbuf);
+  tc_to_rows<H>(d, act, acc);
+  layer_epilogue<H, kSave, true>(acc, w.b, w.g, w.beta, save, 0);
+  for (int i = 1; i < w.L; ++i) {
+    tc_store_rows<H>(acc, act);
+    tc_zero<H>(d);
+    tc_gemm<H>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
+    tc_to_rows<H>(d, act, acc);
+    layer_epilogue<H, kSave, true>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
+  }
+  head_wide<H, ald>(acc, act, bbuf, w.w_out, w.b_out, w.O, out, nvalid);
+}
+
 // The forward over features x [P][F] in 64-row tiles -> out [P][O].  With
 // kSave every layer's xhat [L][P][H] and statistics [L][P][2] are stored
 // for the backward passes.  Two blocks per SM (at most 128 registers).
@@ -148,19 +201,41 @@ __global__ void __launch_bounds__(kThreads, 2)
   mip_tile<H, kSave>(w, xs, act, wbuf, out + row0 * w.O, nvalid, &save);
 }
 
+// The tensor-core forward tile of a block: the B chunks, the activation
+// tile and the features, in tc_tile_bytes<H>(F, 0) (fwd_store's layout
+// without the view encodings).
 template <int H, bool kSave>
-cudaError_t launch_mip_fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
-                           float* stats, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(kTileRows) * H + static_cast<size_t>(kChunk) * H +
-                       static_cast<size_t>(kTileRows) * round_up4(w.F)) *
-                      sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      mip_fwd_kernel<H, kSave>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int tiles = (P + kTileRows - 1) / kTileRows;
-  mip_fwd_kernel<H, kSave><<<tiles, kThreads, smem, stream>>>(w, x, out, P, xhat, stats);
-  return cudaGetLastError();
+__device__ __forceinline__ void mip_fwd_tc_block(const MipWeights& w, const MipImages& im,
+                                                 const float* x, float* out, int P,
+                                                 float* xhat, float* stats) {
+  extern __shared__ float4 smem4[];
+  float* bbuf = tc_smem_base(smem4);
+  float* act = bbuf + tc_bbuf_floats<H>();
+  float* xs = act + kTileRows * act_ld<H>();
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
+  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
+  load_tile(xs, x, row0, nvalid, w.F, 1);
+  __syncthreads();
+  const Save save{xhat, stats, static_cast<size_t>(P), row0, nvalid};
+  mip_tile_tc<H, kSave>(w, im, xs, act, bbuf, out + row0 * w.O, nvalid, &save);
+}
+
+// K6's stored-chain forward on the tensor cores (mip_fwd_kernel<H, true>'s
+// contract).  One block an SM.
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+    mip_fwd_store_tc_kernel(MipWeights w, MipImages im, const float* __restrict__ x,
+                            float* __restrict__ out, int P, float* xhat, float* stats) {
+  mip_fwd_tc_block<H, true>(w, im, x, out, P, xhat, stats);
+}
+
+// K7's forward on the tensor cores, nothing saved (mip_fwd_kernel<H,
+// false>'s contract).  One block an SM.
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+    mip_fwd_tc_kernel(MipWeights w, MipImages im, const float* __restrict__ x,
+                      float* __restrict__ out, int P) {
+  mip_fwd_tc_block<H, false>(w, im, x, out, P, nullptr, nullptr);
 }
 
 // acc += gs[:, 0:n] @ W^T for this warp's rows: the input cotangent of a
@@ -181,6 +256,25 @@ __device__ void head_dh(float (&acc)[kRowsPerWarp][H / 32], const float* gs, int
     __syncthreads();
     chunk_fma<H, H + 1>(acc, a_rows, ldg, q0, min(kChunk, round_up4(n - q0)), wbuf);
     __syncthreads();
+  }
+}
+
+// The start of both bwd_rows kernels: the tile's output cotangents gout
+// [P][O] into gs [64][round_up4(O)] (zero past the valid rows and past O)
+// and their column sums to the tile's b_out partials p_bout.
+__device__ __forceinline__ void load_head_cotangents(const MipWeights& w, const float* gout,
+                                                     size_t row0, int nvalid, float* gs,
+                                                     float* p_bout) {
+  const int O = w.O, ldg = round_up4(O);
+  for (int i = threadIdx.x; i < kTileRows * ldg; i += kThreads) {
+    const int r = i / ldg, c = i % ldg;
+    gs[i] = r < nvalid && c < O ? gout[(row0 + r) * O + c] : 0.f;
+  }
+  __syncthreads();
+  if (threadIdx.x < O) {
+    float s = 0.f;
+    for (int r = 0; r < kTileRows; ++r) s += gs[r * ldg + threadIdx.x];
+    p_bout[threadIdx.x] = s;
   }
 }
 
@@ -205,29 +299,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* act = reinterpret_cast<float*>(smem4);  // dpre of the current layer
   float* wbuf = act + kTileRows * H;             // weight chunk, or colsum scratch
   float* gs = wbuf + chunk_t_floats<H>();        // [64][ldg] output cotangents
-  const int L = w.L, O = w.O, ldg = round_up4(O);
+  const int L = w.L;
   const size_t hh = static_cast<size_t>(H) * H, PP = static_cast<size_t>(P);
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
   float* p_b = tpart + blockIdx.x * mip_tile_floats(w, H);
   float* p_g = p_b + L * H;
   float* p_beta = p_g + L * H;
-  float* p_bout = p_beta + L * H;
-
-  for (int i = threadIdx.x; i < kTileRows * ldg; i += kThreads) {
-    const int r = i / ldg, c = i % ldg;
-    gs[i] = r < nvalid && c < O ? gout[(row0 + r) * O + c] : 0.f;
-  }
-  __syncthreads();
-  if (threadIdx.x < O) {
-    float s = 0.f;
-    for (int r = 0; r < kTileRows; ++r) s += gs[r * ldg + threadIdx.x];
-    p_bout[threadIdx.x] = s;
-  }
+  load_head_cotangents(w, gout, row0, nvalid, gs, p_beta + L * H);
 
   float acc[kRowsPerWarp][H / 32];
   zero<H>(acc);
-  head_dh<H>(acc, gs, ldg, O, w.w_out, wbuf);
+  head_dh<H>(acc, gs, round_up4(w.O), w.O, w.w_out, wbuf);
   for (int i = L - 1; i >= 0; --i) {
     layer_bwd<H, true>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats,
                        dpre, p_b, p_g, p_beta, wbuf);
@@ -243,27 +326,172 @@ __global__ void __launch_bounds__(kThreads, 1)
     input_grad<H>(acc, act, wbuf, dpre, PP, row0, nvalid, 0, w.w_in, 0, nullptr, w.F, dx);
 }
 
+// Bytes of shared memory of mip_bwd_rows_tc_kernel: the B chunks (also the
+// head's transposed weight chunks and the colsum scratch), the activation
+// tile, the output cotangents and the alignment slack.
+template <int H>
+__host__ inline size_t mip_bwd_rows_tc_smem(const MipWeights& w) {
+  return (static_cast<size_t>(tc_bbuf_floats<H>()) + static_cast<size_t>(kTileRows) * act_ld<H>() +
+          static_cast<size_t>(kTileRows) * round_up4(w.O)) *
+             sizeof(float) +
+         kSmemAlign;
+}
+
+// mip_bwd_rows_kernel with the hidden products dh = dpre W^T on the tensor
+// cores (bwd_rows_tc_kernel's order, tc_mlp.cuh): bwd is the hidden slabs'
+// backward images (the packed [in][out] slabs, 2 H H floats each).  No
+// features' cotangent (K6 asks for none).  One block an SM.
+template <int H>
+__global__ void __launch_bounds__(kThreads, 1)
+    mip_bwd_rows_tc_kernel(MipWeights w, const float* __restrict__ gout, int P,
+                           const float* xhat, const float* stats, const float* __restrict__ bwd,
+                           float* dpre, float* tpart) {
+  extern __shared__ float4 smem4[];
+  float* bbuf = tc_smem_base(smem4);          // B chunks, head chunks or colsum scratch
+  float* act = bbuf + tc_bbuf_floats<H>();    // dpre of the current layer
+  float* gs = act + kTileRows * act_ld<H>();  // [64][ldg] output cotangents
+  const int L = w.L;
+  const size_t slab = 2 * static_cast<size_t>(H) * H, PP = static_cast<size_t>(P);
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
+  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
+  float* p_b = tpart + blockIdx.x * mip_tile_floats(w, H);
+  float* p_g = p_b + L * H;
+  float* p_beta = p_g + L * H;
+  load_head_cotangents(w, gout, row0, nvalid, gs, p_beta + L * H);
+
+  float acc[kRowsPerWarp][H / 32];
+  float d[H / 4];
+  zero<H>(acc);
+  head_dh<H>(acc, gs, round_up4(w.O), w.O, w.w_out, bbuf);
+  for (int i = L - 1; i >= 0; --i) {
+    layer_bwd<H, true>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats,
+                       dpre, p_b, p_g, p_beta, bbuf);
+    if (i == 0) break;
+    tc_store_rows<H>(acc, act);
+    tc_zero<H>(d);
+    tc_gemm<H>(d, act, act_ld<H>(), H, bwd + (i - 1) * slab, bbuf);
+    tc_to_rows<H>(d, act, acc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The policies (SimtProducts' and TcProducts' counterparts for this chain).
+// ---------------------------------------------------------------------------
+
+// The float32 SIMT passes (K5-fwd, K5-bwd; K6's and K7's forward where the
+// features are too wide for the tensor-core tile).
+struct MipSimt {
+  template <int H, bool kSave>
+  static cudaError_t fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
+                         float* stats, const float* /*tc_fwd*/, cudaStream_t stream) {
+    const size_t smem = fwd_store_smem<H>(w.F, 0);
+    cudaError_t err = cudaFuncSetAttribute(mip_fwd_kernel<H, kSave>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const int tiles = (P + kTileRows - 1) / kTileRows;
+    mip_fwd_kernel<H, kSave><<<tiles, kThreads, smem, stream>>>(w, x, out, P, xhat, stats);
+    return cudaGetLastError();
+  }
+
+  template <int H>
+  static cudaError_t bwd_rows(const MipWeights& w, const float* gout, int P, const Scratch& s,
+                              float* dx, cudaStream_t stream) {
+    transpose_slabs_kernel<<<dim3(H / 32, H / 32, w.L - 1), dim3(32, 8), 0, stream>>>(w.whh, H,
+                                                                                      s.wt);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    const size_t smem = mip_bwd_rows_smem<H>(w);
+    err = cudaFuncSetAttribute(mip_bwd_rows_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const int tiles = (P + kTileRows - 1) / kTileRows;
+    mip_bwd_rows_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats, s.wt,
+                                                               s.dpre, s.tpart, dx);
+    return cudaGetLastError();
+  }
+
+  static cudaError_t wgrad(const WProds& prods, int total_tiles, int P, int k_chunk,
+                           const Scratch& s, size_t wfloats, cudaStream_t stream) {
+    return SimtProducts::wgrad(prods, total_tiles, P, k_chunk, s, wfloats, stream);
+  }
+};
+
+// The 3xTF32 passes (K6, K7) on the call's operand images: tc_fwd, the
+// forward images (MipImages), and the Scratch's tc_bwd, the hidden slabs'
+// backward images.  The forward tile takes fwd_store's bytes without the
+// view encodings, so fwd_store's plan at (F, 0) decides it (the width
+// rule, tc_mlp.cuh note 9): MipSimt's tile runs where the tensor-core one
+// does not fit.  The features' cotangent is not implemented (requesting it
+// returns cudaErrorInvalidValue).
+struct MipTc {
+  template <int H, bool kSave>
+  static cudaError_t fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
+                         float* stats, const float* tc_fwd, cudaStream_t stream) {
+    TilePolicy policy;
+    cudaError_t err = fwd_store_plan<H>(w.F, 0, &policy);
+    if (err != cudaSuccess) return err;
+    if (policy == kTileSimt)
+      return MipSimt::fwd<H, kSave>(w, x, out, P, xhat, stats, tc_fwd, stream);
+    if (policy == kTileNone || tc_fwd == nullptr) return cudaErrorInvalidValue;
+    const size_t smem = tc_tile_bytes<H>(w.F, 0);
+    const MipImages im = MipImages::forward(w, tc_fwd, H);
+    const int tiles = (P + kTileRows - 1) / kTileRows;
+    if constexpr (kSave) {
+      err = cudaFuncSetAttribute(mip_fwd_store_tc_kernel<H>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      mip_fwd_store_tc_kernel<H><<<tiles, kThreads, smem, stream>>>(w, im, x, out, P, xhat, stats);
+    } else {
+      err = cudaFuncSetAttribute(mip_fwd_tc_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      mip_fwd_tc_kernel<H><<<tiles, kThreads, smem, stream>>>(w, im, x, out, P);
+    }
+    return cudaGetLastError();
+  }
+
+  template <int H>
+  static cudaError_t bwd_rows(const MipWeights& w, const float* gout, int P, const Scratch& s,
+                              float* dx, cudaStream_t stream) {
+    if (s.tc_bwd == nullptr || dx != nullptr) return cudaErrorInvalidValue;
+    const size_t smem = mip_bwd_rows_tc_smem<H>(w);
+    cudaError_t err = cudaFuncSetAttribute(mip_bwd_rows_tc_kernel<H>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const int tiles = (P + kTileRows - 1) / kTileRows;
+    mip_bwd_rows_tc_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats,
+                                                                  s.tc_bwd, s.dpre, s.tpart);
+    return cudaGetLastError();
+  }
+
+  static cudaError_t wgrad(const WProds& prods, int total_tiles, int P, int k_chunk,
+                           const Scratch& s, size_t wfloats, cudaStream_t stream) {
+    return TcProducts::wgrad(prods, total_tiles, P, k_chunk, s, wfloats, stream);
+  }
+};
+
+// The forward over features x [P][F] -> out [P][O] through the policy's
+// tile; with kSave also the chain for the backward (xhat, stats).  tc_fwd:
+// the forward images (MipTc only).
+template <int H, bool kSave, class Products>
+cudaError_t launch_mip_fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
+                           float* stats, const float* tc_fwd, cudaStream_t stream) {
+  return Products::template fwd<H, kSave>(w, x, out, P, xhat, stats, tc_fwd, stream);
+}
+
 // The backward passes from the output cotangents gout [P][O] (the forward
 // ran with kSave into s): grads (the flat gradient, mip_wgrad_floats +
 // mip_tile_floats) and, when not null, dx.  x is the forward's features.
-template <int H>
+template <int H, class Products>
 cudaError_t launch_mip_backward(const MipWeights& w, const float* x, const float* gout, int P,
                                 const Scratch& s, float* dx, float* grads,
                                 cudaStream_t stream) {
   const int L = w.L;
-  transpose_slabs_kernel<<<dim3(H / 32, H / 32, L - 1), dim3(32, 8), 0, stream>>>(w.whh, H,
-                                                                                  s.wt);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem = mip_bwd_rows_smem<H>(w);
-  err = cudaFuncSetAttribute(mip_bwd_rows_kernel<H>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
+  cudaError_t err = Products::template bwd_rows<H>(w, gout, P, s, dx, stream);
   if (err != cudaSuccess) return err;
   const int tiles = (P + kTileRows - 1) / kTileRows;
-  mip_bwd_rows_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats, s.wt,
-                                                             s.dpre, s.tpart, dx);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const size_t PP = static_cast<size_t>(P);
   const int th = (H + kWT - 1) / kWT;
@@ -288,8 +516,8 @@ cudaError_t launch_mip_backward(const MipWeights& w, const float* x, const float
   const size_t wf = mip_wgrad_floats(w, H);
   int k_chunk = (P + s.splits - 1) / s.splits;
   k_chunk = (k_chunk + kWK - 1) / kWK * kWK;
-  wgrad_kernel<<<dim3(total_tiles, s.splits), 256, 0, stream>>>(prods, P, k_chunk, s.wpart, wf);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if ((err = Products::wgrad(prods, total_tiles, P, k_chunk, s, wf, stream)) != cudaSuccess)
+    return err;
   if ((err = colsum(s.wpart, s.splits, wf, grads, s.tmp, stream)) != cudaSuccess) return err;
   return colsum(s.tpart, tiles, mip_tile_floats(w, H), grads + wf, s.tmp, stream);
 }

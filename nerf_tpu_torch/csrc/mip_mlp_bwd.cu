@@ -20,7 +20,9 @@
 // stores the chain to global scratch, a per-tile backward writes every
 // layer's dpre and the tile's column sums, a hand-written product over the
 // points gives dW in split chunks, and fixed-order sums of the partials
-// make the gradients repeatable (no atomics).
+// make the gradients repeatable (no atomics).  The float32 SIMT passes
+// (MipSimt): the features' cotangent, which the tensor-core bwd_rows does
+// not write, comes from the stored dpre.
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "mip_mlp.cuh"
@@ -32,9 +34,10 @@ using namespace nerf_mlp;
 template <int H>
 cudaError_t run(const MipWeights& w, const float* x, const float* gout, float* dx, float* grads,
                 float* out, int P, const Scratch& s, cudaStream_t stream) {
-  cudaError_t err = launch_mip_fwd<H, true>(w, x, out, P, s.xhat, s.stats, stream);
+  cudaError_t err =
+      launch_mip_fwd<H, true, MipSimt>(w, x, out, P, s.xhat, s.stats, nullptr, stream);
   if (err != cudaSuccess) return err;
-  return launch_mip_backward<H>(w, x, gout, P, s, dx, grads, stream);
+  return launch_mip_backward<H, MipSimt>(w, x, gout, P, s, dx, grads, stream);
 }
 
 }  // namespace

@@ -12,7 +12,8 @@
 // fp32 FMA rate.  The design (mip_mlp.cuh on classic_mlp.cuh) keeps every
 // activation on chip: one block of 8 warps per 64-row tile, activations in
 // one shared-memory buffer, LayerNorm as warp reductions in registers,
-// weights streamed from L2; two blocks fit on an SM.
+// weights streamed from L2; two blocks fit on an SM (the MipSimt policy:
+// K6 and K7 run the same chain on the tensor cores).
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "mip_mlp.cuh"
@@ -25,7 +26,8 @@ extern "C" int mip_mlp_fwd(const float* x, float* out, int P, int F, int hidden,
   if (L < 2 || O < 1 || O > kThreads) return cudaErrorInvalidValue;
   const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) static_cast<int>(launch_mip_fwd<H, false>(w, x, out, P, nullptr, nullptr, s))
+#define NERF_LAUNCH(H) \
+  static_cast<int>(launch_mip_fwd<H, false, MipSimt>(w, x, out, P, nullptr, nullptr, nullptr, s))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }

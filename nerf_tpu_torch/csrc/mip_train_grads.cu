@@ -12,11 +12,18 @@
 //
 // Bound: operations.  Forward + dh + dW = 3 x 300,544 multiply-adds per
 // row at the full-width model (no recompute: the forward stores its
-// chain), 4.653e11 FLOP at 4096 x 63 rows, 6.94 ms at 67 TFLOP/s.  The
-// stored chain (xhat and dpre, 5 x 256 x 4 bytes each per row, written
-// and read) is about 2.6 GB of traffic, 0.8 ms at 3.35 TB/s.
+// chain), 4.653e11 FLOP at 4096 x 63 rows: 6.945 ms at the float32 SIMT
+// rate (67 TFLOP/s), 2.820 ms as three TF32 products on the tensor cores
+// (FLOP / 165 TFLOP/s).  The stored chain (xhat and dpre, 5 x 256 x 4
+// bytes each per row, written and read) is about 2.6 GB of traffic, 0.8 ms
+// at 3.35 TB/s.
 //
-// Design: the mip MLP passes of mip_mlp.cuh, with one per-ray pass between
+// Design: the mip MLP passes of mip_mlp.cuh with the tensor-core policy
+// MipTc (the stored-chain forward, bwd_rows' dh = dpre W^T and wgrad's dW,
+// the head's too, as 3xTF32 wgmma on the operand images the wrapper builds
+// once a step; LayerNorm, the head's forward and its input cotangent
+// float32; the forward in the float32 SIMT tile where the features are
+// too wide for its own, tc_mlp.cuh note 9), with one per-ray pass between
 // forward and backward: one warp per ray, each lane a run of consecutive
 // rows (two at 63 rows); composite_ray runs the compositing, the MSE and
 // their backward (warp scans in fp32), and SegCE adds the cross-entropy:
@@ -126,7 +133,8 @@ cudaError_t run(const MipWeights& w, const float* x, const float* dists, const f
                 float seg_weight, float* loss, float* grads, const Scratch& s, float* out,
                 float* gout, float* ray_loss, cudaStream_t stream) {
   const int P = R * n;
-  cudaError_t err = launch_mip_fwd<H, true>(w, x, out, P, s.xhat, s.stats, stream);
+  cudaError_t err =
+      launch_mip_fwd<H, true, MipTc>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
   if (err != cudaSuccess) return err;
   const size_t smem = static_cast<size_t>(kWarps) * 5 * n * sizeof(float);
   err = cudaFuncSetAttribute(mip_objective_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -140,7 +148,7 @@ cudaError_t run(const MipWeights& w, const float* x, const float* dists, const f
       ray_loss);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = colsum(ray_loss, R, 2, loss, s.tmp, stream)) != cudaSuccess) return err;
-  return launch_mip_backward<H>(w, x, gout, P, s, nullptr, grads, stream);
+  return launch_mip_backward<H, MipTc>(w, x, gout, P, s, nullptr, grads, stream);
 }
 
 }  // namespace
@@ -153,16 +161,26 @@ extern "C" int mip_train_grads(const float* x, const float* dists, const float* 
                                const float* beta, const float* w_out, const float* b_out,
                                float* xhat, float* stats, float* dpre, float* wpart,
                                float* tpart, float* tmp, float* wt, float* out, float* gout,
-                               float* ray_loss, int splits, void* stream) {
+                               float* ray_loss, int splits, const float* tc_fwd,
+                               const float* tc_bwd, void* stream) {
   if (L < 2 || L + 1 > kMaxProds || c < 1 || c > kMaxColors || O < c + 2 || O > kThreads ||
       (seg_weight != 0.f && labels == nullptr))
     return cudaErrorInvalidValue;
   const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits};
+  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H)                                                                       \
   static_cast<int>(run<H>(w, x, dists, noise, pix, labels, R, n, c, white, seg_weight, loss, \
                           grads, s, out, gout, ray_loss, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
+}
+
+// The plan of K6's forward tile for F = xe features (de must be 0): out =
+// [policy (0 tensor cores, 1 float32 SIMT, 2 neither fits), tensor-core
+// bytes, SIMT bytes, the device's limit].  bwd_rows and wgrad do not
+// depend on F and always run on the tensor cores.
+extern "C" int mip_train_grads_plan(int xe, int de, int hidden, long long* out) {
+  if (de != 0) return cudaErrorInvalidValue;
+  return static_cast<int>(fwd_store_plan_at(xe, 0, hidden, out));
 }

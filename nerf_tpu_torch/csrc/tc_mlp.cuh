@@ -1,6 +1,8 @@
 // Tensor-core products for the MLP passes of K2 (train_grads.cu), K3
 // (fine_stage_train.cu), K9 (mega_train.cu), K4 (union_eval.cu), K1-fwd
-// (classic_mlp_fwd.cu) and K1-bwd (classic_mlp_bwd.cu): every
+// (classic_mlp_fwd.cu), K1-bwd (classic_mlp_bwd.cu), and of K6
+// (mip_train_grads.cu) and K7 (mip_eval.cu) through mip_mlp.cuh's MipTc
+// policy, which composes the same pieces in the mip order: every
 // hidden and encoding product as 3xTF32 on Hopper's
 // wgmma, A.B = hi(A)hi(B) + hi(A)lo(B) + lo(A)hi(B) with lo = x - hi, both
 // cut to TF32 by bit masking (hi keeps 10 mantissa bits, hi + lo about 21;
@@ -19,7 +21,9 @@
 // 22.212 and 9.019 ms; K2 at 4096 x 64 and K3 at 2048 x 128 14.808 and
 // 6.013 ms each; K4 at a 4000-ray tile 9.641 and 3.915 ms; K1-fwd at
 // 262,144 rows 4.936 and 2.004 ms; K1-bwd (forward recomputed) at 131,072
-// rows 7.404 and 3.006 ms.
+// rows 7.404 and 3.006 ms.  The mip chain (F = 96, 5 layers, O = 54):
+// 300,544 a row; K6 at 4096 x 63 6.945 and 2.820 ms, K7 at a 4000-ray
+// tile of 63 rows 2.261 and 0.918 ms.
 //
 // The constraints the design answers:
 // 1. TF32 wgmma takes both operands K-major (the transpose flags exist only
@@ -46,7 +50,9 @@
 //    block at H = 256, 1024 bytes of alignment slack included: fwd_store
 //    223,232 (with the 64 x 60 and 64 x 36 encoding tiles), K4's tile
 //    227,328 at 128 fine samples (with its [256][1 + c] outputs), bwd_rows
-//    199,680, wgrad 136,192.
+//    199,680, wgrad 136,192; the mip forward tile 223,232 (with the 64 x
+//    96 feature tile), the mip bwd_rows 212,992 (with the [64][56] output
+//    cotangents).
 // 3. Accumulators and LayerNorm: in a wgmma accumulator a row's values sit
 //    in a quad of one warp and, here, in both warpgroups (each takes H / 2
 //    columns).  Each product's accumulators go once through the activation
@@ -58,7 +64,12 @@
 //    a layer against 64 x H x H x 6 FLOP of tensor-core work.
 // 4. Widths not a multiple of 16: the images pad K with zeros; A fragments
 //    past the width read 0.  The density and colour heads stay SIMT (head,
-//    head_bwd).  Tails of P are zero-filled as load_tile does.
+//    head_bwd), and so do the mip 54-wide head's forward and input
+//    cotangent (head_wide, head_dh, mip_mlp.cuh; its weights staged through
+//    the B chunk buffers once the last product has retired); its dW is a
+//    wgrad product with N = 54, the columns past N zero in the B image and
+//    each stored alone where N is odd.  Tails of P are zero-filled as
+//    load_tile does.
 // 5. The chain (xhat, dpre: ~4 GB each at 393,216 rows) stays float32 in
 //    global memory: no hi/lo copy, no extra pass.  wgrad keeps the tiles of
 //    one chunk of points adjacent in launch order (blockIdx.x runs over the
@@ -81,7 +92,8 @@
 //    fine samples are compared in probability).
 // 9. The width rule.  The tile's bytes grow with the encoding widths (256
 //    bytes a float of xe' + de', the widths rounded up to 4, at H = 256):
-//    fwd_store's tile (and K1-fwd's, the same bytes) holds xe' + de' <=
+//    fwd_store's tile (and K1-fwd's, the same bytes; and K6's and K7's,
+//    with the mip features as xe' and no de') holds xe' + de' <=
 //    132 and K4's, which also keeps
 //    the fine outputs, <= 116 within the 232,448 bytes a block may opt in
 //    to.  The full-width model has 60 + 36; a latent-conditioned one
@@ -90,7 +102,8 @@
 //    device's opt-in limit (cudaDevAttrMaxSharedMemoryPerBlockOptin) and,
 //    where it does not fit, runs the float32 SIMT pass of the same kernel
 //    (fwd_store_kernel; K1-fwd's classic_mlp_fwd_kernel and K4's
-//    mlp_tile, their products before the tensor cores): 16 weight rows in place of four 16-value chunk buffers, so it
+//    mlp_tile; K6's and K7's mip_fwd_kernel, their products before the
+//    tensor cores): 16 weight rows in place of four 16-value chunk buffers, so it
 //    holds xe' + de' <= 588 (K4 572), and it is the pass the card tests
 //    have held against plain at every width since slice 2.  (A two-stage
 //    ring on the tensor cores would hold 64 KB more, xe' + de' <= 388, at
@@ -821,9 +834,14 @@ __global__ void __launch_bounds__(256, 1)
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int n = n0 + 8 * j + 2 * q;
-      if (n < N)
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(m) * N + n) =
-            make_float2(acc[4 * j + 2 * hrow], acc[4 * j + 2 * hrow + 1]);
+      float* at = out + static_cast<size_t>(m) * N + n;
+      if (N % 2 == 0) {  // a pair of columns, 8-byte aligned
+        if (n < N) *reinterpret_cast<float2*>(at) = make_float2(acc[4 * j + 2 * hrow],
+                                                                acc[4 * j + 2 * hrow + 1]);
+      } else {  // an odd N (a head as wide as its outputs): each column alone
+        if (n < N) at[0] = acc[4 * j + 2 * hrow];
+        if (n + 1 < N) at[1] = acc[4 * j + 2 * hrow + 1];
+      }
     }
   }
 }

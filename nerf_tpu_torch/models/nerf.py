@@ -13,7 +13,9 @@ backward is K1-bwd) and the deterministic hierarchical-reuse fine stage of
 building their tensor-core operand images once a frame
 (``classic_mlp.prepare_weights``); the mip model runs its MLP through K5
 (``ops/kernels/mip_mlp.py``, backward K5-bwd) and its deterministic render
-through the forward-only K7 (``ops/kernels/mip_train.py``).
+through the forward-only K7 (``ops/kernels/mip_train.py``), its
+``render_image`` likewise packing the weights and building their forward
+images once a frame (``mip_mlp.prepare_weights``).
 ``render_rays`` also takes a step's random draws made beforehand
 (``sampling.StepDraws``), as the train steps pass them.
 """
@@ -396,7 +398,7 @@ class MipNeRF(nn.Module):
         the JAX package."""
         del states_x, states_d
         means, _, features = self.integrated_pe(rays_o, rays_d, t_vals)
-        if self.cfg.use_pallas and mip_mlp.supports_mip_config(self.cfg):
+        if self._uses_kernels():
             lead = features.shape[:-1]
             out = mip_mlp.mip_mlp_fwd(
                 mip_mlp.pack_mip_params(self.mlp),
@@ -410,16 +412,14 @@ class MipNeRF(nn.Module):
     def _compute_dtype(self) -> torch.dtype:
         return getattr(torch, self.cfg.compute_dtype)
 
+    def _uses_kernels(self) -> bool:
+        return self.cfg.use_pallas and mip_mlp.supports_mip_config(self.cfg)
+
     def _use_fused_eval(self, render: RenderConfig, rays_o: torch.Tensor) -> bool:
         """Gate for the forward-only K7 kernel: fused path on, no density
         noise, a flat ray batch.  ``render_image`` opts in; differentiable
         paths must not (K7 has no backward)."""
-        return (
-            self.cfg.use_pallas
-            and mip_mlp.supports_mip_config(self.cfg)
-            and render.density_noise_std == 0.0
-            and rays_o.ndim == 2
-        )
+        return self._uses_kernels() and render.density_noise_std == 0.0 and rays_o.ndim == 2
 
     def render_rays(
         self,
@@ -431,12 +431,16 @@ class MipNeRF(nn.Module):
         fused_eval: bool = False,
         generator: Optional[torch.Generator] = None,
         draws: Optional[sampling.StepDraws] = None,
+        mlp_weights: Optional[classic_mlp.PreparedWeights] = None,
     ) -> RenderOutput:
         """Render a batch of rays over ``render.num_coarse_samples``
         log-bbox fenceposts; rgb and segmentation carry one stage entry.
         ``generator`` draws the jitter and the density noise unless
         ``draws`` holds them already made (``sampling.draw_step`` with the
-        model's ``bbox_diagonal``)."""
+        model's ``bbox_diagonal``).  On K7's path ``mlp_weights`` are the
+        MLP's weights as ``mip_mlp.prepare_weights`` built them for several
+        calls (``render_image`` passes them to every tile), else the call
+        packs them."""
         if draws is not None:
             t_vals, noise = draws.t_coarse, draws.noise_c
         else:
@@ -451,14 +455,17 @@ class MipNeRF(nn.Module):
             # MLP, compositing and the seg composite in one K7 launch.
             del states_x, states_d
             means, _, features = self.integrated_pe(rays_o, rays_d, t_vals)
+            if mlp_weights is None:
+                mlp_weights = classic_mlp.PreparedWeights(mip_mlp.pack_mip_params(self.mlp))
             rgb, seg, depth, acc = mip_train.mip_eval(
-                mip_mlp.pack_mip_params(self.mlp),
+                mlp_weights.packed,
                 features.to(self._compute_dtype()).contiguous(),
                 compositing.distances_from_points(means).contiguous(),
                 t_mids.contiguous(),
                 None,
                 self.cfg.color_outputs,
                 render.white_background,
+                tc_fwd=mlp_weights.tc_fwd,
             )
             return RenderOutput(rgb=rgb[..., None, :], segmentation=seg[..., None, :],
                                 depth=depth, acc=acc)
@@ -492,13 +499,18 @@ class MipNeRF(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full images ``([B, H, W, C], [B, H, W, num_classes])``, tile by
-        tile of ``render.rays_per_tile`` rays."""
+        tile of ``render.rays_per_tile`` rays.  On K7's path the weights are
+        packed, and their forward images built, once for the frame's
+        kernel calls."""
         cfg = self.cfg
+        mlp_weights = None
+        if self._uses_kernels() and render.density_noise_std == 0.0:
+            mlp_weights = mip_mlp.prepare_weights(self.mlp)
 
         def per_tile(tile_o, tile_d, tile_sx, tile_sd):
             out = self.render_rays(
                 tile_o, tile_d, render, tile_sx, tile_sd,
-                fused_eval=True, generator=generator,
+                fused_eval=True, generator=generator, mlp_weights=mlp_weights,
             )
             return torch.cat([out.rgb[..., -1, :], out.segmentation[..., -1, :]], dim=-1)
 

@@ -10,9 +10,10 @@ so machines without ``nvcc`` import the package freely.
 one where it launches its kernel, and nowhere else.  ``policy_counts``
 counts, by ``(kernel name, policy)``, which product the width-dependent
 tile of a tensor-core kernel (K1-bwd's, K2's, K3's and K9's ``fwd_store``,
-K1-fwd's and K4's block) ran in those calls: ``"tc"``, 3xTF32 on the
-tensor cores, or ``"simt"``, the float32 SIMT pass, where the encodings
-are too wide for the tensor-core tile (``csrc/tc_mlp.cuh``, note 9; ``tile_plan``), or where a
+K1-fwd's and K4's block, K6's and K7's forward tile) ran in those calls:
+``"tc"``, 3xTF32 on the tensor cores, or ``"simt"``, the float32 SIMT
+pass, where the encodings (the mip features) are too wide for the
+tensor-core tile (``csrc/tc_mlp.cuh``, note 9; ``tile_plan``), or where a
 K1-bwd call asks for the encodings' cotangents, which only the float32
 SIMT passes compute.
 """
@@ -48,7 +49,7 @@ POLICIES = ("tc", "simt")  # by the plans' codes; 2: neither tile fits
 # <name>_plan beside <name>.
 PLANNED = (
     "classic_mlp_fwd", "union_eval", "classic_mlp_bwd", "train_grads", "fine_stage_train",
-    "mega_train",
+    "mega_train", "mip_eval", "mip_train_grads",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -85,18 +86,22 @@ ARGTYPES = {
     "train_grads_plan": (_I,) * 3 + (_P,),
     "fine_stage_train_plan": (_I,) * 3 + (_P,),
     "mega_train_plan": (_I,) * 3 + (_P,),
+    # F 0 hidden out[4] (the mip forward tile's plan)
+    "mip_eval_plan": (_I,) * 3 + (_P,),
+    "mip_train_grads_plan": (_I,) * 3 + (_P,),
     # x out P F hidden L O, weights, stream
     "mip_mlp_fwd": (_P,) * 2 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,),
     # x gout dx grads P F hidden L O, weights,
     # xhat stats dpre wpart tpart tmp wt out splits stream
     "mip_mlp_bwd": (_P,) * 4 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 8 + (_I, _P),
     # x dists t_mids noise per_ray R n F hidden L C O white, weights,
-    # mlp_out stream
-    "mip_eval": (_P,) * 5 + (_I,) * 8 + _MIP_WEIGHT_ARGS + (_P,) * 2,
+    # mlp_out tc_fwd stream
+    "mip_eval": (_P,) * 5 + (_I,) * 8 + _MIP_WEIGHT_ARGS + (_P,) * 3,
     # x dists noise pix labels loss grads R n F hidden L C O white
     # seg_weight, weights, xhat stats dpre wpart tpart tmp wt out gout
-    # ray_loss splits stream
-    "mip_train_grads": (_P,) * 7 + (_I,) * 8 + (_F,) + _MIP_WEIGHT_ARGS + (_P,) * 10 + (_I, _P),
+    # ray_loss splits tc_fwd tc_bwd stream
+    "mip_train_grads": (_P,) * 7 + (_I,) * 8 + (_F,) + _MIP_WEIGHT_ARGS + (_P,) * 10 + (_I,)
+    + (_P,) * 3,
     # pts dirs out P xe de hidden c sx phx sd phd, weights, stream
     "classic_pointmlp_fwd": (_P,) * 3 + (_I,) * 5 + (_P,) * 4 + _WEIGHT_ARGS + (_P,),
     # pts dirs gout dpts ddirs grads P xe de hidden c sx phx sd phd, weights,
@@ -203,7 +208,8 @@ class TilePlan(NamedTuple):
 
 def tile_plan(name: str, xe: int, de: int, hidden: int, *shape: int) -> TilePlan:
     """The plan kernel ``name``'s width-dependent tile follows for these
-    shapes (``de`` 0 without the view branch; K4 also takes ``c, Sc, Sf``),
+    shapes (``de`` 0 without the view branch; for K6 and K7 ``xe`` is the
+    mip features' width and ``de`` 0; K4 also takes ``c, Sc, Sf``),
     from the library's ``<name>_plan``, the rule its launcher applies
     (``csrc/tc_mlp.cuh``, note 9): policy ``"tc"`` where the tensor-core
     tile fits the device's opt-in shared memory a block, else ``"simt"``.

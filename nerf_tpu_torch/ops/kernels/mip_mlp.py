@@ -6,7 +6,10 @@ its custom VJP).  K5-fwd is ``csrc/mip_mlp_fwd.cu``, K5-bwd
 ``csrc/mip_mlp_bwd.cu``, both on the device code of ``csrc/mip_mlp.cuh``.
 ``mip_mlp_fwd_plain`` and ``mip_mlp_bwd_plain`` are their plain PyTorch
 versions, which the wrappers run for CPU tensors and the tests and
-``chip_smoke.py`` hold the kernels against.  Under autograd
+``chip_smoke.py`` hold the kernels against.  K5's products are float32
+SIMT (the ``MipSimt`` policy of ``csrc/mip_mlp.cuh``); K6 and K7
+(``mip_train``) run the same chain on the tensor cores, on the weights as
+``prepare_weights`` packs and images them.  Under autograd
 ``mip_mlp_fwd`` runs as ``MipMLPFunction``, whose backward is
 ``mip_mlp_bwd``.
 
@@ -25,11 +28,12 @@ import torch
 import torch.nn.functional as F
 
 from nerf_tpu_torch.models.mlp import LAYER_NORM_EPS, MipMLP
-from nerf_tpu_torch.ops.kernels import _build
+from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
     HIDDEN_WIDTHS,
     WGRAD_TILE,
     Packed,
+    PreparedWeights,
     check_inputs,
     packed_grads_plain,
     scratch_for,
@@ -68,13 +72,29 @@ def pack_mip_params(mlp: MipMLP) -> Packed:
     return {k: v.contiguous() for k, v in packed.items()}
 
 
-def mip_mlp_fwd_plain(packed: Packed, features: torch.Tensor) -> torch.Tensor:
+def prepare_weights(mlp: MipMLP, backward: bool = False) -> PreparedWeights:
+    """``classic_mlp.prepare_weights`` for the mip MLP: the packed weights
+    and, where they lie on the card, their operand images
+    (``tc_mlp.tc_images``; ``tc_bwd`` where asked for), once for the tiles
+    of a frame or the passes of a step.  Valid only while the weights do not
+    change; under autograd ``packed`` keeps the graph to the parameters."""
+    packed = pack_mip_params(mlp)
+    if packed["w_in"].device.type != "cuda":
+        return PreparedWeights(packed)
+    return PreparedWeights(packed, *tc_mlp.tc_images(packed, backward))
+
+
+def mip_mlp_fwd_plain(packed: Packed, features: torch.Tensor,
+                      matmul=torch.matmul) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``[P, O]`` rows of
-    ``[density, color logits, segmentation logits]``."""
+    ``[density, color logits, segmentation logits]``.  ``matmul`` computes
+    the hidden and feature products (the head stays float32):
+    ``tc_mlp.tc_matmul_autograd`` emulates the tensor-core products of K6
+    and K7."""
     h = features
     for i in range(packed["b"].shape[0]):
         w = packed["w_in"] if i == 0 else packed["whh"][i - 1]
-        z = h @ w + packed["b"][i]
+        z = matmul(h, w) + packed["b"][i]
         h = torch.relu(F.layer_norm(z, z.shape[-1:], packed["g"][i], packed["beta"][i],
                                     LAYER_NORM_EPS))
     return h @ packed["w_out"] + packed["b_out"]

@@ -10,12 +10,19 @@ Counterpart of ``nerf_tpu/ops/pallas/fused_mip_train.py``:
   backward through all of it, returning the losses and the gradient of
   every packed weight; the kernel is ``csrc/mip_train_grads.cu``.
 
-Both run on the MLP device code of ``csrc/mip_mlp.cuh``.
-``mip_eval_plain`` and ``mip_train_grads_plain`` are their plain PyTorch
-versions (``mip_mlp_fwd_plain`` and the ``compositing`` functions, with
-gradients from ``torch.autograd``).  ``mip_train_loss_and_grads`` runs one
-fused train step of a ``MipNeRF``; ``MipTrainGradsFunction`` puts K6 under
-autograd, its backward handing back the gradients the kernel computed.
+Both run on the MLP device code of ``csrc/mip_mlp.cuh`` with its products
+as 3xTF32 on the tensor cores (the ``MipTc`` policy, on the operand images
+``tc_mlp.tc_images`` builds: the forward's for K7, both for K6; the forward
+tile in float32 SIMT where the features are too wide for its own, more
+than 132 floats a row at hidden 256: ``_build.tile_plan``, recorded in
+``_build.policy_counts``; K6's ``bwd_rows`` and ``wgrad`` always on the
+tensor cores).  ``mip_eval_plain`` and ``mip_train_grads_plain`` are their
+plain PyTorch versions (``mip_mlp_fwd_plain`` and the ``compositing``
+functions, with gradients from ``torch.autograd``; with
+``matmul=tc_mlp.tc_matmul`` or ``tc_matmul_autograd`` they emulate the
+kernels' products).  ``mip_train_loss_and_grads`` runs one fused train
+step of a ``MipNeRF``; ``MipTrainGradsFunction`` puts K6 under autograd,
+its backward handing back the gradients the kernel computed.
 
 Rows: S fenceposts give ``R = S - 1`` interval rows per ray; the interval
 lengths come from the Gaussian means (``distances_from_points``, 1e10 far
@@ -29,7 +36,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from nerf_tpu_torch.ops import compositing, sampling
-from nerf_tpu_torch.ops.kernels import _build
+from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
     MAX_COLORS,
     Packed,
@@ -44,7 +51,7 @@ from nerf_tpu_torch.ops.kernels.mip_mlp import (
     flat_grads_to_packed,
     mip_mlp_fwd_plain,
     mip_scratch,
-    pack_mip_params,
+    prepare_weights,
     scratch_pointers,
     weight_pointers,
 )
@@ -54,9 +61,9 @@ TRAIN_NAME = "mip_train_grads"
 MAX_ROWS = 1023  # interval rows per ray the per-ray kernels take (1024 fenceposts)
 
 
-def _mlp_rows(packed: Packed, features: torch.Tensor) -> torch.Tensor:
+def _mlp_rows(packed: Packed, features: torch.Tensor, matmul) -> torch.Tensor:
     n_rays, rows, n_feat = features.shape
-    return mip_mlp_fwd_plain(packed, features.reshape(n_rays * rows, n_feat)).reshape(
+    return mip_mlp_fwd_plain(packed, features.reshape(n_rays * rows, n_feat), matmul).reshape(
         n_rays, rows, -1)
 
 
@@ -77,7 +84,10 @@ def _check_shapes(name, packed, color_outputs, tensors) -> Tuple[int, int]:
     return n_rays, rows
 
 
-def _check_kernel(name, packed, color_outputs, n_rays, rows) -> None:
+def _check_kernel(name, packed, color_outputs, n_rays, rows) -> str:
+    """What the kernels take beyond the shapes; returns the policy of the
+    forward tile (``_build.tile_plan``, which raises past the SIMT tile),
+    before any launch."""
     check_kernel_shapes(name, packed)
     if not 0 < rows <= MAX_ROWS:
         raise ValueError(f"{name}: takes 1..{MAX_ROWS} interval rows per ray, got {rows}")
@@ -85,6 +95,8 @@ def _check_kernel(name, packed, color_outputs, n_rays, rows) -> None:
         raise ValueError(f"{name}: at most {MAX_COLORS} color outputs, got {color_outputs}")
     if n_rays == 0:
         raise ValueError(f"{name}: needs at least one ray")
+    n_feat, hidden = packed["w_in"].shape
+    return _build.tile_plan(name, n_feat, 0, hidden).policy
 
 
 # -- K7: the deterministic render --------------------------------------------
@@ -98,9 +110,11 @@ def mip_eval_plain(
     noise: Optional[torch.Tensor] = None,
     color_outputs: int = 3,
     white_background: bool = False,
+    matmul=torch.matmul,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch (see ``mip_eval``)."""
-    out = _mlp_rows(packed, features)
+    """The kernel's function in plain PyTorch (see ``mip_eval``); ``matmul``
+    as in ``mip_mlp_fwd_plain``."""
+    out = _mlp_rows(packed, features, matmul)
     dens = out[..., :1] if noise is None else out[..., :1] + noise[..., None]
     weights = compositing.weights_from_density(dens, dists)
     rgb = compositing.composite_rgb_with_background(
@@ -118,6 +132,7 @@ def mip_eval(
     noise: Optional[torch.Tensor] = None,
     color_outputs: int = 3,
     white_background: bool = False,
+    tc_fwd: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Forward-only mip render of a ray batch.
 
@@ -129,18 +144,28 @@ def mip_eval(
         noise: ``[B, R]`` density-logit noise, or ``None``.
         color_outputs: C, the head's colour logits after the density.
         white_background: composite over white (``rgb + 1 - acc``).
+        tc_fwd: the weights' forward operand image
+            (``tc_mlp.tc_images(packed)[0]``) built beforehand, else the
+            call builds it where the tensor-core tile runs.
 
     Returns ``(rgb [B, C], seg_log_probs [B, K], depth [B], acc [B])``.
     CPU tensors run ``mip_eval_plain``; CUDA tensors launch the kernel
-    (raising on what it does not take).
+    (raising on what it does not take): the tensor-core tile where the
+    features fit it, else the float32 SIMT tile, chosen from the shapes
+    (``_build.tile_plan``; past the SIMT tile a ``ValueError`` before any
+    launch), recorded in ``_build.policy_counts``.
     """
-    tensors = {"features": features, "dists": dists, "t_mids": t_mids, "noise": noise}
+    tensors = {"features": features, "dists": dists, "t_mids": t_mids, "noise": noise,
+               "tc_fwd": tc_fwd}
     device = check_inputs(EVAL_NAME, packed, tensors, ALIGNED)
+    tc_mlp.check_images(EVAL_NAME, packed, tc_fwd)
     n_rays, rows = _check_shapes(EVAL_NAME, packed, color_outputs, tensors)
     if device.type == "cpu":
         return mip_eval_plain(packed, features, dists, t_mids, noise, color_outputs,
                               white_background)
-    _check_kernel(EVAL_NAME, packed, color_outputs, n_rays, rows)
+    policy = _check_kernel(EVAL_NAME, packed, color_outputs, n_rays, rows)
+    if policy == "tc" and tc_fwd is None:
+        tc_fwd = tc_mlp.tc_images(packed)[0]
     layers, hidden = packed["b"].shape
     outputs = packed["w_out"].shape[1]
     classes = outputs - 1 - color_outputs
@@ -152,10 +177,11 @@ def mip_eval(
         features.data_ptr(), dists.data_ptr(), t_mids.data_ptr(), _build.ptr(noise),
         per_ray.data_ptr(), n_rays, rows, features.shape[-1], hidden, layers, color_outputs,
         outputs, int(white_background), *weight_pointers(packed), mlp_out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        _build.ptr(tc_fwd), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(EVAL_NAME, err)
     _build.launch_counts[EVAL_NAME] += 1
+    _build.policy_counts[(EVAL_NAME, policy)] += 1
     c = color_outputs
     return per_ray[:, :c], per_ray[:, c:c + classes], per_ray[:, c + classes], per_ray[:, -1]
 
@@ -179,8 +205,8 @@ def _check_labels(name, labels, n_rays, seg_weight, device) -> Optional[torch.Te
 
 
 def _objective(w, features, dists, noise, pixels, labels, color_outputs, seg_weight,
-               white_background):
-    out = _mlp_rows(w, features)
+               white_background, matmul):
+    out = _mlp_rows(w, features, matmul)
     weights = compositing.weights_from_density(out[..., :1] + noise[..., None], dists)
     rgb = compositing.composite_rgb_with_background(
         weights, out[..., 1:1 + color_outputs], 1.0 if white_background else None)
@@ -201,13 +227,16 @@ def mip_train_grads_plain(
     color_outputs: int = 3,
     seg_weight: float = 0.0,
     white_background: bool = False,
+    matmul=torch.matmul,
 ) -> Tuple[torch.Tensor, torch.Tensor, Packed]:
-    """The kernel's function in plain PyTorch (see ``mip_train_grads``)."""
+    """The kernel's function in plain PyTorch (see ``mip_train_grads``);
+    ``matmul`` as in ``mip_mlp_fwd_plain`` (``tc_mlp.tc_matmul_autograd``
+    emulates the kernel's products, forward and backward)."""
     kept = {}
 
     def objective(w):
         rgb_loss, seg_loss = _objective(w, features, dists, noise, pixels, labels,
-                                        color_outputs, seg_weight, white_background)
+                                        color_outputs, seg_weight, white_background, matmul)
         kept["rgb"], kept["seg"] = rgb_loss.detach(), seg_loss.detach()
         return rgb_loss + seg_weight * seg_loss, None
 
@@ -225,6 +254,8 @@ def mip_train_grads(
     color_outputs: int = 3,
     seg_weight: float = 0.0,
     white_background: bool = False,
+    tc_fwd: Optional[torch.Tensor] = None,
+    tc_bwd: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Packed]:
     """One evaluation of the full mip train objective.
 
@@ -239,21 +270,32 @@ def mip_train_grads(
             ``seg_weight > 0``.
         seg_weight: weight of the segmentation cross-entropy; 0 skips it.
         white_background: composite over white (``rgb + 1 - acc``).
+        tc_fwd, tc_bwd: the weights' operand images
+            (``tc_mlp.tc_images(packed, backward=True)``) built beforehand,
+            else the call builds them.
 
     Returns ``(rgb_loss, seg_loss, d_packed)``: the batch-mean MSE, the
     cross-entropy ``-mean_ray seg_log_probs[label]`` (0 when skipped) and
     the gradient of every packed weight of ``rgb_loss + seg_weight *
     seg_loss``.  CPU tensors run ``mip_train_grads_plain``; CUDA tensors
-    launch the kernel (raising on what it does not take).
+    launch the kernel (raising on what it does not take): the forward on the
+    tensor-core tile where the features fit it, else on the float32 SIMT
+    tile (``_build.tile_plan``, recorded in ``_build.policy_counts``; past
+    the SIMT tile a ``ValueError`` before any launch), the backward on the
+    tensor cores.
     """
-    tensors = {"features": features, "dists": dists, "noise": noise, "pixels": pixels}
+    tensors = {"features": features, "dists": dists, "noise": noise, "pixels": pixels,
+               "tc_fwd": tc_fwd, "tc_bwd": tc_bwd}
     device = check_inputs(TRAIN_NAME, packed, tensors, ALIGNED)
+    tc_mlp.check_images(TRAIN_NAME, packed, tc_fwd, tc_bwd)
     n_rays, rows = _check_shapes(TRAIN_NAME, packed, color_outputs, tensors)
     labels = _check_labels(TRAIN_NAME, labels, n_rays, seg_weight, device)
     if device.type == "cpu":
         return mip_train_grads_plain(packed, features, dists, noise, pixels, labels,
                                      color_outputs, seg_weight, white_background)
-    _check_kernel(TRAIN_NAME, packed, color_outputs, n_rays, rows)
+    policy = _check_kernel(TRAIN_NAME, packed, color_outputs, n_rays, rows)
+    if tc_bwd is None or (policy == "tc" and tc_fwd is None):
+        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
     layers, hidden = packed["b"].shape
     outputs = packed["w_out"].shape[1]
     sc = mip_scratch(packed, n_rays * rows, device)
@@ -267,27 +309,31 @@ def mip_train_grads(
         n_rays, rows, features.shape[-1], hidden, layers, color_outputs, outputs,
         int(white_background), float(seg_weight), *weight_pointers(packed),
         *scratch_pointers(sc), gout.data_ptr(), ray_loss.data_ptr(), sc["splits"],
-        torch.cuda.current_stream(device).cuda_stream,
+        _build.ptr(tc_fwd), tc_bwd.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(TRAIN_NAME, err)
     _build.launch_counts[TRAIN_NAME] += 1
+    _build.policy_counts[(TRAIN_NAME, policy)] += 1
     return losses[0], losses[1], flat_grads_to_packed(sc["grads"], packed)
 
 
 class MipTrainGradsFunction(torch.autograd.Function):
-    """``mip_train_grads`` under autograd: ``apply(options, features,
-    dists, noise, pixels, labels, *weights)`` with the weights in
+    """``mip_train_grads`` under autograd: ``apply(options, images,
+    features, dists, noise, pixels, labels, *weights)`` with the weights in
     ``PACK_ORDER`` returns ``(loss, rgb_loss, seg_loss)``, ``loss = rgb_loss
     + seg_weight * seg_loss`` (the other two carry no gradient); the
     backward scales the gradients the call returned.  ``options`` is
-    ``(color_outputs, seg_weight, white_background)``."""
+    ``(color_outputs, seg_weight, white_background)``, ``images`` the
+    operand images ``(tc_fwd, tc_bwd)`` built beforehand (``None`` where
+    not)."""
 
     @staticmethod
-    def forward(ctx, options: Tuple, features, dists, noise, pixels, labels, *weights):
+    def forward(ctx, options: Tuple, images: Tuple, features, dists, noise, pixels, labels,
+                *weights):
         color_outputs, seg_weight, white = options
         rgb_loss, seg_loss, d_packed = mip_train_grads(
             _packed_from_args(weights), features, dists, noise, pixels, labels,
-            color_outputs, seg_weight, white,
+            color_outputs, seg_weight, white, tc_fwd=images[0], tc_bwd=images[1],
         )
         ctx.save_for_backward(*[d_packed[k] for k in PACK_ORDER])
         ctx.mark_non_differentiable(rgb_loss, seg_loss)
@@ -295,7 +341,7 @@ class MipTrainGradsFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_loss, _g_rgb, _g_seg):
-        return (None,) * 6 + tuple(t * g_loss for t in ctx.saved_tensors)
+        return (None,) * 7 + tuple(t * g_loss for t in ctx.saved_tensors)
 
 
 def mip_train_loss_and_grads(
@@ -304,7 +350,8 @@ def mip_train_loss_and_grads(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """Loss and parameter gradients of ONE fused mip train step: IPE
     features of the draws' fenceposts, Gaussian-mean interval lengths, and
-    K6 for the rest (one launch).  ``draws`` holds the step's log-bbox
+    K6 for the rest (one launch; the weights packed, and their operand
+    images built, once for the step).  ``draws`` holds the step's log-bbox
     fenceposts and per-interval noise (``sampling.draw_step`` with the
     model's ``bbox_diagonal``).  Returns ``(loss, grads, aux)`` with
     ``grads`` keyed by ``model.named_parameters()``."""
@@ -314,9 +361,9 @@ def mip_train_loss_and_grads(
     dists = compositing.distances_from_points(means)
     dt = getattr(torch, model.cfg.compute_dtype)
     with torch.enable_grad():
-        packed = pack_mip_params(model.mlp)
+        packed, *images = prepare_weights(model.mlp, backward=True)
         loss, rgb_loss, seg_loss = MipTrainGradsFunction.apply(
-            (model.cfg.color_outputs, seg_weight, render.white_background),
+            (model.cfg.color_outputs, seg_weight, render.white_background), tuple(images),
             features.to(dt).contiguous(), dists.contiguous(), draws.noise_c.contiguous(),
             batch["pixels"].contiguous(), batch.get("labels"),
             *[packed[k] for k in PACK_ORDER],

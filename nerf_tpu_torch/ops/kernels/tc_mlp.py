@@ -1,9 +1,10 @@
-"""The tensor-core products of the classic kernels: 3xTF32 on Hopper's
+"""The tensor-core products of the MLP kernels: 3xTF32 on Hopper's
 ``wgmma``.
 
 K1-fwd and K1-bwd (``classic_mlp``), K2 (``train_grads``), K3
-(``fine_stage_train``), K4 (``union_eval``) and K9 (``mega_train``) run their
-hidden and encoding products as three TF32 products, ``hi(A) hi(B) + hi(A) lo(B) + lo(A) hi(B)``
+(``fine_stage_train``), K4 (``union_eval``), K9 (``mega_train``), K6 and K7
+(``mip_train``) run their hidden and encoding (or feature) products as three
+TF32 products, ``hi(A) hi(B) + hi(A) lo(B) + lo(A) hi(B)``
 with ``lo = x - hi``, into float32 accumulators (``csrc/tc_mlp.cuh``).  TF32
 keeps 10 mantissa bits; the split keeps about 21, which is what float32
 accuracy through ten LayerNorm'd layers needs.
@@ -116,25 +117,33 @@ def operand_image_unpack(img: torch.Tensor, n: int, k: int) -> Tuple[torch.Tenso
     return hl[..., 0, :, :], hl[..., 1, :, :]
 
 
+# The slabs on an encoding (classic) or the features (mip, ``w_in``), in
+# the order the images hold them; ``whh`` follows.
+INPUT_SLABS = ("w0", "wx", "wd_in", "w_in")
+
+
 def forward_slabs(packed) -> dict:
     """The packed weights' slabs as the forward's B operands, ``[out][in]``:
-    ``w0 [H, XE]``, ``wx [H, XE]``, ``wd_in [H, DE]`` (with the view
-    branch) and ``whh [L - 1, H, H]``."""
-    out = {k: packed[k].t() for k in ("w0", "wx", "wd_in") if k in packed}
+    the classic ``w0 [H, XE]``, ``wx [H, XE]``, ``wd_in [H, DE]`` (with the
+    view branch), or the mip ``w_in [H, F]``; then ``whh [L - 1, H, H]``."""
+    out = {k: packed[k].t() for k in INPUT_SLABS if k in packed}
     out["whh"] = packed["whh"].transpose(1, 2)
     return out
 
 
 def tc_images(packed, backward: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The operand images a kernel reads, built on the weights' device:
-    ``(forward, backward)``.  The forward images, in this order: ``w0``,
-    ``wx``, ``wd_in`` (with the view branch), then each hidden slab (the
-    order ``csrc/tc_mlp.cuh``'s ``TcImages`` reads).  With ``backward`` also
-    the hidden slabs as ``bwd_rows``' B operands (the packed ``[in][out]``
-    slabs); else ``None``."""
+    ``(forward, backward)``, for the classic weights
+    (``classic_mlp.pack_classic_params``) or the mip ones
+    (``mip_mlp.pack_mip_params``).  The forward images, in this order: the
+    input slabs (``w0``, ``wx``, ``wd_in`` with the view branch; or
+    ``w_in``), then each hidden slab (the order ``csrc/tc_mlp.cuh``'s
+    ``TcImages`` and ``csrc/mip_mlp.cuh``'s ``MipImages`` read).  With
+    ``backward`` also the hidden slabs as ``bwd_rows``' B operands (the
+    packed ``[in][out]`` slabs); else ``None``."""
     with torch.no_grad():
         slabs = forward_slabs(packed)
-        fwd = [operand_image(slabs[k]) for k in ("w0", "wx", "wd_in") if k in slabs]
+        fwd = [operand_image(slabs[k]) for k in INPUT_SLABS if k in slabs]
         fwd.append(operand_image(slabs["whh"]).reshape(-1))
         bwd = operand_image(packed["whh"]).reshape(-1) if backward else None
         return torch.cat(fwd), bwd
@@ -143,8 +152,8 @@ def tc_images(packed, backward: bool = False) -> Tuple[torch.Tensor, Optional[to
 def image_numels(packed) -> Tuple[int, int]:
     """Floats of the forward and the backward image ``tc_images(packed,
     backward=True)`` builds."""
-    hidden = packed["w0"].shape[1]
-    widths = [packed[k].shape[0] for k in ("w0", "wx", "wd_in") if k in packed]
+    hidden = packed["whh"].shape[-1]
+    widths = [packed[k].shape[0] for k in INPUT_SLABS if k in packed]
     slabs = packed["whh"].shape[0] * 2 * hidden * hidden
     return 2 * hidden * sum(round_up_chunk(w) for w in widths) + slabs, slabs
 

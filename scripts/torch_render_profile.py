@@ -11,8 +11,10 @@ the host clock (ending in ``torch.cuda.synchronize()``, after a warm-up
 frame); then it renders the same number of frames under ``torch.profiler``
 and sums the device time of every kernel by name.  Prints the card, the
 frame's wall time, device time per frame by kernel (largest first; K1-fwd's
-``fwd_tc_kernel`` and K4's ``union_eval_kernel``, whose MLPs run as 3xTF32
-on the tensor cores, labelled as ``chip_smoke.PASSES`` names them), the ported kernels' share, and the device's idle share (1 - busy / span of the
+``fwd_tc_kernel``, K4's ``union_eval_kernel`` and K7's
+``mip_fwd_tc_kernel``, whose MLPs run as 3xTF32 on the tensor cores,
+labelled as ``chip_smoke.PASSES`` names them), the ported kernels' share,
+and the device's idle share (1 - busy / span of the
 first to the last kernel); ``--out`` also writes them as JSON.  Exits
 non-zero without a GPU.
 """
@@ -38,7 +40,7 @@ from nerf_tpu_torch.data.scenes import spherical_poses  # noqa: E402
 
 # Kernel names (by substring) of each family's ported kernels.
 PORTED = {"classic": ("fwd_tc_kernel", "classic_mlp_fwd_kernel", "union_eval"),
-          "mip": ("mip_fwd_kernel", "mip_eval_rays_kernel")}
+          "mip": ("mip_fwd_tc_kernel", "mip_fwd_kernel", "mip_eval_rays_kernel")}
 
 
 def profile_family(family: str, n_frames: int, device) -> dict:

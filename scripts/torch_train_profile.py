@@ -16,12 +16,10 @@ number of steps under ``torch.profiler`` and sums the device time of every
 kernel by name (K9's passes are separate kernels of its one call).  Prints
 the card, ms/step, rays/s, device time per step by kernel (largest first,
 each MLP pass labelled as ``chip_smoke.PASSES`` names it: K1-bwd's, K2's,
-K3's and K9's ``fwd_store``, ``bwd_rows`` and ``wgrad`` and K1-fwd's tile run
-their products as 3xTF32 on the tensor cores, K6's in float32 SIMT) and
-the device's idle
-share (1 - busy / span of the first to the last kernel); ``--out`` also
-writes them as JSON.  Exits
-non-zero without a GPU.
+K3's, K6's and K9's ``fwd_store``, ``bwd_rows`` and ``wgrad`` and K1-fwd's
+tile run their products as 3xTF32 on the tensor cores) and the device's
+idle share (1 - busy / span of the first to the last kernel); ``--out``
+also writes them as JSON.  Exits non-zero without a GPU.
 """
 
 from __future__ import annotations

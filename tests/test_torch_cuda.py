@@ -15,16 +15,17 @@ cumulative product.  K8 adds the device's sine of the same arguments; K9
 is held against its plain version with its own fine t-values (its resample
 against the plain one separately), as the JAX package holds its kernel.
 
-K1-fwd, K1-bwd (without the encodings' cotangents), K2, K3, K4 and K9 run
-their MLP products as 3xTF32 on the tensor cores (``csrc/tc_mlp.cuh``),
-at the same tolerances: their cases cover every
+K1-fwd, K1-bwd (without the encodings' cotangents), K2, K3, K4, K6, K7
+and K9 run their MLP products as 3xTF32 on the tensor cores
+(``csrc/tc_mlp.cuh``), at the same tolerances: their cases cover every
 hidden width, row counts that are not a multiple of 64, encoding widths
-that are not a multiple of 8 and runs with and without the view branch,
-and two calls must agree bitwise.  Where a latent-conditioned model's
-encodings are too wide for the tensor-core tile the kernels run the
-float32 SIMT tile (``_build.tile_plan``): the ``latent_full_width`` cases
-check that the policy each call recorded is the one its byte count
-predicts; past the SIMT tile the wrappers raise before any launch.  The
+that are not a multiple of 8 (and mip heads of 54 and 9 outputs), runs
+with and without the view branch, and two calls must agree bitwise.
+Where a latent-conditioned model's encodings (a mip model's features) are
+too wide for the tensor-core tile the kernels run the float32 SIMT tile
+(``_build.tile_plan``): the ``latent_full_width`` cases check that the
+policy each call recorded is the one its byte count predicts; past the
+SIMT tile the wrappers raise before any launch.  The
 products alone (``tc_linear``, ``tc_wgrad`` of ``csrc/tc_product.cu``) are
 held against the CPU emulation of the same arithmetic
 (``tc_mlp.tc_matmul``) and against the float64 product.
@@ -490,22 +491,35 @@ def predicted_tile_bytes(kernel, hidden, xe, de, colors, sc, sf):
             4 * (16 * hidden + max(act, comp) + enc + outs))
 
 
+# The mip models of the tile-policy cases: the full-width MipNeRF (96
+# features) and one with 144 (encoding_size 48), past the tensor-core tile.
+MIP_TILE_CASES = {"full_width": dict(), "latent_full_width": dict(encoding_size=48)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", [union_eval.NAME, train_grads.NAME, fine_stage_train.NAME,
-                                    classic_mlp.NAME, classic_mlp.BWD_NAME])
+                                    classic_mlp.NAME, classic_mlp.BWD_NAME,
+                                    mip_train.EVAL_NAME, mip_train.TRAIN_NAME])
 @pytest.mark.parametrize("variant", ["full_width", "latent_full_width"])
 def test_tile_policy_follows_the_byte_count(cuda, variant, kernel):
     """K4, K2, K3, K1-fwd and K1-bwd (no encoding cotangents) at full
     width with the default encodings (60 + 36) and a latent-conditioned
-    model's (100 + 48): the call matches plain at the kernel's tolerances
-    (K1-bwd, K2 and K3 on rows away from the ReLU kinks) and records the
-    policy its byte count predicts, the tensor cores where their tile fits
-    the device's opt-in shared memory a block, else the float32 SIMT tile
-    (K1-fwd's tiles take ``fwd_store``'s bytes).  On the H100 (232,448
-    bytes) that is the tensor cores at 60 + 36 and the SIMT tile at 100 +
-    48 in all five."""
-    cfg, packed = packed_weights(variant, cuda)
-    xe, de, colors, sc, sf = cfg.x_encoding_dim, cfg.d_encoding_dim, cfg.color_outputs, 64, 128
+    model's (100 + 48), and K7 and K6 (seg weight 0.1) at full width with
+    96 features and with 144 (``MIP_TILE_CASES``): the call matches plain
+    at the kernel's tolerances (K1-bwd, K2, K3 and K6 on rows away from the
+    ReLU kinks) and records the policy its byte count predicts, the tensor
+    cores where their tile fits the device's opt-in shared memory a block,
+    else the float32 SIMT tile (K1-fwd's tiles take ``fwd_store``'s bytes,
+    K6's and K7's ``fwd_store``'s without view encodings).  On the H100
+    (232,448 bytes) that is the tensor cores at 60 + 36 and 96, and the SIMT
+    tile at 100 + 48 and 144, in all seven."""
+    mip = kernel in (mip_train.EVAL_NAME, mip_train.TRAIN_NAME)
+    if mip:
+        cfg, packed = mip_packed("full_width", cuda, **MIP_TILE_CASES[variant])
+        xe, de, colors, sc, sf = cfg.feature_dim, 0, cfg.color_outputs, 64, 128
+    else:
+        cfg, packed = packed_weights(variant, cuda)
+        xe, de, colors, sc, sf = cfg.x_encoding_dim, cfg.d_encoding_dim, cfg.color_outputs, 64, 128
     tc_bytes, simt_bytes = predicted_tile_bytes(kernel, 256, xe, de, colors, sc, sf)
     plan = _build.tile_plan(kernel, xe, de, 256,
                             *((colors, sc, sf) if kernel == union_eval.NAME else ()))
@@ -532,6 +546,23 @@ def test_tile_policy_follows_the_byte_count(cuda, variant, kernel):
         got = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads=False)
         torch.cuda.synchronize()
         ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads=False)
+        assert_grads_close(got[2], ref[2])
+    elif kernel == mip_train.EVAL_NAME:
+        a = mip_inputs(cfg, cuda, rays=37, rows=sc - 1)
+        args = (packed, a["features"], a["dists"], a["t_mids"])
+        got = mip_train.mip_eval(*args)
+        torch.cuda.synchronize()
+        for g, r in zip(got, mip_train.mip_eval_plain(*args)):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+    elif kernel == mip_train.TRAIN_NAME:
+        a = mip_inputs(cfg, cuda, rays=3, rows=sc - 1, packed=packed)
+        args = (packed, a["features"], a["dists"], a["noise"], a["pixels"], a["labels"],
+                cfg.color_outputs, 0.1)
+        got = mip_train.mip_train_grads(*args)
+        torch.cuda.synchronize()
+        ref = mip_train.mip_train_grads_plain(*args)
+        torch.testing.assert_close(got[0], ref[0], rtol=LOSS_RTOL, atol=0)
+        torch.testing.assert_close(got[1], ref[1], rtol=LOSS_RTOL, atol=0)
         assert_grads_close(got[2], ref[2])
     elif kernel == train_grads.NAME:
         a = train_inputs(cfg, cuda, rays=3, s=sc, packed=packed)
@@ -617,8 +648,8 @@ MIP_VARIANTS = {
 }
 
 
-def mip_packed(variant, device):
-    cfg = MipNeRFConfig(**MIP_VARIANTS[variant])
+def mip_packed(variant, device, **overrides):
+    cfg = MipNeRFConfig(**{**MIP_VARIANTS[variant], **overrides})
     mlp = MipMLP(cfg, generator=torch.Generator().manual_seed(0), device=device)
     with torch.no_grad():  # LayerNorms off identity, so their gradients mean something
         for m in mlp.modules():
@@ -646,9 +677,15 @@ def test_mip_mlp_fwd_kernel_matches_plain(cuda, variant, points):
 @pytest.mark.parametrize("points", [1, 200])
 @pytest.mark.parametrize("variant", sorted(MIP_VARIANTS))
 def test_mip_mlp_bwd_kernel_matches_plain(cuda, variant, points, input_grads):
+    """K5-bwd against plain on features away from the mip order's ReLU
+    kinks (``mip_rows_away_from_kinks``), drawn after the cotangents: the
+    LayerNorms come from the global RNG, whose state differs between
+    processes, and on plain random rows one run of the full-width case met
+    a kink (``w_in`` off by 1.76e-2 of its largest entry)."""
     cfg, packed = mip_packed(variant, cuda)
     gen = torch.Generator(device=cuda).manual_seed(3)
     x, g_out = rand(gen, points, cfg.feature_dim), rand(gen, points, cfg.num_outputs)
+    x = mip_rows_away_from_kinks(packed, gen, 1, points, cfg.feature_dim)[0]
     before = _build.launch_counts[mip_mlp.BWD_NAME]
     dx, d_packed = mip_mlp.mip_mlp_bwd(packed, x, g_out, input_grads=input_grads)
     torch.cuda.synchronize()
@@ -659,10 +696,13 @@ def test_mip_mlp_bwd_kernel_matches_plain(cuda, variant, points, input_grads):
                        r_packed | ({"dx": rdx} if input_grads else {}))
 
 
-def mip_inputs(cfg, device, rays, rows, seed=0):
+def mip_inputs(cfg, device, rays, rows, seed=0, packed=None):
+    """K6's and K7's inputs; with ``packed`` the features are drawn, after
+    the rest, away from the ReLU kinks of those weights
+    (``mip_rows_away_from_kinks``)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     points = torch.cumsum(rand(gen, rays, rows, 3, lo=0.0, hi=1.0), dim=1)
-    return dict(
+    a = dict(
         features=rand(gen, rays, rows, cfg.feature_dim),
         dists=compositing.distances_from_points(points).contiguous(),
         noise=rand(gen, rays, rows),
@@ -670,6 +710,37 @@ def mip_inputs(cfg, device, rays, rows, seed=0):
         labels=torch.randint(0, cfg.segmentation_outputs, (rays,), generator=gen, device=device),
         t_mids=rand(gen, rays, rows, lo=0.1, hi=60.0),
     )
+    if packed is not None:
+        a["features"] = mip_rows_away_from_kinks(packed, gen, rays, rows, cfg.feature_dim)
+    return a
+
+
+def mip_kink_margin(packed, features):
+    """Per row, the smallest |ReLU input| of the plain mip forward: in the
+    mip order the LayerNorm output ``xhat g + beta``
+    (``mip_mlp_fwd_plain``'s layers)."""
+    h, margins = features, []
+    for i in range(packed["b"].shape[0]):
+        z = h @ (packed["w_in"] if i == 0 else packed["whh"][i - 1]) + packed["b"][i]
+        y = F.layer_norm(z, z.shape[-1:], packed["g"][i], packed["beta"][i], 1e-5)
+        margins.append(y.abs().amin(-1))
+        h = torch.relu(y)
+    return torch.stack(margins).amin(0)
+
+
+def mip_rows_away_from_kinks(packed, gen, rays, rows, n_feat):
+    """``[rays, rows, n_feat]`` features whose every row has all its ReLU
+    inputs farther than 1e-5 from 0: per ray the first ``rows`` of ``2 rows
+    + 8`` candidates drawn from ``gen`` (``rows_away_from_kinks`` for the
+    mip order: nearer the kink the kernel's and the plain evaluation can
+    take different branches and move that row's whole gradient)."""
+    m = 2 * rows + 8
+    cand = rand(gen, rays, m, n_feat)
+    with torch.no_grad():
+        keep = (mip_kink_margin(packed, cand.reshape(rays * m, n_feat)) > 1e-5).reshape(rays, m)
+    idx = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)[:, :rows]
+    assert bool(keep.gather(1, idx).all()), "too few candidate rows away from the kinks"
+    return cand.gather(1, idx[..., None].expand(rays, rows, n_feat)).contiguous()
 
 
 @pytest.mark.cuda
@@ -694,8 +765,13 @@ def test_mip_eval_kernel_matches_plain(cuda, variant, rows, white, noise):
 @pytest.mark.parametrize("rows", [13, 63])
 @pytest.mark.parametrize("variant", sorted(MIP_VARIANTS))
 def test_mip_train_grads_kernel_matches_plain(cuda, variant, rows, seg_weight, white):
+    """K6 against plain on features away from the mip order's ReLU kinks
+    (``mip_rows_away_from_kinks``): ``mip_packed`` draws the LayerNorms
+    from the global RNG, whose state differs between processes, and on
+    plain random rows one run of the small case met a kink on the tensor
+    cores (``w_in`` off by 2.95e-2 of its largest entry)."""
     cfg, packed = mip_packed(variant, cuda)
-    a = mip_inputs(cfg, cuda, rays=3, rows=rows)
+    a = mip_inputs(cfg, cuda, rays=3, rows=rows, packed=packed)
     args = (packed, a["features"], a["dists"], a["noise"], a["pixels"], a["labels"],
             cfg.color_outputs, seg_weight, white)
     before = _build.launch_counts[mip_train.TRAIN_NAME]
@@ -709,6 +785,58 @@ def test_mip_train_grads_kernel_matches_plain(cuda, variant, rows, seg_weight, w
     if seg_weight == 0.0:  # the segmentation head gets zero gradients, as in JAX
         assert not bool(d_packed["w_out"][:, 1 + cfg.color_outputs:].any())
         assert not bool(d_packed["b_out"][1 + cfg.color_outputs:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(MIP_VARIANTS))
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_mip_kernels_match_plain_at_every_width(cuda, hidden, variant):
+    """K7 and K6 (seg weight 0.1) on the tensor cores at every hidden width
+    of both mip variants (96 and 24 features; 54 and 9 outputs, so the
+    head's tensor-core dW has N not a multiple of 4, odd in the small one):
+    3 rays x 67 rows (201, not a multiple of 64), features away from the
+    ReLU kinks, against plain at K7's 1e-4 and K6's LOSS_RTOL and
+    GRAD_ATOL; every call ran the tensor-core tile, and a second call of
+    each gives bitwise the same results (a fixed order of products, no
+    atomics)."""
+    cfg, packed = mip_packed(variant, cuda, hidden_size=hidden)
+    a = mip_inputs(cfg, cuda, rays=3, rows=67, seed=hidden, packed=packed)
+    e_args = (packed, a["features"], a["dists"], a["t_mids"], a["noise"], cfg.color_outputs)
+    t_args = (packed, a["features"], a["dists"], a["noise"], a["pixels"], a["labels"],
+              cfg.color_outputs, 0.1)
+    before = dict(_build.policy_counts)
+    e_first, e_second = (mip_train.mip_eval(*e_args) for _ in range(2))
+    t_first, t_second = (mip_train.mip_train_grads(*t_args) for _ in range(2))
+    torch.cuda.synchronize()
+    assert policy_moves(before) == {(mip_train.EVAL_NAME, "tc"): 2,
+                                    (mip_train.TRAIN_NAME, "tc"): 2}
+    for g, r in zip(e_first, mip_train.mip_eval_plain(*e_args)):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+    r_rgb, r_seg, r_packed = mip_train.mip_train_grads_plain(*t_args)
+    torch.testing.assert_close(t_first[0], r_rgb, rtol=LOSS_RTOL, atol=0)
+    torch.testing.assert_close(t_first[1], r_seg, rtol=LOSS_RTOL, atol=0)
+    assert_grads_close(t_first[2], r_packed)
+    assert all(torch.equal(x, y) for x, y in zip(e_first, e_second))
+    assert torch.equal(t_first[0], t_second[0]) and torch.equal(t_first[1], t_second[1])
+    assert all(torch.equal(t_first[2][k], t_second[2][k]) for k in r_packed)
+
+
+@pytest.mark.cuda
+def test_mip_wrappers_raise_past_every_tile(cuda):
+    """Features past the float32 SIMT tile too (600 at hidden 256, past its
+    588): K6 and K7 raise, naming the limit, with nothing launched or
+    counted."""
+    cfg, packed = mip_packed("full_width", cuda, encoding_size=200)
+    a = mip_inputs(cfg, cuda, rays=2, rows=5)
+    torch.cuda.synchronize()
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+    with pytest.raises(ValueError, match="limit"):
+        mip_train.mip_eval(packed, a["features"], a["dists"], a["t_mids"])
+    with pytest.raises(ValueError, match="limit"):
+        mip_train.mip_train_grads(packed, a["features"], a["dists"], a["noise"], a["pixels"],
+                                  a["labels"], seg_weight=0.1)
+    assert dict(_build.launch_counts) == launches
+    assert dict(_build.policy_counts) == policies
 
 
 @pytest.mark.cuda
