@@ -8,11 +8,12 @@
    ``nvcc`` (one process per source, started together) and prints the
    seconds it took and each kernel's registers, spills and ptxas C75xx
    notes (a ``wgmma`` serialized), labelled with the pass it runs
-   (K1-fwd's, K1-bwd's, K2's, K3's, K4's, K6's, K7's and K9's MLP products
-   run as 3xTF32 ``wgmma`` on the tensor cores, ``csrc/tc_mlp.cuh``, with
+   (K1-fwd's, K1-bwd's, K2's, K3's, K4's, K5-bwd's, K6's, K7's, K8-bwd's
+   and K9's MLP products run as 3xTF32 ``wgmma`` on the tensor cores,
+   ``csrc/tc_mlp.cuh``, K5-bwd's and K8-bwd's inputs' cotangents too, with
    a float32 SIMT tile for encodings or features too wide for theirs, and
    K1-bwd's float32 SIMT passes where the encodings' cotangents are asked
-   for; the other kernels' in float32 SIMT).
+   for; K5-fwd's and K8-fwd's in float32 SIMT).
 3. Serving (slice 1): holds K1-fwd (``classic_mlp_fwd``, 262,144 points)
    and K4 (``union_eval``, the first 4000-ray tile of the frame) against
    their plain PyTorch versions, then renders one 400x400 frame of 64
@@ -54,19 +55,24 @@
    else; every loss finite, the probe batch's loss lower after the run;
    ms/step and rays/s.
 9. Mip general path: one ``make_train_step`` step of ``MipNeRF(use_pallas=
-   True)`` launches one K5-fwd and one K5-bwd, and its gradients match the
-   ``use_pallas=False`` step's.
-10. Holds K5-fwd (258,048 random feature rows), K5-bwd (the same rows,
-   random cotangents), both float32 SIMT, and K6 (the trainer's inputs, on
-   the tensor cores) against their plain versions, with their times and
-   bounds.
+   True)`` launches one K5-fwd and one K5-bwd (on the tensor cores), and
+   its gradients match the ``use_pallas=False`` step's.
+10. Holds K5-fwd (258,048 random feature rows, float32 SIMT), K5-bwd (the
+   same rows, random cotangents, on the tensor cores; without the
+   features' cotangent as the general path calls it, and with it) and K6
+   (the trainer's inputs, on the tensor cores) against their plain
+   versions, with their times and bounds; prints the tile policy of the
+   K5-bwd calls, every one of which must have run the tensor cores.
 11. K8 (slice 4), the MLP on raw points: one forward and backward of
    ``point_mlp.classic_pointmlp`` under autograd on the 262,144 raw points
    and directions of 4096 training rays x 64 stratified samples (the
    counters are zeroed just before and must read one K8-fwd and one
-   K8-bwd after); then K8-fwd and K8-bwd against their plain versions and
-   K8-fwd against K1-fwd on the same encodings, with their times and
-   bounds.
+   K8-bwd after, K8-bwd on the tensor cores); then K8-fwd (float32 SIMT)
+   and K8-bwd (on the tensor cores, with and without the raw inputs'
+   cotangents) against their plain versions and K8-fwd against K1-fwd on
+   the same encodings, with their times and bounds; prints the tile
+   policy of the K8-bwd calls, every one of which must have run the
+   tensor cores.
 12. K9 (slice 4), the whole reuse step in one call: one
    ``mega_train.mega_train_loss_and_grads`` step at 2048 rays x (64 +
    128) of the training phase's settings, held against ``mega_train_plain``
@@ -89,8 +95,10 @@
    and one coarse-only step at 4096 x 64 (one K2, the same) against the
    plain path.  Prints the policy each ran.
 14. Prints the kernels' JSON line (each row with its float32 bound and
-   its 3xTF32 tensor-core bound, ``bound_tc_ms``, and the achieved share
-   of each), the card line, then, last, the device line.
+   its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
+   each, and ``products``: how its MLP products run, and since which
+   slice),
+   the card line, then, last, the device line.
 
 The classic model is the full-width ClassicNeRF (hidden 256, 60 + 36
 encoding widths, 638,468 parameters) with random weights from seed 0.  Its density
@@ -259,6 +267,17 @@ SOURCES = {
                    "nerf_tpu/ops/pallas/fused_mega.py:765"),
 }
 
+# How each kernel's MLP products run, and since which slice of the port.
+PRODUCTS = {
+    "classic_mlp_fwd": "3xTF32 (slice 7)", "union_eval": "3xTF32 (slice 5)",
+    "classic_mlp_bwd": "3xTF32 (slice 7); float32 SIMT with the encodings' cotangents",
+    "train_grads": "3xTF32 (slice 6)", "fine_stage_train": "3xTF32 (slice 6)",
+    "mip_mlp_fwd": "float32 SIMT", "mip_mlp_bwd": "3xTF32 (slice 9)",
+    "mip_eval": "3xTF32 (slice 8)", "mip_train_grads": "3xTF32 (slice 8)",
+    "classic_pointmlp_fwd": "float32 SIMT", "classic_pointmlp_bwd": "3xTF32 (slice 9)",
+    "mega_train": "3xTF32 (slice 5)",
+}
+
 
 class CheckFailed(RuntimeError):
     pass
@@ -293,11 +312,11 @@ def kernel_label(mangled: str) -> str:
 
 
 # The passes of the MLP kernels by kernel name, for reports and profiles:
-# K1-fwd's, K1-bwd's, K2's, K3's, K4's, K6's, K7's and K9's products run on
-# the tensor cores (csrc/tc_mlp.cuh; their float32 SIMT fwd_store, K1-fwd,
-# K4 and mip forward tiles serve encodings or features too wide for it, and
-# K1-bwd's SIMT passes the encodings' cotangents), the other kernels' (K5,
-# K8) in float32 SIMT.
+# K1-fwd's, K1-bwd's, K2's, K3's, K4's, K5-bwd's, K6's, K7's, K8-bwd's and
+# K9's products run on the tensor cores (csrc/tc_mlp.cuh; their float32
+# SIMT fwd_store, K1-fwd, K4 and mip forward tiles serve encodings or
+# features too wide for it, and K1-bwd's SIMT passes the encodings'
+# cotangents), K5-fwd's and K8-fwd's in float32 SIMT.
 PASSES = {
     "fwd_tc_kernel": "K1-fwd tile, 3xTF32 wgmma",
     "classic_mlp_fwd_kernel": "K1-fwd tile, fp32 SIMT (wide encodings)",
@@ -310,11 +329,11 @@ PASSES = {
     "bwd_rows_kernel": "bwd_rows, fp32 SIMT",
     "wgrad_kernel": "wgrad, fp32 SIMT",
     "colsum_kernel": "colsum",
-    "mip_fwd_store_tc_kernel": "mip fwd_store (K6), 3xTF32 wgmma",
+    "mip_fwd_store_tc_kernel": "mip fwd_store (K5-bwd, K6), 3xTF32 wgmma",
     "mip_fwd_tc_kernel": "mip forward tile (K7), 3xTF32 wgmma",
-    "mip_bwd_rows_tc_kernel": "mip bwd_rows (K6), 3xTF32 wgmma",
-    "mip_fwd_kernel": "mip forward tile, fp32 SIMT (K5; K6, K7 wide features)",
-    "mip_bwd_rows_kernel": "mip bwd_rows (K5), fp32 SIMT",
+    "mip_bwd_rows_tc_kernel": "mip bwd_rows (K5-bwd, K6), 3xTF32 wgmma",
+    "mip_fwd_kernel": "mip forward tile, fp32 SIMT (K5-fwd; K5-bwd, K6, K7 wide features)",
+    "encode_bwd_kernel": "K8-bwd chain rule to the raw inputs, fp32",
     "mip_objective_kernel": "K6 compositing and losses",
     "mip_eval_rays_kernel": "K7 compositing",
 }
@@ -461,7 +480,7 @@ def kernel_row(name, launches, max_abs, ms, plain_ms, flops, nbytes) -> dict:
         "launches": launches, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "bound_tc_ms": bound_tc_ms, "share_of_bound": bound_ms / ms,
-        "share_of_bound_tc": bound_tc_ms / ms,
+        "share_of_bound_tc": bound_tc_ms / ms, "products": PRODUCTS[name],
     }
 
 
@@ -858,16 +877,18 @@ def mip_training(device, store: dict) -> dict:
         kept = {}
         with capture_args(loop, "_apply", kept):
             _build.launch_counts.clear()
+            _build.policy_counts.clear()
             make_train_step(m, render, SEG_WEIGHT)(create_train_state(m, LEARNING_RATE),
                                                     batch, draws)
             torch.cuda.synchronize()
             if use_pallas:
-                general = dict(_build.launch_counts)
+                general, policies = dict(_build.launch_counts), dict(_build.policy_counts)
         _, g, step_aux = kept["_apply"][0]
         step_grads[use_pallas] = (g, step_aux["loss"].detach())
     print(f"mip general step: launches {general}")
     check(general == {"mip_mlp_fwd": 1, "mip_mlp_bwd": 1},
           "mip general step launched one K5-fwd and one K5-bwd, nothing else")
+    check_policies("mip general step", general, policies, "tc")
     compare_grads("mip general step", step_grads[True][0], step_grads[False][0],
                   step_grads[True][1], step_grads[False][1])
     return {"fused": (launches, ms), "general": general}
@@ -895,13 +916,24 @@ def mip_kernels_against_plain(store: dict, device) -> dict:
                                flops=K5_POINTS * flops_per_point,
                                nbytes=tensor_bytes(feat, got) + weight_bytes)
 
-    # As the general path calls it: the features need no gradient.
+    # As the general path calls it, the features needing no gradient; then
+    # with the features' cotangent.  Every call on the tensor cores.
+    _build.policy_counts.clear()
     got = mip_mlp.mip_mlp_bwd(packed, feat, g_out, input_grads=False)
     ref = mip_mlp.mip_mlp_bwd_plain(packed, feat, g_out, input_grads=False)
     err = compare_grads("mip_mlp_bwd", got[1], ref[1])
     ms = cuda_ms(lambda: mip_mlp.mip_mlp_bwd(packed, feat, g_out, input_grads=False), iters=5)
     plain_ms = cuda_ms(
         lambda: mip_mlp.mip_mlp_bwd_plain(packed, feat, g_out, input_grads=False), iters=3)
+    got = mip_mlp.mip_mlp_bwd(packed, feat, g_out)
+    ref = mip_mlp.mip_mlp_bwd_plain(packed, feat, g_out)
+    err = max(err, compare_grads("mip_mlp_bwd with dfeat", {"dfeat": got[0], **got[1]},
+                                 {"dfeat": ref[0], **ref[1]}))
+    dfeat_ms = cuda_ms(lambda: mip_mlp.mip_mlp_bwd(packed, feat, g_out), iters=5)
+    calls = 1 + (2 + 5) + 1 + (2 + 5)
+    check_policies("K5-bwd", {"mip_mlp_bwd": calls}, dict(_build.policy_counts), "tc")
+    print(f"K5-bwd {ms:.3f} ms without the features' cotangent (as the general path calls it), "
+          f"{dfeat_ms:.3f} ms with it, at {K5_POINTS} rows")
     rows["mip_mlp_bwd"] = dict(max_abs=err, ms=ms, plain_ms=plain_ms,
                                flops=train_step_flops(cfg, K5_POINTS, 1, mip=True),
                                nbytes=tensor_bytes(feat, g_out) + 2 * weight_bytes)
@@ -980,6 +1012,7 @@ def point_mlp_phase(device, cfg: ClassicNeRFConfig, bank) -> dict:
     # The main path: one forward and backward through the kernels.
     torch.cuda.synchronize()
     _build.launch_counts.clear()
+    _build.policy_counts.clear()
     density, color = point_mlp.classic_pointmlp(model, points, dirs, *args)
     loss = torch.mean((torch.sigmoid(color) - 0.5) ** 2) + torch.mean(torch.relu(density))
     names, params = zip(*model.named_parameters())
@@ -990,6 +1023,7 @@ def point_mlp_phase(device, cfg: ClassicNeRFConfig, bank) -> dict:
           flush=True)
     check(launches == {point_mlp.NAME: 1, point_mlp.BWD_NAME: 1},
           "K8: the forward and backward launched one K8-fwd and one K8-bwd, nothing else")
+    check_policies("K8 under autograd", launches, dict(_build.policy_counts), "tc")
     check(all(bool(torch.isfinite(g).all()) for g in grads) and bool(torch.isfinite(loss)),
           "K8: loss and gradients are finite")
 
@@ -1019,6 +1053,7 @@ def point_mlp_phase(device, cfg: ClassicNeRFConfig, bank) -> dict:
         nbytes=tensor_bytes(points, dirs, got, *consts) + weight_bytes))
 
     g_out = torch.rand((n_points, 4), generator=gen, device=device) * 2 - 1
+    _build.policy_counts.clear()
     got = point_mlp.classic_pointmlp_bwd(packed, points, dirs, consts, g_out)
     ref = point_mlp.classic_pointmlp_bwd_plain(packed, points, dirs, consts, g_out)
     err = compare_grads("classic_pointmlp_bwd", {"dpoints": got[0], "ddirs": got[1], **got[2]},
@@ -1029,6 +1064,8 @@ def point_mlp_phase(device, cfg: ClassicNeRFConfig, bank) -> dict:
         lambda: point_mlp.classic_pointmlp_bwd_plain(packed, points, dirs, consts, g_out), iters=3)
     no_input_ms = cuda_ms(lambda: point_mlp.classic_pointmlp_bwd(
         packed, points, dirs, consts, g_out, input_grads=False), iters=5)
+    check_policies("K8-bwd", {point_mlp.BWD_NAME: 1 + (2 + 5) + (2 + 5)},
+                   dict(_build.policy_counts), "tc")
     print(f"K8-bwd {ms:.3f} ms with the raw inputs' cotangents, {no_input_ms:.3f} ms without "
           f"(as the main path calls it), at {n_points} points")
     rows["classic_pointmlp_bwd"] = (launches[point_mlp.BWD_NAME], dict(

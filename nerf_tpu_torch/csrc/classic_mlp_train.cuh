@@ -1,6 +1,7 @@
 // Device code of the classic NeRF MLP's backward, shared by the K1 backward
-// (classic_mlp_bwd.cu), the coarse-only train kernel K2 (train_grads.cu)
-// and the fine-stage train kernel K3 (fine_stage_train.cu); the mip MLP's
+// (classic_mlp_bwd.cu), the coarse-only train kernel K2 (train_grads.cu),
+// the fine-stage train kernel K3 (fine_stage_train.cu), K8-bwd
+// (classic_pointmlp_bwd.cu) and K9 (mega_train.cu); the mip MLP's
 // backward (mip_mlp.cuh) runs the same passes.
 //
 // The TPU kernels keep a tile's whole activation chain in VMEM and carry
@@ -31,12 +32,14 @@
 //      gradients are the same from run to run (no atomics).
 //
 // Passes 1-3 run their products through a policy: SimtProducts (below,
-// float32 SIMT FMAs: gemm_acc, wgrad_kernel) for K8-bwd and for K1-bwd
-// with the encodings' cotangents; TcProducts (tc_mlp.cuh, 3xTF32 on the
-// tensor cores) for K2, K3, K9 and K1-bwd without them, whose fwd_store runs SimtProducts' pass where the encodings are too wide
-// for the tensor-core tile (tc_mlp.cuh, the width rule).  The mip passes
-// (mip_mlp.cuh) take their own policies on the same pieces: MipSimt (K5)
-// and MipTc (K6, K7).
+// float32 SIMT FMAs: gemm_acc, wgrad_kernel) for K1-bwd with the
+// encodings' cotangents; TcProducts (tc_mlp.cuh, 3xTF32 on the tensor
+// cores) for K2, K3, K8-bwd, K9 and K1-bwd without them, whose fwd_store
+// runs SimtProducts' pass where the encodings are too wide for the
+// tensor-core tile (tc_mlp.cuh, the width rule).  The mip passes
+// (mip_mlp.cuh) take their own policies on the same pieces: MipSimt (the
+// forward tile of K5-fwd, and of the others where the features are too
+// wide) and MipTc (K5-bwd, K6, K7).
 //
 // The flat gradient the passes produce is the packed weights' order
 // (ops/kernels/classic_mlp.py): w0, wx, wd, whh | b, g, beta, w_dens,
@@ -569,7 +572,8 @@ __host__ inline size_t fwd_store_smem(int xe, int de) {
 }
 
 // The float32 SIMT products (gemm_acc and wgrad_kernel): the passes' product
-// policy for K1-bwd and K8-bwd; K2, K3 and K9 take tc_mlp.cuh's TcProducts.
+// policy for K1-bwd with the encodings' cotangents; K2, K3, K8-bwd, K9 and
+// K1-bwd without them take tc_mlp.cuh's TcProducts.
 // A policy launches pass 1 (fwd_store), pass 2 (bwd_rows) and pass 3
 // (wgrad); launch_fwd_store_with and launch_mlp_backward do the rest.
 struct SimtProducts {

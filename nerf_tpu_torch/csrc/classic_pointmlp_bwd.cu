@@ -10,19 +10,25 @@
 //
 // Bound: operations, as K1-bwd's: the forward ran in another kernel
 // (K8-fwd), so this one recomputes it: forward + dh + dW = 3 x 630,784
-// multiply-adds per point at the full-width model, 14.81 ms at 262,144
-// points at 67 TFLOP/s.
+// multiply-adds per point at the full-width model, 14.808 ms at 262,144
+// points at the float32 SIMT rate (67 TFLOP/s), 6.013 ms as three TF32
+// products on the tensor cores (FLOP / 165 TFLOP/s).
 //
-// Design: K1-bwd's passes (classic_mlp_train.cuh).  The stored-chain
-// forward takes encode.cuh's PointEncodeLoad as its loader and writes the
-// encodings it computes to scratch (384 bytes a point), which the
-// weight-gradient product reads as its left operand; bwd_rows gives the
-// encodings' cotangents; one warp per point then reduces its 60 (36)
-// encoding-lane cotangents, times cos(x S + phase), to its 3 raw-input
-// cotangents (encode_bwd_kernel).
+// Design: K2's tensor-core passes (tc_mlp.cuh's TcProducts: 3xTF32 wgmma on
+// the operand images the wrapper builds).  The stored-chain forward
+// (fwd_store_tc_kernel) takes encode.cuh's PointEncodeLoad as its loader
+// and writes the encodings it computes to scratch (384 bytes a point),
+// which the weight-gradient product reads as its left operand; bwd_rows
+// gives the encodings' cotangents dx = dpre_0 w0^T + dpre_4 wx^T and dd =
+// dpre_8 wd^T on the tensor cores (tc_input_grad); one warp per point then
+// reduces its 60 (36) encoding-lane cotangents, times cos(x S + phase), to
+// its 3 raw-input cotangents (encode_bwd_kernel, a float32 reduction, not
+// an MLP product).  Where the encodings are too wide for the tensor-core
+// forward tile (tc_mlp.cuh note 9) fwd_store runs the float32 SIMT tile;
+// the other passes do not depend on the widths.
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
-#include "classic_mlp_train.cuh"
+#include "tc_mlp.cuh"
 #include "encode.cuh"
 
 namespace {
@@ -59,13 +65,13 @@ template <int H>
 cudaError_t run(const Weights& w, const PointEncodeLoad& load, const float* gout, float* dpts,
                 float* ddirs, float* grads, float* out, float* dx_enc, float* dd_enc, int P,
                 const Scratch& s, cudaStream_t stream) {
-  cudaError_t err = launch_fwd_store_with<H>(w, load, out, P, s, stream,
-                                             static_cast<size_t>(P), 0);
+  cudaError_t err = launch_fwd_store_with<H, TcProducts>(w, load, out, P, s, stream,
+                                                         static_cast<size_t>(P), 0);
   if (err != cudaSuccess) return err;
   const bool input_grads = dpts != nullptr;
-  err = launch_mlp_backward<H>(w, load.x_out, load.d_out, 1, gout, P, s,
-                               input_grads ? dx_enc : nullptr, input_grads ? dd_enc : nullptr,
-                               grads, stream);
+  err = launch_mlp_backward<H, TcProducts>(w, load.x_out, load.d_out, 1, gout, P, s,
+                                           input_grads ? dx_enc : nullptr,
+                                           input_grads ? dd_enc : nullptr, grads, stream);
   if (err != cudaSuccess || !input_grads) return err;
   const int blocks = (P + kWarps - 1) / kWarps;
   encode_bwd_kernel<<<blocks, kThreads, 0, stream>>>(load.pts, load.sx, load.phx, w.xe, dx_enc,
@@ -88,15 +94,23 @@ extern "C" int classic_pointmlp_bwd(const float* pts, const float* dirs, const f
                                     const float* b_col, float* xhat, float* stats, float* dpre,
                                     float* wpart, float* tpart, float* tmp, float* wt,
                                     float* out, float* x_enc, float* d_enc, float* dx_enc,
-                                    float* dd_enc, int splits, void* stream) {
+                                    float* dd_enc, int splits, const float* tc_fwd,
+                                    const float* tc_bwd, void* stream) {
   if (c > kMaxColors || wd == nullptr) return cudaErrorInvalidValue;
   if ((dpts == nullptr) != (ddirs == nullptr)) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xe, de, c};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits};
+  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
   const PointEncodeLoad load{pts, dirs, sx, phx, sd, phd, x_enc, d_enc};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) \
   static_cast<int>(run<H>(w, load, gout, dpts, ddirs, grads, out, dx_enc, dd_enc, P, s, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
+}
+
+// The plan of fwd_store's tile for these encoding widths: out = [policy (0
+// tensor cores, 1 float32 SIMT, 2 neither fits), tensor-core bytes, SIMT
+// bytes, the device's limit].
+extern "C" int classic_pointmlp_bwd_plan(int xe, int de, int hidden, long long* out) {
+  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

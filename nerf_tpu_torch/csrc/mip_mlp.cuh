@@ -11,9 +11,9 @@
 // and a tile's whole chain in VMEM.  Here the passes are the classic MLP's
 // (classic_mlp.cuh, classic_mlp_train.cuh, tc_mlp.cuh), instantiated for
 // this chain, their products through a policy as the classic passes':
-// MipSimt (float32 SIMT FMAs; K5-fwd and K5-bwd) and MipTc (3xTF32 wgmma on
-// the tensor cores; K6 and K7, whose forward tile gives way to MipSimt's
-// where the features are too wide for it, tc_mlp.cuh note 9):
+// MipSimt (the float32 SIMT forward tile; K5-fwd) and MipTc (3xTF32 wgmma
+// on the tensor cores; K5-bwd, K6 and K7, whose forward tile gives way to
+// MipSimt's where the features are too wide for it, tc_mlp.cuh note 9):
 //   * the forward tile: 64 rows per block of 8 warps, the epilogue in
 //     registers with the LayerNorm first (layer_epilogue<kLnFirst>), and the
 //     54-wide head as a register-tiled float32 product (head_wide); with
@@ -24,10 +24,9 @@
 //   * bwd_rows: the head's input cotangent (head_dh, float32, the head's
 //     weights staged transposed), then per layer the mask on the rebuilt
 //     LayerNorm output xhat * g + beta > 0 and the LayerNorm backward
-//     (layer_bwd<kLnFirst>), and dh = dpre @ W^T: gemm_acc on the hidden
-//     slabs transposed (mip_bwd_rows_kernel, which also writes the features'
-//     cotangent where asked) or tc_gemm on the slabs' backward images
-//     (mip_bwd_rows_tc_kernel, no features' cotangent);
+//     (layer_bwd<kLnFirst>), and dh = dpre @ W^T as tc_gemm on the slabs'
+//     backward images (mip_bwd_rows_tc_kernel, which also writes the
+//     features' cotangent where asked: tc_input_grad);
 //   * wgrad: every dW as a product over the points, the head's too (its
 //     left operand relu(xhat * g + beta) of the last layer, its right one
 //     the output cotangents: N = O, not a multiple of 4), then colsum of the
@@ -259,7 +258,7 @@ __device__ void head_dh(float (&acc)[kRowsPerWarp][H / 32], const float* gs, int
   }
 }
 
-// The start of both bwd_rows kernels: the tile's output cotangents gout
+// The start of mip_bwd_rows_tc_kernel: the tile's output cotangents gout
 // [P][O] into gs [64][round_up4(O)] (zero past the valid rows and past O)
 // and their column sums to the tile's b_out partials p_bout.
 __device__ __forceinline__ void load_head_cotangents(const MipWeights& w, const float* gout,
@@ -278,54 +277,6 @@ __device__ __forceinline__ void load_head_cotangents(const MipWeights& w, const 
   }
 }
 
-template <int H>
-__host__ inline size_t mip_bwd_rows_smem(const MipWeights& w) {
-  return (static_cast<size_t>(kTileRows) * H + chunk_t_floats<H>() +
-          static_cast<size_t>(kTileRows) * round_up4(w.O)) *
-         sizeof(float);
-}
-
-// One block per 64-row tile: from the output cotangents gout [P][O] down
-// through the layers, storing every layer's dpre and the tile's column sums
-// (b, g, beta, b_out) to its row of tpart; wt holds the hidden slabs
-// transposed; dx [P][F] is written when not null.  One block per SM, as the
-// classic bwd_rows.
-template <int H>
-__global__ void __launch_bounds__(kThreads, 1)
-    mip_bwd_rows_kernel(MipWeights w, const float* __restrict__ gout, int P, const float* xhat,
-                        const float* stats, const float* __restrict__ wt, float* dpre,
-                        float* tpart, float* dx) {
-  extern __shared__ float4 smem4[];
-  float* act = reinterpret_cast<float*>(smem4);  // dpre of the current layer
-  float* wbuf = act + kTileRows * H;             // weight chunk, or colsum scratch
-  float* gs = wbuf + chunk_t_floats<H>();        // [64][ldg] output cotangents
-  const int L = w.L;
-  const size_t hh = static_cast<size_t>(H) * H, PP = static_cast<size_t>(P);
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
-  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  float* p_b = tpart + blockIdx.x * mip_tile_floats(w, H);
-  float* p_g = p_b + L * H;
-  float* p_beta = p_g + L * H;
-  load_head_cotangents(w, gout, row0, nvalid, gs, p_beta + L * H);
-
-  float acc[kRowsPerWarp][H / 32];
-  zero<H>(acc);
-  head_dh<H>(acc, gs, round_up4(w.O), w.O, w.w_out, wbuf);
-  for (int i = L - 1; i >= 0; --i) {
-    layer_bwd<H, true>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats,
-                       dpre, p_b, p_g, p_beta, wbuf);
-    if (i == 0) break;
-    store_rows<H>(acc, act);
-    __syncthreads();
-    zero<H>(acc);
-    gemm_acc<H>(acc, act, H, H, wt + (i - 1) * hh, wbuf);
-  }
-  // The features' cotangent dx = dpre_0 @ w_in^T, from the stored dpre.
-  __syncthreads();
-  if (dx != nullptr)
-    input_grad<H>(acc, act, wbuf, dpre, PP, row0, nvalid, 0, w.w_in, 0, nullptr, w.F, dx);
-}
-
 // Bytes of shared memory of mip_bwd_rows_tc_kernel: the B chunks (also the
 // head's transposed weight chunks and the colsum scratch), the activation
 // tile, the output cotangents and the alignment slack.
@@ -337,15 +288,18 @@ __host__ inline size_t mip_bwd_rows_tc_smem(const MipWeights& w) {
          kSmemAlign;
 }
 
-// mip_bwd_rows_kernel with the hidden products dh = dpre W^T on the tensor
-// cores (bwd_rows_tc_kernel's order, tc_mlp.cuh): bwd is the hidden slabs'
-// backward images (the packed [in][out] slabs, 2 H H floats each).  No
-// features' cotangent (K6 asks for none).  One block an SM.
+// From the output cotangents gout [P][O] down through the layers, storing
+// every layer's dpre and the tile's column sums (b, g, beta, b_out) to its
+// row of tpart, with the hidden products dh = dpre W^T on the tensor
+// cores (bwd_rows_tc_kernel's order, tc_mlp.cuh): bwd is the backward
+// images, the hidden slabs' (the packed [in][out] slabs, 2 H H floats each)
+// then w_in's, from which the features' cotangent dx [P][F] is written when
+// not null (K5-bwd; K6 asks for none).  One block an SM.
 template <int H>
 __global__ void __launch_bounds__(kThreads, 1)
     mip_bwd_rows_tc_kernel(MipWeights w, const float* __restrict__ gout, int P,
                            const float* xhat, const float* stats, const float* __restrict__ bwd,
-                           float* dpre, float* tpart) {
+                           float* dpre, float* tpart, float* dx) {
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);          // B chunks, head chunks or colsum scratch
   float* act = bbuf + tc_bbuf_floats<H>();    // dpre of the current layer
@@ -372,14 +326,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     tc_gemm<H>(d, act, act_ld<H>(), H, bwd + (i - 1) * slab, bbuf);
     tc_to_rows<H>(d, act, acc);
   }
+  // The features' cotangent dx = dpre_0 @ w_in^T, from the stored dpre.
+  if (dx != nullptr)
+    tc_input_grad<H>(act, bbuf, dpre, PP, row0, nvalid, 0, tc_input_images(bwd, L - 1, H), -1,
+                     nullptr, w.F, dx);
 }
 
 // ---------------------------------------------------------------------------
 // The policies (SimtProducts' and TcProducts' counterparts for this chain).
 // ---------------------------------------------------------------------------
 
-// The float32 SIMT passes (K5-fwd, K5-bwd; K6's and K7's forward where the
-// features are too wide for the tensor-core tile).
+// The float32 SIMT forward tile (K5-fwd; K5-bwd's, K6's and K7's forward
+// where the features are too wide for the tensor-core tile).
 struct MipSimt {
   template <int H, bool kSave>
   static cudaError_t fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
@@ -393,37 +351,14 @@ struct MipSimt {
     mip_fwd_kernel<H, kSave><<<tiles, kThreads, smem, stream>>>(w, x, out, P, xhat, stats);
     return cudaGetLastError();
   }
-
-  template <int H>
-  static cudaError_t bwd_rows(const MipWeights& w, const float* gout, int P, const Scratch& s,
-                              float* dx, cudaStream_t stream) {
-    transpose_slabs_kernel<<<dim3(H / 32, H / 32, w.L - 1), dim3(32, 8), 0, stream>>>(w.whh, H,
-                                                                                      s.wt);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const size_t smem = mip_bwd_rows_smem<H>(w);
-    err = cudaFuncSetAttribute(mip_bwd_rows_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const int tiles = (P + kTileRows - 1) / kTileRows;
-    mip_bwd_rows_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats, s.wt,
-                                                               s.dpre, s.tpart, dx);
-    return cudaGetLastError();
-  }
-
-  static cudaError_t wgrad(const WProds& prods, int total_tiles, int P, int k_chunk,
-                           const Scratch& s, size_t wfloats, cudaStream_t stream) {
-    return SimtProducts::wgrad(prods, total_tiles, P, k_chunk, s, wfloats, stream);
-  }
 };
 
-// The 3xTF32 passes (K6, K7) on the call's operand images: tc_fwd, the
-// forward images (MipImages), and the Scratch's tc_bwd, the hidden slabs'
-// backward images.  The forward tile takes fwd_store's bytes without the
-// view encodings, so fwd_store's plan at (F, 0) decides it (the width
-// rule, tc_mlp.cuh note 9): MipSimt's tile runs where the tensor-core one
-// does not fit.  The features' cotangent is not implemented (requesting it
-// returns cudaErrorInvalidValue).
+// The 3xTF32 passes (K5-bwd, K6, K7) on the call's operand images: tc_fwd,
+// the forward images (MipImages), and the Scratch's tc_bwd, the backward
+// images (the hidden slabs', then w_in's for the features' cotangent).  The
+// forward tile takes fwd_store's bytes without the view encodings, so
+// fwd_store's plan at (F, 0) decides it (the width rule, tc_mlp.cuh note
+// 9): MipSimt's tile runs where the tensor-core one does not fit.
 struct MipTc {
   template <int H, bool kSave>
   static cudaError_t fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
@@ -454,7 +389,7 @@ struct MipTc {
   template <int H>
   static cudaError_t bwd_rows(const MipWeights& w, const float* gout, int P, const Scratch& s,
                               float* dx, cudaStream_t stream) {
-    if (s.tc_bwd == nullptr || dx != nullptr) return cudaErrorInvalidValue;
+    if (s.tc_bwd == nullptr) return cudaErrorInvalidValue;
     const size_t smem = mip_bwd_rows_tc_smem<H>(w);
     cudaError_t err = cudaFuncSetAttribute(mip_bwd_rows_tc_kernel<H>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -462,7 +397,7 @@ struct MipTc {
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
     mip_bwd_rows_tc_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats,
-                                                                  s.tc_bwd, s.dpre, s.tpart);
+                                                                  s.tc_bwd, s.dpre, s.tpart, dx);
     return cudaGetLastError();
   }
 

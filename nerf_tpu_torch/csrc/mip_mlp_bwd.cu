@@ -12,17 +12,23 @@
 // one recomputes it, as the TPU kernel does: forward + dh + dW = 3 x
 // 300,544 multiply-adds per point at the full-width model, against 384
 // bytes of input, 216 of cotangents and 384 of dx per point and 1.2 MB of
-// gradients.  At 258,048 points the operations bound is 6.94 ms at 67
-// TFLOP/s; the stored chain (xhat and dpre, 2 x 5 x 256 x 4 bytes per row
-// written and read) adds about 2.6 GB, 0.8 ms at 3.35 TB/s.
+// gradients.  At 258,048 points the operations bound is 6.945 ms at the
+// float32 SIMT rate (67 TFLOP/s), 2.820 ms as three TF32 products on the
+// tensor cores (FLOP / 165 TFLOP/s); the stored chain (xhat and dpre, 2 x
+// 5 x 256 x 4 bytes per row written and read) adds about 2.6 GB, 0.8 ms at
+// 3.35 TB/s.
 //
-// Design (mip_mlp.cuh on classic_mlp_train.cuh): the recomputed forward
-// stores the chain to global scratch, a per-tile backward writes every
-// layer's dpre and the tile's column sums, a hand-written product over the
-// points gives dW in split chunks, and fixed-order sums of the partials
-// make the gradients repeatable (no atomics).  The float32 SIMT passes
-// (MipSimt): the features' cotangent, which the tensor-core bwd_rows does
-// not write, comes from the stored dpre.
+// Design (mip_mlp.cuh on classic_mlp_train.cuh and tc_mlp.cuh): K6's
+// tensor-core passes (MipTc: 3xTF32 wgmma on the operand images the wrapper
+// builds).  The recomputed forward (mip_fwd_store_tc_kernel) stores the
+// chain to global scratch; a per-tile backward (mip_bwd_rows_tc_kernel)
+// writes every layer's dpre and the tile's column sums and, where asked,
+// the features' cotangent dx = dpre_0 w_in^T from the stored dpre
+// (tc_input_grad); a product over the points gives dW in split chunks
+// (wgrad_tc_kernel); fixed-order sums of the partials make the gradients
+// repeatable (no atomics).  Where the features are too wide for the
+// tensor-core forward tile (tc_mlp.cuh note 9) the forward runs MipSimt's
+// float32 tile; the backward passes do not depend on the widths.
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "mip_mlp.cuh"
@@ -35,9 +41,9 @@ template <int H>
 cudaError_t run(const MipWeights& w, const float* x, const float* gout, float* dx, float* grads,
                 float* out, int P, const Scratch& s, cudaStream_t stream) {
   cudaError_t err =
-      launch_mip_fwd<H, true, MipSimt>(w, x, out, P, s.xhat, s.stats, nullptr, stream);
+      launch_mip_fwd<H, true, MipTc>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
   if (err != cudaSuccess) return err;
-  return launch_mip_backward<H, MipSimt>(w, x, gout, P, s, dx, grads, stream);
+  return launch_mip_backward<H, MipTc>(w, x, gout, P, s, dx, grads, stream);
 }
 
 }  // namespace
@@ -47,12 +53,21 @@ extern "C" int mip_mlp_bwd(const float* x, const float* gout, float* dx, float* 
                            const float* b, const float* g, const float* beta,
                            const float* w_out, const float* b_out, float* xhat, float* stats,
                            float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
-                           float* out, int splits, void* stream) {
+                           float* out, int splits, const float* tc_fwd, const float* tc_bwd,
+                           void* stream) {
   if (L < 2 || L + 1 > kMaxProds || O < 1 || O > kThreads) return cudaErrorInvalidValue;
   const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits};
+  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) static_cast<int>(run<H>(w, x, gout, dx, grads, out, P, s, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
+}
+
+// The plan of the forward tile for F features: out = [policy (0 tensor
+// cores, 1 float32 SIMT, 2 neither fits), tensor-core bytes, SIMT bytes,
+// the device's limit].
+extern "C" int mip_mlp_bwd_plan(int F, int de, int hidden, long long* out) {
+  if (de != 0) return cudaErrorInvalidValue;
+  return static_cast<int>(fwd_store_plan_at(F, 0, hidden, out));
 }

@@ -1,7 +1,8 @@
 // Tensor-core products for the MLP passes of K2 (train_grads.cu), K3
 // (fine_stage_train.cu), K9 (mega_train.cu), K4 (union_eval.cu), K1-fwd
-// (classic_mlp_fwd.cu), K1-bwd (classic_mlp_bwd.cu), and of K6
-// (mip_train_grads.cu) and K7 (mip_eval.cu) through mip_mlp.cuh's MipTc
+// (classic_mlp_fwd.cu), K1-bwd (classic_mlp_bwd.cu), K8-bwd
+// (classic_pointmlp_bwd.cu), and of K6 (mip_train_grads.cu), K7
+// (mip_eval.cu) and K5-bwd (mip_mlp_bwd.cu) through mip_mlp.cuh's MipTc
 // policy, which composes the same pieces in the mip order: every
 // hidden and encoding product as 3xTF32 on Hopper's
 // wgmma, A.B = hi(A)hi(B) + hi(A)lo(B) + lo(A)hi(B) with lo = x - hi, both
@@ -10,9 +11,10 @@
 // wgmma.mma_async ... .f32.tf32.tf32 into float32 accumulators.  Written by
 // hand in PTX (wgmma, fences, smem descriptors); no CUTLASS.  The policy
 // TcProducts gives classic_mlp_train.cuh's launch_fwd_store_with and
-// launch_mlp_backward these passes (K1-bwd takes it where no encoding
-// cotangents are asked for; with them, and in K8-bwd, SimtProducts).
-// fwd_tc_kernel is K1-fwd's tile: fwd_store_tc_kernel with nothing saved.
+// launch_mlp_backward these passes, the encodings' cotangents included
+// (bwd_rows' tc_input_grad; K1-bwd still takes SimtProducts where it is
+// asked for them).  fwd_tc_kernel is K1-fwd's tile: fwd_store_tc_kernel
+// with nothing saved.
 //
 // Bounds at the full-width model (H = 256, xe 60, de 36, view branch on):
 // 630,784 multiply-adds a row each for the forward, dh and dW.  Against
@@ -21,8 +23,9 @@
 // 22.212 and 9.019 ms; K2 at 4096 x 64 and K3 at 2048 x 128 14.808 and
 // 6.013 ms each; K4 at a 4000-ray tile 9.641 and 3.915 ms; K1-fwd at
 // 262,144 rows 4.936 and 2.004 ms; K1-bwd (forward recomputed) at 131,072
-// rows 7.404 and 3.006 ms.  The mip chain (F = 96, 5 layers, O = 54):
-// 300,544 a row; K6 at 4096 x 63 6.945 and 2.820 ms, K7 at a 4000-ray
+// rows 7.404 and 3.006 ms, K8-bwd at 262,144 points 14.808 and 6.013 ms.
+// The mip chain (F = 96, 5 layers, O = 54): 300,544 a row; K6 at 4096 x
+// 63 and K5-bwd at 258,048 rows 6.945 and 2.820 ms, K7 at a 4000-ray
 // tile of 63 rows 2.261 and 0.918 ms.
 //
 // The constraints the design answers:
@@ -37,7 +40,12 @@
 //    K-major operand (a row of 16 TF32 values is one swizzle row; an
 //    unswizzled layout puts the eight rows the tensor cores read together
 //    on one bank), so a chunk is one contiguous copy (2 x 2.5 MB a
-//    direction, resident in L2).  wgrad's dW = h_in^T dpre sums over the
+//    direction, resident in L2).  The input cotangents dx = dpre_0 w0^T
+//    (+ dpre_4 wx^T; dd = dpre_8 wd^T; the mip dx = dpre_0 w_in^T) take
+//    the input slabs as stored, [in][out] = [N][K] with K = H: their
+//    images pad N with zero rows to a multiple of kTcInPad = 64 and hold
+//    each pass of tc_in_cols<H>() rows (64, or H below 64) as its own
+//    image (tc_input_grad).  wgrad's dW = h_in^T dpre sums over the
 //    points while both are stored [P][H]: A (h_in) is read straight from
 //    the raw rows into register fragments, B (dpre) transposed into the
 //    swizzled order in the pass that splits it.
@@ -52,7 +60,9 @@
 //    227,328 at 128 fine samples (with its [256][1 + c] outputs), bwd_rows
 //    199,680, wgrad 136,192; the mip forward tile 223,232 (with the 64 x
 //    96 feature tile), the mip bwd_rows 212,992 (with the [64][56] output
-//    cotangents).
+//    cotangents).  The input cotangents add nothing to either bwd_rows:
+//    their A rows (dpre) and their outputs pass through the activation
+//    tile, their B chunks (2 x 64 x 16 floats) through the chunk buffers.
 // 3. Accumulators and LayerNorm: in a wgmma accumulator a row's values sit
 //    in a quad of one warp and, here, in both warpgroups (each takes H / 2
 //    columns).  Each product's accumulators go once through the activation
@@ -109,7 +119,8 @@
 //    ring on the tensor cores would hold 64 KB more, xe' + de' <= 388, at
 //    the cost of a second pipeline in tc_gemm for a path few models take.)
 //    bwd_rows' and wgrad's tiles do not depend on the widths and always
-//    run here.  The choice is made from the shapes, never after an error;
+//    run here (the input cotangents' passes loop over the widths).  The
+//    choice is made from the shapes, never after an error;
 //    past the SIMT tile's limit the call returns cudaErrorInvalidValue
 //    before launching (the wrappers raise first, from the same plan).
 //
@@ -307,19 +318,21 @@ struct TcImages {
   }
 };
 
-template <int H>
-__device__ __forceinline__ void tc_zero(float (&d)[H / 4]) {
+template <int N>
+__device__ __forceinline__ void tc_zero(float (&d)[N / 4]) {
 #pragma unroll
-  for (int i = 0; i < H / 4; ++i) d[i] = 0.f;
+  for (int i = 0; i < N / 4; ++i) d[i] = 0.f;
 }
 
-// d += A[tile rows, 0:K] @ B[0:H, 0:K]^T.  A is shared memory, row stride
+// d += A[tile rows, 0:K] @ B[0:N, 0:K]^T.  A is shared memory, row stride
 // lda (columns past K are not read); img is B's operand image in global
-// memory; bbuf holds tc_bbuf_floats<H>() floats.  Warpgroup wg (threads
-// 128 wg ..) computes the output columns [wg H / 2, (wg + 1) H / 2) of the
-// tile's 64 rows, warp w of it rows 16 w .. 16 w + 15: d holds that
-// warp's m64n(H/2) accumulator fragment (classic mma layout: d[4 j ..4 j
-// + 1] row g, columns 8 j + 2 q, + 1; d[4 j + 2 ..] row g + 8).
+// memory; bbuf holds tc_bbuf_floats<H>() floats for some H >= N.
+// Warpgroup wg (threads 128 wg ..) computes the output columns [wg N / 2,
+// (wg + 1) N / 2) of the tile's 64 rows, warp w of it rows 16 w .. 16 w +
+// 15: d holds that warp's m64n(N/2) accumulator fragment (classic mma
+// layout: d[4 j ..4 j + 1] row g, columns 8 j + 2 q, + 1; d[4 j + 2 ..]
+// row g + 8).  N is H for the layers' products, tc_in_cols<H>() for the
+// input cotangents'.
 //
 // The pipeline: kTcStages = 4 buffers of 16-value chunks of B, copied
 // with cp.async two chunks ahead, and one chunk's 6 products (three per
@@ -335,10 +348,10 @@ __device__ __forceinline__ void tc_zero(float (&d)[H / 4]) {
 // without branches: ptxas serializes all wgmma of a kernel whose wgmma
 // operands come from divergent code.  Starts (after the first copies) and
 // ends with a block-wide barrier.
-template <int H>
-__device__ void tc_gemm(float (&d)[H / 4], const float* A, int lda, int K,
+template <int N>
+__device__ void tc_gemm(float (&d)[N / 4], const float* A, int lda, int K,
                         const float* __restrict__ img, float* bbuf) {
-  constexpr int kStage = 2 * H * kTcK;  // floats of a chunk, hi and lo
+  constexpr int kStage = 2 * N * kTcK;  // floats of a chunk, hi and lo
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
   const float* a0 = A + (((tid >> 5) & 3) * 16 + g) * lda;
@@ -346,7 +359,7 @@ __device__ void tc_gemm(float (&d)[H / 4], const float* A, int lda, int K,
   const int chunks = round_up_chunk(K) / kTcK;
   // Each warpgroup copies, and waits for, only its own half of B (its hi
   // and lo rows): the two warpgroups never wait for each other here.
-  constexpr int kHalf4 = H / 2 * kTcK / 4;  // float4s of a warpgroup's hi (or lo) rows
+  constexpr int kHalf4 = N / 2 * kTcK / 4;  // float4s of a warpgroup's hi (or lo) rows
   const int t = tid & 127;
   auto stage = [&](int c) {  // commits a group, empty past the last chunk
     if (c < chunks) {
@@ -387,8 +400,8 @@ __device__ void tc_gemm(float (&d)[H / 4], const float* A, int lda, int K,
     }
     // This warpgroup's half of the chunk: rows n of B are 16 floats apart;
     // hi block, then lo block.
-    const float* hi = bbuf + (c % kTcStages) * kStage + wg * (H / 2) * kTcK;
-    const float* lo = hi + H * kTcK;
+    const float* hi = bbuf + (c % kTcStages) * kStage + wg * (N / 2) * kTcK;
+    const float* lo = hi + N * kTcK;
     fence_regs(ahi);
     fence_regs(alo);
     fence_regs(d);
@@ -424,6 +437,22 @@ __device__ void tc_gemm(float (&d)[H / 4], const float* A, int lda, int K,
   __syncthreads();
 }
 
+// The wgmma fragments d of tc_gemm<N> -> columns 0 .. N - 1 of act [64][ld]
+// (ld even), then a block-wide barrier.  Called by the whole block after
+// tc_gemm.
+template <int N>
+__device__ __forceinline__ void tc_to_act(const float (&d)[N / 4], float* act, int ld) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  float* r0 = act + (((tid >> 5) & 3) * 16 + (lane >> 2)) * ld + (tid >> 7) * (N / 2) +
+              2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < N / 16; ++j) {
+    *reinterpret_cast<float2*>(r0 + 8 * j) = make_float2(d[4 * j], d[4 * j + 1]);
+    *reinterpret_cast<float2*>(r0 + 8 * ld + 8 * j) = make_float2(d[4 * j + 2], d[4 * j + 3]);
+  }
+  __syncthreads();
+}
+
 // The wgmma fragments d -> act [64][act_ld<H>()] -> this warp's rows in the
 // row-per-warp layout of classic_mlp.cuh (acc[r][j]: row 8 warp + r,
 // column lane + 32 j).  Called by the whole block after tc_gemm.
@@ -432,14 +461,7 @@ __device__ __forceinline__ void tc_to_rows(const float (&d)[H / 4], float* act,
                                            float (&acc)[kRowsPerWarp][H / 32]) {
   constexpr int ld = act_ld<H>();
   const int tid = threadIdx.x, lane = tid & 31;
-  float* r0 = act + (((tid >> 5) & 3) * 16 + (lane >> 2)) * ld + (tid >> 7) * (H / 2) +
-              2 * (lane & 3);
-#pragma unroll
-  for (int j = 0; j < H / 16; ++j) {
-    *reinterpret_cast<float2*>(r0 + 8 * j) = make_float2(d[4 * j], d[4 * j + 1]);
-    *reinterpret_cast<float2*>(r0 + 8 * ld + 8 * j) = make_float2(d[4 * j + 2], d[4 * j + 3]);
-  }
-  __syncthreads();
+  tc_to_act<H>(d, act, ld);
   const float* rows = act + (tid >> 5) * kRowsPerWarp * ld;
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r)
@@ -554,9 +576,75 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Pass 2: the backward over the rows of a tile (bwd_rows_kernel's contract,
-// without the encodings' cotangents, which K9 does not need).
+// Pass 2: the backward over the rows of a tile (bwd_rows_kernel's contract).
 // ---------------------------------------------------------------------------
+
+// The input cotangents' products (note 1): the rows of an input slab's
+// image are padded to a multiple of kTcInPad, and a pass computes
+// tc_in_cols<H>() output columns: its B chunk fits one of the kTcStages
+// buffers and its output one activation tile, and each warpgroup's half
+// starts on a swizzle atom.
+constexpr int kTcInPad = 64;
+template <int H>
+__host__ __device__ constexpr int tc_in_cols() { return H < kTcInPad ? H : kTcInPad; }
+// Floats of an input slab's image: [width rounded up to kTcInPad][H] in hi
+// and lo.
+__host__ __device__ inline size_t tc_input_image_floats(int width, int H) {
+  return 2 * static_cast<size_t>((width + kTcInPad - 1) / kTcInPad * kTcInPad) * H;
+}
+// The input slabs' images within the backward images (tc_mlp.py::tc_images
+// with backward=True): after the `slabs` hidden slabs, 2 H H floats each.
+__host__ __device__ inline const float* tc_input_images(const float* bwd, int slabs, int H) {
+  return bwd + 2 * static_cast<size_t>(slabs) * H * H;
+}
+
+// act [64][act_ld<H>()] = layer `layer`'s dpre rows of the tile (stored by
+// layer_bwd, [L][P][H]), zero past nvalid; 16-byte loads, coalesced.
+template <int H>
+__device__ __forceinline__ void tc_load_dpre(float* act, const float* dpre, int layer, size_t P,
+                                             size_t row0, int nvalid) {
+  constexpr int ld = act_ld<H>(), kV = H / 4;
+  const float4* src = reinterpret_cast<const float4*>(dpre + (layer * P + row0) * H);
+  for (int i = threadIdx.x; i < kTileRows * kV; i += kThreads) {
+    const int r = i / kV, c = i - r * kV;
+    *reinterpret_cast<float4*>(act + r * ld + 4 * c) =
+        r < nvalid ? src[static_cast<size_t>(r) * kV + c] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// input_grad (classic_mlp_train.cuh) on the tensor cores: out [P][n] = the
+// tile's dpre_la @ Wa^T (+ dpre_lb @ Wb^T where img_b is not null) for an
+// input slab W [n][H] (as stored, [in][out]) through its image (note 1).
+// Per pass of tc_in_cols<H>() columns: each dpre is loaded from scratch
+// into act, and both products accumulate in one wgmma accumulator; the
+// sum goes through act to coalesced stores of the pass's columns below n.
+// act and bbuf are the tile's; called by the whole block, which has
+// written the dpre rows it reads (its barriers make them visible).
+template <int H>
+__device__ void tc_input_grad(float* act, float* bbuf, const float* dpre, size_t P, size_t row0,
+                              int nvalid, int la, const float* img_a, int lb,
+                              const float* img_b, int n, float* __restrict__ out) {
+  constexpr int NT = tc_in_cols<H>(), ld = act_ld<H>();
+  constexpr size_t kPass = 2 * static_cast<size_t>(NT) * H;  // floats of a pass's image
+  float d[NT / 4];
+  for (int c0 = 0; c0 < n; c0 += NT) {
+    const size_t at = static_cast<size_t>(c0 / NT) * kPass;
+    __syncthreads();  // act is free: its last readers are done
+    tc_load_dpre<H>(act, dpre, la, P, row0, nvalid);
+    tc_zero<NT>(d);
+    tc_gemm<NT>(d, act, ld, H, img_a + at, bbuf);  // ends with a block-wide barrier
+    if (img_b != nullptr) {
+      tc_load_dpre<H>(act, dpre, lb, P, row0, nvalid);
+      tc_gemm<NT>(d, act, ld, H, img_b + at, bbuf);
+    }
+    tc_to_act<NT>(d, act, ld);
+    const int cols = min(NT, n - c0);
+    for (int i = threadIdx.x; i < nvalid * cols; i += kThreads) {
+      const int r = i / cols, c = i - r * cols;
+      out[(row0 + r) * n + c0 + c] = act[r * ld + c];
+    }
+  }
+}
 
 template <int H>
 __host__ inline size_t bwd_rows_tc_smem(const Weights& w) {
@@ -566,13 +654,14 @@ __host__ inline size_t bwd_rows_tc_smem(const Weights& w) {
          kSmemAlign;
 }
 
-// bwd is the hidden slabs' backward operand images (the packed [in][out]
-// slabs, 2 H H floats each).
+// bwd is the backward operand images: the hidden slabs' (the packed
+// [in][out] slabs, 2 H H floats each), then w0's, wx's and wd's for the
+// encodings' cotangents dx [P][xe] and dd [P][de], written when not null.
 template <int H>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_rows_tc_kernel(Weights w, const float* __restrict__ gout, int P, const float* xhat,
                        const float* stats, const float* __restrict__ bwd, float* dpre,
-                       float* tpart) {
+                       float* tpart, float* dx, float* dd) {
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);  // B chunks, or colsum scratch
   float* act = bbuf + tc_bbuf_floats<H>();        // dpre of the current layer
@@ -620,6 +709,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       head_bwd<H>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H,
                   nvalid, p_wdens, bbuf);
   }
+  // The encodings' cotangents: dx = dpre_0 @ w0^T + dpre_4 @ wx^T and dd =
+  // dpre_8 @ wd^T, from the stored dpre.
+  const float* img_w0 = tc_input_images(bwd, L - 1, H);
+  const float* img_wx = img_w0 + tc_input_image_floats(w.xe, H);
+  const float* img_wd = img_wx + tc_input_image_floats(w.xe, H);
+  if (dx != nullptr)
+    tc_input_grad<H>(act, bbuf, dpre, PP, row0, nvalid, 0, img_w0, 4, img_wx, w.xe, dx);
+  if (dd != nullptr)
+    tc_input_grad<H>(act, bbuf, dpre, PP, row0, nvalid, 8, img_wd, -1, nullptr, w.de, dd);
 }
 
 // ---------------------------------------------------------------------------
@@ -902,10 +1000,10 @@ __host__ inline cudaError_t fwd_store_plan_at(int xe, int de, int hidden, long l
 // ---------------------------------------------------------------------------
 
 // The tensor-core passes for launch_fwd_store_with and launch_mlp_backward:
-// the Scratch's tc_fwd and tc_bwd hold the call's operand images.
-// fwd_store runs SimtProducts' pass where its tile does not fit (note 9).
-// The encodings' cotangents (dx, dd) are not implemented: requesting them
-// returns cudaErrorInvalidValue.
+// the Scratch's tc_fwd and tc_bwd hold the call's operand images (tc_bwd
+// with the input slabs' images, which bwd_rows reads where the encodings'
+// cotangents dx, dd are asked for).  fwd_store runs SimtProducts' pass
+// where its tile does not fit (note 9).
 struct TcProducts {
   template <int H, class Load>
   static cudaError_t fwd_store(const Weights& w, const Load& load, float* out, int P,
@@ -930,14 +1028,14 @@ struct TcProducts {
   template <int H>
   static cudaError_t bwd_rows(const Weights& w, const float* gout, int P, const Scratch& s,
                               float* dx, float* dd, cudaStream_t stream) {
-    if (s.tc_bwd == nullptr || dx != nullptr || dd != nullptr) return cudaErrorInvalidValue;
+    if (s.tc_bwd == nullptr) return cudaErrorInvalidValue;
     const size_t smem = bwd_rows_tc_smem<H>(w);
     cudaError_t err = cudaFuncSetAttribute(
         bwd_rows_tc_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
     bwd_rows_tc_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats,
-                                                              s.tc_bwd, s.dpre, s.tpart);
+                                                              s.tc_bwd, s.dpre, s.tpart, dx, dd);
     return cudaGetLastError();
   }
 

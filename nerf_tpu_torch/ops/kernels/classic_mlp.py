@@ -387,8 +387,8 @@ def classic_mlp_bwd(
     (``fwd_store`` in float32 SIMT where the encodings are too wide for its
     tile), on the operand images ``tc_fwd`` and ``tc_bwd``
     (``tc_mlp.tc_images(packed, backward=True)``) when given, else built
-    here; with ``input_grads=True`` the float32 SIMT passes, the only ones
-    that compute the encodings' cotangents.  ``_build.policy_counts``
+    here; with ``input_grads=True`` the float32 SIMT passes, which compute
+    the encodings' cotangents too.  ``_build.policy_counts``
     records ``"tc"`` where ``fwd_store`` ran on the tensor cores, else
     ``"simt"``.
     """

@@ -6,10 +6,14 @@ its custom VJP).  K5-fwd is ``csrc/mip_mlp_fwd.cu``, K5-bwd
 ``csrc/mip_mlp_bwd.cu``, both on the device code of ``csrc/mip_mlp.cuh``.
 ``mip_mlp_fwd_plain`` and ``mip_mlp_bwd_plain`` are their plain PyTorch
 versions, which the wrappers run for CPU tensors and the tests and
-``chip_smoke.py`` hold the kernels against.  K5's products are float32
-SIMT (the ``MipSimt`` policy of ``csrc/mip_mlp.cuh``); K6 and K7
-(``mip_train``) run the same chain on the tensor cores, on the weights as
-``prepare_weights`` packs and images them.  Under autograd
+``chip_smoke.py`` hold the kernels against (with
+``matmul=tc_mlp.tc_matmul_autograd`` they emulate the tensor-core
+products).  K5-fwd's products are float32 SIMT (the ``MipSimt`` policy of
+``csrc/mip_mlp.cuh``); K5-bwd, K6 and K7 (``mip_train``) run the chain on
+the tensor cores (``MipTc``, 3xTF32 ``wgmma``; K5-bwd's features'
+cotangent too), on the weights as ``prepare_weights`` packs and images
+them, with the float32 SIMT forward tile where the features are too wide
+for the tensor-core one (``_build.tile_plan``).  Under autograd
 ``mip_mlp_fwd`` runs as ``MipMLPFunction``, whose backward is
 ``mip_mlp_bwd``.
 
@@ -162,16 +166,19 @@ def mip_mlp_fwd(packed: Packed, features: torch.Tensor) -> torch.Tensor:
 
 def mip_mlp_bwd_plain(
     packed: Packed, features: torch.Tensor, g_out: torch.Tensor, input_grads: bool = True,
+    matmul=torch.matmul,
 ) -> Tuple[Optional[torch.Tensor], Packed]:
     """The backward kernel's function in plain PyTorch: the vector-Jacobian
-    product of ``mip_mlp_fwd_plain`` with ``g_out [P, O]``."""
+    product of ``mip_mlp_fwd_plain`` with ``g_out [P, O]``; ``matmul`` as
+    there (``tc_mlp.tc_matmul_autograd`` emulates the tensor-core passes,
+    the features' cotangent included)."""
     if not input_grads:
         _, d_packed = packed_grads_plain(
-            packed, (), lambda w: (mip_mlp_fwd_plain(w, features), g_out)
+            packed, (), lambda w: (mip_mlp_fwd_plain(w, features, matmul), g_out)
         )
         return None, d_packed
     (dfeat,), d_packed = packed_grads_plain(
-        packed, (features,), lambda w, x: (mip_mlp_fwd_plain(w, x), g_out)
+        packed, (features,), lambda w, x: (mip_mlp_fwd_plain(w, x, matmul), g_out)
     )
     return dfeat, d_packed
 
@@ -206,6 +213,7 @@ def mip_scratch(packed: Packed, n_rows: int, device: torch.device) -> Dict[str, 
 
 def mip_mlp_bwd(
     packed: Packed, features: torch.Tensor, g_out: torch.Tensor, input_grads: bool = True,
+    tc_fwd: Optional[torch.Tensor] = None, tc_bwd: Optional[torch.Tensor] = None,
 ) -> Tuple[Optional[torch.Tensor], Packed]:
     """Backward of ``mip_mlp_fwd``: given ``g_out [P, O]``, the cotangent
     of its output, returns ``(dfeat [P, F], d_packed)`` with ``d_packed``
@@ -215,9 +223,17 @@ def mip_mlp_bwd(
     kernel does.
 
     CPU tensors run ``mip_mlp_bwd_plain``; CUDA tensors launch the kernel
-    (raising on what it does not take).
+    (raising on what it does not take): its tensor-core passes on the
+    operand images ``tc_fwd`` and ``tc_bwd`` (``tc_mlp.tc_images(packed,
+    backward=True)``) when given, else built here; the forward recompute on
+    the float32 SIMT tile where the features are too wide for the
+    tensor-core one (``_build.tile_plan``; past the SIMT tile a
+    ``ValueError`` before any launch).  ``_build.policy_counts`` records the
+    forward tile each call ran.
     """
-    device = check_inputs(BWD_NAME, packed, {"features": features, "g_out": g_out}, ALIGNED)
+    device = check_inputs(BWD_NAME, packed, {"features": features, "g_out": g_out,
+                                             "tc_fwd": tc_fwd, "tc_bwd": tc_bwd}, ALIGNED)
+    tc_mlp.check_images(BWD_NAME, packed, tc_fwd, tc_bwd)
     layers, hidden = packed["b"].shape
     n_feat, outputs = packed["w_in"].shape[0], packed["w_out"].shape[1]
     n_points = features.shape[0]
@@ -231,33 +247,42 @@ def mip_mlp_bwd(
     dfeat = torch.empty_like(features) if input_grads else None
     if n_points == 0:
         return dfeat, {k: torch.zeros_like(v) for k, v in packed.items()}
+    policy = _build.tile_plan(BWD_NAME, n_feat, 0, hidden).policy  # raises past the SIMT tile
+    if tc_fwd is None or tc_bwd is None:
+        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
     s = mip_scratch(packed, n_points, device)
     fn = getattr(_build.load(BWD_NAME), BWD_NAME)
     err = fn(
         features.data_ptr(), g_out.data_ptr(), _build.ptr(dfeat), s["grads"].data_ptr(),
         n_points, n_feat, hidden, layers, outputs, *weight_pointers(packed),
-        *scratch_pointers(s), s["splits"], torch.cuda.current_stream(device).cuda_stream,
+        *scratch_pointers(s), s["splits"], tc_fwd.data_ptr(), tc_bwd.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(BWD_NAME, err)
     _build.launch_counts[BWD_NAME] += 1
+    _build.policy_counts[(BWD_NAME, policy)] += 1
     return dfeat, flat_grads_to_packed(s["grads"], packed)
 
 
 class MipMLPFunction(torch.autograd.Function):
     """``mip_mlp_fwd`` under autograd: forward K5-fwd, backward K5-bwd.
-    Arguments ``(features, *weights)`` with the weights in
-    ``PACK_ORDER``."""
+    Arguments ``(features, *weights)`` with the weights in ``PACK_ORDER``.
+    On the card the forward builds the operand images K5-bwd reads
+    (``tc_mlp.tc_images``) and hands them to the backward, once a step."""
 
     @staticmethod
     def forward(ctx, features, *weights):
+        packed = _packed_from_args(weights)
+        ctx.images = (tc_mlp.tc_images(packed, backward=True)
+                      if features.device.type == "cuda" else (None, None))
         ctx.save_for_backward(features, *weights)
-        return mip_mlp_fwd(_packed_from_args(weights), features)
+        return mip_mlp_fwd(packed, features)
 
     @staticmethod
     def backward(ctx, g_out):
         features, *weights = ctx.saved_tensors
         dfeat, d_packed = mip_mlp_bwd(
             _packed_from_args(weights), features, g_out.contiguous(),
-            input_grads=ctx.needs_input_grad[0],
+            input_grads=ctx.needs_input_grad[0], tc_fwd=ctx.images[0], tc_bwd=ctx.images[1],
         )
         return (dfeat, *[d_packed[k] for k in PACK_ORDER])

@@ -4,11 +4,17 @@ frequency encoding computed inside the kernel, forward and backward.
 Counterpart of ``nerf_tpu/ops/pallas/fused_mlp.py::classic_pointmlp_pallas``
 (K1's two ``pallas_call``s with ``fuse_encoding=True``).  The encoding is
 ``sin(x @ S + phase)`` on the constants of ``encoding.enc_consts``.
-K8-fwd is ``csrc/classic_pointmlp_fwd.cu``, K8-bwd
-``csrc/classic_pointmlp_bwd.cu`` (device code in ``csrc/encode.cuh`` and
-K1's ``csrc/classic_mlp{,_train}.cuh``); ``classic_pointmlp_fwd_plain`` and
+K8-fwd is ``csrc/classic_pointmlp_fwd.cu`` (float32 SIMT, device code in
+``csrc/encode.cuh`` and ``csrc/classic_mlp.cuh``); K8-bwd
+``csrc/classic_pointmlp_bwd.cu``, K2's tensor-core passes
+(``csrc/tc_mlp.cuh``'s ``TcProducts``, 3xTF32 ``wgmma``), the encodings'
+cotangents included, on the operand images ``tc_mlp.tc_images`` builds;
+``fwd_store`` runs the float32 SIMT tile where the encodings are too wide
+for the tensor-core one (``_build.tile_plan``), and ``_build.policy_counts``
+records which.  ``classic_pointmlp_fwd_plain`` and
 ``classic_pointmlp_bwd_plain`` are their plain PyTorch versions, which the
-wrappers run for CPU tensors.  Under autograd the call runs as
+wrappers run for CPU tensors (with ``matmul=tc_mlp.tc_matmul_autograd`` they
+emulate the tensor-core products).  Under autograd the call runs as
 ``ClassicPointMLPFunction``, whose backward is K8-bwd: it returns the
 weights' gradients and the raw points' and directions'.
 """
@@ -20,7 +26,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from nerf_tpu_torch.ops import encoding
-from nerf_tpu_torch.ops.kernels import _build
+from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
     HIDDEN_WIDTHS,
     MAX_COLORS,
@@ -57,24 +63,30 @@ def _encode(points: torch.Tensor, s: torch.Tensor, phase: torch.Tensor) -> torch
 
 
 def classic_pointmlp_fwd_plain(packed: Packed, points: torch.Tensor, dirs: torch.Tensor,
-                               consts: Consts) -> torch.Tensor:
+                               consts: Consts, matmul=torch.matmul) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``sin(x @ S + phase)`` of
-    both inputs, then ``classic_mlp_fwd_plain``; ``[P, 1 + C]``."""
+    both inputs, then ``classic_mlp_fwd_plain``; ``[P, 1 + C]``.  ``matmul``
+    computes the MLP's hidden and encoding products, as in
+    ``classic_mlp_fwd_plain`` (the encodings' ``x @ S`` is one exact product
+    a lane in both versions and stays ``@``)."""
     sx, phx, sd, phd = consts
-    return classic_mlp_fwd_plain(packed, _encode(points, sx, phx), _encode(dirs, sd, phd))
+    return classic_mlp_fwd_plain(packed, _encode(points, sx, phx), _encode(dirs, sd, phd),
+                                 matmul)
 
 
 def classic_pointmlp_bwd_plain(
     packed: Packed, points: torch.Tensor, dirs: torch.Tensor, consts: Consts,
-    g_out: torch.Tensor, input_grads: bool = True,
+    g_out: torch.Tensor, input_grads: bool = True, matmul=torch.matmul,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Packed]:
     """The backward kernel's function in plain PyTorch: the vector-Jacobian
-    product of ``classic_pointmlp_fwd_plain`` with ``g_out [P, 1 + C]``."""
+    product of ``classic_pointmlp_fwd_plain`` with ``g_out [P, 1 + C]``;
+    ``matmul`` as there (``tc_mlp.tc_matmul_autograd`` emulates the
+    tensor-core passes, the encodings' cotangents included)."""
     ins = (points, dirs) if input_grads else ()
 
     def objective(w, *raw):
         p, d = raw if input_grads else (points, dirs)
-        return classic_pointmlp_fwd_plain(w, p, d, consts), g_out
+        return classic_pointmlp_fwd_plain(w, p, d, consts, matmul), g_out
 
     in_grads, d_packed = packed_grads_plain(packed, ins, objective)
     return (*in_grads, d_packed) if input_grads else (None, None, d_packed)
@@ -136,14 +148,23 @@ def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tenso
 
 def classic_pointmlp_bwd(
     packed: Packed, points: torch.Tensor, dirs: torch.Tensor, consts: Consts,
-    g_out: torch.Tensor, input_grads: bool = True,
+    g_out: torch.Tensor, input_grads: bool = True, tc_fwd: Optional[torch.Tensor] = None,
+    tc_bwd: Optional[torch.Tensor] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Packed]:
     """K8-bwd: given ``g_out [P, 1 + C]``, returns ``(dpoints [P, 3], ddirs
     [P, 3], d_packed)``, the weights' gradients summed over the points;
     with ``input_grads=False`` the raw inputs' cotangents are skipped and
     ``None``.  CPU tensors run ``classic_pointmlp_bwd_plain``; CUDA tensors
-    launch the kernel (raising on what it does not take)."""
-    device = _check(BWD_NAME, packed, points, dirs, consts, {"g_out": g_out})
+    launch the kernel (raising on what it does not take): its tensor-core
+    passes on the operand images ``tc_fwd`` and ``tc_bwd``
+    (``tc_mlp.tc_images(packed, backward=True)``) when given, else built
+    here; ``fwd_store`` on the float32 SIMT tile where the encodings are too
+    wide for the tensor-core one (``_build.tile_plan``; past the SIMT tile a
+    ``ValueError`` before any launch).  ``_build.policy_counts`` records the
+    tile ``fwd_store`` ran."""
+    device = _check(BWD_NAME, packed, points, dirs, consts,
+                    {"g_out": g_out, "tc_fwd": tc_fwd, "tc_bwd": tc_bwd})
+    tc_mlp.check_images(BWD_NAME, packed, tc_fwd, tc_bwd)
     if device.type == "cpu":
         return classic_pointmlp_bwd_plain(packed, points, dirs, consts, g_out, input_grads)
     n_points = points.shape[0]
@@ -153,6 +174,9 @@ def classic_pointmlp_bwd(
         return dpts, ddirs, {k: torch.zeros_like(v) for k, v in packed.items()}
     xe, hidden = packed["w0"].shape
     de = packed["wd_in"].shape[0]
+    policy = _build.tile_plan(BWD_NAME, xe, de, hidden).policy  # raises past the SIMT tile
+    if tc_fwd is None or tc_bwd is None:
+        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
     s = train_scratch(packed, n_points, device)
 
     def buf(*shape):
@@ -167,10 +191,12 @@ def classic_pointmlp_bwd(
         _build.ptr(ddirs), s["grads"].data_ptr(), n_points, xe, de, hidden,
         packed["w_col"].shape[1], *[c.data_ptr() for c in consts], *weight_pointers(packed),
         *scratch_pointers(s), x_enc.data_ptr(), d_enc.data_ptr(), _build.ptr(dx_enc),
-        _build.ptr(dd_enc), s["splits"], torch.cuda.current_stream(device).cuda_stream,
+        _build.ptr(dd_enc), s["splits"], tc_fwd.data_ptr(), tc_bwd.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(BWD_NAME, err)
     _build.launch_counts[BWD_NAME] += 1
+    _build.policy_counts[(BWD_NAME, policy)] += 1
     return dpts, ddirs, flat_grads_to_packed(s["grads"], packed)
 
 
@@ -178,13 +204,18 @@ class ClassicPointMLPFunction(torch.autograd.Function):
     """K8 under autograd: forward K8-fwd, backward K8-bwd.  Arguments
     ``(consts, points, dirs, *weights)`` with the weights in
     ``PACK_ORDER``; the backward returns the raw inputs' cotangents and the
-    weights' gradients."""
+    weights' gradients.  On the card the forward builds the operand images
+    K8-bwd reads (``tc_mlp.tc_images``) and hands them to the backward, once
+    a step."""
 
     @staticmethod
     def forward(ctx, consts: Consts, points, dirs, *weights):
+        packed = _packed_from_args(weights)
         ctx.consts = consts
+        ctx.images = (tc_mlp.tc_images(packed, backward=True) if points.device.type == "cuda"
+                      else (None, None))
         ctx.save_for_backward(points, dirs, *weights)
-        return classic_pointmlp_fwd(_packed_from_args(weights), points, dirs, consts)
+        return classic_pointmlp_fwd(packed, points, dirs, consts)
 
     @staticmethod
     def backward(ctx, g_out):
@@ -192,7 +223,8 @@ class ClassicPointMLPFunction(torch.autograd.Function):
         packed = _packed_from_args(weights)
         dpts, ddirs, d_packed = classic_pointmlp_bwd(
             packed, points, dirs, ctx.consts, g_out.contiguous(),
-            input_grads=any(ctx.needs_input_grad[1:3]),
+            input_grads=any(ctx.needs_input_grad[1:3]), tc_fwd=ctx.images[0],
+            tc_bwd=ctx.images[1],
         )
         return (None, dpts, ddirs, *[d_packed.get(k) for k in PACK_ORDER])
 

@@ -2,8 +2,9 @@
 ``wgmma``.
 
 K1-fwd and K1-bwd (``classic_mlp``), K2 (``train_grads``), K3
-(``fine_stage_train``), K4 (``union_eval``), K9 (``mega_train``), K6 and K7
-(``mip_train``) run their hidden and encoding (or feature) products as three
+(``fine_stage_train``), K4 (``union_eval``), K8-bwd (``point_mlp``), K9
+(``mega_train``), K5-bwd (``mip_mlp``), K6 and K7 (``mip_train``) run their
+hidden and encoding (or feature) products as three
 TF32 products, ``hi(A) hi(B) + hi(A) lo(B) + lo(A) hi(B)``
 with ``lo = x - hi``, into float32 accumulators (``csrc/tc_mlp.cuh``).  TF32
 keeps 10 mantissa bits; the split keeps about 21, which is what float32
@@ -22,7 +23,10 @@ kernel copies it to shared memory: per chunk the hi block, then the lo
 block, each ``[N][16]`` with the 16-byte group ``j`` of row ``n`` stored at
 group ``j ^ ((n // 2) % 4)`` (the 64-byte swizzle of ``wgmma``'s
 shared-memory operands, which keeps the tensor cores' reads of eight rows
-off one bank).
+off one bank).  The input cotangents of ``bwd_rows`` (``dx = dpre w0^T``
+and the like) take the input slabs as packed, ``[in][out]``: their images
+(``input_image``) pad the rows to a multiple of 64 and hold each pass of
+``min(H, 64)`` rows, the columns one product computes, as its own image.
 
 ``tf32_split`` and ``tc_matmul`` are the plain emulation of the product
 (the same masking, three float32 products); ``TcMatmul`` carries it through
@@ -83,6 +87,13 @@ def round_up_chunk(n: int) -> int:
     return -(-n // CHUNK) * CHUNK
 
 
+INPUT_PAD = 64  # rows of an input slab's image, padded (kTcInPad in csrc/tc_mlp.cuh)
+
+
+def round_up_input(n: int) -> int:
+    return -(-n // INPUT_PAD) * INPUT_PAD
+
+
 def _swizzle_index(n: int, device) -> torch.Tensor:
     """For row ``r`` and 16-byte group ``j`` of a ``[n][16]`` block, the
     group it is stored at: ``j ^ ((r // 2) % 4)``."""
@@ -131,6 +142,18 @@ def forward_slabs(packed) -> dict:
     return out
 
 
+def input_image(w: torch.Tensor) -> torch.Tensor:
+    """``bwd_rows``' B operand for the input cotangent ``dpre @ w^T`` of an
+    input slab ``w [n, H]`` as packed (``[in][out]``, K-major for this
+    product): the rows zero-padded to ``round_up_input(n)``, then each pass
+    of ``min(H, 64)`` rows an operand image, ``[2 round_up_input(n) H]``
+    floats (``tc_input_grad`` in ``csrc/tc_mlp.cuh``)."""
+    n, hidden = w.shape
+    rows = min(hidden, INPUT_PAD)
+    padded = F.pad(w, (0, 0, 0, round_up_input(n) - n))
+    return operand_image(padded.reshape(-1, rows, hidden)).reshape(-1)
+
+
 def tc_images(packed, backward: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The operand images a kernel reads, built on the weights' device:
     ``(forward, backward)``, for the classic weights
@@ -139,13 +162,17 @@ def tc_images(packed, backward: bool = False) -> Tuple[torch.Tensor, Optional[to
     input slabs (``w0``, ``wx``, ``wd_in`` with the view branch; or
     ``w_in``), then each hidden slab (the order ``csrc/tc_mlp.cuh``'s
     ``TcImages`` and ``csrc/mip_mlp.cuh``'s ``MipImages`` read).  With
-    ``backward`` also the hidden slabs as ``bwd_rows``' B operands (the
-    packed ``[in][out]`` slabs); else ``None``."""
+    ``backward`` also ``bwd_rows``' B operands: the hidden slabs (the
+    packed ``[in][out]`` slabs), then the input slabs in the same order
+    (``input_image``, for the input cotangents); else ``None``."""
     with torch.no_grad():
         slabs = forward_slabs(packed)
         fwd = [operand_image(slabs[k]) for k in INPUT_SLABS if k in slabs]
         fwd.append(operand_image(slabs["whh"]).reshape(-1))
-        bwd = operand_image(packed["whh"]).reshape(-1) if backward else None
+        bwd = None
+        if backward:
+            bwd = torch.cat([operand_image(packed["whh"]).reshape(-1)]
+                            + [input_image(packed[k]) for k in INPUT_SLABS if k in packed])
         return torch.cat(fwd), bwd
 
 
@@ -155,7 +182,8 @@ def image_numels(packed) -> Tuple[int, int]:
     hidden = packed["whh"].shape[-1]
     widths = [packed[k].shape[0] for k in INPUT_SLABS if k in packed]
     slabs = packed["whh"].shape[0] * 2 * hidden * hidden
-    return 2 * hidden * sum(round_up_chunk(w) for w in widths) + slabs, slabs
+    return (2 * hidden * sum(round_up_chunk(w) for w in widths) + slabs,
+            slabs + 2 * hidden * sum(round_up_input(w) for w in widths))
 
 
 def check_images(name: str, packed, tc_fwd: Optional[torch.Tensor],

@@ -15,16 +15,18 @@ cumulative product.  K8 adds the device's sine of the same arguments; K9
 is held against its plain version with its own fine t-values (its resample
 against the plain one separately), as the JAX package holds its kernel.
 
-K1-fwd, K1-bwd (without the encodings' cotangents), K2, K3, K4, K6, K7
-and K9 run their MLP products as 3xTF32 on the tensor cores
-(``csrc/tc_mlp.cuh``), at the same tolerances: their cases cover every
+K1-fwd, K1-bwd (without the encodings' cotangents), K2, K3, K4, K5-bwd,
+K6, K7, K8-bwd and K9 run their MLP products as 3xTF32 on the tensor
+cores (``csrc/tc_mlp.cuh``; K5-bwd's and K8-bwd's inputs' cotangents
+too), at the same tolerances: their cases cover every
 hidden width, row counts that are not a multiple of 64, encoding widths
 that are not a multiple of 8 (and mip heads of 54 and 9 outputs), runs
 with and without the view branch, and two calls must agree bitwise.
 Where a latent-conditioned model's encodings (a mip model's features) are
 too wide for the tensor-core tile the kernels run the float32 SIMT tile
-(``_build.tile_plan``): the ``latent_full_width`` cases check that the
-policy each call recorded is the one its byte count predicts; past the
+(``_build.tile_plan``): the ``latent_full_width`` cases (K8-bwd's and
+K5-bwd's ``wide`` ones) check that the policy each call recorded is the
+one its byte count predicts; past the
 SIMT tile the wrappers raise before any launch.  The
 products alone (``tc_linear``, ``tc_wgrad`` of ``csrc/tc_product.cu``) are
 held against the CPU emulation of the same arithmetic
@@ -687,9 +689,12 @@ def test_mip_mlp_bwd_kernel_matches_plain(cuda, variant, points, input_grads):
     x, g_out = rand(gen, points, cfg.feature_dim), rand(gen, points, cfg.num_outputs)
     x = mip_rows_away_from_kinks(packed, gen, 1, points, cfg.feature_dim)[0]
     before = _build.launch_counts[mip_mlp.BWD_NAME]
+    policies = dict(_build.policy_counts)
     dx, d_packed = mip_mlp.mip_mlp_bwd(packed, x, g_out, input_grads=input_grads)
     torch.cuda.synchronize()
     assert _build.launch_counts[mip_mlp.BWD_NAME] == before + 1
+    # The tensor-core passes, the features' cotangent included.
+    assert policy_moves(policies) == {(mip_mlp.BWD_NAME, "tc"): 1}
     rdx, r_packed = mip_mlp.mip_mlp_bwd_plain(packed, x, g_out, input_grads=input_grads)
     assert (dx is None) == (not input_grads)
     assert_grads_close(d_packed | ({"dx": dx} if input_grads else {}),
@@ -980,37 +985,180 @@ def away_from_kinks(packed, consts, gen, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("input_grads", [True, False])
 @pytest.mark.parametrize("points", [1, 200])
 @pytest.mark.parametrize("variant", POINT_VARIANTS)
-def test_classic_pointmlp_bwd_kernel_matches_plain(cuda, variant, points):
-    """K8-bwd is K1-bwd's passes on the encodings it computes, then the
-    chain rule to the raw inputs: held against K1-bwd on the same encodings
-    (the same sums in the same order), the chain rule applied to K1-bwd's
-    encoding cotangents, and its plain version on the rows away from the
-    ReLU's kink (``away_from_kinks``)."""
+def test_classic_pointmlp_bwd_kernel_matches_plain(cuda, variant, points, input_grads):
+    """K8-bwd is K2's tensor-core passes on the encodings it computes, the
+    encodings' cotangents included, then the chain rule to the raw inputs:
+    on rows away from the ReLU's kink (``away_from_kinks``) its weight
+    gradients are held against K1-bwd's tensor-core route on the same
+    encodings (``input_grads=False``), the raw inputs' cotangents against
+    the chain rule applied to the plain encodings' cotangents, and all of
+    them against its plain version; every call runs the tensor-core
+    tile."""
     cfg, packed = packed_weights(variant, cuda)
     consts = point_consts(cfg, cuda)
     gen = torch.Generator(device=cuda).manual_seed(12)
     pts, dirs = away_from_kinks(packed, consts, gen, points)
     g_out = rand(gen, points, 1 + cfg.color_outputs)
     before = _build.launch_counts[point_mlp.BWD_NAME]
-    dp, dd, d_packed = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out)
+    policies = dict(_build.policy_counts)
+    dp, dd, d_packed = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out,
+                                                      input_grads=input_grads)
     torch.cuda.synchronize()
     assert _build.launch_counts[point_mlp.BWD_NAME] == before + 1
+    assert policy_moves(policies) == {(point_mlp.BWD_NAME, "tc"): 1}
     x_arg, d_arg = pts @ consts[0] + consts[1], dirs @ consts[2] + consts[3]
-    dx, ddir, k1_packed = classic_mlp.classic_mlp_bwd(packed, torch.sin(x_arg), torch.sin(d_arg),
-                                                      g_out)
+    _, _, k1_packed = classic_mlp.classic_mlp_bwd(packed, torch.sin(x_arg), torch.sin(d_arg),
+                                                  g_out, input_grads=False)
     assert_grads_close(d_packed, k1_packed)
+    rdp, rdd, r_packed = point_mlp.classic_pointmlp_bwd_plain(packed, pts, dirs, consts, g_out,
+                                                              input_grads)
+    assert_grads_close(d_packed, r_packed)
+    if not input_grads:
+        assert dp is None and dd is None
+        return
+    dx, ddir, _ = classic_mlp.classic_mlp_bwd_plain(packed, torch.sin(x_arg), torch.sin(d_arg),
+                                                    g_out)
     assert_grads_close({"dpoints": dp, "ddirs": dd},
                        {"dpoints": (dx * torch.cos(x_arg)) @ consts[0].T,
                         "ddirs": (ddir * torch.cos(d_arg)) @ consts[2].T})
-    rdp, rdd, r_packed = point_mlp.classic_pointmlp_bwd_plain(packed, pts, dirs, consts, g_out)
-    assert_grads_close(d_packed | {"dpoints": dp, "ddirs": dd},
-                       r_packed | {"dpoints": rdp, "ddirs": rdd})
-    dp, dd, no_inputs = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out,
-                                                       input_grads=False)
-    assert dp is None and dd is None
-    assert_grads_close(no_inputs, d_packed)
+    assert_grads_close({"dpoints": dp, "ddirs": dd}, {"dpoints": rdp, "ddirs": rdd})
+
+
+# K8-bwd's and K5-bwd's models beside the full-width ones: encodings or
+# features past the tensor-core tile at hidden 256 (x 102 + 36, 144; the
+# wider x encoding also takes two 64-column passes of the input
+# cotangent, the 144 features three), and past the float32 SIMT tile too
+# (600).
+INPUT_TC_WIDTHS = {
+    point_mlp.BWD_NAME: {"wide": dict(x_positional_encoding_size=34),
+                         "too_wide": dict(x_positional_encoding_size=200)},
+    mip_mlp.BWD_NAME: {"wide": dict(encoding_size=48), "too_wide": dict(encoding_size=200)},
+}
+
+
+def input_tc_case(kernel, device, points, seed=0, **overrides):
+    """A K8-bwd or K5-bwd call's arguments at full width (``overrides`` on
+    the config), rows away from the ReLU kinks, and the function that
+    calls the kernel (``kernel`` its wrapper's name) or, with
+    ``plain=True``, its plain version."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kernel == point_mlp.BWD_NAME:
+        cfg = ClassicNeRFConfig(normalize_position=6.0, **{"hidden_size": 256, **overrides})
+        mlp = ClassicMLP(cfg, generator=torch.Generator().manual_seed(0), device=device)
+        packed = classic_mlp.pack_classic_params(mlp.requires_grad_(False))
+        consts = point_consts(cfg, device)
+        pts, dirs = away_from_kinks(packed, consts, gen, points)
+        args = (packed, pts, dirs, consts, rand(gen, points, 1 + cfg.color_outputs))
+
+        def call(plain=False):
+            fn = point_mlp.classic_pointmlp_bwd_plain if plain else point_mlp.classic_pointmlp_bwd
+            dp, dd, grads = fn(*args)
+            return grads | {"dpoints": dp, "ddirs": dd}
+        return cfg, (cfg.x_encoding_dim, cfg.d_encoding_dim), call
+    cfg, packed = mip_packed("full_width", device, **overrides)
+    x = mip_rows_away_from_kinks(packed, gen, 1, points, cfg.feature_dim)[0]
+    args = (packed, x, rand(gen, points, cfg.num_outputs))
+
+    def call(plain=False):
+        dx, grads = (mip_mlp.mip_mlp_bwd_plain if plain else mip_mlp.mip_mlp_bwd)(*args)
+        return grads | {"dfeat": dx}
+    return cfg, (cfg.feature_dim, 0), call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [point_mlp.BWD_NAME, mip_mlp.BWD_NAME])
+@pytest.mark.parametrize("variant", ["full_width", "wide"])
+def test_input_cotangent_kernels_follow_the_width_rule(cuda, variant, kernel):
+    """K8-bwd and K5-bwd with the inputs' cotangents at full width, and with
+    encodings (features) past the tensor-core forward tile
+    (``INPUT_TC_WIDTHS``): the plan's bytes are those of ``fwd_store``'s
+    tiles, the call records the policy they predict (the tensor cores at
+    60 + 36 and 96 features, the float32 SIMT forward tile at 102 + 36 and
+    144) and matches plain."""
+    overrides = INPUT_TC_WIDTHS[kernel]["wide"] if variant == "wide" else {}
+    cfg, (xe, de), call = input_tc_case(kernel, cuda, points=150, **overrides)
+    tc_bytes, simt_bytes = predicted_tile_bytes(kernel, 256, xe, de, 0, 0, 0)
+    plan = _build.tile_plan(kernel, xe, de, 256)
+    assert (plan.tc_bytes, plan.simt_bytes) == (tc_bytes, simt_bytes)
+    want = "tc" if variant == "full_width" else "simt"
+    assert plan.policy == want
+    before = dict(_build.policy_counts)
+    got = call()
+    torch.cuda.synchronize()
+    assert policy_moves(before) == {(kernel, want): 1}
+    assert_grads_close(got, call(plain=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [point_mlp.BWD_NAME, mip_mlp.BWD_NAME])
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_input_cotangent_kernels_match_plain_at_every_width(cuda, hidden, kernel):
+    """K8-bwd (encodings 60 + 36) and K5-bwd (96 features) with the inputs'
+    cotangents at every hidden width (below 64 the input cotangent's passes
+    are H columns wide), 201 rows (not a multiple of 64) away from the ReLU
+    kinks, on the tensor cores, against plain at GRAD_ATOL; a second call
+    gives bitwise the same results."""
+    _, _, call = input_tc_case(kernel, cuda, points=201, seed=hidden, hidden_size=hidden)
+    before = dict(_build.policy_counts)
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert policy_moves(before) == {(kernel, "tc"): 2}
+    assert_grads_close(first, call(plain=True))
+    assert all(torch.equal(first[k], second[k]) for k in first)
+
+
+@pytest.mark.cuda
+def test_input_cotangent_autograd_builds_the_images_once(cuda, monkeypatch):
+    """Under autograd K8 (``classic_pointmlp``) and K5 (``mip_mlp_fwd``)
+    build their weights' operand images once, in the forward, and K8-bwd
+    and K5-bwd run on those very tensors, on the tensor cores."""
+    built, seen = [], []
+    images = tc_mlp.tc_images
+    monkeypatch.setattr(tc_mlp, "tc_images",
+                        lambda *a, **k: built.append(images(*a, **k)) or built[-1])
+    for module, name in ((point_mlp, "classic_pointmlp_bwd"), (mip_mlp, "mip_mlp_bwd")):
+        original = getattr(module, name)
+
+        def recording(*args, _original=original, **kwargs):
+            seen.append((kwargs["tc_fwd"], kwargs["tc_bwd"]))
+            return _original(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, recording)
+    model = ClassicNeRF(ClassicNeRFConfig(hidden_size=64, normalize_position=6.0),
+                        generator=torch.Generator().manual_seed(0), device=cuda)
+    cfg = model.cfg
+    pts, dirs = raw_points(torch.Generator(device=cuda).manual_seed(15), 100)
+    policies = dict(_build.policy_counts)
+    dens, col = point_mlp.classic_pointmlp(model, pts, dirs, cfg.x_positional_encoding_size,
+                                           cfg.normalize_position, cfg.d_positional_encoding_size,
+                                           cfg.direction_bound)
+    torch.autograd.grad(col.sum() + dens.sum(), list(model.parameters()))
+    mcfg, mpacked = mip_packed("small", cuda)
+    leaves = {k: v.clone().requires_grad_(True) for k, v in mpacked.items()}
+    x = rand(torch.Generator(device=cuda).manual_seed(16), 100, mcfg.feature_dim)
+    torch.autograd.grad(mip_mlp.mip_mlp_fwd(leaves, x).sum(), list(leaves.values()))
+    torch.cuda.synchronize()
+    assert len(built) == 2 and len(seen) == 2
+    assert all(s[0] is b[0] and s[1] is b[1] for s, b in zip(seen, built))
+    assert policy_moves(policies) == {(point_mlp.BWD_NAME, "tc"): 1, (mip_mlp.BWD_NAME, "tc"): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [point_mlp.BWD_NAME, mip_mlp.BWD_NAME])
+def test_input_cotangent_wrappers_raise_past_every_tile(cuda, kernel):
+    """Encodings (features) past the float32 SIMT tile too (600 + 36, 600
+    at hidden 256, past its 588): K8-bwd and K5-bwd raise, naming the
+    limit, with nothing launched or counted."""
+    _, _, call = input_tc_case(kernel, cuda, points=5, **INPUT_TC_WIDTHS[kernel]["too_wide"])
+    torch.cuda.synchronize()
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+    with pytest.raises(ValueError, match="limit"):
+        call()
+    assert dict(_build.launch_counts) == launches
+    assert dict(_build.policy_counts) == policies
 
 
 @pytest.mark.cuda

@@ -188,7 +188,8 @@ def test_mip_tc_images_hold_w_in_and_every_slab_in_order(hidden):
             hi, lo = tc_mlp.operand_image_unpack(slabs[i], h, h)
             want_hi, want_lo = tc_mlp.tf32_split(packed["whh"][i].t())
             assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
-            hi, lo = tc_mlp.operand_image_unpack(bwd.reshape(layers - 1, -1)[i], h, h)
+            bwd_slabs = bwd[:(layers - 1) * 2 * h * h]  # w_in's image follows
+            hi, lo = tc_mlp.operand_image_unpack(bwd_slabs.reshape(layers - 1, -1)[i], h, h)
             want_hi, want_lo = tc_mlp.tf32_split(packed["whh"][i])
             assert torch.equal(hi, want_hi) and torch.equal(lo, want_lo)
 

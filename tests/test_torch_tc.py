@@ -152,7 +152,8 @@ def test_tc_images_hold_every_slab_in_order(view):
     assert at == 2 * h * (2 * 64 + (48 if view else 0)) and whh.shape[1] == 2 * h * h
     assert torch.equal(tc_mlp.operand_image_unpack(whh, h, h)[0],
                        tc_mlp.tf32_split(slabs["whh"])[0])
-    assert torch.equal(tc_mlp.operand_image_unpack(bwd.reshape(layers - 1, -1), h, h)[1],
+    bwd_slabs = bwd[:(layers - 1) * 2 * h * h]  # the input slabs' images follow
+    assert torch.equal(tc_mlp.operand_image_unpack(bwd_slabs.reshape(layers - 1, -1), h, h)[1],
                        tc_mlp.tf32_split(packed["whh"])[1])
     assert xe == packed["w0"].shape[0]
 
