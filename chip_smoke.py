@@ -8,12 +8,11 @@
    ``nvcc`` (one process per source, started together) and prints the
    seconds it took and each kernel's registers, spills and ptxas C75xx
    notes (a ``wgmma`` serialized), labelled with the pass it runs
-   (K1-fwd's, K1-bwd's, K2's, K3's, K4's, K5-bwd's, K6's, K7's, K8-bwd's
-   and K9's MLP products run as 3xTF32 ``wgmma`` on the tensor cores,
-   ``csrc/tc_mlp.cuh``, K5-bwd's and K8-bwd's inputs' cotangents too, with
-   a float32 SIMT tile for encodings or features too wide for theirs, and
-   K1-bwd's float32 SIMT passes where the encodings' cotangents are asked
-   for; K5-fwd's and K8-fwd's in float32 SIMT).
+   (every kernel's MLP products run as 3xTF32 ``wgmma`` on the tensor
+   cores, ``csrc/tc_mlp.cuh``, K5-bwd's and K8-bwd's inputs' cotangents
+   too, with a float32 SIMT tile for encodings or features too wide for
+   theirs, and K1-bwd's float32 SIMT passes where the encodings'
+   cotangents are asked for).
 3. Serving (slice 1): holds K1-fwd (``classic_mlp_fwd``, 262,144 points)
    and K4 (``union_eval``, the first 4000-ray tile of the frame) against
    their plain PyTorch versions, then renders one 400x400 frame of 64
@@ -55,24 +54,23 @@
    else; every loss finite, the probe batch's loss lower after the run;
    ms/step and rays/s.
 9. Mip general path: one ``make_train_step`` step of ``MipNeRF(use_pallas=
-   True)`` launches one K5-fwd and one K5-bwd (on the tensor cores), and
-   its gradients match the ``use_pallas=False`` step's.
-10. Holds K5-fwd (258,048 random feature rows, float32 SIMT), K5-bwd (the
-   same rows, random cotangents, on the tensor cores; without the
-   features' cotangent as the general path calls it, and with it) and K6
-   (the trainer's inputs, on the tensor cores) against their plain
-   versions, with their times and bounds; prints the tile policy of the
-   K5-bwd calls, every one of which must have run the tensor cores.
+   True)`` launches one K5-fwd and one K5-bwd (both on the tensor cores),
+   and its gradients match the ``use_pallas=False`` step's.
+10. Holds K5-fwd (258,048 random feature rows), K5-bwd (the same rows,
+   random cotangents; without the features' cotangent as the general path
+   calls it, and with it) and K6 (the trainer's inputs, on the tensor
+   cores) against their plain versions, with their times and bounds;
+   prints the tile policy of the K5-fwd and K5-bwd calls, every one of
+   which must have run the tensor cores.
 11. K8 (slice 4), the MLP on raw points: one forward and backward of
    ``point_mlp.classic_pointmlp`` under autograd on the 262,144 raw points
    and directions of 4096 training rays x 64 stratified samples (the
    counters are zeroed just before and must read one K8-fwd and one
-   K8-bwd after, K8-bwd on the tensor cores); then K8-fwd (float32 SIMT)
-   and K8-bwd (on the tensor cores, with and without the raw inputs'
-   cotangents) against their plain versions and K8-fwd against K1-fwd on
-   the same encodings, with their times and bounds; prints the tile
-   policy of the K8-bwd calls, every one of which must have run the
-   tensor cores.
+   K8-bwd after, both on the tensor cores); then K8-fwd and K8-bwd (with
+   and without the raw inputs' cotangents) against their plain versions
+   and K8-fwd against K1-fwd on the same encodings, with their times and
+   bounds; prints the tile policy of the K8-fwd and K8-bwd calls, every
+   one of which must have run the tensor cores.
 12. K9 (slice 4), the whole reuse step in one call: one
    ``mega_train.mega_train_loss_and_grads`` step at 2048 rays x (64 +
    128) of the training phase's settings, held against ``mega_train_plain``
@@ -93,7 +91,9 @@
    on its arguments; then one reuse step at 2048 x (64 + 128) (one
    K1-fwd, one K1-bwd and one K3, each recording the SIMT tile)
    and one coarse-only step at 4096 x 64 (one K2, the same) against the
-   plain path.  Prints the policy each ran.
+   plain path.  Prints the policy each ran.  Then K8-fwd at x encodings
+   120 + 36 and K5-fwd at 144 features (slice 10), each of which must run
+   its float32 SIMT tile, against their plain versions.
 14. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
    each, and ``products``: how its MLP products run, and since which
@@ -202,9 +202,10 @@ K5_POINTS = MIP_RAYS * (MIP_TRAIN_RENDER.num_coarse_samples - 1)
 # within rounding of 0 and take the other branch in one of two float32
 # evaluations, each moving its row's gradient.  Losses: sums of per-ray
 # terms in another order.
-# K5-fwd: float32 FMAs summed in another order than cuBLAS's, through five
-# LayerNorm'd layers.  K7: the same, then the transmittance as the
-# exponential of a prefix sum of logs where the plain version takes a
+# K5-fwd: float32-accurate products (3xTF32 on the tensor cores, or
+# float32 FMAs past their tile) summed in another order than cuBLAS's,
+# through five LayerNorm'd layers.  K7: the same, then the transmittance
+# as the exponential of a prefix sum of logs where the plain version takes a
 # cumulative product, and the class composite's max and exp-sum over the
 # rows in another order.  Mip frame: both paths' differences; the
 # segmentation images are log-probabilities, compared absolutely.  The
@@ -272,9 +273,9 @@ PRODUCTS = {
     "classic_mlp_fwd": "3xTF32 (slice 7)", "union_eval": "3xTF32 (slice 5)",
     "classic_mlp_bwd": "3xTF32 (slice 7); float32 SIMT with the encodings' cotangents",
     "train_grads": "3xTF32 (slice 6)", "fine_stage_train": "3xTF32 (slice 6)",
-    "mip_mlp_fwd": "float32 SIMT", "mip_mlp_bwd": "3xTF32 (slice 9)",
+    "mip_mlp_fwd": "3xTF32 (slice 10)", "mip_mlp_bwd": "3xTF32 (slice 9)",
     "mip_eval": "3xTF32 (slice 8)", "mip_train_grads": "3xTF32 (slice 8)",
-    "classic_pointmlp_fwd": "float32 SIMT", "classic_pointmlp_bwd": "3xTF32 (slice 9)",
+    "classic_pointmlp_fwd": "3xTF32 (slice 10)", "classic_pointmlp_bwd": "3xTF32 (slice 9)",
     "mega_train": "3xTF32 (slice 5)",
 }
 
@@ -312,14 +313,13 @@ def kernel_label(mangled: str) -> str:
 
 
 # The passes of the MLP kernels by kernel name, for reports and profiles:
-# K1-fwd's, K1-bwd's, K2's, K3's, K4's, K5-bwd's, K6's, K7's, K8-bwd's and
-# K9's products run on the tensor cores (csrc/tc_mlp.cuh; their float32
-# SIMT fwd_store, K1-fwd, K4 and mip forward tiles serve encodings or
-# features too wide for it, and K1-bwd's SIMT passes the encodings'
-# cotangents), K5-fwd's and K8-fwd's in float32 SIMT.
+# every kernel's products run on the tensor cores (csrc/tc_mlp.cuh; their
+# float32 SIMT fwd_store, K1-fwd, K8-fwd, K4 and mip forward tiles serve
+# encodings or features too wide for it, and K1-bwd's SIMT passes the
+# encodings' cotangents).
 PASSES = {
-    "fwd_tc_kernel": "K1-fwd tile, 3xTF32 wgmma",
-    "classic_mlp_fwd_kernel": "K1-fwd tile, fp32 SIMT (wide encodings)",
+    "fwd_tc_kernel": "K1-fwd / K8-fwd tile, 3xTF32 wgmma",
+    "fwd_simt_kernel": "K1-fwd / K8-fwd tile, fp32 SIMT (wide encodings)",
     "fwd_store_tc_kernel": "fwd_store, 3xTF32 wgmma",
     "bwd_rows_tc_kernel": "bwd_rows, 3xTF32 wgmma",
     "wgrad_tc_kernel": "wgrad, 3xTF32 wgmma",
@@ -330,9 +330,9 @@ PASSES = {
     "wgrad_kernel": "wgrad, fp32 SIMT",
     "colsum_kernel": "colsum",
     "mip_fwd_store_tc_kernel": "mip fwd_store (K5-bwd, K6), 3xTF32 wgmma",
-    "mip_fwd_tc_kernel": "mip forward tile (K7), 3xTF32 wgmma",
+    "mip_fwd_tc_kernel": "mip forward tile (K5-fwd, K7), 3xTF32 wgmma",
     "mip_bwd_rows_tc_kernel": "mip bwd_rows (K5-bwd, K6), 3xTF32 wgmma",
-    "mip_fwd_kernel": "mip forward tile, fp32 SIMT (K5-fwd; K5-bwd, K6, K7 wide features)",
+    "mip_fwd_kernel": "mip forward tile, fp32 SIMT (wide features)",
     "encode_bwd_kernel": "K8-bwd chain rule to the raw inputs, fp32",
     "mip_objective_kernel": "K6 compositing and losses",
     "mip_eval_rays_kernel": "K7 compositing",
@@ -906,12 +906,15 @@ def mip_kernels_against_plain(store: dict, device) -> dict:
     feat = torch.rand((K5_POINTS, cfg.feature_dim), generator=gen, device=device) * 2 - 1
     g_out = torch.rand((K5_POINTS, cfg.num_outputs), generator=gen, device=device) * 2 - 1
     rows = {}
+    _build.policy_counts.clear()
     got = mip_mlp.mip_mlp_fwd(packed, feat)
     ref = mip_mlp.mip_mlp_fwd_plain(packed, feat)
     torch.cuda.synchronize()
     err = compare("mip_mlp_fwd", [got], [ref])
     ms = cuda_ms(lambda: mip_mlp.mip_mlp_fwd(packed, feat), iters=10)
+    check_policies("K5-fwd", {mip_mlp.NAME: 1 + (2 + 10)}, dict(_build.policy_counts), "tc")
     plain_ms = cuda_ms(lambda: mip_mlp.mip_mlp_fwd_plain(packed, feat), iters=10)
+    print(f"K5-fwd {ms:.3f} ms at {K5_POINTS} rows")
     rows["mip_mlp_fwd"] = dict(max_abs=err, ms=ms, plain_ms=plain_ms,
                                flops=K5_POINTS * flops_per_point,
                                nbytes=tensor_bytes(feat, got) + weight_bytes)
@@ -1033,6 +1036,7 @@ def point_mlp_phase(device, cfg: ClassicNeRFConfig, bank) -> dict:
     flops = n_points * classic_flops_per_point(cfg)
     rows = {}
     with torch.no_grad():
+        _build.policy_counts.clear()
         got = point_mlp.classic_pointmlp_fwd(packed, points, dirs, consts)
         ref = point_mlp.classic_pointmlp_fwd_plain(packed, points, dirs, consts)
         torch.cuda.synchronize()
@@ -1044,6 +1048,9 @@ def point_mlp_phase(device, cfg: ClassicNeRFConfig, bank) -> dict:
         print("K8-fwd against K1-fwd on the same encodings:")
         compare("classic_pointmlp_fwd", [got], [k1])
         ms = cuda_ms(lambda: point_mlp.classic_pointmlp_fwd(packed, points, dirs, consts), iters=10)
+        # K8-fwd's calls and the K1-fwd call on the encodings.
+        check_policies("K8-fwd", {point_mlp.NAME: 1 + (2 + 10), classic_mlp.NAME: 1},
+                       dict(_build.policy_counts), "tc")
         plain_ms = cuda_ms(
             lambda: point_mlp.classic_pointmlp_fwd_plain(packed, points, dirs, consts), iters=10)
         k1_ms = cuda_ms(lambda: classic_mlp.classic_mlp_fwd(packed, x_enc, d_enc), iters=10)
@@ -1245,6 +1252,53 @@ def latent_phase(device, bank) -> None:
         compare_grads(name, grads, ref, loss, ref_loss.detach())
 
 
+# Slice 10: K8-fwd's and K5-fwd's models too wide for their tensor-core
+# tiles at hidden 256 (x encodings 120 + 36; 144 features), and the rows
+# of each call.
+WIDE_K8 = dict(x_positional_encoding_size=40)
+WIDE_K5 = dict(encoding_size=48)
+WIDE_ROWS = 65_536
+
+
+def wide_forward_phase(device) -> None:
+    """The rest of phase 13: K8-fwd and K5-fwd at widths past their
+    tensor-core tiles (``WIDE_K8``, ``WIDE_K5``), each call of which must
+    run its float32 SIMT tile, against their plain versions."""
+    gen = torch.Generator(device=device).manual_seed(17)
+    cfg = ClassicNeRFConfig(normalize_position=6.0, **WIDE_K8)
+    packed = classic_mlp.pack_classic_params(make_model(True, device, **WIDE_K8).mlp
+                                             .requires_grad_(False))
+    consts = point_mlp.encoding_consts(cfg.x_positional_encoding_size, cfg.normalize_position,
+                                       cfg.d_positional_encoding_size, cfg.direction_bound,
+                                       device)
+    points = torch.rand((WIDE_ROWS, 3), generator=gen, device=device) * 4 - 2
+    dirs = torch.rand((WIDE_ROWS, 3), generator=gen, device=device) * 2 - 1
+    mcfg = MipNeRFConfig(**WIDE_K5)
+    mpacked = mip_mlp.pack_mip_params(
+        MipNeRF(mcfg, generator=torch.Generator().manual_seed(0), device=device).mlp
+        .requires_grad_(False))
+    feat = torch.rand((WIDE_ROWS, mcfg.feature_dim), generator=gen, device=device) * 2 - 1
+    widths = f"{cfg.x_encoding_dim} + {cfg.d_encoding_dim}"
+    with torch.no_grad():
+        for name, what, call, plain in (
+                (point_mlp.NAME, f"K8-fwd at encodings {widths}",
+                 lambda: point_mlp.classic_pointmlp_fwd(packed, points, dirs, consts),
+                 lambda: point_mlp.classic_pointmlp_fwd_plain(packed, points, dirs, consts)),
+                (mip_mlp.NAME, f"K5-fwd at {mcfg.feature_dim} features",
+                 lambda: mip_mlp.mip_mlp_fwd(mpacked, feat),
+                 lambda: mip_mlp.mip_mlp_fwd_plain(mpacked, feat))):
+            torch.cuda.synchronize()
+            _build.launch_counts.clear()
+            _build.policy_counts.clear()
+            got = call()
+            torch.cuda.synchronize()
+            launches = dict(_build.launch_counts)
+            check(launches == {name: 1}, f"{what}: one launch, nothing else")
+            check_policies(what, launches, dict(_build.policy_counts), "simt")
+            compare(name, [got], [plain()])
+            print(f"{what}, {WIDE_ROWS} rows (float32 SIMT tile): {cuda_ms(call, iters=3):.3f} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -1282,6 +1336,7 @@ def main() -> int:
     rows.update(point_mlp_phase(device, cfg, bank))
     rows.update(mega_phase(device, cfg, bank, reuse_ms))
     latent_phase(device, bank)
+    wide_forward_phase(device)
 
     # 14. Result lines.
     print(json.dumps({"kernels": [kernel_row(name, launches, **row)

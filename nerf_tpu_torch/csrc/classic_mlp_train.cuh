@@ -37,9 +37,9 @@
 // cores) for K2, K3, K8-bwd, K9 and K1-bwd without them, whose fwd_store
 // runs SimtProducts' pass where the encodings are too wide for the
 // tensor-core tile (tc_mlp.cuh, the width rule).  The mip passes
-// (mip_mlp.cuh) take their own policies on the same pieces: MipSimt (the
-// forward tile of K5-fwd, and of the others where the features are too
-// wide) and MipTc (K5-bwd, K6, K7).
+// (mip_mlp.cuh) take their own policies on the same pieces: MipTc (K5-fwd,
+// K5-bwd, K6, K7) and MipSimt (their forward tile where the features are
+// too wide for the tensor-core one).
 //
 // The flat gradient the passes produce is the packed weights' order
 // (ops/kernels/classic_mlp.py): w0, wx, wd, whh | b, g, beta, w_dens,

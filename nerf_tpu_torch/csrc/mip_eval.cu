@@ -111,7 +111,7 @@ cudaError_t run(const MipWeights& w, const float* x, const float* dists, const f
                 const float* noise, int R, int n, int C, int white, float* per_ray,
                 float* mlp_out, const float* tc_fwd, cudaStream_t stream) {
   cudaError_t err =
-      launch_mip_fwd<H, false, MipTc>(w, x, mlp_out, R * n, nullptr, nullptr, tc_fwd, stream);
+      MipTc::fwd<H, false>(w, x, mlp_out, R * n, nullptr, nullptr, tc_fwd, stream);
   if (err != cudaSuccess) return err;
   const size_t smem = static_cast<size_t>(kWarps) * 4 * n * sizeof(float);
   err = cudaFuncSetAttribute(mip_eval_rays_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

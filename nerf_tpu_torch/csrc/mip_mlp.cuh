@@ -11,9 +11,9 @@
 // and a tile's whole chain in VMEM.  Here the passes are the classic MLP's
 // (classic_mlp.cuh, classic_mlp_train.cuh, tc_mlp.cuh), instantiated for
 // this chain, their products through a policy as the classic passes':
-// MipSimt (the float32 SIMT forward tile; K5-fwd) and MipTc (3xTF32 wgmma
-// on the tensor cores; K5-bwd, K6 and K7, whose forward tile gives way to
-// MipSimt's where the features are too wide for it, tc_mlp.cuh note 9):
+// MipTc (3xTF32 wgmma on the tensor cores; K5-fwd, K5-bwd, K6 and K7,
+// whose forward tile gives way to MipSimt's, the float32 SIMT forward
+// tile, where the features are too wide for it, tc_mlp.cuh note 9):
 //   * the forward tile: 64 rows per block of 8 warps, the epilogue in
 //     registers with the LayerNorm first (layer_epilogue<kLnFirst>), and the
 //     54-wide head as a register-tiled float32 product (head_wide); with
@@ -228,8 +228,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   mip_fwd_tc_block<H, true>(w, im, x, out, P, xhat, stats);
 }
 
-// K7's forward on the tensor cores, nothing saved (mip_fwd_kernel<H,
-// false>'s contract).  One block an SM.
+// K7's and K5-fwd's forward on the tensor cores, nothing saved
+// (mip_fwd_kernel<H, false>'s contract).  One block an SM.
 template <int H>
 __global__ void __launch_bounds__(kThreads, 1)
     mip_fwd_tc_kernel(MipWeights w, MipImages im, const float* __restrict__ x,
@@ -336,8 +336,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // The policies (SimtProducts' and TcProducts' counterparts for this chain).
 // ---------------------------------------------------------------------------
 
-// The float32 SIMT forward tile (K5-fwd; K5-bwd's, K6's and K7's forward
-// where the features are too wide for the tensor-core tile).
+// The float32 SIMT forward tile (K5-fwd's, K5-bwd's, K6's and K7's
+// forward where the features are too wide for the tensor-core tile).
 struct MipSimt {
   template <int H, bool kSave>
   static cudaError_t fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
@@ -353,12 +353,14 @@ struct MipSimt {
   }
 };
 
-// The 3xTF32 passes (K5-bwd, K6, K7) on the call's operand images: tc_fwd,
-// the forward images (MipImages), and the Scratch's tc_bwd, the backward
-// images (the hidden slabs', then w_in's for the features' cotangent).  The
-// forward tile takes fwd_store's bytes without the view encodings, so
-// fwd_store's plan at (F, 0) decides it (the width rule, tc_mlp.cuh note
-// 9): MipSimt's tile runs where the tensor-core one does not fit.
+// The 3xTF32 passes (K5-fwd, K5-bwd, K6, K7) on the call's operand images:
+// tc_fwd, the forward images (MipImages), and the Scratch's tc_bwd, the
+// backward images (the hidden slabs', then w_in's for the features'
+// cotangent).  fwd is the forward over features x [P][F] -> out [P][O],
+// with kSave also the chain for the backward (xhat, stats); its tile takes
+// fwd_store's bytes without the view encodings, so fwd_store's plan at (F,
+// 0) decides it (the width rule, tc_mlp.cuh note 9): MipSimt's tile runs
+// where the tensor-core one does not fit.
 struct MipTc {
   template <int H, bool kSave>
   static cudaError_t fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
@@ -406,15 +408,6 @@ struct MipTc {
     return TcProducts::wgrad(prods, total_tiles, P, k_chunk, s, wfloats, stream);
   }
 };
-
-// The forward over features x [P][F] -> out [P][O] through the policy's
-// tile; with kSave also the chain for the backward (xhat, stats).  tc_fwd:
-// the forward images (MipTc only).
-template <int H, bool kSave, class Products>
-cudaError_t launch_mip_fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
-                           float* stats, const float* tc_fwd, cudaStream_t stream) {
-  return Products::template fwd<H, kSave>(w, x, out, P, xhat, stats, tc_fwd, stream);
-}
 
 // The backward passes from the output cotangents gout [P][O] (the forward
 // ran with kSave into s): grads (the flat gradient, mip_wgrad_floats +

@@ -41,7 +41,7 @@ template <int H>
 cudaError_t run(const MipWeights& w, const float* x, const float* gout, float* dx, float* grads,
                 float* out, int P, const Scratch& s, cudaStream_t stream) {
   cudaError_t err =
-      launch_mip_fwd<H, true, MipTc>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
+      MipTc::fwd<H, true>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
   if (err != cudaSuccess) return err;
   return launch_mip_backward<H, MipTc>(w, x, gout, P, s, dx, grads, stream);
 }

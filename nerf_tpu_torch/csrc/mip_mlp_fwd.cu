@@ -7,13 +7,19 @@
 //
 // Bound: operations.  300,544 multiply-adds per point at the full-width
 // model (H = 256, F = 96, 5 layers, O = 54) against 384 bytes of input and
-// 216 of output: about 1,000 FLOP per byte, far above the card's fp32
-// ridge (20 FLOP per byte).  Plain fp32 FMA, no TF32, so the bound is the
-// fp32 FMA rate.  The design (mip_mlp.cuh on classic_mlp.cuh) keeps every
-// activation on chip: one block of 8 warps per 64-row tile, activations in
-// one shared-memory buffer, LayerNorm as warp reductions in registers,
-// weights streamed from L2; two blocks fit on an SM (the MipSimt policy:
-// K6 and K7 run the same chain on the tensor cores).
+// 216 of output: about 1,000 FLOP per byte, far above the card's ridge.
+// At 258,048 rows 2.315 ms at the float32 SIMT rate (67 TFLOP/s), 0.940
+// ms as three TF32 products on the tensor cores (FLOP / 165 TFLOP/s).
+//
+// Design (mip_mlp.cuh): K7's tile, the MipTc policy's forward with nothing
+// saved (mip_fwd_tc_kernel): one block of 8 warps per 64-row tile keeps
+// every activation on chip, the feature and hidden products as 3xTF32
+// wgmma on the forward operand images the wrapper builds (one block an
+// SM, 223 KB at F = 96), LayerNorm as warp reductions in registers, the
+// 54-wide head float32 (head_wide).  Where the features are too wide for
+// that tile (tc_mlp.cuh note 9: F' <= 132 at H = 256) MipTc runs MipSimt's
+// float32 tile (weights streamed from L2, two blocks an SM).  The choice
+// is made from the shapes before any launch.
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "mip_mlp.cuh"
@@ -21,13 +27,22 @@
 extern "C" int mip_mlp_fwd(const float* x, float* out, int P, int F, int hidden, int L, int O,
                            const float* w_in, const float* whh, const float* b, const float* g,
                            const float* beta, const float* w_out, const float* b_out,
-                           void* stream) {
+                           const float* tc_fwd, void* stream) {
   using namespace nerf_mlp;
   if (L < 2 || O < 1 || O > kThreads) return cudaErrorInvalidValue;
   const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) \
-  static_cast<int>(launch_mip_fwd<H, false, MipSimt>(w, x, out, P, nullptr, nullptr, nullptr, s))
+  static_cast<int>(MipTc::fwd<H, false>(w, x, out, P, nullptr, nullptr, tc_fwd, s))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
+}
+
+// The plan of the forward tile for F features: out = [policy (0 tensor
+// cores, 1 float32 SIMT, 2 neither fits), tensor-core bytes, SIMT bytes,
+// the device's limit].
+extern "C" int mip_mlp_fwd_plan(int F, int de, int hidden, long long* out) {
+  using namespace nerf_mlp;
+  if (de != 0) return cudaErrorInvalidValue;
+  return static_cast<int>(fwd_store_plan_at(F, 0, hidden, out));
 }

@@ -134,7 +134,7 @@ cudaError_t run(const MipWeights& w, const float* x, const float* dists, const f
                 float* gout, float* ray_loss, cudaStream_t stream) {
   const int P = R * n;
   cudaError_t err =
-      launch_mip_fwd<H, true, MipTc>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
+      MipTc::fwd<H, true>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
   if (err != cudaSuccess) return err;
   const size_t smem = static_cast<size_t>(kWarps) * 5 * n * sizeof(float);
   err = cudaFuncSetAttribute(mip_objective_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,8 +1,9 @@
 // Tensor-core products for the MLP passes of K2 (train_grads.cu), K3
 // (fine_stage_train.cu), K9 (mega_train.cu), K4 (union_eval.cu), K1-fwd
-// (classic_mlp_fwd.cu), K1-bwd (classic_mlp_bwd.cu), K8-bwd
-// (classic_pointmlp_bwd.cu), and of K6 (mip_train_grads.cu), K7
-// (mip_eval.cu) and K5-bwd (mip_mlp_bwd.cu) through mip_mlp.cuh's MipTc
+// (classic_mlp_fwd.cu), K1-bwd (classic_mlp_bwd.cu), K8-fwd and K8-bwd
+// (classic_pointmlp_{fwd,bwd}.cu), and of K6 (mip_train_grads.cu), K7
+// (mip_eval.cu), K5-fwd and K5-bwd (mip_mlp_{fwd,bwd}.cu) through
+// mip_mlp.cuh's MipTc
 // policy, which composes the same pieces in the mip order: every
 // hidden and encoding product as 3xTF32 on Hopper's
 // wgmma, A.B = hi(A)hi(B) + hi(A)lo(B) + lo(A)hi(B) with lo = x - hi, both
@@ -13,8 +14,8 @@
 // TcProducts gives classic_mlp_train.cuh's launch_fwd_store_with and
 // launch_mlp_backward these passes, the encodings' cotangents included
 // (bwd_rows' tc_input_grad; K1-bwd still takes SimtProducts where it is
-// asked for them).  fwd_tc_kernel is K1-fwd's tile: fwd_store_tc_kernel
-// with nothing saved.
+// asked for them).  fwd_tc_kernel is K1-fwd's tile (and K8-fwd's, with
+// encode.cuh's PointEncodeLoad): fwd_store_tc_kernel with nothing saved.
 //
 // Bounds at the full-width model (H = 256, xe 60, de 36, view branch on):
 // 630,784 multiply-adds a row each for the forward, dh and dW.  Against
@@ -22,11 +23,12 @@
 // products at 495 TFLOP/s, so FLOP / 165 TFLOP/s): K9 at 2048 x (64 + 128)
 // 22.212 and 9.019 ms; K2 at 4096 x 64 and K3 at 2048 x 128 14.808 and
 // 6.013 ms each; K4 at a 4000-ray tile 9.641 and 3.915 ms; K1-fwd at
-// 262,144 rows 4.936 and 2.004 ms; K1-bwd (forward recomputed) at 131,072
-// rows 7.404 and 3.006 ms, K8-bwd at 262,144 points 14.808 and 6.013 ms.
-// The mip chain (F = 96, 5 layers, O = 54): 300,544 a row; K6 at 4096 x
-// 63 and K5-bwd at 258,048 rows 6.945 and 2.820 ms, K7 at a 4000-ray
-// tile of 63 rows 2.261 and 0.918 ms.
+// 262,144 rows 4.936 and 2.004 ms, K8-fwd at 262,144 points the same;
+// K1-bwd (forward recomputed) at 131,072 rows 7.404 and 3.006 ms, K8-bwd
+// at 262,144 points 14.808 and 6.013 ms.  The mip chain (F = 96, 5
+// layers, O = 54): 300,544 a row; K6 at 4096 x 63 and K5-bwd at 258,048
+// rows 6.945 and 2.820 ms, K5-fwd at 258,048 rows 2.315 and 0.940 ms, K7
+// at a 4000-ray tile of 63 rows 2.261 and 0.918 ms.
 //
 // The constraints the design answers:
 // 1. TF32 wgmma takes both operands K-major (the transpose flags exist only
@@ -102,17 +104,17 @@
 //    fine samples are compared in probability).
 // 9. The width rule.  The tile's bytes grow with the encoding widths (256
 //    bytes a float of xe' + de', the widths rounded up to 4, at H = 256):
-//    fwd_store's tile (and K1-fwd's, the same bytes; and K6's and K7's,
-//    with the mip features as xe' and no de') holds xe' + de' <=
-//    132 and K4's, which also keeps
+//    fwd_store's tile (and K1-fwd's and K8-fwd's, the same bytes; and
+//    K5-fwd's, K6's and K7's, with the mip features as xe' and no de')
+//    holds xe' + de' <= 132 and K4's, which also keeps
 //    the fine outputs, <= 116 within the 232,448 bytes a block may opt in
 //    to.  The full-width model has 60 + 36; a latent-conditioned one
 //    widens both by its state vector (2 + 1 latent scalars: 100 + 48).
 //    Before any launch the launcher compares the tile's bytes with the
 //    device's opt-in limit (cudaDevAttrMaxSharedMemoryPerBlockOptin) and,
 //    where it does not fit, runs the float32 SIMT pass of the same kernel
-//    (fwd_store_kernel; K1-fwd's classic_mlp_fwd_kernel and K4's
-//    mlp_tile; K6's and K7's mip_fwd_kernel, their products before the
+//    (fwd_store_kernel; K1-fwd's and K8-fwd's fwd_simt_kernel and K4's
+//    mlp_tile; the mip mip_fwd_kernel, their products before the
 //    tensor cores): 16 weight rows in place of four 16-value chunk buffers, so it
 //    holds xe' + de' <= 588 (K4 572), and it is the pass the card tests
 //    have held against plain at every width since slice 2.  (A two-stage
@@ -558,7 +560,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                        &save);
 }
 
-// The forward alone (K1-fwd; classic_mlp_fwd_kernel's contract): the tile
+// The forward alone (K1-fwd, K8-fwd; fwd_simt_kernel's contract): the tile
 // of fwd_store_tc_kernel, nothing saved.  `load` as in fwd_store_kernel.
 template <int H, class Load>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -573,6 +575,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   load(w, xs, ds, row0, nvalid);
   __syncthreads();
   mlp_tile_tc<H>(w, im, xs, ds, act, bbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid);
+}
+
+// The forward alone in float32 SIMT (classic_mlp.cuh::mlp_tile: weights
+// streamed from L2 in 16-row chunks, two blocks an SM), for encodings too
+// wide for fwd_tc_kernel's tile (note 9).  `load` as in fwd_store_kernel.
+template <int H, class Load>
+__global__ void __launch_bounds__(kThreads, 2)
+    fwd_simt_kernel(Weights w, Load load, float* __restrict__ out, int P) {
+  extern __shared__ float4 smem4[];
+  float* act = reinterpret_cast<float*>(smem4);
+  float* wbuf = act + kTileRows * H;
+  float* xs = wbuf + kChunk * H;
+  float* ds = xs + kTileRows * round_up4(w.xe);
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
+  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
+  load(w, xs, ds, row0, nvalid);
+  __syncthreads();
+  mlp_tile<H>(w, xs, ds, act, wbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid);
 }
 
 // ---------------------------------------------------------------------------
@@ -993,6 +1013,35 @@ __host__ inline cudaError_t fwd_store_plan_at(int xe, int de, int hidden, long l
 #define NERF_PLAN(H) fwd_store_plan<H>(xe, de, &policy, out)
   NERF_DISPATCH_HIDDEN(hidden, NERF_PLAN)
 #undef NERF_PLAN
+}
+
+// The forward alone over P rows (K1-fwd, K8-fwd): fwd_tc_kernel on the
+// forward images tc_fwd where its tile fits, else fwd_simt_kernel, from
+// fwd_store's plan (their tiles take fwd_store's bytes).
+template <int H, class Load>
+cudaError_t launch_fwd(const Weights& w, const Load& load, float* out, int P,
+                       const float* tc_fwd, cudaStream_t stream) {
+  TilePolicy policy;
+  cudaError_t err = fwd_store_plan<H>(w.xe, w.de, &policy);
+  if (err != cudaSuccess) return err;
+  const int blocks = (P + kTileRows - 1) / kTileRows;
+  if (policy == kTileTc) {
+    if (tc_fwd == nullptr) return cudaErrorInvalidValue;
+    const size_t smem = tc_tile_bytes<H>(w.xe, w.de);
+    err = cudaFuncSetAttribute(fwd_tc_kernel<H, Load>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    fwd_tc_kernel<H, Load><<<blocks, kThreads, smem, stream>>>(
+        w, TcImages::forward(w, tc_fwd, H), load, out, P);
+    return cudaGetLastError();
+  }
+  if (policy != kTileSimt) return cudaErrorInvalidValue;
+  const size_t smem = fwd_store_smem<H>(w.xe, w.de);
+  err = cudaFuncSetAttribute(fwd_simt_kernel<H, Load>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  fwd_simt_kernel<H, Load><<<blocks, kThreads, smem, stream>>>(w, load, out, P);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------

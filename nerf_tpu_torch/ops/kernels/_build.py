@@ -10,9 +10,9 @@ so machines without ``nvcc`` import the package freely.
 one where it launches its kernel, and nowhere else.  ``policy_counts``
 counts, by ``(kernel name, policy)``, which product the width-dependent
 tile of a tensor-core kernel (K1-bwd's, K2's, K3's, K8-bwd's and K9's
-``fwd_store``, K1-fwd's and K4's block, K5-bwd's, K6's and K7's forward
-tile) ran in those calls: ``"tc"``, 3xTF32 on the tensor cores, or
-``"simt"``, the float32 SIMT pass, where the encodings (the mip features)
+``fwd_store``, K1-fwd's, K8-fwd's and K4's block, K5-fwd's, K5-bwd's, K6's
+and K7's forward tile) ran in those calls: ``"tc"``, 3xTF32 on the tensor
+cores, or ``"simt"``, the float32 SIMT pass, where the encodings (the mip features)
 are too wide for the tensor-core tile (``csrc/tc_mlp.cuh``, note 9;
 ``tile_plan``), or where a K1-bwd call asks for the encodings'
 cotangents, which K1-bwd computes on its float32 SIMT passes.
@@ -49,7 +49,8 @@ POLICIES = ("tc", "simt")  # by the plans' codes; 2: neither tile fits
 # <name>_plan beside <name>.
 PLANNED = (
     "classic_mlp_fwd", "union_eval", "classic_mlp_bwd", "train_grads", "fine_stage_train",
-    "mega_train", "mip_eval", "mip_train_grads", "mip_mlp_bwd", "classic_pointmlp_bwd",
+    "mega_train", "mip_eval", "mip_train_grads", "mip_mlp_fwd", "mip_mlp_bwd",
+    "classic_pointmlp_fwd", "classic_pointmlp_bwd",
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -86,13 +87,15 @@ ARGTYPES = {
     "train_grads_plan": (_I,) * 3 + (_P,),
     "fine_stage_train_plan": (_I,) * 3 + (_P,),
     "mega_train_plan": (_I,) * 3 + (_P,),
+    "classic_pointmlp_fwd_plan": (_I,) * 3 + (_P,),
     "classic_pointmlp_bwd_plan": (_I,) * 3 + (_P,),
     # F 0 hidden out[4] (the mip forward tile's plan)
     "mip_eval_plan": (_I,) * 3 + (_P,),
     "mip_train_grads_plan": (_I,) * 3 + (_P,),
+    "mip_mlp_fwd_plan": (_I,) * 3 + (_P,),
     "mip_mlp_bwd_plan": (_I,) * 3 + (_P,),
-    # x out P F hidden L O, weights, stream
-    "mip_mlp_fwd": (_P,) * 2 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,),
+    # x out P F hidden L O, weights, tc_fwd stream
+    "mip_mlp_fwd": (_P,) * 2 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 2,
     # x gout dx grads P F hidden L O, weights,
     # xhat stats dpre wpart tpart tmp wt out splits tc_fwd tc_bwd stream
     "mip_mlp_bwd": (_P,) * 4 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 8 + (_I,) + (_P,) * 3,
@@ -104,8 +107,8 @@ ARGTYPES = {
     # ray_loss splits tc_fwd tc_bwd stream
     "mip_train_grads": (_P,) * 7 + (_I,) * 8 + (_F,) + _MIP_WEIGHT_ARGS + (_P,) * 10 + (_I,)
     + (_P,) * 3,
-    # pts dirs out P xe de hidden c sx phx sd phd, weights, stream
-    "classic_pointmlp_fwd": (_P,) * 3 + (_I,) * 5 + (_P,) * 4 + _WEIGHT_ARGS + (_P,),
+    # pts dirs out P xe de hidden c sx phx sd phd, weights, tc_fwd stream
+    "classic_pointmlp_fwd": (_P,) * 3 + (_I,) * 5 + (_P,) * 4 + _WEIGHT_ARGS + (_P,) * 2,
     # pts dirs gout dpts ddirs grads P xe de hidden c sx phx sd phd, weights,
     # xhat stats dpre wpart tpart tmp wt out x_enc d_enc dx_enc dd_enc splits
     # tc_fwd tc_bwd stream

@@ -8,13 +8,13 @@ its custom VJP).  K5-fwd is ``csrc/mip_mlp_fwd.cu``, K5-bwd
 versions, which the wrappers run for CPU tensors and the tests and
 ``chip_smoke.py`` hold the kernels against (with
 ``matmul=tc_mlp.tc_matmul_autograd`` they emulate the tensor-core
-products).  K5-fwd's products are float32 SIMT (the ``MipSimt`` policy of
-``csrc/mip_mlp.cuh``); K5-bwd, K6 and K7 (``mip_train``) run the chain on
-the tensor cores (``MipTc``, 3xTF32 ``wgmma``; K5-bwd's features'
-cotangent too), on the weights as ``prepare_weights`` packs and images
-them, with the float32 SIMT forward tile where the features are too wide
-for the tensor-core one (``_build.tile_plan``).  Under autograd
-``mip_mlp_fwd`` runs as ``MipMLPFunction``, whose backward is
+products).  K5-fwd, K5-bwd, K6 and K7 (``mip_train``) run the chain on
+the tensor cores (the ``MipTc`` policy of ``csrc/mip_mlp.cuh``, 3xTF32
+``wgmma``; K5-bwd's features' cotangent too), on the weights as
+``prepare_weights`` packs and images them, with the float32 SIMT forward
+tile (``MipSimt``) where the features are too wide for the tensor-core one
+(``_build.tile_plan``); ``_build.policy_counts`` records which.  Under
+autograd ``mip_mlp_fwd`` runs as ``MipMLPFunction``, whose backward is
 ``mip_mlp_bwd``.
 
 The network: ``L`` x (Linear -> LayerNorm -> ReLU), then one Linear to
@@ -125,20 +125,28 @@ def _packed_from_args(weights) -> Packed:
     return dict(zip(PACK_ORDER, weights))
 
 
-def mip_mlp_fwd(packed: Packed, features: torch.Tensor) -> torch.Tensor:
+def mip_mlp_fwd(packed: Packed, features: torch.Tensor,
+                tc_fwd: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mip MLP forward on IPE features ``[P, F]`` -> ``[P, O]`` rows of
     ``[density, color logits, segmentation logits]``.
 
     CPU tensors run ``mip_mlp_fwd_plain``; CUDA tensors launch the kernel
-    (raising on what it does not take).  When autograd records and an
-    input requires grad, the call runs as ``MipMLPFunction``, whose
-    backward is ``mip_mlp_bwd`` (K5-bwd).
+    (raising on what it does not take): K7's tile on the tensor cores where
+    the features fit it, else the float32 SIMT tile, chosen from the shapes
+    (``_build.tile_plan``; past the SIMT tile a ``ValueError`` before any
+    launch).  ``tc_fwd`` is the weights' forward operand image
+    (``tc_mlp.tc_images(packed)[0]``) built beforehand, else the call
+    builds it where the tensor-core tile runs.  ``_build.policy_counts``
+    records the tile each call ran.  When autograd records and an input
+    requires grad, the call runs as ``MipMLPFunction``, whose backward is
+    ``mip_mlp_bwd`` (K5-bwd), on the images it builds itself.
     """
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (features, *packed.values())
     ):
         return MipMLPFunction.apply(features, *[packed[k] for k in PACK_ORDER])
-    device = check_inputs(NAME, packed, {"features": features}, ALIGNED)
+    device = check_inputs(NAME, packed, {"features": features, "tc_fwd": tc_fwd}, ALIGNED)
+    tc_mlp.check_images(NAME, packed, tc_fwd)
     n_feat = packed["w_in"].shape[0]
     if features.ndim != 2 or features.shape[1] != n_feat:
         raise ValueError(f"{NAME}: features must be [P, {n_feat}], got {tuple(features.shape)}")
@@ -151,13 +159,18 @@ def mip_mlp_fwd(packed: Packed, features: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n_points, outputs), dtype=torch.float32, device=device)
     if n_points == 0:
         return out
+    policy = _build.tile_plan(NAME, n_feat, 0, hidden).policy  # raises past the SIMT tile
+    if policy == "tc" and tc_fwd is None:
+        tc_fwd = tc_mlp.tc_images(packed)[0]
     fn = getattr(_build.load(NAME), NAME)
     err = fn(
         features.data_ptr(), out.data_ptr(), n_points, n_feat, hidden, layers, outputs,
-        *weight_pointers(packed), torch.cuda.current_stream(device).cuda_stream,
+        *weight_pointers(packed), _build.ptr(tc_fwd),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1
+    _build.policy_counts[(NAME, policy)] += 1
     return out
 
 
@@ -267,8 +280,9 @@ def mip_mlp_bwd(
 class MipMLPFunction(torch.autograd.Function):
     """``mip_mlp_fwd`` under autograd: forward K5-fwd, backward K5-bwd.
     Arguments ``(features, *weights)`` with the weights in ``PACK_ORDER``.
-    On the card the forward builds the operand images K5-bwd reads
-    (``tc_mlp.tc_images``) and hands them to the backward, once a step."""
+    On the card the forward builds the operand images K5-fwd and K5-bwd
+    read (``tc_mlp.tc_images``), runs K5-fwd on the forward image and hands
+    both to the backward, once a step."""
 
     @staticmethod
     def forward(ctx, features, *weights):
@@ -276,7 +290,7 @@ class MipMLPFunction(torch.autograd.Function):
         ctx.images = (tc_mlp.tc_images(packed, backward=True)
                       if features.device.type == "cuda" else (None, None))
         ctx.save_for_backward(features, *weights)
-        return mip_mlp_fwd(packed, features)
+        return mip_mlp_fwd(packed, features, tc_fwd=ctx.images[0])
 
     @staticmethod
     def backward(ctx, g_out):

@@ -4,14 +4,15 @@ frequency encoding computed inside the kernel, forward and backward.
 Counterpart of ``nerf_tpu/ops/pallas/fused_mlp.py::classic_pointmlp_pallas``
 (K1's two ``pallas_call``s with ``fuse_encoding=True``).  The encoding is
 ``sin(x @ S + phase)`` on the constants of ``encoding.enc_consts``.
-K8-fwd is ``csrc/classic_pointmlp_fwd.cu`` (float32 SIMT, device code in
-``csrc/encode.cuh`` and ``csrc/classic_mlp.cuh``); K8-bwd
+K8-fwd is ``csrc/classic_pointmlp_fwd.cu``, K1-fwd's tensor-core tile
+(``csrc/tc_mlp.cuh``'s ``fwd_tc_kernel``, 3xTF32 ``wgmma``) with the
+encodings computed in the block (``csrc/encode.cuh``); K8-bwd
 ``csrc/classic_pointmlp_bwd.cu``, K2's tensor-core passes
-(``csrc/tc_mlp.cuh``'s ``TcProducts``, 3xTF32 ``wgmma``), the encodings'
-cotangents included, on the operand images ``tc_mlp.tc_images`` builds;
-``fwd_store`` runs the float32 SIMT tile where the encodings are too wide
-for the tensor-core one (``_build.tile_plan``), and ``_build.policy_counts``
-records which.  ``classic_pointmlp_fwd_plain`` and
+(``csrc/tc_mlp.cuh``'s ``TcProducts``), the encodings' cotangents
+included.  Both read the operand images ``tc_mlp.tc_images`` builds, and
+both run their forward tile in float32 SIMT where the encodings are too
+wide for the tensor-core one (``_build.tile_plan``);
+``_build.policy_counts`` records which.  ``classic_pointmlp_fwd_plain`` and
 ``classic_pointmlp_bwd_plain`` are their plain PyTorch versions, which the
 wrappers run for CPU tensors (with ``matmul=tc_mlp.tc_matmul_autograd`` they
 emulate the tensor-core products).  Under autograd the call runs as
@@ -105,7 +106,7 @@ def _check(name: str, packed: Packed, points, dirs, consts, extra=None) -> torch
         "sx": (sx, (3, packed["w0"].shape[0])), "phx": (phx, (packed["w0"].shape[0],)),
         "sd": (sd, (3, packed["wd_in"].shape[0])), "phd": (phd, (packed["wd_in"].shape[0],)),
     }
-    if extra:
+    if "g_out" in (extra or {}):
         expected["g_out"] = (extra["g_out"], (n_points, 1 + packed["w_col"].shape[1]))
     for key, (t, shape) in expected.items():
         if tuple(t.shape) != shape:
@@ -120,12 +121,19 @@ def _check(name: str, packed: Packed, points, dirs, consts, extra=None) -> torch
 
 
 def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tensor,
-                         consts: Consts) -> torch.Tensor:
+                         consts: Consts, tc_fwd: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K8-fwd on ``points [P, 3]``, ``dirs [P, 3]`` -> ``[P, 1 + C]`` rows of
     ``[density, color logits]``.  CPU tensors run
     ``classic_pointmlp_fwd_plain``; CUDA tensors launch the kernel (raising
-    on what it does not take)."""
-    device = _check(NAME, packed, points, dirs, consts)
+    on what it does not take): the tensor-core tile where the encodings fit
+    it, else the float32 SIMT tile, chosen from the shapes
+    (``_build.tile_plan``; past the SIMT tile a ``ValueError`` before any
+    launch).  ``tc_fwd`` is the weights' forward operand image
+    (``tc_mlp.tc_images(packed)[0]``) built beforehand, else the call
+    builds it where the tensor-core tile runs.  ``_build.policy_counts``
+    records the tile each call ran."""
+    device = _check(NAME, packed, points, dirs, consts, {"tc_fwd": tc_fwd})
+    tc_mlp.check_images(NAME, packed, tc_fwd)
     if device.type == "cpu":
         return classic_pointmlp_fwd_plain(packed, points, dirs, consts)
     n_points = points.shape[0]
@@ -134,15 +142,19 @@ def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tenso
     if n_points == 0:
         return out
     xe, hidden = packed["w0"].shape
+    de = packed["wd_in"].shape[0]
+    policy = _build.tile_plan(NAME, xe, de, hidden).policy  # raises past the SIMT tile
+    if policy == "tc" and tc_fwd is None:
+        tc_fwd = tc_mlp.tc_images(packed)[0]
     fn = getattr(_build.load(NAME), NAME)
     err = fn(
-        points.data_ptr(), dirs.data_ptr(), out.data_ptr(), n_points, xe,
-        packed["wd_in"].shape[0], hidden, packed["w_col"].shape[1],
-        *[c.data_ptr() for c in consts], *weight_pointers(packed),
-        torch.cuda.current_stream(device).cuda_stream,
+        points.data_ptr(), dirs.data_ptr(), out.data_ptr(), n_points, xe, de, hidden,
+        packed["w_col"].shape[1], *[c.data_ptr() for c in consts], *weight_pointers(packed),
+        _build.ptr(tc_fwd), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1
+    _build.policy_counts[(NAME, policy)] += 1
     return out
 
 
@@ -205,8 +217,8 @@ class ClassicPointMLPFunction(torch.autograd.Function):
     ``(consts, points, dirs, *weights)`` with the weights in
     ``PACK_ORDER``; the backward returns the raw inputs' cotangents and the
     weights' gradients.  On the card the forward builds the operand images
-    K8-bwd reads (``tc_mlp.tc_images``) and hands them to the backward, once
-    a step."""
+    K8-fwd and K8-bwd read (``tc_mlp.tc_images``), runs K8-fwd on the
+    forward image and hands both to the backward, once a step."""
 
     @staticmethod
     def forward(ctx, consts: Consts, points, dirs, *weights):
@@ -215,7 +227,7 @@ class ClassicPointMLPFunction(torch.autograd.Function):
         ctx.images = (tc_mlp.tc_images(packed, backward=True) if points.device.type == "cuda"
                       else (None, None))
         ctx.save_for_backward(points, dirs, *weights)
-        return classic_pointmlp_fwd(packed, points, dirs, consts)
+        return classic_pointmlp_fwd(packed, points, dirs, consts, tc_fwd=ctx.images[0])
 
     @staticmethod
     def backward(ctx, g_out):

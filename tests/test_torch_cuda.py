@@ -15,17 +15,17 @@ cumulative product.  K8 adds the device's sine of the same arguments; K9
 is held against its plain version with its own fine t-values (its resample
 against the plain one separately), as the JAX package holds its kernel.
 
-K1-fwd, K1-bwd (without the encodings' cotangents), K2, K3, K4, K5-bwd,
-K6, K7, K8-bwd and K9 run their MLP products as 3xTF32 on the tensor
-cores (``csrc/tc_mlp.cuh``; K5-bwd's and K8-bwd's inputs' cotangents
-too), at the same tolerances: their cases cover every
+K1-fwd, K1-bwd (without the encodings' cotangents), K2, K3, K4, K5-fwd,
+K5-bwd, K6, K7, K8-fwd, K8-bwd and K9 run their MLP products as 3xTF32 on
+the tensor cores (``csrc/tc_mlp.cuh``; K5-bwd's and K8-bwd's inputs'
+cotangents too), at the same tolerances: their cases cover every
 hidden width, row counts that are not a multiple of 64, encoding widths
 that are not a multiple of 8 (and mip heads of 54 and 9 outputs), runs
 with and without the view branch, and two calls must agree bitwise.
 Where a latent-conditioned model's encodings (a mip model's features) are
 too wide for the tensor-core tile the kernels run the float32 SIMT tile
-(``_build.tile_plan``): the ``latent_full_width`` cases (K8-bwd's and
-K5-bwd's ``wide`` ones) check that the policy each call recorded is the
+(``_build.tile_plan``): the ``latent_full_width`` cases (K8's and
+K5's ``wide`` ones) check that the policy each call recorded is the
 one its byte count predicts; past the
 SIMT tile the wrappers raise before any launch.  The
 products alone (``tc_linear``, ``tc_wgrad`` of ``csrc/tc_product.cu``) are
@@ -668,9 +668,11 @@ def test_mip_mlp_fwd_kernel_matches_plain(cuda, variant, points):
     cfg, packed = mip_packed(variant, cuda)
     x = rand(torch.Generator(device=cuda).manual_seed(1), points, cfg.feature_dim)
     before = _build.launch_counts[mip_mlp.NAME]
+    policies = dict(_build.policy_counts)
     out = mip_mlp.mip_mlp_fwd(packed, x)
     torch.cuda.synchronize()
     assert _build.launch_counts[mip_mlp.NAME] == before + 1
+    assert policy_moves(policies) == {(mip_mlp.NAME, "tc"): 1}
     torch.testing.assert_close(out, mip_mlp.mip_mlp_fwd_plain(packed, x), **K1_TOL)
 
 
@@ -934,9 +936,11 @@ def test_classic_pointmlp_fwd_kernel_matches_plain(cuda, variant, points):
     consts = point_consts(cfg, cuda)
     pts, dirs = raw_points(torch.Generator(device=cuda).manual_seed(11), points)
     before = _build.launch_counts[point_mlp.NAME]
+    policies = dict(_build.policy_counts)
     out = point_mlp.classic_pointmlp_fwd(packed, pts, dirs, consts)
     torch.cuda.synchronize()
     assert _build.launch_counts[point_mlp.NAME] == before + 1
+    assert policy_moves(policies) == {(point_mlp.NAME, "tc"): 1}
     torch.testing.assert_close(
         out, point_mlp.classic_pointmlp_fwd_plain(packed, pts, dirs, consts), **K1_TOL)
     # K1-fwd on the same encodings, made outside.
@@ -1113,9 +1117,10 @@ def test_input_cotangent_kernels_match_plain_at_every_width(cuda, hidden, kernel
 @pytest.mark.cuda
 def test_input_cotangent_autograd_builds_the_images_once(cuda, monkeypatch):
     """Under autograd K8 (``classic_pointmlp``) and K5 (``mip_mlp_fwd``)
-    build their weights' operand images once, in the forward, and K8-bwd
-    and K5-bwd run on those very tensors, on the tensor cores."""
-    built, seen = [], []
+    build their weights' operand images once, in the forward, and K8-fwd
+    and K5-fwd run on its forward image, K8-bwd and K5-bwd on those very
+    tensors, all on the tensor cores."""
+    built, seen, seen_fwd = [], [], []
     images = tc_mlp.tc_images
     monkeypatch.setattr(tc_mlp, "tc_images",
                         lambda *a, **k: built.append(images(*a, **k)) or built[-1])
@@ -1124,6 +1129,15 @@ def test_input_cotangent_autograd_builds_the_images_once(cuda, monkeypatch):
 
         def recording(*args, _original=original, **kwargs):
             seen.append((kwargs["tc_fwd"], kwargs["tc_bwd"]))
+            return _original(*args, **kwargs)
+
+        monkeypatch.setattr(module, name, recording)
+    for module, name in ((point_mlp, "classic_pointmlp_fwd"), (mip_mlp, "mip_mlp_fwd")):
+        original = getattr(module, name)
+
+        def recording(*args, _original=original, **kwargs):
+            if "tc_fwd" in kwargs:
+                seen_fwd.append(kwargs["tc_fwd"])
             return _original(*args, **kwargs)
 
         monkeypatch.setattr(module, name, recording)
@@ -1141,9 +1155,11 @@ def test_input_cotangent_autograd_builds_the_images_once(cuda, monkeypatch):
     x = rand(torch.Generator(device=cuda).manual_seed(16), 100, mcfg.feature_dim)
     torch.autograd.grad(mip_mlp.mip_mlp_fwd(leaves, x).sum(), list(leaves.values()))
     torch.cuda.synchronize()
-    assert len(built) == 2 and len(seen) == 2
+    assert len(built) == 2 and len(seen) == 2 and len(seen_fwd) == 2
     assert all(s[0] is b[0] and s[1] is b[1] for s, b in zip(seen, built))
-    assert policy_moves(policies) == {(point_mlp.BWD_NAME, "tc"): 1, (mip_mlp.BWD_NAME, "tc"): 1}
+    assert all(f is b[0] for f, b in zip(seen_fwd, built))
+    assert policy_moves(policies) == {(point_mlp.NAME, "tc"): 1, (point_mlp.BWD_NAME, "tc"): 1,
+                                      (mip_mlp.NAME, "tc"): 1, (mip_mlp.BWD_NAME, "tc"): 1}
 
 
 @pytest.mark.cuda
@@ -1153,6 +1169,101 @@ def test_input_cotangent_wrappers_raise_past_every_tile(cuda, kernel):
     at hidden 256, past its 588): K8-bwd and K5-bwd raise, naming the
     limit, with nothing launched or counted."""
     _, _, call = input_tc_case(kernel, cuda, points=5, **INPUT_TC_WIDTHS[kernel]["too_wide"])
+    torch.cuda.synchronize()
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+    with pytest.raises(ValueError, match="limit"):
+        call()
+    assert dict(_build.launch_counts) == launches
+    assert dict(_build.policy_counts) == policies
+
+
+# K8-fwd's and K5-fwd's models beside the full-width ones: encodings or
+# features past the tensor-core tile at hidden 256 (x 120 + 36 = 156,
+# 144), and past the float32 SIMT tile too (600).
+FORWARD_TC_WIDTHS = {
+    point_mlp.NAME: {"wide": dict(x_positional_encoding_size=40),
+                     "too_wide": dict(x_positional_encoding_size=200)},
+    mip_mlp.NAME: {"wide": dict(encoding_size=48), "too_wide": dict(encoding_size=200)},
+}
+
+
+def forward_case(kernel, device, points, seed=0, **overrides):
+    """A K8-fwd or K5-fwd call's arguments at full width (``overrides`` on
+    the config): ``(xe, de)`` of its plan, and the function that calls the
+    kernel with ``tc_fwd`` (``None``: the wrapper builds it) or, with
+    ``plain=True``, its plain version."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if kernel == point_mlp.NAME:
+        cfg = ClassicNeRFConfig(normalize_position=6.0, **{"hidden_size": 256, **overrides})
+        mlp = ClassicMLP(cfg, generator=torch.Generator().manual_seed(0), device=device)
+        packed = classic_mlp.pack_classic_params(mlp.requires_grad_(False))
+        args = (packed, *raw_points(gen, points), point_consts(cfg, device))
+
+        def call(tc_fwd=None, plain=False):
+            if plain:
+                return point_mlp.classic_pointmlp_fwd_plain(*args)
+            return point_mlp.classic_pointmlp_fwd(*args, tc_fwd=tc_fwd)
+        return packed, (cfg.x_encoding_dim, cfg.d_encoding_dim), call
+    cfg, packed = mip_packed("full_width", device, **overrides)
+    x = rand(gen, points, cfg.feature_dim)
+
+    def call(tc_fwd=None, plain=False):
+        if plain:
+            return mip_mlp.mip_mlp_fwd_plain(packed, x)
+        return mip_mlp.mip_mlp_fwd(packed, x, tc_fwd=tc_fwd)
+    return packed, (cfg.feature_dim, 0), call
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [point_mlp.NAME, mip_mlp.NAME])
+@pytest.mark.parametrize("variant", ["full_width", "wide"])
+def test_forward_kernels_follow_the_width_rule(cuda, variant, kernel):
+    """K8-fwd and K5-fwd at full width and with encodings (features) past
+    the tensor-core tile (``FORWARD_TC_WIDTHS``): the plan's bytes are
+    those of ``fwd_store``'s tiles, the call records the policy they
+    predict (the tensor cores at 60 + 36 and 96 features, the float32 SIMT
+    tile at 120 + 36 and 144) and matches plain at K1_TOL."""
+    overrides = FORWARD_TC_WIDTHS[kernel]["wide"] if variant == "wide" else {}
+    _, (xe, de), call = forward_case(kernel, cuda, points=301, **overrides)
+    tc_bytes, simt_bytes = predicted_tile_bytes(kernel, 256, xe, de, 0, 0, 0)
+    plan = _build.tile_plan(kernel, xe, de, 256)
+    assert (plan.tc_bytes, plan.simt_bytes) == (tc_bytes, simt_bytes)
+    want = "tc" if variant == "full_width" else "simt"
+    assert plan.policy == want
+    before = dict(_build.policy_counts)
+    got = call()
+    torch.cuda.synchronize()
+    assert policy_moves(before) == {(kernel, want): 1}
+    torch.testing.assert_close(got, call(plain=True), **K1_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [point_mlp.NAME, mip_mlp.NAME])
+def test_forward_kernels_take_an_image_built_beforehand(cuda, kernel):
+    """K8-fwd and K5-fwd given the forward image
+    (``tc_mlp.tc_images(packed)[0]``) give bitwise what they give when
+    they build it, on the tensor cores; an image of other weights raises
+    before any launch."""
+    packed, _, call = forward_case(kernel, cuda, points=200, seed=1)
+    img = tc_mlp.tc_images(packed)[0]
+    before = dict(_build.policy_counts)
+    own, given = call(), call(tc_fwd=img)
+    torch.cuda.synchronize()
+    assert policy_moves(before) == {(kernel, "tc"): 2}
+    assert torch.equal(own, given)
+    launches = dict(_build.launch_counts)
+    with pytest.raises(ValueError, match="tc_fwd"):
+        call(tc_fwd=img[:-4])
+    assert dict(_build.launch_counts) == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [point_mlp.NAME, mip_mlp.NAME])
+def test_forward_wrappers_raise_past_every_tile(cuda, kernel):
+    """Encodings (features) past the float32 SIMT tile too (600 + 36, 600
+    at hidden 256): K8-fwd and K5-fwd raise, naming the limit, with
+    nothing launched or counted."""
+    _, _, call = forward_case(kernel, cuda, points=5, **FORWARD_TC_WIDTHS[kernel]["too_wide"])
     torch.cuda.synchronize()
     launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
     with pytest.raises(ValueError, match="limit"):
