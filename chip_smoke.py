@@ -94,11 +94,45 @@
    plain path.  Prints the policy each ran.  Then K8-fwd at x encodings
    120 + 36 and K5-fwd at 144 features (slice 10), each of which must run
    its float32 SIMT tile, against their plain versions.
-14. Prints the kernels' JSON line (each row with its float32 bound and
+14. The user's entry points (slice 11), in a temporary directory, each
+   with the counters zeroed just before it and read just after, the
+   counts derived from the code and checked exactly, every tensor-core
+   kernel on the tile ``_build.tile_plan`` picks for its widths:
+   a. ``cli.train_tiny_nerf.main`` at the notebook recipe (the synthetic
+      scene at the CLI's defaults, 24 views of 100x100; full width,
+      batch 1024, 64 samples, density noise 1.0, lr 1e-4, ``--use-pallas``)
+      for 40 steps, a log, eval and checkpoint every 20: one K2 a step and
+      the K1-fwd tiles of the two eval renders, nothing else; its files
+      (``params.json``, ``checkpoint_20.npz``, ``checkpoint_40.npz``,
+      ``nerf.pth``, a two-record ``metrics.jsonl``, ``psnrs.npy``); ms/step
+      and rays/s from its metrics.
+   b. ``--resume --num-steps 60`` in the same directory, under
+      ``utils.profiling.trace``: it starts from step 40 (20 K2 launches,
+      and K2's compositing kernel exactly 20 times in the trace file);
+      a straight 60-step run in a fresh directory; the two final
+      checkpoints' weights and Adam moments within atol 1e-6 (bitwise or
+      not, printed); the time and size of one full-width
+      ``save_checkpoint``.
+   c. ``cli.render.main`` on ``checkpoint_60.npz``, 2 views of 100x100 at
+      64 + 128 samples with ``--use-pallas``: K1-fwd and K4 once a tile,
+      nothing else; each PNG within one 8-bit level of the plain path's
+      on the card at every pixel whose fine samples both paths place
+      alike (within 1e-4 in t; the others, where a near-empty coarse bin
+      turns the rounding of the coarse weights into a shift of the fine
+      samples, are counted and printed), and at every pixel of the 64
+      coarse samples alone; the same call on the run's ``nerf.pth``
+      writing the same PNGs; the CLI's time per view.
+   d. ``cli.train_conditional.main`` for one epoch with ``--use-pallas``
+      on a pickle written from a seed (4 synthetic views of 100x100, their
+      6-DoF poses, states of width 2, so encodings 100 + 36): one K2 a
+      step and the eval render's K1-fwd tiles, each on the tile
+      ``tile_plan`` gives for that width; ``model.pth`` and the
+      checkpoint written.
+15. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
-   each, and ``products``: how its MLP products run, and since which
-   slice),
-   the card line, then, last, the device line.
+   each, ``products``: how its MLP products run, and since which slice,
+   and ``cli_launches``: its launches in phase 14), the card line, then,
+   last, the device line.
 
 The classic model is the full-width ClassicNeRF (hidden 256, 60 + 36
 encoding widths, 638,468 parameters) with random weights from seed 0.  Its density
@@ -119,14 +153,21 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import pickle
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
+import numpy as np
 import torch
 
 from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, MipNeRF, MipNeRFConfig, RenderConfig
+from nerf_tpu_torch.cli import render as render_cli
+from nerf_tpu_torch.cli import train_conditional, train_tiny_nerf
 from nerf_tpu_torch.data import RayBank, synthesize_scene
 from nerf_tpu_torch.data.scenes import spherical_poses
 from nerf_tpu_torch.ops import sampling
@@ -143,6 +184,7 @@ from nerf_tpu_torch.ops.kernels import (
     union_eval,
 )
 from nerf_tpu_torch.train import (
+    checkpoint,
     create_train_state,
     loop,
     make_fused_loss_and_grads,
@@ -153,6 +195,7 @@ from nerf_tpu_torch.train import (
 from nerf_tpu_torch.utils.profiling import (
     classic_flops_per_point,
     mip_flops_per_point,
+    trace,
     train_step_flops,
 )
 
@@ -427,6 +470,22 @@ def compare_grads(name: str, got: dict, ref: dict, loss=None, ref_loss=None) -> 
         ok = ok and loss_err <= LOSS_RTOL * abs(float(ref_loss))
     check(ok, f"{name} matches its plain version")
     return max_abs
+
+
+@contextlib.contextmanager
+def recording_results(module, fn_name: str, results: list):
+    """Append the result of every call of ``module.fn_name`` to ``results``."""
+    original = getattr(module, fn_name)
+
+    def recording(*args, **kwargs):
+        results.append(original(*args, **kwargs))
+        return results[-1]
+
+    setattr(module, fn_name, recording)
+    try:
+        yield
+    finally:
+        setattr(module, fn_name, original)
 
 
 @contextlib.contextmanager
@@ -1299,6 +1358,265 @@ def wide_forward_phase(device) -> None:
             print(f"{what}, {WIDE_ROWS} rows (float32 SIMT tile): {cuda_ms(call, iters=3):.3f} ms")
 
 
+# Slice 11: the user's entry points.  The tiny-NeRF trainer at the
+# notebook recipe (the CLI's defaults, spelled out), on the synthetic scene
+# its missing --data falls back to.
+TINY_RECIPE = ["--use-pallas", "--batch-size", "1024", "--num-samples-per-ray", "64",
+               "--density-noise-std", "1.0", "--learning-rate", "1e-4",
+               "--normalize-position", "6.0", "--log-interval", "20"]
+TINY_STEPS, RESUMED_STEPS = 40, 60
+# The straight and the resumed run's weights and Adam moments: the bound
+# the JAX package's tests hold its resume to (tests/test_train.py).
+RESUME_ATOL = 1e-6
+RENDER_ARGS = ["--use-pallas", "--num-fine-samples", "128", "--num-views", "2"]
+CONDITIONAL_VIEWS, CONDITIONAL_HW, STATE_WIDTH = 4, 100, 2
+# The one device kernel of K2's library that no other kernel on this path
+# launches: every K2 call launches it once.
+K2_TRACE_KERNEL = re.compile(r"\bcomposite_kernel\b")
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode the 8-bit RGB, filter-0 PNGs that ``cli.render.write_png``
+    writes."""
+    with open(path, "rb") as f:
+        data = f.read()
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            size = (int.from_bytes(body[4:8], "big"), int.from_bytes(body[:4], "big"))
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(size[0], 1 + 3 * size[1])
+    return raw[:, 1:].reshape(size[0], size[1], 3)
+
+
+def counted(what: str, call, expected: dict, plans: dict):
+    """Run ``call()`` with the counters zeroed just before and read just
+    after; check the launches against ``expected`` and each tensor-core
+    kernel's tile against ``plans`` (kernel -> ``tile_plan`` policy).
+    Returns (launches, seconds)."""
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    t0 = time.perf_counter()
+    call()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+    print(f"{what}: {seconds:.2f} s; launches {launches}; tile policies {policies}", flush=True)
+    check(launches == expected, f"{what}: launched {expected} and nothing else")
+    check(policies == {(k, plans[k]): n for k, n in launches.items()},
+          f"{what}: every launch ran the tile tile_plan picks ({plans})")
+    return launches, seconds
+
+
+def metrics_records(logdir: str) -> list:
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def checkpoint_leaves(path: str) -> dict:
+    with np.load(path) as data:
+        names = [str(n) for n in data["leaf_names"]]
+        return {name: data[f"leaf_{i:05d}"] for i, name in enumerate(names)}
+
+
+def entry_points_phase(device, card: str) -> dict:
+    """Phase 14: the training CLIs, resume, the trace, the checkpoint save
+    and the render CLI through the fused kernels.  Returns each kernel's
+    launches in the phase."""
+    cfg = ClassicNeRFConfig(normalize_position=6.0)
+    xe, de, hidden = cfg.x_encoding_dim, cfg.d_encoding_dim, cfg.hidden_size
+    plans = {name: _build.tile_plan(name, xe, de, hidden).policy
+             for name in (train_grads.NAME, classic_mlp.NAME)}
+    plans[union_eval.NAME] = _build.tile_plan(union_eval.NAME, xe, de, hidden, cfg.color_outputs,
+                                              64, 128).policy
+    check(set(plans.values()) == {"tc"}, f"the full-width model's tiles are all tensor-core: {plans}")
+    # An eval render and a CLI view are 100 x 100 rays in tiles of
+    # RenderConfig().rays_per_tile.
+    tiles = -(-100 * 100 // RenderConfig().rays_per_tile)
+    total = {}
+
+    def tally(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        run, straight = os.path.join(tmp, "run"), os.path.join(tmp, "straight")
+        tiny = ["--data", os.path.join(tmp, "tiny_nerf_data.npz")] + TINY_RECIPE
+
+        # a. 40 steps: two log/eval/checkpoint boundaries.
+        launches, seconds = counted(
+            "14a train_tiny_nerf 40 steps",
+            lambda: train_tiny_nerf.main(["--logging-dir", run, "--num-steps", str(TINY_STEPS)]
+                                         + tiny),
+            {train_grads.NAME: TINY_STEPS, classic_mlp.NAME: 2 * tiles}, plans)
+        tally(launches)
+        files = ("params.json", "checkpoint_20.npz", "checkpoint_40.npz", "nerf.pth",
+                 "metrics.jsonl", "psnrs.npy")
+        check(all(os.path.exists(os.path.join(run, f)) for f in files),
+              f"14a: the run wrote {', '.join(files)}")
+        records = metrics_records(run)
+        check([r["step"] for r in records] == [20, 40], "14a: two metrics records, steps 20, 40")
+        # The trainer raises TrainDivergedError at any non-finite loss of a
+        # chunk; the records hold each chunk's last.
+        check(all(np.isfinite([r["loss"], r["psnr"]]).all() for r in records),
+              f"14a: every loss finite (last of each chunk: {[r['loss'] for r in records]})")
+        rays_per_s = records[-1]["rays_per_s"]  # steps 21-40: no warm-up, no eval
+        print(f"14a train_tiny_nerf: {1024 / rays_per_s * 1e3:.3f} ms/step, {rays_per_s:.0f} rays/s "
+              f"(steps 21-40, host clock), holdout PSNR {records[-1]['psnr']:.3f} dB after 40 "
+              f"steps, {seconds:.2f} s for the whole call; {card}", flush=True)
+
+        # b. Resume to 60 under the profiler, then a straight 60-step run.
+        trace_dir = os.path.join(tmp, "trace")
+        resumed = ["--logging-dir", run, "--num-steps", str(RESUMED_STEPS), "--resume"] + tiny
+
+        def traced_resume():
+            with trace(trace_dir):
+                train_tiny_nerf.main(resumed)
+
+        launches, _ = counted("14b train_tiny_nerf --resume to 60", traced_resume,
+                              {train_grads.NAME: RESUMED_STEPS - TINY_STEPS,
+                               classic_mlp.NAME: tiles}, plans)
+        tally(launches)
+        check([r["step"] for r in metrics_records(run)] == [20, 40, 60],
+              "14b: the resumed run started from step 40 (one new record, step 60)")
+        (trace_file,) = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, trace_file)) as f:
+            events = json.load(f)["traceEvents"]
+        k2_events = sum(1 for e in events
+                        if e.get("cat") == "kernel" and K2_TRACE_KERNEL.search(e.get("name", "")))
+        print(f"14b trace {trace_file}: {len(events)} events, {k2_events} of K2's "
+              f"compositing kernel", flush=True)
+        check(k2_events == RESUMED_STEPS - TINY_STEPS,
+              f"14b: the trace lists K2 exactly {RESUMED_STEPS - TINY_STEPS} times")
+        launches, _ = counted(
+            "14b train_tiny_nerf straight 60 steps",
+            lambda: train_tiny_nerf.main(["--logging-dir", straight, "--num-steps",
+                                          str(RESUMED_STEPS)] + tiny),
+            {train_grads.NAME: RESUMED_STEPS, classic_mlp.NAME: 3 * tiles}, plans)
+        tally(launches)
+        final = f"checkpoint_{RESUMED_STEPS}.npz"
+        got = checkpoint_leaves(os.path.join(run, final))
+        want = checkpoint_leaves(os.path.join(straight, final))
+        check(list(got) == list(want), "14b: the two final checkpoints have the same leaves")
+        floats = [k for k in want if want[k].dtype == np.float32]
+        diff = max(float(np.abs(got[k] - want[k]).max()) for k in floats)
+        bitwise = all(np.array_equal(got[k], want[k]) for k in want)
+        print(f"14b resumed vs straight 60 steps: {len(floats)} weight and moment leaves, max abs "
+              f"difference {diff:.3e}, bitwise equal: {bitwise}", flush=True)
+        check(diff <= RESUME_ATOL and all(np.array_equal(got[k], want[k])
+                                          for k in want if k not in floats),
+              f"14b: the resumed run's weights and Adam moments within {RESUME_ATOL} of the "
+              f"straight run's, step, count and key equal")
+
+        model = ClassicNeRF(cfg, device=device)
+        state = checkpoint.restore_checkpoint(os.path.join(run, final), create_train_state(model))
+        save_dir = os.path.join(tmp, "save")
+        checkpoint.save_checkpoint(save_dir, state)  # warm-up
+        save_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            path = checkpoint.save_checkpoint(save_dir, state)
+            save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        checkpoint.restore_checkpoint(path, state)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        print(f"14b save_checkpoint at full width (638,468 parameters, weights + 2 moments): "
+              f"{', '.join(f'{t:.1f}' for t in save_ms)} ms, {os.path.getsize(path) / 1e6:.3f} MB; "
+              f"restore {restore_ms:.1f} ms; {card}", flush=True)
+
+        # c. The render CLI on the checkpoint and on the exported .pth.
+        ckpt = os.path.join(run, final)
+        out = {name: os.path.join(tmp, name)
+               for name in ("npz", "plain", "pth", "coarse", "coarse_plain")}
+        # The fine t-values each render placed, tile by tile, in pixel order.
+        t_fine = {"npz": [], "plain": []}
+        with recording_results(sampling, "sample_pdf", t_fine["npz"]):
+            launches, seconds = counted(
+                "14c render --checkpoint checkpoint_60.npz",
+                lambda: render_cli.main(["--checkpoint", ckpt, "--output-dir", out["npz"]]
+                                        + RENDER_ARGS),
+                {classic_mlp.NAME: 2 * tiles, union_eval.NAME: 2 * tiles}, plans)
+        tally(launches)
+        print(f"14c render CLI: {seconds / 2 * 1e3:.1f} ms per 100x100 view at 64 + 128 samples "
+              f"(the whole call over its 2 views, checkpoint restore and PNGs included); {card}",
+              flush=True)
+        with recording_results(sampling, "sample_pdf", t_fine["plain"]):
+            render_cli.main(["--checkpoint", ckpt, "--output-dir", out["plain"],
+                             "--num-fine-samples", "128", "--num-views", "2"])
+        render_cli.main(["--checkpoint", os.path.join(run, "nerf.pth"), "--output-dir", out["pth"]]
+                        + RENDER_ARGS)
+        # Without the fine stage nothing can move a sample: every pixel.
+        render_cli.main(["--checkpoint", ckpt, "--output-dir", out["coarse"], "--use-pallas",
+                         "--num-views", "2"])
+        render_cli.main(["--checkpoint", ckpt, "--output-dir", out["coarse_plain"],
+                         "--num-views", "2"])
+        # Trained from a random init, some rays' coarse weights put ~1e-5 of
+        # the mass in a bin; there the float32 rounding of the coarse
+        # weights moves the fine samples, and the pixel by several 8-bit
+        # levels, between any two float32 evaluations (the plain path
+        # against itself at another batch size too).
+        moved = ((torch.cat(t_fine["npz"]) - torch.cat(t_fine["plain"])).abs().amax(-1)
+                 > T_FINE_ATOL).reshape(2, 100, 100).cpu().numpy()
+        for i, name in enumerate(("view_000.png", "view_001.png")):
+            coarse = read_png(os.path.join(out["coarse"], name)).astype(int)
+            level = int(np.abs(coarse - read_png(os.path.join(out["coarse_plain"], name))).max())
+            check(level <= 1, f"14c {name} at 64 coarse samples only: within one 8-bit level of "
+                              f"the plain path's at every pixel ({level})")
+            kernel_png = read_png(os.path.join(out["npz"], name)).astype(int)
+            level = np.abs(kernel_png - read_png(os.path.join(out["plain"], name))).max(-1)
+            still = level[~moved[i]].max()
+            print(f"14c {name}: {int(moved[i].sum())} of {level.size} pixels with fine samples "
+                  f"moved beyond {T_FINE_ATOL} in t between the two paths, up to "
+                  f"{int(level[moved[i]].max(initial=0))} levels apart; the rest up to {still}",
+                  flush=True)
+            check(still <= 1 and kernel_png.std() > 0,
+                  f"14c {name}: within one 8-bit level of the plain path's at every pixel whose "
+                  f"fine samples both paths place alike ({still})")
+            with open(os.path.join(out["npz"], name), "rb") as a, \
+                    open(os.path.join(out["pth"], name), "rb") as b:
+                check(a.read() == b.read(), f"14c {name}: the same PNG from the run's nerf.pth")
+
+        # d. The conditional trainer on a pickle written from a seed.
+        focal = CONDITIONAL_HW * 50.0 / 36.0  # the CLI's default camera
+        scene = synthesize_scene(num_views=CONDITIONAL_VIEWS, image_hw=CONDITIONAL_HW,
+                                 focal=focal, pose_seed=21, device=device)
+        states = np.random.default_rng(21).normal(size=(CONDITIONAL_VIEWS, STATE_WIDTH))
+        pose_o = scene.pose_o.cpu().numpy()
+        data = os.path.join(tmp, "data_for_nerf.pkl")
+        with open(data, "wb") as f:
+            pickle.dump({"images": scene.images.cpu().numpy(),
+                         "poses": np.concatenate([pose_o, -pose_o], -1),
+                         "states": states.astype(np.float32)}, f)
+        ccfg = ClassicNeRFConfig(density_inputs=3 + STATE_WIDTH)
+        cxe = ccfg.x_encoding_dim
+        cplans = {name: _build.tile_plan(name, cxe, de, hidden).policy
+                  for name in (train_grads.NAME, classic_mlp.NAME)}
+        steps = (CONDITIONAL_VIEWS - 1) * CONDITIONAL_HW ** 2 // 1024  # one epoch
+        cond = os.path.join(tmp, "conditional")
+        launches, seconds = counted(
+            f"14d train_conditional 1 epoch (encodings {cxe} + {de})",
+            lambda: train_conditional.main(["--logging-dir", cond, "--data", data, "--use-pallas",
+                                            "--epochs", "1", "--near-plane", "2",
+                                            "--far-plane", "6"]),
+            {train_grads.NAME: steps, classic_mlp.NAME: tiles}, cplans)
+        tally(launches)
+        records = metrics_records(cond)
+        check(records[-1]["step"] == steps and np.isfinite(records[-1]["loss"]),
+              f"14d: {steps} steps, every loss finite (the last {records[-1]['loss']:.6f})")
+        check(os.path.exists(os.path.join(cond, "model.pth"))
+              and checkpoint.all_checkpoints(cond) == [f"checkpoint_{steps}.npz"],
+              "14d: model.pth and the checkpoint written")
+        print(f"14d train_conditional: {seconds:.2f} s for {steps} steps and one eval render, "
+              f"tiles {cplans}; {card}", flush=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -1337,10 +1655,13 @@ def main() -> int:
     rows.update(mega_phase(device, cfg, bank, reuse_ms))
     latent_phase(device, bank)
     wide_forward_phase(device)
+    cli_launches = entry_points_phase(device, card)
 
-    # 14. Result lines.
-    print(json.dumps({"kernels": [kernel_row(name, launches, **row)
-                                  for name, (launches, row) in rows.items()]}))
+    # 15. Result lines.
+    kernels = [kernel_row(name, launches, **row) for name, (launches, row) in rows.items()]
+    for row in kernels:
+        row["cli_launches"] = cli_launches.get(row["name"], 0)
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

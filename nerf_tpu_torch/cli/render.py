@@ -1,10 +1,10 @@
-"""Render CLI: a camera orbit of novel views from a reference-layout ``.pth``
-checkpoint, written as PNG files (counterpart of ``nerf_tpu/cli/render.py``).
+"""Render CLI: a camera orbit of novel views from a trained checkpoint,
+written as PNG files (counterpart of ``nerf_tpu/cli/render.py``).  Loads
+either a full-state ``checkpoint_*.npz`` (of either package) or a
+reference-layout ``.pth``.
 
-    python -m nerf_tpu_torch.cli.render --checkpoint nerf.pth --device cuda \\
-        --use-pallas --num-fine-samples 128
-
-The JAX package's ``checkpoint_*.npz`` branch is not ported yet.
+    python -m nerf_tpu_torch.cli.render --checkpoint run/checkpoint_40000.npz \\
+        --device cuda --use-pallas --num-fine-samples 128
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ def write_png(path: str, arr: np.ndarray) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint", type=str, required=True,
-                   help="reference-layout .pth checkpoint")
+                   help=".pth (reference layout) or checkpoint_*.npz")
     p.add_argument("--output-dir", type=str, default="renders")
     p.add_argument("--image-size", type=int, default=100)
     p.add_argument("--focal", type=float, default=138.89)
@@ -61,18 +61,22 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, RenderConfig
     from nerf_tpu_torch.data.scenes import spherical_poses
+    from nerf_tpu_torch.train import checkpoint as ckpt_lib
+    from nerf_tpu_torch.train.state import create_train_state
     from nerf_tpu_torch.utils.pth_import import load_classic_checkpoint
 
     args = build_parser().parse_args(argv)
-    if not args.checkpoint.endswith(".pth"):
-        raise SystemExit("only reference-layout .pth checkpoints are supported")
     os.makedirs(args.output_dir, exist_ok=True)
 
     cfg = ClassicNeRFConfig(
         normalize_position=args.normalize_position, use_pallas=args.use_pallas
     )
     model = ClassicNeRF(cfg, device=args.device)
-    model.mlp = load_classic_checkpoint(args.checkpoint, cfg, device=args.device)
+    if args.checkpoint.endswith(".pth"):
+        model.mlp = load_classic_checkpoint(args.checkpoint, cfg, device=args.device)
+    else:
+        # The full train state; its Adam moments are restored too, unused.
+        ckpt_lib.restore_checkpoint(args.checkpoint, create_train_state(model))
 
     render = RenderConfig(
         num_coarse_samples=args.num_samples_per_ray,

@@ -1,13 +1,15 @@
-"""Camera poses and an analytic synthetic scene (counterpart of
-``SceneData``, ``spherical_poses``, ``scene_density_color``,
-``render_ground_truth`` and ``synthesize_scene`` in
-``nerf_tpu/data/scenes.py``, with the same blob constants).
+"""Datasets: the tiny_nerf ``.npz`` loader, camera poses and an analytic
+synthetic scene (counterpart of ``nerf_tpu/data/scenes.py``, with the
+same blob constants).
 
-``synthesize_scene`` renders an emission-absorption volume of coloured
-Gaussian blobs to ground truth by brute-force quadrature of the same
-volume-rendering equation the models learn, so training is testable
-without a dataset.  ``load_tiny_nerf`` and the forward-facing scenes are
-not ported yet.
+``load_tiny_nerf`` reads the reference's ``tiny_nerf_data.npz`` (images
+``[B, H, W, 3]``, poses ``[B, 4, 4]``, focal) into the ``(pose_o,
+pose_r)`` split.  ``synthesize_scene`` renders an emission-absorption
+volume of coloured Gaussian blobs to ground truth by brute-force
+quadrature of the same volume-rendering equation the models learn, so
+training is testable without a dataset; ``synthesize_forward_facing``
+renders the same blobs from LLFF-style forward-facing cameras for the
+NDC path.
 """
 
 from __future__ import annotations
@@ -29,6 +31,19 @@ class SceneData(NamedTuple):
     labels: Optional[torch.Tensor] = None  # [B, H, W] int labels or None
     states_x: Optional[torch.Tensor] = None  # [B, Kx] per-scene latents or None
     states_d: Optional[torch.Tensor] = None  # [B, Kd]
+
+
+def load_tiny_nerf(path: str, device="cuda") -> SceneData:
+    """Load the tiny_nerf npz (images/poses/focal) into the pose split
+    (``pose[:3, 3]`` / ``pose[:3, :3]``) on ``device``."""
+    data = np.load(path)
+    poses = torch.as_tensor(np.asarray(data["poses"], np.float32), device=device)
+    return SceneData(
+        images=torch.as_tensor(np.asarray(data["images"], np.float32), device=device),
+        pose_o=poses[:, :3, 3].contiguous(),
+        pose_r=poses[:, :3, :3].contiguous(),
+        focal=float(data["focal"]),
+    )
 
 
 def spherical_poses(
@@ -132,6 +147,59 @@ def render_ground_truth(
     return rgb, torch.argmax(label_probs, dim=-1)
 
 
+def forward_facing_poses(
+    num: int, spread: float = 0.15, device="cuda"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LLFF-style forward-facing cameras: a small grid of positions on the
+    plane ``z = 0``, all looking straight down ``-z`` (the OpenGL
+    convention the NDC warp assumes)."""
+    side = int(np.ceil(np.sqrt(num)))
+    xs = np.linspace(-spread, spread, side)
+    offsets = np.stack(np.meshgrid(xs, xs, indexing="ij"), -1).reshape(-1, 2)[:num]
+    pose_o = torch.as_tensor(
+        np.stack([offsets[:, 0], offsets[:, 1], np.zeros(num)], -1).astype(np.float32),
+        device=device,
+    )
+    fwd = torch.tensor([0.0, 0.0, -1.0], device=device).expand(num, 3)
+    return pose_o, cameras.direction_to_rotation_matrix(fwd)
+
+
+def _render_views(pose_o, pose_r, image_hw, focal, near, far, num_samples, field_offset=None):
+    """Ground truth ``(rgb [B, H, W, 3], label [B, H, W])`` of the views,
+    rendered in chunks of rays so the ``[rays, samples, blobs]``
+    intermediates stay small."""
+    rays_o, rays_d = cameras.pose_to_rays(pose_o, pose_r, image_hw, image_hw, focal)
+    flat_o, flat_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+    chunk = 8192
+    parts = [
+        render_ground_truth(flat_o[i:i + chunk], flat_d[i:i + chunk], near, far, num_samples,
+                            field_offset)
+        for i in range(0, flat_o.shape[0], chunk)
+    ]
+    b = pose_o.shape[0]
+    return (torch.cat([p[0] for p in parts]).reshape(b, image_hw, image_hw, 3),
+            torch.cat([p[1] for p in parts]).reshape(b, image_hw, image_hw))
+
+
+def synthesize_forward_facing(
+    num_views: int = 9,
+    image_hw: int = 48,
+    focal: float = 60.0,
+    distance: float = 4.0,
+    near: float = 2.0,
+    far: float = 6.5,
+    num_samples: int = 512,
+    device="cuda",
+) -> SceneData:
+    """Forward-facing synthetic dataset for the NDC training path, on
+    ``device``: cameras at z=0 looking down -z, the blob field translated
+    to z = -distance so the whole scene lies beyond the NDC near plane."""
+    pose_o, pose_r = forward_facing_poses(num_views, device=device)
+    rgb, _ = _render_views(pose_o, pose_r, image_hw, focal, near, far, num_samples,
+                           field_offset=(0.0, 0.0, -distance))
+    return SceneData(images=rgb, pose_o=pose_o, pose_r=pose_r, focal=float(focal))
+
+
 def synthesize_scene(
     num_views: int = 8,
     image_hw: int = 64,
@@ -145,22 +213,13 @@ def synthesize_scene(
     device="cuda",
 ) -> SceneData:
     """A full synthetic dataset on ``device``: images, poses and focal
-    (and labels).  The ground truth is rendered in chunks of rays so the
-    ``[rays, samples, blobs]`` intermediates stay small."""
+    (and labels)."""
     pose_o, pose_r = spherical_poses(num_views, radius, seed=pose_seed, device=device)
-    rays_o, rays_d = cameras.pose_to_rays(pose_o, pose_r, image_hw, image_hw, focal)
-    flat_o, flat_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
-    chunk = 8192
-    parts = [
-        render_ground_truth(flat_o[i:i + chunk], flat_d[i:i + chunk], near, far, num_samples)
-        for i in range(0, flat_o.shape[0], chunk)
-    ]
-    rgb = torch.cat([p[0] for p in parts])
-    label = torch.cat([p[1] for p in parts])
+    rgb, label = _render_views(pose_o, pose_r, image_hw, focal, near, far, num_samples)
     return SceneData(
-        images=rgb.reshape(num_views, image_hw, image_hw, 3),
+        images=rgb,
         pose_o=pose_o,
         pose_r=pose_r,
         focal=float(focal),
-        labels=label.reshape(num_views, image_hw, image_hw) if with_labels else None,
+        labels=label if with_labels else None,
     )

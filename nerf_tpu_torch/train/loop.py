@@ -16,10 +16,11 @@ and the ``Trainer`` (counterpart of ``nerf_tpu/train/loop.py``).
   coarse-only step (K2 once) or the re-evaluate step (K2 twice).
 * PyTorch runs eagerly: the K-step functions are Python loops over the
   one-step function (the JAX package's ``lax.scan``).
+* With a ``logging_dir`` the ``Trainer`` writes metrics, full-state
+  checkpoints (``train/checkpoint.py``) and a watchdog heartbeat, and
+  ``init_state`` resumes from the latest checkpoint.
 
-Not ported yet, and refused rather than skipped: checkpoints and resume
-from disk (``Trainer`` raises ``NotImplementedError`` for a
-``logging_dir``), the watchdog heartbeat and the ``mesh`` argument.
+Not ported yet: the ``mesh`` argument (data parallelism).
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ from nerf_tpu_torch.ops.kernels import (
     mip_train,
     train_grads,
 )
+from nerf_tpu_torch.parallel.watchdog import Heartbeat
+from nerf_tpu_torch.train import checkpoint as ckpt_lib
 from nerf_tpu_torch.train.metrics import MetricsLogger, mse_to_psnr
 from nerf_tpu_torch.train.state import TrainState, create_train_state, step_generator
 
@@ -330,8 +333,9 @@ def evaluate(
 
 class Trainer:
     """End-to-end trainer: device-resident data, chunks of steps
-    between log and eval boundaries, the fused kernels when
-    ``model.cfg.use_pallas`` and the configuration allows them."""
+    between log, eval and checkpoint boundaries, the fused kernels when
+    ``model.cfg.use_pallas`` and the configuration allows them, periodic
+    eval, full-state checkpoints and resume."""
 
     def __init__(
         self,
@@ -342,25 +346,25 @@ class Trainer:
         segmentation_loss_weight: float = 0.0,
         optimizer: Optional[torch.optim.Optimizer] = None,
     ):
-        if logging_dir is not None:
-            raise NotImplementedError(
-                "Trainer: checkpoints and resume are not ported yet (train/checkpoint.py); "
-                "pass logging_dir=None"
-            )
         self.model = model
         self.render = render
         self.train_cfg = train
+        self.logging_dir = logging_dir
         self.seg_weight = segmentation_loss_weight
         self.optimizer = optimizer
-        self.metrics = MetricsLogger()
+        self.metrics = MetricsLogger(logging_dir)
 
     def init_state(self, resume: bool = True) -> TrainState:
-        """Weights drawn anew from ``train.seed`` and a fresh Adam."""
-        del resume  # nothing to resume from: checkpoints are not ported
+        """Weights drawn anew from ``train.seed`` and a fresh Adam; with
+        ``resume`` and a logging dir, the latest checkpoint there
+        restored into them."""
         self.model.mlp.reset_parameters(torch.Generator().manual_seed(self.train_cfg.seed))
-        return create_train_state(
+        state = create_train_state(
             self.model, self.train_cfg.learning_rate, self.train_cfg.seed, self.optimizer
         )
+        if resume and self.logging_dir:
+            ckpt_lib.restore_latest(self.logging_dir, state)
+        return state
 
     def _make_run_fn(self, bank: RayBank, num_steps: int, fused: bool) -> Callable:
         maker = make_fused_multi_step_train_fn if fused else make_multi_step_train_fn
@@ -375,11 +379,11 @@ class Trainer:
         state: Optional[TrainState] = None,
         eval_view: int = -1,
     ) -> TrainState:
-        """Train to ``num_steps`` in chunks between the log and eval
-        boundaries, through the fused kernels when the configuration
-        allows (``cfg.use_pallas``).  The draws of each step depend on
-        (seed, step) only, so chunking does not change the trajectory.
-        Checkpoints and the watchdog heartbeat are not ported."""
+        """Train to ``num_steps`` in chunks between the log, eval and
+        checkpoint boundaries, through the fused kernels when the
+        configuration allows (``cfg.use_pallas``).  The draws of each step
+        depend on (seed, step) only, so chunking does not change the
+        trajectory, and a run resumed from any checkpoint continues it."""
         cfg = self.train_cfg
         num_steps = num_steps or cfg.num_steps
         state = state if state is not None else self.init_state()
@@ -396,10 +400,22 @@ class Trainer:
         def run_chunk(state, k):
             return self._make_run_fn(bank, k, fused)(state)
 
-        return self._fit_loop(bank, eval_scene, num_steps, state, eval_view, chunk, run_chunk)
+        # Liveness and progress beacon for the watchdog's supervisor
+        # (parallel/watchdog.py), stepped at every chunk boundary.
+        heartbeat = None
+        if self.logging_dir:
+            heartbeat = Heartbeat(self.logging_dir).start()
+        try:
+            return self._fit_loop(bank, eval_scene, num_steps, state, eval_view, chunk,
+                                  run_chunk, heartbeat)
+        finally:
+            # A beat surviving a failed fit would hide the failure from
+            # the supervisor.
+            if heartbeat is not None:
+                heartbeat.stop()
 
     def _fit_loop(self, bank, eval_scene, num_steps, state, eval_view, chunk,
-                  run_chunk) -> TrainState:
+                  run_chunk, heartbeat) -> TrainState:
         cfg = self.train_cfg
         last_t = time.time()
         step = int(state.step)
@@ -408,6 +424,8 @@ class Trainer:
             k = boundary - step
             state, aux = run_chunk(state, k)
             step = boundary
+            if heartbeat is not None:
+                heartbeat.update(step)
             aux = {key: v.cpu().numpy() for key, v in aux.items()}
             _check_finite_losses(aux["loss"], step - k + 1)
             if step % cfg.log_interval == 0 or step == num_steps:
@@ -423,5 +441,10 @@ class Trainer:
                     _, value = evaluate(self.model, eval_scene, self.render, eval_view)
                     record["psnr"] = float(value)
                 self.metrics.log(step, **record)
+            if self.logging_dir and step % cfg.checkpoint_interval == 0:
+                ckpt_lib.save_checkpoint(self.logging_dir, state)
             last_t = time.time()
+        if self.logging_dir:
+            ckpt_lib.save_checkpoint(self.logging_dir, state)
+            self.metrics.save_npy_dumps()
         return state

@@ -220,9 +220,22 @@ def test_render_cli_on_cpu_matches_jax_cli(cli_reference, tmp_path, use_pallas):
         assert np.abs(ours - ref).max() <= 1, name
 
 
-def test_render_cli_rejects_npz(tmp_path):
-    with pytest.raises(SystemExit):
-        port_cli.main(["--checkpoint", str(tmp_path / "checkpoint_1.npz"), "--device", "cpu"])
+def test_render_cli_renders_a_port_written_npz(tmp_path):
+    # The full train state of a fresh full-width model, and the .pth of the
+    # same weights: the two renders are the same PNGs.
+    from nerf_tpu_torch.train import checkpoint, create_train_state
+
+    model = ClassicNeRF(ClassicNeRFConfig(normalize_position=6.0),
+                        generator=torch.Generator().manual_seed(1), device="cpu")
+    npz = checkpoint.save_checkpoint(str(tmp_path), create_train_state(model))
+    checkpoint.export_reference_pth(str(tmp_path / "nerf.pth"), model)
+    for ckpt, out in ((npz, "npz"), (str(tmp_path / "nerf.pth"), "pth")):
+        port_cli.main(["--checkpoint", ckpt, "--output-dir", str(tmp_path / out), "--device",
+                       "cpu", "--use-pallas"] + CLI_ARGS)
+    for name in ("view_000.png", "view_001.png"):
+        image = read_png(tmp_path / "npz" / name)
+        assert image.shape == (8, 8, 3) and image.std() > 0
+        assert (tmp_path / "npz" / name).read_bytes() == (tmp_path / "pth" / name).read_bytes()
 
 
 def test_port_and_chip_smoke_load_no_jax():

@@ -3,7 +3,8 @@ CPU: ``RayBank`` and ``synthesize_scene`` with the same indices, one Adam
 step against ``optax.adam``, ``make_train_step`` over three steps with the
 same batches and deterministic sampling, chained steps against single
 steps (bitwise), the non-finite-loss guard, ``Trainer.fit`` and
-``evaluate``.
+``evaluate`` (the ``Trainer``'s checkpoints and resume:
+``test_torch_checkpoint.py``).
 
 Models are small (hidden 32), carry the JAX package's frequency constants
 and have the density head biased to a positive density, as in
@@ -249,7 +250,7 @@ def _batch_and_draws(state, bank, render):
     return _sample(state, bank, 16, render)
 
 
-def test_trainer_fit_lowers_the_loss_and_refuses_checkpoints(jax_scene, tmp_path):
+def test_trainer_fit_lowers_the_loss_and_evaluates(jax_scene):
     _, pb = banks(jax_scene)
     cfg = TrainConfig(batch_size=32, learning_rate=5e-3, log_interval=10, eval_interval=30,
                       checkpoint_interval=30, seed=1)
@@ -261,8 +262,6 @@ def test_trainer_fit_lowers_the_loss_and_refuses_checkpoints(jax_scene, tmp_path
     losses = trainer.metrics.series("loss")
     assert len(losses) == 3 and losses[-1] < losses[0]
     assert trainer.metrics.series("psnr") and np.isfinite(trainer.metrics.series("psnr")).all()
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Trainer(model, render, cfg, logging_dir=str(tmp_path))
 
 
 def test_evaluate_psnr_matches_jax(jax_scene):
