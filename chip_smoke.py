@@ -128,11 +128,30 @@
       step and the eval render's K1-fwd tiles, each on the tile
       ``tile_plan`` gives for that width; ``model.pth`` and the
       checkpoint written.
-15. Prints the kernels' JSON line (each row with its float32 bound and
+15. compute_dtype="bfloat16" (slice 12), the full-width model of phases
+   3-4 with ``compute_dtype="bfloat16"``: one 400x400 frame at 64 + 128
+   (the counters zeroed just before and read just after: 40 K1-fwd and
+   40 K4, all ``tc_bf16``) against the plain bf16 frame (the same model
+   with the five wrappers' plain versions, ``plain_versions``) in
+   relative L2 and the float32 frame of phase 3 at the JAX package's bf16
+   bound; one reuse step at 2048 x (64 + 128) and one coarse-only step at
+   4096 x 64 against the plain bf16 step (loss, gradients in relative L2
+   within 2e-2) and the float32 kernel step (cosine), then 2 warm-up and 20
+   timed steps of each with the counters zeroed just before (one K1-fwd,
+   K1-bwd and K3, or one K2, a step, all ``tc_bf16``), ms/step and rays/s
+   beside phase 4's; K1-fwd, K4, K1-bwd, K2 and K3 against their plain
+   bf16 versions on those paths' arguments (K1-bwd also the float32
+   kernel on its inputs, which must fail the check), with their times
+   and both bf16 bounds (FLOP at 989 TFLOP/s, bytes at 3.35 TB/s); one
+   bf16 K2 at the latent width 100 + 36 on its SIMT ``fwd_store``
+   (``simt_bf16``).
+16. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
    each, ``products``: how its MLP products run, and since which slice,
-   and ``cli_launches``: its launches in phase 14), the card line, then,
-   last, the device line.
+   ``cli_launches``: its launches in phase 14, and its bf16 entries from
+   phase 15, ``bf16_ms``, ``bf16_bound_ms``, ``bf16_launches`` and the
+   rest, null for the seven kernels without a bf16 path), the card line,
+   then, last, the device line.
 
 The classic model is the full-width ClassicNeRF (hidden 256, 60 + 36
 encoding widths, 638,468 parameters) with random weights from seed 0.  Its density
@@ -183,6 +202,7 @@ from nerf_tpu_torch.ops.kernels import (
     train_grads,
     union_eval,
 )
+from nerf_tpu_torch.testing import bf16_step_reference, plain_versions
 from nerf_tpu_torch.train import (
     checkpoint,
     create_train_state,
@@ -206,6 +226,7 @@ from nerf_tpu_torch.utils.profiling import (
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 IMAGE = 400
 FOCAL = 555.0
@@ -312,10 +333,14 @@ SOURCES = {
 }
 
 # How each kernel's MLP products run, and since which slice of the port.
+BF16_PRODUCTS = "; bf16 wgmma in compute_dtype bfloat16 (slice 12)"
 PRODUCTS = {
-    "classic_mlp_fwd": "3xTF32 (slice 7)", "union_eval": "3xTF32 (slice 5)",
-    "classic_mlp_bwd": "3xTF32 (slice 7); float32 SIMT with the encodings' cotangents",
-    "train_grads": "3xTF32 (slice 6)", "fine_stage_train": "3xTF32 (slice 6)",
+    "classic_mlp_fwd": "3xTF32 (slice 7)" + BF16_PRODUCTS,
+    "union_eval": "3xTF32 (slice 5)" + BF16_PRODUCTS,
+    "classic_mlp_bwd": "3xTF32 (slice 7); float32 SIMT with the encodings' cotangents"
+    + BF16_PRODUCTS,
+    "train_grads": "3xTF32 (slice 6)" + BF16_PRODUCTS,
+    "fine_stage_train": "3xTF32 (slice 6)" + BF16_PRODUCTS,
     "mip_mlp_fwd": "3xTF32 (slice 10)", "mip_mlp_bwd": "3xTF32 (slice 9)",
     "mip_eval": "3xTF32 (slice 8)", "mip_train_grads": "3xTF32 (slice 8)",
     "classic_pointmlp_fwd": "3xTF32 (slice 10)", "classic_pointmlp_bwd": "3xTF32 (slice 9)",
@@ -341,8 +366,11 @@ def nvidia_smi(query: str) -> str:
 
 
 def kernel_label(mangled: str) -> str:
-    """A mangled kernel name's last identifier and int template argument:
-    ``_ZN8nerf_mlp15bwd_rows_kernelILi256EE...`` -> ``bwd_rows_kernel<256>``."""
+    """A mangled kernel name's last identifier and its int and bool template
+    arguments (types left out): ``_ZN8nerf_mlp15bwd_rows_kernelILi256EE...`` ->
+    ``bwd_rows_kernel<256>``, ``...wgrad_tc_kernelILb1EE...`` ->
+    ``wgrad_tc_kernel<true>`` (the classic kernels' bool is kBf16, the mip
+    tiles' kSave)."""
     i, parts = mangled.find("N") + 1, []
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -350,9 +378,11 @@ def kernel_label(mangled: str) -> str:
             j += 1
         parts.append(mangled[j:j + int(mangled[i:j])])
         i = j + int(mangled[i:j])
-    arg = re.match(r"ILi(\d+)E", mangled[i:])
     label = parts[-1] if parts else mangled
-    return f"{label}<{arg.group(1)}>" if arg else label
+    end = mangled.find("Ev", i)  # the template arguments end before the void return
+    values = [("true" if v == "1" else "false") if t == "b" else v
+              for t, v in re.findall(r"L([ib])(\d+)E", mangled[i:end if end >= 0 else None])]
+    return f"{label}<{', '.join(values)}>" if values else label
 
 
 # The passes of the MLP kernels by kernel name, for reports and profiles:
@@ -361,14 +391,16 @@ def kernel_label(mangled: str) -> str:
 # encodings or features too wide for it, and K1-bwd's SIMT passes the
 # encodings' cotangents).
 PASSES = {
-    "fwd_tc_kernel": "K1-fwd / K8-fwd tile, 3xTF32 wgmma",
-    "fwd_simt_kernel": "K1-fwd / K8-fwd tile, fp32 SIMT (wide encodings)",
-    "fwd_store_tc_kernel": "fwd_store, 3xTF32 wgmma",
-    "bwd_rows_tc_kernel": "bwd_rows, 3xTF32 wgmma",
-    "wgrad_tc_kernel": "wgrad, 3xTF32 wgmma",
-    "union_eval_kernel": "K4 tile, 3xTF32 wgmma MLP + compositing",
-    "union_eval_simt_kernel": "K4 tile, fp32 SIMT MLP (wide encodings) + compositing",
-    "fwd_store_kernel": "fwd_store, fp32 SIMT",
+    "fwd_tc_kernel": "K1-fwd / K8-fwd tile, 3xTF32 (bf16 if <..., true>) wgmma",
+    "fwd_simt_kernel":
+        "K1-fwd / K8-fwd tile, fp32 SIMT (wide encodings; bf16 operands if <..., true>)",
+    "fwd_store_tc_kernel": "fwd_store, 3xTF32 (bf16 if <..., true>) wgmma",
+    "bwd_rows_tc_kernel": "bwd_rows, 3xTF32 (bf16 if <..., true>) wgmma",
+    "wgrad_tc_kernel": "wgrad, 3xTF32 (bf16 if <true>) wgmma",
+    "union_eval_kernel": "K4 tile, 3xTF32 (bf16 if <..., true>) wgmma MLP + compositing",
+    "union_eval_simt_kernel":
+        "K4 tile, fp32 SIMT MLP (wide encodings; bf16 operands if <..., true>) + compositing",
+    "fwd_store_kernel": "fwd_store, fp32 SIMT (bf16 operands if <..., true>)",
     "bwd_rows_kernel": "bwd_rows, fp32 SIMT",
     "wgrad_kernel": "wgrad, fp32 SIMT",
     "colsum_kernel": "colsum",
@@ -621,17 +653,19 @@ def serving(device, flops_per_point: int) -> dict:
     pixel_err = compare("frame", [image], [plain_image])
     print(f"frame: {frame_ms:.1f} ms through the kernels, {plain_frame_ms:.1f} ms plain, "
           f"max pixel difference {pixel_err:.3e}")
-    return {"classic_mlp_fwd": (launches["classic_mlp_fwd"], k1),
+    rows = {"classic_mlp_fwd": (launches["classic_mlp_fwd"], k1),
             "union_eval": (launches["union_eval"], k4)}
+    return rows, image, frame_ms
 
 
-def train_run(name, render, n_rays, bank, device, expected: dict, store: dict):
+def train_run(name, render, n_rays, bank, device, expected: dict, store: dict,
+              policy: str = "tc", **cfg_kwargs):
     """Warm-up then timed fused steps; the counters are zeroed just before
     the timed steps.  The loss of one fixed probe batch (fixed draws) is
     taken before and after the run.  The first call of each wrapper in the
-    warm-up has its arguments recorded in ``store``.  Returns (launches, ms
-    per step)."""
-    model = make_model(True, device)
+    warm-up has its arguments recorded in ``store``.  Every launch must run
+    the ``policy`` tile.  Returns (launches, ms per step)."""
+    model = make_model(True, device, **cfg_kwargs)
     state = create_train_state(model, LEARNING_RATE, seed=0)
     gen = torch.Generator(device=device).manual_seed(99)
     probe = (bank.sample_batch(gen, n_rays), sampling.draw_step(gen, render, n_rays, device))
@@ -658,7 +692,7 @@ def train_run(name, render, n_rays, bank, device, expected: dict, store: dict):
           f"launches {launches}; step losses {[round(float(v), 5) for v in losses]}", flush=True)
     check(launches == {k: v * TIMED_STEPS for k, v in expected.items()},
           f"{name}: each step launched {expected} and nothing else")
-    check_policies(name, launches, policies, "tc")
+    check_policies(name, launches, policies, policy)
     check(bool(torch.isfinite(losses).all()), f"{name}: every loss is finite")
     check(loss_after < loss_before,
           f"{name}: the probe batch's loss fell from {loss_before:.6f} to {loss_after:.6f} "
@@ -708,7 +742,7 @@ def training(device, cfg: ClassicNeRFConfig):
     print(f"training: reuse 2048x(64+128) {reuse_ms:.2f} ms/step = "
           f"{TRAIN_RAYS / reuse_ms * 1e3:.0f} rays/s; coarse-only 4096x64 {coarse_ms:.2f} ms/step "
           f"= {COARSE_RAYS / coarse_ms * 1e3:.0f} rays/s")
-    return rows, bank, reuse_ms
+    return rows, bank, {"reuse": reuse_ms, "coarse": coarse_ms}
 
 
 def without_images(kwargs: dict) -> dict:
@@ -1617,6 +1651,310 @@ def entry_points_phase(device, card: str) -> dict:
     return total
 
 
+# Phase 15: compute_dtype="bfloat16" on the classic main path (slice 12).
+# Bounds, in relative L2 over a whole output or over all gradients
+# together: a bf16 kernel against its plain bf16 version (the same
+# roundings; the products summed in another order, and by the tensor
+# cores with truncation) within 1e-2 for outputs and 2e-2 for gradients.
+# A single float32 rounding can move an activation or a cotangent to the
+# other bf16 neighbour and the change travels through ten layers, so bf16
+# is never held element by element at float32 tolerances.  The gradient
+# checks run on the cotangents a step hands each kernel (a loss's, summed
+# over the step's rows), and K1-bwd's check is shown to fail the float32
+# kernel on the same inputs.  Against float32 the JAX package's own bf16
+# bounds (tests/test_pallas.py): outputs within rtol 0.1, atol 0.15; the
+# gradients' cosine above 0.98.  One step's loss against the plain bf16
+# step: rtol 1e-3.
+BF16 = dict(fwd_rel_l2=1e-2, grad_rel_l2=2e-2, loss_rtol=1e-3, f32_rtol=0.1, f32_atol=0.15,
+            f32_cosine=0.98)
+BF16_ROW_KEYS = ("bf16_ms", "bf16_plain_ms", "bf16_bound_ms", "bf16_bound_by",
+                 "bf16_flop_bound_ms", "bf16_byte_bound_ms", "bf16_launches", "bf16_rel_l2")
+# The float32 chain a training kernel writes and reads back: xhat and dpre,
+# ten layers of 256 floats each, a row.
+CHAIN_BYTES_PER_ROW = 2 * 2 * 10 * 256 * 4
+
+
+def rel_l2(got, ref) -> float:
+    got = torch.cat([g.double().ravel() for g in got])
+    ref = torch.cat([r.double().ravel() for r in ref])
+    return float((got - ref).norm() / ref.norm())
+
+
+def check_bf16_grads(name: str, got: dict, ref: dict) -> float:
+    """All of ``got`` against ``ref`` in relative L2, within BF16's
+    gradient bound.  Returns the error."""
+    keys = list(ref)
+    check(set(got) == set(keys), f"{name}: the same gradients as its plain version")
+    err = rel_l2([got[k] for k in keys], [ref[k] for k in keys])
+    finite = all(bool(torch.isfinite(g).all()) for g in got.values())
+    print(f"{name}: gradients relative L2 {err:.3e} against plain bf16 (bound "
+          f"{BF16['grad_rel_l2']})", flush=True)
+    check(finite and err <= BF16["grad_rel_l2"], f"{name} in bf16 matches its plain bf16 version")
+    return err
+
+
+def check_bf16_outputs(name: str, got, ref) -> float:
+    err = rel_l2(got, ref)
+    max_abs = max(float((g.float() - r.float()).abs().max()) for g, r in zip(got, ref))
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    print(f"{name}: relative L2 {err:.3e} against plain bf16 (max abs {max_abs:.3e}; bound "
+          f"{BF16['fwd_rel_l2']})", flush=True)
+    check(finite and err <= BF16["fwd_rel_l2"], f"{name} in bf16 matches its plain bf16 version")
+    return err
+
+
+def bf16_row(name, launches, err, ms, plain_ms, flops, nbytes, chain_rows=0) -> dict:
+    """A kernel's bf16 entries for its row: the bound is the larger of its
+    FLOP at the bf16 rate and the bytes of its inputs and outputs;
+    ``chain_rows``, a training kernel's rows, prints the byte time with its
+    float32 chain beside it."""
+    flop_ms, byte_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    row = {"bf16_ms": ms, "bf16_plain_ms": plain_ms, "bf16_launches": launches,
+           "bf16_rel_l2": err, "bf16_flop_bound_ms": flop_ms, "bf16_byte_bound_ms": byte_ms,
+           "bf16_bound_ms": max(flop_ms, byte_ms),
+           "bf16_bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+    chain = (f"; {(nbytes + chain_rows * CHAIN_BYTES_PER_ROW) / PEAK_BYTES_PER_S * 1e3:.3f} ms "
+             f"with its float32 chain" if chain_rows else "")
+    print(f"{name} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bounds {flop_ms:.3f} ms "
+          f"(FLOP at 989 TFLOP/s) and {byte_ms:.3f} ms (bytes at 3.35 TB/s{chain}); "
+          f"{row['bf16_bound_ms'] / ms:.3f} of the bound; {launches} launches", flush=True)
+    return row
+
+
+def bf16_kernels(device, cfg, model, pose, store: dict, frame_launches: dict, out: dict):
+    """Phase 15a: the five kernels against their plain bf16 versions, K1-fwd
+    at phase 3's 262,144 points, K4 on the first tile of the frame, K1-bwd,
+    K2 and K3 on the arguments the bf16 steps gave them; their times and
+    bf16 bounds into ``out``."""
+    flops_per_point = classic_flops_per_point(cfg)
+    packed = classic_mlp.pack_classic_params(model.mlp)
+    weight_bytes = tensor_bytes(*packed.values())
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def rand_bf16(*shape):
+        return (torch.rand(shape, generator=gen, device=device) * 2 - 1).bfloat16()
+
+    def on_route(kernel, call):
+        _build.policy_counts.clear()
+        got = call()
+        torch.cuda.synchronize()
+        check(dict(_build.policy_counts) == {(kernel, "tc_bf16"): 1},
+              f"{kernel} in bf16 ran its tensor-core tile or passes (tc_bf16)")
+        return got
+
+    x_enc, d_enc = rand_bf16(K1_POINTS, cfg.x_encoding_dim), rand_bf16(K1_POINTS, cfg.d_encoding_dim)
+    call = lambda: classic_mlp.classic_mlp_fwd(packed, x_enc, d_enc)  # noqa: E731
+    plain = lambda: classic_mlp.classic_mlp_fwd_plain(packed, x_enc, d_enc)  # noqa: E731
+    got = on_route(classic_mlp.NAME, call)
+    err = check_bf16_outputs(classic_mlp.NAME, [got], [plain()])
+    out[classic_mlp.NAME] = bf16_row(
+        classic_mlp.NAME, frame_launches[classic_mlp.NAME], err, cuda_ms(call, iters=10),
+        cuda_ms(plain, iters=5), K1_POINTS * flops_per_point,
+        tensor_bytes(x_enc, d_enc, got) + weight_bytes)
+
+    rays_o, rays_d = (r.reshape(-1, 3)[: RENDER.rays_per_tile] for r in
+                      pose_to_rays(*pose, IMAGE, IMAGE, FOCAL))
+    k4_store = {}
+    with capture_args(union_eval, "union_eval", k4_store):
+        model.render_rays(rays_o, rays_d, RENDER, fused_eval=True)
+    args = k4_store["union_eval"][0]
+    check(args[1].dtype == args[2].dtype == torch.bfloat16,
+          "the frame hands K4 bfloat16 fine and per-ray view encodings")
+    got = on_route(union_eval.NAME, lambda: union_eval.union_eval(*args))
+    err = check_bf16_outputs(union_eval.NAME, got, union_eval.union_eval_plain(*args))
+    _, x_f, d_ray, t_c, t_f, dens_c, col_c, dnorm = args
+    out[union_eval.NAME] = bf16_row(
+        union_eval.NAME, frame_launches[union_eval.NAME], err,
+        cuda_ms(lambda: union_eval.union_eval(*args), iters=5),
+        cuda_ms(lambda: union_eval.union_eval_plain(*args), iters=3),
+        t_f.numel() * flops_per_point,
+        tensor_bytes(x_f, d_ray, t_c, t_f, dens_c, col_c, dnorm, *got) + weight_bytes)
+
+    # K1-bwd on the rows and cotangents the bf16 reuse step handed it; the
+    # float32 kernel on the same inputs must fail the same check (a
+    # control: the check sees bf16's roundings missing).
+    args, kwargs = store["classic_mlp_bwd"]
+    check(without_images(kwargs) == {"input_grads": False} and args[1].dtype == torch.bfloat16,
+          "the bf16 reuse step hands K1-bwd bfloat16 encodings and asks no cotangents")
+    pk, x, d, g_out = args
+    call = lambda: classic_mlp.classic_mlp_bwd(pk, x, d, g_out, False)  # noqa: E731
+    got = on_route(classic_mlp.BWD_NAME, call)
+    ref = classic_mlp.classic_mlp_bwd_plain(pk, x, d, g_out, False)
+    err = check_bf16_grads(classic_mlp.BWD_NAME, got[2], ref[2])
+    f32 = classic_mlp.classic_mlp_bwd(pk, x.float(), d.float(), g_out, False)[2]
+    f32_err = rel_l2([f32[k] for k in ref[2]], [ref[2][k] for k in ref[2]])
+    print(f"{classic_mlp.BWD_NAME} control: the float32 kernel on the same inputs, relative L2 "
+          f"{f32_err:.3e} against plain bf16", flush=True)
+    check(f32_err > BF16["grad_rel_l2"],
+          f"{classic_mlp.BWD_NAME}: the float32 kernel fails the bf16 check (control)")
+    out[classic_mlp.BWD_NAME].update(bf16_row(
+        classic_mlp.BWD_NAME, out[classic_mlp.BWD_NAME]["bf16_launches"], err,
+        cuda_ms(call, iters=5),
+        cuda_ms(lambda: classic_mlp.classic_mlp_bwd_plain(pk, x, d, g_out, False), iters=3),
+        train_step_flops(cfg, x.shape[0], 1), tensor_bytes(x, d, g_out) + 2 * weight_bytes,
+        x.shape[0]))
+
+    args, kwargs = store["classic_train_grads"]
+    check(args[1].dtype == torch.bfloat16, "the bf16 coarse step hands K2 bfloat16 encodings")
+    call = lambda: train_grads.classic_train_grads(*args, **kwargs)  # noqa: E731
+    got = on_route(train_grads.NAME, call)
+    ref = train_grads.classic_train_grads_plain(*args, **kwargs)
+    check_bf16_outputs(train_grads.NAME + " loss", [got[0]], [ref[0]])
+    err = check_bf16_grads(train_grads.NAME, got[1], ref[1])
+    x = args[1]
+    out[train_grads.NAME].update(bf16_row(
+        train_grads.NAME, out[train_grads.NAME]["bf16_launches"], err, cuda_ms(call, iters=5),
+        cuda_ms(lambda: train_grads.classic_train_grads_plain(*args, **kwargs), iters=3),
+        train_step_flops(cfg, *x.shape[:2]),
+        tensor_bytes(*args[1:6], *got[2:]) + 2 * weight_bytes + 4, x.shape[0] * x.shape[1]))
+
+    args, kwargs = store["fine_stage_train"]
+    kwargs = without_images(kwargs)
+    check(args[1].dtype == args[2].dtype == torch.bfloat16,
+          "the bf16 reuse step hands K3 bfloat16 encodings")
+    call = lambda: fine_stage_train.fine_stage_train(*args, **kwargs)  # noqa: E731
+    got = on_route(fine_stage_train.NAME, call)
+    ref = fine_stage_train.fine_stage_train_plain(*args, **kwargs)
+    check_bf16_outputs(fine_stage_train.NAME + " loss", [got[0]], [ref[0]])
+    named = lambda r: {**r[1], "g_dens_c": r[2][0], "g_col_c": r[2][1]}  # noqa: E731
+    err = check_bf16_grads(fine_stage_train.NAME, named(got), named(ref))
+    x_f, d_f = args[1], args[2]
+    out[fine_stage_train.NAME].update(bf16_row(
+        fine_stage_train.NAME, out[fine_stage_train.NAME]["bf16_launches"], err,
+        cuda_ms(call, iters=5),
+        cuda_ms(lambda: fine_stage_train.fine_stage_train_plain(*args, **kwargs), iters=3),
+        train_step_flops(cfg, *x_f.shape[:2]),
+        tensor_bytes(x_f, d_f[:, 0], *args[3:10], *got[2]) + 2 * weight_bytes + 4,
+        x_f.shape[0] * x_f.shape[1]))
+
+
+def bf16_phase(device, cfg: ClassicNeRFConfig, bank, f32_image, f32_frame_ms: float,
+               f32_step_ms: dict, card: str) -> dict:
+    """Phase 15: the classic main path in compute_dtype bfloat16: (b) one
+    400x400 frame, (c) the reuse and coarse-only train steps, then (a) each
+    of its five kernels against its plain bf16 version on those paths'
+    shapes, and (d) K2 at a latent width on its SIMT tile.  Returns the
+    five kernels' bf16 row entries."""
+    bf = dict(compute_dtype="bfloat16")
+    model = make_model(True, device, **bf).eval().requires_grad_(False)
+    pose = spherical_poses(1, radius=4.0, device=device)
+    out = {}
+
+    # b. One 400x400 frame at 64 + 128 samples.
+    n_tiles = -(-IMAGE * IMAGE // RENDER.rays_per_tile)
+
+    def render():
+        return model.render_image(*pose, IMAGE, IMAGE, FOCAL, RENDER)
+
+    render()  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    t0 = time.perf_counter()
+    image = render()
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    frame_launches = dict(_build.launch_counts)
+    print(f"bf16 frame through the kernels: {frame_ms:.1f} ms; launches {frame_launches}",
+          flush=True)
+    check(frame_launches == {classic_mlp.NAME: n_tiles, union_eval.NAME: n_tiles},
+          f"bf16 frame: K1-fwd and K4 launched once per tile ({n_tiles} tiles), nothing else")
+    check_policies("bf16 frame", frame_launches, dict(_build.policy_counts), "tc_bf16")
+    with plain_versions():
+        plain_image = render()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(image).all()) and float(image.std()) > 1e-3,
+          f"bf16 frame is finite and not flat (std {float(image.std()):.4f})")
+    err = rel_l2([image], [plain_image])
+    print(f"bf16 frame against the plain bf16 frame: relative L2 {err:.3e}, max pixel difference "
+          f"{float((image - plain_image).abs().max()):.3e} (bound {BF16['fwd_rel_l2']} in "
+          f"relative L2)", flush=True)
+    check(err <= BF16["fwd_rel_l2"], "bf16 frame matches the plain bf16 frame")
+    f32_diff = (image - f32_image).abs()
+    print(f"bf16 frame against phase 3's float32 kernel frame: max pixel difference "
+          f"{float(f32_diff.max()):.3e}, relative L2 {rel_l2([image], [f32_image]):.3e}",
+          flush=True)
+    check(bool((f32_diff <= BF16["f32_atol"] + BF16["f32_rtol"] * f32_image.abs()).all()),
+          f"bf16 frame within rtol {BF16['f32_rtol']}, atol {BF16['f32_atol']} of the float32 "
+          f"frame at every pixel (the JAX package's bf16 bound)")
+    print(f"bf16 frame: {frame_ms:.1f} ms (float32 kernels {f32_frame_ms:.1f} ms); {card}",
+          flush=True)
+
+    # c. One step of each against the plain bf16 step and the float32
+    # kernel step, then the timed runs (their first calls recorded).
+    store = {}
+    for name, render_cfg, n_rays, expected, key in (
+            ("bf16 reuse step 2048x(64+128)", TRAIN_RENDER, TRAIN_RAYS,
+             {classic_mlp.NAME: 1, classic_mlp.BWD_NAME: 1, fine_stage_train.NAME: 1}, "reuse"),
+            ("bf16 coarse-only step 4096x64", COARSE_RENDER, COARSE_RAYS,
+             {train_grads.NAME: 1}, "coarse")):
+        step_model = make_model(True, device, **bf)
+        gen = torch.Generator(device=device).manual_seed(7)
+        batch = bank.sample_batch(gen, n_rays)
+        draws = sampling.draw_step(gen, render_cfg, n_rays, device)
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        _build.policy_counts.clear()
+        loss, grads, _ = make_fused_loss_and_grads(step_model, render_cfg)(batch, draws)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        check(launches == expected, f"{name}: launched {expected} and nothing else")
+        check_policies(name, launches, dict(_build.policy_counts), "tc_bf16")
+        ref_loss, ref = bf16_step_reference(step_model, render_cfg, batch, draws)
+        loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        print(f"{name}: loss {float(loss):.7g} vs plain bf16 {float(ref_loss):.7g} (rel err "
+              f"{loss_err:.3e}, tolerance {BF16['loss_rtol']})", flush=True)
+        check(loss_err <= BF16["loss_rtol"], f"{name}: the loss matches the plain bf16 step's")
+        check_bf16_grads(name, grads, ref)
+        _, f32_grads, _ = make_fused_loss_and_grads(make_model(True, device), render_cfg)(
+            batch, draws)
+        a = torch.cat([grads[k].double().ravel() for k in f32_grads])
+        b = torch.cat([f32_grads[k].double().ravel() for k in f32_grads])
+        cosine = float(a @ b / (a.norm() * b.norm()))
+        print(f"{name}: gradients' cosine to the float32 kernel step's {cosine:.5f}", flush=True)
+        check(cosine > BF16["f32_cosine"],
+              f"{name}: gradients' cosine to float32 above {BF16['f32_cosine']}")
+        step_launches, ms = train_run(name, render_cfg, n_rays, bank, device, expected, store,
+                                      policy="tc_bf16", **bf)
+        print(f"{name}: {ms:.2f} ms/step = {n_rays / ms * 1e3:.0f} rays/s (float32 kernels "
+              f"{f32_step_ms[key]:.2f} ms/step = {n_rays / f32_step_ms[key] * 1e3:.0f} rays/s); "
+              f"{card}", flush=True)
+        for k, n in step_launches.items():
+            out[k] = {"bf16_launches": n}
+
+    # a. The five kernels against their plain versions.
+    with torch.no_grad():
+        bf16_kernels(device, cfg, model, pose, store, frame_launches, out)
+
+    # d. K2 at the latent width 100 + 36 (density_inputs 5): its SIMT
+    # fwd_store tile, the tensor-core bwd_rows and wgrad.
+    lc = dict(density_inputs=5)
+    lpacked = classic_mlp.pack_classic_params(
+        make_model(True, device, **lc, **bf).mlp.requires_grad_(False))
+    lcfg = ClassicNeRFConfig(**lc)
+    gen = torch.Generator(device=device).manual_seed(15)
+    n_rays, s = 1024, 64
+    d_ray = torch.rand((n_rays, 1, lcfg.d_encoding_dim), generator=gen, device=device) * 2 - 1
+    largs = ((torch.rand((n_rays, s, lcfg.x_encoding_dim), generator=gen, device=device) * 2
+              - 1).bfloat16(),
+             d_ray.bfloat16().expand(n_rays, s, -1).contiguous(),
+             torch.full((n_rays, s, 1), 0.03, device=device),
+             torch.rand((n_rays, s), generator=gen, device=device) * 2 - 1,
+             torch.rand((n_rays, 3), generator=gen, device=device))
+    with torch.no_grad():
+        _build.policy_counts.clear()
+        got = train_grads.classic_train_grads(lpacked, *largs, s)
+        torch.cuda.synchronize()
+        what = f"bf16 K2 at encodings {lcfg.x_encoding_dim} + {lcfg.d_encoding_dim}"
+        print(f"{what}: tile policies {dict(_build.policy_counts)}", flush=True)
+        check(dict(_build.policy_counts) == {(train_grads.NAME, "simt_bf16"): 1},
+              f"{what} ran its SIMT fwd_store tile (simt_bf16)")
+        ref = train_grads.classic_train_grads_plain(lpacked, *largs, s)
+        check_bf16_outputs(what + " loss", [got[0]], [ref[0]])
+        check_bf16_grads(what, got[1], ref[1])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -1647,20 +1985,22 @@ def main() -> int:
         _build.load(name)
 
     cfg = ClassicNeRFConfig(normalize_position=6.0)
-    rows = serving(device, classic_flops_per_point(cfg))
-    train_rows, bank, reuse_ms = training(device, cfg)
+    rows, f32_image, f32_frame_ms = serving(device, classic_flops_per_point(cfg))
+    train_rows, bank, step_ms = training(device, cfg)
     rows.update(train_rows)
     rows.update(mip_phases(device))
     rows.update(point_mlp_phase(device, cfg, bank))
-    rows.update(mega_phase(device, cfg, bank, reuse_ms))
+    rows.update(mega_phase(device, cfg, bank, step_ms["reuse"]))
     latent_phase(device, bank)
     wide_forward_phase(device)
     cli_launches = entry_points_phase(device, card)
+    bf16 = bf16_phase(device, cfg, bank, f32_image, f32_frame_ms, step_ms, card)
 
-    # 15. Result lines.
+    # 16. Result lines.
     kernels = [kernel_row(name, launches, **row) for name, (launches, row) in rows.items()]
     for row in kernels:
         row["cli_launches"] = cli_launches.get(row["name"], 0)
+        row.update(bf16.get(row["name"], dict.fromkeys(BF16_ROW_KEYS)))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

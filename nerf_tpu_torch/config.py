@@ -57,9 +57,10 @@ class ClassicNeRFConfig:
     # fine stage).  The name is kept from the JAX package.  Given CPU
     # tensors the kernel wrappers run their plain PyTorch versions.
     use_pallas: bool = False
-    # Matmul input dtype for the point MLP ("float32" or "bfloat16").  The
-    # port's kernels take float32 only and raise NotImplementedError for
-    # "bfloat16".
+    # Matmul input dtype for the point MLP ("float32" or "bfloat16").  With
+    # use_pallas, "bfloat16" runs the classic main path's bf16 kernels
+    # (K1-fwd, K1-bwd, K2, K3, K4: bf16 operands, float32 sums and
+    # parameters); K8 and K9 raise NotImplementedError for it.
     compute_dtype: str = "float32"
 
     @property
@@ -103,7 +104,8 @@ class MipNeRFConfig:
     # train step).  The name is kept from the JAX package.  Given CPU
     # tensors the kernel wrappers run their plain PyTorch versions.
     use_pallas: bool = False
-    # Matmul input dtype ("float32" or "bfloat16"); see ClassicNeRFConfig.
+    # Matmul input dtype ("float32" or "bfloat16"); the mip kernels (K5-K7)
+    # raise NotImplementedError for "bfloat16" (the next bf16 slice).
     compute_dtype: str = "float32"
 
     @property

@@ -34,9 +34,18 @@
 // and one weight per column (32 consecutive floats per warp, no bank
 // conflicts), then runs 8 x (H/32) x 4 fp32 FMAs.  Plain fp32 FMA, no TF32:
 // the bound is the card's fp32 rate.
+//
+// compute_dtype="bfloat16" (kBf16, the JAX package's _dot with a bf16
+// dtype): every product's operands, the heads' included, are rounded to
+// bfloat16 (round to nearest even) and multiplied and summed in float32;
+// the encodings arrive as bfloat16 (load_tile widens them exactly).  The
+// LayerNorms, biases and everything else stay float32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace nerf_mlp {
 
@@ -66,6 +75,28 @@ struct Weights {
 
 __host__ __device__ inline int round_up4(int n) { return (n + 3) & ~3; }
 
+// A product's operand under compute_dtype: as is (float32), or rounded to
+// bfloat16 and widened back (exact in float32).
+template <bool kBf16>
+__device__ __forceinline__ float operand(float x) {
+  if constexpr (kBf16)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+// The encodings' type in device memory under compute_dtype.
+template <bool kBf16>
+using enc_t = std::conditional_t<kBf16, __nv_bfloat16, float>;
+
+// One encoding value from global memory as float32 (bfloat16 widened
+// exactly: its bits are the top half of the float's).
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __uint_as_float(static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
+                         << 16);
+}
+
 // Floats of shared memory the MLP tile uses besides the activation buffer:
 // the weight chunk and the zero-padded x / d input tiles.
 template <int H>
@@ -88,21 +119,23 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // dst[r][k] = src[(row0 + r) / div][k] for r < nvalid and k < width, else 0;
 // dst rows are round_up4(width) floats.  div > 1 broadcasts per-ray rows
-// to that ray's samples.
-__device__ inline void load_tile(float* dst, const float* __restrict__ src,
+// to that ray's samples.  src is float32 or bfloat16.
+template <class T>
+__device__ inline void load_tile(float* dst, const T* __restrict__ src,
                                  size_t row0, int nvalid, int width, int div) {
   const int ld = round_up4(width);
   for (int i = threadIdx.x; i < kTileRows * ld; i += kThreads) {
     const int r = i / ld, k = i % ld;
     dst[i] = (r < nvalid && k < width)
-                 ? __ldg(src + ((row0 + r) / div) * width + k)
+                 ? ldg_f32(src + ((row0 + r) / div) * width + k)
                  : 0.f;
   }
 }
 
 // acc += A[rows of this warp, k0:k0+kc4] @ wbuf[0:kc4, 0:H], wbuf the
-// staged weight chunk with row stride WLD.
-template <int H, int WLD>
+// staged weight chunk with row stride WLD; with kBf16 both operands
+// rounded to bfloat16.
+template <int H, int WLD, bool kBf16 = false>
 __device__ __forceinline__ void chunk_fma(float (&acc)[kRowsPerWarp][H / 32],
                                           const float* a_rows, int lda, int k0, int kc4,
                                           const float* wbuf) {
@@ -117,10 +150,11 @@ __device__ __forceinline__ void chunk_fma(float (&acc)[kRowsPerWarp][H / 32],
     for (int q = 0; q < 4; ++q) {
       float w[kCols];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) w[j] = wbuf[(kk + q) * WLD + lane + 32 * j];
+      for (int j = 0; j < kCols; ++j) w[j] = operand<kBf16>(wbuf[(kk + q) * WLD + lane + 32 * j]);
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float av = q == 0 ? a[r].x : q == 1 ? a[r].y : q == 2 ? a[r].z : a[r].w;
+        const float av =
+            operand<kBf16>(q == 0 ? a[r].x : q == 1 ? a[r].y : q == 2 ? a[r].z : a[r].w);
 #pragma unroll
         for (int j = 0; j < kCols; ++j) acc[r][j] = fmaf(av, w[j], acc[r][j]);
       }
@@ -139,8 +173,9 @@ __device__ __forceinline__ void cp_async16(float4* dst, const float4* src, bool 
 // acc += A[rows of this warp, 0:K] @ W[0:K, 0:H].  A is shared memory with
 // row stride lda (a multiple of 4, columns K..round_up4(K) zero); W is
 // global, row-major [K, H], 16-byte aligned.  wbuf holds kChunk x H floats:
-// two stages of kStage rows.  Ends with a block-wide barrier.
-template <int H>
+// two stages of kStage rows.  kBf16: compute_dtype bfloat16.  Ends with a
+// block-wide barrier.
+template <int H, bool kBf16 = false>
 __device__ __forceinline__ void gemm_acc(float (&acc)[kRowsPerWarp][H / 32],
                                          const float* A, int lda, int K,
                                          const float* __restrict__ W,
@@ -169,8 +204,8 @@ __device__ __forceinline__ void gemm_acc(float (&acc)[kRowsPerWarp][H / 32],
     __syncthreads();
     if (st + 1 < stages) copy_stage(st + 1);
     const int k0 = st * kStage;
-    chunk_fma<H, H>(acc, a_rows, lda, k0, round_up4(min(kStage, K - k0)),
-                    wbuf + (st & 1) * kStage * H);
+    chunk_fma<H, H, kBf16>(acc, a_rows, lda, k0, round_up4(min(kStage, K - k0)),
+                           wbuf + (st & 1) * kStage * H);
   }
   __syncthreads();
 }
@@ -290,8 +325,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[kRowsPerWarp][H / 
 }
 
 // out[row * ld + col0 + i] = h[row] . W[:, i] + bias[i] for i < n and the
-// tile's rows below nvalid; W is row-major [H, n].
-template <int H>
+// tile's rows below nvalid; W is row-major [H, n].  kBf16: h and W rounded
+// to bfloat16 (the JAX package's _dot on the heads).
+template <int H, bool kBf16 = false>
 __device__ __forceinline__ void head(const float (&h)[kRowsPerWarp][H / 32],
                                      const float* __restrict__ W,
                                      const float* __restrict__ bias, int n,
@@ -301,13 +337,13 @@ __device__ __forceinline__ void head(const float (&h)[kRowsPerWarp][H / 32],
   for (int i = 0; i < n; ++i) {
     float wj[kCols];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) wj[j] = __ldg(W + (lane + 32 * j) * n + i);
+    for (int j = 0; j < kCols; ++j) wj[j] = operand<kBf16>(__ldg(W + (lane + 32 * j) * n + i));
     const float bi = __ldg(bias + i);
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       float s = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s = fmaf(h[r][j], wj[j], s);
+      for (int j = 0; j < kCols; ++j) s = fmaf(operand<kBf16>(h[r][j]), wj[j], s);
       s = warp_sum(s);
       const int row = warp * kRowsPerWarp + r;
       if (lane == 0 && row < nvalid) out[row * ld + col0 + i] = s + bi;
@@ -320,7 +356,8 @@ __device__ __forceinline__ void head(const float (&h)[kRowsPerWarp][H / 32],
 // (global or shared memory, row stride ld).  act is the [64][H] activation
 // buffer, wbuf the [kChunk][H] weight chunk.  With kSave every layer's
 // xhat and statistics go to save (the training kernels' backward input).
-template <int H, bool kSave = false>
+// kBf16: compute_dtype bfloat16 (every product and head).
+template <int H, bool kSave = false, bool kBf16 = false>
 __device__ void mlp_tile(const Weights& w, const float* xs, const float* ds,
                          float* act, float* wbuf, float* out, int ld, int nvalid,
                          const Save* save = nullptr) {
@@ -329,27 +366,27 @@ __device__ void mlp_tile(const Weights& w, const float* xs, const float* ds,
   float acc[kRowsPerWarp][H / 32];
 
   zero<H>(acc);
-  gemm_acc<H>(acc, xs, xld, w.xe, w.w0, wbuf);
+  gemm_acc<H, kBf16>(acc, xs, xld, w.xe, w.w0, wbuf);
   layer_epilogue<H, kSave>(acc, w.b, w.g, w.beta, save, 0);
   store_rows<H>(acc, act);
   for (int i = 1; i < 8; ++i) {
     zero<H>(acc);
-    gemm_acc<H>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
-    if (i == 4) gemm_acc<H>(acc, xs, xld, w.xe, w.wx, wbuf);
+    gemm_acc<H, kBf16>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
+    if (i == 4) gemm_acc<H, kBf16>(acc, xs, xld, w.xe, w.wx, wbuf);
     layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
     store_rows<H>(acc, act);
   }
-  head<H>(acc, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
+  head<H, kBf16>(acc, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
   if (w.wd != nullptr) {
     for (int i = 8; i < 10; ++i) {
       zero<H>(acc);
-      gemm_acc<H>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
-      if (i == 8) gemm_acc<H>(acc, ds, dld, w.de, w.wd, wbuf);
+      gemm_acc<H, kBf16>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
+      if (i == 8) gemm_acc<H, kBf16>(acc, ds, dld, w.de, w.wd, wbuf);
       layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
       if (i == 8) store_rows<H>(acc, act);
     }
   }
-  head<H>(acc, w.w_col, w.b_col, w.c, out, ld, 1, nvalid);
+  head<H, kBf16>(acc, w.w_col, w.b_col, w.c, out, ld, 1, nvalid);
 }
 
 // Dispatch a templated launcher on the hidden width; returns

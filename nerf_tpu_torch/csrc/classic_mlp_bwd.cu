@@ -28,6 +28,15 @@
 // wide for its tile); with them, the float32 SIMT passes (SimtProducts),
 // whose bwd_rows also writes dx and dd.
 //
+// classic_mlp_bwd_bf16 is the same in compute_dtype bfloat16 (tc_mlp.cuh,
+// note 10): bf16 encodings, always the tensor-core passes
+// (TcProductsBf16), the encodings' cotangents too (bwd_rows'
+// tc_input_grad, written as bfloat16, the encodings' dtype), fwd_store in
+// the bf16-rounding SIMT pass where the encodings are too wide for its
+// tile.  Its bound at 131,072 rows: 0.501 ms of bf16 tensor-core
+// operations (FLOP / 989 TFLOP/s); the float32 chain (xhat and dpre,
+// 10,240 bytes a row written and read) takes 0.80 ms at 3.35 TB/s.
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "tc_mlp.cuh"
 
@@ -51,6 +60,20 @@ cudaError_t run(const Weights& w, const float* x, const float* d, const float* g
   return launch_mlp_backward<H>(w, x, d, 1, gout, P, s, dx, dd, grads, stream);
 }
 
+// compute_dtype bfloat16: x, d, dx and dd bfloat16, the tensor-core passes
+// whether or not the encodings' cotangents are asked for.
+template <int H>
+cudaError_t run_bf16(const Weights& w, const void* x, const void* d, const float* gout,
+                     void* dx, void* dd, float* grads, float* out, int P, const Scratch& s,
+                     cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  cudaError_t err = launch_fwd_store_with<H, TcProductsBf16>(
+      w, TileLoadT<T>{static_cast<const T*>(x), static_cast<const T*>(d), 1}, out, P, s, stream,
+      static_cast<size_t>(P), 0);
+  if (err != cudaSuccess) return err;
+  return launch_mlp_backward<H, TcProductsBf16>(w, x, d, 1, gout, P, s, dx, dd, grads, stream);
+}
+
 }  // namespace
 
 extern "C" int classic_mlp_bwd(const float* x, const float* d, const float* gout, float* dx,
@@ -68,6 +91,29 @@ extern "C" int classic_mlp_bwd(const float* x, const float* d, const float* gout
   const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) static_cast<int>(run<H>(w, x, d, gout, dx, dd, grads, out, P, s, st))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
+}
+
+// The same in compute_dtype bfloat16: x, d, dx, dd and both images are
+// bfloat16.
+extern "C" int classic_mlp_bwd_bf16(const void* x, const void* d, const float* gout, void* dx,
+                                    void* dd, float* grads, int P, int xe, int de, int hidden,
+                                    int c, const float* w0, const float* wx, const float* wd,
+                                    const float* whh, const float* b, const float* g,
+                                    const float* beta, const float* w_dens,
+                                    const float* b_dens, const float* w_col,
+                                    const float* b_col, float* xhat, float* stats, float* dpre,
+                                    float* wpart, float* tpart, float* tmp, float* wt,
+                                    float* out, int splits, const void* tc_fwd,
+                                    const void* tc_bwd, void* stream) {
+  if (c > kMaxColors) return cudaErrorInvalidValue;
+  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
+                  xe, wd ? de : 0, c};
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+                  static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H) static_cast<int>(run_bf16<H>(w, x, d, gout, dx, dd, grads, out, P, s, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }

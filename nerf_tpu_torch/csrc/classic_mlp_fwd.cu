@@ -23,8 +23,33 @@
 // made from the shapes before any launch (tc_mlp.cuh's launch_fwd, which
 // K8-fwd shares with its own loader).
 //
+// classic_mlp_fwd_bf16 is the same kernel in compute_dtype bfloat16
+// (tc_mlp.cuh, note 10): bf16 encodings and weight images, every product
+// and both heads on bf16 operands with float32 sums, float32 outputs; the
+// same tiles and width rule.  Its bound at 262,144 rows: 0.334 ms of bf16
+// tensor-core operations (FLOP / 989 TFLOP/s), against 192 bytes of
+// encodings and 16 of output a row (0.016 ms at 3.35 TB/s).
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "tc_mlp.cuh"
+
+namespace {
+
+using namespace nerf_mlp;
+
+template <bool kBf16>
+int run(const void* x, const void* d, float* out, int P, int hidden, const Weights& w,
+        const void* tc_fwd, void* stream) {
+  using T = enc_t<kBf16>;
+  const TileLoadT<T> load{static_cast<const T*>(x), static_cast<const T*>(d), 1};
+  const float* img = static_cast<const float*>(tc_fwd);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H) static_cast<int>(launch_fwd<H, TileLoadT<T>, kBf16>(w, load, out, P, img, s))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
+}
+
+}  // namespace
 
 extern "C" int classic_mlp_fwd(const float* x, const float* d, float* out, int P, int xe,
                                int de, int hidden, int c, const float* w0, const float* wx,
@@ -32,13 +57,21 @@ extern "C" int classic_mlp_fwd(const float* x, const float* d, float* out, int P
                                const float* g, const float* beta, const float* w_dens,
                                const float* b_dens, const float* w_col, const float* b_col,
                                const float* tc_fwd, void* stream) {
-  using namespace nerf_mlp;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) static_cast<int>(launch_fwd<H>(w, TileLoad{x, d, 1}, out, P, tc_fwd, s))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  return run<false>(x, d, out, P, hidden, w, tc_fwd, stream);
+}
+
+// The same in compute_dtype bfloat16: x, d and tc_fwd are bfloat16.
+extern "C" int classic_mlp_fwd_bf16(const void* x, const void* d, float* out, int P, int xe,
+                                    int de, int hidden, int c, const float* w0, const float* wx,
+                                    const float* wd, const float* whh, const float* b,
+                                    const float* g, const float* beta, const float* w_dens,
+                                    const float* b_dens, const float* w_col,
+                                    const float* b_col, const void* tc_fwd, void* stream) {
+  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
+                  xe, wd ? de : 0, c};
+  return run<true>(x, d, out, P, hidden, w, tc_fwd, stream);
 }
 
 // The plan K1-fwd follows for these widths (de 0 without the view branch):
@@ -46,6 +79,5 @@ extern "C" int classic_mlp_fwd(const float* x, const float* d, float* out, int P
 // float32 SIMT, 2 neither fits), tensor-core bytes, SIMT bytes, the
 // device's limit].
 extern "C" int classic_mlp_fwd_plan(int xe, int de, int hidden, long long* out) {
-  using namespace nerf_mlp;
   return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

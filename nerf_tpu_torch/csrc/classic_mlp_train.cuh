@@ -44,6 +44,11 @@
 // The flat gradient the passes produce is the packed weights' order
 // (ops/kernels/classic_mlp.py): w0, wx, wd, whh | b, g, beta, w_dens,
 // w_col, b_dens, b_col.
+//
+// compute_dtype="bfloat16" runs TcProductsT<true> (tc_mlp.cuh): the
+// encodings are read as bfloat16 and every product's operands rounded to
+// it, the heads' (head_bwd<H, true>) included; the chain, the gradients and
+// every sum stay float32.
 #pragma once
 
 #include "classic_mlp.cuh"
@@ -102,10 +107,12 @@ __global__ void transpose_slabs_kernel(const float* __restrict__ in, int H,
 // ---------------------------------------------------------------------------
 
 // The encodings of a tile read from global memory: x [P][xe] and d, whose
-// row r / d_div serves row r (d_div > 1: per-ray view encodings).
-struct TileLoad {
-  const float* x;
-  const float* d;
+// row r / d_div serves row r (d_div > 1: per-ray view encodings); T is
+// float or __nv_bfloat16.
+template <class T>
+struct TileLoadT {
+  const T* x;
+  const T* d;
   int d_div;
   __device__ void operator()(const Weights& w, float* xs, float* ds, size_t row0,
                              int nvalid) const {
@@ -113,6 +120,7 @@ struct TileLoad {
     if (w.wd != nullptr) load_tile(ds, d, row0, nvalid, w.de, d_div);
   }
 };
+using TileLoad = TileLoadT<float>;
 
 // The stored-chain forward of the P rows of a call: tile row r of block b
 // is row 64 b + r of the call and row base + 64 b + r of the chain, whose
@@ -120,8 +128,8 @@ struct TileLoad {
 // fill one chain, as K9's coarse and fine stages do).  load(w, xs, ds,
 // row0, nvalid) fills the tile's zero-padded encoding tiles (load_tile's
 // layout): TileLoad reads them from global memory, the K8 and K9 loaders
-// compute them.
-template <int H, class Load>
+// compute them.  kBf16: compute_dtype bfloat16.
+template <int H, class Load, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 2)
     fwd_store_kernel(Weights w, Load load, float* __restrict__ out, int P, float* xhat,
                      float* stats, size_t stride, size_t base) {
@@ -135,7 +143,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   load(w, xs, ds, row0, nvalid);
   __syncthreads();
   const Save save{xhat, stats, stride, base + row0, nvalid};
-  mlp_tile<H, true>(w, xs, ds, act, wbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid, &save);
+  mlp_tile<H, true, kBf16>(w, xs, ds, act, wbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid,
+                           &save);
 }
 
 // ---------------------------------------------------------------------------
@@ -164,8 +173,9 @@ __device__ void tile_colsum(const float (&s)[H / 32], float* red, float* out, in
 // the layer output h = xhat * g + beta (xh points at the layer's row row0;
 // rows past nvalid count as 0).  Backward: acc += gs[:, col0:col0+n] @
 // W^T, and the tile's column sums of h[r][j] * gs[r][col0 + q] into
-// part[j * n + q] (the head's dW).
-template <int H>
+// part[j * n + q] (the head's dW).  kBf16: h, W and gs rounded to
+// bfloat16 in both products (the JAX package's _dot_t and _dot_tn).
+template <int H, bool kBf16 = false>
 __device__ void head_bwd(float (&acc)[kRowsPerWarp][H / 32], const float* gs, int ldo,
                          int col0, int n, const float* __restrict__ W, const float* xh,
                          const float* __restrict__ g, const float* __restrict__ beta,
@@ -186,18 +196,18 @@ __device__ void head_bwd(float (&acc)[kRowsPerWarp][H / 32], const float* gs, in
   for (int j = 0; j < kCols; ++j) {
     const float gj = __ldg(g + lane + 32 * j), bj = __ldg(beta + lane + 32 * j);
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) h[r][j] = fmaf(h[r][j], gj, bj);
+    for (int r = 0; r < kRowsPerWarp; ++r) h[r][j] = operand<kBf16>(fmaf(h[r][j], gj, bj));
   }
   for (int q = 0; q < n; ++q) {
     float wq[kCols], s[kCols];
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-      wq[j] = __ldg(W + (lane + 32 * j) * n + q);
+      wq[j] = operand<kBf16>(__ldg(W + (lane + 32 * j) * n + q));
       s[j] = 0.f;
     }
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float gv = gs[(warp * kRowsPerWarp + r) * ldo + col0 + q];
+      const float gv = operand<kBf16>(gs[(warp * kRowsPerWarp + r) * ldo + col0 + q]);
 #pragma unroll
       for (int j = 0; j < kCols; ++j) {
         acc[r][j] = fmaf(gv, wq[j], acc[r][j]);
@@ -426,6 +436,9 @@ struct WProd {
   // split reads row p / div, point p >= split row (p - split) / div2 (K9's
   // per-ray view encodings under its coarse-then-fine rows).
   int split, div2;
+  // The raw encoding a is bfloat16 (compute_dtype bfloat16; read by
+  // wgrad_tc_kernel<true> only).
+  int a_bf16;
 };
 
 struct WProds {
@@ -577,24 +590,28 @@ __host__ inline size_t fwd_store_smem(int xe, int de) {
 // A policy launches pass 1 (fwd_store), pass 2 (bwd_rows) and pass 3
 // (wgrad); launch_fwd_store_with and launch_mlp_backward do the rest.
 struct SimtProducts {
-  template <int H, class Load>
+  static constexpr bool kBf16 = false;  // the operands' type: float32 only
+
+  // kRoundBf16: TcProductsT<true>'s fwd_store where its tile does not fit
+  // (operands rounded to bfloat16).
+  template <int H, class Load, bool kRoundBf16 = false>
   static cudaError_t fwd_store(const Weights& w, const Load& load, float* out, int P,
                                const Scratch& s, cudaStream_t stream, size_t stride,
                                size_t base) {
     const size_t smem = fwd_store_smem<H>(w.xe, w.de);
-    cudaError_t err = cudaFuncSetAttribute(fwd_store_kernel<H, Load>,
+    cudaError_t err = cudaFuncSetAttribute(fwd_store_kernel<H, Load, kRoundBf16>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
-    fwd_store_kernel<H, Load><<<tiles, kThreads, smem, stream>>>(w, load, out, P, s.xhat,
-                                                                  s.stats, stride, base);
+    fwd_store_kernel<H, Load, kRoundBf16><<<tiles, kThreads, smem, stream>>>(
+        w, load, out, P, s.xhat, s.stats, stride, base);
     return cudaGetLastError();
   }
 
   template <int H>
   static cudaError_t bwd_rows(const Weights& w, const float* gout, int P, const Scratch& s,
-                              float* dx, float* dd, cudaStream_t stream) {
+                              void* dx, void* dd, cudaStream_t stream) {
     const int L = num_layers(w);
     transpose_slabs_kernel<<<dim3(H / 32, H / 32, L - 1), dim3(32, 8), 0, stream>>>(w.whh, H,
                                                                                     s.wt);
@@ -606,7 +623,9 @@ struct SimtProducts {
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
     bwd_rows_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats, s.wt,
-                                                           s.dpre, s.tpart, dx, dd);
+                                                           s.dpre, s.tpart,
+                                                           static_cast<float*>(dx),
+                                                           static_cast<float*>(dd));
     return cudaGetLastError();
   }
 
@@ -637,13 +656,18 @@ cudaError_t launch_fwd_store(const Weights& w, const float* x, const float* d, i
 
 // Passes 2-4 from the output cotangents gout: grads (the flat gradient,
 // wgrad_floats + tile_floats) and, when not null, dx and dd.  x, d and
-// d_div are the forward's encoded inputs; with d_split > 0, d's rows serve
-// points p >= d_split as row (p - d_split) / d_div2 (WProd::split).
+// d_div are the forward's encoded inputs (bfloat16 where Products::kBf16,
+// as dx and dd then are); with d_split > 0, d's rows serve points p >=
+// d_split as row (p - d_split) / d_div2 (WProd::split).
 template <int H, class Products = SimtProducts>
-cudaError_t launch_mlp_backward(const Weights& w, const float* x, const float* d, int d_div,
-                                const float* gout, int P, const Scratch& s, float* dx,
-                                float* dd, float* grads, cudaStream_t stream,
+cudaError_t launch_mlp_backward(const Weights& w, const void* xv, const void* dv, int d_div,
+                                const float* gout, int P, const Scratch& s, void* dx,
+                                void* dd, float* grads, cudaStream_t stream,
                                 int d_split = 0, int d_div2 = 1) {
+  // The raw encodings' pointers as WProd holds them (a_bf16 marks bfloat16).
+  const float* x = static_cast<const float*>(xv);
+  const float* d = static_cast<const float*>(dv);
+  constexpr int enc_bf16 = Products::kBf16 ? 1 : 0;
   const int L = num_layers(w);
   cudaError_t err = Products::template bwd_rows<H>(w, gout, P, s, dx, dd, stream);
   if (err != cudaSuccess) return err;
@@ -656,13 +680,15 @@ cudaError_t launch_mlp_backward(const Weights& w, const float* x, const float* d
   int n = 0;
   size_t off = 0;
   auto dpre = [&](int layer) { return s.dpre + layer * PP * H; };
-  prods.p[n++] = WProd{x, nullptr, nullptr, dpre(0), w.xe, w.xe, H, 1, 0, off, tx, tn};
+  prods.p[n++] =
+      WProd{x, nullptr, nullptr, dpre(0), w.xe, w.xe, H, 1, 0, off, tx, tn, 0, 1, enc_bf16};
   off += static_cast<size_t>(w.xe) * H;
-  prods.p[n++] = WProd{x, nullptr, nullptr, dpre(4), w.xe, w.xe, H, 1, 0, off, tx, tn};
+  prods.p[n++] =
+      WProd{x, nullptr, nullptr, dpre(4), w.xe, w.xe, H, 1, 0, off, tx, tn, 0, 1, enc_bf16};
   off += static_cast<size_t>(w.xe) * H;
   if (w.wd != nullptr) {
     prods.p[n++] = WProd{d, nullptr, nullptr, dpre(8), w.de, w.de, H, d_div, 0, off, td, tn,
-                         d_split, d_div2};
+                         d_split, d_div2, enc_bf16};
     off += static_cast<size_t>(w.de) * H;
   }
   for (int k = 0; k < L - 1; ++k) {

@@ -29,6 +29,14 @@
 // cotangents back to the coarse slots and the fine rows
 // (union_train.cuh, shared with K9).
 //
+// fine_stage_train_bf16 is the same in compute_dtype bfloat16 (tc_mlp.cuh,
+// note 10: TcProductsBf16, bf16 fine and per-ray view encodings read from
+// device memory, the union pass, loss, gradients and coarse cotangents
+// float32).  Its bound at 2048 x 128: 1.003 ms of bf16 tensor-core
+// operations (FLOP / 989 TFLOP/s) against 3.2 ms of bytes, the float32
+// chain (xhat and dpre, 10,240 bytes a row written once and read once) at
+// 3.35 TB/s.
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "tc_mlp.cuh"
 #include "union_train.cuh"
@@ -37,16 +45,19 @@ namespace {
 
 using namespace nerf_mlp;
 
-template <int H>
-cudaError_t run(const Weights& w, const float* xf, const float* d, const float* t_c,
+template <int H, bool kBf16>
+cudaError_t run(const Weights& w, const void* xf, const void* d, const float* t_c,
                 const float* t_f, const float* dens_c, const float* col_c, const float* dnorm,
                 const float* noise_f, const float* pix, int R, int Sc, int Sf, int white,
                 float g_scale, float loss_scale, float* out, float* gout, float* ray_loss,
                 float* loss, float* grads, float* g_dens_c, float* g_col_c, const Scratch& s,
                 cudaStream_t stream) {
+  using T = enc_t<kBf16>;
+  using Products = TcProductsT<kBf16>;
   const int P = R * Sf;
-  cudaError_t err = launch_fwd_store_with<H, TcProducts>(w, TileLoad{xf, d, Sf}, out, P, s,
-                                                        stream, static_cast<size_t>(P), 0);
+  cudaError_t err = launch_fwd_store_with<H, Products>(
+      w, TileLoadT<T>{static_cast<const T*>(xf), static_cast<const T*>(d), Sf}, out, P, s,
+      stream, static_cast<size_t>(P), 0);
   if (err != cudaSuccess) return err;
   const size_t smem = union_composite_smem(Sc, Sf);
   err = cudaFuncSetAttribute(union_composite_kernel,
@@ -58,8 +69,34 @@ cudaError_t run(const Weights& w, const float* xf, const float* d, const float* 
       dnorm, pix, R, Sc, Sf, w.c, white, g_scale, loss_scale, gout, ray_loss);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = colsum(ray_loss, R, 1, loss, s.tmp, stream)) != cudaSuccess) return err;
-  return launch_mlp_backward<H, TcProducts>(w, xf, d, Sf, gout, P, s, nullptr, nullptr, grads,
-                                           stream);
+  return launch_mlp_backward<H, Products>(w, xf, d, Sf, gout, P, s, nullptr, nullptr, grads,
+                                         stream);
+}
+
+template <bool kBf16>
+int entry(const void* xf, const void* d, const float* t_c, const float* t_f,
+          const float* dens_c, const float* col_c, const float* dnorm, const float* noise_f,
+          const float* pix, float* loss, float* grads, float* g_dens_c, float* g_col_c, int R,
+          int Sc, int Sf, int xe, int de, int hidden, int c, int white, float loss_weight,
+          const float* w0, const float* wx, const float* wd, const float* whh, const float* b,
+          const float* g, const float* beta, const float* w_dens, const float* b_dens,
+          const float* w_col, const float* b_col, float* xhat, float* stats, float* dpre,
+          float* wpart, float* tpart, float* tmp, float* wt, float* out, float* gout,
+          float* ray_loss, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
+  if (c > kMaxColors || c < 1) return cudaErrorInvalidValue;
+  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
+                  xe, wd ? de : 0, c};
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+                  static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
+  const float g_scale = loss_weight * 2.f / (static_cast<float>(c) * R);
+  const float loss_scale = loss_weight / R;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H)                                                                    \
+  static_cast<int>(run<H, kBf16>(w, xf, d, t_c, t_f, dens_c, col_c, dnorm, noise_f, pix, R, \
+                                 Sc, Sf, white, g_scale, loss_scale, out, gout, ray_loss,  \
+                                 loss, grads, g_dens_c, g_col_c, s, st))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
 }
 
 }  // namespace
@@ -77,19 +114,28 @@ extern "C" int fine_stage_train(const float* xf, const float* d, const float* t_
                                 float* tpart, float* tmp, float* wt, float* out, float* gout,
                                 float* ray_loss, int splits, const float* tc_fwd,
                                 const float* tc_bwd, void* stream) {
-  if (c > kMaxColors || c < 1) return cudaErrorInvalidValue;
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
-                  xe, wd ? de : 0, c};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
-  const float g_scale = loss_weight * 2.f / (static_cast<float>(c) * R);
-  const float loss_scale = loss_weight / R;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H)                                                                        \
-  static_cast<int>(run<H>(w, xf, d, t_c, t_f, dens_c, col_c, dnorm, noise_f, pix, R, Sc, Sf, \
-                          white, g_scale, loss_scale, out, gout, ray_loss, loss, grads,      \
-                          g_dens_c, g_col_c, s, st))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  return entry<false>(xf, d, t_c, t_f, dens_c, col_c, dnorm, noise_f, pix, loss, grads,
+                      g_dens_c, g_col_c, R, Sc, Sf, xe, de, hidden, c, white, loss_weight, w0,
+                      wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre,
+                      wpart, tpart, tmp, wt, out, gout, ray_loss, splits, tc_fwd, tc_bwd,
+                      stream);
+}
+
+// The same in compute_dtype bfloat16: xf, d and both images are bfloat16.
+extern "C" int fine_stage_train_bf16(
+    const void* xf, const void* d, const float* t_c, const float* t_f, const float* dens_c,
+    const float* col_c, const float* dnorm, const float* noise_f, const float* pix, float* loss,
+    float* grads, float* g_dens_c, float* g_col_c, int R, int Sc, int Sf, int xe, int de,
+    int hidden, int c, int white, float loss_weight, const float* w0, const float* wx,
+    const float* wd, const float* whh, const float* b, const float* g, const float* beta,
+    const float* w_dens, const float* b_dens, const float* w_col, const float* b_col,
+    float* xhat, float* stats, float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
+    float* out, float* gout, float* ray_loss, int splits, const void* tc_fwd,
+    const void* tc_bwd, void* stream) {
+  return entry<true>(xf, d, t_c, t_f, dens_c, col_c, dnorm, noise_f, pix, loss, grads,
+                     g_dens_c, g_col_c, R, Sc, Sf, xe, de, hidden, c, white, loss_weight, w0, wx,
+                     wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre, wpart,
+                     tpart, tmp, wt, out, gout, ray_loss, splits, tc_fwd, tc_bwd, stream);
 }
 
 // The plan fine_stage_train's fwd_store follows for these widths (de 0

@@ -126,6 +126,44 @@
 //    past the SIMT tile's limit the call returns cudaErrorInvalidValue
 //    before launching (the wrappers raise first, from the same plan).
 //
+// 10. compute_dtype="bfloat16" (the template parameter kBf16 of tc_gemm,
+//    mlp_tile_tc, the passes' kernels and TcProductsT; K1-fwd, K1-bwd, K2,
+//    K3 and K4).  bf16 is the tensor cores' own operand type: each k-step of
+//    16 values is ONE wgmma.mma_async ... .f32.bf16.bf16 (k = 16; 3xTF32
+//    takes three of k = 8 for half the values), at 989 TFLOP/s dense.  The
+//    rounding points are the JAX package's _dot, _dot_t and _dot_tn: the A
+//    fragments are rounded from the float32 tiles as they are loaded
+//    (cvt.rn.bf16x2.f32: the activation tile, the encodings, dpre and
+//    wgrad's rebuilt h_in stay float32 in memory, note 2), the B operands
+//    come from bf16 images of the weights (tc_mlp.py::operand_image with
+//    dtype bfloat16) or, in wgrad, from dpre rounded as it is transposed;
+//    the SIMT heads round h, W and the output cotangents (head<H, true>,
+//    head_bwd<H, true>).  Everything else (LayerNorm and its statistics,
+//    biases, ReLU masks, compositing, losses, the chain, every sum of
+//    partials) is float32, as in JAX.  The encodings cross device memory
+//    as bf16 (load_tile, TileLoadT<__nv_bfloat16>, wgrad's bf16 raw rows).
+//    Layout: a bf16 chunk holds kTcKB = 32 k-values, 64 bytes a row: the
+//    byte layout of one TF32 hi block, so the 64-byte swizzle (16-byte group
+//    j of row n at j ^ ((n / 2) % 4)), the descriptor (SBO 512: 8 rows of
+//    64 B; LBO unused within the swizzle atom) and the k-step's 32-byte
+//    start offset (16 values of 2 bytes) are the TF32 ones re-derived for
+//    2-byte values.  K pads to a multiple of 32 (xe 60 -> 64, de 36 -> 64).
+//    The chunk buffers keep their TF32 size (a bf16 chunk fills half of
+//    one), so every tile's bytes and the width rule (note 9) are unchanged:
+//    with bf16 chunk buffers of half the size the tile would hold 64 KB
+//    more, xe' + de' <= 388, which is left for later.  wgrad keeps its
+//    32-point chunks (two k-steps, 64-byte rows, the same 64-byte swizzle)
+//    summed in float32 (note 7: bf16 products also accumulate with
+//    truncation).  bwd_rows keeps its own [in][out] images rather than
+//    reading the forward images transposed (bf16 wgmma has a transpose flag
+//    for a shared-memory B, but one image layout for both directions keeps
+//    the TF32 and bf16 passes alike).  Bounds at the full-width model
+//    (FLOP / 989 TFLOP/s): K1-fwd at 262,144 rows 0.334 ms, K4 at a
+//    4000-ray tile 0.653 ms, K1-bwd at 131,072 rows 0.501 ms, K2 at 4096 x
+//    64 and K3 at 2048 x 128 1.003 ms each; the training kernels' float32
+//    chain (xhat and dpre, written once and read once) then bounds them by
+//    bytes instead.
+//
 // The products are deterministic: a fixed order of wgmma per k-chunk, no
 // atomics; wgrad's partials go through colsum's fixed order as before.
 #pragma once
@@ -136,12 +174,28 @@
 
 namespace nerf_mlp {
 
-constexpr int kTcK = 16;                 // k-values per chunk of an operand image
+constexpr int kTcK = 16;                 // k-values per chunk of a TF32 operand image
+constexpr int kTcKB = 32;                // k-values per chunk of a bf16 operand image
 constexpr int kTcStages = 4;             // chunk buffers of the row-tile product
 constexpr unsigned kTf32Mask = 0xffffe000u;
 constexpr int kWgK = 32;                 // points per staged chunk of wgrad_tc_kernel
 
 __host__ __device__ inline int round_up_chunk(int n) { return (n + kTcK - 1) / kTcK * kTcK; }
+
+// The k-values of a chunk of the image type (note 10) and K rounded up to it.
+template <bool kBf16>
+__host__ __device__ constexpr int tc_chunk() { return kBf16 ? kTcKB : kTcK; }
+template <bool kBf16>
+__host__ __device__ inline int round_up_tc(int n) {
+  return (n + tc_chunk<kBf16>() - 1) / tc_chunk<kBf16>() * tc_chunk<kBf16>();
+}
+// Floats (4-byte words) of the operand image of a [n][k] B operand: hi and
+// lo in TF32, or one bf16 array.
+template <bool kBf16>
+__host__ __device__ inline size_t tc_image_floats(int n, int k) {
+  return kBf16 ? static_cast<size_t>(n) * round_up_tc<true>(k) / 2
+               : 2 * static_cast<size_t>(n) * round_up_chunk(k);
+}
 
 // The swizzled operands' 1024-byte alignment: the dynamic shared memory is
 // requested kSmemAlign bytes larger and its start rounded up.
@@ -167,6 +221,14 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   const uint32_t h = __float_as_uint(x) & kTf32Mask;
   hi = h;
   lo = __float_as_uint(x - __uint_as_float(h)) & kTf32Mask;
+}
+
+// Two floats rounded to bfloat16 (nearest even) as one register of a bf16
+// A fragment: lo in the low half (the smaller k), hi in the high half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 // Shared-memory matrix descriptors of K-major operands with a swizzle
@@ -301,21 +363,82 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// The bf16 products (note 10): m64nNk16 with A from registers (a0 = A[g][2q,
+// 2q + 1], a1 = A[g + 8][2q, 2q + 1], a2 = A[g][2q + 8, 2q + 9], a3 =
+// A[g + 8][2q + 8, 2q + 9], two bf16 a register, the smaller k low) and B
+// K-major from shared memory (transpose flag 0); d += A B in float32.
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // ---------------------------------------------------------------------------
 // The row-tile product: d += A[64][0:K] @ B^T for a B image [H][round_up_chunk(K)].
 // ---------------------------------------------------------------------------
 
 // The weights of a call as forward operand images (tc_mlp.py::tc_images):
 // w0, wx, wd ([H][round_up_chunk(width)] each, wd absent without the view
-// branch), then the hidden slabs [H][H], each 2 H round_up_chunk(K) floats.
+// branch), then the hidden slabs [H][H], each 2 H round_up_chunk(K) floats
+// (kBf16: bf16 images, tc_image_floats<true> each).
 struct TcImages {
   const float* w0;
   const float* wx;
   const float* wd;
   const float* whh;
+  template <bool kBf16 = false>
   __host__ static TcImages forward(const Weights& w, const float* base, int H) {
-    const size_t x = 2 * static_cast<size_t>(H) * round_up_chunk(w.xe);
-    const size_t d = w.wd != nullptr ? 2 * static_cast<size_t>(H) * round_up_chunk(w.de) : 0;
+    const size_t x = tc_image_floats<kBf16>(H, w.xe);
+    const size_t d = w.wd != nullptr ? tc_image_floats<kBf16>(H, w.de) : 0;
     return TcImages{base, base + x, base + 2 * x, base + 2 * x + d};
   }
 };
@@ -349,41 +472,49 @@ __device__ __forceinline__ void tc_zero(float (&d)[N / 4]) {
 // lockstep.  Every branch here is uniform and the fragments load
 // without branches: ptxas serializes all wgmma of a kernel whose wgmma
 // operands come from divergent code.  Starts (after the first copies) and
-// ends with a block-wide barrier.
-template <int N>
+// ends with a block-wide barrier.  kBf16 (note 10): img is a bf16 image,
+// chunks of 32 k-values (one 64-byte row each, half a buffer), one bf16
+// product per k-step of 16 and no lo fragments.
+template <int N, bool kBf16 = false>
 __device__ void tc_gemm(float (&d)[N / 4], const float* A, int lda, int K,
                         const float* __restrict__ img, float* bbuf) {
-  constexpr int kStage = 2 * N * kTcK;  // floats of a chunk, hi and lo
+  constexpr int kStage = 2 * N * kTcK;  // floats of a chunk buffer: a TF32 chunk's hi and lo
+  constexpr int kK = tc_chunk<kBf16>();  // k-values of a chunk
+  constexpr int kChunkFloats = kBf16 ? N * kK / 2 : kStage;  // floats of a chunk of img
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
   const float* a0 = A + (((tid >> 5) & 3) * 16 + g) * lda;
   const float* a1 = a0 + 8 * lda;
-  const int chunks = round_up_chunk(K) / kTcK;
+  const int chunks = round_up_tc<kBf16>(K) / kK;
   // Each warpgroup copies, and waits for, only its own half of B (its hi
   // and lo rows): the two warpgroups never wait for each other here.
-  constexpr int kHalf4 = N / 2 * kTcK / 4;  // float4s of a warpgroup's hi (or lo) rows
+  constexpr int kHalf4 = N / 2 * kTcK / 4;  // float4s of a warpgroup's hi (lo, bf16) rows
   const int t = tid & 127;
   auto stage = [&](int c) {  // commits a group, empty past the last chunk
     if (c < chunks) {
-      const float4* src = reinterpret_cast<const float4*>(img + static_cast<size_t>(c) * kStage) +
-                          wg * kHalf4;
+      const float4* src =
+          reinterpret_cast<const float4*>(img + static_cast<size_t>(c) * kChunkFloats) +
+          wg * kHalf4;
       float4* dst = reinterpret_cast<float4*>(bbuf + (c % kTcStages) * kStage) + wg * kHalf4;
       if constexpr (kHalf4 % 128 == 0) {
 #pragma unroll
         for (int j = 0; j < kHalf4 / 128; ++j) {
           cp_async16(dst + t + 128 * j, src + t + 128 * j, true);
-          cp_async16(dst + 2 * kHalf4 + t + 128 * j, src + 2 * kHalf4 + t + 128 * j, true);
+          if constexpr (!kBf16)
+            cp_async16(dst + 2 * kHalf4 + t + 128 * j, src + 2 * kHalf4 + t + 128 * j, true);
         }
       } else {
         for (int i = t; i < kHalf4; i += 128) {
           cp_async16(dst + i, src + i, true);
-          cp_async16(dst + 2 * kHalf4 + i, src + 2 * kHalf4 + i, true);
+          if constexpr (!kBf16) cp_async16(dst + 2 * kHalf4 + i, src + 2 * kHalf4 + i, true);
         }
       }
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
-  using Frags = uint32_t[kTcK / 8][4];
+  // k-steps of a chunk: two of 8 (TF32) or of 16 (bf16) values.
+  constexpr int kSteps = kBf16 ? kTcKB / 16 : kTcK / 8;
+  using Frags = uint32_t[kSteps][4];
   auto chunk = [&](int c, Frags& ahi, Frags& alo, Frags& prev_hi, Frags& prev_lo) {
     asm volatile("cp.async.wait_group 1;\n" ::);
     fence_async_smem();
@@ -391,35 +522,60 @@ __device__ void tc_gemm(float (&d)[N / 4], const float* A, int lda, int K,
     // chunk c - 2, whose buffer takes chunk c + 2, are done.
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
     stage(c + 2);
-    const int k0 = c * kTcK;
+    const int k0 = c * kK;
+    if constexpr (kBf16) {
+      // a_j: row g + 8 (j & 1), k-values kk, kk + 1 with kk = k + 8 (j >> 1).
 #pragma unroll
-    for (int s = 0; s < kTcK / 8; ++s) {
-      const int k = k0 + 8 * s + q, ka = min(k, K - 1), kb = min(k + 4, K - 1);
-      const float v[4] = {a0[ka], a1[ka], a0[kb], a1[kb]};
+      for (int s = 0; s < kSteps; ++s) {
+        const int k = k0 + 16 * s + 2 * q;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        split_tf32((j < 2 ? k : k + 4) < K ? v[j] : 0.f, ahi[s][j], alo[s][j]);
+        for (int j = 0; j < 4; ++j) {
+          const float* row = (j & 1) ? a1 : a0;
+          const int kk = k + 8 * (j >> 1);
+          const float v0 = row[min(kk, K - 1)], v1 = row[min(kk + 1, K - 1)];
+          ahi[s][j] = pack_bf16x2(kk < K ? v0 : 0.f, kk + 1 < K ? v1 : 0.f);
+        }
+      }
+      const float* b = bbuf + (c % kTcStages) * kStage + wg * (N / 2) * kTcK;
+      fence_regs(ahi);
+      fence_regs(d);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) wgmma_rs_bf16(d, ahi[s], smem_desc_sw64(b + 8 * s));
+      wgmma_commit();
+      wgmma_wait1();  // this warpgroup's products of chunk c - 1 are done
+      fence_regs(d);
+      fence_regs(prev_hi);
+    } else {
+#pragma unroll
+      for (int s = 0; s < kTcK / 8; ++s) {
+        const int k = k0 + 8 * s + q, ka = min(k, K - 1), kb = min(k + 4, K - 1);
+        const float v[4] = {a0[ka], a1[ka], a0[kb], a1[kb]};
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split_tf32((j < 2 ? k : k + 4) < K ? v[j] : 0.f, ahi[s][j], alo[s][j]);
+      }
+      // This warpgroup's half of the chunk: rows n of B are 16 floats apart;
+      // hi block, then lo block.
+      const float* hi = bbuf + (c % kTcStages) * kStage + wg * (N / 2) * kTcK;
+      const float* lo = hi + N * kTcK;
+      fence_regs(ahi);
+      fence_regs(alo);
+      fence_regs(d);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kTcK / 8; ++s) {
+        const uint64_t bh = smem_desc_sw64(hi + 8 * s), bl = smem_desc_sw64(lo + 8 * s);
+        wgmma_rs(d, ahi[s], bh);
+        wgmma_rs(d, ahi[s], bl);
+        wgmma_rs(d, alo[s], bh);
+      }
+      wgmma_commit();
+      wgmma_wait1();  // this warpgroup's products of chunk c - 1 are done
+      fence_regs(d);
+      fence_regs(prev_hi);
+      fence_regs(prev_lo);
     }
-    // This warpgroup's half of the chunk: rows n of B are 16 floats apart;
-    // hi block, then lo block.
-    const float* hi = bbuf + (c % kTcStages) * kStage + wg * (N / 2) * kTcK;
-    const float* lo = hi + N * kTcK;
-    fence_regs(ahi);
-    fence_regs(alo);
-    fence_regs(d);
-    wgmma_fence();
-#pragma unroll
-    for (int s = 0; s < kTcK / 8; ++s) {
-      const uint64_t bh = smem_desc_sw64(hi + 8 * s), bl = smem_desc_sw64(lo + 8 * s);
-      wgmma_rs(d, ahi[s], bh);
-      wgmma_rs(d, ahi[s], bl);
-      wgmma_rs(d, alo[s], bh);
-    }
-    wgmma_commit();
-    wgmma_wait1();  // this warpgroup's products of chunk c - 1 are done
-    fence_regs(d);
-    fence_regs(prev_hi);
-    fence_regs(prev_lo);
   };
   Frags ahi0, alo0, ahi1, alo1;
   stage(0);
@@ -432,9 +588,11 @@ __device__ void tc_gemm(float (&d)[N / 4], const float* A, int lda, int K,
   wgmma_wait0();
   fence_regs(d);
   fence_regs(ahi0);
-  fence_regs(alo0);
   fence_regs(ahi1);
-  fence_regs(alo1);
+  if constexpr (!kBf16) {
+    fence_regs(alo0);
+    fence_regs(alo1);
+  }
   asm volatile("cp.async.wait_group 0;\n" ::);  // the empty groups
   __syncthreads();
 }
@@ -499,14 +657,15 @@ __host__ inline size_t tc_tile_bytes(int xe, int de) {
 // whole network on one 64-row tile whose inputs are in shared memory (xs,
 // ds); [density, color...] rows to out (row stride ld).  act is the
 // [64][act_ld<H>()] activation tile, bbuf the B chunks; with kSave every
-// layer's xhat and statistics go to save.
-template <int H, bool kSave = false>
+// layer's xhat and statistics go to save.  kBf16: bf16 images and products,
+// bf16 heads (note 10).
+template <int H, bool kSave = false, bool kBf16 = false>
 __device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const float* xs,
                             const float* ds, float* act, float* bbuf, float* out, int ld,
                             int nvalid, const Save* save = nullptr) {
   constexpr int ald = act_ld<H>();
   const int xld = round_up4(w.xe), dld = round_up4(w.de);
-  const size_t slab = 2 * static_cast<size_t>(H) * H;
+  const size_t slab = tc_image_floats<kBf16>(H, H);
   float d[H / 4];
   float acc[kRowsPerWarp][H / 32];
   auto epilogue = [&](int i) {
@@ -515,34 +674,34 @@ __device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const float* x
   };
 
   tc_zero<H>(d);
-  tc_gemm<H>(d, xs, xld, w.xe, im.w0, bbuf);
+  tc_gemm<H, kBf16>(d, xs, xld, w.xe, im.w0, bbuf);
   epilogue(0);
   tc_store_rows<H>(acc, act);
   for (int i = 1; i < 8; ++i) {
     tc_zero<H>(d);
-    tc_gemm<H>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
-    if (i == 4) tc_gemm<H>(d, xs, xld, w.xe, im.wx, bbuf);
+    tc_gemm<H, kBf16>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
+    if (i == 4) tc_gemm<H, kBf16>(d, xs, xld, w.xe, im.wx, bbuf);
     epilogue(i);
     tc_store_rows<H>(acc, act);
   }
-  head<H>(acc, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
+  head<H, kBf16>(acc, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
   if (w.wd != nullptr) {
     for (int i = 8; i < 10; ++i) {
       tc_zero<H>(d);
-      tc_gemm<H>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
-      if (i == 8) tc_gemm<H>(d, ds, dld, w.de, im.wd, bbuf);
+      tc_gemm<H, kBf16>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
+      if (i == 8) tc_gemm<H, kBf16>(d, ds, dld, w.de, im.wd, bbuf);
       epilogue(i);
       if (i == 8) tc_store_rows<H>(acc, act);
     }
   }
-  head<H>(acc, w.w_col, w.b_col, w.c, out, ld, 1, nvalid);
+  head<H, kBf16>(acc, w.w_col, w.b_col, w.c, out, ld, 1, nvalid);
 }
 
 // ---------------------------------------------------------------------------
 // Pass 1: the stored-chain forward (fwd_store_kernel's contract).
 // ---------------------------------------------------------------------------
 
-template <int H, class Load>
+template <int H, class Load, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_store_tc_kernel(Weights w, TcImages im, Load load, float* __restrict__ out, int P,
                         float* xhat, float* stats, size_t stride, size_t base) {
@@ -556,13 +715,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   load(w, xs, ds, row0, nvalid);
   __syncthreads();
   const Save save{xhat, stats, stride, base + row0, nvalid};
-  mlp_tile_tc<H, true>(w, im, xs, ds, act, bbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid,
-                       &save);
+  mlp_tile_tc<H, true, kBf16>(w, im, xs, ds, act, bbuf, out + row0 * (1 + w.c), 1 + w.c,
+                              nvalid, &save);
 }
 
 // The forward alone (K1-fwd, K8-fwd; fwd_simt_kernel's contract): the tile
 // of fwd_store_tc_kernel, nothing saved.  `load` as in fwd_store_kernel.
-template <int H, class Load>
+template <int H, class Load, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_tc_kernel(Weights w, TcImages im, Load load, float* __restrict__ out, int P) {
   extern __shared__ float4 smem4[];
@@ -574,13 +733,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
   load(w, xs, ds, row0, nvalid);
   __syncthreads();
-  mlp_tile_tc<H>(w, im, xs, ds, act, bbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid);
+  mlp_tile_tc<H, false, kBf16>(w, im, xs, ds, act, bbuf, out + row0 * (1 + w.c), 1 + w.c,
+                               nvalid);
 }
 
 // The forward alone in float32 SIMT (classic_mlp.cuh::mlp_tile: weights
 // streamed from L2 in 16-row chunks, two blocks an SM), for encodings too
 // wide for fwd_tc_kernel's tile (note 9).  `load` as in fwd_store_kernel.
-template <int H, class Load>
+template <int H, class Load, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 2)
     fwd_simt_kernel(Weights w, Load load, float* __restrict__ out, int P) {
   extern __shared__ float4 smem4[];
@@ -592,7 +752,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
   load(w, xs, ds, row0, nvalid);
   __syncthreads();
-  mlp_tile<H>(w, xs, ds, act, wbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid);
+  mlp_tile<H, false, kBf16>(w, xs, ds, act, wbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid);
 }
 
 // ---------------------------------------------------------------------------
@@ -608,14 +768,16 @@ constexpr int kTcInPad = 64;
 template <int H>
 __host__ __device__ constexpr int tc_in_cols() { return H < kTcInPad ? H : kTcInPad; }
 // Floats of an input slab's image: [width rounded up to kTcInPad][H] in hi
-// and lo.
+// and lo (kBf16: one bf16 array).
+template <bool kBf16 = false>
 __host__ __device__ inline size_t tc_input_image_floats(int width, int H) {
-  return 2 * static_cast<size_t>((width + kTcInPad - 1) / kTcInPad * kTcInPad) * H;
+  return tc_image_floats<kBf16>((width + kTcInPad - 1) / kTcInPad * kTcInPad, H);
 }
 // The input slabs' images within the backward images (tc_mlp.py::tc_images
-// with backward=True): after the `slabs` hidden slabs, 2 H H floats each.
+// with backward=True): after the `slabs` hidden slabs' images.
+template <bool kBf16 = false>
 __host__ __device__ inline const float* tc_input_images(const float* bwd, int slabs, int H) {
-  return bwd + 2 * static_cast<size_t>(slabs) * H * H;
+  return bwd + static_cast<size_t>(slabs) * tc_image_floats<kBf16>(H, H);
 }
 
 // act [64][act_ld<H>()] = layer `layer`'s dpre rows of the tile (stored by
@@ -639,29 +801,34 @@ __device__ __forceinline__ void tc_load_dpre(float* act, const float* dpre, int 
 // into act, and both products accumulate in one wgmma accumulator; the
 // sum goes through act to coalesced stores of the pass's columns below n.
 // act and bbuf are the tile's; called by the whole block, which has
-// written the dpre rows it reads (its barriers make them visible).
-template <int H>
+// written the dpre rows it reads (its barriers make them visible).  kBf16:
+// bf16 images and products, out bfloat16 (the encodings' dtype).
+template <int H, bool kBf16 = false>
 __device__ void tc_input_grad(float* act, float* bbuf, const float* dpre, size_t P, size_t row0,
                               int nvalid, int la, const float* img_a, int lb,
-                              const float* img_b, int n, float* __restrict__ out) {
+                              const float* img_b, int n, void* __restrict__ out) {
   constexpr int NT = tc_in_cols<H>(), ld = act_ld<H>();
-  constexpr size_t kPass = 2 * static_cast<size_t>(NT) * H;  // floats of a pass's image
+  const size_t kPass = tc_image_floats<kBf16>(NT, H);  // floats of a pass's image
   float d[NT / 4];
   for (int c0 = 0; c0 < n; c0 += NT) {
     const size_t at = static_cast<size_t>(c0 / NT) * kPass;
     __syncthreads();  // act is free: its last readers are done
     tc_load_dpre<H>(act, dpre, la, P, row0, nvalid);
     tc_zero<NT>(d);
-    tc_gemm<NT>(d, act, ld, H, img_a + at, bbuf);  // ends with a block-wide barrier
+    tc_gemm<NT, kBf16>(d, act, ld, H, img_a + at, bbuf);  // ends with a block-wide barrier
     if (img_b != nullptr) {
       tc_load_dpre<H>(act, dpre, lb, P, row0, nvalid);
-      tc_gemm<NT>(d, act, ld, H, img_b + at, bbuf);
+      tc_gemm<NT, kBf16>(d, act, ld, H, img_b + at, bbuf);
     }
     tc_to_act<NT>(d, act, ld);
     const int cols = min(NT, n - c0);
     for (int i = threadIdx.x; i < nvalid * cols; i += kThreads) {
       const int r = i / cols, c = i - r * cols;
-      out[(row0 + r) * n + c0 + c] = act[r * ld + c];
+      const size_t o = (row0 + r) * n + c0 + c;
+      if constexpr (kBf16)
+        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(act[r * ld + c]);
+      else
+        static_cast<float*>(out)[o] = act[r * ld + c];
     }
   }
 }
@@ -677,17 +844,19 @@ __host__ inline size_t bwd_rows_tc_smem(const Weights& w) {
 // bwd is the backward operand images: the hidden slabs' (the packed
 // [in][out] slabs, 2 H H floats each), then w0's, wx's and wd's for the
 // encodings' cotangents dx [P][xe] and dd [P][de], written when not null.
-template <int H>
+// kBf16: bf16 images and products, the heads' backward in bf16, dx and dd
+// bfloat16 (note 10).
+template <int H, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_rows_tc_kernel(Weights w, const float* __restrict__ gout, int P, const float* xhat,
                        const float* stats, const float* __restrict__ bwd, float* dpre,
-                       float* tpart, float* dx, float* dd) {
+                       float* tpart, void* dx, void* dd) {
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);  // B chunks, or colsum scratch
   float* act = bbuf + tc_bbuf_floats<H>();        // dpre of the current layer
   float* gs = act + kTileRows * act_ld<H>();      // [64][1 + c] output cotangents
   const int L = num_layers(w), last = L - 1, ldo = 1 + w.c;
-  const size_t slab = 2 * static_cast<size_t>(H) * H, PP = static_cast<size_t>(P);
+  const size_t slab = tc_image_floats<kBf16>(H, H), PP = static_cast<size_t>(P);
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
   float* part = tpart + blockIdx.x * tile_floats(w, H);
@@ -712,32 +881,33 @@ __global__ void __launch_bounds__(kThreads, 1)
   float d[H / 4];
   zero<H>(acc);
   auto xh_of = [&](int layer) { return xhat + (layer * PP + row0) * H; };
-  head_bwd<H>(acc, gs, ldo, 1, w.c, w.w_col, xh_of(last), w.g + last * H, w.beta + last * H,
-              nvalid, p_wcol, bbuf);
+  head_bwd<H, kBf16>(acc, gs, ldo, 1, w.c, w.w_col, xh_of(last), w.g + last * H,
+                     w.beta + last * H, nvalid, p_wcol, bbuf);
   if (w.wd == nullptr)
-    head_bwd<H>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H, nvalid,
-                p_wdens, bbuf);
+    head_bwd<H, kBf16>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H,
+                       nvalid, p_wdens, bbuf);
   for (int i = last; i >= 0; --i) {
     layer_bwd<H>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats, dpre, p_b,
                  p_g, p_beta, bbuf);
     if (i == 0) break;
     tc_store_rows<H>(acc, act);
     tc_zero<H>(d);
-    tc_gemm<H>(d, act, act_ld<H>(), H, bwd + (i - 1) * slab, bbuf);
+    tc_gemm<H, kBf16>(d, act, act_ld<H>(), H, bwd + (i - 1) * slab, bbuf);
     tc_to_rows<H>(d, act, acc);
     if (i == 8)
-      head_bwd<H>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H,
-                  nvalid, p_wdens, bbuf);
+      head_bwd<H, kBf16>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H,
+                         nvalid, p_wdens, bbuf);
   }
   // The encodings' cotangents: dx = dpre_0 @ w0^T + dpre_4 @ wx^T and dd =
   // dpre_8 @ wd^T, from the stored dpre.
-  const float* img_w0 = tc_input_images(bwd, L - 1, H);
-  const float* img_wx = img_w0 + tc_input_image_floats(w.xe, H);
-  const float* img_wd = img_wx + tc_input_image_floats(w.xe, H);
+  const float* img_w0 = tc_input_images<kBf16>(bwd, L - 1, H);
+  const float* img_wx = img_w0 + tc_input_image_floats<kBf16>(w.xe, H);
+  const float* img_wd = img_wx + tc_input_image_floats<kBf16>(w.xe, H);
   if (dx != nullptr)
-    tc_input_grad<H>(act, bbuf, dpre, PP, row0, nvalid, 0, img_w0, 4, img_wx, w.xe, dx);
+    tc_input_grad<H, kBf16>(act, bbuf, dpre, PP, row0, nvalid, 0, img_w0, 4, img_wx, w.xe, dx);
   if (dd != nullptr)
-    tc_input_grad<H>(act, bbuf, dpre, PP, row0, nvalid, 8, img_wd, -1, nullptr, w.de, dd);
+    tc_input_grad<H, kBf16>(act, bbuf, dpre, PP, row0, nvalid, 8, img_wd, -1, nullptr, w.de,
+                            dd);
 }
 
 // ---------------------------------------------------------------------------
@@ -751,6 +921,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 constexpr int kWgLd = kWT + 8;
 constexpr int kWgRawFloats = 2 * kWgK * kWgLd;
 constexpr int kWgImgFloats = 2 * kWT * kWgK;
+// kBf16: where a buffer's spare half holds a chunk's bf16 encoding pairs
+// ([kWgK][64] words; the bf16 image of B takes its first quarter).
+constexpr int kWgWordsOff = kWgImgFloats / 2;
 constexpr size_t kWgradTcSmem = 2 * (kWgRawFloats + kWgImgFloats) * sizeof(float) + kSmemAlign;
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
@@ -783,6 +956,15 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
 //      thousands of points in one accumulator drifts: measured 1e-5 of the
 //      largest entry at 1000 points).
 // One block an SM (the float32 sum beside the accumulators).
+// kBf16 (note 10): B's image holds dpre rounded to bf16, 64 bytes (32
+// points) a row in the 64-byte swizzle, a quarter of a TF32 image's
+// buffer; the A fragments are h_in rounded as they are built; two k-steps
+// of 16 points a chunk, one bf16 product each.  A raw encoding marked
+// a_bf16 is copied as it is stored, bf16 pairs by cp.async into the spare
+// half of the chunk's image buffer (kWgWords), and widened into the raw
+// stage beside step 2 (exact); an odd width, whose pairs are not 4-byte
+// aligned, is loaded and widened synchronously.
+template <bool kBf16 = false>
 __global__ void __launch_bounds__(256, 1)
     wgrad_tc_kernel(WProds prods, int P, int k_chunk, float* __restrict__ wpart,
                     size_t wfloats) {
@@ -811,10 +993,55 @@ __global__ void __launch_bounds__(256, 1)
     return pr.split > 0 && p >= pr.split ? r2 : r1;
   };
   const bool vec = pr.a_ld % 4 == 0 && pr.M % 4 == 0 && N % 4 == 0;
+  // kBf16: a bf16 encoding of even width, copied as pairs (see above).
+  const bool a_pairs = kBf16 && pr.a_bf16 && pr.a_ld % 2 == 0 && pr.M % 2 == 0;
   auto copy_raw = [&](int c) {
     float* dst_a = raw + (c & 1) * kWgRawFloats;
     float* dst_b = dst_a + kWgK * kWgLd;
     const int p0 = k_begin + c * kWgK;
+    if constexpr (kBf16) {
+      if (pr.a_bf16) {  // bf16 A; B as the float32 path copies it
+        const __nv_bfloat16* a16 = reinterpret_cast<const __nv_bfloat16*>(pr.a);
+        if (a_pairs) {  // thread tid: pair tid % 64 (columns 2 j, 2 j + 1)
+          float* words = img + (c & 1) * kWgImgFloats + kWgWordsOff;
+          const int j = tid & 63;
+          const bool a_col = m0 + 2 * j < pr.M;
+#pragma unroll
+          for (int e = 0; e < kWgK * 64 / kThreads; ++e) {
+            const int pl = (tid >> 6) + e * (kThreads / 64), p = p0 + pl;
+            const bool va = p < k_end && a_col;
+            cp_async4(words + pl * 64 + j,
+                      reinterpret_cast<const float*>(
+                          a16 + (va ? static_cast<size_t>(a_row(p)) * pr.a_ld + m0 + 2 * j : 0)),
+                      va);
+          }
+        } else {  // an odd width: thread tid takes column tid % 128
+          const int col = tid % kWT;
+          const bool a_col = m0 + col < pr.M;
+#pragma unroll 4
+          for (int e = 0; e < kWgK * kWT / kThreads; ++e) {
+            const int pl = tid / kWT + e * (kThreads / kWT), p = p0 + pl;
+            dst_a[pl * kWgLd + col] =
+                p < k_end && a_col
+                    ? ldg_f32(a16 + static_cast<size_t>(a_row(p)) * pr.a_ld + m0 + col)
+                    : 0.f;
+          }
+        }
+        const int col = 4 * (tid & 31);  // B: 16-byte copies (N is the hidden width)
+        const bool b_col = n0 + col < N;
+#pragma unroll
+        for (int e = 0; e < kWgK * 32 / kThreads; ++e) {
+          const int pl = (tid >> 5) + e * (kThreads / 32), p = p0 + pl;
+          const bool vb = p < k_end && b_col;
+          cp_async16(reinterpret_cast<float4*>(dst_b + pl * kWgLd + col),
+                     reinterpret_cast<const float4*>(
+                         pr.b + static_cast<size_t>(vb ? p : 0) * N + (vb ? n0 + col : 0)),
+                     vb);
+        }
+        asm volatile("cp.async.commit_group;\n" ::);
+        return;
+      }
+    }
     if (vec) {  // 16-byte copies: thread tid takes columns 4 (tid % 32) ..
       const int col = 4 * (tid & 31);
       const bool a_col = m0 + col < pr.M, b_col = n0 + col < N;
@@ -857,6 +1084,21 @@ __global__ void __launch_bounds__(256, 1)
   auto transform_b = [&](int c) {
     const float* rb = raw + (c & 1) * kWgRawFloats + kWgK * kWgLd;
     float* im = img + (c & 1) * kWgImgFloats;
+    if constexpr (kBf16) {
+      // Row n of the bf16 image is 16 words; word 4 e + q holds points 8 e
+      // + 2 q and + 1, in group e ^ ((n / 2) % 4) (the 64-byte swizzle).
+      uint32_t* im32 = reinterpret_cast<uint32_t*>(im);
+#pragma unroll
+      for (int e = 0; e < kWgK / 8; ++e) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = x + 8 * h, p = 8 * e + 2 * q;
+          im32[n * 16 + ((e ^ ((n >> 1) & 3)) << 2) + q] =
+              pack_bf16x2(rb[p * kWgLd + n], rb[(p + 1) * kWgLd + n]);
+        }
+      }
+      return;
+    }
 #pragma unroll
     for (int e = 0; e < kWgK / 4; ++e) {
 #pragma unroll
@@ -867,6 +1109,17 @@ __global__ void __launch_bounds__(256, 1)
         im[at] = __uint_as_float(hi);
         im[kWT * kWgK + at] = __uint_as_float(lo);
       }
+    }
+  };
+  // kBf16, a_pairs: chunk c's bf16 pairs -> floats of its raw A stage.
+  auto widen_a = [&](int c) {
+    const uint32_t* words =
+        reinterpret_cast<const uint32_t*>(img + (c & 1) * kWgImgFloats + kWgWordsOff);
+    float* a = raw + (c & 1) * kWgRawFloats;
+    for (int i = tid; i < kWgK * 64; i += kThreads) {
+      const uint32_t w = words[i];
+      *reinterpret_cast<float2*>(a + (i >> 6) * kWgLd + 2 * (i & 63)) =
+          make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
     }
   };
 
@@ -889,41 +1142,66 @@ __global__ void __launch_bounds__(256, 1)
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
   // A fragments of the chunk in flight: kept allocated until it retires,
   // so the next chunk's staging runs beside its products.
-  uint32_t ahi[kWgK / 8][4], alo[kWgK / 8][4];
+  constexpr int kSteps = kBf16 ? kWgK / 16 : kWgK / 8;
+  uint32_t ahi[kSteps][4], alo[kBf16 ? 1 : kSteps][4];
   auto issue = [&](int c) {
     const float* ra = raw + (c & 1) * kWgRawFloats;
     const int valid = k_end - (k_begin + c * kWgK);  // points of this chunk
-#pragma unroll
-    for (int s = 0; s < kWgK / 8; ++s) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // a_j: row g + 8 (j & 1), point q + 4 (j >> 1)
-        const int p = 8 * s + q + 4 * (j >> 1), h = j & 1;
+    if constexpr (kBf16) {
+      auto h_in = [&](int p, int h) {  // point p of this thread's row h, 0 where none
         float v = fmaf(ra[p * kWgLd + ar + 8 * h], ga[h], ba[h]);
         v = a_ok[h] && p < valid ? v : 0.f;  // a select, not a branch (see tc_gemm)
-        if (pr.relu) v = fmaxf(v, 0.f);
-        split_tf32(v, ahi[s][j], alo[s][j]);
+        return pr.relu ? fmaxf(v, 0.f) : v;
+      };
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // a_j: row g + 8 (j & 1), points p, p + 1
+          const int p = 16 * s + 2 * q + 8 * (j >> 1), h = j & 1;
+          ahi[s][j] = pack_bf16x2(h_in(p, h), h_in(p + 1, h));
+        }
       }
-    }
-    const float* b_hi = img + (c & 1) * kWgImgFloats;
-    const float* b_lo = b_hi + kWT * kWgK;
+      const float* b = img + (c & 1) * kWgImgFloats;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) d[i] = 0.f;
-    fence_regs(d);
-    wgmma_fence();
+      for (int i = 0; i < 64; ++i) d[i] = 0.f;
+      fence_regs(d);
+      wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < kWgK / 8; ++s) {
-      const uint64_t bh = smem_desc_sw128(b_hi + 8 * s), bl = smem_desc_sw128(b_lo + 8 * s);
-      wgmma_rs(d, ahi[s], bh);
-      wgmma_rs(d, ahi[s], bl);
-      wgmma_rs(d, alo[s], bh);
+      for (int s = 0; s < kSteps; ++s) wgmma_rs_bf16(d, ahi[s], smem_desc_sw64(b + 8 * s));
+      wgmma_commit();
+    } else {
+#pragma unroll
+      for (int s = 0; s < kWgK / 8; ++s) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // a_j: row g + 8 (j & 1), point q + 4 (j >> 1)
+          const int p = 8 * s + q + 4 * (j >> 1), h = j & 1;
+          float v = fmaf(ra[p * kWgLd + ar + 8 * h], ga[h], ba[h]);
+          v = a_ok[h] && p < valid ? v : 0.f;  // a select, not a branch (see tc_gemm)
+          if (pr.relu) v = fmaxf(v, 0.f);
+          split_tf32(v, ahi[s][j], alo[s][j]);
+        }
+      }
+      const float* b_hi = img + (c & 1) * kWgImgFloats;
+      const float* b_lo = b_hi + kWT * kWgK;
+#pragma unroll
+      for (int i = 0; i < 64; ++i) d[i] = 0.f;
+      fence_regs(d);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kWgK / 8; ++s) {
+        const uint64_t bh = smem_desc_sw128(b_hi + 8 * s), bl = smem_desc_sw128(b_lo + 8 * s);
+        wgmma_rs(d, ahi[s], bh);
+        wgmma_rs(d, ahi[s], bl);
+        wgmma_rs(d, alo[s], bh);
+      }
+      wgmma_commit();
     }
-    wgmma_commit();
   };
   auto retire = [&]() {  // the products in flight are done: add their sum
     wgmma_wait0();
     fence_regs(d);
     fence_regs(ahi);
-    fence_regs(alo);
+    if constexpr (!kBf16) fence_regs(alo);
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] += d[i];
   };
@@ -938,6 +1216,7 @@ __global__ void __launch_bounds__(256, 1)
     // Image c & 1 was last read by chunk c - 2's products, retired before
     // the previous barrier.
     transform_b(c);
+    if (a_pairs) widen_a(c);
     fence_async_smem();
     __syncthreads();
     if (c > 0) retire();
@@ -1017,8 +1296,8 @@ __host__ inline cudaError_t fwd_store_plan_at(int xe, int de, int hidden, long l
 
 // The forward alone over P rows (K1-fwd, K8-fwd): fwd_tc_kernel on the
 // forward images tc_fwd where its tile fits, else fwd_simt_kernel, from
-// fwd_store's plan (their tiles take fwd_store's bytes).
-template <int H, class Load>
+// fwd_store's plan (their tiles take fwd_store's bytes, in bf16 too).
+template <int H, class Load, bool kBf16 = false>
 cudaError_t launch_fwd(const Weights& w, const Load& load, float* out, int P,
                        const float* tc_fwd, cudaStream_t stream) {
   TilePolicy policy;
@@ -1028,19 +1307,19 @@ cudaError_t launch_fwd(const Weights& w, const Load& load, float* out, int P,
   if (policy == kTileTc) {
     if (tc_fwd == nullptr) return cudaErrorInvalidValue;
     const size_t smem = tc_tile_bytes<H>(w.xe, w.de);
-    err = cudaFuncSetAttribute(fwd_tc_kernel<H, Load>,
+    err = cudaFuncSetAttribute(fwd_tc_kernel<H, Load, kBf16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    fwd_tc_kernel<H, Load><<<blocks, kThreads, smem, stream>>>(
-        w, TcImages::forward(w, tc_fwd, H), load, out, P);
+    fwd_tc_kernel<H, Load, kBf16><<<blocks, kThreads, smem, stream>>>(
+        w, TcImages::forward<kBf16>(w, tc_fwd, H), load, out, P);
     return cudaGetLastError();
   }
   if (policy != kTileSimt) return cudaErrorInvalidValue;
   const size_t smem = fwd_store_smem<H>(w.xe, w.de);
-  err = cudaFuncSetAttribute(fwd_simt_kernel<H, Load>,
+  err = cudaFuncSetAttribute(fwd_simt_kernel<H, Load, kBf16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  fwd_simt_kernel<H, Load><<<blocks, kThreads, smem, stream>>>(w, load, out, P);
+  fwd_simt_kernel<H, Load, kBf16><<<blocks, kThreads, smem, stream>>>(w, load, out, P);
   return cudaGetLastError();
 }
 
@@ -1052,8 +1331,13 @@ cudaError_t launch_fwd(const Weights& w, const Load& load, float* out, int P,
 // the Scratch's tc_fwd and tc_bwd hold the call's operand images (tc_bwd
 // with the input slabs' images, which bwd_rows reads where the encodings'
 // cotangents dx, dd are asked for).  fwd_store runs SimtProducts' pass
-// where its tile does not fit (note 9).
-struct TcProducts {
+// where its tile does not fit (note 9).  kBf16: compute_dtype bfloat16
+// (note 10): bf16 images, encodings, products and heads, and SimtProducts'
+// fwd_store rounding its operands likewise.
+template <bool kBf16_ = false>
+struct TcProductsT {
+  static constexpr bool kBf16 = kBf16_;
+
   template <int H, class Load>
   static cudaError_t fwd_store(const Weights& w, const Load& load, float* out, int P,
                                const Scratch& s, cudaStream_t stream, size_t stride,
@@ -1062,42 +1346,46 @@ struct TcProducts {
     cudaError_t err = fwd_store_plan<H>(w.xe, w.de, &policy);
     if (err != cudaSuccess) return err;
     if (policy == kTileSimt)
-      return SimtProducts::fwd_store<H, Load>(w, load, out, P, s, stream, stride, base);
+      return SimtProducts::fwd_store<H, Load, kBf16>(w, load, out, P, s, stream, stride, base);
     if (policy == kTileNone || s.tc_fwd == nullptr) return cudaErrorInvalidValue;
     const size_t smem = tc_tile_bytes<H>(w.xe, w.de);
-    err = cudaFuncSetAttribute(fwd_store_tc_kernel<H, Load>,
+    err = cudaFuncSetAttribute(fwd_store_tc_kernel<H, Load, kBf16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
-    fwd_store_tc_kernel<H, Load><<<tiles, kThreads, smem, stream>>>(
-        w, TcImages::forward(w, s.tc_fwd, H), load, out, P, s.xhat, s.stats, stride, base);
+    fwd_store_tc_kernel<H, Load, kBf16><<<tiles, kThreads, smem, stream>>>(
+        w, TcImages::forward<kBf16>(w, s.tc_fwd, H), load, out, P, s.xhat, s.stats, stride,
+        base);
     return cudaGetLastError();
   }
 
   template <int H>
   static cudaError_t bwd_rows(const Weights& w, const float* gout, int P, const Scratch& s,
-                              float* dx, float* dd, cudaStream_t stream) {
+                              void* dx, void* dd, cudaStream_t stream) {
     if (s.tc_bwd == nullptr) return cudaErrorInvalidValue;
     const size_t smem = bwd_rows_tc_smem<H>(w);
-    cudaError_t err = cudaFuncSetAttribute(
-        bwd_rows_tc_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    cudaError_t err =
+        cudaFuncSetAttribute(bwd_rows_tc_kernel<H, kBf16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
-    bwd_rows_tc_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats,
-                                                              s.tc_bwd, s.dpre, s.tpart, dx, dd);
+    bwd_rows_tc_kernel<H, kBf16><<<tiles, kThreads, smem, stream>>>(
+        w, gout, P, s.xhat, s.stats, s.tc_bwd, s.dpre, s.tpart, dx, dd);
     return cudaGetLastError();
   }
 
   static cudaError_t wgrad(const WProds& prods, int total_tiles, int P, int k_chunk,
                            const Scratch& s, size_t wfloats, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(wgrad_tc_kernel,
+    cudaError_t err = cudaFuncSetAttribute(wgrad_tc_kernel<kBf16>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(kWgradTcSmem));
     if (err != cudaSuccess) return err;
-    wgrad_tc_kernel<<<dim3(total_tiles, s.splits), 256, kWgradTcSmem, stream>>>(
+    wgrad_tc_kernel<kBf16><<<dim3(total_tiles, s.splits), 256, kWgradTcSmem, stream>>>(
         prods, P, k_chunk, s.wpart, wfloats);
     return cudaGetLastError();
   }
 };
+using TcProducts = TcProductsT<false>;
+using TcProductsBf16 = TcProductsT<true>;
 
 }  // namespace nerf_mlp

@@ -10,6 +10,9 @@
 //     input does, else beside it.
 //   tc_wgrad: out [M][N] = a^T b for a [P][M], b [P][N] through
 //     wgrad_tc_kernel (one product, the points in one chunk).
+//   tc_linear_bf16, tc_wgrad_bf16: the same as bf16 products (note 10 of
+//     tc_mlp.cuh): a and b float32, rounded to bf16 as the kernels round
+//     them; img a bf16 image (operand_image with dtype bfloat16).
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "tc_mlp.cuh"
@@ -18,7 +21,7 @@ namespace {
 
 using namespace nerf_mlp;
 
-template <int H>
+template <int H, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     tc_linear_kernel(const float* __restrict__ a, int P, int K, const float* __restrict__ img,
                      float* __restrict__ out) {
@@ -33,7 +36,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   float d[H / 4];
   float acc[kRowsPerWarp][H / 32];
   tc_zero<H>(d);
-  tc_gemm<H>(d, as, round_up4(K), K, img, bbuf);
+  tc_gemm<H, kBf16>(d, as, round_up4(K), K, img, bbuf);
   tc_to_rows<H>(d, act, acc);
   const int lane = threadIdx.x & 31;
   for (int r = 0; r < kRowsPerWarp; ++r) {
@@ -44,7 +47,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int H>
+template <int H, bool kBf16>
 cudaError_t linear(const float* a, int P, int K, const float* img, float* out,
                    cudaStream_t stream) {
   const size_t smem =
@@ -53,25 +56,25 @@ cudaError_t linear(const float* a, int P, int K, const float* img, float* out,
           sizeof(float) +
       kSmemAlign;
   cudaError_t err = cudaFuncSetAttribute(
-      tc_linear_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      tc_linear_kernel<H, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  tc_linear_kernel<H><<<(P + kTileRows - 1) / kTileRows, kThreads, smem, stream>>>(a, P, K, img,
-                                                                                  out);
+  tc_linear_kernel<H, kBf16><<<(P + kTileRows - 1) / kTileRows, kThreads, smem, stream>>>(
+      a, P, K, img, out);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int tc_linear(const float* a, const float* img, float* out, int P, int K, int hidden,
-                         void* stream) {
+template <bool kBf16>
+int linear_at(const float* a, const float* img, float* out, int P, int K, int hidden,
+              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) static_cast<int>(linear<H>(a, P, K, img, out, st))
+#define NERF_LAUNCH(H) static_cast<int>(linear<H, kBf16>(a, P, K, img, out, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }
 
-extern "C" int tc_wgrad(const float* a, const float* b, float* out, int P, int M, int N,
-                        void* stream) {
+template <bool kBf16>
+int wgrad_at(const float* a, const float* b, float* out, int P, int M, int N, void* stream) {
   WProds prods{};
   prods.p[0] = WProd{a, nullptr, nullptr, b, M, M, N, 1, 0, 0, (M + kWT - 1) / kWT,
                      (N + kWT - 1) / kWT};
@@ -79,7 +82,29 @@ extern "C" int tc_wgrad(const float* a, const float* b, float* out, int P, int M
   Scratch s{};
   s.wpart = out;
   s.splits = 1;
-  return static_cast<int>(TcProducts::wgrad(prods, prods.p[0].tiles_m * prods.p[0].tiles_n, P,
-                                            P, s, static_cast<size_t>(M) * N,
-                                            static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(TcProductsT<kBf16>::wgrad(
+      prods, prods.p[0].tiles_m * prods.p[0].tiles_n, P, P, s, static_cast<size_t>(M) * N,
+      static_cast<cudaStream_t>(stream)));
+}
+
+}  // namespace
+
+extern "C" int tc_linear(const float* a, const float* img, float* out, int P, int K, int hidden,
+                         void* stream) {
+  return linear_at<false>(a, img, out, P, K, hidden, stream);
+}
+
+extern "C" int tc_wgrad(const float* a, const float* b, float* out, int P, int M, int N,
+                        void* stream) {
+  return wgrad_at<false>(a, b, out, P, M, N, stream);
+}
+
+extern "C" int tc_linear_bf16(const float* a, const void* img, float* out, int P, int K,
+                              int hidden, void* stream) {
+  return linear_at<true>(a, static_cast<const float*>(img), out, P, K, hidden, stream);
+}
+
+extern "C" int tc_wgrad_bf16(const float* a, const float* b, float* out, int P, int M, int N,
+                             void* stream) {
+  return wgrad_at<true>(a, b, out, P, M, N, stream);
 }

@@ -26,6 +26,13 @@
 // prefix of log(alpha + 1e-10) and the exclusive suffix of the
 // transmittance cotangent are warp scans in fp32.
 //
+// train_grads_bf16 is the same in compute_dtype bfloat16 (tc_mlp.cuh, note
+// 10: TcProductsBf16, bf16 encodings read from device memory, the
+// compositing, loss and gradients float32).  Its bound at 4096 x 64: 1.003
+// ms of bf16 tensor-core operations (FLOP / 989 TFLOP/s) against 3.2 ms of
+// bytes, the float32 chain (xhat and dpre, 10,240 bytes a row written once
+// and read once) at 3.35 TB/s.
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "tc_mlp.cuh"
 
@@ -66,15 +73,18 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) ray_loss[ray] = loss;
 }
 
-template <int H>
-cudaError_t run(const Weights& w, const float* x, const float* d, const float* dists,
+template <int H, bool kBf16>
+cudaError_t run(const Weights& w, const void* x, const void* d, const float* dists,
                 const float* noise, const float* pix, int R, int S, int white, float g_scale,
                 float loss_scale, float* weights_out, float* out, float* gout,
                 float* ray_loss, float* loss, float* grads, const Scratch& s,
                 cudaStream_t stream) {
+  using T = enc_t<kBf16>;
+  using Products = TcProductsT<kBf16>;
   const int P = R * S;
-  cudaError_t err = launch_fwd_store_with<H, TcProducts>(w, TileLoad{x, d, 1}, out, P, s, stream,
-                                                        static_cast<size_t>(P), 0);
+  cudaError_t err = launch_fwd_store_with<H, Products>(
+      w, TileLoadT<T>{static_cast<const T*>(x), static_cast<const T*>(d), 1}, out, P, s, stream,
+      static_cast<size_t>(P), 0);
   if (err != cudaSuccess) return err;
   const size_t smem = static_cast<size_t>(kWarps) * 3 * S * sizeof(float);
   err = cudaFuncSetAttribute(composite_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -85,8 +95,32 @@ cudaError_t run(const Weights& w, const float* x, const float* d, const float* d
       weights_out);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = colsum(ray_loss, R, 1, loss, s.tmp, stream)) != cudaSuccess) return err;
-  return launch_mlp_backward<H, TcProducts>(w, x, d, 1, gout, P, s, nullptr, nullptr, grads,
-                                           stream);
+  return launch_mlp_backward<H, Products>(w, x, d, 1, gout, P, s, nullptr, nullptr, grads,
+                                         stream);
+}
+
+template <bool kBf16>
+int entry(const void* x, const void* d, const float* dists, const float* noise,
+          const float* pix, float* loss, float* grads, float* weights_out, int R, int S, int xe,
+          int de, int hidden, int c, int white, float loss_weight, const float* w0,
+          const float* wx, const float* wd, const float* whh, const float* b, const float* g,
+          const float* beta, const float* w_dens, const float* b_dens, const float* w_col,
+          const float* b_col, float* xhat, float* stats, float* dpre, float* wpart,
+          float* tpart, float* tmp, float* wt, float* out, float* gout, float* ray_loss,
+          int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
+  if (c > kMaxColors || c < 1) return cudaErrorInvalidValue;
+  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
+                  xe, wd ? de : 0, c};
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+                  static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
+  const float g_scale = loss_weight * 2.f / (static_cast<float>(c) * R);
+  const float loss_scale = loss_weight / R;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H)                                                                       \
+  static_cast<int>(run<H, kBf16>(w, x, d, dists, noise, pix, R, S, white, g_scale, loss_scale, \
+                                 weights_out, out, gout, ray_loss, loss, grads, s, st))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
 }
 
 }  // namespace
@@ -101,18 +135,28 @@ extern "C" int train_grads(const float* x, const float* d, const float* dists,
                            float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
                            float* out, float* gout, float* ray_loss, int splits,
                            const float* tc_fwd, const float* tc_bwd, void* stream) {
-  if (c > kMaxColors || c < 1) return cudaErrorInvalidValue;
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
-                  xe, wd ? de : 0, c};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
-  const float g_scale = loss_weight * 2.f / (static_cast<float>(c) * R);
-  const float loss_scale = loss_weight / R;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H)                                                                     \
-  static_cast<int>(run<H>(w, x, d, dists, noise, pix, R, S, white, g_scale, loss_scale,  \
-                          weights_out, out, gout, ray_loss, loss, grads, s, st))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  return entry<false>(x, d, dists, noise, pix, loss, grads, weights_out, R, S, xe, de, hidden,
+                      c, white, loss_weight, w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col,
+                      b_col, xhat, stats, dpre, wpart, tpart, tmp, wt, out, gout, ray_loss,
+                      splits, tc_fwd, tc_bwd, stream);
+}
+
+// The same in compute_dtype bfloat16: x, d and both images are bfloat16.
+extern "C" int train_grads_bf16(const void* x, const void* d, const float* dists,
+                                const float* noise, const float* pix, float* loss, float* grads,
+                                float* weights_out, int R, int S, int xe, int de, int hidden,
+                                int c, int white, float loss_weight, const float* w0,
+                                const float* wx, const float* wd, const float* whh,
+                                const float* b, const float* g, const float* beta,
+                                const float* w_dens, const float* b_dens, const float* w_col,
+                                const float* b_col, float* xhat, float* stats, float* dpre,
+                                float* wpart, float* tpart, float* tmp, float* wt, float* out,
+                                float* gout, float* ray_loss, int splits, const void* tc_fwd,
+                                const void* tc_bwd, void* stream) {
+  return entry<true>(x, d, dists, noise, pix, loss, grads, weights_out, R, S, xe, de, hidden, c,
+                     white, loss_weight, w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col,
+                     b_col, xhat, stats, dpre, wpart, tpart, tmp, wt, out, gout, ray_loss,
+                     splits, tc_fwd, tc_bwd, stream);
 }
 
 // The plan train_grads' fwd_store follows for these widths (de 0 without

@@ -39,6 +39,13 @@
 // The activation tile of the MLP phase is reused as the compositing
 // scratch (4 arrays of Sc + Sf per warp).
 //
+// union_eval_bf16 is the same kernel in compute_dtype bfloat16 (tc_mlp.cuh,
+// note 10): bf16 fine and per-ray view encodings (the view row broadcast in
+// the block as before) and weight images, every product and both heads on
+// bf16 operands with float32 sums; the compositing and outputs float32; the
+// same tiles and width rule.  Its bound at a 4000-ray tile of 128 fine
+// samples: 0.653 ms of bf16 tensor-core operations (FLOP / 989 TFLOP/s).
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "tc_mlp.cuh"
 
@@ -170,9 +177,10 @@ __host__ inline size_t block_bytes(int xe, int de, int c, int Sc, int Sf) {
          (kTc ? kSmemAlign : 0);
 }
 
+template <class T>  // the encodings' type, float or __nv_bfloat16
 struct Inputs {
-  const float* xf;      // [R * Sf][xe] fine encodings
-  const float* d;       // [R][de] view encodings, or nullptr
+  const T* xf;          // [R * Sf][xe] fine encodings
+  const T* d;           // [R][de] view encodings, or nullptr
   const float* t_c;     // [R][Sc]
   const float* t_f;     // [R][Sf]
   const float* dens_c;  // [R][Sc]
@@ -180,10 +188,11 @@ struct Inputs {
   const float* dnorm;   // [R]
 };
 
-template <int H, bool kTc>
+template <int H, bool kTc, bool kBf16>
 __device__ __forceinline__ void union_eval_block(const Weights& w, const TcImages& im,
-                                                 const Inputs& in, float* __restrict__ out,
-                                                 int R, int Sc, int Sf) {
+                                                 const Inputs<enc_t<kBf16>>& in,
+                                                 float* __restrict__ out, int R, int Sc,
+                                                 int Sf) {
   extern __shared__ float4 smem4[];
   float* wbuf = kTc ? tc_smem_base(smem4) : reinterpret_cast<float*>(smem4);  // the weights
   float* act = wbuf + wbuf_floats<H, kTc>();        // MLP activations, then scratch
@@ -202,9 +211,9 @@ __device__ __forceinline__ void union_eval_block(const Weights& w, const TcImage
     if (w.wd != nullptr) load_tile(ds, in.d, frow0 + sub, nvalid, w.de, Sf);
     __syncthreads();
     if constexpr (kTc)
-      mlp_tile_tc<H>(w, im, xs, ds, act, wbuf, fout + sub * ld, ld, nvalid);
+      mlp_tile_tc<H, false, kBf16>(w, im, xs, ds, act, wbuf, fout + sub * ld, ld, nvalid);
     else
-      mlp_tile<H>(w, xs, ds, act, wbuf, fout + sub * ld, ld, nvalid);
+      mlp_tile<H, false, kBf16>(w, xs, ds, act, wbuf, fout + sub * ld, ld, nvalid);
     __syncthreads();
   }
 
@@ -217,18 +226,18 @@ __device__ __forceinline__ void union_eval_block(const Weights& w, const TcImage
   }
 }
 
-template <int H>
+template <int H, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
-    union_eval_kernel(Weights w, TcImages im, Inputs in, float* __restrict__ out, int R, int Sc,
-                      int Sf) {
-  union_eval_block<H, true>(w, im, in, out, R, Sc, Sf);
+    union_eval_kernel(Weights w, TcImages im, Inputs<enc_t<kBf16>> in, float* __restrict__ out,
+                      int R, int Sc, int Sf) {
+  union_eval_block<H, true, kBf16>(w, im, in, out, R, Sc, Sf);
 }
 
-template <int H>
+template <int H, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 2)
-    union_eval_simt_kernel(Weights w, Inputs in, float* __restrict__ out, int R, int Sc,
-                           int Sf) {
-  union_eval_block<H, false>(w, TcImages{}, in, out, R, Sc, Sf);
+    union_eval_simt_kernel(Weights w, Inputs<enc_t<kBf16>> in, float* __restrict__ out, int R,
+                           int Sc, int Sf) {
+  union_eval_block<H, false, kBf16>(w, TcImages{}, in, out, R, Sc, Sf);
 }
 
 // The block's product by the width rule (tc_mlp.cuh, note 9).
@@ -238,9 +247,9 @@ cudaError_t plan(int xe, int de, int c, int Sc, int Sf, TilePolicy* policy, long
                    block_bytes<H, false>(xe, de, c, Sc, Sf), policy, out);
 }
 
-template <int H>
-cudaError_t launch(const Weights& w, const float* tcw, const Inputs& in, float* out, int R,
-                   int Sc, int Sf, cudaStream_t stream) {
+template <int H, bool kBf16>
+cudaError_t launch(const Weights& w, const float* tcw, const Inputs<enc_t<kBf16>>& in,
+                   float* out, int R, int Sc, int Sf, cudaStream_t stream) {
   TilePolicy policy;
   cudaError_t err = plan<H>(w.xe, w.de, w.c, Sc, Sf, &policy, nullptr);
   if (err != cudaSuccess) return err;
@@ -249,16 +258,32 @@ cudaError_t launch(const Weights& w, const float* tcw, const Inputs& in, float* 
   const size_t smem = tc ? block_bytes<H, true>(w.xe, w.de, w.c, Sc, Sf)
                          : block_bytes<H, false>(w.xe, w.de, w.c, Sc, Sf);
   constexpr cudaFuncAttribute kSmemAttr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  err = tc ? cudaFuncSetAttribute(union_eval_kernel<H>, kSmemAttr, static_cast<int>(smem))
-           : cudaFuncSetAttribute(union_eval_simt_kernel<H>, kSmemAttr, static_cast<int>(smem));
+  err = tc ? cudaFuncSetAttribute(union_eval_kernel<H, kBf16>, kSmemAttr, static_cast<int>(smem))
+           : cudaFuncSetAttribute(union_eval_simt_kernel<H, kBf16>, kSmemAttr,
+                                  static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = (R + rays_per_block(Sf) - 1) / rays_per_block(Sf);
   if (tc)
-    union_eval_kernel<H><<<blocks, kThreads, smem, stream>>>(w, TcImages::forward(w, tcw, H), in,
-                                                            out, R, Sc, Sf);
+    union_eval_kernel<H, kBf16><<<blocks, kThreads, smem, stream>>>(
+        w, TcImages::forward<kBf16>(w, tcw, H), in, out, R, Sc, Sf);
   else
-    union_eval_simt_kernel<H><<<blocks, kThreads, smem, stream>>>(w, in, out, R, Sc, Sf);
+    union_eval_simt_kernel<H, kBf16><<<blocks, kThreads, smem, stream>>>(w, in, out, R, Sc, Sf);
   return cudaGetLastError();
+}
+
+template <bool kBf16>
+int run(const void* xf, const void* d, const float* t_c, const float* t_f, const float* dens_c,
+        const float* col_c, const float* dnorm, float* out, int R, int Sc, int Sf, int hidden,
+        const Weights& w, const void* tcw, void* stream) {
+  if (w.c > kMaxColors) return cudaErrorInvalidValue;
+  using T = enc_t<kBf16>;
+  const Inputs<T> in{static_cast<const T*>(xf), static_cast<const T*>(d), t_c, t_f, dens_c,
+                     col_c, dnorm};
+  const float* img = static_cast<const float*>(tcw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H) static_cast<int>(launch<H, kBf16>(w, img, in, out, R, Sc, Sf, s))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
 }
 
 }  // namespace
@@ -270,14 +295,25 @@ extern "C" int union_eval(const float* xf, const float* d, const float* t_c, con
                           const float* b, const float* g, const float* beta,
                           const float* w_dens, const float* b_dens, const float* w_col,
                           const float* b_col, const float* tcw, void* stream) {
-  if (c > kMaxColors) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  const Inputs in{xf, d, t_c, t_f, dens_c, col_c, dnorm};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) static_cast<int>(launch<H>(w, tcw, in, out, R, Sc, Sf, s))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  return run<false>(xf, d, t_c, t_f, dens_c, col_c, dnorm, out, R, Sc, Sf, hidden, w, tcw,
+                    stream);
+}
+
+// The same in compute_dtype bfloat16: xf, d and tcw are bfloat16.
+extern "C" int union_eval_bf16(const void* xf, const void* d, const float* t_c,
+                               const float* t_f, const float* dens_c, const float* col_c,
+                               const float* dnorm, float* out, int R, int Sc, int Sf, int xe,
+                               int de, int hidden, int c, const float* w0, const float* wx,
+                               const float* wd, const float* whh, const float* b,
+                               const float* g, const float* beta, const float* w_dens,
+                               const float* b_dens, const float* w_col, const float* b_col,
+                               const void* tcw, void* stream) {
+  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
+                  xe, wd ? de : 0, c};
+  return run<true>(xf, d, t_c, t_f, dens_c, col_c, dnorm, out, R, Sc, Sf, hidden, w, tcw,
+                   stream);
 }
 
 // The plan union_eval follows for these shapes (de 0 without the view

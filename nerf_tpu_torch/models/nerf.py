@@ -340,7 +340,9 @@ class ClassicNeRF(nn.Module):
         tile by tile of ``render.rays_per_tile`` rays.  On the kernel path
         the weights are packed, and their operand images built, once for
         the frame's kernel calls."""
-        mlp_weights = classic_mlp.prepare_weights(self.mlp) if self._uses_kernels() else None
+        mlp_weights = None
+        if self._uses_kernels():
+            mlp_weights = classic_mlp.prepare_weights(self.mlp, dtype=self._compute_dtype())
 
         def per_tile(tile_o, tile_d, tile_sx, tile_sd):
             out = self.render_rays(

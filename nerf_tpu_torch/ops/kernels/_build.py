@@ -15,7 +15,12 @@ and K7's forward tile) ran in those calls: ``"tc"``, 3xTF32 on the tensor
 cores, or ``"simt"``, the float32 SIMT pass, where the encodings (the mip features)
 are too wide for the tensor-core tile (``csrc/tc_mlp.cuh``, note 9;
 ``tile_plan``), or where a K1-bwd call asks for the encodings'
-cotangents, which K1-bwd computes on its float32 SIMT passes.
+cotangents, which K1-bwd computes on its float32 SIMT passes.  The bf16
+kernels of ``compute_dtype="bfloat16"`` (``<name>_bf16`` in the same
+library, for the classic main path's K1-fwd, K1-bwd, K2, K3 and K4,
+``BF16``) record ``"tc_bf16"`` or ``"simt_bf16"``: the same tiles and width
+rule, the bf16 ``wgmma`` or the bf16-rounding SIMT pass (K1-bwd in bf16
+always runs the tensor-core passes).
 """
 
 from __future__ import annotations
@@ -124,10 +129,15 @@ ARGTYPES = {
     "tc_linear": (_P,) * 3 + (_I,) * 3 + (_P,),
     "tc_wgrad": (_P,) * 3 + (_I,) * 3 + (_P,),
 }
+# The kernels with a bf16 entry point, <name>_bf16, whose arguments are
+# <name>'s (the encodings, their cotangents and the images bfloat16).
+BF16 = ("classic_mlp_fwd", "union_eval", "classic_mlp_bwd", "train_grads", "fine_stage_train")
+ARGTYPES.update({f"{name}_bf16": ARGTYPES[name] for name in BF16 + ("tc_linear", "tc_wgrad")})
 # Functions of a library other than its own name.
 FUNCTIONS = {
-    "tc_product": ("tc_linear", "tc_wgrad"),
-    **{name: (name, f"{name}_plan") for name in PLANNED},
+    "tc_product": ("tc_linear", "tc_wgrad", "tc_linear_bf16", "tc_wgrad_bf16"),
+    **{name: (name, f"{name}_plan") + ((f"{name}_bf16",) if name in BF16 else ())
+       for name in PLANNED},
 }
 
 

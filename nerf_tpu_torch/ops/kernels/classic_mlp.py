@@ -17,6 +17,17 @@ the tests and ``chip_smoke.py`` hold the kernels against (with
 tensor-core products).  Under autograd ``classic_mlp_fwd`` runs as a
 ``torch.autograd.Function`` whose backward is ``classic_mlp_bwd``.
 
+``compute_dtype="bfloat16"``: encodings given as bfloat16 (both, and the
+operand images built beforehand) make every wrapper of the classic main
+path (K1-fwd, K1-bwd here, K2, K3 and K4) launch the bf16 kernel of its
+library (``<name>_bf16``: every product and both heads on operands rounded
+to bfloat16, float32 sums, float32 outputs and gradients; the encodings'
+cotangents bfloat16), and the plain versions run the JAX package's bf16
+arithmetic (``tc_mlp.bf16_matmul_autograd`` for every product, the heads'
+included).  ``_build.policy_counts`` records ``"tc_bf16"`` or
+``"simt_bf16"`` for those calls.  The other kernels (K5-K9) still raise a
+``NotImplementedError`` for bfloat16 (``BF16_QUEUED``).
+
 The kernels read the weights as ``pack_classic_params`` packs them and,
 on the tensor cores, as the operand images ``tc_mlp.tc_images`` builds.
 The wrappers build both per call unless given them: ``prepare_weights``
@@ -44,6 +55,9 @@ Packed = Dict[str, torch.Tensor]
 NAME = "classic_mlp_fwd"
 BWD_NAME = "classic_mlp_bwd"
 HIDDEN_WIDTHS = (32, 64, 128, 256)  # the kernel's instantiations
+# Where bfloat16 inputs of the kernels still to take them are queued.
+BF16_QUEUED = ("bfloat16 is not implemented yet for this kernel: K5-K9 in bfloat16 are the "
+               "next bf16 slice (ROADMAP.md queue 1)")
 MAX_COLORS = 8  # color outputs the backward kernels take
 # Weight slabs in the order of the C interface (wd_in may be absent).
 PACK_ORDER = (
@@ -104,33 +118,44 @@ def pack_classic_params(mlp: ClassicMLP) -> Packed:
 class PreparedWeights(NamedTuple):
     """A model's weights as the kernels read them: ``packed``
     (``pack_classic_params``) and, for weights on the card, the operand
-    images (``tc_mlp.tc_images``; ``tc_bwd`` where asked for)."""
+    images (``tc_mlp.tc_images``; ``tc_bwd`` where asked for; bfloat16
+    images for ``compute_dtype="bfloat16"``)."""
 
     packed: Packed
     tc_fwd: Optional[torch.Tensor] = None
     tc_bwd: Optional[torch.Tensor] = None
 
 
-def prepare_weights(mlp: ClassicMLP, backward: bool = False) -> PreparedWeights:
+def prepare_weights(mlp: ClassicMLP, backward: bool = False,
+                    dtype: torch.dtype = torch.float32) -> PreparedWeights:
     """Pack the weights, and build their operand images where they lie on
     the card, once for several kernel calls: the tiles of one frame, the
     passes of one step.  Valid only while the weights do not change (build
     them anew after each optimizer step).  Under autograd ``packed`` keeps
-    the graph to the parameters; the images carry none."""
+    the graph to the parameters; the images carry none.  ``dtype`` is the
+    compute dtype the calls will run in (their encodings' dtype)."""
     packed = pack_classic_params(mlp)
     if packed["w0"].device.type != "cuda":
         return PreparedWeights(packed)
-    return PreparedWeights(packed, *tc_mlp.tc_images(packed, backward))
+    return PreparedWeights(packed, *tc_mlp.tc_images(packed, backward, dtype))
 
 
 def classic_mlp_fwd_plain(
     packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor] = None,
-    matmul=torch.matmul,
+    matmul=None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``[P, 1 + C]`` rows of
     ``[density, color logits]``.  ``matmul`` computes the hidden and
     encoding products (the heads stay float32): ``tc_mlp.tc_matmul_autograd``
-    emulates the tensor-core kernels' 3xTF32."""
+    emulates the tensor-core kernels' 3xTF32; by default ``torch.matmul``.
+    Encodings given as bfloat16 run ``compute_dtype="bfloat16"``: by default
+    ``tc_mlp.bf16_matmul_autograd``, and ``matmul`` takes the heads too."""
+    bf16 = x_enc.dtype == torch.bfloat16
+    if matmul is None:
+        matmul = tc_mlp.bf16_matmul_autograd if bf16 else torch.matmul
+    head = matmul if bf16 else torch.matmul
+    x_enc = x_enc.float()
+    d_enc = None if d_enc is None else d_enc.float()
 
     def layer(i: int, pre: torch.Tensor) -> torch.Tensor:
         a = torch.relu(pre + packed["b"][i])
@@ -145,32 +170,45 @@ def classic_mlp_fwd_plain(
     h = layer(4, matmul(h, whh[3]) + matmul(x_enc, packed["wx"]))
     for i in (5, 6, 7):
         h = layer(i, matmul(h, whh[i - 1]))
-    density = h @ packed["w_dens"] + packed["b_dens"]
+    density = head(h, packed["w_dens"]) + packed["b_dens"]
     if "wd_in" in packed:
         h = layer(8, matmul(h, whh[7]) + matmul(d_enc, packed["wd_in"]))
         h = layer(9, matmul(h, whh[8]))
-    color = h @ packed["w_col"] + packed["b_col"]
+    color = head(h, packed["w_col"]) + packed["b_col"]
     return torch.cat([density, color], dim=-1)
+
+
+# The inputs of the classic main path's wrappers that are bfloat16 under
+# compute_dtype="bfloat16" (check_inputs' ``bf16``).
+BF16_INPUTS = ("x_enc", "d_enc", "tc_fwd", "tc_bwd")
 
 
 def check_inputs(
     name: str, packed: Packed, tensors: Dict[str, Optional[torch.Tensor]],
-    aligned: Tuple[str, ...] = PACK_ORDER,
+    aligned: Tuple[str, ...] = PACK_ORDER, bf16: bool = False,
 ) -> torch.device:
     """Shared argument checks of the kernel wrappers: one device, float32
-    (bfloat16 is not implemented yet), contiguous, no autograd graph (a
-    wrapper has no autograd backward of its own; ``classic_mlp_fwd``
+    but, with ``bf16`` (the classic main path's kernels), for the
+    ``BF16_INPUTS``, which may be bfloat16 all together
+    (``compute_dtype="bfloat16"``: the encodings and their operand images;
+    a kernel without ``bf16`` raises a ``NotImplementedError`` for
+    bfloat16), contiguous, no autograd graph
+    (a wrapper has no autograd backward of its own; ``classic_mlp_fwd``
     routes through ``ClassicMLPFunction`` before it gets here), and on the
     card the ``aligned`` weight slabs 16-byte aligned.  Returns the
     device."""
     given = {k: v for k, v in tensors.items() if v is not None}
     given.update({f"packed[{k}]": v for k, v in packed.items()})
     device = next(iter(given.values())).device
+    bf16_ok = BF16_INPUTS if bf16 else ()
+    first = next((given[k] for k in bf16_ok if k in given), None)
+    compute = torch.float32 if first is None else first.dtype
     for key, t in given.items():
-        if t.dtype == torch.bfloat16:
-            raise NotImplementedError(f"{name}: bfloat16 inputs are not implemented yet ({key})")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        if t.dtype == torch.bfloat16 and not bf16_ok:
+            raise NotImplementedError(f"{name}: {BF16_QUEUED} ({key})")
+        want = compute if key in bf16_ok and compute == torch.bfloat16 else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{name}: {key} must be {str(want)[6:]}, got {t.dtype}")
         if t.device != device:
             raise ValueError(f"{name}: {key} is on {t.device}, expected {device}")
         if not t.is_contiguous():
@@ -190,6 +228,13 @@ def weight_pointers(packed: Packed):
     return [_build.ptr(packed.get(k)) for k in PACK_ORDER]
 
 
+def route(name: str, plan_policy: str, bf16: bool) -> Tuple[str, str]:
+    """The library function a call launches and the policy it records:
+    ``name`` and ``plan_policy`` in float32, ``<name>_bf16`` and
+    ``<plan_policy>_bf16`` in bfloat16."""
+    return (f"{name}_bf16", f"{plan_policy}_bf16") if bf16 else (name, plan_policy)
+
+
 def classic_mlp_fwd(
     packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor] = None,
     tc_fwd: Optional[torch.Tensor] = None, tc_bwd: Optional[torch.Tensor] = None,
@@ -207,7 +252,8 @@ def classic_mlp_fwd(
     builds it where the tensor-core tile runs.  When autograd records and
     an input requires grad, the call runs as ``ClassicMLPFunction``, whose
     backward is ``classic_mlp_bwd`` (K1-bwd), given ``tc_fwd`` and
-    ``tc_bwd``.
+    ``tc_bwd``.  bfloat16 encodings (and ``tc_fwd``) run
+    ``compute_dtype="bfloat16"``: ``classic_mlp_fwd_bf16``.
     """
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x_enc, d_enc, *packed.values())
@@ -217,8 +263,10 @@ def classic_mlp_fwd(
     has_view = "wd_in" in packed
     if has_view != (d_enc is not None):
         raise ValueError(f"{NAME}: d_enc must be given iff the weights have a view branch")
-    device = check_inputs(NAME, packed, {"x_enc": x_enc, "d_enc": d_enc, "tc_fwd": tc_fwd})
-    tc_mlp.check_images(NAME, packed, tc_fwd)
+    device = check_inputs(NAME, packed, {"x_enc": x_enc, "d_enc": d_enc, "tc_fwd": tc_fwd},
+                          bf16=True)
+    dtype = x_enc.dtype
+    tc_mlp.check_images(NAME, packed, tc_fwd, dtype=dtype)
     hidden = packed["w0"].shape[1]
     cols = 1 + packed["w_col"].shape[1]
     if x_enc.ndim != 2 or x_enc.shape[1] != packed["w0"].shape[0]:
@@ -234,10 +282,11 @@ def classic_mlp_fwd(
     if n_points == 0:
         return out
     de = d_enc.shape[1] if has_view else 0
-    policy = _build.tile_plan(NAME, x_enc.shape[1], de, hidden).policy
-    if policy == "tc" and tc_fwd is None:
-        tc_fwd = tc_mlp.tc_images(packed)[0]
-    fn = getattr(_build.load(NAME), NAME)
+    plan = _build.tile_plan(NAME, x_enc.shape[1], de, hidden).policy
+    if plan == "tc" and tc_fwd is None:
+        tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
+    fn_name, policy = route(NAME, plan, dtype == torch.bfloat16)
+    fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_enc), out.data_ptr(), n_points,
         x_enc.shape[1], de, hidden, cols - 1, *weight_pointers(packed), _build.ptr(tc_fwd),
@@ -284,7 +333,7 @@ def packed_grads_plain(
 
 def classic_mlp_bwd_plain(
     packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor], g_out: torch.Tensor,
-    input_grads: bool = True, matmul=torch.matmul,
+    input_grads: bool = True, matmul=None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Packed]:
     """The backward kernel's function in plain PyTorch: the vector-Jacobian
     product of ``classic_mlp_fwd_plain`` with ``g_out [P, 1 + C]``;
@@ -390,14 +439,21 @@ def classic_mlp_bwd(
     here; with ``input_grads=True`` the float32 SIMT passes, which compute
     the encodings' cotangents too.  ``_build.policy_counts``
     records ``"tc"`` where ``fwd_store`` ran on the tensor cores, else
-    ``"simt"``.
+    ``"simt"``.  bfloat16 encodings (and images) run
+    ``compute_dtype="bfloat16"`` (``classic_mlp_bwd_bf16``): the tensor-core
+    passes with or without the encodings' cotangents, which are then
+    bfloat16; policy ``"tc_bf16"`` or, where ``fwd_store`` runs its SIMT
+    pass, ``"simt_bf16"``.
     """
     has_view = "wd_in" in packed
     if has_view != (d_enc is not None):
         raise ValueError(f"{BWD_NAME}: d_enc must be given iff the weights have a view branch")
     device = check_inputs(BWD_NAME, packed, {"x_enc": x_enc, "d_enc": d_enc, "g_out": g_out,
-                                             "tc_fwd": tc_fwd, "tc_bwd": tc_bwd})
-    tc_mlp.check_images(BWD_NAME, packed, tc_fwd, tc_bwd)
+                                             "tc_fwd": tc_fwd, "tc_bwd": tc_bwd},
+                          bf16=True)
+    dtype = x_enc.dtype
+    bf16 = dtype == torch.bfloat16
+    tc_mlp.check_images(BWD_NAME, packed, tc_fwd, tc_bwd, dtype)
     xe, hidden = packed["w0"].shape
     colors = packed["w_col"].shape[1]
     n_points = x_enc.shape[0]
@@ -419,11 +475,12 @@ def classic_mlp_bwd(
         return dx, dd, {k: torch.zeros_like(v) for k, v in packed.items()}
     de = d_enc.shape[1] if has_view else 0
     plan = _build.tile_plan(BWD_NAME, xe, de, hidden)  # raises past the SIMT tile
-    policy = "simt" if input_grads else plan.policy
-    if not input_grads and (tc_fwd is None or tc_bwd is None):
-        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
+    tc_passes = bf16 or not input_grads
+    fn_name, policy = route(BWD_NAME, plan.policy if tc_passes else "simt", bf16)
+    if tc_passes and (tc_fwd is None or tc_bwd is None):
+        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
     s = train_scratch(packed, n_points, device)
-    fn = getattr(_build.load(BWD_NAME), BWD_NAME)
+    fn = getattr(_build.load(BWD_NAME), fn_name)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_enc), g_out.data_ptr(), _build.ptr(dx), _build.ptr(dd),
         s["grads"].data_ptr(), n_points, xe, de, hidden, colors,

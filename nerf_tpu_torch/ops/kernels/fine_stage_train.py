@@ -11,7 +11,8 @@ the union pass of ``csrc/union_train.cuh``.  ``fine_stage_train_plain`` is
 its plain PyTorch version: ``classic_mlp_fwd_plain``,
 ``weights_from_union_norm`` and the MSE, with gradients from
 ``torch.autograd`` (with ``matmul=tc_mlp.tc_matmul_autograd`` it emulates
-the kernel's products).
+the kernel's products).  bfloat16 encodings run ``compute_dtype="bfloat16"``
+(``fine_stage_train_bf16``; ``classic_mlp``'s docstring).
 
 ``reuse_train_loss_and_grads`` runs one reuse step: the coarse MLP through
 K1 under autograd, the coarse compositing, loss and inverse-CDF resample
@@ -41,6 +42,7 @@ from nerf_tpu_torch.ops.kernels.classic_mlp import (
     flat_grads_to_packed,
     packed_grads_plain,
     prepare_weights,
+    route,
     scratch_pointers,
     train_scratch,
     weight_pointers,
@@ -69,7 +71,7 @@ def _fine_loss(w, x_enc, d_enc, t_coarse, t_fine, dens_c, col_c, dnorm, noise_f,
 
 def fine_stage_train_plain(
     packed: Packed, x_enc, d_enc, t_coarse, t_fine, dens_c, col_c, dnorm, noise_f, pixels,
-    white_background: bool = False, loss_weight: float = 1.0, matmul=torch.matmul,
+    white_background: bool = False, loss_weight: float = 1.0, matmul=None,
 ):
     """The kernel's function in plain PyTorch (see ``fine_stage_train``);
     ``matmul`` as in ``classic_mlp_fwd_plain``."""
@@ -117,12 +119,14 @@ def fine_stage_train(
         pixels: ``[B, C]`` targets.
         loss_weight: the stage weight (0.5 under the stage-mean MSE).
         tc_fwd, tc_bwd: the weights' operand images
-            (``tc_mlp.tc_images(packed, backward=True)``) built
-            beforehand, else the call builds them.
+            (``tc_mlp.tc_images(packed, backward=True)``; bfloat16 ones
+            with bfloat16 encodings) built beforehand, else the call builds
+            them.
 
     Returns ``(loss, d_packed, (g_dens_c [B, Sc, 1], g_col_c [B, Sc, C]))``.
     CPU tensors run ``fine_stage_train_plain``; CUDA tensors launch the
-    kernel (raising on what it does not take).
+    kernel (raising on what it does not take).  Both encodings bfloat16:
+    ``compute_dtype="bfloat16"``.
     """
     has_view = "wd_in" in packed
     if has_view != (d_enc is not None):
@@ -131,8 +135,9 @@ def fine_stage_train(
         "x_enc": x_enc, "d_enc": d_enc, "t_coarse": t_coarse, "t_fine": t_fine,
         "dens_c": dens_c, "col_c": col_c, "dnorm": dnorm, "noise_f": noise_f, "pixels": pixels,
         "tc_fwd": tc_fwd, "tc_bwd": tc_bwd,
-    })
-    tc_mlp.check_images(NAME, packed, tc_fwd, tc_bwd)
+    }, bf16=True)
+    dtype = x_enc.dtype
+    tc_mlp.check_images(NAME, packed, tc_fwd, tc_bwd, dtype)
     n_rays, s_fine = t_fine.shape
     s_coarse = t_coarse.shape[-1]
     xe, hidden = packed["w0"].shape
@@ -164,17 +169,18 @@ def fine_stage_train(
     if n_rays == 0:
         raise ValueError(f"{NAME}: needs at least one ray")
     de = d_enc.shape[-1] if has_view else 0
-    policy = _build.tile_plan(NAME, xe, de, hidden).policy
+    fn_name, policy = route(NAME, _build.tile_plan(NAME, xe, de, hidden).policy,
+                            dtype == torch.bfloat16)
     sc = train_scratch(packed, n_rays * s_fine, device)
     if tc_fwd is None or tc_bwd is None:
-        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
+        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
     d_ray = d_enc[:, 0, :].contiguous() if has_view else None
     loss = torch.empty((1,), dtype=torch.float32, device=device)
     g_dens_c = torch.empty_like(dens_c)
     g_col_c = torch.empty_like(col_c)
     gout = torch.empty_like(sc["out"])
     ray_loss = torch.empty((n_rays,), dtype=torch.float32, device=device)
-    fn = getattr(_build.load(NAME), NAME)
+    fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_ray), t_coarse.data_ptr(), t_fine.data_ptr(),
         dens_c.data_ptr(), col_c.data_ptr(), dnorm.data_ptr(), noise_f.data_ptr(),
@@ -228,7 +234,8 @@ def reuse_train_loss_and_grads(
     MLP evaluation through a kernel: K1-fwd on the coarse samples, K3 on
     the fine stage, and one K1-bwd on the summed coarse cotangents.  The
     weights are packed, and their operand images built, once for the
-    three (``prepare_weights``).
+    three (``prepare_weights``).  The encodings go to the kernels in
+    ``model.cfg.compute_dtype``, as the JAX function casts them.
 
     ``draws`` holds the step's random draws (``sampling.draw_step``).
     Returns ``(loss, grads, aux)`` with ``grads`` keyed by
@@ -241,13 +248,14 @@ def reuse_train_loss_and_grads(
     bg = 1.0 if render.white_background else None
     names, params = zip(*model.named_parameters())
     t_coarse = draws.t_coarse
+    dt = getattr(torch, model.cfg.compute_dtype)
     with torch.enable_grad():
-        packed, tc_fwd, tc_bwd = prepare_weights(model.mlp, backward=True)
+        packed, tc_fwd, tc_bwd = prepare_weights(model.mlp, backward=True, dtype=dt)
         # Coarse stage: K1 under autograd, compositing and loss in PyTorch.
         _, xc_enc, dc_enc = model._encode_inputs(rays_o, rays_d, t_coarse, states_x, states_d)
         out_c = classic_mlp_fwd(
-            packed, _flat(xc_enc, n_rays * sc),
-            None if dc_enc is None else _flat(dc_enc, n_rays * sc), tc_fwd, tc_bwd,
+            packed, _flat(xc_enc.to(dt), n_rays * sc),
+            None if dc_enc is None else _flat(dc_enc.to(dt), n_rays * sc), tc_fwd, tc_bwd,
         ).reshape(n_rays, sc, -1)
         dens_c = out_c[..., :1] + draws.noise_c[..., None]
         col_c = out_c[..., 1:].contiguous()
@@ -265,8 +273,8 @@ def reuse_train_loss_and_grads(
         # Fine stage: K3, whose backward returns its gradients.
         xf_enc, df_enc = model.encode_inputs_flat(rays_o, rays_d, t_fine, states_x, states_d)
         loss_f = FineStageFunction.apply(
-            (render.white_background, STAGE_WEIGHT, tc_fwd, tc_bwd), xf_enc.contiguous(),
-            None if df_enc is None else df_enc.contiguous(), t_coarse.contiguous(), t_fine,
+            (render.white_background, STAGE_WEIGHT, tc_fwd, tc_bwd), xf_enc.to(dt).contiguous(),
+            None if df_enc is None else df_enc.to(dt).contiguous(), t_coarse.contiguous(), t_fine,
             dens_c, col_c, torch.linalg.norm(rays_d, dim=-1), draws.noise_f.contiguous(),
             pixels.contiguous(), *[packed.get(k) for k in PACK_ORDER],
         )

@@ -28,6 +28,7 @@ from nerf_tpu_torch.config import ClassicNeRFConfig
 from nerf_tpu_torch.ops import compositing, encoding, sampling
 from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
+    BF16_QUEUED,
     HIDDEN_WIDTHS,
     MAX_COLORS,
     PACK_ORDER,
@@ -316,7 +317,7 @@ def mega_train_loss_and_grads(
         )
     cfg = model.cfg
     if cfg.compute_dtype == "bfloat16":
-        raise NotImplementedError(f"{NAME}: bfloat16 is not implemented yet")
+        raise NotImplementedError(f"{NAME}: {BF16_QUEUED}")
     if cfg.x_encoding_dim != 3 * cfg.x_positional_encoding_size:
         raise ValueError(f"{NAME}: encodes 3-D positions only (density_inputs=3)")
     names, params = zip(*model.named_parameters())

@@ -29,6 +29,7 @@ import torch
 from nerf_tpu_torch.ops import encoding
 from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
+    BF16_QUEUED,
     HIDDEN_WIDTHS,
     MAX_COLORS,
     PACK_ORDER,
@@ -270,7 +271,7 @@ def classic_pointmlp(
     if isinstance(model_or_packed, torch.nn.Module):
         mlp = getattr(model_or_packed, "mlp", model_or_packed)
         if getattr(mlp.cfg, "compute_dtype", "float32") == "bfloat16":
-            raise NotImplementedError(f"{NAME}: bfloat16 is not implemented yet")
+            raise NotImplementedError(f"{NAME}: {BF16_QUEUED}")
         packed = pack_classic_params(mlp)
     else:
         packed = model_or_packed

@@ -33,6 +33,19 @@ and the like) take the input slabs as packed, ``[in][out]``: their images
 autograd with the backward's two products emulated too, so the plain
 versions of the kernels can run on the CPU with the card's arithmetic
 (``matmul=tc_matmul_autograd``) and be held against their float32 selves.
+
+``compute_dtype="bfloat16"`` (K1-fwd, K1-bwd, K2, K3 and K4) runs each
+product as ONE bf16 ``wgmma`` with float32 accumulation, the JAX package's
+``_dot``, ``_dot_t`` and ``_dot_tn`` with a bf16 dtype: both operands rounded
+to bfloat16 (to nearest even), the products summed in float32.
+``bf16_matmul`` is its plain emulation and ``Bf16Matmul`` carries it through
+autograd, rounding the incoming cotangent too before both backward
+products (``dh = round(g) round(b)^T``, ``dW = round(a)^T round(g)``), as
+JAX's custom VJP does.  The bf16 operand images (``operand_image(...,
+dtype=torch.bfloat16)``) hold one bfloat16 array, no hi/lo pair: K padded
+to a multiple of 32 (``BF16_CHUNK``: 32 bf16 values are one 64-byte row,
+the same swizzle atom as 16 TF32 values), chunk by chunk ``[N][32]`` with
+the 16-byte group ``j`` (8 values) of row ``n`` at ``j ^ ((n // 2) % 4)``.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 CHUNK = 16  # k-values per chunk of an operand image (kTcK in csrc/tc_mlp.cuh)
+BF16_CHUNK = 32  # k-values per chunk of a bfloat16 operand image (kTcKB)
 TF32_MASK = -8192  # 0xffffe000 as an int32: sign, exponent and 10 mantissa bits
 
 
@@ -83,8 +97,45 @@ def tc_matmul_autograd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return TcMatmul.apply(a, b)
 
 
-def round_up_chunk(n: int) -> int:
-    return -(-n // CHUNK) * CHUNK
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest even) and widened back."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as the bf16 kernels compute it: both operands rounded to
+    bfloat16, the products (exact in float32) summed in float32."""
+    return bf16_round(a) @ bf16_round(b)
+
+
+class Bf16Matmul(torch.autograd.Function):
+    """``bf16_matmul`` under autograd; the backward rounds the cotangent
+    and both operands: ``dh = round(g) round(b)^T`` and ``dW = round(a)^T
+    round(g)``, as in the kernels' ``bwd_rows`` and ``wgrad`` passes."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return bf16_matmul(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = bf16_round(g)
+        return g @ bf16_round(b).t(), bf16_round(a).t() @ g
+
+
+def bf16_matmul_autograd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return Bf16Matmul.apply(a, b)
+
+
+def chunk_of(dtype: torch.dtype) -> int:
+    """k-values per chunk of an operand image of this dtype."""
+    return BF16_CHUNK if dtype == torch.bfloat16 else CHUNK
+
+
+def round_up_chunk(n: int, dtype: torch.dtype = torch.float32) -> int:
+    return -(-n // chunk_of(dtype)) * chunk_of(dtype)
 
 
 INPUT_PAD = 64  # rows of an input slab's image, padded (kTcInPad in csrc/tc_mlp.cuh)
@@ -102,12 +153,21 @@ def _swizzle_index(n: int, device) -> torch.Tensor:
     return j ^ ((r // 2) % 4)
 
 
-def operand_image(b: torch.Tensor) -> torch.Tensor:
+def operand_image(b: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The operand image of ``b [..., N, K]`` (K-major, N a multiple of 8):
-    ``[..., 2 N round_up_chunk(K)]`` floats (see the module docstring)."""
+    ``[..., 2 N round_up_chunk(K)]`` floats, or with ``dtype`` bfloat16
+    ``[..., N round_up_chunk(K, dtype)]`` bfloat16 values (see the module
+    docstring)."""
     *lead, n, k = b.shape
     if n % 8:
         raise ValueError(f"operand_image: N must be a multiple of 8, got {n}")
+    if dtype == torch.bfloat16:
+        kp = round_up_chunk(k, dtype)
+        v = F.pad(b, (0, kp - k)).to(torch.bfloat16)
+        v = v.reshape(*lead, n, kp // BF16_CHUNK, 4, 8).movedim(-3, -4)  # [..., chunk, n, group, 8]
+        dst = _swizzle_index(n, b.device)[:, :, None].expand(n, 4, 8)
+        out = torch.empty_like(v).scatter_(-2, dst.expand_as(v), v)
+        return out.reshape(*lead, -1)
     kp = round_up_chunk(k)
     hi, lo = tf32_split(F.pad(b, (0, kp - k)))
     hl = torch.stack([hi, lo], -3).reshape(*lead, 2, n, kp // CHUNK, CHUNK // 4, 4)
@@ -119,8 +179,14 @@ def operand_image(b: torch.Tensor) -> torch.Tensor:
 
 def operand_image_unpack(img: torch.Tensor, n: int, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The inverse of ``operand_image``: ``(hi, lo)``, each ``[..., N,
-    round_up_chunk(K)]``."""
+    round_up_chunk(K)]``; for a bfloat16 image ``(values, None)``."""
     *lead, _ = img.shape
+    if img.dtype == torch.bfloat16:
+        kp = round_up_chunk(k, img.dtype)
+        v = img.reshape(*lead, kp // BF16_CHUNK, n, 4, 8)
+        src = _swizzle_index(n, img.device)[:, :, None].expand(n, 4, 8)
+        v = v.gather(-2, src.expand_as(v)).movedim(-4, -3).reshape(*lead, n, kp)
+        return v, None
     kp = round_up_chunk(k)
     hl = img.reshape(*lead, kp // CHUNK, 2, n, CHUNK // 4, 4)
     src = _swizzle_index(n, img.device)[:, :, None].expand(n, CHUNK // 4, 4)
@@ -142,19 +208,21 @@ def forward_slabs(packed) -> dict:
     return out
 
 
-def input_image(w: torch.Tensor) -> torch.Tensor:
+def input_image(w: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``bwd_rows``' B operand for the input cotangent ``dpre @ w^T`` of an
     input slab ``w [n, H]`` as packed (``[in][out]``, K-major for this
     product): the rows zero-padded to ``round_up_input(n)``, then each pass
     of ``min(H, 64)`` rows an operand image, ``[2 round_up_input(n) H]``
-    floats (``tc_input_grad`` in ``csrc/tc_mlp.cuh``)."""
+    floats (``tc_input_grad`` in ``csrc/tc_mlp.cuh``; with ``dtype``
+    bfloat16 ``[round_up_input(n) H]`` bfloat16 values)."""
     n, hidden = w.shape
     rows = min(hidden, INPUT_PAD)
     padded = F.pad(w, (0, 0, 0, round_up_input(n) - n))
-    return operand_image(padded.reshape(-1, rows, hidden)).reshape(-1)
+    return operand_image(padded.reshape(-1, rows, hidden), dtype).reshape(-1)
 
 
-def tc_images(packed, backward: bool = False) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def tc_images(packed, backward: bool = False,
+              dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The operand images a kernel reads, built on the weights' device:
     ``(forward, backward)``, for the classic weights
     (``classic_mlp.pack_classic_params``) or the mip ones
@@ -164,34 +232,37 @@ def tc_images(packed, backward: bool = False) -> Tuple[torch.Tensor, Optional[to
     ``TcImages`` and ``csrc/mip_mlp.cuh``'s ``MipImages`` read).  With
     ``backward`` also ``bwd_rows``' B operands: the hidden slabs (the
     packed ``[in][out]`` slabs), then the input slabs in the same order
-    (``input_image``, for the input cotangents); else ``None``."""
+    (``input_image``, for the input cotangents); else ``None``.  ``dtype``
+    bfloat16 builds the bf16 images of ``compute_dtype="bfloat16"``."""
     with torch.no_grad():
         slabs = forward_slabs(packed)
-        fwd = [operand_image(slabs[k]) for k in INPUT_SLABS if k in slabs]
-        fwd.append(operand_image(slabs["whh"]).reshape(-1))
+        fwd = [operand_image(slabs[k], dtype) for k in INPUT_SLABS if k in slabs]
+        fwd.append(operand_image(slabs["whh"], dtype).reshape(-1))
         bwd = None
         if backward:
-            bwd = torch.cat([operand_image(packed["whh"]).reshape(-1)]
-                            + [input_image(packed[k]) for k in INPUT_SLABS if k in packed])
+            bwd = torch.cat([operand_image(packed["whh"], dtype).reshape(-1)]
+                            + [input_image(packed[k], dtype) for k in INPUT_SLABS if k in packed])
         return torch.cat(fwd), bwd
 
 
-def image_numels(packed) -> Tuple[int, int]:
-    """Floats of the forward and the backward image ``tc_images(packed,
-    backward=True)`` builds."""
+def image_numels(packed, dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
+    """Elements of the forward and the backward image ``tc_images(packed,
+    backward=True, dtype=dtype)`` builds (floats, or bfloat16 values)."""
     hidden = packed["whh"].shape[-1]
     widths = [packed[k].shape[0] for k in INPUT_SLABS if k in packed]
-    slabs = packed["whh"].shape[0] * 2 * hidden * hidden
-    return (2 * hidden * sum(round_up_chunk(w) for w in widths) + slabs,
-            slabs + 2 * hidden * sum(round_up_input(w) for w in widths))
+    per = 1 if dtype == torch.bfloat16 else 2  # hi and lo in TF32
+    slabs = packed["whh"].shape[0] * per * hidden * hidden
+    return (per * hidden * sum(round_up_chunk(w, dtype) for w in widths) + slabs,
+            slabs + per * hidden * sum(round_up_input(w) for w in widths))
 
 
 def check_images(name: str, packed, tc_fwd: Optional[torch.Tensor],
-                 tc_bwd: Optional[torch.Tensor] = None) -> None:
+                 tc_bwd: Optional[torch.Tensor] = None,
+                 dtype: torch.dtype = torch.float32) -> None:
     """Raise a ``ValueError`` where operand images built beforehand are not
-    the flat sizes ``tc_images(packed)`` gives them (the wrappers' own
-    checks take their device, type and layout)."""
-    for key, img, n in zip(("tc_fwd", "tc_bwd"), (tc_fwd, tc_bwd), image_numels(packed)):
+    the flat sizes ``tc_images(packed, dtype=dtype)`` gives them (the
+    wrappers' own checks take their device, type and layout)."""
+    for key, img, n in zip(("tc_fwd", "tc_bwd"), (tc_fwd, tc_bwd), image_numels(packed, dtype)):
         if img is not None and tuple(img.shape) != (n,):
             raise ValueError(f"{name}: {key} must be tc_mlp.tc_images' [{n}] image of these "
                              f"weights, got {tuple(img.shape)}")

@@ -13,7 +13,9 @@ row together at hidden 256: ``_build.tile_plan``, recorded in
 PyTorch version: ``classic_mlp_fwd_plain``, ``weights_from_density`` and
 the MSE, with gradients from ``torch.autograd`` (with
 ``matmul=tc_mlp.tc_matmul_autograd`` it emulates the kernel's products,
-forward and backward).  ``TrainGradsFunction`` puts the call under
+forward and backward).  bfloat16 encodings run ``compute_dtype="bfloat16"``
+(``train_grads_bf16``, the plain version's ``tc_mlp.bf16_matmul_autograd``;
+``classic_mlp``'s docstring).  ``TrainGradsFunction`` puts the call under
 autograd: its backward hands back the gradients the kernel already
 computed.
 """
@@ -36,6 +38,7 @@ from nerf_tpu_torch.ops.kernels.classic_mlp import (
     classic_mlp_fwd_plain,
     flat_grads_to_packed,
     packed_grads_plain,
+    route,
     scratch_pointers,
     train_scratch,
     weight_pointers,
@@ -70,7 +73,7 @@ def classic_train_grads_plain(
     white_background: bool = False,
     loss_weight: float = 1.0,
     return_weights: bool = False,
-    matmul=torch.matmul,
+    matmul=None,
 ):
     """The kernel's function in plain PyTorch (see ``classic_train_grads``);
     ``matmul`` as in ``classic_mlp_fwd_plain``."""
@@ -122,14 +125,16 @@ def classic_train_grads(
     Returns ``(loss, d_packed)``, plus ``weights`` when asked: the scalar
     MSE ``loss_weight * mean((rgb - pixels)^2)`` and the gradient of every
     packed weight.  CPU tensors run ``classic_train_grads_plain``; CUDA
-    tensors launch the kernel (raising on what it does not take).
+    tensors launch the kernel (raising on what it does not take).  Both
+    encodings bfloat16: ``compute_dtype="bfloat16"``.
     """
     has_view = "wd_in" in packed
     if has_view != (d_enc is not None):
         raise ValueError(f"{NAME}: d_enc must be given iff the weights have a view branch")
     device = check_inputs(NAME, packed, {
         "x_enc": x_enc, "d_enc": d_enc, "dists": dists, "noise": noise, "pixels": pixels,
-    })
+    }, bf16=True)
+    dtype = x_enc.dtype
     n_rays, s = noise.shape
     xe, hidden = packed["w0"].shape
     colors = packed["w_col"].shape[1]
@@ -158,14 +163,15 @@ def classic_train_grads(
         raise ValueError(f"{NAME}: needs at least one ray")
     rows = n_rays * s
     de = d_enc.shape[-1] if has_view else 0
-    policy = _build.tile_plan(NAME, xe, de, hidden).policy
+    fn_name, policy = route(NAME, _build.tile_plan(NAME, xe, de, hidden).policy,
+                            dtype == torch.bfloat16)
     sc = train_scratch(packed, rows, device)
-    tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
+    tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
     loss = torch.empty((1,), dtype=torch.float32, device=device)
     weights = torch.empty((n_rays, s), dtype=torch.float32, device=device) if return_weights else None
     gout = torch.empty_like(sc["out"])
     ray_loss = torch.empty((n_rays,), dtype=torch.float32, device=device)
-    fn = getattr(_build.load(NAME), NAME)
+    fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_enc), dists.data_ptr(), noise.data_ptr(),
         pixels.data_ptr(), loss.data_ptr(), sc["grads"].data_ptr(), _build.ptr(weights),

@@ -14,6 +14,8 @@ model's are) run the float32 SIMT product instead, chosen from the shapes
 ``union_eval_plain`` is its plain PyTorch version: ``classic_mlp_fwd_plain``
 followed by ``weights_from_union_sorted`` and the ``composite_*`` functions
 (with ``matmul=tc_mlp.tc_matmul`` it emulates the kernel's products).
+bfloat16 encodings run ``compute_dtype="bfloat16"`` (``union_eval_bf16``;
+``classic_mlp``'s docstring).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from nerf_tpu_torch.ops.kernels.classic_mlp import (
     Packed,
     check_inputs,
     classic_mlp_fwd_plain,
+    route,
     weight_pointers,
 )
 
@@ -46,7 +49,7 @@ def union_eval_plain(
     dens_c: torch.Tensor,
     col_c: torch.Tensor,
     dnorm: torch.Tensor,
-    matmul=torch.matmul,
+    matmul=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch (see ``union_eval``);
     ``matmul`` as in ``classic_mlp_fwd_plain``."""
@@ -95,7 +98,8 @@ def union_eval(
 
     Returns ``(rgb [R, C], depth [R], acc [R])`` over the union, without a
     background.  CPU tensors run ``union_eval_plain``; CUDA tensors launch
-    the kernel (raising on what it does not take).
+    the kernel (raising on what it does not take).  Both encodings (and
+    ``tc_fwd``) bfloat16: ``compute_dtype="bfloat16"``.
     """
     has_view = "wd_in" in packed
     if has_view != (d_enc is not None):
@@ -103,8 +107,9 @@ def union_eval(
     device = check_inputs(NAME, packed, {
         "x_enc": x_enc, "d_enc": d_enc, "t_coarse": t_coarse, "t_fine": t_fine,
         "dens_c": dens_c, "col_c": col_c, "dnorm": dnorm, "tc_fwd": tc_fwd,
-    })
-    tc_mlp.check_images(NAME, packed, tc_fwd)
+    }, bf16=True)
+    dtype = x_enc.dtype
+    tc_mlp.check_images(NAME, packed, tc_fwd, dtype=dtype)
     n_rays, s_fine = t_fine.shape
     s_coarse = t_coarse.shape[-1]
     xe, hidden = packed["w0"].shape
@@ -133,10 +138,11 @@ def union_eval(
     out = torch.empty((n_rays, colors + 2), dtype=torch.float32, device=device)
     if n_rays:
         de = d_enc.shape[1] if has_view else 0
-        policy = _build.tile_plan(NAME, xe, de, hidden, colors, s_coarse, s_fine).policy
-        if policy == "tc" and tc_fwd is None:
-            tc_fwd = tc_mlp.tc_images(packed)[0]
-        fn = getattr(_build.load(NAME), NAME)
+        plan = _build.tile_plan(NAME, xe, de, hidden, colors, s_coarse, s_fine).policy
+        if plan == "tc" and tc_fwd is None:
+            tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
+        fn_name, policy = route(NAME, plan, dtype == torch.bfloat16)
+        fn = getattr(_build.load(NAME), fn_name)
         err = fn(
             x_enc.data_ptr(), _build.ptr(d_enc), t_coarse.data_ptr(), t_fine.data_ptr(),
             dens_c.data_ptr(), col_c.data_ptr(), dnorm.data_ptr(), out.data_ptr(),

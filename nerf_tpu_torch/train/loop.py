@@ -215,6 +215,8 @@ def make_fused_loss_and_grads(model, render: RenderConfig,
     * hierarchical ``reuse_coarse_in_fine=False``: K2 on the coarse
       samples (its weights drive the resample), then K2 on the merged set.
 
+    The classic kernels take their encodings in ``model.cfg.compute_dtype``
+    (bfloat16 runs their bf16 kernels), as the JAX function casts them.
     ``grads`` is keyed by ``model.named_parameters()``.
     """
     if not supports_fused_train(model, render):
@@ -238,6 +240,7 @@ def make_fused_loss_and_grads(model, render: RenderConfig,
         return reuse_fn
 
     stage_w = 0.5 if hierarchical else 1.0
+    dt = getattr(torch, model.cfg.compute_dtype)
 
     def stage_loss(packed, batch, t_vals, noise):
         x_enc, d_enc = model.encode_inputs_flat(
@@ -245,7 +248,8 @@ def make_fused_loss_and_grads(model, render: RenderConfig,
         )
         dists = compositing.distances_from_tvals(t_vals, batch["rays_d"])
         return train_grads.train_grads_loss(
-            packed, x_enc.contiguous(), None if d_enc is None else d_enc.contiguous(),
+            packed, x_enc.to(dt).contiguous(),
+            None if d_enc is None else d_enc.to(dt).contiguous(),
             dists.contiguous(), noise.contiguous(), batch["pixels"].contiguous(),
             t_vals.shape[-1], render.white_background, stage_w,
         )

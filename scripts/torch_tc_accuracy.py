@@ -13,7 +13,12 @@ For each it prints, relative to the largest entry of the float64 product,
 the largest error, the root-mean-square error and the mean error in the
 direction of each entry (a bias toward zero is negative) of the kernel,
 of the CPU emulation of the same arithmetic (``tc_mlp.tc_matmul``) and of
-PyTorch's float32 product (TF32 off).  Exits non-zero without a GPU.
+PyTorch's float32 product (TF32 off).  Then the same for the bf16 products
+of compute_dtype="bfloat16" (``tc_linear_bf16``, ``tc_wgrad_bf16``): against
+the float64 product of the bf16-rounded operands (the error of the tensor
+cores' sums alone), with the emulation ``tc_mlp.bf16_matmul`` beside them,
+and the bf16 product's distance from the float64 product of the unrounded
+operands.  Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -73,6 +78,27 @@ def main() -> int:
                                              "emulated": tc_mlp.tc_matmul(a.t(), b),
                                              "float32": a.t() @ b},
                a.double().t() @ b.double())
+
+    r = tc_mlp.bf16_round
+    a, w = rand(rows, k), rand(k, h)
+    out = torch.empty((rows, h), device=device)
+    _build.check_launch("tc_linear_bf16", lib.tc_linear_bf16(
+        a.data_ptr(), tc_mlp.operand_image(w.t(), torch.bfloat16).data_ptr(), out.data_ptr(),
+        rows, k, h, stream))
+    torch.cuda.synchronize()
+    report(f"tc_linear_bf16 {rows}x{k}x{h} vs rounded operands",
+           {"kernel": out, "emulated": tc_mlp.bf16_matmul(a, w)}, r(a).double() @ r(w).double())
+    report(f"tc_linear_bf16 {rows}x{k}x{h} vs unrounded", {"kernel": out},
+           a.double() @ w.double())
+    for points in (1000, 15744):
+        a, b = rand(points, h), rand(points, h)
+        out = torch.empty((h, h), device=device)
+        _build.check_launch("tc_wgrad_bf16", lib.tc_wgrad_bf16(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), points, h, h, stream))
+        torch.cuda.synchronize()
+        report(f"tc_wgrad_bf16 {points} points vs rounded operands",
+               {"kernel": out, "emulated": tc_mlp.bf16_matmul(a.t(), b)},
+               r(a).double().t() @ r(b).double())
     return 0
 
 

@@ -1,6 +1,7 @@
 """Where a train step of the PyTorch/CUDA port spends its device time.
 
     python scripts/torch_train_profile.py [--steps 5] [--out profile.json]
+                                          [--compute-dtype bfloat16]
 
 Trains the models of ``chip_smoke.py`` (seed 0) on its synthetic scenes
 through ``make_fused_multi_step_train_fn`` in each of its training
@@ -19,7 +20,10 @@ each MLP pass labelled as ``chip_smoke.PASSES`` names it: K1-bwd's, K2's,
 K3's, K6's and K9's ``fwd_store``, ``bwd_rows`` and ``wgrad`` and K1-fwd's
 tile run their products as 3xTF32 on the tensor cores) and the device's
 idle share (1 - busy / span of the first to the last kernel); ``--out``
-also writes them as JSON.  Exits non-zero without a GPU.
+also writes them as JSON.  With ``--compute-dtype bfloat16`` it profiles
+the two classic configurations only (the reuse and the coarse-only step),
+in compute_dtype bfloat16 (every pass a bf16 ``wgmma``).  Exits non-zero
+without a GPU.
 """
 
 from __future__ import annotations
@@ -114,7 +118,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--out", help="also write the result as JSON to this file")
+    p.add_argument("--compute-dtype", default="float32", choices=("float32", "bfloat16"))
     args = p.parse_args(argv)
+    bf16 = args.compute_dtype == "bfloat16"
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -124,10 +130,18 @@ def main(argv=None) -> int:
     print(card)
     scene = synthesize_scene(num_views=8, image_hw=64, focal=80.0, device=device)
     bank = RayBank.from_images(scene.images, scene.pose_o, scene.pose_r, scene.focal)
-    result = {"card": card}
+    result = {"card": card, "compute_dtype": args.compute_dtype}
+    dt = dict(compute_dtype=args.compute_dtype)
     result["reuse_2048x(64+128)"] = profile_config(
-        "reuse 2048x(64+128)", chip_smoke.make_model(True, device), chip_smoke.TRAIN_RENDER,
+        "reuse 2048x(64+128)", chip_smoke.make_model(True, device, **dt), chip_smoke.TRAIN_RENDER,
         chip_smoke.TRAIN_RAYS, bank, args.steps, device)
+    if bf16:
+        result["coarse_4096x64"] = profile_config(
+            "coarse-only 4096x64", chip_smoke.make_model(True, device, **dt),
+            chip_smoke.COARSE_RENDER, chip_smoke.COARSE_RAYS, bank, args.steps, device)
+        if args.out:
+            Path(args.out).write_text(json.dumps(result, indent=2))
+        return 0
     run_mega = mega_steps(chip_smoke.make_model(True, device), chip_smoke.TRAIN_RENDER, bank,
                           chip_smoke.TRAIN_RAYS, device)
     result["mega_2048x(64+128)"] = profile_steps(

@@ -52,6 +52,7 @@ from nerf_tpu_torch.ops.kernels import (
     train_grads,
     union_eval,
 )
+from nerf_tpu_torch.testing import bf16_step_reference, plain_versions
 
 K1_TOL = dict(rtol=1e-4, atol=1e-4)
 K4_TOL = dict(rtol=5e-4, atol=1e-4)
@@ -284,19 +285,19 @@ def policy_moves(before: dict) -> dict:
             if v != before.get(k, 0)}
 
 
-def rows_away_from_kinks(packed, gen, rays, s, xe, d_ray):
+def rows_away_from_kinks(packed, gen, rays, s, xe, d_ray, matmul=torch.matmul):
     """``[rays, s, xe]`` encodings whose every row, with its ray's view
     encoding ``d_ray [rays, de]`` (``None`` without the view branch), has
     all its ReLU inputs farther than 1e-5 from 0: per ray the first ``s``
     of ``2 s + 8`` candidate rows drawn from ``gen`` (see
     ``away_from_kinks``: nearer the kink two float32-accurate evaluations,
     the kernel's and the plain one, can take different branches and move
-    that row's whole gradient)."""
+    that row's whole gradient; ``matmul`` as in ``kink_margin``)."""
     m = 2 * s + 8
     cand = rand(gen, rays, m, xe)
     d = None if d_ray is None else d_ray[:, None].expand(rays, m, -1).reshape(rays * m, -1)
     with torch.no_grad():
-        keep = (kink_margin(packed, cand.reshape(rays * m, xe), d) > 1e-5).reshape(rays, m)
+        keep = (kink_margin(packed, cand.reshape(rays * m, xe), d, matmul) > 1e-5).reshape(rays, m)
     idx = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)[:, :s]
     assert bool(keep.gather(1, idx).all()), "too few candidate rows away from the kinks"
     return cand.gather(1, idx[..., None].expand(rays, s, xe)).contiguous()
@@ -851,9 +852,19 @@ def test_mip_wrappers_raise_instead_of_falling_back(cuda):
     cfg, packed = mip_packed("small", cuda)
     with pytest.raises(ValueError, match="cpu"):
         mip_mlp.mip_mlp_fwd(packed, torch.zeros(4, cfg.feature_dim))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        mip_mlp.mip_mlp_fwd(packed, torch.zeros(4, cfg.feature_dim, device=cuda,
-                                                dtype=torch.bfloat16))
+    # bfloat16 on the mip kernels (K5-K7): raises, naming the queued slice.
+    features16 = torch.zeros(4, cfg.feature_dim, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="next bf16 slice"):
+        mip_mlp.mip_mlp_fwd(packed, features16)
+    with pytest.raises(NotImplementedError, match="next bf16 slice"):
+        mip_mlp.mip_mlp_bwd(packed, features16, torch.zeros(4, 54, device=cuda))
+    a16 = mip_inputs(cfg, cuda, rays=2, rows=7)
+    a16["features"] = a16["features"].bfloat16()
+    with pytest.raises(NotImplementedError, match="next bf16 slice"):
+        mip_train.mip_eval(packed, a16["features"], a16["dists"], a16["t_mids"])
+    with pytest.raises(NotImplementedError, match="next bf16 slice"):
+        mip_train.mip_train_grads(packed, a16["features"], a16["dists"], a16["noise"],
+                                  a16["pixels"], a16["labels"], seg_weight=0.1)
     packed48 = mip_mlp.pack_mip_params(
         MipMLP(MipNeRFConfig(hidden_size=48), device=cuda).requires_grad_(False))
     with pytest.raises(ValueError, match="hidden width"):
@@ -949,9 +960,9 @@ def test_classic_pointmlp_fwd_kernel_matches_plain(cuda, variant, points):
     torch.testing.assert_close(out, classic_mlp.classic_mlp_fwd(packed, x_enc, d_enc), **K1_TOL)
 
 
-def kink_margin(packed, x_enc, d_enc):
+def kink_margin(packed, x_enc, d_enc, matmul=torch.matmul):
     """Per row, the smallest |ReLU input| of the plain forward
-    (``classic_mlp_fwd_plain``'s layers)."""
+    (``classic_mlp_fwd_plain``'s layers; ``matmul`` its products)."""
     whh, margins = packed["whh"], []
 
     def layer(i, pre):
@@ -959,14 +970,14 @@ def kink_margin(packed, x_enc, d_enc):
         margins.append(a.abs().amin(-1))
         return F.layer_norm(torch.relu(a), a.shape[-1:], packed["g"][i], packed["beta"][i], 1e-5)
 
-    h = layer(0, x_enc @ packed["w0"])
+    h = layer(0, matmul(x_enc, packed["w0"]))
     for i in (1, 2, 3):
-        h = layer(i, h @ whh[i - 1])
-    h = layer(4, h @ whh[3] + x_enc @ packed["wx"])
+        h = layer(i, matmul(h, whh[i - 1]))
+    h = layer(4, matmul(h, whh[3]) + matmul(x_enc, packed["wx"]))
     for i in (5, 6, 7):
-        h = layer(i, h @ whh[i - 1])
+        h = layer(i, matmul(h, whh[i - 1]))
     if "wd_in" in packed:
-        layer(9, layer(8, h @ whh[7] + d_enc @ packed["wd_in"]) @ whh[8])
+        layer(9, matmul(layer(8, matmul(h, whh[7]) + matmul(d_enc, packed["wd_in"])), whh[8]))
     return torch.stack(margins).amin(0)
 
 
@@ -1499,3 +1510,276 @@ def test_point_and_mega_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="limit"):
         mega_train.mega_train(packed, *inputs)
     assert dict(_build.launch_counts) == launches
+
+
+# -- compute_dtype="bfloat16": K1-fwd, K1-bwd, K2, K3 and K4 ---------------
+
+# Relative L2 bounds of a bf16 kernel against its plain bf16 version (the
+# same roundings, the products summed in another order, and by the tensor
+# cores with truncation): outputs and losses 1e-2, gradients 2e-2, over
+# each whole output or all gradients together (a single float32 rounding
+# can move an activation to the other bf16 neighbour, so element-wise
+# float32 tolerances do not apply).  K1-bwd runs on the cotangents of a
+# loss over many rows (``loss_cotangent``), as a train step hands it: the
+# weight gradients of random cotangents at a few hundred rows, sums of
+# terms of either sign, move by 2e-2 to 6e-2 between two float32-accurate
+# bf16 evaluations at hidden 128 and 256, and so do each row's input
+# cotangents (``scripts/torch_bf16_sensitivity.py``).  The float32 kernel
+# on the same inputs must fail the check (``assert_check_sees_float32``).
+BF16_FWD = 1e-2
+BF16_GRAD = 2e-2
+BF16_ROWS = 16384
+
+
+def rel_l2(got, ref) -> float:
+    got, ref = got.double().ravel(), ref.double().ravel()
+    return float((got - ref).norm() / ref.norm())
+
+
+def packed_rel_l2(got: dict, ref: dict) -> float:
+    assert got.keys() == ref.keys()
+    return rel_l2(torch.cat([got[k].ravel() for k in ref]), torch.cat([ref[k].ravel() for k in ref]))
+
+
+def assert_bf16_grads(got: dict, ref: dict) -> None:
+    err = packed_rel_l2(got, ref)
+    assert err <= BF16_GRAD, err
+
+
+def assert_check_sees_float32(f32: dict, ref: dict) -> None:
+    """The float32 kernel's gradients on a bf16 check's inputs fail it."""
+    err = packed_rel_l2(f32, ref)
+    assert err > BF16_GRAD, err
+
+
+def loss_cotangent(packed, x, d) -> torch.Tensor:
+    """K1's output cotangents under ``test_pallas.py``'s bf16 objective,
+    mean(density^2) + mean(sin(color)), at the plain forward."""
+    out = classic_mlp.classic_mlp_fwd_plain(packed, x, d)
+    n, c = out.shape[0], out.shape[1] - 1
+    return torch.cat([2 * out[:, :1] / n, torch.cos(out[:, 1:]) / (n * c)], -1)
+
+
+def bf16(a: dict) -> dict:
+    return {k: v.bfloat16() if k in ("x_enc", "d_enc") and v is not None else v
+            for k, v in a.items()}
+
+
+BF16_VARIANTS = ["full_width", "latent_full_width", "latent"]
+
+
+def bf16_route(cfg, kernel, *shape):
+    return _build.tile_plan(kernel, cfg.x_encoding_dim,
+                            cfg.d_encoding_dim if cfg.use_viewdirs else 0, cfg.hidden_size,
+                            *shape).policy + "_bf16"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", BF16_VARIANTS)
+def test_bf16_forward_kernels_match_plain(cuda, variant):
+    """K1-fwd and K4 in bf16 against their plain bf16 versions: the
+    tensor-core tile at full width (tc_bf16), the SIMT tile at a latent
+    model's 100 + 48 (simt_bf16)."""
+    cfg, packed = packed_weights(variant, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = rand(gen, 1000, cfg.x_encoding_dim).bfloat16()
+    d = rand(gen, 1000, cfg.d_encoding_dim).bfloat16()
+    policies = dict(_build.policy_counts)
+    out = classic_mlp.classic_mlp_fwd(packed, x, d)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {(classic_mlp.NAME, bf16_route(cfg, classic_mlp.NAME)): 1}
+    assert out.dtype == torch.float32
+    assert rel_l2(out, classic_mlp.classic_mlp_fwd_plain(packed, x, d)) <= BF16_FWD
+    args = list(union_args(cfg, packed, cuda, rays=37, sc=64, sf=128))
+    args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
+    policies = dict(_build.policy_counts)
+    got = union_eval.union_eval(*args)
+    torch.cuda.synchronize()
+    want = bf16_route(cfg, union_eval.NAME, 3, 64, 128)
+    assert policy_moves(policies) == {(union_eval.NAME, want): 1}
+    for g, r in zip(got, union_eval.union_eval_plain(*args)):
+        assert rel_l2(g, r) <= BF16_FWD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_grads", [False, True])
+@pytest.mark.parametrize("variant", BF16_VARIANTS)
+def test_bf16_classic_mlp_bwd_matches_plain(cuda, variant, input_grads):
+    """K1-bwd in bf16, always on the tensor-core passes (fwd_store on its
+    SIMT tile at the latent width), the encodings' cotangents bfloat16, on
+    BF16_ROWS rows away from the kinks and a loss's cotangents; the float32
+    kernel on the same inputs fails the check."""
+    cfg, packed = packed_weights(variant, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    d = rand(gen, BF16_ROWS, cfg.d_encoding_dim)
+    x = rows_away_from_kinks(packed, gen, BF16_ROWS, 1, cfg.x_encoding_dim, d,
+                             tc_mlp.bf16_matmul).reshape(BF16_ROWS, -1).bfloat16()
+    d = d.bfloat16()
+    g_out = loss_cotangent(packed, x, d)
+    policies = dict(_build.policy_counts)
+    dx, dd, d_packed = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads=input_grads)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {
+        (classic_mlp.BWD_NAME, bf16_route(cfg, classic_mlp.BWD_NAME)): 1}
+    rdx, rdd, ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads)
+    assert_bf16_grads(d_packed, ref)
+    assert_check_sees_float32(
+        classic_mlp.classic_mlp_bwd(packed, x.float(), d.float(), g_out, False)[2], ref)
+    if input_grads:
+        assert dx.dtype == dd.dtype == torch.bfloat16
+        assert_bf16_grads({"dx": dx, "dd": dd}, {"dx": rdx, "dd": rdd})
+    else:
+        assert dx is None and dd is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", BF16_VARIANTS)
+def test_bf16_train_kernels_match_plain(cuda, variant):
+    """K2 and K3 in bf16 against their plain bf16 versions, bitwise
+    repeatable."""
+    cfg, packed = packed_weights(variant, cuda)
+    a = bf16(train_inputs(cfg, cuda, rays=3, s=64))
+    policies = dict(_build.policy_counts)
+    loss, grads, weights = train_grads.classic_train_grads(packed, **a, num_samples=64,
+                                                           loss_weight=0.5, return_weights=True)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {(train_grads.NAME, bf16_route(cfg, train_grads.NAME)): 1}
+    r_loss, ref, r_weights = train_grads.classic_train_grads_plain(
+        packed, **a, num_samples=64, loss_weight=0.5, return_weights=True)
+    assert rel_l2(loss, r_loss) <= BF16_FWD and rel_l2(weights, r_weights) <= BF16_FWD
+    assert_bf16_grads(grads, ref)
+    again = train_grads.classic_train_grads(packed, **a, num_samples=64, loss_weight=0.5)
+    assert torch.equal(again[0], loss) and all(torch.equal(again[1][k], grads[k]) for k in grads)
+    a = bf16(fine_inputs(cfg, cuda, rays=3, sc=64, sf=128))
+    policies = dict(_build.policy_counts)
+    loss, grads, (gdc, gcc) = fine_stage_train.fine_stage_train(packed, **a, loss_weight=0.5)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {
+        (fine_stage_train.NAME, bf16_route(cfg, fine_stage_train.NAME)): 1}
+    r_loss, ref, (r_gdc, r_gcc) = fine_stage_train.fine_stage_train_plain(packed, **a,
+                                                                          loss_weight=0.5)
+    assert rel_l2(loss, r_loss) <= BF16_FWD
+    assert_bf16_grads({**grads, "g_dens_c": gdc, "g_col_c": gcc},
+                      {**ref, "g_dens_c": r_gdc, "g_col_c": r_gcc})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", [True, False])
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_bf16_kernels_match_plain_at_every_width(cuda, hidden, view):
+    """Every hidden width's bf16 products (m64nNk16 for N / 2 = 16 .. 128,
+    the input cotangents' passes of min(H, 64) columns), with and without
+    the view branch: K1-fwd, K1-bwd with the encodings' cotangents (on
+    BF16_ROWS rows away from the kinks and a loss's cotangents; the
+    float32 kernel fails the check) and K2."""
+    cfg, packed = width_packed(cuda, hidden, view)
+    gen = torch.Generator(device=cuda).manual_seed(hidden)
+    d = rand(gen, BF16_ROWS, cfg.d_encoding_dim) if view else None
+    x = rows_away_from_kinks(packed, gen, BF16_ROWS, 1, cfg.x_encoding_dim, d,
+                             tc_mlp.bf16_matmul).reshape(BF16_ROWS, -1).bfloat16()
+    d = None if d is None else d.bfloat16()
+    out = classic_mlp.classic_mlp_fwd(packed, x, d)
+    assert rel_l2(out, classic_mlp.classic_mlp_fwd_plain(packed, x, d)) <= BF16_FWD
+    g_out = loss_cotangent(packed, x, d)
+    dx, dd, d_packed = classic_mlp.classic_mlp_bwd(packed, x, d, g_out)
+    rdx, rdd, ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out)
+    assert_bf16_grads(d_packed, ref)
+    assert_check_sees_float32(classic_mlp.classic_mlp_bwd(
+        packed, x.float(), None if d is None else d.float(), g_out, False)[2], ref)
+    assert_bf16_grads({"dx": dx, **({"dd": dd} if view else {})},
+                      {"dx": rdx, **({"dd": rdd} if view else {})})
+    a = bf16(train_inputs(cfg, cuda, rays=2, s=33))
+    loss, grads = train_grads.classic_train_grads(packed, **a, num_samples=33)
+    r_loss, ref = train_grads.classic_train_grads_plain(packed, **a, num_samples=33)
+    torch.cuda.synchronize()
+    assert rel_l2(loss, r_loss) <= BF16_FWD
+    assert_bf16_grads(grads, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 100])
+@pytest.mark.parametrize("k", [5, 36, 60, 256])
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_tc_linear_bf16_is_the_bf16_product(cuda, hidden, k, rows):
+    """tc_gemm's bf16 product alone on a bf16 operand image: the float64
+    product of the bf16-rounded operands within 1e-6 sqrt(k) of its largest
+    entry (the tensor cores' truncating sums), and the emulation
+    ``tc_mlp.bf16_matmul`` as close."""
+    gen = torch.Generator(device=cuda).manual_seed(hidden + k + rows)
+    a, w = rand(gen, rows, k), rand(gen, k, hidden)
+    out = torch.empty((rows, hidden), device=cuda)
+    img = tc_mlp.operand_image(w.t(), torch.bfloat16)
+    err = tc_product("tc_linear_bf16")(a.data_ptr(), img.data_ptr(), out.data_ptr(), rows, k,
+                                       hidden, torch.cuda.current_stream(cuda).cuda_stream)
+    _build.check_launch("tc_linear_bf16", err)
+    torch.cuda.synchronize()
+    exact = tc_mlp.bf16_round(a).double() @ tc_mlp.bf16_round(w).double()
+    scale = float(exact.abs().max())
+    assert float((out.double() - exact).abs().max()) <= 1e-6 * scale * k ** 0.5
+    assert float((out - tc_mlp.bf16_matmul(a, w)).abs().max()) <= 1e-6 * scale * k ** 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", [1, 100, 1000])
+@pytest.mark.parametrize("m,n", [(60, 256), (256, 256), (36, 32), (256, 64)])
+def test_tc_wgrad_bf16_is_the_bf16_product(cuda, m, n, points):
+    """wgrad's bf16 product alone (B rounded as it is transposed, A as its
+    fragments are built): the float64 product of the rounded operands."""
+    gen = torch.Generator(device=cuda).manual_seed(m + n + points)
+    a, b = rand(gen, points, m), rand(gen, points, n)
+    out = torch.empty((m, n), device=cuda)
+    err = tc_product("tc_wgrad_bf16")(a.data_ptr(), b.data_ptr(), out.data_ptr(), points, m, n,
+                                      torch.cuda.current_stream(cuda).cuda_stream)
+    _build.check_launch("tc_wgrad_bf16", err)
+    torch.cuda.synchronize()
+    exact = tc_mlp.bf16_round(a).double().t() @ tc_mlp.bf16_round(b).double()
+    scale = float(exact.abs().max())
+    assert float((out.double() - exact).abs().max()) <= 1e-6 * scale * points ** 0.5
+
+
+@pytest.mark.cuda
+def test_bf16_model_paths_launch_the_bf16_kernels(cuda):
+    """A bf16 ClassicNeRF at full width: a frame tile through K1-fwd and K4,
+    the reuse step (K1-fwd, K3, one K1-bwd) and the coarse-only step (K2),
+    every call on tc_bf16, each within the bounds of its plain bf16 path
+    (``bf16_step_reference``: the step with the five wrappers' plain
+    versions).  The steps take the cells' batches, 2048 and 4096 rays: at
+    64 rays a few rows' bf16 roundings move the gradients by 2e-2."""
+    from nerf_tpu_torch.train import make_fused_loss_and_grads
+
+    cfg = ClassicNeRFConfig(hidden_size=256, use_pallas=True, compute_dtype="bfloat16")
+    model = ClassicNeRF(cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    with torch.no_grad():  # mass in every bin (see chip_smoke.py)
+        model.mlp.density.bias.fill_(0.5)
+        model.mlp.density.weight.mul_(0.05)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    o, d = rand(gen, 64, 3) * 0.3, rand(gen, 64, 3)
+    render = RenderConfig(num_coarse_samples=64, num_fine_samples=128, randomly_sample=False,
+                          density_noise_std=0.0)
+    _build.policy_counts.clear()
+    with torch.no_grad():
+        out = model.render_rays(o, d, render, fused_eval=True)
+        torch.cuda.synchronize()
+        assert dict(_build.policy_counts) == {(classic_mlp.NAME, "tc_bf16"): 1,
+                                              (union_eval.NAME, "tc_bf16"): 1}
+        with plain_versions():
+            ref = model.render_rays(o, d, render, fused_eval=True)
+    assert rel_l2(out.rgb[:, -1], ref.rgb[:, -1]) <= BF16_FWD
+    for n_rays, render, launches in (
+        (2048, RenderConfig(num_coarse_samples=64, num_fine_samples=128, density_noise_std=1.0),
+         {classic_mlp.NAME: 1, fine_stage_train.NAME: 1, classic_mlp.BWD_NAME: 1}),
+        (4096, RenderConfig(num_coarse_samples=64, density_noise_std=1.0), {train_grads.NAME: 1}),
+    ):
+        batch = dict(rays_o=rand(gen, n_rays, 3) * 0.3, rays_d=rand(gen, n_rays, 3),
+                     pixels=rand(gen, n_rays, 3, lo=0.0, hi=1.0))
+        draws = sampling.draw_step(torch.Generator(device=cuda).manual_seed(1), render, n_rays,
+                                   cuda)
+        _build.launch_counts.clear()
+        _build.policy_counts.clear()
+        loss, grads, _ = make_fused_loss_and_grads(model, render)(batch, draws)
+        torch.cuda.synchronize()
+        assert dict(_build.launch_counts) == launches
+        assert set(_build.policy_counts) == {(k, "tc_bf16") for k in launches}
+        r_loss, ref = bf16_step_reference(model, render, batch, draws)
+        assert rel_l2(loss, r_loss) <= BF16_FWD
+        assert_bf16_grads(grads, ref)

@@ -19,7 +19,8 @@ from nerf_tpu import ClassicNeRFConfig as JaxConfig
 from nerf_tpu.ops.pallas import fused_hier, fused_mlp
 from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, RenderConfig
 from nerf_tpu_torch.models.mlp import ClassicMLP
-from nerf_tpu_torch.ops.kernels import _build, classic_mlp, union_eval
+from nerf_tpu_torch.ops import sampling
+from nerf_tpu_torch.ops.kernels import _build, classic_mlp, mega_train, point_mlp, union_eval
 from nerf_tpu_torch.utils.pth_import import classic_state_dict_from_jax_params
 
 VARIANTS = {
@@ -125,24 +126,31 @@ def test_pack_round_trips_through_plain_forward():
 
 
 def test_bfloat16_is_not_implemented():
-    cfg, _, mlp = setup_variant("view")
-    packed = classic_mlp.pack_classic_params(mlp)
-    x, d = mlp_inputs(cfg, n=8)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        classic_mlp.classic_mlp_fwd(
-            packed, torch.from_numpy(x).bfloat16(), torch.from_numpy(d).bfloat16()
-        )
-    a = to_torch(union_inputs(cfg, rays=2))
-    a["x_enc"] = a["x_enc"].bfloat16()
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        union_eval.union_eval(packed, **a)
+    """bfloat16 on the point-MLP kernels (K8) and the one-call reuse step
+    (K9) raises, naming the bf16 slice queued for them; the classic main
+    path's kernels take it (``test_torch_bf16.py``)."""
     model = ClassicNeRF(
         ClassicNeRFConfig(hidden_size=32, use_pallas=True, compute_dtype="bfloat16"),
         generator=torch.Generator().manual_seed(0), device="cpu",
     )
-    render = RenderConfig(num_coarse_samples=4, randomly_sample=False)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="bfloat16"):
-        model.render_rays(torch.zeros(2, 3), torch.ones(2, 3), render)
+    cfg = model.cfg
+    with pytest.raises(NotImplementedError, match="next bf16 slice"):
+        point_mlp.classic_pointmlp(model, torch.zeros(2, 3), torch.ones(2, 3),
+                                   cfg.x_positional_encoding_size, cfg.normalize_position,
+                                   cfg.d_positional_encoding_size, cfg.direction_bound)
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    consts = point_mlp.encoding_consts(cfg.x_positional_encoding_size, cfg.normalize_position,
+                                       cfg.d_positional_encoding_size, cfg.direction_bound,
+                                       torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="next bf16 slice"):
+        point_mlp.classic_pointmlp_fwd(packed, torch.zeros(2, 3, dtype=torch.bfloat16),
+                                       torch.ones(2, 3, dtype=torch.bfloat16), consts)
+    render = RenderConfig(num_coarse_samples=4, num_fine_samples=4, randomly_sample=False)
+    t_c = sampling.sample_linear(None, (2,), 4, 2.0, 6.0, randomly_sample=False, device="cpu")
+    draws = sampling.StepDraws(t_c, torch.zeros(2, 4), torch.rand(2, 4), torch.zeros(2, 4))
+    batch = dict(rays_o=torch.zeros(2, 3), rays_d=torch.ones(2, 3), pixels=torch.zeros(2, 3))
+    with pytest.raises(NotImplementedError, match="next bf16 slice"):
+        mega_train.mega_train_loss_and_grads(model, render, batch, draws)
 
 
 def test_requires_grad_is_not_implemented():
