@@ -145,13 +145,30 @@
    and both bf16 bounds (FLOP at 989 TFLOP/s, bytes at 3.35 TB/s); one
    bf16 K2 at the latent width 100 + 36 on its SIMT ``fwd_store``
    (``simt_bf16``).
-16. Prints the kernels' JSON line (each row with its float32 bound and
+16. compute_dtype="bfloat16" for the mip family (slice 13), the full-width
+   MipNeRF of phases 7-10 with ``compute_dtype="bfloat16"``: one 400x400
+   frame at 64 fenceposts (the counters zeroed just before and read just
+   after: 40 K7, all ``tc_bf16``) against the plain bf16 frame (the four
+   mip wrappers' plain versions, ``plain_versions``) in relative L2 and
+   the float32 frame of phase 7 at the JAX package's bf16 bound, with the
+   seg/acc identity; one fused step at 4096 x 64 with the seg CE against
+   the plain bf16 step (loss, gradients) and the float32 kernel step
+   (cosine), then 2 warm-up and 20 timed steps (one K6 a step, all
+   ``tc_bf16``), ms/step and rays/s beside phase 8's; one general-path
+   step (one K5-fwd and one K5-bwd, ``tc_bf16``) against the plain bf16
+   step; K7, K6, K5-fwd and K5-bwd (with and without the features'
+   cotangent, which is bfloat16) against their plain bf16 versions on
+   those paths' arguments, the float32 kernel on the same inputs beside
+   each gradient check, with their times and both bf16 bounds; the head's
+   rounding held directly against the float64 products of its rounded
+   operands; K5-fwd at 144 features on its SIMT tile (``simt_bf16``).
+17. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
    each, ``products``: how its MLP products run, and since which slice,
    ``cli_launches``: its launches in phase 14, and its bf16 entries from
-   phase 15, ``bf16_ms``, ``bf16_bound_ms``, ``bf16_launches`` and the
-   rest, null for the seven kernels without a bf16 path), the card line,
-   then, last, the device line.
+   phases 15 and 16, ``bf16_ms``, ``bf16_bound_ms``, ``bf16_launches`` and
+   the rest, null for the three kernels without a bf16 path: K8-fwd,
+   K8-bwd and K9), the card line, then, last, the device line.
 
 The classic model is the full-width ClassicNeRF (hidden 256, 60 + 36
 encoding widths, 638,468 parameters) with random weights from seed 0.  Its density
@@ -202,7 +219,7 @@ from nerf_tpu_torch.ops.kernels import (
     train_grads,
     union_eval,
 )
-from nerf_tpu_torch.testing import bf16_step_reference, plain_versions
+from nerf_tpu_torch.testing import bf16_step_reference, mip_head_rounding, plain_versions
 from nerf_tpu_torch.train import (
     checkpoint,
     create_train_state,
@@ -334,6 +351,7 @@ SOURCES = {
 
 # How each kernel's MLP products run, and since which slice of the port.
 BF16_PRODUCTS = "; bf16 wgmma in compute_dtype bfloat16 (slice 12)"
+MIP_BF16_PRODUCTS = "; bf16 wgmma in compute_dtype bfloat16 (slice 13)"
 PRODUCTS = {
     "classic_mlp_fwd": "3xTF32 (slice 7)" + BF16_PRODUCTS,
     "union_eval": "3xTF32 (slice 5)" + BF16_PRODUCTS,
@@ -341,8 +359,10 @@ PRODUCTS = {
     + BF16_PRODUCTS,
     "train_grads": "3xTF32 (slice 6)" + BF16_PRODUCTS,
     "fine_stage_train": "3xTF32 (slice 6)" + BF16_PRODUCTS,
-    "mip_mlp_fwd": "3xTF32 (slice 10)", "mip_mlp_bwd": "3xTF32 (slice 9)",
-    "mip_eval": "3xTF32 (slice 8)", "mip_train_grads": "3xTF32 (slice 8)",
+    "mip_mlp_fwd": "3xTF32 (slice 10)" + MIP_BF16_PRODUCTS,
+    "mip_mlp_bwd": "3xTF32 (slice 9)" + MIP_BF16_PRODUCTS,
+    "mip_eval": "3xTF32 (slice 8)" + MIP_BF16_PRODUCTS,
+    "mip_train_grads": "3xTF32 (slice 8)" + MIP_BF16_PRODUCTS,
     "classic_pointmlp_fwd": "3xTF32 (slice 10)", "classic_pointmlp_bwd": "3xTF32 (slice 9)",
     "mega_train": "3xTF32 (slice 5)",
 }
@@ -369,8 +389,8 @@ def kernel_label(mangled: str) -> str:
     """A mangled kernel name's last identifier and its int and bool template
     arguments (types left out): ``_ZN8nerf_mlp15bwd_rows_kernelILi256EE...`` ->
     ``bwd_rows_kernel<256>``, ``...wgrad_tc_kernelILb1EE...`` ->
-    ``wgrad_tc_kernel<true>`` (the classic kernels' bool is kBf16, the mip
-    tiles' kSave)."""
+    ``wgrad_tc_kernel<true>`` (a kernel's last bool is kBf16; the SIMT mip
+    tile's first is kSave)."""
     i, parts = mangled.find("N") + 1, []
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -404,10 +424,11 @@ PASSES = {
     "bwd_rows_kernel": "bwd_rows, fp32 SIMT",
     "wgrad_kernel": "wgrad, fp32 SIMT",
     "colsum_kernel": "colsum",
-    "mip_fwd_store_tc_kernel": "mip fwd_store (K5-bwd, K6), 3xTF32 wgmma",
-    "mip_fwd_tc_kernel": "mip forward tile (K5-fwd, K7), 3xTF32 wgmma",
-    "mip_bwd_rows_tc_kernel": "mip bwd_rows (K5-bwd, K6), 3xTF32 wgmma",
-    "mip_fwd_kernel": "mip forward tile, fp32 SIMT (wide features)",
+    "mip_fwd_store_tc_kernel": "mip fwd_store (K5-bwd, K6), 3xTF32 (bf16 if <..., true>) wgmma",
+    "mip_fwd_tc_kernel": "mip forward tile (K5-fwd, K7), 3xTF32 (bf16 if <..., true>) wgmma",
+    "mip_bwd_rows_tc_kernel": "mip bwd_rows (K5-bwd, K6), 3xTF32 (bf16 if <..., true>) wgmma",
+    "mip_fwd_kernel":
+        "mip forward tile, fp32 SIMT (wide features; bf16 operands if <H, kSave, true>)",
     "encode_bwd_kernel": "K8-bwd chain rule to the raw inputs, fp32",
     "mip_objective_kernel": "K6 compositing and losses",
     "mip_eval_rays_kernel": "K7 compositing",
@@ -545,8 +566,8 @@ def make_model(use_pallas: bool, device, **cfg_kwargs) -> ClassicNeRF:
     return model
 
 
-def make_mip_model(use_pallas: bool, device) -> MipNeRF:
-    cfg = MipNeRFConfig(use_pallas=use_pallas)
+def make_mip_model(use_pallas: bool, device, **cfg_kwargs) -> MipNeRF:
+    cfg = MipNeRFConfig(use_pallas=use_pallas, **cfg_kwargs)
     return MipNeRF(cfg, generator=torch.Generator().manual_seed(0), device=device)
 
 
@@ -819,9 +840,9 @@ def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
     return rows
 
 
-def mip_serving(device, flops_per_point: int) -> dict:
+def mip_serving(device, flops_per_point: int, keep: dict) -> dict:
     """Phase 7: K7 against its plain version, then the mip frame.  Returns
-    K7's row."""
+    K7's row; the frame and its time go to ``keep``."""
     model = make_mip_model(True, device).eval().requires_grad_(False)
     plain_model = make_mip_model(False, device).eval().requires_grad_(False)
     weight_bytes = tensor_bytes(*mip_mlp.pack_mip_params(model.mlp).values())
@@ -895,13 +916,58 @@ def mip_serving(device, flops_per_point: int) -> dict:
     identity_err = compare("seg_identity", [lse], [torch.log(acc + rows_per_ray * 1e-10)])
     print(f"mip frame: {frame_ms:.1f} ms through the kernels, {plain_frame_ms:.1f} ms plain, "
           f"max pixel difference {pixel_err:.3e}, seg/acc identity error {identity_err:.3e}")
+    keep.update(frame=(rgb, seg), frame_ms=frame_ms)
     return {"mip_eval": (launches["mip_eval"], k7)}
 
 
-def mip_training(device, store: dict) -> dict:
+def mip_train_run(name, bank, device, store: dict, policy: str = "tc", **cfg_kwargs):
+    """Warm-up then timed fused mip steps (4096 x 64, seg 0.1; one K6 a
+    step), the counters zeroed just before the timed steps; the probe
+    batch's loss taken before and after.  The first K6 call of the warm-up
+    has its arguments recorded in ``store``.  Every launch must run the
+    ``policy`` tile.  Returns (launches, ms per step)."""
+    render = MIP_TRAIN_RENDER
+    model = make_mip_model(True, device, **cfg_kwargs)
+    state = create_train_state(model, LEARNING_RATE, seed=0)
+    gen = torch.Generator(device=device).manual_seed(99)
+    probe = (bank.sample_batch(gen, MIP_RAYS),
+             loop.draws_for_model(gen, model, render, MIP_RAYS, device))
+    probe_loss = make_fused_loss_and_grads(model, render, SEG_WEIGHT)
+    loss_before = float(probe_loss(*probe)[0])
+    warm = make_fused_multi_step_train_fn(model, render, bank, MIP_RAYS, WARMUP_STEPS,
+                                          SEG_WEIGHT)
+    timed = make_fused_multi_step_train_fn(model, render, bank, MIP_RAYS, TIMED_STEPS,
+                                           SEG_WEIGHT)
+    with capture_args(mip_train, "mip_train_grads", store):
+        state, aux_w = warm(state)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    t0 = time.perf_counter()
+    state, aux = timed(state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+    loss_after = float(probe_loss(*probe)[0])
+    losses = torch.cat([aux_w["loss"], aux["loss"]]).cpu()
+    print(f"{name}: {ms:.2f} ms/step, {MIP_RAYS / ms * 1e3:.0f} rays/s over {TIMED_STEPS} "
+          f"steps; launches {launches}; step losses {[round(float(v), 5) for v in losses]}",
+          flush=True)
+    check(launches == {"mip_train_grads": TIMED_STEPS},
+          f"{name}: each step launched {{'mip_train_grads': 1}} and nothing else")
+    check_policies(name, launches, policies, policy)
+    check(bool(torch.isfinite(losses).all()), f"{name}: every loss is finite")
+    check(loss_after < loss_before,
+          f"{name}: the probe batch's loss fell from {loss_before:.6f} to {loss_after:.6f} "
+          f"over {WARMUP_STEPS + TIMED_STEPS} steps")
+    return launches, ms
+
+
+def mip_training(device, store: dict, keep: dict) -> dict:
     """Phases 8 and 9.  Returns the launches of the timed fused steps and of
     the general-path step; the first call of K6 in the warm-up has its
-    arguments recorded in ``store``."""
+    arguments recorded in ``store``, the labelled ray bank goes to
+    ``keep``."""
     t0 = time.perf_counter()
     scene = synthesize_scene(num_views=8, image_hw=64, focal=80.0, with_labels=True,
                              device=device)
@@ -910,6 +976,7 @@ def mip_training(device, store: dict) -> dict:
     torch.cuda.synchronize()
     print(f"labelled synthetic scene: {tuple(scene.images.shape)} on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    keep["bank"] = bank
     render = MIP_TRAIN_RENDER
 
     def draws_for(gen, model):
@@ -929,39 +996,7 @@ def mip_training(device, store: dict) -> dict:
     compare_grads("mip fused step", grads, ref, loss, ref_loss.detach())
 
     # Warm-up, then timed fused steps with the counters zeroed just before.
-    model = make_mip_model(True, device)
-    state = create_train_state(model, LEARNING_RATE, seed=0)
-    gen = torch.Generator(device=device).manual_seed(99)
-    probe = (bank.sample_batch(gen, MIP_RAYS), draws_for(gen, model))
-    probe_loss = make_fused_loss_and_grads(model, render, SEG_WEIGHT)
-    loss_before = float(probe_loss(*probe)[0])
-    warm = make_fused_multi_step_train_fn(model, render, bank, MIP_RAYS, WARMUP_STEPS,
-                                          SEG_WEIGHT)
-    timed = make_fused_multi_step_train_fn(model, render, bank, MIP_RAYS, TIMED_STEPS,
-                                           SEG_WEIGHT)
-    with capture_args(mip_train, "mip_train_grads", store):
-        state, aux_w = warm(state)
-    torch.cuda.synchronize()
-    _build.launch_counts.clear()
-    _build.policy_counts.clear()
-    t0 = time.perf_counter()
-    state, aux = timed(state)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
-    loss_after = float(probe_loss(*probe)[0])
-    losses = torch.cat([aux_w["loss"], aux["loss"]]).cpu()
-    name = "mip train 4096x64 seg 0.1"
-    print(f"{name}: {ms:.2f} ms/step, {MIP_RAYS / ms * 1e3:.0f} rays/s over {TIMED_STEPS} "
-          f"steps; launches {launches}; step losses {[round(float(v), 5) for v in losses]}",
-          flush=True)
-    check(launches == {"mip_train_grads": TIMED_STEPS},
-          f"{name}: each step launched {{'mip_train_grads': 1}} and nothing else")
-    check_policies(name, launches, policies, "tc")
-    check(bool(torch.isfinite(losses).all()), f"{name}: every loss is finite")
-    check(loss_after < loss_before,
-          f"{name}: the probe batch's loss fell from {loss_before:.6f} to {loss_after:.6f} "
-          f"over {WARMUP_STEPS + TIMED_STEPS} steps")
+    launches, ms = mip_train_run("mip train 4096x64 seg 0.1", bank, device, store)
 
     # Phase 9: one general-path step through K5 against the plain step.
     step_grads = {}
@@ -1059,15 +1094,18 @@ def mip_kernels_against_plain(store: dict, device) -> dict:
     return rows
 
 
-def mip_phases(device) -> dict:
-    """Phases 7-10 (slice 3).  Returns the four mip kernels' rows."""
+def mip_phases(device, keep: dict) -> dict:
+    """Phases 7-10 (slice 3).  Returns the four mip kernels' rows; the
+    float32 frame, its time, the ray bank and the fused step's ms go to
+    ``keep`` (phase 16 compares bf16 with them)."""
     cfg = MipNeRFConfig()
-    rows = mip_serving(device, mip_flops_per_point(cfg))
+    rows = mip_serving(device, mip_flops_per_point(cfg), keep)
     store = {}
-    runs = mip_training(device, store)
+    runs = mip_training(device, store, keep)
     with torch.no_grad():
         k_rows = mip_kernels_against_plain(store, device)
     fused_launches, fused_ms = runs["fused"]
+    keep["step_ms"] = fused_ms
     rows["mip_mlp_fwd"] = (runs["general"]["mip_mlp_fwd"], k_rows["mip_mlp_fwd"])
     rows["mip_mlp_bwd"] = (runs["general"]["mip_mlp_bwd"], k_rows["mip_mlp_bwd"])
     rows["mip_train_grads"] = (fused_launches["mip_train_grads"], k_rows["mip_train_grads"])
@@ -1703,17 +1741,18 @@ def check_bf16_outputs(name: str, got, ref) -> float:
     return err
 
 
-def bf16_row(name, launches, err, ms, plain_ms, flops, nbytes, chain_rows=0) -> dict:
+def bf16_row(name, launches, err, ms, plain_ms, flops, nbytes, chain_rows=0,
+             chain_row_bytes=CHAIN_BYTES_PER_ROW) -> dict:
     """A kernel's bf16 entries for its row: the bound is the larger of its
     FLOP at the bf16 rate and the bytes of its inputs and outputs;
     ``chain_rows``, a training kernel's rows, prints the byte time with its
-    float32 chain beside it."""
+    float32 chain (``chain_row_bytes`` a row) beside it."""
     flop_ms, byte_ms = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
     row = {"bf16_ms": ms, "bf16_plain_ms": plain_ms, "bf16_launches": launches,
            "bf16_rel_l2": err, "bf16_flop_bound_ms": flop_ms, "bf16_byte_bound_ms": byte_ms,
            "bf16_bound_ms": max(flop_ms, byte_ms),
            "bf16_bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
-    chain = (f"; {(nbytes + chain_rows * CHAIN_BYTES_PER_ROW) / PEAK_BYTES_PER_S * 1e3:.3f} ms "
+    chain = (f"; {(nbytes + chain_rows * chain_row_bytes) / PEAK_BYTES_PER_S * 1e3:.3f} ms "
              f"with its float32 chain" if chain_rows else "")
     print(f"{name} bf16: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bounds {flop_ms:.3f} ms "
           f"(FLOP at 989 TFLOP/s) and {byte_ms:.3f} ms (bytes at 3.35 TB/s{chain}); "
@@ -1955,6 +1994,307 @@ def bf16_phase(device, cfg: ClassicNeRFConfig, bank, f32_image, f32_frame_ms: fl
     return out
 
 
+# Phase 16: compute_dtype="bfloat16" for the mip family (slice 13), with
+# phase 15's bounds (BF16) against the plain bf16 versions and the float32
+# kernels.  The seg/acc identity is the compositing's, float32 in bf16
+# too: TOL["seg_identity"].  The gradient checks run on the cotangents a
+# step hands each kernel, the float32 kernel on the same inputs beside
+# each (a control).  A loss's summed gradients hold float32 within the
+# bf16 bound (K6, K5-bwd's weights: PERF.md), so K5-bwd is also checked on
+# uniform random cotangents, where the float32 kernel fails the check, as
+# it fails K5-bwd's dfeat check; and the head's rounding, the one product
+# outside the tensor-core tiles, is checked directly against the float64
+# products of the rounded and of the unrounded operands
+# (``mip_head_check``): within MIP_HEAD["rounded"] of the rounded ones,
+# and at least MIP_HEAD["ratio"] times farther from the unrounded.
+MIP_HEAD = dict(rounded=2e-5, ratio=100.0, rows=4096)
+# The mip chain a training kernel writes and reads back: xhat and dpre, five
+# layers of 256 floats each, a row.
+MIP_CHAIN_BYTES_PER_ROW = 2 * 2 * 5 * 256 * 4
+
+
+def f32_control(name: str, f32: dict, ref: dict, must_fail: bool) -> float:
+    """The float32 kernel's distance from the plain bf16 version on a bf16
+    check's inputs, printed beside the bound; with ``must_fail`` the check
+    must fail it."""
+    err = rel_l2([f32[k] for k in ref], [ref[k] for k in ref])
+    print(f"{name} control: the float32 kernel on the same inputs, relative L2 {err:.3e} "
+          f"against plain bf16 ({'fails' if err > BF16['grad_rel_l2'] else 'passes'} the "
+          f"{BF16['grad_rel_l2']} check)", flush=True)
+    if must_fail:
+        check(err > BF16["grad_rel_l2"], f"{name}: the float32 kernel fails the bf16 check")
+    return err
+
+
+def mip_head_check(packed, x) -> None:
+    """The bf16 head against the float64 products of its rounded operands
+    (``testing.mip_head_rounding``: head_wide, head_dh, the head's dW)."""
+    g = torch.rand((x.shape[0], packed["w_out"].shape[1]), device=x.device,
+                   generator=torch.Generator(device=x.device).manual_seed(21)) * 2 - 1
+    checks = mip_head_rounding(packed, x, g)
+    check(checks.pop("h") == 0.0, "bf16 K5-fwd's head rounds the last layer's output")
+    for what, (err, err_unrounded) in checks.items():
+        print(f"bf16 mip head, {what}: relative L2 {err:.3e} from the float64 product of the "
+              f"rounded operands, {err_unrounded:.3e} from the unrounded one", flush=True)
+        check(err <= MIP_HEAD["rounded"] and err_unrounded >= MIP_HEAD["ratio"] * err,
+              f"bf16 mip head, {what}: the rounded product")
+
+
+def mip_bf16_kernels(device, store: dict, out: dict) -> None:
+    """Phase 16d: K7, K6, K5-fwd and K5-bwd in bf16 against their plain bf16
+    versions on the arguments the frame, the fused step and the general
+    step gave them, the float32 kernel on the same inputs beside each
+    gradient check; the head check; their times and bf16 bounds into
+    ``out``."""
+    cfg = MipNeRFConfig()
+    flops_per_point = mip_flops_per_point(cfg)
+    packed = mip_mlp.pack_mip_params(make_mip_model(True, device).mlp.requires_grad_(False))
+    weight_bytes = tensor_bytes(*packed.values())
+
+    def on_route(kernel, call):
+        _build.policy_counts.clear()
+        got = call()
+        torch.cuda.synchronize()
+        check(dict(_build.policy_counts) == {(kernel, "tc_bf16"): 1},
+              f"{kernel} in bf16 ran its tensor-core tile and passes (tc_bf16)")
+        return got
+
+    args = store["mip_eval"][0]
+    check(args[1].dtype == torch.bfloat16, "the bf16 frame hands K7 bfloat16 features")
+    got = on_route(mip_train.EVAL_NAME, lambda: mip_train.mip_eval(*args))
+    err = check_bf16_outputs(mip_train.EVAL_NAME, got, mip_train.mip_eval_plain(*args))
+    feat, dists, t_mids = args[1:4]
+    out[mip_train.EVAL_NAME] = bf16_row(
+        mip_train.EVAL_NAME, out[mip_train.EVAL_NAME]["bf16_launches"], err,
+        cuda_ms(lambda: mip_train.mip_eval(*args), iters=5),
+        cuda_ms(lambda: mip_train.mip_eval_plain(*args), iters=3),
+        feat.shape[0] * feat.shape[1] * flops_per_point,
+        tensor_bytes(feat, dists, t_mids, *got) + weight_bytes)
+
+    args, kwargs = store["mip_train_grads"]
+    kwargs = without_images(kwargs)
+    check(args[1].dtype == torch.bfloat16, "the bf16 fused step hands K6 bfloat16 features")
+    call = lambda: mip_train.mip_train_grads(*args, **kwargs)  # noqa: E731
+    got = on_route(mip_train.TRAIN_NAME, call)
+    ref = mip_train.mip_train_grads_plain(*args, **kwargs)
+    check_bf16_outputs(mip_train.TRAIN_NAME + " loss", [got[0] + SEG_WEIGHT * got[1]],
+                       [ref[0] + SEG_WEIGHT * ref[1]])
+    err = check_bf16_grads(mip_train.TRAIN_NAME, got[2], ref[2])
+    f32_control(mip_train.TRAIN_NAME, mip_train.mip_train_grads(
+        args[0], args[1].float(), *args[2:], **kwargs)[2], ref[2], must_fail=False)
+    feat = args[1]
+    rows = feat.shape[0] * feat.shape[1]
+    out[mip_train.TRAIN_NAME].update(bf16_row(
+        mip_train.TRAIN_NAME, out[mip_train.TRAIN_NAME]["bf16_launches"], err,
+        cuda_ms(call, iters=5),
+        cuda_ms(lambda: mip_train.mip_train_grads_plain(*args, **kwargs), iters=3),
+        train_step_flops(cfg, *feat.shape[:2], mip=True),
+        tensor_bytes(*[a for a in args[1:6] if isinstance(a, torch.Tensor)]) + 2 * weight_bytes
+        + 8, rows, MIP_CHAIN_BYTES_PER_ROW))
+
+    # K5 on the rows and the loss's cotangents the bf16 general step handed
+    # K5-bwd (as it calls it, without the features' cotangent; then with it).
+    args, kwargs = store["mip_mlp_bwd"]
+    pk, x, g_out = args
+    check(x.dtype == torch.bfloat16 and not kwargs.get("input_grads", True),
+          "the bf16 general step hands K5-bwd bfloat16 features and asks no dfeat")
+    call = lambda: mip_mlp.mip_mlp_fwd(pk, x)  # noqa: E731
+    got = on_route(mip_mlp.NAME, call)
+    err = check_bf16_outputs(mip_mlp.NAME, [got], [mip_mlp.mip_mlp_fwd_plain(pk, x)])
+    out[mip_mlp.NAME].update(bf16_row(
+        mip_mlp.NAME, out[mip_mlp.NAME]["bf16_launches"], err, cuda_ms(call, iters=10),
+        cuda_ms(lambda: mip_mlp.mip_mlp_fwd_plain(pk, x), iters=5),
+        x.shape[0] * flops_per_point, tensor_bytes(x, got) + weight_bytes))
+
+    call = lambda: mip_mlp.mip_mlp_bwd(pk, x, g_out, input_grads=False)  # noqa: E731
+    got = on_route(mip_mlp.BWD_NAME, call)
+    ref = mip_mlp.mip_mlp_bwd_plain(pk, x, g_out, input_grads=False)
+    err = check_bf16_grads(mip_mlp.BWD_NAME, got[1], ref[1])
+    f32_control(mip_mlp.BWD_NAME, mip_mlp.mip_mlp_bwd(pk, x.float(), g_out, False)[1], ref[1],
+                must_fail=False)
+    ms = cuda_ms(call, iters=5)
+    plain_ms = cuda_ms(lambda: mip_mlp.mip_mlp_bwd_plain(pk, x, g_out, input_grads=False),
+                       iters=3)
+    dfeat_call = lambda: mip_mlp.mip_mlp_bwd(pk, x, g_out)  # noqa: E731
+    got = on_route(mip_mlp.BWD_NAME, dfeat_call)
+    ref = mip_mlp.mip_mlp_bwd_plain(pk, x, g_out)
+    check(got[0].dtype == torch.bfloat16 and got[0].shape == x.shape,
+          "bf16 K5-bwd's features' cotangent is bfloat16, the features' shape")
+    err = max(err, check_bf16_grads(mip_mlp.BWD_NAME + " with dfeat",
+                                    {"dfeat": got[0], **got[1]}, {"dfeat": ref[0], **ref[1]}))
+    f32 = mip_mlp.mip_mlp_bwd(pk, x.float(), g_out)
+    f32_control(mip_mlp.BWD_NAME + " dfeat", {"dfeat": f32[0]}, {"dfeat": ref[0]},
+                must_fail=True)
+    # Uniform random cotangents on the same rows: sums of either sign, where
+    # the weight gradients keep bf16's roundings apart from float32's.
+    g_rand = torch.rand(g_out.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(23)) * 2 - 1
+    got = mip_mlp.mip_mlp_bwd(pk, x, g_rand, input_grads=False)[1]
+    ref = mip_mlp.mip_mlp_bwd_plain(pk, x, g_rand, input_grads=False)[1]
+    check_bf16_grads(mip_mlp.BWD_NAME + " on random cotangents", got, ref)
+    f32_control(mip_mlp.BWD_NAME + " on random cotangents",
+                mip_mlp.mip_mlp_bwd(pk, x.float(), g_rand, False)[1], ref, must_fail=True)
+    print(f"{mip_mlp.BWD_NAME} bf16 with dfeat: {cuda_ms(dfeat_call, iters=5):.3f} ms", flush=True)
+    out[mip_mlp.BWD_NAME].update(bf16_row(
+        mip_mlp.BWD_NAME, out[mip_mlp.BWD_NAME]["bf16_launches"], err, ms, plain_ms,
+        train_step_flops(cfg, x.shape[0], 1, mip=True),
+        tensor_bytes(x, g_out) + 2 * weight_bytes, x.shape[0], MIP_CHAIN_BYTES_PER_ROW))
+
+    mip_head_check(pk, x[:MIP_HEAD["rows"]].contiguous())
+
+
+def mip_bf16_phase(device, keep: dict, card: str) -> dict:
+    """Phase 16: the mip family in compute_dtype bfloat16: (a) one 400x400
+    frame, (b) the fused step and its timed run, (c) one general-path step,
+    then (d) each of its four kernels against its plain bf16 version on
+    those paths' arguments, and (e) K5-fwd at 144 features on its SIMT
+    tile.  Returns the four kernels' bf16 row entries."""
+    bf = dict(compute_dtype="bfloat16")
+    model = make_mip_model(True, device, **bf).eval().requires_grad_(False)
+    pose_o, pose_r = spherical_poses(1, radius=4.0, device=device)
+    out, store = {}, {}
+
+    # a. One 400x400 frame at 64 fenceposts.
+    n_tiles = -(-IMAGE * IMAGE // MIP_RENDER.rays_per_tile)
+
+    def render():
+        return model.render_image(pose_o, pose_r, IMAGE, IMAGE, FOCAL, MIP_RENDER)
+
+    render()  # warm-up
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    t0 = time.perf_counter()
+    rgb, seg = render()
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(_build.launch_counts)
+    print(f"bf16 mip frame through the kernels: {frame_ms:.1f} ms; launches {launches}",
+          flush=True)
+    check(launches == {mip_train.EVAL_NAME: n_tiles},
+          f"bf16 mip frame: K7 launched once per tile ({n_tiles} tiles), nothing else")
+    check_policies("bf16 mip frame", launches, dict(_build.policy_counts), "tc_bf16")
+    out[mip_train.EVAL_NAME] = {"bf16_launches": launches[mip_train.EVAL_NAME]}
+    with plain_versions():
+        plain_rgb, plain_seg = render()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(rgb).all() and torch.isfinite(seg).all())
+          and float(rgb.std()) > 1e-3,
+          f"bf16 mip frame is finite and not flat (std {float(rgb.std()):.4f})")
+    err = rel_l2([rgb, seg], [plain_rgb, plain_seg])
+    print(f"bf16 mip frame against the plain bf16 frame: relative L2 {err:.3e} (rgb and seg "
+          f"together; bound {BF16['fwd_rel_l2']})", flush=True)
+    check(err <= BF16["fwd_rel_l2"], "bf16 mip frame matches the plain bf16 frame")
+    f32_rgb, f32_seg = keep["frame"]
+    for what, got, f32 in (("rgb", rgb, f32_rgb), ("seg", seg, f32_seg)):
+        diff = (got - f32).abs()
+        print(f"bf16 mip frame {what} against phase 7's float32 kernel frame: max difference "
+              f"{float(diff.max()):.3e}, relative L2 {rel_l2([got], [f32]):.3e}", flush=True)
+        check(bool((diff <= BF16["f32_atol"] + BF16["f32_rtol"] * f32.abs()).all()),
+              f"bf16 mip frame {what} within rtol {BF16['f32_rtol']}, atol {BF16['f32_atol']} "
+              f"of the float32 frame everywhere (the JAX package's bf16 bound)")
+    all_o, all_d = (r.reshape(-1, 3) for r in pose_to_rays(pose_o, pose_r, IMAGE, IMAGE, FOCAL))
+    tile = MIP_RENDER.rays_per_tile
+    with torch.no_grad(), capture_args(mip_train, "mip_eval", store):
+        acc = torch.cat([model.render_rays(all_o[i:i + tile], all_d[i:i + tile], MIP_RENDER,
+                                           fused_eval=True).acc
+                         for i in range(0, all_o.shape[0], tile)])
+    classes = model.cfg.segmentation_outputs
+    lse = torch.logsumexp(seg.reshape(-1, classes), dim=-1)
+    rows_per_ray = MIP_RENDER.num_coarse_samples - 1
+    compare("seg_identity", [lse], [torch.log(acc + rows_per_ray * 1e-10)])
+    print(f"bf16 mip frame: {frame_ms:.1f} ms (float32 kernels {keep['frame_ms']:.1f} ms); "
+          f"{card}", flush=True)
+
+    # b. One fused step against the plain bf16 step and the float32 kernel
+    # step, then the timed run (its first K6 call recorded).
+    bank, render_cfg = keep["bank"], MIP_TRAIN_RENDER
+    step_model = make_mip_model(True, device, **bf)
+    gen = torch.Generator(device=device).manual_seed(7)
+    batch = bank.sample_batch(gen, MIP_RAYS)
+    draws = loop.draws_for_model(gen, step_model, render_cfg, MIP_RAYS, device)
+    name = "bf16 mip step 4096x64 seg 0.1"
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    loss, grads, _ = make_fused_loss_and_grads(step_model, render_cfg, SEG_WEIGHT)(batch, draws)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    check(launches == {mip_train.TRAIN_NAME: 1}, f"{name}: launched one K6 and nothing else")
+    check_policies(name, launches, dict(_build.policy_counts), "tc_bf16")
+    ref_loss, ref = bf16_step_reference(step_model, render_cfg, batch, draws, SEG_WEIGHT)
+    loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    print(f"{name}: loss {float(loss):.7g} vs plain bf16 {float(ref_loss):.7g} (rel err "
+          f"{loss_err:.3e}, tolerance {BF16['loss_rtol']})", flush=True)
+    check(loss_err <= BF16["loss_rtol"], f"{name}: the loss matches the plain bf16 step's")
+    check_bf16_grads(name, grads, ref)
+    _, f32_grads, _ = make_fused_loss_and_grads(make_mip_model(True, device), render_cfg,
+                                                SEG_WEIGHT)(batch, draws)
+    a = torch.cat([grads[k].double().ravel() for k in f32_grads])
+    b = torch.cat([f32_grads[k].double().ravel() for k in f32_grads])
+    cosine = float(a @ b / (a.norm() * b.norm()))
+    print(f"{name}: gradients' cosine to the float32 kernel step's {cosine:.5f}", flush=True)
+    check(cosine > BF16["f32_cosine"],
+          f"{name}: gradients' cosine to float32 above {BF16['f32_cosine']}")
+    launches, ms = mip_train_run(name, bank, device, store, policy="tc_bf16", **bf)
+    out[mip_train.TRAIN_NAME] = {"bf16_launches": launches[mip_train.TRAIN_NAME]}
+    f32_ms = keep["step_ms"]
+    print(f"{name}: {ms:.2f} ms/step = {MIP_RAYS / ms * 1e3:.0f} rays/s (float32 kernels "
+          f"{f32_ms:.2f} ms/step = {MIP_RAYS / f32_ms * 1e3:.0f} rays/s); {card}", flush=True)
+
+    # c. One general-path step (K5-fwd, K5-bwd) against the plain bf16 step
+    # of a model with the same weights (the step updates its own).
+    general = make_mip_model(True, device, **bf)
+    kept = {}
+    with capture_args(loop, "_apply", kept), capture_args(mip_mlp, "mip_mlp_bwd", store):
+        _build.launch_counts.clear()
+        _build.policy_counts.clear()
+        make_train_step(general, render_cfg, SEG_WEIGHT)(
+            create_train_state(general, LEARNING_RATE), batch, draws)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+    name = "bf16 mip general step"
+    print(f"{name}: launches {launches}", flush=True)
+    check(launches == {mip_mlp.NAME: 1, mip_mlp.BWD_NAME: 1},
+          f"{name}: launched one K5-fwd and one K5-bwd, nothing else")
+    check_policies(name, launches, dict(_build.policy_counts), "tc_bf16")
+    for k in (mip_mlp.NAME, mip_mlp.BWD_NAME):
+        out[k] = {"bf16_launches": launches[k]}
+    _, step_grads, step_aux = kept["_apply"][0]
+    same = make_mip_model(True, device, **bf)
+    with plain_versions(), torch.enable_grad():
+        plain_loss, _ = make_loss_fn(same, render_cfg, SEG_WEIGHT)(batch, draws)
+        names, params = zip(*same.named_parameters())
+        plain_grads = dict(zip(names, torch.autograd.grad(plain_loss, params)))
+    loss_err = abs(float(step_aux["loss"]) - float(plain_loss)) / abs(float(plain_loss))
+    print(f"{name}: loss rel err {loss_err:.3e} against plain bf16", flush=True)
+    check(loss_err <= BF16["loss_rtol"], f"{name}: the loss matches the plain bf16 step's")
+    check_bf16_grads(name, step_grads, plain_grads)
+
+    # d. The four kernels against their plain versions; the head check.
+    with torch.no_grad():
+        mip_bf16_kernels(device, store, out)
+
+    # e. K5-fwd at 144 features: the bf16-rounding SIMT tile (simt_bf16).
+    mcfg = MipNeRFConfig(**WIDE_K5)
+    mpacked = mip_mlp.pack_mip_params(make_mip_model(True, device, **WIDE_K5).mlp
+                                      .requires_grad_(False))
+    feat = (torch.rand((WIDE_ROWS, mcfg.feature_dim), device=device,
+                       generator=torch.Generator(device=device).manual_seed(17)) * 2
+            - 1).bfloat16()
+    what = f"bf16 K5-fwd at {mcfg.feature_dim} features"
+    with torch.no_grad():
+        _build.policy_counts.clear()
+        got = mip_mlp.mip_mlp_fwd(mpacked, feat)
+        torch.cuda.synchronize()
+        check(dict(_build.policy_counts) == {(mip_mlp.NAME, "simt_bf16"): 1},
+              f"{what} ran its SIMT tile (simt_bf16)")
+        check_bf16_outputs(what, [got], [mip_mlp.mip_mlp_fwd_plain(mpacked, feat)])
+        print(f"{what}, {WIDE_ROWS} rows (bf16-rounding SIMT tile): "
+              f"{cuda_ms(lambda: mip_mlp.mip_mlp_fwd(mpacked, feat), iters=3):.3f} ms", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -1988,15 +2328,17 @@ def main() -> int:
     rows, f32_image, f32_frame_ms = serving(device, classic_flops_per_point(cfg))
     train_rows, bank, step_ms = training(device, cfg)
     rows.update(train_rows)
-    rows.update(mip_phases(device))
+    mip_keep = {}
+    rows.update(mip_phases(device, mip_keep))
     rows.update(point_mlp_phase(device, cfg, bank))
     rows.update(mega_phase(device, cfg, bank, step_ms["reuse"]))
     latent_phase(device, bank)
     wide_forward_phase(device)
     cli_launches = entry_points_phase(device, card)
     bf16 = bf16_phase(device, cfg, bank, f32_image, f32_frame_ms, step_ms, card)
+    bf16.update(mip_bf16_phase(device, mip_keep, card))
 
-    # 16. Result lines.
+    # 17. Result lines.
     kernels = [kernel_row(name, launches, **row) for name, (launches, row) in rows.items()]
     for row in kernels:
         row["cli_launches"] = cli_launches.get(row["name"], 0)

@@ -104,8 +104,10 @@ class MipNeRFConfig:
     # train step).  The name is kept from the JAX package.  Given CPU
     # tensors the kernel wrappers run their plain PyTorch versions.
     use_pallas: bool = False
-    # Matmul input dtype ("float32" or "bfloat16"); the mip kernels (K5-K7)
-    # raise NotImplementedError for "bfloat16" (the next bf16 slice).
+    # Matmul input dtype ("float32" or "bfloat16").  With use_pallas,
+    # "bfloat16" runs the mip family's bf16 kernels (K5-fwd, K5-bwd, K6, K7:
+    # bf16 operands, the head's included, float32 sums and everything
+    # else); the plain path ignores it, as the JAX package's does.
     compute_dtype: str = "float32"
 
     @property

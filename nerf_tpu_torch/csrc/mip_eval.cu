@@ -28,6 +28,12 @@
 // then the classes across the lanes, each lane a class, with the max and
 // the exp-sum over the rows in two passes.
 //
+// mip_eval_bf16 is the same in compute_dtype bfloat16 (MipTcBf16, tc_mlp.cuh
+// note 10): bfloat16 features and images, every product and the head on
+// bf16 operands with float32 sums; the compositing float32.  Its bound at
+// a 4000-ray tile of 63 rows: 0.153 ms of bf16 tensor-core operations
+// (FLOP / 989 TFLOP/s).
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "mip_mlp.cuh"
 
@@ -106,12 +112,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int H>
-cudaError_t run(const MipWeights& w, const float* x, const float* dists, const float* t_mids,
+template <int H, class Products>
+cudaError_t run(const MipWeights& w, const void* x, const float* dists, const float* t_mids,
                 const float* noise, int R, int n, int C, int white, float* per_ray,
                 float* mlp_out, const float* tc_fwd, cudaStream_t stream) {
-  cudaError_t err =
-      MipTc::fwd<H, false>(w, x, mlp_out, R * n, nullptr, nullptr, tc_fwd, stream);
+  cudaError_t err = Products::template fwd<H, false>(w, x, mlp_out, R * n, nullptr, nullptr,
+                                                     tc_fwd, stream);
   if (err != cudaSuccess) return err;
   const size_t smem = static_cast<size_t>(kWarps) * 4 * n * sizeof(float);
   err = cudaFuncSetAttribute(mip_eval_rays_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -122,6 +128,23 @@ cudaError_t run(const MipWeights& w, const float* x, const float* dists, const f
   return cudaGetLastError();
 }
 
+template <class Products>
+int run_at(const void* x, const float* dists, const float* t_mids, const float* noise,
+           float* per_ray, int R, int n, int F, int hidden, int L, int C, int O, int white,
+           const float* w_in, const float* whh, const float* b, const float* g,
+           const float* beta, const float* w_out, const float* b_out, float* mlp_out,
+           const void* tc_fwd, void* stream) {
+  if (L < 2 || C < 1 || C > kMaxColors || O < C + 2) return cudaErrorInvalidValue;
+  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
+  const float* img = static_cast<const float*>(tc_fwd);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H)                                                                      \
+  static_cast<int>(run<H, Products>(w, x, dists, t_mids, noise, R, n, C, white, per_ray,    \
+                                    mlp_out, img, st))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
+}
+
 }  // namespace
 
 extern "C" int mip_eval(const float* x, const float* dists, const float* t_mids,
@@ -130,14 +153,19 @@ extern "C" int mip_eval(const float* x, const float* dists, const float* t_mids,
                         const float* b, const float* g, const float* beta, const float* w_out,
                         const float* b_out, float* mlp_out, const float* tc_fwd,
                         void* stream) {
-  if (L < 2 || C < 1 || C > kMaxColors || O < C + 2) return cudaErrorInvalidValue;
-  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H)                                                                     \
-  static_cast<int>(                                                                        \
-      run<H>(w, x, dists, t_mids, noise, R, n, C, white, per_ray, mlp_out, tc_fwd, st))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  return run_at<MipTc>(x, dists, t_mids, noise, per_ray, R, n, F, hidden, L, C, O, white, w_in,
+                       whh, b, g, beta, w_out, b_out, mlp_out, tc_fwd, stream);
+}
+
+// The same in compute_dtype bfloat16: x and tc_fwd are bfloat16.
+extern "C" int mip_eval_bf16(const void* x, const float* dists, const float* t_mids,
+                             const float* noise, float* per_ray, int R, int n, int F,
+                             int hidden, int L, int C, int O, int white, const float* w_in,
+                             const float* whh, const float* b, const float* g,
+                             const float* beta, const float* w_out, const float* b_out,
+                             float* mlp_out, const void* tc_fwd, void* stream) {
+  return run_at<MipTcBf16>(x, dists, t_mids, noise, per_ray, R, n, F, hidden, L, C, O, white,
+                           w_in, whh, b, g, beta, w_out, b_out, mlp_out, tc_fwd, stream);
 }
 
 // The plan of K7's forward tile for F = xe features (de must be 0: the mip

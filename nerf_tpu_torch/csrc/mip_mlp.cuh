@@ -32,6 +32,16 @@
 //     the output cotangents: N = O, not a multiple of 4), then colsum of the
 //     partials in a fixed order.
 // The flat gradient: w_in, whh, w_out | b, g, beta, b_out.
+//
+// compute_dtype="bfloat16" (the template parameter kBf16 of the tiles, the
+// kernels and MipTcT; tc_mlp.cuh note 10): the features arrive as bfloat16
+// (load_tile widens them exactly), the products are bf16 wgmma on bf16
+// images (tc_gemm<N, true>), and the head rounds its operands as head<H,
+// true> does: head_wide rounds h and W, head_dh the output cotangents and
+// W (their b_out sums stay float32).  wgrad is TcProductsT<true>'s, on the
+// bf16 raw features (WProd::a_bf16), and K5-bwd's features' cotangent is
+// written as bfloat16, the features' dtype.  Past the tensor-core tile
+// the SIMT tile rounds its operands likewise (gemm_acc<H, true>).
 #pragma once
 
 #include "tc_mlp.cuh"
@@ -51,12 +61,13 @@ struct MipWeights {
 
 // The forward operand images of a mip call (tc_mlp.py::tc_images): w_in as
 // [H][round_up_chunk(F)], then the hidden slabs as [out][in], each 2 H H
-// floats.
+// floats (kBf16: bf16 images, tc_image_floats<true> each).
 struct MipImages {
   const float* w_in;
   const float* whh;
+  template <bool kBf16 = false>
   __host__ static MipImages forward(const MipWeights& w, const float* base, int H) {
-    return MipImages{base, base + 2 * static_cast<size_t>(H) * round_up_chunk(w.F)};
+    return MipImages{base, base + tc_image_floats<kBf16>(H, w.F)};
   }
 };
 
@@ -79,8 +90,9 @@ __host__ __device__ inline size_t mip_tile_floats(const MipWeights& w, int H) {
 // other warps may still be reading their rows of act at that stride) and
 // each lane accumulates columns c0 + lane and c0 + 32 + lane of a 64-column
 // block, W staged through wbuf (kChunk x H floats) in chunks of H / 4 rows
-// x 64 columns, read once per block.
-template <int H, int LD = H>
+// x 64 columns, read once per block.  kBf16: h and W rounded to bfloat16
+// as they are staged (the JAX package's _dot on the head).
+template <int H, int LD = H, bool kBf16 = false>
 __device__ void head_wide(const float (&h)[kRowsPerWarp][H / 32], float* act, float* wbuf,
                           const float* __restrict__ W, const float* __restrict__ bias, int n,
                           float* out, int nvalid) {
@@ -90,7 +102,7 @@ __device__ void head_wide(const float (&h)[kRowsPerWarp][H / 32], float* act, fl
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r)
 #pragma unroll
-    for (int j = 0; j < H / 32; ++j) a_rows[r * LD + lane + 32 * j] = h[r][j];
+    for (int j = 0; j < H / 32; ++j) a_rows[r * LD + lane + 32 * j] = operand<kBf16>(h[r][j]);
   for (int c0 = 0; c0 < n; c0 += 64) {
     float acc[kRowsPerWarp][2];
 #pragma unroll
@@ -100,7 +112,8 @@ __device__ void head_wide(const float (&h)[kRowsPerWarp][H / 32], float* act, fl
       __syncthreads();
       for (int i = threadIdx.x; i < kRows * 64; i += kThreads) {
         const int c = c0 + i % 64;
-        wbuf[i] = c < n ? __ldg(W + static_cast<size_t>(k0 + i / 64) * n + c) : 0.f;
+        wbuf[i] = c < n ? operand<kBf16>(__ldg(W + static_cast<size_t>(k0 + i / 64) * n + c))
+                        : 0.f;
       }
       __syncthreads();
       for (int kk = 0; kk < kRows; kk += 4) {
@@ -134,22 +147,23 @@ __device__ void head_wide(const float (&h)[kRowsPerWarp][H / 32], float* act, fl
 // The whole network on one 64-row tile whose features are already in
 // shared memory (xs, rows of round_up4(F) floats; see load_tile).  Writes
 // the O outputs of the tile's valid rows to out (row stride O).  act is the
-// [64][H] activation buffer, wbuf the [kChunk][H] weight chunk.
-template <int H, bool kSave>
+// [64][H] activation buffer, wbuf the [kChunk][H] weight chunk.  kBf16:
+// every product's operands, the head's included, rounded to bfloat16.
+template <int H, bool kSave, bool kBf16 = false>
 __device__ void mip_tile(const MipWeights& w, const float* xs, float* act, float* wbuf,
                          float* out, int nvalid, const Save* save) {
   const size_t hh = static_cast<size_t>(H) * H;
   float acc[kRowsPerWarp][H / 32];
   zero<H>(acc);
-  gemm_acc<H>(acc, xs, round_up4(w.F), w.F, w.w_in, wbuf);
+  gemm_acc<H, kBf16>(acc, xs, round_up4(w.F), w.F, w.w_in, wbuf);
   layer_epilogue<H, kSave, true>(acc, w.b, w.g, w.beta, save, 0);
   for (int i = 1; i < w.L; ++i) {
     store_rows<H>(acc, act);
     zero<H>(acc);
-    gemm_acc<H>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
+    gemm_acc<H, kBf16>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
     layer_epilogue<H, kSave, true>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
   }
-  head_wide<H>(acc, act, wbuf, w.w_out, w.b_out, w.O, out, nvalid);
+  head_wide<H, H, kBf16>(acc, act, wbuf, w.w_out, w.b_out, w.O, out, nvalid);
 }
 
 // mip_tile with the products on the tensor cores (mlp_tile_tc's order,
@@ -157,37 +171,39 @@ __device__ void mip_tile(const MipWeights& w, const float* xs, float* act, float
 // the activation tile act ([64][act_ld<H>()]) with the hidden slabs'
 // forward images; each product's accumulators go through act into the
 // row-per-warp layout, where layer_epilogue<kLnFirst> runs as in mip_tile.
-// The head stays float32 (head_wide), its weights staged through the B
-// chunk buffers bbuf, free once the last product has retired (tc_gemm ends
-// with every wgmma waited for and a block-wide barrier).
-template <int H, bool kSave>
+// The head stays on the SIMT cores (head_wide), its weights staged through
+// the B chunk buffers bbuf, free once the last product has retired
+// (tc_gemm ends with every wgmma waited for and a block-wide barrier).
+// kBf16: bf16 images and products, the head's operands rounded (note 10).
+template <int H, bool kSave, bool kBf16 = false>
 __device__ void mip_tile_tc(const MipWeights& w, const MipImages& im, const float* xs,
                             float* act, float* bbuf, float* out, int nvalid, const Save* save) {
   constexpr int ald = act_ld<H>();
-  const size_t slab = 2 * static_cast<size_t>(H) * H;
+  const size_t slab = tc_image_floats<kBf16>(H, H);
   float d[H / 4];
   float acc[kRowsPerWarp][H / 32];
   tc_zero<H>(d);
-  tc_gemm<H>(d, xs, round_up4(w.F), w.F, im.w_in, bbuf);
+  tc_gemm<H, kBf16>(d, xs, round_up4(w.F), w.F, im.w_in, bbuf);
   tc_to_rows<H>(d, act, acc);
   layer_epilogue<H, kSave, true>(acc, w.b, w.g, w.beta, save, 0);
   for (int i = 1; i < w.L; ++i) {
     tc_store_rows<H>(acc, act);
     tc_zero<H>(d);
-    tc_gemm<H>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
+    tc_gemm<H, kBf16>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
     tc_to_rows<H>(d, act, acc);
     layer_epilogue<H, kSave, true>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
   }
-  head_wide<H, ald>(acc, act, bbuf, w.w_out, w.b_out, w.O, out, nvalid);
+  head_wide<H, ald, kBf16>(acc, act, bbuf, w.w_out, w.b_out, w.O, out, nvalid);
 }
 
 // The forward over features x [P][F] in 64-row tiles -> out [P][O].  With
 // kSave every layer's xhat [L][P][H] and statistics [L][P][2] are stored
 // for the backward passes.  Two blocks per SM (at most 128 registers).
-template <int H, bool kSave>
+// kBf16: bfloat16 features, the products' operands rounded.
+template <int H, bool kSave, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 2)
-    mip_fwd_kernel(MipWeights w, const float* __restrict__ x, float* __restrict__ out, int P,
-                   float* xhat, float* stats) {
+    mip_fwd_kernel(MipWeights w, const enc_t<kBf16>* __restrict__ x, float* __restrict__ out,
+                   int P, float* xhat, float* stats) {
   extern __shared__ float4 smem4[];
   float* act = reinterpret_cast<float*>(smem4);
   float* wbuf = act + kTileRows * H;
@@ -197,15 +213,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   load_tile(xs, x, row0, nvalid, w.F, 1);
   __syncthreads();
   const Save save{xhat, stats, static_cast<size_t>(P), row0, nvalid};
-  mip_tile<H, kSave>(w, xs, act, wbuf, out + row0 * w.O, nvalid, &save);
+  mip_tile<H, kSave, kBf16>(w, xs, act, wbuf, out + row0 * w.O, nvalid, &save);
 }
 
 // The tensor-core forward tile of a block: the B chunks, the activation
 // tile and the features, in tc_tile_bytes<H>(F, 0) (fwd_store's layout
-// without the view encodings).
-template <int H, bool kSave>
+// without the view encodings).  kBf16: bfloat16 features and images.
+template <int H, bool kSave, bool kBf16>
 __device__ __forceinline__ void mip_fwd_tc_block(const MipWeights& w, const MipImages& im,
-                                                 const float* x, float* out, int P,
+                                                 const enc_t<kBf16>* x, float* out, int P,
                                                  float* xhat, float* stats) {
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);
@@ -216,25 +232,25 @@ __device__ __forceinline__ void mip_fwd_tc_block(const MipWeights& w, const MipI
   load_tile(xs, x, row0, nvalid, w.F, 1);
   __syncthreads();
   const Save save{xhat, stats, static_cast<size_t>(P), row0, nvalid};
-  mip_tile_tc<H, kSave>(w, im, xs, act, bbuf, out + row0 * w.O, nvalid, &save);
+  mip_tile_tc<H, kSave, kBf16>(w, im, xs, act, bbuf, out + row0 * w.O, nvalid, &save);
 }
 
 // K6's stored-chain forward on the tensor cores (mip_fwd_kernel<H, true>'s
 // contract).  One block an SM.
-template <int H>
+template <int H, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
-    mip_fwd_store_tc_kernel(MipWeights w, MipImages im, const float* __restrict__ x,
+    mip_fwd_store_tc_kernel(MipWeights w, MipImages im, const enc_t<kBf16>* __restrict__ x,
                             float* __restrict__ out, int P, float* xhat, float* stats) {
-  mip_fwd_tc_block<H, true>(w, im, x, out, P, xhat, stats);
+  mip_fwd_tc_block<H, true, kBf16>(w, im, x, out, P, xhat, stats);
 }
 
 // K7's and K5-fwd's forward on the tensor cores, nothing saved
 // (mip_fwd_kernel<H, false>'s contract).  One block an SM.
-template <int H>
+template <int H, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
-    mip_fwd_tc_kernel(MipWeights w, MipImages im, const float* __restrict__ x,
+    mip_fwd_tc_kernel(MipWeights w, MipImages im, const enc_t<kBf16>* __restrict__ x,
                       float* __restrict__ out, int P) {
-  mip_fwd_tc_block<H, false>(w, im, x, out, P, nullptr, nullptr);
+  mip_fwd_tc_block<H, false, kBf16>(w, im, x, out, P, nullptr, nullptr);
 }
 
 // acc += gs[:, 0:n] @ W^T for this warp's rows: the input cotangent of a
@@ -242,8 +258,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // row stride ldg, a multiple of 4 with columns n..ldg zero).  W^T streams
 // through wbuf (chunk_t_floats<H>()) in chunks of kChunk outputs, read
 // once per block, as gemm_acc_t stages a transposed slab.  Ends with a
-// block-wide barrier.
-template <int H>
+// block-wide barrier.  kBf16: gs and W rounded to bfloat16 in the product
+// (the JAX package's _dot_t on the head).
+template <int H, bool kBf16 = false>
 __device__ void head_dh(float (&acc)[kRowsPerWarp][H / 32], const float* gs, int ldg, int n,
                         const float* __restrict__ W, float* wbuf) {
   const float* a_rows = gs + (threadIdx.x >> 5) * kRowsPerWarp * ldg;
@@ -253,14 +270,15 @@ __device__ void head_dh(float (&acc)[kRowsPerWarp][H / 32], const float* gs, int
       wbuf[qq * (H + 1) + j] = q0 + qq < n ? __ldg(W + static_cast<size_t>(j) * n + q0 + qq) : 0.f;
     }
     __syncthreads();
-    chunk_fma<H, H + 1>(acc, a_rows, ldg, q0, min(kChunk, round_up4(n - q0)), wbuf);
+    chunk_fma<H, H + 1, kBf16>(acc, a_rows, ldg, q0, min(kChunk, round_up4(n - q0)), wbuf);
     __syncthreads();
   }
 }
 
 // The start of mip_bwd_rows_tc_kernel: the tile's output cotangents gout
 // [P][O] into gs [64][round_up4(O)] (zero past the valid rows and past O)
-// and their column sums to the tile's b_out partials p_bout.
+// and their column sums to the tile's b_out partials p_bout (float32 in
+// bf16 too: head_dh rounds the cotangents it multiplies).
 __device__ __forceinline__ void load_head_cotangents(const MipWeights& w, const float* gout,
                                                      size_t row0, int nvalid, float* gs,
                                                      float* p_bout) {
@@ -294,18 +312,20 @@ __host__ inline size_t mip_bwd_rows_tc_smem(const MipWeights& w) {
 // cores (bwd_rows_tc_kernel's order, tc_mlp.cuh): bwd is the backward
 // images, the hidden slabs' (the packed [in][out] slabs, 2 H H floats each)
 // then w_in's, from which the features' cotangent dx [P][F] is written when
-// not null (K5-bwd; K6 asks for none).  One block an SM.
-template <int H>
+// not null (K5-bwd; K6 asks for none).  One block an SM.  kBf16: bf16
+// images and products, the head's input cotangent rounded (head_dh), dx
+// bfloat16 (note 10).
+template <int H, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     mip_bwd_rows_tc_kernel(MipWeights w, const float* __restrict__ gout, int P,
                            const float* xhat, const float* stats, const float* __restrict__ bwd,
-                           float* dpre, float* tpart, float* dx) {
+                           float* dpre, float* tpart, void* dx) {
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);          // B chunks, head chunks or colsum scratch
   float* act = bbuf + tc_bbuf_floats<H>();    // dpre of the current layer
   float* gs = act + kTileRows * act_ld<H>();  // [64][ldg] output cotangents
   const int L = w.L;
-  const size_t slab = 2 * static_cast<size_t>(H) * H, PP = static_cast<size_t>(P);
+  const size_t slab = tc_image_floats<kBf16>(H, H), PP = static_cast<size_t>(P);
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
   float* p_b = tpart + blockIdx.x * mip_tile_floats(w, H);
@@ -316,20 +336,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   float acc[kRowsPerWarp][H / 32];
   float d[H / 4];
   zero<H>(acc);
-  head_dh<H>(acc, gs, round_up4(w.O), w.O, w.w_out, bbuf);
+  head_dh<H, kBf16>(acc, gs, round_up4(w.O), w.O, w.w_out, bbuf);
   for (int i = L - 1; i >= 0; --i) {
     layer_bwd<H, true>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats,
                        dpre, p_b, p_g, p_beta, bbuf);
     if (i == 0) break;
     tc_store_rows<H>(acc, act);
     tc_zero<H>(d);
-    tc_gemm<H>(d, act, act_ld<H>(), H, bwd + (i - 1) * slab, bbuf);
+    tc_gemm<H, kBf16>(d, act, act_ld<H>(), H, bwd + (i - 1) * slab, bbuf);
     tc_to_rows<H>(d, act, acc);
   }
   // The features' cotangent dx = dpre_0 @ w_in^T, from the stored dpre.
   if (dx != nullptr)
-    tc_input_grad<H>(act, bbuf, dpre, PP, row0, nvalid, 0, tc_input_images(bwd, L - 1, H), -1,
-                     nullptr, w.F, dx);
+    tc_input_grad<H, kBf16>(act, bbuf, dpre, PP, row0, nvalid, 0,
+                            tc_input_images<kBf16>(bwd, L - 1, H), -1, nullptr, w.F, dx);
 }
 
 // ---------------------------------------------------------------------------
@@ -338,17 +358,20 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // The float32 SIMT forward tile (K5-fwd's, K5-bwd's, K6's and K7's
 // forward where the features are too wide for the tensor-core tile).
+// kBf16: bfloat16 features x, the products' operands rounded to bfloat16.
 struct MipSimt {
-  template <int H, bool kSave>
-  static cudaError_t fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
-                         float* stats, const float* /*tc_fwd*/, cudaStream_t stream) {
+  template <int H, bool kSave, bool kBf16 = false>
+  static cudaError_t fwd(const MipWeights& w, const enc_t<kBf16>* x, float* out, int P,
+                         float* xhat, float* stats, const float* /*tc_fwd*/,
+                         cudaStream_t stream) {
     const size_t smem = fwd_store_smem<H>(w.F, 0);
-    cudaError_t err = cudaFuncSetAttribute(mip_fwd_kernel<H, kSave>,
+    cudaError_t err = cudaFuncSetAttribute(mip_fwd_kernel<H, kSave, kBf16>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
-    mip_fwd_kernel<H, kSave><<<tiles, kThreads, smem, stream>>>(w, x, out, P, xhat, stats);
+    mip_fwd_kernel<H, kSave, kBf16><<<tiles, kThreads, smem, stream>>>(w, x, out, P, xhat,
+                                                                        stats);
     return cudaGetLastError();
   }
 };
@@ -360,62 +383,77 @@ struct MipSimt {
 // with kSave also the chain for the backward (xhat, stats); its tile takes
 // fwd_store's bytes without the view encodings, so fwd_store's plan at (F,
 // 0) decides it (the width rule, tc_mlp.cuh note 9): MipSimt's tile runs
-// where the tensor-core one does not fit.
-struct MipTc {
+// where the tensor-core one does not fit.  kBf16: compute_dtype bfloat16
+// (note 10): bfloat16 features and images, bf16 products and head, the
+// bf16-rounding SIMT tile past the tensor-core one, TcProductsT<true>'s
+// wgrad, and the features' cotangent bfloat16.
+template <bool kBf16_ = false>
+struct MipTcT {
+  static constexpr bool kBf16 = kBf16_;
+  using Feat = enc_t<kBf16>;
+
   template <int H, bool kSave>
-  static cudaError_t fwd(const MipWeights& w, const float* x, float* out, int P, float* xhat,
+  static cudaError_t fwd(const MipWeights& w, const void* xv, float* out, int P, float* xhat,
                          float* stats, const float* tc_fwd, cudaStream_t stream) {
+    const Feat* x = static_cast<const Feat*>(xv);
     TilePolicy policy;
     cudaError_t err = fwd_store_plan<H>(w.F, 0, &policy);
     if (err != cudaSuccess) return err;
     if (policy == kTileSimt)
-      return MipSimt::fwd<H, kSave>(w, x, out, P, xhat, stats, tc_fwd, stream);
+      return MipSimt::fwd<H, kSave, kBf16>(w, x, out, P, xhat, stats, tc_fwd, stream);
     if (policy == kTileNone || tc_fwd == nullptr) return cudaErrorInvalidValue;
     const size_t smem = tc_tile_bytes<H>(w.F, 0);
-    const MipImages im = MipImages::forward(w, tc_fwd, H);
+    const MipImages im = MipImages::forward<kBf16>(w, tc_fwd, H);
     const int tiles = (P + kTileRows - 1) / kTileRows;
     if constexpr (kSave) {
-      err = cudaFuncSetAttribute(mip_fwd_store_tc_kernel<H>,
+      err = cudaFuncSetAttribute(mip_fwd_store_tc_kernel<H, kBf16>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
-      mip_fwd_store_tc_kernel<H><<<tiles, kThreads, smem, stream>>>(w, im, x, out, P, xhat, stats);
+      mip_fwd_store_tc_kernel<H, kBf16><<<tiles, kThreads, smem, stream>>>(w, im, x, out, P, xhat,
+                                                                           stats);
     } else {
-      err = cudaFuncSetAttribute(mip_fwd_tc_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(smem));
+      err = cudaFuncSetAttribute(mip_fwd_tc_kernel<H, kBf16>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
-      mip_fwd_tc_kernel<H><<<tiles, kThreads, smem, stream>>>(w, im, x, out, P);
+      mip_fwd_tc_kernel<H, kBf16><<<tiles, kThreads, smem, stream>>>(w, im, x, out, P);
     }
     return cudaGetLastError();
   }
 
   template <int H>
   static cudaError_t bwd_rows(const MipWeights& w, const float* gout, int P, const Scratch& s,
-                              float* dx, cudaStream_t stream) {
+                              void* dx, cudaStream_t stream) {
     if (s.tc_bwd == nullptr) return cudaErrorInvalidValue;
     const size_t smem = mip_bwd_rows_tc_smem<H>(w);
-    cudaError_t err = cudaFuncSetAttribute(mip_bwd_rows_tc_kernel<H>,
+    cudaError_t err = cudaFuncSetAttribute(mip_bwd_rows_tc_kernel<H, kBf16>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
-    mip_bwd_rows_tc_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats,
-                                                                  s.tc_bwd, s.dpre, s.tpart, dx);
+    mip_bwd_rows_tc_kernel<H, kBf16><<<tiles, kThreads, smem, stream>>>(
+        w, gout, P, s.xhat, s.stats, s.tc_bwd, s.dpre, s.tpart, dx);
     return cudaGetLastError();
   }
 
   static cudaError_t wgrad(const WProds& prods, int total_tiles, int P, int k_chunk,
                            const Scratch& s, size_t wfloats, cudaStream_t stream) {
-    return TcProducts::wgrad(prods, total_tiles, P, k_chunk, s, wfloats, stream);
+    return TcProductsT<kBf16>::wgrad(prods, total_tiles, P, k_chunk, s, wfloats, stream);
   }
 };
+using MipTc = MipTcT<false>;
+using MipTcBf16 = MipTcT<true>;
 
 // The backward passes from the output cotangents gout [P][O] (the forward
 // ran with kSave into s): grads (the flat gradient, mip_wgrad_floats +
-// mip_tile_floats) and, when not null, dx.  x is the forward's features.
+// mip_tile_floats) and, when not null, dx.  x is the forward's features
+// (bfloat16 where Products::kBf16, as dx then is).
 template <int H, class Products>
-cudaError_t launch_mip_backward(const MipWeights& w, const float* x, const float* gout, int P,
-                                const Scratch& s, float* dx, float* grads,
+cudaError_t launch_mip_backward(const MipWeights& w, const void* xv, const float* gout, int P,
+                                const Scratch& s, void* dx, float* grads,
                                 cudaStream_t stream) {
+  // The raw features' pointer as WProd holds it (a_bf16 marks bfloat16).
+  const float* x = static_cast<const float*>(xv);
+  constexpr int feat_bf16 = Products::kBf16 ? 1 : 0;
   const int L = w.L;
   cudaError_t err = Products::template bwd_rows<H>(w, gout, P, s, dx, stream);
   if (err != cudaSuccess) return err;
@@ -429,7 +467,7 @@ cudaError_t launch_mip_backward(const MipWeights& w, const float* x, const float
   int n = 0;
   size_t off = 0;
   prods.p[n++] = WProd{x, nullptr, nullptr, dpre(0), w.F, w.F, H, 1, 0, off,
-                       (w.F + kWT - 1) / kWT, th};
+                       (w.F + kWT - 1) / kWT, th, 0, 1, feat_bf16};
   off += static_cast<size_t>(w.F) * H;
   for (int k = 0; k < L - 1; ++k) {
     prods.p[n++] = WProd{xhat(k), w.g + k * H, w.beta + k * H, dpre(k + 1), H, H, H, 1, 1, off,

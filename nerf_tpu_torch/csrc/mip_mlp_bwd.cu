@@ -30,6 +30,15 @@
 // tensor-core forward tile (tc_mlp.cuh note 9) the forward runs MipSimt's
 // float32 tile; the backward passes do not depend on the widths.
 //
+// mip_mlp_bwd_bf16 is the same in compute_dtype bfloat16 (MipTcBf16,
+// tc_mlp.cuh note 10): bfloat16 features and images, every product and the
+// head's on bf16 operands with float32 sums, the features' cotangent
+// written as bfloat16 (their dtype); the forward recompute on the
+// bf16-rounding SIMT tile past the tensor-core one.  Its bound at 258,048
+// rows: 0.470 ms of bf16 tensor-core operations (FLOP / 989 TFLOP/s); the
+// float32 chain (xhat and dpre, 10,240 bytes a row, written once and read
+// once) takes 1.58 ms at 3.35 TB/s.
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "mip_mlp.cuh"
 
@@ -37,13 +46,30 @@ namespace {
 
 using namespace nerf_mlp;
 
-template <int H>
-cudaError_t run(const MipWeights& w, const float* x, const float* gout, float* dx, float* grads,
+template <int H, class Products>
+cudaError_t run(const MipWeights& w, const void* x, const float* gout, void* dx, float* grads,
                 float* out, int P, const Scratch& s, cudaStream_t stream) {
   cudaError_t err =
-      MipTc::fwd<H, true>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
+      Products::template fwd<H, true>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
   if (err != cudaSuccess) return err;
-  return launch_mip_backward<H, MipTc>(w, x, gout, P, s, dx, grads, stream);
+  return launch_mip_backward<H, Products>(w, x, gout, P, s, dx, grads, stream);
+}
+
+template <class Products>
+int run_at(const void* x, const float* gout, void* dx, float* grads, int P, int F, int hidden,
+           int L, int O, const float* w_in, const float* whh, const float* b, const float* g,
+           const float* beta, const float* w_out, const float* b_out, float* xhat,
+           float* stats, float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
+           float* out, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
+  if (L < 2 || L + 1 > kMaxProds || O < 1 || O > kThreads) return cudaErrorInvalidValue;
+  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+                  static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H) \
+  static_cast<int>(run<H, Products>(w, x, gout, dx, grads, out, P, s, st))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
 }
 
 }  // namespace
@@ -55,13 +81,22 @@ extern "C" int mip_mlp_bwd(const float* x, const float* gout, float* dx, float* 
                            float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
                            float* out, int splits, const float* tc_fwd, const float* tc_bwd,
                            void* stream) {
-  if (L < 2 || L + 1 > kMaxProds || O < 1 || O > kThreads) return cudaErrorInvalidValue;
-  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) static_cast<int>(run<H>(w, x, gout, dx, grads, out, P, s, st))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  return run_at<MipTc>(x, gout, dx, grads, P, F, hidden, L, O, w_in, whh, b, g, beta, w_out,
+                       b_out, xhat, stats, dpre, wpart, tpart, tmp, wt, out, splits, tc_fwd,
+                       tc_bwd, stream);
+}
+
+// The same in compute_dtype bfloat16: x, dx and both images are bfloat16.
+extern "C" int mip_mlp_bwd_bf16(const void* x, const float* gout, void* dx, float* grads,
+                                int P, int F, int hidden, int L, int O, const float* w_in,
+                                const float* whh, const float* b, const float* g,
+                                const float* beta, const float* w_out, const float* b_out,
+                                float* xhat, float* stats, float* dpre, float* wpart,
+                                float* tpart, float* tmp, float* wt, float* out, int splits,
+                                const void* tc_fwd, const void* tc_bwd, void* stream) {
+  return run_at<MipTcBf16>(x, gout, dx, grads, P, F, hidden, L, O, w_in, whh, b, g, beta,
+                           w_out, b_out, xhat, stats, dpre, wpart, tpart, tmp, wt, out, splits,
+                           tc_fwd, tc_bwd, stream);
 }
 
 // The plan of the forward tile for F features: out = [policy (0 tensor

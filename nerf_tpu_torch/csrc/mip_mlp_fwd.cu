@@ -21,28 +21,57 @@
 // float32 tile (weights streamed from L2, two blocks an SM).  The choice
 // is made from the shapes before any launch.
 //
+// mip_mlp_fwd_bf16 is the same kernel in compute_dtype bfloat16 (MipTcBf16,
+// tc_mlp.cuh note 10): bfloat16 features and weight images, every product
+// and the head on bf16 operands with float32 sums, float32 outputs; the
+// same tiles and width rule.  Its bound at 258,048 rows: 0.157 ms of bf16
+// tensor-core operations (FLOP / 989 TFLOP/s), against 192 bytes of
+// features and 216 of output a row (0.031 ms at 3.35 TB/s).
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "mip_mlp.cuh"
+
+namespace {
+
+using namespace nerf_mlp;
+
+template <class Products>
+int run(const void* x, float* out, int P, int F, int hidden, int L, int O, const float* w_in,
+        const float* whh, const float* b, const float* g, const float* beta,
+        const float* w_out, const float* b_out, const void* tc_fwd, void* stream) {
+  if (L < 2 || O < 1 || O > kThreads) return cudaErrorInvalidValue;
+  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
+  const float* img = static_cast<const float*>(tc_fwd);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H) \
+  static_cast<int>(Products::template fwd<H, false>(w, x, out, P, nullptr, nullptr, img, s))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
+}
+
+}  // namespace
 
 extern "C" int mip_mlp_fwd(const float* x, float* out, int P, int F, int hidden, int L, int O,
                            const float* w_in, const float* whh, const float* b, const float* g,
                            const float* beta, const float* w_out, const float* b_out,
                            const float* tc_fwd, void* stream) {
-  using namespace nerf_mlp;
-  if (L < 2 || O < 1 || O > kThreads) return cudaErrorInvalidValue;
-  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) \
-  static_cast<int>(MipTc::fwd<H, false>(w, x, out, P, nullptr, nullptr, tc_fwd, s))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  return run<MipTc>(x, out, P, F, hidden, L, O, w_in, whh, b, g, beta, w_out, b_out, tc_fwd,
+                    stream);
+}
+
+// The same in compute_dtype bfloat16: x and tc_fwd are bfloat16.
+extern "C" int mip_mlp_fwd_bf16(const void* x, float* out, int P, int F, int hidden, int L,
+                                int O, const float* w_in, const float* whh, const float* b,
+                                const float* g, const float* beta, const float* w_out,
+                                const float* b_out, const void* tc_fwd, void* stream) {
+  return run<MipTcBf16>(x, out, P, F, hidden, L, O, w_in, whh, b, g, beta, w_out, b_out,
+                        tc_fwd, stream);
 }
 
 // The plan of the forward tile for F features: out = [policy (0 tensor
 // cores, 1 float32 SIMT, 2 neither fits), tensor-core bytes, SIMT bytes,
 // the device's limit].
 extern "C" int mip_mlp_fwd_plan(int F, int de, int hidden, long long* out) {
-  using namespace nerf_mlp;
   if (de != 0) return cudaErrorInvalidValue;
   return static_cast<int>(fwd_store_plan_at(F, 0, hidden, out));
 }

@@ -33,6 +33,14 @@
 // g_z (onehot - softmax(seg_i)) over every class.  With seg_weight 0 the CE
 // is skipped and the segmentation logits get zero cotangents.
 //
+// mip_train_grads_bf16 is the same in compute_dtype bfloat16 (MipTcBf16,
+// tc_mlp.cuh note 10): bfloat16 features and images, every product and the
+// head's on bf16 operands with float32 sums; the compositing, the losses
+// and their backward float32.  Its bound at 4096 x 63 rows: 0.470 ms of
+// bf16 tensor-core operations (FLOP / 989 TFLOP/s); its float32 chain
+// (xhat and dpre, 10,240 bytes a row, written once and read once) takes
+// 1.58 ms at 3.35 TB/s.
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "mip_mlp.cuh"
 
@@ -127,14 +135,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int H>
-cudaError_t run(const MipWeights& w, const float* x, const float* dists, const float* noise,
+template <int H, class Products>
+cudaError_t run(const MipWeights& w, const void* x, const float* dists, const float* noise,
                 const float* pix, const long long* labels, int R, int n, int c, int white,
                 float seg_weight, float* loss, float* grads, const Scratch& s, float* out,
                 float* gout, float* ray_loss, cudaStream_t stream) {
   const int P = R * n;
   cudaError_t err =
-      MipTc::fwd<H, true>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
+      Products::template fwd<H, true>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
   if (err != cudaSuccess) return err;
   const size_t smem = static_cast<size_t>(kWarps) * 5 * n * sizeof(float);
   err = cudaFuncSetAttribute(mip_objective_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -148,7 +156,29 @@ cudaError_t run(const MipWeights& w, const float* x, const float* dists, const f
       ray_loss);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = colsum(ray_loss, R, 2, loss, s.tmp, stream)) != cudaSuccess) return err;
-  return launch_mip_backward<H, MipTc>(w, x, gout, P, s, nullptr, grads, stream);
+  return launch_mip_backward<H, Products>(w, x, gout, P, s, nullptr, grads, stream);
+}
+
+template <class Products>
+int run_at(const void* x, const float* dists, const float* noise, const float* pix,
+           const long long* labels, float* loss, float* grads, int R, int n, int F, int hidden,
+           int L, int c, int O, int white, float seg_weight, const float* w_in,
+           const float* whh, const float* b, const float* g, const float* beta,
+           const float* w_out, const float* b_out, float* xhat, float* stats, float* dpre,
+           float* wpart, float* tpart, float* tmp, float* wt, float* out, float* gout,
+           float* ray_loss, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
+  if (L < 2 || L + 1 > kMaxProds || c < 1 || c > kMaxColors || O < c + 2 || O > kThreads ||
+      (seg_weight != 0.f && labels == nullptr))
+    return cudaErrorInvalidValue;
+  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+                  static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H)                                                                       \
+  static_cast<int>(run<H, Products>(w, x, dists, noise, pix, labels, R, n, c, white,         \
+                                    seg_weight, loss, grads, s, out, gout, ray_loss, st))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
 }
 
 }  // namespace
@@ -163,17 +193,27 @@ extern "C" int mip_train_grads(const float* x, const float* dists, const float* 
                                float* tpart, float* tmp, float* wt, float* out, float* gout,
                                float* ray_loss, int splits, const float* tc_fwd,
                                const float* tc_bwd, void* stream) {
-  if (L < 2 || L + 1 > kMaxProds || c < 1 || c > kMaxColors || O < c + 2 || O > kThreads ||
-      (seg_weight != 0.f && labels == nullptr))
-    return cudaErrorInvalidValue;
-  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H)                                                                       \
-  static_cast<int>(run<H>(w, x, dists, noise, pix, labels, R, n, c, white, seg_weight, loss, \
-                          grads, s, out, gout, ray_loss, st))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  return run_at<MipTc>(x, dists, noise, pix, labels, loss, grads, R, n, F, hidden, L, c, O,
+                       white, seg_weight, w_in, whh, b, g, beta, w_out, b_out, xhat, stats,
+                       dpre, wpart, tpart, tmp, wt, out, gout, ray_loss, splits, tc_fwd, tc_bwd,
+                       stream);
+}
+
+// The same in compute_dtype bfloat16: x and both images are bfloat16.
+extern "C" int mip_train_grads_bf16(const void* x, const float* dists, const float* noise,
+                                    const float* pix, const long long* labels, float* loss,
+                                    float* grads, int R, int n, int F, int hidden, int L, int c,
+                                    int O, int white, float seg_weight, const float* w_in,
+                                    const float* whh, const float* b, const float* g,
+                                    const float* beta, const float* w_out, const float* b_out,
+                                    float* xhat, float* stats, float* dpre, float* wpart,
+                                    float* tpart, float* tmp, float* wt, float* out,
+                                    float* gout, float* ray_loss, int splits,
+                                    const void* tc_fwd, const void* tc_bwd, void* stream) {
+  return run_at<MipTcBf16>(x, dists, noise, pix, labels, loss, grads, R, n, F, hidden, L, c,
+                           O, white, seg_weight, w_in, whh, b, g, beta, w_out, b_out, xhat,
+                           stats, dpre, wpart, tpart, tmp, wt, out, gout, ray_loss, splits,
+                           tc_fwd, tc_bwd, stream);
 }
 
 // The plan of K6's forward tile for F = xe features (de must be 0): out =

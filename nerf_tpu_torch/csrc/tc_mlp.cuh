@@ -127,8 +127,9 @@
 //    before launching (the wrappers raise first, from the same plan).
 //
 // 10. compute_dtype="bfloat16" (the template parameter kBf16 of tc_gemm,
-//    mlp_tile_tc, the passes' kernels and TcProductsT; K1-fwd, K1-bwd, K2,
-//    K3 and K4).  bf16 is the tensor cores' own operand type: each k-step of
+//    mlp_tile_tc, the passes' kernels and TcProductsT: K1-fwd, K1-bwd, K2,
+//    K3 and K4; and of mip_mlp.cuh's tiles, kernels and MipTcT: K5-fwd,
+//    K5-bwd, K6 and K7).  bf16 is the tensor cores' own operand type: each k-step of
 //    16 values is ONE wgmma.mma_async ... .f32.bf16.bf16 (k = 16; 3xTF32
 //    takes three of k = 8 for half the values), at 989 TFLOP/s dense.  The
 //    rounding points are the JAX package's _dot, _dot_t and _dot_tn: the A
@@ -138,7 +139,7 @@
 //    come from bf16 images of the weights (tc_mlp.py::operand_image with
 //    dtype bfloat16) or, in wgrad, from dpre rounded as it is transposed;
 //    the SIMT heads round h, W and the output cotangents (head<H, true>,
-//    head_bwd<H, true>).  Everything else (LayerNorm and its statistics,
+//    head_bwd<H, true>; the mip head_wide and head_dh likewise).  Everything else (LayerNorm and its statistics,
 //    biases, ReLU masks, compositing, losses, the chain, every sum of
 //    partials) is float32, as in JAX.  The encodings cross device memory
 //    as bf16 (load_tile, TileLoadT<__nv_bfloat16>, wgrad's bf16 raw rows).
@@ -160,7 +161,9 @@
 //    the TF32 and bf16 passes alike).  Bounds at the full-width model
 //    (FLOP / 989 TFLOP/s): K1-fwd at 262,144 rows 0.334 ms, K4 at a
 //    4000-ray tile 0.653 ms, K1-bwd at 131,072 rows 0.501 ms, K2 at 4096 x
-//    64 and K3 at 2048 x 128 1.003 ms each; the training kernels' float32
+//    64 and K3 at 2048 x 128 1.003 ms each; K5-fwd at 258,048 rows 0.157
+//    ms, K7 at a 4000-ray tile of 63 rows 0.153 ms, K5-bwd at 258,048 rows
+//    and K6 at 4096 x 63 0.470 ms each; the training kernels' float32
 //    chain (xhat and dpre, written once and read once) then bounds them by
 //    bytes instead.
 //

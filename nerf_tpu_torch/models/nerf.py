@@ -502,12 +502,12 @@ class MipNeRF(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full images ``([B, H, W, C], [B, H, W, num_classes])``, tile by
         tile of ``render.rays_per_tile`` rays.  On K7's path the weights are
-        packed, and their forward images built, once for the frame's
-        kernel calls."""
+        packed, and their forward images built in ``cfg.compute_dtype``,
+        once for the frame's kernel calls."""
         cfg = self.cfg
         mlp_weights = None
         if self._uses_kernels() and render.density_noise_std == 0.0:
-            mlp_weights = mip_mlp.prepare_weights(self.mlp)
+            mlp_weights = mip_mlp.prepare_weights(self.mlp, dtype=self._compute_dtype())
 
         def per_tile(tile_o, tile_d, tile_sx, tile_sd):
             out = self.render_rays(

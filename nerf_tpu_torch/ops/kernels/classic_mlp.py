@@ -25,8 +25,9 @@ to bfloat16, float32 sums, float32 outputs and gradients; the encodings'
 cotangents bfloat16), and the plain versions run the JAX package's bf16
 arithmetic (``tc_mlp.bf16_matmul_autograd`` for every product, the heads'
 included).  ``_build.policy_counts`` records ``"tc_bf16"`` or
-``"simt_bf16"`` for those calls.  The other kernels (K5-K9) still raise a
-``NotImplementedError`` for bfloat16 (``BF16_QUEUED``).
+``"simt_bf16"`` for those calls.  The mip family (K5-fwd, K5-bwd, K6, K7)
+takes bfloat16 features the same way (``mip_mlp``, ``mip_train``); K8 and
+K9 still raise a ``NotImplementedError`` for bfloat16 (``BF16_QUEUED``).
 
 The kernels read the weights as ``pack_classic_params`` packs them and,
 on the tensor cores, as the operand images ``tc_mlp.tc_images`` builds.
@@ -56,8 +57,8 @@ NAME = "classic_mlp_fwd"
 BWD_NAME = "classic_mlp_bwd"
 HIDDEN_WIDTHS = (32, 64, 128, 256)  # the kernel's instantiations
 # Where bfloat16 inputs of the kernels still to take them are queued.
-BF16_QUEUED = ("bfloat16 is not implemented yet for this kernel: K5-K9 in bfloat16 are the "
-               "next bf16 slice (ROADMAP.md queue 1)")
+BF16_QUEUED = ("bfloat16 is not implemented yet for this kernel: K8 and K9 in bfloat16 are "
+               "the next bf16 slice (ROADMAP.md queue 1)")
 MAX_COLORS = 8  # color outputs the backward kernels take
 # Weight slabs in the order of the C interface (wd_in may be absent).
 PACK_ORDER = (
@@ -178,9 +179,10 @@ def classic_mlp_fwd_plain(
     return torch.cat([density, color], dim=-1)
 
 
-# The inputs of the classic main path's wrappers that are bfloat16 under
-# compute_dtype="bfloat16" (check_inputs' ``bf16``).
-BF16_INPUTS = ("x_enc", "d_enc", "tc_fwd", "tc_bwd")
+# The inputs of the bf16 kernels' wrappers (the classic main path's and the
+# mip family's) that are bfloat16 under compute_dtype="bfloat16"
+# (check_inputs' ``bf16``).
+BF16_INPUTS = ("x_enc", "d_enc", "features", "tc_fwd", "tc_bwd")
 
 
 def check_inputs(
@@ -188,10 +190,10 @@ def check_inputs(
     aligned: Tuple[str, ...] = PACK_ORDER, bf16: bool = False,
 ) -> torch.device:
     """Shared argument checks of the kernel wrappers: one device, float32
-    but, with ``bf16`` (the classic main path's kernels), for the
-    ``BF16_INPUTS``, which may be bfloat16 all together
-    (``compute_dtype="bfloat16"``: the encodings and their operand images;
-    a kernel without ``bf16`` raises a ``NotImplementedError`` for
+    but, with ``bf16`` (the classic main path's and the mip family's
+    kernels), for the ``BF16_INPUTS``, which may be bfloat16 all together
+    (``compute_dtype="bfloat16"``: the encodings or the features and their
+    operand images; a kernel without ``bf16`` raises a ``NotImplementedError`` for
     bfloat16), contiguous, no autograd graph
     (a wrapper has no autograd backward of its own; ``classic_mlp_fwd``
     routes through ``ClassicMLPFunction`` before it gets here), and on the

@@ -15,7 +15,17 @@ the tensor cores (the ``MipTc`` policy of ``csrc/mip_mlp.cuh``, 3xTF32
 tile (``MipSimt``) where the features are too wide for the tensor-core one
 (``_build.tile_plan``); ``_build.policy_counts`` records which.  Under
 autograd ``mip_mlp_fwd`` runs as ``MipMLPFunction``, whose backward is
-``mip_mlp_bwd``.
+``mip_mlp_bwd`` (K5-bwd).
+
+``compute_dtype="bfloat16"``: features given as bfloat16 (and the operand
+images built beforehand, ``prepare_weights(..., dtype=torch.bfloat16)``)
+make K5-fwd, K5-bwd, K6 and K7 launch the bf16 kernel of their library
+(``<name>_bf16``: every product, the 54-wide head's included, on operands
+rounded to bfloat16 with float32 sums, float32 outputs and gradients;
+K5-bwd's features' cotangent bfloat16, the features' dtype), recorded as
+``"tc_bf16"`` or ``"simt_bf16"``; the plain versions then run the JAX
+package's bf16 arithmetic (``tc_mlp.bf16_matmul_autograd`` for every
+product, the head's included).
 
 The network: ``L`` x (Linear -> LayerNorm -> ReLU), then one Linear to
 ``O = 1 + color + segmentation`` logits.  The packed slabs, Linear weights
@@ -40,6 +50,7 @@ from nerf_tpu_torch.ops.kernels.classic_mlp import (
     PreparedWeights,
     check_inputs,
     packed_grads_plain,
+    route,
     scratch_for,
     scratch_pointers,
 )
@@ -76,32 +87,40 @@ def pack_mip_params(mlp: MipMLP) -> Packed:
     return {k: v.contiguous() for k, v in packed.items()}
 
 
-def prepare_weights(mlp: MipMLP, backward: bool = False) -> PreparedWeights:
+def prepare_weights(mlp: MipMLP, backward: bool = False,
+                    dtype: torch.dtype = torch.float32) -> PreparedWeights:
     """``classic_mlp.prepare_weights`` for the mip MLP: the packed weights
     and, where they lie on the card, their operand images
     (``tc_mlp.tc_images``; ``tc_bwd`` where asked for), once for the tiles
     of a frame or the passes of a step.  Valid only while the weights do not
-    change; under autograd ``packed`` keeps the graph to the parameters."""
+    change; under autograd ``packed`` keeps the graph to the parameters.
+    ``dtype`` is the compute dtype the calls will run in (their features'
+    dtype)."""
     packed = pack_mip_params(mlp)
     if packed["w_in"].device.type != "cuda":
         return PreparedWeights(packed)
-    return PreparedWeights(packed, *tc_mlp.tc_images(packed, backward))
+    return PreparedWeights(packed, *tc_mlp.tc_images(packed, backward, dtype))
 
 
-def mip_mlp_fwd_plain(packed: Packed, features: torch.Tensor,
-                      matmul=torch.matmul) -> torch.Tensor:
+def mip_mlp_fwd_plain(packed: Packed, features: torch.Tensor, matmul=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``[P, O]`` rows of
     ``[density, color logits, segmentation logits]``.  ``matmul`` computes
-    the hidden and feature products (the head stays float32):
-    ``tc_mlp.tc_matmul_autograd`` emulates the tensor-core products of K6
-    and K7."""
-    h = features
+    the hidden and feature products (the head stays float32), by default
+    ``torch.matmul``: ``tc_mlp.tc_matmul_autograd`` emulates the tensor-core
+    products of K6 and K7.  Features given as bfloat16 run
+    ``compute_dtype="bfloat16"``: by default ``tc_mlp.bf16_matmul_autograd``,
+    and ``matmul`` takes the head too."""
+    bf16 = features.dtype == torch.bfloat16
+    if matmul is None:
+        matmul = tc_mlp.bf16_matmul_autograd if bf16 else torch.matmul
+    head = matmul if bf16 else torch.matmul
+    h = features.float()
     for i in range(packed["b"].shape[0]):
         w = packed["w_in"] if i == 0 else packed["whh"][i - 1]
         z = matmul(h, w) + packed["b"][i]
         h = torch.relu(F.layer_norm(z, z.shape[-1:], packed["g"][i], packed["beta"][i],
                                     LAYER_NORM_EPS))
-    return h @ packed["w_out"] + packed["b_out"]
+    return head(h, packed["w_out"]) + packed["b_out"]
 
 
 def check_kernel_shapes(name: str, packed: Packed) -> None:
@@ -139,14 +158,18 @@ def mip_mlp_fwd(packed: Packed, features: torch.Tensor,
     builds it where the tensor-core tile runs.  ``_build.policy_counts``
     records the tile each call ran.  When autograd records and an input
     requires grad, the call runs as ``MipMLPFunction``, whose backward is
-    ``mip_mlp_bwd`` (K5-bwd), on the images it builds itself.
+    ``mip_mlp_bwd`` (K5-bwd), on the images it builds itself.  bfloat16
+    features (and ``tc_fwd``) run ``compute_dtype="bfloat16"``:
+    ``mip_mlp_fwd_bf16``.
     """
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (features, *packed.values())
     ):
         return MipMLPFunction.apply(features, *[packed[k] for k in PACK_ORDER])
-    device = check_inputs(NAME, packed, {"features": features, "tc_fwd": tc_fwd}, ALIGNED)
-    tc_mlp.check_images(NAME, packed, tc_fwd)
+    device = check_inputs(NAME, packed, {"features": features, "tc_fwd": tc_fwd}, ALIGNED,
+                          bf16=True)
+    dtype = features.dtype
+    tc_mlp.check_images(NAME, packed, tc_fwd, dtype=dtype)
     n_feat = packed["w_in"].shape[0]
     if features.ndim != 2 or features.shape[1] != n_feat:
         raise ValueError(f"{NAME}: features must be [P, {n_feat}], got {tuple(features.shape)}")
@@ -159,10 +182,11 @@ def mip_mlp_fwd(packed: Packed, features: torch.Tensor,
     out = torch.empty((n_points, outputs), dtype=torch.float32, device=device)
     if n_points == 0:
         return out
-    policy = _build.tile_plan(NAME, n_feat, 0, hidden).policy  # raises past the SIMT tile
-    if policy == "tc" and tc_fwd is None:
-        tc_fwd = tc_mlp.tc_images(packed)[0]
-    fn = getattr(_build.load(NAME), NAME)
+    plan = _build.tile_plan(NAME, n_feat, 0, hidden).policy  # raises past the SIMT tile
+    if plan == "tc" and tc_fwd is None:
+        tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
+    fn_name, policy = route(NAME, plan, dtype == torch.bfloat16)
+    fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         features.data_ptr(), out.data_ptr(), n_points, n_feat, hidden, layers, outputs,
         *weight_pointers(packed), _build.ptr(tc_fwd),
@@ -179,12 +203,13 @@ def mip_mlp_fwd(packed: Packed, features: torch.Tensor,
 
 def mip_mlp_bwd_plain(
     packed: Packed, features: torch.Tensor, g_out: torch.Tensor, input_grads: bool = True,
-    matmul=torch.matmul,
+    matmul=None,
 ) -> Tuple[Optional[torch.Tensor], Packed]:
     """The backward kernel's function in plain PyTorch: the vector-Jacobian
     product of ``mip_mlp_fwd_plain`` with ``g_out [P, O]``; ``matmul`` as
     there (``tc_mlp.tc_matmul_autograd`` emulates the tensor-core passes,
-    the features' cotangent included)."""
+    the features' cotangent included; bfloat16 features run the bf16
+    emulation, their cotangent bfloat16)."""
     if not input_grads:
         _, d_packed = packed_grads_plain(
             packed, (), lambda w: (mip_mlp_fwd_plain(w, features, matmul), g_out)
@@ -242,11 +267,15 @@ def mip_mlp_bwd(
     the float32 SIMT tile where the features are too wide for the
     tensor-core one (``_build.tile_plan``; past the SIMT tile a
     ``ValueError`` before any launch).  ``_build.policy_counts`` records the
-    forward tile each call ran.
+    forward tile each call ran.  bfloat16 features (and images) run
+    ``compute_dtype="bfloat16"`` (``mip_mlp_bwd_bf16``; ``dfeat``
+    bfloat16): policy ``"tc_bf16"`` or ``"simt_bf16"``.
     """
     device = check_inputs(BWD_NAME, packed, {"features": features, "g_out": g_out,
-                                             "tc_fwd": tc_fwd, "tc_bwd": tc_bwd}, ALIGNED)
-    tc_mlp.check_images(BWD_NAME, packed, tc_fwd, tc_bwd)
+                                             "tc_fwd": tc_fwd, "tc_bwd": tc_bwd}, ALIGNED,
+                          bf16=True)
+    dtype = features.dtype
+    tc_mlp.check_images(BWD_NAME, packed, tc_fwd, tc_bwd, dtype)
     layers, hidden = packed["b"].shape
     n_feat, outputs = packed["w_in"].shape[0], packed["w_out"].shape[1]
     n_points = features.shape[0]
@@ -260,11 +289,12 @@ def mip_mlp_bwd(
     dfeat = torch.empty_like(features) if input_grads else None
     if n_points == 0:
         return dfeat, {k: torch.zeros_like(v) for k, v in packed.items()}
-    policy = _build.tile_plan(BWD_NAME, n_feat, 0, hidden).policy  # raises past the SIMT tile
+    plan = _build.tile_plan(BWD_NAME, n_feat, 0, hidden).policy  # raises past the SIMT tile
     if tc_fwd is None or tc_bwd is None:
-        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
+        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
+    fn_name, policy = route(BWD_NAME, plan, dtype == torch.bfloat16)
     s = mip_scratch(packed, n_points, device)
-    fn = getattr(_build.load(BWD_NAME), BWD_NAME)
+    fn = getattr(_build.load(BWD_NAME), fn_name)
     err = fn(
         features.data_ptr(), g_out.data_ptr(), _build.ptr(dfeat), s["grads"].data_ptr(),
         n_points, n_feat, hidden, layers, outputs, *weight_pointers(packed),
@@ -281,13 +311,13 @@ class MipMLPFunction(torch.autograd.Function):
     """``mip_mlp_fwd`` under autograd: forward K5-fwd, backward K5-bwd.
     Arguments ``(features, *weights)`` with the weights in ``PACK_ORDER``.
     On the card the forward builds the operand images K5-fwd and K5-bwd
-    read (``tc_mlp.tc_images``), runs K5-fwd on the forward image and hands
-    both to the backward, once a step."""
+    read (``tc_mlp.tc_images``, in the features' dtype), runs K5-fwd on the
+    forward image and hands both to the backward, once a step."""
 
     @staticmethod
     def forward(ctx, features, *weights):
         packed = _packed_from_args(weights)
-        ctx.images = (tc_mlp.tc_images(packed, backward=True)
+        ctx.images = (tc_mlp.tc_images(packed, backward=True, dtype=features.dtype)
                       if features.device.type == "cuda" else (None, None))
         ctx.save_for_backward(features, *weights)
         return mip_mlp_fwd(packed, features, tc_fwd=ctx.images[0])

@@ -24,6 +24,13 @@ kernels' products).  ``mip_train_loss_and_grads`` runs one fused train
 step of a ``MipNeRF``; ``MipTrainGradsFunction`` puts K6 under autograd,
 its backward handing back the gradients the kernel computed.
 
+``compute_dtype="bfloat16"``: bfloat16 features (and images built in
+bfloat16) launch ``mip_eval_bf16`` and ``mip_train_grads_bf16`` (every
+product, the head's included, on bf16 operands with float32 sums; the
+compositing and the losses float32), recorded as ``"tc_bf16"`` or
+``"simt_bf16"``; the plain versions run the bf16 emulation
+(``mip_mlp.mip_mlp_fwd_plain``).
+
 Rows: S fenceposts give ``R = S - 1`` interval rows per ray; the interval
 lengths come from the Gaussian means (``distances_from_points``, 1e10 far
 pad), computed before the kernels as the JAX package does.
@@ -42,6 +49,7 @@ from nerf_tpu_torch.ops.kernels.classic_mlp import (
     Packed,
     check_inputs,
     packed_grads_plain,
+    route,
 )
 from nerf_tpu_torch.ops.kernels.mip_mlp import (
     ALIGNED,
@@ -110,10 +118,10 @@ def mip_eval_plain(
     noise: Optional[torch.Tensor] = None,
     color_outputs: int = 3,
     white_background: bool = False,
-    matmul=torch.matmul,
+    matmul=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch (see ``mip_eval``); ``matmul``
-    as in ``mip_mlp_fwd_plain``."""
+    as in ``mip_mlp_fwd_plain`` (bfloat16 features: the bf16 emulation)."""
     out = _mlp_rows(packed, features, matmul)
     dens = out[..., :1] if noise is None else out[..., :1] + noise[..., None]
     weights = compositing.weights_from_density(dens, dists)
@@ -153,26 +161,29 @@ def mip_eval(
     (raising on what it does not take): the tensor-core tile where the
     features fit it, else the float32 SIMT tile, chosen from the shapes
     (``_build.tile_plan``; past the SIMT tile a ``ValueError`` before any
-    launch), recorded in ``_build.policy_counts``.
+    launch), recorded in ``_build.policy_counts``.  bfloat16 features (and
+    ``tc_fwd``) run ``compute_dtype="bfloat16"``: ``mip_eval_bf16``.
     """
     tensors = {"features": features, "dists": dists, "t_mids": t_mids, "noise": noise,
                "tc_fwd": tc_fwd}
-    device = check_inputs(EVAL_NAME, packed, tensors, ALIGNED)
-    tc_mlp.check_images(EVAL_NAME, packed, tc_fwd)
+    device = check_inputs(EVAL_NAME, packed, tensors, ALIGNED, bf16=True)
+    dtype = features.dtype
+    tc_mlp.check_images(EVAL_NAME, packed, tc_fwd, dtype=dtype)
     n_rays, rows = _check_shapes(EVAL_NAME, packed, color_outputs, tensors)
     if device.type == "cpu":
         return mip_eval_plain(packed, features, dists, t_mids, noise, color_outputs,
                               white_background)
-    policy = _check_kernel(EVAL_NAME, packed, color_outputs, n_rays, rows)
-    if policy == "tc" and tc_fwd is None:
-        tc_fwd = tc_mlp.tc_images(packed)[0]
+    plan = _check_kernel(EVAL_NAME, packed, color_outputs, n_rays, rows)
+    if plan == "tc" and tc_fwd is None:
+        tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
+    fn_name, policy = route(EVAL_NAME, plan, dtype == torch.bfloat16)
     layers, hidden = packed["b"].shape
     outputs = packed["w_out"].shape[1]
     classes = outputs - 1 - color_outputs
     per_ray = torch.empty((n_rays, color_outputs + classes + 2), dtype=torch.float32,
                           device=device)
     mlp_out = torch.empty((n_rays * rows, outputs), dtype=torch.float32, device=device)
-    fn = getattr(_build.load(EVAL_NAME), EVAL_NAME)
+    fn = getattr(_build.load(EVAL_NAME), fn_name)
     err = fn(
         features.data_ptr(), dists.data_ptr(), t_mids.data_ptr(), _build.ptr(noise),
         per_ray.data_ptr(), n_rays, rows, features.shape[-1], hidden, layers, color_outputs,
@@ -227,11 +238,12 @@ def mip_train_grads_plain(
     color_outputs: int = 3,
     seg_weight: float = 0.0,
     white_background: bool = False,
-    matmul=torch.matmul,
+    matmul=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Packed]:
     """The kernel's function in plain PyTorch (see ``mip_train_grads``);
     ``matmul`` as in ``mip_mlp_fwd_plain`` (``tc_mlp.tc_matmul_autograd``
-    emulates the kernel's products, forward and backward)."""
+    emulates the kernel's products, forward and backward; bfloat16
+    features run the bf16 emulation)."""
     kept = {}
 
     def objective(w):
@@ -282,27 +294,30 @@ def mip_train_grads(
     tensor-core tile where the features fit it, else on the float32 SIMT
     tile (``_build.tile_plan``, recorded in ``_build.policy_counts``; past
     the SIMT tile a ``ValueError`` before any launch), the backward on the
-    tensor cores.
+    tensor cores.  bfloat16 features (and images) run
+    ``compute_dtype="bfloat16"``: ``mip_train_grads_bf16``.
     """
     tensors = {"features": features, "dists": dists, "noise": noise, "pixels": pixels,
                "tc_fwd": tc_fwd, "tc_bwd": tc_bwd}
-    device = check_inputs(TRAIN_NAME, packed, tensors, ALIGNED)
-    tc_mlp.check_images(TRAIN_NAME, packed, tc_fwd, tc_bwd)
+    device = check_inputs(TRAIN_NAME, packed, tensors, ALIGNED, bf16=True)
+    dtype = features.dtype
+    tc_mlp.check_images(TRAIN_NAME, packed, tc_fwd, tc_bwd, dtype)
     n_rays, rows = _check_shapes(TRAIN_NAME, packed, color_outputs, tensors)
     labels = _check_labels(TRAIN_NAME, labels, n_rays, seg_weight, device)
     if device.type == "cpu":
         return mip_train_grads_plain(packed, features, dists, noise, pixels, labels,
                                      color_outputs, seg_weight, white_background)
-    policy = _check_kernel(TRAIN_NAME, packed, color_outputs, n_rays, rows)
-    if tc_bwd is None or (policy == "tc" and tc_fwd is None):
-        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
+    plan = _check_kernel(TRAIN_NAME, packed, color_outputs, n_rays, rows)
+    if tc_bwd is None or (plan == "tc" and tc_fwd is None):
+        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
+    fn_name, policy = route(TRAIN_NAME, plan, dtype == torch.bfloat16)
     layers, hidden = packed["b"].shape
     outputs = packed["w_out"].shape[1]
     sc = mip_scratch(packed, n_rays * rows, device)
     losses = torch.empty((2,), dtype=torch.float32, device=device)
     gout = torch.empty_like(sc["out"])
     ray_loss = torch.empty((n_rays, 2), dtype=torch.float32, device=device)
-    fn = getattr(_build.load(TRAIN_NAME), TRAIN_NAME)
+    fn = getattr(_build.load(TRAIN_NAME), fn_name)
     err = fn(
         features.data_ptr(), dists.data_ptr(), noise.data_ptr(), pixels.data_ptr(),
         _build.ptr(labels), losses.data_ptr(), sc["grads"].data_ptr(),
@@ -351,7 +366,8 @@ def mip_train_loss_and_grads(
     """Loss and parameter gradients of ONE fused mip train step: IPE
     features of the draws' fenceposts, Gaussian-mean interval lengths, and
     K6 for the rest (one launch; the weights packed, and their operand
-    images built, once for the step).  ``draws`` holds the step's log-bbox
+    images built in ``model.cfg.compute_dtype``, once for the step; the
+    features cast to it, as the JAX function does).  ``draws`` holds the step's log-bbox
     fenceposts and per-interval noise (``sampling.draw_step`` with the
     model's ``bbox_diagonal``).  Returns ``(loss, grads, aux)`` with
     ``grads`` keyed by ``model.named_parameters()``."""
@@ -361,7 +377,7 @@ def mip_train_loss_and_grads(
     dists = compositing.distances_from_points(means)
     dt = getattr(torch, model.cfg.compute_dtype)
     with torch.enable_grad():
-        packed, *images = prepare_weights(model.mlp, backward=True)
+        packed, *images = prepare_weights(model.mlp, backward=True, dtype=dt)
         loss, rgb_loss, seg_loss = MipTrainGradsFunction.apply(
             (model.cfg.color_outputs, seg_weight, render.white_background), tuple(images),
             features.to(dt).contiguous(), dists.contiguous(), draws.noise_c.contiguous(),

@@ -1,17 +1,24 @@
-"""The plain path of the classic model on any device: a model's frame and
-fused train steps with the five kernel wrappers of the classic main path
-(K1-fwd, K1-bwd through ``ClassicMLPFunction``, K2, K3, K4) replaced by
-their plain versions, the reference of the bf16 checks in
-``chip_smoke.py`` and ``tests/test_torch_cuda.py``."""
+"""References of the bf16 checks in ``chip_smoke.py`` and
+``tests/test_torch_cuda.py``, on any device: the plain path of both model
+families (a model's frame and train steps with the kernel wrappers of the
+classic main path, K1-fwd, K1-bwd through ``ClassicMLPFunction``, K2, K3,
+K4, and of the mip family, K5-fwd, K6, K7, replaced by their plain
+versions), and the mip head's products against the float64 products of
+their rounded and unrounded operands."""
 
 from __future__ import annotations
 
 import contextlib
 
+import torch
+
 from nerf_tpu_torch.ops.kernels import (
     _build,
     classic_mlp,
     fine_stage_train,
+    mip_mlp,
+    mip_train,
+    tc_mlp,
     train_grads,
     union_eval,
 )
@@ -20,20 +27,28 @@ from nerf_tpu_torch.train import make_fused_loss_and_grads
 
 @contextlib.contextmanager
 def plain_versions():
-    """The classic main path's five wrappers replaced by their plain
-    versions (the same arguments; bfloat16 encodings run the bf16
-    emulation).  Raises if a kernel launched inside: a caller that reached
-    a wrapper by another name would compare the kernel with itself.  The
-    launch counts outside are kept."""
+    """The classic main path's five wrappers and the mip family's three
+    replaced by their plain versions (the same arguments; bfloat16
+    encodings or features run the bf16 emulation; the mip forward under
+    autograd differentiates its plain version, so K5-bwd is not reached).
+    Raises if a kernel launched inside: a caller that reached a wrapper by
+    another name would compare the kernel with itself.  The launch counts
+    outside are kept."""
     k1 = classic_mlp.classic_mlp_fwd_plain
     k3 = fine_stage_train.fine_stage_train_plain
     k4 = union_eval.union_eval_plain
+    k5 = mip_mlp.mip_mlp_fwd_plain
+    k6 = mip_train.mip_train_grads_plain
+    k7 = mip_train.mip_eval_plain
     patches = (
         (classic_mlp, "classic_mlp_fwd", lambda packed, x, d=None, *images: k1(packed, x, d)),
         (fine_stage_train, "classic_mlp_fwd", lambda packed, x, d=None, *images: k1(packed, x, d)),
         (union_eval, "union_eval", lambda *args, tc_fwd=None: k4(*args)),
         (fine_stage_train, "fine_stage_train", lambda *args, tc_fwd=None, tc_bwd=None: k3(*args)),
         (train_grads, "classic_train_grads", train_grads.classic_train_grads_plain),
+        (mip_mlp, "mip_mlp_fwd", lambda packed, x, tc_fwd=None: k5(packed, x)),
+        (mip_train, "mip_train_grads", lambda *args, tc_fwd=None, tc_bwd=None: k6(*args)),
+        (mip_train, "mip_eval", lambda *args, tc_fwd=None: k7(*args)),
     )
     originals = [(m, n, getattr(m, n)) for m, n, _ in patches]
     counts = dict(_build.launch_counts)
@@ -52,9 +67,43 @@ def plain_versions():
         raise RuntimeError(f"the plain path launched kernels: {launched}")
 
 
-def bf16_step_reference(model, render, batch, draws):
+def bf16_step_reference(model, render, batch, draws, seg_weight: float = 0.0):
     """The plain step's loss and gradients (``make_fused_loss_and_grads``
     under ``plain_versions``)."""
     with plain_versions():
-        loss, grads, _ = make_fused_loss_and_grads(model, render)(batch, draws)
+        loss, grads, _ = make_fused_loss_and_grads(model, render, seg_weight)(batch, draws)
     return loss, grads
+
+
+def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got, ref = got.double().ravel(), ref.double().ravel()
+    return float((got - ref).norm() / ref.norm())
+
+
+def mip_head_rounding(packed, x: torch.Tensor, g_out: torch.Tensor) -> dict:
+    """The bf16 mip head held directly, on the card: for K5-fwd's outputs
+    (``head_wide``), K5-bwd's last LayerNorm beta gradient (the masked
+    column sums of ``head_dh``'s input cotangent) and the head's dW
+    (``wgrad``), ``(relative L2 from the float64 product of the rounded
+    operands, from the unrounded one)``, on bfloat16 features ``x`` and
+    output cotangents ``g_out``.  The last layer's output comes from
+    K5-fwd with an identity head, which returns it rounded, exactly; the
+    first entry, ``"h"``, is 0 where that output is bf16-exact."""
+    r = tc_mlp.bf16_round
+    hidden = packed["w_out"].shape[0]
+    identity = {**packed, "w_out": torch.eye(hidden, device=x.device),
+                "b_out": torch.zeros(hidden, device=x.device)}
+    h = mip_mlp.mip_mlp_fwd(identity, x)
+    out = {"h": float((h - r(h)).abs().max())}
+    h = h.double()
+    w, b, rw = packed["w_out"].double(), packed["b_out"].double(), r(packed["w_out"]).double()
+    g, rg = g_out.double(), r(g_out).double()
+    _, d_packed = mip_mlp.mip_mlp_bwd(packed, x, g_out, input_grads=False)
+    mask = (h > 0).double()  # the last layer's ReLU mask, rows away from its kinks
+    for name, got, rounded, unrounded in (
+            ("head_wide", mip_mlp.mip_mlp_fwd(packed, x), h @ rw + b, h @ w + b),
+            ("head_dh", d_packed["beta"][-1], (mask * (rg @ rw.t())).sum(0),
+             (mask * (g @ w.t())).sum(0)),
+            ("wgrad", d_packed["w_out"], h.t() @ rg, h.t() @ g)):
+        out[name] = (rel_l2(got, rounded), rel_l2(got, unrounded))
+    return out

@@ -1,6 +1,7 @@
 """What K6's and K7's passes cost by part of the mip chain, on the card.
 
     python scripts/torch_mip_pass_costs.py [--calls 5] [--out costs.json]
+                                           [--compute-dtype bfloat16]
 
 Runs K6 (``mip_train_grads``, seg weight 0.1, 4096 rays x 63 rows) and K7
 (``mip_eval``, a 4000-ray tile of 63 rows) on random inputs under
@@ -12,8 +13,11 @@ with 3 layers.  Prints each pass's device ms a call (labelled as
 cost (the model's less the 5-wide head's: its float32 forward
 ``head_wide`` in the forward tile, its float32 input cotangent ``head_dh``
 in ``bwd_rows``, its dW in ``wgrad``, the per-class compositing), and one
-hidden layer's (the model's less the 3-layer one's, halved).  The results
-are compared only within one call.  Exits non-zero without a GPU.
+hidden layer's (the model's less the 3-layer one's, halved).  With
+``--compute-dtype bfloat16`` the kernels run their bf16 entries on bf16
+features and images (the head's operands rounded, still on the SIMT
+cores).  The results are compared only within one call.  Exits non-zero
+without a GPU.
 """
 
 from __future__ import annotations
@@ -80,7 +84,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--calls", type=int, default=5)
     p.add_argument("--out", help="also write the result as JSON to this file")
+    p.add_argument("--compute-dtype", default="float32", choices=("float32", "bfloat16"))
     args = p.parse_args(argv)
+    dtype = getattr(torch, args.compute_dtype)
     if not torch.cuda.is_available():
         print("torch_mip_pass_costs: no CUDA device", file=sys.stderr)
         return 1
@@ -88,14 +94,15 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     card = chip_smoke.nvidia_smi("name,power.limit")
     print(card)
-    result = {"card": card}
+    result = {"card": card, "compute_dtype": args.compute_dtype}
     for name, kwargs in SHAPES.items():
         cfg = MipNeRFConfig(**kwargs)
         mlp = MipMLP(cfg, generator=torch.Generator().manual_seed(0), device=device)
-        prepared = mip_mlp.prepare_weights(mlp.requires_grad_(False), backward=True)
+        prepared = mip_mlp.prepare_weights(mlp.requires_grad_(False), backward=True, dtype=dtype)
         packed, tc_fwd, tc_bwd = prepared
         t = inputs(cfg, TRAIN_RAYS, device)
         e = inputs(cfg, EVAL_RAYS, device)
+        t["features"], e["features"] = t["features"].to(dtype), e["features"].to(dtype)
         result[name] = {
             "K6": by_pass(lambda: mip_train.mip_train_grads(
                 packed, t["features"], t["dists"], t["noise"], t["pixels"], t["labels"],
@@ -106,7 +113,7 @@ def main(argv=None) -> int:
         }
     for kernel in ("K6", "K7"):
         labels = sorted({k for s in SHAPES for k in result[s][kernel]})
-        print(f"{kernel}: device ms a call by pass "
+        print(f"{kernel} ({args.compute_dtype}): device ms a call by pass "
               f"({', '.join(SHAPES)}; the 54-wide head; one hidden layer)")
         for label in labels + ["total"]:
             ms = {s: (sum(result[s][kernel].values()) if label == "total"

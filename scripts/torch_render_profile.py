@@ -1,7 +1,7 @@
 """Where a 400x400 frame of the PyTorch/CUDA port spends its device time.
 
     python scripts/torch_render_profile.py [--family classic|mip|all] [--frames 2]
-                                           [--out profile.json]
+                                           [--out profile.json] [--compute-dtype bfloat16]
 
 Renders frames on the kernel path (``use_pallas=True``) with the models,
 seeds and render settings of ``chip_smoke.py``: ``ClassicNeRF.render_image``
@@ -15,7 +15,8 @@ frame's wall time, device time per frame by kernel (largest first; K1-fwd's
 ``mip_fwd_tc_kernel``, whose MLPs run as 3xTF32 on the tensor cores,
 labelled as ``chip_smoke.PASSES`` names them), the ported kernels' share,
 and the device's idle share (1 - busy / span of the
-first to the last kernel); ``--out`` also writes them as JSON.  Exits
+first to the last kernel); ``--out`` also writes them as JSON.  With
+``--compute-dtype bfloat16`` the models run their bf16 kernels.  Exits
 non-zero without a GPU.
 """
 
@@ -43,11 +44,12 @@ PORTED = {"classic": ("fwd_tc_kernel", "fwd_simt_kernel", "union_eval"),
           "mip": ("mip_fwd_tc_kernel", "mip_fwd_kernel", "mip_eval_rays_kernel")}
 
 
-def profile_family(family: str, n_frames: int, device) -> dict:
+def profile_family(family: str, n_frames: int, device, compute_dtype: str) -> dict:
+    dt = dict(compute_dtype=compute_dtype)
     if family == "classic":
-        model, render = chip_smoke.make_model(True, device), chip_smoke.RENDER
+        model, render = chip_smoke.make_model(True, device, **dt), chip_smoke.RENDER
     else:
-        model, render = chip_smoke.make_mip_model(True, device), chip_smoke.MIP_RENDER
+        model, render = chip_smoke.make_mip_model(True, device, **dt), chip_smoke.MIP_RENDER
     pose_o, pose_r = spherical_poses(1, radius=4.0, device=device)
 
     def frames():
@@ -84,7 +86,7 @@ def profile_family(family: str, n_frames: int, device) -> dict:
         "ported_kernels_ms_per_frame": ported,
         "kernels_ms_per_frame": dict(list(per_frame.items())[:15]),
     }
-    print(f"{family} frame {frame_ms:.1f} ms (host clock); device busy "
+    print(f"{family} frame ({compute_dtype}) {frame_ms:.1f} ms (host clock); device busy "
           f"{result['device_busy_ms_per_frame']:.1f} ms, span "
           f"{result['device_span_ms_per_frame']:.1f} ms, idle share {result['idle_share']:.4f}; "
           f"ported kernels {ported:.1f} ms")
@@ -99,6 +101,7 @@ def main(argv=None) -> int:
     p.add_argument("--family", choices=("classic", "mip", "all"), default="all")
     p.add_argument("--frames", type=int, default=2)
     p.add_argument("--out", help="also write the result as JSON to this file")
+    p.add_argument("--compute-dtype", default="float32", choices=("float32", "bfloat16"))
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_render_profile: no CUDA device", file=sys.stderr)
@@ -107,9 +110,9 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     card = chip_smoke.nvidia_smi("name,power.limit")
     print(card)
-    result = {"card": card}
+    result = {"card": card, "compute_dtype": args.compute_dtype}
     for family in (("classic", "mip") if args.family == "all" else (args.family,)):
-        result[family] = profile_family(family, args.frames, device)
+        result[family] = profile_family(family, args.frames, device, args.compute_dtype)
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=2))
     return 0

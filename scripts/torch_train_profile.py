@@ -21,9 +21,9 @@ K3's, K6's and K9's ``fwd_store``, ``bwd_rows`` and ``wgrad`` and K1-fwd's
 tile run their products as 3xTF32 on the tensor cores) and the device's
 idle share (1 - busy / span of the first to the last kernel); ``--out``
 also writes them as JSON.  With ``--compute-dtype bfloat16`` it profiles
-the two classic configurations only (the reuse and the coarse-only step),
-in compute_dtype bfloat16 (every pass a bf16 ``wgmma``).  Exits non-zero
-without a GPU.
+the configurations that have a bf16 path, the reuse, the coarse-only and
+the mip step (not K9's), in compute_dtype bfloat16 (every pass a bf16
+``wgmma``).  Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -135,27 +135,21 @@ def main(argv=None) -> int:
     result["reuse_2048x(64+128)"] = profile_config(
         "reuse 2048x(64+128)", chip_smoke.make_model(True, device, **dt), chip_smoke.TRAIN_RENDER,
         chip_smoke.TRAIN_RAYS, bank, args.steps, device)
-    if bf16:
-        result["coarse_4096x64"] = profile_config(
-            "coarse-only 4096x64", chip_smoke.make_model(True, device, **dt),
-            chip_smoke.COARSE_RENDER, chip_smoke.COARSE_RAYS, bank, args.steps, device)
-        if args.out:
-            Path(args.out).write_text(json.dumps(result, indent=2))
-        return 0
-    run_mega = mega_steps(chip_smoke.make_model(True, device), chip_smoke.TRAIN_RENDER, bank,
-                          chip_smoke.TRAIN_RAYS, device)
-    result["mega_2048x(64+128)"] = profile_steps(
-        "K9 reuse 2048x(64+128)", lambda: run_mega(2), lambda: run_mega(args.steps),
-        chip_smoke.TRAIN_RAYS, args.steps)
+    if not bf16:  # K9 has no bf16 path yet
+        run_mega = mega_steps(chip_smoke.make_model(True, device), chip_smoke.TRAIN_RENDER,
+                              bank, chip_smoke.TRAIN_RAYS, device)
+        result["mega_2048x(64+128)"] = profile_steps(
+            "K9 reuse 2048x(64+128)", lambda: run_mega(2), lambda: run_mega(args.steps),
+            chip_smoke.TRAIN_RAYS, args.steps)
     result["coarse_4096x64"] = profile_config(
-        "coarse-only 4096x64", chip_smoke.make_model(True, device), chip_smoke.COARSE_RENDER,
-        chip_smoke.COARSE_RAYS, bank, args.steps, device)
+        "coarse-only 4096x64", chip_smoke.make_model(True, device, **dt),
+        chip_smoke.COARSE_RENDER, chip_smoke.COARSE_RAYS, bank, args.steps, device)
     scene = synthesize_scene(num_views=8, image_hw=64, focal=80.0, with_labels=True,
                              device=device)
     bank = RayBank.from_images(scene.images, scene.pose_o, scene.pose_r, scene.focal,
                                labels=scene.labels)
     result["mip_4096x64_seg"] = profile_config(
-        "mip 4096x64 seg 0.1", chip_smoke.make_mip_model(True, device),
+        "mip 4096x64 seg 0.1", chip_smoke.make_mip_model(True, device, **dt),
         chip_smoke.MIP_TRAIN_RENDER, chip_smoke.MIP_RAYS, bank, args.steps, device,
         chip_smoke.SEG_WEIGHT)
     if args.out:

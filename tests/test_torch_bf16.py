@@ -30,16 +30,13 @@ import torch
 from nerf_tpu import RenderConfig as JaxRender
 from nerf_tpu.ops.pallas import fused_hier, fused_mlp, fused_train
 from nerf_tpu.train import loop as jloop
-from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, MipNeRFConfig, RenderConfig
-from nerf_tpu_torch.models.mlp import MipMLP
+from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, RenderConfig
 from nerf_tpu_torch.ops import compositing, sampling
 from nerf_tpu_torch.ops.kernels import (
     _build,
     classic_mlp,
     fine_stage_train,
     mega_train,
-    mip_mlp,
-    mip_train,
     point_mlp,
     tc_mlp,
     train_grads,
@@ -390,16 +387,9 @@ def test_coarse_step_bf16_matches_jax():
 
 
 def test_kernels_out_of_the_slice_refuse_bf16():
-    """K5-K7 (mip) and K8 (point MLP) refuse bfloat16 inputs, and K9 a
-    bfloat16 model, naming the queued slice."""
-    cfg = MipNeRFConfig(hidden_size=32)
-    packed = mip_mlp.pack_mip_params(MipMLP(cfg, device="cpu").requires_grad_(False))
-    features = torch.zeros(4, cfg.feature_dim, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="next bf16 slice"):
-        mip_mlp.mip_mlp_fwd(packed, features)
-    with pytest.raises(NotImplementedError, match="next bf16 slice"):
-        mip_train.mip_eval(packed, features.reshape(2, 2, -1), torch.ones(2, 2),
-                           torch.ones(2, 2))
+    """K8 (point MLP) refuses bfloat16 inputs, and K9 a bfloat16 model,
+    naming the queued slice.  (The mip family takes bfloat16:
+    ``test_torch_mip_bf16.py``.)"""
     _, _, model = make_models(True, compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="next bf16 slice"):
         point_mlp.classic_pointmlp(model, torch.zeros(4, 3), torch.ones(4, 3),

@@ -52,7 +52,7 @@ from nerf_tpu_torch.ops.kernels import (
     train_grads,
     union_eval,
 )
-from nerf_tpu_torch.testing import bf16_step_reference, plain_versions
+from nerf_tpu_torch.testing import bf16_step_reference, mip_head_rounding, plain_versions
 
 K1_TOL = dict(rtol=1e-4, atol=1e-4)
 K4_TOL = dict(rtol=5e-4, atol=1e-4)
@@ -652,13 +652,17 @@ MIP_VARIANTS = {
 
 
 def mip_packed(variant, device, **overrides):
+    """A mip model's packed weights from seed 0, its LayerNorms drawn off
+    identity (so their gradients mean something) from a seeded generator:
+    the same weights in every process."""
     cfg = MipNeRFConfig(**{**MIP_VARIANTS[variant], **overrides})
     mlp = MipMLP(cfg, generator=torch.Generator().manual_seed(0), device=device)
-    with torch.no_grad():  # LayerNorms off identity, so their gradients mean something
+    gen = torch.Generator(device=device).manual_seed(0)
+    with torch.no_grad():
         for m in mlp.modules():
             if isinstance(m, torch.nn.LayerNorm):
-                m.weight.uniform_(0.5, 1.5)
-                m.bias.uniform_(-0.3, 0.3)
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.uniform_(-0.3, 0.3, generator=gen)
     return cfg, mip_mlp.pack_mip_params(mlp.requires_grad_(False))
 
 
@@ -683,10 +687,9 @@ def test_mip_mlp_fwd_kernel_matches_plain(cuda, variant, points):
 @pytest.mark.parametrize("variant", sorted(MIP_VARIANTS))
 def test_mip_mlp_bwd_kernel_matches_plain(cuda, variant, points, input_grads):
     """K5-bwd against plain on features away from the mip order's ReLU
-    kinks (``mip_rows_away_from_kinks``), drawn after the cotangents: the
-    LayerNorms come from the global RNG, whose state differs between
-    processes, and on plain random rows one run of the full-width case met
-    a kink (``w_in`` off by 1.76e-2 of its largest entry)."""
+    kinks (``mip_rows_away_from_kinks``), drawn after the cotangents: on
+    plain random rows one run of the full-width case met a kink (``w_in``
+    off by 1.76e-2 of its largest entry)."""
     cfg, packed = mip_packed(variant, cuda)
     gen = torch.Generator(device=cuda).manual_seed(3)
     x, g_out = rand(gen, points, cfg.feature_dim), rand(gen, points, cfg.num_outputs)
@@ -723,29 +726,35 @@ def mip_inputs(cfg, device, rays, rows, seed=0, packed=None):
     return a
 
 
-def mip_kink_margin(packed, features):
+def mip_kink_margin(packed, features, matmul=torch.matmul):
     """Per row, the smallest |ReLU input| of the plain mip forward: in the
     mip order the LayerNorm output ``xhat g + beta``
-    (``mip_mlp_fwd_plain``'s layers)."""
+    (``mip_mlp_fwd_plain``'s layers; ``matmul`` its products)."""
     h, margins = features, []
     for i in range(packed["b"].shape[0]):
-        z = h @ (packed["w_in"] if i == 0 else packed["whh"][i - 1]) + packed["b"][i]
+        z = matmul(h, packed["w_in"] if i == 0 else packed["whh"][i - 1]) + packed["b"][i]
         y = F.layer_norm(z, z.shape[-1:], packed["g"][i], packed["beta"][i], 1e-5)
         margins.append(y.abs().amin(-1))
         h = torch.relu(y)
     return torch.stack(margins).amin(0)
 
 
-def mip_rows_away_from_kinks(packed, gen, rays, rows, n_feat):
+def mip_rows_away_from_kinks(packed, gen, rays, rows, n_feat, bf16=False):
     """``[rays, rows, n_feat]`` features whose every row has all its ReLU
     inputs farther than 1e-5 from 0: per ray the first ``rows`` of ``2 rows
     + 8`` candidates drawn from ``gen`` (``rows_away_from_kinks`` for the
     mip order: nearer the kink the kernel's and the plain evaluation can
-    take different branches and move that row's whole gradient)."""
+    take different branches and move that row's whole gradient).  With
+    ``bf16`` the candidates are rounded to bfloat16 (the returned float32
+    rows convert exactly) and their margin is the bf16 forward's."""
     m = 2 * rows + 8
     cand = rand(gen, rays, m, n_feat)
+    matmul = torch.matmul
+    if bf16:
+        cand, matmul = tc_mlp.bf16_round(cand), tc_mlp.bf16_matmul
     with torch.no_grad():
-        keep = (mip_kink_margin(packed, cand.reshape(rays * m, n_feat)) > 1e-5).reshape(rays, m)
+        keep = (mip_kink_margin(packed, cand.reshape(rays * m, n_feat), matmul)
+                > 1e-5).reshape(rays, m)
     idx = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)[:, :rows]
     assert bool(keep.gather(1, idx).all()), "too few candidate rows away from the kinks"
     return cand.gather(1, idx[..., None].expand(rays, rows, n_feat)).contiguous()
@@ -852,19 +861,25 @@ def test_mip_wrappers_raise_instead_of_falling_back(cuda):
     cfg, packed = mip_packed("small", cuda)
     with pytest.raises(ValueError, match="cpu"):
         mip_mlp.mip_mlp_fwd(packed, torch.zeros(4, cfg.feature_dim))
-    # bfloat16 on the mip kernels (K5-K7): raises, naming the queued slice.
+    # bfloat16 features with float32 images, or float16 features: raise
+    # before any launch (never a cast, never the float32 kernel).
     features16 = torch.zeros(4, cfg.feature_dim, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="next bf16 slice"):
-        mip_mlp.mip_mlp_fwd(packed, features16)
-    with pytest.raises(NotImplementedError, match="next bf16 slice"):
-        mip_mlp.mip_mlp_bwd(packed, features16, torch.zeros(4, 54, device=cuda))
+    f32_fwd, f32_bwd = tc_mlp.tc_images(packed, backward=True)
+    before = dict(_build.launch_counts)
+    with pytest.raises(TypeError, match="tc_fwd must be bfloat16"):
+        mip_mlp.mip_mlp_fwd(packed, features16, tc_fwd=f32_fwd)
+    with pytest.raises(TypeError, match="tc_bwd must be bfloat16"):
+        mip_mlp.mip_mlp_bwd(packed, features16, torch.zeros(4, cfg.num_outputs, device=cuda),
+                            tc_fwd=tc_mlp.tc_images(packed, dtype=torch.bfloat16)[0],
+                            tc_bwd=f32_bwd)
     a16 = mip_inputs(cfg, cuda, rays=2, rows=7)
-    a16["features"] = a16["features"].bfloat16()
-    with pytest.raises(NotImplementedError, match="next bf16 slice"):
-        mip_train.mip_eval(packed, a16["features"], a16["dists"], a16["t_mids"])
-    with pytest.raises(NotImplementedError, match="next bf16 slice"):
-        mip_train.mip_train_grads(packed, a16["features"], a16["dists"], a16["noise"],
-                                  a16["pixels"], a16["labels"], seg_weight=0.1)
+    with pytest.raises(TypeError, match="float32"):
+        mip_train.mip_eval(packed, a16["features"].half(), a16["dists"], a16["t_mids"])
+    with pytest.raises(TypeError, match="tc_fwd must be bfloat16"):
+        mip_train.mip_train_grads(packed, a16["features"].bfloat16(), a16["dists"],
+                                  a16["noise"], a16["pixels"], a16["labels"], seg_weight=0.1,
+                                  tc_fwd=f32_fwd, tc_bwd=f32_bwd)
+    assert dict(_build.launch_counts) == before
     packed48 = mip_mlp.pack_mip_params(
         MipMLP(MipNeRFConfig(hidden_size=48), device=cuda).requires_grad_(False))
     with pytest.raises(ValueError, match="hidden width"):
@@ -1783,3 +1798,217 @@ def test_bf16_model_paths_launch_the_bf16_kernels(cuda):
         r_loss, ref = bf16_step_reference(model, render, batch, draws)
         assert rel_l2(loss, r_loss) <= BF16_FWD
         assert_bf16_grads(grads, ref)
+
+
+# -- compute_dtype="bfloat16": the mip family, K5-fwd, K5-bwd, K6 and K7 ----
+
+# The classic bf16 kernels' bounds (BF16_FWD, BF16_GRAD) against the plain
+# bf16 versions.  K5-bwd runs on BF16_ROWS rows away from the bf16
+# forward's kinks and uniform random cotangents, where the float32 kernel
+# on the same inputs fails the check (``assert_check_sees_float32``; on a
+# loss's cotangents it would pass it, as it passes K6's: PERF.md); its
+# features' cotangent is bfloat16.  The rounding of the 54-wide head, the
+# one product outside the tensor-core tiles, is checked directly
+# (``test_bf16_mip_head_rounds_its_operands``).
+MIP_BF16_VARIANTS = {"full_width": dict(), "latent_full_width": dict(encoding_size=48)}
+
+
+def mip_bf16_route(cfg, kernel):
+    return _build.tile_plan(kernel, cfg.feature_dim, 0, cfg.hidden_size).policy + "_bf16"
+
+
+def mip_bf16_inputs(cfg, packed, device, rays, rows, seed=0):
+    """K6's and K7's inputs with bfloat16 features away from the bf16
+    forward's kinks."""
+    a = mip_inputs(cfg, device, rays, rows, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    a["features"] = mip_rows_away_from_kinks(packed, gen, rays, rows, cfg.feature_dim,
+                                             bf16=True).bfloat16()
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(MIP_BF16_VARIANTS))
+def test_bf16_mip_forward_kernels_match_plain(cuda, variant):
+    """K5-fwd and K7 in bf16 against their plain bf16 versions: the
+    tensor-core tile at 96 features (tc_bf16), the SIMT tile at 144
+    (simt_bf16)."""
+    cfg, packed = mip_packed("full_width", cuda, **MIP_BF16_VARIANTS[variant])
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = rand(gen, 1000, cfg.feature_dim).bfloat16()
+    policies = dict(_build.policy_counts)
+    out = mip_mlp.mip_mlp_fwd(packed, x)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {(mip_mlp.NAME, mip_bf16_route(cfg, mip_mlp.NAME)): 1}
+    assert out.dtype == torch.float32
+    assert rel_l2(out, mip_mlp.mip_mlp_fwd_plain(packed, x)) <= BF16_FWD
+    a = mip_bf16_inputs(cfg, packed, cuda, rays=37, rows=63)
+    args = (packed, a["features"], a["dists"], a["t_mids"], a["noise"], cfg.color_outputs, True)
+    policies = dict(_build.policy_counts)
+    got = mip_train.mip_eval(*args)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {
+        (mip_train.EVAL_NAME, mip_bf16_route(cfg, mip_train.EVAL_NAME)): 1}
+    for g, r in zip(got, mip_train.mip_eval_plain(*args)):
+        assert g.dtype == torch.float32 and rel_l2(g, r) <= BF16_FWD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_grads", [False, True])
+@pytest.mark.parametrize("variant", sorted(MIP_BF16_VARIANTS))
+def test_bf16_mip_mlp_bwd_matches_plain(cuda, variant, input_grads):
+    """K5-bwd in bf16 (the forward recompute on the tile the width gives,
+    the backward passes on the tensor cores), dfeat bfloat16, bitwise
+    repeatable; the float32 kernel on the same inputs fails the check."""
+    cfg, packed = mip_packed("full_width", cuda, **MIP_BF16_VARIANTS[variant])
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = mip_rows_away_from_kinks(packed, gen, 1, BF16_ROWS, cfg.feature_dim,
+                                 bf16=True)[0].bfloat16()
+    g_out = rand(gen, BF16_ROWS, cfg.num_outputs)
+    policies = dict(_build.policy_counts)
+    dx, d_packed = mip_mlp.mip_mlp_bwd(packed, x, g_out, input_grads=input_grads)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {
+        (mip_mlp.BWD_NAME, mip_bf16_route(cfg, mip_mlp.BWD_NAME)): 1}
+    rdx, ref = mip_mlp.mip_mlp_bwd_plain(packed, x, g_out, input_grads)
+    assert_bf16_grads(d_packed, ref)
+    f32_dx, f32 = mip_mlp.mip_mlp_bwd(packed, x.float(), g_out, input_grads=input_grads)
+    assert_check_sees_float32(f32, ref)
+    if input_grads:
+        assert dx.dtype == torch.bfloat16 and dx.shape == x.shape
+        assert_bf16_grads({"dx": dx}, {"dx": rdx})
+        assert_check_sees_float32({"dx": f32_dx}, {"dx": rdx})
+    else:
+        assert dx is None
+    again = mip_mlp.mip_mlp_bwd(packed, x, g_out, input_grads=input_grads)
+    assert all(torch.equal(again[1][k], d_packed[k]) for k in d_packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_weight,white", [(0.0, False), (0.1, True)])
+@pytest.mark.parametrize("variant", sorted(MIP_BF16_VARIANTS))
+def test_bf16_mip_train_grads_matches_plain(cuda, variant, seg_weight, white):
+    """K6 in bf16 against its plain bf16 version, bitwise repeatable."""
+    cfg, packed = mip_packed("full_width", cuda, **MIP_BF16_VARIANTS[variant])
+    a = mip_bf16_inputs(cfg, packed, cuda, rays=64, rows=63, seed=7)
+    args = [a[k] for k in ("features", "dists", "noise", "pixels", "labels")]
+    kw = dict(color_outputs=cfg.color_outputs, seg_weight=seg_weight, white_background=white)
+    policies = dict(_build.policy_counts)
+    rgb, seg, grads = mip_train.mip_train_grads(packed, *args, **kw)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {
+        (mip_train.TRAIN_NAME, mip_bf16_route(cfg, mip_train.TRAIN_NAME)): 1}
+    r_rgb, r_seg, ref = mip_train.mip_train_grads_plain(packed, *args, **kw)
+    assert rel_l2(rgb + seg_weight * seg, r_rgb + seg_weight * r_seg) <= BF16_FWD
+    assert (float(seg) == 0.0) == (seg_weight == 0.0)
+    assert_bf16_grads(grads, ref)
+    again = mip_train.mip_train_grads(packed, *args, **kw)
+    assert torch.equal(again[0], rgb) and all(torch.equal(again[2][k], grads[k]) for k in grads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_bf16_mip_kernels_match_plain_at_every_width(cuda, hidden):
+    """Every hidden width's bf16 products (m64nNk16 for N / 2 = 16 .. 128,
+    the features' cotangent in passes of min(H, 64) columns) and a 9-wide
+    head: K5-fwd, K5-bwd with dfeat (the float32 kernel fails its check),
+    K6 and K7, each on tc_bf16."""
+    cfg, packed = mip_packed("small", cuda, hidden_size=hidden)
+    gen = torch.Generator(device=cuda).manual_seed(hidden)
+    x = mip_rows_away_from_kinks(packed, gen, 1, BF16_ROWS, cfg.feature_dim,
+                                 bf16=True)[0].bfloat16()
+    _build.policy_counts.clear()
+    out = mip_mlp.mip_mlp_fwd(packed, x)
+    assert rel_l2(out, mip_mlp.mip_mlp_fwd_plain(packed, x)) <= BF16_FWD
+    g_out = rand(gen, BF16_ROWS, cfg.num_outputs)
+    dx, d_packed = mip_mlp.mip_mlp_bwd(packed, x, g_out)
+    rdx, ref = mip_mlp.mip_mlp_bwd_plain(packed, x, g_out)
+    assert dx.dtype == torch.bfloat16
+    assert_bf16_grads(d_packed, ref)
+    assert_bf16_grads({"dx": dx}, {"dx": rdx})
+    a = mip_bf16_inputs(cfg, packed, cuda, rays=9, rows=33, seed=hidden)
+    args = [a[k] for k in ("features", "dists", "noise", "pixels", "labels")]
+    rgb, seg, grads = mip_train.mip_train_grads(packed, *args, cfg.color_outputs, 0.1)
+    r_rgb, r_seg, ref = mip_train.mip_train_grads_plain(packed, *args, cfg.color_outputs, 0.1)
+    assert rel_l2(rgb + 0.1 * seg, r_rgb + 0.1 * r_seg) <= BF16_FWD
+    assert_bf16_grads(grads, ref)
+    ev = (packed, a["features"], a["dists"], a["t_mids"], None, cfg.color_outputs)
+    for g, r in zip(mip_train.mip_eval(*ev), mip_train.mip_eval_plain(*ev)):
+        assert rel_l2(g, r) <= BF16_FWD
+    torch.cuda.synchronize()
+    assert dict(_build.policy_counts) == {
+        (k, "tc_bf16"): 1 for k in (mip_mlp.NAME, mip_mlp.BWD_NAME, mip_train.TRAIN_NAME,
+                                    mip_train.EVAL_NAME)}
+    f32_dx, f32 = mip_mlp.mip_mlp_bwd(packed, x.float(), g_out)
+    assert_check_sees_float32({"dx": f32_dx, **f32}, {"dx": rdx, **ref})
+
+
+@pytest.mark.cuda
+def test_bf16_mip_head_rounds_its_operands(cuda):
+    """The 54-wide head in bf16, held directly against the float64 products
+    of the rounded operands on the same rows, and shown to differ from the
+    unrounded ones (``testing.mip_head_rounding``): K5-fwd's head
+    (head_wide), K5-bwd's head input cotangent (head_dh) and the head's dW
+    (wgrad)."""
+    cfg, packed = mip_packed("full_width", cuda)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = mip_rows_away_from_kinks(packed, gen, 1, 4096, cfg.feature_dim, bf16=True)[0].bfloat16()
+    checks = mip_head_rounding(packed, x, rand(gen, x.shape[0], cfg.num_outputs))
+    assert checks.pop("h") == 0.0  # head_wide rounded the last layer's output
+    for name, (err, err_unrounded) in checks.items():
+        assert err <= 2e-5 and err_unrounded > 100 * err, (name, err, err_unrounded)
+
+
+@pytest.mark.cuda
+def test_bf16_mip_model_paths_launch_the_bf16_kernels(cuda):
+    """A bf16 MipNeRF at full width: a frame tile through K7, the fused
+    step (one K6, the seg CE on) and the general step (one K5-fwd, one
+    K5-bwd), every call on tc_bf16, each within the bounds of its plain
+    bf16 path (``plain_versions``: the four wrappers' plain versions)."""
+    from nerf_tpu_torch.train import loop
+
+    cfg = MipNeRFConfig(use_pallas=True, compute_dtype="bfloat16")
+    model = MipNeRF(cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    o, d = rand(gen, 400, 3, lo=-0.5, hi=0.5), rand(gen, 400, 3)
+    render = RenderConfig(num_coarse_samples=64, randomly_sample=False)
+    _build.policy_counts.clear()
+    with torch.no_grad():
+        out = model.render_rays(o, d, render, fused_eval=True)
+        torch.cuda.synchronize()
+        assert dict(_build.policy_counts) == {(mip_train.EVAL_NAME, "tc_bf16"): 1}
+        with plain_versions():
+            ref = model.render_rays(o, d, render, fused_eval=True)
+    assert rel_l2(out.rgb, ref.rgb) <= BF16_FWD and rel_l2(out.acc, ref.acc) <= BF16_FWD
+    train_render = RenderConfig(num_coarse_samples=64, randomly_sample=True,
+                                density_noise_std=1.0)
+    n_rays = 4096
+    batch = dict(rays_o=rand(gen, n_rays, 3, lo=-0.5, hi=0.5), rays_d=rand(gen, n_rays, 3),
+                 pixels=rand(gen, n_rays, 3, lo=0.0, hi=1.0),
+                 labels=torch.randint(0, cfg.segmentation_outputs, (n_rays,), generator=gen,
+                                      device=cuda))
+    draws = loop.draws_for_model(torch.Generator(device=cuda).manual_seed(1), model,
+                                 train_render, n_rays, cuda)
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    loss, grads, _ = loop.make_fused_loss_and_grads(model, train_render, 0.1)(batch, draws)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {mip_train.TRAIN_NAME: 1}
+    assert set(_build.policy_counts) == {(mip_train.TRAIN_NAME, "tc_bf16")}
+    r_loss, ref = bf16_step_reference(model, train_render, batch, draws, 0.1)
+    assert rel_l2(loss, r_loss) <= BF16_FWD
+    assert_bf16_grads(grads, ref)
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    with torch.enable_grad():
+        loss, _ = loop.make_loss_fn(model, train_render, 0.1)(batch, draws)
+        names, params = zip(*model.named_parameters())
+        grads = dict(zip(names, torch.autograd.grad(loss, params)))
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {mip_mlp.NAME: 1, mip_mlp.BWD_NAME: 1}
+    assert set(_build.policy_counts) == {(mip_mlp.NAME, "tc_bf16"), (mip_mlp.BWD_NAME, "tc_bf16")}
+    with plain_versions(), torch.enable_grad():
+        r_loss, _ = loop.make_loss_fn(model, train_render, 0.1)(batch, draws)
+        ref = dict(zip(names, torch.autograd.grad(r_loss, params)))
+    assert rel_l2(loss.detach(), r_loss.detach()) <= BF16_FWD
+    assert_bf16_grads(grads, ref)
