@@ -162,13 +162,29 @@
    each gradient check, with their times and both bf16 bounds; the head's
    rounding held directly against the float64 products of its rounded
    operands; K5-fwd at 144 features on its SIMT tile (``simt_bf16``).
-17. Prints the kernels' JSON line (each row with its float32 bound and
+17. compute_dtype="bfloat16" for K8-fwd, K8-bwd and K9 (slice 14): K8
+   under autograd with ``compute_dtype="bfloat16"`` at phase 11's 262,144
+   raw points (the counters zeroed just before and read just after: one
+   K8-fwd and one K8-bwd, both ``tc_bf16``); K8-fwd and K8-bwd (on that
+   step's cotangents, with and without the raw inputs' cotangents, which
+   stay float32) against their plain bf16 versions, K8-bwd's scratch
+   encodings bitwise the plain version's rounded ones; one K9 step of a
+   bf16 model at 2048 x (64 + 128) (one ``mega_train``, ``tc_bf16``)
+   against ``mega_train_plain`` in bf16 with its own fine t-values, its
+   scratch encodings bitwise, its t-values against the plain bf16
+   resample in probability, against phase 15's bf16 reuse route and the
+   float32 K9 step (cosine); the float32 kernel on the same inputs beside
+   each gradient check; 2 warm-up and 20 timed bf16 K9 steps with
+   ``torch.optim.Adam`` (one ``mega_train`` each, all ``tc_bf16``), ms/step
+   and rays/s beside phase 12's and phase 15's; K9's time against its
+   plain bf16 version with both bf16 bounds; K8-fwd at x encodings 120 +
+   36 on its SIMT tile (``simt_bf16``).
+18. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
    each, ``products``: how its MLP products run, and since which slice,
    ``cli_launches``: its launches in phase 14, and its bf16 entries from
-   phases 15 and 16, ``bf16_ms``, ``bf16_bound_ms``, ``bf16_launches`` and
-   the rest, null for the three kernels without a bf16 path: K8-fwd,
-   K8-bwd and K9), the card line, then, last, the device line.
+   phases 15, 16 and 17, ``bf16_ms``, ``bf16_bound_ms``, ``bf16_launches``
+   and the rest), the card line, then, last, the device line.
 
 The classic model is the full-width ClassicNeRF (hidden 256, 60 + 36
 encoding widths, 638,468 parameters) with random weights from seed 0.  Its density
@@ -352,6 +368,7 @@ SOURCES = {
 # How each kernel's MLP products run, and since which slice of the port.
 BF16_PRODUCTS = "; bf16 wgmma in compute_dtype bfloat16 (slice 12)"
 MIP_BF16_PRODUCTS = "; bf16 wgmma in compute_dtype bfloat16 (slice 13)"
+POINT_MEGA_BF16_PRODUCTS = "; bf16 wgmma in compute_dtype bfloat16 (slice 14)"
 PRODUCTS = {
     "classic_mlp_fwd": "3xTF32 (slice 7)" + BF16_PRODUCTS,
     "union_eval": "3xTF32 (slice 5)" + BF16_PRODUCTS,
@@ -363,8 +380,9 @@ PRODUCTS = {
     "mip_mlp_bwd": "3xTF32 (slice 9)" + MIP_BF16_PRODUCTS,
     "mip_eval": "3xTF32 (slice 8)" + MIP_BF16_PRODUCTS,
     "mip_train_grads": "3xTF32 (slice 8)" + MIP_BF16_PRODUCTS,
-    "classic_pointmlp_fwd": "3xTF32 (slice 10)", "classic_pointmlp_bwd": "3xTF32 (slice 9)",
-    "mega_train": "3xTF32 (slice 5)",
+    "classic_pointmlp_fwd": "3xTF32 (slice 10)" + POINT_MEGA_BF16_PRODUCTS,
+    "classic_pointmlp_bwd": "3xTF32 (slice 9)" + POINT_MEGA_BF16_PRODUCTS,
+    "mega_train": "3xTF32 (slice 5)" + POINT_MEGA_BF16_PRODUCTS,
 }
 
 
@@ -1212,10 +1230,61 @@ def point_mlp_phase(device, cfg: ClassicNeRFConfig, bank) -> dict:
     return rows
 
 
+def mega_run(name: str, bank, device, reuse_ms: float, policy: str = "tc", **cfg_kwargs):
+    """K9's train loop: the model through ``mega_train_loss_and_grads`` and
+    ``torch.optim.Adam``, 2 warm-up and 20 timed steps with the counters
+    zeroed just before the timed ones; each must launch one ``mega_train``
+    on the ``policy`` tile and nothing else, every loss be finite and the
+    probe batch's loss fall.  Prints ms/step and rays/s beside the reuse
+    route's ``reuse_ms``.  Returns (launches, ms per step)."""
+    render, n_rays = TRAIN_RENDER, TRAIN_RAYS
+    model = make_model(True, device, **cfg_kwargs)
+    names, params = zip(*model.named_parameters())
+    opt = torch.optim.Adam(params, lr=LEARNING_RATE)
+    gen = torch.Generator(device=device).manual_seed(99)
+    probe = (bank.sample_batch(gen, n_rays), sampling.draw_step(gen, render, n_rays, device))
+
+    def probe_loss():
+        return float(mega_train.mega_train_loss_and_grads(model, render, *probe)[0])
+
+    def step():
+        b = bank.sample_batch(gen, n_rays)
+        d = sampling.draw_step(gen, render, n_rays, device)
+        step_loss, step_grads, _ = mega_train.mega_train_loss_and_grads(model, render, b, d)
+        for param_name, p in zip(names, params):
+            p.grad = step_grads[param_name]
+        opt.step()
+        return step_loss
+
+    loss_before = probe_loss()
+    losses = [step() for _ in range(WARMUP_STEPS)]
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+    loss_after = probe_loss()
+    losses = torch.stack(losses).cpu()
+    print(f"{name}: {ms:.2f} ms/step, {n_rays / ms * 1e3:.0f} rays/s over {TIMED_STEPS} steps "
+          f"(reuse route {reuse_ms:.2f} ms/step, {n_rays / reuse_ms * 1e3:.0f} rays/s); launches "
+          f"{launches}; step losses {[round(float(v), 5) for v in losses]}", flush=True)
+    check(launches == {mega_train.NAME: TIMED_STEPS},
+          f"{name}: each step launched one mega_train and nothing else")
+    check_policies(name, launches, policies, policy)
+    check(bool(torch.isfinite(losses).all()), f"{name}: every loss is finite")
+    check(loss_after < loss_before,
+          f"{name}: the probe batch's loss fell from {loss_before:.6f} to {loss_after:.6f} "
+          f"over {WARMUP_STEPS + TIMED_STEPS} steps")
+    return launches, ms
+
+
 def mega_phase(device, cfg: ClassicNeRFConfig, bank, reuse_ms: float) -> dict:
     """Phase 12: one K9 step against its plain version and the reuse route,
     then the K9 train loop, then K9 against its plain version with its
-    time.  Returns K9's row."""
+    time.  Returns K9's row and the loop's ms/step."""
     render, n_rays = TRAIN_RENDER, TRAIN_RAYS
     gen = torch.Generator(device=device).manual_seed(7)
     batch = bank.sample_batch(gen, n_rays)
@@ -1265,47 +1334,7 @@ def mega_phase(device, cfg: ClassicNeRFConfig, bank, reuse_ms: float) -> dict:
           "K9 step matches the reuse route")
 
     # The K9 train loop.
-    model = make_model(True, device)
-    names, params = zip(*model.named_parameters())
-    opt = torch.optim.Adam(params, lr=LEARNING_RATE)
-    gen = torch.Generator(device=device).manual_seed(99)
-    probe = (bank.sample_batch(gen, n_rays), sampling.draw_step(gen, render, n_rays, device))
-
-    def probe_loss():
-        return float(mega_train.mega_train_loss_and_grads(model, render, *probe)[0])
-
-    def step():
-        b = bank.sample_batch(gen, n_rays)
-        d = sampling.draw_step(gen, render, n_rays, device)
-        step_loss, step_grads, _ = mega_train.mega_train_loss_and_grads(model, render, b, d)
-        for name, p in zip(names, params):
-            p.grad = step_grads[name]
-        opt.step()
-        return step_loss
-
-    loss_before = probe_loss()
-    losses = [step() for _ in range(WARMUP_STEPS)]
-    torch.cuda.synchronize()
-    _build.launch_counts.clear()
-    _build.policy_counts.clear()
-    t0 = time.perf_counter()
-    losses += [step() for _ in range(TIMED_STEPS)]
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
-    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
-    loss_after = probe_loss()
-    losses = torch.stack(losses).cpu()
-    name = "train 2048x(64+128) K9"
-    print(f"{name}: {ms:.2f} ms/step, {n_rays / ms * 1e3:.0f} rays/s over {TIMED_STEPS} steps "
-          f"(reuse route {reuse_ms:.2f} ms/step, {n_rays / reuse_ms * 1e3:.0f} rays/s); launches "
-          f"{launches}; step losses {[round(float(v), 5) for v in losses]}", flush=True)
-    check(launches == {mega_train.NAME: TIMED_STEPS},
-          f"{name}: each step launched one mega_train and nothing else")
-    check_policies(name, launches, policies, "tc")
-    check(bool(torch.isfinite(losses).all()), f"{name}: every loss is finite")
-    check(loss_after < loss_before,
-          f"{name}: the probe batch's loss fell from {loss_before:.6f} to {loss_after:.6f} "
-          f"over {WARMUP_STEPS + TIMED_STEPS} steps")
+    launches, step_ms = mega_run("train 2048x(64+128) K9", bank, device, reuse_ms)
 
     with torch.no_grad():
         kernel_ms = cuda_ms(lambda: mega_train.mega_train(packed, *inputs), iters=5)
@@ -1316,7 +1345,7 @@ def mega_phase(device, cfg: ClassicNeRFConfig, bank, reuse_ms: float) -> dict:
               + 2 * tensor_bytes(*packed.values()))
     return {"mega_train": (launches[mega_train.NAME], dict(
         max_abs=err, ms=kernel_ms, plain_ms=plain_ms, flops=train_step_flops(cfg, n_rays, sc + sf),
-        nbytes=nbytes))}
+        nbytes=nbytes))}, step_ms
 
 
 def latent_phase(device, bank) -> None:
@@ -1868,12 +1897,12 @@ def bf16_kernels(device, cfg, model, pose, store: dict, frame_launches: dict, ou
 
 
 def bf16_phase(device, cfg: ClassicNeRFConfig, bank, f32_image, f32_frame_ms: float,
-               f32_step_ms: dict, card: str) -> dict:
+               f32_step_ms: dict, card: str, bf16_step_ms: dict) -> dict:
     """Phase 15: the classic main path in compute_dtype bfloat16: (b) one
-    400x400 frame, (c) the reuse and coarse-only train steps, then (a) each
-    of its five kernels against its plain bf16 version on those paths'
-    shapes, and (d) K2 at a latent width on its SIMT tile.  Returns the
-    five kernels' bf16 row entries."""
+    400x400 frame, (c) the reuse and coarse-only train steps (their ms/step
+    into ``bf16_step_ms``), then (a) each of its five kernels against its
+    plain bf16 version on those paths' shapes, and (d) K2 at a latent width
+    on its SIMT tile.  Returns the five kernels' bf16 row entries."""
     bf = dict(compute_dtype="bfloat16")
     model = make_model(True, device, **bf).eval().requires_grad_(False)
     pose = spherical_poses(1, radius=4.0, device=device)
@@ -1958,6 +1987,7 @@ def bf16_phase(device, cfg: ClassicNeRFConfig, bank, f32_image, f32_frame_ms: fl
         print(f"{name}: {ms:.2f} ms/step = {n_rays / ms * 1e3:.0f} rays/s (float32 kernels "
               f"{f32_step_ms[key]:.2f} ms/step = {n_rays / f32_step_ms[key] * 1e3:.0f} rays/s); "
               f"{card}", flush=True)
+        bf16_step_ms[key] = ms
         for k, n in step_launches.items():
             out[k] = {"bf16_launches": n}
 
@@ -2295,6 +2325,249 @@ def mip_bf16_phase(device, keep: dict, card: str) -> dict:
     return out
 
 
+
+# Phase 17: compute_dtype="bfloat16" for K8-fwd, K8-bwd and K9 (slice 14),
+# with phase 15's bounds (BF16) against the plain bf16 versions.  K8's raw
+# points, sines and cotangents stay float32; the one new rounding point is
+# the encodings, which K8-bwd and K9 write to their scratch as bfloat16:
+# held bitwise against the plain version's rounded sines.  The gradient
+# checks run on the cotangents a step hands each kernel, the float32 kernel
+# on the same inputs beside each: it must fail K8-fwd's, K8-bwd's raw
+# inputs' cotangents' and K9's, and passes K8-bwd's weights' (a loss's
+# summed gradients, PERF.md).  Each row's raw inputs' cotangents sit near
+# the 2e-2 bound at hidden 256, as K1-bwd's dx and dd do: sums of
+# per-row products whose bf16 roundings two float32-accurate evaluations
+# place differently (``scripts/torch_bf16_sensitivity.py --family
+# point``).  K9's fine t-values against the plain bf16 resample in
+# probability, within BF16's output bound: the two versions' bf16 coarse
+# weights differ by bf16's roundings, not float32's.
+
+
+def scratch_bitwise(what: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    same = got.dtype == want.dtype and torch.equal(got, want)
+    differing = int((got != want).sum()) if got.shape == want.shape else -1
+    print(f"{what}: {got.dtype} {tuple(got.shape)}, {differing} values differ from the plain "
+          f"version's rounded encodings", flush=True)
+    check(same, f"{what} bitwise the plain version's rounded encodings")
+
+
+def point_mega_bf16_phase(device, cfg: ClassicNeRFConfig, bank, k9_step_ms: float,
+                          reuse_bf16_ms: float, card: str) -> dict:
+    """Phase 17: K8 and K9 in compute_dtype bfloat16: (a) K8 under autograd
+    at phase 11's 262,144 raw points, (b) K8-fwd and K8-bwd against their
+    plain bf16 versions with their scratch encodings, (c) one bf16 K9 step
+    against the plain bf16 step and phase 15's bf16 reuse route, (d) the K9
+    train loop, (e) K9 against its plain bf16 version with its time, (f)
+    K8-fwd at x encodings 120 + 36 on its SIMT tile.  Returns the three
+    kernels' bf16 row entries."""
+    bf = dict(compute_dtype="bfloat16")
+    out = {}
+    args = (cfg.x_positional_encoding_size, cfg.normalize_position,
+            cfg.d_positional_encoding_size, cfg.direction_bound)
+    gen = torch.Generator(device=device).manual_seed(11)
+    batch = bank.sample_batch(gen, K8_RAYS)
+    t_vals = sampling.sample_linear(gen, (K8_RAYS,), K8_SAMPLES, TRAIN_RENDER.near,
+                                    TRAIN_RENDER.far, device=device)
+    points = (batch["rays_o"][:, None] + batch["rays_d"][:, None] * t_vals[..., None]).reshape(-1, 3)
+    dirs = batch["rays_d"][:, None].expand(K8_RAYS, K8_SAMPLES, 3).reshape(-1, 3).contiguous()
+    n_points = points.shape[0]
+
+    # a. K8 under autograd: one K8-fwd and one K8-bwd, both tc_bf16.
+    model = make_model(True, device)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    store = {}
+    with capture_args(point_mlp, "classic_pointmlp_bwd", store):
+        density, color = point_mlp.classic_pointmlp(model, points, dirs, *args, **bf)
+        loss = torch.mean((torch.sigmoid(color) - 0.5) ** 2) + torch.mean(torch.relu(density))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)
+    name = "bf16 K8 under autograd"
+    print(f"{name} at {n_points} raw points: launches {launches}", flush=True)
+    check(launches == {point_mlp.NAME: 1, point_mlp.BWD_NAME: 1},
+          f"{name}: one K8-fwd and one K8-bwd, nothing else")
+    check_policies(name, launches, dict(_build.policy_counts), "tc_bf16")
+    check(all(bool(torch.isfinite(g).all()) for g in grads) and bool(torch.isfinite(loss)),
+          f"{name}: loss and gradients are finite")
+
+    # b. K8-fwd and K8-bwd against their plain bf16 versions.
+    dt = torch.bfloat16
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    weight_bytes = tensor_bytes(*packed.values())
+    consts = point_mlp.encoding_consts(*args, device)
+    flops = n_points * classic_flops_per_point(cfg)
+
+    def on_route(kernel, call, policy="tc_bf16"):
+        _build.policy_counts.clear()
+        got = call()
+        torch.cuda.synchronize()
+        check(dict(_build.policy_counts) == {(kernel, policy): 1},
+              f"{kernel} in bf16 ran its {policy} tile")
+        return got
+
+    with torch.no_grad():
+        call = lambda: point_mlp.classic_pointmlp_fwd(packed, points, dirs, consts, dtype=dt)  # noqa: E731
+        plain = lambda: point_mlp.classic_pointmlp_fwd_plain(packed, points, dirs, consts,  # noqa: E731
+                                                              dtype=dt)
+        got = on_route(point_mlp.NAME, call)
+        err = check_bf16_outputs(point_mlp.NAME, [got], [plain()])
+        f32_err = rel_l2([point_mlp.classic_pointmlp_fwd(packed, points, dirs, consts)],
+                         [plain()])
+        print(f"{point_mlp.NAME} control: the float32 kernel on the same inputs, relative L2 "
+              f"{f32_err:.3e} against plain bf16", flush=True)
+        check(f32_err > BF16["fwd_rel_l2"],
+              f"{point_mlp.NAME}: the float32 kernel fails the bf16 check")
+        out[point_mlp.NAME] = bf16_row(
+            point_mlp.NAME, launches[point_mlp.NAME], err, cuda_ms(call, iters=10),
+            cuda_ms(plain, iters=5), flops,
+            tensor_bytes(points, dirs, got, *consts) + weight_bytes)
+
+    # K8-bwd on the cotangents the autograd step handed it, with the raw
+    # inputs' cotangents (float32) and, as the step calls it, without.
+    g_step = store["classic_pointmlp_bwd"][0][4].detach()
+    keep = {}
+    got = on_route(point_mlp.BWD_NAME, lambda: point_mlp.classic_pointmlp_bwd(
+        packed, points, dirs, consts, g_step, dtype=dt, keep=keep))
+    for key, want in zip(("x_enc", "d_enc"),
+                         point_mlp.rounded_encodings(points, dirs, consts, dt)):
+        scratch_bitwise(f"bf16 K8-bwd's scratch {key}", keep[key], want)
+    check(got[0].dtype == got[1].dtype == torch.float32,
+          "bf16 K8-bwd's raw inputs' cotangents are float32")
+    ref = point_mlp.classic_pointmlp_bwd_plain(packed, points, dirs, consts, g_step, dtype=dt)
+    f32 = point_mlp.classic_pointmlp_bwd(packed, points, dirs, consts, g_step)
+    raw = lambda r: {"dpoints": r[0], "ddirs": r[1]}  # noqa: E731
+    errs = [check_bf16_grads(point_mlp.BWD_NAME + " weights", got[2], ref[2])]
+    f32_control(point_mlp.BWD_NAME + " weights", f32[2], ref[2], must_fail=False)
+    errs.append(check_bf16_grads(point_mlp.BWD_NAME + " raw inputs' cotangents", raw(got),
+                                 raw(ref)))
+    f32_control(point_mlp.BWD_NAME + " raw inputs' cotangents", raw(f32), raw(ref),
+                must_fail=True)
+    no_input = lambda: point_mlp.classic_pointmlp_bwd(  # noqa: E731
+        packed, points, dirs, consts, g_step, input_grads=False, dtype=dt)
+    got = on_route(point_mlp.BWD_NAME, no_input)
+    ref = point_mlp.classic_pointmlp_bwd_plain(packed, points, dirs, consts, g_step,
+                                               input_grads=False, dtype=dt)
+    errs.append(check_bf16_grads(point_mlp.BWD_NAME + " without the raw cotangents", got[2],
+                                 ref[2]))
+    call = lambda: point_mlp.classic_pointmlp_bwd(packed, points, dirs, consts, g_step,  # noqa: E731
+                                                  dtype=dt)
+    ms, no_input_ms = cuda_ms(call, iters=5), cuda_ms(no_input, iters=5)
+    print(f"{point_mlp.BWD_NAME} bf16: {ms:.3f} ms with the raw inputs' cotangents, "
+          f"{no_input_ms:.3f} ms without (as the step calls it), at {n_points} points",
+          flush=True)
+    out[point_mlp.BWD_NAME] = bf16_row(
+        point_mlp.BWD_NAME, launches[point_mlp.BWD_NAME], max(errs), ms,
+        cuda_ms(lambda: point_mlp.classic_pointmlp_bwd_plain(packed, points, dirs, consts,
+                                                              g_step, dtype=dt), iters=3),
+        3 * flops, tensor_bytes(points, dirs, g_step, *got[:2], *consts) + 2 * weight_bytes,
+        n_points)
+
+    # c. One bf16 K9 step against the plain bf16 step (its own fine
+    # t-values held), the plain resample, phase 15's bf16 reuse route and
+    # the float32 K9 step.
+    render, n_rays = TRAIN_RENDER, TRAIN_RAYS
+    gen = torch.Generator(device=device).manual_seed(7)
+    batch = bank.sample_batch(gen, n_rays)
+    draws = sampling.draw_step(gen, render, n_rays, device)
+    model = make_model(True, device, **bf)
+    name = "bf16 K9 step 2048x(64+128)"
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    loss, grads, aux = mega_train.mega_train_loss_and_grads(model, render, batch, draws,
+                                                            emit_t_fine=True)
+    torch.cuda.synchronize()
+    step_launches = dict(_build.launch_counts)
+    check(step_launches == {mega_train.NAME: 1}, f"{name}: one mega_train launch, nothing else")
+    check_policies(name, step_launches, dict(_build.policy_counts), "tc_bf16")
+    inputs = mega_train.mega_inputs(model, batch, draws)
+    x_enc_c, d_ray, t_c, noise_c, u, _, rays_o, rays_d, _, placement, is_cos = inputs
+    check(x_enc_c.dtype == d_ray.dtype == dt, f"{name}: bfloat16 coarse and view encodings")
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    keep = {}
+    with torch.no_grad():
+        k_loss_c, k_loss_f, k_grads, t_fine = on_route(
+            mega_train.NAME, lambda: mega_train.mega_train(packed, *inputs, keep=keep))
+    check(torch.equal(t_fine, aux["t_fine"]) and torch.equal(k_loss_c + k_loss_f, loss),
+          f"{name}: the wrapper's call repeats the step bitwise")
+    scratch_bitwise("bf16 K9's scratch encodings (coarse, then fine at its t-values)",
+                    keep["x_all"], torch.cat([x_enc_c, mega_train.encode_fine_plain(
+                        t_fine, rays_o, rays_d, placement, is_cos).to(dt)]))
+    p_loss_c, p_loss_f, p_grads, _ = mega_train.mega_train_plain(packed, *inputs, t_fine=t_fine)
+    loss_err = abs(float(loss) - float(p_loss_c + p_loss_f)) / abs(float(p_loss_c + p_loss_f))
+    print(f"{name}: loss {float(loss):.7g} vs plain bf16 {float(p_loss_c + p_loss_f):.7g} (rel "
+          f"err {loss_err:.3e}, tolerance {BF16['loss_rtol']})", flush=True)
+    check(loss_err <= BF16["loss_rtol"], f"{name}: the loss matches the plain bf16 step's")
+    k9_err = check_bf16_grads(mega_train.NAME, k_grads, p_grads)
+    # The float32 kernel on the same inputs, against the plain bf16 step at
+    # its own fine t-values.
+    *_, k9_f32, f32_t = mega_train.mega_train(packed, x_enc_c.float(), d_ray.float(),
+                                              *inputs[2:])
+    f32_control(mega_train.NAME, k9_f32,
+                mega_train.mega_train_plain(packed, *inputs, t_fine=f32_t)[2],
+                must_fail=True)
+    weights_c = mega_train.coarse_weights_plain(packed, x_enc_c, d_ray, t_c, noise_c, rays_d)
+    bins = 0.5 * (t_c[:, 1:] + t_c[:, :-1])
+    mass = float((sampling.pdf_cdf_at(bins, weights_c[:, 1:-1], t_fine) - u).abs().max())
+    print(f"{name}: the plain bf16 cdf at the kernel's fine t-values is within {mass:.3e} of the "
+          f"uniforms (bound {BF16['fwd_rel_l2']})", flush=True)
+    check(mass <= BF16["fwd_rel_l2"], f"{name}: the fine t-values match the plain bf16 resample")
+    model.requires_grad_(True)
+    r_loss, r_grads, _ = fine_stage_train.reuse_train_loss_and_grads(model, render, batch, draws)
+    loss_err = abs(float(loss) - float(r_loss)) / abs(float(r_loss))
+    print(f"{name} against phase 15's bf16 reuse route: loss rel err {loss_err:.3e} "
+          f"(tolerance {BF16['loss_rtol']})", flush=True)
+    check(loss_err <= BF16["loss_rtol"], f"{name}: the loss matches the bf16 reuse route's")
+    check_bf16_grads(name + " against the bf16 reuse route", grads, r_grads)
+    _, f32_grads, _ = mega_train.mega_train_loss_and_grads(make_model(True, device), render,
+                                                           batch, draws)
+    a = torch.cat([grads[k].double().ravel() for k in f32_grads])
+    b = torch.cat([f32_grads[k].double().ravel() for k in f32_grads])
+    cosine = float(a @ b / (a.norm() * b.norm()))
+    print(f"{name}: gradients' cosine to the float32 K9 step's {cosine:.5f}", flush=True)
+    check(cosine > BF16["f32_cosine"],
+          f"{name}: gradients' cosine to float32 above {BF16['f32_cosine']}")
+
+    # d. The K9 train loop in bf16.
+    loop_launches, ms = mega_run("train 2048x(64+128) bf16 K9", bank, device, reuse_bf16_ms,
+                                 policy="tc_bf16", **bf)
+    print(f"bf16 K9 loop: {ms:.2f} ms/step = {n_rays / ms * 1e3:.0f} rays/s (float32 K9, phase "
+          f"12: {k9_step_ms:.2f} ms/step = {n_rays / k9_step_ms * 1e3:.0f} rays/s; bf16 reuse "
+          f"route, phase 15: {reuse_bf16_ms:.2f} ms/step = {n_rays / reuse_bf16_ms * 1e3:.0f} "
+          f"rays/s); {card}", flush=True)
+
+    # e. K9 against its plain bf16 version, timed.
+    with torch.no_grad():
+        kernel_ms = cuda_ms(lambda: mega_train.mega_train(packed, *inputs), iters=5)
+        plain_ms = cuda_ms(lambda: mega_train.mega_train_plain(packed, *inputs), iters=3)
+    sc, sf = render.num_coarse_samples, render.num_fine_samples
+    out[mega_train.NAME] = bf16_row(
+        mega_train.NAME, loop_launches[mega_train.NAME], k9_err, kernel_ms, plain_ms,
+        train_step_flops(cfg, n_rays, sc + sf),
+        tensor_bytes(*[x for x in inputs if x is not None], t_fine) + 8
+        + 2 * tensor_bytes(*packed.values()), n_rays * (sc + sf))
+
+    # f. K8-fwd at x encodings 120 + 36: the bf16-rounding SIMT tile.
+    wcfg = ClassicNeRFConfig(normalize_position=6.0, **WIDE_K8)
+    wpacked = classic_mlp.pack_classic_params(make_model(True, device, **WIDE_K8).mlp
+                                              .requires_grad_(False))
+    wconsts = point_mlp.encoding_consts(wcfg.x_positional_encoding_size, wcfg.normalize_position,
+                                        wcfg.d_positional_encoding_size, wcfg.direction_bound,
+                                        device)
+    wpts, wdirs = points[:WIDE_ROWS].contiguous(), dirs[:WIDE_ROWS].contiguous()
+    what = f"bf16 K8-fwd at encodings {wcfg.x_encoding_dim} + {wcfg.d_encoding_dim}"
+    with torch.no_grad():
+        call = lambda: point_mlp.classic_pointmlp_fwd(wpacked, wpts, wdirs, wconsts, dtype=dt)  # noqa: E731
+        got = on_route(point_mlp.NAME, call, "simt_bf16")
+        check_bf16_outputs(what, [got], [point_mlp.classic_pointmlp_fwd_plain(
+            wpacked, wpts, wdirs, wconsts, dtype=dt)])
+        print(f"{what}, {WIDE_ROWS} rows (bf16-rounding SIMT tile): "
+              f"{cuda_ms(call, iters=3):.3f} ms", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -2331,14 +2604,18 @@ def main() -> int:
     mip_keep = {}
     rows.update(mip_phases(device, mip_keep))
     rows.update(point_mlp_phase(device, cfg, bank))
-    rows.update(mega_phase(device, cfg, bank, step_ms["reuse"]))
+    mega_row, k9_step_ms = mega_phase(device, cfg, bank, step_ms["reuse"])
+    rows.update(mega_row)
     latent_phase(device, bank)
     wide_forward_phase(device)
     cli_launches = entry_points_phase(device, card)
-    bf16 = bf16_phase(device, cfg, bank, f32_image, f32_frame_ms, step_ms, card)
+    bf16_step_ms = {}
+    bf16 = bf16_phase(device, cfg, bank, f32_image, f32_frame_ms, step_ms, card, bf16_step_ms)
     bf16.update(mip_bf16_phase(device, mip_keep, card))
+    bf16.update(point_mega_bf16_phase(device, cfg, bank, k9_step_ms, bf16_step_ms["reuse"],
+                                      card))
 
-    # 17. Result lines.
+    # 18. Result lines.
     kernels = [kernel_row(name, launches, **row) for name, (launches, row) in rows.items()]
     for row in kernels:
         row["cli_launches"] = cli_launches.get(row["name"], 0)

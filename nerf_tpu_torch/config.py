@@ -58,9 +58,10 @@ class ClassicNeRFConfig:
     # tensors the kernel wrappers run their plain PyTorch versions.
     use_pallas: bool = False
     # Matmul input dtype for the point MLP ("float32" or "bfloat16").  With
-    # use_pallas, "bfloat16" runs the classic main path's bf16 kernels
-    # (K1-fwd, K1-bwd, K2, K3, K4: bf16 operands, float32 sums and
-    # parameters); K8 and K9 raise NotImplementedError for it.
+    # use_pallas, "bfloat16" runs the bf16 kernels (K1-fwd, K1-bwd, K2, K3,
+    # K4, and K9 through mega_train_loss_and_grads: bf16 operands, float32
+    # sums and parameters).  K8 (point_mlp.classic_pointmlp) takes its own
+    # compute_dtype argument, as the JAX function does.
     compute_dtype: str = "float32"
 
     @property

@@ -27,6 +27,18 @@
 // forward tile (tc_mlp.cuh note 9) fwd_store runs the float32 SIMT tile;
 // the other passes do not depend on the widths.
 //
+// classic_pointmlp_bwd_bf16 is the same in compute_dtype bfloat16
+// (tc_mlp.cuh, note 10): the passes of TcProductsT<true> on bf16 operand
+// images, the encodings written to scratch as bfloat16 (the values the
+// forward's products rounded, which wgrad reads as its raw rows), and the
+// encodings' cotangents float32 (tc_input_grad's float32 output: JAX's
+// fused kernel keeps _dot_t's float32 result and applies the chain rule to
+// it), so encode_bwd_kernel runs unchanged and the raw inputs' cotangents
+// are float32.  Its bound at 262,144 points: 1.003 ms of bf16 tensor-core
+// operations (FLOP / 989 TFLOP/s); the float32 chain (xhat and dpre,
+// 10,240 bytes a point each, written once and read once) takes 3.2 ms at
+// 3.35 TB/s.
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "tc_mlp.cuh"
 #include "encode.cuh"
@@ -61,17 +73,18 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int H>
-cudaError_t run(const Weights& w, const PointEncodeLoad& load, const float* gout, float* dpts,
-                float* ddirs, float* grads, float* out, float* dx_enc, float* dd_enc, int P,
-                const Scratch& s, cudaStream_t stream) {
-  cudaError_t err = launch_fwd_store_with<H, TcProducts>(w, load, out, P, s, stream,
-                                                         static_cast<size_t>(P), 0);
+template <int H, bool kBf16>
+cudaError_t run(const Weights& w, const PointEncodeLoadT<enc_t<kBf16>>& load, const float* gout,
+                float* dpts, float* ddirs, float* grads, float* out, float* dx_enc,
+                float* dd_enc, int P, const Scratch& s, cudaStream_t stream) {
+  using Products = TcProductsT<kBf16, float>;
+  cudaError_t err = launch_fwd_store_with<H, Products>(w, load, out, P, s, stream,
+                                                       static_cast<size_t>(P), 0);
   if (err != cudaSuccess) return err;
   const bool input_grads = dpts != nullptr;
-  err = launch_mlp_backward<H, TcProducts>(w, load.x_out, load.d_out, 1, gout, P, s,
-                                           input_grads ? dx_enc : nullptr,
-                                           input_grads ? dd_enc : nullptr, grads, stream);
+  err = launch_mlp_backward<H, Products>(w, load.x_out, load.d_out, 1, gout, P, s,
+                                         input_grads ? dx_enc : nullptr,
+                                         input_grads ? dd_enc : nullptr, grads, stream);
   if (err != cudaSuccess || !input_grads) return err;
   const int blocks = (P + kWarps - 1) / kWarps;
   encode_bwd_kernel<<<blocks, kThreads, 0, stream>>>(load.pts, load.sx, load.phx, w.xe, dx_enc,
@@ -79,6 +92,31 @@ cudaError_t run(const Weights& w, const PointEncodeLoad& load, const float* gout
   encode_bwd_kernel<<<blocks, kThreads, 0, stream>>>(load.dirs, load.sd, load.phd, w.de,
                                                      dd_enc, ddirs, P);
   return cudaGetLastError();
+}
+
+template <bool kBf16>
+int entry(const float* pts, const float* dirs, const float* gout, float* dpts, float* ddirs,
+          float* grads, int P, int xe, int de, int hidden, int c, const float* sx,
+          const float* phx, const float* sd, const float* phd, const float* w0, const float* wx,
+          const float* wd, const float* whh, const float* b, const float* g, const float* beta,
+          const float* w_dens, const float* b_dens, const float* w_col, const float* b_col,
+          float* xhat, float* stats, float* dpre, float* wpart, float* tpart, float* tmp,
+          float* wt, float* out, void* x_enc, void* d_enc, float* dx_enc, float* dd_enc,
+          int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
+  using T = enc_t<kBf16>;
+  if (c > kMaxColors || wd == nullptr) return cudaErrorInvalidValue;
+  if ((dpts == nullptr) != (ddirs == nullptr)) return cudaErrorInvalidValue;
+  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xe, de, c};
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+                  static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
+  const PointEncodeLoadT<T> load{pts, dirs, sx, phx, sd, phd, static_cast<T*>(x_enc),
+                                 static_cast<T*>(d_enc)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H)                                                                       \
+  static_cast<int>(run<H, kBf16>(w, load, gout, dpts, ddirs, grads, out, dx_enc, dd_enc, P, s, \
+                                 st))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
 }
 
 }  // namespace
@@ -96,16 +134,27 @@ extern "C" int classic_pointmlp_bwd(const float* pts, const float* dirs, const f
                                     float* out, float* x_enc, float* d_enc, float* dx_enc,
                                     float* dd_enc, int splits, const float* tc_fwd,
                                     const float* tc_bwd, void* stream) {
-  if (c > kMaxColors || wd == nullptr) return cudaErrorInvalidValue;
-  if ((dpts == nullptr) != (ddirs == nullptr)) return cudaErrorInvalidValue;
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xe, de, c};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
-  const PointEncodeLoad load{pts, dirs, sx, phx, sd, phd, x_enc, d_enc};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) \
-  static_cast<int>(run<H>(w, load, gout, dpts, ddirs, grads, out, dx_enc, dd_enc, P, s, st))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  return entry<false>(pts, dirs, gout, dpts, ddirs, grads, P, xe, de, hidden, c, sx, phx, sd,
+                      phd, w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat,
+                      stats, dpre, wpart, tpart, tmp, wt, out, x_enc, d_enc, dx_enc, dd_enc,
+                      splits, tc_fwd, tc_bwd, stream);
+}
+
+// The same in compute_dtype bfloat16: x_enc, d_enc and both images are
+// bfloat16; dx_enc, dd_enc and the raw inputs' cotangents float32.
+extern "C" int classic_pointmlp_bwd_bf16(
+    const float* pts, const float* dirs, const float* gout, float* dpts, float* ddirs,
+    float* grads, int P, int xe, int de, int hidden, int c, const float* sx, const float* phx,
+    const float* sd, const float* phd, const float* w0, const float* wx, const float* wd,
+    const float* whh, const float* b, const float* g, const float* beta, const float* w_dens,
+    const float* b_dens, const float* w_col, const float* b_col, float* xhat, float* stats,
+    float* dpre, float* wpart, float* tpart, float* tmp, float* wt, float* out, void* x_enc,
+    void* d_enc, float* dx_enc, float* dd_enc, int splits, const void* tc_fwd,
+    const void* tc_bwd, void* stream) {
+  return entry<true>(pts, dirs, gout, dpts, ddirs, grads, P, xe, de, hidden, c, sx, phx, sd,
+                     phd, w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats,
+                     dpre, wpart, tpart, tmp, wt, out, x_enc, d_enc, dx_enc, dd_enc, splits,
+                     tc_fwd, tc_bwd, stream);
 }
 
 // The plan of fwd_store's tile for these encoding widths: out = [policy (0

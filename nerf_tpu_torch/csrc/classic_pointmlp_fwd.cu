@@ -28,9 +28,42 @@
 // choice is made from the shapes before any launch (tc_mlp.cuh's
 // launch_fwd, K1-fwd's launcher, with this loader).
 //
+// classic_pointmlp_fwd_bf16 is the same kernel in compute_dtype bfloat16
+// (tc_mlp.cuh, note 10), K1-fwd's bf16 tile with this loader: the points,
+// directions and placements stay float32 (as classic_pointmlp_pallas
+// takes them) and so do the sines in the shared tiles; every product and
+// both heads take bf16 operands, rounded where the fragments are loaded,
+// with float32 sums, from bf16 weight images; the same width rule (past
+// 132 encoding floats the bf16-rounding SIMT tile).  Its bound at 262,144
+// points: 0.334 ms of bf16 tensor-core operations (FLOP / 989 TFLOP/s),
+// against 24 bytes of input and 16 of output a point.
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "tc_mlp.cuh"
 #include "encode.cuh"
+
+namespace {
+
+using namespace nerf_mlp;
+
+template <bool kBf16>
+int run(const float* pts, const float* dirs, float* out, int P, int xe, int de, int hidden,
+        int c, const float* sx, const float* phx, const float* sd, const float* phd,
+        const float* w0, const float* wx, const float* wd, const float* whh, const float* b,
+        const float* g, const float* beta, const float* w_dens, const float* b_dens,
+        const float* w_col, const float* b_col, const void* tc_fwd, void* stream) {
+  if (wd == nullptr) return cudaErrorInvalidValue;  // the view branch is required
+  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xe, de, c};
+  const PointEncodeLoad load{pts, dirs, sx, phx, sd, phd, nullptr, nullptr};
+  const float* img = static_cast<const float*>(tc_fwd);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H) \
+  static_cast<int>(launch_fwd<H, PointEncodeLoad, kBf16>(w, load, out, P, img, s))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
+}
+
+}  // namespace
 
 extern "C" int classic_pointmlp_fwd(const float* pts, const float* dirs, float* out, int P,
                                     int xe, int de, int hidden, int c, const float* sx,
@@ -40,14 +73,21 @@ extern "C" int classic_pointmlp_fwd(const float* pts, const float* dirs, float* 
                                     const float* beta, const float* w_dens,
                                     const float* b_dens, const float* w_col,
                                     const float* b_col, const float* tc_fwd, void* stream) {
-  using namespace nerf_mlp;
-  if (wd == nullptr) return cudaErrorInvalidValue;  // the view branch is required
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xe, de, c};
-  const PointEncodeLoad load{pts, dirs, sx, phx, sd, phd, nullptr, nullptr};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) static_cast<int>(launch_fwd<H>(w, load, out, P, tc_fwd, s))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  return run<false>(pts, dirs, out, P, xe, de, hidden, c, sx, phx, sd, phd, w0, wx, wd, whh, b,
+                    g, beta, w_dens, b_dens, w_col, b_col, tc_fwd, stream);
+}
+
+// The same in compute_dtype bfloat16: tc_fwd is bfloat16.
+extern "C" int classic_pointmlp_fwd_bf16(const float* pts, const float* dirs, float* out, int P,
+                                         int xe, int de, int hidden, int c, const float* sx,
+                                         const float* phx, const float* sd, const float* phd,
+                                         const float* w0, const float* wx, const float* wd,
+                                         const float* whh, const float* b, const float* g,
+                                         const float* beta, const float* w_dens,
+                                         const float* b_dens, const float* w_col,
+                                         const float* b_col, const void* tc_fwd, void* stream) {
+  return run<true>(pts, dirs, out, P, xe, de, hidden, c, sx, phx, sd, phd, w0, wx, wd, whh, b,
+                   g, beta, w_dens, b_dens, w_col, b_col, tc_fwd, stream);
 }
 
 // The plan K8-fwd follows for these encoding widths: its tiles take

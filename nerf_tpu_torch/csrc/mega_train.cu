@@ -52,6 +52,19 @@
 //      both stages: WProd::split);
 //   6. fixed-order colsums of the partials and of the per-ray losses.
 //
+// mega_train_bf16 is the same step in compute_dtype bfloat16 (tc_mlp.cuh,
+// note 10), as fine_stage_train_bf16 runs K3: the coarse encodings and the
+// per-ray view encodings arrive as bfloat16 (mega_inputs casts them, as
+// the JAX function does), the encoding buffer holds bfloat16 rows (step 3
+// writes the fine sines rounded to nearest even: the values the products
+// round them to, which wgrad reads as its raw rows), and every pass runs
+// TcProductsT<true>: bf16 images, products and heads with float32 sums.
+// The per-ray passes (steps 2, 4 and 6), the chain, the losses and the
+// gradients stay float32.  Its bound at 2048 x (64 + 128): 1.505 ms of
+// bf16 tensor-core operations (FLOP / 989 TFLOP/s) against 4.8 ms of
+// bytes, the float32 chain (xhat and dpre, 10,240 bytes a row each,
+// written once and read once) at 3.35 TB/s.
+//
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "encode.cuh"
 #include "tc_mlp.cuh"
@@ -144,9 +157,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// T: the encodings' type, float or __nv_bfloat16 (compute_dtype).
+template <class T>
 struct Inputs {
-  const float* xc;       // [R*Sc][xe] coarse encodings
-  const float* d_ray;    // [R][de] view encodings, or nullptr
+  const T* xc;           // [R*Sc][xe] coarse encodings
+  const T* d_ray;        // [R][de] view encodings, or nullptr
   const float* t_c;      // [R][Sc]
   const float* noise_c;  // [R][Sc]
   const float* u;        // [R][Sf]
@@ -158,26 +173,29 @@ struct Inputs {
   const float* is_cos;   // [xe]
 };
 
+template <class T>
 struct Work {
   float* out;       // [R(Sc+Sf)][1 + c] MLP outputs, coarse then fine
   float* gout;      // their cotangents
-  float* x_all;     // [R(Sc+Sf)][xe] encodings, coarse then fine
+  T* x_all;         // [R(Sc+Sf)][xe] encodings, coarse then fine
   float* dnorm;     // [R]
   float* ray_loss;  // [2][R]: coarse, fine
 };
 
-template <int H>
-cudaError_t run(const Weights& w, const Inputs& in, const Work& k, float* loss, float* grads,
-                float* t_fine, int R, int Sc, int Sf, int white, int exact, const Scratch& s,
-                cudaStream_t stream) {
+template <int H, bool kBf16>
+cudaError_t run(const Weights& w, const Inputs<enc_t<kBf16>>& in, const Work<enc_t<kBf16>>& k,
+                float* loss, float* grads, float* t_fine, int R, int Sc, int Sf, int white,
+                int exact, const Scratch& s, cudaStream_t stream) {
+  using T = enc_t<kBf16>;
+  using Products = TcProductsT<kBf16>;
   const int Pc = R * Sc, Pf = R * Sf, P = Pc + Pf, ld = 1 + w.c;
   const float g_scale = 0.5f * 2.f / (static_cast<float>(w.c) * R);  // stage weight 0.5
   const float loss_scale = 0.5f / R;
-  cudaError_t err = cudaMemcpyAsync(k.x_all, in.xc, static_cast<size_t>(Pc) * w.xe * sizeof(float),
+  cudaError_t err = cudaMemcpyAsync(k.x_all, in.xc, static_cast<size_t>(Pc) * w.xe * sizeof(T),
                                     cudaMemcpyDeviceToDevice, stream);
   if (err != cudaSuccess) return err;
-  err = launch_fwd_store_with<H, TcProducts>(w, TileLoad{k.x_all, in.d_ray, Sc}, k.out, Pc, s,
-                                             stream, static_cast<size_t>(P), 0);
+  err = launch_fwd_store_with<H, Products>(w, TileLoadT<T>{k.x_all, in.d_ray, Sc}, k.out, Pc, s,
+                                           stream, static_cast<size_t>(P), 0);
   if (err != cudaSuccess) return err;
 
   const int ray_blocks = (R + kWarps - 1) / kWarps;
@@ -190,11 +208,11 @@ cudaError_t run(const Weights& w, const Inputs& in, const Work& k, float* loss, 
       loss_scale, k.gout, k.ray_loss, k.dnorm, t_fine);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
-  const RayEncodeLoad fine_load{in.rays_o, in.rays_d, t_fine,  Sf, in.S, in.is_cos,
-                                exact,     in.d_ray,  k.x_all + static_cast<size_t>(Pc) * w.xe};
-  err = launch_fwd_store_with<H, TcProducts>(w, fine_load,
-                                             k.out + static_cast<size_t>(Pc) * ld, Pf, s, stream,
-                                             static_cast<size_t>(P), static_cast<size_t>(Pc));
+  const RayEncodeLoadT<T> fine_load{in.rays_o, in.rays_d, t_fine,  Sf, in.S, in.is_cos,
+                                    exact,     in.d_ray,  k.x_all + static_cast<size_t>(Pc) * w.xe};
+  err = launch_fwd_store_with<H, Products>(w, fine_load, k.out + static_cast<size_t>(Pc) * ld, Pf,
+                                           s, stream, static_cast<size_t>(P),
+                                           static_cast<size_t>(Pc));
   if (err != cudaSuccess) return err;
 
   smem = union_composite_smem(Sc, Sf);
@@ -210,8 +228,36 @@ cudaError_t run(const Weights& w, const Inputs& in, const Work& k, float* loss, 
 
   if ((err = colsum(k.ray_loss, R, 1, loss, s.tmp, stream)) != cudaSuccess) return err;
   if ((err = colsum(k.ray_loss + R, R, 1, loss + 1, s.tmp, stream)) != cudaSuccess) return err;
-  return launch_mlp_backward<H, TcProducts>(w, k.x_all, in.d_ray, Sc, k.gout, P, s, nullptr,
-                                            nullptr, grads, stream, Pc, Sf);
+  return launch_mlp_backward<H, Products>(w, k.x_all, in.d_ray, Sc, k.gout, P, s, nullptr,
+                                          nullptr, grads, stream, Pc, Sf);
+}
+
+template <bool kBf16>
+int entry(const void* xc, const void* d_ray, const float* t_c, const float* noise_c,
+          const float* u, const float* noise_f, const float* rays_o, const float* rays_d,
+          const float* pix, const float* S, const float* is_cos, float* loss, float* grads,
+          float* t_fine, int R, int Sc, int Sf, int xe, int de, int hidden, int c, int white,
+          int exact_trig, const float* w0, const float* wx, const float* wd, const float* whh,
+          const float* b, const float* g, const float* beta, const float* w_dens,
+          const float* b_dens, const float* w_col, const float* b_col, float* xhat,
+          float* stats, float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
+          float* out, float* gout, void* x_all, float* dnorm, float* ray_loss, int splits,
+          const void* tc_fwd, const void* tc_bwd, void* stream) {
+  using T = enc_t<kBf16>;
+  if (c > kMaxColors || c < 1 || Sc < 3 || Sf < 1) return cudaErrorInvalidValue;
+  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
+                  xe, wd ? de : 0, c};
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+                  static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
+  const Inputs<T> in{static_cast<const T*>(xc), static_cast<const T*>(d_ray), t_c, noise_c, u,
+                     noise_f, rays_o, rays_d, pix, S, is_cos};
+  const Work<T> k{out, gout, static_cast<T*>(x_all), dnorm, ray_loss};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define NERF_LAUNCH(H)                                                                          \
+  static_cast<int>(run<H, kBf16>(w, in, k, loss, grads, t_fine, R, Sc, Sf, white, exact_trig, s, \
+                                 st))
+  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
+#undef NERF_LAUNCH
 }
 
 }  // namespace
@@ -229,17 +275,30 @@ extern "C" int mega_train(const float* xc, const float* d_ray, const float* t_c,
                           float* out, float* gout, float* x_all, float* dnorm,
                           float* ray_loss, int splits, const float* tc_fwd,
                           const float* tc_bwd, void* stream) {
-  if (c > kMaxColors || c < 1 || Sc < 3 || Sf < 1) return cudaErrorInvalidValue;
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
-                  xe, wd ? de : 0, c};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
-  const Inputs in{xc, d_ray, t_c, noise_c, u, noise_f, rays_o, rays_d, pix, S, is_cos};
-  const Work k{out, gout, x_all, dnorm, ray_loss};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) \
-  static_cast<int>(run<H>(w, in, k, loss, grads, t_fine, R, Sc, Sf, white, exact_trig, s, st))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  return entry<false>(xc, d_ray, t_c, noise_c, u, noise_f, rays_o, rays_d, pix, S, is_cos, loss,
+                      grads, t_fine, R, Sc, Sf, xe, de, hidden, c, white, exact_trig, w0, wx, wd,
+                      whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre, wpart,
+                      tpart, tmp, wt, out, gout, x_all, dnorm, ray_loss, splits, tc_fwd, tc_bwd,
+                      stream);
+}
+
+// The same in compute_dtype bfloat16: xc, d_ray, x_all and both images are
+// bfloat16.
+extern "C" int mega_train_bf16(
+    const void* xc, const void* d_ray, const float* t_c, const float* noise_c, const float* u,
+    const float* noise_f, const float* rays_o, const float* rays_d, const float* pix,
+    const float* S, const float* is_cos, float* loss, float* grads, float* t_fine, int R, int Sc,
+    int Sf, int xe, int de, int hidden, int c, int white, int exact_trig, const float* w0,
+    const float* wx, const float* wd, const float* whh, const float* b, const float* g,
+    const float* beta, const float* w_dens, const float* b_dens, const float* w_col,
+    const float* b_col, float* xhat, float* stats, float* dpre, float* wpart, float* tpart,
+    float* tmp, float* wt, float* out, float* gout, void* x_all, float* dnorm, float* ray_loss,
+    int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
+  return entry<true>(xc, d_ray, t_c, noise_c, u, noise_f, rays_o, rays_d, pix, S, is_cos, loss,
+                     grads, t_fine, R, Sc, Sf, xe, de, hidden, c, white, exact_trig, w0, wx, wd,
+                     whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre, wpart,
+                     tpart, tmp, wt, out, gout, x_all, dnorm, ray_loss, splits, tc_fwd, tc_bwd,
+                     stream);
 }
 
 // The plan mega_train's two fwd_store launches follow for these widths (de

@@ -128,8 +128,8 @@
 //
 // 10. compute_dtype="bfloat16" (the template parameter kBf16 of tc_gemm,
 //    mlp_tile_tc, the passes' kernels and TcProductsT: K1-fwd, K1-bwd, K2,
-//    K3 and K4; and of mip_mlp.cuh's tiles, kernels and MipTcT: K5-fwd,
-//    K5-bwd, K6 and K7).  bf16 is the tensor cores' own operand type: each k-step of
+//    K3, K4, K8-fwd, K8-bwd and K9; and of mip_mlp.cuh's tiles, kernels and
+//    MipTcT: K5-fwd, K5-bwd, K6 and K7).  bf16 is the tensor cores' own operand type: each k-step of
 //    16 values is ONE wgmma.mma_async ... .f32.bf16.bf16 (k = 16; 3xTF32
 //    takes three of k = 8 for half the values), at 989 TFLOP/s dense.  The
 //    rounding points are the JAX package's _dot, _dot_t and _dot_tn: the A
@@ -142,7 +142,9 @@
 //    head_bwd<H, true>; the mip head_wide and head_dh likewise).  Everything else (LayerNorm and its statistics,
 //    biases, ReLU masks, compositing, losses, the chain, every sum of
 //    partials) is float32, as in JAX.  The encodings cross device memory
-//    as bf16 (load_tile, TileLoadT<__nv_bfloat16>, wgrad's bf16 raw rows).
+//    as bf16 (load_tile, TileLoadT<__nv_bfloat16>, wgrad's bf16 raw rows;
+//    K8 and K9 compute theirs in the block, encode.cuh, and write them
+//    rounded for wgrad).
 //    Layout: a bf16 chunk holds kTcKB = 32 k-values, 64 bytes a row: the
 //    byte layout of one TF32 hi block, so the 64-byte swizzle (16-byte group
 //    j of row n at j ^ ((n / 2) % 4)), the descriptor (SBO 512: 8 rows of
@@ -161,11 +163,12 @@
 //    the TF32 and bf16 passes alike).  Bounds at the full-width model
 //    (FLOP / 989 TFLOP/s): K1-fwd at 262,144 rows 0.334 ms, K4 at a
 //    4000-ray tile 0.653 ms, K1-bwd at 131,072 rows 0.501 ms, K2 at 4096 x
-//    64 and K3 at 2048 x 128 1.003 ms each; K5-fwd at 258,048 rows 0.157
-//    ms, K7 at a 4000-ray tile of 63 rows 0.153 ms, K5-bwd at 258,048 rows
-//    and K6 at 4096 x 63 0.470 ms each; the training kernels' float32
-//    chain (xhat and dpre, written once and read once) then bounds them by
-//    bytes instead.
+//    64 and K3 at 2048 x 128 1.003 ms each, K8-fwd and K8-bwd at 262,144
+//    points 0.334 and 1.003 ms, K9 at 2048 x (64 + 128) 1.505 ms; K5-fwd
+//    at 258,048 rows 0.157 ms, K7 at a 4000-ray tile of 63 rows 0.153 ms,
+//    K5-bwd at 258,048 rows and K6 at 4096 x 63 0.470 ms each; the
+//    training kernels' float32 chain (xhat and dpre, written once and read
+//    once) then bounds them by bytes instead.
 //
 // The products are deterministic: a fixed order of wgmma per k-chunk, no
 // atomics; wgrad's partials go through colsum's fixed order as before.
@@ -805,8 +808,10 @@ __device__ __forceinline__ void tc_load_dpre(float* act, const float* dpre, int 
 // sum goes through act to coalesced stores of the pass's columns below n.
 // act and bbuf are the tile's; called by the whole block, which has
 // written the dpre rows it reads (its barriers make them visible).  kBf16:
-// bf16 images and products, out bfloat16 (the encodings' dtype).
-template <int H, bool kBf16 = false>
+// bf16 images and products.  out is OutT: by default the encodings' dtype
+// (bfloat16 under kBf16, as JAX's VJP returns a bf16 input's cotangent);
+// K8-bwd takes float32 in both, the cotangent of float32 raw inputs.
+template <int H, bool kBf16 = false, class OutT = enc_t<kBf16>>
 __device__ void tc_input_grad(float* act, float* bbuf, const float* dpre, size_t P, size_t row0,
                               int nvalid, int la, const float* img_a, int lb,
                               const float* img_b, int n, void* __restrict__ out) {
@@ -828,7 +833,7 @@ __device__ void tc_input_grad(float* act, float* bbuf, const float* dpre, size_t
     for (int i = threadIdx.x; i < nvalid * cols; i += kThreads) {
       const int r = i / cols, c = i - r * cols;
       const size_t o = (row0 + r) * n + c0 + c;
-      if constexpr (kBf16)
+      if constexpr (std::is_same_v<OutT, __nv_bfloat16>)
         static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(act[r * ld + c]);
       else
         static_cast<float*>(out)[o] = act[r * ld + c];
@@ -847,9 +852,9 @@ __host__ inline size_t bwd_rows_tc_smem(const Weights& w) {
 // bwd is the backward operand images: the hidden slabs' (the packed
 // [in][out] slabs, 2 H H floats each), then w0's, wx's and wd's for the
 // encodings' cotangents dx [P][xe] and dd [P][de], written when not null.
-// kBf16: bf16 images and products, the heads' backward in bf16, dx and dd
-// bfloat16 (note 10).
-template <int H, bool kBf16 = false>
+// kBf16: bf16 images and products, the heads' backward in bf16 (note 10);
+// dx and dd are InGradT (tc_input_grad's OutT).
+template <int H, bool kBf16 = false, class InGradT = enc_t<kBf16>>
 __global__ void __launch_bounds__(kThreads, 1)
     bwd_rows_tc_kernel(Weights w, const float* __restrict__ gout, int P, const float* xhat,
                        const float* stats, const float* __restrict__ bwd, float* dpre,
@@ -907,10 +912,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float* img_wx = img_w0 + tc_input_image_floats<kBf16>(w.xe, H);
   const float* img_wd = img_wx + tc_input_image_floats<kBf16>(w.xe, H);
   if (dx != nullptr)
-    tc_input_grad<H, kBf16>(act, bbuf, dpre, PP, row0, nvalid, 0, img_w0, 4, img_wx, w.xe, dx);
+    tc_input_grad<H, kBf16, InGradT>(act, bbuf, dpre, PP, row0, nvalid, 0, img_w0, 4, img_wx,
+                                     w.xe, dx);
   if (dd != nullptr)
-    tc_input_grad<H, kBf16>(act, bbuf, dpre, PP, row0, nvalid, 8, img_wd, -1, nullptr, w.de,
-                            dd);
+    tc_input_grad<H, kBf16, InGradT>(act, bbuf, dpre, PP, row0, nvalid, 8, img_wd, -1, nullptr,
+                                     w.de, dd);
 }
 
 // ---------------------------------------------------------------------------
@@ -1336,8 +1342,10 @@ cudaError_t launch_fwd(const Weights& w, const Load& load, float* out, int P,
 // cotangents dx, dd are asked for).  fwd_store runs SimtProducts' pass
 // where its tile does not fit (note 9).  kBf16: compute_dtype bfloat16
 // (note 10): bf16 images, encodings, products and heads, and SimtProducts'
-// fwd_store rounding its operands likewise.
-template <bool kBf16_ = false>
+// fwd_store rounding its operands likewise.  InGradT: the type of the
+// encodings' cotangents dx, dd (the encodings' own by default; K8-bwd's
+// are float32 in both dtypes).
+template <bool kBf16_ = false, class InGradT = enc_t<kBf16_>>
 struct TcProductsT {
   static constexpr bool kBf16 = kBf16_;
 
@@ -1368,11 +1376,11 @@ struct TcProductsT {
     if (s.tc_bwd == nullptr) return cudaErrorInvalidValue;
     const size_t smem = bwd_rows_tc_smem<H>(w);
     cudaError_t err =
-        cudaFuncSetAttribute(bwd_rows_tc_kernel<H, kBf16>,
+        cudaFuncSetAttribute(bwd_rows_tc_kernel<H, kBf16, InGradT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
-    bwd_rows_tc_kernel<H, kBf16><<<tiles, kThreads, smem, stream>>>(
+    bwd_rows_tc_kernel<H, kBf16, InGradT><<<tiles, kThreads, smem, stream>>>(
         w, gout, P, s.xhat, s.stats, s.tc_bwd, s.dpre, s.tpart, dx, dd);
     return cudaGetLastError();
   }

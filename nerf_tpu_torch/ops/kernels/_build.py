@@ -17,8 +17,7 @@ are too wide for the tensor-core tile (``csrc/tc_mlp.cuh``, note 9;
 ``tile_plan``), or where a K1-bwd call asks for the encodings'
 cotangents, which K1-bwd computes on its float32 SIMT passes.  The bf16
 kernels of ``compute_dtype="bfloat16"`` (``<name>_bf16`` in the same
-library, for the classic main path's K1-fwd, K1-bwd, K2, K3 and K4 and the
-mip family's K5-fwd, K5-bwd, K6 and K7, ``BF16``) record ``"tc_bf16"`` or
+library, for every kernel: ``BF16``) record ``"tc_bf16"`` or
 ``"simt_bf16"``: the same tiles and width rule, the bf16 ``wgmma`` or the
 bf16-rounding SIMT pass (K1-bwd in bf16 always runs the tensor-core
 passes).
@@ -130,11 +129,12 @@ ARGTYPES = {
     "tc_linear": (_P,) * 3 + (_I,) * 3 + (_P,),
     "tc_wgrad": (_P,) * 3 + (_I,) * 3 + (_P,),
 }
-# The kernels with a bf16 entry point, <name>_bf16, whose arguments are
-# <name>'s (the encodings or the mip features, their cotangents and the
-# images bfloat16).
-BF16 = ("classic_mlp_fwd", "union_eval", "classic_mlp_bwd", "train_grads", "fine_stage_train",
-        "mip_mlp_fwd", "mip_mlp_bwd", "mip_train_grads", "mip_eval")
+# The kernels' bf16 entry points, <name>_bf16, whose arguments are
+# <name>'s (the images bfloat16, and the encodings or the mip features,
+# with K1-bwd's and K5-bwd's cotangents of them; K8's raw points stay
+# float32 and its scratch encodings are bfloat16; K9's coarse, view and
+# scratch encodings are bfloat16).
+BF16 = KERNELS
 ARGTYPES.update({f"{name}_bf16": ARGTYPES[name] for name in BF16 + ("tc_linear", "tc_wgrad")})
 # Functions of a library other than its own name.
 FUNCTIONS = {

@@ -25,9 +25,11 @@ to bfloat16, float32 sums, float32 outputs and gradients; the encodings'
 cotangents bfloat16), and the plain versions run the JAX package's bf16
 arithmetic (``tc_mlp.bf16_matmul_autograd`` for every product, the heads'
 included).  ``_build.policy_counts`` records ``"tc_bf16"`` or
-``"simt_bf16"`` for those calls.  The mip family (K5-fwd, K5-bwd, K6, K7)
-takes bfloat16 features the same way (``mip_mlp``, ``mip_train``); K8 and
-K9 still raise a ``NotImplementedError`` for bfloat16 (``BF16_QUEUED``).
+``"simt_bf16"`` for those calls.  Every other kernel takes the compute
+dtype too: the mip family (K5-fwd, K5-bwd, K6, K7) bfloat16 features
+(``mip_mlp``, ``mip_train``), K8 a ``dtype`` argument beside its float32
+raw points (``point_mlp``), K9 bfloat16 coarse and view encodings
+(``mega_train``).
 
 The kernels read the weights as ``pack_classic_params`` packs them and,
 on the tensor cores, as the operand images ``tc_mlp.tc_images`` builds.
@@ -56,9 +58,6 @@ Packed = Dict[str, torch.Tensor]
 NAME = "classic_mlp_fwd"
 BWD_NAME = "classic_mlp_bwd"
 HIDDEN_WIDTHS = (32, 64, 128, 256)  # the kernel's instantiations
-# Where bfloat16 inputs of the kernels still to take them are queued.
-BF16_QUEUED = ("bfloat16 is not implemented yet for this kernel: K8 and K9 in bfloat16 are "
-               "the next bf16 slice (ROADMAP.md queue 1)")
 MAX_COLORS = 8  # color outputs the backward kernels take
 # Weight slabs in the order of the C interface (wd_in may be absent).
 PACK_ORDER = (
@@ -143,15 +142,18 @@ def prepare_weights(mlp: ClassicMLP, backward: bool = False,
 
 def classic_mlp_fwd_plain(
     packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor] = None,
-    matmul=None,
+    matmul=None, bf16: Optional[bool] = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``[P, 1 + C]`` rows of
     ``[density, color logits]``.  ``matmul`` computes the hidden and
     encoding products (the heads stay float32): ``tc_mlp.tc_matmul_autograd``
     emulates the tensor-core kernels' 3xTF32; by default ``torch.matmul``.
-    Encodings given as bfloat16 run ``compute_dtype="bfloat16"``: by default
-    ``tc_mlp.bf16_matmul_autograd``, and ``matmul`` takes the heads too."""
-    bf16 = x_enc.dtype == torch.bfloat16
+    ``bf16`` runs ``compute_dtype="bfloat16"`` (by default where the
+    encodings are given as bfloat16; K8's plain versions set it for their
+    float32 sines): by default ``tc_mlp.bf16_matmul_autograd``, and
+    ``matmul`` takes the heads too."""
+    if bf16 is None:
+        bf16 = x_enc.dtype == torch.bfloat16
     if matmul is None:
         matmul = tc_mlp.bf16_matmul_autograd if bf16 else torch.matmul
     head = matmul if bf16 else torch.matmul
@@ -179,36 +181,34 @@ def classic_mlp_fwd_plain(
     return torch.cat([density, color], dim=-1)
 
 
-# The inputs of the bf16 kernels' wrappers (the classic main path's and the
-# mip family's) that are bfloat16 under compute_dtype="bfloat16"
-# (check_inputs' ``bf16``).
-BF16_INPUTS = ("x_enc", "d_enc", "features", "tc_fwd", "tc_bwd")
+# The inputs that take the compute dtype, bfloat16 together under
+# compute_dtype="bfloat16": the encodings (K9's coarse and per-ray view
+# ones too) or the mip features, and the operand images.
+BF16_INPUTS = ("x_enc", "d_enc", "features", "x_enc_c", "d_ray", "tc_fwd", "tc_bwd")
 
 
 def check_inputs(
     name: str, packed: Packed, tensors: Dict[str, Optional[torch.Tensor]],
-    aligned: Tuple[str, ...] = PACK_ORDER, bf16: bool = False,
+    aligned: Tuple[str, ...] = PACK_ORDER, compute: Optional[torch.dtype] = None,
 ) -> torch.device:
-    """Shared argument checks of the kernel wrappers: one device, float32
-    but, with ``bf16`` (the classic main path's and the mip family's
-    kernels), for the ``BF16_INPUTS``, which may be bfloat16 all together
-    (``compute_dtype="bfloat16"``: the encodings or the features and their
-    operand images; a kernel without ``bf16`` raises a ``NotImplementedError`` for
-    bfloat16), contiguous, no autograd graph
-    (a wrapper has no autograd backward of its own; ``classic_mlp_fwd``
-    routes through ``ClassicMLPFunction`` before it gets here), and on the
-    card the ``aligned`` weight slabs 16-byte aligned.  Returns the
-    device."""
+    """Shared argument checks of the kernel wrappers: one device; the
+    ``BF16_INPUTS`` given in the compute dtype (``compute`` where the
+    caller names it, as K8's ``dtype``; else that of the first one given:
+    float32, or bfloat16 for ``compute_dtype="bfloat16"``), every other
+    tensor float32; contiguous, no autograd graph (a wrapper has no
+    autograd backward of its own; ``classic_mlp_fwd`` routes through
+    ``ClassicMLPFunction`` before it gets here), and on the card the
+    ``aligned`` weight slabs 16-byte aligned.  Returns the device."""
     given = {k: v for k, v in tensors.items() if v is not None}
     given.update({f"packed[{k}]": v for k, v in packed.items()})
     device = next(iter(given.values())).device
-    bf16_ok = BF16_INPUTS if bf16 else ()
-    first = next((given[k] for k in bf16_ok if k in given), None)
-    compute = torch.float32 if first is None else first.dtype
+    if compute is None:
+        first = next((given[k] for k in BF16_INPUTS if k in given), None)
+        compute = torch.float32 if first is None else first.dtype
+    elif compute not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the compute dtype must be float32 or bfloat16, got {compute}")
     for key, t in given.items():
-        if t.dtype == torch.bfloat16 and not bf16_ok:
-            raise NotImplementedError(f"{name}: {BF16_QUEUED} ({key})")
-        want = compute if key in bf16_ok and compute == torch.bfloat16 else torch.float32
+        want = compute if key in BF16_INPUTS and compute == torch.bfloat16 else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name}: {key} must be {str(want)[6:]}, got {t.dtype}")
         if t.device != device:
@@ -265,8 +265,7 @@ def classic_mlp_fwd(
     has_view = "wd_in" in packed
     if has_view != (d_enc is not None):
         raise ValueError(f"{NAME}: d_enc must be given iff the weights have a view branch")
-    device = check_inputs(NAME, packed, {"x_enc": x_enc, "d_enc": d_enc, "tc_fwd": tc_fwd},
-                          bf16=True)
+    device = check_inputs(NAME, packed, {"x_enc": x_enc, "d_enc": d_enc, "tc_fwd": tc_fwd})
     dtype = x_enc.dtype
     tc_mlp.check_images(NAME, packed, tc_fwd, dtype=dtype)
     hidden = packed["w0"].shape[1]
@@ -451,8 +450,7 @@ def classic_mlp_bwd(
     if has_view != (d_enc is not None):
         raise ValueError(f"{BWD_NAME}: d_enc must be given iff the weights have a view branch")
     device = check_inputs(BWD_NAME, packed, {"x_enc": x_enc, "d_enc": d_enc, "g_out": g_out,
-                                             "tc_fwd": tc_fwd, "tc_bwd": tc_bwd},
-                          bf16=True)
+                                             "tc_fwd": tc_fwd, "tc_bwd": tc_bwd})
     dtype = x_enc.dtype
     bf16 = dtype == torch.bfloat16
     tc_mlp.check_images(BWD_NAME, packed, tc_fwd, tc_bwd, dtype)

@@ -135,7 +135,7 @@ def fine_stage_train(
         "x_enc": x_enc, "d_enc": d_enc, "t_coarse": t_coarse, "t_fine": t_fine,
         "dens_c": dens_c, "col_c": col_c, "dnorm": dnorm, "noise_f": noise_f, "pixels": pixels,
         "tc_fwd": tc_fwd, "tc_bwd": tc_bwd,
-    }, bf16=True)
+    })
     dtype = x_enc.dtype
     tc_mlp.check_images(NAME, packed, tc_fwd, tc_bwd, dtype)
     n_rays, s_fine = t_fine.shape

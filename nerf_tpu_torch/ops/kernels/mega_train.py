@@ -15,6 +15,16 @@ the detached coarse weights (with ``matmul=tc_mlp.tc_matmul_autograd`` it
 emulates the kernel's products, forward and backward).  The JAX function's
 TPU knobs (``interpret``, ``rays_per_tile``, ``splits``, ``ablate``) have
 no counterpart here.
+
+``compute_dtype="bfloat16"`` (a model's ``cfg.compute_dtype``, as the JAX
+function reads it): ``mega_inputs`` casts the coarse and the per-ray view
+encodings to bfloat16, and ``mega_train`` given them launches
+``mega_train_bf16``: the fine encodings rounded to bfloat16 where the
+kernel writes them, every product and both heads on operands rounded to
+bfloat16 with float32 sums; the compositing, the resample, the losses and
+the gradients float32.  ``mega_train_plain`` runs the JAX package's bf16
+arithmetic on the same roundings (``tc_mlp.bf16_matmul_autograd``).
+``_build.policy_counts`` records ``"tc_bf16"`` or ``"simt_bf16"``.
 """
 
 from __future__ import annotations
@@ -28,7 +38,6 @@ from nerf_tpu_torch.config import ClassicNeRFConfig
 from nerf_tpu_torch.ops import compositing, encoding, sampling
 from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
-    BF16_QUEUED,
     HIDDEN_WIDTHS,
     MAX_COLORS,
     PACK_ORDER,
@@ -39,6 +48,7 @@ from nerf_tpu_torch.ops.kernels.classic_mlp import (
     flat_grads_to_packed,
     pack_classic_params,
     packed_grads_plain,
+    route,
     scratch_pointers,
     supports_classic_config,
     train_scratch,
@@ -98,7 +108,7 @@ def _coarse_plain(w: Packed, x_enc_c, d_ray, t_coarse, noise_c, rays_d, matmul):
 
 
 def coarse_weights_plain(packed: Packed, x_enc_c, d_ray, t_coarse, noise_c, rays_d,
-                         matmul=torch.matmul) -> torch.Tensor:
+                         matmul=None) -> torch.Tensor:
     """The coarse stage's compositing weights ``[R, Sc]`` in plain PyTorch,
     which the resample inverts (``mega_train``'s arguments)."""
     with torch.no_grad():
@@ -109,12 +119,14 @@ def coarse_weights_plain(packed: Packed, x_enc_c, d_ray, t_coarse, noise_c, rays
 def mega_train_plain(
     packed: Packed, x_enc_c, d_ray, t_coarse, noise_c, u, noise_f, rays_o, rays_d, pixels,
     placement, is_cos, white_background: bool = False, exact_trig: bool = False,
-    t_fine: Optional[torch.Tensor] = None, matmul=torch.matmul,
+    t_fine: Optional[torch.Tensor] = None, matmul=None,
 ):
     """The kernel's function in plain PyTorch (see ``mega_train``).
     ``t_fine``, when given, takes the place of the resample's result (the
     fine t-values held constant, as the JAX package's exactness oracle
-    holds them); ``matmul`` as in ``classic_mlp_fwd_plain``."""
+    holds them); ``matmul`` as in ``classic_mlp_fwd_plain``.  bfloat16
+    encodings run the bf16 arithmetic, the fine encodings rounded to
+    bfloat16 as the kernel writes them."""
     n_rays, s_coarse = t_coarse.shape
     s_fine = u.shape[-1]
     bg = 1.0 if white_background else None
@@ -131,8 +143,8 @@ def mega_train_plain(
             t_mids = 0.5 * (t_coarse[..., 1:] + t_coarse[..., :-1])
             t_f = sampling.sample_pdf(None, t_mids, weights_c[..., 1:-1, 0].detach(), s_fine,
                                       u=u)
-        out_f = _stage_out(w, encode_fine_plain(t_f, rays_o, rays_d, placement, is_cos,
-                                                exact_trig), d_ray, n_rays, s_fine, matmul)
+        x_enc_f = encode_fine_plain(t_f, rays_o, rays_d, placement, is_cos, exact_trig)
+        out_f = _stage_out(w, x_enc_f.to(x_enc_c.dtype), d_ray, n_rays, s_fine, matmul)
         weights = compositing.weights_from_union_norm(
             dens_c, out_f[..., :1] + noise_f[..., None], t_coarse, t_f, dnorm[:, None])
         rgb = compositing.composite_rgb_with_background(
@@ -160,14 +172,16 @@ def mega_train(
     is_cos: torch.Tensor,
     white_background: bool = False,
     exact_trig: bool = False,
+    keep: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Packed, torch.Tensor]:
     """One evaluation of the reuse objective and its gradients.
 
     Args:
         packed: ``classic_mlp.pack_classic_params`` of the model's MLP.
-        x_enc_c: ``[R * Sc, XE]`` encodings of the coarse samples.
-        d_ray: ``[R, DE]`` view encodings, one row per ray, or ``None``
-            without the view branch.
+        x_enc_c: ``[R * Sc, XE]`` encodings of the coarse samples, float32
+            or, for ``compute_dtype="bfloat16"``, bfloat16.
+        d_ray: ``[R, DE]`` view encodings, one row per ray, in
+            ``x_enc_c``'s dtype, or ``None`` without the view branch.
         t_coarse: sorted coarse t-values ``[R, Sc]``.
         noise_c / noise_f: density noise ``[R, Sc]`` / ``[R, Sf]``, drawn
             beforehand (zeros without noise).
@@ -178,11 +192,15 @@ def mega_train(
             position scales, ``[3, XE]`` and ``[1, XE]``.
         exact_trig: the fine encoding's ``where(is_cos, cos, sin)`` form in
             place of the phase form.
+        keep: a dict in which a CUDA call puts ``x_all [R (Sc + Sf), XE]``,
+            the coarse then the fine encodings the kernel held in its
+            scratch, in ``x_enc_c``'s dtype (for checks).
 
     Returns ``(loss_c, loss_f, d_packed, t_fine [R, Sf])``, the losses
     stage-weighted (0.5 each) and ``d_packed`` the gradient of their sum.
     CPU tensors run ``mega_train_plain``; CUDA tensors launch the kernel
-    (raising on what it does not take).
+    (raising on what it does not take): ``mega_train_bf16`` for bfloat16
+    encodings.
     """
     has_view = "wd_in" in packed
     if has_view != (d_ray is not None):
@@ -226,17 +244,19 @@ def mega_train(
         raise ValueError(f"{NAME}: needs at least one ray")
     n_rows = n_rays * (s_coarse + s_fine)
     de = d_ray.shape[1] if has_view else 0
-    policy = _build.tile_plan(NAME, xe, de, hidden).policy
+    dtype = x_enc_c.dtype
+    fn_name, policy = route(NAME, _build.tile_plan(NAME, xe, de, hidden).policy,
+                            dtype == torch.bfloat16)
     s = train_scratch(packed, n_rows, device)
 
-    def buf(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=device)
+    def buf(*shape, dt=torch.float32):
+        return torch.empty(shape, dtype=dt, device=device)
 
     loss, t_fine = buf(2), buf(n_rays, s_fine)
-    gout, x_all = torch.empty_like(s["out"]), buf(n_rows, xe)
+    gout, x_all = torch.empty_like(s["out"]), buf(n_rows, xe, dt=dtype)
     dnorm, ray_loss = buf(n_rays), buf(2, n_rays)
-    tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
-    fn = getattr(_build.load(NAME), NAME)
+    tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
+    fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         x_enc_c.data_ptr(), _build.ptr(d_ray), t_coarse.data_ptr(), noise_c.data_ptr(),
         u.data_ptr(), noise_f.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(),
@@ -250,6 +270,8 @@ def mega_train(
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1
     _build.policy_counts[(NAME, policy)] += 1
+    if keep is not None:
+        keep["x_all"] = x_all
     return loss[0], loss[1], flat_grads_to_packed(s["grads"], packed), t_fine
 
 
@@ -285,12 +307,16 @@ def mega_inputs(model, batch: Dict[str, torch.Tensor], draws: sampling.StepDraws
     ``(x_enc_c, d_ray, t_coarse, noise_c, u, noise_f, rays_o, rays_d,
     pixels, placement, is_cos)``.  The coarse encodings are made here
     (``encode_inputs_flat``), the fine ones inside the kernel on
-    ``frequency_placement`` of the model's ``x_scales`` buffer."""
+    ``frequency_placement`` of the model's ``x_scales`` buffer; the coarse
+    and the view encodings in ``model.cfg.compute_dtype``, as the JAX
+    function casts them."""
     rays_o, rays_d = batch["rays_o"], batch["rays_d"]
+    dt = getattr(torch, model.cfg.compute_dtype)
     x_enc_c, _ = model.encode_inputs_flat(rays_o, rays_d, draws.t_coarse)
-    d_ray = model.encode_direction(rays_d).contiguous() if model.cfg.use_viewdirs else None
+    d_ray = (model.encode_direction(rays_d).to(dt).contiguous() if model.cfg.use_viewdirs
+             else None)
     placement, is_cos = encoding.frequency_placement(model.x_scales)
-    return (x_enc_c.reshape(-1, x_enc_c.shape[-1]).contiguous(), d_ray,
+    return (x_enc_c.reshape(-1, x_enc_c.shape[-1]).to(dt).contiguous(), d_ray,
             draws.t_coarse.contiguous(), draws.noise_c.contiguous(), draws.u.contiguous(),
             draws.noise_f.contiguous(), rays_o.contiguous(), rays_d.contiguous(),
             batch["pixels"].contiguous(), placement, is_cos)
@@ -303,7 +329,7 @@ def mega_train_loss_and_grads(
     """Loss and parameter gradients of ONE hierarchical reuse step through
     the one K9 call: a drop-in for
     ``fine_stage_train.reuse_train_loss_and_grads`` where ``supports_mega``
-    holds.
+    holds, in ``model.cfg.compute_dtype``.
 
     ``draws`` holds the step's random draws (``sampling.draw_step``).
     Returns ``(loss, grads, aux)`` with ``grads`` keyed by
@@ -316,8 +342,6 @@ def mega_train_loss_and_grads(
             "states under hierarchical reuse_coarse_in_fine rendering with >= 4 coarse samples"
         )
     cfg = model.cfg
-    if cfg.compute_dtype == "bfloat16":
-        raise NotImplementedError(f"{NAME}: {BF16_QUEUED}")
     if cfg.x_encoding_dim != 3 * cfg.x_positional_encoding_size:
         raise ValueError(f"{NAME}: encodes 3-D positions only (density_inputs=3)")
     names, params = zip(*model.named_parameters())

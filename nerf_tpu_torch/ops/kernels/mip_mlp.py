@@ -166,8 +166,7 @@ def mip_mlp_fwd(packed: Packed, features: torch.Tensor,
         t.requires_grad for t in (features, *packed.values())
     ):
         return MipMLPFunction.apply(features, *[packed[k] for k in PACK_ORDER])
-    device = check_inputs(NAME, packed, {"features": features, "tc_fwd": tc_fwd}, ALIGNED,
-                          bf16=True)
+    device = check_inputs(NAME, packed, {"features": features, "tc_fwd": tc_fwd}, ALIGNED)
     dtype = features.dtype
     tc_mlp.check_images(NAME, packed, tc_fwd, dtype=dtype)
     n_feat = packed["w_in"].shape[0]
@@ -272,8 +271,7 @@ def mip_mlp_bwd(
     bfloat16): policy ``"tc_bf16"`` or ``"simt_bf16"``.
     """
     device = check_inputs(BWD_NAME, packed, {"features": features, "g_out": g_out,
-                                             "tc_fwd": tc_fwd, "tc_bwd": tc_bwd}, ALIGNED,
-                          bf16=True)
+                                             "tc_fwd": tc_fwd, "tc_bwd": tc_bwd}, ALIGNED)
     dtype = features.dtype
     tc_mlp.check_images(BWD_NAME, packed, tc_fwd, tc_bwd, dtype)
     layers, hidden = packed["b"].shape

@@ -166,7 +166,7 @@ def mip_eval(
     """
     tensors = {"features": features, "dists": dists, "t_mids": t_mids, "noise": noise,
                "tc_fwd": tc_fwd}
-    device = check_inputs(EVAL_NAME, packed, tensors, ALIGNED, bf16=True)
+    device = check_inputs(EVAL_NAME, packed, tensors, ALIGNED)
     dtype = features.dtype
     tc_mlp.check_images(EVAL_NAME, packed, tc_fwd, dtype=dtype)
     n_rays, rows = _check_shapes(EVAL_NAME, packed, color_outputs, tensors)
@@ -299,7 +299,7 @@ def mip_train_grads(
     """
     tensors = {"features": features, "dists": dists, "noise": noise, "pixels": pixels,
                "tc_fwd": tc_fwd, "tc_bwd": tc_bwd}
-    device = check_inputs(TRAIN_NAME, packed, tensors, ALIGNED, bf16=True)
+    device = check_inputs(TRAIN_NAME, packed, tensors, ALIGNED)
     dtype = features.dtype
     tc_mlp.check_images(TRAIN_NAME, packed, tc_fwd, tc_bwd, dtype)
     n_rays, rows = _check_shapes(TRAIN_NAME, packed, color_outputs, tensors)

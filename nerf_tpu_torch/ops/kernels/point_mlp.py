@@ -18,18 +18,29 @@ wrappers run for CPU tensors (with ``matmul=tc_mlp.tc_matmul_autograd`` they
 emulate the tensor-core products).  Under autograd the call runs as
 ``ClassicPointMLPFunction``, whose backward is K8-bwd: it returns the
 weights' gradients and the raw points' and directions'.
+
+``compute_dtype="bfloat16"`` (``dtype=torch.bfloat16``, as JAX's
+``classic_pointmlp_pallas(..., compute_dtype=jnp.bfloat16)``): the raw
+points and directions stay float32 and so do the sines; every product,
+the heads' included, runs on operands rounded to bfloat16 with float32
+sums (``<name>_bf16`` of each library, on bf16 operand images; the plain
+versions run ``tc_mlp.bf16_matmul_autograd``).  K8-bwd writes the
+encodings it computes to scratch as bfloat16 (the values its products
+round them to) and keeps the encodings' cotangents float32 before the
+chain rule, as JAX's fused kernel does, so the raw inputs' cotangents are
+float32.  ``_build.policy_counts`` records ``"tc_bf16"`` or
+``"simt_bf16"``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from nerf_tpu_torch.ops import encoding
 from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
-    BF16_QUEUED,
     HIDDEN_WIDTHS,
     MAX_COLORS,
     PACK_ORDER,
@@ -40,6 +51,7 @@ from nerf_tpu_torch.ops.kernels.classic_mlp import (
     flat_grads_to_packed,
     pack_classic_params,
     packed_grads_plain,
+    route,
     scratch_pointers,
     train_scratch,
     weight_pointers,
@@ -65,49 +77,64 @@ def _encode(points: torch.Tensor, s: torch.Tensor, phase: torch.Tensor) -> torch
 
 
 def classic_pointmlp_fwd_plain(packed: Packed, points: torch.Tensor, dirs: torch.Tensor,
-                               consts: Consts, matmul=torch.matmul) -> torch.Tensor:
+                               consts: Consts, matmul=None,
+                               dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The kernel's function in plain PyTorch: ``sin(x @ S + phase)`` of
     both inputs, then ``classic_mlp_fwd_plain``; ``[P, 1 + C]``.  ``matmul``
     computes the MLP's hidden and encoding products, as in
     ``classic_mlp_fwd_plain`` (the encodings' ``x @ S`` is one exact product
-    a lane in both versions and stays ``@``)."""
+    a lane in both versions and stays ``@``); ``dtype`` bfloat16 runs the
+    bf16 arithmetic on the float32 sines."""
     sx, phx, sd, phd = consts
     return classic_mlp_fwd_plain(packed, _encode(points, sx, phx), _encode(dirs, sd, phd),
-                                 matmul)
+                                 matmul, bf16=dtype == torch.bfloat16)
+
+
+def rounded_encodings(points: torch.Tensor, dirs: torch.Tensor, consts: Consts,
+                      dtype: torch.dtype = torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encodings K8-bwd writes to scratch, in plain PyTorch: ``sin(x @ S
+    + phase)`` of both inputs in ``dtype`` (bfloat16 rounded to nearest
+    even from the float32 sines)."""
+    sx, phx, sd, phd = consts
+    return _encode(points, sx, phx).to(dtype), _encode(dirs, sd, phd).to(dtype)
 
 
 def classic_pointmlp_bwd_plain(
     packed: Packed, points: torch.Tensor, dirs: torch.Tensor, consts: Consts,
-    g_out: torch.Tensor, input_grads: bool = True, matmul=torch.matmul,
+    g_out: torch.Tensor, input_grads: bool = True, matmul=None,
+    dtype: torch.dtype = torch.float32,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Packed]:
     """The backward kernel's function in plain PyTorch: the vector-Jacobian
     product of ``classic_pointmlp_fwd_plain`` with ``g_out [P, 1 + C]``;
-    ``matmul`` as there (``tc_mlp.tc_matmul_autograd`` emulates the
-    tensor-core passes, the encodings' cotangents included)."""
+    ``matmul`` and ``dtype`` as there (``tc_mlp.tc_matmul_autograd``
+    emulates the tensor-core passes, the encodings' cotangents included; in
+    bfloat16 those cotangents are the float32 sums of the rounded products,
+    as the kernel's)."""
     ins = (points, dirs) if input_grads else ()
 
     def objective(w, *raw):
         p, d = raw if input_grads else (points, dirs)
-        return classic_pointmlp_fwd_plain(w, p, d, consts, matmul), g_out
+        return classic_pointmlp_fwd_plain(w, p, d, consts, matmul, dtype), g_out
 
     in_grads, d_packed = packed_grads_plain(packed, ins, objective)
     return (*in_grads, d_packed) if input_grads else (None, None, d_packed)
 
 
-def _check(name: str, packed: Packed, points, dirs, consts, extra=None) -> torch.device:
+def _check(name: str, packed: Packed, points, dirs, consts, extra: dict,
+           dtype: torch.dtype) -> torch.device:
     if "wd_in" not in packed:
         raise ValueError(f"{name}: covers the view-conditioned architecture only; use "
                          "classic_mlp.classic_mlp_fwd(x_enc, None) without the view branch")
     sx, phx, sd, phd = consts
     tensors = {"points": points, "dirs": dirs, "sx": sx, "phx": phx, "sd": sd, "phd": phd}
-    device = check_inputs(name, packed, {**tensors, **(extra or {})})
+    device = check_inputs(name, packed, {**tensors, **extra}, compute=dtype)
     n_points = points.shape[0]
     expected = {
         "points": (points, (n_points, 3)), "dirs": (dirs, (n_points, 3)),
         "sx": (sx, (3, packed["w0"].shape[0])), "phx": (phx, (packed["w0"].shape[0],)),
         "sd": (sd, (3, packed["wd_in"].shape[0])), "phd": (phd, (packed["wd_in"].shape[0],)),
     }
-    if "g_out" in (extra or {}):
+    if "g_out" in extra:
         expected["g_out"] = (extra["g_out"], (n_points, 1 + packed["w_col"].shape[1]))
     for key, (t, shape) in expected.items():
         if tuple(t.shape) != shape:
@@ -122,7 +149,8 @@ def _check(name: str, packed: Packed, points, dirs, consts, extra=None) -> torch
 
 
 def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tensor,
-                         consts: Consts, tc_fwd: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         consts: Consts, tc_fwd: Optional[torch.Tensor] = None,
+                         dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """K8-fwd on ``points [P, 3]``, ``dirs [P, 3]`` -> ``[P, 1 + C]`` rows of
     ``[density, color logits]``.  CPU tensors run
     ``classic_pointmlp_fwd_plain``; CUDA tensors launch the kernel (raising
@@ -130,13 +158,14 @@ def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tenso
     it, else the float32 SIMT tile, chosen from the shapes
     (``_build.tile_plan``; past the SIMT tile a ``ValueError`` before any
     launch).  ``tc_fwd`` is the weights' forward operand image
-    (``tc_mlp.tc_images(packed)[0]``) built beforehand, else the call
-    builds it where the tensor-core tile runs.  ``_build.policy_counts``
-    records the tile each call ran."""
-    device = _check(NAME, packed, points, dirs, consts, {"tc_fwd": tc_fwd})
-    tc_mlp.check_images(NAME, packed, tc_fwd)
+    (``tc_mlp.tc_images(packed, dtype=dtype)[0]``) built beforehand, else
+    the call builds it where the tensor-core tile runs.  ``dtype`` is the
+    compute dtype: bfloat16 launches ``classic_pointmlp_fwd_bf16``.
+    ``_build.policy_counts`` records the tile each call ran."""
+    device = _check(NAME, packed, points, dirs, consts, {"tc_fwd": tc_fwd}, dtype)
+    tc_mlp.check_images(NAME, packed, tc_fwd, dtype=dtype)
     if device.type == "cpu":
-        return classic_pointmlp_fwd_plain(packed, points, dirs, consts)
+        return classic_pointmlp_fwd_plain(packed, points, dirs, consts, dtype=dtype)
     n_points = points.shape[0]
     out = torch.empty((n_points, 1 + packed["w_col"].shape[1]), dtype=torch.float32,
                       device=device)
@@ -144,10 +173,11 @@ def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tenso
         return out
     xe, hidden = packed["w0"].shape
     de = packed["wd_in"].shape[0]
-    policy = _build.tile_plan(NAME, xe, de, hidden).policy  # raises past the SIMT tile
-    if policy == "tc" and tc_fwd is None:
-        tc_fwd = tc_mlp.tc_images(packed)[0]
-    fn = getattr(_build.load(NAME), NAME)
+    plan = _build.tile_plan(NAME, xe, de, hidden).policy  # raises past the SIMT tile
+    if plan == "tc" and tc_fwd is None:
+        tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
+    fn_name, policy = route(NAME, plan, dtype == torch.bfloat16)
+    fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         points.data_ptr(), dirs.data_ptr(), out.data_ptr(), n_points, xe, de, hidden,
         packed["w_col"].shape[1], *[c.data_ptr() for c in consts], *weight_pointers(packed),
@@ -162,7 +192,8 @@ def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tenso
 def classic_pointmlp_bwd(
     packed: Packed, points: torch.Tensor, dirs: torch.Tensor, consts: Consts,
     g_out: torch.Tensor, input_grads: bool = True, tc_fwd: Optional[torch.Tensor] = None,
-    tc_bwd: Optional[torch.Tensor] = None,
+    tc_bwd: Optional[torch.Tensor] = None, dtype: torch.dtype = torch.float32,
+    keep: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Packed]:
     """K8-bwd: given ``g_out [P, 1 + C]``, returns ``(dpoints [P, 3], ddirs
     [P, 3], d_packed)``, the weights' gradients summed over the points;
@@ -170,16 +201,21 @@ def classic_pointmlp_bwd(
     ``None``.  CPU tensors run ``classic_pointmlp_bwd_plain``; CUDA tensors
     launch the kernel (raising on what it does not take): its tensor-core
     passes on the operand images ``tc_fwd`` and ``tc_bwd``
-    (``tc_mlp.tc_images(packed, backward=True)``) when given, else built
-    here; ``fwd_store`` on the float32 SIMT tile where the encodings are too
-    wide for the tensor-core one (``_build.tile_plan``; past the SIMT tile a
-    ``ValueError`` before any launch).  ``_build.policy_counts`` records the
-    tile ``fwd_store`` ran."""
+    (``tc_mlp.tc_images(packed, backward=True, dtype=dtype)``) when given,
+    else built here; ``fwd_store`` on the SIMT tile where the encodings are
+    too wide for the tensor-core one (``_build.tile_plan``; past the SIMT
+    tile a ``ValueError`` before any launch).  ``dtype`` bfloat16 launches
+    ``classic_pointmlp_bwd_bf16`` (the cotangents stay float32).
+    ``_build.policy_counts`` records the tile ``fwd_store`` ran.  A CUDA
+    call given the dict ``keep`` puts there the encodings the kernel wrote
+    to its scratch, ``x_enc [P, XE]`` and ``d_enc [P, DE]`` in ``dtype``
+    (``rounded_encodings`` is their plain version)."""
     device = _check(BWD_NAME, packed, points, dirs, consts,
-                    {"g_out": g_out, "tc_fwd": tc_fwd, "tc_bwd": tc_bwd})
-    tc_mlp.check_images(BWD_NAME, packed, tc_fwd, tc_bwd)
+                    {"g_out": g_out, "tc_fwd": tc_fwd, "tc_bwd": tc_bwd}, dtype)
+    tc_mlp.check_images(BWD_NAME, packed, tc_fwd, tc_bwd, dtype)
     if device.type == "cpu":
-        return classic_pointmlp_bwd_plain(packed, points, dirs, consts, g_out, input_grads)
+        return classic_pointmlp_bwd_plain(packed, points, dirs, consts, g_out, input_grads,
+                                          dtype=dtype)
     n_points = points.shape[0]
     dpts = torch.empty_like(points) if input_grads else None
     ddirs = torch.empty_like(dirs) if input_grads else None
@@ -187,18 +223,19 @@ def classic_pointmlp_bwd(
         return dpts, ddirs, {k: torch.zeros_like(v) for k, v in packed.items()}
     xe, hidden = packed["w0"].shape
     de = packed["wd_in"].shape[0]
-    policy = _build.tile_plan(BWD_NAME, xe, de, hidden).policy  # raises past the SIMT tile
+    plan = _build.tile_plan(BWD_NAME, xe, de, hidden).policy  # raises past the SIMT tile
     if tc_fwd is None or tc_bwd is None:
-        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True)
+        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
+    fn_name, policy = route(BWD_NAME, plan, dtype == torch.bfloat16)
     s = train_scratch(packed, n_points, device)
 
-    def buf(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=device)
+    def buf(*shape, dt=torch.float32):
+        return torch.empty(shape, dtype=dt, device=device)
 
-    x_enc, d_enc = buf(n_points, xe), buf(n_points, de)
+    x_enc, d_enc = buf(n_points, xe, dt=dtype), buf(n_points, de, dt=dtype)
     dx_enc = buf(n_points, xe) if input_grads else None
     dd_enc = buf(n_points, de) if input_grads else None
-    fn = getattr(_build.load(BWD_NAME), BWD_NAME)
+    fn = getattr(_build.load(BWD_NAME), fn_name)
     err = fn(
         points.data_ptr(), dirs.data_ptr(), g_out.data_ptr(), _build.ptr(dpts),
         _build.ptr(ddirs), s["grads"].data_ptr(), n_points, xe, de, hidden,
@@ -210,34 +247,40 @@ def classic_pointmlp_bwd(
     _build.check_launch(BWD_NAME, err)
     _build.launch_counts[BWD_NAME] += 1
     _build.policy_counts[(BWD_NAME, policy)] += 1
+    if keep is not None:
+        keep.update(x_enc=x_enc, d_enc=d_enc)
     return dpts, ddirs, flat_grads_to_packed(s["grads"], packed)
 
 
 class ClassicPointMLPFunction(torch.autograd.Function):
     """K8 under autograd: forward K8-fwd, backward K8-bwd.  Arguments
-    ``(consts, points, dirs, *weights)`` with the weights in
-    ``PACK_ORDER``; the backward returns the raw inputs' cotangents and the
-    weights' gradients.  On the card the forward builds the operand images
-    K8-fwd and K8-bwd read (``tc_mlp.tc_images``), runs K8-fwd on the
-    forward image and hands both to the backward, once a step."""
+    ``(options, points, dirs, *weights)``: ``options`` is ``(consts,
+    dtype)``, the weights in ``PACK_ORDER``; the backward returns the raw
+    inputs' cotangents and the weights' gradients.  On the card the forward
+    builds the operand images K8-fwd and K8-bwd read (``tc_mlp.tc_images``
+    in ``dtype``), runs K8-fwd on the forward image and hands both to the
+    backward, once a step."""
 
     @staticmethod
-    def forward(ctx, consts: Consts, points, dirs, *weights):
+    def forward(ctx, options: Tuple, points, dirs, *weights):
+        consts, dtype = options
         packed = _packed_from_args(weights)
-        ctx.consts = consts
-        ctx.images = (tc_mlp.tc_images(packed, backward=True) if points.device.type == "cuda"
-                      else (None, None))
+        ctx.options = options
+        ctx.images = (tc_mlp.tc_images(packed, backward=True, dtype=dtype)
+                      if points.device.type == "cuda" else (None, None))
         ctx.save_for_backward(points, dirs, *weights)
-        return classic_pointmlp_fwd(packed, points, dirs, consts, tc_fwd=ctx.images[0])
+        return classic_pointmlp_fwd(packed, points, dirs, consts, tc_fwd=ctx.images[0],
+                                    dtype=dtype)
 
     @staticmethod
     def backward(ctx, g_out):
         points, dirs, *weights = ctx.saved_tensors
+        consts, dtype = ctx.options
         packed = _packed_from_args(weights)
         dpts, ddirs, d_packed = classic_pointmlp_bwd(
-            packed, points, dirs, ctx.consts, g_out.contiguous(),
+            packed, points, dirs, consts, g_out.contiguous(),
             input_grads=any(ctx.needs_input_grad[1:3]), tc_fwd=ctx.images[0],
-            tc_bwd=ctx.images[1],
+            tc_bwd=ctx.images[1], dtype=dtype,
         )
         return (None, dpts, ddirs, *[d_packed.get(k) for k in PACK_ORDER])
 
@@ -250,6 +293,7 @@ def classic_pointmlp(
     x_bound: float,
     d_encoding_size: int,
     d_bound: float,
+    compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encoder and classic MLP on RAW positions and view directions: the
     counterpart of ``classic_pointmlp_pallas``.
@@ -263,16 +307,20 @@ def classic_pointmlp(
         x_encoding_size / x_bound: ``cfg.x_positional_encoding_size`` and
             ``cfg.normalize_position``.
         d_encoding_size / d_bound: the same for the directions.
+        compute_dtype: ``"float32"`` or ``"bfloat16"``, the products'
+            operand dtype, as the JAX function's argument (a model's
+            ``cfg.compute_dtype`` is not read, as there).
 
-    Returns ``(density [..., 1], color_logits [..., C])``.  Under autograd
-    (an input or weight that requires grad) the call runs as
+    Returns ``(density [..., 1], color_logits [..., C])``, float32.  Under
+    autograd (an input or weight that requires grad) the call runs as
     ``ClassicPointMLPFunction``.
     """
+    if compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"{NAME}: compute_dtype must be 'float32' or 'bfloat16', got "
+                         f"{compute_dtype!r}")
+    dtype = getattr(torch, compute_dtype)
     if isinstance(model_or_packed, torch.nn.Module):
-        mlp = getattr(model_or_packed, "mlp", model_or_packed)
-        if getattr(mlp.cfg, "compute_dtype", "float32") == "bfloat16":
-            raise NotImplementedError(f"{NAME}: {BF16_QUEUED}")
-        packed = pack_classic_params(mlp)
+        packed = pack_classic_params(getattr(model_or_packed, "mlp", model_or_packed))
     else:
         packed = model_or_packed
     lead = points.shape[:-1]
@@ -282,8 +330,9 @@ def classic_pointmlp(
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (p2, d2, *packed.values())
     ):
-        out = ClassicPointMLPFunction.apply(consts, p2, d2, *[packed.get(k) for k in PACK_ORDER])
+        out = ClassicPointMLPFunction.apply((consts, dtype), p2, d2,
+                                            *[packed.get(k) for k in PACK_ORDER])
     else:
-        out = classic_pointmlp_fwd(packed, p2, d2, consts)
+        out = classic_pointmlp_fwd(packed, p2, d2, consts, dtype=dtype)
     out = out.reshape(*lead, out.shape[-1])
     return out[..., :1], out[..., 1:]

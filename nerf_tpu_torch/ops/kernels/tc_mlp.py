@@ -34,7 +34,7 @@ autograd with the backward's two products emulated too, so the plain
 versions of the kernels can run on the CPU with the card's arithmetic
 (``matmul=tc_matmul_autograd``) and be held against their float32 selves.
 
-``compute_dtype="bfloat16"`` (K1-fwd, K1-bwd, K2, K3 and K4) runs each
+``compute_dtype="bfloat16"`` (every kernel) runs each
 product as ONE bf16 ``wgmma`` with float32 accumulation, the JAX package's
 ``_dot``, ``_dot_t`` and ``_dot_tn`` with a bf16 dtype: both operands rounded
 to bfloat16 (to nearest even), the products summed in float32.

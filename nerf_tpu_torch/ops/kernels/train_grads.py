@@ -133,7 +133,7 @@ def classic_train_grads(
         raise ValueError(f"{NAME}: d_enc must be given iff the weights have a view branch")
     device = check_inputs(NAME, packed, {
         "x_enc": x_enc, "d_enc": d_enc, "dists": dists, "noise": noise, "pixels": pixels,
-    }, bf16=True)
+    })
     dtype = x_enc.dtype
     n_rays, s = noise.shape
     xe, hidden = packed["w0"].shape

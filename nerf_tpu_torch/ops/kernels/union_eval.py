@@ -107,7 +107,7 @@ def union_eval(
     device = check_inputs(NAME, packed, {
         "x_enc": x_enc, "d_enc": d_enc, "t_coarse": t_coarse, "t_fine": t_fine,
         "dens_c": dens_c, "col_c": col_c, "dnorm": dnorm, "tc_fwd": tc_fwd,
-    }, bf16=True)
+    })
     dtype = x_enc.dtype
     tc_mlp.check_images(NAME, packed, tc_fwd, dtype=dtype)
     n_rays, s_fine = t_fine.shape

@@ -1,7 +1,7 @@
 """How closely the bf16 kernels can be held to their plain versions, on the
 card.
 
-    python scripts/torch_bf16_sensitivity.py [--family classic|mip|all]
+    python scripts/torch_bf16_sensitivity.py [--family classic|mip|point|all]
 
 For K1-bwd in compute_dtype bfloat16 (``classic_mlp.classic_mlp_bwd`` on
 bfloat16 encodings, with the encodings' cotangents) at a few widths and
@@ -26,6 +26,16 @@ few row counts: K5-fwd's outputs, K5-bwd's weight gradients and ``dfeat``
 mean(sin(the other outputs)) at the plain forward), K6's gradients (63 rows
 a ray, seg weight 0.1) and K7's outputs (63 rows a ray), each beside the
 float32 kernel's distance from the plain bf16 version on the same inputs.
+
+``--family point``: K8 and K9 in bf16 at hidden 64 and 256 (the classic
+model, view branch on): K8-fwd's outputs and K8-bwd's weight gradients and
+raw inputs' cotangents on 16,384 and 262,144 raw points (uniform in
+[-2, 2]^3, directions in [-1, 1]^3), for uniform random cotangents and a
+loss's (mean(density^2) + mean(sin(color)) at the plain bf16 forward);
+K9's gradients at 64 and 2048 rays x (64 + 128) (the plain bf16 step with
+the kernel's fine t-values held); each beside the float32 kernel's
+distance from the plain bf16 version on the same inputs (K9's at the
+float32 kernel's own fine t-values).
 Exits non-zero without a GPU.
 """
 
@@ -44,8 +54,22 @@ sys.path.insert(0, str(REPO / "tests"))
 
 from nerf_tpu_torch import ClassicNeRFConfig, MipNeRFConfig  # noqa: E402
 from nerf_tpu_torch.models.mlp import ClassicMLP  # noqa: E402
-from nerf_tpu_torch.ops.kernels import classic_mlp, mip_mlp, mip_train, tc_mlp  # noqa: E402
-from test_torch_cuda import kink_margin, loss_cotangent, mip_inputs, mip_packed  # noqa: E402
+from nerf_tpu_torch.ops.kernels import (  # noqa: E402
+    classic_mlp,
+    mega_train,
+    mip_mlp,
+    mip_train,
+    point_mlp,
+    tc_mlp,
+)
+from test_torch_cuda import (  # noqa: E402
+    kink_margin,
+    loss_cotangent,
+    mega_setup,
+    mip_inputs,
+    mip_packed,
+    point_consts,
+)
 
 CASES = ((64, True), (128, False), (256, True))
 ROWS = (200, 16384, 131072)
@@ -115,9 +139,59 @@ def mip_family(device) -> None:
             torch.cuda.synchronize()
 
 
+def point_family(device) -> None:
+    bf = torch.bfloat16
+    for hidden in (64, 256):
+        cfg = ClassicNeRFConfig(hidden_size=hidden, normalize_position=6.0)
+        mlp = ClassicMLP(cfg, generator=torch.Generator().manual_seed(0), device=device)
+        packed = classic_mlp.pack_classic_params(mlp.requires_grad_(False))
+        consts = point_consts(cfg, device)
+        for rows in (16384, 262144):
+            gen = torch.Generator(device=device).manual_seed(hidden + rows)
+            pts = torch.rand((rows, 3), generator=gen, device=device) * 4 - 2
+            dirs = torch.rand((rows, 3), generator=gen, device=device) * 2 - 1
+            what = f"K8 hidden {hidden}, {rows} points"
+            plain = point_mlp.classic_pointmlp_fwd_plain(packed, pts, dirs, consts, dtype=bf)
+            got = point_mlp.classic_pointmlp_fwd(packed, pts, dirs, consts, dtype=bf)
+            f32 = point_mlp.classic_pointmlp_fwd(packed, pts, dirs, consts)
+            print(f"{what}: K8-fwd from plain {rel(got, plain):.2e}; float32 kernel "
+                  f"{rel(f32, plain):.2e}", flush=True)
+            n, c = plain.shape[0], plain.shape[1] - 1
+            for kind, g in (
+                    ("random", torch.rand(plain.shape, generator=gen, device=device) * 2 - 1),
+                    ("loss", torch.cat([2 * plain[:, :1] / n, torch.cos(plain[:, 1:]) / (n * c)],
+                                       -1))):
+                dp, dd, kernel = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g,
+                                                                dtype=bf)
+                rdp, rdd, ref = point_mlp.classic_pointmlp_bwd_plain(packed, pts, dirs, consts,
+                                                                     g, dtype=bf)
+                fdp, fdd, f32 = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g)
+                raw = lambda a, b: {"dp": a, "dd": b}  # noqa: E731
+                print(f"{what}, {kind} cotangents: K8-bwd from plain: weights "
+                      f"{flat_rel(kernel, ref):.2e}, raw inputs "
+                      f"{flat_rel(raw(dp, dd), raw(rdp, rdd)):.2e}; float32 kernel from plain "
+                      f"bf16: weights {flat_rel(f32, ref):.2e}, raw inputs "
+                      f"{flat_rel(raw(fdp, fdd), raw(rdp, rdd)):.2e}", flush=True)
+        for rays in (64, 2048):
+            model, _, batch, draws = mega_setup(device, True, 64, 128, False, rays=rays,
+                                                hidden=hidden, compute_dtype="bfloat16")
+            inputs = mega_train.mega_inputs(model, batch, draws)
+            pk = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+            *_, kernel, t_fine = mega_train.mega_train(pk, *inputs)
+            ref = mega_train.mega_train_plain(pk, *inputs, t_fine=t_fine)[2]
+            *_, f32, f32_t = mega_train.mega_train(pk, inputs[0].float(), inputs[1].float(),
+                                                   *inputs[2:])
+            f32_ref = mega_train.mega_train_plain(pk, *inputs, t_fine=f32_t)[2]
+            print(f"K9 hidden {hidden}, {rays} rays x (64 + 128): kernel from plain "
+                  f"{flat_rel(kernel, ref):.2e}; float32 kernel from plain bf16 "
+                  f"{flat_rel(f32, f32_ref):.2e}", flush=True)
+        torch.cuda.synchronize()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--family", choices=("classic", "mip", "all"), default="classic")
+    parser.add_argument("--family", choices=("classic", "mip", "point", "all"),
+                        default="classic")
     family = parser.parse_args().family
     if not torch.cuda.is_available():
         print("torch_bf16_sensitivity: needs an NVIDIA GPU", file=sys.stderr)
@@ -128,7 +202,9 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip())
     if family in ("mip", "all"):
         mip_family(device)
-    if family == "mip":
+    if family in ("point", "all"):
+        point_family(device)
+    if family in ("mip", "point"):
         return 0
     for hidden, view in CASES:
         cfg = ClassicNeRFConfig(hidden_size=hidden, use_viewdirs=view)

@@ -20,6 +20,15 @@ is 0.98): the coarse step's, the port's and JAX's against JAX's float32
 step, and K3's (``fine_stage_train_pallas``, interpret mode) against the
 port's float32 K3 at 4 and 16 rays.
 
+``--k9`` prints K9's instead (about 3 min): the reuse step at 8 rays x
+(8 + 16), hidden 64 (``tests/test_torch_pointmlp_mega_bf16.py``'s model),
+on seeds 0-5 and both background colours: the port's plain bf16 step with
+the JAX kernel's fine t-values held, from JAX's bf16 K9
+(``fused_mega.mega_train_loss_and_grads``, interpret mode); JAX's bf16
+reuse route (``fused_hier.reuse_train_loss_and_grads``) from JAX's K9;
+and the cosine of the bf16 step's gradients to the float32 step's for
+JAX's K9 and the port at 8 rays, the port alone at 32 and 64.
+
 A float32 summation order moves a few activations or cotangents to the
 other bf16 neighbour and the change travels through ten layers, so these
 distances vary by inputs; JAX's eager and jitted runs differ by as much
@@ -142,7 +151,66 @@ def k3_cosines() -> None:
                   f"{cosine(port, f32):.4f}, JAX {cosine(jax_bf16, f32):.4f}", flush=True)
 
 
+def k9_spread() -> None:
+    from test_torch_pointmlp_mega_bf16 import render_kwargs
+    from test_torch_train_reuse import jax_draws
+    from test_torch_train_reuse import make_models as reuse_models
+
+    from nerf_tpu.ops.pallas import fused_mega
+    from nerf_tpu_torch.ops.kernels import mega_train
+
+    jmodel, params, model = reuse_models(compute_dtype="bfloat16")
+    jmodel32, _, model32 = reuse_models()
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    model.requires_grad_(True)
+
+    def port_step(m, kw, batch, draws):
+        _, grads, _ = mega_train.mega_train_loss_and_grads(m, RenderConfig(**kw), batch, draws)
+        return {k: v.detach().numpy() for k, v in classic_mlp.pack_classic_params(
+            _module_with(m, grads)).items()}
+
+    for white in (False, True):
+        kw = render_kwargs(white)
+        for seed in range(6):
+            b = batch_arrays(n=8, seed=seed)
+            key = jax.random.PRNGKey(seed)
+            jb = {k: jnp.asarray(v) for k, v in b.items()}
+            _, grads_k9, aux = fused_mega.mega_train_loss_and_grads(
+                jmodel, params, JaxRender(**kw), jb, key, interpret=True, emit_t_fine=True)
+            _, grads_reuse, _ = fused_hier.reuse_train_loss_and_grads(jmodel, params,
+                                                                      JaxRender(**kw), jb, key)
+            inputs = mega_train.mega_inputs(model, {k: t(v) for k, v in b.items()},
+                                            jax_draws(key, JaxRender(**kw), 8))
+            _, _, held, _ = mega_train.mega_train_plain(
+                packed, *inputs, white_background=white, t_fine=t(np.array(aux["t_fine"])))
+            want = jax_packed(grads_k9)
+            print(f"K9, 8 rays, white {white}, seed {seed}: the port (JAX's t-values held) "
+                  f"from JAX's K9 {rel_l2(flat({k: v.numpy() for k, v in held.items()}, want), flat(want, want)):.2e}, "
+                  f"JAX's reuse route from JAX's K9 "
+                  f"{rel_l2(flat(jax_packed(grads_reuse), want), flat(want, want)):.2e}",
+                  flush=True)
+        for n in (8, 32, 64):
+            b = batch_arrays(n=n)
+            key = jax.random.PRNGKey(0)
+            batch = {k: t(v) for k, v in b.items()}
+            draws = jax_draws(key, JaxRender(**kw), n)
+            f32 = port_step(model32, kw, batch, draws)
+            port = flat(port_step(model, kw, batch, draws), f32)
+            line = (f"K9 bf16 step, {n} rays, white {white}: cosine to the float32 step's, port "
+                    f"{cosine(port, flat(f32, f32)):.5f}")
+            if n == 8:
+                jb = {k: jnp.asarray(v) for k, v in b.items()}
+                got = [jax_packed(fused_mega.mega_train_loss_and_grads(
+                    m, params, JaxRender(**kw), jb, key, interpret=True)[1])
+                    for m in (jmodel, jmodel32)]
+                line += f", JAX {cosine(flat(got[0], f32), flat(got[1], f32)):.5f}"
+            print(line, flush=True)
+
+
 if __name__ == "__main__":
-    coarse_step_spread()
-    k1_spread()
-    k3_cosines()
+    if "--k9" in sys.argv:
+        k9_spread()
+    else:
+        coarse_step_spread()
+        k1_spread()
+        k3_cosines()

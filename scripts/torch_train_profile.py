@@ -21,9 +21,8 @@ K3's, K6's and K9's ``fwd_store``, ``bwd_rows`` and ``wgrad`` and K1-fwd's
 tile run their products as 3xTF32 on the tensor cores) and the device's
 idle share (1 - busy / span of the first to the last kernel); ``--out``
 also writes them as JSON.  With ``--compute-dtype bfloat16`` it profiles
-the configurations that have a bf16 path, the reuse, the coarse-only and
-the mip step (not K9's), in compute_dtype bfloat16 (every pass a bf16
-``wgmma``).  Exits non-zero without a GPU.
+the same steps in compute_dtype bfloat16 (every pass a bf16 ``wgmma``).
+Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -120,7 +119,6 @@ def main(argv=None) -> int:
     p.add_argument("--out", help="also write the result as JSON to this file")
     p.add_argument("--compute-dtype", default="float32", choices=("float32", "bfloat16"))
     args = p.parse_args(argv)
-    bf16 = args.compute_dtype == "bfloat16"
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -135,12 +133,11 @@ def main(argv=None) -> int:
     result["reuse_2048x(64+128)"] = profile_config(
         "reuse 2048x(64+128)", chip_smoke.make_model(True, device, **dt), chip_smoke.TRAIN_RENDER,
         chip_smoke.TRAIN_RAYS, bank, args.steps, device)
-    if not bf16:  # K9 has no bf16 path yet
-        run_mega = mega_steps(chip_smoke.make_model(True, device), chip_smoke.TRAIN_RENDER,
-                              bank, chip_smoke.TRAIN_RAYS, device)
-        result["mega_2048x(64+128)"] = profile_steps(
-            "K9 reuse 2048x(64+128)", lambda: run_mega(2), lambda: run_mega(args.steps),
-            chip_smoke.TRAIN_RAYS, args.steps)
+    run_mega = mega_steps(chip_smoke.make_model(True, device, **dt), chip_smoke.TRAIN_RENDER,
+                          bank, chip_smoke.TRAIN_RAYS, device)
+    result["mega_2048x(64+128)"] = profile_steps(
+        "K9 reuse 2048x(64+128)", lambda: run_mega(2), lambda: run_mega(args.steps),
+        chip_smoke.TRAIN_RAYS, args.steps)
     result["coarse_4096x64"] = profile_config(
         "coarse-only 4096x64", chip_smoke.make_model(True, device, **dt),
         chip_smoke.COARSE_RENDER, chip_smoke.COARSE_RAYS, bank, args.steps, device)

@@ -383,23 +383,41 @@ def test_coarse_step_bf16_matches_jax():
     assert_direction_kept(jax_packed(grads_r), f32)
 
 
-# -- the kernels still out of the slice ------------------------------------
+# -- K8 and K9 take bf16 too ---------------------------------------------------
 
 
 def test_kernels_out_of_the_slice_refuse_bf16():
-    """K8 (point MLP) refuses bfloat16 inputs, and K9 a bfloat16 model,
-    naming the queued slice.  (The mip family takes bfloat16:
-    ``test_torch_mip_bf16.py``.)"""
+    """The kernels out of this slice, K8 and K9, take bfloat16 now: K8
+    ``compute_dtype="bfloat16"`` as its own argument and K9 a bfloat16
+    model (``test_torch_pointmlp_mega_bf16.py`` holds them against JAX).
+    Both still refuse bfloat16 mixed with float32: bf16 images with float32
+    compute, bfloat16 raw points, float32 view encodings beside bfloat16
+    coarse ones."""
     _, _, model = make_models(True, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="next bf16 slice"):
-        point_mlp.classic_pointmlp(model, torch.zeros(4, 3), torch.ones(4, 3),
-                                   model.cfg.x_positional_encoding_size,
-                                   model.cfg.normalize_position,
-                                   model.cfg.d_positional_encoding_size,
-                                   model.cfg.direction_bound)
+    cfg = model.cfg
+    args = (cfg.x_positional_encoding_size, cfg.normalize_position,
+            cfg.d_positional_encoding_size, cfg.direction_bound)
+    pts, dirs = torch.zeros(4, 3), torch.ones(4, 3)
+    with torch.no_grad():
+        density, color = point_mlp.classic_pointmlp(model, pts, dirs, *args,
+                                                    compute_dtype="bfloat16")
+    assert density.shape == (4, 1) and color.dtype == torch.float32
+    with torch.no_grad():
+        packed = classic_mlp.pack_classic_params(model.mlp)
+    consts = point_mlp.encoding_consts(*args, "cpu")
+    bf16_image = tc_mlp.tc_images(packed, dtype=torch.bfloat16)[0]
+    with pytest.raises(TypeError, match="tc_fwd must be float32"):
+        point_mlp.classic_pointmlp_fwd(packed, pts, dirs, consts, tc_fwd=bf16_image)
+    with pytest.raises(TypeError, match="points must be float32"):
+        point_mlp.classic_pointmlp_fwd(packed, pts.bfloat16(), dirs, consts,
+                                       dtype=torch.bfloat16)
     render = RenderConfig(num_coarse_samples=8, num_fine_samples=8, randomly_sample=False)
     batch = {k: t(v) for k, v in batch_arrays(n=4).items()}
     t_c = sampling.sample_linear(None, (4,), 8, 2.0, 6.0, randomly_sample=False, device="cpu")
     draws = sampling.StepDraws(t_c, torch.zeros(4, 8), torch.rand(4, 8), torch.zeros(4, 8))
-    with pytest.raises(NotImplementedError, match="next bf16 slice"):
-        mega_train.mega_train_loss_and_grads(model, render, batch, draws)
+    loss, grads, _ = mega_train.mega_train_loss_and_grads(model, render, batch, draws)
+    assert bool(torch.isfinite(loss)) and set(grads) == {k for k, _ in model.named_parameters()}
+    inputs = list(mega_train.mega_inputs(model, batch, draws))
+    inputs[1] = inputs[1].float()
+    with pytest.raises(TypeError, match="d_ray must be bfloat16"):
+        mega_train.mega_train(packed, *inputs)

@@ -996,7 +996,7 @@ def kink_margin(packed, x_enc, d_enc, matmul=torch.matmul):
     return torch.stack(margins).amin(0)
 
 
-def away_from_kinks(packed, consts, gen, n):
+def away_from_kinks(packed, consts, gen, n, matmul=torch.matmul):
     """``n`` raw points and directions whose every ReLU input lies farther
     than 1e-5 from 0, the first of more candidates drawn from ``gen``: two
     float32 evaluations of a ReLU input differ by about 1e-6 (sums of a few
@@ -1004,11 +1004,12 @@ def away_from_kinks(packed, consts, gen, n):
     take the other branch and move that row's whole gradient.  The
     encodings of raw points put some ReLU inputs there (measured on the
     card: within 2e-7 at 200 points); a few % of the candidates are left
-    out."""
+    out.  ``matmul`` as in ``kink_margin`` (``tc_mlp.bf16_matmul``: the
+    bf16 forward's kinks)."""
     pts, dirs = raw_points(gen, 2 * n + 8)
     with torch.no_grad():
         keep = kink_margin(packed, torch.sin(pts @ consts[0] + consts[1]),
-                           torch.sin(dirs @ consts[2] + consts[3])) > 1e-5
+                           torch.sin(dirs @ consts[2] + consts[3]), matmul) > 1e-5
     idx = torch.nonzero(keep)[:n, 0]
     assert idx.numel() == n
     return pts[idx], dirs[idx]
@@ -2012,3 +2013,257 @@ def test_bf16_mip_model_paths_launch_the_bf16_kernels(cuda):
         ref = dict(zip(names, torch.autograd.grad(r_loss, params)))
     assert rel_l2(loss.detach(), r_loss.detach()) <= BF16_FWD
     assert_bf16_grads(grads, ref)
+
+
+# -- compute_dtype="bfloat16": K8-fwd, K8-bwd and K9 --------------------------
+
+# The classic bf16 kernels' bounds (BF16_FWD, BF16_GRAD) against the plain
+# bf16 versions.  K8 takes float32 raw points and a ``dtype``: its sines
+# stay float32 in the block and the products round them, and K8-bwd writes
+# them to scratch rounded to bfloat16 (``rounded_encodings`` bitwise) and
+# keeps the encodings' cotangents float32 before the chain rule.  K8-bwd
+# runs on BF16_ROWS raw points away from the bf16 forward's kinks and a
+# loss's cotangents (``point_loss_cotangent``), as K1-bwd's tests do: on
+# uniform random cotangents its weight gradients, sums of terms of either
+# sign, move by 2.2e-2 at hidden 256 between two float32-accurate bf16
+# evaluations (``scripts/torch_bf16_sensitivity.py --family point``).  The
+# float32 kernel on the same inputs fails the check: on the raw inputs'
+# cotangents at every width, on the weights at hidden 256.  K9 runs on its
+# own step's rows, its scratch encodings (coarse copied, fine written by
+# the kernel) held bitwise against the plain version's rounded ones, and
+# its fine t-values in probability, within BF16_FWD of the uniforms: the
+# kernel's and the plain bf16 coarse weights differ by bf16's roundings.
+# Its gradients' spread against plain bf16 shrinks with the rays summed
+# (at hidden 256 and 64 + 128 samples: 1.9e-2 at 64 rays, 9.4e-3 at 2048;
+# ``scripts/torch_bf16_sensitivity.py --family point``), so its checks
+# take 512 rays and more at the cells' 64 + 128 samples.
+POINT_BF16_VARIANTS = {"full_width": dict(), "wide": dict(x_positional_encoding_size=40)}
+
+
+def point_bf16_case(device, rows, seed, **overrides):
+    cfg = ClassicNeRFConfig(normalize_position=6.0, **{"hidden_size": 256, **overrides})
+    mlp = ClassicMLP(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    packed = classic_mlp.pack_classic_params(mlp.requires_grad_(False))
+    consts = point_consts(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pts, dirs = away_from_kinks(packed, consts, gen, rows, tc_mlp.bf16_matmul)
+    return cfg, packed, consts, pts, dirs
+
+
+def point_loss_cotangent(packed, pts, dirs, consts) -> torch.Tensor:
+    """K8's output cotangents under ``test_pallas.py``'s bf16 objective,
+    mean(density^2) + mean(sin(color)), at the plain bf16 forward."""
+    out = point_mlp.classic_pointmlp_fwd_plain(packed, pts, dirs, consts, dtype=torch.bfloat16)
+    n, c = out.shape[0], out.shape[1] - 1
+    return torch.cat([2 * out[:, :1] / n, torch.cos(out[:, 1:]) / (n * c)], -1)
+
+
+def raw_cotangents(result) -> dict:
+    return {"dpoints": result[0], "ddirs": result[1]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(POINT_BF16_VARIANTS))
+def test_bf16_pointmlp_fwd_matches_plain(cuda, variant):
+    """K8-fwd in bf16 against its plain bf16 version and K1-fwd's bf16
+    kernel on the rounded encodings: the tensor-core tile at full width
+    (tc_bf16), the bf16-rounding SIMT tile at x encodings 120 + 36
+    (simt_bf16)."""
+    cfg, packed, consts, pts, dirs = point_bf16_case(cuda, 1000, 6,
+                                                     **POINT_BF16_VARIANTS[variant])
+    bf = torch.bfloat16
+    policies = dict(_build.policy_counts)
+    out = point_mlp.classic_pointmlp_fwd(packed, pts, dirs, consts, dtype=bf)
+    torch.cuda.synchronize()
+    route = _build.tile_plan(point_mlp.NAME, cfg.x_encoding_dim, cfg.d_encoding_dim,
+                             256).policy + "_bf16"
+    assert route == ("tc_bf16" if variant == "full_width" else "simt_bf16")
+    assert policy_moves(policies) == {(point_mlp.NAME, route): 1}
+    assert out.dtype == torch.float32
+    assert rel_l2(out, point_mlp.classic_pointmlp_fwd_plain(packed, pts, dirs, consts,
+                                                            dtype=bf)) <= BF16_FWD
+    x_enc, d_enc = point_mlp.rounded_encodings(pts, dirs, consts, bf)
+    assert rel_l2(out, classic_mlp.classic_mlp_fwd(packed, x_enc, d_enc)) <= BF16_FWD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("input_grads", [True, False])
+@pytest.mark.parametrize("variant", sorted(POINT_BF16_VARIANTS))
+def test_bf16_pointmlp_bwd_matches_plain(cuda, variant, input_grads):
+    """K8-bwd in bf16 on BF16_ROWS raw points away from the bf16 forward's
+    kinks and a loss's cotangents: the weight gradients and the raw inputs'
+    cotangents (float32) against the plain bf16 version, the float32 kernel
+    on the same inputs failing the check; its scratch encodings bitwise the
+    plain rounded ones."""
+    cfg, packed, consts, pts, dirs = point_bf16_case(cuda, BF16_ROWS, 7,
+                                                     **POINT_BF16_VARIANTS[variant])
+    g_out = point_loss_cotangent(packed, pts, dirs, consts)
+    bf = torch.bfloat16
+    policies = dict(_build.policy_counts)
+    keep = {}
+    got = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out, input_grads,
+                                         dtype=bf, keep=keep)
+    torch.cuda.synchronize()
+    route = _build.tile_plan(point_mlp.BWD_NAME, cfg.x_encoding_dim, cfg.d_encoding_dim,
+                             256).policy + "_bf16"
+    assert policy_moves(policies) == {(point_mlp.BWD_NAME, route): 1}
+    for enc, want in zip((keep["x_enc"], keep["d_enc"]),
+                         point_mlp.rounded_encodings(pts, dirs, consts, bf)):
+        assert enc.dtype == bf and torch.equal(enc, want)
+    ref = point_mlp.classic_pointmlp_bwd_plain(packed, pts, dirs, consts, g_out, input_grads,
+                                               dtype=bf)
+    f32 = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out, input_grads)
+    assert_bf16_grads(got[2], ref[2])
+    if not input_grads:
+        assert got[0] is None and got[1] is None
+        assert_check_sees_float32(f32[2], ref[2])
+        return
+    assert got[0].dtype == got[1].dtype == torch.float32
+    assert_bf16_grads(raw_cotangents(got), raw_cotangents(ref))
+    assert_check_sees_float32(raw_cotangents(f32), raw_cotangents(ref))
+
+
+def check_mega_bf16_against_plain(model, render, batch, draws, white, exact):
+    """One bf16 K9 call against its plain bf16 version with its own fine
+    t-values; its scratch encodings bitwise the plain rounded ones."""
+    inputs = mega_train.mega_inputs(model, batch, draws)
+    assert inputs[0].dtype == torch.bfloat16
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    policies = dict(_build.policy_counts)
+    keep = {}
+    loss_c, loss_f, d_packed, t_fine = mega_train.mega_train(packed, *inputs, white, exact,
+                                                             keep=keep)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {(mega_train.NAME, "tc_bf16"): 1}
+    x_enc_c, d_ray, t_c, noise_c, u, _, rays_o, rays_d, _, placement, is_cos = inputs
+    x_fine = mega_train.encode_fine_plain(t_fine, rays_o, rays_d, placement, is_cos, exact)
+    assert torch.equal(keep["x_all"], torch.cat([x_enc_c, x_fine.bfloat16()]))
+    weights_c = mega_train.coarse_weights_plain(packed, x_enc_c, d_ray, t_c, noise_c, rays_d)
+    bins = 0.5 * (t_c[:, 1:] + t_c[:, :-1])
+    mass = (sampling.pdf_cdf_at(bins, weights_c[:, 1:-1], t_fine) - u).abs().max()
+    assert float(mass) <= BF16_FWD, float(mass)
+    r_loss_c, r_loss_f, ref, _ = mega_train.mega_train_plain(packed, *inputs, white, exact,
+                                                             t_fine=t_fine)
+    assert rel_l2(torch.stack([loss_c, loss_f]), torch.stack([r_loss_c, r_loss_f])) <= BF16_FWD
+    assert_bf16_grads(d_packed, ref)
+    return packed, inputs, (loss_c, loss_f, d_packed, t_fine)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white,exact", [(False, False), (True, True)])
+@pytest.mark.parametrize("view", [True, False])
+def test_bf16_mega_train_matches_plain(cuda, view, white, exact):
+    """K9 in bf16 at full width on 512 rays x (64 + 128), with and without
+    the view branch, both fine encodings' forms; bitwise repeatable."""
+    packed, inputs, first = check_mega_bf16_against_plain(
+        *mega_setup(cuda, view, 64, 128, white, rays=512, hidden=256,
+                    compute_dtype="bfloat16"), white, exact)
+    second = mega_train.mega_train(packed, *inputs, white, exact)
+    torch.cuda.synchronize()
+    for a, b in ((first[0], second[0]), (first[1], second[1]), (first[3], second[3])):
+        assert torch.equal(a, b)
+    assert all(torch.equal(first[2][k], second[2][k]) for k in first[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_bf16_point_and_mega_kernels_match_plain_at_every_width(cuda, hidden):
+    """K8-fwd, K8-bwd (a loss's cotangents; the float32 kernel fails the
+    raw inputs' check) and K9 (512 rays x (64 + 128), 98,304 rows) in bf16
+    at every hidden width."""
+    cfg, packed, consts, pts, dirs = point_bf16_case(cuda, BF16_ROWS, hidden,
+                                                     hidden_size=hidden)
+    bf = torch.bfloat16
+    out = point_mlp.classic_pointmlp_fwd(packed, pts, dirs, consts, dtype=bf)
+    assert rel_l2(out, point_mlp.classic_pointmlp_fwd_plain(packed, pts, dirs, consts,
+                                                            dtype=bf)) <= BF16_FWD
+    g_out = point_loss_cotangent(packed, pts, dirs, consts)
+    got = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out, dtype=bf)
+    ref = point_mlp.classic_pointmlp_bwd_plain(packed, pts, dirs, consts, g_out, dtype=bf)
+    assert_bf16_grads(got[2], ref[2])
+    assert_bf16_grads(raw_cotangents(got), raw_cotangents(ref))
+    assert_check_sees_float32(
+        raw_cotangents(point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out)),
+        raw_cotangents(ref))
+    check_mega_bf16_against_plain(*mega_setup(cuda, True, 64, 128, False, rays=512,
+                                              hidden=hidden, compute_dtype="bfloat16"),
+                                  False, False)
+
+
+@pytest.mark.cuda
+def test_bf16_point_and_mega_model_paths(cuda):
+    """``classic_pointmlp(..., compute_dtype="bfloat16")`` under autograd
+    (one K8-fwd and one K8-bwd, both tc_bf16) against autograd through its
+    plain bf16 version, and a bf16 model's K9 step at the cell's 2048 rays
+    x (64 + 128) (one mega_train, tc_bf16) against the plain bf16 step and
+    the bf16 reuse route."""
+    cfg = ClassicNeRFConfig(hidden_size=256, normalize_position=6.0, use_pallas=True,
+                            compute_dtype="bfloat16")
+    model = ClassicNeRF(cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    with torch.no_grad():  # mass in every bin (see chip_smoke.py)
+        model.mlp.density.bias.fill_(0.5)
+        model.mlp.density.weight.mul_(0.05)
+    args = (cfg.x_positional_encoding_size, cfg.normalize_position,
+            cfg.d_positional_encoding_size, cfg.direction_bound)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    pts, dirs = raw_points(gen, 4096)
+    names, params = zip(*model.named_parameters())
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    dens, col = point_mlp.classic_pointmlp(model, pts, dirs, *args, compute_dtype="bfloat16")
+    loss = dens.pow(2).mean() + torch.sin(col).mean()
+    grads = torch.autograd.grad(loss, params)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {point_mlp.NAME: 1, point_mlp.BWD_NAME: 1}
+    assert dict(_build.policy_counts) == {(point_mlp.NAME, "tc_bf16"): 1,
+                                          (point_mlp.BWD_NAME, "tc_bf16"): 1}
+    packed = classic_mlp.pack_classic_params(model.mlp)
+    out = point_mlp.classic_pointmlp_fwd_plain(
+        packed, pts, dirs, point_consts(cfg, cuda), dtype=torch.bfloat16)
+    r_loss = out[:, :1].pow(2).mean() + torch.sin(out[:, 1:]).mean()
+    ref = torch.autograd.grad(r_loss, params)
+    assert rel_l2(loss, r_loss) <= BF16_FWD
+    assert_bf16_grads(dict(zip(names, grads)), dict(zip(names, ref)))
+
+    render = RenderConfig(num_coarse_samples=64, num_fine_samples=128, density_noise_std=1.0,
+                          reuse_coarse_in_fine=True)
+    batch = dict(rays_o=rand(gen, 2048, 3) * 0.3, rays_d=rand(gen, 2048, 3),
+                 pixels=rand(gen, 2048, 3, lo=0.0, hi=1.0))
+    draws = sampling.draw_step(torch.Generator(device=cuda).manual_seed(1), render, 2048, cuda)
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    loss, grads, _ = mega_train.mega_train_loss_and_grads(model, render, batch, draws)
+    torch.cuda.synchronize()
+    assert dict(_build.launch_counts) == {mega_train.NAME: 1}
+    assert dict(_build.policy_counts) == {(mega_train.NAME, "tc_bf16"): 1}
+    reuse_loss, reuse, _ = fine_stage_train.reuse_train_loss_and_grads(model, render, batch,
+                                                                       draws)
+    assert rel_l2(loss, reuse_loss) <= BF16_FWD
+    assert_bf16_grads(grads, reuse)
+    check_mega_bf16_against_plain(model, render, batch, draws, False, False)
+
+
+@pytest.mark.cuda
+def test_bf16_point_and_mega_wrappers_refuse_mixed_dtypes(cuda):
+    """On the card too, before any launch: K8's images in another dtype
+    than its compute dtype, K8's raw points in bfloat16, K9's view
+    encodings in another dtype than its coarse ones."""
+    cfg, packed = packed_weights("h128", cuda)
+    consts = point_consts(cfg, cuda)
+    pts, dirs = raw_points(torch.Generator(device=cuda).manual_seed(0), 8)
+    launches = dict(_build.launch_counts)
+    f32_image = tc_mlp.tc_images(packed)[0]
+    with pytest.raises(TypeError, match="tc_fwd must be bfloat16"):
+        point_mlp.classic_pointmlp_fwd(packed, pts, dirs, consts, tc_fwd=f32_image,
+                                       dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="points must be float32"):
+        point_mlp.classic_pointmlp_bwd(packed, pts.bfloat16(), dirs, consts,
+                                       torch.zeros(8, 4, device=cuda), dtype=torch.bfloat16)
+    model, render, batch, draws = mega_setup(cuda, True, 8, 16, False, rays=4,
+                                             compute_dtype="bfloat16")
+    inputs = list(mega_train.mega_inputs(model, batch, draws))
+    inputs[1] = inputs[1].float()
+    with pytest.raises(TypeError, match="d_ray must be bfloat16"):
+        mega_train.mega_train(classic_mlp.pack_classic_params(model.mlp.requires_grad_(False)),
+                              *inputs)
+    assert dict(_build.launch_counts) == launches

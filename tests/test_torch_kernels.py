@@ -126,31 +126,37 @@ def test_pack_round_trips_through_plain_forward():
 
 
 def test_bfloat16_is_not_implemented():
-    """bfloat16 on the point-MLP kernels (K8) and the one-call reuse step
-    (K9) raises, naming the bf16 slice queued for them; the classic main
-    path's kernels take it (``test_torch_bf16.py``)."""
+    """bfloat16 is not implemented where the JAX package takes none: K8's
+    raw points and directions and K9's t-values, draws, rays and targets
+    stay float32 (the JAX functions cast only the encodings), and a
+    bfloat16 one raises a ``TypeError`` naming it, as does a compute dtype
+    other than float32 and bfloat16.  Every kernel takes
+    ``compute_dtype="bfloat16"`` (``test_torch_bf16.py``,
+    ``test_torch_mip_bf16.py``, ``test_torch_pointmlp_mega_bf16.py``)."""
     model = ClassicNeRF(
         ClassicNeRFConfig(hidden_size=32, use_pallas=True, compute_dtype="bfloat16"),
         generator=torch.Generator().manual_seed(0), device="cpu",
     )
     cfg = model.cfg
-    with pytest.raises(NotImplementedError, match="next bf16 slice"):
-        point_mlp.classic_pointmlp(model, torch.zeros(2, 3), torch.ones(2, 3),
-                                   cfg.x_positional_encoding_size, cfg.normalize_position,
-                                   cfg.d_positional_encoding_size, cfg.direction_bound)
     packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
     consts = point_mlp.encoding_consts(cfg.x_positional_encoding_size, cfg.normalize_position,
                                        cfg.d_positional_encoding_size, cfg.direction_bound,
                                        torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="next bf16 slice"):
+    with pytest.raises(TypeError, match="points must be float32"):
         point_mlp.classic_pointmlp_fwd(packed, torch.zeros(2, 3, dtype=torch.bfloat16),
-                                       torch.ones(2, 3, dtype=torch.bfloat16), consts)
+                                       torch.ones(2, 3, dtype=torch.bfloat16), consts,
+                                       dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="compute dtype"):
+        point_mlp.classic_pointmlp_bwd(packed, torch.zeros(2, 3), torch.ones(2, 3), consts,
+                                       torch.zeros(2, 4), dtype=torch.float16)
     render = RenderConfig(num_coarse_samples=4, num_fine_samples=4, randomly_sample=False)
     t_c = sampling.sample_linear(None, (2,), 4, 2.0, 6.0, randomly_sample=False, device="cpu")
     draws = sampling.StepDraws(t_c, torch.zeros(2, 4), torch.rand(2, 4), torch.zeros(2, 4))
     batch = dict(rays_o=torch.zeros(2, 3), rays_d=torch.ones(2, 3), pixels=torch.zeros(2, 3))
-    with pytest.raises(NotImplementedError, match="next bf16 slice"):
-        mega_train.mega_train_loss_and_grads(model, render, batch, draws)
+    inputs = list(mega_train.mega_inputs(model, batch, draws))
+    inputs[2] = inputs[2].bfloat16()
+    with pytest.raises(TypeError, match="t_coarse must be float32"):
+        mega_train.mega_train(packed, *inputs)
 
 
 def test_requires_grad_is_not_implemented():
