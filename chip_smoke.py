@@ -179,12 +179,36 @@
    and rays/s beside phase 12's and phase 15's; K9's time against its
    plain bf16 version with both bf16 bounds; K8-fwd at x encodings 120 +
    36 on its SIMT tile (``simt_bf16``).
-18. Prints the kernels' JSON line (each row with its float32 bound and
+18. Data parallelism (slice 15), ``nerf_tpu_torch.parallel``:
+   a. An NCCL group of one in this process (``parallel.initialize()``
+      without a launcher's environment).  For the reuse (2048 x (64 +
+      128)), coarse-only (4096 x 64) and mip (4096 x 64, seg 0.1) cells:
+      22 steps with the gradients averaged over the mesh, every step's
+      loss and gradients bitwise those of the same step without a mesh;
+      then ``Trainer(mesh=...)`` for 2 warm-up and 20 timed steps with the
+      counters zeroed just before (one K1-fwd, K1-bwd and K3; one K2; one
+      K6 a step, all on the tensor cores), twice, between two runs of the
+      plain ``Trainer()`` (the same counts), ms/step and rays/s beside
+      them and phases 4, 5 and 8, and the gradient ``all_reduce`` and the
+      whole average timed by CUDA events.  One 400x400 frame from
+      ``render_image_sharded`` (all 160,000 rays in one ``render_rays``
+      call: one K1-fwd for the coarse and one for the fine samples, as the
+      JAX package renders a shard), its time and peak memory, against the
+      plain render of the same rays within 1e-3.
+   b. Two ranks spawned after the build, over gloo sharing the card: each
+      half of one reuse and one mip step's global batch through the
+      kernels, against the single-process kernel step on the same batch
+      and draws (loss within rtol 1e-5, gradients within relative L2
+      1e-4, the measured values printed); both ranks' losses and weights
+      after 3 steps bitwise equal; the frame at two ranks within 1e-5 of
+      (a)'s.
+19. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
    each, ``products``: how its MLP products run, and since which slice,
-   ``cli_launches``: its launches in phase 14, and its bf16 entries from
-   phases 15, 16 and 17, ``bf16_ms``, ``bf16_bound_ms``, ``bf16_launches``
-   and the rest), the card line, then, last, the device line.
+   ``cli_launches``: its launches in phase 14, ``dp_launches``: in phase
+   18a, and its bf16 entries from phases 15, 16 and 17, ``bf16_ms``,
+   ``bf16_bound_ms``, ``bf16_launches`` and the rest), the card line,
+   then, last, the device line.
 
 The classic model is the full-width ClassicNeRF (hidden 256, 60 + 36
 encoding widths, 638,468 parameters) with random weights from seed 0.  Its density
@@ -203,7 +227,9 @@ check fails.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import json
 import os
 import pickle
@@ -216,8 +242,17 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, MipNeRF, MipNeRFConfig, RenderConfig
+from nerf_tpu_torch import (
+    ClassicNeRF,
+    ClassicNeRFConfig,
+    MipNeRF,
+    MipNeRFConfig,
+    RenderConfig,
+    TrainConfig,
+    parallel,
+)
 from nerf_tpu_torch.cli import render as render_cli
 from nerf_tpu_torch.cli import train_conditional, train_tiny_nerf
 from nerf_tpu_torch.data import RayBank, synthesize_scene
@@ -235,8 +270,10 @@ from nerf_tpu_torch.ops.kernels import (
     train_grads,
     union_eval,
 )
+from nerf_tpu_torch.parallel.mesh import flat_collective
 from nerf_tpu_torch.testing import bf16_step_reference, mip_head_rounding, plain_versions
 from nerf_tpu_torch.train import (
+    Trainer,
     checkpoint,
     create_train_state,
     loop,
@@ -2567,6 +2604,286 @@ def point_mega_bf16_phase(device, cfg: ClassicNeRFConfig, bank, k9_step_ms: floa
               f"{cuda_ms(call, iters=3):.3f} ms", flush=True)
     return out
 
+# Phase 18: data parallelism (slice 15).  (a) One rank over NCCL in this
+# process: every step's loss and gradients bitwise those of the step
+# without a mesh (at one rank the all_reduce and the division by 1 change
+# no bit).  (b) Two spawned ranks over gloo sharing cuda:0 (NCCL refuses
+# two ranks on one GPU): each half of the global batch through the real
+# kernels, against the single-process kernel step: the loss within rtol
+# 1e-5 (two partial means of 1024 or 2048 rows summed, in another order),
+# the gradients within relative L2 1e-4 (the kernels' row sums regroup);
+# the frame within 1e-5 of (a)'s (each row's pixel is the same kernels'
+# on the same inputs, rendered in a call of another size).
+DP_LOSS_RTOL, DP_GRAD_REL_L2, DP_FRAME_ATOL = 1e-5, 1e-4, 1e-5
+DP_RANKS = 2
+DP_CHILD_TIMEOUT_S = 420
+# cell: (render, rays, segmentation weight, the kernels one step launches)
+DP_CELLS = {
+    "reuse 2048x(64+128)": (TRAIN_RENDER, TRAIN_RAYS, 0.0,
+                            {"classic_mlp_fwd": 1, "classic_mlp_bwd": 1, "fine_stage_train": 1}),
+    "coarse-only 4096x64": (COARSE_RENDER, COARSE_RAYS, 0.0, {"train_grads": 1}),
+    "mip 4096x64 seg 0.1": (MIP_TRAIN_RENDER, MIP_RAYS, SEG_WEIGHT, {"mip_train_grads": 1}),
+}
+
+
+def dp_model(cell: str, device):
+    return make_mip_model(True, device) if cell.startswith("mip") else make_model(True, device)
+
+
+def dp_global_step(cell: str, bank, device):
+    """The global batch and draws of one step of ``cell``, from seed 21."""
+    render, n_rays, _, _ = DP_CELLS[cell]
+    gen = torch.Generator(device=device).manual_seed(21)
+    batch = bank.sample_batch(gen, n_rays)
+    return batch, loop.draws_for_model(gen, dp_model(cell, device), render, n_rays, device)
+
+
+def flat_grads(grads: dict) -> torch.Tensor:
+    return torch.cat([g.reshape(-1) for g in grads.values()])
+
+
+def dp_bitwise_steps(cell: str, bank, mip_bank, device, mesh, steps: int) -> None:
+    """``steps`` steps of ``cell`` without a mesh and through the one-rank
+    mesh from the same state: every step's loss and gradients bitwise."""
+    render, n_rays, seg, _ = DP_CELLS[cell]
+    bank = mip_bank if cell.startswith("mip") else bank
+    single = create_train_state(dp_model(cell, device), LEARNING_RATE, seed=3)
+    sharded = parallel.prepare_parallel_state(
+        create_train_state(dp_model(cell, device), LEARNING_RATE, seed=3), mesh)
+    one = make_fused_loss_and_grads(single.model, render, seg)
+    dp = parallel.make_parallel_loss_and_grads(sharded.model, render, mesh, seg, fused=True)
+    for i in range(steps):
+        batch, draws = loop._sample(single, bank, n_rays, render)
+        loss, grads, aux = one(batch, draws)
+        d_loss, d_grads, d_aux = dp(parallel.shard_batch(batch, mesh),
+                                    parallel.shard_draws(draws, mesh))
+        same = torch.equal(loss, d_loss) and grads.keys() == d_grads.keys() and all(
+            torch.equal(grads[k], d_grads[k]) for k in grads)
+        if not same:
+            check(False, f"DP {cell} step {i}: loss and gradients bitwise the step without a "
+                         f"mesh (loss {float(loss):.9g} vs {float(d_loss):.9g})")
+        loop._apply(single, grads, aux)
+        loop._apply(sharded, d_grads, d_aux)
+    check(True, f"DP {cell}: {steps} steps' losses and gradients bitwise the steps without a "
+                f"mesh at one rank")
+
+
+def dp_trainer_run(cell: str, bank, mip_bank, device, mesh):
+    """``Trainer(mesh=mesh)`` (``mesh`` None: the plain ``Trainer``) on
+    ``cell``: 2 warm-up steps, then 20 timed with the counters zeroed just
+    before.  Returns (launches, ms/step)."""
+    render, n_rays, seg, expected = DP_CELLS[cell]
+    bank = mip_bank if cell.startswith("mip") else bank
+    cfg = TrainConfig(batch_size=n_rays, learning_rate=LEARNING_RATE,
+                      num_steps=WARMUP_STEPS + TIMED_STEPS, log_interval=1000,
+                      eval_interval=1000, checkpoint_interval=1000, seed=0)
+    trainer = Trainer(dp_model(cell, device), render, cfg, segmentation_loss_weight=seg,
+                      mesh=mesh)
+    state = trainer.fit(bank, num_steps=WARMUP_STEPS)
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    t0 = time.perf_counter()
+    state = trainer.fit(bank, state=state)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+    what = f"DP {cell}: Trainer({'' if mesh is None else 'mesh=...'})"
+    record = trainer.metrics.history[-1]
+    check(state.step == WARMUP_STEPS + TIMED_STEPS and np.isfinite(record["loss"]),
+          f"{what} ran to step {state.step}, loss {record['loss']:.6f}")
+    check(launches == {k: v * TIMED_STEPS for k, v in expected.items()},
+          f"{what}: each step launched {expected} and nothing else ({launches})")
+    check_policies(what, launches, policies, "tc")
+    return launches, ms
+
+
+def dp_child(rank: int, init_method: str, work: str, device: torch.device) -> None:
+    """One of phase 18(b)'s ranks (spawned): gloo on ``device``, shared
+    with the other rank; its half of each cell's global batch
+    (``dp_inputs.pt``) through the kernels, 3 Trainer-style steps, and its
+    half of the sharded frame; writes ``rank<r>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.initialize(backend="gloo", init_method=init_method, world_size=DP_RANKS, rank=rank,
+                        device=device, timeout_s=DP_CHILD_TIMEOUT_S)
+    try:
+        mesh = parallel.make_mesh(DP_RANKS)
+        inputs = torch.load(os.path.join(work, "dp_inputs.pt"), map_location=device)
+        banks = {name: RayBank(**fields) for name, fields in inputs["banks"].items()}
+        out = {}
+        for cell in ("reuse 2048x(64+128)", "mip 4096x64 seg 0.1"):
+            render, n_rays, seg, _ = DP_CELLS[cell]
+            batch, draws = inputs[cell]
+            model = dp_model(cell, device)
+            fn = parallel.make_parallel_loss_and_grads(model, render, mesh, seg, fused=True)
+            loss, grads, _ = fn(parallel.shard_batch(batch, mesh),
+                                parallel.shard_draws(sampling.StepDraws(*draws), mesh))
+            state = parallel.prepare_parallel_state(
+                create_train_state(model, LEARNING_RATE, seed=3), mesh)
+            bank = banks["mip" if cell.startswith("mip") else "classic"]
+            parallel.make_parallel_multi_step_train_fn(model, render, bank, n_rays, mesh, 3, seg,
+                                                       fused=True)(state)
+            out[cell] = {"loss": loss.cpu(), "grads": {k: g.cpu() for k, g in grads.items()},
+                         "weights": torch.cat([p.detach().reshape(-1)
+                                               for p in model.parameters()]).cpu()}
+        pose_o, pose_r = spherical_poses(1, radius=4.0, device=device)
+        out["frame"] = parallel.render_image_sharded(make_model(True, device), mesh, pose_o,
+                                                     pose_r, IMAGE, IMAGE, FOCAL, RENDER).cpu()
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        parallel.shutdown()
+
+
+def dp_two_ranks(bank, mip_bank, device, frame_a) -> None:
+    """Phase 18(b): two spawned ranks over gloo on cuda:0 against the
+    single-process kernel step on the same global batch and draws."""
+    import multiprocessing
+    import socket
+
+    with tempfile.TemporaryDirectory() as work:
+        inputs = {"banks": {name: {f.name: getattr(b, f.name) for f in
+                                   dataclasses.fields(RayBank)}
+                            for name, b in (("classic", bank), ("mip", mip_bank))}}
+        want = {}
+        for cell in ("reuse 2048x(64+128)", "mip 4096x64 seg 0.1"):
+            render, _, seg, _ = DP_CELLS[cell]
+            batch, draws = dp_global_step(cell, mip_bank if cell.startswith("mip") else bank,
+                                          device)
+            inputs[cell] = (batch, tuple(draws))
+            loss, grads, _ = make_fused_loss_and_grads(dp_model(cell, device), render, seg)(
+                batch, draws)
+            want[cell] = (loss, grads)
+        torch.save(inputs, os.path.join(work, "dp_inputs.pt"))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=dp_child, args=(r, f"tcp://127.0.0.1:{port}", work, device))
+                 for r in range(DP_RANKS)]
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        try:
+            for proc in procs:
+                proc.join(DP_CHILD_TIMEOUT_S)
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        codes = [proc.exitcode for proc in procs]
+        check(codes == [0] * DP_RANKS, f"DP two ranks over gloo on {device} ran and exited 0 "
+                                       f"(exit codes {codes}, {time.perf_counter() - t0:.1f} s)")
+        outs = [torch.load(os.path.join(work, f"rank{r}.pt")) for r in range(DP_RANKS)]
+    for cell, (loss, grads) in want.items():
+        got = outs[0][cell]
+        loss_err = abs(float(got["loss"]) - float(loss)) / abs(float(loss))
+        rel = {k: float((got["grads"][k] - g.cpu()).norm() / g.norm().clamp_min(1e-30))
+               for k, g in grads.items()}
+        worst = max(rel, key=rel.get)
+        print(f"DP {cell} at {DP_RANKS} ranks (gloo, {device}) against the single-process kernel "
+              f"step: loss {float(got['loss']):.9g} vs {float(loss):.9g} (rel err {loss_err:.3e}, "
+              f"tolerance {DP_LOSS_RTOL}); gradients worst relative L2 {rel[worst]:.3e} ({worst}), "
+              f"whole {float((flat_grads(got['grads']) - flat_grads(grads).cpu()).norm() / flat_grads(grads).norm()):.3e}, "
+              f"tolerance {DP_GRAD_REL_L2}", flush=True)
+        check(loss_err <= DP_LOSS_RTOL and rel[worst] <= DP_GRAD_REL_L2,
+              f"DP {cell} at {DP_RANKS} ranks matches the single-process kernel step")
+        check(all(torch.equal(o[cell]["loss"], got["loss"]) for o in outs[1:])
+              and all(torch.equal(o[cell]["weights"], got["weights"]) for o in outs[1:]),
+              f"DP {cell}: both ranks' losses, and weights after 3 steps, bitwise equal")
+    frame_err = float((outs[0]["frame"] - frame_a.cpu()).abs().max())
+    print(f"DP frame at {DP_RANKS} ranks against one rank: max pixel difference {frame_err:.3e} "
+          f"(tolerance {DP_FRAME_ATOL})", flush=True)
+    check(frame_err <= DP_FRAME_ATOL and torch.equal(outs[0]["frame"], outs[1]["frame"]),
+          f"DP frame at {DP_RANKS} ranks: both ranks' frames equal and within {DP_FRAME_ATOL} "
+          f"of one rank's")
+
+
+def data_parallel_phase(device, bank, mip_bank, step_ms: dict, mip_step_ms: float,
+                        card: str) -> dict:
+    """Phase 18: (a) one rank over NCCL, (b) two ranks over gloo.  Returns
+    each kernel's launches in (a)'s timed runs and frame."""
+    parallel.initialize()  # no launcher environment: a group of one on cuda:0
+    try:
+        mesh = parallel.make_mesh()
+        check(dist.get_backend() == "nccl" and mesh.size == 1
+              and mesh.device == torch.device("cuda", torch.cuda.current_device()),
+              f"DP: an NCCL group of one on {mesh.device}")
+        total = collections.Counter()
+        for cell, (render, n_rays, seg, expected) in DP_CELLS.items():
+            dp_bitwise_steps(cell, bank, mip_bank, device, mesh, WARMUP_STEPS + TIMED_STEPS)
+            # The mesh's runs between two of the plain Trainer's: the host
+            # clock spreads by several ms from run to run.
+            times = {None: [], "mesh": []}
+            for run_mesh in (None, mesh, mesh, None):
+                launches, ms = dp_trainer_run(cell, bank, mip_bank, device, run_mesh)
+                times[None if run_mesh is None else "mesh"].append(ms)
+                if run_mesh is not None and len(times["mesh"]) == 1:
+                    total.update(launches)
+            dp_ms, plain_ms = np.mean(times["mesh"]), np.mean(times[None])
+            before = (mip_step_ms if cell.startswith("mip") else
+                      step_ms["coarse" if cell.startswith("coarse") else "reuse"])
+            print(f"DP {cell} at one rank (NCCL): Trainer(mesh=...) "
+                  f"{', '.join(f'{t:.2f}' for t in times['mesh'])} ms/step, mean {dp_ms:.2f} = "
+                  f"{n_rays / dp_ms * 1e3:.0f} rays/s; Trainer() before and after "
+                  f"{', '.join(f'{t:.2f}' for t in times[None])}, mean {plain_ms:.2f} = "
+                  f"{n_rays / plain_ms * 1e3:.0f} rays/s (ratio {dp_ms / plain_ms:.4f}); phases "
+                  f"4, 5, 8: {before:.2f} ms/step = {n_rays / before * 1e3:.0f} rays/s; {card}",
+                  flush=True)
+            model = dp_model(cell, device)
+            grads = [torch.rand_like(p) for p in model.parameters()]
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            reduce_ms = cuda_ms(lambda: dist.all_reduce(flat), iters=50)
+            average_ms = cuda_ms(lambda: flat_collective(grads, mesh, "mean"), iters=50)
+            print(f"DP {cell}: all_reduce of the {flat.numel()} gradient floats "
+                  f"({flat.numel() * 4 / 1e6:.2f} MB) {reduce_ms:.4f} ms, the whole average "
+                  f"(pack, all_reduce, divide, unpack) {average_ms:.4f} ms (CUDA events)",
+                  flush=True)
+
+        # The frame split over the mesh (no K4: render_rays without
+        # fused_eval, as the JAX package renders a shard).
+        model = make_model(True, device).eval().requires_grad_(False)
+        pose_o, pose_r = spherical_poses(1, radius=4.0, device=device)
+
+        def frame():
+            return parallel.render_image_sharded(model, mesh, pose_o, pose_r, IMAGE, IMAGE,
+                                                 FOCAL, RENDER)
+
+        frame()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        _build.policy_counts.clear()
+        t0 = time.perf_counter()
+        image = frame()
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3
+        launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+        total.update(launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(launches == {"classic_mlp_fwd": 2},
+              f"DP frame: one K1-fwd for the coarse and one for the fine samples ({launches})")
+        check_policies("DP frame", launches, policies, "tc")
+        plain = make_model(False, device).eval().requires_grad_(False)
+        plain_image = plain.render_image(pose_o, pose_r, IMAGE, IMAGE, FOCAL, RENDER)
+        pixel_err = float((image - plain_image).abs().max())
+        print(f"DP frame {IMAGE}x{IMAGE} at one rank: {frame_ms:.1f} ms, "
+              f"{IMAGE * IMAGE * RENDER.num_coarse_samples} coarse and "
+              f"{IMAGE * IMAGE * RENDER.num_fine_samples} fine rows in one K1-fwd each, peak "
+              f"{peak_gb:.2f} GB; max "
+              f"pixel difference from the plain render {pixel_err:.3e} (tolerance "
+              f"{TOL['frame']['atol']}); {card}", flush=True)
+        check(image.shape == (1, IMAGE, IMAGE, 3) and bool(torch.isfinite(image).all())
+              and pixel_err <= TOL["frame"]["atol"],
+              "DP frame: finite, and within the frame tolerance of the plain render")
+    finally:
+        parallel.shutdown()
+    dp_two_ranks(bank, mip_bank, device, image)
+    return dict(total)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2614,11 +2931,14 @@ def main() -> int:
     bf16.update(mip_bf16_phase(device, mip_keep, card))
     bf16.update(point_mega_bf16_phase(device, cfg, bank, k9_step_ms, bf16_step_ms["reuse"],
                                       card))
+    dp_launches = data_parallel_phase(device, bank, mip_keep["bank"], step_ms,
+                                      mip_keep["step_ms"], card)
 
-    # 18. Result lines.
+    # 19. Result lines.
     kernels = [kernel_row(name, launches, **row) for name, (launches, row) in rows.items()]
     for row in kernels:
         row["cli_launches"] = cli_launches.get(row["name"], 0)
+        row["dp_launches"] = dp_launches.get(row["name"], 0)
         row.update(bf16.get(row["name"], dict.fromkeys(BF16_ROW_KEYS)))
     print(json.dumps({"kernels": kernels}))
     print(card)

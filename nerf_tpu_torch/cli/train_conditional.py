@@ -13,9 +13,13 @@ stage-mean MSE (``:114-135``), an eval render and PSNR with ``.npy`` dumps
 checkpoints with ``--resume`` and JSONL metrics.
 
     python -m nerf_tpu_torch.cli.train_conditional --data data_for_nerf.pkl --use-pallas
+    torchrun --nproc_per_node=N -m nerf_tpu_torch.cli.train_conditional --data-parallel
 
 Runs on the card unless ``--device cpu`` is given; ``--use-pallas``
 trains and evaluates through the hand-written CUDA kernels.
+``--data-parallel`` splits each batch over the ranks torchrun starts, as
+``train_tiny_nerf``'s does; rank 0 alone writes the logs, checkpoints and
+the export.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import pickle
 
 import numpy as np
 
-from nerf_tpu_torch.cli.train_tiny_nerf import DATA_PARALLEL_NOT_PORTED
+from nerf_tpu_torch.cli.train_tiny_nerf import data_parallel_mesh
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,26 +57,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard the ray batch over all visible devices (not ported yet)")
+                   help="split the ray batch over the process group's ranks")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return p
 
 
 def main(argv=None) -> None:
+    from nerf_tpu_torch.parallel import distributed
+
+    args = build_parser().parse_args(argv)
+    mesh = data_parallel_mesh(args)
+    try:
+        train(args, mesh)
+    finally:
+        if mesh is not None:
+            distributed.shutdown()
+
+
+def train(args, mesh) -> None:
     import torch
 
     from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, RenderConfig, TrainConfig
     from nerf_tpu_torch.data import RayBank, SceneData
     from nerf_tpu_torch.ops import cameras
+    from nerf_tpu_torch.parallel import is_coordinator
     from nerf_tpu_torch.train import Trainer
     from nerf_tpu_torch.train.checkpoint import export_reference_pth
 
-    args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit(DATA_PARALLEL_NOT_PORTED)
     os.makedirs(args.logging_dir, exist_ok=True)
-    with open(os.path.join(args.logging_dir, "params.json"), "w") as f:
-        json.dump(vars(args), f)
+    if is_coordinator():
+        with open(os.path.join(args.logging_dir, "params.json"), "w") as f:
+            json.dump(vars(args), f)
 
     with open(args.data, "rb") as f:
         payload = pickle.load(f)
@@ -119,11 +134,12 @@ def main(argv=None) -> None:
         checkpoint_interval=args.log_interval,
         seed=args.seed,
     )
-    trainer = Trainer(model, render, train_cfg, logging_dir=args.logging_dir)
+    trainer = Trainer(model, render, train_cfg, logging_dir=args.logging_dir, mesh=mesh)
     state = trainer.init_state(resume=args.resume)
     state = trainer.fit(bank, eval_scene=scene, state=state, eval_view=-1)
     # Reference-compatible weight export (torch.save layout, :160-161).
-    export_reference_pth(os.path.join(args.logging_dir, "model.pth"), state.model)
+    if is_coordinator():
+        export_reference_pth(os.path.join(args.logging_dir, "model.pth"), state.model)
 
 
 if __name__ == "__main__":

@@ -11,9 +11,13 @@ render and PSNR, metrics and a full-state checkpoint every
 
     python -m nerf_tpu_torch.cli.train_tiny_nerf --use-pallas --logging-dir run
     python -m nerf_tpu_torch.cli.train_tiny_nerf --use-pallas --logging-dir run --resume
+    torchrun --nproc_per_node=N -m nerf_tpu_torch.cli.train_tiny_nerf --use-pallas --data-parallel
 
 Runs on the card unless ``--device cpu`` is given; ``--use-pallas``
 trains and evaluates through the hand-written CUDA kernels.
+``--data-parallel`` splits each batch over the ranks torchrun starts (one
+GPU each; a group of one without torchrun, over gloo with ``--device
+cpu``); rank 0 alone writes the logs, checkpoints and the export.
 """
 
 from __future__ import annotations
@@ -22,9 +26,17 @@ import argparse
 import json
 import os
 
-DATA_PARALLEL_NOT_PORTED = (
-    "--data-parallel is not ported yet: it comes with parallel/ (ROADMAP.md queue 1, item 6)"
-)
+
+def data_parallel_mesh(args):
+    """With ``--data-parallel``, the process group from torchrun's
+    environment (a group of one without it) on ``--device`` and the mesh
+    over it; else ``None``."""
+    if not args.data_parallel:
+        return None
+    from nerf_tpu_torch.parallel import distributed, make_mesh
+
+    distributed.initialize(device=None if args.device == "cuda" else args.device)
+    return make_mesh()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,7 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard the ray batch over all visible devices (not ported yet)")
+                   help="split the ray batch over the process group's ranks")
     # Synthetic-fallback scene size (used only when --data is absent).
     p.add_argument("--synthetic-views", type=int, default=24)
     p.add_argument("--synthetic-hw", type=int, default=100)
@@ -56,17 +68,28 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> None:
+    from nerf_tpu_torch.parallel import distributed
+
+    args = build_parser().parse_args(argv)
+    mesh = data_parallel_mesh(args)
+    try:
+        train(args, mesh)
+    finally:
+        if mesh is not None:
+            distributed.shutdown()
+
+
+def train(args, mesh) -> None:
     from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, RenderConfig, TrainConfig
     from nerf_tpu_torch.data import RayBank, load_tiny_nerf, synthesize_scene
+    from nerf_tpu_torch.parallel import is_coordinator
     from nerf_tpu_torch.train import Trainer
     from nerf_tpu_torch.train.checkpoint import export_reference_pth
 
-    args = build_parser().parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit(DATA_PARALLEL_NOT_PORTED)
     os.makedirs(args.logging_dir, exist_ok=True)
-    with open(os.path.join(args.logging_dir, "params.json"), "w") as f:
-        json.dump(vars(args), f)
+    if is_coordinator():
+        with open(os.path.join(args.logging_dir, "params.json"), "w") as f:
+            json.dump(vars(args), f)
 
     if os.path.exists(args.data):
         scene = load_tiny_nerf(args.data, device=args.device)
@@ -104,10 +127,11 @@ def main(argv=None) -> None:
         checkpoint_interval=args.log_interval,
         seed=args.seed,
     )
-    trainer = Trainer(model, render, train_cfg, logging_dir=args.logging_dir)
+    trainer = Trainer(model, render, train_cfg, logging_dir=args.logging_dir, mesh=mesh)
     state = trainer.init_state(resume=args.resume)
     state = trainer.fit(bank, eval_scene=scene, state=state)
-    export_reference_pth(os.path.join(args.logging_dir, "nerf.pth"), state.model)
+    if is_coordinator():
+        export_reference_pth(os.path.join(args.logging_dir, "nerf.pth"), state.model)
 
 
 if __name__ == "__main__":

@@ -76,10 +76,12 @@ class ClassicNeRF(nn.Module):
         self.cfg = cfg
         self.mlp = ClassicMLP(cfg, generator=generator, device="cpu")
         x_scales = encoding.frequency_scales_np(cfg.x_positional_encoding_size, cfg.normalize_position)
-        self.register_buffer("x_scales", torch.as_tensor(x_scales), persistent=False)
+        # torch.tensor copies: a buffer sharing the cached array would pass a
+        # copy_ into one model's constants on to every later model.
+        self.register_buffer("x_scales", torch.tensor(x_scales), persistent=False)
         if cfg.use_viewdirs:
             d_scales = encoding.frequency_scales_np(cfg.d_positional_encoding_size, cfg.direction_bound)
-            self.register_buffer("d_scales", torch.as_tensor(d_scales), persistent=False)
+            self.register_buffer("d_scales", torch.tensor(d_scales), persistent=False)
         self.to(device)
 
     # -- encoders ----------------------------------------------------------

@@ -54,8 +54,9 @@ def frequency_scales_np(size: int, bbox_max_abs: float) -> np.ndarray:
 def bbox_frequency_scales(
     size: int, bbox_max_abs: float, device="cuda"
 ) -> torch.Tensor:
-    """Frequency scales ``[size // 2]`` (float32) on ``device``."""
-    return torch.as_tensor(frequency_scales_np(size, bbox_max_abs), device=device)
+    """Frequency scales ``[size // 2]`` (float32) on ``device``, a copy of
+    the cached constants."""
+    return torch.tensor(frequency_scales_np(size, bbox_max_abs), device=device)
 
 
 def frequency_encoding(x: torch.Tensor, frequency_scales: torch.Tensor) -> torch.Tensor:

@@ -28,8 +28,15 @@ and seed, but does not continue the JAX run's trajectory: the port's
 per-step draws come from torch's Philox generator seeded from (seed,
 step) (``state.step_generator``), JAX's from threefry.
 
-The sharded layout (a manifest with a ``sharded`` key and one shard file
-per process) comes with the port of ``parallel/``; restore refuses it.
+Restore also reads JAX's sharded layout: a ``checkpoint_<step>.npz``
+manifest (``sharded``, ``num_shard_files``, each leaf's ``shape`` and
+``dtype``, or its ``value``) beside one ``checkpoint_<step>.shards<p>.npz``
+per process, whose ``leaf_<i>.s<j>.data`` pieces carry their global index
+bounds (``.bounds``, ``[dims, 2]``).  Each leaf is reassembled from its
+pieces; a missing shard file or an uncovered element raises.  The port
+saves the single-file layout only: a data-parallel state is replicated,
+so the coordinator writes it alone while a process group is up, as JAX
+picks the single file for replicated states.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from nerf_tpu_torch.config import MipNeRFConfig
 from nerf_tpu_torch.train.state import TrainState
@@ -85,7 +93,7 @@ def _from_jax_tree(model, tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return pth_import.classic_state_dict_from_jax_params(tree)
 
 
-def _adam_state(state: TrainState) -> Tuple[int, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+def adam_state(state: TrainState) -> Tuple[int, Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """``(count, exp_avg, exp_avg_sq)``, the moments keyed by parameter
     name (zeros before the first step).  Raises if the parameters' Adam
     steps differ."""
@@ -102,7 +110,7 @@ def _adam_state(state: TrainState) -> Tuple[int, Dict[str, torch.Tensor], Dict[s
 
 def _state_trees(state: TrainState) -> Dict[str, Any]:
     """The JAX ``TrainState``'s fields as numpy trees, keyed by path prefix."""
-    count, mu, nu = _adam_state(state)
+    count, mu, nu = adam_state(state)
     seed = int(state.seed)
     return {
         ".step": np.asarray(state.step, np.int32),
@@ -137,9 +145,13 @@ def _atomic_savez(directory: str, path: str, payload: dict) -> None:
 
 def save_checkpoint(directory: str, state: TrainState, keep: int = 3) -> str:
     """Atomically write ``checkpoint_<step>.npz``; prune to the ``keep``
-    newest.  Returns the path."""
-    os.makedirs(directory, exist_ok=True)
+    newest.  Returns the path.  While a process group is up only rank 0
+    writes (the state is replicated); the other ranks return the path
+    without writing, and callers that read it back wait at a barrier."""
     path = os.path.join(directory, f"checkpoint_{int(state.step)}.npz")
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return path
+    os.makedirs(directory, exist_ok=True)
     leaves = _state_leaves(_state_trees(state))
     payload = {f"leaf_{i:05d}": leaf for i, (_, leaf) in enumerate(leaves)}
     payload["leaf_names"] = np.asarray([name for name, _ in leaves])
@@ -187,22 +199,90 @@ def _validate(names: List[str], arrays: List[np.ndarray],
             )
 
 
+def _read_sharded(path: str, manifest) -> Tuple[List[str], List[np.ndarray]]:
+    """The leaf names and global arrays of a sharded checkpoint (JAX's
+    ``save_checkpoint(sharded=True)``): each leaf from the manifest's
+    ``value`` or reassembled from the shard files' pieces by their index
+    bounds."""
+    directory = os.path.dirname(path) or "."
+    step = int(_CKPT_RE.search(os.path.basename(path)).group(1))
+    names = [str(n) for n in manifest["leaf_names"]]
+    n_files = int(manifest["num_shard_files"])
+    shard_paths = [os.path.join(directory, f"checkpoint_{step}.shards{p}.npz")
+                   for p in range(n_files)]
+    for shard_path in shard_paths:
+        if not os.path.exists(shard_path):
+            raise FileNotFoundError(
+                f"sharded checkpoint is missing {shard_path} "
+                f"(manifest expects {n_files} shard files)"
+            )
+    arrays: List[Optional[np.ndarray]] = [None] * len(names)
+    seen: Dict[int, np.ndarray] = {}
+    for i in range(len(names)):
+        key = f"leaf_{i:05d}"
+        if f"{key}.value" in manifest.files:
+            arrays[i] = manifest[f"{key}.value"]
+        else:
+            shape = tuple(int(s) for s in manifest[f"{key}.shape"])
+            arrays[i] = np.zeros(shape, dtype=np.dtype(str(manifest[f"{key}.dtype"])))
+            seen[i] = np.zeros(shape, dtype=bool)
+    for shard_path in shard_paths:
+        with np.load(shard_path, allow_pickle=False) as data:
+            for key in data.files:
+                if not key.endswith(".data"):
+                    continue
+                i = int(key[len("leaf_"):len("leaf_") + 5])
+                if i not in seen:
+                    raise ValueError(f"{shard_path} holds {key}, which the manifest does not shard")
+                bounds = data[key[:-len(".data")] + ".bounds"]
+                where = tuple(slice(int(a), int(b)) for a, b in bounds)
+                arrays[i][where] = data[key]
+                seen[i][where] = True
+    for i, covered in seen.items():
+        if not covered.all():
+            raise ValueError(
+                f"sharded checkpoint leaf {names[i]} has uncovered elements: "
+                "missing or truncated shard files"
+            )
+    return names, arrays
+
+
+def load_adam_state(state: TrainState, count: int, mu: Dict[str, torch.Tensor],
+                    nu: Dict[str, torch.Tensor]) -> None:
+    """Set Adam's ``step`` to ``count`` and its moments to ``mu`` and
+    ``nu`` (keyed by parameter name) for every parameter of the model,
+    cast and placed like the parameters."""
+    optimizer = state.optimizer
+    opt_sd = optimizer.state_dict()
+    index = {
+        id(p): i
+        for group, saved in zip(optimizer.param_groups, opt_sd["param_groups"])
+        for p, i in zip(group["params"], saved["params"])
+    }
+    for name, p in state.model.mlp.named_parameters():
+        opt_sd["state"][index[id(p)]] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name],
+            "exp_avg_sq": nu[name],
+        }
+    optimizer.load_state_dict(opt_sd)  # casts and places the moments like the parameters
+
+
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint into ``state`` (in place; returned): the weights
     (``load_state_dict``), Adam's ``exp_avg``, ``exp_avg_sq`` and ``step``
-    on the parameters' device, ``state.step`` and ``state.seed``.
+    on the parameters' device, ``state.step`` and ``state.seed``.  Reads
+    the single-file layout and JAX's sharded one.
 
     Validates the leaf names and shapes against ``state``'s model first,
     so a config or architecture mismatch raises ``ValueError`` naming the
     first path that differs instead of loading wrong weights."""
     with np.load(path, allow_pickle=False) as data:
         if "sharded" in data.files:
-            raise NotImplementedError(
-                f"{path} is a sharded (multi-process) checkpoint; that layout comes with "
-                "the port of parallel/ (ROADMAP.md queue 1, item 6)"
-            )
-        names = [str(n) for n in data["leaf_names"]]
-        arrays = [data[f"leaf_{i:05d}"] for i in range(len(names))]
+            names, arrays = _read_sharded(path, data)
+        else:
+            names = [str(n) for n in data["leaf_names"]]
+            arrays = [data[f"leaf_{i:05d}"] for i in range(len(names))]
     trees = _state_trees(state)
     _validate(names, arrays, _state_leaves(trees))
     leaves = dict(zip(names, arrays))
@@ -211,23 +291,9 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
         filled = _refill(trees[prefix], (leaves[prefix + p] for p, _ in _flatten(trees[prefix])))
         return _from_jax_tree(state.model, filled)
 
-    mlp, optimizer = state.model.mlp, state.optimizer
-    mlp.load_state_dict(tree(".params"))
-    count = int(leaves[f"{_ADAM}.count"])
-    mu, nu = tree(f"{_ADAM}.mu"), tree(f"{_ADAM}.nu")
-    opt_sd = optimizer.state_dict()
-    index = {
-        id(p): i
-        for group, saved in zip(optimizer.param_groups, opt_sd["param_groups"])
-        for p, i in zip(group["params"], saved["params"])
-    }
-    for name, p in mlp.named_parameters():
-        opt_sd["state"][index[id(p)]] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": mu[name],
-            "exp_avg_sq": nu[name],
-        }
-    optimizer.load_state_dict(opt_sd)  # casts and places the moments like the parameters
+    state.model.mlp.load_state_dict(tree(".params"))
+    load_adam_state(state, int(leaves[f"{_ADAM}.count"]), tree(f"{_ADAM}.mu"),
+                    tree(f"{_ADAM}.nu"))
     state.step = int(leaves[".step"])
     hi, lo = (int(v) for v in leaves[".key"])
     state.seed = (hi << 32) | lo

@@ -19,8 +19,10 @@ and the ``Trainer`` (counterpart of ``nerf_tpu/train/loop.py``).
 * With a ``logging_dir`` the ``Trainer`` writes metrics, full-state
   checkpoints (``train/checkpoint.py``) and a watchdog heartbeat, and
   ``init_state`` resumes from the latest checkpoint.
-
-Not ported yet: the ``mesh`` argument (data parallelism).
+* With a ``mesh`` (``parallel.make_mesh``) the ``Trainer`` runs data
+  parallel: the batch split over the ranks, the gradients averaged
+  (``parallel/train.py``), the coordinator alone logging, evaluating and
+  writing checkpoints.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from nerf_tpu_torch.ops.kernels import (
     mip_train,
     train_grads,
 )
+from nerf_tpu_torch.parallel import distributed
 from nerf_tpu_torch.parallel.watchdog import Heartbeat
 from nerf_tpu_torch.train import checkpoint as ckpt_lib
 from nerf_tpu_torch.train.metrics import MetricsLogger, mse_to_psnr
@@ -349,31 +352,58 @@ class Trainer:
         logging_dir: Optional[str] = None,
         segmentation_loss_weight: float = 0.0,
         optimizer: Optional[torch.optim.Optimizer] = None,
+        mesh=None,
     ):
+        """``mesh``: an optional ``parallel.Mesh``; when given, the run is
+        data parallel over its ranks: the state replicated from rank 0,
+        each step's global batch split over the ranks, the gradients
+        averaged (``parallel/train.py``).  Only the coordinator (rank 0)
+        logs metrics, evaluates and writes checkpoints; every rank beats
+        its own heartbeat."""
         self.model = model
         self.render = render
         self.train_cfg = train
         self.logging_dir = logging_dir
         self.seg_weight = segmentation_loss_weight
         self.optimizer = optimizer
-        self.metrics = MetricsLogger(logging_dir)
+        self.mesh = mesh
+        self.coordinator = mesh is None or distributed.is_coordinator()
+        self.metrics = MetricsLogger(logging_dir if self.coordinator else None)
 
     def init_state(self, resume: bool = True) -> TrainState:
         """Weights drawn anew from ``train.seed`` and a fresh Adam; with
         ``resume`` and a logging dir, the latest checkpoint there
-        restored into them."""
+        restored into them; with a mesh, rank 0's state on every rank."""
         self.model.mlp.reset_parameters(torch.Generator().manual_seed(self.train_cfg.seed))
         state = create_train_state(
             self.model, self.train_cfg.learning_rate, self.train_cfg.seed, self.optimizer
         )
         if resume and self.logging_dir:
             ckpt_lib.restore_latest(self.logging_dir, state)
+        if self.mesh is not None:
+            from nerf_tpu_torch.parallel.train import prepare_parallel_state
+
+            state = prepare_parallel_state(state, self.mesh)
         return state
 
     def _make_run_fn(self, bank: RayBank, num_steps: int, fused: bool) -> Callable:
+        if self.mesh is not None:
+            from nerf_tpu_torch.parallel.train import make_parallel_multi_step_train_fn
+
+            return make_parallel_multi_step_train_fn(
+                self.model, self.render, bank, self.train_cfg.batch_size, self.mesh, num_steps,
+                self.seg_weight, fused=fused,
+            )
         maker = make_fused_multi_step_train_fn if fused else make_multi_step_train_fn
         return maker(self.model, self.render, bank, self.train_cfg.batch_size, num_steps,
                      self.seg_weight)
+
+    def _save(self, state: TrainState) -> None:
+        """A checkpoint by the coordinator; with a mesh, every rank then
+        waits for it at a barrier."""
+        ckpt_lib.save_checkpoint(self.logging_dir, state)
+        if self.mesh is not None:
+            distributed.collective_barrier()
 
     def fit(
         self,
@@ -432,7 +462,7 @@ class Trainer:
                 heartbeat.update(step)
             aux = {key: v.cpu().numpy() for key, v in aux.items()}
             _check_finite_losses(aux["loss"], step - k + 1)
-            if step % cfg.log_interval == 0 or step == num_steps:
+            if self.coordinator and (step % cfg.log_interval == 0 or step == num_steps):
                 now = time.time()
                 record = dict(
                     loss=float(aux["loss"][-1]),
@@ -446,9 +476,9 @@ class Trainer:
                     record["psnr"] = float(value)
                 self.metrics.log(step, **record)
             if self.logging_dir and step % cfg.checkpoint_interval == 0:
-                ckpt_lib.save_checkpoint(self.logging_dir, state)
+                self._save(state)
             last_t = time.time()
         if self.logging_dir:
-            ckpt_lib.save_checkpoint(self.logging_dir, state)
-            self.metrics.save_npy_dumps()
+            self._save(state)
+            self.metrics.save_npy_dumps()  # a no-op off the coordinator: no logging dir
         return state

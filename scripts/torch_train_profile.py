@@ -1,7 +1,7 @@
 """Where a train step of the PyTorch/CUDA port spends its device time.
 
     python scripts/torch_train_profile.py [--steps 5] [--out profile.json]
-                                          [--compute-dtype bfloat16]
+                                          [--compute-dtype bfloat16] [--data-parallel]
 
 Trains the models of ``chip_smoke.py`` (seed 0) on its synthetic scenes
 through ``make_fused_multi_step_train_fn`` in each of its training
@@ -22,6 +22,10 @@ tile run their products as 3xTF32 on the tensor cores) and the device's
 idle share (1 - busy / span of the first to the last kernel); ``--out``
 also writes them as JSON.  With ``--compute-dtype bfloat16`` it profiles
 the same steps in compute_dtype bfloat16 (every pass a bf16 ``wgmma``).
+With ``--data-parallel`` it profiles the reuse, coarse-only and mip steps
+through ``parallel.make_parallel_multi_step_train_fn(fused=True)`` on an
+NCCL group of one (the gradient average's ``all_reduce`` among the
+kernels) instead, and no K9 step (no data-parallel path calls K9).
 Exits non-zero without a GPU.
 """
 
@@ -41,16 +45,26 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402  (the smoke run's model and settings)
+from nerf_tpu_torch import parallel  # noqa: E402
 from nerf_tpu_torch.data import RayBank, synthesize_scene  # noqa: E402
 from nerf_tpu_torch.ops import sampling  # noqa: E402
 from nerf_tpu_torch.ops.kernels import mega_train  # noqa: E402
 from nerf_tpu_torch.train import create_train_state, make_fused_multi_step_train_fn  # noqa: E402
 
 
-def profile_config(name, model, render, n_rays, bank, steps, device, seg_weight=0.0) -> dict:
+def profile_config(name, model, render, n_rays, bank, steps, device, seg_weight=0.0,
+                   mesh=None) -> dict:
     state = create_train_state(model, chip_smoke.LEARNING_RATE, seed=0)
-    run = make_fused_multi_step_train_fn(model, render, bank, n_rays, steps, seg_weight)
-    warm = make_fused_multi_step_train_fn(model, render, bank, n_rays, 2, seg_weight)
+    if mesh is None:
+        def maker(k):
+            return make_fused_multi_step_train_fn(model, render, bank, n_rays, k, seg_weight)
+    else:
+        state = parallel.prepare_parallel_state(state, mesh)
+
+        def maker(k):
+            return parallel.make_parallel_multi_step_train_fn(model, render, bank, n_rays, mesh,
+                                                              k, seg_weight, fused=True)
+    run, warm = maker(steps), maker(2)
     return profile_steps(name, lambda: warm(state), lambda: run(state), n_rays, steps)
 
 
@@ -118,6 +132,8 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--out", help="also write the result as JSON to this file")
     p.add_argument("--compute-dtype", default="float32", choices=("float32", "bfloat16"))
+    p.add_argument("--data-parallel", action="store_true",
+                   help="the data-parallel steps on an NCCL group of one")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_train_profile: no CUDA device", file=sys.stderr)
@@ -128,27 +144,37 @@ def main(argv=None) -> int:
     print(card)
     scene = synthesize_scene(num_views=8, image_hw=64, focal=80.0, device=device)
     bank = RayBank.from_images(scene.images, scene.pose_o, scene.pose_r, scene.focal)
-    result = {"card": card, "compute_dtype": args.compute_dtype}
+    result = {"card": card, "compute_dtype": args.compute_dtype,
+              "data_parallel": args.data_parallel}
     dt = dict(compute_dtype=args.compute_dtype)
-    result["reuse_2048x(64+128)"] = profile_config(
-        "reuse 2048x(64+128)", chip_smoke.make_model(True, device, **dt), chip_smoke.TRAIN_RENDER,
-        chip_smoke.TRAIN_RAYS, bank, args.steps, device)
-    run_mega = mega_steps(chip_smoke.make_model(True, device, **dt), chip_smoke.TRAIN_RENDER,
-                          bank, chip_smoke.TRAIN_RAYS, device)
-    result["mega_2048x(64+128)"] = profile_steps(
-        "K9 reuse 2048x(64+128)", lambda: run_mega(2), lambda: run_mega(args.steps),
-        chip_smoke.TRAIN_RAYS, args.steps)
-    result["coarse_4096x64"] = profile_config(
-        "coarse-only 4096x64", chip_smoke.make_model(True, device, **dt),
-        chip_smoke.COARSE_RENDER, chip_smoke.COARSE_RAYS, bank, args.steps, device)
-    scene = synthesize_scene(num_views=8, image_hw=64, focal=80.0, with_labels=True,
-                             device=device)
-    bank = RayBank.from_images(scene.images, scene.pose_o, scene.pose_r, scene.focal,
-                               labels=scene.labels)
-    result["mip_4096x64_seg"] = profile_config(
-        "mip 4096x64 seg 0.1", chip_smoke.make_mip_model(True, device, **dt),
-        chip_smoke.MIP_TRAIN_RENDER, chip_smoke.MIP_RAYS, bank, args.steps, device,
-        chip_smoke.SEG_WEIGHT)
+    mesh = None
+    if args.data_parallel:
+        parallel.initialize()
+        mesh = parallel.make_mesh()
+    try:
+        result["reuse_2048x(64+128)"] = profile_config(
+            "reuse 2048x(64+128)", chip_smoke.make_model(True, device, **dt),
+            chip_smoke.TRAIN_RENDER, chip_smoke.TRAIN_RAYS, bank, args.steps, device, mesh=mesh)
+        if mesh is None:
+            run_mega = mega_steps(chip_smoke.make_model(True, device, **dt),
+                                  chip_smoke.TRAIN_RENDER, bank, chip_smoke.TRAIN_RAYS, device)
+            result["mega_2048x(64+128)"] = profile_steps(
+                "K9 reuse 2048x(64+128)", lambda: run_mega(2), lambda: run_mega(args.steps),
+                chip_smoke.TRAIN_RAYS, args.steps)
+        result["coarse_4096x64"] = profile_config(
+            "coarse-only 4096x64", chip_smoke.make_model(True, device, **dt),
+            chip_smoke.COARSE_RENDER, chip_smoke.COARSE_RAYS, bank, args.steps, device,
+            mesh=mesh)
+        scene = synthesize_scene(num_views=8, image_hw=64, focal=80.0, with_labels=True,
+                                 device=device)
+        bank = RayBank.from_images(scene.images, scene.pose_o, scene.pose_r, scene.focal,
+                                   labels=scene.labels)
+        result["mip_4096x64_seg"] = profile_config(
+            "mip 4096x64 seg 0.1", chip_smoke.make_mip_model(True, device, **dt),
+            chip_smoke.MIP_TRAIN_RENDER, chip_smoke.MIP_RAYS, bank, args.steps, device,
+            chip_smoke.SEG_WEIGHT, mesh=mesh)
+    finally:
+        parallel.shutdown()
     if args.out:
         Path(args.out).write_text(json.dumps(result, indent=2))
     return 0

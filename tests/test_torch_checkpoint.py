@@ -2,8 +2,10 @@
 against the JAX package's on the CPU: the round trip, a structure or
 shape mismatch that fails loudly, retention, a resumed run that continues
 the straight one, files of either package restored by the other for both
-model families (names, dtypes, shapes and values equal), the sharded
-manifest refused, the ``.pth`` export bitwise the JAX one's, and the
+model families (names, dtypes, shapes and values equal), JAX's sharded
+layout (replicated and split leaves) restored as its single-file layout
+is, a sharded manifest with missing, uncovered or foreign leaves refused,
+the ``.pth`` export bitwise the JAX one's, and the
 ``Trainer``'s checkpoints, metrics and resume.
 
 Models are small (hidden 32; the mip model hidden 32, 3 layers, 24 IPE
@@ -22,6 +24,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from nerf_tpu import ClassicNeRF as JaxNeRF
 from nerf_tpu import ClassicNeRFConfig as JaxConfig
@@ -168,10 +171,76 @@ def test_save_refuses_disagreeing_adam_steps(tmp_path):
 
 
 def test_sharded_manifest_is_refused(tmp_path):
+    # A sharded manifest whose shard files are missing: refused loudly, as
+    # JAX's restore refuses it, before any leaf is read.
     path = str(tmp_path / "checkpoint_4.npz")
     np.savez(path, leaf_names=np.asarray([".step"]), sharded=np.asarray(True),
              num_shard_files=np.asarray(2))
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(FileNotFoundError, match=r"missing .*checkpoint_4\.shards0\.npz"):
+        checkpoint.restore_checkpoint(path, create_train_state(port_model("classic")))
+
+
+def jax_sharded_state(family, layout):
+    """A JAX train state after 3 steps (Adam's moments not zero) on the
+    8-virtual-device mesh: every leaf replicated, or (``split``) every leaf
+    whose leading axis divides split over 2 devices along it, the rest
+    replicated."""
+    jmodel = jax_model(family)
+    jstep = jax_make_train_step(jmodel, optax.adam(LR), JaxRender(**render_cfg()), donate=False)
+    jstate = jax_create_state(jmodel.init(jax.random.PRNGKey(1)), optax.adam(LR), 5)
+    for i in range(3):
+        jstate, _ = jstep(jstate, {k: jnp.asarray(v) for k, v in batch_np(i).items()})
+    mesh = Mesh(np.asarray(jax.devices()[:8]).reshape(2, 4), ("model", "batch"))
+
+    def place(x):
+        x = jnp.asarray(x)
+        split = layout == "split" and x.ndim > 0 and x.shape[0] % 2 == 0
+        return jax.device_put(x, NamedSharding(mesh, P("model") if split else P()))
+
+    return jax.tree_util.tree_map(place, jstate)
+
+
+def split_leaves(keys):
+    """The ``leaf_<i>.s<j>.`` prefixes of the pieces of every leaf stored
+    in more than one piece."""
+    pieces = [k[:-len("data")] for k in keys if k.endswith(".data")]
+    leaves = [p.split(".")[0] for p in pieces]
+    return [p for p, leaf in zip(pieces, leaves) if leaves.count(leaf) > 1]
+
+
+@pytest.mark.parametrize("layout", ["replicated", "split"])
+@pytest.mark.parametrize("family", ["classic", "mip"])
+def test_jax_sharded_checkpoint_restores_into_port(tmp_path, family, layout):
+    # JAX's sharded layout (a manifest and checkpoint_<step>.shards0.npz of
+    # pieces with their index bounds) restores exactly what JAX's
+    # single-file layout of the same state restores.
+    jstate = jax_sharded_state(family, layout)
+    sharded = jckpt.save_checkpoint(str(tmp_path / "sharded"), jstate, sharded=True)
+    assert sorted(os.listdir(tmp_path / "sharded")) == ["checkpoint_3.npz",
+                                                        "checkpoint_3.shards0.npz"]
+    if layout == "split":
+        with np.load(tmp_path / "sharded" / "checkpoint_3.shards0.npz") as data:
+            assert len(split_leaves(data.files)) > 0
+    single = jckpt.save_checkpoint(str(tmp_path / "single"), jax.device_get(jstate))
+    got = checkpoint.restore_checkpoint(sharded, create_train_state(port_model(family, 8), LR))
+    want = checkpoint.restore_checkpoint(single, create_train_state(port_model(family, 9), LR))
+    assert got.step == want.step == 3 and got.seed == want.seed == 5
+    assert_states_close(got, want, atol=0)
+    assert all(int(m[2]) == 3 for m in adam_moments(got).values())
+
+
+def test_sharded_checkpoint_with_uncovered_or_foreign_leaves_is_refused(tmp_path):
+    jstate = jax_sharded_state("classic", "split")
+    path = jckpt.save_checkpoint(str(tmp_path), jstate, sharded=True)
+    shards = str(tmp_path / "checkpoint_3.shards0.npz")
+    with np.load(shards) as data:
+        pieces = {k: data[k] for k in data.files}
+    with pytest.raises(ValueError, match="first differing path"):
+        checkpoint.restore_checkpoint(path, create_train_state(port_model("classic",
+                                                                          trunk_blocks=(1, 1))))
+    dropped = split_leaves(pieces)[0]  # one piece of a leaf in two
+    np.savez(shards, **{k: v for k, v in pieces.items() if not k.startswith(dropped)})
+    with pytest.raises(ValueError, match="uncovered elements"):
         checkpoint.restore_checkpoint(path, create_train_state(port_model("classic")))
 
 

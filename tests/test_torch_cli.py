@@ -1,7 +1,9 @@
 """The port's entry points held against the JAX package's on the CPU: the
 three CLIs' parsers (every JAX flag with its default, plus ``--device``),
 short runs of both training CLIs (mirroring ``tests/test_cli.py``) with
-and without ``--use-pallas``, ``--data-parallel`` refused by name,
+and without ``--use-pallas``, ``--data-parallel`` at one rank over gloo
+(the same files as without it) and refused by name where its GPU is
+missing,
 ``load_tiny_nerf`` on a small ``.npz``, the forward-facing scene, the
 render CLI on a full-width port-written ``.npz`` against the JAX CLI's
 PNGs of the same file, and ``utils.profiling``'s ``trace`` and
@@ -104,11 +106,53 @@ def test_conditional_short_training_run(tmp_path, use_pallas):
 
 
 @pytest.mark.parametrize("cli", [train_tiny_nerf, train_conditional])
-def test_data_parallel_exits_with_the_named_error(tmp_path, cli):
+def test_data_parallel_exits_with_the_named_error(tmp_path, cli, monkeypatch):
+    # --data-parallel on the card (the default --device) where no GPU is
+    # visible: the process group's device is refused by name, before any
+    # work, and no group is left behind.
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     logdir = tmp_path / "run"
-    with pytest.raises(SystemExit, match="parallel/"):
-        cli.main(["--data-parallel", "--logging-dir", str(logdir), "--device", "cpu"])
-    assert not logdir.exists()  # refused before any work
+    with pytest.raises(RuntimeError, match=r"wants cuda:0, but 0 GPU\(s\) are visible"):
+        cli.main(["--data-parallel", "--logging-dir", str(logdir)])
+    assert not logdir.exists()
+    assert not torch.distributed.is_initialized()
+
+
+def cli_args(cli, tmp_path, logdir):
+    if cli is train_tiny_nerf:
+        return (["--logging-dir", str(logdir), "--data", str(tmp_path / "missing.npz")]
+                + TINY_ARGS + ["--num-steps", "4", "--batch-size", "32", "--log-interval", "2",
+                               "--use-pallas"])
+    return ["--logging-dir", str(logdir), "--data", str(conditional_data(tmp_path)),
+            "--epochs", "1", "--batch-size", "72", "--num-samples-per-ray", "8",
+            "--near-plane", "2.0", "--far-plane", "6.0", "--log-interval", "2", "--device", "cpu",
+            "--use-pallas"]
+
+
+@pytest.mark.parametrize("cli", [train_tiny_nerf, train_conditional])
+def test_data_parallel_trains_at_one_rank_over_gloo(tmp_path, cli, monkeypatch):
+    # --data-parallel --device cpu: a gloo group of one (no torchrun
+    # environment); 4 steps, checkpoints at 2 and 4, the export, and the
+    # same files, bit for bit, as the run without the flag.
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    runs = {}
+    for flag in ([], ["--data-parallel"]):
+        logdir = tmp_path / ("dp" if flag else "plain")
+        cli.main(cli_args(cli, tmp_path, logdir) + flag)
+        assert not torch.distributed.is_initialized()
+        assert checkpoint.all_checkpoints(str(logdir)) == ["checkpoint_2.npz", "checkpoint_4.npz"]
+        assert json.loads((logdir / "params.json").read_text())["data_parallel"] == bool(flag)
+        export = "nerf.pth" if cli is train_tiny_nerf else "model.pth"
+        runs[bool(flag)] = (np.load(logdir / "checkpoint_4.npz"),
+                            torch.load(logdir / export, weights_only=True))
+    (plain, plain_sd), (dp, dp_sd) = runs[False], runs[True]
+    assert plain.files == dp.files and int(dp["leaf_00000"]) == 4
+    for key in plain.files:
+        np.testing.assert_array_equal(dp[key], plain[key], err_msg=key)
+    assert all(torch.equal(dp_sd[k], plain_sd[k]) for k in plain_sd)
 
 
 # -- data ------------------------------------------------------------------------

@@ -2267,3 +2267,55 @@ def test_bf16_point_and_mega_wrappers_refuse_mixed_dtypes(cuda):
         mega_train.mega_train(classic_mlp.pack_classic_params(model.mlp.requires_grad_(False)),
                               *inputs)
     assert dict(_build.launch_counts) == launches
+
+
+# -- data parallelism (slice 15) -------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_data_parallel_reuse_step_at_one_rank_is_the_step_without_a_mesh(cuda):
+    # An NCCL group of one: three fused reuse steps at full width (2048 x
+    # (64 + 128), K1-fwd, K3 and K1-bwd each) with the gradients averaged
+    # over the mesh, bitwise the same steps without a mesh.
+    from nerf_tpu_torch import parallel
+    from nerf_tpu_torch.data import RayBank
+    from nerf_tpu_torch.train import create_train_state, loop, make_fused_loss_and_grads
+
+    render = RenderConfig(num_coarse_samples=64, num_fine_samples=128, density_noise_std=1.0)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    images = rand(gen, 2, 32, 32, 3, lo=0.0, hi=1.0)
+    poses_r = torch.linalg.qr(rand(gen, 2, 3, 3))[0]
+    bank = RayBank.from_images(images, rand(gen, 2, 3) * 4.0, poses_r, 40.0)
+
+    def model():
+        m = ClassicNeRF(ClassicNeRFConfig(normalize_position=6.0, use_pallas=True),
+                        generator=torch.Generator().manual_seed(0), device=cuda)
+        with torch.no_grad():  # mass in every bin (see chip_smoke.py)
+            m.mlp.density.bias.fill_(0.5)
+            m.mlp.density.weight.mul_(0.05)
+        return m
+
+    parallel.initialize(device=cuda, timeout_s=120.0)
+    try:
+        mesh = parallel.make_mesh()
+        assert torch.distributed.get_backend() == "nccl" and mesh.size == 1
+        single = create_train_state(model(), 1e-4, seed=2)
+        sharded = parallel.prepare_parallel_state(create_train_state(model(), 1e-4, seed=2), mesh)
+        one = make_fused_loss_and_grads(single.model, render)
+        dp = parallel.make_parallel_loss_and_grads(sharded.model, render, mesh, fused=True)
+        for _ in range(3):
+            batch, draws = loop._sample(single, bank, 2048, render)
+            loss, grads, aux = one(batch, draws)
+            _build.launch_counts.clear()
+            d_loss, d_grads, d_aux = dp(parallel.shard_batch(batch, mesh),
+                                        parallel.shard_draws(draws, mesh))
+            torch.cuda.synchronize()
+            assert _build.launch_counts == STEP_LAUNCHES["reuse"]
+            assert torch.equal(loss, d_loss)
+            assert all(torch.equal(grads[k], d_grads[k]) for k in grads)
+            loop._apply(single, grads, aux)
+            loop._apply(sharded, d_grads, d_aux)
+        assert all(torch.equal(p, q) for p, q in zip(single.model.parameters(),
+                                                     sharded.model.parameters()))
+    finally:
+        parallel.shutdown()
