@@ -202,11 +202,41 @@
       1e-4, the measured values printed); both ranks' losses and weights
       after 3 steps bitwise equal; the frame at two ranks within 1e-5 of
       (a)'s.
-19. Prints the kernels' JSON line (each row with its float32 bound and
+19. Sample and tensor parallelism (slice 16), ``make_mesh_2d``:
+   a. An NCCL group of one in this process, a 1x1 (batch, sample) mesh:
+      one sample-parallel reuse step (2048 x (64 + 128), stratified
+      jitter, density noise 1.0) through autograd, the counters zeroed
+      just before (one K1-fwd and one K1-bwd for each stage's slice, on
+      the tensor cores, and nothing else), against the same autograd
+      step without a mesh (loss within rtol 1e-5, gradients within
+      relative L2 1e-4); 2 warm-up and 20 timed steps of each, the mesh's
+      twice between two runs without it, ms/step and rays/s; the
+      gradients' flat ``all_reduce`` and one transmittance hand-off timed
+      by CUDA events; a 400x400 frame in the serving tiler's 4000-ray
+      tiles, one ``make_sample_parallel_render`` call a tile (two K1-fwd
+      a tile, no K4), its time and peak memory, against the plain render
+      within 1e-3.
+   b. Two ranks spawned after the build, over gloo sharing the card, the
+      samples split 1x2: (a)'s step on the same global batch and draws
+      against (a)'s step without a mesh at (a)'s bounds (the measured
+      values printed), one K1-fwd and one K1-bwd a stage's slice on each
+      rank; both ranks' losses and weights after 3 steps bitwise equal;
+      the first tile within 1e-5 of (a)'s.
+   c. The same two ranks, the hidden width split 1x2 (batch x model,
+      ``use_pallas=False``: no kernel launches, checked): the classic
+      reuse step and a ``MipNeRFConfig()`` step at 4096 x 64 (seg weight
+      0.0, as JAX's tensor-parallel step fixes it) against the
+      single-process plain step (the loss within rtol 1e-5; each gradient
+      no farther from a float64 evaluation than the plain float32 step,
+      plus 1e-4), a 4000-ray tile against the plain render within 1e-5;
+      after one Adam update the sharded
+      checkpoint (one shard file a rank), restored here onto the whole
+      model, bitwise the ranks' weights and Adam's moments.
+20. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
    each, ``products``: how its MLP products run, and since which slice,
    ``cli_launches``: its launches in phase 14, ``dp_launches``: in phase
-   18a, and its bf16 entries from phases 15, 16 and 17, ``bf16_ms``,
+   18a, ``sp_launches``: in phase 19a, and its bf16 entries from phases 15, 16 and 17, ``bf16_ms``,
    ``bf16_bound_ms``, ``bf16_launches`` and the rest), the card line,
    then, last, the device line.
 
@@ -270,6 +300,8 @@ from nerf_tpu_torch.ops.kernels import (
     train_grads,
     union_eval,
 )
+from nerf_tpu_torch.models.nerf import _tiled_over_rays
+from nerf_tpu_torch.parallel.collectives import all_gather
 from nerf_tpu_torch.parallel.mesh import flat_collective
 from nerf_tpu_torch.testing import bf16_step_reference, mip_head_rounding, plain_versions
 from nerf_tpu_torch.train import (
@@ -2885,6 +2917,415 @@ def data_parallel_phase(device, bank, mip_bank, step_ms: dict, mip_step_ms: floa
     return dict(total)
 
 
+# -- 19. Sample and tensor parallelism (slice 16) ---------------------------------
+# (a) An NCCL group of one: the sample-parallel reuse step on a 1x1 mesh
+# against the same autograd step without a mesh (loss rtol 1e-5, gradients
+# relative L2 1e-4: the mesh adds the transmittance hand-off and regrouped
+# pixel sums, the kernels see the same rows), and the frame in the serving
+# tiler's tiles against the plain render (the frame tolerance).  (b) Two
+# spawned ranks over gloo sharing cuda:0, the samples split 1x2: the same
+# bounds against (a)'s single-process step, the first tile within 1e-5 of
+# (a)'s.  (c) The same two ranks, the hidden width split 1x2 (plain path, no
+# kernel): the classic reuse and the mip step against the single-process
+# plain step, the loss within (b)'s bound, a tile against the plain render
+# within 1e-5.  The gradients: no farther from a float64 evaluation of the
+# plain step than the plain float32 step is, plus (b)'s bound.  At full
+# width the plain float32 step's first layers sit ~3e-3 from float64 (a
+# loss's gradient summed over 393,216 rows with heavy cancellation), so
+# any other float32 evaluation order, the split LayerNorm's included,
+# lands ~6e-4 from it.
+MESH_LOSS_RTOL, MESH_GRAD_REL_L2, MESH_TILE_ATOL = 1e-5, 1e-4, 1e-5
+MESH_RANKS = 2
+MESH_CHILD_TIMEOUT_S = 600
+SP_STEP_LAUNCHES = {"classic_mlp_fwd": 2, "classic_mlp_bwd": 2}  # one of each a stage's slice
+
+
+def autograd_step(model, render, batch, draws, seg: float = 0.0):
+    """The step without a mesh: ``make_loss_fn``'s loss and its gradients
+    through autograd (the kernels under it where ``use_pallas``)."""
+    names, params = zip(*model.named_parameters())
+    with torch.enable_grad():
+        loss, _ = make_loss_fn(model, render, seg)(batch, draws)
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def check_step(name: str, loss, grads: dict, ref, ref64: dict = None) -> None:
+    """A parallel step against the single-process one, ``ref = (loss,
+    grads)``: the loss within MESH_LOSS_RTOL; each gradient within
+    MESH_GRAD_REL_L2 of the single-process step's or, with the float64
+    evaluation ``ref64``, no farther from it than the single-process
+    float32 step is, plus MESH_GRAD_REL_L2 (the measured values printed)."""
+    ref_loss, ref_grads = ref
+
+    def rel(a, b):
+        return float((a.cpu().double() - b.cpu().double()).norm() / b.cpu().double().norm())
+
+    check(grads.keys() == ref_grads.keys(), f"{name}: the same gradients as the step without a mesh")
+    loss_err = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    to_ref = {k: rel(grads[k], g) for k, g in ref_grads.items()}
+    worst = max(to_ref, key=to_ref.get)
+    line = (f"{name}: loss {float(loss):.9g} vs {float(ref_loss):.9g} (rel err {loss_err:.3e}, "
+            f"tolerance {MESH_LOSS_RTOL}); gradients worst relative L2 {to_ref[worst]:.3e} "
+            f"({worst})")
+    err = to_ref[worst]
+    if ref64 is not None:
+        excess = {k: rel(grads[k], ref64[k]) - rel(g, ref64[k]) for k, g in ref_grads.items()}
+        over = max(excess, key=excess.get)
+        line += (f", the single-process float32 step {rel(ref_grads[worst], ref64[worst]):.3e} "
+                 f"from float64 there; from float64, worst excess over the float32 step's "
+                 f"{excess[over]:.3e} ({over})")
+        err = excess[over]
+    print(f"{line}, tolerance {MESH_GRAD_REL_L2}", flush=True)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    check(finite and loss_err <= MESH_LOSS_RTOL and err <= MESH_GRAD_REL_L2,
+          f"{name} matches the step without a mesh")
+
+
+def plain_steps(make, render, batch, draws, seg: float = 0.0):
+    """The plain step without a mesh on ``make()``'s model, in float32 and
+    in float64 with the float32 step's fine samples held (the resample is
+    a step function of the weights' rounding): ``((loss, grads),
+    grads64)``."""
+    held = []
+    sample_pdf = sampling.sample_pdf
+
+    def resample(*args, **kwargs):
+        if not held:
+            held.append(sample_pdf(*args, **kwargs))
+        return held[0].to(args[1].dtype)
+
+    def double(x):
+        return x.double() if x is not None and x.is_floating_point() else x
+
+    sampling.sample_pdf = resample
+    try:
+        ref = autograd_step(make(), render, batch, draws, seg)
+        ref64 = autograd_step(make().double(), render, {k: double(v) for k, v in batch.items()},
+                              sampling.StepDraws(*(double(d) for d in draws)), seg)[1]
+    finally:
+        sampling.sample_pdf = sample_pdf
+    return ref, ref64
+
+
+def sharded(mesh, batch, draws):
+    """This rank's rows of a global batch and its draws."""
+    return parallel.shard_batch(batch, mesh), parallel.shard_draws(draws, mesh)
+
+
+def sp_timed_run(model, bank, mesh):
+    """2 warm-up and 20 timed reuse steps through autograd, sample-parallel
+    on ``mesh`` (``None``: ``make_train_step``, no mesh), the counters
+    zeroed just before the timed ones.  Returns (launches, policies, ms)."""
+    state = create_train_state(model, LEARNING_RATE, seed=0)
+    if mesh is None:
+        step = make_train_step(model, TRAIN_RENDER)
+    else:
+        state = parallel.prepare_parallel_state(state, mesh)
+        step = parallel.make_sample_parallel_train_step(model, TRAIN_RENDER, mesh)
+
+    def one():
+        batch, draws = loop._sample(state, bank, TRAIN_RAYS, TRAIN_RENDER)
+        return step(state, *((batch, draws) if mesh is None else sharded(mesh, batch, draws)))
+
+    for _ in range(WARMUP_STEPS):
+        one()
+    torch.cuda.synchronize()
+    _build.launch_counts.clear()
+    _build.policy_counts.clear()
+    t0 = time.perf_counter()
+    losses = [one()["loss"] for _ in range(TIMED_STEPS)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    check(bool(torch.isfinite(torch.stack(losses)).all()),
+          f"sample-parallel phase: every loss finite ({'mesh' if mesh else 'no mesh'})")
+    return dict(_build.launch_counts), dict(_build.policy_counts), ms
+
+
+def sp_frame(render_fn, pose_o, pose_r):
+    """The 400x400 frame, one ``render_fn`` call (a sample-parallel render)
+    a 4000-ray tile of the serving tiler."""
+    return _tiled_over_rays(lambda o, d, sx, sd: render_fn(o, d), pose_o, pose_r, IMAGE, IMAGE,
+                            FOCAL, RENDER.rays_per_tile, 3, None, None)
+
+
+def mesh_child(rank: int, init_method: str, work: str, device: torch.device) -> None:
+    """One of phase 19's ranks (spawned): gloo on ``device``, shared with
+    the other rank.  (b) The samples split 1x2: one reuse step on the
+    global batch and draws (``mesh_inputs.pt``), 3 steps, the first tile.
+    (c) The hidden width split 1x2: the classic and mip steps, the first
+    tile, then one Adam update and the sharded checkpoint; the counters
+    read over (c).  Writes ``mesh_rank<r>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    parallel.initialize(backend="gloo", init_method=init_method, world_size=MESH_RANKS, rank=rank,
+                        device=device, timeout_s=MESH_CHILD_TIMEOUT_S)
+    try:
+        inputs = torch.load(os.path.join(work, "mesh_inputs.pt"), map_location=device)
+        (batch, draws), (mip_batch, mip_draws) = inputs["classic"], inputs["mip"]
+        draws, mip_draws = sampling.StepDraws(*draws), sampling.StepDraws(*mip_draws)
+        tile_o, tile_d = inputs["tile"]
+        out = {}
+        sp = parallel.make_mesh_2d(1, MESH_RANKS)
+        model = make_model(True, device)
+        _build.launch_counts.clear()
+        loss, grads, _ = parallel.make_sample_parallel_loss_and_grads(model, TRAIN_RENDER, sp)(
+            *sharded(sp, batch, draws))
+        out["sp_launches"] = dict(_build.launch_counts)
+        out["sp"] = (loss.cpu(), {k: g.cpu() for k, g in grads.items()})
+        state = parallel.prepare_parallel_state(create_train_state(model, LEARNING_RATE, seed=3),
+                                                sp)
+        step = parallel.make_sample_parallel_train_step(model, TRAIN_RENDER, sp)
+        bank = RayBank(**inputs["bank"])
+        out["sp_losses"] = torch.stack([
+            step(state, *sharded(sp, *loop._sample(state, bank, TRAIN_RAYS, TRAIN_RENDER)))["loss"]
+            for _ in range(3)]).cpu()
+        out["sp_weights"] = torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu()
+        out["sp_tile"] = parallel.make_sample_parallel_render(make_model(True, device), RENDER, sp)(
+            tile_o, tile_d).cpu()
+
+        tp = parallel.make_mesh_2d(1, MESH_RANKS, second_axis=parallel.MODEL_AXIS)
+        _build.launch_counts.clear()
+        state = parallel.prepare_tp_state(create_train_state(make_model(False, device),
+                                                             LEARNING_RATE, seed=3), tp)
+        out["tp_tile"] = parallel.make_tp_render_rays(state.model, RENDER, tp)(tile_o,
+                                                                              tile_d).cpu()
+        fn = parallel.make_tp_loss_and_grads(state.model, TRAIN_RENDER, tp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, aux = fn(batch, draws)
+        torch.cuda.synchronize()
+        out["tp_ms"] = (time.perf_counter() - t0) * 1e3
+        out["tp"] = (loss.cpu(), {k: g.cpu() for k, g in grads.items()})
+        mip = parallel.prepare_tp_state(create_train_state(make_mip_model(False, device),
+                                                           LEARNING_RATE, seed=3), tp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mip_loss, mip_grads, _ = parallel.make_tp_loss_and_grads(mip.model, MIP_TRAIN_RENDER, tp)(
+            mip_batch, mip_draws)
+        torch.cuda.synchronize()
+        out["tp_mip_ms"] = (time.perf_counter() - t0) * 1e3
+        out["tp_mip"] = (mip_loss.cpu(), {k: g.cpu() for k, g in mip_grads.items()})
+        loop._apply(state, grads, aux)
+        t0 = time.perf_counter()
+        out["tp_ckpt"] = checkpoint.save_checkpoint(os.path.join(work, "tp_ckpt"), state)
+        out["tp_ckpt_ms"] = (time.perf_counter() - t0) * 1e3
+        _, mu, nu = checkpoint.adam_state(state)
+        out["tp_state"] = {"weights": {k: v.detach().cpu() for k, v in
+                                       state.model.mlp.state_dict().items()},
+                           "mu": {k: v.cpu() for k, v in mu.items()},
+                           "nu": {k: v.cpu() for k, v in nu.items()}}
+        torch.cuda.synchronize()
+        out["tp_launches"] = dict(_build.launch_counts)
+        torch.save(out, os.path.join(work, f"mesh_rank{rank}.pt"))
+    finally:
+        parallel.shutdown()
+
+
+def put_together(parts: list, whole: dict) -> dict:
+    """Tensors of the whole model from the model axis's slices: each split
+    along the one dim where its shape differs from the whole tensor's, in
+    the ranks' order; a slice of the whole shape is replicated (every rank's
+    must be equal)."""
+    out, differ = {}, []
+    for name, ref in whole.items():
+        pieces = [p[name] for p in parts]
+        dims = [d for d, (a, b) in enumerate(zip(pieces[0].shape, ref.shape)) if a != b]
+        out[name] = torch.cat(pieces, dim=dims[0]) if dims else pieces[0]
+        if not dims and not all(torch.equal(p, pieces[0]) for p in pieces[1:]):
+            differ.append(name)
+    check(not differ, f"TP: every rank holds the same replicated tensors ({differ or 'none differ'})")
+    return out
+
+
+def mesh_two_ranks(device, bank, mip_bank, sp_ref, tile_a, plain_model) -> None:
+    """Phase 19(b, c): two spawned ranks over gloo on cuda:0."""
+    import multiprocessing
+    import socket
+
+    batch, draws, sp_loss, sp_grads = sp_ref
+    gen = torch.Generator(device=device).manual_seed(22)
+    mip_batch = mip_bank.sample_batch(gen, MIP_RAYS)
+    mip_draws = loop.draws_for_model(gen, make_mip_model(False, device), MIP_TRAIN_RENDER,
+                                     MIP_RAYS, device)
+    tile_o, tile_d = tile_a[0]
+    tp_ref = plain_steps(lambda: make_model(False, device), TRAIN_RENDER, batch, draws)
+    mip_ref = plain_steps(lambda: make_mip_model(False, device), MIP_TRAIN_RENDER, mip_batch,
+                          mip_draws, 0.0)  # JAX's make_tp_train_step fixes the seg weight at 0.0
+    with torch.no_grad():
+        plain_tile = plain_model.render_rays(tile_o, tile_d, RENDER).rgb[..., -1, :]
+    with tempfile.TemporaryDirectory() as work:
+        torch.save({"classic": (batch, tuple(draws)), "mip": (mip_batch, tuple(mip_draws)),
+                    "tile": (tile_o, tile_d),
+                    "bank": {f.name: getattr(bank, f.name) for f in dataclasses.fields(RayBank)}},
+                   os.path.join(work, "mesh_inputs.pt"))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=mesh_child, args=(r, f"tcp://127.0.0.1:{port}", work, device))
+                 for r in range(MESH_RANKS)]
+        t0 = time.perf_counter()
+        for proc in procs:
+            proc.start()
+        try:
+            for proc in procs:
+                proc.join(MESH_CHILD_TIMEOUT_S)
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+        codes = [proc.exitcode for proc in procs]
+        check(codes == [0] * MESH_RANKS, f"SP and TP: two ranks over gloo on {device} ran and "
+                                         f"exited 0 (exit codes {codes}, "
+                                         f"{time.perf_counter() - t0:.1f} s)")
+        outs = [torch.load(os.path.join(work, f"mesh_rank{r}.pt")) for r in range(MESH_RANKS)]
+        full = checkpoint.restore_checkpoint(
+            outs[0]["tp_ckpt"], create_train_state(make_model(False, device), LEARNING_RATE))
+        names = sorted(os.listdir(os.path.join(work, "tp_ckpt")))
+    # (b)
+    for r, out in enumerate(outs):
+        check(out["sp_launches"] == SP_STEP_LAUNCHES,
+              f"SP 1x2 rank {r}: one K1-fwd and one K1-bwd a stage's slice ({out['sp_launches']})")
+    check_step(f"SP reuse step at 1x{MESH_RANKS} (gloo, {device}) against the step without a mesh",
+               *outs[0]["sp"], (sp_loss, sp_grads))
+    check(all(torch.equal(o["sp"][0], outs[0]["sp"][0])
+              and torch.equal(o["sp_losses"], outs[0]["sp_losses"])
+              and torch.equal(o["sp_weights"], outs[0]["sp_weights"]) for o in outs[1:]),
+          "SP 1x2: both ranks' losses, and weights after 3 steps, bitwise equal")
+    tile_err = float((outs[0]["sp_tile"] - tile_a[1].cpu()).abs().max())
+    print(f"SP 1x{MESH_RANKS} first tile against one rank's: max difference {tile_err:.3e} "
+          f"(tolerance {MESH_TILE_ATOL})", flush=True)
+    check(tile_err <= MESH_TILE_ATOL and torch.equal(outs[0]["sp_tile"], outs[1]["sp_tile"]),
+          f"SP 1x{MESH_RANKS}: both ranks' first tile equal and within {MESH_TILE_ATOL} of one "
+          f"rank's")
+    # (c)
+    for r, out in enumerate(outs):
+        check(out["tp_launches"] == {}, f"TP rank {r}: no kernel launched ({out['tp_launches']})")
+    whole = dict(plain_model.named_parameters())
+    for name, key, ref, ms in (("classic reuse 2048x(64+128)", "tp", tp_ref, "tp_ms"),
+                               ("mip 4096x64, seg 0.0", "tp_mip", mip_ref, "tp_mip_ms")):
+        if key == "tp_mip":
+            whole = dict(make_mip_model(False, device).named_parameters())
+        grads = put_together([o[key][1] for o in outs], whole)
+        check_step(f"TP {name} at 1x{MESH_RANKS} (gloo, {device}) against the plain step",
+                   outs[0][key][0], grads, *ref)
+        print(f"TP {name}: {outs[0][ms]:.1f} ms for the loss and gradients on rank 0 (gloo stages "
+              f"every collective through the host: not a speed figure)", flush=True)
+    tile_err = float((outs[0]["tp_tile"] - plain_tile.cpu()).abs().max())
+    print(f"TP 1x{MESH_RANKS} first tile against the plain render: max difference {tile_err:.3e} "
+          f"(tolerance {MESH_TILE_ATOL})", flush=True)
+    check(tile_err <= MESH_TILE_ATOL, f"TP 1x{MESH_RANKS}: the first tile within {MESH_TILE_ATOL} "
+                                      f"of the plain render")
+    check(names == ["checkpoint_1.npz"] + [f"checkpoint_1.shards{r}.npz" for r in range(MESH_RANKS)],
+          f"TP: the sharded layout, one shard file a rank ({names}; "
+          f"{outs[0]['tp_ckpt_ms']:.1f} ms on rank 0)")
+    count, mu, nu = checkpoint.adam_state(full)
+    got = {"weights": {k: v.cpu() for k, v in full.model.mlp.state_dict().items()},
+           "mu": {k: v.cpu() for k, v in mu.items()}, "nu": {k: v.cpu() for k, v in nu.items()}}
+    same = full.step == 1 and count == 1
+    for part, tensors in got.items():
+        want = put_together([o["tp_state"][part] for o in outs], tensors)
+        same = same and all(torch.equal(tensors[k], want[k]) for k in tensors)
+    check(same, "TP: the sharded checkpoint restored onto the whole model equals the ranks' "
+                "weights and Adam's moments, bitwise")
+
+
+def mesh_phase(device, bank, mip_bank, card: str) -> dict:
+    """Phase 19: (a) one rank over NCCL, (b, c) two ranks over gloo.
+    Returns each kernel's launches in (a)'s timed sample-parallel run and
+    frame."""
+    parallel.initialize()  # no launcher environment: a group of one on cuda:0
+    try:
+        mesh = parallel.make_mesh_2d(1, 1)
+        check(dist.get_backend() == "nccl" and mesh.shape == {"batch": 1, "sample": 1},
+              f"SP: an NCCL 1x1 (batch, sample) mesh on {mesh.device}")
+        model = make_model(True, device)
+        gen = torch.Generator(device=device).manual_seed(23)
+        batch = bank.sample_batch(gen, TRAIN_RAYS)
+        draws = sampling.draw_step(gen, TRAIN_RENDER, TRAIN_RAYS, device)
+        ref_loss, ref_grads = autograd_step(model, TRAIN_RENDER, batch, draws)
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        _build.policy_counts.clear()
+        loss, grads, _ = parallel.make_sample_parallel_loss_and_grads(model, TRAIN_RENDER, mesh)(
+            *sharded(mesh, batch, draws))
+        torch.cuda.synchronize()
+        launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+        check(launches == SP_STEP_LAUNCHES,
+              f"SP step at 1x1: one K1-fwd and one K1-bwd a stage's slice ({launches})")
+        check_policies("SP step at 1x1", launches, policies, "tc")
+        check_step("SP reuse step at 1x1 (NCCL) against the step without a mesh", loss, grads,
+                   (ref_loss, ref_grads))
+
+        total = collections.Counter()
+        times = {None: [], "mesh": []}
+        for run_mesh in (None, mesh, mesh, None):
+            run_launches, run_policies, ms = sp_timed_run(make_model(True, device), bank, run_mesh)
+            times[None if run_mesh is None else "mesh"].append(ms)
+            expected = {k: v * TIMED_STEPS for k, v in SP_STEP_LAUNCHES.items()}
+            check(run_launches == expected, f"SP timed run ({'mesh' if run_mesh else 'no mesh'}): "
+                                            f"{expected} ({run_launches})")
+            check_policies("SP timed run", run_launches, run_policies, "tc")
+            if run_mesh is not None and len(times["mesh"]) == 1:
+                total.update(run_launches)
+        sp_ms, plain_ms = np.mean(times["mesh"]), np.mean(times[None])
+        print(f"SP reuse 2048x(64+128) at 1x1 (NCCL): "
+              f"{', '.join(f'{t:.2f}' for t in times['mesh'])} ms/step, mean {sp_ms:.2f} = "
+              f"{TRAIN_RAYS / sp_ms * 1e3:.0f} rays/s; the same autograd step without a mesh "
+              f"{', '.join(f'{t:.2f}' for t in times[None])}, mean {plain_ms:.2f} = "
+              f"{TRAIN_RAYS / plain_ms * 1e3:.0f} rays/s (ratio {sp_ms / plain_ms:.4f}); {card}",
+              flush=True)
+        grads_flat = [torch.rand_like(p) for p in model.parameters()]
+        collective_ms = cuda_ms(lambda: flat_collective(grads_flat, mesh, "sum"), iters=50)
+        handoff = torch.rand(1, TRAIN_RAYS, 1, device=device)
+        handoff_ms = cuda_ms(lambda: all_gather(handoff, mesh.axis(parallel.SAMPLE_AXIS), dim=0),
+                             iters=50)
+        print(f"SP collectives at 1x1: the gradients' flat all_reduce {collective_ms:.4f} ms, one "
+              f"transmittance hand-off (the gather of {TRAIN_RAYS} totals) {handoff_ms:.4f} ms "
+              f"(CUDA events)", flush=True)
+
+        eval_model = make_model(True, device).eval().requires_grad_(False)
+        render_fn = parallel.make_sample_parallel_render(eval_model, RENDER, mesh)
+        pose_o, pose_r = spherical_poses(1, radius=4.0, device=device)
+        sp_frame(render_fn, pose_o, pose_r)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launch_counts.clear()
+        _build.policy_counts.clear()
+        t0 = time.perf_counter()
+        image = sp_frame(render_fn, pose_o, pose_r)
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+        total.update(launches)
+        n_tiles = IMAGE * IMAGE // RENDER.rays_per_tile
+        check(launches == {"classic_mlp_fwd": 2 * n_tiles},
+              f"SP frame: one K1-fwd for the coarse and one for the fine slice a tile ({launches})")
+        check_policies("SP frame", launches, policies, "tc")
+        plain_model = make_model(False, device)
+        plain_image = plain_model.render_image(pose_o, pose_r, IMAGE, IMAGE, FOCAL, RENDER)
+        pixel_err = float((image - plain_image).abs().max())
+        print(f"SP frame {IMAGE}x{IMAGE} at 1x1 in {n_tiles} tiles of {RENDER.rays_per_tile} rays: "
+              f"{frame_ms:.1f} ms, peak {peak_gb:.2f} GB; max pixel difference from the plain "
+              f"render {pixel_err:.3e} (tolerance {TOL['frame']['atol']}); {card}", flush=True)
+        check(image.shape == (1, IMAGE, IMAGE, 3) and bool(torch.isfinite(image).all())
+              and pixel_err <= TOL["frame"]["atol"],
+              "SP frame: finite, and within the frame tolerance of the plain render")
+        rays_o, rays_d = pose_to_rays(pose_o, pose_r, IMAGE, IMAGE, FOCAL)
+        tile = slice(0, RENDER.rays_per_tile)
+        tile_a = ((rays_o.reshape(-1, 3)[tile], rays_d.reshape(-1, 3)[tile]),
+                  image.reshape(-1, 3)[tile])
+    finally:
+        parallel.shutdown()
+    mesh_two_ranks(device, bank, mip_bank, (batch, draws, ref_loss, ref_grads), tile_a,
+                   plain_model)
+    return dict(total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA GPU",
@@ -2933,12 +3374,14 @@ def main() -> int:
                                       card))
     dp_launches = data_parallel_phase(device, bank, mip_keep["bank"], step_ms,
                                       mip_keep["step_ms"], card)
+    sp_launches = mesh_phase(device, bank, mip_keep["bank"], card)
 
-    # 19. Result lines.
+    # 20. Result lines.
     kernels = [kernel_row(name, launches, **row) for name, (launches, row) in rows.items()]
     for row in kernels:
         row["cli_launches"] = cli_launches.get(row["name"], 0)
         row["dp_launches"] = dp_launches.get(row["name"], 0)
+        row["sp_launches"] = sp_launches.get(row["name"], 0)
         row.update(bf16.get(row["name"], dict.fromkeys(BF16_ROW_KEYS)))
     print(json.dumps({"kernels": kernels}))
     print(card)

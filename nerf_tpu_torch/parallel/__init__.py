@@ -1,5 +1,6 @@
-"""Parallel layer: process groups, the data-parallel mesh, step and
-render, and the watchdog (heartbeats and the restarting supervisor)."""
+"""Parallel layer: process groups, meshes (1-D data parallel, 2-D with a
+sample or model axis), the data-, sample- and tensor-parallel steps and
+renders, and the watchdog (heartbeats and the restarting supervisor)."""
 from nerf_tpu_torch.parallel import distributed
 from nerf_tpu_torch.parallel.distributed import (
     collective_barrier,
@@ -8,7 +9,16 @@ from nerf_tpu_torch.parallel.distributed import (
     is_coordinator,
     shutdown,
 )
-from nerf_tpu_torch.parallel.mesh import BATCH_AXIS, Mesh, make_mesh, replicate, shard_batch
+from nerf_tpu_torch.parallel.mesh import (
+    BATCH_AXIS,
+    MODEL_AXIS,
+    SAMPLE_AXIS,
+    Mesh,
+    make_mesh,
+    make_mesh_2d,
+    replicate,
+    shard_batch,
+)
 from nerf_tpu_torch.parallel.train import (
     make_parallel_loss_and_grads,
     make_parallel_multi_step_train_fn,
@@ -18,6 +28,21 @@ from nerf_tpu_torch.parallel.train import (
     prepare_parallel_state,
     render_image_sharded,
     shard_draws,
+)
+from nerf_tpu_torch.parallel.sample_parallel import (
+    make_sample_parallel_loss_and_grads,
+    make_sample_parallel_render,
+    make_sample_parallel_train_step,
+)
+from nerf_tpu_torch.parallel.tensor_parallel import (
+    classic_param_specs,
+    make_tp_loss_and_grads,
+    make_tp_render_rays,
+    make_tp_train_step,
+    mip_param_specs,
+    param_specs_for,
+    prepare_tp_state,
+    shard_params,
 )
 from nerf_tpu_torch.parallel.watchdog import (
     Heartbeat,

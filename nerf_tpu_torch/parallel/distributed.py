@@ -35,8 +35,10 @@ logger = logging.getLogger(__name__)
 # hanging the run (the watchdog's supervisor restarts it).
 DEFAULT_TIMEOUT_S = 300.0
 
-# The device of the default group's collectives, set by ``initialize``.
+# The device of the default group's collectives and its timeout, set by
+# ``initialize`` (the mesh's axis groups take the same timeout).
 _group_device: Optional[torch.device] = None
+_group_timeout: Optional[datetime.timedelta] = None
 
 
 def initialize(
@@ -53,7 +55,7 @@ def initialize(
     group of one (rank 0, an in-process store).  ``init_method`` is a
     ``tcp://host:port`` or ``file://path`` address, or ``env://``
     (the default when ``MASTER_ADDR`` and ``MASTER_PORT`` are set)."""
-    global _group_device
+    global _group_device, _group_timeout
     if dist.is_initialized():
         raise RuntimeError("a process group is already initialized; call shutdown() first")
     env = os.environ
@@ -84,7 +86,7 @@ def initialize(
     else:
         dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
                                 world_size=world_size, timeout=timeout)
-    _group_device = device
+    _group_device, _group_timeout = device, timeout
     logger.info("initialized rank %d/%d on %s over %s", rank, world_size, device, backend)
     return device
 
@@ -94,6 +96,12 @@ def group_device() -> torch.device:
     if not dist.is_initialized() or _group_device is None:
         raise RuntimeError("no process group: call distributed.initialize() first")
     return _group_device
+
+
+def group_timeout() -> datetime.timedelta:
+    """The default group's timeout, which every group made beside it takes."""
+    group_device()  # raises without a group
+    return _group_timeout
 
 
 def rank() -> int:
@@ -135,7 +143,7 @@ def collective_barrier(tag: int = 0) -> None:
 
 def shutdown() -> None:
     """Destroy the default group (a no-op without one)."""
-    global _group_device
+    global _group_device, _group_timeout
     if dist.is_initialized():
-        dist.destroy_process_group()
-    _group_device = None
+        dist.destroy_process_group()  # every group, the mesh's axis groups too
+    _group_device = _group_timeout = None

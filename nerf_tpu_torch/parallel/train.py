@@ -85,9 +85,9 @@ def make_parallel_loss_and_grads(model, render: RenderConfig, mesh: Mesh,
 def _global_draws(state: TrainState, model, render: RenderConfig, local_n: int,
                   mesh: Mesh, device) -> sampling.StepDraws:
     """This rank's rows of the draws of a global batch of ``local_n``
-    rows a rank, from ``step_generator(state)``."""
+    rows a batch shard, from ``step_generator(state)``."""
     draws = loop.draws_for_model(step_generator(state, device), model, render,
-                            local_n * mesh.size, device)
+                                 local_n * mesh.axes[0].size, device)
     return shard_draws(draws, mesh)
 
 

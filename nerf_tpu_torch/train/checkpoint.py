@@ -28,15 +28,22 @@ and seed, but does not continue the JAX run's trajectory: the port's
 per-step draws come from torch's Philox generator seeded from (seed,
 step) (``state.step_generator``), JAX's from threefry.
 
-Restore also reads JAX's sharded layout: a ``checkpoint_<step>.npz``
-manifest (``sharded``, ``num_shard_files``, each leaf's ``shape`` and
-``dtype``, or its ``value``) beside one ``checkpoint_<step>.shards<p>.npz``
-per process, whose ``leaf_<i>.s<j>.data`` pieces carry their global index
-bounds (``.bounds``, ``[dims, 2]``).  Each leaf is reassembled from its
-pieces; a missing shard file or an uncovered element raises.  The port
-saves the single-file layout only: a data-parallel state is replicated,
-so the coordinator writes it alone while a process group is up, as JAX
-picks the single file for replicated states.
+The sharded layout is JAX's too: a ``checkpoint_<step>.npz`` manifest
+(``sharded``, ``num_shard_files``, each leaf's ``shape`` and ``dtype``, or
+its ``value``) beside one ``checkpoint_<step>.shards<p>.npz`` per rank,
+whose ``leaf_<i>.s<j>.data`` pieces carry their global index bounds
+(``.bounds``, ``[dims, 2]``, in JAX's ``[in, out]`` layout).  It is written
+when a leaf is split across ranks, a tensor-parallel state over a model
+axis of more than one rank (``parallel/tensor_parallel.py``): every rank
+writes the blocks it owns (index 0 along each axis the leaf is not split
+over, JAX's ``replica_id == 0``), then, after a barrier, rank 0 writes the
+manifest, whose presence marks the checkpoint complete; the step, Adam's
+count and the key are manifest values.  Restore reassembles each leaf
+from its pieces (a missing shard file or an uncovered element raises), and
+a tensor-parallel state takes its own block of each, so a checkpoint
+restores onto another mesh shape.  Any other state is replicated: the
+coordinator writes the single file alone while a process group is up, as
+JAX picks the single file for replicated states.
 """
 
 from __future__ import annotations
@@ -55,16 +62,21 @@ from nerf_tpu_torch.train.state import TrainState
 from nerf_tpu_torch.utils import pth_import
 
 _CKPT_RE = re.compile(r"checkpoint_(\d+)\.npz$")
+_SHARDS_RE = re.compile(r"checkpoint_(\d+)\.shards(\d+)\.npz$")
 _ADAM = ".opt_state[0]"
+# The trees whose leaves are the model's tensors (written to shard files
+# in the sharded layout); the step, the count and the key are scalars.
+_TENSOR_TREES = (".params", f"{_ADAM}.mu", f"{_ADAM}.nu")
 
 
 def _flatten(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
     """``(keystr, leaf)`` pairs of a nested dict/list tree in JAX's
-    flatten order: dict keys sorted, lists by index."""
+    flatten order: dict keys sorted, lists by index.  A tuple is a leaf (a
+    tensor-parallel partition spec)."""
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from _flatten(tree[key], f"{path}[{key!r}]")
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, list):
         for i, sub in enumerate(tree):
             yield from _flatten(sub, f"{path}[{i}]")
     else:
@@ -75,7 +87,7 @@ def _refill(tree: Any, leaves: Iterator) -> Any:
     """``tree`` with its leaves replaced, in ``_flatten``'s order."""
     if isinstance(tree, dict):
         return {key: _refill(tree[key], leaves) for key in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, list):
         return [_refill(sub, leaves) for sub in tree]
     return next(leaves)
 
@@ -143,12 +155,39 @@ def _atomic_savez(directory: str, path: str, payload: dict) -> None:
             os.remove(tmp)
 
 
-def save_checkpoint(directory: str, state: TrainState, keep: int = 3) -> str:
-    """Atomically write ``checkpoint_<step>.npz``; prune to the ``keep``
-    newest.  Returns the path.  While a process group is up only rank 0
-    writes (the state is replicated); the other ranks return the path
-    without writing, and callers that read it back wait at a barrier."""
+def _blocks(state: TrainState) -> Dict[str, Tuple[Tuple[int, ...], np.ndarray, bool]]:
+    """By leaf name, the tensor leaves of a tensor-parallel state: global
+    shape, this rank's block (``[dims, 2]`` bounds) and whether this rank
+    writes it (``TensorParallelMLP.jax_layout``); empty for any other
+    state."""
+    layout = getattr(state.model.mlp, "jax_layout", None) or {}
+    return {prefix + path: block for prefix in _TENSOR_TREES for path, block in layout.items()}
+
+
+def _is_split(blocks) -> bool:
+    return any(tuple(b[:, 1] - b[:, 0]) != shape for shape, b, _ in blocks.values())
+
+
+def save_checkpoint(directory: str, state: TrainState, keep: int = 3,
+                    sharded: Optional[bool] = None) -> str:
+    """Atomically write checkpoint ``<step>``; prune to the ``keep``
+    newest.  Returns the path of ``checkpoint_<step>.npz``.
+
+    ``sharded``: the layout (``None`` picks the sharded one when a leaf is
+    split across ranks).  In the single-file layout only rank 0 writes
+    while a process group is up (the state is replicated); the other ranks
+    return the path without writing, and callers that read it back wait at
+    a barrier.  In the sharded layout every rank must call this: each
+    writes its shard file, rank 0 the manifest between two barriers."""
     path = os.path.join(directory, f"checkpoint_{int(state.step)}.npz")
+    blocks = _blocks(state)
+    if sharded is None:
+        sharded = _is_split(blocks)
+    if sharded:
+        _save_sharded(directory, path, state, blocks, keep)
+        return path
+    if _is_split(blocks):
+        raise ValueError("the state is split across ranks: save it in the sharded layout")
     if dist.is_initialized() and dist.get_rank() != 0:
         return path
     os.makedirs(directory, exist_ok=True)
@@ -160,10 +199,66 @@ def save_checkpoint(directory: str, state: TrainState, keep: int = 3) -> str:
     return path
 
 
-def _prune(directory: str, keep: int) -> None:
-    """Remove the checkpoints older than the ``keep`` newest."""
-    for name in all_checkpoints(directory)[:-keep]:
-        os.remove(os.path.join(directory, name))
+def _save_sharded(directory: str, path: str, state: TrainState, blocks, keep: int) -> None:
+    """The sharded layout: this rank's blocks in its shard file, then rank
+    0's manifest between two barriers, then each rank's pruning."""
+    from nerf_tpu_torch.parallel import distributed  # train/loop.py imports that package
+
+    group = dist.is_initialized()
+    rank, world = (dist.get_rank(), dist.get_world_size()) if group else (0, 1)
+    os.makedirs(directory, exist_ok=True)
+    leaves = _state_leaves(_state_trees(state))
+    payload, manifest = {}, {}
+    for i, (name, leaf) in enumerate(leaves):
+        key = f"leaf_{i:05d}"
+        if not name.startswith(_TENSOR_TREES):
+            manifest[f"{key}.value"] = leaf
+            continue
+        full = np.stack([np.zeros(leaf.ndim, np.int64), np.asarray(leaf.shape, np.int64)], -1)
+        shape, bounds, writes = blocks.get(name, (leaf.shape, full, rank == 0))
+        manifest[f"{key}.shape"] = np.asarray(shape, dtype=np.int64)
+        manifest[f"{key}.dtype"] = np.asarray(str(leaf.dtype))
+        if writes:
+            payload[f"{key}.s0.data"] = leaf
+            payload[f"{key}.s0.bounds"] = bounds
+    step = int(state.step)
+    _atomic_savez(directory, os.path.join(directory, f"checkpoint_{step}.shards{rank}.npz"),
+                  payload)
+    if group:  # every shard file written before the manifest marks completion
+        distributed.collective_barrier()
+    if rank == 0:
+        manifest.update(leaf_names=np.asarray([name for name, _ in leaves]),
+                        sharded=np.asarray(True), num_shard_files=np.asarray(world))
+        _atomic_savez(directory, path, manifest)
+    if group:
+        distributed.collective_barrier()
+    _prune(directory, keep, proc=rank)
+
+
+def _prune(directory: str, keep: int, proc: int = 0) -> None:
+    """Remove the checkpoints older than the ``keep`` newest: rank
+    ``proc``'s own shard files, and on rank 0 the manifests and single
+    files.  The newest are counted over the manifests and this rank's own
+    shard files, so a rank that lists the directory after rank 0 pruned
+    still drops its files of the same steps."""
+    names = os.listdir(directory)
+    steps, own = set(), []
+    for name in names:
+        m = _CKPT_RE.match(name)
+        if m:
+            steps.add(int(m.group(1)))
+        m = _SHARDS_RE.match(name)
+        if m and int(m.group(2)) == proc:
+            steps.add(int(m.group(1)))
+            own.append((int(m.group(1)), name))
+    drop = set(sorted(steps)[:-keep])
+    for name in names:
+        m = _CKPT_RE.match(name)
+        if proc == 0 and m and int(m.group(1)) in drop:
+            os.remove(os.path.join(directory, name))
+    for step, name in own:
+        if step in drop:
+            os.remove(os.path.join(directory, name))
 
 
 def all_checkpoints(directory: str) -> List[str]:
@@ -247,6 +342,14 @@ def _read_sharded(path: str, manifest) -> Tuple[List[str], List[np.ndarray]]:
     return names, arrays
 
 
+def _own_block(name: str, array: np.ndarray, block) -> np.ndarray:
+    """This rank's block of a whole leaf read from a checkpoint."""
+    shape, bounds, _ = block
+    if array.shape != shape:
+        raise ValueError(f"checkpoint leaf shape mismatch at {name}: {array.shape} vs {shape}")
+    return array[tuple(slice(a, b) for a, b in bounds)]
+
+
 def load_adam_state(state: TrainState, count: int, mu: Dict[str, torch.Tensor],
                     nu: Dict[str, torch.Tensor]) -> None:
     """Set Adam's ``step`` to ``count`` and its moments to ``mu`` and
@@ -272,7 +375,8 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint into ``state`` (in place; returned): the weights
     (``load_state_dict``), Adam's ``exp_avg``, ``exp_avg_sq`` and ``step``
     on the parameters' device, ``state.step`` and ``state.seed``.  Reads
-    the single-file layout and JAX's sharded one.
+    the single-file layout and the sharded one; a tensor-parallel state
+    takes its own block of each leaf.
 
     Validates the leaf names and shapes against ``state``'s model first,
     so a config or architecture mismatch raises ``ValueError`` naming the
@@ -284,7 +388,12 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
             names = [str(n) for n in data["leaf_names"]]
             arrays = [data[f"leaf_{i:05d}"] for i in range(len(names))]
     trees = _state_trees(state)
-    _validate(names, arrays, _state_leaves(trees))
+    want = _state_leaves(trees)
+    blocks = _blocks(state)
+    if names == [name for name, _ in want]:  # else _validate names the mismatch
+        arrays = [_own_block(name, a, blocks[name]) if name in blocks else a
+                  for name, a in zip(names, arrays)]
+    _validate(names, arrays, want)
     leaves = dict(zip(names, arrays))
 
     def tree(prefix: str) -> Dict[str, torch.Tensor]:

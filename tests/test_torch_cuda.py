@@ -2319,3 +2319,50 @@ def test_data_parallel_reuse_step_at_one_rank_is_the_step_without_a_mesh(cuda):
                                                      sharded.model.parameters()))
     finally:
         parallel.shutdown()
+
+
+# -- sample parallelism (slice 16) ---------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_sample_parallel_reuse_step_at_one_rank_is_the_step_without_a_mesh(cuda):
+    # An NCCL group of one on a 1x1 (batch, sample) mesh: the full-width
+    # reuse step (2048 x (64 + 128), stratified jitter, density noise 1.0)
+    # through autograd, one K1-fwd and one K1-bwd for each stage's slice,
+    # against the same autograd step without a mesh: the loss within rtol
+    # 1e-5, every gradient within relative L2 1e-4 (chip_smoke.py phase 19a).
+    from nerf_tpu_torch import parallel
+    from nerf_tpu_torch.data import RayBank
+    from nerf_tpu_torch.train import make_loss_fn
+
+    render = RenderConfig(num_coarse_samples=64, num_fine_samples=128, density_noise_std=1.0)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    images = rand(gen, 2, 32, 32, 3, lo=0.0, hi=1.0)
+    poses_r = torch.linalg.qr(rand(gen, 2, 3, 3))[0]
+    bank = RayBank.from_images(images, rand(gen, 2, 3) * 4.0, poses_r, 40.0)
+    model = ClassicNeRF(ClassicNeRFConfig(normalize_position=6.0, use_pallas=True),
+                        generator=torch.Generator().manual_seed(0), device=cuda)
+    with torch.no_grad():  # mass in every bin (see chip_smoke.py)
+        model.mlp.density.bias.fill_(0.5)
+        model.mlp.density.weight.mul_(0.05)
+    batch = bank.sample_batch(gen, 2048)
+    draws = sampling.draw_step(gen, render, 2048, cuda)
+    names, params = zip(*model.named_parameters())
+    with torch.enable_grad():
+        ref_loss, _ = make_loss_fn(model, render)(batch, draws)
+    ref = dict(zip(names, torch.autograd.grad(ref_loss, params)))
+
+    parallel.initialize(device=cuda, timeout_s=120.0)
+    try:
+        mesh = parallel.make_mesh_2d(1, 1)
+        assert torch.distributed.get_backend() == "nccl"
+        _build.launch_counts.clear()
+        loss, grads, _ = parallel.make_sample_parallel_loss_and_grads(model, render, mesh)(
+            parallel.shard_batch(batch, mesh), parallel.shard_draws(draws, mesh))
+        torch.cuda.synchronize()
+        assert _build.launch_counts == {"classic_mlp_fwd": 2, "classic_mlp_bwd": 2}
+    finally:
+        parallel.shutdown()
+    torch.testing.assert_close(loss, ref_loss.detach(), rtol=1e-5, atol=0)
+    for name, g in ref.items():
+        assert float((grads[name] - g).norm() / g.norm()) <= 1e-4, name
