@@ -9,10 +9,10 @@
    seconds it took and each kernel's registers, spills and ptxas C75xx
    notes (a ``wgmma`` serialized), labelled with the pass it runs
    (every kernel's MLP products run as 3xTF32 ``wgmma`` on the tensor
-   cores, ``csrc/tc_mlp.cuh``, K5-bwd's and K8-bwd's inputs' cotangents
-   too, with a float32 SIMT tile for encodings or features too wide for
-   theirs, and K1-bwd's float32 SIMT passes where the encodings'
-   cotangents are asked for).
+   cores, ``csrc/tc_mlp.cuh``, the inputs' cotangents of K1-bwd, K5-bwd
+   and K8-bwd too; the classic tiles at every encoding width, the mip
+   forward tiles with a float32 SIMT tile for features too wide for
+   theirs).
 3. Serving (slice 1): holds K1-fwd (``classic_mlp_fwd``, 262,144 points)
    and K4 (``union_eval``, the first 4000-ray tile of the frame) against
    their plain PyTorch versions, then renders one 400x400 frame of 64
@@ -35,8 +35,8 @@
    the tensor cores); prints ms/step and rays/s.
 6. Holds K1-bwd, K2 and K3 against their plain versions on the inputs the
    trainer gave them (K1-bwd with random cotangents, as the reuse step
-   calls it, on the tensor cores, and once with the encodings' cotangents,
-   on the float32 SIMT passes), with their times and bounds.
+   calls it, and once with the encodings' cotangents, both on the tensor
+   cores), with their times and bounds.
 7. Mip serving (slice 3): holds K7 (``mip_eval``) against its plain version
    on the first 4000-ray tile of the frame, then renders one 400x400 frame
    of 64 log-bbox fenceposts (63 intervals) through ``MipNeRF.render_image``
@@ -82,22 +82,28 @@
    nothing else; every loss finite, the probe batch's loss lower after the
    run; ms/step and rays/s beside the reuse step's of phase 4.  Then K9
    against its plain version with its time and bound.
-13. Latent widths (slice 6): the full-width ClassicNeRF conditioned on
-   2 + 1 latent scalars (``density_inputs=5, color_inputs=4``: encodings
-   100 + 48, past the tensor-core tiles of K2, K3 and K4 at hidden 256).
-   One 4000-ray tile of the frame through ``render_rays`` with per-image
-   states (one K1-fwd and one K4, which must record the float32 SIMT
-   tile), held against the plain path, and K4 against its plain version
-   on its arguments; then one reuse step at 2048 x (64 + 128) (one
-   K1-fwd, one K1-bwd and one K3, each recording the SIMT tile)
-   and one coarse-only step at 4096 x 64 (one K2, the same) against the
-   plain path.  Prints the policy each ran.  Then K8-fwd at x encodings
-   120 + 36 and K5-fwd at 144 features (slice 10), each of which must run
-   its float32 SIMT tile, against their plain versions.
+13. Latent widths: the conditional trainer's full-width ClassicNeRF with a
+   7-joint arm's state and a 32-scalar state (3 + s density inputs:
+   encodings 200 + 36 and 700 + 36, streamed through the tensor-core
+   tiles), in float32 and in bf16.  At each: one 4000-ray tile of
+   the frame through ``render_rays`` with per-image states (one K1-fwd and
+   one K4), one reuse step at 2048 x (64 + 128) (one K1-fwd, one K1-bwd,
+   one K3) and one coarse-only step at 4096 x 64 (one K2), every launch on
+   ``tc`` (``tc_bf16``), against the plain path (bf16: the same model with
+   ``plain_versions()``); then K1-fwd (65,536 rows), K1-bwd without and
+   with the encodings' cotangents (65,536 rows, a loss's cotangents), K2
+   (the conditional trainer's 1024 x 64), K3 (512 x (64 + 128)), K4 (512
+   rays x (64 + 128)) and K8-fwd (65,536 points at x encodings 204 + 36
+   and 702 + 36) against their plain versions, each timed beside its
+   plain version and its bounds (float32 SIMT, 3xTF32, bf16 operations;
+   bytes) with the card's name and power limit.  Then K5-fwd at 144
+   features, which must run its float32 SIMT tile, against its plain
+   version.
 14. The user's entry points (slice 11), in a temporary directory, each
    with the counters zeroed just before it and read just after, the
-   counts derived from the code and checked exactly, every tensor-core
-   kernel on the tile ``_build.tile_plan`` picks for its widths:
+   counts derived from the code and checked exactly, every kernel on
+   its tensor-core tile (``tc``; K4's the one ``_build.tile_plan`` picks
+   for its sample counts):
    a. ``cli.train_tiny_nerf.main`` at the notebook recipe (the synthetic
       scene at the CLI's defaults, 24 views of 100x100; full width,
       batch 1024, 64 samples, density noise 1.0, lr 1e-4, ``--use-pallas``)
@@ -122,12 +128,16 @@
       samples, are counted and printed), and at every pixel of the 64
       coarse samples alone; the same call on the run's ``nerf.pth``
       writing the same PNGs; the CLI's time per view.
-   d. ``cli.train_conditional.main`` for one epoch with ``--use-pallas``
-      on a pickle written from a seed (4 synthetic views of 100x100, their
-      6-DoF poses, states of width 2, so encodings 100 + 36): one K2 a
-      step and the eval render's K1-fwd tiles, each on the tile
-      ``tile_plan`` gives for that width; ``model.pth`` and the
-      checkpoint written.
+   d. ``cli.train_conditional.main`` with ``--use-pallas`` on pickles
+      written from a seed (4 synthetic views of 100x100, their 6-DoF
+      poses, states of 7 and of 32 scalars: encodings 200 + 36 and 700 +
+      36), at each: one epoch, ``--resume`` to two epochs, and a straight
+      two-epoch run (a log, eval and checkpoint every epoch), each
+      launching one K2 a step and the eval renders' K1-fwd tiles and
+      nothing else, all ``tc``; ``model.pth`` and the checkpoint written;
+      the resumed run's weights and Adam moments within atol 1e-6 of the
+      straight run's; ms/step and rays/s of the straight run's second
+      epoch with the card's name and power limit.
 15. compute_dtype="bfloat16" (slice 12), the full-width model of phases
    3-4 with ``compute_dtype="bfloat16"``: one 400x400 frame at 64 + 128
    (the counters zeroed just before and read just after: 40 K1-fwd and
@@ -143,8 +153,7 @@
    bf16 versions on those paths' arguments (K1-bwd also the float32
    kernel on its inputs, which must fail the check), with their times
    and both bf16 bounds (FLOP at 989 TFLOP/s, bytes at 3.35 TB/s); one
-   bf16 K2 at the latent width 100 + 36 on its SIMT ``fwd_store``
-   (``simt_bf16``).
+   bf16 K2 at the latent width 100 + 36 (``tc_bf16``).
 16. compute_dtype="bfloat16" for the mip family (slice 13), the full-width
    MipNeRF of phases 7-10 with ``compute_dtype="bfloat16"``: one 400x400
    frame at 64 fenceposts (the counters zeroed just before and read just
@@ -178,7 +187,7 @@
    ``torch.optim.Adam`` (one ``mega_train`` each, all ``tc_bf16``), ms/step
    and rays/s beside phase 12's and phase 15's; K9's time against its
    plain bf16 version with both bf16 bounds; K8-fwd at x encodings 120 +
-   36 on its SIMT tile (``simt_bf16``).
+   36 (``tc_bf16``).
 18. Data parallelism (slice 15), ``nerf_tpu_torch.parallel``:
    a. An NCCL group of one in this process (``parallel.initialize()``
       without a launcher's environment).  For the reuse (2048 x (64 +
@@ -297,13 +306,21 @@ from nerf_tpu_torch.ops.kernels import (
     mip_mlp,
     mip_train,
     point_mlp,
+    tc_mlp,
     train_grads,
     union_eval,
 )
 from nerf_tpu_torch.models.nerf import _tiled_over_rays
 from nerf_tpu_torch.parallel.collectives import all_gather
 from nerf_tpu_torch.parallel.mesh import flat_collective
-from nerf_tpu_torch.testing import bf16_step_reference, mip_head_rounding, plain_versions
+from nerf_tpu_torch.testing import (
+    Bf16Float64Sums,
+    bf16_step_reference,
+    kink_margin,
+    loss_cotangent,
+    mip_head_rounding,
+    plain_versions,
+)
 from nerf_tpu_torch.train import (
     Trainer,
     checkpoint,
@@ -318,7 +335,7 @@ from nerf_tpu_torch.utils.profiling import (
     classic_flops_per_point,
     mip_flops_per_point,
     trace,
-    train_step_flops,
+    train_kernel_flops,
 )
 
 # Published H100 SXM peaks (NVIDIA's data sheet): float32 outside the
@@ -404,9 +421,6 @@ TOL["classic_pointmlp_fwd"] = TOL["classic_mlp_fwd"]
 MEGA_VS_REUSE = dict(loss_rtol=1e-4, grad_of_max=5e-3)
 T_FINE_MASS, T_FINE_ATOL = 2e-5, 1e-4
 K8_RAYS, K8_SAMPLES = 4096, 64
-# Slice 6: the latent-conditioned model (2 + 1 latent scalars: encodings
-# 100 + 48), too wide for the tensor-core tiles at hidden 256.
-LATENT = dict(density_inputs=5, color_inputs=4)
 SOURCES = {
     "classic_mlp_fwd": ("nerf_tpu_torch/csrc/classic_mlp_fwd.cu",
                         "nerf_tpu/ops/pallas/fused_mlp.py:608"),
@@ -441,7 +455,7 @@ POINT_MEGA_BF16_PRODUCTS = "; bf16 wgmma in compute_dtype bfloat16 (slice 14)"
 PRODUCTS = {
     "classic_mlp_fwd": "3xTF32 (slice 7)" + BF16_PRODUCTS,
     "union_eval": "3xTF32 (slice 5)" + BF16_PRODUCTS,
-    "classic_mlp_bwd": "3xTF32 (slice 7); float32 SIMT with the encodings' cotangents"
+    "classic_mlp_bwd": "3xTF32 (slice 7), the encodings' cotangents too"
     + BF16_PRODUCTS,
     "train_grads": "3xTF32 (slice 6)" + BF16_PRODUCTS,
     "fine_stage_train": "3xTF32 (slice 6)" + BF16_PRODUCTS,
@@ -493,23 +507,16 @@ def kernel_label(mangled: str) -> str:
 
 
 # The passes of the MLP kernels by kernel name, for reports and profiles:
-# every kernel's products run on the tensor cores (csrc/tc_mlp.cuh; their
-# float32 SIMT fwd_store, K1-fwd, K8-fwd, K4 and mip forward tiles serve
-# encodings or features too wide for it, and K1-bwd's SIMT passes the
-# encodings' cotangents).
+# every kernel's products run on the tensor cores (csrc/tc_mlp.cuh; the
+# classic tiles at every encoding width, the encodings streamed through
+# them; the mip forward tiles' float32 SIMT tile serves features too wide
+# for theirs).
 PASSES = {
     "fwd_tc_kernel": "K1-fwd / K8-fwd tile, 3xTF32 (bf16 if <..., true>) wgmma",
-    "fwd_simt_kernel":
-        "K1-fwd / K8-fwd tile, fp32 SIMT (wide encodings; bf16 operands if <..., true>)",
     "fwd_store_tc_kernel": "fwd_store, 3xTF32 (bf16 if <..., true>) wgmma",
     "bwd_rows_tc_kernel": "bwd_rows, 3xTF32 (bf16 if <..., true>) wgmma",
     "wgrad_tc_kernel": "wgrad, 3xTF32 (bf16 if <true>) wgmma",
     "union_eval_kernel": "K4 tile, 3xTF32 (bf16 if <..., true>) wgmma MLP + compositing",
-    "union_eval_simt_kernel":
-        "K4 tile, fp32 SIMT MLP (wide encodings; bf16 operands if <..., true>) + compositing",
-    "fwd_store_kernel": "fwd_store, fp32 SIMT (bf16 operands if <..., true>)",
-    "bwd_rows_kernel": "bwd_rows, fp32 SIMT",
-    "wgrad_kernel": "wgrad, fp32 SIMT",
     "colsum_kernel": "colsum",
     "mip_fwd_store_tc_kernel": "mip fwd_store (K5-bwd, K6), 3xTF32 (bf16 if <..., true>) wgmma",
     "mip_fwd_tc_kernel": "mip forward tile (K5-fwd, K7), 3xTF32 (bf16 if <..., true>) wgmma",
@@ -663,7 +670,7 @@ def check_policies(what: str, launches: dict, policies: dict, policy: str) -> No
     ``policy`` tile: ``policies`` is ``_build.policy_counts`` read with
     ``launches`` (both zeroed together before the run)."""
     print(f"{what}: tile policies {policies}", flush=True)
-    check(policies == {(k, policy): n for k, n in launches.items() if k in _build.PLANNED},
+    check(policies == {(k, policy): n for k, n in launches.items() if k in _build.KERNELS},
           f"{what}: every tensor-core kernel ran its {policy} tile")
 
 
@@ -864,9 +871,8 @@ def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
     recorded arguments, with their times; returns their rows' numbers."""
     rows = {}
     # K1-bwd as the reuse step calls it (no encoding cotangents: the
-    # encodings need no gradient; on the tensor cores), with random
-    # cotangents; then once with the encodings' cotangents (the float32
-    # SIMT passes).  Each call builds its own operand images, as the step's
+    # encodings need no gradient), with random cotangents; then once with
+    # the encodings' cotangents; both on the tensor cores.  Each call builds its own operand images, as the step's
     # were built for the weights of its own step.
     args, kwargs = store["classic_mlp_bwd"]
     check(without_images(kwargs) == {"input_grads": False},
@@ -877,7 +883,7 @@ def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
     g_out = torch.rand((x.shape[0], 4), generator=gen, device=device) * 2 - 1
     named = lambda r: {"dx": r[0], "dd": r[1], **r[2]} if r[0] is not None else r[2]  # noqa: E731
     ms = {}
-    for input_grads, policy in ((True, "simt"), (False, "tc")):
+    for input_grads, policy in ((True, "tc"), (False, "tc")):
         _build.policy_counts.clear()
         got = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads)
         torch.cuda.synchronize()
@@ -893,7 +899,7 @@ def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
         lambda: classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, False), iters=3)
     rows["classic_mlp_bwd"] = dict(
         max_abs=err, ms=ms[False], plain_ms=plain_ms,
-        flops=train_step_flops(cfg, x.shape[0], 1),
+        flops=train_kernel_flops(cfg, x.shape[0], 1),
         nbytes=tensor_bytes(x, d, g_out, *got[:2]) + 2 * weight_bytes)
 
     args, kwargs = store["classic_train_grads"]
@@ -905,7 +911,7 @@ def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
     x = args[1]
     print(f"train_grads at {x.shape[0]} rays x {x.shape[1]} samples")
     rows["train_grads"] = dict(
-        max_abs=err, ms=ms, plain_ms=plain_ms, flops=train_step_flops(cfg, *x.shape[:2]),
+        max_abs=err, ms=ms, plain_ms=plain_ms, flops=train_kernel_flops(cfg, *x.shape[:2]),
         nbytes=tensor_bytes(*args[1:6], *got[2:]) + 2 * weight_bytes + 4)
 
     args, kwargs = store["fine_stage_train"]
@@ -922,7 +928,7 @@ def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
     # per ray.
     rows["fine_stage_train"] = dict(
         max_abs=err, ms=ms, plain_ms=plain_ms,
-        flops=train_step_flops(cfg, *x_f.shape[:2]),
+        flops=train_kernel_flops(cfg, *x_f.shape[:2]),
         nbytes=tensor_bytes(x_f, d_f[:, 0], *args[3:10], *got[2]) + 2 * weight_bytes + 4)
     return rows
 
@@ -1153,7 +1159,7 @@ def mip_kernels_against_plain(store: dict, device) -> dict:
     print(f"K5-bwd {ms:.3f} ms without the features' cotangent (as the general path calls it), "
           f"{dfeat_ms:.3f} ms with it, at {K5_POINTS} rows")
     rows["mip_mlp_bwd"] = dict(max_abs=err, ms=ms, plain_ms=plain_ms,
-                               flops=train_step_flops(cfg, K5_POINTS, 1, mip=True),
+                               flops=train_kernel_flops(cfg, K5_POINTS, 1, mip=True),
                                nbytes=tensor_bytes(feat, g_out) + 2 * weight_bytes)
 
     # K6 on the trainer's inputs, each call with its own operand images (the
@@ -1175,7 +1181,7 @@ def mip_kernels_against_plain(store: dict, device) -> dict:
           f"seg weight {args[7]}")
     rows["mip_train_grads"] = dict(
         max_abs=err, ms=ms, plain_ms=plain_ms,
-        flops=train_step_flops(cfg, *feat_t.shape[:2], mip=True),
+        flops=train_kernel_flops(cfg, *feat_t.shape[:2], mip=True),
         nbytes=tensor_bytes(*[a for a in args[1:6] if isinstance(a, torch.Tensor)])
         + 2 * weight_bytes + 8)
     return rows
@@ -1196,7 +1202,7 @@ def mip_phases(device, keep: dict) -> dict:
     rows["mip_mlp_fwd"] = (runs["general"]["mip_mlp_fwd"], k_rows["mip_mlp_fwd"])
     rows["mip_mlp_bwd"] = (runs["general"]["mip_mlp_bwd"], k_rows["mip_mlp_bwd"])
     rows["mip_train_grads"] = (fused_launches["mip_train_grads"], k_rows["mip_train_grads"])
-    flops = train_step_flops(cfg, MIP_RAYS, MIP_TRAIN_RENDER.num_coarse_samples - 1, mip=True)
+    flops = train_kernel_flops(cfg, MIP_RAYS, MIP_TRAIN_RENDER.num_coarse_samples - 1, mip=True)
     bound_ms, bound_tc_ms = flops / PEAK_FP32_FLOPS * 1e3, flops / PEAK_3XTF32_FLOPS * 1e3
     print(f"mip training: fused 4096x64 with seg CE {fused_ms:.2f} ms/step = "
           f"{MIP_RAYS / fused_ms * 1e3:.0f} rays/s (bound {bound_ms:.2f} ms = "
@@ -1294,7 +1300,7 @@ def point_mlp_phase(device, cfg: ClassicNeRFConfig, bank) -> dict:
     print(f"K8-bwd {ms:.3f} ms with the raw inputs' cotangents, {no_input_ms:.3f} ms without "
           f"(as the main path calls it), at {n_points} points")
     rows["classic_pointmlp_bwd"] = (launches[point_mlp.BWD_NAME], dict(
-        max_abs=err, ms=ms, plain_ms=plain_ms, flops=3 * flops,
+        max_abs=err, ms=ms, plain_ms=plain_ms, flops=train_kernel_flops(cfg, n_points, 1, input_grads=True),
         nbytes=tensor_bytes(points, dirs, g_out, *got[:2], *consts) + 2 * weight_bytes))
     return rows
 
@@ -1413,30 +1419,42 @@ def mega_phase(device, cfg: ClassicNeRFConfig, bank, reuse_ms: float) -> dict:
     nbytes = (tensor_bytes(*[a for a in inputs if a is not None], t_fine) + 8
               + 2 * tensor_bytes(*packed.values()))
     return {"mega_train": (launches[mega_train.NAME], dict(
-        max_abs=err, ms=kernel_ms, plain_ms=plain_ms, flops=train_step_flops(cfg, n_rays, sc + sf),
+        max_abs=err, ms=kernel_ms, plain_ms=plain_ms, flops=train_kernel_flops(cfg, n_rays, sc + sf),
         nbytes=nbytes))}, step_ms
 
 
-def latent_phase(device, bank) -> None:
-    """Phase 13: the full-width model conditioned on 2 + 1 latent scalars
-    (encodings 100 + 48), whose K1-fwd, K1-bwd, K2, K3 and K4 run the
-    float32 SIMT tile where the tensor-core one does not fit: a frame tile through K1-fwd and
-    K4, one reuse step (K1-fwd, K3, K1-bwd) and one coarse-only step (K2),
-    each against the plain path, with the launches and tile policies."""
-    model = make_model(True, device, **LATENT)
-    plain = make_model(False, device, **LATENT)
-    cfg = model.cfg
-    print(f"latent model: density_inputs {cfg.density_inputs}, color_inputs "
-          f"{cfg.color_inputs}, encodings {cfg.x_encoding_dim} + {cfg.d_encoding_dim}", flush=True)
-    gen = torch.Generator(device=device).manual_seed(13)
+# Phase 13: the conditional trainer's full-width model with a 7-joint arm's
+# state and with a 32-scalar state (3 + s density inputs: encodings 200 +
+# 36 and 700 + 36), whose classic kernels stream the encodings through
+# their tensor-core tiles; the rows each kernel is timed at, and K8's x
+# encodings nearest those widths (x_positional_encoding_size counts the
+# sin and cos lanes of each input: 3 x 68 = 204, 3 x 234 = 702).
+LATENT_STATES = (7, 32)
+LATENT_ROWS = 65_536
+LATENT_K8 = {7: dict(x_positional_encoding_size=68), 32: dict(x_positional_encoding_size=234)}
 
-    # One tile of the frame, per-image states broadcast to its rays.
+
+def latent_tile_and_steps(device, bank, s: int, dtype: str) -> None:
+    """Phase 13a-b at one state width and dtype: one 4000-ray frame tile
+    through ``render_rays`` with per-image states (one K1-fwd and one K4),
+    one reuse step at 2048 x (64 + 128) (one K1-fwd, one K1-bwd and one
+    K3) and one coarse-only step at 4096 x 64 (one K2), each against the
+    plain path (float32: the ``use_pallas=False`` model; bf16: the same
+    model with ``plain_versions()``), every launch on ``tc`` (``tc_bf16``).
+    Returns the arguments each kernel was handed (``capture_args``)."""
+    bf16 = dtype == "bfloat16"
+    model = make_model(True, device, density_inputs=3 + s, compute_dtype=dtype)
+    plain = make_model(False, device, density_inputs=3 + s)
+    cfg = model.cfg
+    tag = f"latent {cfg.x_encoding_dim} + {cfg.d_encoding_dim} {dtype}"
+    policy = "tc_bf16" if bf16 else "tc"
+    gen = torch.Generator(device=device).manual_seed(13 + s)
+
     pose_o, pose_r = spherical_poses(1, radius=4.0, device=device)
     rays_o, rays_d = (r.reshape(-1, 3)[: RENDER.rays_per_tile] for r in
                       pose_to_rays(pose_o, pose_r, IMAGE, IMAGE, FOCAL))
     n = rays_o.shape[0]
-    states = {"states_x": (torch.rand((1, 2), generator=gen, device=device) * 2 - 1).expand(n, 2),
-              "states_d": (torch.rand((1, 1), generator=gen, device=device) * 2 - 1).expand(n, 1)}
+    states = {"states_x": (torch.rand((1, s), generator=gen, device=device) * 2 - 1).expand(n, s)}
     store = {}
     with torch.no_grad(), capture_args(union_eval, "union_eval", store):
         torch.cuda.synchronize()
@@ -1445,87 +1463,314 @@ def latent_phase(device, bank) -> None:
         got = model.render_rays(rays_o, rays_d, RENDER, **states, fused_eval=True)
         torch.cuda.synchronize()
         launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
-        print(f"latent frame tile ({n} rays, {RENDER.num_coarse_samples} + "
-              f"{RENDER.num_fine_samples}): launches {launches}", flush=True)
         check(launches == {"classic_mlp_fwd": 1, "union_eval": 1},
-              "latent frame tile: one K1-fwd and one K4, nothing else")
-        check_policies("latent frame tile", launches, policies, "simt")
-        ref = plain.render_rays(rays_o, rays_d, RENDER, **states, fused_eval=True)
-        compare("frame", [got.rgb, got.acc], [ref.rgb, ref.acc])
-        args = store["union_eval"][0]
-        compare("union_eval", union_eval.union_eval(*args), union_eval.union_eval_plain(*args))
+              f"{tag} frame tile: one K1-fwd and one K4, nothing else")
+        check_policies(f"{tag} frame tile", launches, policies, policy)
+        if bf16:
+            with plain_versions():
+                ref = model.render_rays(rays_o, rays_d, RENDER, **states, fused_eval=True)
+            check_bf16_outputs(f"{tag} frame tile", [got.rgb, got.acc], [ref.rgb, ref.acc])
+        else:
+            ref = plain.render_rays(rays_o, rays_d, RENDER, **states, fused_eval=True)
+            compare("frame", [got.rgb, got.acc], [ref.rgb, ref.acc])
 
-    # One reuse step and one coarse-only step with per-ray states.
     for name, render, n_rays, expected in (
-            ("latent reuse step 2048x(64+128)", TRAIN_RENDER, TRAIN_RAYS,
+            ("reuse step 2048x(64+128)", TRAIN_RENDER, TRAIN_RAYS,
              {"classic_mlp_fwd": 1, "classic_mlp_bwd": 1, "fine_stage_train": 1}),
-            ("latent coarse-only step 4096x64", COARSE_RENDER, COARSE_RAYS,
-             {"train_grads": 1})):
+            ("coarse-only step 4096x64", COARSE_RENDER, COARSE_RAYS, {"train_grads": 1})):
         batch = bank.sample_batch(gen, n_rays)
-        batch["states_x"] = torch.rand((n_rays, 2), generator=gen, device=device) * 2 - 1
-        batch["states_d"] = torch.rand((n_rays, 1), generator=gen, device=device) * 2 - 1
+        batch["states_x"] = torch.rand((n_rays, s), generator=gen, device=device) * 2 - 1
         draws = sampling.draw_step(gen, render, n_rays, device)
         torch.cuda.synchronize()
         _build.launch_counts.clear()
         _build.policy_counts.clear()
-        loss, grads, _ = make_fused_loss_and_grads(model, render)(batch, draws)
+        with capture_args(classic_mlp, "classic_mlp_bwd", store), \
+                capture_args(fine_stage_train, "fine_stage_train", store), \
+                capture_args(train_grads, "classic_train_grads", store):
+            loss, grads, _ = make_fused_loss_and_grads(model, render)(batch, draws)
         torch.cuda.synchronize()
         launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
-        print(f"{name}: launches {launches}", flush=True)
-        check(launches == expected, f"{name}: launched {expected} and nothing else")
-        check_policies(name, launches, policies, "simt")
-        with torch.enable_grad():
-            ref_loss, _ = make_loss_fn(plain, render)(batch, draws)
-        names, params = zip(*plain.named_parameters())
-        ref = dict(zip(names, torch.autograd.grad(ref_loss, params)))
-        compare_grads(name, grads, ref, loss, ref_loss.detach())
+        check(launches == expected, f"{tag} {name}: launched {expected} and nothing else")
+        check_policies(f"{tag} {name}", launches, policies, policy)
+        if bf16:
+            with plain_versions():
+                ref_loss, ref, _ = make_fused_loss_and_grads(model, render)(batch, draws)
+            check_bf16_outputs(f"{tag} {name} loss", [loss], [ref_loss])
+            check_bf16_grads(f"{tag} {name}", grads, ref)
+        else:
+            with torch.enable_grad():
+                ref_loss, _ = make_loss_fn(plain, render)(batch, draws)
+            names, params = zip(*plain.named_parameters())
+            ref = dict(zip(names, torch.autograd.grad(ref_loss, params)))
+            compare_grads(f"{tag} {name}", grads, ref, loss, ref_loss.detach())
+    return store
 
 
-# Slice 10: K8-fwd's and K5-fwd's models too wide for their tensor-core
-# tiles at hidden 256 (x encodings 120 + 36; 144 features), and the rows
-# of each call.
-WIDE_K8 = dict(x_positional_encoding_size=40)
+# Phase 13: the encodings' cotangents of bf16 K1-bwd.  Each row's
+# cotangents move with every bf16 rounding flip upstream of it, so the plain
+# bf16 version itself moves about as far as the card tests' 2e-2
+# (BF16["grad_rel_l2"]) when only the order of its sums changes
+# (``Bf16Float64Sums``), and the kernel stands about as far again.  They
+# are drawn as the card tests draw them: uniform encodings in [-1, 1), each
+# row redrawn while one of its ReLU inputs lies within KINK_MARGIN of 0
+# (``testing.kink_margin`` on the bf16 products), under a loss's
+# cotangents; the kernel is held within BF16_COTANGENT_RATIO times the
+# plain version's own distance, and the float32 kernel must lie 4 times
+# farther.  The ratio separates the chunked sums of the long encoding
+# products (1.21-1.24 at 200 + 36, 1.17-1.19 at 700 + 36, three seeds)
+# from sums in one accumulator, which the tensor cores truncate over 44
+# k-steps at 700 + 36 (1.30-1.33 and 1.47-1.49;
+# ``scripts/torch_bf16_sensitivity.py --family latent-cotangents``).
+KINK_MARGIN = 1e-5
+BF16_COTANGENT_RATIO = 1.3
+
+
+def rows_away_from_bf16_kinks(packed, gen, n: int, xe: int, d: torch.Tensor) -> torch.Tensor:
+    """``n`` rows of uniform x encodings in [-1, 1) from ``gen``, with the
+    view encodings ``d``, every ReLU input of the plain bf16 forward
+    farther than KINK_MARGIN from 0."""
+    def draw(rows):
+        return torch.rand((rows, xe), generator=gen, device=d.device) * 2 - 1
+
+    x = draw(n)
+    for _ in range(8):
+        near = kink_margin(packed, x, d, tc_mlp.bf16_matmul) <= KINK_MARGIN
+        if not bool(near.any()):
+            return x
+        x[near] = draw(int(near.sum()))
+    raise CheckFailed(f"rows near the bf16 kinks after 8 draws: {int(near.sum())}")
+
+
+def bf16_cotangent_distances(packed, cfg, gen, rows: int = LATENT_ROWS) -> tuple:
+    """bf16 K1-bwd's encodings' cotangents on ``rows`` rows away from the
+    bf16 kinks (``rows_away_from_bf16_kinks``) under a loss's cotangents
+    (``testing.loss_cotangent``): the relative L2 distances from the plain
+    bf16 version of the kernel, of the float32 kernel on the same inputs,
+    and of the plain version with its sums in float64."""
+    d = torch.rand((rows, cfg.d_encoding_dim), generator=gen, device=gen.device) * 2 - 1
+    x = rows_away_from_bf16_kinks(packed, gen, rows, cfg.x_encoding_dim, d).bfloat16()
+    d = d.bfloat16()
+    g = loss_cotangent(packed, x, d)
+    cot = lambda r: [r[0].float(), r[1].float()]  # noqa: E731
+    ref = cot(classic_mlp.classic_mlp_bwd_plain(packed, x, d, g, True))
+    return (rel_l2(cot(classic_mlp.classic_mlp_bwd(packed, x, d, g, True)), ref),
+            rel_l2(cot(classic_mlp.classic_mlp_bwd(packed, x.float(), d.float(), g, True)), ref),
+            rel_l2(cot(classic_mlp.classic_mlp_bwd_plain(packed, x, d, g, True,
+                                                         matmul=Bf16Float64Sums.apply)), ref))
+
+
+def check_bf16_cotangents(name: str, packed, cfg, gen) -> float:
+    """``bf16_cotangent_distances`` held as the comment above says.
+    Returns the kernel's distance."""
+    err, control, floor = bf16_cotangent_distances(packed, cfg, gen)
+    print(f"{name} encodings' cotangents on {LATENT_ROWS} rows away from the bf16 kinks: "
+          f"relative L2 {err:.3e} against plain bf16 ({err / floor:.3f} times the plain "
+          f"version's own {floor:.3e} with float64 sums; "
+          f"{'within' if err <= BF16['grad_rel_l2'] else 'past'} the card tests' "
+          f"{BF16['grad_rel_l2']}), the float32 kernel {control:.3e}", flush=True)
+    check(err <= BF16_COTANGENT_RATIO * floor and control >= 4 * err,
+          f"{name}: the encodings' cotangents within {BF16_COTANGENT_RATIO}x the plain "
+          f"version's own float64-sum distance, the float32 kernel 4x farther")
+    return err
+
+
+def latent_bounds(cfg, flops: float, nbytes: float, chain_rows: int = 0) -> str:
+    """The bounds printed beside a latent-width kernel's time: float32 SIMT,
+    3xTF32 and bf16 operations, and its inputs' and outputs' bytes (with a
+    training kernel's float32 chain)."""
+    byte_ms = (nbytes + chain_rows * 2 * 2 * 10 * cfg.hidden_size * 4) / PEAK_BYTES_PER_S * 1e3
+    return (f"bounds: fp32 {flops / PEAK_FP32_FLOPS * 1e3:.3f} ms, 3xTF32 "
+            f"{flops / PEAK_3XTF32_FLOPS * 1e3:.3f} ms, bf16 {flops / PEAK_BF16_FLOPS * 1e3:.3f} "
+            f"ms, bytes {byte_ms:.3f} ms")
+
+
+def latent_kernels(device, s: int, dtype: str, card: str, store: dict) -> None:
+    """Phase 13c at one state width and dtype: K1-fwd (65,536 rows of
+    uniform encodings in [-1, 1) from a seed), K1-bwd without and with the
+    encodings' cotangents (the first 65,536 rows and cotangents the reuse
+    step handed it), K2 (the first 1024 rays x 64 of the coarse-only
+    step's: the conditional trainer's batch), K3 (the reuse step's first
+    512 rays x (64 + 128)), K4 (the frame tile's first 512 rays x (64 +
+    128)) and K8-fwd (65,536 uniform points, x encodings of ``LATENT_K8``)
+    against their plain versions, each on ``tc`` (``tc_bf16``), timed
+    beside its plain version and its bounds.  float32 at the kernels' own
+    bounds (TOL, GRAD_REL_L2, LOSS_RTOL); bf16 at phase 15's (BF16)
+    against the plain bf16 versions, the encodings' cotangents by
+    ``check_bf16_cotangents``.  ``store`` holds the paths' recorded calls
+    (``latent_tile_and_steps``)."""
+    bf16 = dtype == "bfloat16"
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    policy = "tc_bf16" if bf16 else "tc"
+    cfg = ClassicNeRFConfig(normalize_position=6.0, density_inputs=3 + s, compute_dtype=dtype)
+    packed = classic_mlp.pack_classic_params(
+        make_model(True, device, density_inputs=3 + s).mlp.requires_grad_(False))
+    weight_bytes = tensor_bytes(*packed.values())
+    xe, de, per_row = cfg.x_encoding_dim, cfg.d_encoding_dim, classic_flops_per_point(cfg)
+    tag = f"latent {xe} + {de} {dtype}"
+    gen = torch.Generator(device=device).manual_seed(130 + s)
+
+    def rand(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+
+    def on_route(kernel, call):
+        _build.policy_counts.clear()
+        got = call()
+        torch.cuda.synchronize()
+        check(dict(_build.policy_counts) == {(kernel, policy): 1},
+              f"{tag} {kernel} ran its tensor-core tile ({policy})")
+        return got
+
+    def report(name, call, plain, flops, nbytes, chain_rows=0):
+        ms, plain_ms = cuda_ms(call, iters=5), cuda_ms(plain, iters=2)
+        print(f"{tag} {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"{latent_bounds(cfg, flops, nbytes, chain_rows)}; {card}", flush=True)
+
+    n = LATENT_ROWS
+    x, d = rand(n, xe).to(tdt), rand(n, de).to(tdt)
+    call = lambda: classic_mlp.classic_mlp_fwd(packed, x, d)  # noqa: E731
+    plain = lambda: classic_mlp.classic_mlp_fwd_plain(packed, x, d)  # noqa: E731
+    out = on_route(classic_mlp.NAME, call)
+    if bf16:
+        check_bf16_outputs(f"{tag} {classic_mlp.NAME}", [out], [plain()])
+    else:
+        compare(classic_mlp.NAME, [out], [plain()])
+    report(f"{classic_mlp.NAME} {n} rows", call, plain, n * per_row,
+           tensor_bytes(x, d, out) + weight_bytes)
+
+    bx, bd, g = (t[:n].contiguous() for t in store["classic_mlp_bwd"][0][1:])
+    for input_grads in (False, True):
+        call = lambda: classic_mlp.classic_mlp_bwd(packed, bx, bd, g, input_grads)  # noqa: E731
+        plain = lambda: classic_mlp.classic_mlp_bwd_plain(  # noqa: E731
+            packed, bx, bd, g, input_grads)
+        got, ref = on_route(classic_mlp.BWD_NAME, call), plain()
+        what = f"{tag} {classic_mlp.BWD_NAME} input_grads={input_grads}"
+        cot = lambda r: {"dx": r[0].float(), "dd": r[1].float()}  # noqa: E731
+        if bf16:
+            check_bf16_grads(what, got[2], ref[2])
+            if input_grads:
+                check_bf16_cotangents(what, packed, cfg, gen)
+        else:
+            compare_grads(what, got[2], ref[2])
+            if input_grads:
+                compare_grads(what + " encodings' cotangents", cot(got), cot(ref))
+        report(f"{classic_mlp.BWD_NAME} {n} rows input_grads={input_grads}", call, plain,
+               train_kernel_flops(cfg, n, 1, input_grads=input_grads),
+               tensor_bytes(bx, bd, g, *got[:2]) + 2 * weight_bytes, n)
+
+    def first(name, rays):
+        """The recorded call's arguments with its first ``rays`` rays."""
+        args, kwargs = store[name]
+        cut = tuple(a[:rays].contiguous() if torch.is_tensor(a) and a.dim() > 0 else a
+                    for a in args[1:])
+        return (packed, *cut), without_images(kwargs)
+
+    k2, k2_kw = first("classic_train_grads", 1024)
+    rays, samples = k2[1].shape[:2]
+    call = lambda: train_grads.classic_train_grads(*k2, **k2_kw)  # noqa: E731
+    plain = lambda: train_grads.classic_train_grads_plain(*k2, **k2_kw)  # noqa: E731
+    got, ref = on_route(train_grads.NAME, call), plain()
+    what = f"{tag} {train_grads.NAME} {rays}x{samples}"
+    if bf16:
+        check_bf16_outputs(what + " loss", [got[0]], [ref[0]])
+        check_bf16_grads(what, got[1], ref[1])
+    else:
+        compare_grads(what, got[1], ref[1], got[0], ref[0])
+    report(f"{train_grads.NAME} {rays}x{samples}", call, plain,
+           train_kernel_flops(cfg, rays, samples),
+           tensor_bytes(*k2[1:6]) + 2 * weight_bytes + 4, rays * samples)
+
+    k3, k3_kw = first("fine_stage_train", 512)
+    rays, sf = k3[1].shape[:2]
+    call = lambda: fine_stage_train.fine_stage_train(*k3, **k3_kw)  # noqa: E731
+    plain = lambda: fine_stage_train.fine_stage_train_plain(*k3, **k3_kw)  # noqa: E731
+    got, ref = on_route(fine_stage_train.NAME, call), plain()
+    named = lambda r: {**r[1], "g_dens_c": r[2][0], "g_col_c": r[2][1]}  # noqa: E731
+    what = f"{tag} {fine_stage_train.NAME} {rays}x(64+{sf})"
+    if bf16:
+        check_bf16_outputs(what + " loss", [got[0]], [ref[0]])
+        check_bf16_grads(what, named(got), named(ref))
+    else:
+        compare_grads(what, named(got), named(ref), got[0], ref[0])
+    report(f"{fine_stage_train.NAME} {rays}x(64+{sf})", call, plain,
+           train_kernel_flops(cfg, rays, sf),
+           tensor_bytes(k3[1], k3[2][:, 0], *k3[3:10]) + 2 * weight_bytes + 4, rays * sf)
+
+    k4, k4_kw = first("union_eval", 512)
+    rays, sf = k4[1].shape[:2]
+    call = lambda: union_eval.union_eval(*k4, **k4_kw)  # noqa: E731
+    plain = lambda: union_eval.union_eval_plain(*k4)  # noqa: E731
+    got = on_route(union_eval.NAME, call)
+    if bf16:
+        check_bf16_outputs(f"{tag} {union_eval.NAME}", got, plain())
+    else:
+        compare(union_eval.NAME, got, plain())
+    report(f"{union_eval.NAME} {rays}x(64+{sf})", call, plain, rays * sf * per_row,
+           tensor_bytes(*k4[1:], *got) + weight_bytes)
+
+    n = LATENT_ROWS
+    pcfg = ClassicNeRFConfig(normalize_position=6.0, **LATENT_K8[s])
+    ppacked = classic_mlp.pack_classic_params(
+        make_model(True, device, **LATENT_K8[s]).mlp.requires_grad_(False))
+    consts = point_mlp.encoding_consts(pcfg.x_positional_encoding_size, pcfg.normalize_position,
+                                       pcfg.d_positional_encoding_size, pcfg.direction_bound,
+                                       device)
+    pts, dirs = rand(n, 3, lo=-2.0, hi=2.0), rand(n, 3)
+    call = lambda: point_mlp.classic_pointmlp_fwd(  # noqa: E731
+        ppacked, pts, dirs, consts, dtype=tdt)
+    plain = lambda: point_mlp.classic_pointmlp_fwd_plain(  # noqa: E731
+        ppacked, pts, dirs, consts, dtype=tdt)
+    got = on_route(point_mlp.NAME, call)
+    what = f"{point_mlp.NAME} at x encodings {pcfg.x_encoding_dim} + {pcfg.d_encoding_dim}"
+    if bf16:
+        check_bf16_outputs(f"{tag} {what}", [got], [plain()])
+    else:
+        compare(point_mlp.NAME, [got], [plain()])
+    report(f"{what}, {n} points", call, plain, n * classic_flops_per_point(pcfg),
+           tensor_bytes(pts, dirs, got) + tensor_bytes(*ppacked.values()))
+
+
+def latent_phase(device, bank, card: str) -> None:
+    """Phase 13: the conditional trainer's full-width model at
+    ``LATENT_STATES`` (encodings 200 + 36 and 700 + 36) in float32 and bf16:
+    ``latent_tile_and_steps`` and ``latent_kernels`` at each."""
+    for s in LATENT_STATES:
+        for dtype in ("float32", "bfloat16"):
+            with torch.no_grad():  # the recorded weights require grad
+                latent_kernels(device, s, dtype, card,
+                               latent_tile_and_steps(device, bank, s, dtype))
+
+
+# Phase 13: K5-fwd's model too wide for its tensor-core tile at hidden 256
+# (144 features), and the rows of its call.
 WIDE_K5 = dict(encoding_size=48)
 WIDE_ROWS = 65_536
+# Phase 17f: K8-fwd in bf16 at x encodings 120 + 36.
+WIDE_K8 = dict(x_positional_encoding_size=40)
 
 
 def wide_forward_phase(device) -> None:
-    """The rest of phase 13: K8-fwd and K5-fwd at widths past their
-    tensor-core tiles (``WIDE_K8``, ``WIDE_K5``), each call of which must
-    run its float32 SIMT tile, against their plain versions."""
+    """The rest of phase 13: K5-fwd at 144 features (``WIDE_K5``), past its
+    tensor-core tile, each call of which must run its float32 SIMT tile,
+    against its plain version."""
     gen = torch.Generator(device=device).manual_seed(17)
-    cfg = ClassicNeRFConfig(normalize_position=6.0, **WIDE_K8)
-    packed = classic_mlp.pack_classic_params(make_model(True, device, **WIDE_K8).mlp
-                                             .requires_grad_(False))
-    consts = point_mlp.encoding_consts(cfg.x_positional_encoding_size, cfg.normalize_position,
-                                       cfg.d_positional_encoding_size, cfg.direction_bound,
-                                       device)
-    points = torch.rand((WIDE_ROWS, 3), generator=gen, device=device) * 4 - 2
-    dirs = torch.rand((WIDE_ROWS, 3), generator=gen, device=device) * 2 - 1
     mcfg = MipNeRFConfig(**WIDE_K5)
     mpacked = mip_mlp.pack_mip_params(
         MipNeRF(mcfg, generator=torch.Generator().manual_seed(0), device=device).mlp
         .requires_grad_(False))
     feat = torch.rand((WIDE_ROWS, mcfg.feature_dim), generator=gen, device=device) * 2 - 1
-    widths = f"{cfg.x_encoding_dim} + {cfg.d_encoding_dim}"
+    what = f"K5-fwd at {mcfg.feature_dim} features"
+    call = lambda: mip_mlp.mip_mlp_fwd(mpacked, feat)  # noqa: E731
     with torch.no_grad():
-        for name, what, call, plain in (
-                (point_mlp.NAME, f"K8-fwd at encodings {widths}",
-                 lambda: point_mlp.classic_pointmlp_fwd(packed, points, dirs, consts),
-                 lambda: point_mlp.classic_pointmlp_fwd_plain(packed, points, dirs, consts)),
-                (mip_mlp.NAME, f"K5-fwd at {mcfg.feature_dim} features",
-                 lambda: mip_mlp.mip_mlp_fwd(mpacked, feat),
-                 lambda: mip_mlp.mip_mlp_fwd_plain(mpacked, feat))):
-            torch.cuda.synchronize()
-            _build.launch_counts.clear()
-            _build.policy_counts.clear()
-            got = call()
-            torch.cuda.synchronize()
-            launches = dict(_build.launch_counts)
-            check(launches == {name: 1}, f"{what}: one launch, nothing else")
-            check_policies(what, launches, dict(_build.policy_counts), "simt")
-            compare(name, [got], [plain()])
-            print(f"{what}, {WIDE_ROWS} rows (float32 SIMT tile): {cuda_ms(call, iters=3):.3f} ms")
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        _build.policy_counts.clear()
+        got = call()
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        check(launches == {mip_mlp.NAME: 1}, f"{what}: one launch, nothing else")
+        check_policies(what, launches, dict(_build.policy_counts), "simt")
+        compare(mip_mlp.NAME, [got], [mip_mlp.mip_mlp_fwd_plain(mpacked, feat)])
+        print(f"{what}, {WIDE_ROWS} rows (float32 SIMT tile): {cuda_ms(call, iters=3):.3f} ms")
 
 
 # Slice 11: the user's entry points.  The tiny-NeRF trainer at the
@@ -1539,7 +1784,9 @@ TINY_STEPS, RESUMED_STEPS = 40, 60
 # the JAX package's tests hold its resume to (tests/test_train.py).
 RESUME_ATOL = 1e-6
 RENDER_ARGS = ["--use-pallas", "--num-fine-samples", "128", "--num-views", "2"]
-CONDITIONAL_VIEWS, CONDITIONAL_HW, STATE_WIDTH = 4, 100, 2
+# The conditional trainer's data: 4 views of 100x100, states of a 7-joint
+# arm's angles and of 32 scalars (encodings 200 + 36 and 700 + 36).
+CONDITIONAL_VIEWS, CONDITIONAL_HW, STATE_WIDTHS = 4, 100, LATENT_STATES
 # The one device kernel of K2's library that no other kernel on this path
 # launches: every K2 call launches it once.
 K2_TRACE_KERNEL = re.compile(r"\bcomposite_kernel\b")
@@ -1565,9 +1812,9 @@ def read_png(path: str) -> np.ndarray:
 
 def counted(what: str, call, expected: dict, plans: dict):
     """Run ``call()`` with the counters zeroed just before and read just
-    after; check the launches against ``expected`` and each tensor-core
-    kernel's tile against ``plans`` (kernel -> ``tile_plan`` policy).
-    Returns (launches, seconds)."""
+    after; check the launches against ``expected`` and each kernel's tile
+    against ``plans`` (kernel -> policy: the classic kernels' one tile,
+    ``tc``; K4's ``tile_plan``).  Returns (launches, seconds)."""
     torch.cuda.synchronize()
     _build.launch_counts.clear()
     _build.policy_counts.clear()
@@ -1579,7 +1826,7 @@ def counted(what: str, call, expected: dict, plans: dict):
     print(f"{what}: {seconds:.2f} s; launches {launches}; tile policies {policies}", flush=True)
     check(launches == expected, f"{what}: launched {expected} and nothing else")
     check(policies == {(k, plans[k]): n for k, n in launches.items()},
-          f"{what}: every launch ran the tile tile_plan picks ({plans})")
+          f"{what}: every launch ran the tile of {plans}")
     return launches, seconds
 
 
@@ -1600,10 +1847,9 @@ def entry_points_phase(device, card: str) -> dict:
     launches in the phase."""
     cfg = ClassicNeRFConfig(normalize_position=6.0)
     xe, de, hidden = cfg.x_encoding_dim, cfg.d_encoding_dim, cfg.hidden_size
-    plans = {name: _build.tile_plan(name, xe, de, hidden).policy
-             for name in (train_grads.NAME, classic_mlp.NAME)}
-    plans[union_eval.NAME] = _build.tile_plan(union_eval.NAME, xe, de, hidden, cfg.color_outputs,
-                                              64, 128).policy
+    plans = {train_grads.NAME: "tc", classic_mlp.NAME: "tc",
+             union_eval.NAME: _build.tile_plan(union_eval.NAME, xe, de, hidden,
+                                               cfg.color_outputs, 64, 128).policy}
     check(set(plans.values()) == {"tc"}, f"the full-width model's tiles are all tensor-core: {plans}")
     # An eval render and a CLI view are 100 x 100 rays in tiles of
     # RenderConfig().rays_per_tile.
@@ -1752,38 +1998,67 @@ def entry_points_phase(device, card: str) -> dict:
                     open(os.path.join(out["pth"], name), "rb") as b:
                 check(a.read() == b.read(), f"14c {name}: the same PNG from the run's nerf.pth")
 
-        # d. The conditional trainer on a pickle written from a seed.
+        # d. The conditional trainer on pickles written from a seed, at each
+        # state width: one epoch, --resume to two, a straight two-epoch run.
         focal = CONDITIONAL_HW * 50.0 / 36.0  # the CLI's default camera
         scene = synthesize_scene(num_views=CONDITIONAL_VIEWS, image_hw=CONDITIONAL_HW,
                                  focal=focal, pose_seed=21, device=device)
-        states = np.random.default_rng(21).normal(size=(CONDITIONAL_VIEWS, STATE_WIDTH))
         pose_o = scene.pose_o.cpu().numpy()
-        data = os.path.join(tmp, "data_for_nerf.pkl")
-        with open(data, "wb") as f:
-            pickle.dump({"images": scene.images.cpu().numpy(),
-                         "poses": np.concatenate([pose_o, -pose_o], -1),
-                         "states": states.astype(np.float32)}, f)
-        ccfg = ClassicNeRFConfig(density_inputs=3 + STATE_WIDTH)
-        cxe = ccfg.x_encoding_dim
-        cplans = {name: _build.tile_plan(name, cxe, de, hidden).policy
-                  for name in (train_grads.NAME, classic_mlp.NAME)}
         steps = (CONDITIONAL_VIEWS - 1) * CONDITIONAL_HW ** 2 // 1024  # one epoch
-        cond = os.path.join(tmp, "conditional")
-        launches, seconds = counted(
-            f"14d train_conditional 1 epoch (encodings {cxe} + {de})",
-            lambda: train_conditional.main(["--logging-dir", cond, "--data", data, "--use-pallas",
-                                            "--epochs", "1", "--near-plane", "2",
-                                            "--far-plane", "6"]),
-            {train_grads.NAME: steps, classic_mlp.NAME: tiles}, cplans)
-        tally(launches)
-        records = metrics_records(cond)
-        check(records[-1]["step"] == steps and np.isfinite(records[-1]["loss"]),
-              f"14d: {steps} steps, every loss finite (the last {records[-1]['loss']:.6f})")
-        check(os.path.exists(os.path.join(cond, "model.pth"))
-              and checkpoint.all_checkpoints(cond) == [f"checkpoint_{steps}.npz"],
-              "14d: model.pth and the checkpoint written")
-        print(f"14d train_conditional: {seconds:.2f} s for {steps} steps and one eval render, "
-              f"tiles {cplans}; {card}", flush=True)
+        for width in STATE_WIDTHS:
+            states = np.random.default_rng(21).normal(size=(CONDITIONAL_VIEWS, width))
+            data = os.path.join(tmp, f"data_for_nerf_{width}.pkl")
+            with open(data, "wb") as f:
+                pickle.dump({"images": scene.images.cpu().numpy(),
+                             "poses": np.concatenate([pose_o, -pose_o], -1),
+                             "states": states.astype(np.float32)}, f)
+            cxe = ClassicNeRFConfig(density_inputs=3 + width).x_encoding_dim
+            what = f"14d train_conditional, {width} state scalars (encodings {cxe} + {de})"
+            cond = os.path.join(tmp, f"conditional_{width}")
+            cond_straight = os.path.join(tmp, f"conditional_{width}_straight")
+
+            def conditional(logdir, epochs, *extra):
+                return lambda: train_conditional.main(
+                    ["--logging-dir", logdir, "--data", data, "--use-pallas", "--epochs",
+                     str(epochs), "--near-plane", "2", "--far-plane", "6", "--log-interval",
+                     str(steps), *extra])
+
+            launches, seconds = counted(f"{what}: 1 epoch", conditional(cond, 1),
+                                        {train_grads.NAME: steps, classic_mlp.NAME: tiles},
+                                        plans)
+            tally(launches)
+            records = metrics_records(cond)
+            check(records[-1]["step"] == steps and np.isfinite(records[-1]["loss"]),
+                  f"{what}: {steps} steps, every loss finite (the last "
+                  f"{records[-1]['loss']:.6f})")
+            check(os.path.exists(os.path.join(cond, "model.pth"))
+                  and checkpoint.all_checkpoints(cond) == [f"checkpoint_{steps}.npz"],
+                  f"{what}: model.pth and the checkpoint written")
+            launches, _ = counted(f"{what}: --resume to 2 epochs",
+                                  conditional(cond, 2, "--resume"),
+                                  {train_grads.NAME: steps, classic_mlp.NAME: tiles}, plans)
+            tally(launches)
+            check([r["step"] for r in metrics_records(cond)] == [steps, 2 * steps],
+                  f"{what}: the resumed run started from step {steps}")
+            launches, _ = counted(f"{what}: straight 2 epochs", conditional(cond_straight, 2),
+                                  {train_grads.NAME: 2 * steps, classic_mlp.NAME: 2 * tiles},
+                                  plans)
+            tally(launches)
+            final = f"checkpoint_{2 * steps}.npz"
+            got = checkpoint_leaves(os.path.join(cond, final))
+            want = checkpoint_leaves(os.path.join(cond_straight, final))
+            floats = [k for k in want if want[k].dtype == np.float32]
+            diff = max(float(np.abs(got[k] - want[k]).max()) for k in floats)
+            print(f"{what}: resumed vs straight {2 * steps} steps, max abs difference of the "
+                  f"weights and Adam moments {diff:.3e}, bitwise equal: "
+                  f"{all(np.array_equal(got[k], want[k]) for k in want)}", flush=True)
+            check(list(got) == list(want) and diff <= RESUME_ATOL
+                  and all(np.array_equal(got[k], want[k]) for k in want if k not in floats),
+                  f"{what}: the resumed run within {RESUME_ATOL} of the straight run")
+            rays_per_s = metrics_records(cond_straight)[-1]["rays_per_s"]  # steps after the first eval
+            print(f"{what}: {1024 / rays_per_s * 1e3:.3f} ms/step, {rays_per_s:.0f} rays/s "
+                  f"(steps {steps + 1}-{2 * steps} of the straight run, host clock); "
+                  f"{seconds:.2f} s for the first epoch and its eval render; {card}", flush=True)
     return total
 
 
@@ -1928,7 +2203,7 @@ def bf16_kernels(device, cfg, model, pose, store: dict, frame_launches: dict, ou
         classic_mlp.BWD_NAME, out[classic_mlp.BWD_NAME]["bf16_launches"], err,
         cuda_ms(call, iters=5),
         cuda_ms(lambda: classic_mlp.classic_mlp_bwd_plain(pk, x, d, g_out, False), iters=3),
-        train_step_flops(cfg, x.shape[0], 1), tensor_bytes(x, d, g_out) + 2 * weight_bytes,
+        train_kernel_flops(cfg, x.shape[0], 1), tensor_bytes(x, d, g_out) + 2 * weight_bytes,
         x.shape[0]))
 
     args, kwargs = store["classic_train_grads"]
@@ -1942,7 +2217,7 @@ def bf16_kernels(device, cfg, model, pose, store: dict, frame_launches: dict, ou
     out[train_grads.NAME].update(bf16_row(
         train_grads.NAME, out[train_grads.NAME]["bf16_launches"], err, cuda_ms(call, iters=5),
         cuda_ms(lambda: train_grads.classic_train_grads_plain(*args, **kwargs), iters=3),
-        train_step_flops(cfg, *x.shape[:2]),
+        train_kernel_flops(cfg, *x.shape[:2]),
         tensor_bytes(*args[1:6], *got[2:]) + 2 * weight_bytes + 4, x.shape[0] * x.shape[1]))
 
     args, kwargs = store["fine_stage_train"]
@@ -1960,7 +2235,7 @@ def bf16_kernels(device, cfg, model, pose, store: dict, frame_launches: dict, ou
         fine_stage_train.NAME, out[fine_stage_train.NAME]["bf16_launches"], err,
         cuda_ms(call, iters=5),
         cuda_ms(lambda: fine_stage_train.fine_stage_train_plain(*args, **kwargs), iters=3),
-        train_step_flops(cfg, *x_f.shape[:2]),
+        train_kernel_flops(cfg, *x_f.shape[:2]),
         tensor_bytes(x_f, d_f[:, 0], *args[3:10], *got[2]) + 2 * weight_bytes + 4,
         x_f.shape[0] * x_f.shape[1]))
 
@@ -1971,7 +2246,7 @@ def bf16_phase(device, cfg: ClassicNeRFConfig, bank, f32_image, f32_frame_ms: fl
     400x400 frame, (c) the reuse and coarse-only train steps (their ms/step
     into ``bf16_step_ms``), then (a) each of its five kernels against its
     plain bf16 version on those paths' shapes, and (d) K2 at a latent width
-    on its SIMT tile.  Returns the five kernels' bf16 row entries."""
+    (``tc_bf16``).  Returns the five kernels' bf16 row entries."""
     bf = dict(compute_dtype="bfloat16")
     model = make_model(True, device, **bf).eval().requires_grad_(False)
     pose = spherical_poses(1, radius=4.0, device=device)
@@ -2064,8 +2339,8 @@ def bf16_phase(device, cfg: ClassicNeRFConfig, bank, f32_image, f32_frame_ms: fl
     with torch.no_grad():
         bf16_kernels(device, cfg, model, pose, store, frame_launches, out)
 
-    # d. K2 at the latent width 100 + 36 (density_inputs 5): its SIMT
-    # fwd_store tile, the tensor-core bwd_rows and wgrad.
+    # d. K2 at the latent width 100 + 36 (density_inputs 5): the tensor-core
+    # passes, the encodings streamed through fwd_store's tile.
     lc = dict(density_inputs=5)
     lpacked = classic_mlp.pack_classic_params(
         make_model(True, device, **lc, **bf).mlp.requires_grad_(False))
@@ -2085,8 +2360,8 @@ def bf16_phase(device, cfg: ClassicNeRFConfig, bank, f32_image, f32_frame_ms: fl
         torch.cuda.synchronize()
         what = f"bf16 K2 at encodings {lcfg.x_encoding_dim} + {lcfg.d_encoding_dim}"
         print(f"{what}: tile policies {dict(_build.policy_counts)}", flush=True)
-        check(dict(_build.policy_counts) == {(train_grads.NAME, "simt_bf16"): 1},
-              f"{what} ran its SIMT fwd_store tile (simt_bf16)")
+        check(dict(_build.policy_counts) == {(train_grads.NAME, "tc_bf16"): 1},
+              f"{what} ran its tensor-core tile (tc_bf16)")
         ref = train_grads.classic_train_grads_plain(lpacked, *largs, s)
         check_bf16_outputs(what + " loss", [got[0]], [ref[0]])
         check_bf16_grads(what, got[1], ref[1])
@@ -2187,7 +2462,7 @@ def mip_bf16_kernels(device, store: dict, out: dict) -> None:
         mip_train.TRAIN_NAME, out[mip_train.TRAIN_NAME]["bf16_launches"], err,
         cuda_ms(call, iters=5),
         cuda_ms(lambda: mip_train.mip_train_grads_plain(*args, **kwargs), iters=3),
-        train_step_flops(cfg, *feat.shape[:2], mip=True),
+        train_kernel_flops(cfg, *feat.shape[:2], mip=True),
         tensor_bytes(*[a for a in args[1:6] if isinstance(a, torch.Tensor)]) + 2 * weight_bytes
         + 8, rows, MIP_CHAIN_BYTES_PER_ROW))
 
@@ -2236,7 +2511,7 @@ def mip_bf16_kernels(device, store: dict, out: dict) -> None:
     print(f"{mip_mlp.BWD_NAME} bf16 with dfeat: {cuda_ms(dfeat_call, iters=5):.3f} ms", flush=True)
     out[mip_mlp.BWD_NAME].update(bf16_row(
         mip_mlp.BWD_NAME, out[mip_mlp.BWD_NAME]["bf16_launches"], err, ms, plain_ms,
-        train_step_flops(cfg, x.shape[0], 1, mip=True),
+        train_kernel_flops(cfg, x.shape[0], 1, mip=True),
         tensor_bytes(x, g_out) + 2 * weight_bytes, x.shape[0], MIP_CHAIN_BYTES_PER_ROW))
 
     mip_head_check(pk, x[:MIP_HEAD["rows"]].contiguous())
@@ -2427,7 +2702,7 @@ def point_mega_bf16_phase(device, cfg: ClassicNeRFConfig, bank, k9_step_ms: floa
     plain bf16 versions with their scratch encodings, (c) one bf16 K9 step
     against the plain bf16 step and phase 15's bf16 reuse route, (d) the K9
     train loop, (e) K9 against its plain bf16 version with its time, (f)
-    K8-fwd at x encodings 120 + 36 on its SIMT tile.  Returns the three
+    K8-fwd at x encodings 120 + 36 (``tc_bf16``).  Returns the three
     kernels' bf16 row entries."""
     bf = dict(compute_dtype="bfloat16")
     out = {}
@@ -2530,7 +2805,8 @@ def point_mega_bf16_phase(device, cfg: ClassicNeRFConfig, bank, k9_step_ms: floa
         point_mlp.BWD_NAME, launches[point_mlp.BWD_NAME], max(errs), ms,
         cuda_ms(lambda: point_mlp.classic_pointmlp_bwd_plain(packed, points, dirs, consts,
                                                               g_step, dtype=dt), iters=3),
-        3 * flops, tensor_bytes(points, dirs, g_step, *got[:2], *consts) + 2 * weight_bytes,
+        train_kernel_flops(cfg, n_points, 1, input_grads=True),
+        tensor_bytes(points, dirs, g_step, *got[:2], *consts) + 2 * weight_bytes,
         n_points)
 
     # c. One bf16 K9 step against the plain bf16 step (its own fine
@@ -2614,11 +2890,11 @@ def point_mega_bf16_phase(device, cfg: ClassicNeRFConfig, bank, k9_step_ms: floa
     sc, sf = render.num_coarse_samples, render.num_fine_samples
     out[mega_train.NAME] = bf16_row(
         mega_train.NAME, loop_launches[mega_train.NAME], k9_err, kernel_ms, plain_ms,
-        train_step_flops(cfg, n_rays, sc + sf),
+        train_kernel_flops(cfg, n_rays, sc + sf),
         tensor_bytes(*[x for x in inputs if x is not None], t_fine) + 8
         + 2 * tensor_bytes(*packed.values()), n_rays * (sc + sf))
 
-    # f. K8-fwd at x encodings 120 + 36: the bf16-rounding SIMT tile.
+    # f. K8-fwd at x encodings 120 + 36, which the tile streams.
     wcfg = ClassicNeRFConfig(normalize_position=6.0, **WIDE_K8)
     wpacked = classic_mlp.pack_classic_params(make_model(True, device, **WIDE_K8).mlp
                                               .requires_grad_(False))
@@ -2629,11 +2905,10 @@ def point_mega_bf16_phase(device, cfg: ClassicNeRFConfig, bank, k9_step_ms: floa
     what = f"bf16 K8-fwd at encodings {wcfg.x_encoding_dim} + {wcfg.d_encoding_dim}"
     with torch.no_grad():
         call = lambda: point_mlp.classic_pointmlp_fwd(wpacked, wpts, wdirs, wconsts, dtype=dt)  # noqa: E731
-        got = on_route(point_mlp.NAME, call, "simt_bf16")
+        got = on_route(point_mlp.NAME, call)
         check_bf16_outputs(what, [got], [point_mlp.classic_pointmlp_fwd_plain(
             wpacked, wpts, wdirs, wconsts, dtype=dt)])
-        print(f"{what}, {WIDE_ROWS} rows (bf16-rounding SIMT tile): "
-              f"{cuda_ms(call, iters=3):.3f} ms", flush=True)
+        print(f"{what}, {WIDE_ROWS} rows (tc_bf16): {cuda_ms(call, iters=3):.3f} ms", flush=True)
     return out
 
 # Phase 18: data parallelism (slice 15).  (a) One rank over NCCL in this
@@ -3364,7 +3639,7 @@ def main() -> int:
     rows.update(point_mlp_phase(device, cfg, bank))
     mega_row, k9_step_ms = mega_phase(device, cfg, bank, step_ms["reuse"])
     rows.update(mega_row)
-    latent_phase(device, bank)
+    latent_phase(device, bank, card)
     wide_forward_phase(device)
     cli_launches = entry_points_phase(device, card)
     bf16_step_ms = {}

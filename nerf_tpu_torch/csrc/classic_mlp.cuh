@@ -1,9 +1,8 @@
-// Device code of the classic NeRF point MLP, shared by the K1 forward
-// kernel (classic_mlp_fwd.cu) and the K4 fine-stage union kernel
-// (union_eval.cu), whose SIMT tiles run mlp_tile where the encodings are
-// too wide for their tensor-core tiles (tc_mlp.cuh, which reuses the
-// epilogues and heads); its product, epilogue and head also carry the mip
-// MLP (mip_mlp.cuh).
+// Device code of the classic NeRF point MLP: the row-per-warp layout, the
+// layers' epilogues and the heads that the tensor-core tiles of every
+// classic kernel run (tc_mlp.cuh's mlp_tile_tc), and the float32 SIMT
+// product (gemm_acc) that, with the same epilogue and head, carries the
+// mip MLP's SIMT tile (mip_mlp.cuh).
 //
 // The network (nerf_tpu_torch/models/mlp.py): ten layers of
 // Linear -> ReLU -> LayerNorm(eps 1e-5),
@@ -210,34 +209,6 @@ __device__ __forceinline__ void gemm_acc(float (&acc)[kRowsPerWarp][H / 32],
   __syncthreads();
 }
 
-// Floats of the staged chunk of a transposed product (gemm_acc_t): rows
-// padded to H + 1 so the transposing stores do not collide in one bank.
-template <int H>
-__host__ __device__ constexpr int chunk_t_floats() { return kChunk * (H + 1); }
-
-// acc[:, j] += A[rows of this warp, 0:H] @ W[j, 0:H]^T for j < ncols (the
-// other columns get 0): the product with the transpose of a weight slab W,
-// row-major [ncols, H] (a forward layer's [in, out] weight read as
-// [out -> in]).  A is shared memory with row stride lda; wbuf holds
-// chunk_t_floats<H>() floats.  Ends with a block-wide barrier.
-template <int H>
-__device__ __forceinline__ void gemm_acc_t(float (&acc)[kRowsPerWarp][H / 32],
-                                           const float* A, int lda,
-                                           const float* __restrict__ W, int ncols,
-                                           float* wbuf) {
-  const int tid = threadIdx.x;
-  const float* a_rows = A + (tid >> 5) * kRowsPerWarp * lda;
-  for (int k0 = 0; k0 < H; k0 += kChunk) {
-    for (int i = tid; i < kChunk * H; i += kThreads) {
-      const int j = i / kChunk, kk = i % kChunk;
-      wbuf[kk * (H + 1) + j] = j < ncols ? __ldg(W + static_cast<size_t>(j) * H + k0 + kk) : 0.f;
-    }
-    __syncthreads();
-    chunk_fma<H, H + 1>(acc, a_rows, lda, k0, kChunk, wbuf);
-    __syncthreads();
-  }
-}
-
 template <int H>
 __device__ __forceinline__ void zero(float (&acc)[kRowsPerWarp][H / 32]) {
 #pragma unroll
@@ -349,44 +320,6 @@ __device__ __forceinline__ void head(const float (&h)[kRowsPerWarp][H / 32],
       if (lane == 0 && row < nvalid) out[row * ld + col0 + i] = s + bi;
     }
   }
-}
-
-// The whole network on one 64-row tile whose inputs are already in shared
-// memory (xs, ds; see load_tile).  Writes [density, color...] rows to out
-// (global or shared memory, row stride ld).  act is the [64][H] activation
-// buffer, wbuf the [kChunk][H] weight chunk.  With kSave every layer's
-// xhat and statistics go to save (the training kernels' backward input).
-// kBf16: compute_dtype bfloat16 (every product and head).
-template <int H, bool kSave = false, bool kBf16 = false>
-__device__ void mlp_tile(const Weights& w, const float* xs, const float* ds,
-                         float* act, float* wbuf, float* out, int ld, int nvalid,
-                         const Save* save = nullptr) {
-  const int xld = round_up4(w.xe), dld = round_up4(w.de);
-  const size_t hh = static_cast<size_t>(H) * H;
-  float acc[kRowsPerWarp][H / 32];
-
-  zero<H>(acc);
-  gemm_acc<H, kBf16>(acc, xs, xld, w.xe, w.w0, wbuf);
-  layer_epilogue<H, kSave>(acc, w.b, w.g, w.beta, save, 0);
-  store_rows<H>(acc, act);
-  for (int i = 1; i < 8; ++i) {
-    zero<H>(acc);
-    gemm_acc<H, kBf16>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
-    if (i == 4) gemm_acc<H, kBf16>(acc, xs, xld, w.xe, w.wx, wbuf);
-    layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
-    store_rows<H>(acc, act);
-  }
-  head<H, kBf16>(acc, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
-  if (w.wd != nullptr) {
-    for (int i = 8; i < 10; ++i) {
-      zero<H>(acc);
-      gemm_acc<H, kBf16>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
-      if (i == 8) gemm_acc<H, kBf16>(acc, ds, dld, w.de, w.wd, wbuf);
-      layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
-      if (i == 8) store_rows<H>(acc, act);
-    }
-  }
-  head<H, kBf16>(acc, w.w_col, w.b_col, w.c, out, ld, 1, nvalid);
 }
 
 // Dispatch a templated launcher on the hidden width; returns

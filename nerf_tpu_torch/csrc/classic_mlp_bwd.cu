@@ -20,22 +20,19 @@
 // (xhat and LayerNorm statistics) to global scratch, a per-tile backward
 // writes every layer's dpre and the tile's column sums, a product over the
 // points gives dW in split chunks, and fixed-order sums of the partials
-// make the gradients repeatable.  Without the encodings' cotangents (dx
-// and dd null: autograd asks for none where the encodings need no
-// gradient, as on the reuse step) the three passes are K2's tensor-core
+// make the gradients repeatable.  The three passes are K2's tensor-core
 // ones (tc_mlp.cuh's TcProducts: 3xTF32 wgmma on the operand images the
-// wrapper builds, fwd_store in float32 SIMT where the encodings are too
-// wide for its tile); with them, the float32 SIMT passes (SimtProducts),
-// whose bwd_rows also writes dx and dd.
+// wrapper builds, the encodings streamed through the forward tile at every
+// width), whose bwd_rows also writes the encodings' cotangents dx and dd
+// where they are asked for (tc_input_grad; dx and dd null where autograd
+// asks for none, as on the reuse step).
 //
 // classic_mlp_bwd_bf16 is the same in compute_dtype bfloat16 (tc_mlp.cuh,
-// note 10): bf16 encodings, always the tensor-core passes
-// (TcProductsBf16), the encodings' cotangents too (bwd_rows'
-// tc_input_grad, written as bfloat16, the encodings' dtype), fwd_store in
-// the bf16-rounding SIMT pass where the encodings are too wide for its
-// tile.  Its bound at 131,072 rows: 0.501 ms of bf16 tensor-core
-// operations (FLOP / 989 TFLOP/s); the float32 chain (xhat and dpre,
-// 10,240 bytes a row written and read) takes 0.80 ms at 3.35 TB/s.
+// note 10): bf16 encodings, the passes of TcProductsBf16, the encodings'
+// cotangents written as bfloat16, the encodings' dtype.  Its bound at
+// 131,072 rows: 0.501 ms of bf16 tensor-core operations (FLOP / 989
+// TFLOP/s); the float32 chain (xhat and dpre, 10,240 bytes a row written
+// and read) takes 0.80 ms at 3.35 TB/s.
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "tc_mlp.cuh"
@@ -48,20 +45,13 @@ template <int H>
 cudaError_t run(const Weights& w, const float* x, const float* d, const float* gout,
                 float* dx, float* dd, float* grads, float* out, int P, const Scratch& s,
                 cudaStream_t stream) {
-  if (dx == nullptr && dd == nullptr) {
-    cudaError_t err = launch_fwd_store_with<H, TcProducts>(
-        w, TileLoad{x, d, 1}, out, P, s, stream, static_cast<size_t>(P), 0);
-    if (err != cudaSuccess) return err;
-    return launch_mlp_backward<H, TcProducts>(w, x, d, 1, gout, P, s, nullptr, nullptr, grads,
-                                             stream);
-  }
-  cudaError_t err = launch_fwd_store<H>(w, x, d, 1, out, P, s, stream);
+  cudaError_t err = launch_fwd_store_with<H, TcProducts>(
+      w, TileLoad{x, d, 1}, out, P, s, stream, static_cast<size_t>(P), 0);
   if (err != cudaSuccess) return err;
-  return launch_mlp_backward<H>(w, x, d, 1, gout, P, s, dx, dd, grads, stream);
+  return launch_mlp_backward<H, TcProducts>(w, x, d, 1, gout, P, s, dx, dd, grads, stream);
 }
 
-// compute_dtype bfloat16: x, d, dx and dd bfloat16, the tensor-core passes
-// whether or not the encodings' cotangents are asked for.
+// compute_dtype bfloat16: x, d, dx and dd bfloat16.
 template <int H>
 cudaError_t run_bf16(const Weights& w, const void* x, const void* d, const float* gout,
                      void* dx, void* dd, float* grads, float* out, int P, const Scratch& s,
@@ -83,12 +73,12 @@ extern "C" int classic_mlp_bwd(const float* x, const float* d, const float* gout
                                const float* beta, const float* w_dens, const float* b_dens,
                                const float* w_col, const float* b_col, float* xhat,
                                float* stats, float* dpre, float* wpart, float* tpart,
-                               float* tmp, float* wt, float* out, int splits,
+                               float* tmp, float* out, int splits,
                                const float* tc_fwd, const float* tc_bwd, void* stream) {
   if (c > kMaxColors) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, wt, splits, tc_fwd, tc_bwd};
+  const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, splits, tc_fwd, tc_bwd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) static_cast<int>(run<H>(w, x, d, gout, dx, dd, grads, out, P, s, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
@@ -104,24 +94,16 @@ extern "C" int classic_mlp_bwd_bf16(const void* x, const void* d, const float* g
                                     const float* beta, const float* w_dens,
                                     const float* b_dens, const float* w_col,
                                     const float* b_col, float* xhat, float* stats, float* dpre,
-                                    float* wpart, float* tpart, float* tmp, float* wt,
+                                    float* wpart, float* tpart, float* tmp,
                                     float* out, int splits, const void* tc_fwd,
                                     const void* tc_bwd, void* stream) {
   if (c > kMaxColors) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) static_cast<int>(run_bf16<H>(w, x, d, gout, dx, dd, grads, out, P, s, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
-}
-
-// The plan of the tensor-core passes' fwd_store for these widths (de 0
-// without the view branch): out = [policy (0 tensor cores, 1 float32
-// SIMT, 2 neither fits), tensor-core bytes, SIMT bytes, the device's
-// limit].  Calls with the encodings' cotangents run the SIMT passes.
-extern "C" int classic_mlp_bwd_plan(int xe, int de, int hidden, long long* out) {
-  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

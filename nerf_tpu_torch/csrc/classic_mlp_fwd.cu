@@ -12,21 +12,19 @@
 // as three TF32 products on the tensor cores (FLOP / 165 TFLOP/s).
 //
 // Design: one block of 8 warps per 64-row tile keeps every activation on
-// chip.  Where the tile fits the device's shared memory (tc_mlp.cuh, note
-// 9: xe' + de' <= 132 at H = 256, which the full-width model's 60 + 36
-// does), fwd_tc_kernel runs every hidden and encoding product as 3xTF32
+// chip.  fwd_tc_kernel runs every hidden and encoding product as 3xTF32
 // wgmma on the forward operand images the wrapper builds (mlp_tile_tc,
-// K4's tile; one block an SM, 223 KB); LayerNorm, the heads and the
-// epilogues stay float32.  Wider encodings (a latent-conditioned model's)
-// run fwd_simt_kernel, the float32 SIMT tile (classic_mlp.cuh: weights
-// streamed from L2 in 16-row chunks, two blocks an SM).  The choice is
-// made from the shapes before any launch (tc_mlp.cuh's launch_fwd, which
-// K8-fwd shares with its own loader).
+// K4's tile; one block an SM, 219,136 bytes at H = 256), the encodings
+// streamed from global memory one k-chunk at a time beside the weights'
+// chunks, so every encoding width runs it (tc_mlp.cuh, note 9; a
+// latent-conditioned model's wider encodings only take more chunks);
+// LayerNorm, the heads and the epilogues stay float32.  tc_mlp.cuh's
+// launch_fwd, which K8-fwd shares with its own loader.
 //
 // classic_mlp_fwd_bf16 is the same kernel in compute_dtype bfloat16
 // (tc_mlp.cuh, note 10): bf16 encodings and weight images, every product
 // and both heads on bf16 operands with float32 sums, float32 outputs; the
-// same tiles and width rule.  Its bound at 262,144 rows: 0.334 ms of bf16
+// same tile.  Its bound at 262,144 rows: 0.334 ms of bf16
 // tensor-core operations (FLOP / 989 TFLOP/s), against 192 bytes of
 // encodings and 16 of output a row (0.016 ms at 3.35 TB/s).
 //
@@ -72,12 +70,4 @@ extern "C" int classic_mlp_fwd_bf16(const void* x, const void* d, float* out, in
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
   return run<true>(x, d, out, P, hidden, w, tc_fwd, stream);
-}
-
-// The plan K1-fwd follows for these widths (de 0 without the view branch):
-// its tiles take fwd_store's bytes.  out = [policy (0 tensor cores, 1
-// float32 SIMT, 2 neither fits), tensor-core bytes, SIMT bytes, the
-// device's limit].
-extern "C" int classic_mlp_fwd_plan(int xe, int de, int hidden, long long* out) {
-  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

@@ -10,36 +10,31 @@
 // H = 256) and its blocks run in parallel, so the backward is four passes
 // over global memory, each written by hand:
 //
-//   1. fwd_store: the forward (classic_mlp.cuh, 64-row tiles) that also
-//      stores every layer's normalised LayerNorm input xhat, [L][P][H], and
-//      the per-row (1/sigma, -mu/sigma), [L][P][2].  Storing costs 2 x L x H
-//      x 4 bytes per row of HBM traffic (2.7 GB at 131,072 rows, about
-//      0.8 ms at 3.35 TB/s) against about 5 ms of the operations bound, so
-//      the backward does not recompute the chain once more.
+//   1. fwd_store: the forward (64-row tiles, tc_mlp.cuh's mlp_tile_tc)
+//      that also stores every layer's normalised LayerNorm input xhat,
+//      [L][P][H], and the per-row (1/sigma, -mu/sigma), [L][P][2].  Storing
+//      costs 2 x L x H x 4 bytes per row of HBM traffic (2.7 GB at 131,072
+//      rows, about 0.8 ms at 3.35 TB/s) against about 5 ms of the
+//      operations bound, so the backward does not recompute the chain once
+//      more.
 //   2. bwd_rows: per 64-row tile, from the output cotangents down through
 //      the layers: the LayerNorm and ReLU backward in registers (warp
-//      reductions over a row, as the forward), dh = dpre @ W^T as the
-//      forward's product (gemm_acc) on the hidden slabs transposed once per
-//      call (transpose_slabs_kernel, 2.4 MB), every layer's dpre stored to
-//      [L][P][H], and the tile's column sums (db, dg, dbeta, the two heads)
-//      written to its own row of a per-tile partials buffer.  Optionally
-//      the input cotangents dx, dd (gemm_acc_t transposes while staging).
-//   3. wgrad: dW = h_in^T dpre for every weight slab, a float32 product
-//      over the points written by hand: 128 x 128 output tiles, 8 x 8 per
-//      thread, double-buffered staging, the points split into S chunks,
-//      each chunk's tile written to its own partials slab.
+//      reductions over a row, as the forward; layer_bwd, head_bwd below),
+//      dh = dpre @ W^T, every layer's dpre stored to [L][P][H], and the
+//      tile's column sums (db, dg, dbeta, the two heads) written to its own
+//      row of a per-tile partials buffer.  Optionally the input cotangents
+//      dx, dd.
+//   3. wgrad: dW = h_in^T dpre for every weight slab (the WProds below):
+//      128 x 128 output tiles, the points split into S chunks, each chunk's
+//      tile written to its own partials slab.
 //   4. colsum: the partials summed in a fixed order (two stages), so the
 //      gradients are the same from run to run (no atomics).
 //
-// Passes 1-3 run their products through a policy: SimtProducts (below,
-// float32 SIMT FMAs: gemm_acc, wgrad_kernel) for K1-bwd with the
-// encodings' cotangents; TcProducts (tc_mlp.cuh, 3xTF32 on the tensor
-// cores) for K2, K3, K8-bwd, K9 and K1-bwd without them, whose fwd_store
-// runs SimtProducts' pass where the encodings are too wide for the
-// tensor-core tile (tc_mlp.cuh, the width rule).  The mip passes
-// (mip_mlp.cuh) take their own policies on the same pieces: MipTc (K5-fwd,
-// K5-bwd, K6, K7) and MipSimt (their forward tile where the features are
-// too wide for the tensor-core one).
+// Passes 1-3 run their products through a policy: TcProducts (tc_mlp.cuh,
+// 3xTF32 on the tensor cores) for K1-bwd, K2, K3, K8-bwd and K9 at every
+// encoding width.  The mip passes (mip_mlp.cuh) take their own policies on
+// the same pieces: MipTc (K5-fwd, K5-bwd, K6, K7) and MipSimt (their
+// forward tile where the features are too wide for the tensor-core one).
 //
 // The flat gradient the passes produce is the packed weights' order
 // (ops/kernels/classic_mlp.py): w0, wx, wd, whh | b, g, beta, w_dens,
@@ -82,70 +77,11 @@ struct Scratch {
   float* wpart;  // [splits][wgrad_floats]
   float* tpart;  // [tiles][tile_floats]
   float* tmp;    // [kColsumGroups][max(wgrad_floats, tile_floats)]
-  float* wt;     // [L - 1][H][H]: the hidden slabs whh, each transposed
   int splits;
   // The tensor-core passes' operand images (tc_mlp.cuh; TcProducts only).
   const float* tc_fwd = nullptr;
   const float* tc_bwd = nullptr;
 };
-
-// out[s][j][k] = in[s][k][j] for the [H][H] slabs s (H a multiple of 32).
-__global__ void transpose_slabs_kernel(const float* __restrict__ in, int H,
-                                       float* __restrict__ out) {
-  __shared__ float t[32][33];
-  const size_t slab = static_cast<size_t>(blockIdx.z) * H * H;
-  const int k0 = blockIdx.y * 32, j0 = blockIdx.x * 32;
-  for (int r = threadIdx.y; r < 32; r += blockDim.y)
-    t[r][threadIdx.x] = in[slab + static_cast<size_t>(k0 + r) * H + j0 + threadIdx.x];
-  __syncthreads();
-  for (int r = threadIdx.y; r < 32; r += blockDim.y)
-    out[slab + static_cast<size_t>(j0 + r) * H + k0 + threadIdx.x] = t[threadIdx.x][r];
-}
-
-// ---------------------------------------------------------------------------
-// 1. Forward that stores the chain.
-// ---------------------------------------------------------------------------
-
-// The encodings of a tile read from global memory: x [P][xe] and d, whose
-// row r / d_div serves row r (d_div > 1: per-ray view encodings); T is
-// float or __nv_bfloat16.
-template <class T>
-struct TileLoadT {
-  const T* x;
-  const T* d;
-  int d_div;
-  __device__ void operator()(const Weights& w, float* xs, float* ds, size_t row0,
-                             int nvalid) const {
-    load_tile(xs, x, row0, nvalid, w.xe, 1);
-    if (w.wd != nullptr) load_tile(ds, d, row0, nvalid, w.de, d_div);
-  }
-};
-using TileLoad = TileLoadT<float>;
-
-// The stored-chain forward of the P rows of a call: tile row r of block b
-// is row 64 b + r of the call and row base + 64 b + r of the chain, whose
-// layers are `stride` rows apart (base 0 and stride P but where two calls
-// fill one chain, as K9's coarse and fine stages do).  load(w, xs, ds,
-// row0, nvalid) fills the tile's zero-padded encoding tiles (load_tile's
-// layout): TileLoad reads them from global memory, the K8 and K9 loaders
-// compute them.  kBf16: compute_dtype bfloat16.
-template <int H, class Load, bool kBf16 = false>
-__global__ void __launch_bounds__(kThreads, 2)
-    fwd_store_kernel(Weights w, Load load, float* __restrict__ out, int P, float* xhat,
-                     float* stats, size_t stride, size_t base) {
-  extern __shared__ float4 smem4[];
-  float* act = reinterpret_cast<float*>(smem4);
-  float* wbuf = act + kTileRows * H;
-  float* xs = wbuf + kChunk * H;
-  float* ds = xs + kTileRows * round_up4(w.xe);
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
-  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  load(w, xs, ds, row0, nvalid);
-  __syncthreads();
-  const Save save{xhat, stats, stride, base + row0, nvalid};
-  mlp_tile<H, true, kBf16>(w, xs, ds, act, wbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid,
-                           &save);
-}
 
 // ---------------------------------------------------------------------------
 // 2. Backward over the rows of a tile.
@@ -286,130 +222,6 @@ __device__ void layer_bwd(float (&acc)[kRowsPerWarp][H / 32], int i,
   tile_colsum<H>(s_beta, red, part_beta + i * H);
 }
 
-// acc[:, m] for m < n - col0 (this warp's rows) -> out[row * n + col0 + m].
-template <int H>
-__device__ __forceinline__ void store_cols(const float (&acc)[kRowsPerWarp][H / 32], float* out,
-                                           size_t row0, int n, int col0, int nvalid) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = warp * kRowsPerWarp + r;
-    if (row >= nvalid) continue;
-#pragma unroll
-    for (int j = 0; j < H / 32; ++j) {
-      const int m = col0 + lane + 32 * j;
-      if (m < n) out[(row0 + row) * n + m] = acc[r][j];
-    }
-  }
-}
-
-// This warp's rows of layer `layer`'s dpre (stored by layer_bwd) -> act.
-template <int H>
-__device__ __forceinline__ void load_dpre_rows(float* act, const float* dpre, int layer,
-                                               size_t P, size_t row0, int nvalid) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = warp * kRowsPerWarp + r;
-    for (int j = lane; j < H; j += 32)
-      act[row * H + j] = row < nvalid ? dpre[(layer * P + row0 + row) * H + j] : 0.f;
-  }
-  __syncwarp();
-}
-
-// out [P][n] = sum over the given layers' dpre @ W^T, W row-major [n, H]
-// (an encoding's slab of the forward): the input cotangent of an
-// encoding, computed in column blocks of H (n may exceed H).
-template <int H>
-__device__ void input_grad(float (&acc)[kRowsPerWarp][H / 32], float* act, float* wbuf,
-                           const float* dpre, size_t P, size_t row0, int nvalid, int la,
-                           const float* wa, int lb, const float* wb, int n, float* out) {
-  for (int c0 = 0; c0 < n; c0 += H) {
-    zero<H>(acc);
-    load_dpre_rows<H>(act, dpre, la, P, row0, nvalid);
-    gemm_acc_t<H>(acc, act, H, wa + static_cast<size_t>(c0) * H, n - c0, wbuf);
-    if (wb != nullptr) {
-      load_dpre_rows<H>(act, dpre, lb, P, row0, nvalid);
-      gemm_acc_t<H>(acc, act, H, wb + static_cast<size_t>(c0) * H, n - c0, wbuf);
-    }
-    store_cols<H>(acc, out, row0, n, c0, nvalid);
-  }
-}
-
-template <int H>
-__host__ inline size_t bwd_rows_smem(const Weights& w) {
-  return (static_cast<size_t>(kTileRows) * H + chunk_t_floats<H>() +
-          static_cast<size_t>(kTileRows) * (1 + w.c)) *
-         sizeof(float);
-}
-
-// One block per 64-row tile.  gout [P][1 + c] holds dL/d(density, color
-// logits) per row; wt the hidden slabs transposed; dx [P][xe] and dd
-// [P][de] are written when not null.  The registers are not capped at 128
-// (one block per SM at H = 256): the LayerNorm backward keeps a warp's
-// rows of xhat in registers beside the accumulators, and a cap spills
-// them.
-template <int H>
-__global__ void __launch_bounds__(kThreads, 1)
-    bwd_rows_kernel(Weights w, const float* __restrict__ gout, int P, const float* xhat,
-                    const float* stats, const float* __restrict__ wt, float* dpre,
-                    float* tpart, float* dx, float* dd) {
-  extern __shared__ float4 smem4[];
-  float* act = reinterpret_cast<float*>(smem4);  // dpre of the current layer
-  float* wbuf = act + kTileRows * H;             // weight chunk, or colsum scratch
-  float* gs = wbuf + chunk_t_floats<H>();        // [64][1 + c] output cotangents
-  const int L = num_layers(w), last = L - 1, ldo = 1 + w.c;
-  const size_t hh = static_cast<size_t>(H) * H, PP = static_cast<size_t>(P);
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
-  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  float* part = tpart + blockIdx.x * tile_floats(w, H);
-  float* p_b = part;
-  float* p_g = p_b + L * H;
-  float* p_beta = p_g + L * H;
-  float* p_wdens = p_beta + L * H;
-  float* p_wcol = p_wdens + H;
-  float* p_bdens = p_wcol + H * w.c;
-  float* p_bcol = p_bdens + 1;
-
-  for (int i = threadIdx.x; i < kTileRows * ldo; i += kThreads)
-    gs[i] = i / ldo < nvalid ? gout[row0 * ldo + i] : 0.f;
-  __syncthreads();
-  if (threadIdx.x < ldo) {
-    float s = 0.f;
-    for (int r = 0; r < kTileRows; ++r) s += gs[r * ldo + threadIdx.x];
-    if (threadIdx.x == 0) *p_bdens = s; else p_bcol[threadIdx.x - 1] = s;
-  }
-
-  float acc[kRowsPerWarp][H / 32];
-  zero<H>(acc);
-  auto xh_of = [&](int layer) { return xhat + (layer * PP + row0) * H; };
-  // The color head reads the last layer; without the view branch the
-  // density head joins there too.
-  head_bwd<H>(acc, gs, ldo, 1, w.c, w.w_col, xh_of(last), w.g + last * H, w.beta + last * H,
-              nvalid, p_wcol, wbuf);
-  if (w.wd == nullptr)
-    head_bwd<H>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H, nvalid,
-                p_wdens, wbuf);
-  for (int i = last; i >= 0; --i) {
-    layer_bwd<H>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats, dpre, p_b,
-                 p_g, p_beta, wbuf);
-    if (i == 0) break;
-    store_rows<H>(acc, act);
-    __syncthreads();
-    zero<H>(acc);
-    gemm_acc<H>(acc, act, H, H, wt + (i - 1) * hh, wbuf);
-    if (i == 8)
-      head_bwd<H>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H,
-                  nvalid, p_wdens, wbuf);
-  }
-  // The encodings' cotangents: dx = dpre_0 @ w0^T + dpre_4 @ wx^T and
-  // dd = dpre_8 @ wd^T, from the stored dpre (each warp reloads its rows).
-  __syncthreads();
-  if (dx != nullptr)
-    input_grad<H>(acc, act, wbuf, dpre, PP, row0, nvalid, 0, w.w0, 4, w.wx, w.xe, dx);
-  if (dd != nullptr)
-    input_grad<H>(acc, act, wbuf, dpre, PP, row0, nvalid, 8, w.wd, 0, nullptr, w.de, dd);
-}
-
 // ---------------------------------------------------------------------------
 // 3. Weight gradients: dW = h_in^T dpre, summed over a chunk of points.
 // ---------------------------------------------------------------------------
@@ -446,102 +258,6 @@ struct WProds {
   int n;
 };
 
-// A block of 256 threads owns one 128 x 128 output tile over one chunk of
-// points; thread (ty, tx) holds rows ty*4 + {0..3, 64..67} and columns
-// tx*4 + {0..3, 64..67} (so the float4 reads of a staged row fall on
-// consecutive addresses, free of bank conflicts).  The staging is double
-// buffered: the next step's operands are fetched into registers while the
-// current step's products run.  At most 128 registers, two blocks per SM.
-__global__ void __launch_bounds__(256, 2)
-    wgrad_kernel(WProds prods, int P, int k_chunk, float* __restrict__ wpart, size_t wfloats) {
-  constexpr int kSteps = kWK * kWT / 256;  // staged values per thread and operand
-  __shared__ float4 As4[2][kWK * kWT / 4];
-  __shared__ float4 Bs4[2][kWK * kWT / 4];
-  int t = blockIdx.x, pi = 0;
-  while (t >= prods.p[pi].tiles_m * prods.p[pi].tiles_n) {
-    t -= prods.p[pi].tiles_m * prods.p[pi].tiles_n;
-    ++pi;
-  }
-  const WProd pr = prods.p[pi];
-  const int N = pr.n;
-  const int m0 = (t / pr.tiles_n) * kWT, n0 = (t % pr.tiles_n) * kWT;
-  const int k_begin = blockIdx.y * k_chunk;
-  const int k_end = min(P, k_begin + k_chunk);
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  // The staging thread's column (fixed) and first point row (kk0 + 2 e).
-  const int sm = tid % kWT, kk0 = tid / kWT;
-  const bool a_ok = m0 + sm < pr.M, b_ok = n0 + sm < N;
-  const float ga = a_ok && pr.g != nullptr ? __ldg(pr.g + m0 + sm) : 1.f;
-  const float ba = a_ok && pr.g != nullptr ? __ldg(pr.beta + m0 + sm) : 0.f;
-  const float* A = pr.a + m0 + sm;
-  const float* B = pr.b + n0 + sm;
-
-  float ra[kSteps], rb[kSteps];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int e = 0; e < kSteps; ++e) {
-      const int p = k0 + kk0 + 2 * e;
-      const bool in_k = p < k_end;
-      int row = p;  // no division on the common path
-      if (pr.div != 1) row = pr.split > 0 && p >= pr.split ? (p - pr.split) / pr.div2 : p / pr.div;
-      const float av = in_k && a_ok ? fmaf(A[static_cast<size_t>(row) * pr.a_ld], ga, ba) : 0.f;
-      ra[e] = pr.relu ? fmaxf(av, 0.f) : av;
-      rb[e] = in_k && b_ok ? B[static_cast<size_t>(p) * N] : 0.f;
-    }
-  };
-  auto stage = [&](int buf) {
-    float* as = reinterpret_cast<float*>(As4[buf]);
-    float* bs = reinterpret_cast<float*>(Bs4[buf]);
-#pragma unroll
-    for (int e = 0; e < kSteps; ++e) {
-      as[tid + 256 * e] = ra[e];
-      bs[tid + 256 * e] = rb[e];
-    }
-  };
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  fetch(k_begin);
-  stage(0);
-  __syncthreads();
-  int buf = 0;
-  for (int k0 = k_begin; k0 < k_end; k0 += kWK) {
-    const bool more = k0 + kWK < k_end;
-    if (more) fetch(k0 + kWK);
-#pragma unroll
-    for (int kk = 0; kk < kWK; ++kk) {
-      const float4* arow = As4[buf] + kk * (kWT / 4);
-      const float4* brow = Bs4[buf] + kk * (kWT / 4);
-      const float4 a0 = arow[ty], a1 = arow[16 + ty], b0 = brow[tx], b1 = brow[16 + tx];
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    // The other buffer was last read before the previous barrier.
-    if (more) stage(buf ^ 1);
-    __syncthreads();
-    buf ^= 1;
-  }
-  float* out = wpart + blockIdx.y * wfloats + pr.out_off;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty * 4 + (i & 3) + (i >> 2) * 64;
-    if (m >= pr.M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + tx * 4 + (j & 3) + (j >> 2) * 64;
-      if (n < N) out[static_cast<size_t>(m) * N + n] = acc[i][j];
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // 4. Fixed-order sums of partials.
 // ---------------------------------------------------------------------------
@@ -577,81 +293,20 @@ inline cudaError_t colsum(const float* in, int T, size_t F, float* out, float* t
 // Host side.
 // ---------------------------------------------------------------------------
 
-// Bytes of shared memory of fwd_store_kernel: the activation tile, the
-// weight chunk and the encoding tiles.
+// Bytes of shared memory of the float32 SIMT forward tile (mip_mlp.cuh's
+// MipSimt): the activation tile, the weight chunk and the input tiles.
 template <int H>
 __host__ inline size_t fwd_store_smem(int xe, int de) {
   return (static_cast<size_t>(kTileRows) * H + mlp_side_floats<H>(xe, de)) * sizeof(float);
 }
 
-// The float32 SIMT products (gemm_acc and wgrad_kernel): the passes' product
-// policy for K1-bwd with the encodings' cotangents; K2, K3, K8-bwd, K9 and
-// K1-bwd without them take tc_mlp.cuh's TcProducts.
-// A policy launches pass 1 (fwd_store), pass 2 (bwd_rows) and pass 3
-// (wgrad); launch_fwd_store_with and launch_mlp_backward do the rest.
-struct SimtProducts {
-  static constexpr bool kBf16 = false;  // the operands' type: float32 only
-
-  // kRoundBf16: TcProductsT<true>'s fwd_store where its tile does not fit
-  // (operands rounded to bfloat16).
-  template <int H, class Load, bool kRoundBf16 = false>
-  static cudaError_t fwd_store(const Weights& w, const Load& load, float* out, int P,
-                               const Scratch& s, cudaStream_t stream, size_t stride,
-                               size_t base) {
-    const size_t smem = fwd_store_smem<H>(w.xe, w.de);
-    cudaError_t err = cudaFuncSetAttribute(fwd_store_kernel<H, Load, kRoundBf16>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const int tiles = (P + kTileRows - 1) / kTileRows;
-    fwd_store_kernel<H, Load, kRoundBf16><<<tiles, kThreads, smem, stream>>>(
-        w, load, out, P, s.xhat, s.stats, stride, base);
-    return cudaGetLastError();
-  }
-
-  template <int H>
-  static cudaError_t bwd_rows(const Weights& w, const float* gout, int P, const Scratch& s,
-                              void* dx, void* dd, cudaStream_t stream) {
-    const int L = num_layers(w);
-    transpose_slabs_kernel<<<dim3(H / 32, H / 32, L - 1), dim3(32, 8), 0, stream>>>(w.whh, H,
-                                                                                    s.wt);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    const size_t smem = bwd_rows_smem<H>(w);
-    err = cudaFuncSetAttribute(bwd_rows_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const int tiles = (P + kTileRows - 1) / kTileRows;
-    bwd_rows_kernel<H><<<tiles, kThreads, smem, stream>>>(w, gout, P, s.xhat, s.stats, s.wt,
-                                                           s.dpre, s.tpart,
-                                                           static_cast<float*>(dx),
-                                                           static_cast<float*>(dd));
-    return cudaGetLastError();
-  }
-
-  static cudaError_t wgrad(const WProds& prods, int total_tiles, int P, int k_chunk,
-                           const Scratch& s, size_t wfloats, cudaStream_t stream) {
-    wgrad_kernel<<<dim3(total_tiles, s.splits), 256, 0, stream>>>(prods, P, k_chunk, s.wpart,
-                                                                   wfloats);
-    return cudaGetLastError();
-  }
-};
-
-// Pass 1 on the P rows of a call, their tiles from `load`; the chain's
-// rows base .. base + P - 1 of `stride` (fwd_store_kernel, or the
-// policy's).
-template <int H, class Products = SimtProducts, class Load>
+// Pass 1 on the P rows of a call, their encodings from `load`; the
+// chain's rows base .. base + P - 1 of `stride` (the policy's fwd_store).
+template <int H, class Products, class Load>
 cudaError_t launch_fwd_store_with(const Weights& w, const Load& load, float* out, int P,
                                   const Scratch& s, cudaStream_t stream, size_t stride,
                                   size_t base) {
   return Products::template fwd_store<H, Load>(w, load, out, P, s, stream, stride, base);
-}
-
-template <int H>
-cudaError_t launch_fwd_store(const Weights& w, const float* x, const float* d, int d_div,
-                             float* out, int P, const Scratch& s, cudaStream_t stream) {
-  return launch_fwd_store_with<H>(w, TileLoad{x, d, d_div}, out, P, s, stream,
-                                  static_cast<size_t>(P), 0);
 }
 
 // Passes 2-4 from the output cotangents gout: grads (the flat gradient,
@@ -659,7 +314,7 @@ cudaError_t launch_fwd_store(const Weights& w, const float* x, const float* d, i
 // d_div are the forward's encoded inputs (bfloat16 where Products::kBf16,
 // as dx and dd then are); with d_split > 0, d's rows serve points p >=
 // d_split as row (p - d_split) / d_div2 (WProd::split).
-template <int H, class Products = SimtProducts>
+template <int H, class Products>
 cudaError_t launch_mlp_backward(const Weights& w, const void* xv, const void* dv, int d_div,
                                 const float* gout, int P, const Scratch& s, void* dx,
                                 void* dd, float* grads, cudaStream_t stream,

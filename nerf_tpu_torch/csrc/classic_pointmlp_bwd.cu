@@ -23,9 +23,8 @@
 // dpre_8 wd^T on the tensor cores (tc_input_grad); one warp per point then
 // reduces its 60 (36) encoding-lane cotangents, times cos(x S + phase), to
 // its 3 raw-input cotangents (encode_bwd_kernel, a float32 reduction, not
-// an MLP product).  Where the encodings are too wide for the tensor-core
-// forward tile (tc_mlp.cuh note 9) fwd_store runs the float32 SIMT tile;
-// the other passes do not depend on the widths.
+// an MLP product).  Every pass runs at every encoding width (tc_mlp.cuh
+// note 9).
 //
 // classic_pointmlp_bwd_bf16 is the same in compute_dtype bfloat16
 // (tc_mlp.cuh, note 10): the passes of TcProductsT<true> on bf16 operand
@@ -101,13 +100,13 @@ int entry(const float* pts, const float* dirs, const float* gout, float* dpts, f
           const float* wd, const float* whh, const float* b, const float* g, const float* beta,
           const float* w_dens, const float* b_dens, const float* w_col, const float* b_col,
           float* xhat, float* stats, float* dpre, float* wpart, float* tpart, float* tmp,
-          float* wt, float* out, void* x_enc, void* d_enc, float* dx_enc, float* dd_enc,
+          float* out, void* x_enc, void* d_enc, float* dx_enc, float* dd_enc,
           int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
   using T = enc_t<kBf16>;
   if (c > kMaxColors || wd == nullptr) return cudaErrorInvalidValue;
   if ((dpts == nullptr) != (ddirs == nullptr)) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xe, de, c};
-  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   const PointEncodeLoadT<T> load{pts, dirs, sx, phx, sd, phd, static_cast<T*>(x_enc),
                                  static_cast<T*>(d_enc)};
@@ -130,13 +129,13 @@ extern "C" int classic_pointmlp_bwd(const float* pts, const float* dirs, const f
                                     const float* beta, const float* w_dens,
                                     const float* b_dens, const float* w_col,
                                     const float* b_col, float* xhat, float* stats, float* dpre,
-                                    float* wpart, float* tpart, float* tmp, float* wt,
+                                    float* wpart, float* tpart, float* tmp,
                                     float* out, float* x_enc, float* d_enc, float* dx_enc,
                                     float* dd_enc, int splits, const float* tc_fwd,
                                     const float* tc_bwd, void* stream) {
   return entry<false>(pts, dirs, gout, dpts, ddirs, grads, P, xe, de, hidden, c, sx, phx, sd,
                       phd, w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat,
-                      stats, dpre, wpart, tpart, tmp, wt, out, x_enc, d_enc, dx_enc, dd_enc,
+                      stats, dpre, wpart, tpart, tmp, out, x_enc, d_enc, dx_enc, dd_enc,
                       splits, tc_fwd, tc_bwd, stream);
 }
 
@@ -148,18 +147,11 @@ extern "C" int classic_pointmlp_bwd_bf16(
     const float* sd, const float* phd, const float* w0, const float* wx, const float* wd,
     const float* whh, const float* b, const float* g, const float* beta, const float* w_dens,
     const float* b_dens, const float* w_col, const float* b_col, float* xhat, float* stats,
-    float* dpre, float* wpart, float* tpart, float* tmp, float* wt, float* out, void* x_enc,
+    float* dpre, float* wpart, float* tpart, float* tmp, float* out, void* x_enc,
     void* d_enc, float* dx_enc, float* dd_enc, int splits, const void* tc_fwd,
     const void* tc_bwd, void* stream) {
   return entry<true>(pts, dirs, gout, dpts, ddirs, grads, P, xe, de, hidden, c, sx, phx, sd,
                      phd, w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats,
-                     dpre, wpart, tpart, tmp, wt, out, x_enc, d_enc, dx_enc, dd_enc, splits,
+                     dpre, wpart, tpart, tmp, out, x_enc, d_enc, dx_enc, dd_enc, splits,
                      tc_fwd, tc_bwd, stream);
-}
-
-// The plan of fwd_store's tile for these encoding widths: out = [policy (0
-// tensor cores, 1 float32 SIMT, 2 neither fits), tensor-core bytes, SIMT
-// bytes, the device's limit].
-extern "C" int classic_pointmlp_bwd_plan(int xe, int de, int hidden, long long* out) {
-  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

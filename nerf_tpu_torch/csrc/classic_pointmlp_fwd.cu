@@ -14,27 +14,25 @@
 // TFLOP/s), 2.004 ms as three TF32 products on the tensor cores (FLOP /
 // 165 TFLOP/s).
 //
-// Design: K1-fwd's tiles, whose load of the encoding tiles from global
-// memory becomes encode.cuh's PointEncodeLoad: the block reads its 64 rows
-// of points and directions and writes the sines straight into the shared
-// xs / ds tiles.  No encoding goes through device memory.  Where the tile
-// fits the device's shared memory (tc_mlp.cuh, note 9: xe' + de' <= 132 at
-// H = 256, which the full-width model's 60 + 36 does), fwd_tc_kernel runs
-// every hidden and encoding product as 3xTF32 wgmma on the forward operand
-// images the wrapper builds (mlp_tile_tc; one block an SM, 223 KB);
-// LayerNorm, the heads and the epilogues stay float32.  Wider encodings
-// run fwd_simt_kernel, the float32 SIMT tile (classic_mlp.cuh::mlp_tile:
-// weights streamed from L2 in 16-row chunks, two blocks an SM).  The
-// choice is made from the shapes before any launch (tc_mlp.cuh's
-// launch_fwd, K1-fwd's launcher, with this loader).
+// Design: K1-fwd's tile, whose copy of each k-chunk of the encodings from
+// global memory becomes encode.cuh's PointEncodeLoad: the block reads its
+// 64 rows of points and directions and writes one chunk's sines straight
+// into the encodings' ring, beside the weights' chunk of the same k (the
+// skip layer's chunks are computed again).  No encoding goes through
+// device memory.  fwd_tc_kernel runs every hidden and encoding product as
+// 3xTF32 wgmma on the forward operand images the wrapper builds
+// (mlp_tile_tc; one block an SM, 219,136 bytes at H = 256) at every
+// encoding width (tc_mlp.cuh, note 9); LayerNorm, the heads and the
+// epilogues stay float32.  tc_mlp.cuh's launch_fwd, K1-fwd's launcher,
+// with this loader.
 //
 // classic_pointmlp_fwd_bf16 is the same kernel in compute_dtype bfloat16
 // (tc_mlp.cuh, note 10), K1-fwd's bf16 tile with this loader: the points,
 // directions and placements stay float32 (as classic_pointmlp_pallas
-// takes them) and so do the sines in the shared tiles; every product and
-// both heads take bf16 operands, rounded where the fragments are loaded,
-// with float32 sums, from bf16 weight images; the same width rule (past
-// 132 encoding floats the bf16-rounding SIMT tile).  Its bound at 262,144
+// takes them) and so are the sines, rounded to bf16 where they enter the
+// ring (as the tile rounds the float32 operands it loads); every product
+// and both heads take bf16 operands with float32 sums, from bf16 weight
+// images; the same tile.  Its bound at 262,144
 // points: 0.334 ms of bf16 tensor-core operations (FLOP / 989 TFLOP/s),
 // against 24 bytes of input and 16 of output a point.
 //
@@ -88,12 +86,4 @@ extern "C" int classic_pointmlp_fwd_bf16(const float* pts, const float* dirs, fl
                                          const float* b_col, const void* tc_fwd, void* stream) {
   return run<true>(pts, dirs, out, P, xe, de, hidden, c, sx, phx, sd, phd, w0, wx, wd, whh, b,
                    g, beta, w_dens, b_dens, w_col, b_col, tc_fwd, stream);
-}
-
-// The plan K8-fwd follows for these encoding widths: its tiles take
-// fwd_store's bytes.  out = [policy (0 tensor cores, 1 float32 SIMT, 2
-// neither fits), tensor-core bytes, SIMT bytes, the device's limit].
-extern "C" int classic_pointmlp_fwd_plan(int xe, int de, int hidden, long long* out) {
-  using namespace nerf_mlp;
-  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

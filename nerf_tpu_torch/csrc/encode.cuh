@@ -1,9 +1,13 @@
 // The classic frequency encoding computed inside a kernel, shared by K8
 // (classic_pointmlp_fwd.cu, classic_pointmlp_bwd.cu) and K9's fine stage
-// (mega_train.cu).  Each is a loader for the MLP tile (fwd_store_kernel's
-// Load): it fills the zero-padded shared encoding tiles that load_tile
-// fills from global memory in K1, so no encoding has to come from device
-// memory.
+// (mega_train.cu).  Each is a loader for the tensor-core MLP tile
+// (tc_mlp.cuh's EncA): it computes one k-chunk of the tile's encodings
+// into the ring slab where TileLoad copies one from global memory in K1,
+// and writes them to device memory where the backward's weight-gradient
+// product reads them (K8-bwd, K9).  The tile's skip layer reads the x
+// encodings a second time: from that copy where there is one (the block
+// wrote it, and the barriers between the two products make it visible),
+// else (K8-fwd) computed again.
 //
 // Lane k of the encoding of a point p [3] on a placement S [3][width] is
 // sin(sum_c p_c S[c][k] + phase_k): row c of S holds the frequencies in
@@ -14,14 +18,15 @@
 //
 // compute_dtype="bfloat16": the loaders are templates on the type T of the
 // encodings they also write to device memory (float, or __nv_bfloat16
-// rounded to nearest even).  The shared tiles keep the float32 sines in
-// both: the bf16 products round them where they load their operands
-// (tc_mlp.cuh note 10; the SIMT tile's operand<true>), the JAX package's
-// cast at the matmul boundary, and the copy in device memory holds the
-// same rounded values for the backward's weight-gradient product.
+// rounded to nearest even).  The slab holds what the products read: the
+// float32 sines, or in bf16 the sines rounded to nearest even as the
+// tensor-core tile rounds a float32 operand it loads (tc_mlp.cuh note 10),
+// the JAX package's cast at the matmul boundary; the copy in device memory
+// holds the same rounded values for the backward's weight-gradient
+// product.
 #pragma once
 
-#include "classic_mlp.cuh"
+#include "tc_mlp.cuh"
 
 namespace nerf_mlp {
 
@@ -41,26 +46,45 @@ __device__ __forceinline__ void store_enc(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-// dst [64][round_up4(width)] = sin(src_r S + phase) for the tile's rows r
-// below nvalid (src [P][3], rows from row0), zero elsewhere; the values
-// also go to out [P][width] when out is not null.
-template <class T>
-__device__ inline void encode_tile(float* dst, const float* __restrict__ src,
-                                   const float* __restrict__ S, const float* __restrict__ phase,
-                                   int width, size_t row0, int nvalid, T* out) {
-  const int ld = round_up4(width);
-  for (int i = threadIdx.x; i < kTileRows * ld; i += kThreads) {
-    const int r = i / ld, k = i % ld;
-    float v = 0.f;
-    if (r < nvalid && k < width) {
-      const float* q = src + (row0 + r) * 3;
-      const float p[3] = {__ldg(q), __ldg(q + 1), __ldg(q + 2)};
-      v = sinf(__fadd_rn(enc_arg(p, S, width, k), __ldg(phase + k)));
-      if (out != nullptr) store_enc(out + (row0 + r) * width + k, v);
+// Chunk c of the encoding value(r, k) (row r of the tile, lane k < width,
+// r < nvalid; zero elsewhere) into a ring slab (tc_mlp.cuh's stage_enc
+// layout): float32 values, or with kBf16 pairs rounded to bfloat16.  The
+// values also go to out [P][width] (of T, rows from row0) when out is not
+// null.  Called by the whole block.
+template <bool kBf16, class T, class Value>
+__device__ __forceinline__ void encode_chunk(float* slab, int width, int c, size_t row0,
+                                             int nvalid, T* out, Value value) {
+  auto at = [&](int r, int k) {
+    if (r >= nvalid || k >= width) return 0.f;
+    const float v = value(r, k);
+    if (out != nullptr) store_enc(out + (row0 + r) * width + k, v);
+    return v;
+  };
+  for (int i = threadIdx.x; i < kTileRows * 16; i += kThreads) {
+    const int r = i >> 4, j = i & 15;
+    if constexpr (kBf16) {
+      const int k = c * kTcKB + 2 * j;
+      reinterpret_cast<uint32_t*>(slab)[r * kEncLd + j] = pack_bf16x2(at(r, k), at(r, k + 1));
+    } else {
+      slab[r * kEncLd + j] = at(r, c * kTcK + j);
     }
-    dst[i] = v;
   }
 }
+
+// sin(src_r S + phase) of lane k for the tile's row r (src [P][3], rows
+// from row0).
+struct PlacedSine {
+  const float* src;
+  const float* S;
+  const float* phase;
+  int width;
+  size_t row0;
+  __device__ __forceinline__ float operator()(int r, int k) const {
+    const float* q = src + (row0 + r) * 3;
+    const float p[3] = {__ldg(q), __ldg(q + 1), __ldg(q + 2)};
+    return sinf(__fadd_rn(enc_arg(p, S, width, k), __ldg(phase + k)));
+  }
+};
 
 // K8: the encodings of raw points [P][3] and view directions [P][3] on
 // their placements (sx [3][xe], phx [xe]; sd [3][de], phd [de]); with x_out
@@ -76,10 +100,23 @@ struct PointEncodeLoadT {
   const float* phd;
   T* x_out;
   T* d_out;
-  __device__ void operator()(const Weights& w, float* xs, float* ds, size_t row0,
-                             int nvalid) const {
-    encode_tile(xs, pts, sx, phx, w.xe, row0, nvalid, x_out);
-    encode_tile(ds, dirs, sd, phd, w.de, row0, nvalid, d_out);
+  template <bool kBf16>
+  __device__ __forceinline__ void stage(const Weights& w, int which, int c, size_t row0,
+                                        int nvalid, bool first, float* slab) const {
+    if (which != 0) {
+      encode_chunk<kBf16>(slab, w.de, c, row0, nvalid, d_out,
+                          PlacedSine{dirs, sd, phd, w.de, row0});
+      return;
+    }
+    // The skip layer: the copy the first product wrote (K8-bwd's, in the
+    // compute dtype; K8-fwd writes none).
+    if constexpr (std::is_same_v<T, enc_t<kBf16>>) {
+      if (!first && x_out != nullptr) {
+        stage_enc<kBf16>(slab, static_cast<const T*>(x_out), w.xe, 1, c, row0, nvalid);
+        return;
+      }
+    }
+    encode_chunk<kBf16>(slab, w.xe, c, row0, nvalid, x_out, PlacedSine{pts, sx, phx, w.xe, row0});
   }
 };
 using PointEncodeLoad = PointEncodeLoadT<float>;
@@ -101,28 +138,32 @@ struct RayEncodeLoadT {
   int exact;
   const T* d_ray;
   T* x_out;
-  __device__ void operator()(const Weights& w, float* xs, float* ds, size_t row0,
-                             int nvalid) const {
-    const int ld = round_up4(w.xe);
-    for (int i = threadIdx.x; i < kTileRows * ld; i += kThreads) {
-      const int r = i / ld, k = i % ld;
-      float v = 0.f;
-      if (r < nvalid && k < w.xe) {
-        const size_t row = row0 + r, ray = row / per_ray;
-        const float tt = __ldg(t + row);
-        float p[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c)
-          p[c] = __fadd_rn(__ldg(o + ray * 3 + c), __fmul_rn(__ldg(dir + ray * 3 + c), tt));
-        const float arg = enc_arg(p, S, w.xe, k);
-        const float cs = __ldg(is_cos + k);
-        v = exact ? (cs > 0.f ? cosf(arg) : sinf(arg)) : sinf(__fadd_rn(arg, cs * kHalfPi));
-        store_enc(x_out + row * w.xe + k, v);
-      }
-      xs[i] = v;
+  template <bool kBf16>
+  __device__ __forceinline__ void stage(const Weights& w, int which, int c, size_t row0,
+                                        int nvalid, bool first, float* slab) const {
+    if (which != 0) {
+      stage_enc<kBf16>(slab, d_ray, w.de, per_ray, c, row0, nvalid);
+      return;
     }
-    if (w.wd != nullptr) load_tile(ds, d_ray, row0, nvalid, w.de, per_ray);
+    if (!first) {  // the skip layer: the copy the first product wrote
+      stage_enc<kBf16>(slab, static_cast<const T*>(x_out), w.xe, 1, c, row0, nvalid);
+      return;
+    }
+    encode_chunk<kBf16>(slab, w.xe, c, row0, nvalid, x_out, [&](int r, int k) {
+      const size_t row = row0 + r, ray = row / per_ray;
+      const float tt = __ldg(t + row);
+      float p[3];
+#pragma unroll
+      for (int e = 0; e < 3; ++e)
+        p[e] = __fadd_rn(__ldg(o + ray * 3 + e), __fmul_rn(__ldg(dir + ray * 3 + e), tt));
+      const float arg = enc_arg(p, S, w.xe, k);
+      const float cs = __ldg(is_cos + k);
+      return exact ? (cs > 0.f ? cosf(arg) : sinf(arg)) : sinf(__fadd_rn(arg, cs * kHalfPi));
+    });
   }
 };
+
+template <class T>
+inline constexpr bool kChunkedSums<RayEncodeLoadT<T>> = false;
 
 }  // namespace nerf_mlp

@@ -21,9 +21,8 @@
 // per-ray view encoding is read once per ray, d_div = Sf, also by wgrad's
 // row function) with the tensor-core product policy of tc_mlp.cuh
 // (TcProducts: fwd_store, bwd_rows and wgrad as 3xTF32 wgmma on the
-// operand images the wrapper builds once per call; fwd_store runs the
-// float32 SIMT pass where the encodings are too wide for its tile,
-// tc_mlp.cuh note 9), with one compositing pass between forward and
+// operand images the wrapper builds once per call, at every encoding
+// width: tc_mlp.cuh note 9), with one compositing pass between forward and
 // backward: one warp per ray merges
 // the two sorted t lists by rank and scans them in fp32, then scatters the
 // cotangents back to the coarse slots and the fine rows
@@ -81,12 +80,12 @@ int entry(const void* xf, const void* d, const float* t_c, const float* t_f,
           const float* w0, const float* wx, const float* wd, const float* whh, const float* b,
           const float* g, const float* beta, const float* w_dens, const float* b_dens,
           const float* w_col, const float* b_col, float* xhat, float* stats, float* dpre,
-          float* wpart, float* tpart, float* tmp, float* wt, float* out, float* gout,
+          float* wpart, float* tpart, float* tmp, float* out, float* gout,
           float* ray_loss, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
   if (c > kMaxColors || c < 1) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   const float g_scale = loss_weight * 2.f / (static_cast<float>(c) * R);
   const float loss_scale = loss_weight / R;
@@ -111,13 +110,13 @@ extern "C" int fine_stage_train(const float* xf, const float* d, const float* t_
                                 const float* g, const float* beta, const float* w_dens,
                                 const float* b_dens, const float* w_col, const float* b_col,
                                 float* xhat, float* stats, float* dpre, float* wpart,
-                                float* tpart, float* tmp, float* wt, float* out, float* gout,
+                                float* tpart, float* tmp, float* out, float* gout,
                                 float* ray_loss, int splits, const float* tc_fwd,
                                 const float* tc_bwd, void* stream) {
   return entry<false>(xf, d, t_c, t_f, dens_c, col_c, dnorm, noise_f, pix, loss, grads,
                       g_dens_c, g_col_c, R, Sc, Sf, xe, de, hidden, c, white, loss_weight, w0,
                       wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre,
-                      wpart, tpart, tmp, wt, out, gout, ray_loss, splits, tc_fwd, tc_bwd,
+                      wpart, tpart, tmp, out, gout, ray_loss, splits, tc_fwd, tc_bwd,
                       stream);
 }
 
@@ -129,17 +128,11 @@ extern "C" int fine_stage_train_bf16(
     int hidden, int c, int white, float loss_weight, const float* w0, const float* wx,
     const float* wd, const float* whh, const float* b, const float* g, const float* beta,
     const float* w_dens, const float* b_dens, const float* w_col, const float* b_col,
-    float* xhat, float* stats, float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
+    float* xhat, float* stats, float* dpre, float* wpart, float* tpart, float* tmp,
     float* out, float* gout, float* ray_loss, int splits, const void* tc_fwd,
     const void* tc_bwd, void* stream) {
   return entry<true>(xf, d, t_c, t_f, dens_c, col_c, dnorm, noise_f, pix, loss, grads,
                      g_dens_c, g_col_c, R, Sc, Sf, xe, de, hidden, c, white, loss_weight, w0, wx,
                      wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre, wpart,
-                     tpart, tmp, wt, out, gout, ray_loss, splits, tc_fwd, tc_bwd, stream);
-}
-
-// The plan fine_stage_train's fwd_store follows for these widths (de 0
-// without the view branch): out as train_grads_plan's.
-extern "C" int fine_stage_train_plan(int xe, int de, int hidden, long long* out) {
-  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
+                     tpart, tmp, out, gout, ray_loss, splits, tc_fwd, tc_bwd, stream);
 }

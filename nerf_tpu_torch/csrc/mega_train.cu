@@ -26,8 +26,7 @@
 // the tensor-core product policy of tc_mlp.cuh (TcProducts: fwd_store,
 // bwd_rows and wgrad run every hidden and encoding product as 3xTF32
 // wgmma on operand images of the weights the wrapper builds once per
-// call; fwd_store in float32 SIMT where the encodings are too wide for its
-// tile, tc_mlp.cuh note 9; the epilogues, heads, per-ray passes and
+// call, at every encoding width: tc_mlp.cuh note 9; the epilogues, heads, per-ray passes and
 // colsums are unchanged),
 // launched in order on the caller's stream:
 //   0. the coarse encodings (computed by the caller) copied into the first
@@ -240,14 +239,14 @@ int entry(const void* xc, const void* d_ray, const float* t_c, const float* nois
           int exact_trig, const float* w0, const float* wx, const float* wd, const float* whh,
           const float* b, const float* g, const float* beta, const float* w_dens,
           const float* b_dens, const float* w_col, const float* b_col, float* xhat,
-          float* stats, float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
+          float* stats, float* dpre, float* wpart, float* tpart, float* tmp,
           float* out, float* gout, void* x_all, float* dnorm, float* ray_loss, int splits,
           const void* tc_fwd, const void* tc_bwd, void* stream) {
   using T = enc_t<kBf16>;
   if (c > kMaxColors || c < 1 || Sc < 3 || Sf < 1) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   const Inputs<T> in{static_cast<const T*>(xc), static_cast<const T*>(d_ray), t_c, noise_c, u,
                      noise_f, rays_o, rays_d, pix, S, is_cos};
@@ -271,14 +270,14 @@ extern "C" int mega_train(const float* xc, const float* d_ray, const float* t_c,
                           const float* wd, const float* whh, const float* b, const float* g,
                           const float* beta, const float* w_dens, const float* b_dens,
                           const float* w_col, const float* b_col, float* xhat, float* stats,
-                          float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
+                          float* dpre, float* wpart, float* tpart, float* tmp,
                           float* out, float* gout, float* x_all, float* dnorm,
                           float* ray_loss, int splits, const float* tc_fwd,
                           const float* tc_bwd, void* stream) {
   return entry<false>(xc, d_ray, t_c, noise_c, u, noise_f, rays_o, rays_d, pix, S, is_cos, loss,
                       grads, t_fine, R, Sc, Sf, xe, de, hidden, c, white, exact_trig, w0, wx, wd,
                       whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre, wpart,
-                      tpart, tmp, wt, out, gout, x_all, dnorm, ray_loss, splits, tc_fwd, tc_bwd,
+                      tpart, tmp, out, gout, x_all, dnorm, ray_loss, splits, tc_fwd, tc_bwd,
                       stream);
 }
 
@@ -292,17 +291,11 @@ extern "C" int mega_train_bf16(
     const float* wx, const float* wd, const float* whh, const float* b, const float* g,
     const float* beta, const float* w_dens, const float* b_dens, const float* w_col,
     const float* b_col, float* xhat, float* stats, float* dpre, float* wpart, float* tpart,
-    float* tmp, float* wt, float* out, float* gout, void* x_all, float* dnorm, float* ray_loss,
+    float* tmp, float* out, float* gout, void* x_all, float* dnorm, float* ray_loss,
     int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
   return entry<true>(xc, d_ray, t_c, noise_c, u, noise_f, rays_o, rays_d, pix, S, is_cos, loss,
                      grads, t_fine, R, Sc, Sf, xe, de, hidden, c, white, exact_trig, w0, wx, wd,
                      whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre, wpart,
-                     tpart, tmp, wt, out, gout, x_all, dnorm, ray_loss, splits, tc_fwd, tc_bwd,
+                     tpart, tmp, out, gout, x_all, dnorm, ray_loss, splits, tc_fwd, tc_bwd,
                      stream);
-}
-
-// The plan mega_train's two fwd_store launches follow for these widths (de
-// 0 without the view branch): out as train_grads_plan's.
-extern "C" int mega_train_plan(int xe, int de, int hidden, long long* out) {
-  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

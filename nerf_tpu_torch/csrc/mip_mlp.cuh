@@ -256,8 +256,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // acc += gs[:, 0:n] @ W^T for this warp's rows: the input cotangent of a
 // head W, row-major [H, n], from its output cotangents gs (shared memory,
 // row stride ldg, a multiple of 4 with columns n..ldg zero).  W^T streams
-// through wbuf (chunk_t_floats<H>()) in chunks of kChunk outputs, read
-// once per block, as gemm_acc_t stages a transposed slab.  Ends with a
+// through wbuf (kChunk rows of H + 1 floats, the padding against bank
+// conflicts of the transposing stores) in chunks of kChunk outputs, read
+// once per block.  Ends with a
 // block-wide barrier.  kBf16: gs and W rounded to bfloat16 in the product
 // (the JAX package's _dot_t on the head).
 template <int H, bool kBf16 = false>
@@ -353,7 +354,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The policies (SimtProducts' and TcProducts' counterparts for this chain).
+// The policies (TcProducts' counterparts for this chain).
 // ---------------------------------------------------------------------------
 
 // The float32 SIMT forward tile (K5-fwd's, K5-bwd's, K6's and K7's

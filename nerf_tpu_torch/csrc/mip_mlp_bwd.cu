@@ -59,11 +59,11 @@ template <class Products>
 int run_at(const void* x, const float* gout, void* dx, float* grads, int P, int F, int hidden,
            int L, int O, const float* w_in, const float* whh, const float* b, const float* g,
            const float* beta, const float* w_out, const float* b_out, float* xhat,
-           float* stats, float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
+           float* stats, float* dpre, float* wpart, float* tpart, float* tmp,
            float* out, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
   if (L < 2 || L + 1 > kMaxProds || O < 1 || O > kThreads) return cudaErrorInvalidValue;
   const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
-  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) \
@@ -78,11 +78,11 @@ extern "C" int mip_mlp_bwd(const float* x, const float* gout, float* dx, float* 
                            int F, int hidden, int L, int O, const float* w_in, const float* whh,
                            const float* b, const float* g, const float* beta,
                            const float* w_out, const float* b_out, float* xhat, float* stats,
-                           float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
+                           float* dpre, float* wpart, float* tpart, float* tmp,
                            float* out, int splits, const float* tc_fwd, const float* tc_bwd,
                            void* stream) {
   return run_at<MipTc>(x, gout, dx, grads, P, F, hidden, L, O, w_in, whh, b, g, beta, w_out,
-                       b_out, xhat, stats, dpre, wpart, tpart, tmp, wt, out, splits, tc_fwd,
+                       b_out, xhat, stats, dpre, wpart, tpart, tmp, out, splits, tc_fwd,
                        tc_bwd, stream);
 }
 
@@ -92,10 +92,10 @@ extern "C" int mip_mlp_bwd_bf16(const void* x, const float* gout, void* dx, floa
                                 const float* whh, const float* b, const float* g,
                                 const float* beta, const float* w_out, const float* b_out,
                                 float* xhat, float* stats, float* dpre, float* wpart,
-                                float* tpart, float* tmp, float* wt, float* out, int splits,
+                                float* tpart, float* tmp, float* out, int splits,
                                 const void* tc_fwd, const void* tc_bwd, void* stream) {
   return run_at<MipTcBf16>(x, gout, dx, grads, P, F, hidden, L, O, w_in, whh, b, g, beta,
-                           w_out, b_out, xhat, stats, dpre, wpart, tpart, tmp, wt, out, splits,
+                           w_out, b_out, xhat, stats, dpre, wpart, tpart, tmp, out, splits,
                            tc_fwd, tc_bwd, stream);
 }
 

@@ -165,13 +165,13 @@ int run_at(const void* x, const float* dists, const float* noise, const float* p
            int L, int c, int O, int white, float seg_weight, const float* w_in,
            const float* whh, const float* b, const float* g, const float* beta,
            const float* w_out, const float* b_out, float* xhat, float* stats, float* dpre,
-           float* wpart, float* tpart, float* tmp, float* wt, float* out, float* gout,
+           float* wpart, float* tpart, float* tmp, float* out, float* gout,
            float* ray_loss, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
   if (L < 2 || L + 1 > kMaxProds || c < 1 || c > kMaxColors || O < c + 2 || O > kThreads ||
       (seg_weight != 0.f && labels == nullptr))
     return cudaErrorInvalidValue;
   const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
-  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H)                                                                       \
@@ -190,12 +190,12 @@ extern "C" int mip_train_grads(const float* x, const float* dists, const float* 
                                const float* whh, const float* b, const float* g,
                                const float* beta, const float* w_out, const float* b_out,
                                float* xhat, float* stats, float* dpre, float* wpart,
-                               float* tpart, float* tmp, float* wt, float* out, float* gout,
+                               float* tpart, float* tmp, float* out, float* gout,
                                float* ray_loss, int splits, const float* tc_fwd,
                                const float* tc_bwd, void* stream) {
   return run_at<MipTc>(x, dists, noise, pix, labels, loss, grads, R, n, F, hidden, L, c, O,
                        white, seg_weight, w_in, whh, b, g, beta, w_out, b_out, xhat, stats,
-                       dpre, wpart, tpart, tmp, wt, out, gout, ray_loss, splits, tc_fwd, tc_bwd,
+                       dpre, wpart, tpart, tmp, out, gout, ray_loss, splits, tc_fwd, tc_bwd,
                        stream);
 }
 
@@ -207,12 +207,12 @@ extern "C" int mip_train_grads_bf16(const void* x, const float* dists, const flo
                                     const float* whh, const float* b, const float* g,
                                     const float* beta, const float* w_out, const float* b_out,
                                     float* xhat, float* stats, float* dpre, float* wpart,
-                                    float* tpart, float* tmp, float* wt, float* out,
+                                    float* tpart, float* tmp, float* out,
                                     float* gout, float* ray_loss, int splits,
                                     const void* tc_fwd, const void* tc_bwd, void* stream) {
   return run_at<MipTcBf16>(x, dists, noise, pix, labels, loss, grads, R, n, F, hidden, L, c,
                            O, white, seg_weight, w_in, whh, b, g, beta, w_out, b_out, xhat,
-                           stats, dpre, wpart, tpart, tmp, wt, out, gout, ray_loss, splits,
+                           stats, dpre, wpart, tpart, tmp, out, gout, ray_loss, splits,
                            tc_fwd, tc_bwd, stream);
 }
 

@@ -13,9 +13,9 @@
 // hand in PTX (wgmma, fences, smem descriptors); no CUTLASS.  The policy
 // TcProducts gives classic_mlp_train.cuh's launch_fwd_store_with and
 // launch_mlp_backward these passes, the encodings' cotangents included
-// (bwd_rows' tc_input_grad; K1-bwd still takes SimtProducts where it is
-// asked for them).  fwd_tc_kernel is K1-fwd's tile (and K8-fwd's, with
-// encode.cuh's PointEncodeLoad): fwd_store_tc_kernel with nothing saved.
+// (bwd_rows' tc_input_grad).  fwd_tc_kernel is K1-fwd's tile (and
+// K8-fwd's, with encode.cuh's PointEncodeLoad): fwd_store_tc_kernel with
+// nothing saved.
 //
 // Bounds at the full-width model (H = 256, xe 60, de 36, view branch on):
 // 630,784 multiply-adds a row each for the forward, dh and dW.  Against
@@ -58,11 +58,11 @@
 //    floats of padding make the fragment loads free of bank conflicts) and
 //    split as it is loaded, so no hi/lo copy of the tile is kept.  Bytes a
 //    block at H = 256, 1024 bytes of alignment slack included: fwd_store
-//    223,232 (with the 64 x 60 and 64 x 36 encoding tiles), K4's tile
-//    227,328 at 128 fine samples (with its [256][1 + c] outputs), bwd_rows
-//    199,680, wgrad 136,192; the mip forward tile 223,232 (with the 64 x
-//    96 feature tile), the mip bwd_rows 212,992 (with the [64][56] output
-//    cotangents).  The input cotangents add nothing to either bwd_rows:
+//    (K1-fwd's, K8-fwd's tile) 219,136 (with the encodings' ring, note 9),
+//    K4's tile 223,232 at 128 fine samples (with its [256][1 + c]
+//    outputs), bwd_rows 199,680, wgrad 136,192; the mip forward tile
+//    223,232 (with the 64 x 96 feature tile), the mip bwd_rows 212,992
+//    (with the [64][56] output cotangents).  The input cotangents add nothing to either bwd_rows:
 //    their A rows (dpre) and their outputs pass through the activation
 //    tile, their B chunks (2 x 64 x 16 floats) through the chunk buffers.
 // 3. Accumulators and LayerNorm: in a wgmma accumulator a row's values sit
@@ -80,8 +80,8 @@
 //    cotangent (head_wide, head_dh, mip_mlp.cuh; its weights staged through
 //    the B chunk buffers once the last product has retired); its dW is a
 //    wgrad product with N = 54, the columns past N zero in the B image and
-//    each stored alone where N is odd.  Tails of P are zero-filled as
-//    load_tile does.
+//    each stored alone where N is odd.  Tails of P are zero-filled (the
+//    encodings' slabs, load_tile).
 // 5. The chain (xhat, dpre: ~4 GB each at 393,216 rows) stays float32 in
 //    global memory: no hi/lo copy, no extra pass.  wgrad keeps the tiles of
 //    one chunk of points adjacent in launch order (blockIdx.x runs over the
@@ -102,29 +102,39 @@
 //    ReLU kink and fine samples in bins of ~1e-5 mass move, as the checks
 //    of K1-K9 already allow (card tests draw rows away from kinks; K9's
 //    fine samples are compared in probability).
-// 9. The width rule.  The tile's bytes grow with the encoding widths (256
-//    bytes a float of xe' + de', the widths rounded up to 4, at H = 256):
-//    fwd_store's tile (and K1-fwd's and K8-fwd's, the same bytes; and
-//    K5-fwd's, K6's and K7's, with the mip features as xe' and no de')
-//    holds xe' + de' <= 132 and K4's, which also keeps
-//    the fine outputs, <= 116 within the 232,448 bytes a block may opt in
-//    to.  The full-width model has 60 + 36; a latent-conditioned one
-//    widens both by its state vector (2 + 1 latent scalars: 100 + 48).
-//    Before any launch the launcher compares the tile's bytes with the
-//    device's opt-in limit (cudaDevAttrMaxSharedMemoryPerBlockOptin) and,
-//    where it does not fit, runs the float32 SIMT pass of the same kernel
-//    (fwd_store_kernel; K1-fwd's and K8-fwd's fwd_simt_kernel and K4's
-//    mlp_tile; the mip mip_fwd_kernel, their products before the
-//    tensor cores): 16 weight rows in place of four 16-value chunk buffers, so it
-//    holds xe' + de' <= 588 (K4 572), and it is the pass the card tests
-//    have held against plain at every width since slice 2.  (A two-stage
-//    ring on the tensor cores would hold 64 KB more, xe' + de' <= 388, at
-//    the cost of a second pipeline in tc_gemm for a path few models take.)
-//    bwd_rows' and wgrad's tiles do not depend on the widths and always
-//    run here (the input cotangents' passes loop over the widths).  The
-//    choice is made from the shapes, never after an error;
-//    past the SIMT tile's limit the call returns cudaErrorInvalidValue
-//    before launching (the wrappers raise first, from the same plan).
+// 9. The encodings stream through the classic tile.  The tile's bytes do
+//    not depend on the encoding widths: the layer products' A operand is
+//    the activation tile, and the three encoding products (layer 0 on x,
+//    the skip at layer 4 on x, the view layer 8 on d) take theirs through
+//    a ring of kTcStages slabs beside the B chunks (EncA, kEncRingFloats:
+//    20,480 bytes), one k-chunk of the 64 rows' encodings a slab, staged
+//    with the B chunk of the same k two chunks ahead.  The loader of a
+//    kernel fills a slab (Load::stage): TileLoad (K1, K2, K3, K4, K9's
+//    coarse stage) copies the chunk from the encodings in device memory
+//    with cp.async (stage_enc; the per-ray view rows broadcast by d_div),
+//    encode.cuh's loaders (K8, K9's fine stage) compute its sines, and copy
+//    them for the skip layer from the scratch encodings the first product
+//    wrote (K8-fwd, which keeps none, computes them again).  Both
+//    warpgroups read every row of a slab, so a chunk of an encoding
+//    product waits at a block-wide barrier where the layer products wait
+//    at their warpgroup's.  A slab holds float32 values, or under kBf16
+//    the bf16 pairs as a fragment register holds them (the encodings'
+//    own, or the sines rounded to nearest even where they enter: the
+//    rounding the fragment load of note 10 applies), so each k-step's
+//    fragments are plain 32-bit loads; rows of 20 words keep the loads
+//    free of bank conflicts.  fwd_store's tile (and K1-fwd's, K8-fwd's)
+//    takes 219,136 bytes at H = 256 and K4's 223,232 at 128 fine samples,
+//    at every width, against the 232,448 a block may opt in to; a wider
+//    encoding only adds chunks (700 + 36: 44 + 44 + 3 chunks of 16 values
+//    beside the 144 of the hidden layers).  A classic launcher opts in to
+//    its tile's fixed bytes (tc_classic_tile_bytes) and returns the
+//    runtime's error on a device that allows fewer; K4's union_eval_plan
+//    gives its block's bytes for its sample counts, the mip libraries'
+//    <name>_plan their two tiles.  bwd_rows' and wgrad's tiles
+//    never depended on the widths (the input cotangents' passes loop over
+//    them).  The mip tiles (mip_mlp.cuh) keep their feature tile resident
+//    (tc_tile_bytes): 132 features at H = 256, the float32 SIMT tile
+//    (MipSimt, fwd_store_smem) past that, up to 588.
 //
 // 10. compute_dtype="bfloat16" (the template parameter kBf16 of tc_gemm,
 //    mlp_tile_tc, the passes' kernels and TcProductsT: K1-fwd, K1-bwd, K2,
@@ -142,7 +152,7 @@
 //    head_bwd<H, true>; the mip head_wide and head_dh likewise).  Everything else (LayerNorm and its statistics,
 //    biases, ReLU masks, compositing, losses, the chain, every sum of
 //    partials) is float32, as in JAX.  The encodings cross device memory
-//    as bf16 (load_tile, TileLoadT<__nv_bfloat16>, wgrad's bf16 raw rows;
+//    as bf16 (TileLoadT<__nv_bfloat16>'s slabs, wgrad's bf16 raw rows;
 //    K8 and K9 compute theirs in the block, encode.cuh, and write them
 //    rounded for wgrad).
 //    Layout: a bf16 chunk holds kTcKB = 32 k-values, 64 bytes a row: the
@@ -152,9 +162,7 @@
 //    start offset (16 values of 2 bytes) are the TF32 ones re-derived for
 //    2-byte values.  K pads to a multiple of 32 (xe 60 -> 64, de 36 -> 64).
 //    The chunk buffers keep their TF32 size (a bf16 chunk fills half of
-//    one), so every tile's bytes and the width rule (note 9) are unchanged:
-//    with bf16 chunk buffers of half the size the tile would hold 64 KB
-//    more, xe' + de' <= 388, which is left for later.  wgrad keeps its
+//    one), so every tile's bytes are the float32 tile's (note 9).  wgrad keeps its
 //    32-point chunks (two k-steps, 64-byte rows, the same 64-byte swizzle)
 //    summed in float32 (note 7: bf16 products also accumulate with
 //    truncation).  bwd_rows keeps its own [in][out] images rather than
@@ -218,6 +226,24 @@ __host__ __device__ constexpr int act_ld() { return H + 4; }
 // Floats of the kTcStages buffers of B chunks.
 template <int H>
 __host__ __device__ constexpr int tc_bbuf_floats() { return kTcStages * 2 * H * kTcK; }
+
+// The encodings' ring of the classic tile (note 9): kTcStages slabs, each
+// one k-chunk of the 64 rows' encodings, 16 words a row (a TF32 chunk's 16
+// floats, or a bf16 chunk's 32 values as 16 pairs) padded to kEncLd words
+// so the fragment loads are free of bank conflicts.
+constexpr int kEncLd = 20;
+// Chunks of a bf16 encoding product summed in one accumulator (tc_gemm):
+// 2, the full-width model's 60 and 36 values; a longer one sums each chunk
+// apart.
+constexpr int kFreshChunks = 2;
+constexpr int kEncSlab = kTileRows * kEncLd;
+constexpr int kEncRingFloats = kTcStages * kEncSlab;
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
 
 // ---------------------------------------------------------------------------
 // PTX: the split, descriptors, fences and the wgmma instructions.
@@ -455,15 +481,55 @@ __device__ __forceinline__ void tc_zero(float (&d)[N / 4]) {
   for (int i = 0; i < N / 4; ++i) d[i] = 0.f;
 }
 
-// d += A[tile rows, 0:K] @ B[0:N, 0:K]^T.  A is shared memory, row stride
-// lda (columns past K are not read); img is B's operand image in global
-// memory; bbuf holds tc_bbuf_floats<H>() floats for some H >= N.
-// Warpgroup wg (threads 128 wg ..) computes the output columns [wg N / 2,
-// (wg + 1) N / 2) of the tile's 64 rows, warp w of it rows 16 w .. 16 w +
-// 15: d holds that warp's m64n(N/2) accumulator fragment (classic mma
-// layout: d[4 j ..4 j + 1] row g, columns 8 j + 2 q, + 1; d[4 j + 2 ..]
-// row g + 8).  N is H for the layers' products, tc_in_cols<H>() for the
-// input cotangents'.
+// tc_gemm's A operand where it is a shared-memory tile (a layer's
+// activations, the mip features): row stride lda; columns past K are not
+// read.
+struct TileA {
+  const float* A;
+  int lda;
+};
+
+// tc_gemm's A operand where it is the classic tile's encodings (note 9):
+// chunk c of encoding `which` (0: x, 1: d) of the tile's rows row0 ..
+// row0 + nvalid - 1 goes through the ring, staged by
+// load.stage<kBf16>(w, which, c, row0, nvalid, first, slab) beside the B
+// chunk of the same k (zero past the width and past nvalid).  `first`
+// marks the product that reads these encodings first: a loader that
+// computes them writes its copy to device memory there.
+template <class Load>
+struct EncA {
+  using Loader = Load;
+  const Load& load;
+  const Weights& w;
+  int which;
+  size_t row0;
+  int nvalid;
+  bool first;
+  float* ring;
+};
+
+// Whether a loader's long bf16 encoding products sum chunk by chunk
+// (tc_gemm).  K9's fine stage (encode.cuh) keeps its products pipelined:
+// there the second call site of its sines puts a function call inside the
+// wgmma pipeline (C7510: K9 4.6 % slower at 60 + 36), and its weight
+// gradients stand as far from the plain version either way, at the plain
+// version's own distance under float64 sums (702 + 36, 512 rays: 2.94e-2
+// pipelined, 2.88e-2 chunked, the plain version 2.50e-2;
+// scripts/torch_bf16_sensitivity.py --family mega-widths).  Merging the
+// chunked sums into the pipelined chunk step (one call site) cost K1-fwd's
+// bf16 tile 11 % at every width.
+template <class Load>
+inline constexpr bool kChunkedSums = true;
+
+// d += A[tile rows, 0:K] @ B[0:N, 0:K]^T.  A is src: a shared tile (TileA)
+// or the encodings streamed through the ring (EncA); img is B's operand
+// image in global memory; bbuf holds tc_bbuf_floats<H>() floats for some
+// H >= N.  Warpgroup wg (threads 128 wg ..) computes the output columns
+// [wg N / 2, (wg + 1) N / 2) of the tile's 64 rows, warp w of it rows 16 w
+// .. 16 w + 15: d holds that warp's m64n(N/2) accumulator fragment
+// (classic mma layout: d[4 j ..4 j + 1] row g, columns 8 j + 2 q, + 1;
+// d[4 j + 2 ..] row g + 8).  N is H for the layers' products,
+// tc_in_cols<H>() for the input cotangents'.
 //
 // The pipeline: kTcStages = 4 buffers of 16-value chunks of B, copied
 // with cp.async two chunks ahead, and one chunk's 6 products (three per
@@ -475,46 +541,69 @@ __device__ __forceinline__ void tc_zero(float (&d)[N / 4]) {
 // fragments alternate between two register sets, each kept allocated
 // until its products are done.  Each warpgroup copies and waits for only
 // its half of B (named barrier 1 + wg), so the two do not run in
-// lockstep.  Every branch here is uniform and the fragments load
+// lockstep; with EncA both read every row of the ring's slab, which the
+// whole block stages with its B chunk, so the chunk's barrier is
+// block-wide.  Every branch here is uniform and the fragments load
 // without branches: ptxas serializes all wgmma of a kernel whose wgmma
 // operands come from divergent code.  Starts (after the first copies) and
 // ends with a block-wide barrier.  kBf16 (note 10): img is a bf16 image,
 // chunks of 32 k-values (one 64-byte row each, half a buffer), one bf16
-// product per k-step of 16 and no lo fragments.
-template <int N, bool kBf16 = false>
-__device__ void tc_gemm(float (&d)[N / 4], const float* A, int lda, int K,
+// product per k-step of 16 and no lo fragments; an encoding product of more
+// than kFreshChunks chunks (a latent-conditioned model's) sums each chunk's
+// products in a fresh accumulator and adds it to d in float32, as wgrad
+// sums its chunks (note 7), the chunks then not overlapped: the tensor
+// cores' truncation over its 44 k-steps at 700 values moved the inputs'
+// cotangents 1.2-1.6x farther from the plain version than at 60.
+template <int N, bool kBf16 = false, class Src>
+__device__ void tc_gemm(float (&d)[N / 4], const Src& src, int K,
                         const float* __restrict__ img, float* bbuf) {
+  constexpr bool kRing = !std::is_same_v<Src, TileA>;
   constexpr int kStage = 2 * N * kTcK;  // floats of a chunk buffer: a TF32 chunk's hi and lo
   constexpr int kK = tc_chunk<kBf16>();  // k-values of a chunk
   constexpr int kChunkFloats = kBf16 ? N * kK / 2 : kStage;  // floats of a chunk of img
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
   const int g = lane >> 2, q = lane & 3;
-  const float* a0 = A + (((tid >> 5) & 3) * 16 + g) * lda;
+  // This thread's A rows: of the tile, or of a ring slab (plus the slab's
+  // offset).
+  const float* a0;
+  int lda;
+  if constexpr (kRing) {
+    a0 = src.ring;
+    lda = kEncLd;
+  } else {
+    a0 = src.A;
+    lda = src.lda;
+  }
+  a0 += (((tid >> 5) & 3) * 16 + g) * lda;
   const float* a1 = a0 + 8 * lda;
   const int chunks = round_up_tc<kBf16>(K) / kK;
+  const bool fresh = kBf16 && chunks > kFreshChunks;
   // Each warpgroup copies, and waits for, only its own half of B (its hi
   // and lo rows): the two warpgroups never wait for each other here.
   constexpr int kHalf4 = N / 2 * kTcK / 4;  // float4s of a warpgroup's hi (lo, bf16) rows
   const int t = tid & 127;
   auto stage = [&](int c) {  // commits a group, empty past the last chunk
     if (c < chunks) {
-      const float4* src =
+      const float4* src4 =
           reinterpret_cast<const float4*>(img + static_cast<size_t>(c) * kChunkFloats) +
           wg * kHalf4;
       float4* dst = reinterpret_cast<float4*>(bbuf + (c % kTcStages) * kStage) + wg * kHalf4;
       if constexpr (kHalf4 % 128 == 0) {
 #pragma unroll
         for (int j = 0; j < kHalf4 / 128; ++j) {
-          cp_async16(dst + t + 128 * j, src + t + 128 * j, true);
+          cp_async16(dst + t + 128 * j, src4 + t + 128 * j, true);
           if constexpr (!kBf16)
-            cp_async16(dst + 2 * kHalf4 + t + 128 * j, src + 2 * kHalf4 + t + 128 * j, true);
+            cp_async16(dst + 2 * kHalf4 + t + 128 * j, src4 + 2 * kHalf4 + t + 128 * j, true);
         }
       } else {
         for (int i = t; i < kHalf4; i += 128) {
-          cp_async16(dst + i, src + i, true);
-          if constexpr (!kBf16) cp_async16(dst + 2 * kHalf4 + i, src + 2 * kHalf4 + i, true);
+          cp_async16(dst + i, src4 + i, true);
+          if constexpr (!kBf16) cp_async16(dst + 2 * kHalf4 + i, src4 + 2 * kHalf4 + i, true);
         }
       }
+      if constexpr (kRing)
+        src.load.template stage<kBf16>(src.w, src.which, c, src.row0, src.nvalid, src.first,
+                                       src.ring + (c % kTcStages) * kEncSlab);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -524,22 +613,36 @@ __device__ void tc_gemm(float (&d)[N / 4], const float* A, int lda, int K,
   auto chunk = [&](int c, Frags& ahi, Frags& alo, Frags& prev_hi, Frags& prev_lo) {
     asm volatile("cp.async.wait_group 1;\n" ::);
     fence_async_smem();
-    // This warpgroup's half of chunk c has landed, and its products of
-    // chunk c - 2, whose buffer takes chunk c + 2, are done.
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
+    // This warpgroup's half of chunk c has landed (with EncA: all of the
+    // block's copies of chunk c), and its products of chunk c - 2, whose
+    // buffer takes chunk c + 2, are done.
+    if constexpr (kRing)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
     stage(c + 2);
     const int k0 = c * kK;
+    const int slab = kRing ? (c % kTcStages) * kEncSlab : 0;
     if constexpr (kBf16) {
       // a_j: row g + 8 (j & 1), k-values kk, kk + 1 with kk = k + 8 (j >> 1).
+      if constexpr (kRing) {  // the slab holds the pairs: word kk / 2 of the row
+        const uint32_t* w0 = reinterpret_cast<const uint32_t*>(a0 + slab);
+        const uint32_t* w1 = reinterpret_cast<const uint32_t*>(a1 + slab);
 #pragma unroll
-      for (int s = 0; s < kSteps; ++s) {
-        const int k = k0 + 16 * s + 2 * q;
+        for (int s = 0; s < kSteps; ++s)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float* row = (j & 1) ? a1 : a0;
-          const int kk = k + 8 * (j >> 1);
-          const float v0 = row[min(kk, K - 1)], v1 = row[min(kk + 1, K - 1)];
-          ahi[s][j] = pack_bf16x2(kk < K ? v0 : 0.f, kk + 1 < K ? v1 : 0.f);
+          for (int j = 0; j < 4; ++j) ahi[s][j] = ((j & 1) ? w1 : w0)[8 * s + q + 4 * (j >> 1)];
+      } else {
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          const int k = k0 + 16 * s + 2 * q;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float* row = (j & 1) ? a1 : a0;
+            const int kk = k + 8 * (j >> 1);
+            const float v0 = row[min(kk, K - 1)], v1 = row[min(kk + 1, K - 1)];
+            ahi[s][j] = pack_bf16x2(kk < K ? v0 : 0.f, kk + 1 < K ? v1 : 0.f);
+          }
         }
       }
       const float* b = bbuf + (c % kTcStages) * kStage + wg * (N / 2) * kTcK;
@@ -555,11 +658,18 @@ __device__ void tc_gemm(float (&d)[N / 4], const float* A, int lda, int K,
     } else {
 #pragma unroll
       for (int s = 0; s < kTcK / 8; ++s) {
-        const int k = k0 + 8 * s + q, ka = min(k, K - 1), kb = min(k + 4, K - 1);
-        const float v[4] = {a0[ka], a1[ka], a0[kb], a1[kb]};
+        if constexpr (kRing) {  // zero past K in the slab
+          const int k = slab + 8 * s + q;
+          const float v[4] = {a0[k], a1[k], a0[k + 4], a1[k + 4]};
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          split_tf32((j < 2 ? k : k + 4) < K ? v[j] : 0.f, ahi[s][j], alo[s][j]);
+          for (int j = 0; j < 4; ++j) split_tf32(v[j], ahi[s][j], alo[s][j]);
+        } else {
+          const int k = k0 + 8 * s + q, ka = min(k, K - 1), kb = min(k + 4, K - 1);
+          const float v[4] = {a0[ka], a1[ka], a0[kb], a1[kb]};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            split_tf32((j < 2 ? k : k + 4) < K ? v[j] : 0.f, ahi[s][j], alo[s][j]);
+        }
       }
       // This warpgroup's half of the chunk: rows n of B are 16 floats apart;
       // hi block, then lo block.
@@ -587,9 +697,44 @@ __device__ void tc_gemm(float (&d)[N / 4], const float* A, int lda, int K,
   stage(0);
   stage(1);
   __syncthreads();  // A was written by all eight warps; both warpgroups read all of it
-  for (int c = 0; c < chunks; c += 2) {
-    chunk(c, ahi0, alo0, ahi1, alo1);
-    if (c + 1 < chunks) chunk(c + 1, ahi1, alo1, ahi0, alo0);
+  bool chunked = false;  // a long bf16 encoding product
+  if constexpr (kRing && kBf16) {
+    if constexpr (kChunkedSums<typename Src::Loader>) chunked = fresh;
+  }
+  if (chunked) {
+    // Each chunk's products into a fresh accumulator, retired and added to
+    // d in float32 before the next.
+    for (int c = 0; c < chunks; ++c) {
+      asm volatile("cp.async.wait_group 1;\n" ::);
+      fence_async_smem();
+      __syncthreads();  // chunk c has landed; chunk c - 2's buffers are free
+      stage(c + 2);
+      const uint32_t* w0 = reinterpret_cast<const uint32_t*>(a0 + (c % kTcStages) * kEncSlab);
+      const uint32_t* w1 = reinterpret_cast<const uint32_t*>(a1 + (c % kTcStages) * kEncSlab);
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ahi0[s][j] = ((j & 1) ? w1 : w0)[8 * s + q + 4 * (j >> 1)];
+      const float* b = bbuf + (c % kTcStages) * kStage + wg * (N / 2) * kTcK;
+      float e[N / 4];
+      tc_zero<N>(e);
+      fence_regs(ahi0);
+      fence_regs(e);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s) wgmma_rs_bf16(e, ahi0[s], smem_desc_sw64(b + 8 * s));
+      wgmma_commit();
+      wgmma_wait0();
+      fence_regs(e);
+      fence_regs(ahi0);
+#pragma unroll
+      for (int i = 0; i < N / 4; ++i) d[i] += e[i];
+    }
+  } else {
+    for (int c = 0; c < chunks; c += 2) {
+      chunk(c, ahi0, alo0, ahi1, alo1);
+      if (c + 1 < chunks) chunk(c + 1, ahi1, alo1, ahi0, alo0);
+    }
   }
   wgmma_wait0();
   fence_regs(d);
@@ -601,6 +746,13 @@ __device__ void tc_gemm(float (&d)[N / 4], const float* A, int lda, int K,
   }
   asm volatile("cp.async.wait_group 0;\n" ::);  // the empty groups
   __syncthreads();
+}
+
+// The same on a shared tile A with row stride lda.
+template <int N, bool kBf16 = false>
+__device__ __forceinline__ void tc_gemm(float (&d)[N / 4], const float* A, int lda, int K,
+                                        const float* __restrict__ img, float* bbuf) {
+  tc_gemm<N, kBf16>(d, TileA{A, lda}, K, img, bbuf);
 }
 
 // The wgmma fragments d of tc_gemm<N> -> columns 0 .. N - 1 of act [64][ld]
@@ -648,9 +800,10 @@ __device__ __forceinline__ void tc_store_rows(const float (&acc)[kRowsPerWarp][H
     for (int j = 0; j < H / 32; ++j) rows[r * ld + lane + 32 * j] = acc[r][j];
 }
 
-// Bytes of shared memory of the tensor-core MLP tile: the B chunks, the
-// activation tile and the zero-padded x / d input tiles (load_tile's
-// layout), and the alignment slack.
+// Bytes of shared memory of the mip tensor-core forward tile: the B
+// chunks, the activation tile and the zero-padded x / d input tiles
+// (load_tile's layout, resident for the whole tile), and the alignment
+// slack.
 template <int H>
 __host__ inline size_t tc_tile_bytes(int xe, int de) {
   return (static_cast<size_t>(tc_bbuf_floats<H>()) + static_cast<size_t>(kTileRows) * act_ld<H>() +
@@ -659,18 +812,99 @@ __host__ inline size_t tc_tile_bytes(int xe, int de) {
          kSmemAlign;
 }
 
-// mlp_tile (classic_mlp.cuh) with the products on the tensor cores: the
-// whole network on one 64-row tile whose inputs are in shared memory (xs,
-// ds); [density, color...] rows to out (row stride ld).  act is the
-// [64][act_ld<H>()] activation tile, bbuf the B chunks; with kSave every
-// layer's xhat and statistics go to save.  kBf16: bf16 images and products,
-// bf16 heads (note 10).
-template <int H, bool kSave = false, bool kBf16 = false>
-__device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const float* xs,
-                            const float* ds, float* act, float* bbuf, float* out, int ld,
-                            int nvalid, const Save* save = nullptr) {
+// Bytes of shared memory of the classic tensor-core MLP tile (fwd_store,
+// K1-fwd, K8-fwd): the B chunks, the activation tile, the encodings' ring
+// and the alignment slack, at every encoding width (note 9).
+template <int H>
+__host__ __device__ constexpr size_t tc_classic_tile_bytes() {
+  return (static_cast<size_t>(tc_bbuf_floats<H>()) + static_cast<size_t>(kTileRows) * act_ld<H>() +
+          kEncRingFloats) *
+             sizeof(float) +
+         kSmemAlign;
+}
+
+// Chunk c of the encoding src [rows][width] (tile row r reads row (row0 +
+// r) / div) into a ring slab (EncA), zero past the width and past nvalid:
+// float32 values (kBf16 false), or bfloat16 pairs as stored.  Copied with
+// cp.async (joining the chunk's group of B copies) where the rows allow
+// it: 16 bytes a copy for float32 widths that are a multiple of 4, 4
+// bytes (a float, a pair) otherwise; a bfloat16 encoding of odd width,
+// whose pairs straddle words, is loaded and packed directly.  Called by
+// the whole block.
+template <bool kBf16, class T>
+__device__ __forceinline__ void stage_enc(float* slab, const T* __restrict__ src, int width,
+                                          int div, int c, size_t row0, int nvalid) {
+  static_assert(std::is_same_v<T, enc_t<kBf16>>, "the encodings are stored in the compute dtype");
+  const int r = threadIdx.x >> 2, j4 = 4 * (threadIdx.x & 3);  // row, first word
+  float* dst = slab + r * kEncLd + j4;
+  const size_t row = (row0 + r) / div;
+  const bool rv = r < nvalid;
+  if constexpr (!kBf16) {
+    const int k = c * kTcK + j4;
+    const float* at = src + row * width + k;
+    if (width % 4 == 0 && reinterpret_cast<size_t>(src) % 16 == 0) {
+      const bool v = rv && k < width;
+      cp_async16(reinterpret_cast<float4*>(dst), reinterpret_cast<const float4*>(v ? at : src), v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool v = rv && k + e < width;
+        cp_async4(dst + e, v ? at + e : src, v);
+      }
+    }
+  } else {
+    const int k = c * kTcKB + 2 * j4;  // the first of the thread's 8 values
+    const __nv_bfloat16* at = src + row * width + k;
+    if (width % 2 == 0 && reinterpret_cast<size_t>(src) % 4 == 0) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool v = rv && k + 2 * e < width;
+        cp_async4(dst + e, reinterpret_cast<const float*>(v ? at + 2 * e : src), v);
+      }
+    } else {
+      uint32_t* words = reinterpret_cast<uint32_t*>(dst);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = k + 2 * e;
+        const uint32_t lo = rv && kk < width ? __bfloat16_as_ushort(at[2 * e]) : 0u;
+        const uint32_t hi = rv && kk + 1 < width ? __bfloat16_as_ushort(at[2 * e + 1]) : 0u;
+        words[e] = lo | hi << 16;
+      }
+    }
+  }
+}
+
+// The encodings of a tile read from global memory: x [P][xe] and d, whose
+// row r / d_div serves row r (d_div > 1: per-ray view encodings); T is
+// float or __nv_bfloat16, the compute dtype's.  An EncA loader.
+template <class T>
+struct TileLoadT {
+  const T* x;
+  const T* d;
+  int d_div;
+  template <bool kBf16>
+  __device__ __forceinline__ void stage(const Weights& w, int which, int c, size_t row0,
+                                        int nvalid, bool, float* slab) const {
+    if (which == 0)
+      stage_enc<kBf16>(slab, x, w.xe, 1, c, row0, nvalid);
+    else
+      stage_enc<kBf16>(slab, d, w.de, d_div, c, row0, nvalid);
+  }
+};
+using TileLoad = TileLoadT<float>;
+
+// The network on one 64-row tile with the products on the tensor cores:
+// the tile's rows row0 .. row0 + nvalid - 1 of the
+// encodings that `load` stages (EncA), [density, color...] rows to out
+// (row stride ld).  act is the [64][act_ld<H>()] activation tile, ring the
+// encodings' ring (kEncRingFloats), bbuf the B chunks; with kSave every
+// layer's xhat and statistics go to save.  kBf16: bf16 images and
+// products, bf16 heads (note 10).
+template <int H, bool kSave = false, bool kBf16 = false, class Load>
+__device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const Load& load, size_t row0,
+                            int nvalid, float* act, float* ring, float* bbuf, float* out,
+                            int ld, const Save* save = nullptr) {
   constexpr int ald = act_ld<H>();
-  const int xld = round_up4(w.xe), dld = round_up4(w.de);
   const size_t slab = tc_image_floats<kBf16>(H, H);
   float d[H / 4];
   float acc[kRowsPerWarp][H / 32];
@@ -678,15 +912,18 @@ __device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const float* x
     tc_to_rows<H>(d, act, acc);
     layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
   };
+  auto enc = [&](int which, bool first) {
+    return EncA<Load>{load, w, which, row0, nvalid, first, ring};
+  };
 
   tc_zero<H>(d);
-  tc_gemm<H, kBf16>(d, xs, xld, w.xe, im.w0, bbuf);
+  tc_gemm<H, kBf16>(d, enc(0, true), w.xe, im.w0, bbuf);
   epilogue(0);
   tc_store_rows<H>(acc, act);
   for (int i = 1; i < 8; ++i) {
     tc_zero<H>(d);
     tc_gemm<H, kBf16>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
-    if (i == 4) tc_gemm<H, kBf16>(d, xs, xld, w.xe, im.wx, bbuf);
+    if (i == 4) tc_gemm<H, kBf16>(d, enc(0, false), w.xe, im.wx, bbuf);
     epilogue(i);
     tc_store_rows<H>(acc, act);
   }
@@ -695,7 +932,7 @@ __device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const float* x
     for (int i = 8; i < 10; ++i) {
       tc_zero<H>(d);
       tc_gemm<H, kBf16>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
-      if (i == 8) tc_gemm<H, kBf16>(d, ds, dld, w.de, im.wd, bbuf);
+      if (i == 8) tc_gemm<H, kBf16>(d, enc(1, true), w.de, im.wd, bbuf);
       epilogue(i);
       if (i == 8) tc_store_rows<H>(acc, act);
     }
@@ -704,9 +941,14 @@ __device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const float* x
 }
 
 // ---------------------------------------------------------------------------
-// Pass 1: the stored-chain forward (fwd_store_kernel's contract).
+// Pass 1: the stored-chain forward of the P rows of a call.
 // ---------------------------------------------------------------------------
 
+// Tile row r of block b is row 64 b + r of the call and row base + 64 b +
+// r of the chain, whose layers are `stride` rows apart (base 0 and stride
+// P but where two calls fill one chain, as K9's coarse and fine stages
+// do).  `load` stages the tile's encodings (EncA): TileLoad reads them
+// from global memory, the K8 and K9 loaders (encode.cuh) compute them.
 template <int H, class Load, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_store_tc_kernel(Weights w, TcImages im, Load load, float* __restrict__ out, int P,
@@ -714,55 +956,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);
   float* act = bbuf + tc_bbuf_floats<H>();
-  float* xs = act + kTileRows * act_ld<H>();
-  float* ds = xs + kTileRows * round_up4(w.xe);
+  float* ring = act + kTileRows * act_ld<H>();
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  load(w, xs, ds, row0, nvalid);
-  __syncthreads();
   const Save save{xhat, stats, stride, base + row0, nvalid};
-  mlp_tile_tc<H, true, kBf16>(w, im, xs, ds, act, bbuf, out + row0 * (1 + w.c), 1 + w.c,
-                              nvalid, &save);
+  mlp_tile_tc<H, true, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf,
+                              out + row0 * (1 + w.c), 1 + w.c, &save);
 }
 
-// The forward alone (K1-fwd, K8-fwd; fwd_simt_kernel's contract): the tile
-// of fwd_store_tc_kernel, nothing saved.  `load` as in fwd_store_kernel.
+// The forward alone (K1-fwd, K8-fwd): the tile of fwd_store_tc_kernel,
+// nothing saved.  `load` as in fwd_store_tc_kernel.
 template <int H, class Load, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_tc_kernel(Weights w, TcImages im, Load load, float* __restrict__ out, int P) {
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);
   float* act = bbuf + tc_bbuf_floats<H>();
-  float* xs = act + kTileRows * act_ld<H>();
-  float* ds = xs + kTileRows * round_up4(w.xe);
+  float* ring = act + kTileRows * act_ld<H>();
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  load(w, xs, ds, row0, nvalid);
-  __syncthreads();
-  mlp_tile_tc<H, false, kBf16>(w, im, xs, ds, act, bbuf, out + row0 * (1 + w.c), 1 + w.c,
-                               nvalid);
-}
-
-// The forward alone in float32 SIMT (classic_mlp.cuh::mlp_tile: weights
-// streamed from L2 in 16-row chunks, two blocks an SM), for encodings too
-// wide for fwd_tc_kernel's tile (note 9).  `load` as in fwd_store_kernel.
-template <int H, class Load, bool kBf16 = false>
-__global__ void __launch_bounds__(kThreads, 2)
-    fwd_simt_kernel(Weights w, Load load, float* __restrict__ out, int P) {
-  extern __shared__ float4 smem4[];
-  float* act = reinterpret_cast<float*>(smem4);
-  float* wbuf = act + kTileRows * H;
-  float* xs = wbuf + kChunk * H;
-  float* ds = xs + kTileRows * round_up4(w.xe);
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
-  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  load(w, xs, ds, row0, nvalid);
-  __syncthreads();
-  mlp_tile<H, false, kBf16>(w, xs, ds, act, wbuf, out + row0 * (1 + w.c), 1 + w.c, nvalid);
+  mlp_tile_tc<H, false, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf,
+                               out + row0 * (1 + w.c), 1 + w.c);
 }
 
 // ---------------------------------------------------------------------------
-// Pass 2: the backward over the rows of a tile (bwd_rows_kernel's contract).
+// Pass 2: the backward over the rows of a tile.
 // ---------------------------------------------------------------------------
 
 // The input cotangents' products (note 1): the rows of an input slab's
@@ -920,7 +1138,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Pass 3: dW = h_in^T dpre on the tensor cores (wgrad_kernel's contract).
+// Pass 3: dW = h_in^T dpre on the tensor cores.
 // ---------------------------------------------------------------------------
 
 // Shared memory of wgrad_tc_kernel: two stages of the raw operands as
@@ -934,12 +1152,6 @@ constexpr int kWgImgFloats = 2 * kWT * kWgK;
 // ([kWgK][64] words; the bf16 image of B takes its first quarter).
 constexpr int kWgWordsOff = kWgImgFloats / 2;
 constexpr size_t kWgradTcSmem = 2 * (kWgRawFloats + kWgImgFloats) * sizeof(float) + kSmemAlign;
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
-}
 
 // A block of 256 threads owns one 128 x 128 output tile over one chunk of
 // points; warpgroup wg takes the tile's rows 64 wg .. 64 wg + 63 (M) and
@@ -1253,7 +1465,7 @@ __global__ void __launch_bounds__(256, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The width rule (note 9).
+// The plans (note 9).
 // ---------------------------------------------------------------------------
 
 // The product a width-dependent tile runs; the values are the plan's codes.
@@ -1287,15 +1499,15 @@ __host__ inline cudaError_t tile_plan(size_t tc_bytes, size_t simt_bytes, TilePo
   return cudaSuccess;
 }
 
-// fwd_store's plan for the encoding widths xe, de (de 0 without the view
-// branch).
+// The mip forward tile's plan (MipTcT) for the features' width xe (and de
+// 0): the tensor-core tile where it fits, else the float32 SIMT one.
 template <int H>
 __host__ inline cudaError_t fwd_store_plan(int xe, int de, TilePolicy* policy,
                                            long long* out = nullptr) {
   return tile_plan(tc_tile_bytes<H>(xe, de), fwd_store_smem<H>(xe, de), policy, out);
 }
 
-// The plan for hidden width `hidden`, for the libraries' <name>_plan.
+// The plan for hidden width `hidden`, for the mip libraries' <name>_plan.
 __host__ inline cudaError_t fwd_store_plan_at(int xe, int de, int hidden, long long* out) {
   TilePolicy policy;
 #define NERF_PLAN(H) fwd_store_plan<H>(xe, de, &policy, out)
@@ -1303,32 +1515,36 @@ __host__ inline cudaError_t fwd_store_plan_at(int xe, int de, int hidden, long l
 #undef NERF_PLAN
 }
 
+// A classic tile's plan: its tensor-core tile where it fits, else none (no
+// SIMT tile); out = [policy, tensor-core bytes, 0, limit].
+__host__ inline cudaError_t tc_plan(size_t tc_bytes, TilePolicy* policy, long long* out) {
+  size_t limit = 0;
+  const cudaError_t err = smem_optin_limit(&limit);
+  if (err != cudaSuccess) return err;
+  *policy = tc_bytes <= limit ? kTileTc : kTileNone;
+  if (out != nullptr) {
+    out[0] = *policy;
+    out[1] = static_cast<long long>(tc_bytes);
+    out[2] = 0;
+    out[3] = static_cast<long long>(limit);
+  }
+  return cudaSuccess;
+}
+
 // The forward alone over P rows (K1-fwd, K8-fwd): fwd_tc_kernel on the
-// forward images tc_fwd where its tile fits, else fwd_simt_kernel, from
-// fwd_store's plan (their tiles take fwd_store's bytes, in bf16 too).
+// forward images tc_fwd.
 template <int H, class Load, bool kBf16 = false>
 cudaError_t launch_fwd(const Weights& w, const Load& load, float* out, int P,
                        const float* tc_fwd, cudaStream_t stream) {
-  TilePolicy policy;
-  cudaError_t err = fwd_store_plan<H>(w.xe, w.de, &policy);
+  if (tc_fwd == nullptr) return cudaErrorInvalidValue;
+  constexpr size_t smem = tc_classic_tile_bytes<H>();
+  cudaError_t err = cudaFuncSetAttribute(fwd_tc_kernel<H, Load, kBf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = (P + kTileRows - 1) / kTileRows;
-  if (policy == kTileTc) {
-    if (tc_fwd == nullptr) return cudaErrorInvalidValue;
-    const size_t smem = tc_tile_bytes<H>(w.xe, w.de);
-    err = cudaFuncSetAttribute(fwd_tc_kernel<H, Load, kBf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    fwd_tc_kernel<H, Load, kBf16><<<blocks, kThreads, smem, stream>>>(
-        w, TcImages::forward<kBf16>(w, tc_fwd, H), load, out, P);
-    return cudaGetLastError();
-  }
-  if (policy != kTileSimt) return cudaErrorInvalidValue;
-  const size_t smem = fwd_store_smem<H>(w.xe, w.de);
-  err = cudaFuncSetAttribute(fwd_simt_kernel<H, Load, kBf16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  fwd_simt_kernel<H, Load, kBf16><<<blocks, kThreads, smem, stream>>>(w, load, out, P);
+  fwd_tc_kernel<H, Load, kBf16><<<blocks, kThreads, smem, stream>>>(
+      w, TcImages::forward<kBf16>(w, tc_fwd, H), load, out, P);
   return cudaGetLastError();
 }
 
@@ -1339,11 +1555,9 @@ cudaError_t launch_fwd(const Weights& w, const Load& load, float* out, int P,
 // The tensor-core passes for launch_fwd_store_with and launch_mlp_backward:
 // the Scratch's tc_fwd and tc_bwd hold the call's operand images (tc_bwd
 // with the input slabs' images, which bwd_rows reads where the encodings'
-// cotangents dx, dd are asked for).  fwd_store runs SimtProducts' pass
-// where its tile does not fit (note 9).  kBf16: compute_dtype bfloat16
-// (note 10): bf16 images, encodings, products and heads, and SimtProducts'
-// fwd_store rounding its operands likewise.  InGradT: the type of the
-// encodings' cotangents dx, dd (the encodings' own by default; K8-bwd's
+// cotangents dx, dd are asked for).  kBf16: compute_dtype bfloat16 (note
+// 10): bf16 images, encodings, products and heads.  InGradT: the type of
+// the encodings' cotangents dx, dd (the encodings' own by default; K8-bwd's
 // are float32 in both dtypes).
 template <bool kBf16_ = false, class InGradT = enc_t<kBf16_>>
 struct TcProductsT {
@@ -1353,15 +1567,11 @@ struct TcProductsT {
   static cudaError_t fwd_store(const Weights& w, const Load& load, float* out, int P,
                                const Scratch& s, cudaStream_t stream, size_t stride,
                                size_t base) {
-    TilePolicy policy;
-    cudaError_t err = fwd_store_plan<H>(w.xe, w.de, &policy);
-    if (err != cudaSuccess) return err;
-    if (policy == kTileSimt)
-      return SimtProducts::fwd_store<H, Load, kBf16>(w, load, out, P, s, stream, stride, base);
-    if (policy == kTileNone || s.tc_fwd == nullptr) return cudaErrorInvalidValue;
-    const size_t smem = tc_tile_bytes<H>(w.xe, w.de);
-    err = cudaFuncSetAttribute(fwd_store_tc_kernel<H, Load, kBf16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (s.tc_fwd == nullptr) return cudaErrorInvalidValue;
+    constexpr size_t smem = tc_classic_tile_bytes<H>();
+    cudaError_t err = cudaFuncSetAttribute(fwd_store_tc_kernel<H, Load, kBf16>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
     fwd_store_tc_kernel<H, Load, kBf16><<<tiles, kThreads, smem, stream>>>(

@@ -19,9 +19,8 @@
 // Design: the MLP passes of classic_mlp_train.cuh with the tensor-core
 // product policy of tc_mlp.cuh (TcProducts: fwd_store, bwd_rows and wgrad
 // run every hidden and encoding product as 3xTF32 wgmma on the operand
-// images the wrapper builds once per call; fwd_store runs the float32
-// SIMT pass where the encodings are too wide for its tile, tc_mlp.cuh
-// note 9), with one compositing pass between forward and backward: one
+// images the wrapper builds once per call, at every encoding width:
+// tc_mlp.cuh note 9), with one compositing pass between forward and backward: one
 // warp per ray, each lane a run of consecutive samples; the exclusive
 // prefix of log(alpha + 1e-10) and the exclusive suffix of the
 // transmittance cotangent are warp scans in fp32.
@@ -106,12 +105,12 @@ int entry(const void* x, const void* d, const float* dists, const float* noise,
           const float* wx, const float* wd, const float* whh, const float* b, const float* g,
           const float* beta, const float* w_dens, const float* b_dens, const float* w_col,
           const float* b_col, float* xhat, float* stats, float* dpre, float* wpart,
-          float* tpart, float* tmp, float* wt, float* out, float* gout, float* ray_loss,
+          float* tpart, float* tmp, float* out, float* gout, float* ray_loss,
           int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
   if (c > kMaxColors || c < 1) return cudaErrorInvalidValue;
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, wt, splits,
+  const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   const float g_scale = loss_weight * 2.f / (static_cast<float>(c) * R);
   const float loss_scale = loss_weight / R;
@@ -132,12 +131,12 @@ extern "C" int train_grads(const float* x, const float* d, const float* dists,
                            const float* wd, const float* whh, const float* b, const float* g,
                            const float* beta, const float* w_dens, const float* b_dens,
                            const float* w_col, const float* b_col, float* xhat, float* stats,
-                           float* dpre, float* wpart, float* tpart, float* tmp, float* wt,
+                           float* dpre, float* wpart, float* tpart, float* tmp,
                            float* out, float* gout, float* ray_loss, int splits,
                            const float* tc_fwd, const float* tc_bwd, void* stream) {
   return entry<false>(x, d, dists, noise, pix, loss, grads, weights_out, R, S, xe, de, hidden,
                       c, white, loss_weight, w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col,
-                      b_col, xhat, stats, dpre, wpart, tpart, tmp, wt, out, gout, ray_loss,
+                      b_col, xhat, stats, dpre, wpart, tpart, tmp, out, gout, ray_loss,
                       splits, tc_fwd, tc_bwd, stream);
 }
 
@@ -150,18 +149,11 @@ extern "C" int train_grads_bf16(const void* x, const void* d, const float* dists
                                 const float* b, const float* g, const float* beta,
                                 const float* w_dens, const float* b_dens, const float* w_col,
                                 const float* b_col, float* xhat, float* stats, float* dpre,
-                                float* wpart, float* tpart, float* tmp, float* wt, float* out,
+                                float* wpart, float* tpart, float* tmp, float* out,
                                 float* gout, float* ray_loss, int splits, const void* tc_fwd,
                                 const void* tc_bwd, void* stream) {
   return entry<true>(x, d, dists, noise, pix, loss, grads, weights_out, R, S, xe, de, hidden, c,
                      white, loss_weight, w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col,
-                     b_col, xhat, stats, dpre, wpart, tpart, tmp, wt, out, gout, ray_loss,
+                     b_col, xhat, stats, dpre, wpart, tpart, tmp, out, gout, ray_loss,
                      splits, tc_fwd, tc_bwd, stream);
-}
-
-// The plan train_grads' fwd_store follows for these widths (de 0 without
-// the view branch): out = [policy (0 tensor cores, 1 float32 SIMT, 2
-// neither fits), tensor-core bytes, SIMT bytes, the device's limit].
-extern "C" int train_grads_plan(int xe, int de, int hidden, long long* out) {
-  return static_cast<int>(fwd_store_plan_at(xe, de, hidden, out));
 }

@@ -20,15 +20,14 @@
 // broadcasting each ray's view encoding to its rows, with every hidden and
 // encoding product as 3xTF32 on the tensor cores (mlp_tile_tc,
 // tc_mlp.cuh: the weights as operand images the wrapper builds once per
-// call, streamed in chunks of 16 k-values; the epilogues and heads in
-// float32 SIMT), and keeps only [density, color logits] per fine row in
-// shared memory: 227,328 bytes a block at H = 256 and 128 fine samples,
+// call, streamed in chunks of 16 k-values, and the encodings streamed
+// beside them one chunk at a time through a ring; the epilogues and heads
+// in float32 SIMT), and keeps only [density, color logits] per fine row in
+// shared memory: 223,232 bytes a block at H = 256 and 128 fine samples,
 // the 1024-byte alignment of the swizzled weight chunks included (one
-// block an SM).  That tile holds encodings of xe' + de' <= 116 floats a row
-// (the widths rounded up to 4); a latent-conditioned model's wider ones
-// (100 + 48 with 2 + 1 latent scalars) run the float32 SIMT product of
-// classic_mlp.cuh (mlp_tile, union_eval_simt_kernel), chosen from the
-// shapes before the launch (tc_mlp.cuh, note 9).  Then one warp per ray:
+// block an SM), at every encoding width (a latent-conditioned model's
+// wider encodings only take more chunks; tc_mlp.cuh, note 9).  Then one
+// warp per ray:
 //   1. merges the sorted coarse and fine t lists by rank (binary search in
 //      the other list; a coarse sample tied with a fine one comes first);
 //   2. takes each merged sample's interval to its successor, times ||d||,
@@ -43,7 +42,7 @@
 // note 10): bf16 fine and per-ray view encodings (the view row broadcast in
 // the block as before) and weight images, every product and both heads on
 // bf16 operands with float32 sums; the compositing and outputs float32; the
-// same tiles and width rule.  Its bound at a 4000-ray tile of 128 fine
+// same tile.  Its bound at a 4000-ray tile of 128 fine
 // samples: 0.653 ms of bf16 tensor-core operations (FLOP / 989 TFLOP/s).
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
@@ -148,33 +147,27 @@ __device__ void composite_ray(int ray, int Sc, int Sf, int c,
   __syncwarp();
 }
 
-// The fine MLP's product: the tensor cores (kTc, mlp_tile_tc) or float32
-// SIMT FMAs (mlp_tile, for encodings too wide for the tensor-core tile:
-// tc_mlp.cuh, note 9).  Each reserves its weight buffer and activation tile.
-template <int H, bool kTc>
-__host__ __device__ constexpr size_t wbuf_floats() {
-  return kTc ? static_cast<size_t>(tc_bbuf_floats<H>()) : static_cast<size_t>(kChunk) * H;
-}
-
-template <int H, bool kTc>
+// Floats of the activation tile, which the compositing reuses as its
+// scratch (4 arrays of Sc + Sf per warp).
+template <int H>
 __host__ __device__ inline size_t scratch_floats(int Sc, int Sf) {
-  const size_t act = static_cast<size_t>(kTileRows) * (kTc ? act_ld<H>() : H);
+  const size_t act = static_cast<size_t>(kTileRows) * act_ld<H>();
   const size_t comp = static_cast<size_t>(kWarps) * 4 * (Sc + Sf);
   return act > comp ? act : comp;
 }
 
 __host__ __device__ inline int rays_per_block(int Sf) { return Sf >= 256 ? 1 : 256 / Sf; }
 
-// Bytes of shared memory a block takes: the weight buffer, the activation
-// tile (then the compositing scratch), the encoding tiles and the block's
-// fine outputs, with the swizzle's alignment slack on the tensor cores.
-template <int H, bool kTc>
-__host__ inline size_t block_bytes(int xe, int de, int c, int Sc, int Sf) {
-  return (wbuf_floats<H, kTc>() + scratch_floats<H, kTc>(Sc, Sf) +
-          static_cast<size_t>(kTileRows) * (round_up4(xe) + round_up4(de)) +
+// Bytes of shared memory a block takes: the B chunks, the activation tile
+// (then the compositing scratch), the encodings' ring and the block's fine
+// outputs, with the swizzle's alignment slack; the same at every encoding
+// width (tc_mlp.cuh, note 9).
+template <int H>
+__host__ inline size_t block_bytes(int c, int Sc, int Sf) {
+  return (static_cast<size_t>(tc_bbuf_floats<H>()) + scratch_floats<H>(Sc, Sf) + kEncRingFloats +
           static_cast<size_t>(rays_per_block(Sf)) * Sf * (1 + c)) *
              sizeof(float) +
-         (kTc ? kSmemAlign : 0);
+         kSmemAlign;
 }
 
 template <class T>  // the encodings' type, float or __nv_bfloat16
@@ -188,32 +181,26 @@ struct Inputs {
   const float* dnorm;   // [R]
 };
 
-template <int H, bool kTc, bool kBf16>
-__device__ __forceinline__ void union_eval_block(const Weights& w, const TcImages& im,
-                                                 const Inputs<enc_t<kBf16>>& in,
-                                                 float* __restrict__ out, int R, int Sc,
-                                                 int Sf) {
+template <int H, bool kBf16>
+__global__ void __launch_bounds__(kThreads, 1)
+    union_eval_kernel(Weights w, TcImages im, Inputs<enc_t<kBf16>> in, float* __restrict__ out,
+                      int R, int Sc, int Sf) {
   extern __shared__ float4 smem4[];
-  float* wbuf = kTc ? tc_smem_base(smem4) : reinterpret_cast<float*>(smem4);  // the weights
-  float* act = wbuf + wbuf_floats<H, kTc>();        // MLP activations, then scratch
-  float* xs = act + scratch_floats<H, kTc>(Sc, Sf);
-  float* ds = xs + kTileRows * round_up4(w.xe);
-  float* fout = ds + kTileRows * round_up4(w.de);  // [rays_per_block * Sf][1 + c]
+  float* bbuf = tc_smem_base(smem4);                // the weights' B chunks
+  float* act = bbuf + tc_bbuf_floats<H>();          // MLP activations, then scratch
+  float* ring = act + scratch_floats<H>(Sc, Sf);    // the encodings' ring
+  float* fout = ring + kEncRingFloats;              // [rays_per_block * Sf][1 + c]
   const int ld = 1 + w.c;
   const int ray0 = blockIdx.x * rays_per_block(Sf);
   const int nrays = min(rays_per_block(Sf), R - ray0);
   const int rows = nrays * Sf;
   const size_t frow0 = static_cast<size_t>(ray0) * Sf;
+  // The fine encodings, and each ray's view encoding broadcast to its rows.
+  const TileLoadT<enc_t<kBf16>> load{in.xf, in.d, Sf};
 
   for (int sub = 0; sub < rows; sub += kTileRows) {
-    const int nvalid = min(kTileRows, rows - sub);
-    load_tile(xs, in.xf, frow0 + sub, nvalid, w.xe, 1);
-    if (w.wd != nullptr) load_tile(ds, in.d, frow0 + sub, nvalid, w.de, Sf);
-    __syncthreads();
-    if constexpr (kTc)
-      mlp_tile_tc<H, false, kBf16>(w, im, xs, ds, act, wbuf, fout + sub * ld, ld, nvalid);
-    else
-      mlp_tile<H, false, kBf16>(w, xs, ds, act, wbuf, fout + sub * ld, ld, nvalid);
+    mlp_tile_tc<H, false, kBf16>(w, im, load, frow0 + sub, min(kTileRows, rows - sub), act, ring,
+                                 bbuf, fout + sub * ld, ld);
     __syncthreads();
   }
 
@@ -226,48 +213,27 @@ __device__ __forceinline__ void union_eval_block(const Weights& w, const TcImage
   }
 }
 
-template <int H, bool kBf16>
-__global__ void __launch_bounds__(kThreads, 1)
-    union_eval_kernel(Weights w, TcImages im, Inputs<enc_t<kBf16>> in, float* __restrict__ out,
-                      int R, int Sc, int Sf) {
-  union_eval_block<H, true, kBf16>(w, im, in, out, R, Sc, Sf);
-}
-
-template <int H, bool kBf16>
-__global__ void __launch_bounds__(kThreads, 2)
-    union_eval_simt_kernel(Weights w, Inputs<enc_t<kBf16>> in, float* __restrict__ out, int R,
-                           int Sc, int Sf) {
-  union_eval_block<H, false, kBf16>(w, TcImages{}, in, out, R, Sc, Sf);
-}
-
-// The block's product by the width rule (tc_mlp.cuh, note 9).
+// The block's plan (tc_mlp.cuh, note 9): the tensor-core tile where its
+// bytes fit, else none.
 template <int H>
-cudaError_t plan(int xe, int de, int c, int Sc, int Sf, TilePolicy* policy, long long* out) {
-  return tile_plan(block_bytes<H, true>(xe, de, c, Sc, Sf),
-                   block_bytes<H, false>(xe, de, c, Sc, Sf), policy, out);
+cudaError_t plan(int c, int Sc, int Sf, TilePolicy* policy, long long* out) {
+  return tc_plan(block_bytes<H>(c, Sc, Sf), policy, out);
 }
 
 template <int H, bool kBf16>
 cudaError_t launch(const Weights& w, const float* tcw, const Inputs<enc_t<kBf16>>& in,
                    float* out, int R, int Sc, int Sf, cudaStream_t stream) {
   TilePolicy policy;
-  cudaError_t err = plan<H>(w.xe, w.de, w.c, Sc, Sf, &policy, nullptr);
+  cudaError_t err = plan<H>(w.c, Sc, Sf, &policy, nullptr);
   if (err != cudaSuccess) return err;
-  if (policy == kTileNone || (policy == kTileTc && tcw == nullptr)) return cudaErrorInvalidValue;
-  const bool tc = policy == kTileTc;
-  const size_t smem = tc ? block_bytes<H, true>(w.xe, w.de, w.c, Sc, Sf)
-                         : block_bytes<H, false>(w.xe, w.de, w.c, Sc, Sf);
-  constexpr cudaFuncAttribute kSmemAttr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  err = tc ? cudaFuncSetAttribute(union_eval_kernel<H, kBf16>, kSmemAttr, static_cast<int>(smem))
-           : cudaFuncSetAttribute(union_eval_simt_kernel<H, kBf16>, kSmemAttr,
-                                  static_cast<int>(smem));
+  if (policy != kTileTc || tcw == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = block_bytes<H>(w.c, Sc, Sf);
+  err = cudaFuncSetAttribute(union_eval_kernel<H, kBf16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = (R + rays_per_block(Sf) - 1) / rays_per_block(Sf);
-  if (tc)
-    union_eval_kernel<H, kBf16><<<blocks, kThreads, smem, stream>>>(
-        w, TcImages::forward<kBf16>(w, tcw, H), in, out, R, Sc, Sf);
-  else
-    union_eval_simt_kernel<H, kBf16><<<blocks, kThreads, smem, stream>>>(w, in, out, R, Sc, Sf);
+  union_eval_kernel<H, kBf16><<<blocks, kThreads, smem, stream>>>(
+      w, TcImages::forward<kBf16>(w, tcw, H), in, out, R, Sc, Sf);
   return cudaGetLastError();
 }
 
@@ -316,13 +282,13 @@ extern "C" int union_eval_bf16(const void* xf, const void* d, const float* t_c,
                    stream);
 }
 
-// The plan union_eval follows for these shapes (de 0 without the view
-// branch): out = [policy (0 tensor cores, 1 float32 SIMT, 2 neither fits),
-// tensor-core bytes, SIMT bytes, the device's limit].
+// The plan union_eval follows for these shapes, the same at every encoding
+// width (xe, de): out = [policy (0 tensor cores, 2 the tile does not fit),
+// tensor-core bytes, 0, the device's limit].
 extern "C" int union_eval_plan(int xe, int de, int hidden, int c, int Sc, int Sf,
                                long long* out) {
   TilePolicy policy;
-#define NERF_PLAN(H) static_cast<int>(plan<H>(xe, de, c, Sc, Sf, &policy, out))
+#define NERF_PLAN(H) static_cast<int>(plan<H>(c, Sc, Sf, &policy, out))
   NERF_DISPATCH_HIDDEN(hidden, NERF_PLAN)
 #undef NERF_PLAN
 }

@@ -8,19 +8,16 @@ so machines without ``nvcc`` import the package freely.
 
 ``launch_counts`` counts kernel launches by kernel name: each wrapper adds
 one where it launches its kernel, and nowhere else.  ``policy_counts``
-counts, by ``(kernel name, policy)``, which product the width-dependent
-tile of a tensor-core kernel (K1-bwd's, K2's, K3's, K8-bwd's and K9's
-``fwd_store``, K1-fwd's, K8-fwd's and K4's block, K5-fwd's, K5-bwd's, K6's
-and K7's forward tile) ran in those calls: ``"tc"``, 3xTF32 on the tensor
-cores, or ``"simt"``, the float32 SIMT pass, where the encodings (the mip features)
-are too wide for the tensor-core tile (``csrc/tc_mlp.cuh``, note 9;
-``tile_plan``), or where a K1-bwd call asks for the encodings'
-cotangents, which K1-bwd computes on its float32 SIMT passes.  The bf16
-kernels of ``compute_dtype="bfloat16"`` (``<name>_bf16`` in the same
-library, for every kernel: ``BF16``) record ``"tc_bf16"`` or
-``"simt_bf16"``: the same tiles and width rule, the bf16 ``wgmma`` or the
-bf16-rounding SIMT pass (K1-bwd in bf16 always runs the tensor-core
-passes).
+counts, by ``(kernel name, policy)``, which product a kernel's tile ran in
+those calls: ``"tc"``, 3xTF32 on the tensor cores, or ``"simt"``, the
+float32 SIMT pass of the mip forward tiles (K5-fwd's, K5-bwd's, K6's and
+K7's), where the mip features are too wide for their tensor-core tile
+(``csrc/tc_mlp.cuh``, note 9; ``tile_plan``).  The classic kernels (K1-K4,
+K8, K9) stream their encodings through their one tensor-core tile and
+record ``"tc"`` at every encoding width.  The bf16 kernels of
+``compute_dtype="bfloat16"`` (``<name>_bf16`` in the same library, for
+every kernel: ``BF16``) record ``"tc_bf16"`` or ``"simt_bf16"``: the same
+tiles and rule, the bf16 ``wgmma`` or the bf16-rounding SIMT pass.
 """
 
 from __future__ import annotations
@@ -50,13 +47,11 @@ KERNELS = (
 launch_counts: collections.Counter = collections.Counter()
 policy_counts: collections.Counter = collections.Counter()
 POLICIES = ("tc", "simt")  # by the plans' codes; 2: neither tile fits
-# The kernels with a width-dependent tensor-core tile, each exporting
-# <name>_plan beside <name>.
-PLANNED = (
-    "classic_mlp_fwd", "union_eval", "classic_mlp_bwd", "train_grads", "fine_stage_train",
-    "mega_train", "mip_eval", "mip_train_grads", "mip_mlp_fwd", "mip_mlp_bwd",
-    "classic_pointmlp_fwd", "classic_pointmlp_bwd",
-)
+# The kernels whose tile depends on the call's shapes, each exporting
+# <name>_plan beside <name>: K4's block (its sample counts) and the mip
+# forward tiles (the features' width).  The classic tiles take the same
+# bytes at every encoding width.
+PLANNED = ("union_eval", "mip_eval", "mip_train_grads", "mip_mlp_fwd", "mip_mlp_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -74,26 +69,18 @@ ARGTYPES = {
     # xe de hidden c Sc Sf out[4]
     "union_eval_plan": (_I,) * 6 + (_P,),
     # x d gout dx dd grads P xe de hidden c, weights,
-    # xhat stats dpre wpart tpart tmp wt out splits tc_fwd tc_bwd stream
-    "classic_mlp_bwd": (_P,) * 6 + (_I,) * 5 + _WEIGHT_ARGS + (_P,) * 8 + (_I,) + (_P,) * 3,
+    # xhat stats dpre wpart tpart tmp out splits tc_fwd tc_bwd stream
+    "classic_mlp_bwd": (_P,) * 6 + (_I,) * 5 + _WEIGHT_ARGS + (_P,) * 7 + (_I,) + (_P,) * 3,
     # x d dists noise pix loss grads weights_out R S xe de hidden c white
-    # loss_weight, weights, xhat stats dpre wpart tpart tmp wt out gout
+    # loss_weight, weights, xhat stats dpre wpart tpart tmp out gout
     # ray_loss splits tc_fwd tc_bwd stream
-    "train_grads": (_P,) * 8 + (_I,) * 7 + (_F,) + _WEIGHT_ARGS + (_P,) * 10 + (_I,)
+    "train_grads": (_P,) * 8 + (_I,) * 7 + (_F,) + _WEIGHT_ARGS + (_P,) * 9 + (_I,)
     + (_P,) * 3,
     # xf d t_c t_f dens_c col_c dnorm noise_f pix loss grads g_dens_c g_col_c
     # R Sc Sf xe de hidden c white loss_weight, weights, xhat stats dpre
-    # wpart tpart tmp wt out gout ray_loss splits tc_fwd tc_bwd stream
-    "fine_stage_train": (_P,) * 13 + (_I,) * 8 + (_F,) + _WEIGHT_ARGS + (_P,) * 10 + (_I,)
+    # wpart tpart tmp out gout ray_loss splits tc_fwd tc_bwd stream
+    "fine_stage_train": (_P,) * 13 + (_I,) * 8 + (_F,) + _WEIGHT_ARGS + (_P,) * 9 + (_I,)
     + (_P,) * 3,
-    # xe de hidden out[4] (fwd_store's plan)
-    "classic_mlp_fwd_plan": (_I,) * 3 + (_P,),
-    "classic_mlp_bwd_plan": (_I,) * 3 + (_P,),
-    "train_grads_plan": (_I,) * 3 + (_P,),
-    "fine_stage_train_plan": (_I,) * 3 + (_P,),
-    "mega_train_plan": (_I,) * 3 + (_P,),
-    "classic_pointmlp_fwd_plan": (_I,) * 3 + (_P,),
-    "classic_pointmlp_bwd_plan": (_I,) * 3 + (_P,),
     # F 0 hidden out[4] (the mip forward tile's plan)
     "mip_eval_plan": (_I,) * 3 + (_P,),
     "mip_train_grads_plan": (_I,) * 3 + (_P,),
@@ -102,28 +89,28 @@ ARGTYPES = {
     # x out P F hidden L O, weights, tc_fwd stream
     "mip_mlp_fwd": (_P,) * 2 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 2,
     # x gout dx grads P F hidden L O, weights,
-    # xhat stats dpre wpart tpart tmp wt out splits tc_fwd tc_bwd stream
-    "mip_mlp_bwd": (_P,) * 4 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 8 + (_I,) + (_P,) * 3,
+    # xhat stats dpre wpart tpart tmp out splits tc_fwd tc_bwd stream
+    "mip_mlp_bwd": (_P,) * 4 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 7 + (_I,) + (_P,) * 3,
     # x dists t_mids noise per_ray R n F hidden L C O white, weights,
     # mlp_out tc_fwd stream
     "mip_eval": (_P,) * 5 + (_I,) * 8 + _MIP_WEIGHT_ARGS + (_P,) * 3,
     # x dists noise pix labels loss grads R n F hidden L C O white
-    # seg_weight, weights, xhat stats dpre wpart tpart tmp wt out gout
+    # seg_weight, weights, xhat stats dpre wpart tpart tmp out gout
     # ray_loss splits tc_fwd tc_bwd stream
-    "mip_train_grads": (_P,) * 7 + (_I,) * 8 + (_F,) + _MIP_WEIGHT_ARGS + (_P,) * 10 + (_I,)
+    "mip_train_grads": (_P,) * 7 + (_I,) * 8 + (_F,) + _MIP_WEIGHT_ARGS + (_P,) * 9 + (_I,)
     + (_P,) * 3,
     # pts dirs out P xe de hidden c sx phx sd phd, weights, tc_fwd stream
     "classic_pointmlp_fwd": (_P,) * 3 + (_I,) * 5 + (_P,) * 4 + _WEIGHT_ARGS + (_P,) * 2,
     # pts dirs gout dpts ddirs grads P xe de hidden c sx phx sd phd, weights,
-    # xhat stats dpre wpart tpart tmp wt out x_enc d_enc dx_enc dd_enc splits
+    # xhat stats dpre wpart tpart tmp out x_enc d_enc dx_enc dd_enc splits
     # tc_fwd tc_bwd stream
-    "classic_pointmlp_bwd": (_P,) * 6 + (_I,) * 5 + (_P,) * 4 + _WEIGHT_ARGS + (_P,) * 12
+    "classic_pointmlp_bwd": (_P,) * 6 + (_I,) * 5 + (_P,) * 4 + _WEIGHT_ARGS + (_P,) * 11
     + (_I,) + (_P,) * 3,
     # xc d_ray t_c noise_c u noise_f rays_o rays_d pix S is_cos loss grads
     # t_fine R Sc Sf xe de hidden c white exact_trig, weights, xhat stats dpre
-    # wpart tpart tmp wt out gout x_all dnorm ray_loss splits tc_fwd tc_bwd
+    # wpart tpart tmp out gout x_all dnorm ray_loss splits tc_fwd tc_bwd
     # stream
-    "mega_train": (_P,) * 14 + (_I,) * 9 + _WEIGHT_ARGS + (_P,) * 12 + (_I,) + (_P,) * 3,
+    "mega_train": (_P,) * 14 + (_I,) * 9 + _WEIGHT_ARGS + (_P,) * 11 + (_I,) + (_P,) * 3,
     # The tensor-core products alone (csrc/tc_product.cu, for the card
     # tests): a img out P K hidden stream; a b out P M N stream.
     "tc_linear": (_P,) * 3 + (_I,) * 3 + (_P,),
@@ -139,8 +126,8 @@ ARGTYPES.update({f"{name}_bf16": ARGTYPES[name] for name in BF16 + ("tc_linear",
 # Functions of a library other than its own name.
 FUNCTIONS = {
     "tc_product": ("tc_linear", "tc_wgrad", "tc_linear_bf16", "tc_wgrad_bf16"),
-    **{name: (name, f"{name}_plan") + ((f"{name}_bf16",) if name in BF16 else ())
-       for name in PLANNED},
+    **{name: (name,) + ((f"{name}_plan",) if name in PLANNED else ())
+       + ((f"{name}_bf16",) if name in BF16 else ()) for name in KERNELS},
 }
 
 
@@ -220,28 +207,30 @@ def check_launch(name: str, err: int) -> None:
 class TilePlan(NamedTuple):
     policy: str  # "tc" or "simt"
     tc_bytes: int  # shared memory a block of the tensor-core tile takes
-    simt_bytes: int  # the same of the float32 SIMT tile
+    simt_bytes: int  # the same of the float32 SIMT tile (0: the kernel has none)
     limit: int  # the device's opt-in shared memory a block
 
 
 def tile_plan(name: str, xe: int, de: int, hidden: int, *shape: int) -> TilePlan:
-    """The plan kernel ``name``'s width-dependent tile follows for these
-    shapes (``de`` 0 without the view branch; for K6 and K7 ``xe`` is the
-    mip features' width and ``de`` 0; K4 also takes ``c, Sc, Sf``),
-    from the library's ``<name>_plan``, the rule its launcher applies
+    """The plan kernel ``name`` (one of ``PLANNED``) follows for these
+    shapes: for K4 the encodings' widths ``xe, de`` (``de`` 0 without the
+    view branch), its hidden width and ``c, Sc, Sf``; for K5, K6 and K7
+    the mip features' width as ``xe``, ``de`` 0 and the hidden width.
+    From the library's ``<name>_plan``, the rule its launcher applies
     (``csrc/tc_mlp.cuh``, note 9): policy ``"tc"`` where the tensor-core
-    tile fits the device's opt-in shared memory a block, else ``"simt"``.
-    Raises a ``ValueError`` naming the limit, before any launch, where
-    neither fits."""
+    tile fits the device's opt-in shared memory a block, else ``"simt"``
+    where a mip kernel's SIMT tile does.  Raises a ``ValueError`` naming
+    the limit, before any launch, where none fits."""
     out = (ctypes.c_longlong * 4)()
     err = getattr(load(name), f"{name}_plan")(xe, de, hidden, *shape, out)
     if err != 0:
         raise RuntimeError(f"{name}_plan failed with cudaError_t {err}")
     policy, tc_bytes, simt_bytes, limit = out
     if policy >= len(POLICIES):
+        tiles = (f"{tc_bytes} bytes of shared memory a block on the tensor cores"
+                 + (f", {simt_bytes} in the float32 SIMT tile" if simt_bytes else ""))
         raise ValueError(
-            f"{name}: encoding widths {xe} + {de} at hidden {hidden} need {simt_bytes} bytes of "
-            f"shared memory a block even in the float32 SIMT tile ({tc_bytes} on the tensor "
-            f"cores), past the device's limit of {limit}"
+            f"{name}: widths {xe} + {de} at hidden {hidden} (shape {shape}) need {tiles}, past "
+            f"the device's limit of {limit}"
         )
     return TilePlan(POLICIES[policy], tc_bytes, simt_bytes, limit)

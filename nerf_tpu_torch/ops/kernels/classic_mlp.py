@@ -4,14 +4,13 @@ Counterpart of ``nerf_tpu/ops/pallas/fused_mlp.py`` (``pack_classic_params``,
 ``supports_classic_config`` and ``classic_mlp_pallas`` with its custom VJP).
 K1-fwd is ``csrc/classic_mlp_fwd.cu``: the MLP's hidden and encoding
 products as 3xTF32 on the tensor cores (``csrc/tc_mlp.cuh``'s
-``mlp_tile_tc``, K4's tile), or the float32 SIMT tile of
-``csrc/classic_mlp.cuh`` where the encodings are too wide for the
-tensor-core one (``_build.tile_plan``).  K1-bwd is
-``csrc/classic_mlp_bwd.cu``, the passes of ``csrc/classic_mlp_train.cuh``:
-K2's tensor-core passes where no encoding cotangents are asked for, the
-float32 SIMT passes where they are.  ``_build.policy_counts`` records which
-each call ran.  ``classic_mlp_fwd_plain`` and ``classic_mlp_bwd_plain`` are
-their plain PyTorch versions, which the wrappers run for CPU tensors and
+``mlp_tile_tc``, K4's tile, the encodings streamed through it a k-chunk at
+a time, so at every encoding width).  K1-bwd is ``csrc/classic_mlp_bwd.cu``,
+the passes of ``csrc/classic_mlp_train.cuh``: K2's tensor-core passes, the
+encodings' cotangents too where they are asked for.
+``_build.policy_counts`` records the tile each call ran (``"tc"``).
+``classic_mlp_fwd_plain`` and ``classic_mlp_bwd_plain`` are their plain
+PyTorch versions, which the wrappers run for CPU tensors and
 the tests and ``chip_smoke.py`` hold the kernels against (with
 ``matmul=tc_mlp.tc_matmul`` or ``tc_matmul_autograd`` they emulate the
 tensor-core products).  Under autograd ``classic_mlp_fwd`` runs as a
@@ -24,10 +23,10 @@ library (``<name>_bf16``: every product and both heads on operands rounded
 to bfloat16, float32 sums, float32 outputs and gradients; the encodings'
 cotangents bfloat16), and the plain versions run the JAX package's bf16
 arithmetic (``tc_mlp.bf16_matmul_autograd`` for every product, the heads'
-included).  ``_build.policy_counts`` records ``"tc_bf16"`` or
-``"simt_bf16"`` for those calls.  Every other kernel takes the compute
-dtype too: the mip family (K5-fwd, K5-bwd, K6, K7) bfloat16 features
-(``mip_mlp``, ``mip_train``), K8 a ``dtype`` argument beside its float32
+included).  ``_build.policy_counts`` records ``"tc_bf16"`` for those
+calls.  Every other kernel takes the compute dtype too: the mip family
+(K5-fwd, K5-bwd, K6, K7) bfloat16 features (``mip_mlp``, ``mip_train``),
+K8 a ``dtype`` argument beside its float32
 raw points (``point_mlp``), K9 bfloat16 coarse and view encodings
 (``mega_train``).
 
@@ -68,14 +67,11 @@ PACK_ORDER = (
 
 def supports_classic_config(cfg: ClassicNeRFConfig) -> bool:
     """The kernels cover the reference architecture family, with or without
-    the view branch, at every encoding width whose tile fits the card's
-    shared memory a block (232,448 bytes on an H100).  At hidden 256 the
-    float32 SIMT tiles hold 588 encoding floats a row (``xe + de``, each
-    rounded up to 4; 572 in K4's block, which also keeps its outputs); the
-    tensor-core tiles hold fewer (132 in K1-fwd's and ``fwd_store``, 116 in
-    K4's block) and give way to the SIMT tile past that
-    (``_build.tile_plan``), so latent-conditioned models run at full width.
-    Past the SIMT tile's limit the wrappers raise a ``ValueError``."""
+    the view branch, at any encoding width: their tensor-core tiles stream
+    the encodings through a ring of k-chunks (``csrc/tc_mlp.cuh``, note 9),
+    so their shared memory does not grow with the widths, and a
+    latent-conditioned model runs them at full width.  The only limit left
+    is the card's memory."""
     return cfg.trunk_blocks == (4, 4) and (
         not cfg.use_viewdirs or cfg.view_branch_depth == 2
     )
@@ -246,13 +242,11 @@ def classic_mlp_fwd(
     color logits]``.
 
     CPU tensors run ``classic_mlp_fwd_plain``; CUDA tensors launch the
-    kernel (raising on what it does not take): the tensor-core tile where
-    the encodings fit it, else the float32 SIMT tile, chosen from the
-    shapes (``_build.tile_plan``; past the SIMT tile a ``ValueError``
-    before any launch).  ``tc_fwd`` is the weights' forward operand image
+    kernel (raising on what it does not take), its tensor-core tile at
+    every encoding width.  ``tc_fwd`` is the weights' forward operand image
     (``tc_mlp.tc_images(packed)[0]``) built beforehand, else the call
-    builds it where the tensor-core tile runs.  When autograd records and
-    an input requires grad, the call runs as ``ClassicMLPFunction``, whose
+    builds it.  When autograd records and an input requires grad, the call
+    runs as ``ClassicMLPFunction``, whose
     backward is ``classic_mlp_bwd`` (K1-bwd), given ``tc_fwd`` and
     ``tc_bwd``.  bfloat16 encodings (and ``tc_fwd``) run
     ``compute_dtype="bfloat16"``: ``classic_mlp_fwd_bf16``.
@@ -283,10 +277,9 @@ def classic_mlp_fwd(
     if n_points == 0:
         return out
     de = d_enc.shape[1] if has_view else 0
-    plan = _build.tile_plan(NAME, x_enc.shape[1], de, hidden).policy
-    if plan == "tc" and tc_fwd is None:
+    if tc_fwd is None:
         tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
-    fn_name, policy = route(NAME, plan, dtype == torch.bfloat16)
+    fn_name, policy = route(NAME, "tc", dtype == torch.bfloat16)
     fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_enc), out.data_ptr(), n_points,
@@ -390,8 +383,7 @@ def scratch_for(
     (``csrc/classic_mlp_train.cuh``): the stored chain (xhat and
     statistics), every layer's dpre, the split weight-gradient partials
     (``wfloats`` each), the per-tile partials (``tfloats`` each), the sum's
-    staging buffer, the hidden weight slabs transposed, the MLP output
-    (``cols`` wide) and the flat gradient.  The points are split so that
+    staging buffer, the MLP output (``cols`` wide) and the flat gradient.  The points are split so that
     the weight-gradient product's ``prod_tiles`` output tiles, in blocks of
     which two run on each SM at a time, fill about four waves."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -405,12 +397,11 @@ def scratch_for(
         xhat=buf(layers, n_rows, hidden), stats=buf(layers, n_rows, 2),
         dpre=buf(layers, n_rows, hidden), wpart=buf(splits, wfloats),
         tpart=buf(tiles, tfloats), tmp=buf(COLSUM_GROUPS, max(wfloats, tfloats)),
-        wt=buf(layers - 1, hidden, hidden), out=buf(n_rows, cols),
-        grads=buf(wfloats + tfloats), splits=splits,
+        out=buf(n_rows, cols), grads=buf(wfloats + tfloats), splits=splits,
     )
 
 
-SCRATCH_ORDER = ("xhat", "stats", "dpre", "wpart", "tpart", "tmp", "wt", "out")
+SCRATCH_ORDER = ("xhat", "stats", "dpre", "wpart", "tpart", "tmp", "out")
 
 
 def scratch_pointers(s: Dict[str, object]):
@@ -430,21 +421,15 @@ def classic_mlp_bwd(
     the encodings' cotangents and ``dx`` and ``dd`` are ``None``.
 
     CPU tensors run ``classic_mlp_bwd_plain``; CUDA tensors launch the
-    kernel (raising on what it does not take).  Which passes it runs
-    follows from the arguments, not from a failure: with
-    ``input_grads=False`` (autograd's call where the encodings need no
-    gradient, as on the reuse step) the tensor-core passes of K2
-    (``fwd_store`` in float32 SIMT where the encodings are too wide for its
-    tile), on the operand images ``tc_fwd`` and ``tc_bwd``
-    (``tc_mlp.tc_images(packed, backward=True)``) when given, else built
-    here; with ``input_grads=True`` the float32 SIMT passes, which compute
-    the encodings' cotangents too.  ``_build.policy_counts``
-    records ``"tc"`` where ``fwd_store`` ran on the tensor cores, else
-    ``"simt"``.  bfloat16 encodings (and images) run
-    ``compute_dtype="bfloat16"`` (``classic_mlp_bwd_bf16``): the tensor-core
-    passes with or without the encodings' cotangents, which are then
-    bfloat16; policy ``"tc_bf16"`` or, where ``fwd_store`` runs its SIMT
-    pass, ``"simt_bf16"``.
+    kernel (raising on what it does not take): the tensor-core passes of
+    K2 at every encoding width, with or without the encodings' cotangents
+    (``input_grads=False`` is autograd's call where the encodings need no
+    gradient, as on the reuse step), on the operand images ``tc_fwd`` and
+    ``tc_bwd`` (``tc_mlp.tc_images(packed, backward=True)``) when given,
+    else built here.  ``_build.policy_counts`` records ``"tc"``.  bfloat16
+    encodings (and images) run ``compute_dtype="bfloat16"``
+    (``classic_mlp_bwd_bf16``), the encodings' cotangents then bfloat16;
+    policy ``"tc_bf16"``.
     """
     has_view = "wd_in" in packed
     if has_view != (d_enc is not None):
@@ -474,10 +459,8 @@ def classic_mlp_bwd(
     if n_points == 0:
         return dx, dd, {k: torch.zeros_like(v) for k, v in packed.items()}
     de = d_enc.shape[1] if has_view else 0
-    plan = _build.tile_plan(BWD_NAME, xe, de, hidden)  # raises past the SIMT tile
-    tc_passes = bf16 or not input_grads
-    fn_name, policy = route(BWD_NAME, plan.policy if tc_passes else "simt", bf16)
-    if tc_passes and (tc_fwd is None or tc_bwd is None):
+    fn_name, policy = route(BWD_NAME, "tc", bf16)
+    if tc_fwd is None or tc_bwd is None:
         tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
     s = train_scratch(packed, n_points, device)
     fn = getattr(_build.load(BWD_NAME), fn_name)

@@ -4,9 +4,8 @@ gradients as one CUDA call, and the whole reuse step built on it.
 Counterpart of ``nerf_tpu/ops/pallas/fused_hier.py``
 (``fine_stage_train_pallas`` and ``reuse_train_loss_and_grads``).  The
 kernel is ``csrc/fine_stage_train.cu``: K2's tensor-core MLP passes
-(``csrc/classic_mlp_train.cuh`` with ``csrc/tc_mlp.cuh``'s 3xTF32 products;
-``fwd_store`` in float32 SIMT where the encodings are too wide for its
-tile: ``_build.tile_plan``, recorded in ``_build.policy_counts``) around
+(``csrc/classic_mlp_train.cuh`` with ``csrc/tc_mlp.cuh``'s 3xTF32 products,
+at every encoding width, recorded in ``_build.policy_counts``) around
 the union pass of ``csrc/union_train.cuh``.  ``fine_stage_train_plain`` is
 its plain PyTorch version: ``classic_mlp_fwd_plain``,
 ``weights_from_union_norm`` and the MSE, with gradients from
@@ -169,8 +168,7 @@ def fine_stage_train(
     if n_rays == 0:
         raise ValueError(f"{NAME}: needs at least one ray")
     de = d_enc.shape[-1] if has_view else 0
-    fn_name, policy = route(NAME, _build.tile_plan(NAME, xe, de, hidden).policy,
-                            dtype == torch.bfloat16)
+    fn_name, policy = route(NAME, "tc", dtype == torch.bfloat16)
     sc = train_scratch(packed, n_rays * s_fine, device)
     if tc_fwd is None or tc_bwd is None:
         tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)

@@ -24,7 +24,7 @@ kernel writes them, every product and both heads on operands rounded to
 bfloat16 with float32 sums; the compositing, the resample, the losses and
 the gradients float32.  ``mega_train_plain`` runs the JAX package's bf16
 arithmetic on the same roundings (``tc_mlp.bf16_matmul_autograd``).
-``_build.policy_counts`` records ``"tc_bf16"`` or ``"simt_bf16"``.
+``_build.policy_counts`` records ``"tc_bf16"``.
 """
 
 from __future__ import annotations
@@ -245,8 +245,7 @@ def mega_train(
     n_rows = n_rays * (s_coarse + s_fine)
     de = d_ray.shape[1] if has_view else 0
     dtype = x_enc_c.dtype
-    fn_name, policy = route(NAME, _build.tile_plan(NAME, xe, de, hidden).policy,
-                            dtype == torch.bfloat16)
+    fn_name, policy = route(NAME, "tc", dtype == torch.bfloat16)
     s = train_scratch(packed, n_rows, device)
 
     def buf(*shape, dt=torch.float32):

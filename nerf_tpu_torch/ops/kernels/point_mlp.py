@@ -9,11 +9,11 @@ K8-fwd is ``csrc/classic_pointmlp_fwd.cu``, K1-fwd's tensor-core tile
 encodings computed in the block (``csrc/encode.cuh``); K8-bwd
 ``csrc/classic_pointmlp_bwd.cu``, K2's tensor-core passes
 (``csrc/tc_mlp.cuh``'s ``TcProducts``), the encodings' cotangents
-included.  Both read the operand images ``tc_mlp.tc_images`` builds, and
-both run their forward tile in float32 SIMT where the encodings are too
-wide for the tensor-core one (``_build.tile_plan``);
-``_build.policy_counts`` records which.  ``classic_pointmlp_fwd_plain`` and
-``classic_pointmlp_bwd_plain`` are their plain PyTorch versions, which the
+included.  Both read the operand images ``tc_mlp.tc_images`` builds, at
+every encoding width (the tile computes the encodings one k-chunk at a
+time); ``_build.policy_counts`` records ``"tc"``.
+``classic_pointmlp_fwd_plain`` and ``classic_pointmlp_bwd_plain`` are
+their plain PyTorch versions, which the
 wrappers run for CPU tensors (with ``matmul=tc_mlp.tc_matmul_autograd`` they
 emulate the tensor-core products).  Under autograd the call runs as
 ``ClassicPointMLPFunction``, whose backward is K8-bwd: it returns the
@@ -28,8 +28,7 @@ versions run ``tc_mlp.bf16_matmul_autograd``).  K8-bwd writes the
 encodings it computes to scratch as bfloat16 (the values its products
 round them to) and keeps the encodings' cotangents float32 before the
 chain rule, as JAX's fused kernel does, so the raw inputs' cotangents are
-float32.  ``_build.policy_counts`` records ``"tc_bf16"`` or
-``"simt_bf16"``.
+float32.  ``_build.policy_counts`` records ``"tc_bf16"``.
 """
 
 from __future__ import annotations
@@ -154,13 +153,11 @@ def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tenso
     """K8-fwd on ``points [P, 3]``, ``dirs [P, 3]`` -> ``[P, 1 + C]`` rows of
     ``[density, color logits]``.  CPU tensors run
     ``classic_pointmlp_fwd_plain``; CUDA tensors launch the kernel (raising
-    on what it does not take): the tensor-core tile where the encodings fit
-    it, else the float32 SIMT tile, chosen from the shapes
-    (``_build.tile_plan``; past the SIMT tile a ``ValueError`` before any
-    launch).  ``tc_fwd`` is the weights' forward operand image
+    on what it does not take), its tensor-core tile at every encoding
+    width.  ``tc_fwd`` is the weights' forward operand image
     (``tc_mlp.tc_images(packed, dtype=dtype)[0]``) built beforehand, else
-    the call builds it where the tensor-core tile runs.  ``dtype`` is the
-    compute dtype: bfloat16 launches ``classic_pointmlp_fwd_bf16``.
+    the call builds it.  ``dtype`` is the compute dtype: bfloat16 launches
+    ``classic_pointmlp_fwd_bf16``.
     ``_build.policy_counts`` records the tile each call ran."""
     device = _check(NAME, packed, points, dirs, consts, {"tc_fwd": tc_fwd}, dtype)
     tc_mlp.check_images(NAME, packed, tc_fwd, dtype=dtype)
@@ -173,10 +170,9 @@ def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tenso
         return out
     xe, hidden = packed["w0"].shape
     de = packed["wd_in"].shape[0]
-    plan = _build.tile_plan(NAME, xe, de, hidden).policy  # raises past the SIMT tile
-    if plan == "tc" and tc_fwd is None:
+    if tc_fwd is None:
         tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
-    fn_name, policy = route(NAME, plan, dtype == torch.bfloat16)
+    fn_name, policy = route(NAME, "tc", dtype == torch.bfloat16)
     fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         points.data_ptr(), dirs.data_ptr(), out.data_ptr(), n_points, xe, de, hidden,
@@ -202,9 +198,7 @@ def classic_pointmlp_bwd(
     launch the kernel (raising on what it does not take): its tensor-core
     passes on the operand images ``tc_fwd`` and ``tc_bwd``
     (``tc_mlp.tc_images(packed, backward=True, dtype=dtype)``) when given,
-    else built here; ``fwd_store`` on the SIMT tile where the encodings are
-    too wide for the tensor-core one (``_build.tile_plan``; past the SIMT
-    tile a ``ValueError`` before any launch).  ``dtype`` bfloat16 launches
+    else built here, at every encoding width.  ``dtype`` bfloat16 launches
     ``classic_pointmlp_bwd_bf16`` (the cotangents stay float32).
     ``_build.policy_counts`` records the tile ``fwd_store`` ran.  A CUDA
     call given the dict ``keep`` puts there the encodings the kernel wrote
@@ -223,10 +217,9 @@ def classic_pointmlp_bwd(
         return dpts, ddirs, {k: torch.zeros_like(v) for k, v in packed.items()}
     xe, hidden = packed["w0"].shape
     de = packed["wd_in"].shape[0]
-    plan = _build.tile_plan(BWD_NAME, xe, de, hidden).policy  # raises past the SIMT tile
     if tc_fwd is None or tc_bwd is None:
         tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
-    fn_name, policy = route(BWD_NAME, plan, dtype == torch.bfloat16)
+    fn_name, policy = route(BWD_NAME, "tc", dtype == torch.bfloat16)
     s = train_scratch(packed, n_points, device)
 
     def buf(*shape, dt=torch.float32):

@@ -6,12 +6,11 @@ Counterpart of ``nerf_tpu/ops/pallas/fused_train.py::
 classic_train_grads_pallas``.  The kernel is ``csrc/train_grads.cu``: the
 MLP passes of ``csrc/classic_mlp_train.cuh`` with their hidden and encoding
 products as 3xTF32 on the tensor cores (``csrc/tc_mlp.cuh``, on the operand
-images ``tc_mlp.tc_images`` builds once per call; ``fwd_store`` in float32
-SIMT where the encodings are too wide for its tile, more than 132 floats a
-row together at hidden 256: ``_build.tile_plan``, recorded in
-``_build.policy_counts``).  ``classic_train_grads_plain`` is its plain
-PyTorch version: ``classic_mlp_fwd_plain``, ``weights_from_density`` and
-the MSE, with gradients from ``torch.autograd`` (with
+images ``tc_mlp.tc_images`` builds once per call, at every encoding width:
+``_build.policy_counts`` records ``"tc"``).  ``classic_train_grads_plain``
+is its plain PyTorch version: ``classic_mlp_fwd_plain``,
+``weights_from_density`` and the MSE, with gradients from
+``torch.autograd`` (with
 ``matmul=tc_mlp.tc_matmul_autograd`` it emulates the kernel's products,
 forward and backward).  bfloat16 encodings run ``compute_dtype="bfloat16"``
 (``train_grads_bf16``, the plain version's ``tc_mlp.bf16_matmul_autograd``;
@@ -163,8 +162,7 @@ def classic_train_grads(
         raise ValueError(f"{NAME}: needs at least one ray")
     rows = n_rays * s
     de = d_enc.shape[-1] if has_view else 0
-    fn_name, policy = route(NAME, _build.tile_plan(NAME, xe, de, hidden).policy,
-                            dtype == torch.bfloat16)
+    fn_name, policy = route(NAME, "tc", dtype == torch.bfloat16)
     sc = train_scratch(packed, rows, device)
     tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
     loss = torch.empty((1,), dtype=torch.float32, device=device)

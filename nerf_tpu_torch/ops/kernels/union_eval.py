@@ -7,10 +7,10 @@ The kernel is ``csrc/union_eval.cu``: the MLP's hidden and encoding products
 run as 3xTF32 on the tensor cores (``csrc/tc_mlp.cuh``, on the operand images
 ``tc_mlp.tc_images`` builds, once per call unless the caller built them
 once per frame), the epilogues, heads and
-compositing in float32.  Encodings too wide for the tensor-core tile (more
-than 116 floats a row together at hidden 256, as a latent-conditioned
-model's are) run the float32 SIMT product instead, chosen from the shapes
-(``_build.tile_plan``; ``_build.policy_counts`` records which).
+compositing in float32, at every encoding width (the encodings stream
+through the tile a k-chunk at a time; ``_build.tile_plan`` raises only
+where the fine samples' outputs and compositing scratch outgrow a block,
+and ``_build.policy_counts`` records ``"tc"``).
 ``union_eval_plain`` is its plain PyTorch version: ``classic_mlp_fwd_plain``
 followed by ``weights_from_union_sorted`` and the ``composite_*`` functions
 (with ``matmul=tc_mlp.tc_matmul`` it emulates the kernel's products).
@@ -139,7 +139,7 @@ def union_eval(
     if n_rays:
         de = d_enc.shape[1] if has_view else 0
         plan = _build.tile_plan(NAME, xe, de, hidden, colors, s_coarse, s_fine).policy
-        if plan == "tc" and tc_fwd is None:
+        if tc_fwd is None:
             tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
         fn_name, policy = route(NAME, plan, dtype == torch.bfloat16)
         fn = getattr(_build.load(NAME), fn_name)

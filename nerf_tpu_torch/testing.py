@@ -3,14 +3,19 @@
 families (a model's frame and train steps with the kernel wrappers of the
 classic main path, K1-fwd, K1-bwd through ``ClassicMLPFunction``, K2, K3,
 K4, and of the mip family, K5-fwd, K6, K7, replaced by their plain
-versions), and the mip head's products against the float64 products of
-their rounded and unrounded operands."""
+versions), the mip head's products against the float64 products of
+their rounded and unrounded operands, the bf16 products summed in
+float64 (how far the plain bf16 version moves under another order of its
+sums), and the classic checks' inputs: each row's distance from the
+ReLU kinks (``kink_margin``) and a loss's output cotangents
+(``loss_cotangent``)."""
 
 from __future__ import annotations
 
 import contextlib
 
 import torch
+import torch.nn.functional as F
 
 from nerf_tpu_torch.ops.kernels import (
     _build,
@@ -107,3 +112,54 @@ def mip_head_rounding(packed, x: torch.Tensor, g_out: torch.Tensor) -> dict:
             ("wgrad", d_packed["w_out"], h.t() @ rg, h.t() @ g)):
         out[name] = (rel_l2(got, rounded), rel_l2(got, unrounded))
     return out
+
+
+class Bf16Float64Sums(torch.autograd.Function):
+    """``tc_mlp.bf16_matmul_autograd`` with the products summed in float64:
+    the same operands and cotangents rounded to bfloat16, the sums in
+    another order and precision.  A plain bf16 version run with it as its
+    ``matmul`` shows how far the bf16 roundings alone move a result when
+    only the sums change."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        r = tc_mlp.bf16_round
+        return (r(a).double() @ r(b).double()).float()
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        r = tc_mlp.bf16_round
+        g = r(g).double()
+        return (g @ r(b).double().t()).float(), (r(a).double().t() @ g).float()
+
+
+def kink_margin(packed, x_enc, d_enc, matmul=torch.matmul):
+    """Per row, the smallest |ReLU input| of the plain forward
+    (``classic_mlp_fwd_plain``'s layers; ``matmul`` its products)."""
+    whh, margins = packed["whh"], []
+
+    def layer(i, pre):
+        a = pre + packed["b"][i]
+        margins.append(a.abs().amin(-1))
+        return F.layer_norm(torch.relu(a), a.shape[-1:], packed["g"][i], packed["beta"][i], 1e-5)
+
+    h = layer(0, matmul(x_enc, packed["w0"]))
+    for i in (1, 2, 3):
+        h = layer(i, matmul(h, whh[i - 1]))
+    h = layer(4, matmul(h, whh[3]) + matmul(x_enc, packed["wx"]))
+    for i in (5, 6, 7):
+        h = layer(i, matmul(h, whh[i - 1]))
+    if "wd_in" in packed:
+        layer(9, matmul(layer(8, matmul(h, whh[7]) + matmul(d_enc, packed["wd_in"])), whh[8]))
+    return torch.stack(margins).amin(0)
+
+
+def loss_cotangent(packed, x, d) -> torch.Tensor:
+    """K1's output cotangents under the bf16 objective of the JAX package's
+    ``tests/test_pallas.py``, mean(density^2) + mean(sin(color)), at the
+    plain forward."""
+    out = classic_mlp.classic_mlp_fwd_plain(packed, x, d)
+    n, c = out.shape[0], out.shape[1] - 1
+    return torch.cat([2 * out[:, :1] / n, torch.cos(out[:, 1:]) / (n * c)], -1)

@@ -6,8 +6,10 @@
 * ``step_timer``: a wall-clock timer that forces completion by fetching a
   value to the host.
 * ``classic_flops_per_point``, ``mip_flops_per_point``,
-  ``train_step_flops``: the matmul operation counts used for the
-  kernels' bounds.
+  ``train_step_flops``: the matmul operation counts of a forward and of a
+  train step (the JAX package's model: three forwards);
+  ``input_cotangent_flops`` and ``train_kernel_flops``: those a training
+  kernel runs, for the kernels' bounds.
 """
 
 from __future__ import annotations
@@ -110,3 +112,25 @@ def train_step_flops(cfg, num_rays: int, num_samples: int, mip: bool = False) ->
     train step over ``num_rays * num_samples`` MLP points."""
     per_point = mip_flops_per_point(cfg) if mip else classic_flops_per_point(cfg)
     return 3 * per_point * num_rays * num_samples
+
+
+def input_cotangent_flops(cfg, mip: bool = False) -> int:
+    """Matmul FLOPs of one point's cotangents of the MLP's inputs: the
+    encodings' (layer 0's and the skip layer's x columns, the view layer's
+    d columns) or the mip features' (the input layer's)."""
+    h = cfg.hidden_size
+    if mip:
+        return 2 * cfg.feature_dim * h
+    return 2 * 2 * cfg.x_encoding_dim * h + (2 * cfg.d_encoding_dim * h if cfg.use_viewdirs else 0)
+
+
+def train_kernel_flops(cfg, num_rays: int, num_samples: int, mip: bool = False,
+                       input_grads: bool = False) -> int:
+    """Matmul FLOPs a training kernel runs over ``num_rays * num_samples``
+    MLP points: the forward (kept or recomputed), the weights' gradients
+    (as many) and the activations' cotangents (as many, less the inputs'
+    cotangents, ``input_cotangent_flops``, unless ``input_grads``)."""
+    per_point = 3 * (mip_flops_per_point(cfg) if mip else classic_flops_per_point(cfg))
+    if not input_grads:
+        per_point -= input_cotangent_flops(cfg, mip)
+    return per_point * num_rays * num_samples

@@ -1,7 +1,8 @@
 """How closely the bf16 kernels can be held to their plain versions, on the
 card.
 
-    python scripts/torch_bf16_sensitivity.py [--family classic|mip|point|all]
+    python scripts/torch_bf16_sensitivity.py [--family classic|mip|point|widths|mega-widths|
+                                                      latent-cotangents|all]
 
 For K1-bwd in compute_dtype bfloat16 (``classic_mlp.classic_mlp_bwd`` on
 bfloat16 encodings, with the encodings' cotangents) at a few widths and
@@ -36,6 +37,19 @@ K9's gradients at 64 and 2048 rays x (64 + 128) (the plain bf16 step with
 the kernel's fine t-values held); each beside the float32 kernel's
 distance from the plain bf16 version on the same inputs (K9's at the
 float32 kernel's own fine t-values).
+
+``--family mega-widths``: K9 in bf16 at hidden 256 and x encodings 60, 120
+and 702 + 36 (``x_positional_encoding_size`` 20, 40, 234), at 512 and 2048
+rays x (64 + 128): its weight gradients' distance from the plain bf16
+step (the kernel's fine t-values held), beside the float32 kernel's and
+the plain version's own with its sums in float64 (``Bf16Float64Sums``).
+
+``--family latent-cotangents``: ``chip_smoke.py`` phase 13's check of bf16
+K1-bwd's encodings' cotangents (its full-width model from seed 0 with 3 +
+s density inputs, s = 7 and 32; 65,536 rows away from the bf16 kinks
+under a loss's cotangents, ``chip_smoke.bf16_cotangent_distances``) for
+three seeds each: the kernel's, the float32 kernel's and the plain
+version's own distance with float64 sums, and the ratio the check holds.
 Exits non-zero without a GPU.
 """
 
@@ -54,6 +68,7 @@ sys.path.insert(0, str(REPO / "tests"))
 
 from nerf_tpu_torch import ClassicNeRFConfig, MipNeRFConfig  # noqa: E402
 from nerf_tpu_torch.models.mlp import ClassicMLP  # noqa: E402
+from nerf_tpu_torch.testing import Bf16Float64Sums  # noqa: E402
 from nerf_tpu_torch.ops.kernels import (  # noqa: E402
     classic_mlp,
     mega_train,
@@ -63,12 +78,18 @@ from nerf_tpu_torch.ops.kernels import (  # noqa: E402
     tc_mlp,
 )
 from test_torch_cuda import (  # noqa: E402
+    BF16_ROWS,
+    POINT_BF16_VARIANTS,
     kink_margin,
     loss_cotangent,
     mega_setup,
     mip_inputs,
     mip_packed,
+    packed_weights,
+    point_bf16_case,
     point_consts,
+    point_loss_cotangent,
+    rows_away_from_kinks,
 )
 
 CASES = ((64, True), (128, False), (256, True))
@@ -188,9 +209,89 @@ def point_family(device) -> None:
         torch.cuda.synchronize()
 
 
+def widths_family(device) -> None:
+    bf = torch.bfloat16
+    f64 = Bf16Float64Sums.apply
+    for variant in ("full_width", "latent_full_width", "latent_7", "latent_32"):
+        cfg, packed = packed_weights(variant, device)
+        for seed in (3, 4, 5):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            d = torch.rand((BF16_ROWS, cfg.d_encoding_dim), generator=gen, device=device) * 2 - 1
+            x = rows_away_from_kinks(packed, gen, BF16_ROWS, 1, cfg.x_encoding_dim, d,
+                                     tc_mlp.bf16_matmul).reshape(BF16_ROWS, -1).bfloat16()
+            d = d.bfloat16()
+            g = loss_cotangent(packed, x, d)
+            dx, dd, _ = classic_mlp.classic_mlp_bwd(packed, x, d, g)
+            rdx, rdd, _ = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g)
+            fdx, fdd, _ = classic_mlp.classic_mlp_bwd(packed, x.float(), d.float(), g)
+            ddx, ddd, _ = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g, matmul=f64)
+            ref = {"dx": rdx, "dd": rdd}
+            print(f"K1-bwd bf16 {cfg.x_encoding_dim} + {cfg.d_encoding_dim}, seed {seed}: dx, dd "
+                  f"from plain: kernel {flat_rel({'dx': dx, 'dd': dd}, ref):.3e}, float32 "
+                  f"kernel {flat_rel({'dx': fdx, 'dd': fdd}, ref):.3e}, plain with float64 "
+                  f"sums {flat_rel({'dx': ddx, 'dd': ddd}, ref):.3e}", flush=True)
+    for variant in ("full_width", "wide", "latent_7", "latent_32"):
+        for seed in (7, 8, 9):
+            cfg, packed, consts, pts, dirs = point_bf16_case(device, BF16_ROWS, seed,
+                                                             **POINT_BF16_VARIANTS[variant])
+            g = point_loss_cotangent(packed, pts, dirs, consts)
+            raw = lambda r: {"dp": r[0], "dd": r[1]}  # noqa: E731
+            ref = raw(point_mlp.classic_pointmlp_bwd_plain(packed, pts, dirs, consts, g,
+                                                           dtype=bf))
+            got = raw(point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g, dtype=bf))
+            f32 = raw(point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g))
+            d64 = raw(point_mlp.classic_pointmlp_bwd_plain(packed, pts, dirs, consts, g,
+                                                           matmul=f64, dtype=bf))
+            print(f"K8-bwd bf16 x {cfg.x_encoding_dim} + {cfg.d_encoding_dim}, seed {seed}: raw "
+                  f"inputs' cotangents from plain: kernel {flat_rel(got, ref):.3e}, float32 "
+                  f"kernel {flat_rel(f32, ref):.3e}, plain with float64 sums "
+                  f"{flat_rel(d64, ref):.3e}", flush=True)
+    torch.cuda.synchronize()
+
+
+def mega_widths_family(device) -> None:
+    for lanes in (20, 40, 234):
+        for rays in (512, 2048):
+            model, _, batch, draws = mega_setup(device, True, 64, 128, False, rays=rays,
+                                                hidden=256, compute_dtype="bfloat16",
+                                                x_positional_encoding_size=lanes)
+            inputs = mega_train.mega_inputs(model, batch, draws)
+            pk = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+            *_, kernel, t_fine = mega_train.mega_train(pk, *inputs)
+            ref = mega_train.mega_train_plain(pk, *inputs, t_fine=t_fine)[2]
+            d64 = mega_train.mega_train_plain(pk, *inputs, t_fine=t_fine,
+                                              matmul=Bf16Float64Sums.apply)[2]
+            *_, f32, f32_t = mega_train.mega_train(pk, inputs[0].float(), inputs[1].float(),
+                                                   *inputs[2:])
+            f32_ref = mega_train.mega_train_plain(pk, *inputs, t_fine=f32_t)[2]
+            print(f"K9 bf16 x {model.cfg.x_encoding_dim} + {model.cfg.d_encoding_dim}, {rays} "
+                  f"rays x (64 + 128): weight gradients from plain: kernel "
+                  f"{flat_rel(kernel, ref):.3e}, float32 kernel {flat_rel(f32, f32_ref):.3e}, "
+                  f"plain with float64 sums {flat_rel(d64, ref):.3e}", flush=True)
+            del model, inputs, kernel, ref, d64, f32, f32_ref
+            torch.cuda.empty_cache()
+
+
+def latent_cotangents_family(device) -> None:
+    import chip_smoke
+
+    for s in chip_smoke.LATENT_STATES:
+        model = chip_smoke.make_model(True, device, density_inputs=3 + s)
+        packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+        for seed in (0, 1, 2):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            err, f32, floor = chip_smoke.bf16_cotangent_distances(packed, model.cfg, gen)
+            print(f"K1-bwd bf16 {model.cfg.x_encoding_dim} + {model.cfg.d_encoding_dim}, phase "
+                  f"13's rows, seed {seed}: dx, dd from plain: kernel {err:.3e}, float32 kernel "
+                  f"{f32:.3e}, plain with float64 sums {floor:.3e}; kernel / plain "
+                  f"{err / floor:.3f}", flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--family", choices=("classic", "mip", "point", "all"),
+    parser.add_argument("--family",
+                        choices=("classic", "mip", "point", "widths", "mega-widths",
+                                 "latent-cotangents", "all"),
                         default="classic")
     family = parser.parse_args().family
     if not torch.cuda.is_available():
@@ -204,7 +305,14 @@ def main() -> int:
         mip_family(device)
     if family in ("point", "all"):
         point_family(device)
-    if family in ("mip", "point"):
+    if family in ("widths", "all"):
+        widths_family(device)
+    if family in ("mega-widths", "all"):
+        mega_widths_family(device)
+    if family in ("latent-cotangents", "all"):
+        with torch.no_grad():
+            latent_cotangents_family(device)
+    if family in ("mip", "point", "widths", "mega-widths", "latent-cotangents"):
         return 0
     for hidden, view in CASES:
         cfg = ClassicNeRFConfig(hidden_size=hidden, use_viewdirs=view)

@@ -40,7 +40,7 @@ from nerf_tpu_torch.data.scenes import spherical_poses  # noqa: E402
 
 
 # Kernel names (by substring) of each family's ported kernels.
-PORTED = {"classic": ("fwd_tc_kernel", "fwd_simt_kernel", "union_eval"),
+PORTED = {"classic": ("fwd_tc_kernel", "union_eval"),
           "mip": ("mip_fwd_tc_kernel", "mip_fwd_kernel", "mip_eval_rays_kernel")}
 
 

@@ -1,0 +1,194 @@
+"""Times the classic kernels' tensor-core tile on the card at the encoding
+widths of the full-width model and of the conditional trainer.
+
+    python scripts/torch_tile_timing.py [--widths 0,7,32] [--dtypes float32,bfloat16]
+
+The full-width ClassicNeRF (hidden 256, view branch on, random weights from
+seed 0) with 3 + s density inputs, s = 0, 7 and 32 state scalars: encodings
+60 + 36, 200 + 36 and 700 + 36 (the conditional trainer's, whose density
+branch takes the state).  For each width and dtype, each kernel called as a
+user calls its wrapper (the operand images built by the call), on uniform
+inputs in [-1, 1) from a seed:
+
+* K1-fwd at 262,144 and 65,536 rows;
+* K4 at a 4000-ray tile of 64 + 128 samples;
+* K1-bwd at 131,072 rows, without and with the encodings' cotangents;
+* K2 at 4096 x 64 and at the conditional trainer's 1024 x 64;
+* K3 at 2048 x (64 + 128);
+* K8-fwd and K8-bwd (with the raw inputs' cotangents) at 262,144 points,
+  x encodings of 3 x 20, 3 x 68 and 3 x 234 lanes (60, 204, 702);
+* K9 at 2048 x (64 + 128), at 60 + 36 only (it takes no state).
+
+Each time is the mean over repeated calls of CUDA events after two warm-up
+calls, beside its operations' bounds (FLOP as ``utils.profiling`` counts
+them: a forward's, or a training kernel's ``train_kernel_flops``, which
+leaves out the inputs' cotangents where the call asks none; at the 3xTF32
+and the bf16 rate).  The policy each kernel's calls recorded (``_build.policy_counts``)
+stands beside its time; a call that raises a ``ValueError`` (widths a tree
+does not take) is recorded as null with the error.  Prints the card's name
+and power limit, then one JSON object.  The file runs unchanged from
+another checkout's ``scripts/`` directory (it imports the package of the
+tree it sits in), so two trees are compared in one call, each run twice in
+turns (A, B, B, A).  Exits non-zero without a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+import chip_smoke  # noqa: E402  (the card line, the event timer)
+from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, RenderConfig  # noqa: E402
+from nerf_tpu_torch.ops import compositing, sampling  # noqa: E402
+from nerf_tpu_torch.utils.profiling import (  # noqa: E402
+    classic_flops_per_point,
+    train_kernel_flops,
+)
+from nerf_tpu_torch.ops.kernels import (  # noqa: E402
+    _build,
+    classic_mlp,
+    fine_stage_train,
+    mega_train,
+    point_mlp,
+    train_grads,
+    union_eval,
+)
+
+K8_LANES = {0: 20, 7: 68, 32: 234}  # x_positional_encoding_size of K8's model per width
+
+
+def timed(name: str, fn, iters: int, flops: float) -> dict:
+    """The mean ms of ``fn`` beside its operations' bounds: 3xTF32 (FLOP at
+    165 TFLOP/s) and bf16 (989 TFLOP/s)."""
+    bounds = {"bound_3xtf32_ms": flops / chip_smoke.PEAK_3XTF32_FLOPS * 1e3,
+              "bound_bf16_ms": flops / chip_smoke.PEAK_BF16_FLOPS * 1e3}
+    _build.policy_counts.clear()
+    try:
+        ms = chip_smoke.cuda_ms(fn, iters=iters)
+    except ValueError as e:
+        return {"ms": None, "error": str(e).split(",")[0], **bounds}
+    policies = sorted({p for (k, p) in _build.policy_counts if k == name})
+    return {"ms": ms, "policy": "/".join(policies), **bounds}
+
+
+def run(device, s: int, dtype: str) -> dict:
+    bf16 = dtype == "bfloat16"
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    gen = torch.Generator(device=device).manual_seed(s)
+
+    def rand(*shape, lo=-1.0, hi=1.0, enc=False):
+        out = torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+        return out.to(tdt) if enc else out
+
+    cfg = ClassicNeRFConfig(normalize_position=6.0, density_inputs=3 + s, compute_dtype=dtype)
+    model = ClassicNeRF(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    xe, de = cfg.x_encoding_dim, cfg.d_encoding_dim
+    per_row = classic_flops_per_point(cfg)
+    out = {}
+    with torch.no_grad():
+        for rows in (262_144, 65_536):
+            x, d = rand(rows, xe, enc=True), rand(rows, de, enc=True)
+            out[f"K1-fwd {rows}"] = timed(classic_mlp.NAME,
+                                          lambda: classic_mlp.classic_mlp_fwd(packed, x, d), 10,
+                                          rows * per_row)
+        rays, sc, sf = 4000, 64, 128
+        t_c = torch.sort(rand(rays, sc, lo=2.0, hi=6.0), -1).values
+        t_f = torch.sort(rand(rays, sf, lo=2.0, hi=6.0), -1).values
+        k4 = (packed, rand(rays, sf, xe, enc=True), rand(rays, de, enc=True), t_c, t_f,
+              rand(rays, sc, 1, lo=-3.0, hi=6.0), rand(rays, sc, 3, lo=-3.0, hi=3.0),
+              rand(rays, lo=0.5, hi=2.0))
+        out["K4 4000 x (64 + 128)"] = timed(union_eval.NAME, lambda: union_eval.union_eval(*k4),
+                                            10, rays * sf * per_row)
+        rows = 131_072
+        x, d, g = rand(rows, xe, enc=True), rand(rows, de, enc=True), rand(rows, 4)
+        for grads in (False, True):
+            out[f"K1-bwd {rows} input_grads={grads}"] = timed(
+                classic_mlp.BWD_NAME,
+                lambda: classic_mlp.classic_mlp_bwd(packed, x, d, g, input_grads=grads), 5,
+                train_kernel_flops(cfg, rows, 1, input_grads=grads))
+        for rays, s_ in ((4096, 64), (1024, 64)):
+            t = torch.sort(rand(rays, s_, lo=2.0, hi=6.0), -1).values
+            a = dict(x_enc=rand(rays, s_, xe, enc=True),
+                     d_enc=rand(rays, 1, de, enc=True).expand(rays, s_, de).contiguous(),
+                     dists=compositing.distances_from_tvals(t, rand(rays, 3)).contiguous(),
+                     noise=rand(rays, s_), pixels=rand(rays, 3, lo=0.0, hi=1.0))
+            out[f"K2 {rays} x {s_}"] = timed(
+                train_grads.NAME,
+                lambda: train_grads.classic_train_grads(packed, **a, num_samples=s_), 5,
+                train_kernel_flops(cfg, rays, s_))
+        rays = 2048
+        t_c = torch.sort(rand(rays, sc, lo=2.0, hi=6.0), -1).values
+        t_f = torch.sort(rand(rays, sf, lo=2.0, hi=6.0), -1).values
+        a = dict(x_enc=rand(rays, sf, xe, enc=True),
+                 d_enc=rand(rays, 1, de, enc=True).expand(rays, sf, de).contiguous(),
+                 t_coarse=t_c, t_fine=t_f, dens_c=rand(rays, sc, 1, lo=-3.0, hi=6.0),
+                 col_c=rand(rays, sc, 3, lo=-3.0, hi=3.0), dnorm=rand(rays, lo=0.5, hi=2.0),
+                 noise_f=rand(rays, sf), pixels=rand(rays, 3, lo=0.0, hi=1.0))
+        out["K3 2048 x (64 + 128)"] = timed(
+            fine_stage_train.NAME, lambda: fine_stage_train.fine_stage_train(packed, **a), 5,
+            train_kernel_flops(cfg, rays, sf))
+
+        pcfg = ClassicNeRFConfig(normalize_position=6.0, x_positional_encoding_size=K8_LANES[s])
+        pmodel = ClassicNeRF(pcfg, generator=torch.Generator().manual_seed(0), device=device)
+        ppacked = classic_mlp.pack_classic_params(pmodel.mlp.requires_grad_(False))
+        consts = point_mlp.encoding_consts(pcfg.x_positional_encoding_size,
+                                           pcfg.normalize_position,
+                                           pcfg.d_positional_encoding_size, pcfg.direction_bound,
+                                           device)
+        n = 262_144
+        pts, dirs, g = rand(n, 3, lo=-2.0, hi=2.0), rand(n, 3), rand(n, 4)
+        width = f"{pcfg.x_encoding_dim} + {pcfg.d_encoding_dim}"
+        out[f"K8-fwd {n} ({width})"] = timed(
+            point_mlp.NAME,
+            lambda: point_mlp.classic_pointmlp_fwd(ppacked, pts, dirs, consts, dtype=tdt), 10,
+            n * classic_flops_per_point(pcfg))
+        out[f"K8-bwd {n} ({width})"] = timed(
+            point_mlp.BWD_NAME,
+            lambda: point_mlp.classic_pointmlp_bwd(ppacked, pts, dirs, consts, g, dtype=tdt), 5,
+            train_kernel_flops(pcfg, n, 1, input_grads=True))
+
+        if s == 0:
+            render = RenderConfig(num_coarse_samples=64, num_fine_samples=128, near=2.0,
+                                  far=6.0, randomly_sample=True, density_noise_std=1.0,
+                                  reuse_coarse_in_fine=True)
+            rays = 2048
+            batch = {"rays_o": rand(rays, 3, lo=-0.5, hi=0.5), "rays_d": rand(rays, 3),
+                     "pixels": rand(rays, 3, lo=0.0, hi=1.0)}
+            draws = sampling.draw_step(gen, render, rays, device)
+            inputs = mega_train.mega_inputs(model, batch, draws)
+            out["K9 2048 x (64 + 128)"] = timed(
+                mega_train.NAME, lambda: mega_train.mega_train(packed, *inputs), 5,
+                train_kernel_flops(cfg, rays, 64 + 128))
+    return {"encodings": f"{xe} + {de}", "dtype": dtype, "kernels": out}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--widths", default="0,7,32",
+                        help="state scalars of the density inputs (3 + s), comma-separated")
+    parser.add_argument("--dtypes", default="float32,bfloat16")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_tile_timing: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    card = chip_smoke.nvidia_smi("name,power.limit")
+    _build.build()
+    results = [run(device, int(s), dtype) for s in args.widths.split(",")
+               for dtype in args.dtypes.split(",")]
+    print(card)
+    print(json.dumps({"card": card, "tree": str(REPO), "results": results}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -22,12 +22,15 @@ cotangents too), at the same tolerances: their cases cover every
 hidden width, row counts that are not a multiple of 64, encoding widths
 that are not a multiple of 8 (and mip heads of 54 and 9 outputs), runs
 with and without the view branch, and two calls must agree bitwise.
-Where a latent-conditioned model's encodings (a mip model's features) are
-too wide for the tensor-core tile the kernels run the float32 SIMT tile
-(``_build.tile_plan``): the ``latent_full_width`` cases (K8's and
-K5's ``wide`` ones) check that the policy each call recorded is the
-one its byte count predicts; past the
-SIMT tile the wrappers raise before any launch.  The
+The classic kernels stream their encodings through the tensor-core tile
+and run it at every encoding width: the ``latent_full_width``,
+``latent_7`` and ``latent_32`` cases (a latent-conditioned model's 100 +
+48, 200 + 36 and 700 + 36; K8's ``wide`` ones) check that each call
+recorded ``tc`` and matches plain, in both dtypes.  Where a mip model's
+features are too wide for the mip tensor-core tile the mip kernels run the
+float32 SIMT tile (``_build.tile_plan``): the ``wide`` mip cases check that
+the policy each call recorded is the one its byte count predicts; past the
+SIMT tile the mip wrappers raise before any launch.  The
 products alone (``tc_linear``, ``tc_wgrad`` of ``csrc/tc_product.cu``) are
 held against the CPU emulation of the same arithmetic
 (``tc_mlp.tc_matmul``) and against the float64 product.
@@ -52,7 +55,14 @@ from nerf_tpu_torch.ops.kernels import (
     train_grads,
     union_eval,
 )
-from nerf_tpu_torch.testing import bf16_step_reference, mip_head_rounding, plain_versions
+from nerf_tpu_torch.testing import (
+    Bf16Float64Sums,
+    bf16_step_reference,
+    kink_margin,
+    loss_cotangent,
+    mip_head_rounding,
+    plain_versions,
+)
 
 K1_TOL = dict(rtol=1e-4, atol=1e-4)
 K4_TOL = dict(rtol=5e-4, atol=1e-4)
@@ -63,12 +73,16 @@ VARIANTS = {
     "no_view": dict(hidden_size=64, use_viewdirs=False),
     "latent": dict(hidden_size=32, density_inputs=5, color_inputs=4),
 }
-# Encoding widths beside VARIANTS' 60 + 36 (and the small latent model's):
-# a latent-conditioned full-width model (2 + 1 latent scalars: xe 100, de
-# 48), past the tensor-core tiles at hidden 256; and encodings past every
-# tile (xe 600 + de 36, past the float32 SIMT tiles' 588 and K4's 572).
+# Encoding widths beside VARIANTS' 60 + 36 (and the small latent model's),
+# at full width: a latent-conditioned model with 2 + 1 latent scalars (xe
+# 100, de 48), the conditional trainer's with a 7-joint arm's state (3 + 7
+# density inputs: 200 + 36) and a 32-scalar state (700 + 36), and 600 + 36
+# (past what the classic float32 SIMT tiles held, 588, before the tiles
+# streamed their encodings).
 WIDE_VARIANTS = {
     "latent_full_width": dict(hidden_size=256, density_inputs=5, color_inputs=4),
+    "latent_7": dict(hidden_size=256, density_inputs=10),
+    "latent_32": dict(hidden_size=256, density_inputs=35),
     "too_wide": dict(hidden_size=256, density_inputs=30),
 }
 
@@ -174,28 +188,28 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     a["pixels"] = a["pixels"].cpu()
     with pytest.raises(ValueError, match="cpu"):
         fine_stage_train.fine_stage_train(packed, **a)
-    # Encodings past every tile's shared memory, the float32 SIMT tile's
-    # too: each wrapper raises, naming the limit, before any launch.
+    # Encodings past what the float32 SIMT tiles held (600 + 36): no
+    # wrapper raises; each runs its tensor-core tile (the streamed
+    # encodings), one launch a call.
     cfg, packed = packed_weights("too_wide", cuda)
     torch.cuda.synchronize()
     launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
-    with pytest.raises(ValueError, match="limit"):
-        union_eval.union_eval(*union_args(cfg, packed, cuda, rays=2, sc=8, sf=16))
-    with pytest.raises(ValueError, match="limit"):
-        train_grads.classic_train_grads(packed, **train_inputs(cfg, cuda, rays=1, s=8),
-                                        num_samples=8)
-    with pytest.raises(ValueError, match="limit"):
-        fine_stage_train.fine_stage_train(packed, **fine_inputs(cfg, cuda, rays=2, sc=8, sf=8))
+    union_eval.union_eval(*union_args(cfg, packed, cuda, rays=2, sc=8, sf=16))
+    train_grads.classic_train_grads(packed, **train_inputs(cfg, cuda, rays=1, s=8),
+                                    num_samples=8)
+    fine_stage_train.fine_stage_train(packed, **fine_inputs(cfg, cuda, rays=2, sc=8, sf=8))
     x = torch.zeros(4, cfg.x_encoding_dim, device=cuda)
     d = torch.zeros(4, cfg.d_encoding_dim, device=cuda)
-    with pytest.raises(ValueError, match="limit"):
-        classic_mlp.classic_mlp_fwd(packed, x, d)
+    classic_mlp.classic_mlp_fwd(packed, x, d)
     for input_grads in (True, False):
-        with pytest.raises(ValueError, match="limit"):
-            classic_mlp.classic_mlp_bwd(packed, x, d, torch.zeros(4, 4, device=cuda),
-                                        input_grads=input_grads)
+        classic_mlp.classic_mlp_bwd(packed, x, d, torch.zeros(4, 4, device=cuda),
+                                    input_grads=input_grads)
     torch.cuda.synchronize()
-    assert dict(_build.launch_counts) == launches and dict(_build.policy_counts) == policies
+    names = (union_eval.NAME, train_grads.NAME, fine_stage_train.NAME, classic_mlp.NAME,
+             classic_mlp.BWD_NAME)
+    calls = dict(zip(names, (1, 1, 1, 1, 2)))
+    assert policy_moves(policies) == {(k, "tc"): n for k, n in calls.items()}
+    assert {k: _build.launch_counts[k] - launches.get(k, 0) for k in names} == calls
 
 
 @pytest.mark.cuda
@@ -245,11 +259,11 @@ def assert_grads_close(got: dict, ref: dict):
 @pytest.mark.parametrize("points", [1, 200])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_classic_mlp_bwd_kernel_matches_plain(cuda, variant, points):
-    """K1-bwd with the encodings' cotangents (float32 SIMT passes) and
-    without (the tensor-core passes where the widths fit), on rows away
-    from the ReLU kinks (``rows_away_from_kinks``, each row with its own
-    view encoding): on plain random rows the tensor-core call of the
-    full-width case met a kink (``scripts/torch_kink_rows.py``)."""
+    """K1-bwd with the encodings' cotangents and without, both on the
+    tensor-core passes, on rows away from the ReLU kinks
+    (``rows_away_from_kinks``, each row with its own view encoding): on
+    plain random rows the tensor-core call of the full-width case met a
+    kink (``scripts/torch_kink_rows.py``)."""
     cfg, packed = packed_weights(variant, cuda)
     gen = torch.Generator(device=cuda).manual_seed(3)
     d = rand(gen, points, cfg.d_encoding_dim) if cfg.use_viewdirs else None
@@ -260,21 +274,19 @@ def test_classic_mlp_bwd_kernel_matches_plain(cuda, variant, points):
     dx, dd, d_packed = classic_mlp.classic_mlp_bwd(packed, x, d, g_out)
     torch.cuda.synchronize()
     assert _build.launch_counts[classic_mlp.BWD_NAME] == before + 1
-    # The encodings' cotangents: the float32 SIMT passes.
-    assert policy_moves(policies) == {(classic_mlp.BWD_NAME, "simt"): 1}
+    # The encodings' cotangents: the tensor-core passes (bwd_rows'
+    # tc_input_grad).
+    assert policy_moves(policies) == {(classic_mlp.BWD_NAME, "tc"): 1}
     rdx, rdd, r_packed = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out)
     assert_grads_close(d_packed, r_packed)
     assert_grads_close({"dx": dx} | ({"dd": dd} if d is not None else {}),
                        {"dx": rdx} | ({"dd": rdd} if d is not None else {}))
-    # As autograd calls it when the encodings need no gradient: the
-    # tensor-core passes where the widths fit their fwd_store tile.
+    # As autograd calls it when the encodings need no gradient.
     policies = dict(_build.policy_counts)
     dx, dd, d_packed = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads=False)
     torch.cuda.synchronize()
     assert dx is None and dd is None
-    want = _build.tile_plan(classic_mlp.BWD_NAME, cfg.x_encoding_dim,
-                            cfg.d_encoding_dim if cfg.use_viewdirs else 0, cfg.hidden_size).policy
-    assert policy_moves(policies) == {(classic_mlp.BWD_NAME, want): 1}
+    assert policy_moves(policies) == {(classic_mlp.BWD_NAME, "tc"): 1}
     assert_grads_close(d_packed, r_packed)
 
 
@@ -475,23 +487,50 @@ def round_up4(n):
     return -(-n // 4) * 4
 
 
+MIP_KERNELS = (mip_train.EVAL_NAME, mip_train.TRAIN_NAME, mip_mlp.NAME, mip_mlp.BWD_NAME)
+
+
 def predicted_tile_bytes(kernel, hidden, xe, de, colors, sc, sf):
     """(tensor-core, float32 SIMT) bytes of shared memory a block of the
-    kernel's width-dependent tile takes, counted from the layouts of
-    ``csrc/tc_mlp.cuh`` (K2's and K3's ``fwd_store``: four 16-value chunk
+    kernel's tile takes, counted from the layouts of ``csrc/tc_mlp.cuh``
+    (the classic ``fwd_store``, K1-fwd and K8-fwd: four 16-value chunk
     buffers of hi and lo weights, the ``[64][H + 4]`` activation tile, the
-    encoding tiles, 1024 bytes of alignment) and ``csrc/union_eval.cu``
-    (K4's block: also the compositing scratch in the activation tile's
-    place where larger, and the block's fine outputs); the SIMT tiles hold
-    16 weight rows and a ``[64][H]`` activation tile."""
-    enc = 64 * (round_up4(xe) + round_up4(de))
-    ring, act_tc, act = 4 * 2 * hidden * 16, 64 * (hidden + 4), 64 * hidden
+    encodings' ring of four ``[64][20]`` slabs, 1024 bytes of alignment;
+    the same at every encoding width, and no SIMT tile: 0) and
+    ``csrc/union_eval.cu`` (K4's block: also the compositing scratch in the
+    activation tile's place where larger, and the block's fine outputs).
+    The mip tiles (K5, K6, K7) keep their ``[64][F]`` feature tile
+    resident, and their SIMT tile holds 16 weight rows and a ``[64][H]``
+    activation tile."""
+    bbuf, act_tc, act = 4 * 2 * hidden * 16, 64 * (hidden + 4), 64 * hidden
+    if kernel in MIP_KERNELS:
+        enc = 64 * (round_up4(xe) + round_up4(de))
+        return 4 * (bbuf + act_tc + enc) + 1024, 4 * (16 * hidden + act + enc)
+    ring = 4 * 64 * 20
     if kernel != union_eval.NAME:
-        return 4 * (ring + act_tc + enc) + 1024, 4 * (16 * hidden + act + enc)
+        return 4 * (bbuf + act_tc + ring) + 1024, 0
     comp = 8 * 4 * (sc + sf)
     outs = (1 if sf >= 256 else 256 // sf) * sf * (1 + colors)
-    return (4 * (ring + max(act_tc, comp) + enc + outs) + 1024,
-            4 * (16 * hidden + max(act, comp) + enc + outs))
+    return 4 * (bbuf + max(act_tc, comp) + ring + outs) + 1024, 0
+
+
+def tile_policy(kernel, xe, de, colors=0, sc=0, sf=0):
+    """The policy a call of ``kernel`` at hidden 256 records, its tile's
+    bytes held to ``predicted_tile_bytes``: a kernel whose tile depends on
+    its shapes (``_build.PLANNED``: K4, the mip tiles) follows its plan,
+    whose bytes and limit are checked; a classic kernel's one tile takes
+    the same bytes at every encoding width, which fit the device's opt-in
+    limit: ``"tc"``."""
+    tc_bytes, simt_bytes = predicted_tile_bytes(kernel, 256, xe, de, colors, sc, sf)
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    if kernel not in _build.PLANNED:
+        assert simt_bytes == 0 and tc_bytes <= limit
+        return "tc"
+    plan = _build.tile_plan(kernel, xe, de, 256,
+                            *((colors, sc, sf) if kernel == union_eval.NAME else ()))
+    assert (plan.tc_bytes, plan.simt_bytes, plan.limit) == (tc_bytes, simt_bytes, limit)
+    assert simt_bytes <= limit
+    return plan.policy
 
 
 # The mip models of the tile-policy cases: the full-width MipNeRF (96
@@ -510,12 +549,13 @@ def test_tile_policy_follows_the_byte_count(cuda, variant, kernel):
     model's (100 + 48), and K7 and K6 (seg weight 0.1) at full width with
     96 features and with 144 (``MIP_TILE_CASES``): the call matches plain
     at the kernel's tolerances (K1-bwd, K2, K3 and K6 on rows away from the
-    ReLU kinks) and records the policy its byte count predicts, the tensor
-    cores where their tile fits the device's opt-in shared memory a block,
-    else the float32 SIMT tile (K1-fwd's tiles take ``fwd_store``'s bytes,
-    K6's and K7's ``fwd_store``'s without view encodings).  On the H100
-    (232,448 bytes) that is the tensor cores at 60 + 36 and 96, and the SIMT
-    tile at 100 + 48 and 144, in all seven."""
+    ReLU kinks) and records the policy its byte count predicts
+    (``tile_policy``): the tensor cores where their tile fits the device's
+    opt-in shared memory a block, else (the mip kernels) the float32 SIMT
+    tile (the classic tiles take ``fwd_store``'s bytes, the same at every
+    encoding width; K6's and K7's ``fwd_store``'s without view encodings).
+    On the H100 (232,448 bytes) that is the tensor cores at 60 + 36, 100 +
+    48 and 96 features, and the SIMT tile at 144."""
     mip = kernel in (mip_train.EVAL_NAME, mip_train.TRAIN_NAME)
     if mip:
         cfg, packed = mip_packed("full_width", cuda, **MIP_TILE_CASES[variant])
@@ -523,34 +563,10 @@ def test_tile_policy_follows_the_byte_count(cuda, variant, kernel):
     else:
         cfg, packed = packed_weights(variant, cuda)
         xe, de, colors, sc, sf = cfg.x_encoding_dim, cfg.d_encoding_dim, cfg.color_outputs, 64, 128
-    tc_bytes, simt_bytes = predicted_tile_bytes(kernel, 256, xe, de, colors, sc, sf)
-    plan = _build.tile_plan(kernel, xe, de, 256,
-                            *((colors, sc, sf) if kernel == union_eval.NAME else ()))
-    assert (plan.tc_bytes, plan.simt_bytes) == (tc_bytes, simt_bytes)
-    limit = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
-    assert plan.limit == limit
-    want = "tc" if tc_bytes <= limit else "simt"
-    assert plan.policy == want and simt_bytes <= limit
-    assert want == ("tc" if variant == "full_width" else "simt")
+    want = tile_policy(kernel, xe, de, colors, sc, sf)
+    assert want == ("tc" if variant == "full_width" or not mip else "simt")
     before = dict(_build.policy_counts)
-    if kernel == union_eval.NAME:
-        args = union_args(cfg, packed, cuda, rays=37, sc=sc, sf=sf)
-        got = union_eval.union_eval(*args)
-        torch.cuda.synchronize()
-        for g, r in zip(got, union_eval.union_eval_plain(*args)):
-            torch.testing.assert_close(g, r, **K4_TOL)
-    elif kernel == classic_mlp.NAME:
-        x, d, _ = k1_inputs(cfg, packed, cuda, rays=3, s=sc)
-        got = classic_mlp.classic_mlp_fwd(packed, x, d)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(got, classic_mlp.classic_mlp_fwd_plain(packed, x, d), **K1_TOL)
-    elif kernel == classic_mlp.BWD_NAME:
-        x, d, g_out = k1_inputs(cfg, packed, cuda, rays=3, s=sc)
-        got = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads=False)
-        torch.cuda.synchronize()
-        ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads=False)
-        assert_grads_close(got[2], ref[2])
-    elif kernel == mip_train.EVAL_NAME:
+    if kernel == mip_train.EVAL_NAME:
         a = mip_inputs(cfg, cuda, rays=37, rows=sc - 1)
         args = (packed, a["features"], a["dists"], a["t_mids"])
         got = mip_train.mip_eval(*args)
@@ -567,22 +583,90 @@ def test_tile_policy_follows_the_byte_count(cuda, variant, kernel):
         torch.testing.assert_close(got[0], ref[0], rtol=LOSS_RTOL, atol=0)
         torch.testing.assert_close(got[1], ref[1], rtol=LOSS_RTOL, atol=0)
         assert_grads_close(got[2], ref[2])
+    else:
+        classic_call_matches_plain(kernel, cfg, packed, cuda, sc, sf)
+    assert policy_moves(before) == {(kernel, want): 1}
+
+
+def classic_call_matches_plain(kernel, cfg, packed, device, sc, sf, input_grads=False):
+    """One call of a classic kernel (K4, K1-fwd, K1-bwd, K2, K3) on the
+    model ``cfg``'s weights ``packed`` at its tolerances: K4 on 37 rays of
+    ``sc + sf`` samples, the others on 3 rays of ``sc`` (K3: ``sc + sf``)
+    rows away from the ReLU kinks."""
+    if kernel == union_eval.NAME:
+        args = union_args(cfg, packed, device, rays=37, sc=sc, sf=sf)
+        got = union_eval.union_eval(*args)
+        torch.cuda.synchronize()
+        for g, r in zip(got, union_eval.union_eval_plain(*args)):
+            torch.testing.assert_close(g, r, **K4_TOL)
+    elif kernel == classic_mlp.NAME:
+        x, d, _ = k1_inputs(cfg, packed, device, rays=3, s=sc)
+        got = classic_mlp.classic_mlp_fwd(packed, x, d)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, classic_mlp.classic_mlp_fwd_plain(packed, x, d), **K1_TOL)
+    elif kernel == classic_mlp.BWD_NAME:
+        x, d, g_out = k1_inputs(cfg, packed, device, rays=3, s=sc)
+        got = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads=input_grads)
+        torch.cuda.synchronize()
+        ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads=input_grads)
+        assert_grads_close(got[2], ref[2])
+        if input_grads:
+            assert_grads_close({"dx": got[0], "dd": got[1]}, {"dx": ref[0], "dd": ref[1]})
     elif kernel == train_grads.NAME:
-        a = train_inputs(cfg, cuda, rays=3, s=sc, packed=packed)
+        a = train_inputs(cfg, device, rays=3, s=sc, packed=packed)
         got = train_grads.classic_train_grads(packed, **a, num_samples=sc, loss_weight=0.5)
         torch.cuda.synchronize()
         ref = train_grads.classic_train_grads_plain(packed, **a, num_samples=sc, loss_weight=0.5)
         torch.testing.assert_close(got[0], ref[0], rtol=LOSS_RTOL, atol=0)
         assert_grads_close(got[1], ref[1])
     else:
-        a = fine_inputs(cfg, cuda, rays=3, sc=sc, sf=sf, packed=packed)
+        a = fine_inputs(cfg, device, rays=3, sc=sc, sf=sf, packed=packed)
         got = fine_stage_train.fine_stage_train(packed, **a, loss_weight=0.5)
         torch.cuda.synchronize()
         ref = fine_stage_train.fine_stage_train_plain(packed, **a, loss_weight=0.5)
         torch.testing.assert_close(got[0], ref[0], rtol=LOSS_RTOL, atol=0)
         assert_grads_close(got[1] | {"g_dens_c": got[2][0], "g_col_c": got[2][1]},
                            ref[1] | {"g_dens_c": ref[2][0], "g_col_c": ref[2][1]})
-    assert policy_moves(before) == {(kernel, want): 1}
+
+
+# K8's x encodings nearest the conditional trainer's 200 and 700 (3 x 68 =
+# 204, 3 x 234 = 702; x_positional_encoding_size counts the sin and cos
+# lanes of each input).
+LATENT_K8 = {"latent_7": dict(x_positional_encoding_size=68),
+             "latent_32": dict(x_positional_encoding_size=234)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [union_eval.NAME, train_grads.NAME, fine_stage_train.NAME,
+                                    classic_mlp.NAME, classic_mlp.BWD_NAME, point_mlp.NAME])
+@pytest.mark.parametrize("variant", ["latent_7", "latent_32"])
+def test_classic_kernels_run_the_tensor_cores_at_latent_widths(cuda, variant, kernel):
+    """The conditional trainer's full-width model with a 7- and a 32-scalar
+    state (encodings 200 + 36 and 700 + 36; K8-fwd at 204 + 36 and 702 +
+    36, ``LATENT_K8``): the tile's bytes fit (``tile_policy``), each call
+    records ``tc`` and matches plain at the kernel's
+    tolerances (K1-bwd with and without the encodings' cotangents, on rows
+    away from the ReLU kinks)."""
+    if kernel == point_mlp.NAME:
+        _, (xe, de), call = forward_case(kernel, cuda, points=301, **LATENT_K8[variant])
+    else:
+        cfg, packed = packed_weights(variant, cuda)
+        xe, de = cfg.x_encoding_dim, cfg.d_encoding_dim
+    assert tile_policy(kernel, xe, de, 3, 64, 128) == "tc"
+    before = dict(_build.policy_counts)
+    if kernel == point_mlp.NAME:
+        got = call()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, call(plain=True), **K1_TOL)
+        calls = 1
+    elif kernel == classic_mlp.BWD_NAME:
+        for input_grads in (False, True):
+            classic_call_matches_plain(kernel, cfg, packed, cuda, 64, 128, input_grads)
+        calls = 2
+    else:
+        classic_call_matches_plain(kernel, cfg, packed, cuda, 64, 128)
+        calls = 1
+    assert policy_moves(before) == {(kernel, "tc"): calls}
 
 
 @pytest.mark.cuda
@@ -975,27 +1059,6 @@ def test_classic_pointmlp_fwd_kernel_matches_plain(cuda, variant, points):
     torch.testing.assert_close(out, classic_mlp.classic_mlp_fwd(packed, x_enc, d_enc), **K1_TOL)
 
 
-def kink_margin(packed, x_enc, d_enc, matmul=torch.matmul):
-    """Per row, the smallest |ReLU input| of the plain forward
-    (``classic_mlp_fwd_plain``'s layers; ``matmul`` its products)."""
-    whh, margins = packed["whh"], []
-
-    def layer(i, pre):
-        a = pre + packed["b"][i]
-        margins.append(a.abs().amin(-1))
-        return F.layer_norm(torch.relu(a), a.shape[-1:], packed["g"][i], packed["beta"][i], 1e-5)
-
-    h = layer(0, matmul(x_enc, packed["w0"]))
-    for i in (1, 2, 3):
-        h = layer(i, matmul(h, whh[i - 1]))
-    h = layer(4, matmul(h, whh[3]) + matmul(x_enc, packed["wx"]))
-    for i in (5, 6, 7):
-        h = layer(i, matmul(h, whh[i - 1]))
-    if "wd_in" in packed:
-        layer(9, matmul(layer(8, matmul(h, whh[7]) + matmul(d_enc, packed["wd_in"])), whh[8]))
-    return torch.stack(margins).amin(0)
-
-
 def away_from_kinks(packed, consts, gen, n, matmul=torch.matmul):
     """``n`` raw points and directions whose every ReLU input lies farther
     than 1e-5 from 0, the first of more candidates drawn from ``gen``: two
@@ -1058,11 +1121,11 @@ def test_classic_pointmlp_bwd_kernel_matches_plain(cuda, variant, points, input_
     assert_grads_close({"dpoints": dp, "ddirs": dd}, {"dpoints": rdp, "ddirs": rdd})
 
 
-# K8-bwd's and K5-bwd's models beside the full-width ones: encodings or
-# features past the tensor-core tile at hidden 256 (x 102 + 36, 144; the
-# wider x encoding also takes two 64-column passes of the input
-# cotangent, the 144 features three), and past the float32 SIMT tile too
-# (600).
+# K8-bwd's and K5-bwd's models beside the full-width ones: x encodings of
+# 102 + 36, which the classic tile streams (the wider x encoding also takes
+# two 64-column passes of the input cotangent), and 144 features, past the
+# mip tensor-core tile at hidden 256 (three passes); and 600 features, past
+# the mip float32 SIMT tile too.
 INPUT_TC_WIDTHS = {
     point_mlp.BWD_NAME: {"wide": dict(x_positional_encoding_size=34),
                          "too_wide": dict(x_positional_encoding_size=200)},
@@ -1104,18 +1167,14 @@ def input_tc_case(kernel, device, points, seed=0, **overrides):
 @pytest.mark.parametrize("variant", ["full_width", "wide"])
 def test_input_cotangent_kernels_follow_the_width_rule(cuda, variant, kernel):
     """K8-bwd and K5-bwd with the inputs' cotangents at full width, and with
-    encodings (features) past the tensor-core forward tile
-    (``INPUT_TC_WIDTHS``): the plan's bytes are those of ``fwd_store``'s
-    tiles, the call records the policy they predict (the tensor cores at
-    60 + 36 and 96 features, the float32 SIMT forward tile at 102 + 36 and
-    144) and matches plain."""
+    wider encodings (features) (``INPUT_TC_WIDTHS``): the plan's bytes are
+    those of ``fwd_store``'s tiles, the call records the policy they
+    predict (the tensor cores at 60 + 36, 102 + 36 and 96 features, the
+    mip float32 SIMT forward tile at 144) and matches plain."""
     overrides = INPUT_TC_WIDTHS[kernel]["wide"] if variant == "wide" else {}
     cfg, (xe, de), call = input_tc_case(kernel, cuda, points=150, **overrides)
-    tc_bytes, simt_bytes = predicted_tile_bytes(kernel, 256, xe, de, 0, 0, 0)
-    plan = _build.tile_plan(kernel, xe, de, 256)
-    assert (plan.tc_bytes, plan.simt_bytes) == (tc_bytes, simt_bytes)
-    want = "tc" if variant == "full_width" else "simt"
-    assert plan.policy == want
+    want = "tc" if variant == "full_width" or kernel == point_mlp.BWD_NAME else "simt"
+    assert tile_policy(kernel, xe, de) == want
     before = dict(_build.policy_counts)
     got = call()
     torch.cuda.synchronize()
@@ -1190,11 +1249,11 @@ def test_input_cotangent_autograd_builds_the_images_once(cuda, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", [point_mlp.BWD_NAME, mip_mlp.BWD_NAME])
+@pytest.mark.parametrize("kernel", [mip_mlp.BWD_NAME])
 def test_input_cotangent_wrappers_raise_past_every_tile(cuda, kernel):
-    """Encodings (features) past the float32 SIMT tile too (600 + 36, 600
-    at hidden 256, past its 588): K8-bwd and K5-bwd raise, naming the
-    limit, with nothing launched or counted."""
+    """Features past the mip float32 SIMT tile too (600 at hidden 256, past
+    its 588): K5-bwd raises, naming the limit, with nothing launched or
+    counted.  (K8-bwd takes every encoding width.)"""
     _, _, call = input_tc_case(kernel, cuda, points=5, **INPUT_TC_WIDTHS[kernel]["too_wide"])
     torch.cuda.synchronize()
     launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
@@ -1204,9 +1263,10 @@ def test_input_cotangent_wrappers_raise_past_every_tile(cuda, kernel):
     assert dict(_build.policy_counts) == policies
 
 
-# K8-fwd's and K5-fwd's models beside the full-width ones: encodings or
-# features past the tensor-core tile at hidden 256 (x 120 + 36 = 156,
-# 144), and past the float32 SIMT tile too (600).
+# K8-fwd's and K5-fwd's models beside the full-width ones: x encodings of
+# 120 + 36, which the classic tile streams, and 144 features, past the mip
+# tensor-core tile at hidden 256; and 600 features, past the mip float32
+# SIMT tile too.
 FORWARD_TC_WIDTHS = {
     point_mlp.NAME: {"wide": dict(x_positional_encoding_size=40),
                      "too_wide": dict(x_positional_encoding_size=200)},
@@ -1245,18 +1305,15 @@ def forward_case(kernel, device, points, seed=0, **overrides):
 @pytest.mark.parametrize("kernel", [point_mlp.NAME, mip_mlp.NAME])
 @pytest.mark.parametrize("variant", ["full_width", "wide"])
 def test_forward_kernels_follow_the_width_rule(cuda, variant, kernel):
-    """K8-fwd and K5-fwd at full width and with encodings (features) past
-    the tensor-core tile (``FORWARD_TC_WIDTHS``): the plan's bytes are
-    those of ``fwd_store``'s tiles, the call records the policy they
-    predict (the tensor cores at 60 + 36 and 96 features, the float32 SIMT
-    tile at 120 + 36 and 144) and matches plain at K1_TOL."""
+    """K8-fwd and K5-fwd at full width and with wider encodings (features)
+    (``FORWARD_TC_WIDTHS``): the plan's bytes are those of ``fwd_store``'s
+    tiles, the call records the policy they predict (the tensor cores at 60
+    + 36, 120 + 36 and 96 features, the mip float32 SIMT tile at 144) and
+    matches plain at K1_TOL."""
     overrides = FORWARD_TC_WIDTHS[kernel]["wide"] if variant == "wide" else {}
     _, (xe, de), call = forward_case(kernel, cuda, points=301, **overrides)
-    tc_bytes, simt_bytes = predicted_tile_bytes(kernel, 256, xe, de, 0, 0, 0)
-    plan = _build.tile_plan(kernel, xe, de, 256)
-    assert (plan.tc_bytes, plan.simt_bytes) == (tc_bytes, simt_bytes)
-    want = "tc" if variant == "full_width" else "simt"
-    assert plan.policy == want
+    want = "tc" if variant == "full_width" or kernel == point_mlp.NAME else "simt"
+    assert tile_policy(kernel, xe, de) == want
     before = dict(_build.policy_counts)
     got = call()
     torch.cuda.synchronize()
@@ -1285,11 +1342,11 @@ def test_forward_kernels_take_an_image_built_beforehand(cuda, kernel):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", [point_mlp.NAME, mip_mlp.NAME])
+@pytest.mark.parametrize("kernel", [mip_mlp.NAME])
 def test_forward_wrappers_raise_past_every_tile(cuda, kernel):
-    """Encodings (features) past the float32 SIMT tile too (600 + 36, 600
-    at hidden 256): K8-fwd and K5-fwd raise, naming the limit, with
-    nothing launched or counted."""
+    """Features past the mip float32 SIMT tile too (600 at hidden 256):
+    K5-fwd raises, naming the limit, with nothing launched or counted.
+    (K8-fwd takes every encoding width.)"""
     _, _, call = forward_case(kernel, cuda, points=5, **FORWARD_TC_WIDTHS[kernel]["too_wide"])
     torch.cuda.synchronize()
     launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
@@ -1515,17 +1572,19 @@ def test_point_and_mega_wrappers_raise_instead_of_falling_back(cuda):
     inputs[8] = inputs[8].cpu()  # the pixels
     with pytest.raises(ValueError, match="cpu"):
         mega_train.mega_train(packed, *inputs)
-    # Encodings past every tile (xe 600 + de 36 at hidden 256): raises,
-    # naming the limit, before any launch.
+    # Encodings past what the float32 SIMT tile held (xe 600 + de 36 at
+    # hidden 256): no raise; one launch on the tensor-core tile.
     model, render, batch, draws = mega_setup(cuda, True, 8, 16, False, hidden=256,
                                              x_positional_encoding_size=200)
     packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
     inputs = mega_train.mega_inputs(model, batch, draws)
     torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)
-    with pytest.raises(ValueError, match="limit"):
-        mega_train.mega_train(packed, *inputs)
-    assert dict(_build.launch_counts) == launches
+    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
+    loss = mega_train.mega_train(packed, *inputs)[0]
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss).all())
+    assert _build.launch_counts[mega_train.NAME] == launches.get(mega_train.NAME, 0) + 1
+    assert policy_moves(policies) == {(mega_train.NAME, "tc"): 1}
 
 
 # -- compute_dtype="bfloat16": K1-fwd, K1-bwd, K2, K3 and K4 ---------------
@@ -1568,23 +1627,19 @@ def assert_check_sees_float32(f32: dict, ref: dict) -> None:
     assert err > BF16_GRAD, err
 
 
-def loss_cotangent(packed, x, d) -> torch.Tensor:
-    """K1's output cotangents under ``test_pallas.py``'s bf16 objective,
-    mean(density^2) + mean(sin(color)), at the plain forward."""
-    out = classic_mlp.classic_mlp_fwd_plain(packed, x, d)
-    n, c = out.shape[0], out.shape[1] - 1
-    return torch.cat([2 * out[:, :1] / n, torch.cos(out[:, 1:]) / (n * c)], -1)
-
-
 def bf16(a: dict) -> dict:
     return {k: v.bfloat16() if k in ("x_enc", "d_enc") and v is not None else v
             for k, v in a.items()}
 
 
-BF16_VARIANTS = ["full_width", "latent_full_width", "latent"]
+BF16_VARIANTS = ["full_width", "latent_full_width", "latent", "latent_7", "latent_32"]
 
 
 def bf16_route(cfg, kernel, *shape):
+    """The policy a bf16 call records: K4's plan's, else the classic tile's
+    ``tc``, with ``_bf16``."""
+    if kernel not in _build.PLANNED:
+        return "tc_bf16"
     return _build.tile_plan(kernel, cfg.x_encoding_dim,
                             cfg.d_encoding_dim if cfg.use_viewdirs else 0, cfg.hidden_size,
                             *shape).policy + "_bf16"
@@ -1593,9 +1648,9 @@ def bf16_route(cfg, kernel, *shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", BF16_VARIANTS)
 def test_bf16_forward_kernels_match_plain(cuda, variant):
-    """K1-fwd and K4 in bf16 against their plain bf16 versions: the
-    tensor-core tile at full width (tc_bf16), the SIMT tile at a latent
-    model's 100 + 48 (simt_bf16)."""
+    """K1-fwd and K4 in bf16 against their plain bf16 versions, on the
+    tensor-core tile (tc_bf16) at every encoding width: full width, a
+    latent model's 100 + 48, 200 + 36 and 700 + 36."""
     cfg, packed = packed_weights(variant, cuda)
     gen = torch.Generator(device=cuda).manual_seed(5)
     x = rand(gen, 1000, cfg.x_encoding_dim).bfloat16()
@@ -1621,10 +1676,10 @@ def test_bf16_forward_kernels_match_plain(cuda, variant):
 @pytest.mark.parametrize("input_grads", [False, True])
 @pytest.mark.parametrize("variant", BF16_VARIANTS)
 def test_bf16_classic_mlp_bwd_matches_plain(cuda, variant, input_grads):
-    """K1-bwd in bf16, always on the tensor-core passes (fwd_store on its
-    SIMT tile at the latent width), the encodings' cotangents bfloat16, on
-    BF16_ROWS rows away from the kinks and a loss's cotangents; the float32
-    kernel on the same inputs fails the check."""
+    """K1-bwd in bf16 on the tensor-core passes at every encoding width, the
+    encodings' cotangents bfloat16, on BF16_ROWS rows away from the kinks
+    and a loss's cotangents; the float32 kernel on the same inputs fails
+    the check."""
     cfg, packed = packed_weights(variant, cuda)
     gen = torch.Generator(device=cuda).manual_seed(3)
     d = rand(gen, BF16_ROWS, cfg.d_encoding_dim)
@@ -2037,7 +2092,8 @@ def test_bf16_mip_model_paths_launch_the_bf16_kernels(cuda):
 # (at hidden 256 and 64 + 128 samples: 1.9e-2 at 64 rays, 9.4e-3 at 2048;
 # ``scripts/torch_bf16_sensitivity.py --family point``), so its checks
 # take 512 rays and more at the cells' 64 + 128 samples.
-POINT_BF16_VARIANTS = {"full_width": dict(), "wide": dict(x_positional_encoding_size=40)}
+POINT_BF16_VARIANTS = {"full_width": dict(), "wide": dict(x_positional_encoding_size=40),
+                       **LATENT_K8}
 
 
 def point_bf16_case(device, rows, seed, **overrides):
@@ -2067,18 +2123,15 @@ def raw_cotangents(result) -> dict:
 def test_bf16_pointmlp_fwd_matches_plain(cuda, variant):
     """K8-fwd in bf16 against its plain bf16 version and K1-fwd's bf16
     kernel on the rounded encodings: the tensor-core tile at full width
-    (tc_bf16), the bf16-rounding SIMT tile at x encodings 120 + 36
-    (simt_bf16)."""
+    (tc_bf16), and at x encodings 120 + 36 the same (the tile streams the
+    encodings)."""
     cfg, packed, consts, pts, dirs = point_bf16_case(cuda, 1000, 6,
                                                      **POINT_BF16_VARIANTS[variant])
     bf = torch.bfloat16
     policies = dict(_build.policy_counts)
     out = point_mlp.classic_pointmlp_fwd(packed, pts, dirs, consts, dtype=bf)
     torch.cuda.synchronize()
-    route = _build.tile_plan(point_mlp.NAME, cfg.x_encoding_dim, cfg.d_encoding_dim,
-                             256).policy + "_bf16"
-    assert route == ("tc_bf16" if variant == "full_width" else "simt_bf16")
-    assert policy_moves(policies) == {(point_mlp.NAME, route): 1}
+    assert policy_moves(policies) == {(point_mlp.NAME, "tc_bf16"): 1}
     assert out.dtype == torch.float32
     assert rel_l2(out, point_mlp.classic_pointmlp_fwd_plain(packed, pts, dirs, consts,
                                                             dtype=bf)) <= BF16_FWD
@@ -2104,9 +2157,7 @@ def test_bf16_pointmlp_bwd_matches_plain(cuda, variant, input_grads):
     got = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out, input_grads,
                                          dtype=bf, keep=keep)
     torch.cuda.synchronize()
-    route = _build.tile_plan(point_mlp.BWD_NAME, cfg.x_encoding_dim, cfg.d_encoding_dim,
-                             256).policy + "_bf16"
-    assert policy_moves(policies) == {(point_mlp.BWD_NAME, route): 1}
+    assert policy_moves(policies) == {(point_mlp.BWD_NAME, "tc_bf16"): 1}
     for enc, want in zip((keep["x_enc"], keep["d_enc"]),
                          point_mlp.rounded_encodings(pts, dirs, consts, bf)):
         assert enc.dtype == bf and torch.equal(enc, want)
@@ -2123,9 +2174,10 @@ def test_bf16_pointmlp_bwd_matches_plain(cuda, variant, input_grads):
     assert_check_sees_float32(raw_cotangents(f32), raw_cotangents(ref))
 
 
-def check_mega_bf16_against_plain(model, render, batch, draws, white, exact):
+def check_mega_bf16_against_plain(model, render, batch, draws, white, exact, grads=True):
     """One bf16 K9 call against its plain bf16 version with its own fine
-    t-values; its scratch encodings bitwise the plain rounded ones."""
+    t-values; its scratch encodings bitwise the plain rounded ones; its
+    gradients at BF16_GRAD unless ``grads`` is false."""
     inputs = mega_train.mega_inputs(model, batch, draws)
     assert inputs[0].dtype == torch.bfloat16
     packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
@@ -2145,7 +2197,8 @@ def check_mega_bf16_against_plain(model, render, batch, draws, white, exact):
     r_loss_c, r_loss_f, ref, _ = mega_train.mega_train_plain(packed, *inputs, white, exact,
                                                              t_fine=t_fine)
     assert rel_l2(torch.stack([loss_c, loss_f]), torch.stack([r_loss_c, r_loss_f])) <= BF16_FWD
-    assert_bf16_grads(d_packed, ref)
+    if grads:
+        assert_bf16_grads(d_packed, ref)
     return packed, inputs, (loss_c, loss_f, d_packed, t_fine)
 
 
@@ -2163,6 +2216,39 @@ def test_bf16_mega_train_matches_plain(cuda, view, white, exact):
     for a, b in ((first[0], second[0]), (first[1], second[1]), (first[3], second[3])):
         assert torch.equal(a, b)
     assert all(torch.equal(first[2][k], second[2][k]) for k in first[2])
+
+
+# K9's weight gradients in bf16 at wide x encodings: the plain bf16 step
+# moves about as far as BF16_GRAD by itself when only the order of its sums
+# changes (``Bf16Float64Sums``; at 702 + 36 and 512 rays 2.50e-2, at 120 +
+# 36 1.45e-2), and the kernel stands 1.16-1.19 times as far
+# (``scripts/torch_bf16_sensitivity.py --family mega-widths``).
+MEGA_WIDE_RATIO = 1.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("lanes", [40, 234])
+def test_bf16_mega_train_matches_plain_at_wide_encodings(cuda, lanes, exact):
+    """K9 in bf16 at x encodings 120 + 36 and 702 + 36 (3 x 40 and 3 x 234
+    lanes) on 512 rays x (64 + 128), both fine encodings' forms, against
+    its plain bf16 version (``check_mega_bf16_against_plain``); its weight
+    gradients within MEGA_WIDE_RATIO times the plain version's own distance
+    with float64 sums, the float32 kernel past that."""
+    white = False
+    packed, inputs, (_, _, d_packed, t_fine) = check_mega_bf16_against_plain(
+        *mega_setup(cuda, True, 64, 128, white, rays=512, hidden=256,
+                    compute_dtype="bfloat16", x_positional_encoding_size=lanes),
+        white, exact, grads=False)
+    ref = mega_train.mega_train_plain(packed, *inputs, white, exact, t_fine=t_fine)[2]
+    floor = packed_rel_l2(mega_train.mega_train_plain(
+        packed, *inputs, white, exact, t_fine=t_fine, matmul=Bf16Float64Sums.apply)[2], ref)
+    *_, f32, f32_t = mega_train.mega_train(packed, inputs[0].float(), inputs[1].float(),
+                                           *inputs[2:], white, exact)
+    f32_err = packed_rel_l2(
+        f32, mega_train.mega_train_plain(packed, *inputs, white, exact, t_fine=f32_t)[2])
+    err = packed_rel_l2(d_packed, ref)
+    assert err <= MEGA_WIDE_RATIO * floor < f32_err, (err, floor, f32_err)
 
 
 @pytest.mark.cuda

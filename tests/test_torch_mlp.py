@@ -97,6 +97,29 @@ def test_full_width_param_count_and_state_dict_keys():
         JaxConfig(), 4096, 64)
 
 
+@pytest.mark.parametrize("state", [0, 7, 32])
+def test_train_kernel_flops_leave_out_the_cotangents_not_asked(state):
+    """A training kernel's operations: three forwards with the encodings'
+    cotangents (the JAX package's step count), less layer 0's and the skip
+    layer's x columns and the view layer's d columns without them."""
+    cfg = ClassicNeRFConfig(density_inputs=3 + state)
+    h, xe, de = cfg.hidden_size, cfg.x_encoding_dim, cfg.d_encoding_dim
+    both = profiling.train_kernel_flops(cfg, 1024, 64, input_grads=True)
+    assert both == profiling.train_step_flops(cfg, 1024, 64)
+    assert profiling.input_cotangent_flops(cfg) == 2 * (2 * xe + de) * h
+    assert profiling.train_kernel_flops(cfg, 1024, 64) == both - 1024 * 64 * 2 * (2 * xe + de) * h
+
+
+def test_mip_train_kernel_flops_leave_out_the_features_cotangent():
+    from nerf_tpu_torch import MipNeRFConfig
+
+    cfg = MipNeRFConfig()
+    both = profiling.train_kernel_flops(cfg, 4096, 63, mip=True, input_grads=True)
+    assert both == profiling.train_step_flops(cfg, 4096, 63, mip=True)
+    assert profiling.train_kernel_flops(cfg, 4096, 63, mip=True) == (
+        both - 4096 * 63 * 2 * cfg.feature_dim * cfg.hidden_size)
+
+
 def test_init_is_torch_default_distribution_and_seeded():
     cfg = ClassicNeRFConfig(hidden_size=64)
     a = ClassicMLP(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
