@@ -10,9 +10,8 @@
    notes (a ``wgmma`` serialized), labelled with the pass it runs
    (every kernel's MLP products run as 3xTF32 ``wgmma`` on the tensor
    cores, ``csrc/tc_mlp.cuh``, the inputs' cotangents of K1-bwd, K5-bwd
-   and K8-bwd too; the classic tiles at every encoding width, the mip
-   forward tiles with a float32 SIMT tile for features too wide for
-   theirs).
+   and K8-bwd too; the classic and the mip tiles at every encoding and
+   feature width).
 3. Serving (slice 1): holds K1-fwd (``classic_mlp_fwd``, 262,144 points)
    and K4 (``union_eval``, the first 4000-ray tile of the frame) against
    their plain PyTorch versions, then renders one 400x400 frame of 64
@@ -96,9 +95,9 @@
    rays x (64 + 128)) and K8-fwd (65,536 points at x encodings 204 + 36
    and 702 + 36) against their plain versions, each timed beside its
    plain version and its bounds (float32 SIMT, 3xTF32, bf16 operations;
-   bytes) with the card's name and power limit.  Then K5-fwd at 144
-   features, which must run its float32 SIMT tile, against its plain
-   version.
+   bytes) with the card's name and power limit.  Then K5-fwd at 144 and
+   600 features (65,536 rows), which must run its tensor-core tile,
+   against its plain version, timed.
 14. The user's entry points (slice 11), in a temporary directory, each
    with the counters zeroed just before it and read just after, the
    counts derived from the code and checked exactly, every kernel on
@@ -170,7 +169,8 @@
    those paths' arguments, the float32 kernel on the same inputs beside
    each gradient check, with their times and both bf16 bounds; the head's
    rounding held directly against the float64 products of its rounded
-   operands; K5-fwd at 144 features on its SIMT tile (``simt_bf16``).
+   operands; K5-fwd at 144 and 600 features on its tensor-core tile
+   (``tc_bf16``), timed.
 17. compute_dtype="bfloat16" for K8-fwd, K8-bwd and K9 (slice 14): K8
    under autograd with ``compute_dtype="bfloat16"`` at phase 11's 262,144
    raw points (the counters zeroed just before and read just after: one
@@ -241,7 +241,26 @@
       after one Adam update the sharded
       checkpoint (one shard file a rank), restored here onto the whole
       model, bitwise the ranks' weights and Adam's moments.
-20. Prints the kernels' JSON line (each row with its float32 bound and
+20. The mip kernels past their old limits (slice 18), at hidden 256 in
+   float32 and bf16: ``MipNeRFConfig(encoding_size=48)`` and ``(200)``
+   (144 and 600 features), 12 hidden layers, a 300-wide head
+   (``segmentation_outputs=296``), and rays of 1100 and 2000 interval rows
+   (1101 and 2001 fenceposts; 256 rays), the weights as initialised.
+   At each: one frame tile through ``render_rays`` (4000 rays; one K7)
+   and one fused step
+   with the seg CE at 4096 x 64 (one K6; 256 rays at the long rays), the
+   counters zeroed just before and read just after, every launch on
+   ``tc`` (``tc_bf16``), against the plain path
+   (bf16: ``plain_versions()``); then K7 and K6 on those calls' arguments
+   (float32 K7: the depth held relative to depth / acc, and K7's
+   compositing against the plain compositing of its own MLP outputs,
+   ``check_wide_mip_eval``),
+   K5-fwd on the step's feature rows and K5-bwd on them with uniform
+   cotangents (without and with the features' cotangent) against their
+   plain versions, each timed beside its plain version and its bounds
+   (float32 SIMT, 3xTF32, bf16 operations; bytes, and with the float32
+   chain) with the card's name and power limit.
+21. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
    each, ``products``: how its MLP products run, and since which slice,
    ``cli_launches``: its launches in phase 14, ``dp_launches``: in phase
@@ -490,8 +509,7 @@ def kernel_label(mangled: str) -> str:
     """A mangled kernel name's last identifier and its int and bool template
     arguments (types left out): ``_ZN8nerf_mlp15bwd_rows_kernelILi256EE...`` ->
     ``bwd_rows_kernel<256>``, ``...wgrad_tc_kernelILb1EE...`` ->
-    ``wgrad_tc_kernel<true>`` (a kernel's last bool is kBf16; the SIMT mip
-    tile's first is kSave)."""
+    ``wgrad_tc_kernel<true>`` (a kernel's last bool is kBf16)."""
     i, parts = mangled.find("N") + 1, []
     while i < len(mangled) and mangled[i].isdigit():
         j = i
@@ -508,9 +526,8 @@ def kernel_label(mangled: str) -> str:
 
 # The passes of the MLP kernels by kernel name, for reports and profiles:
 # every kernel's products run on the tensor cores (csrc/tc_mlp.cuh; the
-# classic tiles at every encoding width, the encodings streamed through
-# them; the mip forward tiles' float32 SIMT tile serves features too wide
-# for theirs).
+# classic and the mip tiles at every encoding and feature width, the
+# encodings or features streamed through them).
 PASSES = {
     "fwd_tc_kernel": "K1-fwd / K8-fwd tile, 3xTF32 (bf16 if <..., true>) wgmma",
     "fwd_store_tc_kernel": "fwd_store, 3xTF32 (bf16 if <..., true>) wgmma",
@@ -521,8 +538,6 @@ PASSES = {
     "mip_fwd_store_tc_kernel": "mip fwd_store (K5-bwd, K6), 3xTF32 (bf16 if <..., true>) wgmma",
     "mip_fwd_tc_kernel": "mip forward tile (K5-fwd, K7), 3xTF32 (bf16 if <..., true>) wgmma",
     "mip_bwd_rows_tc_kernel": "mip bwd_rows (K5-bwd, K6), 3xTF32 (bf16 if <..., true>) wgmma",
-    "mip_fwd_kernel":
-        "mip forward tile, fp32 SIMT (wide features; bf16 operands if <H, kSave, true>)",
     "encode_bwd_kernel": "K8-bwd chain rule to the raw inputs, fp32",
     "mip_objective_kernel": "K6 compositing and losses",
     "mip_eval_rays_kernel": "K7 compositing",
@@ -1740,37 +1755,40 @@ def latent_phase(device, bank, card: str) -> None:
                                latent_tile_and_steps(device, bank, s, dtype))
 
 
-# Phase 13: K5-fwd's model too wide for its tensor-core tile at hidden 256
-# (144 features), and the rows of its call.
-WIDE_K5 = dict(encoding_size=48)
+# Phase 13: K5-fwd's models past the feature widths its tiles once took at
+# hidden 256 (144 features: the tensor-core tile's 132; 600: the float32
+# SIMT tile's 588), and the rows of its call.
+WIDE_K5 = (dict(encoding_size=48), dict(encoding_size=200))
 WIDE_ROWS = 65_536
 # Phase 17f: K8-fwd in bf16 at x encodings 120 + 36.
 WIDE_K8 = dict(x_positional_encoding_size=40)
 
 
 def wide_forward_phase(device) -> None:
-    """The rest of phase 13: K5-fwd at 144 features (``WIDE_K5``), past its
-    tensor-core tile, each call of which must run its float32 SIMT tile,
-    against its plain version."""
+    """The rest of phase 13: K5-fwd at 144 and 600 features (``WIDE_K5``),
+    each call of which must run its tensor-core tile, the features streamed
+    through it, against its plain version and timed."""
     gen = torch.Generator(device=device).manual_seed(17)
-    mcfg = MipNeRFConfig(**WIDE_K5)
-    mpacked = mip_mlp.pack_mip_params(
-        MipNeRF(mcfg, generator=torch.Generator().manual_seed(0), device=device).mlp
-        .requires_grad_(False))
-    feat = torch.rand((WIDE_ROWS, mcfg.feature_dim), generator=gen, device=device) * 2 - 1
-    what = f"K5-fwd at {mcfg.feature_dim} features"
-    call = lambda: mip_mlp.mip_mlp_fwd(mpacked, feat)  # noqa: E731
-    with torch.no_grad():
-        torch.cuda.synchronize()
-        _build.launch_counts.clear()
-        _build.policy_counts.clear()
-        got = call()
-        torch.cuda.synchronize()
-        launches = dict(_build.launch_counts)
-        check(launches == {mip_mlp.NAME: 1}, f"{what}: one launch, nothing else")
-        check_policies(what, launches, dict(_build.policy_counts), "simt")
-        compare(mip_mlp.NAME, [got], [mip_mlp.mip_mlp_fwd_plain(mpacked, feat)])
-        print(f"{what}, {WIDE_ROWS} rows (float32 SIMT tile): {cuda_ms(call, iters=3):.3f} ms")
+    for overrides in WIDE_K5:
+        mcfg = MipNeRFConfig(**overrides)
+        mpacked = mip_mlp.pack_mip_params(
+            MipNeRF(mcfg, generator=torch.Generator().manual_seed(0), device=device).mlp
+            .requires_grad_(False))
+        feat = torch.rand((WIDE_ROWS, mcfg.feature_dim), generator=gen, device=device) * 2 - 1
+        what = f"K5-fwd at {mcfg.feature_dim} features"
+        call = lambda: mip_mlp.mip_mlp_fwd(mpacked, feat)  # noqa: E731
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            _build.launch_counts.clear()
+            _build.policy_counts.clear()
+            got = call()
+            torch.cuda.synchronize()
+            launches = dict(_build.launch_counts)
+            check(launches == {mip_mlp.NAME: 1}, f"{what}: one launch, nothing else")
+            check_policies(what, launches, dict(_build.policy_counts), "tc")
+            compare(mip_mlp.NAME, [got], [mip_mlp.mip_mlp_fwd_plain(mpacked, feat)])
+            print(f"{what}, {WIDE_ROWS} rows (tensor-core tile): {cuda_ms(call, iters=5):.3f} ms",
+                  flush=True)
 
 
 # Slice 11: the user's entry points.  The tiny-NeRF trainer at the
@@ -1847,10 +1865,10 @@ def entry_points_phase(device, card: str) -> dict:
     launches in the phase."""
     cfg = ClassicNeRFConfig(normalize_position=6.0)
     xe, de, hidden = cfg.x_encoding_dim, cfg.d_encoding_dim, cfg.hidden_size
-    plans = {train_grads.NAME: "tc", classic_mlp.NAME: "tc",
-             union_eval.NAME: _build.tile_plan(union_eval.NAME, xe, de, hidden,
-                                               cfg.color_outputs, 64, 128).policy}
-    check(set(plans.values()) == {"tc"}, f"the full-width model's tiles are all tensor-core: {plans}")
+    # K4's plan raises where its block does not fit.
+    print(f"K4's block at the full-width model: "
+          f"{_build.tile_plan(union_eval.NAME, xe, de, hidden, cfg.color_outputs, 64, 128)}")
+    plans = dict.fromkeys((train_grads.NAME, classic_mlp.NAME, union_eval.NAME), "tc")
     # An eval render and a CLI view are 100 x 100 rays in tiles of
     # RenderConfig().rays_per_tile.
     tiles = -(-100 * 100 // RenderConfig().rays_per_tile)
@@ -2521,8 +2539,8 @@ def mip_bf16_phase(device, keep: dict, card: str) -> dict:
     """Phase 16: the mip family in compute_dtype bfloat16: (a) one 400x400
     frame, (b) the fused step and its timed run, (c) one general-path step,
     then (d) each of its four kernels against its plain bf16 version on
-    those paths' arguments, and (e) K5-fwd at 144 features on its SIMT
-    tile.  Returns the four kernels' bf16 row entries."""
+    those paths' arguments, and (e) K5-fwd at 144 and 600 features on its
+    tensor-core tile.  Returns the four kernels' bf16 row entries."""
     bf = dict(compute_dtype="bfloat16")
     model = make_mip_model(True, device, **bf).eval().requires_grad_(False)
     pose_o, pose_r = spherical_poses(1, radius=4.0, device=device)
@@ -2649,25 +2667,26 @@ def mip_bf16_phase(device, keep: dict, card: str) -> dict:
     with torch.no_grad():
         mip_bf16_kernels(device, store, out)
 
-    # e. K5-fwd at 144 features: the bf16-rounding SIMT tile (simt_bf16).
-    mcfg = MipNeRFConfig(**WIDE_K5)
-    mpacked = mip_mlp.pack_mip_params(make_mip_model(True, device, **WIDE_K5).mlp
-                                      .requires_grad_(False))
-    feat = (torch.rand((WIDE_ROWS, mcfg.feature_dim), device=device,
-                       generator=torch.Generator(device=device).manual_seed(17)) * 2
-            - 1).bfloat16()
-    what = f"bf16 K5-fwd at {mcfg.feature_dim} features"
-    with torch.no_grad():
-        _build.policy_counts.clear()
-        got = mip_mlp.mip_mlp_fwd(mpacked, feat)
-        torch.cuda.synchronize()
-        check(dict(_build.policy_counts) == {(mip_mlp.NAME, "simt_bf16"): 1},
-              f"{what} ran its SIMT tile (simt_bf16)")
-        check_bf16_outputs(what, [got], [mip_mlp.mip_mlp_fwd_plain(mpacked, feat)])
-        print(f"{what}, {WIDE_ROWS} rows (bf16-rounding SIMT tile): "
-              f"{cuda_ms(lambda: mip_mlp.mip_mlp_fwd(mpacked, feat), iters=3):.3f} ms", flush=True)
+    # e. K5-fwd at 144 and 600 features on the tensor-core tile (tc_bf16).
+    for overrides in WIDE_K5:
+        mcfg = MipNeRFConfig(**overrides)
+        mpacked = mip_mlp.pack_mip_params(make_mip_model(True, device, **overrides).mlp
+                                          .requires_grad_(False))
+        feat = (torch.rand((WIDE_ROWS, mcfg.feature_dim), device=device,
+                           generator=torch.Generator(device=device).manual_seed(17)) * 2
+                - 1).bfloat16()
+        what = f"bf16 K5-fwd at {mcfg.feature_dim} features"
+        with torch.no_grad():
+            _build.policy_counts.clear()
+            got = mip_mlp.mip_mlp_fwd(mpacked, feat)
+            torch.cuda.synchronize()
+            check(dict(_build.policy_counts) == {(mip_mlp.NAME, "tc_bf16"): 1},
+                  f"{what} ran its tensor-core tile (tc_bf16)")
+            check_bf16_outputs(what, [got], [mip_mlp.mip_mlp_fwd_plain(mpacked, feat)])
+            print(f"{what}, {WIDE_ROWS} rows (tensor-core tile): "
+                  f"{cuda_ms(lambda: mip_mlp.mip_mlp_fwd(mpacked, feat), iters=5):.3f} ms",
+                  flush=True)
     return out
-
 
 
 # Phase 17: compute_dtype="bfloat16" for K8-fwd, K8-bwd and K9 (slice 14),
@@ -2910,6 +2929,216 @@ def point_mega_bf16_phase(device, cfg: ClassicNeRFConfig, bank, k9_step_ms: floa
             wpacked, wpts, wdirs, wconsts, dtype=dt)])
         print(f"{what}, {WIDE_ROWS} rows (tc_bf16): {cuda_ms(call, iters=3):.3f} ms", flush=True)
     return out
+
+# Phase 20: the mip kernels past their old limits, which the features
+# streamed through the tensor-core tile lifted.  MipNeRFConfig at hidden 256
+# with encoding_size 48 and 200 (144 and 600 IPE features: past the
+# tensor-core tile's 132 and the float32 SIMT tile's 588 before), with 12
+# hidden layers, with a 300-wide head (segmentation_outputs 296), and with
+# rays of 1100 and 2000 interval rows (1101 and 2001 log-bbox fenceposts:
+# past the 1023 the per-ray passes once took).  Each case: (config overrides, fenceposts a ray, rays of
+# the frame tile, rays of the fused step).  The models are
+# ``make_mip_model``'s, their weights as initialised.
+MIP_WIDE_CASES = {
+    "144 features": (dict(encoding_size=48), 64, 4000, MIP_RAYS),
+    "600 features": (dict(encoding_size=200), 64, 4000, MIP_RAYS),
+    "12 layers": (dict(num_hidden_layers=12), 64, 4000, MIP_RAYS),
+    "300-wide head": (dict(segmentation_outputs=296), 64, 4000, MIP_RAYS),
+    "1100 rows": (dict(), 1101, 256, 256),
+    "2000 rows": (dict(), 2001, 256, 256),
+}
+
+
+def check_wide_mip_eval(tag: str, packed, args, got, ref) -> None:
+    """K7 in float32 at a phase-20 shape against its plain version ``ref``
+    on ``args``: rgb, the class log-probabilities and acc element-wise at
+    K7's tolerance; the depth, sum_i w_i t_i, at K7's tolerance relative to
+    the ray's mean termination distance depth / acc instead of to the depth
+    itself (a nearly transparent ray's depth is a sum of tiny weights and
+    takes the MLP's rounding, 3xTF32's within a few 1e-6, as a relative
+    error: PERF.md section 6); and K7's compositing alone, every output
+    element-wise at K7's tolerance against the plain compositing of the
+    kernel's own MLP outputs (K5-fwd on the same rows: the tile K7 runs)."""
+    tol = TOL[mip_train.EVAL_NAME]
+    compare(mip_train.EVAL_NAME, [got[0], got[1], got[3]], [ref[0], ref[1], ref[3]])
+    scale = ref[2].abs() / ref[3].clamp_min(1e-30)
+    ratio = (got[2] - ref[2]).abs() / (tol["atol"] + tol["rtol"] * scale)
+    worst = int(ratio.argmax())
+    print(f"{tag} K7 depth: worst {float(ratio[worst]):.3f} of atol + rtol x depth / acc "
+          f"(kernel {float(got[2][worst]):.7e}, plain {float(ref[2][worst]):.7e}, the ray's acc "
+          f"{float(ref[3][worst]):.4e})", flush=True)
+    check(bool(torch.isfinite(got[2]).all()) and float(ratio.max()) <= 1,
+          f"{tag} K7 depth matches its plain version relative to depth / acc")
+    feat = args[1]
+    mlp = mip_mlp.mip_mlp_fwd(packed, feat.reshape(-1, feat.shape[-1]))
+    own = mip_train.mip_composite_plain(mlp.reshape(*feat.shape[:2], -1), *args[2:])
+    print(f"{tag} K7 against the plain compositing of its own MLP outputs:", flush=True)
+    compare(mip_train.EVAL_NAME, got, own)
+
+
+def mip_wide_case(device, bank, case: str, dtype: str, card: str) -> None:
+    """Phase 20 at one case and dtype: (a) one frame tile through
+    ``render_rays`` (one K7) and (b) one fused step with the seg CE (one
+    K6), each with the counters zeroed just before and read just after,
+    every launch on ``tc`` (``tc_bf16``), against the plain path (float32:
+    the ``use_pallas=False`` model, at phase 7's and phase 8's bounds;
+    bf16: the same model with ``plain_versions()``, at phase 15's); then
+    (c) K7 and K6 on the arguments those calls were handed, K5-fwd on the
+    step's feature rows and K5-bwd on them with uniform random cotangents
+    (without and with the features' cotangent), each against its plain
+    version, timed beside it and its bounds with the card line."""
+    overrides, fenceposts, tile_rays, step_rays = MIP_WIDE_CASES[case]
+    bf16 = dtype == "bfloat16"
+    policy = "tc_bf16" if bf16 else "tc"
+    model = make_mip_model(True, device, compute_dtype=dtype, **overrides)
+    plain = make_mip_model(False, device, **overrides)
+    cfg = model.cfg
+    tag = f"mip {case} {dtype}"
+    render = dataclasses.replace(MIP_RENDER, num_coarse_samples=fenceposts)
+    train_render = dataclasses.replace(MIP_TRAIN_RENDER, num_coarse_samples=fenceposts)
+    gen = torch.Generator(device=device).manual_seed(20)
+    store = {}
+
+    def on_route(what, call, expected):
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        _build.policy_counts.clear()
+        got = call()
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        check(launches == expected, f"{tag} {what}: launched {expected} and nothing else")
+        check_policies(f"{tag} {what}", launches, dict(_build.policy_counts), policy)
+        return got
+
+    # a. A frame tile.
+    pose_o, pose_r = spherical_poses(1, radius=4.0, device=device)
+    rays_o, rays_d = (r.reshape(-1, 3)[:tile_rays] for r in
+                      pose_to_rays(pose_o, pose_r, IMAGE, IMAGE, FOCAL))
+    with torch.no_grad(), capture_args(mip_train, "mip_eval", store):
+        got = on_route("frame tile", lambda: model.render_rays(rays_o, rays_d, render,
+                                                              fused_eval=True),
+                      {mip_train.EVAL_NAME: 1})
+        if bf16:
+            with plain_versions():
+                ref = model.render_rays(rays_o, rays_d, render, fused_eval=True)
+            check_bf16_outputs(f"{tag} frame tile", [got.rgb, got.segmentation],
+                               [ref.rgb, ref.segmentation])
+        else:
+            ref = plain.render_rays(rays_o, rays_d, render, fused_eval=True)
+            compare("mip_frame", [got.rgb, got.segmentation], [ref.rgb, ref.segmentation])
+
+    # b. A fused step against the plain step on the same batch and draws.
+    batch = bank.sample_batch(gen, step_rays)
+    draws = loop.draws_for_model(gen, model, train_render, step_rays, device)
+    with capture_args(mip_train, "mip_train_grads", store):
+        loss, grads, _ = on_route(
+            f"fused step {step_rays}x{fenceposts}",
+            lambda: make_fused_loss_and_grads(model, train_render, SEG_WEIGHT)(batch, draws),
+            {mip_train.TRAIN_NAME: 1})
+    what = f"{tag} fused step {step_rays}x{fenceposts} seg {SEG_WEIGHT}"
+    if bf16:
+        with plain_versions():
+            ref_loss, ref, _ = make_fused_loss_and_grads(model, train_render, SEG_WEIGHT)(
+                batch, draws)
+        check_bf16_outputs(f"{what} loss", [loss], [ref_loss])
+        check_bf16_grads(what, grads, ref)
+    else:
+        with torch.enable_grad():
+            ref_loss, _ = make_loss_fn(plain, train_render, SEG_WEIGHT)(batch, draws)
+        names, params = zip(*plain.named_parameters())
+        ref = dict(zip(names, torch.autograd.grad(ref_loss, params)))
+        compare_grads(what, grads, ref, loss, ref_loss.detach())
+
+    # c. The four kernels on those arguments, each against its plain version.
+    packed = mip_mlp.pack_mip_params(model.mlp.requires_grad_(False))
+    weight_bytes = tensor_bytes(*packed.values())
+    per_row = mip_flops_per_point(cfg)
+    byte_rate = PEAK_BYTES_PER_S / 1e3
+
+    def report(name, call, plain_call, flops, nbytes, chain_rows=0):
+        ms, plain_ms = cuda_ms(call, iters=5), cuda_ms(plain_call, iters=2)
+        chain = chain_rows * 2 * 2 * cfg.num_hidden_layers * cfg.hidden_size * 4
+        print(f"{tag} {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bounds: fp32 "
+              f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} ms, 3xTF32 {flops / PEAK_3XTF32_FLOPS * 1e3:.3f}"
+              f" ms, bf16 {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms, bytes {nbytes / byte_rate:.3f} "
+              f"ms ({(nbytes + chain) / byte_rate:.3f} with the float32 chain); {card}",
+              flush=True)
+
+    with torch.no_grad():
+        args = (packed,) + store["mip_eval"][0][1:]
+        got = on_route("K7", lambda: mip_train.mip_eval(*args), {mip_train.EVAL_NAME: 1})
+        ref = mip_train.mip_eval_plain(*args)
+        if bf16:
+            check_bf16_outputs(f"{tag} {mip_train.EVAL_NAME}", got, ref)
+        else:
+            check_wide_mip_eval(tag, packed, args, got, ref)
+        feat, dists, t_mids = args[1:4]
+        report(f"{mip_train.EVAL_NAME} {feat.shape[0]}x{feat.shape[1]}",
+               lambda: mip_train.mip_eval(*args), lambda: mip_train.mip_eval_plain(*args),
+               feat.shape[0] * feat.shape[1] * per_row,
+               tensor_bytes(feat, dists, t_mids, *got) + weight_bytes)
+
+        args, kwargs = store["mip_train_grads"]
+        args, kwargs = (packed,) + args[1:], without_images(kwargs)
+        got = on_route("K6", lambda: mip_train.mip_train_grads(*args, **kwargs),
+                      {mip_train.TRAIN_NAME: 1})
+        ref = mip_train.mip_train_grads_plain(*args, **kwargs)
+        what = f"{tag} {mip_train.TRAIN_NAME}"
+        if bf16:
+            check_bf16_outputs(f"{what} loss", [got[0] + SEG_WEIGHT * got[1]],
+                               [ref[0] + SEG_WEIGHT * ref[1]])
+            check_bf16_grads(what, got[2], ref[2])
+        else:
+            compare_grads(what, got[2], ref[2], got[0] + SEG_WEIGHT * got[1],
+                          ref[0] + SEG_WEIGHT * ref[1])
+        feat = args[1]
+        rows = feat.shape[0] * feat.shape[1]
+        report(f"{mip_train.TRAIN_NAME} {feat.shape[0]}x{feat.shape[1]}",
+               lambda: mip_train.mip_train_grads(*args, **kwargs),
+               lambda: mip_train.mip_train_grads_plain(*args, **kwargs),
+               train_kernel_flops(cfg, *feat.shape[:2], mip=True),
+               tensor_bytes(*[a for a in args[1:6] if isinstance(a, torch.Tensor)])
+               + 2 * weight_bytes + 8, rows)
+
+        x = feat.reshape(rows, cfg.feature_dim)
+        got = on_route("K5-fwd", lambda: mip_mlp.mip_mlp_fwd(packed, x), {mip_mlp.NAME: 1})
+        ref = mip_mlp.mip_mlp_fwd_plain(packed, x)
+        if bf16:
+            check_bf16_outputs(f"{tag} {mip_mlp.NAME}", [got], [ref])
+        else:
+            compare(mip_mlp.NAME, [got], [ref])
+        report(f"{mip_mlp.NAME} {rows} rows", lambda: mip_mlp.mip_mlp_fwd(packed, x),
+               lambda: mip_mlp.mip_mlp_fwd_plain(packed, x), rows * per_row,
+               tensor_bytes(x, got) + weight_bytes)
+
+        g_out = torch.rand(got.shape, generator=gen, device=device) * 2 - 1
+        for input_grads in (False, True):
+            def call():
+                return mip_mlp.mip_mlp_bwd(packed, x, g_out, input_grads=input_grads)
+
+            def plain_call():
+                return mip_mlp.mip_mlp_bwd_plain(packed, x, g_out, input_grads)
+
+            got = on_route(f"K5-bwd input_grads={input_grads}", call, {mip_mlp.BWD_NAME: 1})
+            ref = plain_call()
+            named = lambda r: {**r[1], **({"dfeat": r[0].float()} if input_grads else {})}  # noqa: E731
+            what = f"{tag} {mip_mlp.BWD_NAME} input_grads={input_grads}"
+            if bf16:
+                check_bf16_grads(what, named(got), named(ref))
+            else:
+                compare_grads(what, named(got), named(ref))
+            report(f"{mip_mlp.BWD_NAME} {rows} rows input_grads={input_grads}", call,
+                   plain_call, train_kernel_flops(cfg, rows, 1, mip=True, input_grads=input_grads),
+                   tensor_bytes(x, g_out, got[0]) + 2 * weight_bytes, rows)
+
+
+def mip_wide_phase(device, bank, card: str) -> None:
+    """Phase 20: ``mip_wide_case`` at every case of ``MIP_WIDE_CASES`` in
+    float32 and bf16."""
+    for case in MIP_WIDE_CASES:
+        for dtype in ("float32", "bfloat16"):
+            mip_wide_case(device, bank, case, dtype, card)
+
 
 # Phase 18: data parallelism (slice 15).  (a) One rank over NCCL in this
 # process: every step's loss and gradients bitwise those of the step
@@ -3650,8 +3879,9 @@ def main() -> int:
     dp_launches = data_parallel_phase(device, bank, mip_keep["bank"], step_ms,
                                       mip_keep["step_ms"], card)
     sp_launches = mesh_phase(device, bank, mip_keep["bank"], card)
+    mip_wide_phase(device, mip_keep["bank"], card)
 
-    # 20. Result lines.
+    # 21. Result lines.
     kernels = [kernel_row(name, launches, **row) for name, (launches, row) in rows.items()]
     for row in kernels:
         row["cli_launches"] = cli_launches.get(row["name"], 0)

@@ -1,8 +1,7 @@
 // Device code of the classic NeRF point MLP: the row-per-warp layout, the
 // layers' epilogues and the heads that the tensor-core tiles of every
-// classic kernel run (tc_mlp.cuh's mlp_tile_tc), and the float32 SIMT
-// product (gemm_acc) that, with the same epilogue and head, carries the
-// mip MLP's SIMT tile (mip_mlp.cuh).
+// classic kernel run (tc_mlp.cuh's mlp_tile_tc; the mip tile's too,
+// mip_mlp.cuh).
 //
 // The network (nerf_tpu_torch/models/mlp.py): ten layers of
 // Linear -> ReLU -> LayerNorm(eps 1e-5),
@@ -17,28 +16,14 @@
 // owns rows 8w..8w+7 for the whole network: each lane holds an 8 x (H/32)
 // register sub-tile of the layer output (columns lane + 32 j), so a row's
 // H values sit in one warp and LayerNorm is a warp reduction in registers
-// (two-pass mean and variance, like torch's).  The activations live in ONE
-// shared-memory buffer [64][H]: a warp only ever reads the rows it writes,
-// and it overwrites them after the block-wide barrier that ends the
-// product, so no ping-pong copy is needed.  Weights, packed (in, out)
-// row-major, stream through a 16-row shared-memory buffer (16 x H x 4
-// bytes) in stages of 8 rows, double-buffered: cp.async copies the next
-// stage while the block multiplies the current one, one barrier a stage.
-// That hides the L2 latency of the weights where one block runs per SM
-// (the training backward); with two blocks per SM (the forward kernels)
-// the other block already hid it.  All of the weights (about 2.5 MB at
-// H = 256) stay resident in L2, so the kernel's device-memory traffic is
-// its inputs and outputs.  Each product
-// step reads a float4 of four k-values of a row (one broadcast per warp)
-// and one weight per column (32 consecutive floats per warp, no bank
-// conflicts), then runs 8 x (H/32) x 4 fp32 FMAs.  Plain fp32 FMA, no TF32:
-// the bound is the card's fp32 rate.
+// (two-pass mean and variance, like torch's).  The products themselves run
+// on the tensor cores (tc_mlp.cuh), their accumulators brought into this
+// layout through the activation tile.
 //
 // compute_dtype="bfloat16" (kBf16, the JAX package's _dot with a bf16
 // dtype): every product's operands, the heads' included, are rounded to
-// bfloat16 (round to nearest even) and multiplied and summed in float32;
-// the encodings arrive as bfloat16 (load_tile widens them exactly).  The
-// LayerNorms, biases and everything else stay float32.
+// bfloat16 (round to nearest even) and multiplied and summed in float32.
+// The LayerNorms, biases and everything else stay float32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -52,8 +37,7 @@ constexpr int kTileRows = 64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kTileRows / kWarps;
-constexpr int kChunk = 16;  // weight rows the staging buffer holds
-constexpr int kStage = kChunk / 2;  // rows per double-buffered stage of gemm_acc
+constexpr int kChunk = 16;  // head rows (outputs) staged at a time (mip_mlp.cuh's head_dh)
 constexpr float kLnEps = 1e-5f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -94,14 +78,6 @@ __device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
   return __uint_as_float(static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(p)))
                          << 16);
-}
-
-// Floats of shared memory the MLP tile uses besides the activation buffer:
-// the weight chunk and the zero-padded x / d input tiles.
-template <int H>
-__host__ inline size_t mlp_side_floats(int xe, int de) {
-  return static_cast<size_t>(kChunk) * H +
-         static_cast<size_t>(kTileRows) * (round_up4(xe) + round_up4(de));
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -167,46 +143,6 @@ __device__ __forceinline__ void cp_async16(float4* dst, const float4* src, bool 
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(valid ? 16 : 0));
-}
-
-// acc += A[rows of this warp, 0:K] @ W[0:K, 0:H].  A is shared memory with
-// row stride lda (a multiple of 4, columns K..round_up4(K) zero); W is
-// global, row-major [K, H], 16-byte aligned.  wbuf holds kChunk x H floats:
-// two stages of kStage rows.  kBf16: compute_dtype bfloat16.  Ends with a
-// block-wide barrier.
-template <int H, bool kBf16 = false>
-__device__ __forceinline__ void gemm_acc(float (&acc)[kRowsPerWarp][H / 32],
-                                         const float* A, int lda, int K,
-                                         const float* __restrict__ W,
-                                         float* wbuf) {
-  constexpr int kVec = kStage * H / 4;  // float4s per stage
-  const int tid = threadIdx.x;
-  const float* a_rows = A + (tid >> 5) * kRowsPerWarp * lda;
-  const int stages = (K + kStage - 1) / kStage;
-  auto copy_stage = [&](int st) {  // stage st -> half st & 1 of wbuf
-    float4* dst = reinterpret_cast<float4*>(wbuf) + (st & 1) * kVec;
-    for (int i = tid; i < kVec; i += kThreads) {
-      const int k = st * kStage + i / (H / 4);
-      const bool ok = k < K;
-      cp_async16(dst + i,
-                 reinterpret_cast<const float4*>(W + static_cast<size_t>(ok ? k : 0) * H) +
-                     i % (H / 4),
-                 ok);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  copy_stage(0);
-  for (int st = 0; st < stages; ++st) {
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    // Stage st has landed for every thread, and every warp is done with
-    // stage st - 1, whose half the next copy overwrites.
-    __syncthreads();
-    if (st + 1 < stages) copy_stage(st + 1);
-    const int k0 = st * kStage;
-    chunk_fma<H, H, kBf16>(acc, a_rows, lda, k0, round_up4(min(kStage, K - k0)),
-                           wbuf + (st & 1) * kStage * H);
-  }
-  __syncthreads();
 }
 
 template <int H>
@@ -283,16 +219,6 @@ __device__ __forceinline__ void layer_epilogue(float (&acc)[kRowsPerWarp][H / 32
       acc[r][j] = kLnFirst ? fmaxf(y, 0.f) : y;
     }
   }
-}
-
-template <int H>
-__device__ __forceinline__ void store_rows(const float (&acc)[kRowsPerWarp][H / 32], float* act) {
-  const int lane = threadIdx.x & 31;
-  float* rows = act + (threadIdx.x >> 5) * kRowsPerWarp * H;
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int j = 0; j < H / 32; ++j) rows[r * H + lane + 32 * j] = acc[r][j];
 }
 
 // out[row * ld + col0 + i] = h[row] . W[:, i] + bias[i] for i < n and the

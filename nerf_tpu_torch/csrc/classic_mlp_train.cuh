@@ -32,9 +32,8 @@
 //
 // Passes 1-3 run their products through a policy: TcProducts (tc_mlp.cuh,
 // 3xTF32 on the tensor cores) for K1-bwd, K2, K3, K8-bwd and K9 at every
-// encoding width.  The mip passes (mip_mlp.cuh) take their own policies on
-// the same pieces: MipTc (K5-fwd, K5-bwd, K6, K7) and MipSimt (their
-// forward tile where the features are too wide for the tensor-core one).
+// encoding width.  The mip passes (mip_mlp.cuh) take their own policy on
+// the same pieces, MipTc (K5-fwd, K5-bwd, K6, K7), at every feature width.
 //
 // The flat gradient the passes produce is the packed weights' order
 // (ops/kernels/classic_mlp.py): w0, wx, wd, whh | b, g, beta, w_dens,
@@ -228,7 +227,7 @@ __device__ void layer_bwd(float (&acc)[kRowsPerWarp][H / 32], int i,
 
 constexpr int kWT = 128;  // output tile edge
 constexpr int kWK = 16;   // points per staged step
-constexpr int kMaxProds = 12;
+constexpr int kMaxProds = 12;  // products of one wgrad launch
 
 // One weight slab's product.  The left operand is the raw encoding a
 // ([rows / div][a_ld], g == nullptr) or a layer's output rebuilt from its
@@ -292,13 +291,6 @@ inline cudaError_t colsum(const float* in, int T, size_t F, float* out, float* t
 // ---------------------------------------------------------------------------
 // Host side.
 // ---------------------------------------------------------------------------
-
-// Bytes of shared memory of the float32 SIMT forward tile (mip_mlp.cuh's
-// MipSimt): the activation tile, the weight chunk and the input tiles.
-template <int H>
-__host__ inline size_t fwd_store_smem(int xe, int de) {
-  return (static_cast<size_t>(kTileRows) * H + mlp_side_floats<H>(xe, de)) * sizeof(float);
-}
 
 // Pass 1 on the P rows of a call, their encodings from `load`; the
 // chain's rows base .. base + P - 1 of `stride` (the policy's fwd_store).

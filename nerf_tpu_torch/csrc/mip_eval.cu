@@ -10,23 +10,24 @@
 // per-ray results to every row of the ray.
 //
 // Bound: operations.  300,544 multiply-adds per row at the full-width model
-// (H = 256, F = 96, 5 layers, O = 54): a 4000-ray tile of 63 rows is
-// 1.515e11 FLOP, 2.261 ms at the float32 SIMT rate (67 TFLOP/s), 0.918 ms
-// as three TF32 products on the tensor cores (FLOP / 165 TFLOP/s); its
-// bytes (384 per row of features, 12 of distance and midpoint, 220 per ray
-// of output) take under 0.1 ms.
+// (H = 256, F = 96, 5 layers, O = 54; 256 F + 275,968 at other feature
+// widths): a 4000-ray tile of 63 rows is 1.515e11 FLOP, 2.261 ms at the
+// float32 SIMT rate (67 TFLOP/s), 0.918 ms as three TF32 products on the
+// tensor cores (FLOP / 165 TFLOP/s); its bytes (384 per row of features,
+// 12 of distance and midpoint, 220 per ray of output) take under 0.1 ms.
 //
 // Design: the mip forward (mip_mlp.cuh, MipTc: every hidden and feature
 // product as 3xTF32 wgmma on the forward images the wrapper builds once a
-// frame, mip_fwd_tc_kernel, one block an SM; LayerNorm and the 54-wide
-// head float32; the float32 SIMT tile, mip_fwd_kernel, where the features
-// are too wide for it, tc_mlp.cuh note 9) writes the head's outputs [R*n][O]
-// to a scratch buffer (0.1 ms of traffic each way at this shape), then one
-// warp per ray composites: the transmittances as a warp scan
-// (ray_transmittance), rgb, depth and acc by runs of rows per lane, each
-// row's log-sum-exp over the classes by the lane that owns the row, and
-// then the classes across the lanes, each lane a class, with the max and
-// the exp-sum over the rows in two passes.
+// frame, mip_fwd_tc_kernel, one block an SM, the features streamed through
+// the tile at every width; LayerNorm and the head float32) writes the
+// head's outputs [R*n][O] to a scratch buffer (0.1 ms of traffic each way
+// at this shape), then one warp per ray composites: the transmittances as
+// a warp scan (ray_transmittance), rgb, depth and acc by runs of rows per
+// lane, each row's log-sum-exp over the classes by the lane that owns the
+// row, and then the classes across the lanes, each lane a class, with the
+// max and the exp-sum over the rows in two passes.  A ray's 4 n floats of
+// scratch sit in device memory (ray_scratch, from the wrapper), so a ray
+// may hold any number of rows.
 //
 // mip_eval_bf16 is the same in compute_dtype bfloat16 (MipTcBf16, tc_mlp.cuh
 // note 10): bfloat16 features and images, every product and the head on
@@ -42,19 +43,19 @@ namespace {
 using namespace nerf_mlp;
 
 // out [R*n][O] is the MLP output; per_ray [R][C + K + 2].  Scratch: 4 n
-// floats per warp.
+// floats a ray, ray r's at scratch + 4 n r.
 __global__ void __launch_bounds__(kThreads)
     mip_eval_rays_kernel(const float* __restrict__ out, const float* __restrict__ dists,
                          const float* __restrict__ t_mids, const float* __restrict__ noise,
-                         int R, int n, int C, int O, int white, float* __restrict__ per_ray) {
-  extern __shared__ float scratch[];
+                         int R, int n, int C, int O, int white, float* __restrict__ per_ray,
+                         float* __restrict__ scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ray = blockIdx.x * kWarps + warp;
   if (ray >= R) return;
   const int K = O - 1 - C;
   const size_t base = static_cast<size_t>(ray) * n;
   const float* o = out + base * O;
-  float* al = scratch + warp * 4 * n;  // alpha
+  float* al = scratch + 4 * base;  // alpha
   float* tr = al + n;                  // transmittance
   float* lw = tr + n;                  // log(w + 1e-10)
   float* lse = lw + n;                 // log-sum-exp of the row's class logits
@@ -115,16 +116,12 @@ __global__ void __launch_bounds__(kThreads)
 template <int H, class Products>
 cudaError_t run(const MipWeights& w, const void* x, const float* dists, const float* t_mids,
                 const float* noise, int R, int n, int C, int white, float* per_ray,
-                float* mlp_out, const float* tc_fwd, cudaStream_t stream) {
-  cudaError_t err = Products::template fwd<H, false>(w, x, mlp_out, R * n, nullptr, nullptr,
-                                                     tc_fwd, stream);
+                float* mlp_out, float* ray_scratch, const float* tc_fwd, cudaStream_t stream) {
+  const cudaError_t err =
+      Products::template fwd<H, false>(w, x, mlp_out, R * n, nullptr, nullptr, tc_fwd, stream);
   if (err != cudaSuccess) return err;
-  const size_t smem = static_cast<size_t>(kWarps) * 4 * n * sizeof(float);
-  err = cudaFuncSetAttribute(mip_eval_rays_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  mip_eval_rays_kernel<<<(R + kWarps - 1) / kWarps, kThreads, smem, stream>>>(
-      mlp_out, dists, t_mids, noise, R, n, C, w.O, white, per_ray);
+  mip_eval_rays_kernel<<<(R + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      mlp_out, dists, t_mids, noise, R, n, C, w.O, white, per_ray, ray_scratch);
   return cudaGetLastError();
 }
 
@@ -133,14 +130,14 @@ int run_at(const void* x, const float* dists, const float* t_mids, const float* 
            float* per_ray, int R, int n, int F, int hidden, int L, int C, int O, int white,
            const float* w_in, const float* whh, const float* b, const float* g,
            const float* beta, const float* w_out, const float* b_out, float* mlp_out,
-           const void* tc_fwd, void* stream) {
+           float* ray_scratch, const void* tc_fwd, void* stream) {
   if (L < 2 || C < 1 || C > kMaxColors || O < C + 2) return cudaErrorInvalidValue;
   const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
   const float* img = static_cast<const float*>(tc_fwd);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H)                                                                      \
   static_cast<int>(run<H, Products>(w, x, dists, t_mids, noise, R, n, C, white, per_ray,    \
-                                    mlp_out, img, st))
+                                    mlp_out, ray_scratch, img, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }
@@ -151,10 +148,10 @@ extern "C" int mip_eval(const float* x, const float* dists, const float* t_mids,
                         const float* noise, float* per_ray, int R, int n, int F, int hidden,
                         int L, int C, int O, int white, const float* w_in, const float* whh,
                         const float* b, const float* g, const float* beta, const float* w_out,
-                        const float* b_out, float* mlp_out, const float* tc_fwd,
-                        void* stream) {
+                        const float* b_out, float* mlp_out, float* ray_scratch,
+                        const float* tc_fwd, void* stream) {
   return run_at<MipTc>(x, dists, t_mids, noise, per_ray, R, n, F, hidden, L, C, O, white, w_in,
-                       whh, b, g, beta, w_out, b_out, mlp_out, tc_fwd, stream);
+                       whh, b, g, beta, w_out, b_out, mlp_out, ray_scratch, tc_fwd, stream);
 }
 
 // The same in compute_dtype bfloat16: x and tc_fwd are bfloat16.
@@ -163,15 +160,10 @@ extern "C" int mip_eval_bf16(const void* x, const float* dists, const float* t_m
                              int hidden, int L, int C, int O, int white, const float* w_in,
                              const float* whh, const float* b, const float* g,
                              const float* beta, const float* w_out, const float* b_out,
-                             float* mlp_out, const void* tc_fwd, void* stream) {
+                             float* mlp_out, float* ray_scratch, const void* tc_fwd,
+                             void* stream) {
   return run_at<MipTcBf16>(x, dists, t_mids, noise, per_ray, R, n, F, hidden, L, C, O, white,
-                           w_in, whh, b, g, beta, w_out, b_out, mlp_out, tc_fwd, stream);
+                           w_in, whh, b, g, beta, w_out, b_out, mlp_out, ray_scratch, tc_fwd,
+                           stream);
 }
 
-// The plan of K7's forward tile for F = xe features (de must be 0: the mip
-// tile has no view encodings): out = [policy (0 tensor cores, 1 float32
-// SIMT, 2 neither fits), tensor-core bytes, SIMT bytes, the device's limit].
-extern "C" int mip_eval_plan(int xe, int de, int hidden, long long* out) {
-  if (de != 0) return cudaErrorInvalidValue;
-  return static_cast<int>(fwd_store_plan_at(xe, 0, hidden, out));
-}

@@ -10,38 +10,38 @@
 // The TPU kernels (fused_mip_mlp.py, fused_mip_train.py) keep all weights
 // and a tile's whole chain in VMEM.  Here the passes are the classic MLP's
 // (classic_mlp.cuh, classic_mlp_train.cuh, tc_mlp.cuh), instantiated for
-// this chain, their products through a policy as the classic passes':
-// MipTc (3xTF32 wgmma on the tensor cores; K5-fwd, K5-bwd, K6 and K7,
-// whose forward tile gives way to MipSimt's, the float32 SIMT forward
-// tile, where the features are too wide for it, tc_mlp.cuh note 9):
-//   * the forward tile: 64 rows per block of 8 warps, the epilogue in
-//     registers with the LayerNorm first (layer_epilogue<kLnFirst>), and the
-//     54-wide head as a register-tiled float32 product (head_wide); with
-//     kSave it stores every layer's xhat and (1/sigma, -mu/sigma) for the
-//     backward.  The products: gemm_acc (weights streamed from L2 in
-//     double-buffered 8-row stages; mip_tile, two blocks an SM) or tc_gemm
-//     on the operand images (mip_tile_tc, one block an SM);
-//   * bwd_rows: the head's input cotangent (head_dh, float32, the head's
-//     weights staged transposed), then per layer the mask on the rebuilt
-//     LayerNorm output xhat * g + beta > 0 and the LayerNorm backward
-//     (layer_bwd<kLnFirst>), and dh = dpre @ W^T as tc_gemm on the slabs'
-//     backward images (mip_bwd_rows_tc_kernel, which also writes the
-//     features' cotangent where asked: tc_input_grad);
+// this chain, their products through the policy MipTc (3xTF32 wgmma on the
+// tensor cores; K5-fwd, K5-bwd, K6 and K7):
+//   * the forward tile: 64 rows per block of 8 warps, the classic tile
+//     (tc_mlp.cuh) with the features as its one encoding, streamed through
+//     the encodings' ring a k-chunk at a time (MipFeatLoadT) and read by
+//     layer 0 only, so its bytes are tc_tile_bytes at every feature width
+//     (note 9); the epilogue in registers with the LayerNorm first
+//     (layer_epilogue<kLnFirst>), and the head as a register-tiled float32
+//     product (head_wide) over 64-column blocks of any width; with kSave it
+//     stores every layer's xhat and (1/sigma, -mu/sigma) for the backward;
+//   * bwd_rows: the head's input cotangent (head_dh, float32, the output
+//     cotangents and the head's weights staged a chunk of 16 outputs at a
+//     time, so any head width takes the same bytes), then per layer the
+//     mask on the rebuilt LayerNorm output xhat * g + beta > 0 and the
+//     LayerNorm backward (layer_bwd<kLnFirst>), and dh = dpre @ W^T as
+//     tc_gemm on the slabs' backward images (mip_bwd_rows_tc_kernel, which
+//     also writes the features' cotangent where asked: tc_input_grad);
 //   * wgrad: every dW as a product over the points, the head's too (its
 //     left operand relu(xhat * g + beta) of the last layer, its right one
-//     the output cotangents: N = O, not a multiple of 4), then colsum of the
-//     partials in a fixed order.
+//     the output cotangents: N = O, not a multiple of 4), launched in
+//     groups of kMaxProds products (any number of layers), then colsum of
+//     the partials in a fixed order.
 // The flat gradient: w_in, whh, w_out | b, g, beta, b_out.
 //
 // compute_dtype="bfloat16" (the template parameter kBf16 of the tiles, the
 // kernels and MipTcT; tc_mlp.cuh note 10): the features arrive as bfloat16
-// (load_tile widens them exactly), the products are bf16 wgmma on bf16
+// (staged as the pairs they are), the products are bf16 wgmma on bf16
 // images (tc_gemm<N, true>), and the head rounds its operands as head<H,
 // true> does: head_wide rounds h and W, head_dh the output cotangents and
 // W (their b_out sums stay float32).  wgrad is TcProductsT<true>'s, on the
 // bf16 raw features (WProd::a_bf16), and K5-bwd's features' cotangent is
-// written as bfloat16, the features' dtype.  Past the tensor-core tile
-// the SIMT tile rounds its operands likewise (gemm_acc<H, true>).
+// written as bfloat16, the features' dtype.
 #pragma once
 
 #include "tc_mlp.cuh"
@@ -86,13 +86,13 @@ __host__ __device__ inline size_t mip_tile_floats(const MipWeights& w, int H) {
 // valid rows: a head wider than the classic ones (W row-major [H, n]).  A
 // dot product per output across the warp would cost five shuffles a row
 // and output; instead h goes through act (each warp its own rows, row
-// stride LD: H in the SIMT tile, act_ld<H>() in the tensor-core one, whose
-// other warps may still be reading their rows of act at that stride) and
-// each lane accumulates columns c0 + lane and c0 + 32 + lane of a 64-column
-// block, W staged through wbuf (kChunk x H floats) in chunks of H / 4 rows
-// x 64 columns, read once per block.  kBf16: h and W rounded to bfloat16
-// as they are staged (the JAX package's _dot on the head).
-template <int H, int LD = H, bool kBf16 = false>
+// stride LD = act_ld<H>(), at which other warps may still be reading their
+// rows of act) and each lane accumulates columns c0 + lane and c0 + 32 +
+// lane of a 64-column block, W staged through wbuf (kChunk x H floats) in
+// chunks of H / 4 rows x 64 columns, read once per block; any n takes
+// ceil(n / 64) blocks.  kBf16: h and W rounded to bfloat16 as they are
+// staged (the JAX package's _dot on the head).
+template <int H, int LD, bool kBf16 = false>
 __device__ void head_wide(const float (&h)[kRowsPerWarp][H / 32], float* act, float* wbuf,
                           const float* __restrict__ W, const float* __restrict__ bias, int n,
                           float* out, int nvalid) {
@@ -144,46 +144,54 @@ __device__ void head_wide(const float (&h)[kRowsPerWarp][H / 32], float* act, fl
   }
 }
 
-// The whole network on one 64-row tile whose features are already in
-// shared memory (xs, rows of round_up4(F) floats; see load_tile).  Writes
-// the O outputs of the tile's valid rows to out (row stride O).  act is the
-// [64][H] activation buffer, wbuf the [kChunk][H] weight chunk.  kBf16:
-// every product's operands, the head's included, rounded to bfloat16.
-template <int H, bool kSave, bool kBf16 = false>
-__device__ void mip_tile(const MipWeights& w, const float* xs, float* act, float* wbuf,
-                         float* out, int nvalid, const Save* save) {
-  const size_t hh = static_cast<size_t>(H) * H;
-  float acc[kRowsPerWarp][H / 32];
-  zero<H>(acc);
-  gemm_acc<H, kBf16>(acc, xs, round_up4(w.F), w.F, w.w_in, wbuf);
-  layer_epilogue<H, kSave, true>(acc, w.b, w.g, w.beta, save, 0);
-  for (int i = 1; i < w.L; ++i) {
-    store_rows<H>(acc, act);
-    zero<H>(acc);
-    gemm_acc<H, kBf16>(acc, act, H, H, w.whh + (i - 1) * hh, wbuf);
-    layer_epilogue<H, kSave, true>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
+// The features x [P][F] of a mip call as the tile's one encoding (an EncA
+// loader, tc_mlp.cuh note 9): chunk c of the tile's rows through stage_enc,
+// float32 values or the bfloat16 pairs as stored (T, the compute dtype's).
+template <class T>
+struct MipFeatLoadT {
+  const T* x;
+  template <bool kBf16>
+  __device__ __forceinline__ void stage(const MipWeights& w, int, int c, size_t row0, int nvalid,
+                                        bool, float* slab) const {
+    stage_enc<kBf16>(slab, x, w.F, 1, c, row0, nvalid);
   }
-  head_wide<H, H, kBf16>(acc, act, wbuf, w.w_out, w.b_out, w.O, out, nvalid);
-}
+};
 
-// mip_tile with the products on the tensor cores (mlp_tile_tc's order,
-// tc_mlp.cuh): layer 0 is tc_gemm on the feature tile xs, layers 1..L-1 on
-// the activation tile act ([64][act_ld<H>()]) with the hidden slabs'
-// forward images; each product's accumulators go through act into the
-// row-per-warp layout, where layer_epilogue<kLnFirst> runs as in mip_tile.
-// The head stays on the SIMT cores (head_wide), its weights staged through
-// the B chunk buffers bbuf, free once the last product has retired
-// (tc_gemm ends with every wgmma waited for and a block-wide barrier).
-// kBf16: bf16 images and products, the head's operands rounded (note 10).
-template <int H, bool kSave, bool kBf16 = false>
-__device__ void mip_tile_tc(const MipWeights& w, const MipImages& im, const float* xs,
-                            float* act, float* bbuf, float* out, int nvalid, const Save* save) {
+// The mip features' product sums its bf16 chunks in one pipelined
+// accumulator at every width (tc_gemm's kChunkedSums): at 96 features
+// (three chunks) that is the arithmetic the kernels had with the features
+// resident, and at 600 (19 chunks) the kernels stay well inside the
+// card's bf16 bounds either way.  On an H100, 16,128 rows: K5-bwd's
+// gradients with dfeat 5.1e-3 from the plain bf16 version pipelined, 4.1e-3
+// chunked, the plain version's own float64-sum distance 4.2e-3, against
+// 2e-2; K7 2.2e-4 and 1.2e-4 against 1e-2
+// (scripts/torch_bf16_sensitivity.py --family mip-widths).
+template <class T>
+inline constexpr bool kChunkedSums<MipFeatLoadT<T>> = false;
+
+// The whole network on one 64-row tile on the tensor cores (mlp_tile_tc's
+// order, tc_mlp.cuh): layer 0 is tc_gemm on the features that `load`
+// streams through the ring (EncA), layers 1..L-1 on the activation tile act
+// ([64][act_ld<H>()]) with the hidden slabs' forward images; each product's
+// accumulators go through act into the row-per-warp layout, where
+// layer_epilogue<kLnFirst> runs.  The head stays on the SIMT cores
+// (head_wide), its weights staged through the B chunk buffers bbuf, free
+// once the last product has retired (tc_gemm ends with every wgmma waited
+// for and a block-wide barrier).  Writes the O outputs of the tile's valid
+// rows to out (row stride O); with kSave every layer's xhat and statistics
+// go to save.  kBf16: bf16 images and products, the head's operands
+// rounded (note 10).
+template <int H, bool kSave, bool kBf16, class Load>
+__device__ void mip_tile_tc(const MipWeights& w, const MipImages& im, const Load& load,
+                            size_t row0, int nvalid, float* act, float* ring, float* bbuf,
+                            float* out, const Save* save) {
   constexpr int ald = act_ld<H>();
   const size_t slab = tc_image_floats<kBf16>(H, H);
   float d[H / 4];
   float acc[kRowsPerWarp][H / 32];
   tc_zero<H>(d);
-  tc_gemm<H, kBf16>(d, xs, round_up4(w.F), w.F, im.w_in, bbuf);
+  tc_gemm<H, kBf16>(d, EncA<Load, MipWeights>{load, w, 0, row0, nvalid, true, ring}, w.F,
+                    im.w_in, bbuf);
   tc_to_rows<H>(d, act, acc);
   layer_epilogue<H, kSave, true>(acc, w.b, w.g, w.beta, save, 0);
   for (int i = 1; i < w.L; ++i) {
@@ -196,29 +204,9 @@ __device__ void mip_tile_tc(const MipWeights& w, const MipImages& im, const floa
   head_wide<H, ald, kBf16>(acc, act, bbuf, w.w_out, w.b_out, w.O, out, nvalid);
 }
 
-// The forward over features x [P][F] in 64-row tiles -> out [P][O].  With
-// kSave every layer's xhat [L][P][H] and statistics [L][P][2] are stored
-// for the backward passes.  Two blocks per SM (at most 128 registers).
-// kBf16: bfloat16 features, the products' operands rounded.
-template <int H, bool kSave, bool kBf16 = false>
-__global__ void __launch_bounds__(kThreads, 2)
-    mip_fwd_kernel(MipWeights w, const enc_t<kBf16>* __restrict__ x, float* __restrict__ out,
-                   int P, float* xhat, float* stats) {
-  extern __shared__ float4 smem4[];
-  float* act = reinterpret_cast<float*>(smem4);
-  float* wbuf = act + kTileRows * H;
-  float* xs = wbuf + kChunk * H;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
-  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  load_tile(xs, x, row0, nvalid, w.F, 1);
-  __syncthreads();
-  const Save save{xhat, stats, static_cast<size_t>(P), row0, nvalid};
-  mip_tile<H, kSave, kBf16>(w, xs, act, wbuf, out + row0 * w.O, nvalid, &save);
-}
-
-// The tensor-core forward tile of a block: the B chunks, the activation
-// tile and the features, in tc_tile_bytes<H>(F, 0) (fwd_store's layout
-// without the view encodings).  kBf16: bfloat16 features and images.
+// The forward tile of a block: the B chunks, the activation tile and the
+// features' ring, in tc_tile_bytes<H>() (fwd_store's layout) at every
+// feature width.  kBf16: bfloat16 features and images.
 template <int H, bool kSave, bool kBf16>
 __device__ __forceinline__ void mip_fwd_tc_block(const MipWeights& w, const MipImages& im,
                                                  const enc_t<kBf16>* x, float* out, int P,
@@ -226,17 +214,17 @@ __device__ __forceinline__ void mip_fwd_tc_block(const MipWeights& w, const MipI
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);
   float* act = bbuf + tc_bbuf_floats<H>();
-  float* xs = act + kTileRows * act_ld<H>();
+  float* ring = act + kTileRows * act_ld<H>();
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  load_tile(xs, x, row0, nvalid, w.F, 1);
-  __syncthreads();
   const Save save{xhat, stats, static_cast<size_t>(P), row0, nvalid};
-  mip_tile_tc<H, kSave, kBf16>(w, im, xs, act, bbuf, out + row0 * w.O, nvalid, &save);
+  mip_tile_tc<H, kSave, kBf16>(w, im, MipFeatLoadT<enc_t<kBf16>>{x}, row0, nvalid, act, ring,
+                               bbuf, out + row0 * w.O, &save);
 }
 
-// K6's stored-chain forward on the tensor cores (mip_fwd_kernel<H, true>'s
-// contract).  One block an SM.
+// K6's and K5-bwd's stored-chain forward over features x [P][F] -> out
+// [P][O], every layer's xhat [L][P][H] and statistics [L][P][2] stored for
+// the backward passes.  One block an SM.
 template <int H, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     mip_fwd_store_tc_kernel(MipWeights w, MipImages im, const enc_t<kBf16>* __restrict__ x,
@@ -244,8 +232,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   mip_fwd_tc_block<H, true, kBf16>(w, im, x, out, P, xhat, stats);
 }
 
-// K7's and K5-fwd's forward on the tensor cores, nothing saved
-// (mip_fwd_kernel<H, false>'s contract).  One block an SM.
+// K7's and K5-fwd's forward, nothing saved.  One block an SM.
 template <int H, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     mip_fwd_tc_kernel(MipWeights w, MipImages im, const enc_t<kBf16>* __restrict__ x,
@@ -253,56 +240,49 @@ __global__ void __launch_bounds__(kThreads, 1)
   mip_fwd_tc_block<H, false, kBf16>(w, im, x, out, P, nullptr, nullptr);
 }
 
-// acc += gs[:, 0:n] @ W^T for this warp's rows: the input cotangent of a
-// head W, row-major [H, n], from its output cotangents gs (shared memory,
-// row stride ldg, a multiple of 4 with columns n..ldg zero).  W^T streams
-// through wbuf (kChunk rows of H + 1 floats, the padding against bank
-// conflicts of the transposing stores) in chunks of kChunk outputs, read
-// once per block.  Ends with a
-// block-wide barrier.  kBf16: gs and W rounded to bfloat16 in the product
-// (the JAX package's _dot_t on the head).
+// acc += gout[tile rows, 0:O] @ W^T for this warp's rows, and the tile's
+// column sums of gout to p_bout: the head's input cotangent and its b_out
+// partials, W (row-major [H, O]) the head's weights.  Per chunk of kChunk
+// outputs the chunk's output cotangents go through gs ([64][kChunk], zero
+// past the valid rows and past O) and W^T's chunk through wbuf (kChunk rows
+// of H + 1 floats, the padding against bank conflicts of the transposing
+// stores), each read once per block, so every head width takes the same
+// shared memory.  Ends with a block-wide barrier.  kBf16: the output
+// cotangents and W rounded to bfloat16 in the product (the JAX package's
+// _dot_t on the head); the b_out sums stay float32.
 template <int H, bool kBf16 = false>
-__device__ void head_dh(float (&acc)[kRowsPerWarp][H / 32], const float* gs, int ldg, int n,
-                        const float* __restrict__ W, float* wbuf) {
-  const float* a_rows = gs + (threadIdx.x >> 5) * kRowsPerWarp * ldg;
-  for (int q0 = 0; q0 < n; q0 += kChunk) {
+__device__ void head_dh(float (&acc)[kRowsPerWarp][H / 32], const float* __restrict__ gout,
+                        int O, size_t row0, int nvalid, const float* __restrict__ W,
+                        float* wbuf, float* gs, float* p_bout) {
+  const float* a_rows = gs + (threadIdx.x >> 5) * kRowsPerWarp * kChunk;
+  for (int q0 = 0; q0 < O; q0 += kChunk) {
+    for (int i = threadIdx.x; i < kTileRows * kChunk; i += kThreads) {
+      const int r = i / kChunk, q = q0 + i % kChunk;
+      gs[i] = r < nvalid && q < O ? gout[(row0 + r) * O + q] : 0.f;
+    }
     for (int i = threadIdx.x; i < kChunk * H; i += kThreads) {
       const int j = i / kChunk, qq = i % kChunk;
-      wbuf[qq * (H + 1) + j] = q0 + qq < n ? __ldg(W + static_cast<size_t>(j) * n + q0 + qq) : 0.f;
+      wbuf[qq * (H + 1) + j] = q0 + qq < O ? __ldg(W + static_cast<size_t>(j) * O + q0 + qq) : 0.f;
     }
     __syncthreads();
-    chunk_fma<H, H + 1, kBf16>(acc, a_rows, ldg, q0, min(kChunk, round_up4(n - q0)), wbuf);
+    if (threadIdx.x < kChunk && q0 + static_cast<int>(threadIdx.x) < O) {
+      float s = 0.f;
+      for (int r = 0; r < kTileRows; ++r) s += gs[r * kChunk + threadIdx.x];
+      p_bout[q0 + threadIdx.x] = s;
+    }
+    chunk_fma<H, H + 1, kBf16>(acc, a_rows, kChunk, 0, min(kChunk, round_up4(O - q0)), wbuf);
     __syncthreads();
-  }
-}
-
-// The start of mip_bwd_rows_tc_kernel: the tile's output cotangents gout
-// [P][O] into gs [64][round_up4(O)] (zero past the valid rows and past O)
-// and their column sums to the tile's b_out partials p_bout (float32 in
-// bf16 too: head_dh rounds the cotangents it multiplies).
-__device__ __forceinline__ void load_head_cotangents(const MipWeights& w, const float* gout,
-                                                     size_t row0, int nvalid, float* gs,
-                                                     float* p_bout) {
-  const int O = w.O, ldg = round_up4(O);
-  for (int i = threadIdx.x; i < kTileRows * ldg; i += kThreads) {
-    const int r = i / ldg, c = i % ldg;
-    gs[i] = r < nvalid && c < O ? gout[(row0 + r) * O + c] : 0.f;
-  }
-  __syncthreads();
-  if (threadIdx.x < O) {
-    float s = 0.f;
-    for (int r = 0; r < kTileRows; ++r) s += gs[r * ldg + threadIdx.x];
-    p_bout[threadIdx.x] = s;
   }
 }
 
 // Bytes of shared memory of mip_bwd_rows_tc_kernel: the B chunks (also the
 // head's transposed weight chunks and the colsum scratch), the activation
-// tile, the output cotangents and the alignment slack.
+// tile, a chunk of the output cotangents and the alignment slack, at every
+// head width.
 template <int H>
-__host__ inline size_t mip_bwd_rows_tc_smem(const MipWeights& w) {
+__host__ constexpr size_t mip_bwd_rows_tc_smem() {
   return (static_cast<size_t>(tc_bbuf_floats<H>()) + static_cast<size_t>(kTileRows) * act_ld<H>() +
-          static_cast<size_t>(kTileRows) * round_up4(w.O)) *
+          static_cast<size_t>(kTileRows) * kChunk) *
              sizeof(float) +
          kSmemAlign;
 }
@@ -324,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);          // B chunks, head chunks or colsum scratch
   float* act = bbuf + tc_bbuf_floats<H>();    // dpre of the current layer
-  float* gs = act + kTileRows * act_ld<H>();  // [64][ldg] output cotangents
+  float* gs = act + kTileRows * act_ld<H>();  // [64][kChunk] output cotangents
   const int L = w.L;
   const size_t slab = tc_image_floats<kBf16>(H, H), PP = static_cast<size_t>(P);
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
@@ -332,12 +312,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* p_b = tpart + blockIdx.x * mip_tile_floats(w, H);
   float* p_g = p_b + L * H;
   float* p_beta = p_g + L * H;
-  load_head_cotangents(w, gout, row0, nvalid, gs, p_beta + L * H);
 
   float acc[kRowsPerWarp][H / 32];
   float d[H / 4];
   zero<H>(acc);
-  head_dh<H, kBf16>(acc, gs, round_up4(w.O), w.O, w.w_out, bbuf);
+  head_dh<H, kBf16>(acc, gout, w.O, row0, nvalid, w.w_out, bbuf, gs, p_beta + L * H);
   for (int i = L - 1; i >= 0; --i) {
     layer_bwd<H, true>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats,
                        dpre, p_b, p_g, p_beta, bbuf);
@@ -357,37 +336,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 // The policies (TcProducts' counterparts for this chain).
 // ---------------------------------------------------------------------------
 
-// The float32 SIMT forward tile (K5-fwd's, K5-bwd's, K6's and K7's
-// forward where the features are too wide for the tensor-core tile).
-// kBf16: bfloat16 features x, the products' operands rounded to bfloat16.
-struct MipSimt {
-  template <int H, bool kSave, bool kBf16 = false>
-  static cudaError_t fwd(const MipWeights& w, const enc_t<kBf16>* x, float* out, int P,
-                         float* xhat, float* stats, const float* /*tc_fwd*/,
-                         cudaStream_t stream) {
-    const size_t smem = fwd_store_smem<H>(w.F, 0);
-    cudaError_t err = cudaFuncSetAttribute(mip_fwd_kernel<H, kSave, kBf16>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const int tiles = (P + kTileRows - 1) / kTileRows;
-    mip_fwd_kernel<H, kSave, kBf16><<<tiles, kThreads, smem, stream>>>(w, x, out, P, xhat,
-                                                                        stats);
-    return cudaGetLastError();
-  }
-};
-
 // The 3xTF32 passes (K5-fwd, K5-bwd, K6, K7) on the call's operand images:
 // tc_fwd, the forward images (MipImages), and the Scratch's tc_bwd, the
 // backward images (the hidden slabs', then w_in's for the features'
 // cotangent).  fwd is the forward over features x [P][F] -> out [P][O],
-// with kSave also the chain for the backward (xhat, stats); its tile takes
-// fwd_store's bytes without the view encodings, so fwd_store's plan at (F,
-// 0) decides it (the width rule, tc_mlp.cuh note 9): MipSimt's tile runs
-// where the tensor-core one does not fit.  kBf16: compute_dtype bfloat16
-// (note 10): bfloat16 features and images, bf16 products and head, the
-// bf16-rounding SIMT tile past the tensor-core one, TcProductsT<true>'s
-// wgrad, and the features' cotangent bfloat16.
+// with kSave also the chain for the backward (xhat, stats), on the one
+// tile of tc_tile_bytes at every feature width (tc_mlp.cuh note 9): the
+// launcher opts in to those bytes and returns the runtime's error on a
+// device that allows fewer.  kBf16: compute_dtype bfloat16 (note 10):
+// bfloat16 features and images, bf16 products and head,
+// TcProductsT<true>'s wgrad, and the features' cotangent bfloat16.
 template <bool kBf16_ = false>
 struct MipTcT {
   static constexpr bool kBf16 = kBf16_;
@@ -396,16 +354,12 @@ struct MipTcT {
   template <int H, bool kSave>
   static cudaError_t fwd(const MipWeights& w, const void* xv, float* out, int P, float* xhat,
                          float* stats, const float* tc_fwd, cudaStream_t stream) {
+    if (tc_fwd == nullptr) return cudaErrorInvalidValue;
     const Feat* x = static_cast<const Feat*>(xv);
-    TilePolicy policy;
-    cudaError_t err = fwd_store_plan<H>(w.F, 0, &policy);
-    if (err != cudaSuccess) return err;
-    if (policy == kTileSimt)
-      return MipSimt::fwd<H, kSave, kBf16>(w, x, out, P, xhat, stats, tc_fwd, stream);
-    if (policy == kTileNone || tc_fwd == nullptr) return cudaErrorInvalidValue;
-    const size_t smem = tc_tile_bytes<H>(w.F, 0);
+    constexpr size_t smem = tc_tile_bytes<H>();
     const MipImages im = MipImages::forward<kBf16>(w, tc_fwd, H);
     const int tiles = (P + kTileRows - 1) / kTileRows;
+    cudaError_t err;
     if constexpr (kSave) {
       err = cudaFuncSetAttribute(mip_fwd_store_tc_kernel<H, kBf16>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -425,7 +379,7 @@ struct MipTcT {
   static cudaError_t bwd_rows(const MipWeights& w, const float* gout, int P, const Scratch& s,
                               void* dx, cudaStream_t stream) {
     if (s.tc_bwd == nullptr) return cudaErrorInvalidValue;
-    const size_t smem = mip_bwd_rows_tc_smem<H>(w);
+    constexpr size_t smem = mip_bwd_rows_tc_smem<H>();
     cudaError_t err = cudaFuncSetAttribute(mip_bwd_rows_tc_kernel<H, kBf16>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
@@ -464,27 +418,38 @@ cudaError_t launch_mip_backward(const MipWeights& w, const void* xv, const float
   const int th = (H + kWT - 1) / kWT;
   auto xhat = [&](int layer) { return s.xhat + layer * PP * H; };
   auto dpre = [&](int layer) { return s.dpre + layer * PP * H; };
-  WProds prods{};
-  int n = 0;
-  size_t off = 0;
-  prods.p[n++] = WProd{x, nullptr, nullptr, dpre(0), w.F, w.F, H, 1, 0, off,
-                       (w.F + kWT - 1) / kWT, th, 0, 1, feat_bf16};
-  off += static_cast<size_t>(w.F) * H;
-  for (int k = 0; k < L - 1; ++k) {
-    prods.p[n++] = WProd{xhat(k), w.g + k * H, w.beta + k * H, dpre(k + 1), H, H, H, 1, 1, off,
-                         th, th};
-    off += static_cast<size_t>(H) * H;
-  }
-  prods.p[n++] = WProd{xhat(L - 1), w.g + (L - 1) * H, w.beta + (L - 1) * H, gout, H, H, w.O,
-                       1, 1, off, th, (w.O + kWT - 1) / kWT};
-  prods.n = n;
-  int total_tiles = 0;
-  for (int i = 0; i < n; ++i) total_tiles += prods.p[i].tiles_m * prods.p[i].tiles_n;
   const size_t wf = mip_wgrad_floats(w, H);
   int k_chunk = (P + s.splits - 1) / s.splits;
   k_chunk = (k_chunk + kWK - 1) / kWK * kWK;
-  if ((err = Products::wgrad(prods, total_tiles, P, k_chunk, s, wf, stream)) != cudaSuccess)
-    return err;
+  // The L + 1 products go to wgrad in groups of kMaxProds, one launch each:
+  // each product writes its own slab of every split's partials, so the
+  // grouping moves no sum.
+  WProds prods{};
+  auto flush = [&]() {
+    int total_tiles = 0;
+    for (int i = 0; i < prods.n; ++i) total_tiles += prods.p[i].tiles_m * prods.p[i].tiles_n;
+    const cudaError_t e = Products::wgrad(prods, total_tiles, P, k_chunk, s, wf, stream);
+    prods.n = 0;
+    return e;
+  };
+  auto add = [&](const WProd& p) {
+    prods.p[prods.n++] = p;
+    return prods.n == kMaxProds ? flush() : cudaSuccess;
+  };
+  size_t off = 0;
+  err = add(WProd{x, nullptr, nullptr, dpre(0), w.F, w.F, H, 1, 0, off, (w.F + kWT - 1) / kWT,
+                  th, 0, 1, feat_bf16});
+  off += static_cast<size_t>(w.F) * H;
+  for (int k = 0; k < L - 1 && err == cudaSuccess; ++k) {
+    err = add(WProd{xhat(k), w.g + k * H, w.beta + k * H, dpre(k + 1), H, H, H, 1, 1, off, th,
+                    th});
+    off += static_cast<size_t>(H) * H;
+  }
+  if (err == cudaSuccess)
+    err = add(WProd{xhat(L - 1), w.g + (L - 1) * H, w.beta + (L - 1) * H, gout, H, H, w.O, 1, 1,
+                    off, th, (w.O + kWT - 1) / kWT});
+  if (err == cudaSuccess && prods.n > 0) err = flush();
+  if (err != cudaSuccess) return err;
   if ((err = colsum(s.wpart, s.splits, wf, grads, s.tmp, stream)) != cudaSuccess) return err;
   return colsum(s.tpart, tiles, mip_tile_floats(w, H), grads + wf, s.tmp, stream);
 }

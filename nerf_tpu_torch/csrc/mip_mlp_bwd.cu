@@ -10,8 +10,9 @@
 //
 // Bound: operations.  The forward ran in another kernel (K5-fwd), so this
 // one recomputes it, as the TPU kernel does: forward + dh + dW = 3 x
-// 300,544 multiply-adds per point at the full-width model, against 384
-// bytes of input, 216 of cotangents and 384 of dx per point and 1.2 MB of
+// 300,544 multiply-adds per point at the full-width model (F = 96; 256 F +
+// 275,968 each at hidden 256, 5 layers and 54 outputs), against 384 bytes
+// of input, 216 of cotangents and 384 of dx per point and 1.2 MB of
 // gradients.  At 258,048 points the operations bound is 6.945 ms at the
 // float32 SIMT rate (67 TFLOP/s), 2.820 ms as three TF32 products on the
 // tensor cores (FLOP / 165 TFLOP/s); the stored chain (xhat and dpre, 2 x
@@ -20,24 +21,22 @@
 //
 // Design (mip_mlp.cuh on classic_mlp_train.cuh and tc_mlp.cuh): K6's
 // tensor-core passes (MipTc: 3xTF32 wgmma on the operand images the wrapper
-// builds).  The recomputed forward (mip_fwd_store_tc_kernel) stores the
-// chain to global scratch; a per-tile backward (mip_bwd_rows_tc_kernel)
-// writes every layer's dpre and the tile's column sums and, where asked,
-// the features' cotangent dx = dpre_0 w_in^T from the stored dpre
-// (tc_input_grad); a product over the points gives dW in split chunks
-// (wgrad_tc_kernel); fixed-order sums of the partials make the gradients
-// repeatable (no atomics).  Where the features are too wide for the
-// tensor-core forward tile (tc_mlp.cuh note 9) the forward runs MipSimt's
-// float32 tile; the backward passes do not depend on the widths.
+// builds).  The recomputed forward (mip_fwd_store_tc_kernel, the features
+// streamed through the tile at every width) stores the chain to global
+// scratch; a per-tile backward (mip_bwd_rows_tc_kernel) writes every
+// layer's dpre and the tile's column sums and, where asked, the features'
+// cotangent dx = dpre_0 w_in^T from the stored dpre (tc_input_grad); a
+// product over the points gives dW in split chunks (wgrad_tc_kernel, in
+// groups of kMaxProds products at any layer count); fixed-order sums of
+// the partials make the gradients repeatable (no atomics).
 //
 // mip_mlp_bwd_bf16 is the same in compute_dtype bfloat16 (MipTcBf16,
 // tc_mlp.cuh note 10): bfloat16 features and images, every product and the
 // head's on bf16 operands with float32 sums, the features' cotangent
-// written as bfloat16 (their dtype); the forward recompute on the
-// bf16-rounding SIMT tile past the tensor-core one.  Its bound at 258,048
-// rows: 0.470 ms of bf16 tensor-core operations (FLOP / 989 TFLOP/s); the
-// float32 chain (xhat and dpre, 10,240 bytes a row, written once and read
-// once) takes 1.58 ms at 3.35 TB/s.
+// written as bfloat16 (their dtype).  Its bound at 258,048 rows: 0.470 ms
+// of bf16 tensor-core operations (FLOP / 989 TFLOP/s); the float32 chain
+// (xhat and dpre, 10,240 bytes a row, written once and read once) takes
+// 1.58 ms at 3.35 TB/s.
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "mip_mlp.cuh"
@@ -61,7 +60,7 @@ int run_at(const void* x, const float* gout, void* dx, float* grads, int P, int 
            const float* beta, const float* w_out, const float* b_out, float* xhat,
            float* stats, float* dpre, float* wpart, float* tpart, float* tmp,
            float* out, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
-  if (L < 2 || L + 1 > kMaxProds || O < 1 || O > kThreads) return cudaErrorInvalidValue;
+  if (L < 2 || O < 1) return cudaErrorInvalidValue;
   const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
   const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
@@ -99,10 +98,3 @@ extern "C" int mip_mlp_bwd_bf16(const void* x, const float* gout, void* dx, floa
                            tc_fwd, tc_bwd, stream);
 }
 
-// The plan of the forward tile for F features: out = [policy (0 tensor
-// cores, 1 float32 SIMT, 2 neither fits), tensor-core bytes, SIMT bytes,
-// the device's limit].
-extern "C" int mip_mlp_bwd_plan(int F, int de, int hidden, long long* out) {
-  if (de != 0) return cudaErrorInvalidValue;
-  return static_cast<int>(fwd_store_plan_at(F, 0, hidden, out));
-}

@@ -5,28 +5,28 @@
 // (pallas_call in _fwd_call, reached from mip_mlp_pallas), which keeps all
 // weights and the whole activation chain in VMEM.
 //
-// Bound: operations.  300,544 multiply-adds per point at the full-width
-// model (H = 256, F = 96, 5 layers, O = 54) against 384 bytes of input and
-// 216 of output: about 1,000 FLOP per byte, far above the card's ridge.
-// At 258,048 rows 2.315 ms at the float32 SIMT rate (67 TFLOP/s), 0.940
-// ms as three TF32 products on the tensor cores (FLOP / 165 TFLOP/s).
+// Bound: operations.  256 F + 275,968 multiply-adds per point at hidden
+// 256, 5 layers and 54 outputs (300,544 at the full-width model's F = 96)
+// against 4 F bytes of input and 216 of output: about 1,000 FLOP per byte,
+// far above the card's ridge.  At 258,048 rows and F = 96: 2.315 ms at
+// the float32 SIMT rate (67 TFLOP/s), 0.940 ms as three TF32 products on
+// the tensor cores (FLOP / 165 TFLOP/s).
 //
 // Design (mip_mlp.cuh): K7's tile, the MipTc policy's forward with nothing
 // saved (mip_fwd_tc_kernel): one block of 8 warps per 64-row tile keeps
-// every activation on chip, the feature and hidden products as 3xTF32
-// wgmma on the forward operand images the wrapper builds (one block an
-// SM, 223 KB at F = 96), LayerNorm as warp reductions in registers, the
-// 54-wide head float32 (head_wide).  Where the features are too wide for
-// that tile (tc_mlp.cuh note 9: F' <= 132 at H = 256) MipTc runs MipSimt's
-// float32 tile (weights streamed from L2, two blocks an SM).  The choice
-// is made from the shapes before any launch.
+// every activation on chip, the features streamed through the tile's ring
+// a k-chunk at a time (tc_mlp.cuh note 9), so one tile of 219,136 bytes at
+// H = 256 serves every feature width; the feature and hidden products as
+// 3xTF32 wgmma on the forward operand images the wrapper builds (one block
+// an SM), LayerNorm as warp reductions in registers, the head float32
+// (head_wide) at any width.
 //
 // mip_mlp_fwd_bf16 is the same kernel in compute_dtype bfloat16 (MipTcBf16,
 // tc_mlp.cuh note 10): bfloat16 features and weight images, every product
-// and the head on bf16 operands with float32 sums, float32 outputs; the
-// same tiles and width rule.  Its bound at 258,048 rows: 0.157 ms of bf16
-// tensor-core operations (FLOP / 989 TFLOP/s), against 192 bytes of
-// features and 216 of output a row (0.031 ms at 3.35 TB/s).
+// and the head on bf16 operands with float32 sums, float32 outputs.  Its
+// bound at 258,048 rows and F = 96: 0.157 ms of bf16 tensor-core operations
+// (FLOP / 989 TFLOP/s), against 192 bytes of features and 216 of output a
+// row (0.031 ms at 3.35 TB/s).
 //
 // Plain C interface for ctypes: returns a cudaError_t (0 on success).
 #include "mip_mlp.cuh"
@@ -39,7 +39,7 @@ template <class Products>
 int run(const void* x, float* out, int P, int F, int hidden, int L, int O, const float* w_in,
         const float* whh, const float* b, const float* g, const float* beta,
         const float* w_out, const float* b_out, const void* tc_fwd, void* stream) {
-  if (L < 2 || O < 1 || O > kThreads) return cudaErrorInvalidValue;
+  if (L < 2 || O < 1) return cudaErrorInvalidValue;
   const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
   const float* img = static_cast<const float*>(tc_fwd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -68,10 +68,3 @@ extern "C" int mip_mlp_fwd_bf16(const void* x, float* out, int P, int F, int hid
                         tc_fwd, stream);
 }
 
-// The plan of the forward tile for F features: out = [policy (0 tensor
-// cores, 1 float32 SIMT, 2 neither fits), tensor-core bytes, SIMT bytes,
-// the device's limit].
-extern "C" int mip_mlp_fwd_plan(int F, int de, int hidden, long long* out) {
-  if (de != 0) return cudaErrorInvalidValue;
-  return static_cast<int>(fwd_store_plan_at(F, 0, hidden, out));
-}

@@ -11,27 +11,30 @@
 // segmented shift ladders.
 //
 // Bound: operations.  Forward + dh + dW = 3 x 300,544 multiply-adds per
-// row at the full-width model (no recompute: the forward stores its
-// chain), 4.653e11 FLOP at 4096 x 63 rows: 6.945 ms at the float32 SIMT
-// rate (67 TFLOP/s), 2.820 ms as three TF32 products on the tensor cores
-// (FLOP / 165 TFLOP/s).  The stored chain (xhat and dpre, 5 x 256 x 4
-// bytes each per row, written and read) is about 2.6 GB of traffic, 0.8 ms
-// at 3.35 TB/s.
+// row at the full-width model (F = 96; 256 F + 275,968 each at hidden 256,
+// 5 layers and 54 outputs; no recompute: the forward stores its chain),
+// 4.653e11 FLOP at 4096 x 63 rows: 6.945 ms at the float32 SIMT rate (67
+// TFLOP/s), 2.820 ms as three TF32 products on the tensor cores (FLOP /
+// 165 TFLOP/s).  The stored chain (xhat and dpre, 5 x 256 x 4 bytes each
+// per row, written and read) is about 2.6 GB of traffic, 0.8 ms at 3.35
+// TB/s.
 //
 // Design: the mip MLP passes of mip_mlp.cuh with the tensor-core policy
-// MipTc (the stored-chain forward, bwd_rows' dh = dpre W^T and wgrad's dW,
-// the head's too, as 3xTF32 wgmma on the operand images the wrapper builds
-// once a step; LayerNorm, the head's forward and its input cotangent
-// float32; the forward in the float32 SIMT tile where the features are
-// too wide for its own, tc_mlp.cuh note 9), with one per-ray pass between
-// forward and backward: one warp per ray, each lane a run of consecutive
-// rows (two at 63 rows); composite_ray runs the compositing, the MSE and
-// their backward (warp scans in fp32), and SegCE adds the cross-entropy:
-// z_i = log(w_i + 1e-10) + log_softmax(seg_i)[label], its max and exp-sum
-// over the ray as warp reductions, and in the backward the weight
-// cotangent -gs p_i / (w_i + 1e-10) and the logits' cotangents
-// g_z (onehot - softmax(seg_i)) over every class.  With seg_weight 0 the CE
-// is skipped and the segmentation logits get zero cotangents.
+// MipTc (the stored-chain forward, the features streamed through its tile
+// at every width; bwd_rows' dh = dpre W^T and wgrad's dW, the head's too,
+// as 3xTF32 wgmma on the operand images the wrapper builds once a step, in
+// groups of kMaxProds products at any layer count; LayerNorm, the head's
+// forward and its input cotangent float32, at any head width), with one
+// per-ray pass between forward and backward: one warp per ray, each lane a
+// run of consecutive rows (two at 63 rows); composite_ray runs the
+// compositing, the MSE and their backward (warp scans in fp32), and SegCE
+// adds the cross-entropy: z_i = log(w_i + 1e-10) + log_softmax(seg_i)
+// [label], its max and exp-sum over the ray as warp reductions, and in the
+// backward the weight cotangent -gs p_i / (w_i + 1e-10) and the logits'
+// cotangents g_z (onehot - softmax(seg_i)) over every class.  With
+// seg_weight 0 the CE is skipped and the segmentation logits get zero
+// cotangents.  A ray's 5 n floats of scratch sit in device memory
+// (ray_scratch, from the wrapper), so a ray may hold any number of rows.
 //
 // mip_train_grads_bf16 is the same in compute_dtype bfloat16 (MipTcBf16,
 // tc_mlp.cuh note 10): bfloat16 features and images, every product and the
@@ -93,21 +96,22 @@ struct SegCE {
 
 // Forward and backward of the compositing and the losses, one ray per
 // warp.  out [R*n][ld] is the MLP output; gout receives its cotangent.
-// ray_loss[ray] = (mse / R, ce / R).  Scratch: 5 n floats per warp.
+// ray_loss[ray] = (mse / R, ce / R).  Scratch: 5 n floats a ray, ray r's
+// at scratch + 5 n r.
 __global__ void __launch_bounds__(kThreads)
     mip_objective_kernel(const float* __restrict__ out, const float* __restrict__ dists,
                          const float* __restrict__ noise, const float* __restrict__ pix,
                          const long long* __restrict__ labels, int R, int n, int c, int ld,
                          int white, float g_scale, float loss_scale, float gs_seg,
-                         float* __restrict__ gout, float* __restrict__ ray_loss) {
-  extern __shared__ float scratch[];
+                         float* __restrict__ gout, float* __restrict__ ray_loss,
+                         float* __restrict__ scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ray = blockIdx.x * kWarps + warp;
   if (ray >= R) return;
   const size_t base = static_cast<size_t>(ray) * n;
   const float* o = out + base * ld;
   float* g = gout + base * ld;
-  float* sc = scratch + warp * 5 * n;
+  float* sc = scratch + 5 * base;
   auto sigma = [&](int p) { return o[p * ld] + noise[base + p]; };
   auto logit = [&](int p, int ch) { return o[p * ld + 1 + ch]; };
   auto dist = [&](int p) { return dists[base + p]; };
@@ -139,21 +143,17 @@ template <int H, class Products>
 cudaError_t run(const MipWeights& w, const void* x, const float* dists, const float* noise,
                 const float* pix, const long long* labels, int R, int n, int c, int white,
                 float seg_weight, float* loss, float* grads, const Scratch& s, float* out,
-                float* gout, float* ray_loss, cudaStream_t stream) {
+                float* gout, float* ray_loss, float* ray_scratch, cudaStream_t stream) {
   const int P = R * n;
   cudaError_t err =
       Products::template fwd<H, true>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
   if (err != cudaSuccess) return err;
-  const size_t smem = static_cast<size_t>(kWarps) * 5 * n * sizeof(float);
-  err = cudaFuncSetAttribute(mip_objective_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   const float g_scale = 2.f / (static_cast<float>(c) * R);
   const float loss_scale = 1.f / R;
   const float gs_seg = seg_weight / R;
-  mip_objective_kernel<<<(R + kWarps - 1) / kWarps, kThreads, smem, stream>>>(
+  mip_objective_kernel<<<(R + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
       out, dists, noise, pix, labels, R, n, c, w.O, white, g_scale, loss_scale, gs_seg, gout,
-      ray_loss);
+      ray_loss, ray_scratch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = colsum(ray_loss, R, 2, loss, s.tmp, stream)) != cudaSuccess) return err;
   return launch_mip_backward<H, Products>(w, x, gout, P, s, nullptr, grads, stream);
@@ -166,9 +166,9 @@ int run_at(const void* x, const float* dists, const float* noise, const float* p
            const float* whh, const float* b, const float* g, const float* beta,
            const float* w_out, const float* b_out, float* xhat, float* stats, float* dpre,
            float* wpart, float* tpart, float* tmp, float* out, float* gout,
-           float* ray_loss, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
-  if (L < 2 || L + 1 > kMaxProds || c < 1 || c > kMaxColors || O < c + 2 || O > kThreads ||
-      (seg_weight != 0.f && labels == nullptr))
+           float* ray_loss, float* ray_scratch, int splits, const void* tc_fwd,
+           const void* tc_bwd, void* stream) {
+  if (L < 2 || c < 1 || c > kMaxColors || O < c + 2 || (seg_weight != 0.f && labels == nullptr))
     return cudaErrorInvalidValue;
   const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
   const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
@@ -176,7 +176,8 @@ int run_at(const void* x, const float* dists, const float* noise, const float* p
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H)                                                                       \
   static_cast<int>(run<H, Products>(w, x, dists, noise, pix, labels, R, n, c, white,         \
-                                    seg_weight, loss, grads, s, out, gout, ray_loss, st))
+                                    seg_weight, loss, grads, s, out, gout, ray_loss,           \
+                                    ray_scratch, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }
@@ -191,12 +192,12 @@ extern "C" int mip_train_grads(const float* x, const float* dists, const float* 
                                const float* beta, const float* w_out, const float* b_out,
                                float* xhat, float* stats, float* dpre, float* wpart,
                                float* tpart, float* tmp, float* out, float* gout,
-                               float* ray_loss, int splits, const float* tc_fwd,
-                               const float* tc_bwd, void* stream) {
+                               float* ray_loss, float* ray_scratch, int splits,
+                               const float* tc_fwd, const float* tc_bwd, void* stream) {
   return run_at<MipTc>(x, dists, noise, pix, labels, loss, grads, R, n, F, hidden, L, c, O,
                        white, seg_weight, w_in, whh, b, g, beta, w_out, b_out, xhat, stats,
-                       dpre, wpart, tpart, tmp, out, gout, ray_loss, splits, tc_fwd, tc_bwd,
-                       stream);
+                       dpre, wpart, tpart, tmp, out, gout, ray_loss, ray_scratch, splits,
+                       tc_fwd, tc_bwd, stream);
 }
 
 // The same in compute_dtype bfloat16: x and both images are bfloat16.
@@ -208,19 +209,12 @@ extern "C" int mip_train_grads_bf16(const void* x, const float* dists, const flo
                                     const float* beta, const float* w_out, const float* b_out,
                                     float* xhat, float* stats, float* dpre, float* wpart,
                                     float* tpart, float* tmp, float* out,
-                                    float* gout, float* ray_loss, int splits,
-                                    const void* tc_fwd, const void* tc_bwd, void* stream) {
+                                    float* gout, float* ray_loss, float* ray_scratch,
+                                    int splits, const void* tc_fwd, const void* tc_bwd,
+                                    void* stream) {
   return run_at<MipTcBf16>(x, dists, noise, pix, labels, loss, grads, R, n, F, hidden, L, c,
                            O, white, seg_weight, w_in, whh, b, g, beta, w_out, b_out, xhat,
-                           stats, dpre, wpart, tpart, tmp, out, gout, ray_loss, splits,
-                           tc_fwd, tc_bwd, stream);
+                           stats, dpre, wpart, tpart, tmp, out, gout, ray_loss, ray_scratch,
+                           splits, tc_fwd, tc_bwd, stream);
 }
 
-// The plan of K6's forward tile for F = xe features (de must be 0): out =
-// [policy (0 tensor cores, 1 float32 SIMT, 2 neither fits), tensor-core
-// bytes, SIMT bytes, the device's limit].  bwd_rows and wgrad do not
-// depend on F and always run on the tensor cores.
-extern "C" int mip_train_grads_plan(int xe, int de, int hidden, long long* out) {
-  if (de != 0) return cudaErrorInvalidValue;
-  return static_cast<int>(fwd_store_plan_at(xe, 0, hidden, out));
-}

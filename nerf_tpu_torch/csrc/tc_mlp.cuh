@@ -58,11 +58,11 @@
 //    floats of padding make the fragment loads free of bank conflicts) and
 //    split as it is loaded, so no hi/lo copy of the tile is kept.  Bytes a
 //    block at H = 256, 1024 bytes of alignment slack included: fwd_store
-//    (K1-fwd's, K8-fwd's tile) 219,136 (with the encodings' ring, note 9),
-//    K4's tile 223,232 at 128 fine samples (with its [256][1 + c]
-//    outputs), bwd_rows 199,680, wgrad 136,192; the mip forward tile
-//    223,232 (with the 64 x 96 feature tile), the mip bwd_rows 212,992
-//    (with the [64][56] output cotangents).  The input cotangents add nothing to either bwd_rows:
+//    (K1-fwd's, K8-fwd's tile) and the mip forward tile 219,136 (with the
+//    encodings' ring, note 9), K4's tile 223,232 at 128 fine samples (with
+//    its [256][1 + c] outputs), bwd_rows 199,680, wgrad 136,192; the mip
+//    bwd_rows 202,752 (with a [64][16] chunk of the head's output
+//    cotangents).  The input cotangents add nothing to either bwd_rows:
 //    their A rows (dpre) and their outputs pass through the activation
 //    tile, their B chunks (2 x 64 x 16 floats) through the chunk buffers.
 // 3. Accumulators and LayerNorm: in a wgmma accumulator a row's values sit
@@ -81,7 +81,7 @@
 //    the B chunk buffers once the last product has retired); its dW is a
 //    wgrad product with N = 54, the columns past N zero in the B image and
 //    each stored alone where N is odd.  Tails of P are zero-filled (the
-//    encodings' slabs, load_tile).
+//    encodings' slabs).
 // 5. The chain (xhat, dpre: ~4 GB each at 393,216 rows) stays float32 in
 //    global memory: no hi/lo copy, no extra pass.  wgrad keeps the tiles of
 //    one chunk of points adjacent in launch order (blockIdx.x runs over the
@@ -127,14 +127,14 @@
 //    at every width, against the 232,448 a block may opt in to; a wider
 //    encoding only adds chunks (700 + 36: 44 + 44 + 3 chunks of 16 values
 //    beside the 144 of the hidden layers).  A classic launcher opts in to
-//    its tile's fixed bytes (tc_classic_tile_bytes) and returns the
-//    runtime's error on a device that allows fewer; K4's union_eval_plan
-//    gives its block's bytes for its sample counts, the mip libraries'
-//    <name>_plan their two tiles.  bwd_rows' and wgrad's tiles
+//    its tile's fixed bytes (tc_tile_bytes) and returns the runtime's
+//    error on a device that allows fewer; K4's union_eval_plan gives its
+//    block's bytes for its sample counts.  The mip forward tile
+//    (mip_mlp.cuh) is the same tile with the features as its one
+//    encoding, which only layer 0 reads (MipFeatLoadT), so it too takes
+//    tc_tile_bytes at every feature width.  bwd_rows' and wgrad's tiles
 //    never depended on the widths (the input cotangents' passes loop over
-//    them).  The mip tiles (mip_mlp.cuh) keep their feature tile resident
-//    (tc_tile_bytes): 132 features at H = 256, the float32 SIMT tile
-//    (MipSimt, fwd_store_smem) past that, up to 588.
+//    them).
 //
 // 10. compute_dtype="bfloat16" (the template parameter kBf16 of tc_gemm,
 //    mlp_tile_tc, the passes' kernels and TcProductsT: K1-fwd, K1-bwd, K2,
@@ -482,25 +482,26 @@ __device__ __forceinline__ void tc_zero(float (&d)[N / 4]) {
 }
 
 // tc_gemm's A operand where it is a shared-memory tile (a layer's
-// activations, the mip features): row stride lda; columns past K are not
-// read.
+// activations, or dpre in the input cotangents' passes): row stride lda;
+// columns past K are not read.
 struct TileA {
   const float* A;
   int lda;
 };
 
-// tc_gemm's A operand where it is the classic tile's encodings (note 9):
-// chunk c of encoding `which` (0: x, 1: d) of the tile's rows row0 ..
+// tc_gemm's A operand where it is the tile's encodings (note 9; the mip
+// tile's features): chunk c of encoding `which` (0: x, 1: d) of the tile's
+// rows row0 ..
 // row0 + nvalid - 1 goes through the ring, staged by
 // load.stage<kBf16>(w, which, c, row0, nvalid, first, slab) beside the B
 // chunk of the same k (zero past the width and past nvalid).  `first`
 // marks the product that reads these encodings first: a loader that
 // computes them writes its copy to device memory there.
-template <class Load>
+template <class Load, class W = Weights>
 struct EncA {
   using Loader = Load;
   const Load& load;
-  const Weights& w;
+  const W& w;  // the loader's weights: the widths (Weights, or mip_mlp.cuh's MipWeights)
   int which;
   size_t row0;
   int nvalid;
@@ -517,7 +518,8 @@ struct EncA {
 // pipelined, 2.88e-2 chunked, the plain version 2.50e-2;
 // scripts/torch_bf16_sensitivity.py --family mega-widths).  Merging the
 // chunked sums into the pipelined chunk step (one call site) cost K1-fwd's
-// bf16 tile 11 % at every width.
+// bf16 tile 11 % at every width.  The mip features' loader keeps its
+// products pipelined too (mip_mlp.cuh).
 template <class Load>
 inline constexpr bool kChunkedSums = true;
 
@@ -800,23 +802,12 @@ __device__ __forceinline__ void tc_store_rows(const float (&acc)[kRowsPerWarp][H
     for (int j = 0; j < H / 32; ++j) rows[r * ld + lane + 32 * j] = acc[r][j];
 }
 
-// Bytes of shared memory of the mip tensor-core forward tile: the B
-// chunks, the activation tile and the zero-padded x / d input tiles
-// (load_tile's layout, resident for the whole tile), and the alignment
-// slack.
+// Bytes of shared memory of the tensor-core MLP tile (fwd_store, K1-fwd,
+// K8-fwd; the mip forward tile): the B chunks, the activation tile, the
+// encodings' ring and the alignment slack, at every encoding width (note
+// 9).
 template <int H>
-__host__ inline size_t tc_tile_bytes(int xe, int de) {
-  return (static_cast<size_t>(tc_bbuf_floats<H>()) + static_cast<size_t>(kTileRows) * act_ld<H>() +
-          static_cast<size_t>(kTileRows) * (round_up4(xe) + round_up4(de))) *
-             sizeof(float) +
-         kSmemAlign;
-}
-
-// Bytes of shared memory of the classic tensor-core MLP tile (fwd_store,
-// K1-fwd, K8-fwd): the B chunks, the activation tile, the encodings' ring
-// and the alignment slack, at every encoding width (note 9).
-template <int H>
-__host__ __device__ constexpr size_t tc_classic_tile_bytes() {
+__host__ __device__ constexpr size_t tc_tile_bytes() {
   return (static_cast<size_t>(tc_bbuf_floats<H>()) + static_cast<size_t>(kTileRows) * act_ld<H>() +
           kEncRingFloats) *
              sizeof(float) +
@@ -1468,8 +1459,9 @@ __global__ void __launch_bounds__(256, 1)
 // The plans (note 9).
 // ---------------------------------------------------------------------------
 
-// The product a width-dependent tile runs; the values are the plan's codes.
-enum TilePolicy { kTileTc = 0, kTileSimt = 1, kTileNone = 2 };
+// The tile a plan picks (K4's block for its sample counts); the values are
+// the plan's codes.
+enum TilePolicy { kTileTc = 0, kTileNone = 1 };
 
 // The shared memory a block of the current device may opt in to.
 __host__ inline cudaError_t smem_optin_limit(size_t* limit) {
@@ -1481,42 +1473,8 @@ __host__ inline cudaError_t smem_optin_limit(size_t* limit) {
   return err;
 }
 
-// The tensor-core tile where it fits, else the float32 SIMT one where that
-// fits; out = [policy, tensor-core bytes, SIMT bytes, limit] (the plan the
-// wrappers query through each library's <name>_plan).
-__host__ inline cudaError_t tile_plan(size_t tc_bytes, size_t simt_bytes, TilePolicy* policy,
-                                      long long* out = nullptr) {
-  size_t limit = 0;
-  const cudaError_t err = smem_optin_limit(&limit);
-  if (err != cudaSuccess) return err;
-  *policy = tc_bytes <= limit ? kTileTc : simt_bytes <= limit ? kTileSimt : kTileNone;
-  if (out != nullptr) {
-    out[0] = *policy;
-    out[1] = static_cast<long long>(tc_bytes);
-    out[2] = static_cast<long long>(simt_bytes);
-    out[3] = static_cast<long long>(limit);
-  }
-  return cudaSuccess;
-}
-
-// The mip forward tile's plan (MipTcT) for the features' width xe (and de
-// 0): the tensor-core tile where it fits, else the float32 SIMT one.
-template <int H>
-__host__ inline cudaError_t fwd_store_plan(int xe, int de, TilePolicy* policy,
-                                           long long* out = nullptr) {
-  return tile_plan(tc_tile_bytes<H>(xe, de), fwd_store_smem<H>(xe, de), policy, out);
-}
-
-// The plan for hidden width `hidden`, for the mip libraries' <name>_plan.
-__host__ inline cudaError_t fwd_store_plan_at(int xe, int de, int hidden, long long* out) {
-  TilePolicy policy;
-#define NERF_PLAN(H) fwd_store_plan<H>(xe, de, &policy, out)
-  NERF_DISPATCH_HIDDEN(hidden, NERF_PLAN)
-#undef NERF_PLAN
-}
-
-// A classic tile's plan: its tensor-core tile where it fits, else none (no
-// SIMT tile); out = [policy, tensor-core bytes, 0, limit].
+// A tile's plan: its tensor-core tile where it fits, else none; out =
+// [policy, bytes, limit].
 __host__ inline cudaError_t tc_plan(size_t tc_bytes, TilePolicy* policy, long long* out) {
   size_t limit = 0;
   const cudaError_t err = smem_optin_limit(&limit);
@@ -1525,8 +1483,7 @@ __host__ inline cudaError_t tc_plan(size_t tc_bytes, TilePolicy* policy, long lo
   if (out != nullptr) {
     out[0] = *policy;
     out[1] = static_cast<long long>(tc_bytes);
-    out[2] = 0;
-    out[3] = static_cast<long long>(limit);
+    out[2] = static_cast<long long>(limit);
   }
   return cudaSuccess;
 }
@@ -1537,7 +1494,7 @@ template <int H, class Load, bool kBf16 = false>
 cudaError_t launch_fwd(const Weights& w, const Load& load, float* out, int P,
                        const float* tc_fwd, cudaStream_t stream) {
   if (tc_fwd == nullptr) return cudaErrorInvalidValue;
-  constexpr size_t smem = tc_classic_tile_bytes<H>();
+  constexpr size_t smem = tc_tile_bytes<H>();
   cudaError_t err = cudaFuncSetAttribute(fwd_tc_kernel<H, Load, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -1568,7 +1525,7 @@ struct TcProductsT {
                                const Scratch& s, cudaStream_t stream, size_t stride,
                                size_t base) {
     if (s.tc_fwd == nullptr) return cudaErrorInvalidValue;
-    constexpr size_t smem = tc_classic_tile_bytes<H>();
+    constexpr size_t smem = tc_tile_bytes<H>();
     cudaError_t err = cudaFuncSetAttribute(fwd_store_tc_kernel<H, Load, kBf16>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));

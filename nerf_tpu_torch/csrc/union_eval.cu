@@ -283,8 +283,8 @@ extern "C" int union_eval_bf16(const void* xf, const void* d, const float* t_c,
 }
 
 // The plan union_eval follows for these shapes, the same at every encoding
-// width (xe, de): out = [policy (0 tensor cores, 2 the tile does not fit),
-// tensor-core bytes, 0, the device's limit].
+// width (xe, de): out = [policy (0 tensor cores, 1 the tile does not fit),
+// the block's bytes, the device's limit].
 extern "C" int union_eval_plan(int xe, int de, int hidden, int c, int Sc, int Sf,
                                long long* out) {
   TilePolicy policy;

@@ -8,16 +8,13 @@ so machines without ``nvcc`` import the package freely.
 
 ``launch_counts`` counts kernel launches by kernel name: each wrapper adds
 one where it launches its kernel, and nowhere else.  ``policy_counts``
-counts, by ``(kernel name, policy)``, which product a kernel's tile ran in
-those calls: ``"tc"``, 3xTF32 on the tensor cores, or ``"simt"``, the
-float32 SIMT pass of the mip forward tiles (K5-fwd's, K5-bwd's, K6's and
-K7's), where the mip features are too wide for their tensor-core tile
-(``csrc/tc_mlp.cuh``, note 9; ``tile_plan``).  The classic kernels (K1-K4,
-K8, K9) stream their encodings through their one tensor-core tile and
-record ``"tc"`` at every encoding width.  The bf16 kernels of
-``compute_dtype="bfloat16"`` (``<name>_bf16`` in the same library, for
-every kernel: ``BF16``) record ``"tc_bf16"`` or ``"simt_bf16"``: the same
-tiles and rule, the bf16 ``wgmma`` or the bf16-rounding SIMT pass.
+counts, by ``(kernel name, policy)``, which products a kernel's tile ran in
+those calls: ``"tc"``, 3xTF32 on the tensor cores, or, for the bf16 kernels
+of ``compute_dtype="bfloat16"`` (``<name>_bf16`` in the same library, for
+every kernel: ``BF16``), ``"tc_bf16"``, the bf16 ``wgmma``.  Every kernel
+has one tile (the classic and the mip tiles stream their encodings or
+features through it at every width, ``csrc/tc_mlp.cuh`` note 9), so the
+policy records the call's dtype.
 """
 
 from __future__ import annotations
@@ -46,12 +43,11 @@ KERNELS = (
 
 launch_counts: collections.Counter = collections.Counter()
 policy_counts: collections.Counter = collections.Counter()
-POLICIES = ("tc", "simt")  # by the plans' codes; 2: neither tile fits
 # The kernels whose tile depends on the call's shapes, each exporting
-# <name>_plan beside <name>: K4's block (its sample counts) and the mip
-# forward tiles (the features' width).  The classic tiles take the same
-# bytes at every encoding width.
-PLANNED = ("union_eval", "mip_eval", "mip_train_grads", "mip_mlp_fwd", "mip_mlp_bwd")
+# <name>_plan beside <name>: K4's block (its sample counts).  The classic
+# and the mip tiles take the same bytes at every encoding and feature
+# width.
+PLANNED = ("union_eval",)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -66,7 +62,7 @@ ARGTYPES = {
     # xf d t_c t_f dens_c col_c dnorm out R Sc Sf xe de hidden c, weights,
     # tc_fwd stream
     "union_eval": (_P,) * 8 + (_I,) * 7 + _WEIGHT_ARGS + (_P,) * 2,
-    # xe de hidden c Sc Sf out[4]
+    # xe de hidden c Sc Sf out[3]
     "union_eval_plan": (_I,) * 6 + (_P,),
     # x d gout dx dd grads P xe de hidden c, weights,
     # xhat stats dpre wpart tpart tmp out splits tc_fwd tc_bwd stream
@@ -81,23 +77,18 @@ ARGTYPES = {
     # wpart tpart tmp out gout ray_loss splits tc_fwd tc_bwd stream
     "fine_stage_train": (_P,) * 13 + (_I,) * 8 + (_F,) + _WEIGHT_ARGS + (_P,) * 9 + (_I,)
     + (_P,) * 3,
-    # F 0 hidden out[4] (the mip forward tile's plan)
-    "mip_eval_plan": (_I,) * 3 + (_P,),
-    "mip_train_grads_plan": (_I,) * 3 + (_P,),
-    "mip_mlp_fwd_plan": (_I,) * 3 + (_P,),
-    "mip_mlp_bwd_plan": (_I,) * 3 + (_P,),
     # x out P F hidden L O, weights, tc_fwd stream
     "mip_mlp_fwd": (_P,) * 2 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 2,
     # x gout dx grads P F hidden L O, weights,
     # xhat stats dpre wpart tpart tmp out splits tc_fwd tc_bwd stream
     "mip_mlp_bwd": (_P,) * 4 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 7 + (_I,) + (_P,) * 3,
     # x dists t_mids noise per_ray R n F hidden L C O white, weights,
-    # mlp_out tc_fwd stream
-    "mip_eval": (_P,) * 5 + (_I,) * 8 + _MIP_WEIGHT_ARGS + (_P,) * 3,
+    # mlp_out ray_scratch tc_fwd stream
+    "mip_eval": (_P,) * 5 + (_I,) * 8 + _MIP_WEIGHT_ARGS + (_P,) * 4,
     # x dists noise pix labels loss grads R n F hidden L C O white
     # seg_weight, weights, xhat stats dpre wpart tpart tmp out gout
-    # ray_loss splits tc_fwd tc_bwd stream
-    "mip_train_grads": (_P,) * 7 + (_I,) * 8 + (_F,) + _MIP_WEIGHT_ARGS + (_P,) * 9 + (_I,)
+    # ray_loss ray_scratch splits tc_fwd tc_bwd stream
+    "mip_train_grads": (_P,) * 7 + (_I,) * 8 + (_F,) + _MIP_WEIGHT_ARGS + (_P,) * 10 + (_I,)
     + (_P,) * 3,
     # pts dirs out P xe de hidden c sx phx sd phd, weights, tc_fwd stream
     "classic_pointmlp_fwd": (_P,) * 3 + (_I,) * 5 + (_P,) * 4 + _WEIGHT_ARGS + (_P,) * 2,
@@ -205,32 +196,27 @@ def check_launch(name: str, err: int) -> None:
 
 
 class TilePlan(NamedTuple):
-    policy: str  # "tc" or "simt"
     tc_bytes: int  # shared memory a block of the tensor-core tile takes
-    simt_bytes: int  # the same of the float32 SIMT tile (0: the kernel has none)
     limit: int  # the device's opt-in shared memory a block
 
 
 def tile_plan(name: str, xe: int, de: int, hidden: int, *shape: int) -> TilePlan:
-    """The plan kernel ``name`` (one of ``PLANNED``) follows for these
-    shapes: for K4 the encodings' widths ``xe, de`` (``de`` 0 without the
-    view branch), its hidden width and ``c, Sc, Sf``; for K5, K6 and K7
-    the mip features' width as ``xe``, ``de`` 0 and the hidden width.
-    From the library's ``<name>_plan``, the rule its launcher applies
-    (``csrc/tc_mlp.cuh``, note 9): policy ``"tc"`` where the tensor-core
-    tile fits the device's opt-in shared memory a block, else ``"simt"``
-    where a mip kernel's SIMT tile does.  Raises a ``ValueError`` naming
-    the limit, before any launch, where none fits."""
-    out = (ctypes.c_longlong * 4)()
+    """The plan kernel ``name`` (one of ``PLANNED``: K4) follows for these
+    shapes: the encodings' widths ``xe, de`` (``de`` 0 without the view
+    branch), its hidden width and ``c, Sc, Sf``.  From the library's
+    ``<name>_plan``, the rule its launcher applies (``csrc/tc_mlp.cuh``,
+    note 9): the block's bytes and the device's opt-in shared memory a
+    block.  Raises a ``ValueError`` naming the limit, before any launch,
+    where the block does not fit."""
+    out = (ctypes.c_longlong * 3)()
     err = getattr(load(name), f"{name}_plan")(xe, de, hidden, *shape, out)
     if err != 0:
         raise RuntimeError(f"{name}_plan failed with cudaError_t {err}")
-    policy, tc_bytes, simt_bytes, limit = out
-    if policy >= len(POLICIES):
-        tiles = (f"{tc_bytes} bytes of shared memory a block on the tensor cores"
-                 + (f", {simt_bytes} in the float32 SIMT tile" if simt_bytes else ""))
+    too_big, tc_bytes, limit = out
+    if too_big:
         raise ValueError(
-            f"{name}: widths {xe} + {de} at hidden {hidden} (shape {shape}) need {tiles}, past "
-            f"the device's limit of {limit}"
+            f"{name}: widths {xe} + {de} at hidden {hidden} (shape {shape}) need {tc_bytes} "
+            f"bytes of shared memory a block on the tensor cores, past the device's limit of "
+            f"{limit}"
         )
-    return TilePlan(POLICIES[policy], tc_bytes, simt_bytes, limit)
+    return TilePlan(tc_bytes, limit)

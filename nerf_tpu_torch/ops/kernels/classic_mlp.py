@@ -226,11 +226,11 @@ def weight_pointers(packed: Packed):
     return [_build.ptr(packed.get(k)) for k in PACK_ORDER]
 
 
-def route(name: str, plan_policy: str, bf16: bool) -> Tuple[str, str]:
+def route(name: str, bf16: bool) -> Tuple[str, str]:
     """The library function a call launches and the policy it records:
-    ``name`` and ``plan_policy`` in float32, ``<name>_bf16`` and
-    ``<plan_policy>_bf16`` in bfloat16."""
-    return (f"{name}_bf16", f"{plan_policy}_bf16") if bf16 else (name, plan_policy)
+    ``name`` and ``"tc"`` in float32, ``<name>_bf16`` and ``"tc_bf16"`` in
+    bfloat16."""
+    return (f"{name}_bf16", "tc_bf16") if bf16 else (name, "tc")
 
 
 def classic_mlp_fwd(
@@ -279,7 +279,7 @@ def classic_mlp_fwd(
     de = d_enc.shape[1] if has_view else 0
     if tc_fwd is None:
         tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
-    fn_name, policy = route(NAME, "tc", dtype == torch.bfloat16)
+    fn_name, policy = route(NAME, dtype == torch.bfloat16)
     fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_enc), out.data_ptr(), n_points,
@@ -459,7 +459,7 @@ def classic_mlp_bwd(
     if n_points == 0:
         return dx, dd, {k: torch.zeros_like(v) for k, v in packed.items()}
     de = d_enc.shape[1] if has_view else 0
-    fn_name, policy = route(BWD_NAME, "tc", bf16)
+    fn_name, policy = route(BWD_NAME, bf16)
     if tc_fwd is None or tc_bwd is None:
         tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
     s = train_scratch(packed, n_points, device)

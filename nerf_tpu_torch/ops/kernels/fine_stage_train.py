@@ -168,7 +168,7 @@ def fine_stage_train(
     if n_rays == 0:
         raise ValueError(f"{NAME}: needs at least one ray")
     de = d_enc.shape[-1] if has_view else 0
-    fn_name, policy = route(NAME, "tc", dtype == torch.bfloat16)
+    fn_name, policy = route(NAME, dtype == torch.bfloat16)
     sc = train_scratch(packed, n_rays * s_fine, device)
     if tc_fwd is None or tc_bwd is None:
         tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)

@@ -245,7 +245,7 @@ def mega_train(
     n_rows = n_rays * (s_coarse + s_fine)
     de = d_ray.shape[1] if has_view else 0
     dtype = x_enc_c.dtype
-    fn_name, policy = route(NAME, "tc", dtype == torch.bfloat16)
+    fn_name, policy = route(NAME, dtype == torch.bfloat16)
     s = train_scratch(packed, n_rows, device)
 
     def buf(*shape, dt=torch.float32):

@@ -11,10 +11,11 @@ versions, which the wrappers run for CPU tensors and the tests and
 products).  K5-fwd, K5-bwd, K6 and K7 (``mip_train``) run the chain on
 the tensor cores (the ``MipTc`` policy of ``csrc/mip_mlp.cuh``, 3xTF32
 ``wgmma``; K5-bwd's features' cotangent too), on the weights as
-``prepare_weights`` packs and images them, with the float32 SIMT forward
-tile (``MipSimt``) where the features are too wide for the tensor-core one
-(``_build.tile_plan``); ``_build.policy_counts`` records which.  Under
-autograd ``mip_mlp_fwd`` runs as ``MipMLPFunction``, whose backward is
+``prepare_weights`` packs and images them, at every feature width (the
+features stream through the one tile a k-chunk at a time, ``csrc/tc_mlp.cuh``
+note 9), every layer count from 2 and every head width;
+``_build.policy_counts`` records ``"tc"`` for each call.  Under autograd
+``mip_mlp_fwd`` runs as ``MipMLPFunction``, whose backward is
 ``mip_mlp_bwd`` (K5-bwd).
 
 ``compute_dtype="bfloat16"``: features given as bfloat16 (and the operand
@@ -23,7 +24,7 @@ make K5-fwd, K5-bwd, K6 and K7 launch the bf16 kernel of their library
 (``<name>_bf16``: every product, the 54-wide head's included, on operands
 rounded to bfloat16 with float32 sums, float32 outputs and gradients;
 K5-bwd's features' cotangent bfloat16, the features' dtype), recorded as
-``"tc_bf16"`` or ``"simt_bf16"``; the plain versions then run the JAX
+``"tc_bf16"``; the plain versions then run the JAX
 package's bf16 arithmetic (``tc_mlp.bf16_matmul_autograd`` for every
 product, the head's included).
 
@@ -62,8 +63,6 @@ PACK_ORDER = ("w_in", "whh", "b", "g", "beta", "w_out", "b_out")
 # (summed by the split product over points), then the per-tile column sums.
 FLAT_ORDER = ("w_in", "whh", "w_out", "b", "g", "beta", "b_out")
 ALIGNED = ("w_in", "whh")  # slabs the kernels stage with 16-byte copies
-MAX_LAYERS = 11  # the weight-gradient pass takes at most 12 products
-MAX_OUTPUTS = 256  # head width: one thread per output sums b_out's partials
 
 
 def supports_mip_config(cfg) -> bool:
@@ -125,15 +124,13 @@ def mip_mlp_fwd_plain(packed: Packed, features: torch.Tensor, matmul=None) -> to
 
 def check_kernel_shapes(name: str, packed: Packed) -> None:
     """What the mip kernels take beyond ``check_inputs``: an instantiated
-    hidden width, 2..MAX_LAYERS layers and at most MAX_OUTPUTS outputs."""
+    hidden width and at least 2 layers (``supports_mip_config``); every
+    feature width, layer count and head width beyond that."""
     layers, hidden = packed["b"].shape
-    outputs = packed["w_out"].shape[1]
     if hidden not in HIDDEN_WIDTHS:
         raise ValueError(f"{name}: hidden width {hidden} not in {HIDDEN_WIDTHS}")
-    if not 2 <= layers <= MAX_LAYERS:
-        raise ValueError(f"{name}: takes 2..{MAX_LAYERS} hidden layers, got {layers}")
-    if outputs > MAX_OUTPUTS:
-        raise ValueError(f"{name}: at most {MAX_OUTPUTS} outputs, got {outputs}")
+    if layers < 2:
+        raise ValueError(f"{name}: takes 2 or more hidden layers, got {layers}")
 
 
 def weight_pointers(packed: Packed):
@@ -150,13 +147,11 @@ def mip_mlp_fwd(packed: Packed, features: torch.Tensor,
     ``[density, color logits, segmentation logits]``.
 
     CPU tensors run ``mip_mlp_fwd_plain``; CUDA tensors launch the kernel
-    (raising on what it does not take): K7's tile on the tensor cores where
-    the features fit it, else the float32 SIMT tile, chosen from the shapes
-    (``_build.tile_plan``; past the SIMT tile a ``ValueError`` before any
-    launch).  ``tc_fwd`` is the weights' forward operand image
+    (raising on what it does not take): K7's tile on the tensor cores at
+    every feature width.  ``tc_fwd`` is the weights' forward operand image
     (``tc_mlp.tc_images(packed)[0]``) built beforehand, else the call
-    builds it where the tensor-core tile runs.  ``_build.policy_counts``
-    records the tile each call ran.  When autograd records and an input
+    builds it.  ``_build.policy_counts`` records ``"tc"`` (``"tc_bf16"``)
+    for each call.  When autograd records and an input
     requires grad, the call runs as ``MipMLPFunction``, whose backward is
     ``mip_mlp_bwd`` (K5-bwd), on the images it builds itself.  bfloat16
     features (and ``tc_fwd``) run ``compute_dtype="bfloat16"``:
@@ -181,14 +176,13 @@ def mip_mlp_fwd(packed: Packed, features: torch.Tensor,
     out = torch.empty((n_points, outputs), dtype=torch.float32, device=device)
     if n_points == 0:
         return out
-    plan = _build.tile_plan(NAME, n_feat, 0, hidden).policy  # raises past the SIMT tile
-    if plan == "tc" and tc_fwd is None:
+    if tc_fwd is None:
         tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
-    fn_name, policy = route(NAME, plan, dtype == torch.bfloat16)
+    fn_name, policy = route(NAME, dtype == torch.bfloat16)
     fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         features.data_ptr(), out.data_ptr(), n_points, n_feat, hidden, layers, outputs,
-        *weight_pointers(packed), _build.ptr(tc_fwd),
+        *weight_pointers(packed), tc_fwd.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
@@ -262,13 +256,11 @@ def mip_mlp_bwd(
     CPU tensors run ``mip_mlp_bwd_plain``; CUDA tensors launch the kernel
     (raising on what it does not take): its tensor-core passes on the
     operand images ``tc_fwd`` and ``tc_bwd`` (``tc_mlp.tc_images(packed,
-    backward=True)``) when given, else built here; the forward recompute on
-    the float32 SIMT tile where the features are too wide for the
-    tensor-core one (``_build.tile_plan``; past the SIMT tile a
-    ``ValueError`` before any launch).  ``_build.policy_counts`` records the
-    forward tile each call ran.  bfloat16 features (and images) run
+    backward=True)``) when given, else built here, at every feature
+    width, layer count and head width.  ``_build.policy_counts`` records
+    ``"tc"`` for each call.  bfloat16 features (and images) run
     ``compute_dtype="bfloat16"`` (``mip_mlp_bwd_bf16``; ``dfeat``
-    bfloat16): policy ``"tc_bf16"`` or ``"simt_bf16"``.
+    bfloat16): policy ``"tc_bf16"``.
     """
     device = check_inputs(BWD_NAME, packed, {"features": features, "g_out": g_out,
                                              "tc_fwd": tc_fwd, "tc_bwd": tc_bwd}, ALIGNED)
@@ -287,10 +279,9 @@ def mip_mlp_bwd(
     dfeat = torch.empty_like(features) if input_grads else None
     if n_points == 0:
         return dfeat, {k: torch.zeros_like(v) for k, v in packed.items()}
-    plan = _build.tile_plan(BWD_NAME, n_feat, 0, hidden).policy  # raises past the SIMT tile
     if tc_fwd is None or tc_bwd is None:
         tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
-    fn_name, policy = route(BWD_NAME, plan, dtype == torch.bfloat16)
+    fn_name, policy = route(BWD_NAME, dtype == torch.bfloat16)
     s = mip_scratch(packed, n_points, device)
     fn = getattr(_build.load(BWD_NAME), fn_name)
     err = fn(

@@ -12,12 +12,12 @@ Counterpart of ``nerf_tpu/ops/pallas/fused_mip_train.py``:
 
 Both run on the MLP device code of ``csrc/mip_mlp.cuh`` with its products
 as 3xTF32 on the tensor cores (the ``MipTc`` policy, on the operand images
-``tc_mlp.tc_images`` builds: the forward's for K7, both for K6; the forward
-tile in float32 SIMT where the features are too wide for its own, more
-than 132 floats a row at hidden 256: ``_build.tile_plan``, recorded in
-``_build.policy_counts``; K6's ``bwd_rows`` and ``wgrad`` always on the
-tensor cores).  ``mip_eval_plain`` and ``mip_train_grads_plain`` are their
-plain PyTorch versions (``mip_mlp_fwd_plain`` and the ``compositing``
+``tc_mlp.tc_images`` builds: the forward's for K7, both for K6) at every
+feature width, layer count and head width, recorded as ``"tc"`` in
+``_build.policy_counts``; their per-ray passes take rays of any number of
+rows (each ray's scratch in the device memory the wrapper hands them).
+``mip_eval_plain`` and ``mip_train_grads_plain`` are their plain PyTorch
+versions (``mip_mlp_fwd_plain`` and the ``compositing``
 functions, with gradients from ``torch.autograd``; with
 ``matmul=tc_mlp.tc_matmul`` or ``tc_matmul_autograd`` they emulate the
 kernels' products).  ``mip_train_loss_and_grads`` runs one fused train
@@ -27,8 +27,8 @@ its backward handing back the gradients the kernel computed.
 ``compute_dtype="bfloat16"``: bfloat16 features (and images built in
 bfloat16) launch ``mip_eval_bf16`` and ``mip_train_grads_bf16`` (every
 product, the head's included, on bf16 operands with float32 sums; the
-compositing and the losses float32), recorded as ``"tc_bf16"`` or
-``"simt_bf16"``; the plain versions run the bf16 emulation
+compositing and the losses float32), recorded as ``"tc_bf16"``; the plain
+versions run the bf16 emulation
 (``mip_mlp.mip_mlp_fwd_plain``).
 
 Rows: S fenceposts give ``R = S - 1`` interval rows per ray; the interval
@@ -66,7 +66,10 @@ from nerf_tpu_torch.ops.kernels.mip_mlp import (
 
 EVAL_NAME = "mip_eval"
 TRAIN_NAME = "mip_train_grads"
-MAX_ROWS = 1023  # interval rows per ray the per-ray kernels take (1024 fenceposts)
+# Floats a row of the per-ray passes' scratch (``csrc/mip_eval.cu``,
+# ``csrc/mip_train_grads.cu``), which the wrapper hands them in device
+# memory.
+EVAL_RAY_FLOATS, TRAIN_RAY_FLOATS = 4, 5
 
 
 def _mlp_rows(packed: Packed, features: torch.Tensor, matmul) -> torch.Tensor:
@@ -92,19 +95,15 @@ def _check_shapes(name, packed, color_outputs, tensors) -> Tuple[int, int]:
     return n_rays, rows
 
 
-def _check_kernel(name, packed, color_outputs, n_rays, rows) -> str:
-    """What the kernels take beyond the shapes; returns the policy of the
-    forward tile (``_build.tile_plan``, which raises past the SIMT tile),
-    before any launch."""
+def _check_kernel(name, packed, color_outputs, n_rays, rows) -> None:
+    """What the kernels take beyond the shapes, checked before any launch."""
     check_kernel_shapes(name, packed)
-    if not 0 < rows <= MAX_ROWS:
-        raise ValueError(f"{name}: takes 1..{MAX_ROWS} interval rows per ray, got {rows}")
+    if rows == 0:
+        raise ValueError(f"{name}: needs at least one interval row per ray")
     if color_outputs > MAX_COLORS:
         raise ValueError(f"{name}: at most {MAX_COLORS} color outputs, got {color_outputs}")
     if n_rays == 0:
         raise ValueError(f"{name}: needs at least one ray")
-    n_feat, hidden = packed["w_in"].shape
-    return _build.tile_plan(name, n_feat, 0, hidden).policy
 
 
 # -- K7: the deterministic render --------------------------------------------
@@ -122,7 +121,20 @@ def mip_eval_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch (see ``mip_eval``); ``matmul``
     as in ``mip_mlp_fwd_plain`` (bfloat16 features: the bf16 emulation)."""
-    out = _mlp_rows(packed, features, matmul)
+    return mip_composite_plain(_mlp_rows(packed, features, matmul), dists, t_mids, noise,
+                               color_outputs, white_background)
+
+
+def mip_composite_plain(
+    out: torch.Tensor,
+    dists: torch.Tensor,
+    t_mids: torch.Tensor,
+    noise: Optional[torch.Tensor] = None,
+    color_outputs: int = 3,
+    white_background: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``mip_eval_plain`` after the MLP: its outputs ``out [B, R, O]`` ->
+    rgb, seg, depth and acc."""
     dens = out[..., :1] if noise is None else out[..., :1] + noise[..., None]
     weights = compositing.weights_from_density(dens, dists)
     rgb = compositing.composite_rgb_with_background(
@@ -158,11 +170,9 @@ def mip_eval(
 
     Returns ``(rgb [B, C], seg_log_probs [B, K], depth [B], acc [B])``.
     CPU tensors run ``mip_eval_plain``; CUDA tensors launch the kernel
-    (raising on what it does not take): the tensor-core tile where the
-    features fit it, else the float32 SIMT tile, chosen from the shapes
-    (``_build.tile_plan``; past the SIMT tile a ``ValueError`` before any
-    launch), recorded in ``_build.policy_counts``.  bfloat16 features (and
-    ``tc_fwd``) run ``compute_dtype="bfloat16"``: ``mip_eval_bf16``.
+    (raising on what it does not take): the tensor-core tile at every
+    feature width, recorded in ``_build.policy_counts``.  bfloat16 features
+    (and ``tc_fwd``) run ``compute_dtype="bfloat16"``: ``mip_eval_bf16``.
     """
     tensors = {"features": features, "dists": dists, "t_mids": t_mids, "noise": noise,
                "tc_fwd": tc_fwd}
@@ -173,22 +183,24 @@ def mip_eval(
     if device.type == "cpu":
         return mip_eval_plain(packed, features, dists, t_mids, noise, color_outputs,
                               white_background)
-    plan = _check_kernel(EVAL_NAME, packed, color_outputs, n_rays, rows)
-    if plan == "tc" and tc_fwd is None:
+    _check_kernel(EVAL_NAME, packed, color_outputs, n_rays, rows)
+    if tc_fwd is None:
         tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
-    fn_name, policy = route(EVAL_NAME, plan, dtype == torch.bfloat16)
+    fn_name, policy = route(EVAL_NAME, dtype == torch.bfloat16)
     layers, hidden = packed["b"].shape
     outputs = packed["w_out"].shape[1]
     classes = outputs - 1 - color_outputs
     per_ray = torch.empty((n_rays, color_outputs + classes + 2), dtype=torch.float32,
                           device=device)
     mlp_out = torch.empty((n_rays * rows, outputs), dtype=torch.float32, device=device)
+    ray_scratch = torch.empty((n_rays * rows * EVAL_RAY_FLOATS,), dtype=torch.float32,
+                              device=device)
     fn = getattr(_build.load(EVAL_NAME), fn_name)
     err = fn(
         features.data_ptr(), dists.data_ptr(), t_mids.data_ptr(), _build.ptr(noise),
         per_ray.data_ptr(), n_rays, rows, features.shape[-1], hidden, layers, color_outputs,
         outputs, int(white_background), *weight_pointers(packed), mlp_out.data_ptr(),
-        _build.ptr(tc_fwd), torch.cuda.current_stream(device).cuda_stream,
+        ray_scratch.data_ptr(), tc_fwd.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(EVAL_NAME, err)
     _build.launch_counts[EVAL_NAME] += 1
@@ -290,11 +302,9 @@ def mip_train_grads(
     cross-entropy ``-mean_ray seg_log_probs[label]`` (0 when skipped) and
     the gradient of every packed weight of ``rgb_loss + seg_weight *
     seg_loss``.  CPU tensors run ``mip_train_grads_plain``; CUDA tensors
-    launch the kernel (raising on what it does not take): the forward on the
-    tensor-core tile where the features fit it, else on the float32 SIMT
-    tile (``_build.tile_plan``, recorded in ``_build.policy_counts``; past
-    the SIMT tile a ``ValueError`` before any launch), the backward on the
-    tensor cores.  bfloat16 features (and images) run
+    launch the kernel (raising on what it does not take): every pass on the
+    tensor cores at every feature width, recorded in
+    ``_build.policy_counts``.  bfloat16 features (and images) run
     ``compute_dtype="bfloat16"``: ``mip_train_grads_bf16``.
     """
     tensors = {"features": features, "dists": dists, "noise": noise, "pixels": pixels,
@@ -307,24 +317,27 @@ def mip_train_grads(
     if device.type == "cpu":
         return mip_train_grads_plain(packed, features, dists, noise, pixels, labels,
                                      color_outputs, seg_weight, white_background)
-    plan = _check_kernel(TRAIN_NAME, packed, color_outputs, n_rays, rows)
-    if tc_bwd is None or (plan == "tc" and tc_fwd is None):
+    _check_kernel(TRAIN_NAME, packed, color_outputs, n_rays, rows)
+    if tc_fwd is None or tc_bwd is None:
         tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
-    fn_name, policy = route(TRAIN_NAME, plan, dtype == torch.bfloat16)
+    fn_name, policy = route(TRAIN_NAME, dtype == torch.bfloat16)
     layers, hidden = packed["b"].shape
     outputs = packed["w_out"].shape[1]
     sc = mip_scratch(packed, n_rays * rows, device)
     losses = torch.empty((2,), dtype=torch.float32, device=device)
     gout = torch.empty_like(sc["out"])
     ray_loss = torch.empty((n_rays, 2), dtype=torch.float32, device=device)
+    ray_scratch = torch.empty((n_rays * rows * TRAIN_RAY_FLOATS,), dtype=torch.float32,
+                              device=device)
     fn = getattr(_build.load(TRAIN_NAME), fn_name)
     err = fn(
         features.data_ptr(), dists.data_ptr(), noise.data_ptr(), pixels.data_ptr(),
         _build.ptr(labels), losses.data_ptr(), sc["grads"].data_ptr(),
         n_rays, rows, features.shape[-1], hidden, layers, color_outputs, outputs,
         int(white_background), float(seg_weight), *weight_pointers(packed),
-        *scratch_pointers(sc), gout.data_ptr(), ray_loss.data_ptr(), sc["splits"],
-        _build.ptr(tc_fwd), tc_bwd.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        *scratch_pointers(sc), gout.data_ptr(), ray_loss.data_ptr(), ray_scratch.data_ptr(),
+        sc["splits"], tc_fwd.data_ptr(), tc_bwd.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(TRAIN_NAME, err)
     _build.launch_counts[TRAIN_NAME] += 1

@@ -172,7 +172,7 @@ def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tenso
     de = packed["wd_in"].shape[0]
     if tc_fwd is None:
         tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
-    fn_name, policy = route(NAME, "tc", dtype == torch.bfloat16)
+    fn_name, policy = route(NAME, dtype == torch.bfloat16)
     fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         points.data_ptr(), dirs.data_ptr(), out.data_ptr(), n_points, xe, de, hidden,
@@ -219,7 +219,7 @@ def classic_pointmlp_bwd(
     de = packed["wd_in"].shape[0]
     if tc_fwd is None or tc_bwd is None:
         tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
-    fn_name, policy = route(BWD_NAME, "tc", dtype == torch.bfloat16)
+    fn_name, policy = route(BWD_NAME, dtype == torch.bfloat16)
     s = train_scratch(packed, n_points, device)
 
     def buf(*shape, dt=torch.float32):

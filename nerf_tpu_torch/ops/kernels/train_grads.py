@@ -162,7 +162,7 @@ def classic_train_grads(
         raise ValueError(f"{NAME}: needs at least one ray")
     rows = n_rays * s
     de = d_enc.shape[-1] if has_view else 0
-    fn_name, policy = route(NAME, "tc", dtype == torch.bfloat16)
+    fn_name, policy = route(NAME, dtype == torch.bfloat16)
     sc = train_scratch(packed, rows, device)
     tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
     loss = torch.empty((1,), dtype=torch.float32, device=device)

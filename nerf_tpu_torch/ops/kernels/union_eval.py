@@ -138,10 +138,10 @@ def union_eval(
     out = torch.empty((n_rays, colors + 2), dtype=torch.float32, device=device)
     if n_rays:
         de = d_enc.shape[1] if has_view else 0
-        plan = _build.tile_plan(NAME, xe, de, hidden, colors, s_coarse, s_fine).policy
+        _build.tile_plan(NAME, xe, de, hidden, colors, s_coarse, s_fine)
         if tc_fwd is None:
             tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
-        fn_name, policy = route(NAME, plan, dtype == torch.bfloat16)
+        fn_name, policy = route(NAME, dtype == torch.bfloat16)
         fn = getattr(_build.load(NAME), fn_name)
         err = fn(
             x_enc.data_ptr(), _build.ptr(d_enc), t_coarse.data_ptr(), t_fine.data_ptr(),

@@ -2,7 +2,7 @@
 card.
 
     python scripts/torch_bf16_sensitivity.py [--family classic|mip|point|widths|mega-widths|
-                                                      latent-cotangents|all]
+                                                      latent-cotangents|mip-widths|all]
 
 For K1-bwd in compute_dtype bfloat16 (``classic_mlp.classic_mlp_bwd`` on
 bfloat16 encodings, with the encodings' cotangents) at a few widths and
@@ -50,6 +50,16 @@ s density inputs, s = 7 and 32; 65,536 rows away from the bf16 kinks
 under a loss's cotangents, ``chip_smoke.bf16_cotangent_distances``) for
 three seeds each: the kernel's, the float32 kernel's and the plain
 version's own distance with float64 sums, and the ratio the check holds.
+``--family mip-widths``: the mip family in bf16 at hidden 256 with 96, 144
+and 600 features (``encoding_size`` 32, 48 and 200; the LayerNorms drawn
+off identity, as the card tests draw them): K5-fwd's outputs and K5-bwd's
+weight gradients with the features' cotangent on 16,128 rows (256 rays x
+63, uniform cotangents), K6's gradients (seg weight 0.1) and K7's outputs
+on those rays: the kernel's relative L2 distance from the plain bf16
+version, beside the float32 kernel's and the plain version's own with its
+sums in float64 (``Bf16Float64Sums``).  Run from two trees, it compares two
+ways of summing the bf16 feature product (``csrc/mip_mlp.cuh``,
+``kChunkedSums``).
 Exits non-zero without a GPU.
 """
 
@@ -287,11 +297,52 @@ def latent_cotangents_family(device) -> None:
                   f"{err / floor:.3f}", flush=True)
 
 
+def mip_widths_family(device) -> None:
+    f64 = Bf16Float64Sums.apply
+    for features in (96, 144, 600):
+        cfg, packed = mip_packed("full_width", device, encoding_size=features // 3)
+        a = mip_inputs(cfg, device, 256, 63, seed=features)
+        rows = 256 * 63
+        x = a["features"].reshape(rows, -1).bfloat16()
+        g = torch.rand((rows, cfg.num_outputs), device=device,
+                       generator=torch.Generator(device=device).manual_seed(features)) * 2 - 1
+        what = f"mip bf16 {features} features, {rows} rows"
+        plain = mip_mlp.mip_mlp_fwd_plain(packed, x)
+        print(f"{what}: K5-fwd from plain: kernel {rel(mip_mlp.mip_mlp_fwd(packed, x), plain):.3e}, "
+              f"float32 kernel {rel(mip_mlp.mip_mlp_fwd(packed, x.float()), plain):.3e}, plain "
+              f"with float64 sums {rel(mip_mlp.mip_mlp_fwd_plain(packed, x, matmul=f64), plain):.3e}",
+              flush=True)
+        both = lambda r: {"dfeat": r[0].float(), **r[1]}  # noqa: E731
+        ref = both(mip_mlp.mip_mlp_bwd_plain(packed, x, g))
+        print(f"{what}: K5-bwd with dfeat from plain: kernel "
+              f"{flat_rel(both(mip_mlp.mip_mlp_bwd(packed, x, g)), ref):.3e}, float32 kernel "
+              f"{flat_rel(both(mip_mlp.mip_mlp_bwd(packed, x.float(), g)), ref):.3e}, plain with "
+              f"float64 sums {flat_rel(both(mip_mlp.mip_mlp_bwd_plain(packed, x, g, matmul=f64)), ref):.3e}",
+              flush=True)
+        args = [a["features"].bfloat16()] + [a[k] for k in ("dists", "noise", "pixels", "labels")]
+        kw = dict(color_outputs=cfg.color_outputs, seg_weight=0.1)
+        ref = mip_train.mip_train_grads_plain(packed, *args, **kw)[2]
+        got = mip_train.mip_train_grads(packed, *args, **kw)[2]
+        f32 = mip_train.mip_train_grads(packed, a["features"], *args[1:], **kw)[2]
+        d64 = mip_train.mip_train_grads_plain(packed, *args, **kw, matmul=f64)[2]
+        print(f"{what}: K6 gradients from plain: kernel {flat_rel(got, ref):.3e}, float32 kernel "
+              f"{flat_rel(f32, ref):.3e}, plain with float64 sums {flat_rel(d64, ref):.3e}",
+              flush=True)
+        ev = (a["dists"], a["t_mids"], None, cfg.color_outputs)
+        ref = mip_train.mip_eval_plain(packed, args[0], *ev)
+        print(f"{what}: K7 from plain: kernel "
+              f"{outputs_rel(mip_train.mip_eval(packed, args[0], *ev), ref):.3e}, float32 kernel "
+              f"{outputs_rel(mip_train.mip_eval(packed, a['features'], *ev), ref):.3e}, plain with "
+              f"float64 sums {outputs_rel(mip_train.mip_eval_plain(packed, args[0], *ev, matmul=f64), ref):.3e}",
+              flush=True)
+        torch.cuda.synchronize()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--family",
                         choices=("classic", "mip", "point", "widths", "mega-widths",
-                                 "latent-cotangents", "all"),
+                                 "latent-cotangents", "mip-widths", "all"),
                         default="classic")
     family = parser.parse_args().family
     if not torch.cuda.is_available():
@@ -312,7 +363,10 @@ def main() -> int:
     if family in ("latent-cotangents", "all"):
         with torch.no_grad():
             latent_cotangents_family(device)
-    if family in ("mip", "point", "widths", "mega-widths", "latent-cotangents"):
+    if family in ("mip-widths", "all"):
+        with torch.no_grad():
+            mip_widths_family(device)
+    if family in ("mip", "point", "widths", "mega-widths", "latent-cotangents", "mip-widths"):
         return 0
     for hidden, view in CASES:
         cfg = ClassicNeRFConfig(hidden_size=hidden, use_viewdirs=view)

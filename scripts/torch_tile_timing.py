@@ -1,7 +1,9 @@
 """Times the classic kernels' tensor-core tile on the card at the encoding
-widths of the full-width model and of the conditional trainer.
+widths of the full-width model and of the conditional trainer, or the mip
+kernels' at feature widths of the mip model.
 
     python scripts/torch_tile_timing.py [--widths 0,7,32] [--dtypes float32,bfloat16]
+    python scripts/torch_tile_timing.py --family mip [--features 96,144,600]
 
 The full-width ClassicNeRF (hidden 256, view branch on, random weights from
 seed 0) with 3 + s density inputs, s = 0, 7 and 32 state scalars: encodings
@@ -18,6 +20,14 @@ inputs in [-1, 1) from a seed:
 * K8-fwd and K8-bwd (with the raw inputs' cotangents) at 262,144 points,
   x encodings of 3 x 20, 3 x 68 and 3 x 234 lanes (60, 204, 702);
 * K9 at 2048 x (64 + 128), at 60 + 36 only (it takes no state).
+
+``--family mip``: the full-width MipNeRF (hidden 256, 5 layers, 3 + 50
+outputs, random weights from seed 0) with ``encoding_size`` F / 3 for each
+feature width F (96: the default model; 144 and 600 past the widths the
+mip tiles once took), at PERF.md section 6's shapes: K5-fwd at 258,048 and
+65,536 rows, K5-bwd at 258,048 rows without and with the features'
+cotangent, K6 at 4096 x 63 interval rows (seg weight 0.1) and K7 at a
+4000-ray tile of 63 rows.
 
 Each time is the mean over repeated calls of CUDA events after two warm-up
 calls, beside its operations' bounds (FLOP as ``utils.profiling`` counts
@@ -45,10 +55,17 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402  (the card line, the event timer)
-from nerf_tpu_torch import ClassicNeRF, ClassicNeRFConfig, RenderConfig  # noqa: E402
+from nerf_tpu_torch import (  # noqa: E402
+    ClassicNeRF,
+    ClassicNeRFConfig,
+    MipNeRF,
+    MipNeRFConfig,
+    RenderConfig,
+)
 from nerf_tpu_torch.ops import compositing, sampling  # noqa: E402
 from nerf_tpu_torch.utils.profiling import (  # noqa: E402
     classic_flops_per_point,
+    mip_flops_per_point,
     train_kernel_flops,
 )
 from nerf_tpu_torch.ops.kernels import (  # noqa: E402
@@ -56,6 +73,8 @@ from nerf_tpu_torch.ops.kernels import (  # noqa: E402
     classic_mlp,
     fine_stage_train,
     mega_train,
+    mip_mlp,
+    mip_train,
     point_mlp,
     train_grads,
     union_eval,
@@ -170,11 +189,56 @@ def run(device, s: int, dtype: str) -> dict:
     return {"encodings": f"{xe} + {de}", "dtype": dtype, "kernels": out}
 
 
+def run_mip(device, features: int, dtype: str) -> dict:
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(features)
+
+    def rand(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+
+    cfg = MipNeRFConfig(encoding_size=features // 3)
+    model = MipNeRF(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    packed = mip_mlp.pack_mip_params(model.mlp.requires_grad_(False))
+    per_row = mip_flops_per_point(cfg)
+    out = {}
+    with torch.no_grad():
+        rays, rows = 4096, 63
+        x = rand(rays * rows, cfg.feature_dim).to(tdt)
+        g = rand(rays * rows, cfg.num_outputs)
+        for n in (rays * rows, 65_536):
+            xn = x[:n]
+            out[f"K5-fwd {n}"] = timed(mip_mlp.NAME, lambda: mip_mlp.mip_mlp_fwd(packed, xn), 10,
+                                       n * per_row)
+        for grads in (False, True):
+            out[f"K5-bwd {rays * rows} input_grads={grads}"] = timed(
+                mip_mlp.BWD_NAME,
+                lambda: mip_mlp.mip_mlp_bwd(packed, x, g, input_grads=grads), 5,
+                train_kernel_flops(cfg, rays * rows, 1, mip=True, input_grads=grads))
+        points = torch.cumsum(rand(rays, rows, 3, lo=0.0, hi=1.0), dim=1)
+        a = (x.reshape(rays, rows, -1), compositing.distances_from_points(points).contiguous(),
+             rand(rays, rows), rand(rays, cfg.color_outputs, lo=0.0, hi=1.0),
+             torch.randint(0, cfg.segmentation_outputs, (rays,), generator=gen, device=device))
+        out[f"K6 {rays} x {rows}"] = timed(
+            mip_train.TRAIN_NAME,
+            lambda: mip_train.mip_train_grads(packed, *a, cfg.color_outputs, 0.1), 5,
+            train_kernel_flops(cfg, rays, rows, mip=True))
+        rays = 4000
+        ev = (packed, a[0][:rays], a[1][:rays], rand(rays, rows, lo=0.1, hi=60.0), None,
+              cfg.color_outputs)
+        out[f"K7 {rays} x {rows}"] = timed(mip_train.EVAL_NAME,
+                                           lambda: mip_train.mip_eval(*ev), 10,
+                                           rays * rows * per_row)
+    return {"features": features, "dtype": dtype, "kernels": out}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--widths", default="0,7,32",
                         help="state scalars of the density inputs (3 + s), comma-separated")
     parser.add_argument("--dtypes", default="float32,bfloat16")
+    parser.add_argument("--family", choices=("classic", "mip"), default="classic")
+    parser.add_argument("--features", default="96,144,600",
+                        help="mip feature widths (multiples of 3), comma-separated")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_tile_timing: needs an NVIDIA GPU", file=sys.stderr)
@@ -183,8 +247,12 @@ def main() -> int:
     device = torch.device("cuda")
     card = chip_smoke.nvidia_smi("name,power.limit")
     _build.build()
-    results = [run(device, int(s), dtype) for s in args.widths.split(",")
-               for dtype in args.dtypes.split(",")]
+    if args.family == "mip":
+        results = [run_mip(device, int(f), dtype) for f in args.features.split(",")
+                   for dtype in args.dtypes.split(",")]
+    else:
+        results = [run(device, int(s), dtype) for s in args.widths.split(",")
+                   for dtype in args.dtypes.split(",")]
     print(card)
     print(json.dumps({"card": card, "tree": str(REPO), "results": results}))
     return 0

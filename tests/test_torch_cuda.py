@@ -26,11 +26,12 @@ The classic kernels stream their encodings through the tensor-core tile
 and run it at every encoding width: the ``latent_full_width``,
 ``latent_7`` and ``latent_32`` cases (a latent-conditioned model's 100 +
 48, 200 + 36 and 700 + 36; K8's ``wide`` ones) check that each call
-recorded ``tc`` and matches plain, in both dtypes.  Where a mip model's
-features are too wide for the mip tensor-core tile the mip kernels run the
-float32 SIMT tile (``_build.tile_plan``): the ``wide`` mip cases check that
-the policy each call recorded is the one its byte count predicts; past the
-SIMT tile the mip wrappers raise before any launch.  The
+recorded ``tc`` and matches plain, in both dtypes.  The mip kernels
+stream their features through the same tile: at 144 and 600 features (the
+``wide`` and ``too_wide`` mip cases), with 12 layers, a 300-wide head and
+rays of 1100 and 2000 rows, every call records ``tc`` (``tc_bf16``) and
+matches plain at the tolerances of the default model; only a hidden width
+outside ``HIDDEN_WIDTHS`` raises.  The
 products alone (``tc_linear``, ``tc_wgrad`` of ``csrc/tc_product.cu``) are
 held against the CPU emulation of the same arithmetic
 (``tc_mlp.tc_matmul``) and against the float64 product.
@@ -483,58 +484,48 @@ def test_classic_mlp_kernels_match_plain_at_every_width(cuda, hidden, view):
     assert all(torch.equal(b_first[2][k], b_second[2][k]) for k in ref)
 
 
-def round_up4(n):
-    return -(-n // 4) * 4
-
-
-MIP_KERNELS = (mip_train.EVAL_NAME, mip_train.TRAIN_NAME, mip_mlp.NAME, mip_mlp.BWD_NAME)
-
-
-def predicted_tile_bytes(kernel, hidden, xe, de, colors, sc, sf):
-    """(tensor-core, float32 SIMT) bytes of shared memory a block of the
-    kernel's tile takes, counted from the layouts of ``csrc/tc_mlp.cuh``
-    (the classic ``fwd_store``, K1-fwd and K8-fwd: four 16-value chunk
-    buffers of hi and lo weights, the ``[64][H + 4]`` activation tile, the
-    encodings' ring of four ``[64][20]`` slabs, 1024 bytes of alignment;
-    the same at every encoding width, and no SIMT tile: 0) and
-    ``csrc/union_eval.cu`` (K4's block: also the compositing scratch in the
-    activation tile's place where larger, and the block's fine outputs).
-    The mip tiles (K5, K6, K7) keep their ``[64][F]`` feature tile
-    resident, and their SIMT tile holds 16 weight rows and a ``[64][H]``
-    activation tile."""
-    bbuf, act_tc, act = 4 * 2 * hidden * 16, 64 * (hidden + 4), 64 * hidden
-    if kernel in MIP_KERNELS:
-        enc = 64 * (round_up4(xe) + round_up4(de))
-        return 4 * (bbuf + act_tc + enc) + 1024, 4 * (16 * hidden + act + enc)
-    ring = 4 * 64 * 20
-    if kernel != union_eval.NAME:
-        return 4 * (bbuf + act_tc + ring) + 1024, 0
+def predicted_tile_bytes(hidden, k4_shape=None):
+    """Bytes of shared memory a block takes, counted from the layouts of
+    ``csrc/tc_mlp.cuh`` (the one tile of every kernel but K4: four
+    16-value chunk buffers of hi and lo weights, the ``[64][H + 4]``
+    activation tile, the encodings' ring of four ``[64][20]`` slabs, 1024
+    bytes of alignment; the same at every encoding and feature width) and,
+    with ``k4_shape = (colors, sc, sf)``, ``csrc/union_eval.cu`` (K4's
+    block: also the compositing scratch in the activation tile's place
+    where larger, and the block's fine outputs)."""
+    bbuf, act_tc, ring = 4 * 2 * hidden * 16, 64 * (hidden + 4), 4 * 64 * 20
+    if k4_shape is None:
+        return 4 * (bbuf + act_tc + ring) + 1024
+    colors, sc, sf = k4_shape
     comp = 8 * 4 * (sc + sf)
     outs = (1 if sf >= 256 else 256 // sf) * sf * (1 + colors)
-    return 4 * (bbuf + max(act_tc, comp) + ring + outs) + 1024, 0
+    return 4 * (bbuf + max(act_tc, comp) + ring + outs) + 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+def test_the_tile_fits_the_optin_limit(cuda, hidden):
+    """The one tile of every kernel but K4 takes the same bytes at every
+    encoding and feature width, which the device lets a block opt in to."""
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert predicted_tile_bytes(hidden) <= limit
 
 
 def tile_policy(kernel, xe, de, colors=0, sc=0, sf=0):
-    """The policy a call of ``kernel`` at hidden 256 records, its tile's
-    bytes held to ``predicted_tile_bytes``: a kernel whose tile depends on
-    its shapes (``_build.PLANNED``: K4, the mip tiles) follows its plan,
-    whose bytes and limit are checked; a classic kernel's one tile takes
-    the same bytes at every encoding width, which fit the device's opt-in
-    limit: ``"tc"``."""
-    tc_bytes, simt_bytes = predicted_tile_bytes(kernel, 256, xe, de, colors, sc, sf)
-    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-    if kernel not in _build.PLANNED:
-        assert simt_bytes == 0 and tc_bytes <= limit
-        return "tc"
-    plan = _build.tile_plan(kernel, xe, de, 256,
-                            *((colors, sc, sf) if kernel == union_eval.NAME else ()))
-    assert (plan.tc_bytes, plan.simt_bytes, plan.limit) == (tc_bytes, simt_bytes, limit)
-    assert simt_bytes <= limit
-    return plan.policy
+    """The policy a float32 call of ``kernel`` at hidden 256 records:
+    ``"tc"``, every kernel's one tile; K4, whose block depends on its
+    sample counts (``_build.PLANNED``), follows its plan, whose bytes and
+    limit are held to ``predicted_tile_bytes`` and the device's."""
+    if kernel in _build.PLANNED:
+        plan = _build.tile_plan(kernel, xe, de, 256, colors, sc, sf)
+        limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+        assert plan == (predicted_tile_bytes(256, (colors, sc, sf)), limit)
+    return "tc"
 
 
 # The mip models of the tile-policy cases: the full-width MipNeRF (96
-# features) and one with 144 (encoding_size 48), past the tensor-core tile.
+# features) and one with 144 (encoding_size 48), which the tile streams as
+# it streams 96.
 MIP_TILE_CASES = {"full_width": dict(), "latent_full_width": dict(encoding_size=48)}
 
 
@@ -550,12 +541,10 @@ def test_tile_policy_follows_the_byte_count(cuda, variant, kernel):
     96 features and with 144 (``MIP_TILE_CASES``): the call matches plain
     at the kernel's tolerances (K1-bwd, K2, K3 and K6 on rows away from the
     ReLU kinks) and records the policy its byte count predicts
-    (``tile_policy``): the tensor cores where their tile fits the device's
-    opt-in shared memory a block, else (the mip kernels) the float32 SIMT
-    tile (the classic tiles take ``fwd_store``'s bytes, the same at every
-    encoding width; K6's and K7's ``fwd_store``'s without view encodings).
-    On the H100 (232,448 bytes) that is the tensor cores at 60 + 36, 100 +
-    48 and 96 features, and the SIMT tile at 144."""
+    (``tile_policy``): the tensor cores, whose tile takes ``fwd_store``'s
+    bytes at every encoding and feature width (K4's block its own).  On the
+    H100 (232,448 bytes) that is the tensor cores at 60 + 36, 100 + 48, 96
+    and 144 features."""
     mip = kernel in (mip_train.EVAL_NAME, mip_train.TRAIN_NAME)
     if mip:
         cfg, packed = mip_packed("full_width", cuda, **MIP_TILE_CASES[variant])
@@ -564,7 +553,7 @@ def test_tile_policy_follows_the_byte_count(cuda, variant, kernel):
         cfg, packed = packed_weights(variant, cuda)
         xe, de, colors, sc, sf = cfg.x_encoding_dim, cfg.d_encoding_dim, cfg.color_outputs, 64, 128
     want = tile_policy(kernel, xe, de, colors, sc, sf)
-    assert want == ("tc" if variant == "full_width" or not mip else "simt")
+    assert want == "tc"
     before = dict(_build.policy_counts)
     if kernel == mip_train.EVAL_NAME:
         a = mip_inputs(cfg, cuda, rays=37, rows=sc - 1)
@@ -922,22 +911,95 @@ def test_mip_kernels_match_plain_at_every_width(cuda, hidden, variant):
     assert all(torch.equal(t_first[2][k], t_second[2][k]) for k in r_packed)
 
 
+# The mip shapes past the limits the kernels once had, at full width: 12
+# hidden layers (13 weight products, two wgrad launches), a 300-wide head
+# (segmentation_outputs 296: 19 chunks of head_dh, five 64-column blocks of
+# head_wide, three 128-column tiles of the head's dW) and rays of 1100 and
+# 2000 rows (past the 1023 the per-ray passes once took; their scratch in
+# device memory).
+MIP_SHAPE_CASES = {
+    "layers_12": (dict(num_hidden_layers=12), 63),
+    "head_300": (dict(segmentation_outputs=296), 63),
+    "rows_1100": (dict(), 1100),
+    "rows_2000": (dict(), 2000),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(MIP_SHAPE_CASES))
+def test_mip_kernels_take_every_shape(cuda, case, dtype):
+    """K5-fwd, K5-bwd (with the features' cotangent), K6 (seg weight 0.1)
+    and K7 at the ``MIP_SHAPE_CASES`` shapes, on about 4096 rows (at least
+    3 rays) away from the ReLU kinks: each call one launch on ``tc``
+    (``tc_bf16``), against plain at the default model's tolerances
+    (float32: K1_TOL, K7's 1e-4, LOSS_RTOL and GRAD_ATOL; bf16: BF16_FWD
+    and BF16_GRAD against the plain bf16 versions)."""
+    overrides, rows = MIP_SHAPE_CASES[case]
+    cfg, packed = mip_packed("full_width", cuda, **overrides)
+    bf16 = dtype == "bfloat16"
+    rays = max(3, 4096 // rows)
+    a = (mip_bf16_inputs(cfg, packed, cuda, rays, rows, seed=9) if bf16
+         else mip_inputs(cfg, cuda, rays, rows, seed=9, packed=packed))
+    x = a["features"].reshape(rays * rows, cfg.feature_dim)
+    g_out = rand(torch.Generator(device=cuda).manual_seed(10), x.shape[0], cfg.num_outputs)
+    e_args = (packed, a["features"], a["dists"], a["t_mids"], a["noise"], cfg.color_outputs)
+    t_args = (packed, a["features"], a["dists"], a["noise"], a["pixels"], a["labels"],
+              cfg.color_outputs, 0.1)
+    policies = dict(_build.policy_counts)
+    out = mip_mlp.mip_mlp_fwd(packed, x)
+    dx, d_packed = mip_mlp.mip_mlp_bwd(packed, x, g_out)
+    e_got = mip_train.mip_eval(*e_args)
+    t_got = mip_train.mip_train_grads(*t_args)
+    torch.cuda.synchronize()
+    policy = "tc_bf16" if bf16 else "tc"
+    assert policy_moves(policies) == {(k, policy): 1 for k in (
+        mip_mlp.NAME, mip_mlp.BWD_NAME, mip_train.EVAL_NAME, mip_train.TRAIN_NAME)}
+    rdx, r_packed = mip_mlp.mip_mlp_bwd_plain(packed, x, g_out)
+    e_ref = mip_train.mip_eval_plain(*e_args)
+    t_ref = mip_train.mip_train_grads_plain(*t_args)
+    if bf16:
+        assert rel_l2(out, mip_mlp.mip_mlp_fwd_plain(packed, x)) <= BF16_FWD
+        assert_bf16_grads(d_packed | {"dx": dx}, r_packed | {"dx": rdx})
+        for g, r in zip(e_got, e_ref):
+            assert rel_l2(g, r) <= BF16_FWD
+        assert rel_l2(t_got[0] + 0.1 * t_got[1], t_ref[0] + 0.1 * t_ref[1]) <= BF16_FWD
+        assert_bf16_grads(t_got[2], t_ref[2])
+        return
+    torch.testing.assert_close(out, mip_mlp.mip_mlp_fwd_plain(packed, x), **K1_TOL)
+    assert_grads_close(d_packed | {"dx": dx}, r_packed | {"dx": rdx})
+    for g, r in zip(e_got, e_ref):
+        torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(t_got[0], t_ref[0], rtol=LOSS_RTOL, atol=0)
+    torch.testing.assert_close(t_got[1], t_ref[1], rtol=LOSS_RTOL, atol=0)
+    assert_grads_close(t_got[2], t_ref[2])
+
+
 @pytest.mark.cuda
 def test_mip_wrappers_raise_past_every_tile(cuda):
-    """Features past the float32 SIMT tile too (600 at hidden 256, past its
-    588): K6 and K7 raise, naming the limit, with nothing launched or
-    counted."""
+    """600 features (past the 588 of the float32 SIMT tile the mip kernels
+    once handed off to): K6 and K7 raise only on a hidden width outside
+    ``HIDDEN_WIDTHS`` (48), naming it, with nothing launched or counted; at
+    hidden 256 each runs its tensor-core tile, one launch recording
+    ``tc``."""
     cfg, packed = mip_packed("full_width", cuda, encoding_size=200)
+    _, packed48 = mip_packed("full_width", cuda, encoding_size=200, hidden_size=48)
     a = mip_inputs(cfg, cuda, rays=2, rows=5)
+    e_args = (a["features"], a["dists"], a["t_mids"])
+    t_args = (a["features"], a["dists"], a["noise"], a["pixels"], a["labels"])
     torch.cuda.synchronize()
     launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
-    with pytest.raises(ValueError, match="limit"):
-        mip_train.mip_eval(packed, a["features"], a["dists"], a["t_mids"])
-    with pytest.raises(ValueError, match="limit"):
-        mip_train.mip_train_grads(packed, a["features"], a["dists"], a["noise"], a["pixels"],
-                                  a["labels"], seg_weight=0.1)
+    with pytest.raises(ValueError, match="hidden width"):
+        mip_train.mip_eval(packed48, *e_args)
+    with pytest.raises(ValueError, match="hidden width"):
+        mip_train.mip_train_grads(packed48, *t_args, seg_weight=0.1)
     assert dict(_build.launch_counts) == launches
     assert dict(_build.policy_counts) == policies
+    mip_train.mip_eval(packed, *e_args)
+    mip_train.mip_train_grads(packed, *t_args, seg_weight=0.1)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {(mip_train.EVAL_NAME, "tc"): 1,
+                                      (mip_train.TRAIN_NAME, "tc"): 1}
 
 
 @pytest.mark.cuda
@@ -969,9 +1031,6 @@ def test_mip_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="hidden width"):
         mip_mlp.mip_mlp_bwd(packed48, torch.zeros(4, 96, device=cuda),
                             torch.zeros(4, 54, device=cuda))
-    a = mip_inputs(cfg, cuda, rays=2, rows=mip_train.MAX_ROWS + 1)
-    with pytest.raises(ValueError, match="rows"):
-        mip_train.mip_eval(packed, a["features"], a["dists"], a["t_mids"])
     a = mip_inputs(cfg, cuda, rays=2, rows=7)
     with pytest.raises(ValueError, match="labels"):
         mip_train.mip_train_grads(packed, a["features"], a["dists"], a["noise"], a["pixels"],
@@ -1122,10 +1181,9 @@ def test_classic_pointmlp_bwd_kernel_matches_plain(cuda, variant, points, input_
 
 
 # K8-bwd's and K5-bwd's models beside the full-width ones: x encodings of
-# 102 + 36, which the classic tile streams (the wider x encoding also takes
-# two 64-column passes of the input cotangent), and 144 features, past the
-# mip tensor-core tile at hidden 256 (three passes); and 600 features, past
-# the mip float32 SIMT tile too.
+# 102 + 36 and 600 + 36, and 144 and 600 features, which the tiles stream
+# (the wider inputs also take more 64-column passes of the input
+# cotangent: three at 144 features, ten at 600).
 INPUT_TC_WIDTHS = {
     point_mlp.BWD_NAME: {"wide": dict(x_positional_encoding_size=34),
                          "too_wide": dict(x_positional_encoding_size=200)},
@@ -1164,21 +1222,19 @@ def input_tc_case(kernel, device, points, seed=0, **overrides):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", [point_mlp.BWD_NAME, mip_mlp.BWD_NAME])
-@pytest.mark.parametrize("variant", ["full_width", "wide"])
+@pytest.mark.parametrize("variant", ["full_width", "wide", "too_wide"])
 def test_input_cotangent_kernels_follow_the_width_rule(cuda, variant, kernel):
     """K8-bwd and K5-bwd with the inputs' cotangents at full width, and with
-    wider encodings (features) (``INPUT_TC_WIDTHS``): the plan's bytes are
-    those of ``fwd_store``'s tiles, the call records the policy they
-    predict (the tensor cores at 60 + 36, 102 + 36 and 96 features, the
-    mip float32 SIMT forward tile at 144) and matches plain."""
-    overrides = INPUT_TC_WIDTHS[kernel]["wide"] if variant == "wide" else {}
+    wider encodings (features) (``INPUT_TC_WIDTHS``): the tile's bytes are
+    ``fwd_store``'s at every width, the call records ``tc`` (60 + 36, 102 +
+    36, 600 + 36; 96, 144 and 600 features) and matches plain."""
+    overrides = INPUT_TC_WIDTHS[kernel][variant] if variant != "full_width" else {}
     cfg, (xe, de), call = input_tc_case(kernel, cuda, points=150, **overrides)
-    want = "tc" if variant == "full_width" or kernel == point_mlp.BWD_NAME else "simt"
-    assert tile_policy(kernel, xe, de) == want
+    assert tile_policy(kernel, xe, de) == "tc"
     before = dict(_build.policy_counts)
     got = call()
     torch.cuda.synchronize()
-    assert policy_moves(before) == {(kernel, want): 1}
+    assert policy_moves(before) == {(kernel, "tc"): 1}
     assert_grads_close(got, call(plain=True))
 
 
@@ -1251,22 +1307,23 @@ def test_input_cotangent_autograd_builds_the_images_once(cuda, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", [mip_mlp.BWD_NAME])
 def test_input_cotangent_wrappers_raise_past_every_tile(cuda, kernel):
-    """Features past the mip float32 SIMT tile too (600 at hidden 256, past
-    its 588): K5-bwd raises, naming the limit, with nothing launched or
-    counted.  (K8-bwd takes every encoding width.)"""
-    _, _, call = input_tc_case(kernel, cuda, points=5, **INPUT_TC_WIDTHS[kernel]["too_wide"])
+    """600 features at a hidden width outside ``HIDDEN_WIDTHS`` (48): K5-bwd
+    raises, naming it, with nothing launched or counted, the one shape it
+    refuses (at hidden 256 it takes 600 features:
+    ``test_input_cotangent_kernels_follow_the_width_rule``).  (K8-bwd takes
+    every encoding width.)"""
+    _, _, call = input_tc_case(kernel, cuda, points=5, hidden_size=48,
+                               **INPUT_TC_WIDTHS[kernel]["too_wide"])
     torch.cuda.synchronize()
     launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
-    with pytest.raises(ValueError, match="limit"):
+    with pytest.raises(ValueError, match="hidden width"):
         call()
     assert dict(_build.launch_counts) == launches
     assert dict(_build.policy_counts) == policies
 
 
 # K8-fwd's and K5-fwd's models beside the full-width ones: x encodings of
-# 120 + 36, which the classic tile streams, and 144 features, past the mip
-# tensor-core tile at hidden 256; and 600 features, past the mip float32
-# SIMT tile too.
+# 120 + 36 and 600 + 36, and 144 and 600 features, which the tiles stream.
 FORWARD_TC_WIDTHS = {
     point_mlp.NAME: {"wide": dict(x_positional_encoding_size=40),
                      "too_wide": dict(x_positional_encoding_size=200)},
@@ -1303,21 +1360,19 @@ def forward_case(kernel, device, points, seed=0, **overrides):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", [point_mlp.NAME, mip_mlp.NAME])
-@pytest.mark.parametrize("variant", ["full_width", "wide"])
+@pytest.mark.parametrize("variant", ["full_width", "wide", "too_wide"])
 def test_forward_kernels_follow_the_width_rule(cuda, variant, kernel):
     """K8-fwd and K5-fwd at full width and with wider encodings (features)
-    (``FORWARD_TC_WIDTHS``): the plan's bytes are those of ``fwd_store``'s
-    tiles, the call records the policy they predict (the tensor cores at 60
-    + 36, 120 + 36 and 96 features, the mip float32 SIMT tile at 144) and
-    matches plain at K1_TOL."""
-    overrides = FORWARD_TC_WIDTHS[kernel]["wide"] if variant == "wide" else {}
+    (``FORWARD_TC_WIDTHS``): the tile's bytes are ``fwd_store``'s at every
+    width, the call records ``tc`` (60 + 36, 120 + 36, 600 + 36; 96, 144
+    and 600 features) and matches plain at K1_TOL."""
+    overrides = FORWARD_TC_WIDTHS[kernel][variant] if variant != "full_width" else {}
     _, (xe, de), call = forward_case(kernel, cuda, points=301, **overrides)
-    want = "tc" if variant == "full_width" or kernel == point_mlp.NAME else "simt"
-    assert tile_policy(kernel, xe, de) == want
+    assert tile_policy(kernel, xe, de) == "tc"
     before = dict(_build.policy_counts)
     got = call()
     torch.cuda.synchronize()
-    assert policy_moves(before) == {(kernel, want): 1}
+    assert policy_moves(before) == {(kernel, "tc"): 1}
     torch.testing.assert_close(got, call(plain=True), **K1_TOL)
 
 
@@ -1344,13 +1399,16 @@ def test_forward_kernels_take_an_image_built_beforehand(cuda, kernel):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", [mip_mlp.NAME])
 def test_forward_wrappers_raise_past_every_tile(cuda, kernel):
-    """Features past the mip float32 SIMT tile too (600 at hidden 256):
-    K5-fwd raises, naming the limit, with nothing launched or counted.
-    (K8-fwd takes every encoding width.)"""
-    _, _, call = forward_case(kernel, cuda, points=5, **FORWARD_TC_WIDTHS[kernel]["too_wide"])
+    """600 features at a hidden width outside ``HIDDEN_WIDTHS`` (48): K5-fwd
+    raises, naming it, with nothing launched or counted, the one shape it
+    refuses (at hidden 256 it takes 600 features:
+    ``test_forward_kernels_follow_the_width_rule``).  (K8-fwd takes every
+    encoding width.)"""
+    _, _, call = forward_case(kernel, cuda, points=5, hidden_size=48,
+                              **FORWARD_TC_WIDTHS[kernel]["too_wide"])
     torch.cuda.synchronize()
     launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
-    with pytest.raises(ValueError, match="limit"):
+    with pytest.raises(ValueError, match="hidden width"):
         call()
     assert dict(_build.launch_counts) == launches
     assert dict(_build.policy_counts) == policies
@@ -1636,13 +1694,12 @@ BF16_VARIANTS = ["full_width", "latent_full_width", "latent", "latent_7", "laten
 
 
 def bf16_route(cfg, kernel, *shape):
-    """The policy a bf16 call records: K4's plan's, else the classic tile's
-    ``tc``, with ``_bf16``."""
-    if kernel not in _build.PLANNED:
-        return "tc_bf16"
-    return _build.tile_plan(kernel, cfg.x_encoding_dim,
-                            cfg.d_encoding_dim if cfg.use_viewdirs else 0, cfg.hidden_size,
-                            *shape).policy + "_bf16"
+    """The policy a bf16 call records, ``tc_bf16``, once K4's plan (which
+    raises where its block does not fit) has been asked."""
+    if kernel in _build.PLANNED:
+        _build.tile_plan(kernel, cfg.x_encoding_dim,
+                         cfg.d_encoding_dim if cfg.use_viewdirs else 0, cfg.hidden_size, *shape)
+    return "tc_bf16"
 
 
 @pytest.mark.cuda
@@ -1866,11 +1923,8 @@ def test_bf16_model_paths_launch_the_bf16_kernels(cuda):
 # features' cotangent is bfloat16.  The rounding of the 54-wide head, the
 # one product outside the tensor-core tiles, is checked directly
 # (``test_bf16_mip_head_rounds_its_operands``).
-MIP_BF16_VARIANTS = {"full_width": dict(), "latent_full_width": dict(encoding_size=48)}
-
-
-def mip_bf16_route(cfg, kernel):
-    return _build.tile_plan(kernel, cfg.feature_dim, 0, cfg.hidden_size).policy + "_bf16"
+MIP_BF16_VARIANTS = {"full_width": dict(), "latent_full_width": dict(encoding_size=48),
+                     "too_wide": dict(encoding_size=200)}
 
 
 def mip_bf16_inputs(cfg, packed, device, rays, rows, seed=0):
@@ -1886,16 +1940,15 @@ def mip_bf16_inputs(cfg, packed, device, rays, rows, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", sorted(MIP_BF16_VARIANTS))
 def test_bf16_mip_forward_kernels_match_plain(cuda, variant):
-    """K5-fwd and K7 in bf16 against their plain bf16 versions: the
-    tensor-core tile at 96 features (tc_bf16), the SIMT tile at 144
-    (simt_bf16)."""
+    """K5-fwd and K7 in bf16 against their plain bf16 versions, on the
+    tensor-core tile (tc_bf16) at 96, 144 and 600 features."""
     cfg, packed = mip_packed("full_width", cuda, **MIP_BF16_VARIANTS[variant])
     gen = torch.Generator(device=cuda).manual_seed(5)
     x = rand(gen, 1000, cfg.feature_dim).bfloat16()
     policies = dict(_build.policy_counts)
     out = mip_mlp.mip_mlp_fwd(packed, x)
     torch.cuda.synchronize()
-    assert policy_moves(policies) == {(mip_mlp.NAME, mip_bf16_route(cfg, mip_mlp.NAME)): 1}
+    assert policy_moves(policies) == {(mip_mlp.NAME, "tc_bf16"): 1}
     assert out.dtype == torch.float32
     assert rel_l2(out, mip_mlp.mip_mlp_fwd_plain(packed, x)) <= BF16_FWD
     a = mip_bf16_inputs(cfg, packed, cuda, rays=37, rows=63)
@@ -1904,7 +1957,7 @@ def test_bf16_mip_forward_kernels_match_plain(cuda, variant):
     got = mip_train.mip_eval(*args)
     torch.cuda.synchronize()
     assert policy_moves(policies) == {
-        (mip_train.EVAL_NAME, mip_bf16_route(cfg, mip_train.EVAL_NAME)): 1}
+        (mip_train.EVAL_NAME, "tc_bf16"): 1}
     for g, r in zip(got, mip_train.mip_eval_plain(*args)):
         assert g.dtype == torch.float32 and rel_l2(g, r) <= BF16_FWD
 
@@ -1913,9 +1966,9 @@ def test_bf16_mip_forward_kernels_match_plain(cuda, variant):
 @pytest.mark.parametrize("input_grads", [False, True])
 @pytest.mark.parametrize("variant", sorted(MIP_BF16_VARIANTS))
 def test_bf16_mip_mlp_bwd_matches_plain(cuda, variant, input_grads):
-    """K5-bwd in bf16 (the forward recompute on the tile the width gives,
-    the backward passes on the tensor cores), dfeat bfloat16, bitwise
-    repeatable; the float32 kernel on the same inputs fails the check."""
+    """K5-bwd in bf16 on the tensor cores at 96, 144 and 600 features,
+    dfeat bfloat16, bitwise repeatable; the float32 kernel on the same
+    inputs fails the check."""
     cfg, packed = mip_packed("full_width", cuda, **MIP_BF16_VARIANTS[variant])
     gen = torch.Generator(device=cuda).manual_seed(3)
     x = mip_rows_away_from_kinks(packed, gen, 1, BF16_ROWS, cfg.feature_dim,
@@ -1925,7 +1978,7 @@ def test_bf16_mip_mlp_bwd_matches_plain(cuda, variant, input_grads):
     dx, d_packed = mip_mlp.mip_mlp_bwd(packed, x, g_out, input_grads=input_grads)
     torch.cuda.synchronize()
     assert policy_moves(policies) == {
-        (mip_mlp.BWD_NAME, mip_bf16_route(cfg, mip_mlp.BWD_NAME)): 1}
+        (mip_mlp.BWD_NAME, "tc_bf16"): 1}
     rdx, ref = mip_mlp.mip_mlp_bwd_plain(packed, x, g_out, input_grads)
     assert_bf16_grads(d_packed, ref)
     f32_dx, f32 = mip_mlp.mip_mlp_bwd(packed, x.float(), g_out, input_grads=input_grads)
@@ -1953,7 +2006,7 @@ def test_bf16_mip_train_grads_matches_plain(cuda, variant, seg_weight, white):
     rgb, seg, grads = mip_train.mip_train_grads(packed, *args, **kw)
     torch.cuda.synchronize()
     assert policy_moves(policies) == {
-        (mip_train.TRAIN_NAME, mip_bf16_route(cfg, mip_train.TRAIN_NAME)): 1}
+        (mip_train.TRAIN_NAME, "tc_bf16"): 1}
     r_rgb, r_seg, ref = mip_train.mip_train_grads_plain(packed, *args, **kw)
     assert rel_l2(rgb + seg_weight * seg, r_rgb + seg_weight * r_seg) <= BF16_FWD
     assert (float(seg) == 0.0) == (seg_weight == 0.0)

@@ -204,7 +204,7 @@ def c_parameter_count(function: str) -> int:
 
 
 @pytest.mark.parametrize("function", ["classic_pointmlp_fwd", "union_eval_plan",
-                                      "mip_mlp_fwd", "mip_mlp_fwd_plan",
+                                      "mip_mlp_fwd", "mip_eval",
                                       "classic_mlp_bwd", "train_grads", "fine_stage_train",
                                       "mip_mlp_bwd", "mip_train_grads", "classic_pointmlp_bwd",
                                       "mega_train"])
@@ -212,7 +212,7 @@ def test_c_interfaces_take_what_the_build_binds(function):
     """``_build`` binds each new or changed C function with as many
     argument types as its source declares (ctypes would pass a missing
     ``tc_fwd`` as the stream) and loads it, a shape-dependent plan
-    (``_build.PLANNED``: K4's and the mip tiles') beside its kernel."""
+    (``_build.PLANNED``: K4's block) beside its kernel."""
     assert len(_build.ARGTYPES[function]) == c_parameter_count(function)
     name = function.removesuffix("_plan")
     assert function in _build.FUNCTIONS[name]
