@@ -101,8 +101,7 @@
 14. The user's entry points (slice 11), in a temporary directory, each
    with the counters zeroed just before it and read just after, the
    counts derived from the code and checked exactly, every kernel on
-   its tensor-core tile (``tc``; K4's the one ``_build.tile_plan`` picks
-   for its sample counts):
+   its tensor-core tile (``tc``):
    a. ``cli.train_tiny_nerf.main`` at the notebook recipe (the synthetic
       scene at the CLI's defaults, 24 views of 100x100; full width,
       batch 1024, 64 samples, density noise 1.0, lr 1e-4, ``--use-pallas``)
@@ -260,7 +259,24 @@
    plain versions, each timed beside its plain version and its bounds
    (float32 SIMT, 3xTF32, bf16 operations; bytes, and with the float32
    chain) with the card's name and power limit.
-21. Prints the kernels' JSON line (each row with its float32 bound and
+21. Every shape the JAX kernels take (slice 19), in float32 and bf16:
+   ``ClassicNeRF`` at hidden 48 (weights padded to the tile of 64), 512
+   and 1024 (column blocks of 256, the tiles' rows in device memory:
+   ``csrc/tc_mlp.cuh`` note 11), and at hidden 256 with 16 colours and 64
+   + 384 samples.  At each: a 4000-ray frame tile through ``render_rays``
+   (one K1-fwd and one K4), one reuse step (one K1-fwd, one K1-bwd, one
+   K3) and one K9 step but at hidden 1024, and one coarse-only step (one
+   K2), 512 rays each, the
+   counters zeroed just before and read just after, every launch on
+   ``tc`` (``tc_bf16``), against the plain path (bf16:
+   ``plain_versions()``); then the six kernels on the arguments they were
+   handed against their plain versions (K9 with its own fine t-values),
+   each timed beside its plain version and its bounds with the card's
+   name and power limit.  Then phase 20's cases at ``MipNeRFConfig
+   (hidden_size=48)``, ``(hidden_size=512)`` and 16 colours (the frame
+   tile, the fused step and K7, K6, K5-fwd and K5-bwd against plain,
+   timed).  Prints the phase's wall time.
+22. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
    each, ``products``: how its MLP products run, and since which slice,
    ``cli_launches``: its launches in phase 14, ``dp_launches``: in phase
@@ -1831,8 +1847,8 @@ def read_png(path: str) -> np.ndarray:
 def counted(what: str, call, expected: dict, plans: dict):
     """Run ``call()`` with the counters zeroed just before and read just
     after; check the launches against ``expected`` and each kernel's tile
-    against ``plans`` (kernel -> policy: the classic kernels' one tile,
-    ``tc``; K4's ``tile_plan``).  Returns (launches, seconds)."""
+    against ``plans`` (kernel -> policy: every kernel's one tile,
+    ``tc``).  Returns (launches, seconds)."""
     torch.cuda.synchronize()
     _build.launch_counts.clear()
     _build.policy_counts.clear()
@@ -1864,10 +1880,6 @@ def entry_points_phase(device, card: str) -> dict:
     and the render CLI through the fused kernels.  Returns each kernel's
     launches in the phase."""
     cfg = ClassicNeRFConfig(normalize_position=6.0)
-    xe, de, hidden = cfg.x_encoding_dim, cfg.d_encoding_dim, cfg.hidden_size
-    # K4's plan raises where its block does not fit.
-    print(f"K4's block at the full-width model: "
-          f"{_build.tile_plan(union_eval.NAME, xe, de, hidden, cfg.color_outputs, 64, 128)}")
     plans = dict.fromkeys((train_grads.NAME, classic_mlp.NAME, union_eval.NAME), "tc")
     # An eval render and a CLI view are 100 x 100 rays in tiles of
     # RenderConfig().rays_per_tile.
@@ -2031,7 +2043,8 @@ def entry_points_phase(device, card: str) -> dict:
                              "poses": np.concatenate([pose_o, -pose_o], -1),
                              "states": states.astype(np.float32)}, f)
             cxe = ClassicNeRFConfig(density_inputs=3 + width).x_encoding_dim
-            what = f"14d train_conditional, {width} state scalars (encodings {cxe} + {de})"
+            what = (f"14d train_conditional, {width} state scalars (encodings {cxe} + "
+                    f"{cfg.d_encoding_dim})")
             cond = os.path.join(tmp, f"conditional_{width}")
             cond_straight = os.path.join(tmp, f"conditional_{width}_straight")
 
@@ -2976,7 +2989,8 @@ def check_wide_mip_eval(tag: str, packed, args, got, ref) -> None:
     compare(mip_train.EVAL_NAME, got, own)
 
 
-def mip_wide_case(device, bank, case: str, dtype: str, card: str) -> None:
+def mip_wide_case(device, bank, case: str, dtype: str, card: str,
+                  cases: dict = MIP_WIDE_CASES, label: str = "") -> None:
     """Phase 20 at one case and dtype: (a) one frame tile through
     ``render_rays`` (one K7) and (b) one fused step with the seg CE (one
     K6), each with the counters zeroed just before and read just after,
@@ -2986,14 +3000,15 @@ def mip_wide_case(device, bank, case: str, dtype: str, card: str) -> None:
     (c) K7 and K6 on the arguments those calls were handed, K5-fwd on the
     step's feature rows and K5-bwd on them with uniform random cotangents
     (without and with the features' cotangent), each against its plain
-    version, timed beside it and its bounds with the card line."""
-    overrides, fenceposts, tile_rays, step_rays = MIP_WIDE_CASES[case]
+    version, timed beside it and its bounds with the card line.  ``cases``
+    holds ``case`` (phase 21 passes its own, and ``label`` before the tag)."""
+    overrides, fenceposts, tile_rays, step_rays = cases[case]
     bf16 = dtype == "bfloat16"
     policy = "tc_bf16" if bf16 else "tc"
     model = make_mip_model(True, device, compute_dtype=dtype, **overrides)
     plain = make_mip_model(False, device, **overrides)
     cfg = model.cfg
-    tag = f"mip {case} {dtype}"
+    tag = f"{label}mip {case} {dtype}"
     render = dataclasses.replace(MIP_RENDER, num_coarse_samples=fenceposts)
     train_render = dataclasses.replace(MIP_TRAIN_RENDER, num_coarse_samples=fenceposts)
     gen = torch.Generator(device=device).manual_seed(20)
@@ -3028,7 +3043,7 @@ def mip_wide_case(device, bank, case: str, dtype: str, card: str) -> None:
             compare("mip_frame", [got.rgb, got.segmentation], [ref.rgb, ref.segmentation])
 
     # b. A fused step against the plain step on the same batch and draws.
-    batch = bank.sample_batch(gen, step_rays)
+    batch = batch_of(bank, gen, step_rays, cfg.color_outputs)
     draws = loop.draws_for_model(gen, model, train_render, step_rays, device)
     with capture_args(mip_train, "mip_train_grads", store):
         loss, grads, _ = on_route(
@@ -3041,7 +3056,8 @@ def mip_wide_case(device, bank, case: str, dtype: str, card: str) -> None:
             ref_loss, ref, _ = make_fused_loss_and_grads(model, train_render, SEG_WEIGHT)(
                 batch, draws)
         check_bf16_outputs(f"{what} loss", [loss], [ref_loss])
-        check_bf16_grads(what, grads, ref)
+        check_bf16_grads_wide(what, grads, ref, cfg.hidden_size, lambda: bf16_step_reference(
+            model, train_render, batch, draws, SEG_WEIGHT, Bf16Float64Sums.apply)[1])
     else:
         with torch.enable_grad():
             ref_loss, _ = make_loss_fn(plain, train_render, SEG_WEIGHT)(batch, draws)
@@ -3087,7 +3103,9 @@ def mip_wide_case(device, bank, case: str, dtype: str, card: str) -> None:
         if bf16:
             check_bf16_outputs(f"{what} loss", [got[0] + SEG_WEIGHT * got[1]],
                                [ref[0] + SEG_WEIGHT * ref[1]])
-            check_bf16_grads(what, got[2], ref[2])
+            check_bf16_grads_wide(what, got[2], ref[2], cfg.hidden_size, lambda: (
+                mip_train.mip_train_grads_plain(*args, **kwargs,
+                                                matmul=Bf16Float64Sums.apply)[2]))
         else:
             compare_grads(what, got[2], ref[2], got[0] + SEG_WEIGHT * got[1],
                           ref[0] + SEG_WEIGHT * ref[1])
@@ -3124,7 +3142,9 @@ def mip_wide_case(device, bank, case: str, dtype: str, card: str) -> None:
             named = lambda r: {**r[1], **({"dfeat": r[0].float()} if input_grads else {})}  # noqa: E731
             what = f"{tag} {mip_mlp.BWD_NAME} input_grads={input_grads}"
             if bf16:
-                check_bf16_grads(what, named(got), named(ref))
+                check_bf16_grads_wide(what, named(got), named(ref), cfg.hidden_size, lambda: (
+                    named(mip_mlp.mip_mlp_bwd_plain(packed, x, g_out, input_grads,
+                                                    matmul=Bf16Float64Sums.apply))))
             else:
                 compare_grads(what, named(got), named(ref))
             report(f"{mip_mlp.BWD_NAME} {rows} rows input_grads={input_grads}", call,
@@ -3138,6 +3158,329 @@ def mip_wide_phase(device, bank, card: str) -> None:
     for case in MIP_WIDE_CASES:
         for dtype in ("float32", "bfloat16"):
             mip_wide_case(device, bank, case, dtype, card)
+
+
+# Phase 21: every shape the JAX kernels take (slice 19).  The classic
+# kernels at hidden 48 (padded to the tile of 64), 512 and 1024 (column
+# blocks of 256, the tiles' rows in device memory: csrc/tc_mlp.cuh note
+# 11) and at hidden 256 with 16 colours and 64 + 384 samples; the mip
+# kernels at hidden 48 and 512 and with 16 colours.  Each classic case:
+# (config overrides, coarse and fine samples, whether it runs the reuse
+# and K9 steps beside the frame tile and the coarse-only step: hidden 1024
+# runs K1-fwd, K4 and K2); its steps take EVERY_STEP_RAYS rays.  The mip
+# cases are phase 20's (``mip_wide_case``).
+EVERY_STEP_RAYS = 512
+# Past hidden 256 a bf16 plain version's gradients move past BF16's 2e-2
+# by themselves when only the order of its sums changes (K9 at 512: the
+# card tests' MEGA_WIDE_RATIO rule; K1-bwd's inputs' cotangents:
+# scripts/torch_bf16_sensitivity.py --family hidden), so there each
+# kernel's and each step's bf16 gradients are held within 2e-2 or, where
+# larger, WIDE_BF16_RATIO times the plain version's own distance with
+# float64 sums (``Bf16Float64Sums``; a step's: its plain path under
+# ``plain_versions(Bf16Float64Sums.apply)``).  A reuse step draws its fine
+# samples from its own bf16 coarse weights, so it is held against the plain
+# step on the kernel step's fine t-values (``fixed_fine_samples``), as K9
+# is.
+WIDE_BF16_RATIO = 1.5
+
+
+def check_bf16_grads_wide(name: str, got: dict, ref: dict, hidden: int, plain64) -> float:
+    """``check_bf16_grads`` up to hidden 256; past it within BF16's bound
+    or, where larger, WIDE_BF16_RATIO times the distance of ``plain64()``
+    (the plain version with float64 sums) from ``ref``."""
+    if hidden <= 256:
+        return check_bf16_grads(name, got, ref)
+    keys = list(ref)
+    err = rel_l2([got[k] for k in keys], [ref[k] for k in keys])
+    own = plain64()
+    floor = rel_l2([own[k] for k in keys], [ref[k] for k in keys])
+    limit = max(BF16["grad_rel_l2"], WIDE_BF16_RATIO * floor)
+    print(f"{name}: gradients relative L2 {err:.3e} against plain bf16, the plain version's "
+          f"own with float64 sums {floor:.3e} (bound {limit:.3e})", flush=True)
+    check(all(bool(torch.isfinite(g).all()) for g in got.values()) and err <= limit,
+          f"{name} in bf16 matches its plain bf16 version")
+    return err
+
+
+def float64_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b summed in float64 and rounded to float32: a plain version's
+    ``matmul`` for a reference that differs from it only in its sums."""
+    return (a.double() @ b.double()).float()
+
+
+@contextlib.contextmanager
+def fixed_fine_samples(t_fine: torch.Tensor):
+    """``sampling.sample_pdf`` returns ``t_fine`` (a step's own fine
+    t-values) inside the block."""
+    original = sampling.sample_pdf
+    sampling.sample_pdf = lambda *args, **kwargs: t_fine
+    try:
+        yield
+    finally:
+        sampling.sample_pdf = original
+
+
+EVERY_CLASSIC_CASES = {
+    "hidden 48": (dict(hidden_size=48), 64, 128, True),
+    "hidden 512": (dict(hidden_size=512), 64, 128, True),
+    "hidden 1024": (dict(hidden_size=1024), 64, 128, False),
+    "16 colours, 64 + 384 samples": (dict(color_outputs=16), 64, 384, True),
+}
+EVERY_MIP_CASES = {
+    "hidden 48": (dict(hidden_size=48), 64, 4000, MIP_RAYS),
+    "hidden 512": (dict(hidden_size=512), 64, 4000, MIP_RAYS),
+    "16 colours": (dict(color_outputs=16), 64, 4000, MIP_RAYS),
+}
+
+
+def batch_of(bank, gen, n_rays: int, colors: int) -> dict:
+    """A batch of the bank's rays with ``colors`` uniform pixel values (the
+    bank's own 3 where ``colors`` is 3)."""
+    batch = bank.sample_batch(gen, n_rays)
+    if colors != batch["pixels"].shape[-1]:
+        batch["pixels"] = torch.rand((n_rays, colors), generator=gen,
+                                     device=batch["pixels"].device)
+    return batch
+
+
+def classic_every_case(device, bank, case: str, dtype: str, card: str) -> None:
+    """Phase 21 at one classic case and dtype: (a) a 4000-ray frame tile
+    through ``render_rays`` (one K1-fwd and one K4), (b) one reuse step (one
+    K1-fwd, one K1-bwd, one K3) and one K9 step (one ``mega_train``) where
+    the case runs them, and one coarse-only step (one K2), each with the
+    counters zeroed just before
+    and read just after, every launch on ``tc`` (``tc_bf16``), against the
+    plain path (float32: the ``use_pallas=False`` model, K9 against
+    ``mega_train_plain`` with its own fine t-values; bf16: the same model
+    with ``plain_versions()``, K9 against the plain bf16 step); then (c)
+    each kernel on the arguments it was handed, against its plain version,
+    timed beside it and its bounds with the card line."""
+    overrides, sc, sf, steps = EVERY_CLASSIC_CASES[case]
+    bf16 = dtype == "bfloat16"
+    policy = "tc_bf16" if bf16 else "tc"
+    model = make_model(True, device, compute_dtype=dtype, **overrides)
+    plain = make_model(False, device, **overrides)
+    cfg = model.cfg
+    tag = f"every shape: {case} {dtype}"
+    render = dataclasses.replace(RENDER, num_coarse_samples=sc, num_fine_samples=sf)
+    train_render = dataclasses.replace(TRAIN_RENDER, num_coarse_samples=sc, num_fine_samples=sf)
+    gen = torch.Generator(device=device).manual_seed(21)
+    store = {}
+
+    def routed(what, call, expected):
+        torch.cuda.synchronize()
+        _build.launch_counts.clear()
+        _build.policy_counts.clear()
+        got = call()
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)
+        check(launches == expected, f"{tag} {what}: launched {expected} and nothing else")
+        check_policies(f"{tag} {what}", launches, dict(_build.policy_counts), policy)
+        return got
+
+    # a. A frame tile.
+    pose_o, pose_r = spherical_poses(1, radius=4.0, device=device)
+    rays_o, rays_d = (r.reshape(-1, 3)[: RENDER.rays_per_tile] for r in
+                      pose_to_rays(pose_o, pose_r, IMAGE, IMAGE, FOCAL))
+    with torch.no_grad(), capture_args(union_eval, "union_eval", store), \
+            capture_args(classic_mlp, "classic_mlp_fwd", store):
+        got = routed("frame tile", lambda: model.render_rays(rays_o, rays_d, render,
+                                                            fused_eval=True),
+                     {classic_mlp.NAME: 1, union_eval.NAME: 1})
+        if bf16:
+            with plain_versions():
+                ref = model.render_rays(rays_o, rays_d, render, fused_eval=True)
+            check_bf16_outputs(f"{tag} frame tile", [got.rgb, got.acc], [ref.rgb, ref.acc])
+        else:
+            ref = plain.render_rays(rays_o, rays_d, render, fused_eval=True)
+            compare("frame", [got.rgb, got.acc], [ref.rgb, ref.acc])
+
+    # b. The steps, each against the plain step on the same batch and draws.
+    def plain_step(step_render, batch, draws, matmul=None):
+        if bf16:
+            with plain_versions(matmul):
+                return make_fused_loss_and_grads(model, step_render)(batch, draws)[:2]
+        with torch.enable_grad():
+            ref_loss, _ = make_loss_fn(plain, step_render)(batch, draws)
+        names, params = zip(*plain.named_parameters())
+        return ref_loss.detach(), dict(zip(names, torch.autograd.grad(ref_loss, params)))
+
+    cells = [(f"coarse-only step {EVERY_STEP_RAYS}x64", COARSE_RENDER, {train_grads.NAME: 1})]
+    if steps:
+        cells.insert(0, (f"reuse step {EVERY_STEP_RAYS}x({sc}+{sf})", train_render,
+                         {classic_mlp.NAME: 1, classic_mlp.BWD_NAME: 1, fine_stage_train.NAME: 1}))
+    for name, step_render, expected in cells:
+        batch = batch_of(bank, gen, EVERY_STEP_RAYS, cfg.color_outputs)
+        draws = sampling.draw_step(gen, step_render, EVERY_STEP_RAYS, device)
+        with capture_args(classic_mlp, "classic_mlp_bwd", store), \
+                capture_args(fine_stage_train, "fine_stage_train", store), \
+                capture_args(train_grads, "classic_train_grads", store):
+            loss, grads, _ = routed(name, lambda: make_fused_loss_and_grads(model, step_render)(
+                batch, draws), expected)
+        ref_loss, ref = plain_step(step_render, batch, draws)
+        if bf16:
+            check_bf16_outputs(f"{tag} {name} loss", [loss], [ref_loss])
+            # Each reuse step draws its fine samples from its own bf16
+            # coarse weights: its gradients are held against the plain step
+            # on the kernel step's fine t-values, as K9's are.
+            t_fine = None
+            if step_render.num_fine_samples:
+                keys = list(ref)
+                own = rel_l2([grads[k] for k in keys], [ref[k] for k in keys])
+                print(f"{tag} {name}: gradients relative L2 {own:.3e} from the plain bf16 step "
+                      f"on its own fine samples", flush=True)
+                t_fine = store["fine_stage_train"][0][4]
+
+            def on_kernel_samples(matmul=None):
+                with (contextlib.nullcontext() if t_fine is None else fixed_fine_samples(t_fine)):
+                    return plain_step(step_render, batch, draws, matmul)[1]
+
+            check_bf16_grads_wide(f"{tag} {name}", grads, on_kernel_samples(), cfg.hidden_size,
+                                  lambda: on_kernel_samples(Bf16Float64Sums.apply))
+        else:
+            compare_grads(f"{tag} {name}", grads, ref, loss, ref_loss)
+
+    if steps:
+        batch = batch_of(bank, gen, EVERY_STEP_RAYS, cfg.color_outputs)
+        draws = sampling.draw_step(gen, train_render, EVERY_STEP_RAYS, device)
+        with capture_args(mega_train, "mega_train", store):
+            routed("K9 step", lambda: mega_train.mega_train_loss_and_grads(
+                model, train_render, batch, draws), {mega_train.NAME: 1})
+
+    # c. The six kernels on those arguments, each against its plain version.
+    weight_bytes = tensor_bytes(*classic_mlp.pack_classic_params(model.mlp).values())
+    per_row = classic_flops_per_point(cfg)
+    byte_rate = PEAK_BYTES_PER_S / 1e3
+
+    def report(name, call, plain_call, flops, nbytes):
+        ms, plain_ms = cuda_ms(call, iters=3), cuda_ms(plain_call, iters=2, warmup=1)
+        print(f"{tag} {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; bounds: fp32 "
+              f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} ms, 3xTF32 {flops / PEAK_3XTF32_FLOPS * 1e3:.3f}"
+              f" ms, bf16 {flops / PEAK_BF16_FLOPS * 1e3:.3f} ms, bytes {nbytes / byte_rate:.3f} ms"
+              f"; {card}", flush=True)
+
+    def outputs(name, got, ref, plain64):
+        if bf16:
+            check_bf16_outputs(f"{tag} {name}", got, ref)
+            return
+        compare(name, got, ref)
+        if cfg.hidden_size > 256:  # a reading: each version's distance from float64 sums
+            wide = plain64()
+            err = max(float((g - w).abs().max()) for g, w in zip(got, wide))
+            own = max(float((r - w).abs().max()) for r, w in zip(ref, wide))
+            print(f"{tag} {name}: max abs err from the plain version with float64 sums {err:.3e}, "
+                  f"the plain float32 version's {own:.3e}", flush=True)
+
+    def gradients(name, got, ref, loss=None, ref_loss=None, plain64=None):
+        if not bf16:
+            compare_grads(f"{tag} {name}", got, ref, loss, ref_loss)
+            return
+        if loss is not None:
+            check_bf16_outputs(f"{tag} {name} loss", [loss], [ref_loss])
+        check_bf16_grads_wide(f"{tag} {name}", got, ref, cfg.hidden_size, plain64)
+
+    with torch.no_grad():
+        # The wrappers are called again with their own operand images, the
+        # plain versions with the same leading arguments.
+        args, kwargs = store["classic_mlp_fwd"]
+        args, kwargs = (classic_mlp.pack_classic_params(model.mlp),) + args[1:3], \
+            without_images(kwargs)
+        x = args[1]
+        got = routed("K1-fwd", lambda: classic_mlp.classic_mlp_fwd(*args, **kwargs),
+                     {classic_mlp.NAME: 1})
+        outputs(classic_mlp.NAME, [got], [classic_mlp.classic_mlp_fwd_plain(*args)],
+                lambda: [classic_mlp.classic_mlp_fwd_plain(*args, matmul=float64_sums)])
+        report(f"{classic_mlp.NAME} {x.shape[0]} rows",
+               lambda: classic_mlp.classic_mlp_fwd(*args, **kwargs),
+               lambda: classic_mlp.classic_mlp_fwd_plain(*args), x.shape[0] * per_row,
+               tensor_bytes(*args[1:3], got) + weight_bytes)
+
+        args, kwargs = store["union_eval"]
+        args, kwargs = args[:8], without_images(kwargs)
+        got = routed("K4", lambda: union_eval.union_eval(*args, **kwargs), {union_eval.NAME: 1})
+        outputs(union_eval.NAME, got, union_eval.union_eval_plain(*args),
+                lambda: union_eval.union_eval_plain(*args, matmul=float64_sums))
+        xf = args[1]
+        report(f"{union_eval.NAME} {xf.shape[0]}x({sc}+{sf})",
+               lambda: union_eval.union_eval(*args, **kwargs),
+               lambda: union_eval.union_eval_plain(*args), xf.shape[0] * xf.shape[1] * per_row,
+               tensor_bytes(*args[1:], *got) + weight_bytes)
+
+        args, kwargs = store["classic_train_grads"]
+        got = routed("K2", lambda: train_grads.classic_train_grads(*args, **kwargs),
+                     {train_grads.NAME: 1})
+        ref = train_grads.classic_train_grads_plain(*args, **kwargs)
+        gradients(train_grads.NAME, got[1], ref[1], got[0], ref[0],
+                  lambda: train_grads.classic_train_grads_plain(
+                      *args, **kwargs, matmul=Bf16Float64Sums.apply)[1])
+        x = args[1]
+        report(f"{train_grads.NAME} {x.shape[0]}x{x.shape[1]}",
+               lambda: train_grads.classic_train_grads(*args, **kwargs),
+               lambda: train_grads.classic_train_grads_plain(*args, **kwargs),
+               train_kernel_flops(cfg, *x.shape[:2]),
+               tensor_bytes(*args[1:6]) + 2 * weight_bytes + 4)
+        if not steps:
+            return
+
+        args, kwargs = store["classic_mlp_bwd"]
+        packed, x, d, g_out = args
+        kwargs = without_images(kwargs)
+        got = routed("K1-bwd", lambda: classic_mlp.classic_mlp_bwd(*args, **kwargs),
+                     {classic_mlp.BWD_NAME: 1})
+        ref = classic_mlp.classic_mlp_bwd_plain(*args, **kwargs)
+        gradients(classic_mlp.BWD_NAME, got[2], ref[2], plain64=lambda: (
+            classic_mlp.classic_mlp_bwd_plain(*args, **kwargs, matmul=Bf16Float64Sums.apply)[2]))
+        report(f"{classic_mlp.BWD_NAME} {x.shape[0]} rows",
+               lambda: classic_mlp.classic_mlp_bwd(*args, **kwargs),
+               lambda: classic_mlp.classic_mlp_bwd_plain(*args, **kwargs),
+               train_kernel_flops(cfg, x.shape[0], 1),
+               tensor_bytes(x, d, g_out) + 2 * weight_bytes)
+
+        args, kwargs = store["fine_stage_train"]
+        kwargs = without_images(kwargs)
+        got = routed("K3", lambda: fine_stage_train.fine_stage_train(*args, **kwargs),
+                     {fine_stage_train.NAME: 1})
+        ref = fine_stage_train.fine_stage_train_plain(*args, **kwargs)
+        named = lambda r: {**r[1], "g_dens_c": r[2][0], "g_col_c": r[2][1]}  # noqa: E731
+        gradients(fine_stage_train.NAME, named(got), named(ref), got[0], ref[0],
+                  lambda: named(fine_stage_train.fine_stage_train_plain(
+                      *args, **kwargs, matmul=Bf16Float64Sums.apply)))
+        x_f = args[1]
+        report(f"{fine_stage_train.NAME} {x_f.shape[0]}x({sc}+{sf})",
+               lambda: fine_stage_train.fine_stage_train(*args, **kwargs),
+               lambda: fine_stage_train.fine_stage_train_plain(*args, **kwargs),
+               train_kernel_flops(cfg, *x_f.shape[:2]),
+               tensor_bytes(x_f, args[2][:, 0], *args[3:10], *got[2]) + 2 * weight_bytes + 4)
+
+        args, kwargs = store["mega_train"]
+        args = (classic_mlp.pack_classic_params(model.mlp),) + args[1:]
+        loss_c, loss_f, grads, t_fine = routed(
+            "K9", lambda: mega_train.mega_train(*args, **kwargs), {mega_train.NAME: 1})
+        r_loss_c, r_loss_f, ref, _ = mega_train.mega_train_plain(*args, **kwargs, t_fine=t_fine)
+        gradients(mega_train.NAME, grads, ref, loss_c + loss_f, r_loss_c + r_loss_f,
+                  lambda: mega_train.mega_train_plain(*args, **kwargs, t_fine=t_fine,
+                                                      matmul=Bf16Float64Sums.apply)[2])
+        report(f"{mega_train.NAME} {EVERY_STEP_RAYS}x({sc}+{sf})",
+               lambda: mega_train.mega_train(*args, **kwargs),
+               lambda: mega_train.mega_train_plain(*args, **kwargs),
+               train_kernel_flops(cfg, EVERY_STEP_RAYS, sc + sf),
+               tensor_bytes(*[a for a in args[1:] if isinstance(a, torch.Tensor)], t_fine)
+               + 2 * weight_bytes + 8)
+
+
+def every_shape_phase(device, bank, mip_bank, card: str) -> None:
+    """Phase 21: ``classic_every_case`` at every case of
+    ``EVERY_CLASSIC_CASES`` and phase 20's ``mip_wide_case`` at every case
+    of ``EVERY_MIP_CASES``, in float32 and bf16; prints the phase's wall
+    time."""
+    t0 = time.perf_counter()
+    for case in EVERY_CLASSIC_CASES:
+        for dtype in ("float32", "bfloat16"):
+            classic_every_case(device, bank, case, dtype, card)
+    for case in EVERY_MIP_CASES:
+        for dtype in ("float32", "bfloat16"):
+            mip_wide_case(device, mip_bank, case, dtype, card, EVERY_MIP_CASES, "every shape: ")
+    print(f"every shape: phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 # Phase 18: data parallelism (slice 15).  (a) One rank over NCCL in this
@@ -3880,8 +4223,9 @@ def main() -> int:
                                       mip_keep["step_ms"], card)
     sp_launches = mesh_phase(device, bank, mip_keep["bank"], card)
     mip_wide_phase(device, mip_keep["bank"], card)
+    every_shape_phase(device, bank, mip_keep["bank"], card)
 
-    # 21. Result lines.
+    # 22. Result lines.
     kernels = [kernel_row(name, launches, **row) for name, (launches, row) in rows.items()]
     for row in kernels:
         row["cli_launches"] = cli_launches.get(row["name"], 0)

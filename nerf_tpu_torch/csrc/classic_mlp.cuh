@@ -54,7 +54,42 @@ struct Weights {
   const float* w_col;   // [H, c]
   const float* b_col;   // [c]
   int xe, de, c;
+  // The model's hidden width h, the width hp the slabs are padded to
+  // (padded_hidden), 1 / h and hp - h, set by sized() on the host (kernel
+  // parameters the epilogues read as operands; a division in the kernel
+  // would call its slow path between the wgmma pipelines).  Every slab is
+  // packed at hp with zeros past h (note 11 of tc_mlp.cuh).
+  int h = 0, hp = 0;
+  float inv_h = 0.f, padded = 0.f;
 };
+
+// Hidden widths: the tiles are instantiated at 32, 64, 128 and 256 (one
+// row-per-warp column per lane and 32 columns), and a model's width h
+// runs the smallest of them that holds it, on weights zero-padded to it,
+// with the LayerNorm statistics over the first h columns (layer_epilogue,
+// layer_bwd).  Past 256 the width pads to a multiple of kColBlock and runs
+// in column blocks (the template width kWideH, tc_mlp.cuh note 11).
+constexpr int kColBlock = 256;
+constexpr int kWideH = 2 * kColBlock;
+__host__ __device__ constexpr int tile_width(int hidden) {
+  return hidden <= 32 ? 32 : hidden <= 64 ? 64 : hidden <= 128 ? 128 : hidden <= kColBlock ? kColBlock : kWideH;
+}
+__host__ __device__ inline int padded_hidden(int hidden) {
+  return hidden <= kColBlock ? tile_width(hidden) : (hidden + kColBlock - 1) / kColBlock * kColBlock;
+}
+// The tile width a template width H runs at: H, or kColBlock for kWideH.
+template <int H>
+__host__ __device__ constexpr int col_width() { return H > kColBlock ? kColBlock : H; }
+
+// A copy of w with the hidden width h, its padded width and 1 / h.
+template <class W>
+__host__ inline W sized(W w, int hidden) {
+  w.h = hidden;
+  w.hp = padded_hidden(hidden);
+  w.inv_h = 1.0f / static_cast<float>(hidden);
+  w.padded = static_cast<float>(w.hp - hidden);
+  return w;
+}
 
 __host__ __device__ inline int round_up4(int n) { return (n + 3) & ~3; }
 
@@ -167,14 +202,22 @@ struct Save {
 
 // A layer's epilogue, row by row, in registers: acc <- LayerNorm(relu(acc
 // + b)) * g + beta (the classic order) or, with kLnFirst, relu(LayerNorm(acc
-// + b) * g + beta) (the mip order).  With kSave, also writes layer
-// `layer`'s xhat (the normalised LayerNorm input) and statistics to save.
+// + b) * g + beta) (the mip order), the statistics over the first h
+// columns (the model's width; inv_h = 1 / h): the `padded` = H - h
+// columns past it are padding, exactly 0 before the LayerNorm (their
+// weights and bias are 0) and after it (their g and beta are 0).  So the
+// sum needs no mask, and the two-pass variance takes out the padded mu^2
+// the zeros added to it (at an instantiated width it subtracts 0: the
+// arithmetic of a plain two-pass variance, no per-column mask).  With
+// kSave, also writes layer `layer`'s xhat (the normalised LayerNorm
+// input) and statistics to save.
 template <int H, bool kSave = false, bool kLnFirst = false>
 __device__ __forceinline__ void layer_epilogue(float (&acc)[kRowsPerWarp][H / 32],
                                              const float* __restrict__ b,
                                              const float* __restrict__ g,
-                                             const float* __restrict__ beta,
-                                             const Save* save = nullptr, int layer = 0) {
+                                             const float* __restrict__ beta, float inv_h,
+                                             float padded, const Save* save = nullptr,
+                                             int layer = 0) {
   constexpr int kCols = H / 32;
   const int lane = threadIdx.x & 31;
   float bj[kCols], gj[kCols], betaj[kCols];
@@ -192,14 +235,15 @@ __device__ __forceinline__ void layer_epilogue(float (&acc)[kRowsPerWarp][H / 32
       acc[r][j] = kLnFirst ? acc[r][j] + bj[j] : fmaxf(acc[r][j] + bj[j], 0.f);
       s += acc[r][j];
     }
-    const float mu = warp_sum(s) * (1.0f / H);
+    const float mu = warp_sum(s) * inv_h;
     float q = 0.f;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
       const float dv = acc[r][j] - mu;
       q = fmaf(dv, dv, q);
     }
-    const float inv = rsqrtf(warp_sum(q) * (1.0f / H) + kLnEps);
+    const float var = fmaxf(warp_sum(q) - padded * mu * mu, 0.f) * inv_h;
+    const float inv = rsqrtf(var + kLnEps);
     if constexpr (kSave) {
       const int row = (threadIdx.x >> 5) * kRowsPerWarp + r;
       if (row < save->nvalid) {
@@ -248,15 +292,17 @@ __device__ __forceinline__ void head(const float (&h)[kRowsPerWarp][H / 32],
   }
 }
 
-// Dispatch a templated launcher on the hidden width; returns
-// cudaErrorInvalidValue for a width without an instantiation.
+// Dispatch a templated launcher on the hidden width: the tile width that
+// holds it (tile_width), kWideH past 256; cudaErrorInvalidValue for a
+// width below 1.
 #define NERF_DISPATCH_HIDDEN(hidden, LAUNCH)        \
-  switch (hidden) {                                 \
+  if ((hidden) < 1) return cudaErrorInvalidValue;   \
+  switch (tile_width(hidden)) {                     \
     case 32: return LAUNCH(32);                     \
     case 64: return LAUNCH(64);                     \
     case 128: return LAUNCH(128);                   \
     case 256: return LAUNCH(256);                   \
-    default: return cudaErrorInvalidValue;          \
+    default: return LAUNCH(kWideH);                 \
   }
 
 }  // namespace nerf_mlp

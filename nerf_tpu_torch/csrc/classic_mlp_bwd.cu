@@ -75,9 +75,9 @@ extern "C" int classic_mlp_bwd(const float* x, const float* d, const float* gout
                                float* stats, float* dpre, float* wpart, float* tpart,
                                float* tmp, float* out, int splits,
                                const float* tc_fwd, const float* tc_bwd, void* stream) {
-  if (c > kMaxColors) return cudaErrorInvalidValue;
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
-                  xe, wd ? de : 0, c};
+  const Weights w = sized(Weights{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
+                                  xe, wd ? de : 0, c},
+                          hidden);
   const Scratch s{xhat, stats, dpre, wpart, tpart, tmp, splits, tc_fwd, tc_bwd};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) static_cast<int>(run<H>(w, x, d, gout, dx, dd, grads, out, P, s, st))
@@ -97,9 +97,9 @@ extern "C" int classic_mlp_bwd_bf16(const void* x, const void* d, const float* g
                                     float* wpart, float* tpart, float* tmp,
                                     float* out, int splits, const void* tc_fwd,
                                     const void* tc_bwd, void* stream) {
-  if (c > kMaxColors) return cudaErrorInvalidValue;
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
-                  xe, wd ? de : 0, c};
+  const Weights w = sized(Weights{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
+                                  xe, wd ? de : 0, c},
+                          hidden);
   const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -36,13 +36,14 @@ namespace {
 using namespace nerf_mlp;
 
 template <bool kBf16>
-int run(const void* x, const void* d, float* out, int P, int hidden, const Weights& w,
-        const void* tc_fwd, void* stream) {
+int run(const void* x, const void* d, float* out, int P, int hidden, const Weights& w0,
+        const void* tc_fwd, float* wide, void* stream) {
+  const Weights w = sized(w0, hidden);
   using T = enc_t<kBf16>;
   const TileLoadT<T> load{static_cast<const T*>(x), static_cast<const T*>(d), 1};
   const float* img = static_cast<const float*>(tc_fwd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) static_cast<int>(launch_fwd<H, TileLoadT<T>, kBf16>(w, load, out, P, img, s))
+#define NERF_LAUNCH(H) static_cast<int>(launch_fwd<H, TileLoadT<T>, kBf16>(w, load, out, P, img, wide, s))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }
@@ -54,10 +55,10 @@ extern "C" int classic_mlp_fwd(const float* x, const float* d, float* out, int P
                                const float* wd, const float* whh, const float* b,
                                const float* g, const float* beta, const float* w_dens,
                                const float* b_dens, const float* w_col, const float* b_col,
-                               const float* tc_fwd, void* stream) {
+                               const float* tc_fwd, float* wide, void* stream) {
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  return run<false>(x, d, out, P, hidden, w, tc_fwd, stream);
+  return run<false>(x, d, out, P, hidden, w, tc_fwd, wide, stream);
 }
 
 // The same in compute_dtype bfloat16: x, d and tc_fwd are bfloat16.
@@ -66,8 +67,9 @@ extern "C" int classic_mlp_fwd_bf16(const void* x, const void* d, float* out, in
                                     const float* wd, const float* whh, const float* b,
                                     const float* g, const float* beta, const float* w_dens,
                                     const float* b_dens, const float* w_col,
-                                    const float* b_col, const void* tc_fwd, void* stream) {
+                                    const float* b_col, const void* tc_fwd, float* wide,
+                                    void* stream) {
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  return run<true>(x, d, out, P, hidden, w, tc_fwd, stream);
+  return run<true>(x, d, out, P, hidden, w, tc_fwd, wide, stream);
 }

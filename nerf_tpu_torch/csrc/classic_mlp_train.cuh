@@ -49,8 +49,10 @@
 
 namespace nerf_mlp {
 
-constexpr int kMaxColors = 8;
 constexpr int kColsumGroups = 64;
+// Colours a per-ray pass sums in registers at a time: any colour count
+// runs in chunks of this many (composite_ray and the eval passes).
+constexpr int kColorChunk = 8;
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -160,11 +162,15 @@ __device__ void head_bwd(float (&acc)[kRowsPerWarp][H / 32], const float* gs, in
 // after ReLU): dy = dh, and dpre takes the ReLU mask xhat > -mu/sigma.
 // kLnFirst, the mip order (ReLU after LayerNorm): dy = dh where the
 // LayerNorm output xhat * g + beta > 0, else 0.  g, beta: the layer's
-// LayerNorm scale and bias.
+// LayerNorm scale and bias.  The row means are over the first h columns
+// (the model's width; a padded column's dxh is exactly 0, its g being 0),
+// and the padded columns' dpre is 0: in the classic order by the ReLU
+// mask (a padded column's xhat is exactly -mu/sigma), in the mip order by
+// a mask on the column.
 template <int H, bool kLnFirst = false>
 __device__ void layer_bwd(float (&acc)[kRowsPerWarp][H / 32], int i,
-                          const float* __restrict__ g, const float* __restrict__ beta,
-                          size_t P, size_t row0, int nvalid, const float* xhat,
+                          const float* __restrict__ g, const float* __restrict__ beta, int h,
+                          float inv_h, size_t P, size_t row0, int nvalid, const float* xhat,
                           const float* stats, float* dpre, float* part_b, float* part_g,
                           float* part_beta, float* red) {
   constexpr int kCols = H / 32;
@@ -199,16 +205,16 @@ __device__ void layer_bwd(float (&acc)[kRowsPerWarp][H / 32], int i,
       if (kLnFirst && !(fmaf(xh[r][j], gj[j], bj[j]) > 0.f)) acc[r][j] = 0.f;
       s_beta[j] += acc[r][j];
       s_g[j] = fmaf(acc[r][j], xh[r][j], s_g[j]);
-      const float dxh = acc[r][j] * gj[j];
+      const float dxh = acc[r][j] * gj[j];  // exactly 0 in a padded column (g 0)
       m1 += dxh;
       m2 = fmaf(dxh, xh[r][j], m2);
       acc[r][j] = dxh;
     }
-    m1 = warp_sum(m1) * (1.0f / H);
-    m2 = warp_sum(m2) * (1.0f / H);
+    m1 = warp_sum(m1) * inv_h;
+    m2 = warp_sum(m2) * inv_h;
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
-      const float dp = kLnFirst || xh[r][j] > st[r].y
+      const float dp = (kLnFirst ? lane + 32 * j < h : xh[r][j] > st[r].y)
                            ? st[r].x * (acc[r][j] - m1 - xh[r][j] * m2)
                            : 0.f;
       acc[r][j] = dp;
@@ -315,44 +321,44 @@ cudaError_t launch_mlp_backward(const Weights& w, const void* xv, const void* dv
   const float* x = static_cast<const float*>(xv);
   const float* d = static_cast<const float*>(dv);
   constexpr int enc_bf16 = Products::kBf16 ? 1 : 0;
-  const int L = num_layers(w);
+  const int L = num_layers(w), hp = w.hp;  // the slabs' padded width
   cudaError_t err = Products::template bwd_rows<H>(w, gout, P, s, dx, dd, stream);
   if (err != cudaSuccess) return err;
   const int tiles = (P + kTileRows - 1) / kTileRows;
 
   const size_t PP = static_cast<size_t>(P);
-  const int tn = (H + kWT - 1) / kWT;
+  const int tn = (hp + kWT - 1) / kWT;
   const int tx = (w.xe + kWT - 1) / kWT, td = (w.de + kWT - 1) / kWT;
   WProds prods{};
   int n = 0;
   size_t off = 0;
-  auto dpre = [&](int layer) { return s.dpre + layer * PP * H; };
+  auto dpre = [&](int layer) { return s.dpre + layer * PP * hp; };
   prods.p[n++] =
-      WProd{x, nullptr, nullptr, dpre(0), w.xe, w.xe, H, 1, 0, off, tx, tn, 0, 1, enc_bf16};
-  off += static_cast<size_t>(w.xe) * H;
+      WProd{x, nullptr, nullptr, dpre(0), w.xe, w.xe, hp, 1, 0, off, tx, tn, 0, 1, enc_bf16};
+  off += static_cast<size_t>(w.xe) * hp;
   prods.p[n++] =
-      WProd{x, nullptr, nullptr, dpre(4), w.xe, w.xe, H, 1, 0, off, tx, tn, 0, 1, enc_bf16};
-  off += static_cast<size_t>(w.xe) * H;
+      WProd{x, nullptr, nullptr, dpre(4), w.xe, w.xe, hp, 1, 0, off, tx, tn, 0, 1, enc_bf16};
+  off += static_cast<size_t>(w.xe) * hp;
   if (w.wd != nullptr) {
-    prods.p[n++] = WProd{d, nullptr, nullptr, dpre(8), w.de, w.de, H, d_div, 0, off, td, tn,
+    prods.p[n++] = WProd{d, nullptr, nullptr, dpre(8), w.de, w.de, hp, d_div, 0, off, td, tn,
                          d_split, d_div2, enc_bf16};
-    off += static_cast<size_t>(w.de) * H;
+    off += static_cast<size_t>(w.de) * hp;
   }
   for (int k = 0; k < L - 1; ++k) {
-    prods.p[n++] = WProd{s.xhat + k * PP * H, w.g + k * H, w.beta + k * H, dpre(k + 1), H, H,
-                         H, 1, 0, off, tn, tn};
-    off += static_cast<size_t>(H) * H;
+    prods.p[n++] = WProd{s.xhat + k * PP * hp, w.g + k * hp, w.beta + k * hp, dpre(k + 1), hp,
+                         hp, hp, 1, 0, off, tn, tn};
+    off += static_cast<size_t>(hp) * hp;
   }
   prods.n = n;
   int total_tiles = 0;
   for (int i = 0; i < n; ++i) total_tiles += prods.p[i].tiles_m * prods.p[i].tiles_n;
-  const size_t wf = wgrad_floats(w, H);
+  const size_t wf = wgrad_floats(w, hp);
   int k_chunk = (P + s.splits - 1) / s.splits;
   k_chunk = (k_chunk + kWK - 1) / kWK * kWK;
   if ((err = Products::wgrad(prods, total_tiles, P, k_chunk, s, wf, stream)) != cudaSuccess)
     return err;
   if ((err = colsum(s.wpart, s.splits, wf, grads, s.tmp, stream)) != cudaSuccess) return err;
-  return colsum(s.tpart, tiles, tile_floats(w, H), grads + wf, s.tmp, stream);
+  return colsum(s.tpart, tiles, tile_floats(w, hp), grads + wf, s.tmp, stream);
 }
 
 // Warp-wide exclusive prefix and suffix sums over a ray's values split in
@@ -438,47 +444,58 @@ __device__ float composite_ray(int n, int c, float off, const float* pix, float 
   ray_transmittance(n, al, tr, sigma, dist);
   const int begin = min(n, lane * ray_run_len(n)), end = min(n, begin + ray_run_len(n));
 
-  float rgb[kMaxColors];
+  // The colours a chunk of kColorChunk at a time: each chunk's sums, its
+  // part of the loss and its colour cotangents, its part of dL/dw into gw.
+  float acc = 0.f, sq = 0.f;
+  for (int ch0 = 0; ch0 < c; ch0 += kColorChunk) {
+    const int nch = min(kColorChunk, c - ch0);
+    float rgb[kColorChunk];
 #pragma unroll
-  for (int ch = 0; ch < kMaxColors; ++ch) rgb[ch] = 0.f;
-  float acc = 0.f;
-  for (int p = begin; p < end; ++p) {
-    const float wgt = (1.f - al[p]) * tr[p];
+    for (int ch = 0; ch < kColorChunk; ++ch) rgb[ch] = 0.f;
+    float a = 0.f;
+    for (int p = begin; p < end; ++p) {
+      const float wgt = (1.f - al[p]) * tr[p];
 #pragma unroll
-    for (int ch = 0; ch < kMaxColors; ++ch)
-      if (ch < c) rgb[ch] = fmaf(wgt, sigmoid(logit(p, ch)), rgb[ch]);
-    acc += wgt;
-    on_weight(p, wgt);
-  }
-  acc = warp_sum(acc);
-  float g_rgb[kMaxColors];
-  float sq = 0.f;
+      for (int ch = 0; ch < kColorChunk; ++ch)
+        if (ch < nch) rgb[ch] = fmaf(wgt, sigmoid(logit(p, ch0 + ch)), rgb[ch]);
+      if (ch0 == 0) {
+        a += wgt;
+        on_weight(p, wgt);
+      }
+    }
+    if (ch0 == 0) acc = warp_sum(a);
+    float g_rgb[kColorChunk];
 #pragma unroll
-  for (int ch = 0; ch < kMaxColors; ++ch) {
-    g_rgb[ch] = 0.f;
-    if (ch < c) {
-      const float err = warp_sum(rgb[ch]) + off * (1.f - acc) - pix[ch];
-      sq = fmaf(err, err, sq);
-      g_rgb[ch] = err * g_scale;
+    for (int ch = 0; ch < kColorChunk; ++ch) {
+      g_rgb[ch] = 0.f;
+      if (ch < nch) {
+        const float err = warp_sum(rgb[ch]) + off * (1.f - acc) - pix[ch0 + ch];
+        sq = fmaf(err, err, sq);
+        g_rgb[ch] = err * g_scale;
+      }
+    }
+    // Backward: the chunk's colour cotangents and its part of dL/dw.
+    for (int p = begin; p < end; ++p) {
+      const float wgt = (1.f - al[p]) * tr[p];
+      float g = ch0 == 0 ? 0.f : gw[p];
+#pragma unroll
+      for (int ch = 0; ch < kColorChunk; ++ch) {
+        if (ch < nch) {
+          const float sg = sigmoid(logit(p, ch0 + ch));
+          g = fmaf(sg - off, g_rgb[ch], g);
+          on_color_grad(p, ch0 + ch, wgt * sg * (1.f - sg) * g_rgb[ch]);
+        }
+      }
+      gw[p] = g;
     }
   }
   term.forward(begin, end, al, tr);
 
-  // Backward: colour cotangents and dL/dw per sample, then the suffix of
-  // dL/dlog(T) = w * dL/dw.
+  // dL/dw with the term's part, then the suffix of dL/dlog(T) = w * dL/dw.
   float part = 0.f;
   for (int p = begin; p < end; ++p) {
     const float wgt = (1.f - al[p]) * tr[p];
-    float g = 0.f;
-#pragma unroll
-    for (int ch = 0; ch < kMaxColors; ++ch) {
-      if (ch < c) {
-        const float sg = sigmoid(logit(p, ch));
-        g = fmaf(sg - off, g_rgb[ch], g);
-        on_color_grad(p, ch, wgt * sg * (1.f - sg) * g_rgb[ch]);
-      }
-    }
-    g += term.grad(p, wgt);
+    const float g = gw[p] + term.grad(p, wgt);
     gw[p] = g;
     part = fmaf(wgt, g, part);
   }

@@ -103,9 +103,10 @@ int entry(const float* pts, const float* dirs, const float* gout, float* dpts, f
           float* out, void* x_enc, void* d_enc, float* dx_enc, float* dd_enc,
           int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
   using T = enc_t<kBf16>;
-  if (c > kMaxColors || wd == nullptr) return cudaErrorInvalidValue;
+  if (wd == nullptr) return cudaErrorInvalidValue;
   if ((dpts == nullptr) != (ddirs == nullptr)) return cudaErrorInvalidValue;
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xe, de, c};
+  const Weights w = sized(Weights{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xe, de, c},
+                          hidden);
   const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   const PointEncodeLoadT<T> load{pts, dirs, sx, phx, sd, phd, static_cast<T*>(x_enc),

@@ -49,14 +49,15 @@ int run(const float* pts, const float* dirs, float* out, int P, int xe, int de, 
         int c, const float* sx, const float* phx, const float* sd, const float* phd,
         const float* w0, const float* wx, const float* wd, const float* whh, const float* b,
         const float* g, const float* beta, const float* w_dens, const float* b_dens,
-        const float* w_col, const float* b_col, const void* tc_fwd, void* stream) {
+        const float* w_col, const float* b_col, const void* tc_fwd, float* wide, void* stream) {
   if (wd == nullptr) return cudaErrorInvalidValue;  // the view branch is required
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xe, de, c};
+  const Weights w = sized(Weights{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xe, de, c},
+                          hidden);
   const PointEncodeLoad load{pts, dirs, sx, phx, sd, phd, nullptr, nullptr};
   const float* img = static_cast<const float*>(tc_fwd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) \
-  static_cast<int>(launch_fwd<H, PointEncodeLoad, kBf16>(w, load, out, P, img, s))
+  static_cast<int>(launch_fwd<H, PointEncodeLoad, kBf16>(w, load, out, P, img, wide, s))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }
@@ -70,9 +71,10 @@ extern "C" int classic_pointmlp_fwd(const float* pts, const float* dirs, float* 
                                     const float* whh, const float* b, const float* g,
                                     const float* beta, const float* w_dens,
                                     const float* b_dens, const float* w_col,
-                                    const float* b_col, const float* tc_fwd, void* stream) {
+                                    const float* b_col, const float* tc_fwd, float* wide,
+                                    void* stream) {
   return run<false>(pts, dirs, out, P, xe, de, hidden, c, sx, phx, sd, phd, w0, wx, wd, whh, b,
-                    g, beta, w_dens, b_dens, w_col, b_col, tc_fwd, stream);
+                    g, beta, w_dens, b_dens, w_col, b_col, tc_fwd, wide, stream);
 }
 
 // The same in compute_dtype bfloat16: tc_fwd is bfloat16.
@@ -83,7 +85,8 @@ extern "C" int classic_pointmlp_fwd_bf16(const float* pts, const float* dirs, fl
                                          const float* whh, const float* b, const float* g,
                                          const float* beta, const float* w_dens,
                                          const float* b_dens, const float* w_col,
-                                         const float* b_col, const void* tc_fwd, void* stream) {
+                                         const float* b_col, const void* tc_fwd, float* wide,
+                                         void* stream) {
   return run<true>(pts, dirs, out, P, xe, de, hidden, c, sx, phx, sd, phd, w0, wx, wd, whh, b,
-                   g, beta, w_dens, b_dens, w_col, b_col, tc_fwd, stream);
+                   g, beta, w_dens, b_dens, w_col, b_col, tc_fwd, wide, stream);
 }

@@ -26,7 +26,8 @@
 // backward: one warp per ray merges
 // the two sorted t lists by rank and scans them in fp32, then scatters the
 // cotangents back to the coarse slots and the fine rows
-// (union_train.cuh, shared with K9).
+// (union_train.cuh, shared with K9), its scratch a ray's 5 (Sc + Sf)
+// floats of ray_scratch in device memory, so every sample count runs.
 //
 // fine_stage_train_bf16 is the same in compute_dtype bfloat16 (tc_mlp.cuh,
 // note 10: TcProductsBf16, bf16 fine and per-ray view encodings read from
@@ -49,8 +50,8 @@ cudaError_t run(const Weights& w, const void* xf, const void* d, const float* t_
                 const float* t_f, const float* dens_c, const float* col_c, const float* dnorm,
                 const float* noise_f, const float* pix, int R, int Sc, int Sf, int white,
                 float g_scale, float loss_scale, float* out, float* gout, float* ray_loss,
-                float* loss, float* grads, float* g_dens_c, float* g_col_c, const Scratch& s,
-                cudaStream_t stream) {
+                float* loss, float* grads, float* g_dens_c, float* g_col_c, float* ray_scratch,
+                const Scratch& s, cudaStream_t stream) {
   using T = enc_t<kBf16>;
   using Products = TcProductsT<kBf16>;
   const int P = R * Sf;
@@ -58,14 +59,9 @@ cudaError_t run(const Weights& w, const void* xf, const void* d, const float* t_
       w, TileLoadT<T>{static_cast<const T*>(xf), static_cast<const T*>(d), Sf}, out, P, s,
       stream, static_cast<size_t>(P), 0);
   if (err != cudaSuccess) return err;
-  const size_t smem = union_composite_smem(Sc, Sf);
-  err = cudaFuncSetAttribute(union_composite_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  union_composite_kernel<<<(R + kWarps - 1) / kWarps, kThreads, smem, stream>>>(
+  union_composite_kernel<<<(R + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
       out, noise_f, t_c, t_f, UnionCoarse{dens_c, nullptr, col_c, g_dens_c, g_col_c, 1, w.c, 0},
-      dnorm, pix, R, Sc, Sf, w.c, white, g_scale, loss_scale, gout, ray_loss);
+      dnorm, pix, R, Sc, Sf, w.c, white, g_scale, loss_scale, gout, ray_loss, ray_scratch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   if ((err = colsum(ray_loss, R, 1, loss, s.tmp, stream)) != cudaSuccess) return err;
   return launch_mlp_backward<H, Products>(w, xf, d, Sf, gout, P, s, nullptr, nullptr, grads,
@@ -81,10 +77,12 @@ int entry(const void* xf, const void* d, const float* t_c, const float* t_f,
           const float* g, const float* beta, const float* w_dens, const float* b_dens,
           const float* w_col, const float* b_col, float* xhat, float* stats, float* dpre,
           float* wpart, float* tpart, float* tmp, float* out, float* gout,
-          float* ray_loss, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
-  if (c > kMaxColors || c < 1) return cudaErrorInvalidValue;
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
-                  xe, wd ? de : 0, c};
+          float* ray_loss, float* ray_scratch, int splits, const void* tc_fwd,
+          const void* tc_bwd, void* stream) {
+  if (c < 1 || ray_scratch == nullptr) return cudaErrorInvalidValue;
+  const Weights w = sized(Weights{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
+                                  xe, wd ? de : 0, c},
+                          hidden);
   const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   const float g_scale = loss_weight * 2.f / (static_cast<float>(c) * R);
@@ -93,7 +91,7 @@ int entry(const void* xf, const void* d, const float* t_c, const float* t_f,
 #define NERF_LAUNCH(H)                                                                    \
   static_cast<int>(run<H, kBf16>(w, xf, d, t_c, t_f, dens_c, col_c, dnorm, noise_f, pix, R, \
                                  Sc, Sf, white, g_scale, loss_scale, out, gout, ray_loss,  \
-                                 loss, grads, g_dens_c, g_col_c, s, st))
+                                 loss, grads, g_dens_c, g_col_c, ray_scratch, s, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }
@@ -111,12 +109,13 @@ extern "C" int fine_stage_train(const float* xf, const float* d, const float* t_
                                 const float* b_dens, const float* w_col, const float* b_col,
                                 float* xhat, float* stats, float* dpre, float* wpart,
                                 float* tpart, float* tmp, float* out, float* gout,
-                                float* ray_loss, int splits, const float* tc_fwd,
+                                float* ray_loss, float* ray_scratch, int splits,
+                                const float* tc_fwd,
                                 const float* tc_bwd, void* stream) {
   return entry<false>(xf, d, t_c, t_f, dens_c, col_c, dnorm, noise_f, pix, loss, grads,
                       g_dens_c, g_col_c, R, Sc, Sf, xe, de, hidden, c, white, loss_weight, w0,
                       wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre,
-                      wpart, tpart, tmp, out, gout, ray_loss, splits, tc_fwd, tc_bwd,
+                      wpart, tpart, tmp, out, gout, ray_loss, ray_scratch, splits, tc_fwd, tc_bwd,
                       stream);
 }
 
@@ -129,10 +128,10 @@ extern "C" int fine_stage_train_bf16(
     const float* wd, const float* whh, const float* b, const float* g, const float* beta,
     const float* w_dens, const float* b_dens, const float* w_col, const float* b_col,
     float* xhat, float* stats, float* dpre, float* wpart, float* tpart, float* tmp,
-    float* out, float* gout, float* ray_loss, int splits, const void* tc_fwd,
+    float* out, float* gout, float* ray_loss, float* ray_scratch, int splits, const void* tc_fwd,
     const void* tc_bwd, void* stream) {
   return entry<true>(xf, d, t_c, t_f, dens_c, col_c, dnorm, noise_f, pix, loss, grads,
                      g_dens_c, g_col_c, R, Sc, Sf, xe, de, hidden, c, white, loss_weight, w0, wx,
                      wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre, wpart,
-                     tpart, tmp, out, gout, ray_loss, splits, tc_fwd, tc_bwd, stream);
+                     tpart, tmp, out, gout, ray_loss, ray_scratch, splits, tc_fwd, tc_bwd, stream);
 }

@@ -33,7 +33,8 @@
 //      R Sc rows of a coarse-then-fine encoding buffer;
 //   1. fwd_store on the R Sc coarse rows: the chain's first rows and the
 //      coarse density and colour logits;
-//   2. one warp per ray (coarse_resample_kernel): the coarse compositing
+//   2. one warp per ray (coarse_resample_kernel, its scratch in device
+//      memory, ray_scratch, so every sample count runs): the coarse compositing
 //      with density noise, its MSE and the MSE's backward
 //      (composite_ray), then the inverse-CDF resample from the weights
 //      and the given uniforms by sampling.sample_pdf's rules: the interior
@@ -43,8 +44,8 @@
 //   3. fwd_store on the R Sf fine rows, whose loader encodes each fine
 //      point o + d t inside the block (encode.cuh's RayEncodeLoad) and
 //      writes the encodings after the coarse ones;
-//   4. K3's union pass (union_train.cuh), its coarse cotangents added to
-//      the coarse stage's own;
+//   4. K3's union pass (union_train.cuh, on the same ray_scratch), its
+//      coarse cotangents added to the coarse stage's own;
 //   5. bwd_rows and wgrad over all R (Sc + Sf) rows at once: both stages
 //      share the weights, and their chains, encodings and cotangents are
 //      contiguous, coarse then fine (the view encodings are per ray in
@@ -76,9 +77,6 @@ using namespace nerf_mlp;
 constexpr float kPdfEps = 1e-5f;  // sampling.sample_pdf's eps
 
 // Shared memory of coarse_resample_kernel: 5 Sc floats per warp.
-inline size_t coarse_resample_smem(int Sc) {
-  return static_cast<size_t>(kWarps) * 5 * Sc * sizeof(float);
-}
 
 // Step 2 for one ray per warp.  out [R*Sc][1 + c] is the coarse MLP
 // output, noise_c its density noise; gout receives the coarse stage's
@@ -90,12 +88,12 @@ __global__ void __launch_bounds__(kThreads)
                            const float* __restrict__ u, const float* __restrict__ pix, int R,
                            int Sc, int Sf, int c, int white, float g_scale, float loss_scale,
                            float* __restrict__ gout, float* __restrict__ ray_loss,
-                           float* __restrict__ dnorm, float* __restrict__ t_fine) {
-  extern __shared__ float scratch[];
+                           float* __restrict__ dnorm, float* __restrict__ t_fine,
+                           float* __restrict__ scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ray = blockIdx.x * kWarps + warp;
   if (ray >= R) return;
-  float* comp = scratch + warp * 5 * Sc;  // composite_ray's 3 Sc
+  float* comp = scratch + static_cast<size_t>(ray) * 5 * Sc;  // composite_ray's 3 Sc
   float* wts = comp + 3 * Sc;             // the compositing weights
   float* cpost = wts + Sc;                // the cdf at the Sc - 1 fenceposts
   const int ld = 1 + c;
@@ -179,6 +177,7 @@ struct Work {
   T* x_all;         // [R(Sc+Sf)][xe] encodings, coarse then fine
   float* dnorm;     // [R]
   float* ray_loss;  // [2][R]: coarse, fine
+  float* ray_scratch;  // [R][5 (Sc + Sf)]: the per-ray passes' scratch
 };
 
 template <int H, bool kBf16>
@@ -198,13 +197,9 @@ cudaError_t run(const Weights& w, const Inputs<enc_t<kBf16>>& in, const Work<enc
   if (err != cudaSuccess) return err;
 
   const int ray_blocks = (R + kWarps - 1) / kWarps;
-  size_t smem = coarse_resample_smem(Sc);
-  err = cudaFuncSetAttribute(coarse_resample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  coarse_resample_kernel<<<ray_blocks, kThreads, smem, stream>>>(
+  coarse_resample_kernel<<<ray_blocks, kThreads, 0, stream>>>(
       k.out, in.noise_c, in.t_c, in.rays_d, in.u, in.pix, R, Sc, Sf, w.c, white, g_scale,
-      loss_scale, k.gout, k.ray_loss, k.dnorm, t_fine);
+      loss_scale, k.gout, k.ray_loss, k.dnorm, t_fine, k.ray_scratch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   const RayEncodeLoadT<T> fine_load{in.rays_o, in.rays_d, t_fine,  Sf, in.S, in.is_cos,
@@ -214,15 +209,11 @@ cudaError_t run(const Weights& w, const Inputs<enc_t<kBf16>>& in, const Work<enc
                                            static_cast<size_t>(Pc));
   if (err != cudaSuccess) return err;
 
-  smem = union_composite_smem(Sc, Sf);
-  err = cudaFuncSetAttribute(union_composite_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   const UnionCoarse coarse{k.out, in.noise_c, k.out + 1, k.gout, k.gout + 1, ld, ld, 1};
-  union_composite_kernel<<<ray_blocks, kThreads, smem, stream>>>(
+  union_composite_kernel<<<ray_blocks, kThreads, 0, stream>>>(
       k.out + static_cast<size_t>(Pc) * ld, in.noise_f, in.t_c, t_fine, coarse, k.dnorm, in.pix,
       R, Sc, Sf, w.c, white, g_scale, loss_scale, k.gout + static_cast<size_t>(Pc) * ld,
-      k.ray_loss + R);
+      k.ray_loss + R, k.ray_scratch);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
 
   if ((err = colsum(k.ray_loss, R, 1, loss, s.tmp, stream)) != cudaSuccess) return err;
@@ -240,17 +231,18 @@ int entry(const void* xc, const void* d_ray, const float* t_c, const float* nois
           const float* b, const float* g, const float* beta, const float* w_dens,
           const float* b_dens, const float* w_col, const float* b_col, float* xhat,
           float* stats, float* dpre, float* wpart, float* tpart, float* tmp,
-          float* out, float* gout, void* x_all, float* dnorm, float* ray_loss, int splits,
-          const void* tc_fwd, const void* tc_bwd, void* stream) {
+          float* out, float* gout, void* x_all, float* dnorm, float* ray_loss,
+          float* ray_scratch, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
   using T = enc_t<kBf16>;
-  if (c > kMaxColors || c < 1 || Sc < 3 || Sf < 1) return cudaErrorInvalidValue;
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
-                  xe, wd ? de : 0, c};
+  if (c < 1 || Sc < 3 || Sf < 1 || ray_scratch == nullptr) return cudaErrorInvalidValue;
+  const Weights w = sized(Weights{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
+                                  xe, wd ? de : 0, c},
+                          hidden);
   const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   const Inputs<T> in{static_cast<const T*>(xc), static_cast<const T*>(d_ray), t_c, noise_c, u,
                      noise_f, rays_o, rays_d, pix, S, is_cos};
-  const Work<T> k{out, gout, static_cast<T*>(x_all), dnorm, ray_loss};
+  const Work<T> k{out, gout, static_cast<T*>(x_all), dnorm, ray_loss, ray_scratch};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H)                                                                          \
   static_cast<int>(run<H, kBf16>(w, in, k, loss, grads, t_fine, R, Sc, Sf, white, exact_trig, s, \
@@ -272,12 +264,12 @@ extern "C" int mega_train(const float* xc, const float* d_ray, const float* t_c,
                           const float* w_col, const float* b_col, float* xhat, float* stats,
                           float* dpre, float* wpart, float* tpart, float* tmp,
                           float* out, float* gout, float* x_all, float* dnorm,
-                          float* ray_loss, int splits, const float* tc_fwd,
-                          const float* tc_bwd, void* stream) {
+                          float* ray_loss, float* ray_scratch, int splits,
+                          const float* tc_fwd, const float* tc_bwd, void* stream) {
   return entry<false>(xc, d_ray, t_c, noise_c, u, noise_f, rays_o, rays_d, pix, S, is_cos, loss,
                       grads, t_fine, R, Sc, Sf, xe, de, hidden, c, white, exact_trig, w0, wx, wd,
                       whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre, wpart,
-                      tpart, tmp, out, gout, x_all, dnorm, ray_loss, splits, tc_fwd, tc_bwd,
+                      tpart, tmp, out, gout, x_all, dnorm, ray_loss, ray_scratch, splits, tc_fwd, tc_bwd,
                       stream);
 }
 
@@ -292,10 +284,10 @@ extern "C" int mega_train_bf16(
     const float* beta, const float* w_dens, const float* b_dens, const float* w_col,
     const float* b_col, float* xhat, float* stats, float* dpre, float* wpart, float* tpart,
     float* tmp, float* out, float* gout, void* x_all, float* dnorm, float* ray_loss,
-    int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
+    float* ray_scratch, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
   return entry<true>(xc, d_ray, t_c, noise_c, u, noise_f, rays_o, rays_d, pix, S, is_cos, loss,
                      grads, t_fine, R, Sc, Sf, xe, de, hidden, c, white, exact_trig, w0, wx, wd,
                      whh, b, g, beta, w_dens, b_dens, w_col, b_col, xhat, stats, dpre, wpart,
-                     tpart, tmp, out, gout, x_all, dnorm, ray_loss, splits, tc_fwd, tc_bwd,
+                     tpart, tmp, out, gout, x_all, dnorm, ray_loss, ray_scratch, splits, tc_fwd, tc_bwd,
                      stream);
 }

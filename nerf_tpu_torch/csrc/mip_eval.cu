@@ -65,37 +65,47 @@ __global__ void __launch_bounds__(kThreads)
       [&](int p) { return dists[base + p]; });
 
   const int begin = min(n, lane * ray_run_len(n)), end = min(n, begin + ray_run_len(n));
-  float rgb[kMaxColors];
-#pragma unroll
-  for (int ch = 0; ch < kMaxColors; ++ch) rgb[ch] = 0.f;
-  float acc = 0.f, depth = 0.f;
-  for (int p = begin; p < end; ++p) {
-    const float wgt = (1.f - al[p]) * tr[p];
-    const float* row = o + p * O;
-#pragma unroll
-    for (int ch = 0; ch < kMaxColors; ++ch)
-      if (ch < C) rgb[ch] = fmaf(wgt, sigmoid(row[1 + ch]), rgb[ch]);
-    acc += wgt;
-    depth = fmaf(wgt, t_mids[base + p], depth);
-    const float* s = row + 1 + C;
-    float mx = s[0];
-    for (int k = 1; k < K; ++k) mx = fmaxf(mx, s[k]);
-    float se = 0.f;
-    for (int k = 0; k < K; ++k) se += expf(s[k] - mx);
-    lse[p] = mx + logf(se);
-    lw[p] = logf(wgt + 1e-10f);
-  }
-  acc = warp_sum(acc);
-  depth = warp_sum(depth);
   const int width = C + K + 2;
   float* res = per_ray + static_cast<size_t>(ray) * width;
+  // The colours a chunk of kColorChunk at a time; the first chunk's walk
+  // also takes acc, depth and each row's log-sum-exp.
+  float acc = 0.f, depth = 0.f;
+  int ch0 = 0;
+  do {
+    float rgb[kColorChunk];
 #pragma unroll
-  for (int ch = 0; ch < kMaxColors; ++ch) {
-    if (ch < C) {
-      const float v = warp_sum(rgb[ch]) + (white ? 1.f - acc : 0.f);
-      if (lane == 0) res[ch] = v;
+    for (int ch = 0; ch < kColorChunk; ++ch) rgb[ch] = 0.f;
+    for (int p = begin; p < end; ++p) {
+      const float wgt = (1.f - al[p]) * tr[p];
+      const float* row = o + p * O;
+#pragma unroll
+      for (int ch = 0; ch < kColorChunk; ++ch)
+        if (ch0 + ch < C) rgb[ch] = fmaf(wgt, sigmoid(row[1 + ch0 + ch]), rgb[ch]);
+      if (ch0 == 0) {
+        acc += wgt;
+        depth = fmaf(wgt, t_mids[base + p], depth);
+        const float* s = row + 1 + C;
+        float mx = s[0];
+        for (int k = 1; k < K; ++k) mx = fmaxf(mx, s[k]);
+        float se = 0.f;
+        for (int k = 0; k < K; ++k) se += expf(s[k] - mx);
+        lse[p] = mx + logf(se);
+        lw[p] = logf(wgt + 1e-10f);
+      }
     }
-  }
+    if (ch0 == 0) {
+      acc = warp_sum(acc);
+      depth = warp_sum(depth);
+    }
+#pragma unroll
+    for (int ch = 0; ch < kColorChunk; ++ch) {
+      if (ch0 + ch < C) {
+        const float v = warp_sum(rgb[ch]) + (white ? 1.f - acc : 0.f);
+        if (lane == 0) res[ch0 + ch] = v;
+      }
+    }
+    ch0 += kColorChunk;
+  } while (ch0 < C);
   if (lane == 0) {
     res[C + K] = depth;
     res[C + K + 1] = acc;
@@ -116,9 +126,10 @@ __global__ void __launch_bounds__(kThreads)
 template <int H, class Products>
 cudaError_t run(const MipWeights& w, const void* x, const float* dists, const float* t_mids,
                 const float* noise, int R, int n, int C, int white, float* per_ray,
-                float* mlp_out, float* ray_scratch, const float* tc_fwd, cudaStream_t stream) {
-  const cudaError_t err =
-      Products::template fwd<H, false>(w, x, mlp_out, R * n, nullptr, nullptr, tc_fwd, stream);
+                float* mlp_out, float* ray_scratch, const float* tc_fwd, float* wide,
+                cudaStream_t stream) {
+  const cudaError_t err = Products::template fwd<H, false>(w, x, mlp_out, R * n, nullptr, nullptr,
+                                                           tc_fwd, wide, stream);
   if (err != cudaSuccess) return err;
   mip_eval_rays_kernel<<<(R + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
       mlp_out, dists, t_mids, noise, R, n, C, w.O, white, per_ray, ray_scratch);
@@ -130,14 +141,14 @@ int run_at(const void* x, const float* dists, const float* t_mids, const float* 
            float* per_ray, int R, int n, int F, int hidden, int L, int C, int O, int white,
            const float* w_in, const float* whh, const float* b, const float* g,
            const float* beta, const float* w_out, const float* b_out, float* mlp_out,
-           float* ray_scratch, const void* tc_fwd, void* stream) {
-  if (L < 2 || C < 1 || C > kMaxColors || O < C + 2) return cudaErrorInvalidValue;
-  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
+           float* ray_scratch, const void* tc_fwd, float* wide, void* stream) {
+  if (L < 2 || C < 1 || O < C + 2) return cudaErrorInvalidValue;
+  const MipWeights w = sized(MipWeights{w_in, whh, b, g, beta, w_out, b_out, F, L, O}, hidden);
   const float* img = static_cast<const float*>(tc_fwd);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H)                                                                      \
   static_cast<int>(run<H, Products>(w, x, dists, t_mids, noise, R, n, C, white, per_ray,    \
-                                    mlp_out, ray_scratch, img, st))
+                                    mlp_out, ray_scratch, img, wide, st))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }
@@ -149,9 +160,9 @@ extern "C" int mip_eval(const float* x, const float* dists, const float* t_mids,
                         int L, int C, int O, int white, const float* w_in, const float* whh,
                         const float* b, const float* g, const float* beta, const float* w_out,
                         const float* b_out, float* mlp_out, float* ray_scratch,
-                        const float* tc_fwd, void* stream) {
+                        const float* tc_fwd, float* wide, void* stream) {
   return run_at<MipTc>(x, dists, t_mids, noise, per_ray, R, n, F, hidden, L, C, O, white, w_in,
-                       whh, b, g, beta, w_out, b_out, mlp_out, ray_scratch, tc_fwd, stream);
+                       whh, b, g, beta, w_out, b_out, mlp_out, ray_scratch, tc_fwd, wide, stream);
 }
 
 // The same in compute_dtype bfloat16: x and tc_fwd are bfloat16.
@@ -161,9 +172,9 @@ extern "C" int mip_eval_bf16(const void* x, const float* dists, const float* t_m
                              const float* whh, const float* b, const float* g,
                              const float* beta, const float* w_out, const float* b_out,
                              float* mlp_out, float* ray_scratch, const void* tc_fwd,
-                             void* stream) {
+                             float* wide, void* stream) {
   return run_at<MipTcBf16>(x, dists, t_mids, noise, per_ray, R, n, F, hidden, L, C, O, white,
                            w_in, whh, b, g, beta, w_out, b_out, mlp_out, ray_scratch, tc_fwd,
-                           stream);
+                           wide, stream);
 }
 

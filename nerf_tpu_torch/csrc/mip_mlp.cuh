@@ -57,6 +57,8 @@ struct MipWeights {
   const float* w_out;  // [H, O]
   const float* b_out;  // [O]
   int F, L, O;
+  int h = 0, hp = 0;   // the hidden width and its padded width (sized())
+  float inv_h = 0.f, padded = 0.f;  // 1 / h and hp - h (sized())
 };
 
 // The forward operand images of a mip call (tc_mlp.py::tc_images): w_in as
@@ -193,33 +195,73 @@ __device__ void mip_tile_tc(const MipWeights& w, const MipImages& im, const Load
   tc_gemm<H, kBf16>(d, EncA<Load, MipWeights>{load, w, 0, row0, nvalid, true, ring}, w.F,
                     im.w_in, bbuf);
   tc_to_rows<H>(d, act, acc);
-  layer_epilogue<H, kSave, true>(acc, w.b, w.g, w.beta, save, 0);
+  layer_epilogue<H, kSave, true>(acc, w.b, w.g, w.beta, w.inv_h, w.padded, save, 0);
   for (int i = 1; i < w.L; ++i) {
     tc_store_rows<H>(acc, act);
     tc_zero<H>(d);
     tc_gemm<H, kBf16>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
     tc_to_rows<H>(d, act, acc);
-    layer_epilogue<H, kSave, true>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
+    layer_epilogue<H, kSave, true>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, w.inv_h,
+                                   w.padded, save, i);
   }
   head_wide<H, ald, kBf16>(acc, act, bbuf, w.w_out, w.b_out, w.O, out, nvalid);
 }
 
+// mip_tile_tc past 256 (tc_mlp.cuh note 11): the layers in column blocks,
+// the tile's rows in device memory (pre, nrm), LayerNorm first (wide_norm
+// <kLnFirst>), the head over nrm (head_rows).
+template <bool kSave, bool kBf16, class Load>
+__device__ void mip_tile_wide(const MipWeights& w, const MipImages& im, const Load& load,
+                              size_t row0, int nvalid, float* act, float* ring, float* bbuf,
+                              float* out, const Save* save, float* pre, float* nrm_f) {
+  using T = enc_t<kBf16>;
+  constexpr int B = kColBlock;
+  T* nrm = reinterpret_cast<T*>(nrm_f);
+  const int hp = w.hp, nb = hp / B;
+  const size_t blk_f = tc_image_floats<kBf16>(B, w.F), blk_h = tc_image_floats<kBf16>(B, hp);
+  const size_t slab = tc_image_floats<kBf16>(hp, hp);
+  const RowsLoadT<T> rows{nrm, hp};
+  const EncA<RowsLoadT<T>, MipWeights> prev{rows, w, 0, 0, nvalid, false, ring};
+  float d[B / 4];
+  for (int i = 0; i < w.L; ++i) {
+    for (int cb = 0; cb < nb; ++cb) {
+      tc_zero<B>(d);
+      if (i == 0)
+        tc_gemm<B, kBf16>(d, EncA<Load, MipWeights>{load, w, 0, row0, nvalid, true, ring}, w.F,
+                          im.w_in + cb * blk_f, bbuf);
+      else
+        tc_gemm<B, kBf16>(d, prev, hp, im.whh + (i - 1) * slab + cb * blk_h, bbuf);
+      wide_store_block<false>(d, act, pre, hp, cb, w.b + i * hp, nvalid);
+    }
+    wide_norm<kSave, true>(pre, nrm, hp, w.h, w.inv_h, nvalid, w.g + i * hp, w.beta + i * hp,
+                           save, i);
+  }
+  head_rows<kBf16>(nrm, hp, act, bbuf, w.w_out, w.b_out, w.O, out, w.O, 0, nvalid);
+}
+
 // The forward tile of a block: the B chunks, the activation tile and the
-// features' ring, in tc_tile_bytes<H>() (fwd_store's layout) at every
-// feature width.  kBf16: bfloat16 features and images.
+// features' ring, in tc_tile_bytes<col_width<H>()>() (fwd_store's layout)
+// at every feature width.  kBf16: bfloat16 features and images.  wide:
+// the tiles' rows past hidden 256 (note 11).
 template <int H, bool kSave, bool kBf16>
 __device__ __forceinline__ void mip_fwd_tc_block(const MipWeights& w, const MipImages& im,
                                                  const enc_t<kBf16>* x, float* out, int P,
-                                                 float* xhat, float* stats) {
+                                                 float* xhat, float* stats, const WideRows& wide) {
+  constexpr int HT = col_width<H>();
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);
-  float* act = bbuf + tc_bbuf_floats<H>();
-  float* ring = act + kTileRows * act_ld<H>();
+  float* act = bbuf + tc_bbuf_floats<HT>();
+  float* ring = act + kTileRows * act_ld<HT>();
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
   const Save save{xhat, stats, static_cast<size_t>(P), row0, nvalid};
-  mip_tile_tc<H, kSave, kBf16>(w, im, MipFeatLoadT<enc_t<kBf16>>{x}, row0, nvalid, act, ring,
-                               bbuf, out + row0 * w.O, &save);
+  if constexpr (H > kColBlock)
+    mip_tile_wide<kSave, kBf16>(w, im, MipFeatLoadT<enc_t<kBf16>>{x}, row0, nvalid, act, ring,
+                                bbuf, out + row0 * w.O, &save, wide.pre + blockIdx.x * wide.stride,
+                                wide.nrm + blockIdx.x * wide.stride);
+  else
+    mip_tile_tc<H, kSave, kBf16>(w, im, MipFeatLoadT<enc_t<kBf16>>{x}, row0, nvalid, act, ring,
+                                 bbuf, out + row0 * w.O, &save);
 }
 
 // K6's and K5-bwd's stored-chain forward over features x [P][F] -> out
@@ -228,16 +270,17 @@ __device__ __forceinline__ void mip_fwd_tc_block(const MipWeights& w, const MipI
 template <int H, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     mip_fwd_store_tc_kernel(MipWeights w, MipImages im, const enc_t<kBf16>* __restrict__ x,
-                            float* __restrict__ out, int P, float* xhat, float* stats) {
-  mip_fwd_tc_block<H, true, kBf16>(w, im, x, out, P, xhat, stats);
+                            float* __restrict__ out, int P, float* xhat, float* stats,
+                            WideRows wide) {
+  mip_fwd_tc_block<H, true, kBf16>(w, im, x, out, P, xhat, stats, wide);
 }
 
 // K7's and K5-fwd's forward, nothing saved.  One block an SM.
 template <int H, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     mip_fwd_tc_kernel(MipWeights w, MipImages im, const enc_t<kBf16>* __restrict__ x,
-                      float* __restrict__ out, int P) {
-  mip_fwd_tc_block<H, false, kBf16>(w, im, x, out, P, nullptr, nullptr);
+                      float* __restrict__ out, int P, WideRows wide) {
+  mip_fwd_tc_block<H, false, kBf16>(w, im, x, out, P, nullptr, nullptr, wide);
 }
 
 // acc += gout[tile rows, 0:O] @ W^T for this warp's rows, and the tile's
@@ -281,10 +324,80 @@ __device__ void head_dh(float (&acc)[kRowsPerWarp][H / 32], const float* __restr
 // head width.
 template <int H>
 __host__ constexpr size_t mip_bwd_rows_tc_smem() {
-  return (static_cast<size_t>(tc_bbuf_floats<H>()) + static_cast<size_t>(kTileRows) * act_ld<H>() +
-          static_cast<size_t>(kTileRows) * kChunk) *
+  constexpr int HT = col_width<H>();
+  return (static_cast<size_t>(tc_bbuf_floats<HT>()) + static_cast<size_t>(kTileRows) * act_ld<HT>() +
+          (H > kColBlock ? kEncRingFloats : static_cast<size_t>(kTileRows) * kChunk)) *
              sizeof(float) +
          kSmemAlign;
+}
+
+// head_dh over rows in device memory (tc_mlp.cuh note 11): dh [64][hp] =
+// gout[tile rows, 0:O] @ W^T for the tile's valid rows (kBf16 rounds gout
+// and W), and the tile's column sums of gout to p_bout.  A thread a
+// column, its 64 rows' sums in registers; the output cotangents staged
+// through gs ([64][64], zero past the valid rows and past O) 64 outputs at
+// a time, so each weight is read once.  Ends with a block-wide barrier.
+template <bool kBf16>
+__device__ void head_dh_rows(const float* __restrict__ gout, int O, size_t row0, int nvalid,
+                             const float* __restrict__ W, int hp, float* dh, float* gs,
+                             float* p_bout) {
+  for (int q = threadIdx.x; q < O; q += kThreads) {
+    float s = 0.f;
+    for (int r = 0; r < nvalid; ++r) s += gout[(row0 + r) * O + q];
+    p_bout[q] = s;
+  }
+  for (int k0 = 0; k0 < hp; k0 += kThreads) {  // hp is a multiple of 256
+    const int k = k0 + threadIdx.x;
+    float v[kTileRows];
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r) v[r] = 0.f;
+    for (int q0 = 0; q0 < O; q0 += 64) {
+      __syncthreads();  // gs's last readers are done
+      for (int i = threadIdx.x; i < kTileRows * 64; i += kThreads) {
+        const int r = i >> 6, q = q0 + (i & 63);
+        gs[i] = r < nvalid && q < O ? operand<kBf16>(gout[(row0 + r) * O + q]) : 0.f;
+      }
+      __syncthreads();
+      for (int qq = 0; qq < min(64, O - q0); ++qq) {
+        const float wq = operand<kBf16>(__ldg(W + static_cast<size_t>(k) * O + q0 + qq));
+#pragma unroll
+        for (int r = 0; r < kTileRows; ++r) v[r] = fmaf(gs[r * 64 + qq], wq, v[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r)
+      if (r < nvalid) dh[static_cast<size_t>(r) * hp + k] = v[r];
+  }
+  __syncthreads();
+}
+
+// mip_bwd_rows_tc_kernel past 256 (note 11): each layer's dh goes to the
+// tile's rows of its dpre, where layer_bwd_wide<kLnFirst> turns it into
+// dpre.
+template <bool kBf16>
+__device__ void mip_bwd_rows_wide(const MipWeights& w, const float* __restrict__ gout, int P,
+                                  const float* xhat, const float* stats,
+                                  const float* __restrict__ bwd, float* dpre, float* tpart,
+                                  void* dx, float* bbuf, float* act, float* ring) {
+  const int L = w.L, hp = w.hp;
+  const size_t slab = tc_image_floats<kBf16>(hp, hp), PP = static_cast<size_t>(P);
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
+  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
+  float* p_b = tpart + blockIdx.x * mip_tile_floats(w, hp);
+  float* p_g = p_b + L * hp;
+  float* p_beta = p_g + L * hp;
+  auto rows = [&](int layer) { return dpre_rows(dpre, layer, PP, row0, hp); };
+  head_dh_rows<kBf16>(gout, w.O, row0, nvalid, w.w_out, hp, rows(L - 1), bbuf, p_beta + L * hp);
+  for (int i = L - 1; i >= 0; --i) {
+    layer_bwd_wide<true>(rows(i), i, w.g + i * hp, w.beta + i * hp, w.h, w.inv_h, hp, PP, row0,
+                         nvalid, xhat, stats, p_b, p_g, p_beta);
+    if (i == 0) break;
+    wide_dh<kBf16>(w, rows(i), rows(i - 1), hp, nvalid, bwd + (i - 1) * slab, act, ring, bbuf);
+  }
+  if (dx != nullptr)
+    tc_input_grad_wide<kBf16, enc_t<kBf16>>(w, act, ring, bbuf, dpre, PP, row0, nvalid, hp, 0,
+                                            tc_input_images<kBf16>(bwd, L - 1, hp), -1, nullptr,
+                                            w.F, dx);
 }
 
 // From the output cotangents gout [P][O] down through the layers, storing
@@ -302,6 +415,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                            const float* xhat, const float* stats, const float* __restrict__ bwd,
                            float* dpre, float* tpart, void* dx) {
   extern __shared__ float4 smem4[];
+  if constexpr (H > kColBlock) {
+    float* bbuf = tc_smem_base(smem4);
+    float* act = bbuf + tc_bbuf_floats<kColBlock>();
+    mip_bwd_rows_wide<kBf16>(w, gout, P, xhat, stats, bwd, dpre, tpart, dx, bbuf, act,
+                             act + kTileRows * act_ld<kColBlock>());
+  } else {
   float* bbuf = tc_smem_base(smem4);          // B chunks, head chunks or colsum scratch
   float* act = bbuf + tc_bbuf_floats<H>();    // dpre of the current layer
   float* gs = act + kTileRows * act_ld<H>();  // [64][kChunk] output cotangents
@@ -318,8 +437,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   zero<H>(acc);
   head_dh<H, kBf16>(acc, gout, w.O, row0, nvalid, w.w_out, bbuf, gs, p_beta + L * H);
   for (int i = L - 1; i >= 0; --i) {
-    layer_bwd<H, true>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats,
-                       dpre, p_b, p_g, p_beta, bbuf);
+    layer_bwd<H, true>(acc, i, w.g + i * H, w.beta + i * H, w.h, w.inv_h, PP, row0, nvalid, xhat,
+                       stats, dpre, p_b, p_g, p_beta, bbuf);
     if (i == 0) break;
     tc_store_rows<H>(acc, act);
     tc_zero<H>(d);
@@ -330,6 +449,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (dx != nullptr)
     tc_input_grad<H, kBf16>(act, bbuf, dpre, PP, row0, nvalid, 0,
                             tc_input_images<kBf16>(bwd, L - 1, H), -1, nullptr, w.F, dx);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -351,26 +471,32 @@ struct MipTcT {
   static constexpr bool kBf16 = kBf16_;
   using Feat = enc_t<kBf16>;
 
+  // wide: past hidden 256 (note 11), with kSave the dpre scratch (its
+  // layers 0 and 1 hold the tiles' rows until bwd_rows), else the
+  // wrapper's 2 x 64 x hp floats a tile; unused below.
   template <int H, bool kSave>
   static cudaError_t fwd(const MipWeights& w, const void* xv, float* out, int P, float* xhat,
-                         float* stats, const float* tc_fwd, cudaStream_t stream) {
-    if (tc_fwd == nullptr) return cudaErrorInvalidValue;
+                         float* stats, const float* tc_fwd, float* wide, cudaStream_t stream) {
+    if (tc_fwd == nullptr || (H > kColBlock && wide == nullptr)) return cudaErrorInvalidValue;
     const Feat* x = static_cast<const Feat*>(xv);
-    constexpr size_t smem = tc_tile_bytes<H>();
-    const MipImages im = MipImages::forward<kBf16>(w, tc_fwd, H);
+    constexpr size_t smem = tc_tile_bytes<col_width<H>()>();
+    const MipImages im = MipImages::forward<kBf16>(w, tc_fwd, w.hp);
     const int tiles = (P + kTileRows - 1) / kTileRows;
+    const size_t hp = w.hp, rows = kTileRows * hp;
     cudaError_t err;
     if constexpr (kSave) {
+      const WideRows rs{wide, wide == nullptr ? nullptr : wide + P * hp, rows};
       err = cudaFuncSetAttribute(mip_fwd_store_tc_kernel<H, kBf16>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
       mip_fwd_store_tc_kernel<H, kBf16><<<tiles, kThreads, smem, stream>>>(w, im, x, out, P, xhat,
-                                                                           stats);
+                                                                           stats, rs);
     } else {
       err = cudaFuncSetAttribute(mip_fwd_tc_kernel<H, kBf16>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
-      mip_fwd_tc_kernel<H, kBf16><<<tiles, kThreads, smem, stream>>>(w, im, x, out, P);
+      mip_fwd_tc_kernel<H, kBf16><<<tiles, kThreads, smem, stream>>>(w, im, x, out, P,
+                                                                     wide_rows(wide, w.hp));
     }
     return cudaGetLastError();
   }
@@ -409,16 +535,16 @@ cudaError_t launch_mip_backward(const MipWeights& w, const void* xv, const float
   // The raw features' pointer as WProd holds it (a_bf16 marks bfloat16).
   const float* x = static_cast<const float*>(xv);
   constexpr int feat_bf16 = Products::kBf16 ? 1 : 0;
-  const int L = w.L;
+  const int L = w.L, hp = w.hp;  // the slabs' padded width
   cudaError_t err = Products::template bwd_rows<H>(w, gout, P, s, dx, stream);
   if (err != cudaSuccess) return err;
   const int tiles = (P + kTileRows - 1) / kTileRows;
 
   const size_t PP = static_cast<size_t>(P);
-  const int th = (H + kWT - 1) / kWT;
-  auto xhat = [&](int layer) { return s.xhat + layer * PP * H; };
-  auto dpre = [&](int layer) { return s.dpre + layer * PP * H; };
-  const size_t wf = mip_wgrad_floats(w, H);
+  const int th = (hp + kWT - 1) / kWT;
+  auto xhat = [&](int layer) { return s.xhat + layer * PP * hp; };
+  auto dpre = [&](int layer) { return s.dpre + layer * PP * hp; };
+  const size_t wf = mip_wgrad_floats(w, hp);
   int k_chunk = (P + s.splits - 1) / s.splits;
   k_chunk = (k_chunk + kWK - 1) / kWK * kWK;
   // The L + 1 products go to wgrad in groups of kMaxProds, one launch each:
@@ -437,21 +563,21 @@ cudaError_t launch_mip_backward(const MipWeights& w, const void* xv, const float
     return prods.n == kMaxProds ? flush() : cudaSuccess;
   };
   size_t off = 0;
-  err = add(WProd{x, nullptr, nullptr, dpre(0), w.F, w.F, H, 1, 0, off, (w.F + kWT - 1) / kWT,
+  err = add(WProd{x, nullptr, nullptr, dpre(0), w.F, w.F, hp, 1, 0, off, (w.F + kWT - 1) / kWT,
                   th, 0, 1, feat_bf16});
-  off += static_cast<size_t>(w.F) * H;
+  off += static_cast<size_t>(w.F) * hp;
   for (int k = 0; k < L - 1 && err == cudaSuccess; ++k) {
-    err = add(WProd{xhat(k), w.g + k * H, w.beta + k * H, dpre(k + 1), H, H, H, 1, 1, off, th,
-                    th});
-    off += static_cast<size_t>(H) * H;
+    err = add(WProd{xhat(k), w.g + k * hp, w.beta + k * hp, dpre(k + 1), hp, hp, hp, 1, 1, off,
+                    th, th});
+    off += static_cast<size_t>(hp) * hp;
   }
   if (err == cudaSuccess)
-    err = add(WProd{xhat(L - 1), w.g + (L - 1) * H, w.beta + (L - 1) * H, gout, H, H, w.O, 1, 1,
-                    off, th, (w.O + kWT - 1) / kWT});
+    err = add(WProd{xhat(L - 1), w.g + (L - 1) * hp, w.beta + (L - 1) * hp, gout, hp, hp, w.O, 1,
+                    1, off, th, (w.O + kWT - 1) / kWT});
   if (err == cudaSuccess && prods.n > 0) err = flush();
   if (err != cudaSuccess) return err;
   if ((err = colsum(s.wpart, s.splits, wf, grads, s.tmp, stream)) != cudaSuccess) return err;
-  return colsum(s.tpart, tiles, mip_tile_floats(w, H), grads + wf, s.tmp, stream);
+  return colsum(s.tpart, tiles, mip_tile_floats(w, hp), grads + wf, s.tmp, stream);
 }
 
 }  // namespace nerf_mlp

@@ -49,7 +49,7 @@ template <int H, class Products>
 cudaError_t run(const MipWeights& w, const void* x, const float* gout, void* dx, float* grads,
                 float* out, int P, const Scratch& s, cudaStream_t stream) {
   cudaError_t err =
-      Products::template fwd<H, true>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
+      Products::template fwd<H, true>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, s.dpre, stream);
   if (err != cudaSuccess) return err;
   return launch_mip_backward<H, Products>(w, x, gout, P, s, dx, grads, stream);
 }
@@ -61,7 +61,7 @@ int run_at(const void* x, const float* gout, void* dx, float* grads, int P, int 
            float* stats, float* dpre, float* wpart, float* tpart, float* tmp,
            float* out, int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
   if (L < 2 || O < 1) return cudaErrorInvalidValue;
-  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
+  const MipWeights w = sized(MipWeights{w_in, whh, b, g, beta, w_out, b_out, F, L, O}, hidden);
   const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

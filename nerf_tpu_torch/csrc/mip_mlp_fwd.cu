@@ -38,13 +38,13 @@ using namespace nerf_mlp;
 template <class Products>
 int run(const void* x, float* out, int P, int F, int hidden, int L, int O, const float* w_in,
         const float* whh, const float* b, const float* g, const float* beta,
-        const float* w_out, const float* b_out, const void* tc_fwd, void* stream) {
+        const float* w_out, const float* b_out, const void* tc_fwd, float* wide, void* stream) {
   if (L < 2 || O < 1) return cudaErrorInvalidValue;
-  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
+  const MipWeights w = sized(MipWeights{w_in, whh, b, g, beta, w_out, b_out, F, L, O}, hidden);
   const float* img = static_cast<const float*>(tc_fwd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NERF_LAUNCH(H) \
-  static_cast<int>(Products::template fwd<H, false>(w, x, out, P, nullptr, nullptr, img, s))
+  static_cast<int>(Products::template fwd<H, false>(w, x, out, P, nullptr, nullptr, img, wide, s))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }
@@ -54,17 +54,18 @@ int run(const void* x, float* out, int P, int F, int hidden, int L, int O, const
 extern "C" int mip_mlp_fwd(const float* x, float* out, int P, int F, int hidden, int L, int O,
                            const float* w_in, const float* whh, const float* b, const float* g,
                            const float* beta, const float* w_out, const float* b_out,
-                           const float* tc_fwd, void* stream) {
+                           const float* tc_fwd, float* wide, void* stream) {
   return run<MipTc>(x, out, P, F, hidden, L, O, w_in, whh, b, g, beta, w_out, b_out, tc_fwd,
-                    stream);
+                    wide, stream);
 }
 
 // The same in compute_dtype bfloat16: x and tc_fwd are bfloat16.
 extern "C" int mip_mlp_fwd_bf16(const void* x, float* out, int P, int F, int hidden, int L,
                                 int O, const float* w_in, const float* whh, const float* b,
                                 const float* g, const float* beta, const float* w_out,
-                                const float* b_out, const void* tc_fwd, void* stream) {
+                                const float* b_out, const void* tc_fwd, float* wide,
+                                void* stream) {
   return run<MipTcBf16>(x, out, P, F, hidden, L, O, w_in, whh, b, g, beta, w_out, b_out,
-                        tc_fwd, stream);
+                        tc_fwd, wide, stream);
 }
 

@@ -146,7 +146,7 @@ cudaError_t run(const MipWeights& w, const void* x, const float* dists, const fl
                 float* gout, float* ray_loss, float* ray_scratch, cudaStream_t stream) {
   const int P = R * n;
   cudaError_t err =
-      Products::template fwd<H, true>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, stream);
+      Products::template fwd<H, true>(w, x, out, P, s.xhat, s.stats, s.tc_fwd, s.dpre, stream);
   if (err != cudaSuccess) return err;
   const float g_scale = 2.f / (static_cast<float>(c) * R);
   const float loss_scale = 1.f / R;
@@ -168,9 +168,9 @@ int run_at(const void* x, const float* dists, const float* noise, const float* p
            float* wpart, float* tpart, float* tmp, float* out, float* gout,
            float* ray_loss, float* ray_scratch, int splits, const void* tc_fwd,
            const void* tc_bwd, void* stream) {
-  if (L < 2 || c < 1 || c > kMaxColors || O < c + 2 || (seg_weight != 0.f && labels == nullptr))
+  if (L < 2 || c < 1 || O < c + 2 || (seg_weight != 0.f && labels == nullptr))
     return cudaErrorInvalidValue;
-  const MipWeights w{w_in, whh, b, g, beta, w_out, b_out, F, L, O};
+  const MipWeights w = sized(MipWeights{w_in, whh, b, g, beta, w_out, b_out, F, L, O}, hidden);
   const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

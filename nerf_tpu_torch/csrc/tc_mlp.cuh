@@ -58,9 +58,9 @@
 //    floats of padding make the fragment loads free of bank conflicts) and
 //    split as it is loaded, so no hi/lo copy of the tile is kept.  Bytes a
 //    block at H = 256, 1024 bytes of alignment slack included: fwd_store
-//    (K1-fwd's, K8-fwd's tile) and the mip forward tile 219,136 (with the
-//    encodings' ring, note 9), K4's tile 223,232 at 128 fine samples (with
-//    its [256][1 + c] outputs), bwd_rows 199,680, wgrad 136,192; the mip
+//    (K1-fwd's, K8-fwd's and K4's tile) and the mip forward tile 219,136
+//    (with the encodings' ring, note 9; K4's fine outputs and compositing
+//    scratch lie in device memory), bwd_rows 199,680, wgrad 136,192; the mip
 //    bwd_rows 202,752 (with a [64][16] chunk of the head's output
 //    cotangents).  The input cotangents add nothing to either bwd_rows:
 //    their A rows (dpre) and their outputs pass through the activation
@@ -122,14 +122,13 @@
 //    own, or the sines rounded to nearest even where they enter: the
 //    rounding the fragment load of note 10 applies), so each k-step's
 //    fragments are plain 32-bit loads; rows of 20 words keep the loads
-//    free of bank conflicts.  fwd_store's tile (and K1-fwd's, K8-fwd's)
-//    takes 219,136 bytes at H = 256 and K4's 223,232 at 128 fine samples,
-//    at every width, against the 232,448 a block may opt in to; a wider
+//    free of bank conflicts.  fwd_store's tile (and K1-fwd's, K8-fwd's,
+//    K4's) takes 219,136 bytes at H = 256 at every width, sample count and
+//    colour count, against the 232,448 a block may opt in to; a wider
 //    encoding only adds chunks (700 + 36: 44 + 44 + 3 chunks of 16 values
-//    beside the 144 of the hidden layers).  A classic launcher opts in to
-//    its tile's fixed bytes (tc_tile_bytes) and returns the runtime's
-//    error on a device that allows fewer; K4's union_eval_plan gives its
-//    block's bytes for its sample counts.  The mip forward tile
+//    beside the 144 of the hidden layers).  Every classic launcher, K4's
+//    too, opts in to its tile's fixed bytes (tc_tile_bytes) and returns
+//    the runtime's error on a device that allows fewer.  The mip forward tile
 //    (mip_mlp.cuh) is the same tile with the features as its one
 //    encoding, which only layer 0 reads (MipFeatLoadT), so it too takes
 //    tc_tile_bytes at every feature width.  bwd_rows' and wgrad's tiles
@@ -177,6 +176,41 @@
 //    K5-bwd at 258,048 rows and K6 at 4096 x 63 0.470 ms each; the
 //    training kernels' float32 chain (xhat and dpre, written once and read
 //    once) then bounds them by bytes instead.
+// 11. Every hidden width (classic_mlp.cuh's padded_hidden).  A width h up to
+//    256 runs the smallest instantiated tile H >= h (32, 64, 128, 256) on
+//    slabs zero-padded to H: the padded columns come out 0 after the bias,
+//    ReLU and LayerNorm in either order (their weights, bias, g and beta are
+//    0), the LayerNorm statistics and the backward's row means are taken
+//    over the first h columns (layer_epilogue, layer_bwd) and the padded
+//    dpre is 0, so the padded slots add nothing to any product and their
+//    gradients are 0, which the wrappers drop.  The cost is (H / h)^2 in
+//    products (48 -> 64: 1.78x, 200 -> 256: 1.64x).  Past 256 the tile
+//    cannot grow (the activation tile [64][516] alone is 132 KB at 512, the
+//    B chunks 256 KB; wgmma's N stops at 256), so h pads to hp, a multiple
+//    of kColBlock = 256, and runs at the template width kWideH: one block
+//    still owns 64 rows in tc_tile_bytes<256>() of shared memory, and each
+//    layer's output is computed in hp / 256 column blocks, each an
+//    m64n256 tc_gemm whose A operand streams through the ring (RowsLoadT,
+//    note 9) from the tile's rows in device memory (WideRows: the
+//    pre-LayerNorm rows `pre`, float32, and the LayerNorm'd rows `nrm` in
+//    the compute dtype, [64][hp] each, written and read by the same block:
+//    the 132 resident blocks' rows take 35 MB at 512, within the 50 MB L2,
+//    and 69 MB at 1024, past it, so there part of the round trip reaches
+//    device memory (not measured apart); the wrappers allocate a slot for each
+//    64-row tile of the call, 2.1 GB for K1-fwd's 262,144 rows at 1024,
+//    though only the resident blocks use theirs at a time); each block's
+//    product plus the bias (and ReLU) goes to pre, the row statistics over
+//    the whole width are taken from pre
+//    (wide_norm, which also writes xhat), and nrm feeds the next layer's
+//    products and the heads (head_rows).  The operand images hold each
+//    slab as hp / 256 images of 256 rows (tc_mlp.py::operand_image_blocks),
+//    so a column block is one image.  bwd_rows mirrors it (bwd_rows_wide):
+//    dh in column blocks with dpre streamed from device memory, each layer's
+//    dh written into its dpre rows and turned into dpre there
+//    (layer_bwd_wide), the heads' backward and the input cotangents over
+//    the same rows.  The training kernels keep the forward's rows in the
+//    dpre scratch (free until bwd_rows), the others in a scratch the
+//    wrapper allocates, 2 x 64 x hp floats a tile.
 //
 // The products are deterministic: a fixed order of wgmma per k-chunk, no
 // atomics; wgrad's partials go through colsum's fixed order as before.
@@ -523,6 +557,27 @@ struct EncA {
 template <class Load>
 inline constexpr bool kChunkedSums = true;
 
+// Whether a loader's float32 (3xTF32) products sum in groups of
+// kF32GroupChunks k-chunks, each group pipelined into a cleared
+// accumulator and added to the sum so far in float32 (tc_gemm): the wide
+// rows' (RowsLoadT, note 11), whose K = hp runs to 64 chunks at 1024.  The
+// tensor cores truncate as they accumulate (note 7): with one accumulator
+// K1-fwd at hidden 1024 sat past K1's 1e-4 from its plain version, 7x as
+// far from float64 sums as cuBLAS float32; in groups of 4 chunks it sits
+// at cuBLAS's distance, for a few per cent of its time (PERF.md section 6;
+// scripts/torch_wide_sums.py builds copies at other group sizes).
+template <class Load>
+inline constexpr bool kGroupedSums = false;
+constexpr int kF32GroupChunks = 4;
+
+template <class Src, bool kBf16>
+__host__ __device__ constexpr bool grouped_sums() {
+  if constexpr (kBf16 || std::is_same_v<Src, TileA>)
+    return false;
+  else
+    return kGroupedSums<typename Src::Loader>;
+}
+
 // d += A[tile rows, 0:K] @ B[0:N, 0:K]^T.  A is src: a shared tile (TileA)
 // or the encodings streamed through the ring (EncA); img is B's operand
 // image in global memory; bbuf holds tc_bbuf_floats<H>() floats for some
@@ -732,6 +787,26 @@ __device__ void tc_gemm(float (&d)[N / 4], const Src& src, int K,
 #pragma unroll
       for (int i = 0; i < N / 4; ++i) d[i] += e[i];
     }
+  } else if constexpr (grouped_sums<Src, kBf16>()) {
+    // Each group of chunks pipelined into d cleared, the sum so far kept in
+    // s and added back in float32 once the group's products are done.
+    for (int c0 = 0; c0 < chunks; c0 += kF32GroupChunks) {
+      const int c1 = min(c0 + kF32GroupChunks, chunks);
+      float s[N / 4];
+#pragma unroll
+      for (int i = 0; i < N / 4; ++i) {
+        s[i] = d[i];
+        d[i] = 0.f;
+      }
+      for (int c = c0; c < c1; c += 2) {
+        chunk(c, ahi0, alo0, ahi1, alo1);
+        if (c + 1 < c1) chunk(c + 1, ahi1, alo1, ahi0, alo0);
+      }
+      wgmma_wait0();
+      fence_regs(d);
+#pragma unroll
+      for (int i = 0; i < N / 4; ++i) d[i] += s[i];
+    }
   } else {
     for (int c = 0; c < chunks; c += 2) {
       chunk(c, ahi0, alo0, ahi1, alo1);
@@ -901,7 +976,8 @@ __device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const Load& lo
   float acc[kRowsPerWarp][H / 32];
   auto epilogue = [&](int i) {
     tc_to_rows<H>(d, act, acc);
-    layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, save, i);
+    layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, w.inv_h, w.padded,
+                             save, i);
   };
   auto enc = [&](int which, bool first) {
     return EncA<Load>{load, w, which, row0, nvalid, first, ring};
@@ -932,6 +1008,250 @@ __device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const Load& lo
 }
 
 // ---------------------------------------------------------------------------
+// Hidden widths past 256 (note 11): column blocks, the rows in device memory.
+// ---------------------------------------------------------------------------
+
+// Where a wide tile keeps its rows: tile t's pre-LayerNorm rows at pre + t
+// * stride and its LayerNorm'd rows at nrm + t * stride (floats; the
+// compute dtype's values), [64][hp] each.
+struct WideRows {
+  float* pre;
+  float* nrm;
+  size_t stride;
+};
+// A scratch of 2 x 64 x hp floats a tile as WideRows.
+__host__ inline WideRows wide_rows(float* base, int hp) {
+  const size_t rows = static_cast<size_t>(kTileRows) * hp;
+  return WideRows{base, base == nullptr ? nullptr : base + rows, 2 * rows};
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// An EncA loader over rows in device memory written by this kernel: src
+// [rows][width] (row0 counts from src), float32 or the compute dtype's.
+// Rows of the compute dtype go through stage_enc; float32 rows under kBf16
+// (dpre, bwd_rows_wide) are rounded to bfloat16 pairs as they are staged,
+// the rounding of tc_gemm's fragment loads.
+template <class T>
+struct RowsLoadT {
+  const T* src;
+  int width;
+  template <bool kBf16, class W>
+  __device__ __forceinline__ void stage(const W&, int, int c, size_t row0, int nvalid, bool,
+                                        float* slab) const {
+    if constexpr (std::is_same_v<T, enc_t<kBf16>>) {
+      stage_enc<kBf16>(slab, src, width, 1, c, row0, nvalid);
+    } else {
+      const int r = threadIdx.x >> 2, j4 = 4 * (threadIdx.x & 3);
+      const int k = c * kTcKB + 2 * j4;  // the first of the thread's 8 values
+      const T* at = src + (row0 + r) * width + k;
+      uint32_t* words = reinterpret_cast<uint32_t*>(slab + r * kEncLd + j4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kk = k + 2 * e;
+        const float lo = r < nvalid && kk < width ? at[2 * e] : 0.f;
+        const float hi = r < nvalid && kk + 1 < width ? at[2 * e + 1] : 0.f;
+        words[e] = pack_bf16x2(lo, hi);
+      }
+    }
+  }
+};
+// A wide product is long (K = hp: 512 values are 16 bf16 chunks), so its
+// bf16 chunks sum apart, each in a fresh accumulator added in float32, as
+// a long encoding product's do: the tensor cores' truncation over 32
+// k-steps moved bf16 K1-bwd's inputs' cotangents at hidden 512 to 1.45x
+// the plain version's own float64-sum distance pipelined, 1.12x chunked
+// (K8-bwd's the same; scripts/torch_bf16_sensitivity.py --family hidden).
+template <class T>
+inline constexpr bool kChunkedSums<RowsLoadT<T>> = true;
+template <class T>
+inline constexpr bool kGroupedSums<RowsLoadT<T>> = true;
+
+// Column block cb of a wide product, d (tc_gemm<kColBlock>'s fragments),
+// through act to dst's columns cb * 256 .. (row stride hp) for the tile's
+// valid rows: plus the bias b where given, then ReLU where kRelu.  Called by
+// the whole block; ends with a block-wide barrier.
+template <bool kRelu>
+__device__ void wide_store_block(const float (&d)[kColBlock / 4], float* act, float* dst, int hp,
+                                 int cb, const float* __restrict__ b, int nvalid) {
+  constexpr int ld = act_ld<kColBlock>();
+  tc_to_act<kColBlock>(d, act, ld);
+  for (int i = threadIdx.x; i < nvalid * kColBlock; i += kThreads) {
+    const int r = i / kColBlock, c = i - r * kColBlock;
+    float v = act[r * ld + c];
+    if (b != nullptr) v += __ldg(b + cb * kColBlock + c);
+    dst[static_cast<size_t>(r) * hp + cb * kColBlock + c] = kRelu ? fmaxf(v, 0.f) : v;
+  }
+  __syncthreads();
+}
+
+// A wide layer's LayerNorm (layer_epilogue over rows in device memory):
+// each valid row of pre [64][hp], its two-pass statistics over the first h
+// columns, nrm = xhat * g + beta (then ReLU where kLnFirst, the mip order)
+// in the compute dtype; with kSave also layer `layer`'s xhat and
+// statistics.  One warp a row; ends with a block-wide barrier.
+template <bool kSave, bool kLnFirst, class T>
+__device__ void wide_norm(const float* pre, T* nrm, int hp, int h, float inv_h, int nvalid,
+                          const float* __restrict__ g, const float* __restrict__ beta,
+                          const Save* save, int layer) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < nvalid; r += kWarps) {
+    const float* row = pre + static_cast<size_t>(r) * hp;
+    float s = 0.f;
+    for (int k = lane; k < h; k += 32) s += row[k];
+    const float mu = warp_sum(s) * inv_h;
+    float q = 0.f;
+    for (int k = lane; k < h; k += 32) {
+      const float dv = row[k] - mu;
+      q = fmaf(dv, dv, q);
+    }
+    const float inv = rsqrtf(warp_sum(q) * inv_h + kLnEps);
+    T* out = nrm + static_cast<size_t>(r) * hp;
+    float* xh = nullptr;
+    if constexpr (kSave) {
+      const size_t at = static_cast<size_t>(layer) * save->P + save->row0 + r;
+      xh = save->xhat + at * hp;
+      if (lane == 0) {
+        save->stats[2 * at] = inv;
+        save->stats[2 * at + 1] = (0.f - mu) * inv;
+      }
+    }
+    for (int k = lane; k < hp; k += 32) {
+      const float x = (row[k] - mu) * inv;
+      if constexpr (kSave) xh[k] = x;
+      const float y = x * __ldg(g + k) + __ldg(beta + k);
+      from_f32(out + k, kLnFirst ? fmaxf(y, 0.f) : y);
+    }
+  }
+  __syncthreads();
+}
+
+// head over rows in device memory: out[row * ld + col0 + i] = nrm[row] .
+// W[:, i] + bias[i] for i < n and the tile's valid rows, W row-major [hp,
+// n]; kBf16 rounds h and W (head<H, true>).  A head of at most kFewOutputs
+// (the classic density and colours): one warp a row, the lanes over k, as
+// head<H> sums.  A wider one (the mip head): the rows staged through act
+// ([64][act_ld<kColBlock>()]) a kColBlock-column block at a time and W
+// through wbuf a [64][64] chunk at a time, each lane two outputs of a
+// 64-output block, as head_wide sums, so W is read once a tile and block.
+// Called by the whole block (act and wbuf free); ends with a barrier.
+constexpr int kFewOutputs = 8;
+template <bool kBf16, class T>
+__device__ void head_rows(const T* nrm, int hp, float* act, float* wbuf,
+                          const float* __restrict__ W, const float* __restrict__ bias, int n,
+                          float* out, int ld, int col0, int nvalid) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (n <= kFewOutputs) {
+    for (int r = warp; r < nvalid; r += kWarps) {
+      const T* row = nrm + static_cast<size_t>(r) * hp;
+      for (int i = 0; i < n; ++i) {
+        float s = 0.f;
+        for (int k = lane; k < hp; k += 32)
+          s = fmaf(operand<kBf16>(to_f32(row[k])),
+                   operand<kBf16>(__ldg(W + static_cast<size_t>(k) * n + i)), s);
+        s = warp_sum(s);
+        if (lane == 0) out[r * ld + col0 + i] = s + __ldg(bias + i);
+      }
+    }
+    __syncthreads();
+    return;
+  }
+  constexpr int LD = act_ld<kColBlock>();
+  const float* a_rows = act + warp * kRowsPerWarp * LD;
+  for (int c0 = 0; c0 < n; c0 += 64) {
+    float acc[kRowsPerWarp][2];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) acc[r][0] = acc[r][1] = 0.f;
+    for (int kb = 0; kb < hp; kb += kColBlock) {
+      __syncthreads();  // act's last readers are done
+      for (int i = threadIdx.x; i < kTileRows * kColBlock; i += kThreads) {
+        const int r = i / kColBlock, c = i - r * kColBlock;
+        act[r * LD + c] =
+            r < nvalid ? operand<kBf16>(to_f32(nrm[static_cast<size_t>(r) * hp + kb + c])) : 0.f;
+      }
+      for (int k0 = 0; k0 < kColBlock; k0 += 64) {
+        __syncthreads();  // the chunk before is consumed (and act staged)
+        for (int i = threadIdx.x; i < 64 * 64; i += kThreads) {
+          const int c = c0 + (i & 63);
+          wbuf[i] = c < n ? operand<kBf16>(__ldg(W + static_cast<size_t>(kb + k0 + (i >> 6)) * n + c))
+                          : 0.f;
+        }
+        __syncthreads();
+        for (int kk = 0; kk < 64; kk += 4) {
+          float4 a[kRowsPerWarp];
+#pragma unroll
+          for (int r = 0; r < kRowsPerWarp; ++r)
+            a[r] = *reinterpret_cast<const float4*>(a_rows + r * LD + k0 + kk);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float wa = wbuf[(kk + q) * 64 + lane], wb = wbuf[(kk + q) * 64 + 32 + lane];
+#pragma unroll
+            for (int r = 0; r < kRowsPerWarp; ++r) {
+              const float av = q == 0 ? a[r].x : q == 1 ? a[r].y : q == 2 ? a[r].z : a[r].w;
+              acc[r][0] = fmaf(av, wa, acc[r][0]);
+              acc[r][1] = fmaf(av, wb, acc[r][1]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int row = warp * kRowsPerWarp + r;
+      if (row >= nvalid) continue;
+      if (c0 + lane < n) out[row * ld + col0 + c0 + lane] = acc[r][0] + __ldg(bias + c0 + lane);
+      if (c0 + 32 + lane < n)
+        out[row * ld + col0 + c0 + 32 + lane] = acc[r][1] + __ldg(bias + c0 + 32 + lane);
+    }
+  }
+  __syncthreads();
+}
+
+// mlp_tile_tc past 256 (note 11): the same network on one 64-row tile in
+// hp / 256 column blocks a layer, the tile's rows in `rows` (tile 0 of a
+// WideRows).  Each block's product streams its A operand through the ring:
+// the encodings (EncA on `load`; `first` on the first column block only) or
+// the previous layer's nrm rows (RowsLoadT).
+template <bool kSave, bool kBf16, class Load>
+__device__ void mlp_tile_wide(const Weights& w, const TcImages& im, const Load& load, size_t row0,
+                              int nvalid, float* act, float* ring, float* bbuf, float* out,
+                              int ld, const Save* save, float* pre, float* nrm_f) {
+  using T = enc_t<kBf16>;
+  constexpr int B = kColBlock;
+  T* nrm = reinterpret_cast<T*>(nrm_f);
+  const int hp = w.hp, nb = hp / B, L = num_layers(w);
+  const size_t blk_x = tc_image_floats<kBf16>(B, w.xe), blk_d = tc_image_floats<kBf16>(B, w.de);
+  const size_t blk_h = tc_image_floats<kBf16>(B, hp), slab = tc_image_floats<kBf16>(hp, hp);
+  const RowsLoadT<T> rows{nrm, hp};
+  const EncA<RowsLoadT<T>> prev{rows, w, 0, 0, nvalid, false, ring};
+  float d[B / 4];
+  for (int i = 0; i < L; ++i) {
+    for (int cb = 0; cb < nb; ++cb) {
+      tc_zero<B>(d);
+      if (i == 0)
+        tc_gemm<B, kBf16>(d, EncA<Load>{load, w, 0, row0, nvalid, cb == 0, ring}, w.xe,
+                          im.w0 + cb * blk_x, bbuf);
+      else
+        tc_gemm<B, kBf16>(d, prev, hp, im.whh + (i - 1) * slab + cb * blk_h, bbuf);
+      if (i == 4)
+        tc_gemm<B, kBf16>(d, EncA<Load>{load, w, 0, row0, nvalid, false, ring}, w.xe,
+                          im.wx + cb * blk_x, bbuf);
+      if (i == 8)
+        tc_gemm<B, kBf16>(d, EncA<Load>{load, w, 1, row0, nvalid, cb == 0, ring}, w.de,
+                          im.wd + cb * blk_d, bbuf);
+      wide_store_block<true>(d, act, pre, hp, cb, w.b + i * hp, nvalid);
+    }
+    wide_norm<kSave, false>(pre, nrm, hp, w.h, w.inv_h, nvalid, w.g + i * hp, w.beta + i * hp,
+                            save, i);
+    if (i == 7) head_rows<kBf16>(nrm, hp, act, bbuf, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
+  }
+  head_rows<kBf16>(nrm, hp, act, bbuf, w.w_col, w.b_col, w.c, out, ld, 1, nvalid);
+}
+
+// ---------------------------------------------------------------------------
 // Pass 1: the stored-chain forward of the P rows of a call.
 // ---------------------------------------------------------------------------
 
@@ -940,34 +1260,49 @@ __device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const Load& lo
 // P but where two calls fill one chain, as K9's coarse and fine stages
 // do).  `load` stages the tile's encodings (EncA): TileLoad reads them
 // from global memory, the K8 and K9 loaders (encode.cuh) compute them.
+// wide: the rows of a width past 256 (note 11), unused below it.
 template <int H, class Load, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_store_tc_kernel(Weights w, TcImages im, Load load, float* __restrict__ out, int P,
-                        float* xhat, float* stats, size_t stride, size_t base) {
+                        float* xhat, float* stats, size_t stride, size_t base, WideRows wide) {
+  constexpr int HT = col_width<H>();
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);
-  float* act = bbuf + tc_bbuf_floats<H>();
-  float* ring = act + kTileRows * act_ld<H>();
+  float* act = bbuf + tc_bbuf_floats<HT>();
+  float* ring = act + kTileRows * act_ld<HT>();
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
   const Save save{xhat, stats, stride, base + row0, nvalid};
-  mlp_tile_tc<H, true, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf,
-                              out + row0 * (1 + w.c), 1 + w.c, &save);
+  if constexpr (H > kColBlock)
+    mlp_tile_wide<true, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf, out + row0 * (1 + w.c),
+                               1 + w.c, &save, wide.pre + blockIdx.x * wide.stride,
+                               wide.nrm + blockIdx.x * wide.stride);
+  else
+    mlp_tile_tc<H, true, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf,
+                                out + row0 * (1 + w.c), 1 + w.c, &save);
 }
 
 // The forward alone (K1-fwd, K8-fwd): the tile of fwd_store_tc_kernel,
 // nothing saved.  `load` as in fwd_store_tc_kernel.
 template <int H, class Load, bool kBf16 = false>
 __global__ void __launch_bounds__(kThreads, 1)
-    fwd_tc_kernel(Weights w, TcImages im, Load load, float* __restrict__ out, int P) {
+    fwd_tc_kernel(Weights w, TcImages im, Load load, float* __restrict__ out, int P,
+                  WideRows wide) {
+  constexpr int HT = col_width<H>();
   extern __shared__ float4 smem4[];
   float* bbuf = tc_smem_base(smem4);
-  float* act = bbuf + tc_bbuf_floats<H>();
-  float* ring = act + kTileRows * act_ld<H>();
+  float* act = bbuf + tc_bbuf_floats<HT>();
+  float* ring = act + kTileRows * act_ld<HT>();
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  mlp_tile_tc<H, false, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf,
-                               out + row0 * (1 + w.c), 1 + w.c);
+  if constexpr (H > kColBlock)
+    mlp_tile_wide<false, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf,
+                                out + row0 * (1 + w.c), 1 + w.c, nullptr,
+                                wide.pre + blockIdx.x * wide.stride,
+                                wide.nrm + blockIdx.x * wide.stride);
+  else
+    mlp_tile_tc<H, false, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf,
+                                 out + row0 * (1 + w.c), 1 + w.c);
 }
 
 // ---------------------------------------------------------------------------
@@ -1050,12 +1385,226 @@ __device__ void tc_input_grad(float* act, float* bbuf, const float* dpre, size_t
   }
 }
 
+// Bytes of bwd_rows_tc_kernel: the B chunks, the activation tile, the
+// output cotangents [64][1 + c] and the alignment slack; past 256 (note 11)
+// also the ring that streams dpre.
 template <int H>
 __host__ inline size_t bwd_rows_tc_smem(const Weights& w) {
-  return (static_cast<size_t>(tc_bbuf_floats<H>()) + static_cast<size_t>(kTileRows) * act_ld<H>() +
-          static_cast<size_t>(kTileRows) * (1 + w.c)) *
+  constexpr int HT = col_width<H>();
+  return (static_cast<size_t>(tc_bbuf_floats<HT>()) + static_cast<size_t>(kTileRows) * act_ld<HT>() +
+          (H > kColBlock ? kEncRingFloats : 0) + static_cast<size_t>(kTileRows) * (1 + w.c)) *
              sizeof(float) +
          kSmemAlign;
+}
+
+// The tile's rows of dpre layer `layer` ([L][P][hp]) from row0.
+__device__ __forceinline__ float* dpre_rows(float* dpre, int layer, size_t P, size_t row0, int hp) {
+  return dpre + (static_cast<size_t>(layer) * P + row0) * hp;
+}
+
+// head_bwd over rows in device memory (note 11): dh [64][hp] (+ where
+// accumulate) = gs[:, col0:col0+n] @ W^T for the tile's valid rows, and
+// the tile's column sums of h * gs (the head's dW) into part[k * n + q],
+// h = xhat * g + beta; kBf16 rounds h, W and gs.  A thread a column, its
+// 64 rows in registers (h, then dh), each weight read once; gs's rows past
+// nvalid are 0.  Ends with a block-wide barrier.
+template <bool kBf16>
+__device__ void head_bwd_rows(const float* gs, int ldo, int col0, int n,
+                              const float* __restrict__ W, const float* xh,
+                              const float* __restrict__ g, const float* __restrict__ beta,
+                              int hp, int nvalid, float* part, float* dh, bool accumulate) {
+  for (int k = threadIdx.x; k < hp; k += kThreads) {
+    const float gk = __ldg(g + k), bk = __ldg(beta + k);
+    float v[kTileRows];
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r)
+      v[r] = r < nvalid ? operand<kBf16>(fmaf(xh[static_cast<size_t>(r) * hp + k], gk, bk)) : 0.f;
+    for (int q = 0; q < n; ++q) {
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < kTileRows; ++r) s = fmaf(v[r], operand<kBf16>(gs[r * ldo + col0 + q]), s);
+      part[static_cast<size_t>(k) * n + q] = s;
+    }
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r)
+      v[r] = accumulate && r < nvalid ? dh[static_cast<size_t>(r) * hp + k] : 0.f;
+    for (int q = 0; q < n; ++q) {
+      const float wq = operand<kBf16>(__ldg(W + static_cast<size_t>(k) * n + q));
+#pragma unroll
+      for (int r = 0; r < kTileRows; ++r)
+        v[r] = fmaf(operand<kBf16>(gs[r * ldo + col0 + q]), wq, v[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < kTileRows; ++r)
+      if (r < nvalid) dh[static_cast<size_t>(r) * hp + k] = v[r];
+  }
+  __syncthreads();
+}
+
+// layer_bwd over rows in device memory (note 11): rows [64][hp] holds the
+// tile's dL/dh_i (valid rows) on entry and dL/dpre_i on exit, in place;
+// the row means over the first h columns, the padded columns' dpre 0, the
+// tile's column sums of dpre, dy * xhat and dy to part_b, part_g,
+// part_beta (dy = dh, masked on xhat * g + beta > 0 where kLnFirst).
+// Called by the whole block after rows is written; ends with a barrier.
+template <bool kLnFirst>
+__device__ void layer_bwd_wide(float* rows, int i, const float* __restrict__ g,
+                               const float* __restrict__ beta, int h, float inv_h, int hp,
+                               size_t P, size_t row0, int nvalid, const float* xhat,
+                               const float* stats, float* part_b, float* part_g,
+                               float* part_beta) {
+  const float* xh = xhat + (static_cast<size_t>(i) * P + row0) * hp;
+  auto dy = [&](size_t at, float gk, float bk) {
+    return kLnFirst && !(fmaf(xh[at], gk, bk) > 0.f) ? 0.f : rows[at];
+  };
+  for (int k = threadIdx.x; k < hp; k += kThreads) {  // a column each
+    const float gk = __ldg(g + k), bk = __ldg(beta + k);
+    float sg = 0.f, sb = 0.f;
+    for (int r = 0; r < nvalid; ++r) {
+      const size_t at = static_cast<size_t>(r) * hp + k;
+      const float v = dy(at, gk, bk);
+      sb += v;
+      sg = fmaf(v, xh[at], sg);
+    }
+    part_g[static_cast<size_t>(i) * hp + k] = sg;
+    part_beta[static_cast<size_t>(i) * hp + k] = sb;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < nvalid; r += kWarps) {  // a warp a row
+    const float2 st = reinterpret_cast<const float2*>(stats)[static_cast<size_t>(i) * P + row0 + r];
+    const size_t at0 = static_cast<size_t>(r) * hp;
+    float m1 = 0.f, m2 = 0.f;
+    for (int k = lane; k < h; k += 32) {
+      const float dxh = dy(at0 + k, __ldg(g + k), __ldg(beta + k)) * __ldg(g + k);
+      m1 += dxh;
+      m2 = fmaf(dxh, xh[at0 + k], m2);
+    }
+    m1 = warp_sum(m1) * inv_h;
+    m2 = warp_sum(m2) * inv_h;
+    for (int k = lane; k < hp; k += 32) {
+      const float x = xh[at0 + k];
+      const float dxh = dy(at0 + k, __ldg(g + k), __ldg(beta + k)) * __ldg(g + k);
+      rows[at0 + k] = k < h && (kLnFirst || x > st.y) ? st.x * (dxh - m1 - x * m2) : 0.f;
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < hp; k += kThreads) {
+    float sb = 0.f;
+    for (int r = 0; r < nvalid; ++r) sb += rows[static_cast<size_t>(r) * hp + k];
+    part_b[static_cast<size_t>(i) * hp + k] = sb;
+  }
+  __syncthreads();
+}
+
+// dh = dpre_i @ W^T of a wide layer into dst's rows, in column blocks: A
+// (the tile's dpre rows of layer i, float32) streams through the ring,
+// img the slab's backward image (hp / 256 images of 256 rows).
+template <bool kBf16, class W>
+__device__ void wide_dh(const W& w, const float* src, float* dst, int hp, int nvalid,
+                        const float* img, float* act, float* ring, float* bbuf) {
+  constexpr int B = kColBlock;
+  const RowsLoadT<float> rows{src, hp};
+  const EncA<RowsLoadT<float>, W> a{rows, w, 0, 0, nvalid, false, ring};
+  const size_t blk = tc_image_floats<kBf16>(B, hp);
+  float d[B / 4];
+  for (int cb = 0; cb < hp / B; ++cb) {
+    tc_zero<B>(d);
+    tc_gemm<B, kBf16>(d, a, hp, img + cb * blk, bbuf);
+    wide_store_block<false>(d, act, dst, hp, cb, nullptr, nvalid);
+  }
+}
+
+// tc_input_grad past 256 (note 11): the dpre rows stream through the ring
+// from device memory instead of the activation tile; passes of kTcInPad
+// columns.
+template <bool kBf16, class OutT, class W>
+__device__ void tc_input_grad_wide(const W& w, float* act, float* ring, float* bbuf,
+                                   const float* dpre, size_t P, size_t row0, int nvalid, int hp,
+                                   int la, const float* img_a, int lb, const float* img_b, int n,
+                                   void* __restrict__ out) {
+  constexpr int NT = kTcInPad, ld = act_ld<kColBlock>();
+  const size_t kPass = tc_image_floats<kBf16>(NT, hp);
+  auto src = [&](int layer) {
+    return RowsLoadT<float>{dpre + (static_cast<size_t>(layer) * P + row0) * hp, hp};
+  };
+  const RowsLoadT<float> ra = src(la), rb = src(lb < 0 ? la : lb);
+  float d[NT / 4];
+  for (int c0 = 0; c0 < n; c0 += NT) {
+    const size_t at = static_cast<size_t>(c0 / NT) * kPass;
+    __syncthreads();  // act is free: its last readers are done
+    tc_zero<NT>(d);
+    tc_gemm<NT, kBf16>(d, EncA<RowsLoadT<float>, W>{ra, w, 0, 0, nvalid, false, ring}, hp,
+                       img_a + at, bbuf);
+    if (img_b != nullptr)
+      tc_gemm<NT, kBf16>(d, EncA<RowsLoadT<float>, W>{rb, w, 0, 0, nvalid, false, ring}, hp,
+                         img_b + at, bbuf);
+    tc_to_act<NT>(d, act, ld);
+    const int cols = min(NT, n - c0);
+    for (int i = threadIdx.x; i < nvalid * cols; i += kThreads) {
+      const int r = i / cols, c = i - r * cols;
+      const size_t o = (row0 + r) * n + c0 + c;
+      if constexpr (std::is_same_v<OutT, __nv_bfloat16>)
+        static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(act[r * ld + c]);
+      else
+        static_cast<float*>(out)[o] = act[r * ld + c];
+    }
+  }
+}
+
+// bwd_rows_tc_kernel past 256 (note 11): each layer's dh goes to the
+// tile's rows of its dpre, where layer_bwd_wide turns it into dpre.
+template <bool kBf16, class InGradT>
+__device__ void bwd_rows_wide(const Weights& w, const float* __restrict__ gout, int P,
+                              const float* xhat, const float* stats, const float* __restrict__ bwd,
+                              float* dpre, float* tpart, void* dx, void* dd, float* bbuf,
+                              float* act, float* ring, float* gs) {
+  const int L = num_layers(w), last = L - 1, ldo = 1 + w.c, hp = w.hp;
+  const size_t slab = tc_image_floats<kBf16>(hp, hp), PP = static_cast<size_t>(P);
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
+  const int nvalid = min(kTileRows, P - static_cast<int>(row0));
+  float* part = tpart + blockIdx.x * tile_floats(w, hp);
+  float* p_b = part;
+  float* p_g = p_b + L * hp;
+  float* p_beta = p_g + L * hp;
+  float* p_wdens = p_beta + L * hp;
+  float* p_wcol = p_wdens + hp;
+  float* p_bdens = p_wcol + static_cast<size_t>(hp) * w.c;
+  float* p_bcol = p_bdens + 1;
+
+  for (int i = threadIdx.x; i < kTileRows * ldo; i += kThreads)
+    gs[i] = i / ldo < nvalid ? gout[row0 * ldo + i] : 0.f;
+  __syncthreads();
+  if (threadIdx.x < ldo) {
+    float s = 0.f;
+    for (int r = 0; r < kTileRows; ++r) s += gs[r * ldo + threadIdx.x];
+    if (threadIdx.x == 0) *p_bdens = s; else p_bcol[threadIdx.x - 1] = s;
+  }
+  auto rows = [&](int layer) { return dpre_rows(dpre, layer, PP, row0, hp); };
+  auto xh_of = [&](int layer) { return xhat + (layer * PP + row0) * hp; };
+  head_bwd_rows<kBf16>(gs, ldo, 1, w.c, w.w_col, xh_of(last), w.g + last * hp,
+                       w.beta + last * hp, hp, nvalid, p_wcol, rows(last), false);
+  if (w.wd == nullptr)
+    head_bwd_rows<kBf16>(gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * hp, w.beta + 7 * hp, hp,
+                         nvalid, p_wdens, rows(7), true);
+  for (int i = last; i >= 0; --i) {
+    layer_bwd_wide<false>(rows(i), i, w.g + i * hp, w.beta + i * hp, w.h, w.inv_h, hp, PP, row0,
+                          nvalid, xhat, stats, p_b, p_g, p_beta);
+    if (i == 0) break;
+    wide_dh<kBf16>(w, rows(i), rows(i - 1), hp, nvalid, bwd + (i - 1) * slab, act, ring, bbuf);
+    if (i == 8)
+      head_bwd_rows<kBf16>(gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * hp, w.beta + 7 * hp, hp,
+                           nvalid, p_wdens, rows(7), true);
+  }
+  const float* img_w0 = tc_input_images<kBf16>(bwd, L - 1, hp);
+  const float* img_wx = img_w0 + tc_input_image_floats<kBf16>(w.xe, hp);
+  const float* img_wd = img_wx + tc_input_image_floats<kBf16>(w.xe, hp);
+  if (dx != nullptr)
+    tc_input_grad_wide<kBf16, InGradT>(w, act, ring, bbuf, dpre, PP, row0, nvalid, hp, 0, img_w0,
+                                       4, img_wx, w.xe, dx);
+  if (dd != nullptr)
+    tc_input_grad_wide<kBf16, InGradT>(w, act, ring, bbuf, dpre, PP, row0, nvalid, hp, 8, img_wd,
+                                       -1, nullptr, w.de, dd);
 }
 
 // bwd is the backward operand images: the hidden slabs' (the packed
@@ -1069,6 +1618,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                        const float* stats, const float* __restrict__ bwd, float* dpre,
                        float* tpart, void* dx, void* dd) {
   extern __shared__ float4 smem4[];
+  if constexpr (H > kColBlock) {
+    float* bbuf = tc_smem_base(smem4);
+    float* act = bbuf + tc_bbuf_floats<kColBlock>();
+    float* ring = act + kTileRows * act_ld<kColBlock>();
+    bwd_rows_wide<kBf16, InGradT>(w, gout, P, xhat, stats, bwd, dpre, tpart, dx, dd, bbuf, act,
+                                  ring, ring + kEncRingFloats);
+  } else {
   float* bbuf = tc_smem_base(smem4);  // B chunks, or colsum scratch
   float* act = bbuf + tc_bbuf_floats<H>();        // dpre of the current layer
   float* gs = act + kTileRows * act_ld<H>();      // [64][1 + c] output cotangents
@@ -1104,8 +1660,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     head_bwd<H, kBf16>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H,
                        nvalid, p_wdens, bbuf);
   for (int i = last; i >= 0; --i) {
-    layer_bwd<H>(acc, i, w.g + i * H, w.beta + i * H, PP, row0, nvalid, xhat, stats, dpre, p_b,
-                 p_g, p_beta, bbuf);
+    layer_bwd<H>(acc, i, w.g + i * H, w.beta + i * H, w.h, w.inv_h, PP, row0, nvalid, xhat,
+                 stats, dpre, p_b, p_g, p_beta, bbuf);
     if (i == 0) break;
     tc_store_rows<H>(acc, act);
     tc_zero<H>(d);
@@ -1126,6 +1682,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (dd != nullptr)
     tc_input_grad<H, kBf16, InGradT>(act, bbuf, dpre, PP, row0, nvalid, 8, img_wd, -1, nullptr,
                                      w.de, dd);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1455,53 +2012,22 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-// ---------------------------------------------------------------------------
-// The plans (note 9).
-// ---------------------------------------------------------------------------
-
-// The tile a plan picks (K4's block for its sample counts); the values are
-// the plan's codes.
-enum TilePolicy { kTileTc = 0, kTileNone = 1 };
-
-// The shared memory a block of the current device may opt in to.
-__host__ inline cudaError_t smem_optin_limit(size_t* limit) {
-  int dev = 0, bytes = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  *limit = static_cast<size_t>(bytes);
-  return err;
-}
-
-// A tile's plan: its tensor-core tile where it fits, else none; out =
-// [policy, bytes, limit].
-__host__ inline cudaError_t tc_plan(size_t tc_bytes, TilePolicy* policy, long long* out) {
-  size_t limit = 0;
-  const cudaError_t err = smem_optin_limit(&limit);
-  if (err != cudaSuccess) return err;
-  *policy = tc_bytes <= limit ? kTileTc : kTileNone;
-  if (out != nullptr) {
-    out[0] = *policy;
-    out[1] = static_cast<long long>(tc_bytes);
-    out[2] = static_cast<long long>(limit);
-  }
-  return cudaSuccess;
-}
-
 // The forward alone over P rows (K1-fwd, K8-fwd): fwd_tc_kernel on the
 // forward images tc_fwd.
+// wide: past 256 (note 11) the scratch of 2 x 64 x hp floats a tile
+// (wide_rows), else unused.
 template <int H, class Load, bool kBf16 = false>
 cudaError_t launch_fwd(const Weights& w, const Load& load, float* out, int P,
-                       const float* tc_fwd, cudaStream_t stream) {
-  if (tc_fwd == nullptr) return cudaErrorInvalidValue;
-  constexpr size_t smem = tc_tile_bytes<H>();
+                       const float* tc_fwd, float* wide, cudaStream_t stream) {
+  if (tc_fwd == nullptr || (H > kColBlock && wide == nullptr)) return cudaErrorInvalidValue;
+  constexpr size_t smem = tc_tile_bytes<col_width<H>()>();
   cudaError_t err = cudaFuncSetAttribute(fwd_tc_kernel<H, Load, kBf16>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = (P + kTileRows - 1) / kTileRows;
   fwd_tc_kernel<H, Load, kBf16><<<blocks, kThreads, smem, stream>>>(
-      w, TcImages::forward<kBf16>(w, tc_fwd, H), load, out, P);
+      w, TcImages::forward<kBf16>(w, tc_fwd, w.hp), load, out, P, wide_rows(wide, w.hp));
   return cudaGetLastError();
 }
 
@@ -1525,15 +2051,19 @@ struct TcProductsT {
                                const Scratch& s, cudaStream_t stream, size_t stride,
                                size_t base) {
     if (s.tc_fwd == nullptr) return cudaErrorInvalidValue;
-    constexpr size_t smem = tc_tile_bytes<H>();
+    constexpr size_t smem = tc_tile_bytes<col_width<H>()>();
     cudaError_t err = cudaFuncSetAttribute(fwd_store_tc_kernel<H, Load, kBf16>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
+    // Past 256 the tiles keep their rows in dpre (layers 0 and 1 of the
+    // chain's rows), which bwd_rows writes only later.
+    const size_t hp = w.hp;
+    const WideRows wide{s.dpre + base * hp, s.dpre + (stride + base) * hp, kTileRows * hp};
     fwd_store_tc_kernel<H, Load, kBf16><<<tiles, kThreads, smem, stream>>>(
-        w, TcImages::forward<kBf16>(w, s.tc_fwd, H), load, out, P, s.xhat, s.stats, stride,
-        base);
+        w, TcImages::forward<kBf16>(w, s.tc_fwd, w.hp), load, out, P, s.xhat, s.stats, stride,
+        base, wide);
     return cudaGetLastError();
   }
 

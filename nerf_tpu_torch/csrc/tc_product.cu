@@ -68,9 +68,14 @@ template <bool kBf16>
 int linear_at(const float* a, const float* img, float* out, int P, int K, int hidden,
               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) static_cast<int>(linear<H, kBf16>(a, P, K, img, out, st))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
-#undef NERF_LAUNCH
+  // The product at one instantiated width exactly (no padding here).
+  switch (hidden) {
+    case 32: return static_cast<int>(linear<32, kBf16>(a, P, K, img, out, st));
+    case 64: return static_cast<int>(linear<64, kBf16>(a, P, K, img, out, st));
+    case 128: return static_cast<int>(linear<128, kBf16>(a, P, K, img, out, st));
+    case 256: return static_cast<int>(linear<256, kBf16>(a, P, K, img, out, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <bool kBf16>

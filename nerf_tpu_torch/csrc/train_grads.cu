@@ -107,9 +107,10 @@ int entry(const void* x, const void* d, const float* dists, const float* noise,
           const float* b_col, float* xhat, float* stats, float* dpre, float* wpart,
           float* tpart, float* tmp, float* out, float* gout, float* ray_loss,
           int splits, const void* tc_fwd, const void* tc_bwd, void* stream) {
-  if (c > kMaxColors || c < 1) return cudaErrorInvalidValue;
-  const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
-                  xe, wd ? de : 0, c};
+  if (c < 1) return cudaErrorInvalidValue;
+  const Weights w = sized(Weights{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
+                                  xe, wd ? de : 0, c},
+                          hidden);
   const Scratch s{xhat,   stats, dpre, wpart, tpart, tmp, splits,
                   static_cast<const float*>(tc_fwd), static_cast<const float*>(tc_bwd)};
   const float g_scale = loss_weight * 2.f / (static_cast<float>(c) * R);

@@ -22,11 +22,11 @@
 // tc_mlp.cuh: the weights as operand images the wrapper builds once per
 // call, streamed in chunks of 16 k-values, and the encodings streamed
 // beside them one chunk at a time through a ring; the epilogues and heads
-// in float32 SIMT), and keeps only [density, color logits] per fine row in
-// shared memory: 223,232 bytes a block at H = 256 and 128 fine samples,
-// the 1024-byte alignment of the swizzled weight chunks included (one
-// block an SM), at every encoding width (a latent-conditioned model's
-// wider encodings only take more chunks; tc_mlp.cuh, note 9).  Then one
+// in float32 SIMT), and writes [density, color logits] per fine row to
+// device memory (fout, L2-resident at a tile's sizes): the block takes
+// tc_tile_bytes, 219,136 bytes at H = 256 (one block an SM), at every
+// encoding width, sample count and colour count (tc_mlp.cuh, note 9; past
+// hidden 256 note 11's column blocks, in tc_tile_bytes<256>).  Then one
 // warp per ray:
 //   1. merges the sorted coarse and fine t lists by rank (binary search in
 //      the other list; a coarse sample tied with a fine one comes first);
@@ -34,9 +34,10 @@
 //      with the 1e10 far pad on the last, and alpha = exp(-relu(sigma) dist);
 //   3. runs the exclusive sum of log(alpha + 1e-10) in merged order in fp32
 //      (each lane sums a contiguous run, a warp scan joins the runs), and
-//      accumulates w = (1 - alpha) exp(prefix) into rgb, depth and acc.
-// The activation tile of the MLP phase is reused as the compositing
-// scratch (4 arrays of Sc + Sf per warp).
+//      accumulates w = (1 - alpha) exp(prefix) into rgb (kColorChunk colours
+//      at a time), depth and acc.
+// The compositing's scratch (4 arrays of Sc + Sf a ray) lies in device
+// memory, so every sample count runs.
 //
 // union_eval_bf16 is the same kernel in compute_dtype bfloat16 (tc_mlp.cuh,
 // note 10): bf16 fine and per-ray view encodings (the view row broadcast in
@@ -53,7 +54,7 @@ namespace {
 using namespace nerf_mlp;
 
 // Composite one ray with the calling warp; fo is the ray's [Sf][1 + c]
-// block of fine MLP outputs, scratch is this warp's 4 (Sc + Sf) floats.
+// block of fine MLP outputs, scratch the ray's 4 (Sc + Sf) floats.
 __device__ void composite_ray(int ray, int Sc, int Sf, int c,
                               const float* __restrict__ t_c, const float* __restrict__ t_f,
                               const float* __restrict__ dens_c,
@@ -114,30 +115,40 @@ __device__ void composite_ray(int ray, int Sc, int Sf, int c,
   float prefix = __shfl_up_sync(kFull, incl, 1);
   if (lane == 0) prefix = 0.f;
 
-  float rgb[kMaxColors];
-#pragma unroll
-  for (int ch = 0; ch < kMaxColors; ++ch) rgb[ch] = 0.f;
+  // The colours a chunk of kColorChunk at a time, each chunk walking the
+  // lane's run again from its prefix; the first also sums depth and acc.
+  const float prefix0 = prefix;
   float depth = 0.f, acc = 0.f;
-  for (int p = begin; p < end; ++p) {
-    const float wgt = om[p] * expf(prefix);
-    prefix += la[p];
-    const int s = src[p];
-    const float* logits = s < Sc ? col_c + (static_cast<size_t>(ray) * Sc + s) * c
-                                 : fo + (s - Sc) * ld + 1;
-#pragma unroll
-    for (int ch = 0; ch < kMaxColors; ++ch)
-      if (ch < c) rgb[ch] = fmaf(wgt, sigmoid(logits[ch]), rgb[ch]);
-    depth = fmaf(wgt, mt[p], depth);
-    acc += wgt;
-  }
   float* o = out + static_cast<size_t>(ray) * (c + 2);
+  int ch0 = 0;
+  do {
+    float rgb[kColorChunk];
 #pragma unroll
-  for (int ch = 0; ch < kMaxColors; ++ch) {
-    if (ch < c) {
-      const float v = warp_sum(rgb[ch]);
-      if (lane == 0) o[ch] = v;
+    for (int ch = 0; ch < kColorChunk; ++ch) rgb[ch] = 0.f;
+    prefix = prefix0;
+    for (int p = begin; p < end; ++p) {
+      const float wgt = om[p] * expf(prefix);
+      prefix += la[p];
+      const int s = src[p];
+      const float* logits = s < Sc ? col_c + (static_cast<size_t>(ray) * Sc + s) * c
+                                   : fo + (s - Sc) * ld + 1;
+#pragma unroll
+      for (int ch = 0; ch < kColorChunk; ++ch)
+        if (ch0 + ch < c) rgb[ch] = fmaf(wgt, sigmoid(logits[ch0 + ch]), rgb[ch]);
+      if (ch0 == 0) {
+        depth = fmaf(wgt, mt[p], depth);
+        acc += wgt;
+      }
     }
-  }
+#pragma unroll
+    for (int ch = 0; ch < kColorChunk; ++ch) {
+      if (ch0 + ch < c) {
+        const float v = warp_sum(rgb[ch]);
+        if (lane == 0) o[ch0 + ch] = v;
+      }
+    }
+    ch0 += kColorChunk;
+  } while (ch0 < c);
   depth = warp_sum(depth);
   acc = warp_sum(acc);
   if (lane == 0) {
@@ -147,27 +158,10 @@ __device__ void composite_ray(int ray, int Sc, int Sf, int c,
   __syncwarp();
 }
 
-// Floats of the activation tile, which the compositing reuses as its
-// scratch (4 arrays of Sc + Sf per warp).
-template <int H>
-__host__ __device__ inline size_t scratch_floats(int Sc, int Sf) {
-  const size_t act = static_cast<size_t>(kTileRows) * act_ld<H>();
-  const size_t comp = static_cast<size_t>(kWarps) * 4 * (Sc + Sf);
-  return act > comp ? act : comp;
-}
-
 __host__ __device__ inline int rays_per_block(int Sf) { return Sf >= 256 ? 1 : 256 / Sf; }
-
-// Bytes of shared memory a block takes: the B chunks, the activation tile
-// (then the compositing scratch), the encodings' ring and the block's fine
-// outputs, with the swizzle's alignment slack; the same at every encoding
-// width (tc_mlp.cuh, note 9).
-template <int H>
-__host__ inline size_t block_bytes(int c, int Sc, int Sf) {
-  return (static_cast<size_t>(tc_bbuf_floats<H>()) + scratch_floats<H>(Sc, Sf) + kEncRingFloats +
-          static_cast<size_t>(rays_per_block(Sf)) * Sf * (1 + c)) *
-             sizeof(float) +
-         kSmemAlign;
+// The blocks of a call over R rays: the wide scratch's tiles (note 11).
+__host__ inline int num_blocks(int R, int Sf) {
+  return (R + rays_per_block(Sf) - 1) / rays_per_block(Sf);
 }
 
 template <class T>  // the encodings' type, float or __nv_bfloat16
@@ -181,15 +175,17 @@ struct Inputs {
   const float* dnorm;   // [R]
 };
 
+// fout [R * Sf][1 + c] and scratch [R][4 (Sc + Sf)] are device memory;
+// wide the scratch of a width past 256 (2 x 64 x hp floats a block).
 template <int H, bool kBf16>
 __global__ void __launch_bounds__(kThreads, 1)
     union_eval_kernel(Weights w, TcImages im, Inputs<enc_t<kBf16>> in, float* __restrict__ out,
-                      int R, int Sc, int Sf) {
+                      int R, int Sc, int Sf, float* fout, float* scratch, WideRows wide) {
+  constexpr int HT = col_width<H>();
   extern __shared__ float4 smem4[];
-  float* bbuf = tc_smem_base(smem4);                // the weights' B chunks
-  float* act = bbuf + tc_bbuf_floats<H>();          // MLP activations, then scratch
-  float* ring = act + scratch_floats<H>(Sc, Sf);    // the encodings' ring
-  float* fout = ring + kEncRingFloats;              // [rays_per_block * Sf][1 + c]
+  float* bbuf = tc_smem_base(smem4);          // the weights' B chunks
+  float* act = bbuf + tc_bbuf_floats<HT>();   // MLP activations
+  float* ring = act + kTileRows * act_ld<HT>();  // the encodings' ring
   const int ld = 1 + w.c;
   const int ray0 = blockIdx.x * rays_per_block(Sf);
   const int nrays = min(rays_per_block(Sf), R - ray0);
@@ -199,72 +195,83 @@ __global__ void __launch_bounds__(kThreads, 1)
   const TileLoadT<enc_t<kBf16>> load{in.xf, in.d, Sf};
 
   for (int sub = 0; sub < rows; sub += kTileRows) {
-    mlp_tile_tc<H, false, kBf16>(w, im, load, frow0 + sub, min(kTileRows, rows - sub), act, ring,
-                                 bbuf, fout + sub * ld, ld);
+    if constexpr (H > kColBlock)
+      mlp_tile_wide<false, kBf16>(w, im, load, frow0 + sub, min(kTileRows, rows - sub), act, ring,
+                                  bbuf, fout + (frow0 + sub) * ld, ld, nullptr,
+                                  wide.pre + blockIdx.x * wide.stride,
+                                  wide.nrm + blockIdx.x * wide.stride);
+    else
+      mlp_tile_tc<H, false, kBf16>(w, im, load, frow0 + sub, min(kTileRows, rows - sub), act,
+                                   ring, bbuf, fout + (frow0 + sub) * ld, ld);
     __syncthreads();
   }
 
   const int warp = threadIdx.x >> 5;
-  float* scratch = act + warp * 4 * (Sc + Sf);
   for (int i = warp; i < nrays; i += kWarps) {
     const int ray = ray0 + i;
     composite_ray(ray, Sc, Sf, w.c, in.t_c, in.t_f, in.dens_c, in.col_c, __ldg(in.dnorm + ray),
-                  fout + i * Sf * ld, scratch, out);
+                  fout + (frow0 + static_cast<size_t>(i) * Sf) * ld,
+                  scratch + static_cast<size_t>(ray) * 4 * (Sc + Sf), out);
   }
-}
-
-// The block's plan (tc_mlp.cuh, note 9): the tensor-core tile where its
-// bytes fit, else none.
-template <int H>
-cudaError_t plan(int c, int Sc, int Sf, TilePolicy* policy, long long* out) {
-  return tc_plan(block_bytes<H>(c, Sc, Sf), policy, out);
 }
 
 template <int H, bool kBf16>
 cudaError_t launch(const Weights& w, const float* tcw, const Inputs<enc_t<kBf16>>& in,
-                   float* out, int R, int Sc, int Sf, cudaStream_t stream) {
-  TilePolicy policy;
-  cudaError_t err = plan<H>(w.c, Sc, Sf, &policy, nullptr);
+                   float* out, int R, int Sc, int Sf, float* fout, float* scratch, float* wide,
+                   cudaStream_t stream) {
+  if (tcw == nullptr || fout == nullptr || scratch == nullptr ||
+      (H > kColBlock && wide == nullptr))
+    return cudaErrorInvalidValue;
+  // The tile's bytes (note 9), the same at every encoding width, sample
+  // count and colour count: the fine outputs and the compositing scratch
+  // lie in device memory.
+  constexpr size_t smem = tc_tile_bytes<col_width<H>()>();
+  cudaError_t err = cudaFuncSetAttribute(union_eval_kernel<H, kBf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  if (policy != kTileTc || tcw == nullptr) return cudaErrorInvalidValue;
-  const size_t smem = block_bytes<H>(w.c, Sc, Sf);
-  err = cudaFuncSetAttribute(union_eval_kernel<H, kBf16>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int blocks = (R + rays_per_block(Sf) - 1) / rays_per_block(Sf);
+  const int blocks = num_blocks(R, Sf);
   union_eval_kernel<H, kBf16><<<blocks, kThreads, smem, stream>>>(
-      w, TcImages::forward<kBf16>(w, tcw, H), in, out, R, Sc, Sf);
+      w, TcImages::forward<kBf16>(w, tcw, w.hp), in, out, R, Sc, Sf, fout, scratch,
+      wide_rows(wide, w.hp));
   return cudaGetLastError();
 }
 
 template <bool kBf16>
 int run(const void* xf, const void* d, const float* t_c, const float* t_f, const float* dens_c,
         const float* col_c, const float* dnorm, float* out, int R, int Sc, int Sf, int hidden,
-        const Weights& w, const void* tcw, void* stream) {
-  if (w.c > kMaxColors) return cudaErrorInvalidValue;
+        const Weights& w0, const void* tcw, float* fout, float* scratch, float* wide,
+        void* stream) {
   using T = enc_t<kBf16>;
+  const Weights w = sized(w0, hidden);
   const Inputs<T> in{static_cast<const T*>(xf), static_cast<const T*>(d), t_c, t_f, dens_c,
                      col_c, dnorm};
   const float* img = static_cast<const float*>(tcw);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NERF_LAUNCH(H) static_cast<int>(launch<H, kBf16>(w, img, in, out, R, Sc, Sf, s))
+#define NERF_LAUNCH(H) \
+  static_cast<int>(launch<H, kBf16>(w, img, in, out, R, Sc, Sf, fout, scratch, wide, s))
   NERF_DISPATCH_HIDDEN(hidden, NERF_LAUNCH)
 #undef NERF_LAUNCH
 }
 
 }  // namespace
 
+// fout [R * Sf][1 + c] (the fine MLP outputs), scratch [R][4 (Sc + Sf)]
+// (the compositing's) and, past hidden 256, wide [blocks][2][64][hp] (the
+// tiles' rows; blocks = union_eval_blocks(R, Sf)) are the caller's device
+// memory.
 extern "C" int union_eval(const float* xf, const float* d, const float* t_c, const float* t_f,
                           const float* dens_c, const float* col_c, const float* dnorm,
                           float* out, int R, int Sc, int Sf, int xe, int de, int hidden, int c,
                           const float* w0, const float* wx, const float* wd, const float* whh,
                           const float* b, const float* g, const float* beta,
                           const float* w_dens, const float* b_dens, const float* w_col,
-                          const float* b_col, const float* tcw, void* stream) {
+                          const float* b_col, const float* tcw, float* fout, float* scratch,
+                          float* wide, void* stream) {
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  return run<false>(xf, d, t_c, t_f, dens_c, col_c, dnorm, out, R, Sc, Sf, hidden, w, tcw,
-                    stream);
+  return run<false>(xf, d, t_c, t_f, dens_c, col_c, dnorm, out, R, Sc, Sf, hidden, w, tcw, fout,
+                    scratch, wide, stream);
 }
 
 // The same in compute_dtype bfloat16: xf, d and tcw are bfloat16.
@@ -275,20 +282,14 @@ extern "C" int union_eval_bf16(const void* xf, const void* d, const float* t_c,
                                const float* wd, const float* whh, const float* b,
                                const float* g, const float* beta, const float* w_dens,
                                const float* b_dens, const float* w_col, const float* b_col,
-                               const void* tcw, void* stream) {
+                               const void* tcw, float* fout, float* scratch, float* wide,
+                               void* stream) {
   const Weights w{w0, wx, wd, whh, b, g, beta, w_dens, b_dens, w_col, b_col,
                   xe, wd ? de : 0, c};
-  return run<true>(xf, d, t_c, t_f, dens_c, col_c, dnorm, out, R, Sc, Sf, hidden, w, tcw,
-                   stream);
+  return run<true>(xf, d, t_c, t_f, dens_c, col_c, dnorm, out, R, Sc, Sf, hidden, w, tcw, fout,
+                   scratch, wide, stream);
 }
 
-// The plan union_eval follows for these shapes, the same at every encoding
-// width (xe, de): out = [policy (0 tensor cores, 1 the tile does not fit),
-// the block's bytes, the device's limit].
-extern "C" int union_eval_plan(int xe, int de, int hidden, int c, int Sc, int Sf,
-                               long long* out) {
-  TilePolicy policy;
-#define NERF_PLAN(H) static_cast<int>(plan<H>(c, Sc, Sf, &policy, out))
-  NERF_DISPATCH_HIDDEN(hidden, NERF_PLAN)
-#undef NERF_PLAN
-}
+// The blocks union_eval launches over R rays of Sf fine samples: the
+// tiles of its wide scratch past hidden 256.
+extern "C" int union_eval_blocks(int R, int Sf) { return num_blocks(R, Sf); }

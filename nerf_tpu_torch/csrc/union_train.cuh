@@ -25,9 +25,10 @@ struct UnionCoarse {
   int dens_ld, col_ld, accumulate;
 };
 
-// Shared memory of union_composite_kernel: 5 (Sc + Sf) floats per warp.
-inline size_t union_composite_smem(int Sc, int Sf) {
-  return static_cast<size_t>(kWarps) * 5 * (Sc + Sf) * sizeof(float);
+// Floats of union_composite_kernel's scratch in device memory: 5 (Sc +
+// Sf) a ray, so every sample count runs.
+inline size_t union_composite_floats(int R, int Sc, int Sf) {
+  return static_cast<size_t>(R) * 5 * (Sc + Sf);
 }
 
 // Per ray and warp:
@@ -42,20 +43,22 @@ inline size_t union_composite_smem(int Sc, int Sf) {
 //      the coarse slots (cs) and the fine rows (gout, the MLP output's
 //      cotangent).
 // The scan, loss and backward are composite_ray's.  fo [R*Sf][1 + c] is
-// the fine MLP output, noise_f its density noise.
+// the fine MLP output, noise_f its density noise; scratch holds
+// union_composite_floats (the ray's merged list and composite_ray's
+// arrays, written and read by its warp).
 __global__ void __launch_bounds__(kThreads)
     union_composite_kernel(const float* __restrict__ fo, const float* __restrict__ noise_f,
                            const float* __restrict__ t_c, const float* __restrict__ t_f,
                            UnionCoarse cs, const float* __restrict__ dnorm,
                            const float* __restrict__ pix, int R, int Sc, int Sf, int c,
                            int white, float g_scale, float loss_scale,
-                           float* __restrict__ gout, float* __restrict__ ray_loss) {
-  extern __shared__ float scratch[];
+                           float* __restrict__ gout, float* __restrict__ ray_loss,
+                           float* __restrict__ scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ray = blockIdx.x * kWarps + warp;
   if (ray >= R) return;
   const int n = Sc + Sf, ld = 1 + c;
-  float* mt = scratch + warp * 5 * n;         // merged t
+  float* mt = scratch + static_cast<size_t>(ray) * 5 * n;  // merged t
   int* src = reinterpret_cast<int*>(mt + n);  // coarse i, or Sc + fine j
   const float* tc = t_c + static_cast<size_t>(ray) * Sc;
   const float* tf = t_f + static_cast<size_t>(ray) * Sf;

@@ -25,7 +25,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, NamedTuple, Optional
+from typing import Dict, Iterable, Optional
 
 import torch
 
@@ -43,11 +43,6 @@ KERNELS = (
 
 launch_counts: collections.Counter = collections.Counter()
 policy_counts: collections.Counter = collections.Counter()
-# The kernels whose tile depends on the call's shapes, each exporting
-# <name>_plan beside <name>: K4's block (its sample counts).  The classic
-# and the mip tiles take the same bytes at every encoding and feature
-# width.
-PLANNED = ("union_eval",)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -57,13 +52,13 @@ _F = ctypes.c_float
 _WEIGHT_ARGS = (_P,) * 11  # w0 wx wd whh b g beta w_dens b_dens w_col b_col
 _MIP_WEIGHT_ARGS = (_P,) * 7  # w_in whh b g beta w_out b_out
 ARGTYPES = {
-    # x d out P xe de hidden c, weights, tc_fwd stream
-    "classic_mlp_fwd": (_P, _P, _P, _I, _I, _I, _I, _I) + _WEIGHT_ARGS + (_P,) * 2,
+    # x d out P xe de hidden c, weights, tc_fwd wide stream
+    "classic_mlp_fwd": (_P, _P, _P, _I, _I, _I, _I, _I) + _WEIGHT_ARGS + (_P,) * 3,
     # xf d t_c t_f dens_c col_c dnorm out R Sc Sf xe de hidden c, weights,
-    # tc_fwd stream
-    "union_eval": (_P,) * 8 + (_I,) * 7 + _WEIGHT_ARGS + (_P,) * 2,
-    # xe de hidden c Sc Sf out[3]
-    "union_eval_plan": (_I,) * 6 + (_P,),
+    # tc_fwd fout scratch wide stream
+    "union_eval": (_P,) * 8 + (_I,) * 7 + _WEIGHT_ARGS + (_P,) * 5,
+    # R Sf: the blocks union_eval launches (its wide scratch's tiles)
+    "union_eval_blocks": (_I,) * 2,
     # x d gout dx dd grads P xe de hidden c, weights,
     # xhat stats dpre wpart tpart tmp out splits tc_fwd tc_bwd stream
     "classic_mlp_bwd": (_P,) * 6 + (_I,) * 5 + _WEIGHT_ARGS + (_P,) * 7 + (_I,) + (_P,) * 3,
@@ -74,24 +69,24 @@ ARGTYPES = {
     + (_P,) * 3,
     # xf d t_c t_f dens_c col_c dnorm noise_f pix loss grads g_dens_c g_col_c
     # R Sc Sf xe de hidden c white loss_weight, weights, xhat stats dpre
-    # wpart tpart tmp out gout ray_loss splits tc_fwd tc_bwd stream
-    "fine_stage_train": (_P,) * 13 + (_I,) * 8 + (_F,) + _WEIGHT_ARGS + (_P,) * 9 + (_I,)
+    # wpart tpart tmp out gout ray_loss ray_scratch splits tc_fwd tc_bwd stream
+    "fine_stage_train": (_P,) * 13 + (_I,) * 8 + (_F,) + _WEIGHT_ARGS + (_P,) * 10 + (_I,)
     + (_P,) * 3,
-    # x out P F hidden L O, weights, tc_fwd stream
-    "mip_mlp_fwd": (_P,) * 2 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 2,
+    # x out P F hidden L O, weights, tc_fwd wide stream
+    "mip_mlp_fwd": (_P,) * 2 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 3,
     # x gout dx grads P F hidden L O, weights,
     # xhat stats dpre wpart tpart tmp out splits tc_fwd tc_bwd stream
     "mip_mlp_bwd": (_P,) * 4 + (_I,) * 5 + _MIP_WEIGHT_ARGS + (_P,) * 7 + (_I,) + (_P,) * 3,
     # x dists t_mids noise per_ray R n F hidden L C O white, weights,
-    # mlp_out ray_scratch tc_fwd stream
-    "mip_eval": (_P,) * 5 + (_I,) * 8 + _MIP_WEIGHT_ARGS + (_P,) * 4,
+    # mlp_out ray_scratch tc_fwd wide stream
+    "mip_eval": (_P,) * 5 + (_I,) * 8 + _MIP_WEIGHT_ARGS + (_P,) * 5,
     # x dists noise pix labels loss grads R n F hidden L C O white
     # seg_weight, weights, xhat stats dpre wpart tpart tmp out gout
     # ray_loss ray_scratch splits tc_fwd tc_bwd stream
     "mip_train_grads": (_P,) * 7 + (_I,) * 8 + (_F,) + _MIP_WEIGHT_ARGS + (_P,) * 10 + (_I,)
     + (_P,) * 3,
-    # pts dirs out P xe de hidden c sx phx sd phd, weights, tc_fwd stream
-    "classic_pointmlp_fwd": (_P,) * 3 + (_I,) * 5 + (_P,) * 4 + _WEIGHT_ARGS + (_P,) * 2,
+    # pts dirs out P xe de hidden c sx phx sd phd, weights, tc_fwd wide stream
+    "classic_pointmlp_fwd": (_P,) * 3 + (_I,) * 5 + (_P,) * 4 + _WEIGHT_ARGS + (_P,) * 3,
     # pts dirs gout dpts ddirs grads P xe de hidden c sx phx sd phd, weights,
     # xhat stats dpre wpart tpart tmp out x_enc d_enc dx_enc dd_enc splits
     # tc_fwd tc_bwd stream
@@ -99,9 +94,9 @@ ARGTYPES = {
     + (_I,) + (_P,) * 3,
     # xc d_ray t_c noise_c u noise_f rays_o rays_d pix S is_cos loss grads
     # t_fine R Sc Sf xe de hidden c white exact_trig, weights, xhat stats dpre
-    # wpart tpart tmp out gout x_all dnorm ray_loss splits tc_fwd tc_bwd
-    # stream
-    "mega_train": (_P,) * 14 + (_I,) * 9 + _WEIGHT_ARGS + (_P,) * 11 + (_I,) + (_P,) * 3,
+    # wpart tpart tmp out gout x_all dnorm ray_loss ray_scratch splits
+    # tc_fwd tc_bwd stream
+    "mega_train": (_P,) * 14 + (_I,) * 9 + _WEIGHT_ARGS + (_P,) * 12 + (_I,) + (_P,) * 3,
     # The tensor-core products alone (csrc/tc_product.cu, for the card
     # tests): a img out P K hidden stream; a b out P M N stream.
     "tc_linear": (_P,) * 3 + (_I,) * 3 + (_P,),
@@ -117,9 +112,9 @@ ARGTYPES.update({f"{name}_bf16": ARGTYPES[name] for name in BF16 + ("tc_linear",
 # Functions of a library other than its own name.
 FUNCTIONS = {
     "tc_product": ("tc_linear", "tc_wgrad", "tc_linear_bf16", "tc_wgrad_bf16"),
-    **{name: (name,) + ((f"{name}_plan",) if name in PLANNED else ())
-       + ((f"{name}_bf16",) if name in BF16 else ()) for name in KERNELS},
+    **{name: (name,) + ((f"{name}_bf16",) if name in BF16 else ()) for name in KERNELS},
 }
+FUNCTIONS["union_eval"] += ("union_eval_blocks",)
 
 
 def nvcc_path() -> str:
@@ -193,30 +188,3 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with cudaError_t {err}")
-
-
-class TilePlan(NamedTuple):
-    tc_bytes: int  # shared memory a block of the tensor-core tile takes
-    limit: int  # the device's opt-in shared memory a block
-
-
-def tile_plan(name: str, xe: int, de: int, hidden: int, *shape: int) -> TilePlan:
-    """The plan kernel ``name`` (one of ``PLANNED``: K4) follows for these
-    shapes: the encodings' widths ``xe, de`` (``de`` 0 without the view
-    branch), its hidden width and ``c, Sc, Sf``.  From the library's
-    ``<name>_plan``, the rule its launcher applies (``csrc/tc_mlp.cuh``,
-    note 9): the block's bytes and the device's opt-in shared memory a
-    block.  Raises a ``ValueError`` naming the limit, before any launch,
-    where the block does not fit."""
-    out = (ctypes.c_longlong * 3)()
-    err = getattr(load(name), f"{name}_plan")(xe, de, hidden, *shape, out)
-    if err != 0:
-        raise RuntimeError(f"{name}_plan failed with cudaError_t {err}")
-    too_big, tc_bytes, limit = out
-    if too_big:
-        raise ValueError(
-            f"{name}: widths {xe} + {de} at hidden {hidden} (shape {shape}) need {tc_bytes} "
-            f"bytes of shared memory a block on the tensor cores, past the device's limit of "
-            f"{limit}"
-        )
-    return TilePlan(tc_bytes, limit)

@@ -56,8 +56,10 @@ Packed = Dict[str, torch.Tensor]
 
 NAME = "classic_mlp_fwd"
 BWD_NAME = "classic_mlp_bwd"
-HIDDEN_WIDTHS = (32, 64, 128, 256)  # the kernel's instantiations
-MAX_COLORS = 8  # color outputs the backward kernels take
+# The tiles' instantiations: any other hidden width runs on weights
+# zero-padded to the next of them, or past 256 in column blocks of 256
+# (tc_mlp.pad_packed, csrc/tc_mlp.cuh note 11).
+HIDDEN_WIDTHS = tc_mlp.TILE_WIDTHS
 # Weight slabs in the order of the C interface (wd_in may be absent).
 PACK_ORDER = (
     "w0", "wx", "wd_in", "whh", "b", "g", "beta",
@@ -67,11 +69,13 @@ PACK_ORDER = (
 
 def supports_classic_config(cfg: ClassicNeRFConfig) -> bool:
     """The kernels cover the reference architecture family, with or without
-    the view branch, at any encoding width: their tensor-core tiles stream
-    the encodings through a ring of k-chunks (``csrc/tc_mlp.cuh``, note 9),
-    so their shared memory does not grow with the widths, and a
-    latent-conditioned model runs them at full width.  The only limit left
-    is the card's memory."""
+    the view branch, at any encoding width, hidden width and colour count:
+    their tensor-core tiles stream the encodings through a ring of k-chunks
+    (``csrc/tc_mlp.cuh``, note 9), run a hidden width on weights padded to
+    an instantiated tile or, past 256, in column blocks (note 11), and the
+    per-ray passes take the colours a chunk at a time, so a
+    latent-conditioned or a wider model runs them.  The only limit left is
+    the card's memory."""
     return cfg.trunk_blocks == (4, 4) and (
         not cfg.use_viewdirs or cfg.view_branch_depth == 2
     )
@@ -226,6 +230,16 @@ def weight_pointers(packed: Packed):
     return [_build.ptr(packed.get(k)) for k in PACK_ORDER]
 
 
+def wide_scratch(packed: Packed, tiles: int, device: torch.device) -> Optional[torch.Tensor]:
+    """Past hidden 256 the forward kernels' rows in device memory, 2 x 64 x
+    ``padded_hidden`` floats for each of ``tiles`` (``csrc/tc_mlp.cuh`` note
+    11); ``None`` below (the kernels read none)."""
+    hidden = tc_mlp.padded_hidden(tc_mlp.hidden_of(packed))
+    if hidden <= tc_mlp.COL_BLOCK:
+        return None
+    return torch.empty((max(tiles, 1), 2, TILE_ROWS, hidden), dtype=torch.float32, device=device)
+
+
 def route(name: str, bf16: bool) -> Tuple[str, str]:
     """The library function a call launches and the policy it records:
     ``name`` and ``"tc"`` in float32, ``<name>_bf16`` and ``"tc_bf16"`` in
@@ -270,21 +284,21 @@ def classic_mlp_fwd(
         raise ValueError(f"{NAME}: d_enc must be [P, {packed['wd_in'].shape[0]}], got {tuple(d_enc.shape)}")
     if device.type == "cpu":
         return classic_mlp_fwd_plain(packed, x_enc, d_enc)
-    if hidden not in HIDDEN_WIDTHS:
-        raise ValueError(f"{NAME}: hidden width {hidden} not in {HIDDEN_WIDTHS}")
     n_points = x_enc.shape[0]
     out = torch.empty((n_points, cols), dtype=torch.float32, device=device)
     if n_points == 0:
         return out
     de = d_enc.shape[1] if has_view else 0
+    kpacked = tc_mlp.pad_packed(packed)
     if tc_fwd is None:
-        tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
+        tc_fwd = tc_mlp.tc_images(kpacked, dtype=dtype)[0]
     fn_name, policy = route(NAME, dtype == torch.bfloat16)
     fn = getattr(_build.load(NAME), fn_name)
+    wide = wide_scratch(packed, math.ceil(n_points / TILE_ROWS), device)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_enc), out.data_ptr(), n_points,
-        x_enc.shape[1], de, hidden, cols - 1, *weight_pointers(packed), _build.ptr(tc_fwd),
-        torch.cuda.current_stream(device).cuda_stream,
+        x_enc.shape[1], de, hidden, cols - 1, *weight_pointers(kpacked),
+        _build.ptr(tc_fwd), _build.ptr(wide), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1
@@ -362,9 +376,16 @@ def flat_grads_to_packed(flat: torch.Tensor, packed: Packed) -> Packed:
     return out
 
 
+def kernel_grads(flat: torch.Tensor, kpacked: Packed, packed: Packed) -> Packed:
+    """The flat gradient a kernel wrote for its weights ``kpacked``
+    (``tc_mlp.pad_packed(packed)``) in ``packed``'s shapes, the padded slots
+    dropped."""
+    return tc_mlp.unpad_grads(flat_grads_to_packed(flat, kpacked), packed)
+
+
 def train_scratch(packed: Packed, n_rows: int, device: torch.device) -> Dict[str, object]:
     """Global scratch of the classic MLP backward passes for ``n_rows``
-    rows (``scratch_for``)."""
+    rows (``scratch_for``), of the kernels' weights ``tc_mlp.pad_packed``."""
     layers, hidden = packed["b"].shape
     xe = packed["w0"].shape[0]
     de = packed["wd_in"].shape[0] if "wd_in" in packed else 0
@@ -450,30 +471,27 @@ def classic_mlp_bwd(
             raise ValueError(f"{BWD_NAME}: {key} must be {shape}, got {tuple(t.shape)}")
     if device.type == "cpu":
         return classic_mlp_bwd_plain(packed, x_enc, d_enc, g_out, input_grads)
-    if hidden not in HIDDEN_WIDTHS:
-        raise ValueError(f"{BWD_NAME}: hidden width {hidden} not in {HIDDEN_WIDTHS}")
-    if colors > MAX_COLORS:
-        raise ValueError(f"{BWD_NAME}: at most {MAX_COLORS} color outputs, got {colors}")
     dx = torch.empty_like(x_enc) if input_grads else None
     dd = torch.empty_like(d_enc) if has_view and input_grads else None
     if n_points == 0:
         return dx, dd, {k: torch.zeros_like(v) for k, v in packed.items()}
     de = d_enc.shape[1] if has_view else 0
     fn_name, policy = route(BWD_NAME, bf16)
+    kpacked = tc_mlp.pad_packed(packed)
     if tc_fwd is None or tc_bwd is None:
-        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
-    s = train_scratch(packed, n_points, device)
+        tc_fwd, tc_bwd = tc_mlp.tc_images(kpacked, backward=True, dtype=dtype)
+    s = train_scratch(kpacked, n_points, device)
     fn = getattr(_build.load(BWD_NAME), fn_name)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_enc), g_out.data_ptr(), _build.ptr(dx), _build.ptr(dd),
         s["grads"].data_ptr(), n_points, xe, de, hidden, colors,
-        *weight_pointers(packed), *scratch_pointers(s), s["splits"], _build.ptr(tc_fwd),
+        *weight_pointers(kpacked), *scratch_pointers(s), s["splits"], _build.ptr(tc_fwd),
         _build.ptr(tc_bwd), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(BWD_NAME, err)
     _build.launch_counts[BWD_NAME] += 1
     _build.policy_counts[(BWD_NAME, policy)] += 1
-    return dx, dd, flat_grads_to_packed(s["grads"], packed)
+    return dx, dd, kernel_grads(s["grads"], kpacked, packed)
 
 
 class ClassicMLPFunction(torch.autograd.Function):

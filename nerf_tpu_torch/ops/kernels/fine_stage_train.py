@@ -30,15 +30,13 @@ import torch
 from nerf_tpu_torch.ops import compositing, sampling
 from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
-    HIDDEN_WIDTHS,
-    MAX_COLORS,
     PACK_ORDER,
     Packed,
     _packed_from_args,
     check_inputs,
     classic_mlp_fwd,
     classic_mlp_fwd_plain,
-    flat_grads_to_packed,
+    kernel_grads,
     packed_grads_plain,
     prepare_weights,
     route,
@@ -48,7 +46,6 @@ from nerf_tpu_torch.ops.kernels.classic_mlp import (
 )
 
 NAME = "fine_stage_train"
-MAX_SAMPLES = 256  # coarse and fine samples per ray the kernel takes, each
 STAGE_WEIGHT = 0.5  # the stage-mean MSE over (coarse, fine)
 
 
@@ -158,40 +155,40 @@ def fine_stage_train(
     if device.type == "cpu":
         return fine_stage_train_plain(packed, x_enc, d_enc, t_coarse, t_fine, dens_c, col_c,
                                       dnorm, noise_f, pixels, white_background, loss_weight)
-    if hidden not in HIDDEN_WIDTHS:
-        raise ValueError(f"{NAME}: hidden width {hidden} not in {HIDDEN_WIDTHS}")
-    if not (0 < s_coarse <= MAX_SAMPLES and 0 < s_fine <= MAX_SAMPLES):
-        raise ValueError(f"{NAME}: takes 1..{MAX_SAMPLES} coarse and fine samples per ray, "
+    if s_coarse < 1 or s_fine < 1:
+        raise ValueError(f"{NAME}: takes at least one coarse and one fine sample per ray, "
                          f"got {s_coarse} + {s_fine}")
-    if colors > MAX_COLORS:
-        raise ValueError(f"{NAME}: at most {MAX_COLORS} color outputs, got {colors}")
     if n_rays == 0:
         raise ValueError(f"{NAME}: needs at least one ray")
     de = d_enc.shape[-1] if has_view else 0
     fn_name, policy = route(NAME, dtype == torch.bfloat16)
-    sc = train_scratch(packed, n_rays * s_fine, device)
+    kpacked = tc_mlp.pad_packed(packed)
+    sc = train_scratch(kpacked, n_rays * s_fine, device)
     if tc_fwd is None or tc_bwd is None:
-        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
+        tc_fwd, tc_bwd = tc_mlp.tc_images(kpacked, backward=True, dtype=dtype)
     d_ray = d_enc[:, 0, :].contiguous() if has_view else None
     loss = torch.empty((1,), dtype=torch.float32, device=device)
     g_dens_c = torch.empty_like(dens_c)
     g_col_c = torch.empty_like(col_c)
     gout = torch.empty_like(sc["out"])
     ray_loss = torch.empty((n_rays,), dtype=torch.float32, device=device)
+    ray_scratch = torch.empty((n_rays, 5 * (s_coarse + s_fine)), dtype=torch.float32,
+                              device=device)
     fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_ray), t_coarse.data_ptr(), t_fine.data_ptr(),
         dens_c.data_ptr(), col_c.data_ptr(), dnorm.data_ptr(), noise_f.data_ptr(),
         pixels.data_ptr(), loss.data_ptr(), sc["grads"].data_ptr(), g_dens_c.data_ptr(),
         g_col_c.data_ptr(), n_rays, s_coarse, s_fine, xe, de, hidden, colors,
-        int(white_background), float(loss_weight), *weight_pointers(packed),
-        *scratch_pointers(sc), gout.data_ptr(), ray_loss.data_ptr(), sc["splits"],
+        int(white_background), float(loss_weight), *weight_pointers(kpacked),
+        *scratch_pointers(sc), gout.data_ptr(), ray_loss.data_ptr(), ray_scratch.data_ptr(),
+        sc["splits"],
         tc_fwd.data_ptr(), tc_bwd.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1
     _build.policy_counts[(NAME, policy)] += 1
-    return loss[0], flat_grads_to_packed(sc["grads"], packed), (g_dens_c, g_col_c)
+    return loss[0], kernel_grads(sc["grads"], kpacked, packed), (g_dens_c, g_col_c)
 
 
 class FineStageFunction(torch.autograd.Function):

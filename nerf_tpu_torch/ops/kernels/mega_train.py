@@ -38,14 +38,12 @@ from nerf_tpu_torch.config import ClassicNeRFConfig
 from nerf_tpu_torch.ops import compositing, encoding, sampling
 from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
-    HIDDEN_WIDTHS,
-    MAX_COLORS,
     PACK_ORDER,
     Packed,
     _packed_from_args,
     check_inputs,
     classic_mlp_fwd_plain,
-    flat_grads_to_packed,
+    kernel_grads,
     pack_classic_params,
     packed_grads_plain,
     route,
@@ -56,7 +54,6 @@ from nerf_tpu_torch.ops.kernels.classic_mlp import (
 )
 
 NAME = "mega_train"
-MAX_SAMPLES = 256  # coarse and fine samples per ray the kernel takes, each
 STAGE_WEIGHT = 0.5  # the stage-mean MSE over (coarse, fine)
 
 
@@ -233,20 +230,17 @@ def mega_train(
     if device.type == "cpu":
         return mega_train_plain(packed, x_enc_c, d_ray, t_coarse, noise_c, u, noise_f, rays_o,
                                 rays_d, pixels, placement, is_cos, white_background, exact_trig)
-    if hidden not in HIDDEN_WIDTHS:
-        raise ValueError(f"{NAME}: hidden width {hidden} not in {HIDDEN_WIDTHS}")
-    if not (3 <= s_coarse <= MAX_SAMPLES and 0 < s_fine <= MAX_SAMPLES):
-        raise ValueError(f"{NAME}: takes 3..{MAX_SAMPLES} coarse and 1..{MAX_SAMPLES} fine "
-                         f"samples per ray, got {s_coarse} + {s_fine}")
-    if colors > MAX_COLORS:
-        raise ValueError(f"{NAME}: at most {MAX_COLORS} color outputs, got {colors}")
+    if s_coarse < 3 or s_fine < 1:
+        raise ValueError(f"{NAME}: takes at least 3 coarse and 1 fine samples per ray, "
+                         f"got {s_coarse} + {s_fine}")
     if n_rays == 0:
         raise ValueError(f"{NAME}: needs at least one ray")
     n_rows = n_rays * (s_coarse + s_fine)
     de = d_ray.shape[1] if has_view else 0
     dtype = x_enc_c.dtype
     fn_name, policy = route(NAME, dtype == torch.bfloat16)
-    s = train_scratch(packed, n_rows, device)
+    kpacked = tc_mlp.pad_packed(packed)
+    s = train_scratch(kpacked, n_rows, device)
 
     def buf(*shape, dt=torch.float32):
         return torch.empty(shape, dtype=dt, device=device)
@@ -254,16 +248,18 @@ def mega_train(
     loss, t_fine = buf(2), buf(n_rays, s_fine)
     gout, x_all = torch.empty_like(s["out"]), buf(n_rows, xe, dt=dtype)
     dnorm, ray_loss = buf(n_rays), buf(2, n_rays)
-    tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
+    ray_scratch = buf(n_rays, 5 * (s_coarse + s_fine))
+    tc_fwd, tc_bwd = tc_mlp.tc_images(kpacked, backward=True, dtype=dtype)
     fn = getattr(_build.load(NAME), fn_name)
     err = fn(
         x_enc_c.data_ptr(), _build.ptr(d_ray), t_coarse.data_ptr(), noise_c.data_ptr(),
         u.data_ptr(), noise_f.data_ptr(), rays_o.data_ptr(), rays_d.data_ptr(),
         pixels.data_ptr(), placement.data_ptr(), is_cos.data_ptr(), loss.data_ptr(),
         s["grads"].data_ptr(), t_fine.data_ptr(), n_rays, s_coarse, s_fine, xe, de, hidden,
-        colors, int(white_background), int(exact_trig), *weight_pointers(packed),
+        colors, int(white_background), int(exact_trig), *weight_pointers(kpacked),
         *scratch_pointers(s), gout.data_ptr(),
-        x_all.data_ptr(), dnorm.data_ptr(), ray_loss.data_ptr(), s["splits"],
+        x_all.data_ptr(), dnorm.data_ptr(), ray_loss.data_ptr(), ray_scratch.data_ptr(),
+        s["splits"],
         tc_fwd.data_ptr(), tc_bwd.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
@@ -271,7 +267,7 @@ def mega_train(
     _build.policy_counts[(NAME, policy)] += 1
     if keep is not None:
         keep["x_all"] = x_all
-    return loss[0], loss[1], flat_grads_to_packed(s["grads"], packed), t_fine
+    return loss[0], loss[1], kernel_grads(s["grads"], kpacked, packed), t_fine
 
 
 class MegaTrainFunction(torch.autograd.Function):

@@ -45,7 +45,6 @@ import torch.nn.functional as F
 from nerf_tpu_torch.models.mlp import LAYER_NORM_EPS, MipMLP
 from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
-    HIDDEN_WIDTHS,
     WGRAD_TILE,
     Packed,
     PreparedWeights,
@@ -54,6 +53,7 @@ from nerf_tpu_torch.ops.kernels.classic_mlp import (
     route,
     scratch_for,
     scratch_pointers,
+    wide_scratch,
 )
 
 NAME = "mip_mlp_fwd"
@@ -123,12 +123,10 @@ def mip_mlp_fwd_plain(packed: Packed, features: torch.Tensor, matmul=None) -> to
 
 
 def check_kernel_shapes(name: str, packed: Packed) -> None:
-    """What the mip kernels take beyond ``check_inputs``: an instantiated
-    hidden width and at least 2 layers (``supports_mip_config``); every
-    feature width, layer count and head width beyond that."""
-    layers, hidden = packed["b"].shape
-    if hidden not in HIDDEN_WIDTHS:
-        raise ValueError(f"{name}: hidden width {hidden} not in {HIDDEN_WIDTHS}")
+    """What the mip kernels take beyond ``check_inputs``: at least 2 layers
+    (``supports_mip_config``); every hidden width (``csrc/tc_mlp.cuh`` note
+    11), feature width, layer count and head width beyond that."""
+    layers = packed["b"].shape[0]
     if layers < 2:
         raise ValueError(f"{name}: takes 2 or more hidden layers, got {layers}")
 
@@ -176,13 +174,15 @@ def mip_mlp_fwd(packed: Packed, features: torch.Tensor,
     out = torch.empty((n_points, outputs), dtype=torch.float32, device=device)
     if n_points == 0:
         return out
+    kpacked = tc_mlp.pad_packed(packed)
     if tc_fwd is None:
-        tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
+        tc_fwd = tc_mlp.tc_images(kpacked, dtype=dtype)[0]
     fn_name, policy = route(NAME, dtype == torch.bfloat16)
     fn = getattr(_build.load(NAME), fn_name)
+    wide = wide_scratch(packed, math.ceil(n_points / 64), device)
     err = fn(
         features.data_ptr(), out.data_ptr(), n_points, n_feat, hidden, layers, outputs,
-        *weight_pointers(packed), tc_fwd.data_ptr(),
+        *weight_pointers(kpacked), tc_fwd.data_ptr(), _build.ptr(wide),
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
@@ -228,6 +228,13 @@ def flat_grads_to_packed(flat: torch.Tensor, packed: Packed) -> Packed:
         out[k] = flat[at:at + n].view(packed[k].shape)
         at += n
     return out
+
+
+def kernel_grads(flat: torch.Tensor, kpacked: Packed, packed: Packed) -> Packed:
+    """The flat gradient a kernel wrote for its weights ``kpacked``
+    (``tc_mlp.pad_packed(packed)``) in ``packed``'s shapes, the padded slots
+    dropped."""
+    return tc_mlp.unpad_grads(flat_grads_to_packed(flat, kpacked), packed)
 
 
 def mip_scratch(packed: Packed, n_rows: int, device: torch.device) -> Dict[str, object]:
@@ -279,21 +286,22 @@ def mip_mlp_bwd(
     dfeat = torch.empty_like(features) if input_grads else None
     if n_points == 0:
         return dfeat, {k: torch.zeros_like(v) for k, v in packed.items()}
+    kpacked = tc_mlp.pad_packed(packed)
     if tc_fwd is None or tc_bwd is None:
-        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
+        tc_fwd, tc_bwd = tc_mlp.tc_images(kpacked, backward=True, dtype=dtype)
     fn_name, policy = route(BWD_NAME, dtype == torch.bfloat16)
-    s = mip_scratch(packed, n_points, device)
+    s = mip_scratch(kpacked, n_points, device)
     fn = getattr(_build.load(BWD_NAME), fn_name)
     err = fn(
         features.data_ptr(), g_out.data_ptr(), _build.ptr(dfeat), s["grads"].data_ptr(),
-        n_points, n_feat, hidden, layers, outputs, *weight_pointers(packed),
+        n_points, n_feat, hidden, layers, outputs, *weight_pointers(kpacked),
         *scratch_pointers(s), s["splits"], tc_fwd.data_ptr(), tc_bwd.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(BWD_NAME, err)
     _build.launch_counts[BWD_NAME] += 1
     _build.policy_counts[(BWD_NAME, policy)] += 1
-    return dfeat, flat_grads_to_packed(s["grads"], packed)
+    return dfeat, kernel_grads(s["grads"], kpacked, packed)
 
 
 class MipMLPFunction(torch.autograd.Function):

@@ -45,18 +45,18 @@ import torch
 from nerf_tpu_torch.ops import compositing, sampling
 from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
-    MAX_COLORS,
     Packed,
     check_inputs,
     packed_grads_plain,
     route,
+    wide_scratch,
 )
 from nerf_tpu_torch.ops.kernels.mip_mlp import (
     ALIGNED,
     PACK_ORDER,
     _packed_from_args,
     check_kernel_shapes,
-    flat_grads_to_packed,
+    kernel_grads,
     mip_mlp_fwd_plain,
     mip_scratch,
     prepare_weights,
@@ -100,8 +100,6 @@ def _check_kernel(name, packed, color_outputs, n_rays, rows) -> None:
     check_kernel_shapes(name, packed)
     if rows == 0:
         raise ValueError(f"{name}: needs at least one interval row per ray")
-    if color_outputs > MAX_COLORS:
-        raise ValueError(f"{name}: at most {MAX_COLORS} color outputs, got {color_outputs}")
     if n_rays == 0:
         raise ValueError(f"{name}: needs at least one ray")
 
@@ -184,8 +182,9 @@ def mip_eval(
         return mip_eval_plain(packed, features, dists, t_mids, noise, color_outputs,
                               white_background)
     _check_kernel(EVAL_NAME, packed, color_outputs, n_rays, rows)
+    kpacked = tc_mlp.pad_packed(packed)
     if tc_fwd is None:
-        tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
+        tc_fwd = tc_mlp.tc_images(kpacked, dtype=dtype)[0]
     fn_name, policy = route(EVAL_NAME, dtype == torch.bfloat16)
     layers, hidden = packed["b"].shape
     outputs = packed["w_out"].shape[1]
@@ -195,12 +194,14 @@ def mip_eval(
     mlp_out = torch.empty((n_rays * rows, outputs), dtype=torch.float32, device=device)
     ray_scratch = torch.empty((n_rays * rows * EVAL_RAY_FLOATS,), dtype=torch.float32,
                               device=device)
+    wide = wide_scratch(packed, -(-n_rays * rows // 64), device)
     fn = getattr(_build.load(EVAL_NAME), fn_name)
     err = fn(
         features.data_ptr(), dists.data_ptr(), t_mids.data_ptr(), _build.ptr(noise),
         per_ray.data_ptr(), n_rays, rows, features.shape[-1], hidden, layers, color_outputs,
-        outputs, int(white_background), *weight_pointers(packed), mlp_out.data_ptr(),
-        ray_scratch.data_ptr(), tc_fwd.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        outputs, int(white_background), *weight_pointers(kpacked),
+        mlp_out.data_ptr(), ray_scratch.data_ptr(), tc_fwd.data_ptr(), _build.ptr(wide),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(EVAL_NAME, err)
     _build.launch_counts[EVAL_NAME] += 1
@@ -318,12 +319,13 @@ def mip_train_grads(
         return mip_train_grads_plain(packed, features, dists, noise, pixels, labels,
                                      color_outputs, seg_weight, white_background)
     _check_kernel(TRAIN_NAME, packed, color_outputs, n_rays, rows)
+    kpacked = tc_mlp.pad_packed(packed)
     if tc_fwd is None or tc_bwd is None:
-        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
+        tc_fwd, tc_bwd = tc_mlp.tc_images(kpacked, backward=True, dtype=dtype)
     fn_name, policy = route(TRAIN_NAME, dtype == torch.bfloat16)
     layers, hidden = packed["b"].shape
     outputs = packed["w_out"].shape[1]
-    sc = mip_scratch(packed, n_rays * rows, device)
+    sc = mip_scratch(kpacked, n_rays * rows, device)
     losses = torch.empty((2,), dtype=torch.float32, device=device)
     gout = torch.empty_like(sc["out"])
     ray_loss = torch.empty((n_rays, 2), dtype=torch.float32, device=device)
@@ -334,7 +336,7 @@ def mip_train_grads(
         features.data_ptr(), dists.data_ptr(), noise.data_ptr(), pixels.data_ptr(),
         _build.ptr(labels), losses.data_ptr(), sc["grads"].data_ptr(),
         n_rays, rows, features.shape[-1], hidden, layers, color_outputs, outputs,
-        int(white_background), float(seg_weight), *weight_pointers(packed),
+        int(white_background), float(seg_weight), *weight_pointers(kpacked),
         *scratch_pointers(sc), gout.data_ptr(), ray_loss.data_ptr(), ray_scratch.data_ptr(),
         sc["splits"], tc_fwd.data_ptr(), tc_bwd.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
@@ -342,7 +344,7 @@ def mip_train_grads(
     _build.check_launch(TRAIN_NAME, err)
     _build.launch_counts[TRAIN_NAME] += 1
     _build.policy_counts[(TRAIN_NAME, policy)] += 1
-    return losses[0], losses[1], flat_grads_to_packed(sc["grads"], packed)
+    return losses[0], losses[1], kernel_grads(sc["grads"], kpacked, packed)
 
 
 class MipTrainGradsFunction(torch.autograd.Function):

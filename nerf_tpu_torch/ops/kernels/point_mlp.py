@@ -40,20 +40,19 @@ import torch
 from nerf_tpu_torch.ops import encoding
 from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
-    HIDDEN_WIDTHS,
-    MAX_COLORS,
     PACK_ORDER,
     Packed,
     _packed_from_args,
     check_inputs,
     classic_mlp_fwd_plain,
-    flat_grads_to_packed,
+    kernel_grads,
     pack_classic_params,
     packed_grads_plain,
     route,
     scratch_pointers,
     train_scratch,
     weight_pointers,
+    wide_scratch,
 )
 
 NAME = "classic_pointmlp_fwd"
@@ -138,12 +137,6 @@ def _check(name: str, packed: Packed, points, dirs, consts, extra: dict,
     for key, (t, shape) in expected.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name}: {key} must be {shape}, got {tuple(t.shape)}")
-    if device.type == "cuda":
-        hidden = packed["w0"].shape[1]
-        if hidden not in HIDDEN_WIDTHS:
-            raise ValueError(f"{name}: hidden width {hidden} not in {HIDDEN_WIDTHS}")
-        if packed["w_col"].shape[1] > MAX_COLORS:
-            raise ValueError(f"{name}: at most {MAX_COLORS} color outputs")
     return device
 
 
@@ -170,14 +163,17 @@ def classic_pointmlp_fwd(packed: Packed, points: torch.Tensor, dirs: torch.Tenso
         return out
     xe, hidden = packed["w0"].shape
     de = packed["wd_in"].shape[0]
+    kpacked = tc_mlp.pad_packed(packed)
     if tc_fwd is None:
-        tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
+        tc_fwd = tc_mlp.tc_images(kpacked, dtype=dtype)[0]
     fn_name, policy = route(NAME, dtype == torch.bfloat16)
     fn = getattr(_build.load(NAME), fn_name)
+    wide = wide_scratch(packed, -(-n_points // 64), device)
     err = fn(
         points.data_ptr(), dirs.data_ptr(), out.data_ptr(), n_points, xe, de, hidden,
-        packed["w_col"].shape[1], *[c.data_ptr() for c in consts], *weight_pointers(packed),
-        _build.ptr(tc_fwd), torch.cuda.current_stream(device).cuda_stream,
+        packed["w_col"].shape[1], *[c.data_ptr() for c in consts],
+        *weight_pointers(kpacked), _build.ptr(tc_fwd), _build.ptr(wide),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1
@@ -217,10 +213,11 @@ def classic_pointmlp_bwd(
         return dpts, ddirs, {k: torch.zeros_like(v) for k, v in packed.items()}
     xe, hidden = packed["w0"].shape
     de = packed["wd_in"].shape[0]
+    kpacked = tc_mlp.pad_packed(packed)
     if tc_fwd is None or tc_bwd is None:
-        tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
+        tc_fwd, tc_bwd = tc_mlp.tc_images(kpacked, backward=True, dtype=dtype)
     fn_name, policy = route(BWD_NAME, dtype == torch.bfloat16)
-    s = train_scratch(packed, n_points, device)
+    s = train_scratch(kpacked, n_points, device)
 
     def buf(*shape, dt=torch.float32):
         return torch.empty(shape, dtype=dt, device=device)
@@ -232,7 +229,7 @@ def classic_pointmlp_bwd(
     err = fn(
         points.data_ptr(), dirs.data_ptr(), g_out.data_ptr(), _build.ptr(dpts),
         _build.ptr(ddirs), s["grads"].data_ptr(), n_points, xe, de, hidden,
-        packed["w_col"].shape[1], *[c.data_ptr() for c in consts], *weight_pointers(packed),
+        packed["w_col"].shape[1], *[c.data_ptr() for c in consts], *weight_pointers(kpacked),
         *scratch_pointers(s), x_enc.data_ptr(), d_enc.data_ptr(), _build.ptr(dx_enc),
         _build.ptr(dd_enc), s["splits"], tc_fwd.data_ptr(), tc_bwd.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
@@ -242,7 +239,7 @@ def classic_pointmlp_bwd(
     _build.policy_counts[(BWD_NAME, policy)] += 1
     if keep is not None:
         keep.update(x_enc=x_enc, d_enc=d_enc)
-    return dpts, ddirs, flat_grads_to_packed(s["grads"], packed)
+    return dpts, ddirs, kernel_grads(s["grads"], kpacked, packed)
 
 
 class ClassicPointMLPFunction(torch.autograd.Function):

@@ -56,6 +56,8 @@ import torch
 import torch.nn.functional as F
 
 CHUNK = 16  # k-values per chunk of an operand image (kTcK in csrc/tc_mlp.cuh)
+TILE_WIDTHS = (32, 64, 128, 256)  # the tiles' hidden widths (tile_width in csrc/classic_mlp.cuh)
+COL_BLOCK = 256  # past the widest tile, the columns a product block computes (kColBlock)
 BF16_CHUNK = 32  # k-values per chunk of a bfloat16 operand image (kTcKB)
 TF32_MASK = -8192  # 0xffffe000 as an int32: sign, exponent and 10 mantissa bits
 
@@ -129,6 +131,55 @@ def bf16_matmul_autograd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return Bf16Matmul.apply(a, b)
 
 
+def padded_hidden(hidden: int) -> int:
+    """The width the kernels run a hidden width at (``csrc/tc_mlp.cuh``
+    note 11): the smallest of ``TILE_WIDTHS`` that holds it, else the next
+    multiple of ``COL_BLOCK`` (column blocks of 256)."""
+    for width in TILE_WIDTHS:
+        if hidden <= width:
+            return width
+    return -(-hidden // COL_BLOCK) * COL_BLOCK
+
+
+# The dimensions of each packed slab (classic ``pack_classic_params`` or mip
+# ``pack_mip_params``) that run along the hidden width.
+HIDDEN_DIMS = {
+    "w0": (1,), "wx": (1,), "wd_in": (1,), "w_in": (1,), "whh": (1, 2),
+    "b": (1,), "g": (1,), "beta": (1,), "w_dens": (0,), "w_col": (0,), "w_out": (0,),
+}
+
+
+def hidden_of(packed) -> int:
+    return packed["whh"].shape[-1]
+
+
+def pad_packed(packed):
+    """The packed weights as the kernels read them: every slab zero-padded
+    along the hidden width to ``padded_hidden`` (weights, biases, LayerNorm
+    scales and offsets alike, so the padded columns stay 0 through every
+    layer; ``csrc/tc_mlp.cuh`` note 11).  The same dict where the width is
+    an instantiated one."""
+    hidden = hidden_of(packed)
+    wide = padded_hidden(hidden)
+    if wide == hidden:
+        return packed
+    out = {}
+    for key, t in packed.items():
+        pad = [0, 0] * t.dim()
+        for dim in HIDDEN_DIMS.get(key, ()):
+            pad[2 * (t.dim() - 1 - dim) + 1] = wide - hidden
+        out[key] = F.pad(t, pad).contiguous()
+    return out
+
+
+def unpad_grads(d_padded, packed):
+    """Gradients of ``pad_packed(packed)`` cut back to ``packed``'s shapes:
+    the padded slots (all 0) are dropped."""
+    if d_padded is None or hidden_of(packed) == padded_hidden(hidden_of(packed)):
+        return d_padded
+    return {k: v[tuple(slice(0, n) for n in packed[k].shape)] for k, v in d_padded.items()}
+
+
 def chunk_of(dtype: torch.dtype) -> int:
     """k-values per chunk of an operand image of this dtype."""
     return BF16_CHUNK if dtype == torch.bfloat16 else CHUNK
@@ -194,6 +245,18 @@ def operand_image_unpack(img: torch.Tensor, n: int, k: int) -> Tuple[torch.Tenso
     return hl[..., 0, :, :], hl[..., 1, :, :]
 
 
+def operand_image_blocks(b: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``operand_image`` of ``b [..., N, K]`` with N past ``COL_BLOCK`` (a
+    multiple of it) held as ``N / COL_BLOCK`` images of 256 rows, one a
+    column block of the products (``csrc/tc_mlp.cuh`` note 11); up to 256
+    the plain image.  ``[..., elements]`` either way."""
+    *lead, n, k = b.shape
+    if n <= COL_BLOCK:
+        return operand_image(b, dtype)
+    img = operand_image(b.reshape(*lead, n // COL_BLOCK, COL_BLOCK, k), dtype)
+    return img.reshape(*lead, -1)
+
+
 # The slabs on an encoding (classic) or the features (mip, ``w_in``), in
 # the order the images hold them; ``whh`` follows.
 INPUT_SLABS = ("w0", "wx", "wd_in", "w_in")
@@ -233,14 +296,18 @@ def tc_images(packed, backward: bool = False,
     ``backward`` also ``bwd_rows``' B operands: the hidden slabs (the
     packed ``[in][out]`` slabs), then the input slabs in the same order
     (``input_image``, for the input cotangents); else ``None``.  ``dtype``
-    bfloat16 builds the bf16 images of ``compute_dtype="bfloat16"``."""
+    bfloat16 builds the bf16 images of ``compute_dtype="bfloat16"``.  The
+    weights are padded to the width the kernels run (``pad_packed``), and a
+    slab past 256 outputs is held as its column blocks' images
+    (``operand_image_blocks``)."""
     with torch.no_grad():
+        packed = pad_packed(packed)
         slabs = forward_slabs(packed)
-        fwd = [operand_image(slabs[k], dtype) for k in INPUT_SLABS if k in slabs]
-        fwd.append(operand_image(slabs["whh"], dtype).reshape(-1))
+        fwd = [operand_image_blocks(slabs[k], dtype) for k in INPUT_SLABS if k in slabs]
+        fwd.append(operand_image_blocks(slabs["whh"], dtype).reshape(-1))
         bwd = None
         if backward:
-            bwd = torch.cat([operand_image(packed["whh"], dtype).reshape(-1)]
+            bwd = torch.cat([operand_image_blocks(packed["whh"], dtype).reshape(-1)]
                             + [input_image(packed[k], dtype) for k in INPUT_SLABS if k in packed])
         return torch.cat(fwd), bwd
 
@@ -248,7 +315,7 @@ def tc_images(packed, backward: bool = False,
 def image_numels(packed, dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     """Elements of the forward and the backward image ``tc_images(packed,
     backward=True, dtype=dtype)`` builds (floats, or bfloat16 values)."""
-    hidden = packed["whh"].shape[-1]
+    hidden = padded_hidden(hidden_of(packed))
     widths = [packed[k].shape[0] for k in INPUT_SLABS if k in packed]
     per = 1 if dtype == torch.bfloat16 else 2  # hi and lo in TF32
     slabs = packed["whh"].shape[0] * per * hidden * hidden

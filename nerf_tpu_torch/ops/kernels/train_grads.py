@@ -28,14 +28,12 @@ import torch
 from nerf_tpu_torch.ops import compositing
 from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
-    HIDDEN_WIDTHS,
-    MAX_COLORS,
     PACK_ORDER,
     Packed,
     _packed_from_args,
     check_inputs,
     classic_mlp_fwd_plain,
-    flat_grads_to_packed,
+    kernel_grads,
     packed_grads_plain,
     route,
     scratch_pointers,
@@ -152,19 +150,16 @@ def classic_train_grads(
             packed, x_enc, d_enc, dists, noise, pixels, num_samples,
             white_background, loss_weight, return_weights,
         )
-    if hidden not in HIDDEN_WIDTHS:
-        raise ValueError(f"{NAME}: hidden width {hidden} not in {HIDDEN_WIDTHS}")
     if not 0 < s <= MAX_SAMPLES:
         raise ValueError(f"{NAME}: takes 1..{MAX_SAMPLES} samples per ray, got {s}")
-    if colors > MAX_COLORS:
-        raise ValueError(f"{NAME}: at most {MAX_COLORS} color outputs, got {colors}")
     if n_rays == 0:
         raise ValueError(f"{NAME}: needs at least one ray")
     rows = n_rays * s
     de = d_enc.shape[-1] if has_view else 0
     fn_name, policy = route(NAME, dtype == torch.bfloat16)
-    sc = train_scratch(packed, rows, device)
-    tc_fwd, tc_bwd = tc_mlp.tc_images(packed, backward=True, dtype=dtype)
+    kpacked = tc_mlp.pad_packed(packed)
+    sc = train_scratch(kpacked, rows, device)
+    tc_fwd, tc_bwd = tc_mlp.tc_images(kpacked, backward=True, dtype=dtype)
     loss = torch.empty((1,), dtype=torch.float32, device=device)
     weights = torch.empty((n_rays, s), dtype=torch.float32, device=device) if return_weights else None
     gout = torch.empty_like(sc["out"])
@@ -174,14 +169,14 @@ def classic_train_grads(
         x_enc.data_ptr(), _build.ptr(d_enc), dists.data_ptr(), noise.data_ptr(),
         pixels.data_ptr(), loss.data_ptr(), sc["grads"].data_ptr(), _build.ptr(weights),
         n_rays, s, xe, de, hidden, colors, int(white_background), float(loss_weight),
-        *weight_pointers(packed), *scratch_pointers(sc), gout.data_ptr(), ray_loss.data_ptr(),
+        *weight_pointers(kpacked), *scratch_pointers(sc), gout.data_ptr(), ray_loss.data_ptr(),
         sc["splits"], tc_fwd.data_ptr(), tc_bwd.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(NAME, err)
     _build.launch_counts[NAME] += 1
     _build.policy_counts[(NAME, policy)] += 1
-    d_packed = flat_grads_to_packed(sc["grads"], packed)
+    d_packed = kernel_grads(sc["grads"], kpacked, packed)
     if return_weights:
         return loss[0], d_packed, weights
     return loss[0], d_packed

@@ -8,9 +8,10 @@ run as 3xTF32 on the tensor cores (``csrc/tc_mlp.cuh``, on the operand images
 ``tc_mlp.tc_images`` builds, once per call unless the caller built them
 once per frame), the epilogues, heads and
 compositing in float32, at every encoding width (the encodings stream
-through the tile a k-chunk at a time; ``_build.tile_plan`` raises only
-where the fine samples' outputs and compositing scratch outgrow a block,
-and ``_build.policy_counts`` records ``"tc"``).
+through the tile a k-chunk at a time), hidden width (``csrc/tc_mlp.cuh``
+note 11), sample count and colour count (the fine outputs and the
+compositing scratch lie in device memory, so the block's bytes are the
+tile's alone, and ``_build.policy_counts`` records ``"tc"``).
 ``union_eval_plain`` is its plain PyTorch version: ``classic_mlp_fwd_plain``
 followed by ``weights_from_union_sorted`` and the ``composite_*`` functions
 (with ``matmul=tc_mlp.tc_matmul`` it emulates the kernel's products).
@@ -27,17 +28,15 @@ import torch
 from nerf_tpu_torch.ops import compositing
 from nerf_tpu_torch.ops.kernels import _build, tc_mlp
 from nerf_tpu_torch.ops.kernels.classic_mlp import (
-    HIDDEN_WIDTHS,
     Packed,
     check_inputs,
     classic_mlp_fwd_plain,
     route,
     weight_pointers,
+    wide_scratch,
 )
 
 NAME = "union_eval"
-MAX_SAMPLES = 256  # per block (coarse, fine) the kernel takes
-MAX_COLORS = 8
 
 
 def union_eval_plain(
@@ -128,27 +127,28 @@ def union_eval(
             raise ValueError(f"{NAME}: {key} must be {shape}, got {tuple(t.shape)}")
     if device.type == "cpu":
         return union_eval_plain(packed, x_enc, d_enc, t_coarse, t_fine, dens_c, col_c, dnorm)
-    if hidden not in HIDDEN_WIDTHS:
-        raise ValueError(f"{NAME}: hidden width {hidden} not in {HIDDEN_WIDTHS}")
-    if not (0 < s_coarse <= MAX_SAMPLES and 0 < s_fine <= MAX_SAMPLES):
-        raise ValueError(f"{NAME}: takes 1..{MAX_SAMPLES} coarse and fine samples per ray, "
+    if s_coarse < 1 or s_fine < 1:
+        raise ValueError(f"{NAME}: takes at least one coarse and one fine sample per ray, "
                          f"got {s_coarse} + {s_fine}")
-    if colors > MAX_COLORS:
-        raise ValueError(f"{NAME}: at most {MAX_COLORS} color outputs, got {colors}")
     out = torch.empty((n_rays, colors + 2), dtype=torch.float32, device=device)
     if n_rays:
         de = d_enc.shape[1] if has_view else 0
-        _build.tile_plan(NAME, xe, de, hidden, colors, s_coarse, s_fine)
+        kpacked = tc_mlp.pad_packed(packed)
         if tc_fwd is None:
-            tc_fwd = tc_mlp.tc_images(packed, dtype=dtype)[0]
+            tc_fwd = tc_mlp.tc_images(kpacked, dtype=dtype)[0]
         fn_name, policy = route(NAME, dtype == torch.bfloat16)
-        fn = getattr(_build.load(NAME), fn_name)
+        lib = _build.load(NAME)
+        fn = getattr(lib, fn_name)
+        fout = torch.empty((n_rays * s_fine, colors + 1), dtype=torch.float32, device=device)
+        scratch = torch.empty((n_rays, 4 * (s_coarse + s_fine)), dtype=torch.float32,
+                              device=device)
+        wide = wide_scratch(packed, lib.union_eval_blocks(n_rays, s_fine), device)
         err = fn(
             x_enc.data_ptr(), _build.ptr(d_enc), t_coarse.data_ptr(), t_fine.data_ptr(),
             dens_c.data_ptr(), col_c.data_ptr(), dnorm.data_ptr(), out.data_ptr(),
             n_rays, s_coarse, s_fine, xe, de, hidden, colors,
-            *weight_pointers(packed), _build.ptr(tc_fwd),
-            torch.cuda.current_stream(device).cuda_stream,
+            *weight_pointers(kpacked), _build.ptr(tc_fwd), fout.data_ptr(),
+            scratch.data_ptr(), _build.ptr(wide), torch.cuda.current_stream(device).cuda_stream,
         )
         _build.check_launch(NAME, err)
         _build.launch_counts[NAME] += 1

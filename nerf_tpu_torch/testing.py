@@ -31,29 +31,38 @@ from nerf_tpu_torch.train import make_fused_loss_and_grads
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(matmul=None):
     """The classic main path's five wrappers and the mip family's three
     replaced by their plain versions (the same arguments; bfloat16
     encodings or features run the bf16 emulation; the mip forward under
-    autograd differentiates its plain version, so K5-bwd is not reached).
-    Raises if a kernel launched inside: a caller that reached a wrapper by
-    another name would compare the kernel with itself.  The launch counts
-    outside are kept."""
+    autograd differentiates its plain version, so K5-bwd is not reached),
+    each given ``matmul`` (``Bf16Float64Sums.apply``: the plain path with
+    its sums in float64).  Raises if a kernel launched inside: a caller
+    that reached a wrapper by another name would compare the kernel with
+    itself.  The launch counts outside are kept."""
     k1 = classic_mlp.classic_mlp_fwd_plain
+    k2 = train_grads.classic_train_grads_plain
     k3 = fine_stage_train.fine_stage_train_plain
     k4 = union_eval.union_eval_plain
     k5 = mip_mlp.mip_mlp_fwd_plain
     k6 = mip_train.mip_train_grads_plain
     k7 = mip_train.mip_eval_plain
+
+    def fwd(packed, x, d=None, *images):
+        return k1(packed, x, d, matmul=matmul)
+
     patches = (
-        (classic_mlp, "classic_mlp_fwd", lambda packed, x, d=None, *images: k1(packed, x, d)),
-        (fine_stage_train, "classic_mlp_fwd", lambda packed, x, d=None, *images: k1(packed, x, d)),
-        (union_eval, "union_eval", lambda *args, tc_fwd=None: k4(*args)),
-        (fine_stage_train, "fine_stage_train", lambda *args, tc_fwd=None, tc_bwd=None: k3(*args)),
-        (train_grads, "classic_train_grads", train_grads.classic_train_grads_plain),
-        (mip_mlp, "mip_mlp_fwd", lambda packed, x, tc_fwd=None: k5(packed, x)),
-        (mip_train, "mip_train_grads", lambda *args, tc_fwd=None, tc_bwd=None: k6(*args)),
-        (mip_train, "mip_eval", lambda *args, tc_fwd=None: k7(*args)),
+        (classic_mlp, "classic_mlp_fwd", fwd),
+        (fine_stage_train, "classic_mlp_fwd", fwd),
+        (union_eval, "union_eval", lambda *args, tc_fwd=None: k4(*args, matmul=matmul)),
+        (fine_stage_train, "fine_stage_train",
+         lambda *args, tc_fwd=None, tc_bwd=None: k3(*args, matmul=matmul)),
+        (train_grads, "classic_train_grads", lambda *args, **kwargs: k2(*args, **kwargs,
+                                                                        matmul=matmul)),
+        (mip_mlp, "mip_mlp_fwd", lambda packed, x, tc_fwd=None: k5(packed, x, matmul=matmul)),
+        (mip_train, "mip_train_grads",
+         lambda *args, tc_fwd=None, tc_bwd=None: k6(*args, matmul=matmul)),
+        (mip_train, "mip_eval", lambda *args, tc_fwd=None: k7(*args, matmul=matmul)),
     )
     originals = [(m, n, getattr(m, n)) for m, n, _ in patches]
     counts = dict(_build.launch_counts)
@@ -72,10 +81,10 @@ def plain_versions():
         raise RuntimeError(f"the plain path launched kernels: {launched}")
 
 
-def bf16_step_reference(model, render, batch, draws, seg_weight: float = 0.0):
+def bf16_step_reference(model, render, batch, draws, seg_weight: float = 0.0, matmul=None):
     """The plain step's loss and gradients (``make_fused_loss_and_grads``
-    under ``plain_versions``)."""
-    with plain_versions():
+    under ``plain_versions(matmul)``)."""
+    with plain_versions(matmul):
         loss, grads, _ = make_fused_loss_and_grads(model, render, seg_weight)(batch, draws)
     return loss, grads
 

@@ -2,7 +2,7 @@
 card.
 
     python scripts/torch_bf16_sensitivity.py [--family classic|mip|point|widths|mega-widths|
-                                                      latent-cotangents|mip-widths|all]
+                                                      latent-cotangents|mip-widths|hidden|all]
 
 For K1-bwd in compute_dtype bfloat16 (``classic_mlp.classic_mlp_bwd`` on
 bfloat16 encodings, with the encodings' cotangents) at a few widths and
@@ -60,6 +60,16 @@ version, beside the float32 kernel's and the plain version's own with its
 sums in float64 (``Bf16Float64Sums``).  Run from two trees, it compares two
 ways of summing the bf16 feature product (``csrc/mip_mlp.cuh``,
 ``kChunkedSums``).
+
+``--family hidden``: the card tests' bf16 check of the inputs' cotangents
+(``test_bf16_kernels_match_plain_at_every_width``: K1-bwd's ``dx`` and
+``dd`` on BF16_ROWS rows away from the bf16 kinks under a loss's
+cotangents; ``test_bf16_point_and_mega_kernels_match_plain_at_every_width``:
+K8-bwd's raw inputs' cotangents) at hidden 256, 512 and 1024 (past 256 the
+column blocks of ``csrc/tc_mlp.cuh`` note 11) for three seeds: the
+kernel's, the float32 kernel's and the plain version's own distance with
+float64 sums (``Bf16Float64Sums``) from the plain bf16 version.  Run from
+two trees, it compares two ways of summing the wide products.
 Exits non-zero without a GPU.
 """
 
@@ -100,6 +110,7 @@ from test_torch_cuda import (  # noqa: E402
     point_consts,
     point_loss_cotangent,
     rows_away_from_kinks,
+    width_packed,
 )
 
 CASES = ((64, True), (128, False), (256, True))
@@ -259,6 +270,45 @@ def widths_family(device) -> None:
     torch.cuda.synchronize()
 
 
+def hidden_family(device) -> None:
+    bf = torch.bfloat16
+    f64 = Bf16Float64Sums.apply
+    for hidden in (256, 512, 1024):
+        cfg, packed = width_packed(device, hidden, True)
+        for seed in (hidden, hidden + 1, hidden + 2):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            d = torch.rand((BF16_ROWS, cfg.d_encoding_dim), generator=gen, device=device) * 2 - 1
+            x = rows_away_from_kinks(packed, gen, BF16_ROWS, 1, cfg.x_encoding_dim, d,
+                                     tc_mlp.bf16_matmul).reshape(BF16_ROWS, -1).bfloat16()
+            d = d.bfloat16()
+            g = loss_cotangent(packed, x, d)
+            dx, dd, _ = classic_mlp.classic_mlp_bwd(packed, x, d, g)
+            rdx, rdd, _ = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g)
+            fdx, fdd, _ = classic_mlp.classic_mlp_bwd(packed, x.float(), d.float(), g)
+            ddx, ddd, _ = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g, matmul=f64)
+            ref = {"dx": rdx, "dd": rdd}
+            print(f"K1-bwd bf16 hidden {hidden}, seed {seed}: dx, dd from plain: kernel "
+                  f"{flat_rel({'dx': dx, 'dd': dd}, ref):.3e}, float32 kernel "
+                  f"{flat_rel({'dx': fdx, 'dd': fdd}, ref):.3e}, plain with float64 sums "
+                  f"{flat_rel({'dx': ddx, 'dd': ddd}, ref):.3e}", flush=True)
+        for seed in (hidden, hidden + 1, hidden + 2):
+            cfg, packed, consts, pts, dirs = point_bf16_case(device, BF16_ROWS, seed,
+                                                             hidden_size=hidden)
+            g = point_loss_cotangent(packed, pts, dirs, consts)
+            raw = lambda r: {"dp": r[0], "dd": r[1]}  # noqa: E731
+            ref = raw(point_mlp.classic_pointmlp_bwd_plain(packed, pts, dirs, consts, g,
+                                                           dtype=bf))
+            got = raw(point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g, dtype=bf))
+            f32 = raw(point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g))
+            d64 = raw(point_mlp.classic_pointmlp_bwd_plain(packed, pts, dirs, consts, g,
+                                                           matmul=f64, dtype=bf))
+            print(f"K8-bwd bf16 hidden {hidden}, seed {seed}: raw inputs' cotangents from "
+                  f"plain: kernel {flat_rel(got, ref):.3e}, float32 kernel "
+                  f"{flat_rel(f32, ref):.3e}, plain with float64 sums {flat_rel(d64, ref):.3e}",
+                  flush=True)
+    torch.cuda.synchronize()
+
+
 def mega_widths_family(device) -> None:
     for lanes in (20, 40, 234):
         for rays in (512, 2048):
@@ -342,7 +392,7 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--family",
                         choices=("classic", "mip", "point", "widths", "mega-widths",
-                                 "latent-cotangents", "mip-widths", "all"),
+                                 "latent-cotangents", "mip-widths", "hidden", "all"),
                         default="classic")
     family = parser.parse_args().family
     if not torch.cuda.is_available():
@@ -366,7 +416,10 @@ def main() -> int:
     if family in ("mip-widths", "all"):
         with torch.no_grad():
             mip_widths_family(device)
-    if family in ("mip", "point", "widths", "mega-widths", "latent-cotangents", "mip-widths"):
+    if family in ("hidden", "all"):
+        hidden_family(device)
+    if family in ("mip", "point", "widths", "mega-widths", "latent-cotangents", "mip-widths",
+                  "hidden"):
         return 0
     for hidden, view in CASES:
         cfg = ClassicNeRFConfig(hidden_size=hidden, use_viewdirs=view)

@@ -4,6 +4,8 @@ kernels' at feature widths of the mip model.
 
     python scripts/torch_tile_timing.py [--widths 0,7,32] [--dtypes float32,bfloat16]
     python scripts/torch_tile_timing.py --family mip [--features 96,144,600]
+    python scripts/torch_tile_timing.py --widths 0 --hidden 48,64,200,256,512,1024
+    python scripts/torch_tile_timing.py --widths 0 --colors 16 --samples 64,384
 
 The full-width ClassicNeRF (hidden 256, view branch on, random weights from
 seed 0) with 3 + s density inputs, s = 0, 7 and 32 state scalars: encodings
@@ -20,6 +22,14 @@ inputs in [-1, 1) from a seed:
 * K8-fwd and K8-bwd (with the raw inputs' cotangents) at 262,144 points,
   x encodings of 3 x 20, 3 x 68 and 3 x 234 lanes (60, 204, 702);
 * K9 at 2048 x (64 + 128), at 60 + 36 only (it takes no state).
+
+``--hidden`` runs the model at other hidden widths (each listed width for
+each state width; 256 by default): a width the tiles do not instantiate
+runs on weights padded to one, past 256 in column blocks (``csrc/tc_mlp.cuh``
+note 11).  ``--colors`` sets the colour outputs (3 by default), and
+``--samples sc,sf`` the coarse and fine samples of K3, K4 and K9 (64,128).
+``--outputs PATH`` also saves each call's outputs (``torch.save``, by
+dtype and kernel) to compare two trees' bit for bit.
 
 ``--family mip``: the full-width MipNeRF (hidden 256, 5 layers, 3 + 50
 outputs, random weights from seed 0) with ``encoding_size`` F / 3 for each
@@ -81,15 +91,32 @@ from nerf_tpu_torch.ops.kernels import (  # noqa: E402
 )
 
 K8_LANES = {0: 20, 7: 68, 32: 234}  # x_positional_encoding_size of K8's model per width
+# With --outputs: (kernel, its first call's outputs) of each timed call, in
+# call order.
+SAVE: list = []
+KEEP_OUTPUTS = False
+
+
+def tensors_of(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out.detach().cpu()]
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in tensors_of(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in tensors_of(o)]
+    return []
 
 
 def timed(name: str, fn, iters: int, flops: float) -> dict:
     """The mean ms of ``fn`` beside its operations' bounds: 3xTF32 (FLOP at
-    165 TFLOP/s) and bf16 (989 TFLOP/s)."""
+    165 TFLOP/s) and bf16 (989 TFLOP/s); with ``--outputs`` the first
+    call's outputs are kept in SAVE."""
     bounds = {"bound_3xtf32_ms": flops / chip_smoke.PEAK_3XTF32_FLOPS * 1e3,
               "bound_bf16_ms": flops / chip_smoke.PEAK_BF16_FLOPS * 1e3}
     _build.policy_counts.clear()
     try:
+        if KEEP_OUTPUTS:
+            SAVE.append((name, tensors_of(fn())))
         ms = chip_smoke.cuda_ms(fn, iters=iters)
     except ValueError as e:
         return {"ms": None, "error": str(e).split(",")[0], **bounds}
@@ -97,7 +124,8 @@ def timed(name: str, fn, iters: int, flops: float) -> dict:
     return {"ms": ms, "policy": "/".join(policies), **bounds}
 
 
-def run(device, s: int, dtype: str) -> dict:
+def run(device, s: int, dtype: str, hidden: int = 256, colors: int = 3,
+        samples=(64, 128)) -> dict:
     bf16 = dtype == "bfloat16"
     tdt = torch.bfloat16 if bf16 else torch.float32
     gen = torch.Generator(device=device).manual_seed(s)
@@ -106,7 +134,8 @@ def run(device, s: int, dtype: str) -> dict:
         out = torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
         return out.to(tdt) if enc else out
 
-    cfg = ClassicNeRFConfig(normalize_position=6.0, density_inputs=3 + s, compute_dtype=dtype)
+    cfg = ClassicNeRFConfig(normalize_position=6.0, density_inputs=3 + s, compute_dtype=dtype,
+                            hidden_size=hidden, color_outputs=colors)
     model = ClassicNeRF(cfg, generator=torch.Generator().manual_seed(0), device=device)
     packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
     xe, de = cfg.x_encoding_dim, cfg.d_encoding_dim
@@ -118,16 +147,17 @@ def run(device, s: int, dtype: str) -> dict:
             out[f"K1-fwd {rows}"] = timed(classic_mlp.NAME,
                                           lambda: classic_mlp.classic_mlp_fwd(packed, x, d), 10,
                                           rows * per_row)
-        rays, sc, sf = 4000, 64, 128
+        rays, (sc, sf) = 4000, samples
         t_c = torch.sort(rand(rays, sc, lo=2.0, hi=6.0), -1).values
         t_f = torch.sort(rand(rays, sf, lo=2.0, hi=6.0), -1).values
         k4 = (packed, rand(rays, sf, xe, enc=True), rand(rays, de, enc=True), t_c, t_f,
-              rand(rays, sc, 1, lo=-3.0, hi=6.0), rand(rays, sc, 3, lo=-3.0, hi=3.0),
+              rand(rays, sc, 1, lo=-3.0, hi=6.0), rand(rays, sc, colors, lo=-3.0, hi=3.0),
               rand(rays, lo=0.5, hi=2.0))
-        out["K4 4000 x (64 + 128)"] = timed(union_eval.NAME, lambda: union_eval.union_eval(*k4),
-                                            10, rays * sf * per_row)
+        out[f"K4 4000 x ({sc} + {sf})"] = timed(union_eval.NAME,
+                                                lambda: union_eval.union_eval(*k4), 10,
+                                                rays * sf * per_row)
         rows = 131_072
-        x, d, g = rand(rows, xe, enc=True), rand(rows, de, enc=True), rand(rows, 4)
+        x, d, g = rand(rows, xe, enc=True), rand(rows, de, enc=True), rand(rows, 1 + colors)
         for grads in (False, True):
             out[f"K1-bwd {rows} input_grads={grads}"] = timed(
                 classic_mlp.BWD_NAME,
@@ -138,7 +168,7 @@ def run(device, s: int, dtype: str) -> dict:
             a = dict(x_enc=rand(rays, s_, xe, enc=True),
                      d_enc=rand(rays, 1, de, enc=True).expand(rays, s_, de).contiguous(),
                      dists=compositing.distances_from_tvals(t, rand(rays, 3)).contiguous(),
-                     noise=rand(rays, s_), pixels=rand(rays, 3, lo=0.0, hi=1.0))
+                     noise=rand(rays, s_), pixels=rand(rays, colors, lo=0.0, hi=1.0))
             out[f"K2 {rays} x {s_}"] = timed(
                 train_grads.NAME,
                 lambda: train_grads.classic_train_grads(packed, **a, num_samples=s_), 5,
@@ -149,13 +179,14 @@ def run(device, s: int, dtype: str) -> dict:
         a = dict(x_enc=rand(rays, sf, xe, enc=True),
                  d_enc=rand(rays, 1, de, enc=True).expand(rays, sf, de).contiguous(),
                  t_coarse=t_c, t_fine=t_f, dens_c=rand(rays, sc, 1, lo=-3.0, hi=6.0),
-                 col_c=rand(rays, sc, 3, lo=-3.0, hi=3.0), dnorm=rand(rays, lo=0.5, hi=2.0),
-                 noise_f=rand(rays, sf), pixels=rand(rays, 3, lo=0.0, hi=1.0))
-        out["K3 2048 x (64 + 128)"] = timed(
+                 col_c=rand(rays, sc, colors, lo=-3.0, hi=3.0), dnorm=rand(rays, lo=0.5, hi=2.0),
+                 noise_f=rand(rays, sf), pixels=rand(rays, colors, lo=0.0, hi=1.0))
+        out[f"K3 2048 x ({sc} + {sf})"] = timed(
             fine_stage_train.NAME, lambda: fine_stage_train.fine_stage_train(packed, **a), 5,
             train_kernel_flops(cfg, rays, sf))
 
-        pcfg = ClassicNeRFConfig(normalize_position=6.0, x_positional_encoding_size=K8_LANES[s])
+        pcfg = ClassicNeRFConfig(normalize_position=6.0, x_positional_encoding_size=K8_LANES[s],
+                                 hidden_size=hidden, color_outputs=colors)
         pmodel = ClassicNeRF(pcfg, generator=torch.Generator().manual_seed(0), device=device)
         ppacked = classic_mlp.pack_classic_params(pmodel.mlp.requires_grad_(False))
         consts = point_mlp.encoding_consts(pcfg.x_positional_encoding_size,
@@ -163,7 +194,7 @@ def run(device, s: int, dtype: str) -> dict:
                                            pcfg.d_positional_encoding_size, pcfg.direction_bound,
                                            device)
         n = 262_144
-        pts, dirs, g = rand(n, 3, lo=-2.0, hi=2.0), rand(n, 3), rand(n, 4)
+        pts, dirs, g = rand(n, 3, lo=-2.0, hi=2.0), rand(n, 3), rand(n, 1 + colors)
         width = f"{pcfg.x_encoding_dim} + {pcfg.d_encoding_dim}"
         out[f"K8-fwd {n} ({width})"] = timed(
             point_mlp.NAME,
@@ -175,28 +206,29 @@ def run(device, s: int, dtype: str) -> dict:
             train_kernel_flops(pcfg, n, 1, input_grads=True))
 
         if s == 0:
-            render = RenderConfig(num_coarse_samples=64, num_fine_samples=128, near=2.0,
+            render = RenderConfig(num_coarse_samples=sc, num_fine_samples=sf, near=2.0,
                                   far=6.0, randomly_sample=True, density_noise_std=1.0,
                                   reuse_coarse_in_fine=True)
             rays = 2048
             batch = {"rays_o": rand(rays, 3, lo=-0.5, hi=0.5), "rays_d": rand(rays, 3),
-                     "pixels": rand(rays, 3, lo=0.0, hi=1.0)}
+                     "pixels": rand(rays, colors, lo=0.0, hi=1.0)}
             draws = sampling.draw_step(gen, render, rays, device)
             inputs = mega_train.mega_inputs(model, batch, draws)
-            out["K9 2048 x (64 + 128)"] = timed(
+            out[f"K9 2048 x ({sc} + {sf})"] = timed(
                 mega_train.NAME, lambda: mega_train.mega_train(packed, *inputs), 5,
-                train_kernel_flops(cfg, rays, 64 + 128))
-    return {"encodings": f"{xe} + {de}", "dtype": dtype, "kernels": out}
+                train_kernel_flops(cfg, rays, sc + sf))
+    return {"encodings": f"{xe} + {de}", "hidden": hidden, "colors": colors, "dtype": dtype,
+            "kernels": out}
 
 
-def run_mip(device, features: int, dtype: str) -> dict:
+def run_mip(device, features: int, dtype: str, hidden: int = 256, colors: int = 3) -> dict:
     tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     gen = torch.Generator(device=device).manual_seed(features)
 
     def rand(*shape, lo=-1.0, hi=1.0):
         return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
 
-    cfg = MipNeRFConfig(encoding_size=features // 3)
+    cfg = MipNeRFConfig(encoding_size=features // 3, hidden_size=hidden, color_outputs=colors)
     model = MipNeRF(cfg, generator=torch.Generator().manual_seed(0), device=device)
     packed = mip_mlp.pack_mip_params(model.mlp.requires_grad_(False))
     per_row = mip_flops_per_point(cfg)
@@ -228,7 +260,8 @@ def run_mip(device, features: int, dtype: str) -> dict:
         out[f"K7 {rays} x {rows}"] = timed(mip_train.EVAL_NAME,
                                            lambda: mip_train.mip_eval(*ev), 10,
                                            rays * rows * per_row)
-    return {"features": features, "dtype": dtype, "kernels": out}
+    return {"features": features, "hidden": hidden, "colors": colors, "dtype": dtype,
+            "kernels": out}
 
 
 def main() -> int:
@@ -239,6 +272,12 @@ def main() -> int:
     parser.add_argument("--family", choices=("classic", "mip"), default="classic")
     parser.add_argument("--features", default="96,144,600",
                         help="mip feature widths (multiples of 3), comma-separated")
+    parser.add_argument("--hidden", default="256", help="hidden widths, comma-separated")
+    parser.add_argument("--colors", type=int, default=3)
+    parser.add_argument("--samples", default="64,128",
+                        help="coarse and fine samples of K3, K4 and K9")
+    parser.add_argument("--outputs", default=None,
+                        help="save each call's outputs to this file (torch.save)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("torch_tile_timing: needs an NVIDIA GPU", file=sys.stderr)
@@ -247,12 +286,20 @@ def main() -> int:
     device = torch.device("cuda")
     card = chip_smoke.nvidia_smi("name,power.limit")
     _build.build()
+    global KEEP_OUTPUTS
+    KEEP_OUTPUTS = args.outputs is not None
+    hidden = [int(h) for h in args.hidden.split(",")]
     if args.family == "mip":
-        results = [run_mip(device, int(f), dtype) for f in args.features.split(",")
+        results = [run_mip(device, int(f), dtype, h, args.colors)
+                   for f in args.features.split(",") for h in hidden
                    for dtype in args.dtypes.split(",")]
     else:
-        results = [run(device, int(s), dtype) for s in args.widths.split(",")
+        samples = tuple(int(n) for n in args.samples.split(","))
+        results = [run(device, int(s), dtype, h, args.colors, samples)
+                   for s in args.widths.split(",") for h in hidden
                    for dtype in args.dtypes.split(",")]
+    if args.outputs is not None:
+        torch.save(SAVE, args.outputs)
     print(card)
     print(json.dumps({"card": card, "tree": str(REPO), "results": results}))
     return 0

@@ -30,8 +30,11 @@ recorded ``tc`` and matches plain, in both dtypes.  The mip kernels
 stream their features through the same tile: at 144 and 600 features (the
 ``wide`` and ``too_wide`` mip cases), with 12 layers, a 300-wide head and
 rays of 1100 and 2000 rows, every call records ``tc`` (``tc_bf16``) and
-matches plain at the tolerances of the default model; only a hidden width
-outside ``HIDDEN_WIDTHS`` raises.  The
+matches plain at the tolerances of the default model.  Every hidden width
+runs (``EVERY_WIDTH``: 48 and 200 on weights padded to a tile, 512 in
+column blocks of 256, ``csrc/tc_mlp.cuh`` note 11), as do 16 colours
+(``COLORS``) and 64 + 384 samples: the cases that raised before now hold
+the kernel against plain at the same shapes.  The
 products alone (``tc_linear``, ``tc_wgrad`` of ``csrc/tc_product.cu``) are
 held against the CPU emulation of the same arithmetic
 (``tc_mlp.tc_matmul``) and against the float64 product.
@@ -67,6 +70,11 @@ from nerf_tpu_torch.testing import (
 
 K1_TOL = dict(rtol=1e-4, atol=1e-4)
 K4_TOL = dict(rtol=5e-4, atol=1e-4)
+# Every hidden width the kernels run: the tiles' instantiations, two widths
+# padded to one (48 -> 64, 200 -> 256) and one past 256 (two column
+# blocks).
+EVERY_WIDTH = classic_mlp.HIDDEN_WIDTHS + (48, 200, 512)
+COLORS = 16  # past the 8 the per-ray passes once kept in registers
 
 VARIANTS = {
     "full_width": dict(hidden_size=256),
@@ -114,7 +122,8 @@ def union_args(cfg, packed, device, rays, sc, sf, seed=0):
     t_f = torch.sort(t_f, -1).values
     d_enc = rand(gen, rays, cfg.d_encoding_dim) if cfg.use_viewdirs else None
     return (packed, rand(gen, rays, sf, cfg.x_encoding_dim), d_enc, t_c, t_f,
-            rand(gen, rays, sc, 1, lo=-3.0, hi=6.0), rand(gen, rays, sc, 3, lo=-3.0, hi=3.0),
+            rand(gen, rays, sc, 1, lo=-3.0, hi=6.0),
+            rand(gen, rays, sc, cfg.color_outputs, lo=-3.0, hi=3.0),
             rand(gen, rays, lo=0.5, hi=2.0))
 
 
@@ -134,7 +143,7 @@ def test_classic_mlp_fwd_kernel_matches_plain(cuda, variant, points):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sc,sf", [(16, 24), (64, 128), (7, 256)])
+@pytest.mark.parametrize("sc,sf", [(16, 24), (64, 128), (7, 256), (64, 384)])
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_union_eval_kernel_matches_plain(cuda, variant, sc, sf):
     cfg, packed = packed_weights(variant, cuda)
@@ -161,30 +170,45 @@ def test_union_eval_kernel_is_deterministic(cuda, variant):
 
 @pytest.mark.cuda
 def test_wrappers_raise_instead_of_falling_back(cuda):
+    """CPU tensors among card tensors raise, and so does K2 past its 1024
+    samples a ray (JAX's K2 takes 512).  The shapes that raised before the
+    hidden widths' slice run their kernel and match plain: K4 and K3 at 8 +
+    257 samples, K1-fwd and K1-bwd at hidden 48 (4 rows away from the
+    kinks)."""
     cfg, packed = packed_weights("no_view", cuda)
-    with pytest.raises(ValueError, match="samples"):
-        union_eval.union_eval(*union_args(cfg, packed, cuda, rays=2, sc=8, sf=257))
+    args = union_args(cfg, packed, cuda, rays=2, sc=8, sf=257)
+    policies = dict(_build.policy_counts)
+    got = union_eval.union_eval(*args)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {(union_eval.NAME, "tc"): 1}
+    for g, r in zip(got, union_eval.union_eval_plain(*args)):
+        torch.testing.assert_close(g, r, **K4_TOL)
     x = torch.zeros(4, cfg.x_encoding_dim)  # on the CPU, weights on the card
     with pytest.raises(ValueError, match="cpu"):
         classic_mlp.classic_mlp_fwd(packed, x)
-    mlp48 = ClassicMLP(ClassicNeRFConfig(hidden_size=48, use_viewdirs=False), device=cuda)
-    packed48 = classic_mlp.pack_classic_params(mlp48.requires_grad_(False))
-    with pytest.raises(ValueError, match="hidden width"):
-        classic_mlp.classic_mlp_fwd(packed48, torch.zeros(4, cfg.x_encoding_dim, device=cuda))
-    # The training kernels: a CPU tensor among card tensors, a width or a
-    # sample count the kernel does not take.
+    cfg48, packed48 = width_packed(cuda, 48, False)
+    x48, _, g48 = k1_inputs(cfg48, packed48, cuda, rays=1, s=4)
+    policies = dict(_build.policy_counts)
+    out = classic_mlp.classic_mlp_fwd(packed48, x48)
+    _, _, d_packed = classic_mlp.classic_mlp_bwd(packed48, x48, None, g48, input_grads=False)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {(classic_mlp.NAME, "tc"): 1, (classic_mlp.BWD_NAME, "tc"): 1}
+    torch.testing.assert_close(out, classic_mlp.classic_mlp_fwd_plain(packed48, x48), **K1_TOL)
+    assert_grads_close(d_packed, classic_mlp.classic_mlp_bwd_plain(packed48, x48, None, g48,
+                                                                   input_grads=False)[2])
+    # The training kernels: a CPU tensor among card tensors, or a sample
+    # count the kernel does not take.
     with pytest.raises(ValueError, match="cpu"):
         classic_mlp.classic_mlp_bwd(packed, torch.zeros(4, cfg.x_encoding_dim, device=cuda),
                                     None, torch.zeros(4, 4))
-    with pytest.raises(ValueError, match="hidden width"):
-        classic_mlp.classic_mlp_bwd(packed48, torch.zeros(4, cfg.x_encoding_dim, device=cuda),
-                                    None, torch.zeros(4, 4, device=cuda))
     a = train_inputs(cfg, cuda, rays=1, s=train_grads.MAX_SAMPLES + 1)
     with pytest.raises(ValueError, match="samples"):
         train_grads.classic_train_grads(packed, **a, num_samples=train_grads.MAX_SAMPLES + 1)
-    a = fine_inputs(cfg, cuda, rays=2, sc=8, sf=fine_stage_train.MAX_SAMPLES + 1)
-    with pytest.raises(ValueError, match="samples"):
-        fine_stage_train.fine_stage_train(packed, **a)
+    a = fine_inputs(cfg, cuda, rays=2, sc=8, sf=257, packed=packed)
+    loss, d_packed, _ = fine_stage_train.fine_stage_train(packed, **a)
+    r_loss, r_packed, _ = fine_stage_train.fine_stage_train_plain(packed, **a)
+    torch.testing.assert_close(loss, r_loss, rtol=LOSS_RTOL, atol=0)
+    assert_grads_close(d_packed, r_packed)
     a = fine_inputs(cfg, cuda, rays=2, sc=8, sf=8)
     a["pixels"] = a["pixels"].cpu()
     with pytest.raises(ValueError, match="cpu"):
@@ -366,7 +390,7 @@ def fine_inputs(cfg, device, rays, sc, sf, seed=0, packed=None):
         x_enc=x_enc,
         d_enc=d_ray[:, None, :].expand(rays, sf, -1).contiguous() if d_ray is not None else None,
         t_coarse=t_c, t_fine=t_f, dens_c=dens_c, col_c=col_c, dnorm=dnorm,
-        noise_f=rand(gen, rays, sf), pixels=rand(gen, rays, 3, lo=0.0, hi=1.0),
+        noise_f=rand(gen, rays, sf), pixels=rand(gen, rays, cfg.color_outputs, lo=0.0, hi=1.0),
     )
 
 
@@ -397,7 +421,7 @@ def width_packed(device, hidden, view):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("view", [True, False])
-@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+@pytest.mark.parametrize("hidden", EVERY_WIDTH)
 def test_train_grads_kernel_matches_plain_at_every_width(cuda, hidden, view):
     """K2's tensor-core passes at every hidden width: 3 rays x 67 samples
     (201 rows, not a multiple of 64), encodings 60 + 36 (not multiples of
@@ -423,7 +447,7 @@ def test_train_grads_kernel_matches_plain_at_every_width(cuda, hidden, view):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("view", [True, False])
-@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+@pytest.mark.parametrize("hidden", EVERY_WIDTH)
 def test_fine_stage_train_kernel_matches_plain_at_every_width(cuda, hidden, view):
     """K3's tensor-core passes at every hidden width: 3 rays x (7 + 67)
     (201 fine rows; wgrad reads the view encoding once per ray), encodings
@@ -460,7 +484,7 @@ def k1_inputs(cfg, packed, device, rays, s, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("view", [True, False])
-@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+@pytest.mark.parametrize("hidden", EVERY_WIDTH)
 def test_classic_mlp_kernels_match_plain_at_every_width(cuda, hidden, view):
     """K1-fwd and K1-bwd (as the reuse step calls it, no encoding
     cotangents) on the tensor cores at every hidden width: 3 rays x 67
@@ -486,40 +510,34 @@ def test_classic_mlp_kernels_match_plain_at_every_width(cuda, hidden, view):
 
 def predicted_tile_bytes(hidden, k4_shape=None):
     """Bytes of shared memory a block takes, counted from the layouts of
-    ``csrc/tc_mlp.cuh`` (the one tile of every kernel but K4: four
+    ``csrc/tc_mlp.cuh``: the one tile of every kernel, K4's included (four
     16-value chunk buffers of hi and lo weights, the ``[64][H + 4]``
     activation tile, the encodings' ring of four ``[64][20]`` slabs, 1024
-    bytes of alignment; the same at every encoding and feature width) and,
-    with ``k4_shape = (colors, sc, sf)``, ``csrc/union_eval.cu`` (K4's
-    block: also the compositing scratch in the activation tile's place
-    where larger, and the block's fine outputs)."""
+    bytes of alignment; the same at every encoding and feature width, and,
+    since K4 keeps its fine outputs and compositing scratch in device
+    memory, at every ``k4_shape = (colors, sc, sf)``; past 256 the tile of
+    256, ``csrc/tc_mlp.cuh`` note 11)."""
+    hidden = min(hidden, 256)
     bbuf, act_tc, ring = 4 * 2 * hidden * 16, 64 * (hidden + 4), 4 * 64 * 20
-    if k4_shape is None:
-        return 4 * (bbuf + act_tc + ring) + 1024
-    colors, sc, sf = k4_shape
-    comp = 8 * 4 * (sc + sf)
-    outs = (1 if sf >= 256 else 256 // sf) * sf * (1 + colors)
-    return 4 * (bbuf + max(act_tc, comp) + ring + outs) + 1024
+    return 4 * (bbuf + act_tc + ring) + 1024
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
 def test_the_tile_fits_the_optin_limit(cuda, hidden):
-    """The one tile of every kernel but K4 takes the same bytes at every
-    encoding and feature width, which the device lets a block opt in to."""
+    """The one tile of every kernel takes the same bytes at every encoding
+    and feature width, which the device lets a block opt in to."""
     limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
     assert predicted_tile_bytes(hidden) <= limit
 
 
 def tile_policy(kernel, xe, de, colors=0, sc=0, sf=0):
     """The policy a float32 call of ``kernel`` at hidden 256 records:
-    ``"tc"``, every kernel's one tile; K4, whose block depends on its
-    sample counts (``_build.PLANNED``), follows its plan, whose bytes and
-    limit are held to ``predicted_tile_bytes`` and the device's."""
-    if kernel in _build.PLANNED:
-        plan = _build.tile_plan(kernel, xe, de, 256, colors, sc, sf)
-        limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
-        assert plan == (predicted_tile_bytes(256, (colors, sc, sf)), limit)
+    ``"tc"``, every kernel's one tile, K4's too, whose bytes are the tile's
+    at every ``(colors, sc, sf)`` (``predicted_tile_bytes``) and fit the
+    device's opt-in limit."""
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert predicted_tile_bytes(256, (colors, sc, sf)) <= limit
     return "tc"
 
 
@@ -879,7 +897,7 @@ def test_mip_train_grads_kernel_matches_plain(cuda, variant, rows, seg_weight, w
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", sorted(MIP_VARIANTS))
-@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+@pytest.mark.parametrize("hidden", EVERY_WIDTH)
 def test_mip_kernels_match_plain_at_every_width(cuda, hidden, variant):
     """K7 and K6 (seg weight 0.1) on the tensor cores at every hidden width
     of both mip variants (96 and 24 features; 54 and 9 outputs, so the
@@ -978,28 +996,29 @@ def test_mip_kernels_take_every_shape(cuda, case, dtype):
 @pytest.mark.cuda
 def test_mip_wrappers_raise_past_every_tile(cuda):
     """600 features (past the 588 of the float32 SIMT tile the mip kernels
-    once handed off to): K6 and K7 raise only on a hidden width outside
-    ``HIDDEN_WIDTHS`` (48), naming it, with nothing launched or counted; at
-    hidden 256 each runs its tensor-core tile, one launch recording
-    ``tc``."""
-    cfg, packed = mip_packed("full_width", cuda, encoding_size=200)
-    _, packed48 = mip_packed("full_width", cuda, encoding_size=200, hidden_size=48)
-    a = mip_inputs(cfg, cuda, rays=2, rows=5)
-    e_args = (a["features"], a["dists"], a["t_mids"])
-    t_args = (a["features"], a["dists"], a["noise"], a["pixels"], a["labels"])
-    torch.cuda.synchronize()
-    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
-    with pytest.raises(ValueError, match="hidden width"):
-        mip_train.mip_eval(packed48, *e_args)
-    with pytest.raises(ValueError, match="hidden width"):
-        mip_train.mip_train_grads(packed48, *t_args, seg_weight=0.1)
-    assert dict(_build.launch_counts) == launches
-    assert dict(_build.policy_counts) == policies
-    mip_train.mip_eval(packed, *e_args)
-    mip_train.mip_train_grads(packed, *t_args, seg_weight=0.1)
-    torch.cuda.synchronize()
-    assert policy_moves(policies) == {(mip_train.EVAL_NAME, "tc"): 1,
-                                      (mip_train.TRAIN_NAME, "tc"): 1}
+    once handed off to), at hidden 48 (which raised before the hidden
+    widths' slice) and 256: K6 and K7 raise on neither; each call runs its
+    tensor-core tile, one launch recording ``tc``, and matches plain (K7 at
+    K1_TOL, K6's loss at LOSS_RTOL and its gradients at GRAD_ATOL, on
+    features away from the kinks)."""
+    for hidden in (48, 256):
+        cfg, packed = mip_packed("full_width", cuda, encoding_size=200, hidden_size=hidden)
+        a = mip_inputs(cfg, cuda, rays=2, rows=5, packed=packed)
+        e_args = (packed, a["features"], a["dists"], a["t_mids"])
+        t_args = (packed, a["features"], a["dists"], a["noise"], a["pixels"], a["labels"])
+        torch.cuda.synchronize()
+        policies = dict(_build.policy_counts)
+        got_e = mip_train.mip_eval(*e_args)
+        got_t = mip_train.mip_train_grads(*t_args, seg_weight=0.1)
+        torch.cuda.synchronize()
+        assert policy_moves(policies) == {(mip_train.EVAL_NAME, "tc"): 1,
+                                          (mip_train.TRAIN_NAME, "tc"): 1}
+        for g, r in zip(got_e, mip_train.mip_eval_plain(*e_args)):
+            torch.testing.assert_close(g, r, **K1_TOL)
+        ref_t = mip_train.mip_train_grads_plain(*t_args, seg_weight=0.1)
+        torch.testing.assert_close(got_t[0], ref_t[0], rtol=LOSS_RTOL, atol=0)
+        torch.testing.assert_close(got_t[1], ref_t[1], rtol=LOSS_RTOL, atol=0)
+        assert_grads_close(got_t[2], ref_t[2])
 
 
 @pytest.mark.cuda
@@ -1026,11 +1045,17 @@ def test_mip_wrappers_raise_instead_of_falling_back(cuda):
                                   a16["noise"], a16["pixels"], a16["labels"], seg_weight=0.1,
                                   tc_fwd=f32_fwd, tc_bwd=f32_bwd)
     assert dict(_build.launch_counts) == before
-    packed48 = mip_mlp.pack_mip_params(
-        MipMLP(MipNeRFConfig(hidden_size=48), device=cuda).requires_grad_(False))
-    with pytest.raises(ValueError, match="hidden width"):
-        mip_mlp.mip_mlp_bwd(packed48, torch.zeros(4, 96, device=cuda),
-                            torch.zeros(4, 54, device=cuda))
+    # Hidden 48 (raised before the hidden widths' slice): K5-bwd runs.
+    cfg48, packed48 = mip_packed("full_width", cuda, hidden_size=48)
+    gen = torch.Generator(device=cuda).manual_seed(48)
+    x48 = mip_rows_away_from_kinks(packed48, gen, 1, 4, cfg48.feature_dim)[0]
+    g48 = rand(gen, 4, cfg48.num_outputs)
+    policies = dict(_build.policy_counts)
+    dx48, d48 = mip_mlp.mip_mlp_bwd(packed48, x48, g48)
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {(mip_mlp.BWD_NAME, "tc"): 1}
+    rdx48, r48 = mip_mlp.mip_mlp_bwd_plain(packed48, x48, g48)
+    assert_grads_close(d48 | {"dx": dx48}, r48 | {"dx": rdx48})
     a = mip_inputs(cfg, cuda, rays=2, rows=7)
     with pytest.raises(ValueError, match="labels"):
         mip_train.mip_train_grads(packed, a["features"], a["dists"], a["noise"], a["pixels"],
@@ -1038,6 +1063,93 @@ def test_mip_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="cpu"):
         mip_train.mip_train_grads(packed, a["features"], a["dists"], a["noise"],
                                   a["pixels"].cpu(), a["labels"], seg_weight=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_kernels_take_16_colours(cuda, compute):
+    """16 colours (``COLORS``, past the 8 the per-ray passes once kept in
+    registers) at hidden 64: K2, K3, K4, K1-bwd (the colour cotangents), K9,
+    K6 (seg weight 0.1) and K7, each one launch on its tensor-core tile,
+    against plain: in float32 at the kernels' tolerances (K1-bwd, K2, K3
+    and K6 on rows away from the kinks), in bf16 at the card's bf16 bounds
+    (K1-bwd on BF16_ROWS rows and a loss's cotangents, K9 on 512 rays x (64
+    + 128))."""
+    bf = compute == "bfloat16"
+    cfg = ClassicNeRFConfig(hidden_size=64, color_outputs=COLORS)
+    mlp = ClassicMLP(cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    packed = classic_mlp.pack_classic_params(mlp.requires_grad_(False))
+    cast = bf16 if bf else (lambda a: a)
+
+    def outputs_ok(got, ref, tol):
+        if bf:
+            assert rel_l2(got, ref) <= BF16_FWD
+        else:
+            torch.testing.assert_close(got, ref, **tol)
+
+    grads_ok = assert_bf16_grads if bf else assert_grads_close
+    loss_tol = dict(rtol=LOSS_RTOL, atol=0)
+    policies = dict(_build.policy_counts)
+    a = cast(train_inputs(cfg, cuda, rays=3, s=64, packed=packed))
+    assert a["pixels"].shape == (3, COLORS)
+    loss, grads = train_grads.classic_train_grads(packed, **a, num_samples=64, loss_weight=0.5)
+    r_loss, r_grads = train_grads.classic_train_grads_plain(packed, **a, num_samples=64,
+                                                            loss_weight=0.5)
+    outputs_ok(loss, r_loss, loss_tol)
+    grads_ok(grads, r_grads)
+    a = cast(fine_inputs(cfg, cuda, rays=3, sc=7, sf=64, packed=packed))
+    loss, grads, (gdc, gcc) = fine_stage_train.fine_stage_train(packed, **a, loss_weight=0.5)
+    r_loss, r_grads, (rgdc, rgcc) = fine_stage_train.fine_stage_train_plain(packed, **a,
+                                                                            loss_weight=0.5)
+    outputs_ok(loss, r_loss, loss_tol)
+    grads_ok(grads | {"g_dens_c": gdc, "g_col_c": gcc},
+             r_grads | {"g_dens_c": rgdc, "g_col_c": rgcc})
+    args = list(union_args(cfg, packed, cuda, rays=9, sc=16, sf=24))
+    if bf:
+        args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
+    got = union_eval.union_eval(*args)
+    assert got[0].shape == (9, COLORS)
+    for g, r in zip(got, union_eval.union_eval_plain(*args)):
+        outputs_ok(g, r, K4_TOL)
+    if bf:
+        gen = torch.Generator(device=cuda).manual_seed(16)
+        d = rand(gen, BF16_ROWS, cfg.d_encoding_dim)
+        x = rows_away_from_kinks(packed, gen, BF16_ROWS, 1, cfg.x_encoding_dim, d,
+                                 tc_mlp.bf16_matmul).reshape(BF16_ROWS, -1).bfloat16()
+        d = d.bfloat16()
+        g_out = loss_cotangent(packed, x, d)
+    else:
+        x, d, g_out = k1_inputs(cfg, packed, cuda, rays=3, s=67, seed=16)
+    _, _, grads = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads=False)
+    grads_ok(grads, classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads=False)[2])
+    mcfg, mpacked = mip_packed("full_width", cuda, hidden_size=64, color_outputs=COLORS)
+    if bf:
+        m = mip_bf16_inputs(mcfg, mpacked, cuda, rays=64, rows=63, seed=16)
+    else:
+        m = mip_inputs(mcfg, cuda, rays=4, rows=63, seed=16, packed=mpacked)
+    t_args = [mpacked] + [m[k] for k in ("features", "dists", "noise", "pixels", "labels")]
+    kw = dict(color_outputs=COLORS, seg_weight=0.1)
+    rgb, seg, grads = mip_train.mip_train_grads(*t_args, **kw)
+    r_rgb, r_seg, r_grads = mip_train.mip_train_grads_plain(*t_args, **kw)
+    outputs_ok(rgb + 0.1 * seg, r_rgb + 0.1 * r_seg, loss_tol)
+    grads_ok(grads, r_grads)
+    e_args = (mpacked, m["features"], m["dists"], m["t_mids"], m["noise"], COLORS, True)
+    got = mip_train.mip_eval(*e_args)
+    assert got[0].shape[-1] == COLORS
+    for g, r in zip(got, mip_train.mip_eval_plain(*e_args)):
+        outputs_ok(g, r, K1_TOL)
+    torch.cuda.synchronize()
+    policy = "tc_bf16" if bf else "tc"
+    names = (train_grads.NAME, fine_stage_train.NAME, union_eval.NAME, classic_mlp.BWD_NAME,
+             mip_train.TRAIN_NAME, mip_train.EVAL_NAME)
+    assert policy_moves(policies) == {(name, policy): 1 for name in names}
+    if bf:
+        check_mega_bf16_against_plain(*mega_setup(cuda, True, 64, 128, False, rays=512,
+                                                  color_outputs=COLORS,
+                                                  compute_dtype="bfloat16"), False, False)
+    else:
+        check_mega_against_plain(*mega_setup(cuda, True, 8, 16, False, color_outputs=COLORS),
+                                 False, False)
 
 
 @pytest.mark.cuda
@@ -1240,7 +1352,7 @@ def test_input_cotangent_kernels_follow_the_width_rule(cuda, variant, kernel):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", [point_mlp.BWD_NAME, mip_mlp.BWD_NAME])
-@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+@pytest.mark.parametrize("hidden", EVERY_WIDTH)
 def test_input_cotangent_kernels_match_plain_at_every_width(cuda, hidden, kernel):
     """K8-bwd (encodings 60 + 36) and K5-bwd (96 features) with the inputs'
     cotangents at every hidden width (below 64 the input cotangent's passes
@@ -1307,19 +1419,19 @@ def test_input_cotangent_autograd_builds_the_images_once(cuda, monkeypatch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", [mip_mlp.BWD_NAME])
 def test_input_cotangent_wrappers_raise_past_every_tile(cuda, kernel):
-    """600 features at a hidden width outside ``HIDDEN_WIDTHS`` (48): K5-bwd
-    raises, naming it, with nothing launched or counted, the one shape it
-    refuses (at hidden 256 it takes 600 features:
+    """600 features at hidden 48, the shape K5-bwd refused before the hidden
+    widths' slice: it runs its tensor-core passes, one launch recording
+    ``tc``, and matches plain (at hidden 256 it takes 600 features too:
     ``test_input_cotangent_kernels_follow_the_width_rule``).  (K8-bwd takes
     every encoding width.)"""
     _, _, call = input_tc_case(kernel, cuda, points=5, hidden_size=48,
                                **INPUT_TC_WIDTHS[kernel]["too_wide"])
     torch.cuda.synchronize()
-    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
-    with pytest.raises(ValueError, match="hidden width"):
-        call()
-    assert dict(_build.launch_counts) == launches
-    assert dict(_build.policy_counts) == policies
+    policies = dict(_build.policy_counts)
+    got = call()
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {(kernel, "tc"): 1}
+    assert_grads_close(got, call(plain=True))
 
 
 # K8-fwd's and K5-fwd's models beside the full-width ones: x encodings of
@@ -1399,19 +1511,19 @@ def test_forward_kernels_take_an_image_built_beforehand(cuda, kernel):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", [mip_mlp.NAME])
 def test_forward_wrappers_raise_past_every_tile(cuda, kernel):
-    """600 features at a hidden width outside ``HIDDEN_WIDTHS`` (48): K5-fwd
-    raises, naming it, with nothing launched or counted, the one shape it
-    refuses (at hidden 256 it takes 600 features:
-    ``test_forward_kernels_follow_the_width_rule``).  (K8-fwd takes every
-    encoding width.)"""
+    """600 features at hidden 48, the shape K5-fwd refused before the hidden
+    widths' slice: it runs its tensor-core tile, one launch recording
+    ``tc``, and matches plain at K1_TOL (at hidden 256 it takes 600
+    features too: ``test_forward_kernels_follow_the_width_rule``).  (K8-fwd
+    takes every encoding width.)"""
     _, _, call = forward_case(kernel, cuda, points=5, hidden_size=48,
                               **FORWARD_TC_WIDTHS[kernel]["too_wide"])
     torch.cuda.synchronize()
-    launches, policies = dict(_build.launch_counts), dict(_build.policy_counts)
-    with pytest.raises(ValueError, match="hidden width"):
-        call()
-    assert dict(_build.launch_counts) == launches
-    assert dict(_build.policy_counts) == policies
+    policies = dict(_build.policy_counts)
+    got = call()
+    torch.cuda.synchronize()
+    assert policy_moves(policies) == {(kernel, "tc"): 1}
+    torch.testing.assert_close(got, call(plain=True), **K1_TOL)
 
 
 @pytest.mark.cuda
@@ -1457,7 +1569,7 @@ def mega_setup(device, view, sc, sf, white, rays=5, seed=14, hidden=64, **cfg):
                           reuse_coarse_in_fine=True)
     gen = torch.Generator(device=device).manual_seed(seed)
     batch = {"rays_o": rand(gen, rays, 3, lo=-0.5, hi=0.5), "rays_d": rand(gen, rays, 3),
-             "pixels": rand(gen, rays, 3, lo=0.0, hi=1.0)}
+             "pixels": rand(gen, rays, model.cfg.color_outputs, lo=0.0, hi=1.0)}
     return model, render, batch, sampling.draw_step(gen, render, rays, device)
 
 
@@ -1503,9 +1615,12 @@ def mega_setup_away_from_kinks(device, view, sc, sf, hidden, rays=5):
     of two float32-accurate evaluations can take the other branch and move
     that row's gradient (see ``away_from_kinks``; at hidden 256 one such
     input among 200 rows moved ``w0``'s gradient by up to 3.8e-4 of its
-    largest entry on the card)."""
-    model, render, batch, draws = mega_setup(device, view, sc, sf, False, rays=4 * rays + 8,
-                                             hidden=hidden)
+    largest entry on the card).  A width the tiles do not instantiate draws
+    more candidates: its rows have more ReLU inputs near 0 (at hidden 200
+    only 4 of 28 rays were clear of them, at 512 1 of 68)."""
+    per_ray = 4 if hidden in classic_mlp.HIDDEN_WIDTHS else 12 if hidden < 256 else 160
+    model, render, batch, draws = mega_setup(device, view, sc, sf, False,
+                                             rays=per_ray * rays + 8, hidden=hidden)
     inputs = mega_train.mega_inputs(model, batch, draws)
     x_c, d_ray, t_c, _, _, _, rays_o, rays_d, _, placement, is_cos = inputs
     packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
@@ -1526,7 +1641,7 @@ def mega_setup_away_from_kinks(device, view, sc, sf, hidden, rays=5):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("view", [True, False])
-@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+@pytest.mark.parametrize("hidden", EVERY_WIDTH)
 def test_mega_train_kernel_matches_plain_at_every_width(cuda, hidden, view):
     """K9's tensor-core passes at every hidden width, 5 rays x (7 + 33):
     200 rows (not a multiple of 64), encodings 60 + 36 (not multiples of
@@ -1620,12 +1735,11 @@ def test_point_and_mega_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="view"):
         point_mlp.classic_pointmlp_fwd(no_view, torch.zeros(4, 3, device=cuda),
                                        torch.zeros(4, 3, device=cuda), consts)
-    model, render, batch, draws = mega_setup(cuda, True, 8, mega_train.MAX_SAMPLES + 1, False)
-    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
-    inputs = mega_train.mega_inputs(model, batch, draws)
-    with pytest.raises(ValueError, match="samples"):
-        mega_train.mega_train(packed, *inputs)
+    # 8 + 257 samples, which K9 refused before the hidden widths' slice: it
+    # runs and matches plain.
+    check_mega_against_plain(*mega_setup(cuda, True, 8, 257, False), False, False)
     model, render, batch, draws = mega_setup(cuda, True, 8, 16, False)
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
     inputs = list(mega_train.mega_inputs(model, batch, draws))
     inputs[8] = inputs[8].cpu()  # the pixels
     with pytest.raises(ValueError, match="cpu"):
@@ -1679,6 +1793,27 @@ def assert_bf16_grads(got: dict, ref: dict) -> None:
     assert err <= BF16_GRAD, err
 
 
+# Past hidden 256 the plain bf16 version's inputs' cotangents move past
+# BF16_GRAD when only the order of its sums changes: 2.1e-2 to 2.3e-2 from
+# themselves at hidden 512 with float64 sums, 3.6e-2 to 3.7e-2 at 1024, against
+# 1.3e-2 to 1.4e-2 at 256 (scripts/torch_bf16_sensitivity.py --family
+# hidden).  There they are held within BF16_COTANGENT_RATIO times that
+# distance, chip_smoke.py phase 13's rule for the latent widths' cotangents.
+BF16_COTANGENT_RATIO = 1.3
+
+
+def assert_bf16_cotangents(got: dict, ref: dict, hidden: int, plain64) -> None:
+    """The inputs' cotangents of a bf16 kernel against its plain version:
+    within BF16_GRAD up to hidden 256, past it within BF16_COTANGENT_RATIO
+    times the distance of ``plain64()`` (the plain version with float64
+    sums, the same keys) from the plain version."""
+    if hidden <= 256:
+        assert_bf16_grads(got, ref)
+        return
+    err, own = packed_rel_l2(got, ref), packed_rel_l2(plain64(), ref)
+    assert err <= BF16_COTANGENT_RATIO * own, (err, own)
+
+
 def assert_check_sees_float32(f32: dict, ref: dict) -> None:
     """The float32 kernel's gradients on a bf16 check's inputs fail it."""
     err = packed_rel_l2(f32, ref)
@@ -1694,11 +1829,8 @@ BF16_VARIANTS = ["full_width", "latent_full_width", "latent", "latent_7", "laten
 
 
 def bf16_route(cfg, kernel, *shape):
-    """The policy a bf16 call records, ``tc_bf16``, once K4's plan (which
-    raises where its block does not fit) has been asked."""
-    if kernel in _build.PLANNED:
-        _build.tile_plan(kernel, cfg.x_encoding_dim,
-                         cfg.d_encoding_dim if cfg.use_viewdirs else 0, cfg.hidden_size, *shape)
+    """The policy a bf16 call records, ``tc_bf16``: every kernel's one
+    tile, K4's at every shape."""
     return "tc_bf16"
 
 
@@ -1793,7 +1925,7 @@ def test_bf16_train_kernels_match_plain(cuda, variant):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("view", [True, False])
-@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+@pytest.mark.parametrize("hidden", EVERY_WIDTH)
 def test_bf16_kernels_match_plain_at_every_width(cuda, hidden, view):
     """Every hidden width's bf16 products (m64nNk16 for N / 2 = 16 .. 128,
     the input cotangents' passes of min(H, 64) columns), with and without
@@ -1814,8 +1946,10 @@ def test_bf16_kernels_match_plain_at_every_width(cuda, hidden, view):
     assert_bf16_grads(d_packed, ref)
     assert_check_sees_float32(classic_mlp.classic_mlp_bwd(
         packed, x.float(), None if d is None else d.float(), g_out, False)[2], ref)
-    assert_bf16_grads({"dx": dx, **({"dd": dd} if view else {})},
-                      {"dx": rdx, **({"dd": rdd} if view else {})})
+    cotangents = lambda r: {"dx": r[0], **({"dd": r[1]} if view else {})}  # noqa: E731
+    assert_bf16_cotangents(cotangents((dx, dd)), cotangents((rdx, rdd)), hidden,
+                           lambda: cotangents(classic_mlp.classic_mlp_bwd_plain(
+                               packed, x, d, g_out, matmul=Bf16Float64Sums.apply)))
     a = bf16(train_inputs(cfg, cuda, rays=2, s=33))
     loss, grads = train_grads.classic_train_grads(packed, **a, num_samples=33)
     r_loss, ref = train_grads.classic_train_grads_plain(packed, **a, num_samples=33)
@@ -2016,7 +2150,7 @@ def test_bf16_mip_train_grads_matches_plain(cuda, variant, seg_weight, white):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+@pytest.mark.parametrize("hidden", EVERY_WIDTH)
 def test_bf16_mip_kernels_match_plain_at_every_width(cuda, hidden):
     """Every hidden width's bf16 products (m64nNk16 for N / 2 = 16 .. 128,
     the features' cotangent in passes of min(H, 64) columns) and a 9-wide
@@ -2305,7 +2439,7 @@ def test_bf16_mega_train_matches_plain_at_wide_encodings(cuda, lanes, exact):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hidden", classic_mlp.HIDDEN_WIDTHS)
+@pytest.mark.parametrize("hidden", EVERY_WIDTH)
 def test_bf16_point_and_mega_kernels_match_plain_at_every_width(cuda, hidden):
     """K8-fwd, K8-bwd (a loss's cotangents; the float32 kernel fails the
     raw inputs' check) and K9 (512 rays x (64 + 128), 98,304 rows) in bf16
@@ -2320,13 +2454,29 @@ def test_bf16_point_and_mega_kernels_match_plain_at_every_width(cuda, hidden):
     got = point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out, dtype=bf)
     ref = point_mlp.classic_pointmlp_bwd_plain(packed, pts, dirs, consts, g_out, dtype=bf)
     assert_bf16_grads(got[2], ref[2])
-    assert_bf16_grads(raw_cotangents(got), raw_cotangents(ref))
+    assert_bf16_cotangents(raw_cotangents(got), raw_cotangents(ref), hidden,
+                           lambda: raw_cotangents(point_mlp.classic_pointmlp_bwd_plain(
+                               packed, pts, dirs, consts, g_out, matmul=Bf16Float64Sums.apply,
+                               dtype=bf)))
     assert_check_sees_float32(
         raw_cotangents(point_mlp.classic_pointmlp_bwd(packed, pts, dirs, consts, g_out)),
         raw_cotangents(ref))
-    check_mega_bf16_against_plain(*mega_setup(cuda, True, 64, 128, False, rays=512,
-                                              hidden=hidden, compute_dtype="bfloat16"),
-                                  False, False)
+    setup = mega_setup(cuda, True, 64, 128, False, rays=512, hidden=hidden,
+                       compute_dtype="bfloat16")
+    if hidden <= 256:
+        check_mega_bf16_against_plain(*setup, False, False)
+        return
+    # Past 256 the plain bf16 step's weight gradients move past BF16_GRAD by
+    # themselves when only the order of their sums changes, as at the wide
+    # encodings: held as test_bf16_mega_train_matches_plain_at_wide_encodings
+    # holds those, within MEGA_WIDE_RATIO times that distance.
+    packed, inputs, (_, _, d_packed, t_fine) = check_mega_bf16_against_plain(
+        *setup, False, False, grads=False)
+    ref = mega_train.mega_train_plain(packed, *inputs, t_fine=t_fine)[2]
+    floor = packed_rel_l2(mega_train.mega_train_plain(
+        packed, *inputs, t_fine=t_fine, matmul=Bf16Float64Sums.apply)[2], ref)
+    err = packed_rel_l2(d_packed, ref)
+    assert err <= MEGA_WIDE_RATIO * floor, (err, floor)
 
 
 @pytest.mark.cuda

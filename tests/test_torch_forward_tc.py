@@ -203,7 +203,7 @@ def c_parameter_count(function: str) -> int:
     raise AssertionError(f"no extern \"C\" {function} under {_build.CSRC}")
 
 
-@pytest.mark.parametrize("function", ["classic_pointmlp_fwd", "union_eval_plan",
+@pytest.mark.parametrize("function", ["classic_pointmlp_fwd", "union_eval_blocks",
                                       "mip_mlp_fwd", "mip_eval",
                                       "classic_mlp_bwd", "train_grads", "fine_stage_train",
                                       "mip_mlp_bwd", "mip_train_grads", "classic_pointmlp_bwd",
@@ -211,22 +211,24 @@ def c_parameter_count(function: str) -> int:
 def test_c_interfaces_take_what_the_build_binds(function):
     """``_build`` binds each new or changed C function with as many
     argument types as its source declares (ctypes would pass a missing
-    ``tc_fwd`` as the stream) and loads it, a shape-dependent plan
-    (``_build.PLANNED``: K4's block) beside its kernel."""
+    ``tc_fwd`` as the stream) and loads it, K4's block count
+    (``union_eval_blocks``, which sizes its wide scratch) beside its
+    kernel; no library exports a plan."""
     assert len(_build.ARGTYPES[function]) == c_parameter_count(function)
-    name = function.removesuffix("_plan")
+    name = function.removesuffix("_blocks")
     assert function in _build.FUNCTIONS[name]
-    assert (f"{name}_plan" in _build.FUNCTIONS[name]) == (name in _build.PLANNED)
+    assert not any(fn.endswith("_plan") for fn in _build.FUNCTIONS[name])
 
 
-CLASSIC_KERNELS = ("classic_mlp_fwd", "classic_mlp_bwd", "train_grads", "fine_stage_train",
-                   "classic_pointmlp_fwd", "classic_pointmlp_bwd", "mega_train")
+CLASSIC_KERNELS = ("classic_mlp_fwd", "union_eval", "classic_mlp_bwd", "train_grads",
+                   "fine_stage_train", "classic_pointmlp_fwd", "classic_pointmlp_bwd",
+                   "mega_train")
 
 
 @pytest.mark.parametrize("name", CLASSIC_KERNELS)
 def test_classic_kernels_have_no_plan(name):
     """The classic kernels' one tile takes the same bytes at every encoding
     width, so no classic library exports a plan and no wrapper asks one."""
-    assert name not in _build.PLANNED and f"{name}_plan" not in _build.ARGTYPES
+    assert f"{name}_plan" not in _build.ARGTYPES
     assert f"{name}_plan" not in _build.FUNCTIONS[name]
     assert f'extern "C" int {name}_plan(' not in (_build.CSRC / f"{name}.cu").read_text()
