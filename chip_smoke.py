@@ -4199,6 +4199,11 @@ def main() -> int:
     for name, report in reports.items():
         for label, usage in ptxas_usage(report):
             print(f"  {name}: {label}: {usage}")
+    # The wgmma notes by library and code: C7512, C7513 and C7515 mean ptxas
+    # serialized every wgmma of the kernel they name.
+    notes = collections.Counter((name, code) for name, report in reports.items()
+                                for code in re.findall(r"\((C75\d\d)\)", report))
+    print(f"ptxas wgmma notes by library: {dict(sorted(notes.items())) or 'none'}", flush=True)
     for name in _build.KERNELS:
         _build.load(name)
 
@@ -4232,6 +4237,14 @@ def main() -> int:
         row["dp_launches"] = dp_launches.get(row["name"], 0)
         row["sp_launches"] = sp_launches.get(row["name"], 0)
         row.update(bf16.get(row["name"], dict.fromkeys(BF16_ROW_KEYS)))
+    print("each kernel's time beside its share of the 3xTF32 (float32) and bf16 bounds:")
+    for row in kernels:
+        bf16_ms, bf16_bound = row.get("bf16_ms"), row.get("bf16_bound_ms")
+        row["bf16_share_of_bound"] = bf16_bound / bf16_ms if bf16_ms else None
+        bf16_part = (f"bf16 {bf16_ms:.3f} ms ({row['bf16_share_of_bound']:.3f} of "
+                     f"{bf16_bound:.3f})" if bf16_ms else "bf16 not run")
+        print(f"  {row['name']}: float32 {row['ms']:.3f} ms ({row['share_of_bound_tc']:.3f} of "
+              f"{row['bound_tc_ms']:.3f}), {bf16_part}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

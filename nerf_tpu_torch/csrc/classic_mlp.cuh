@@ -41,6 +41,11 @@ constexpr int kChunk = 16;  // head rows (outputs) staged at a time (mip_mlp.cuh
 constexpr float kLnEps = 1e-5f;
 constexpr unsigned kFull = 0xffffffffu;
 
+// The barrier of a tile's kThreads threads (named barrier 1): in a
+// tensor-core tile's block they are its consumers, beside a producer warp
+// that never waits here (tc_mlp.cuh note 2); elsewhere they are the block.
+__device__ __forceinline__ void tile_sync() { asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory"); }
+
 struct Weights {
   const float* w0;      // [xe, H]
   const float* wx;      // [xe, H], skip tail of block_1.0

@@ -96,14 +96,14 @@ __device__ void tile_colsum(const float (&s)[H / 32], float* red, float* out, in
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int j = 0; j < H / 32; ++j) red[warp * H + lane + 32 * j] = s[j];
-  __syncthreads();
+  tile_sync();
   for (int j = threadIdx.x; j < H; j += kThreads) {
     float t = 0.f;
 #pragma unroll
     for (int v = 0; v < kWarps; ++v) t += red[v * H + j];
     out[static_cast<size_t>(j) * stride] = t;
   }
-  __syncthreads();
+  tile_sync();
 }
 
 // A linear head out[:, col0:col0+n] = h @ W + bias (W row-major [H, n]) on

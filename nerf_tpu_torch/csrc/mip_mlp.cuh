@@ -111,13 +111,13 @@ __device__ void head_wide(const float (&h)[kRowsPerWarp][H / 32], float* act, fl
     for (int r = 0; r < kRowsPerWarp; ++r) acc[r][0] = acc[r][1] = 0.f;
     for (int k0 = 0; k0 < H; k0 += kRows) {
       // The chunk before is consumed, and this warp's rows of act written.
-      __syncthreads();
+      tile_sync();
       for (int i = threadIdx.x; i < kRows * 64; i += kThreads) {
         const int c = c0 + i % 64;
         wbuf[i] = c < n ? operand<kBf16>(__ldg(W + static_cast<size_t>(k0 + i / 64) * n + c))
                         : 0.f;
       }
-      __syncthreads();
+      tile_sync();
       for (int kk = 0; kk < kRows; kk += 4) {
         float4 a[kRowsPerWarp];
 #pragma unroll
@@ -177,43 +177,49 @@ inline constexpr bool kChunkedSums<MipFeatLoadT<T>> = false;
 // ([64][act_ld<H>()]) with the hidden slabs' forward images; each product's
 // accumulators go through act into the row-per-warp layout, where
 // layer_epilogue<kLnFirst> runs.  The head stays on the SIMT cores
-// (head_wide), its weights staged through the B chunk buffers bbuf, free
-// once the last product has retired (tc_gemm ends with every wgmma waited
-// for and a block-wide barrier).  Writes the O outputs of the tile's valid
-// rows to out (row stride O); with kSave every layer's xhat and statistics
-// go to save.  kBf16: bf16 images and products, the head's operands
-// rounded (note 10).
-template <int H, bool kSave, bool kBf16, class Load>
-__device__ void mip_tile_tc(const MipWeights& w, const MipImages& im, const Load& load,
-                            size_t row0, int nvalid, float* act, float* ring, float* bbuf,
-                            float* out, const Save* save) {
+// (head_wide), its weights staged through the B chunk buffers, lent by the
+// pipe once the last product has retired.  Writes the O outputs of the
+// tile's valid rows to out (row stride O); with kSave every layer's xhat
+// and statistics go to save.  kBf16: bf16 images and products, the head's
+// operands rounded (note 10).  In the producer's role only the products'
+// copies (tc_mlp.cuh's tc_block).
+template <int H, bool kSave, bool kBf16, class Pipe, class Load>
+__device__ void mip_tile_tc(Pipe& pipe, const MipWeights& w, const MipImages& im, const Load& load,
+                            size_t row0, int nvalid, float* act, float* ring, float* out,
+                            const Save* save) {
+  constexpr bool kC = Pipe::kConsumer;
   constexpr int ald = act_ld<H>();
   const size_t slab = tc_image_floats<kBf16>(H, H);
   float d[H / 4];
   float acc[kRowsPerWarp][H / 32];
   tc_zero<H>(d);
-  tc_gemm<H, kBf16>(d, EncA<Load, MipWeights>{load, w, 0, row0, nvalid, true, ring}, w.F,
-                    im.w_in, bbuf);
-  tc_to_rows<H>(d, act, acc);
-  layer_epilogue<H, kSave, true>(acc, w.b, w.g, w.beta, w.inv_h, w.padded, save, 0);
-  for (int i = 1; i < w.L; ++i) {
-    tc_store_rows<H>(acc, act);
-    tc_zero<H>(d);
-    tc_gemm<H, kBf16>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
+  tc_gemm<H, kBf16>(pipe, d, EncA<Load, MipWeights>{load, w, 0, row0, nvalid, true, ring}, w.F,
+                    im.w_in);
+  if constexpr (kC) {
     tc_to_rows<H>(d, act, acc);
-    layer_epilogue<H, kSave, true>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, w.inv_h,
-                                   w.padded, save, i);
+    layer_epilogue<H, kSave, true>(acc, w.b, w.g, w.beta, w.inv_h, w.padded, save, 0);
   }
-  head_wide<H, ald, kBf16>(acc, act, bbuf, w.w_out, w.b_out, w.O, out, nvalid);
+  for (int i = 1; i < w.L; ++i) {
+    if constexpr (kC) tc_store_rows<H>(acc, act);
+    tc_zero<H>(d);
+    tc_gemm<H, kBf16>(pipe, d, act, ald, H, im.whh + (i - 1) * slab);
+    if constexpr (kC) {
+      tc_to_rows<H>(d, act, acc);
+      layer_epilogue<H, kSave, true>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, w.inv_h,
+                                     w.padded, save, i);
+    }
+  }
+  pipe.lend([&] { head_wide<H, ald, kBf16>(acc, act, pipe.buf, w.w_out, w.b_out, w.O, out, nvalid); });
 }
 
 // mip_tile_tc past 256 (tc_mlp.cuh note 11): the layers in column blocks,
 // the tile's rows in device memory (pre, nrm), LayerNorm first (wide_norm
 // <kLnFirst>), the head over nrm (head_rows).
-template <bool kSave, bool kBf16, class Load>
-__device__ void mip_tile_wide(const MipWeights& w, const MipImages& im, const Load& load,
-                              size_t row0, int nvalid, float* act, float* ring, float* bbuf,
+template <bool kSave, bool kBf16, class Pipe, class Load>
+__device__ void mip_tile_wide(Pipe& pipe, const MipWeights& w, const MipImages& im,
+                              const Load& load, size_t row0, int nvalid, float* act, float* ring,
                               float* out, const Save* save, float* pre, float* nrm_f) {
+  constexpr bool kC = Pipe::kConsumer;
   using T = enc_t<kBf16>;
   constexpr int B = kColBlock;
   T* nrm = reinterpret_cast<T*>(nrm_f);
@@ -227,16 +233,23 @@ __device__ void mip_tile_wide(const MipWeights& w, const MipImages& im, const Lo
     for (int cb = 0; cb < nb; ++cb) {
       tc_zero<B>(d);
       if (i == 0)
-        tc_gemm<B, kBf16>(d, EncA<Load, MipWeights>{load, w, 0, row0, nvalid, true, ring}, w.F,
-                          im.w_in + cb * blk_f, bbuf);
+        tc_gemm<B, kBf16>(pipe, d, EncA<Load, MipWeights>{load, w, 0, row0, nvalid, true, ring},
+                          w.F, im.w_in + cb * blk_f);
       else
-        tc_gemm<B, kBf16>(d, prev, hp, im.whh + (i - 1) * slab + cb * blk_h, bbuf);
-      wide_store_block<false>(d, act, pre, hp, cb, w.b + i * hp, nvalid);
+        tc_gemm<B, kBf16>(pipe, d, prev, hp, im.whh + (i - 1) * slab + cb * blk_h);
+      if constexpr (kC) wide_store_block<false>(d, act, pre, hp, cb, w.b + i * hp, nvalid);
     }
-    wide_norm<kSave, true>(pre, nrm, hp, w.h, w.inv_h, nvalid, w.g + i * hp, w.beta + i * hp,
-                           save, i);
+    if constexpr (kC)
+      wide_norm<kSave, true>(pre, nrm, hp, w.h, w.inv_h, nvalid, w.g + i * hp, w.beta + i * hp,
+                             save, i);
   }
-  head_rows<kBf16>(nrm, hp, act, bbuf, w.w_out, w.b_out, w.O, out, w.O, 0, nvalid);
+  auto head = [&] {
+    head_rows<kBf16>(nrm, hp, act, pipe.buf, w.w_out, w.b_out, w.O, out, w.O, 0, nvalid);
+  };
+  if (w.O > kFewOutputs)
+    pipe.lend(head);
+  else if constexpr (kC)
+    head();
 }
 
 // The forward tile of a block: the B chunks, the activation tile and the
@@ -255,20 +268,23 @@ __device__ __forceinline__ void mip_fwd_tc_block(const MipWeights& w, const MipI
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
   const Save save{xhat, stats, static_cast<size_t>(P), row0, nvalid};
-  if constexpr (H > kColBlock)
-    mip_tile_wide<kSave, kBf16>(w, im, MipFeatLoadT<enc_t<kBf16>>{x}, row0, nvalid, act, ring,
-                                bbuf, out + row0 * w.O, &save, wide.pre + blockIdx.x * wide.stride,
-                                wide.nrm + blockIdx.x * wide.stride);
-  else
-    mip_tile_tc<H, kSave, kBf16>(w, im, MipFeatLoadT<enc_t<kBf16>>{x}, row0, nvalid, act, ring,
-                                 bbuf, out + row0 * w.O, &save);
+  tc_block<HT, kBf16>(bbuf, [&](auto& pipe) {
+    if constexpr (H > kColBlock)
+      mip_tile_wide<kSave, kBf16>(pipe, w, im, MipFeatLoadT<enc_t<kBf16>>{x}, row0, nvalid, act,
+                                  ring, out + row0 * w.O, &save,
+                                  wide.pre + blockIdx.x * wide.stride,
+                                  wide.nrm + blockIdx.x * wide.stride);
+    else
+      mip_tile_tc<H, kSave, kBf16>(pipe, w, im, MipFeatLoadT<enc_t<kBf16>>{x}, row0, nvalid, act,
+                                   ring, out + row0 * w.O, &save);
+  });
 }
 
 // K6's and K5-bwd's stored-chain forward over features x [P][F] -> out
 // [P][O], every layer's xhat [L][P][H] and statistics [L][P][2] stored for
 // the backward passes.  One block an SM.
 template <int H, bool kBf16 = false>
-__global__ void __launch_bounds__(kThreads, 1)
+NERF_TC_KERNEL
     mip_fwd_store_tc_kernel(MipWeights w, MipImages im, const enc_t<kBf16>* __restrict__ x,
                             float* __restrict__ out, int P, float* xhat, float* stats,
                             WideRows wide) {
@@ -277,7 +293,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // K7's and K5-fwd's forward, nothing saved.  One block an SM.
 template <int H, bool kBf16 = false>
-__global__ void __launch_bounds__(kThreads, 1)
+NERF_TC_KERNEL
     mip_fwd_tc_kernel(MipWeights w, MipImages im, const enc_t<kBf16>* __restrict__ x,
                       float* __restrict__ out, int P, WideRows wide) {
   mip_fwd_tc_block<H, false, kBf16>(w, im, x, out, P, nullptr, nullptr, wide);
@@ -290,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // past the valid rows and past O) and W^T's chunk through wbuf (kChunk rows
 // of H + 1 floats, the padding against bank conflicts of the transposing
 // stores), each read once per block, so every head width takes the same
-// shared memory.  Ends with a block-wide barrier.  kBf16: the output
+// shared memory.  Ends with a barrier of the tile's threads.  kBf16: the output
 // cotangents and W rounded to bfloat16 in the product (the JAX package's
 // _dot_t on the head); the b_out sums stay float32.
 template <int H, bool kBf16 = false>
@@ -307,26 +323,27 @@ __device__ void head_dh(float (&acc)[kRowsPerWarp][H / 32], const float* __restr
       const int j = i / kChunk, qq = i % kChunk;
       wbuf[qq * (H + 1) + j] = q0 + qq < O ? __ldg(W + static_cast<size_t>(j) * O + q0 + qq) : 0.f;
     }
-    __syncthreads();
+    tile_sync();
     if (threadIdx.x < kChunk && q0 + static_cast<int>(threadIdx.x) < O) {
       float s = 0.f;
       for (int r = 0; r < kTileRows; ++r) s += gs[r * kChunk + threadIdx.x];
       p_bout[q0 + threadIdx.x] = s;
     }
     chunk_fma<H, H + 1, kBf16>(acc, a_rows, kChunk, 0, min(kChunk, round_up4(O - q0)), wbuf);
-    __syncthreads();
+    tile_sync();
   }
 }
 
 // Bytes of shared memory of mip_bwd_rows_tc_kernel: the B chunks (also the
-// head's transposed weight chunks and the colsum scratch), the activation
-// tile, a chunk of the output cotangents and the alignment slack, at every
-// head width.
+// head's transposed weight chunks, lent by the pipe before the first
+// product), the activation tile, a chunk of the output cotangents, the
+// colsum scratch (kWarps x H floats) and the alignment slack, at every head
+// width.
 template <int H>
 __host__ constexpr size_t mip_bwd_rows_tc_smem() {
   constexpr int HT = col_width<H>();
   return (static_cast<size_t>(tc_bbuf_floats<HT>()) + static_cast<size_t>(kTileRows) * act_ld<HT>() +
-          (H > kColBlock ? kEncRingFloats : static_cast<size_t>(kTileRows) * kChunk)) *
+          (H > kColBlock ? kEncRingFloats : static_cast<size_t>(kTileRows) * kChunk + kWarps * H)) *
              sizeof(float) +
          kSmemAlign;
 }
@@ -336,7 +353,7 @@ __host__ constexpr size_t mip_bwd_rows_tc_smem() {
 // and W), and the tile's column sums of gout to p_bout.  A thread a
 // column, its 64 rows' sums in registers; the output cotangents staged
 // through gs ([64][64], zero past the valid rows and past O) 64 outputs at
-// a time, so each weight is read once.  Ends with a block-wide barrier.
+// a time, so each weight is read once.  Ends with a barrier of the tile's threads.
 template <bool kBf16>
 __device__ void head_dh_rows(const float* __restrict__ gout, int O, size_t row0, int nvalid,
                              const float* __restrict__ W, int hp, float* dh, float* gs,
@@ -352,12 +369,12 @@ __device__ void head_dh_rows(const float* __restrict__ gout, int O, size_t row0,
 #pragma unroll
     for (int r = 0; r < kTileRows; ++r) v[r] = 0.f;
     for (int q0 = 0; q0 < O; q0 += 64) {
-      __syncthreads();  // gs's last readers are done
+      tile_sync();  // gs's last readers are done
       for (int i = threadIdx.x; i < kTileRows * 64; i += kThreads) {
         const int r = i >> 6, q = q0 + (i & 63);
         gs[i] = r < nvalid && q < O ? operand<kBf16>(gout[(row0 + r) * O + q]) : 0.f;
       }
-      __syncthreads();
+      tile_sync();
       for (int qq = 0; qq < min(64, O - q0); ++qq) {
         const float wq = operand<kBf16>(__ldg(W + static_cast<size_t>(k) * O + q0 + qq));
 #pragma unroll
@@ -368,17 +385,18 @@ __device__ void head_dh_rows(const float* __restrict__ gout, int O, size_t row0,
     for (int r = 0; r < kTileRows; ++r)
       if (r < nvalid) dh[static_cast<size_t>(r) * hp + k] = v[r];
   }
-  __syncthreads();
+  tile_sync();
 }
 
 // mip_bwd_rows_tc_kernel past 256 (note 11): each layer's dh goes to the
 // tile's rows of its dpre, where layer_bwd_wide<kLnFirst> turns it into
 // dpre.
-template <bool kBf16>
-__device__ void mip_bwd_rows_wide(const MipWeights& w, const float* __restrict__ gout, int P,
-                                  const float* xhat, const float* stats,
+template <bool kBf16, class Pipe>
+__device__ void mip_bwd_rows_wide(Pipe& pipe, const MipWeights& w, const float* __restrict__ gout,
+                                  int P, const float* xhat, const float* stats,
                                   const float* __restrict__ bwd, float* dpre, float* tpart,
-                                  void* dx, float* bbuf, float* act, float* ring) {
+                                  void* dx, float* act, float* ring) {
+  constexpr bool kC = Pipe::kConsumer;
   const int L = w.L, hp = w.hp;
   const size_t slab = tc_image_floats<kBf16>(hp, hp), PP = static_cast<size_t>(P);
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
@@ -387,15 +405,19 @@ __device__ void mip_bwd_rows_wide(const MipWeights& w, const float* __restrict__
   float* p_g = p_b + L * hp;
   float* p_beta = p_g + L * hp;
   auto rows = [&](int layer) { return dpre_rows(dpre, layer, PP, row0, hp); };
-  head_dh_rows<kBf16>(gout, w.O, row0, nvalid, w.w_out, hp, rows(L - 1), bbuf, p_beta + L * hp);
+  pipe.lend([&] {
+    head_dh_rows<kBf16>(gout, w.O, row0, nvalid, w.w_out, hp, rows(L - 1), pipe.buf,
+                        p_beta + L * hp);
+  });
   for (int i = L - 1; i >= 0; --i) {
-    layer_bwd_wide<true>(rows(i), i, w.g + i * hp, w.beta + i * hp, w.h, w.inv_h, hp, PP, row0,
-                         nvalid, xhat, stats, p_b, p_g, p_beta);
+    if constexpr (kC)
+      layer_bwd_wide<true>(rows(i), i, w.g + i * hp, w.beta + i * hp, w.h, w.inv_h, hp, PP,
+                           row0, nvalid, xhat, stats, p_b, p_g, p_beta);
     if (i == 0) break;
-    wide_dh<kBf16>(w, rows(i), rows(i - 1), hp, nvalid, bwd + (i - 1) * slab, act, ring, bbuf);
+    wide_dh<kBf16>(pipe, w, rows(i), rows(i - 1), hp, nvalid, bwd + (i - 1) * slab, act, ring);
   }
   if (dx != nullptr)
-    tc_input_grad_wide<kBf16, enc_t<kBf16>>(w, act, ring, bbuf, dpre, PP, row0, nvalid, hp, 0,
+    tc_input_grad_wide<kBf16, enc_t<kBf16>>(pipe, w, act, ring, dpre, PP, row0, nvalid, hp, 0,
                                             tc_input_images<kBf16>(bwd, L - 1, hp), -1, nullptr,
                                             w.F, dx);
 }
@@ -410,20 +432,22 @@ __device__ void mip_bwd_rows_wide(const MipWeights& w, const float* __restrict__
 // images and products, the head's input cotangent rounded (head_dh), dx
 // bfloat16 (note 10).
 template <int H, bool kBf16 = false>
-__global__ void __launch_bounds__(kThreads, 1)
+NERF_TC_KERNEL
     mip_bwd_rows_tc_kernel(MipWeights w, const float* __restrict__ gout, int P,
                            const float* xhat, const float* stats, const float* __restrict__ bwd,
                            float* dpre, float* tpart, void* dx) {
   extern __shared__ float4 smem4[];
+  constexpr int HT = col_width<H>();
+  float* bbuf = tc_smem_base(smem4);         // B chunks, or the head's chunks (lent)
+  float* act = bbuf + tc_bbuf_floats<HT>();  // dpre of the current layer
   if constexpr (H > kColBlock) {
-    float* bbuf = tc_smem_base(smem4);
-    float* act = bbuf + tc_bbuf_floats<kColBlock>();
-    mip_bwd_rows_wide<kBf16>(w, gout, P, xhat, stats, bwd, dpre, tpart, dx, bbuf, act,
-                             act + kTileRows * act_ld<kColBlock>());
+    tc_block<HT, kBf16>(bbuf, [&](auto& pipe) {
+      mip_bwd_rows_wide<kBf16>(pipe, w, gout, P, xhat, stats, bwd, dpre, tpart, dx, act,
+                               act + kTileRows * act_ld<kColBlock>());
+    });
   } else {
-  float* bbuf = tc_smem_base(smem4);          // B chunks, head chunks or colsum scratch
-  float* act = bbuf + tc_bbuf_floats<H>();    // dpre of the current layer
   float* gs = act + kTileRows * act_ld<H>();  // [64][kChunk] output cotangents
+  float* red = gs + kTileRows * kChunk;       // [kWarps][H] colsum scratch
   const int L = w.L;
   const size_t slab = tc_image_floats<kBf16>(H, H), PP = static_cast<size_t>(P);
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
@@ -432,23 +456,29 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* p_g = p_b + L * H;
   float* p_beta = p_g + L * H;
 
-  float acc[kRowsPerWarp][H / 32];
-  float d[H / 4];
-  zero<H>(acc);
-  head_dh<H, kBf16>(acc, gout, w.O, row0, nvalid, w.w_out, bbuf, gs, p_beta + L * H);
-  for (int i = L - 1; i >= 0; --i) {
-    layer_bwd<H, true>(acc, i, w.g + i * H, w.beta + i * H, w.h, w.inv_h, PP, row0, nvalid, xhat,
-                       stats, dpre, p_b, p_g, p_beta, bbuf);
-    if (i == 0) break;
-    tc_store_rows<H>(acc, act);
-    tc_zero<H>(d);
-    tc_gemm<H, kBf16>(d, act, act_ld<H>(), H, bwd + (i - 1) * slab, bbuf);
-    tc_to_rows<H>(d, act, acc);
-  }
-  // The features' cotangent dx = dpre_0 @ w_in^T, from the stored dpre.
-  if (dx != nullptr)
-    tc_input_grad<H, kBf16>(act, bbuf, dpre, PP, row0, nvalid, 0,
-                            tc_input_images<kBf16>(bwd, L - 1, H), -1, nullptr, w.F, dx);
+  tc_block<HT, kBf16>(bbuf, [&](auto& pipe) {
+    constexpr bool kC = std::decay_t<decltype(pipe)>::kConsumer;
+    float acc[kRowsPerWarp][H / 32];
+    float d[H / 4];
+    if constexpr (kC) zero<H>(acc);
+    pipe.lend([&] {
+      head_dh<H, kBf16>(acc, gout, w.O, row0, nvalid, w.w_out, pipe.buf, gs, p_beta + L * H);
+    });
+    for (int i = L - 1; i >= 0; --i) {
+      if constexpr (kC)
+        layer_bwd<H, true>(acc, i, w.g + i * H, w.beta + i * H, w.h, w.inv_h, PP, row0, nvalid,
+                           xhat, stats, dpre, p_b, p_g, p_beta, red);
+      if (i == 0) break;
+      if constexpr (kC) tc_store_rows<H>(acc, act);
+      tc_zero<H>(d);
+      tc_gemm<H, kBf16>(pipe, d, act, act_ld<H>(), H, bwd + (i - 1) * slab);
+      if constexpr (kC) tc_to_rows<H>(d, act, acc);
+    }
+    // The features' cotangent dx = dpre_0 @ w_in^T, from the stored dpre.
+    if (dx != nullptr)
+      tc_input_grad<H, kBf16>(pipe, act, dpre, PP, row0, nvalid, 0,
+                              tc_input_images<kBf16>(bwd, L - 1, H), -1, nullptr, w.F, dx);
+  });
   }
 }
 
@@ -489,13 +519,13 @@ struct MipTcT {
       err = cudaFuncSetAttribute(mip_fwd_store_tc_kernel<H, kBf16>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
-      mip_fwd_store_tc_kernel<H, kBf16><<<tiles, kThreads, smem, stream>>>(w, im, x, out, P, xhat,
+      mip_fwd_store_tc_kernel<H, kBf16><<<tiles, kTcThreads, smem, stream>>>(w, im, x, out, P, xhat,
                                                                            stats, rs);
     } else {
       err = cudaFuncSetAttribute(mip_fwd_tc_kernel<H, kBf16>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
-      mip_fwd_tc_kernel<H, kBf16><<<tiles, kThreads, smem, stream>>>(w, im, x, out, P,
+      mip_fwd_tc_kernel<H, kBf16><<<tiles, kTcThreads, smem, stream>>>(w, im, x, out, P,
                                                                      wide_rows(wide, w.hp));
     }
     return cudaGetLastError();
@@ -511,7 +541,7 @@ struct MipTcT {
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
-    mip_bwd_rows_tc_kernel<H, kBf16><<<tiles, kThreads, smem, stream>>>(
+    mip_bwd_rows_tc_kernel<H, kBf16><<<tiles, kTcThreads, smem, stream>>>(
         w, gout, P, s.xhat, s.stats, s.tc_bwd, s.dpre, s.tpart, dx);
     return cudaGetLastError();
   }

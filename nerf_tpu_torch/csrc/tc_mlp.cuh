@@ -51,20 +51,36 @@
 //    points while both are stored [P][H]: A (h_in) is read straight from
 //    the raw rows into register fragments, B (dpre) transposed into the
 //    swizzled order in the pass that splits it.
-// 2. Shared memory (227 KB a block; one 256 x 256 float32 slab is 256 KB):
-//    the weights stream in chunks of 16 k-values through four buffers
-//    (4 x 32 KB at H = 256, see tc_gemm); the A operand comes from registers,
-//    loaded from the float32 activation tile [64][H + 4] (66,560 B; the 4
-//    floats of padding make the fragment loads free of bank conflicts) and
-//    split as it is loaded, so no hi/lo copy of the tile is kept.  Bytes a
-//    block at H = 256, 1024 bytes of alignment slack included: fwd_store
-//    (K1-fwd's, K8-fwd's and K4's tile) and the mip forward tile 219,136
-//    (with the encodings' ring, note 9; K4's fine outputs and compositing
-//    scratch lie in device memory), bwd_rows 199,680, wgrad 136,192; the mip
-//    bwd_rows 202,752 (with a [64][16] chunk of the head's output
-//    cotangents).  The input cotangents add nothing to either bwd_rows:
-//    their A rows (dpre) and their outputs pass through the activation
-//    tile, their B chunks (2 x 64 x 16 floats) through the chunk buffers.
+// 2. Shared memory (227 KB a block; one 256 x 256 float32 slab is 256 KB)
+//    and the pipeline of B: the weights stream chunk by chunk through a
+//    ring in the 128 KB of tc_bbuf_floats<256>() (tc_block, tc_gemm): 4
+//    slots of a TF32 chunk (hi and lo of 16 k-values, 32 KB at H = 256) or 8
+//    of a bf16 one (32 k-values, 16 KB), each with a full and an empty
+//    mbarrier.  A producer warpgroup beside the two consumer warpgroups
+//    (kTcThreads = 384) walks the block's products in the consumers' order,
+//    one thread copying each chunk of the operand image (one contiguous
+//    swizzled chunk, tc_mlp.py::operand_image) with one bulk copy into the
+//    next slot both consumer warpgroups have released, whichever product it
+//    belongs to: the next product's chunks land while this one's last
+//    products and the epilogue run.  scripts/torch_chunk_split.py measured
+//    the card's L2 rate for these reads at 21 TB/s against the 4.7 the
+//    tile needs (PERF.md section 5), so B is not multicast across a
+//    cluster.  The A operand comes from registers, loaded from the float32
+//    activation tile [64][H + 4] (66,560 B; the 4 floats of padding make
+//    the fragment loads free of bank conflicts) and split as it is loaded,
+//    so no hi/lo copy of the tile is kept.  Bytes a block at H = 256, 1024 bytes of alignment slack
+//    included (and 136 of static barriers): fwd_store (K1-fwd's, K8-fwd's
+//    and K4's tile) and the mip forward tile 219,136 (with the encodings'
+//    ring, note 9; K4's fine outputs and compositing scratch lie in device
+//    memory), bwd_rows 207,872 (its colsum scratch beside the ring, which
+//    prefetches through the epilogues), wgrad 136,192; the mip bwd_rows
+//    210,944 (with a [64][16] chunk of the head's output cotangents and the
+//    colsum scratch).  Where a wide head stages its weights through the
+//    ring's buffers (the mip heads, past 256 a head of more than kFewOutputs
+//    outputs) the consumers borrow them (TcPipe::lend) and the producer
+//    waits.  The input cotangents add nothing to either bwd_rows: their A
+//    rows (dpre) and their outputs pass through the activation tile, their
+//    B chunks (2 x 64 x 16 floats) through the ring.
 // 3. Accumulators and LayerNorm: in a wgmma accumulator a row's values sit
 //    in a quad of one warp and, here, in both warpgroups (each takes H / 2
 //    columns).  Each product's accumulators go once through the activation
@@ -87,9 +103,14 @@
 //    one chunk of points adjacent in launch order (blockIdx.x runs over the
 //    output tiles first), so the re-reads of a chunk hit L2.
 // 6. Registers: the forward and bwd_rows hold H / 4 accumulator floats a
-//    thread (64 at H = 256; an m64n128 product per warpgroup) plus two
-//    sets of A fragments (32), not both the wgmma and the row-per-warp
-//    accumulators at once; wgrad holds 64 accumulators, their 64-float
+//    thread (64 at H = 256; an m64n128 product per warpgroup) plus the A
+//    fragments and B descriptors of a batch (TF32: two chunks, 32 + 16;
+//    bf16: two sets of one chunk, 16 + 4), not both the wgmma and the
+//    row-per-warp accumulators at once.  The SM allocates registers by
+//    warpgroup, so the 384-thread block starts at 168 a thread; the
+//    producer warpgroup drops to kTcProducerRegs = 40 and the consumers
+//    rise to kTcConsumerRegs = 232 (setmaxnreg), against the 255 a
+//    256-thread block had.  wgrad holds 64 accumulators, their 64-float
 //    float32 sum and one chunk's A fragments (32).
 // 7. The tensor cores accumulate with truncation below the accumulator's
 //    leading bits (scripts/torch_tc_accuracy.py: a K = 256 product within
@@ -108,16 +129,16 @@
 //    the skip at layer 4 on x, the view layer 8 on d) take theirs through
 //    a ring of kTcStages slabs beside the B chunks (EncA, kEncRingFloats:
 //    20,480 bytes), one k-chunk of the 64 rows' encodings a slab, staged
-//    with the B chunk of the same k two chunks ahead.  The loader of a
-//    kernel fills a slab (Load::stage): TileLoad (K1, K2, K3, K4, K9's
+//    by the consumers two chunks ahead (the producer copies B alone).  The
+//    loader of a kernel fills a slab (Load::stage): TileLoad (K1, K2, K3, K4, K9's
 //    coarse stage) copies the chunk from the encodings in device memory
 //    with cp.async (stage_enc; the per-ray view rows broadcast by d_div),
 //    encode.cuh's loaders (K8, K9's fine stage) compute its sines, and copy
 //    them for the skip layer from the scratch encodings the first product
 //    wrote (K8-fwd, which keeps none, computes them again).  Both
 //    warpgroups read every row of a slab, so a chunk of an encoding
-//    product waits at a block-wide barrier where the layer products wait
-//    at their warpgroup's.  A slab holds float32 values, or under kBf16
+//    product waits at a barrier of the consumers where the layer products
+//    wait only on their slot's mbarrier.  A slab holds float32 values, or under kBf16
 //    the bf16 pairs as a fragment register holds them (the encodings'
 //    own, or the sines rounded to nearest even where they enter: the
 //    rounding the fragment load of note 10 applies), so each k-step's
@@ -225,6 +246,7 @@ namespace nerf_mlp {
 constexpr int kTcK = 16;                 // k-values per chunk of a TF32 operand image
 constexpr int kTcKB = 32;                // k-values per chunk of a bf16 operand image
 constexpr int kTcStages = 4;             // chunk buffers of the row-tile product
+constexpr int kTcBatchTf32 = 2;          // chunks whose TF32 products tc_gemm issues together
 constexpr unsigned kTf32Mask = 0xffffe000u;
 constexpr int kWgK = 32;                 // points per staged chunk of wgrad_tc_kernel
 
@@ -347,6 +369,27 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[S][4]) {
   for (int s = 0; s < S; ++s)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[s][j])::"memory");
+}
+
+template <int B, int S>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[B][S][4]) {
+#pragma unroll
+  for (int b = 0; b < B; ++b) fence_regs(a[b]);
+}
+template <int T, int B, int S>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[T][B][S][4]) {
+#pragma unroll
+  for (int t = 0; t < T; ++t) fence_regs(a[t]);
+}
+// The same for B descriptors: computed before the wgmma fence, so that no
+// instruction between the fence and the products defines a product's input
+// (ptxas serializes every wgmma of a kernel where one does: C7513).
+template <int B, int S>
+__device__ __forceinline__ void fence_regs(uint64_t (&d)[B][S]) {
+#pragma unroll
+  for (int b = 0; b < B; ++b)
+#pragma unroll
+    for (int s = 0; s < S; ++s) asm volatile("" : "+l"(d[b][s])::"memory");
 }
 
 // m64nNk8 with A from registers (a0 = A[g][q], a1 = A[g + 8][q], a2 =
@@ -578,262 +621,465 @@ __host__ __device__ constexpr bool grouped_sums() {
     return kGroupedSums<typename Src::Loader>;
 }
 
+// ---------------------------------------------------------------------------
+// The pipeline of B chunks (note 2): one producer thread, an mbarrier ring.
+// ---------------------------------------------------------------------------
+
+// A tensor-core tile's block: kThreads consumer threads (two warpgroups,
+// which run the products and everything else) and a producer warpgroup, of
+// which one thread issues the copies of B.  The SM's registers are
+// allocated by warpgroup (a block of 288 threads gets the 168 a thread of
+// 384 does), so the producer warpgroup hands its registers to the
+// consumers: it drops to kTcProducerRegs, they rise to kTcConsumerRegs
+// (setmaxnreg; 128 x 40 + 256 x 232 = 64,512 of 65,536).
+constexpr int kTcThreads = kThreads + 128;
+constexpr int kTcProducerRegs = 40;
+constexpr int kTcConsumerRegs = 232;
+#define NERF_TC_KERNEL __global__ void __launch_bounds__(kTcThreads, 1)
+// Slots of the ring: the kTcStages buffers of tc_bbuf_floats hold 4 TF32
+// chunks (hi and lo of 16 k-values) or 8 bf16 ones (32 k-values) of H rows.
+constexpr int kTcMaxSlots = 2 * kTcStages;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// Returns once the phase of the barrier with this parity has completed.
+// The loop is inside the asm: a loop the compiler sees is a divergent path
+// to ptxas, which then serializes the wgmma in flight around it (C7520).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"  // a label is local to its { } scope
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// The arrival of the threads where `lead` is 0, predicated rather than
+// branched around (no divergent path beside wgmma in flight, C7520).
+__device__ __forceinline__ void mbar_arrive_if_zero(uint32_t bar, uint32_t lead) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(lead)
+      : "memory");
+}
+// The producer's arrival on a full barrier, with the bytes the copy brings.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global src
+// to shared dst, completed on bar's transaction count.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The ring as one role sees it.  Both roles walk the same sequence of
+// products (the tile functions run once in each role, note 2) and so agree
+// on every chunk's slot: chunk k of the block's walk lands in slot k %
+// kSlots, on its round k / kSlots.  full[s] completes when the producer's
+// copy into slot s has landed (one arrival with the bytes); empty[s] when
+// both consumer warpgroups' products that read slot s have retired (two
+// arrivals); lend when the consumers are done with bbuf as scratch (kThreads
+// arrivals), after which the producer copies on.
+template <bool kProducer_, int HT, bool kBf16>
+struct TcPipe {
+  static constexpr bool kProducer = kProducer_;
+  static constexpr bool kConsumer = !kProducer_;
+  static constexpr int kSlots = kBf16 ? kTcMaxSlots : kTcStages;
+  static constexpr int kSlotFloats = tc_bbuf_floats<HT>() / kSlots;
+  float* buf;     // slot 0 (bbuf)
+  uint32_t bars;  // full[kTcMaxSlots], empty[kTcMaxSlots], lend
+  int slot = 0;
+  uint32_t phase = 0;  // parity of the slot's current round
+  uint32_t lend_phase = 0;
+
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (kTcMaxSlots + s); }
+  __device__ uint32_t lend_bar() const { return bars + 16 * kTcMaxSlots; }
+  __device__ float* at(int s) const { return buf + s * kSlotFloats; }
+  __device__ void advance() {
+    if (++slot == kSlots) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  // bbuf as the consumers' scratch: they run use() (which may write and
+  // read any of bbuf, every product before it having retired) and release
+  // bbuf; the producer waits until then before it copies the next chunk.
+  // Two lends need a product between them (the lend barrier's phases).
+  template <class F>
+  __device__ void lend(F&& use) {
+    if constexpr (kConsumer) {
+      use();
+      fence_async_smem();  // the scratch's stores before the copies that overwrite them
+      mbar_arrive(lend_bar());
+    } else {
+      mbar_wait(lend_bar(), lend_phase);
+      lend_phase ^= 1;
+    }
+  }
+};
+
+// Runs body(pipe) in both roles of a tensor-core tile's block (kTcThreads
+// threads, bbuf its B chunk buffers of tile width HT): the consumers with a
+// TcPipe<false>, the producer warpgroup's first thread with a TcPipe<true>;
+// the producer's other threads have nothing to do.  body walks the block's
+// products in one order in both roles: every tc_gemm, and every lend, with
+// the same arguments.  The role is warp-uniform (the warp index through a
+// shuffle), so the consumers' wgmma stay in converged code.
+template <int HT, bool kBf16, class Body>
+__device__ __forceinline__ void tc_block(float* bbuf, Body&& body) {
+  __shared__ __align__(8) uint64_t bars[2 * kTcMaxSlots + 1];
+  const uint32_t b0 = smem_u32(bars);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcMaxSlots; ++s) {
+      mbar_init(b0 + 8 * s, 1);
+      mbar_init(b0 + 8 * (kTcMaxSlots + s), 2);
+    }
+    mbar_init(b0 + 16 * kTcMaxSlots, kThreads);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (__shfl_sync(kFull, threadIdx.x >> 7, 0) == kThreads / 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kTcProducerRegs));
+    if (threadIdx.x == kThreads) {
+      TcPipe<true, HT, kBf16> pipe{bbuf, b0};
+      body(pipe);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kTcConsumerRegs));
+    TcPipe<false, HT, kBf16> pipe{bbuf, b0};
+    body(pipe);
+  }
+}
+
 // d += A[tile rows, 0:K] @ B[0:N, 0:K]^T.  A is src: a shared tile (TileA)
 // or the encodings streamed through the ring (EncA); img is B's operand
-// image in global memory; bbuf holds tc_bbuf_floats<H>() floats for some
-// H >= N.  Warpgroup wg (threads 128 wg ..) computes the output columns
+// image in global memory, whose chunks the pipe's ring brings (N <= the
+// pipe's HT).  Warpgroup wg (threads 128 wg ..) computes the output columns
 // [wg N / 2, (wg + 1) N / 2) of the tile's 64 rows, warp w of it rows 16 w
 // .. 16 w + 15: d holds that warp's m64n(N/2) accumulator fragment
 // (classic mma layout: d[4 j ..4 j + 1] row g, columns 8 j + 2 q, + 1;
 // d[4 j + 2 ..] row g + 8).  N is H for the layers' products,
-// tc_in_cols<H>() for the input cotangents'.
+// tc_in_cols<H>() for the input cotangents'.  In the producer's role it
+// only copies the chunks.
 //
-// The pipeline: kTcStages = 4 buffers of 16-value chunks of B, copied
-// with cp.async two chunks ahead, and one chunk's 6 products (three per
-// k-step) left in flight while the next chunk's A fragments are loaded
-// and its products issued; a buffer is refilled once the products two
-// chunks back are done.  (Waiting for each chunk's products at its end
-// left the tensor cores idle much of the time: the product alone ran
-// nearly as long with two thirds of its products removed.)  The A
-// fragments alternate between two register sets, each kept allocated
-// until its products are done.  Each warpgroup copies and waits for only
-// its half of B (named barrier 1 + wg), so the two do not run in
-// lockstep; with EncA both read every row of the ring's slab, which the
-// whole block stages with its B chunk, so the chunk's barrier is
-// block-wide.  Every branch here is uniform and the fragments load
-// without branches: ptxas serializes all wgmma of a kernel whose wgmma
-// operands come from divergent code.  Starts (after the first copies) and
-// ends with a block-wide barrier.  kBf16 (note 10): img is a bf16 image,
-// chunks of 32 k-values (one 64-byte row each, half a buffer), one bf16
-// product per k-step of 16 and no lo fragments; an encoding product of more
-// than kFreshChunks chunks (a latent-conditioned model's) sums each chunk's
-// products in a fresh accumulator and adds it to d in float32, as wgrad
-// sums its chunks (note 7), the chunks then not overlapped: the tensor
-// cores' truncation over its 44 k-steps at 700 values moved the inputs'
-// cotangents 1.2-1.6x farther from the plain version than at 60.
-template <int N, bool kBf16 = false, class Src>
-__device__ void tc_gemm(float (&d)[N / 4], const Src& src, int K,
-                        const float* __restrict__ img, float* bbuf) {
+// The pipeline (note 2): the producer thread copies each chunk of img (one
+// contiguous swizzled chunk of the image, tc_mlp.py::operand_image) with
+// one bulk copy into the next slot of the ring once both warpgroups have
+// released it, whichever product it belongs to, so the next product's
+// chunks land while this one's last products and the epilogue run.  A
+// consumer warpgroup takes the chunks in batches (kTcBatchTf32 = 2 TF32, one
+// bf16 chunk): it waits on each chunk's full barrier, loads the
+// batch's A fragments and B descriptors, issues the batch's products
+// (three per k-step of 8 in 3xTF32, one per k-step of 16 in bf16) between
+// one wgmma fence and one commit, and releases the slots on their empty
+// barriers once they have retired; nothing else waits per chunk.  TF32: a
+// batch retires before the next one's fragments load.  ptxas serializes
+// every wgmma of a kernel (each product waiting for the one before, C7513)
+// where a product's input is defined while products are in flight, which
+// the TF32 split of the next chunk's fragments was when it ran beside the
+// last chunk's products (every HGMMA then waited for); the two
+// warpgroups run their batches independently, so one's loads overlap the
+// other's products.  bf16: a batch stays in flight while the next batch's
+// fragments load into a second register set (ptxas keeps those pipelined).
+// With EncA both warpgroups read every row of the ring's slab, which the
+// consumers stage with cp.async two chunks ahead, so a chunk of an encoding
+// product waits at a barrier of the consumers.
+// Every branch here is uniform and the fragments load without branches:
+// ptxas serializes all wgmma of a kernel whose wgmma operands come from
+// divergent code.  Starts and ends with a barrier of the consumers (A and
+// the activation tile are written and read by all eight warps).  kBf16
+// (note 10): img is a bf16 image, chunks of 32 k-values (one 64-byte row
+// each), one bf16 product per k-step of 16 and no lo fragments; an encoding
+// product of more than kFreshChunks chunks (a latent-conditioned model's)
+// sums each chunk's products in a fresh accumulator and adds it to d in
+// float32, as wgrad sums its chunks (note 7), the chunks then not
+// overlapped: the tensor cores' truncation over its 44 k-steps at 700
+// values moved the inputs' cotangents 1.2-1.6x farther from the plain
+// version than at 60.
+template <int N, bool kBf16 = false, class Pipe, class Src>
+__device__ void tc_gemm(Pipe& pipe, float (&d)[N / 4], const Src& src, int K,
+                        const float* __restrict__ img) {
   constexpr bool kRing = !std::is_same_v<Src, TileA>;
-  constexpr int kStage = 2 * N * kTcK;  // floats of a chunk buffer: a TF32 chunk's hi and lo
   constexpr int kK = tc_chunk<kBf16>();  // k-values of a chunk
-  constexpr int kChunkFloats = kBf16 ? N * kK / 2 : kStage;  // floats of a chunk of img
-  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;
-  // This thread's A rows: of the tile, or of a ring slab (plus the slab's
-  // offset).
-  const float* a0;
-  int lda;
-  if constexpr (kRing) {
-    a0 = src.ring;
-    lda = kEncLd;
-  } else {
-    a0 = src.A;
-    lda = src.lda;
-  }
-  a0 += (((tid >> 5) & 3) * 16 + g) * lda;
-  const float* a1 = a0 + 8 * lda;
+  constexpr int kChunkFloats = kBf16 ? N * kK / 2 : 2 * N * kTcK;  // floats of a chunk of img
+  static_assert(kChunkFloats <= Pipe::kSlotFloats, "a chunk fills at most one slot");
   const int chunks = round_up_tc<kBf16>(K) / kK;
-  const bool fresh = kBf16 && chunks > kFreshChunks;
-  // Each warpgroup copies, and waits for, only its own half of B (its hi
-  // and lo rows): the two warpgroups never wait for each other here.
-  constexpr int kHalf4 = N / 2 * kTcK / 4;  // float4s of a warpgroup's hi (lo, bf16) rows
-  const int t = tid & 127;
-  auto stage = [&](int c) {  // commits a group, empty past the last chunk
-    if (c < chunks) {
-      const float4* src4 =
-          reinterpret_cast<const float4*>(img + static_cast<size_t>(c) * kChunkFloats) +
-          wg * kHalf4;
-      float4* dst = reinterpret_cast<float4*>(bbuf + (c % kTcStages) * kStage) + wg * kHalf4;
-      if constexpr (kHalf4 % 128 == 0) {
-#pragma unroll
-        for (int j = 0; j < kHalf4 / 128; ++j) {
-          cp_async16(dst + t + 128 * j, src4 + t + 128 * j, true);
-          if constexpr (!kBf16)
-            cp_async16(dst + 2 * kHalf4 + t + 128 * j, src4 + 2 * kHalf4 + t + 128 * j, true);
-        }
-      } else {
-        for (int i = t; i < kHalf4; i += 128) {
-          cp_async16(dst + i, src4 + i, true);
-          if constexpr (!kBf16) cp_async16(dst + 2 * kHalf4 + i, src4 + 2 * kHalf4 + i, true);
-        }
-      }
-      if constexpr (kRing)
-        src.load.template stage<kBf16>(src.w, src.which, c, src.row0, src.nvalid, src.first,
-                                       src.ring + (c % kTcStages) * kEncSlab);
+  if constexpr (Pipe::kProducer) {
+    for (int c = 0; c < chunks; ++c) {
+      mbar_wait(pipe.empty(pipe.slot), pipe.phase ^ 1);  // the first round passes
+      mbar_expect_tx(pipe.full(pipe.slot), kChunkFloats * sizeof(float));
+      bulk_copy(smem_u32(pipe.at(pipe.slot)), img + static_cast<size_t>(c) * kChunkFloats,
+                kChunkFloats * sizeof(float), pipe.full(pipe.slot));
+      pipe.advance();
     }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-  // k-steps of a chunk: two of 8 (TF32) or of 16 (bf16) values.
-  constexpr int kSteps = kBf16 ? kTcKB / 16 : kTcK / 8;
-  using Frags = uint32_t[kSteps][4];
-  auto chunk = [&](int c, Frags& ahi, Frags& alo, Frags& prev_hi, Frags& prev_lo) {
-    asm volatile("cp.async.wait_group 1;\n" ::);
-    fence_async_smem();
-    // This warpgroup's half of chunk c has landed (with EncA: all of the
-    // block's copies of chunk c), and its products of chunk c - 2, whose
-    // buffer takes chunk c + 2, are done.
-    if constexpr (kRing)
-      __syncthreads();
-    else
-      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg));
-    stage(c + 2);
-    const int k0 = c * kK;
-    const int slab = kRing ? (c % kTcStages) * kEncSlab : 0;
-    if constexpr (kBf16) {
-      // a_j: row g + 8 (j & 1), k-values kk, kk + 1 with kk = k + 8 (j >> 1).
-      if constexpr (kRing) {  // the slab holds the pairs: word kk / 2 of the row
-        const uint32_t* w0 = reinterpret_cast<const uint32_t*>(a0 + slab);
-        const uint32_t* w1 = reinterpret_cast<const uint32_t*>(a1 + slab);
+  } else {
+    const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+    const int g = lane >> 2, q = lane & 3;
+    // This thread's A rows: of the tile, or of a ring slab (plus the slab's
+    // offset).
+    const float* a0;
+    int lda;
+    if constexpr (kRing) {
+      a0 = src.ring;
+      lda = kEncLd;
+    } else {
+      a0 = src.A;
+      lda = src.lda;
+    }
+    a0 += (((tid >> 5) & 3) * 16 + g) * lda;
+    const float* a1 = a0 + 8 * lda;
+    const bool fresh = kBf16 && chunks > kFreshChunks;
+    auto stage = [&](int c) {  // the encodings' slab of chunk c; a group, empty past the last
+      if constexpr (kRing) {
+        if (c < chunks)
+          src.load.template stage<kBf16>(src.w, src.which, c, src.row0, src.nvalid, src.first,
+                                         src.ring + (c % kTcStages) * kEncSlab);
+        asm volatile("cp.async.commit_group;\n" ::);
+      }
+    };
+    // Chunk c's slot has landed; with EncA also its slab (staged by every
+    // consumer), and every consumer is done with chunk c - 2's slab, which
+    // takes chunk c + 2.
+    auto arrive = [&](int c) {
+      mbar_wait(pipe.full(pipe.slot), pipe.phase);
+      if constexpr (kRing) {
+        asm volatile("cp.async.wait_group 1;\n" ::);
+        tile_sync();
+        stage(c + 2);
+      }
+    };
+    // k-steps of a chunk: two of 8 (TF32) or of 16 (bf16) values.
+    constexpr int kSteps = kBf16 ? kTcKB / 16 : kTcK / 8;
+    constexpr int kBatch = kBf16 ? 1 : kTcBatchTf32;
+    // bf16 batches overlap: a batch's products stay in flight while the
+    // next batch's fragments load into the other register set (ptxas keeps
+    // such bf16 products pipelined; it serializes the TF32 ones, whose
+    // split defines their fragments: C7513).
+    constexpr bool kOverlap = kBf16;
+    constexpr int kSets = kOverlap ? 2 : 1;
+    uint32_t ahi[kSets][kBatch][kSteps][4];
+    uint32_t alo[kBf16 ? 1 : kSets][kBatch][kSteps][4];
+    int held[kBatch] = {}, held_n = 0;  // slots of the batch in flight (kOverlap)
+    // Chunk c's A fragments into entry b of register set `set`, once its
+    // slot (and slab) landed.
+    auto fragments = [&](int c, int set, int b) {
+      arrive(c);
+      const int k0 = c * kK;
+      const int slab = kRing ? (c % kTcStages) * kEncSlab : 0;
+      if constexpr (kBf16) {
+        // a_j: row g + 8 (j & 1), k-values kk, kk + 1 with kk = k + 8 (j >> 1).
+        if constexpr (kRing) {  // the slab holds the pairs: word kk / 2 of the row
+          const uint32_t* w0 = reinterpret_cast<const uint32_t*>(a0 + slab);
+          const uint32_t* w1 = reinterpret_cast<const uint32_t*>(a1 + slab);
 #pragma unroll
-        for (int s = 0; s < kSteps; ++s)
+          for (int s = 0; s < kSteps; ++s)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) ahi[s][j] = ((j & 1) ? w1 : w0)[8 * s + q + 4 * (j >> 1)];
+            for (int j = 0; j < 4; ++j)
+              ahi[set][b][s][j] = ((j & 1) ? w1 : w0)[8 * s + q + 4 * (j >> 1)];
+        } else {
+#pragma unroll
+          for (int s = 0; s < kSteps; ++s) {
+            const int k = k0 + 16 * s + 2 * q;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float* row = (j & 1) ? a1 : a0;
+              const int kk = k + 8 * (j >> 1);
+              const float v0 = row[min(kk, K - 1)], v1 = row[min(kk + 1, K - 1)];
+              ahi[set][b][s][j] = pack_bf16x2(kk < K ? v0 : 0.f, kk + 1 < K ? v1 : 0.f);
+            }
+          }
+        }
       } else {
 #pragma unroll
-        for (int s = 0; s < kSteps; ++s) {
-          const int k = k0 + 16 * s + 2 * q;
+        for (int s = 0; s < kTcK / 8; ++s) {
+          if constexpr (kRing) {  // zero past K in the slab
+            const int k = slab + 8 * s + q;
+            const float v[4] = {a0[k], a1[k], a0[k + 4], a1[k + 4]};
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float* row = (j & 1) ? a1 : a0;
-            const int kk = k + 8 * (j >> 1);
-            const float v0 = row[min(kk, K - 1)], v1 = row[min(kk + 1, K - 1)];
-            ahi[s][j] = pack_bf16x2(kk < K ? v0 : 0.f, kk + 1 < K ? v1 : 0.f);
+            for (int j = 0; j < 4; ++j) split_tf32(v[j], ahi[set][b][s][j], alo[set][b][s][j]);
+          } else {
+            const int k = k0 + 8 * s + q, ka = min(k, K - 1), kb = min(k + 4, K - 1);
+            const float v[4] = {a0[ka], a1[ka], a0[kb], a1[kb]};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              split_tf32((j < 2 ? k : k + 4) < K ? v[j] : 0.f, ahi[set][b][s][j], alo[set][b][s][j]);
           }
         }
       }
-      const float* b = bbuf + (c % kTcStages) * kStage + wg * (N / 2) * kTcK;
-      fence_regs(ahi);
-      fence_regs(d);
-      wgmma_fence();
+    };
+    // Slot s released (one arrival a warpgroup) unless `keep`: every thread
+    // runs the same instructions (a predicated arrival, no branch beside
+    // wgmma in flight: ptxas would serialize the products, C7520).
+    auto release = [&](int s, bool keep = false) {
+      mbar_arrive_if_zero(pipe.empty(s), (tid & 127) | static_cast<uint32_t>(keep));
+    };
+    // The batch in flight retired and its slots released.
+    auto drain = [&](float (&acc)[N / 4]) {
+      if constexpr (kOverlap) {
+        wgmma_wait0();
+        fence_regs(acc);
+        fence_regs(ahi);
 #pragma unroll
-      for (int s = 0; s < kSteps; ++s) wgmma_rs_bf16(d, ahi[s], smem_desc_sw64(b + 8 * s));
-      wgmma_commit();
-      wgmma_wait1();  // this warpgroup's products of chunk c - 1 are done
-      fence_regs(d);
-      fence_regs(prev_hi);
-    } else {
+        for (int b = 0; b < kBatch; ++b) release(held[b], b >= held_n);
+        held_n = 0;
+      }
+    };
+    // acc += the products of nb <= kBatch chunks from c0 (register set SET,
+    // a compile-time constant: a set indexed at run time would live in
+    // local memory).  Every input of the batch's wgmma (A fragments, B
+    // descriptors) is defined before its wgmma fence and nothing between
+    // the fence and the products defines one.  TF32: the batch retires
+    // before the next batch's fragments load (ptxas serializes every wgmma
+    // of a kernel where one is defined while products are in flight,
+    // C7513), its slots released; the two warpgroups run their batches
+    // independently, so one's loads overlap the other's products.  bf16
+    // (kOverlap): the batch stays in flight and the batch before it
+    // retires.
+    auto batch = [&](auto set_c, float (&acc)[N / 4], int c0, int nb) {
+      constexpr int set = decltype(set_c)::value;
+      int slots[kBatch];
 #pragma unroll
-      for (int s = 0; s < kTcK / 8; ++s) {
-        if constexpr (kRing) {  // zero past K in the slab
-          const int k = slab + 8 * s + q;
-          const float v[4] = {a0[k], a1[k], a0[k + 4], a1[k + 4]};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) split_tf32(v[j], ahi[s][j], alo[s][j]);
-        } else {
-          const int k = k0 + 8 * s + q, ka = min(k, K - 1), kb = min(k + 4, K - 1);
-          const float v[4] = {a0[ka], a1[ka], a0[kb], a1[kb]};
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            split_tf32((j < 2 ? k : k + 4) < K ? v[j] : 0.f, ahi[s][j], alo[s][j]);
+      for (int b = 0; b < kBatch; ++b) {
+        slots[b] = pipe.slot;
+        if (b < nb) {
+          fragments(c0 + b, set, b);
+          pipe.advance();
         }
       }
-      // This warpgroup's half of the chunk: rows n of B are 16 floats apart;
-      // hi block, then lo block.
-      const float* hi = bbuf + (c % kTcStages) * kStage + wg * (N / 2) * kTcK;
-      const float* lo = hi + N * kTcK;
-      fence_regs(ahi);
-      fence_regs(alo);
-      fence_regs(d);
+      // This warpgroup's half of each chunk: rows n of B are 16 floats
+      // apart (kBf16: 16 words of pairs); TF32: hi block, then lo block.
+      uint64_t bd[kBatch][kBf16 ? kSteps : 2 * kSteps];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const float* hi = pipe.at(slots[b]) + wg * (N / 2) * kTcK;
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          bd[b][s] = smem_desc_sw64(hi + 8 * s);
+          if constexpr (!kBf16) bd[b][kSteps + s] = smem_desc_sw64(hi + N * kTcK + 8 * s);
+        }
+      }
+      fence_regs(bd);
+      fence_regs(ahi[set]);
+      if constexpr (!kBf16) fence_regs(alo[set]);
+      fence_regs(acc);
       wgmma_fence();
 #pragma unroll
-      for (int s = 0; s < kTcK / 8; ++s) {
-        const uint64_t bh = smem_desc_sw64(hi + 8 * s), bl = smem_desc_sw64(lo + 8 * s);
-        wgmma_rs(d, ahi[s], bh);
-        wgmma_rs(d, ahi[s], bl);
-        wgmma_rs(d, alo[s], bh);
+      for (int b = 0; b < kBatch; ++b) {
+        if (b < nb) {
+#pragma unroll
+          for (int s = 0; s < kSteps; ++s) {
+            if constexpr (kBf16) {
+              wgmma_rs_bf16(acc, ahi[set][b][s], bd[b][s]);
+            } else {
+              wgmma_rs(acc, ahi[set][b][s], bd[b][s]);
+              wgmma_rs(acc, ahi[set][b][s], bd[b][kSteps + s]);
+              wgmma_rs(acc, alo[set][b][s], bd[b][s]);
+            }
+          }
+        }
       }
       wgmma_commit();
-      wgmma_wait1();  // this warpgroup's products of chunk c - 1 are done
-      fence_regs(d);
-      fence_regs(prev_hi);
-      fence_regs(prev_lo);
-    }
-  };
-  Frags ahi0, alo0, ahi1, alo1;
-  stage(0);
-  stage(1);
-  __syncthreads();  // A was written by all eight warps; both warpgroups read all of it
-  bool chunked = false;  // a long bf16 encoding product
-  if constexpr (kRing && kBf16) {
-    if constexpr (kChunkedSums<typename Src::Loader>) chunked = fresh;
-  }
-  if (chunked) {
-    // Each chunk's products into a fresh accumulator, retired and added to
-    // d in float32 before the next.
-    for (int c = 0; c < chunks; ++c) {
-      asm volatile("cp.async.wait_group 1;\n" ::);
-      fence_async_smem();
-      __syncthreads();  // chunk c has landed; chunk c - 2's buffers are free
-      stage(c + 2);
-      const uint32_t* w0 = reinterpret_cast<const uint32_t*>(a0 + (c % kTcStages) * kEncSlab);
-      const uint32_t* w1 = reinterpret_cast<const uint32_t*>(a1 + (c % kTcStages) * kEncSlab);
+      if constexpr (kOverlap) {
+        wgmma_wait1();  // the batch before this one is done
+        fence_regs(acc);
+        fence_regs(ahi[1 - set]);
 #pragma unroll
-      for (int s = 0; s < kSteps; ++s)
+        for (int b = 0; b < kBatch; ++b) {
+          release(held[b], b >= held_n);
+          held[b] = slots[b];
+        }
+        held_n = nb;
+      } else {
+        wgmma_wait0();
+        fence_regs(acc);
+        fence_regs(ahi);
+        fence_regs(alo);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) ahi0[s][j] = ((j & 1) ? w1 : w0)[8 * s + q + 4 * (j >> 1)];
-      const float* b = bbuf + (c % kTcStages) * kStage + wg * (N / 2) * kTcK;
-      float e[N / 4];
-      tc_zero<N>(e);
-      fence_regs(ahi0);
-      fence_regs(e);
-      wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < kSteps; ++s) wgmma_rs_bf16(e, ahi0[s], smem_desc_sw64(b + 8 * s));
-      wgmma_commit();
-      wgmma_wait0();
-      fence_regs(e);
-      fence_regs(ahi0);
-#pragma unroll
-      for (int i = 0; i < N / 4; ++i) d[i] += e[i];
-    }
-  } else if constexpr (grouped_sums<Src, kBf16>()) {
-    // Each group of chunks pipelined into d cleared, the sum so far kept in
-    // s and added back in float32 once the group's products are done.
-    for (int c0 = 0; c0 < chunks; c0 += kF32GroupChunks) {
-      const int c1 = min(c0 + kF32GroupChunks, chunks);
-      float s[N / 4];
-#pragma unroll
-      for (int i = 0; i < N / 4; ++i) {
-        s[i] = d[i];
-        d[i] = 0.f;
+        for (int b = 0; b < kBatch; ++b)
+          if (b < nb) release(slots[b]);
       }
-      for (int c = c0; c < c1; c += 2) {
-        chunk(c, ahi0, alo0, ahi1, alo1);
-        if (c + 1 < c1) chunk(c + 1, ahi1, alo1, ahi0, alo0);
+    };
+    using Set0 = std::integral_constant<int, 0>;
+    using Set1 = std::integral_constant<int, kSets - 1>;
+    // The chunks c0 .. c1 - 1: TF32 in batches of kBatch; bf16 chunk by
+    // chunk, the register sets alternating (the loop unrolled by two).
+    auto run = [&](float (&acc)[N / 4], int c0, int c1) {
+      if constexpr (kOverlap) {
+        int c = c0;
+        for (; c + 2 <= c1; c += 2) {
+          batch(Set0{}, acc, c, 1);
+          batch(Set1{}, acc, c + 1, 1);
+        }
+        if (c < c1) batch(Set0{}, acc, c, 1);
+        drain(acc);
+      } else {
+        for (int c = c0; c < c1; c += kBatch) batch(Set0{}, acc, c, min(kBatch, c1 - c));
       }
-      wgmma_wait0();
-      fence_regs(d);
+    };
+    stage(0);
+    stage(1);
+    tile_sync();  // A was written by all eight warps; both warpgroups read all of it
+    bool chunked = false;  // a long bf16 encoding product
+    if constexpr (kRing && kBf16) {
+      if constexpr (kChunkedSums<typename Src::Loader>) chunked = fresh;
+    }
+    if (chunked) {
+      // Each chunk's products into a fresh accumulator, added to d in
+      // float32 before the next.
+      for (int c = 0; c < chunks; ++c) {
+        float e[N / 4];
+        tc_zero<N>(e);
+        batch(Set0{}, e, c, 1);
+        drain(e);
 #pragma unroll
-      for (int i = 0; i < N / 4; ++i) d[i] += s[i];
+        for (int i = 0; i < N / 4; ++i) d[i] += e[i];
+      }
+    } else if constexpr (grouped_sums<Src, kBf16>()) {
+      // Each group of chunks into d cleared, the sum so far kept in s and
+      // added back in float32 once the group's products are done.
+      for (int c0 = 0; c0 < chunks; c0 += kF32GroupChunks) {
+        const int c1 = min(c0 + kF32GroupChunks, chunks);
+        float s[N / 4];
+#pragma unroll
+        for (int i = 0; i < N / 4; ++i) {
+          s[i] = d[i];
+          d[i] = 0.f;
+        }
+        run(d, c0, c1);
+#pragma unroll
+        for (int i = 0; i < N / 4; ++i) d[i] += s[i];
+      }
+    } else {
+      run(d, 0, chunks);
     }
-  } else {
-    for (int c = 0; c < chunks; c += 2) {
-      chunk(c, ahi0, alo0, ahi1, alo1);
-      if (c + 1 < chunks) chunk(c + 1, ahi1, alo1, ahi0, alo0);
-    }
+    if constexpr (kRing) asm volatile("cp.async.wait_group 0;\n" ::);  // the empty groups
+    tile_sync();
   }
-  wgmma_wait0();
-  fence_regs(d);
-  fence_regs(ahi0);
-  fence_regs(ahi1);
-  if constexpr (!kBf16) {
-    fence_regs(alo0);
-    fence_regs(alo1);
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);  // the empty groups
-  __syncthreads();
 }
 
 // The same on a shared tile A with row stride lda.
-template <int N, bool kBf16 = false>
-__device__ __forceinline__ void tc_gemm(float (&d)[N / 4], const float* A, int lda, int K,
-                                        const float* __restrict__ img, float* bbuf) {
-  tc_gemm<N, kBf16>(d, TileA{A, lda}, K, img, bbuf);
+template <int N, bool kBf16 = false, class Pipe>
+__device__ __forceinline__ void tc_gemm(Pipe& pipe, float (&d)[N / 4], const float* A, int lda,
+                                        int K, const float* __restrict__ img) {
+  tc_gemm<N, kBf16>(pipe, d, TileA{A, lda}, K, img);
 }
 
 // The wgmma fragments d of tc_gemm<N> -> columns 0 .. N - 1 of act [64][ld]
-// (ld even), then a block-wide barrier.  Called by the whole block after
+// (ld even), then a barrier of the tile's threads.  Called by the tile's threads after
 // tc_gemm.
 template <int N>
 __device__ __forceinline__ void tc_to_act(const float (&d)[N / 4], float* act, int ld) {
@@ -845,7 +1091,7 @@ __device__ __forceinline__ void tc_to_act(const float (&d)[N / 4], float* act, i
     *reinterpret_cast<float2*>(r0 + 8 * j) = make_float2(d[4 * j], d[4 * j + 1]);
     *reinterpret_cast<float2*>(r0 + 8 * ld + 8 * j) = make_float2(d[4 * j + 2], d[4 * j + 3]);
   }
-  __syncthreads();
+  tile_sync();
 }
 
 // The wgmma fragments d -> act [64][act_ld<H>()] -> this warp's rows in the
@@ -963,48 +1209,50 @@ using TileLoad = TileLoadT<float>;
 // the tile's rows row0 .. row0 + nvalid - 1 of the
 // encodings that `load` stages (EncA), [density, color...] rows to out
 // (row stride ld).  act is the [64][act_ld<H>()] activation tile, ring the
-// encodings' ring (kEncRingFloats), bbuf the B chunks; with kSave every
-// layer's xhat and statistics go to save.  kBf16: bf16 images and
-// products, bf16 heads (note 10).
-template <int H, bool kSave = false, bool kBf16 = false, class Load>
-__device__ void mlp_tile_tc(const Weights& w, const TcImages& im, const Load& load, size_t row0,
-                            int nvalid, float* act, float* ring, float* bbuf, float* out,
+// encodings' ring (kEncRingFloats), pipe the B chunks' ring (tc_block); with
+// kSave every layer's xhat and statistics go to save.  kBf16: bf16 images
+// and products, bf16 heads (note 10).  In the producer's role only the
+// products' copies.
+template <int H, bool kSave = false, bool kBf16 = false, class Pipe, class Load>
+__device__ void mlp_tile_tc(Pipe& pipe, const Weights& w, const TcImages& im, const Load& load,
+                            size_t row0, int nvalid, float* act, float* ring, float* out,
                             int ld, const Save* save = nullptr) {
+  constexpr bool kC = Pipe::kConsumer;
   constexpr int ald = act_ld<H>();
   const size_t slab = tc_image_floats<kBf16>(H, H);
   float d[H / 4];
   float acc[kRowsPerWarp][H / 32];
-  auto epilogue = [&](int i) {
-    tc_to_rows<H>(d, act, acc);
-    layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, w.inv_h, w.padded,
-                             save, i);
+  auto epilogue = [&](int i, bool store) {
+    if constexpr (kC) {
+      tc_to_rows<H>(d, act, acc);
+      layer_epilogue<H, kSave>(acc, w.b + i * H, w.g + i * H, w.beta + i * H, w.inv_h, w.padded,
+                               save, i);
+      if (store) tc_store_rows<H>(acc, act);
+    }
   };
   auto enc = [&](int which, bool first) {
     return EncA<Load>{load, w, which, row0, nvalid, first, ring};
   };
 
   tc_zero<H>(d);
-  tc_gemm<H, kBf16>(d, enc(0, true), w.xe, im.w0, bbuf);
-  epilogue(0);
-  tc_store_rows<H>(acc, act);
+  tc_gemm<H, kBf16>(pipe, d, enc(0, true), w.xe, im.w0);
+  epilogue(0, true);
   for (int i = 1; i < 8; ++i) {
     tc_zero<H>(d);
-    tc_gemm<H, kBf16>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
-    if (i == 4) tc_gemm<H, kBf16>(d, enc(0, false), w.xe, im.wx, bbuf);
-    epilogue(i);
-    tc_store_rows<H>(acc, act);
+    tc_gemm<H, kBf16>(pipe, d, act, ald, H, im.whh + (i - 1) * slab);
+    if (i == 4) tc_gemm<H, kBf16>(pipe, d, enc(0, false), w.xe, im.wx);
+    epilogue(i, true);
   }
-  head<H, kBf16>(acc, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
+  if constexpr (kC) head<H, kBf16>(acc, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
   if (w.wd != nullptr) {
     for (int i = 8; i < 10; ++i) {
       tc_zero<H>(d);
-      tc_gemm<H, kBf16>(d, act, ald, H, im.whh + (i - 1) * slab, bbuf);
-      if (i == 8) tc_gemm<H, kBf16>(d, enc(1, true), w.de, im.wd, bbuf);
-      epilogue(i);
-      if (i == 8) tc_store_rows<H>(acc, act);
+      tc_gemm<H, kBf16>(pipe, d, act, ald, H, im.whh + (i - 1) * slab);
+      if (i == 8) tc_gemm<H, kBf16>(pipe, d, enc(1, true), w.de, im.wd);
+      epilogue(i, i == 8);
     }
   }
-  head<H, kBf16>(acc, w.w_col, w.b_col, w.c, out, ld, 1, nvalid);
+  if constexpr (kC) head<H, kBf16>(acc, w.w_col, w.b_col, w.c, out, ld, 1, nvalid);
 }
 
 // ---------------------------------------------------------------------------
@@ -1073,7 +1321,7 @@ inline constexpr bool kGroupedSums<RowsLoadT<T>> = true;
 // Column block cb of a wide product, d (tc_gemm<kColBlock>'s fragments),
 // through act to dst's columns cb * 256 .. (row stride hp) for the tile's
 // valid rows: plus the bias b where given, then ReLU where kRelu.  Called by
-// the whole block; ends with a block-wide barrier.
+// the whole block; ends with a barrier of the tile's threads.
 template <bool kRelu>
 __device__ void wide_store_block(const float (&d)[kColBlock / 4], float* act, float* dst, int hp,
                                  int cb, const float* __restrict__ b, int nvalid) {
@@ -1085,14 +1333,14 @@ __device__ void wide_store_block(const float (&d)[kColBlock / 4], float* act, fl
     if (b != nullptr) v += __ldg(b + cb * kColBlock + c);
     dst[static_cast<size_t>(r) * hp + cb * kColBlock + c] = kRelu ? fmaxf(v, 0.f) : v;
   }
-  __syncthreads();
+  tile_sync();
 }
 
 // A wide layer's LayerNorm (layer_epilogue over rows in device memory):
 // each valid row of pre [64][hp], its two-pass statistics over the first h
 // columns, nrm = xhat * g + beta (then ReLU where kLnFirst, the mip order)
 // in the compute dtype; with kSave also layer `layer`'s xhat and
-// statistics.  One warp a row; ends with a block-wide barrier.
+// statistics.  One warp a row; ends with a barrier of the tile's threads.
 template <bool kSave, bool kLnFirst, class T>
 __device__ void wide_norm(const float* pre, T* nrm, int hp, int h, float inv_h, int nvalid,
                           const float* __restrict__ g, const float* __restrict__ beta,
@@ -1126,7 +1374,7 @@ __device__ void wide_norm(const float* pre, T* nrm, int hp, int h, float inv_h, 
       from_f32(out + k, kLnFirst ? fmaxf(y, 0.f) : y);
     }
   }
-  __syncthreads();
+  tile_sync();
 }
 
 // head over rows in device memory: out[row * ld + col0 + i] = nrm[row] .
@@ -1156,7 +1404,7 @@ __device__ void head_rows(const T* nrm, int hp, float* act, float* wbuf,
         if (lane == 0) out[r * ld + col0 + i] = s + __ldg(bias + i);
       }
     }
-    __syncthreads();
+    tile_sync();
     return;
   }
   constexpr int LD = act_ld<kColBlock>();
@@ -1166,20 +1414,20 @@ __device__ void head_rows(const T* nrm, int hp, float* act, float* wbuf,
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) acc[r][0] = acc[r][1] = 0.f;
     for (int kb = 0; kb < hp; kb += kColBlock) {
-      __syncthreads();  // act's last readers are done
+      tile_sync();  // act's last readers are done
       for (int i = threadIdx.x; i < kTileRows * kColBlock; i += kThreads) {
         const int r = i / kColBlock, c = i - r * kColBlock;
         act[r * LD + c] =
             r < nvalid ? operand<kBf16>(to_f32(nrm[static_cast<size_t>(r) * hp + kb + c])) : 0.f;
       }
       for (int k0 = 0; k0 < kColBlock; k0 += 64) {
-        __syncthreads();  // the chunk before is consumed (and act staged)
+        tile_sync();  // the chunk before is consumed (and act staged)
         for (int i = threadIdx.x; i < 64 * 64; i += kThreads) {
           const int c = c0 + (i & 63);
           wbuf[i] = c < n ? operand<kBf16>(__ldg(W + static_cast<size_t>(kb + k0 + (i >> 6)) * n + c))
                           : 0.f;
         }
-        __syncthreads();
+        tile_sync();
         for (int kk = 0; kk < 64; kk += 4) {
           float4 a[kRowsPerWarp];
 #pragma unroll
@@ -1207,18 +1455,20 @@ __device__ void head_rows(const T* nrm, int hp, float* act, float* wbuf,
         out[row * ld + col0 + c0 + 32 + lane] = acc[r][1] + __ldg(bias + c0 + 32 + lane);
     }
   }
-  __syncthreads();
+  tile_sync();
 }
 
 // mlp_tile_tc past 256 (note 11): the same network on one 64-row tile in
 // hp / 256 column blocks a layer, the tile's rows in `rows` (tile 0 of a
 // WideRows).  Each block's product streams its A operand through the ring:
 // the encodings (EncA on `load`; `first` on the first column block only) or
-// the previous layer's nrm rows (RowsLoadT).
-template <bool kSave, bool kBf16, class Load>
-__device__ void mlp_tile_wide(const Weights& w, const TcImages& im, const Load& load, size_t row0,
-                              int nvalid, float* act, float* ring, float* bbuf, float* out,
+// the previous layer's nrm rows (RowsLoadT).  A head wider than
+// kFewOutputs stages its weights through bbuf, lent by the pipe.
+template <bool kSave, bool kBf16, class Pipe, class Load>
+__device__ void mlp_tile_wide(Pipe& pipe, const Weights& w, const TcImages& im, const Load& load,
+                              size_t row0, int nvalid, float* act, float* ring, float* out,
                               int ld, const Save* save, float* pre, float* nrm_f) {
+  constexpr bool kC = Pipe::kConsumer;
   using T = enc_t<kBf16>;
   constexpr int B = kColBlock;
   T* nrm = reinterpret_cast<T*>(nrm_f);
@@ -1227,28 +1477,36 @@ __device__ void mlp_tile_wide(const Weights& w, const TcImages& im, const Load& 
   const size_t blk_h = tc_image_floats<kBf16>(B, hp), slab = tc_image_floats<kBf16>(hp, hp);
   const RowsLoadT<T> rows{nrm, hp};
   const EncA<RowsLoadT<T>> prev{rows, w, 0, 0, nvalid, false, ring};
+  auto head = [&](const float* W, const float* bias, int n, int col0) {
+    auto run = [&] { head_rows<kBf16>(nrm, hp, act, pipe.buf, W, bias, n, out, ld, col0, nvalid); };
+    if (n > kFewOutputs)
+      pipe.lend(run);
+    else if constexpr (kC)
+      run();
+  };
   float d[B / 4];
   for (int i = 0; i < L; ++i) {
     for (int cb = 0; cb < nb; ++cb) {
       tc_zero<B>(d);
       if (i == 0)
-        tc_gemm<B, kBf16>(d, EncA<Load>{load, w, 0, row0, nvalid, cb == 0, ring}, w.xe,
-                          im.w0 + cb * blk_x, bbuf);
+        tc_gemm<B, kBf16>(pipe, d, EncA<Load>{load, w, 0, row0, nvalid, cb == 0, ring}, w.xe,
+                          im.w0 + cb * blk_x);
       else
-        tc_gemm<B, kBf16>(d, prev, hp, im.whh + (i - 1) * slab + cb * blk_h, bbuf);
+        tc_gemm<B, kBf16>(pipe, d, prev, hp, im.whh + (i - 1) * slab + cb * blk_h);
       if (i == 4)
-        tc_gemm<B, kBf16>(d, EncA<Load>{load, w, 0, row0, nvalid, false, ring}, w.xe,
-                          im.wx + cb * blk_x, bbuf);
+        tc_gemm<B, kBf16>(pipe, d, EncA<Load>{load, w, 0, row0, nvalid, false, ring}, w.xe,
+                          im.wx + cb * blk_x);
       if (i == 8)
-        tc_gemm<B, kBf16>(d, EncA<Load>{load, w, 1, row0, nvalid, cb == 0, ring}, w.de,
-                          im.wd + cb * blk_d, bbuf);
-      wide_store_block<true>(d, act, pre, hp, cb, w.b + i * hp, nvalid);
+        tc_gemm<B, kBf16>(pipe, d, EncA<Load>{load, w, 1, row0, nvalid, cb == 0, ring}, w.de,
+                          im.wd + cb * blk_d);
+      if constexpr (kC) wide_store_block<true>(d, act, pre, hp, cb, w.b + i * hp, nvalid);
     }
-    wide_norm<kSave, false>(pre, nrm, hp, w.h, w.inv_h, nvalid, w.g + i * hp, w.beta + i * hp,
-                            save, i);
-    if (i == 7) head_rows<kBf16>(nrm, hp, act, bbuf, w.w_dens, w.b_dens, 1, out, ld, 0, nvalid);
+    if constexpr (kC)
+      wide_norm<kSave, false>(pre, nrm, hp, w.h, w.inv_h, nvalid, w.g + i * hp, w.beta + i * hp,
+                              save, i);
+    if (i == 7) head(w.w_dens, w.b_dens, 1, 0);
   }
-  head_rows<kBf16>(nrm, hp, act, bbuf, w.w_col, w.b_col, w.c, out, ld, 1, nvalid);
+  head(w.w_col, w.b_col, w.c, 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -1262,7 +1520,7 @@ __device__ void mlp_tile_wide(const Weights& w, const TcImages& im, const Load& 
 // from global memory, the K8 and K9 loaders (encode.cuh) compute them.
 // wide: the rows of a width past 256 (note 11), unused below it.
 template <int H, class Load, bool kBf16 = false>
-__global__ void __launch_bounds__(kThreads, 1)
+NERF_TC_KERNEL
     fwd_store_tc_kernel(Weights w, TcImages im, Load load, float* __restrict__ out, int P,
                         float* xhat, float* stats, size_t stride, size_t base, WideRows wide) {
   constexpr int HT = col_width<H>();
@@ -1273,19 +1531,22 @@ __global__ void __launch_bounds__(kThreads, 1)
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
   const Save save{xhat, stats, stride, base + row0, nvalid};
-  if constexpr (H > kColBlock)
-    mlp_tile_wide<true, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf, out + row0 * (1 + w.c),
-                               1 + w.c, &save, wide.pre + blockIdx.x * wide.stride,
-                               wide.nrm + blockIdx.x * wide.stride);
-  else
-    mlp_tile_tc<H, true, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf,
-                                out + row0 * (1 + w.c), 1 + w.c, &save);
+  tc_block<HT, kBf16>(bbuf, [&](auto& pipe) {
+    if constexpr (H > kColBlock)
+      mlp_tile_wide<true, kBf16>(pipe, w, im, load, row0, nvalid, act, ring,
+                                 out + row0 * (1 + w.c), 1 + w.c, &save,
+                                 wide.pre + blockIdx.x * wide.stride,
+                                 wide.nrm + blockIdx.x * wide.stride);
+    else
+      mlp_tile_tc<H, true, kBf16>(pipe, w, im, load, row0, nvalid, act, ring,
+                                  out + row0 * (1 + w.c), 1 + w.c, &save);
+  });
 }
 
 // The forward alone (K1-fwd, K8-fwd): the tile of fwd_store_tc_kernel,
 // nothing saved.  `load` as in fwd_store_tc_kernel.
 template <int H, class Load, bool kBf16 = false>
-__global__ void __launch_bounds__(kThreads, 1)
+NERF_TC_KERNEL
     fwd_tc_kernel(Weights w, TcImages im, Load load, float* __restrict__ out, int P,
                   WideRows wide) {
   constexpr int HT = col_width<H>();
@@ -1295,14 +1556,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* ring = act + kTileRows * act_ld<HT>();
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  if constexpr (H > kColBlock)
-    mlp_tile_wide<false, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf,
-                                out + row0 * (1 + w.c), 1 + w.c, nullptr,
-                                wide.pre + blockIdx.x * wide.stride,
-                                wide.nrm + blockIdx.x * wide.stride);
-  else
-    mlp_tile_tc<H, false, kBf16>(w, im, load, row0, nvalid, act, ring, bbuf,
-                                 out + row0 * (1 + w.c), 1 + w.c);
+  tc_block<HT, kBf16>(bbuf, [&](auto& pipe) {
+    if constexpr (H > kColBlock)
+      mlp_tile_wide<false, kBf16>(pipe, w, im, load, row0, nvalid, act, ring,
+                                  out + row0 * (1 + w.c), 1 + w.c, nullptr,
+                                  wide.pre + blockIdx.x * wide.stride,
+                                  wide.nrm + blockIdx.x * wide.stride);
+    else
+      mlp_tile_tc<H, false, kBf16>(pipe, w, im, load, row0, nvalid, act, ring,
+                                   out + row0 * (1 + w.c), 1 + w.c);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -1355,23 +1618,27 @@ __device__ __forceinline__ void tc_load_dpre(float* act, const float* dpre, int 
 // bf16 images and products.  out is OutT: by default the encodings' dtype
 // (bfloat16 under kBf16, as JAX's VJP returns a bf16 input's cotangent);
 // K8-bwd takes float32 in both, the cotangent of float32 raw inputs.
-template <int H, bool kBf16 = false, class OutT = enc_t<kBf16>>
-__device__ void tc_input_grad(float* act, float* bbuf, const float* dpre, size_t P, size_t row0,
+template <int H, bool kBf16 = false, class OutT = enc_t<kBf16>, class Pipe>
+__device__ void tc_input_grad(Pipe& pipe, float* act, const float* dpre, size_t P, size_t row0,
                               int nvalid, int la, const float* img_a, int lb,
                               const float* img_b, int n, void* __restrict__ out) {
+  constexpr bool kC = Pipe::kConsumer;
   constexpr int NT = tc_in_cols<H>(), ld = act_ld<H>();
   const size_t kPass = tc_image_floats<kBf16>(NT, H);  // floats of a pass's image
   float d[NT / 4];
   for (int c0 = 0; c0 < n; c0 += NT) {
     const size_t at = static_cast<size_t>(c0 / NT) * kPass;
-    __syncthreads();  // act is free: its last readers are done
-    tc_load_dpre<H>(act, dpre, la, P, row0, nvalid);
-    tc_zero<NT>(d);
-    tc_gemm<NT, kBf16>(d, act, ld, H, img_a + at, bbuf);  // ends with a block-wide barrier
-    if (img_b != nullptr) {
-      tc_load_dpre<H>(act, dpre, lb, P, row0, nvalid);
-      tc_gemm<NT, kBf16>(d, act, ld, H, img_b + at, bbuf);
+    if constexpr (kC) {
+      tile_sync();  // act is free: its last readers are done
+      tc_load_dpre<H>(act, dpre, la, P, row0, nvalid);
     }
+    tc_zero<NT>(d);
+    tc_gemm<NT, kBf16>(pipe, d, act, ld, H, img_a + at);  // ends with a barrier
+    if (img_b != nullptr) {
+      if constexpr (kC) tc_load_dpre<H>(act, dpre, lb, P, row0, nvalid);
+      tc_gemm<NT, kBf16>(pipe, d, act, ld, H, img_b + at);
+    }
+    if constexpr (!kC) continue;
     tc_to_act<NT>(d, act, ld);
     const int cols = min(NT, n - c0);
     for (int i = threadIdx.x; i < nvalid * cols; i += kThreads) {
@@ -1386,13 +1653,15 @@ __device__ void tc_input_grad(float* act, float* bbuf, const float* dpre, size_t
 }
 
 // Bytes of bwd_rows_tc_kernel: the B chunks, the activation tile, the
-// output cotangents [64][1 + c] and the alignment slack; past 256 (note 11)
-// also the ring that streams dpre.
+// colsum scratch (kWarps x H floats: the B chunks' ring prefetches through
+// the epilogues, so they are no scratch), the output cotangents [64][1 + c]
+// and the alignment slack; past 256 (note 11) the ring that streams dpre in
+// place of the colsum scratch.
 template <int H>
 __host__ inline size_t bwd_rows_tc_smem(const Weights& w) {
   constexpr int HT = col_width<H>();
   return (static_cast<size_t>(tc_bbuf_floats<HT>()) + static_cast<size_t>(kTileRows) * act_ld<HT>() +
-          (H > kColBlock ? kEncRingFloats : 0) + static_cast<size_t>(kTileRows) * (1 + w.c)) *
+          (H > kColBlock ? kEncRingFloats : kWarps * H) + static_cast<size_t>(kTileRows) * (1 + w.c)) *
              sizeof(float) +
          kSmemAlign;
 }
@@ -1407,7 +1676,7 @@ __device__ __forceinline__ float* dpre_rows(float* dpre, int layer, size_t P, si
 // the tile's column sums of h * gs (the head's dW) into part[k * n + q],
 // h = xhat * g + beta; kBf16 rounds h, W and gs.  A thread a column, its
 // 64 rows in registers (h, then dh), each weight read once; gs's rows past
-// nvalid are 0.  Ends with a block-wide barrier.
+// nvalid are 0.  Ends with a barrier of the tile's threads.
 template <bool kBf16>
 __device__ void head_bwd_rows(const float* gs, int ldo, int col0, int n,
                               const float* __restrict__ W, const float* xh,
@@ -1438,7 +1707,7 @@ __device__ void head_bwd_rows(const float* gs, int ldo, int col0, int n,
     for (int r = 0; r < kTileRows; ++r)
       if (r < nvalid) dh[static_cast<size_t>(r) * hp + k] = v[r];
   }
-  __syncthreads();
+  tile_sync();
 }
 
 // layer_bwd over rows in device memory (note 11): rows [64][hp] holds the
@@ -1469,7 +1738,7 @@ __device__ void layer_bwd_wide(float* rows, int i, const float* __restrict__ g,
     part_g[static_cast<size_t>(i) * hp + k] = sg;
     part_beta[static_cast<size_t>(i) * hp + k] = sb;
   }
-  __syncthreads();
+  tile_sync();
   const int lane = threadIdx.x & 31;
   for (int r = threadIdx.x >> 5; r < nvalid; r += kWarps) {  // a warp a row
     const float2 st = reinterpret_cast<const float2*>(stats)[static_cast<size_t>(i) * P + row0 + r];
@@ -1488,21 +1757,21 @@ __device__ void layer_bwd_wide(float* rows, int i, const float* __restrict__ g,
       rows[at0 + k] = k < h && (kLnFirst || x > st.y) ? st.x * (dxh - m1 - x * m2) : 0.f;
     }
   }
-  __syncthreads();
+  tile_sync();
   for (int k = threadIdx.x; k < hp; k += kThreads) {
     float sb = 0.f;
     for (int r = 0; r < nvalid; ++r) sb += rows[static_cast<size_t>(r) * hp + k];
     part_b[static_cast<size_t>(i) * hp + k] = sb;
   }
-  __syncthreads();
+  tile_sync();
 }
 
 // dh = dpre_i @ W^T of a wide layer into dst's rows, in column blocks: A
 // (the tile's dpre rows of layer i, float32) streams through the ring,
 // img the slab's backward image (hp / 256 images of 256 rows).
-template <bool kBf16, class W>
-__device__ void wide_dh(const W& w, const float* src, float* dst, int hp, int nvalid,
-                        const float* img, float* act, float* ring, float* bbuf) {
+template <bool kBf16, class Pipe, class W>
+__device__ void wide_dh(Pipe& pipe, const W& w, const float* src, float* dst, int hp, int nvalid,
+                        const float* img, float* act, float* ring) {
   constexpr int B = kColBlock;
   const RowsLoadT<float> rows{src, hp};
   const EncA<RowsLoadT<float>, W> a{rows, w, 0, 0, nvalid, false, ring};
@@ -1510,16 +1779,16 @@ __device__ void wide_dh(const W& w, const float* src, float* dst, int hp, int nv
   float d[B / 4];
   for (int cb = 0; cb < hp / B; ++cb) {
     tc_zero<B>(d);
-    tc_gemm<B, kBf16>(d, a, hp, img + cb * blk, bbuf);
-    wide_store_block<false>(d, act, dst, hp, cb, nullptr, nvalid);
+    tc_gemm<B, kBf16>(pipe, d, a, hp, img + cb * blk);
+    if constexpr (Pipe::kConsumer) wide_store_block<false>(d, act, dst, hp, cb, nullptr, nvalid);
   }
 }
 
 // tc_input_grad past 256 (note 11): the dpre rows stream through the ring
 // from device memory instead of the activation tile; passes of kTcInPad
 // columns.
-template <bool kBf16, class OutT, class W>
-__device__ void tc_input_grad_wide(const W& w, float* act, float* ring, float* bbuf,
+template <bool kBf16, class OutT, class Pipe, class W>
+__device__ void tc_input_grad_wide(Pipe& pipe, const W& w, float* act, float* ring,
                                    const float* dpre, size_t P, size_t row0, int nvalid, int hp,
                                    int la, const float* img_a, int lb, const float* img_b, int n,
                                    void* __restrict__ out) {
@@ -1532,13 +1801,14 @@ __device__ void tc_input_grad_wide(const W& w, float* act, float* ring, float* b
   float d[NT / 4];
   for (int c0 = 0; c0 < n; c0 += NT) {
     const size_t at = static_cast<size_t>(c0 / NT) * kPass;
-    __syncthreads();  // act is free: its last readers are done
+    if constexpr (Pipe::kConsumer) tile_sync();  // act is free: its last readers are done
     tc_zero<NT>(d);
-    tc_gemm<NT, kBf16>(d, EncA<RowsLoadT<float>, W>{ra, w, 0, 0, nvalid, false, ring}, hp,
-                       img_a + at, bbuf);
+    tc_gemm<NT, kBf16>(pipe, d, EncA<RowsLoadT<float>, W>{ra, w, 0, 0, nvalid, false, ring}, hp,
+                       img_a + at);
     if (img_b != nullptr)
-      tc_gemm<NT, kBf16>(d, EncA<RowsLoadT<float>, W>{rb, w, 0, 0, nvalid, false, ring}, hp,
-                         img_b + at, bbuf);
+      tc_gemm<NT, kBf16>(pipe, d, EncA<RowsLoadT<float>, W>{rb, w, 0, 0, nvalid, false, ring},
+                         hp, img_b + at);
+    if constexpr (!Pipe::kConsumer) continue;
     tc_to_act<NT>(d, act, ld);
     const int cols = min(NT, n - c0);
     for (int i = threadIdx.x; i < nvalid * cols; i += kThreads) {
@@ -1554,11 +1824,12 @@ __device__ void tc_input_grad_wide(const W& w, float* act, float* ring, float* b
 
 // bwd_rows_tc_kernel past 256 (note 11): each layer's dh goes to the
 // tile's rows of its dpre, where layer_bwd_wide turns it into dpre.
-template <bool kBf16, class InGradT>
-__device__ void bwd_rows_wide(const Weights& w, const float* __restrict__ gout, int P,
+template <bool kBf16, class InGradT, class Pipe>
+__device__ void bwd_rows_wide(Pipe& pipe, const Weights& w, const float* __restrict__ gout, int P,
                               const float* xhat, const float* stats, const float* __restrict__ bwd,
-                              float* dpre, float* tpart, void* dx, void* dd, float* bbuf,
-                              float* act, float* ring, float* gs) {
+                              float* dpre, float* tpart, void* dx, void* dd, float* act,
+                              float* ring, float* gs) {
+  constexpr bool kC = Pipe::kConsumer;
   const int L = num_layers(w), last = L - 1, ldo = 1 + w.c, hp = w.hp;
   const size_t slab = tc_image_floats<kBf16>(hp, hp), PP = static_cast<size_t>(P);
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
@@ -1571,28 +1842,31 @@ __device__ void bwd_rows_wide(const Weights& w, const float* __restrict__ gout, 
   float* p_wcol = p_wdens + hp;
   float* p_bdens = p_wcol + static_cast<size_t>(hp) * w.c;
   float* p_bcol = p_bdens + 1;
-
-  for (int i = threadIdx.x; i < kTileRows * ldo; i += kThreads)
-    gs[i] = i / ldo < nvalid ? gout[row0 * ldo + i] : 0.f;
-  __syncthreads();
-  if (threadIdx.x < ldo) {
-    float s = 0.f;
-    for (int r = 0; r < kTileRows; ++r) s += gs[r * ldo + threadIdx.x];
-    if (threadIdx.x == 0) *p_bdens = s; else p_bcol[threadIdx.x - 1] = s;
-  }
   auto rows = [&](int layer) { return dpre_rows(dpre, layer, PP, row0, hp); };
   auto xh_of = [&](int layer) { return xhat + (layer * PP + row0) * hp; };
-  head_bwd_rows<kBf16>(gs, ldo, 1, w.c, w.w_col, xh_of(last), w.g + last * hp,
-                       w.beta + last * hp, hp, nvalid, p_wcol, rows(last), false);
-  if (w.wd == nullptr)
-    head_bwd_rows<kBf16>(gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * hp, w.beta + 7 * hp, hp,
-                         nvalid, p_wdens, rows(7), true);
+
+  if constexpr (kC) {
+    for (int i = threadIdx.x; i < kTileRows * ldo; i += kThreads)
+      gs[i] = i / ldo < nvalid ? gout[row0 * ldo + i] : 0.f;
+    tile_sync();
+    if (threadIdx.x < ldo) {
+      float s = 0.f;
+      for (int r = 0; r < kTileRows; ++r) s += gs[r * ldo + threadIdx.x];
+      if (threadIdx.x == 0) *p_bdens = s; else p_bcol[threadIdx.x - 1] = s;
+    }
+    head_bwd_rows<kBf16>(gs, ldo, 1, w.c, w.w_col, xh_of(last), w.g + last * hp,
+                         w.beta + last * hp, hp, nvalid, p_wcol, rows(last), false);
+    if (w.wd == nullptr)
+      head_bwd_rows<kBf16>(gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * hp, w.beta + 7 * hp, hp,
+                           nvalid, p_wdens, rows(7), true);
+  }
   for (int i = last; i >= 0; --i) {
-    layer_bwd_wide<false>(rows(i), i, w.g + i * hp, w.beta + i * hp, w.h, w.inv_h, hp, PP, row0,
-                          nvalid, xhat, stats, p_b, p_g, p_beta);
+    if constexpr (kC)
+      layer_bwd_wide<false>(rows(i), i, w.g + i * hp, w.beta + i * hp, w.h, w.inv_h, hp, PP,
+                            row0, nvalid, xhat, stats, p_b, p_g, p_beta);
     if (i == 0) break;
-    wide_dh<kBf16>(w, rows(i), rows(i - 1), hp, nvalid, bwd + (i - 1) * slab, act, ring, bbuf);
-    if (i == 8)
+    wide_dh<kBf16>(pipe, w, rows(i), rows(i - 1), hp, nvalid, bwd + (i - 1) * slab, act, ring);
+    if (kC && i == 8)
       head_bwd_rows<kBf16>(gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * hp, w.beta + 7 * hp, hp,
                            nvalid, p_wdens, rows(7), true);
   }
@@ -1600,10 +1874,10 @@ __device__ void bwd_rows_wide(const Weights& w, const float* __restrict__ gout, 
   const float* img_wx = img_w0 + tc_input_image_floats<kBf16>(w.xe, hp);
   const float* img_wd = img_wx + tc_input_image_floats<kBf16>(w.xe, hp);
   if (dx != nullptr)
-    tc_input_grad_wide<kBf16, InGradT>(w, act, ring, bbuf, dpre, PP, row0, nvalid, hp, 0, img_w0,
+    tc_input_grad_wide<kBf16, InGradT>(pipe, w, act, ring, dpre, PP, row0, nvalid, hp, 0, img_w0,
                                        4, img_wx, w.xe, dx);
   if (dd != nullptr)
-    tc_input_grad_wide<kBf16, InGradT>(w, act, ring, bbuf, dpre, PP, row0, nvalid, hp, 8, img_wd,
+    tc_input_grad_wide<kBf16, InGradT>(pipe, w, act, ring, dpre, PP, row0, nvalid, hp, 8, img_wd,
                                        -1, nullptr, w.de, dd);
 }
 
@@ -1613,21 +1887,23 @@ __device__ void bwd_rows_wide(const Weights& w, const float* __restrict__ gout, 
 // kBf16: bf16 images and products, the heads' backward in bf16 (note 10);
 // dx and dd are InGradT (tc_input_grad's OutT).
 template <int H, bool kBf16 = false, class InGradT = enc_t<kBf16>>
-__global__ void __launch_bounds__(kThreads, 1)
+NERF_TC_KERNEL
     bwd_rows_tc_kernel(Weights w, const float* __restrict__ gout, int P, const float* xhat,
                        const float* stats, const float* __restrict__ bwd, float* dpre,
                        float* tpart, void* dx, void* dd) {
   extern __shared__ float4 smem4[];
+  constexpr int HT = col_width<H>();
+  float* bbuf = tc_smem_base(smem4);       // the B chunks' ring
+  float* act = bbuf + tc_bbuf_floats<HT>();  // dpre of the current layer
   if constexpr (H > kColBlock) {
-    float* bbuf = tc_smem_base(smem4);
-    float* act = bbuf + tc_bbuf_floats<kColBlock>();
     float* ring = act + kTileRows * act_ld<kColBlock>();
-    bwd_rows_wide<kBf16, InGradT>(w, gout, P, xhat, stats, bwd, dpre, tpart, dx, dd, bbuf, act,
-                                  ring, ring + kEncRingFloats);
+    tc_block<HT, kBf16>(bbuf, [&](auto& pipe) {
+      bwd_rows_wide<kBf16, InGradT>(pipe, w, gout, P, xhat, stats, bwd, dpre, tpart, dx, dd, act,
+                                    ring, ring + kEncRingFloats);
+    });
   } else {
-  float* bbuf = tc_smem_base(smem4);  // B chunks, or colsum scratch
-  float* act = bbuf + tc_bbuf_floats<H>();        // dpre of the current layer
-  float* gs = act + kTileRows * act_ld<H>();      // [64][1 + c] output cotangents
+  float* red = act + kTileRows * act_ld<H>();  // [kWarps][H] colsum scratch
+  float* gs = red + kWarps * H;                // [64][1 + c] output cotangents
   const int L = num_layers(w), last = L - 1, ldo = 1 + w.c;
   const size_t slab = tc_image_floats<kBf16>(H, H), PP = static_cast<size_t>(P);
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
@@ -1640,48 +1916,55 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* p_wcol = p_wdens + H;
   float* p_bdens = p_wcol + H * w.c;
   float* p_bcol = p_bdens + 1;
-
-  for (int i = threadIdx.x; i < kTileRows * ldo; i += kThreads)
-    gs[i] = i / ldo < nvalid ? gout[row0 * ldo + i] : 0.f;
-  __syncthreads();
-  if (threadIdx.x < ldo) {
-    float s = 0.f;
-    for (int r = 0; r < kTileRows; ++r) s += gs[r * ldo + threadIdx.x];
-    if (threadIdx.x == 0) *p_bdens = s; else p_bcol[threadIdx.x - 1] = s;
-  }
-
-  float acc[kRowsPerWarp][H / 32];
-  float d[H / 4];
-  zero<H>(acc);
-  auto xh_of = [&](int layer) { return xhat + (layer * PP + row0) * H; };
-  head_bwd<H, kBf16>(acc, gs, ldo, 1, w.c, w.w_col, xh_of(last), w.g + last * H,
-                     w.beta + last * H, nvalid, p_wcol, bbuf);
-  if (w.wd == nullptr)
-    head_bwd<H, kBf16>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H,
-                       nvalid, p_wdens, bbuf);
-  for (int i = last; i >= 0; --i) {
-    layer_bwd<H>(acc, i, w.g + i * H, w.beta + i * H, w.h, w.inv_h, PP, row0, nvalid, xhat,
-                 stats, dpre, p_b, p_g, p_beta, bbuf);
-    if (i == 0) break;
-    tc_store_rows<H>(acc, act);
-    tc_zero<H>(d);
-    tc_gemm<H, kBf16>(d, act, act_ld<H>(), H, bwd + (i - 1) * slab, bbuf);
-    tc_to_rows<H>(d, act, acc);
-    if (i == 8)
-      head_bwd<H, kBf16>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H,
-                         nvalid, p_wdens, bbuf);
-  }
-  // The encodings' cotangents: dx = dpre_0 @ w0^T + dpre_4 @ wx^T and dd =
-  // dpre_8 @ wd^T, from the stored dpre.
   const float* img_w0 = tc_input_images<kBf16>(bwd, L - 1, H);
   const float* img_wx = img_w0 + tc_input_image_floats<kBf16>(w.xe, H);
   const float* img_wd = img_wx + tc_input_image_floats<kBf16>(w.xe, H);
-  if (dx != nullptr)
-    tc_input_grad<H, kBf16, InGradT>(act, bbuf, dpre, PP, row0, nvalid, 0, img_w0, 4, img_wx,
-                                     w.xe, dx);
-  if (dd != nullptr)
-    tc_input_grad<H, kBf16, InGradT>(act, bbuf, dpre, PP, row0, nvalid, 8, img_wd, -1, nullptr,
-                                     w.de, dd);
+  auto xh_of = [&](int layer) { return xhat + (layer * PP + row0) * H; };
+
+  tc_block<HT, kBf16>(bbuf, [&](auto& pipe) {
+    constexpr bool kC = std::decay_t<decltype(pipe)>::kConsumer;
+    float acc[kRowsPerWarp][H / 32];
+    float d[H / 4];
+    if constexpr (kC) {
+      for (int i = threadIdx.x; i < kTileRows * ldo; i += kThreads)
+        gs[i] = i / ldo < nvalid ? gout[row0 * ldo + i] : 0.f;
+      tile_sync();
+      if (threadIdx.x < ldo) {
+        float s = 0.f;
+        for (int r = 0; r < kTileRows; ++r) s += gs[r * ldo + threadIdx.x];
+        if (threadIdx.x == 0) *p_bdens = s; else p_bcol[threadIdx.x - 1] = s;
+      }
+      zero<H>(acc);
+      head_bwd<H, kBf16>(acc, gs, ldo, 1, w.c, w.w_col, xh_of(last), w.g + last * H,
+                         w.beta + last * H, nvalid, p_wcol, red);
+      if (w.wd == nullptr)
+        head_bwd<H, kBf16>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H,
+                           nvalid, p_wdens, red);
+    }
+    for (int i = last; i >= 0; --i) {
+      if constexpr (kC)
+        layer_bwd<H>(acc, i, w.g + i * H, w.beta + i * H, w.h, w.inv_h, PP, row0, nvalid, xhat,
+                     stats, dpre, p_b, p_g, p_beta, red);
+      if (i == 0) break;
+      if constexpr (kC) tc_store_rows<H>(acc, act);
+      tc_zero<H>(d);
+      tc_gemm<H, kBf16>(pipe, d, act, act_ld<H>(), H, bwd + (i - 1) * slab);
+      if constexpr (kC) {
+        tc_to_rows<H>(d, act, acc);
+        if (i == 8)
+          head_bwd<H, kBf16>(acc, gs, ldo, 0, 1, w.w_dens, xh_of(7), w.g + 7 * H, w.beta + 7 * H,
+                             nvalid, p_wdens, red);
+      }
+    }
+    // The encodings' cotangents: dx = dpre_0 @ w0^T + dpre_4 @ wx^T and dd =
+    // dpre_8 @ wd^T, from the stored dpre.
+    if (dx != nullptr)
+      tc_input_grad<H, kBf16, InGradT>(pipe, act, dpre, PP, row0, nvalid, 0, img_w0, 4, img_wx,
+                                       w.xe, dx);
+    if (dd != nullptr)
+      tc_input_grad<H, kBf16, InGradT>(pipe, act, dpre, PP, row0, nvalid, 8, img_wd, -1, nullptr,
+                                       w.de, dd);
+  });
   }
 }
 
@@ -2026,7 +2309,7 @@ cudaError_t launch_fwd(const Weights& w, const Load& load, float* out, int P,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = (P + kTileRows - 1) / kTileRows;
-  fwd_tc_kernel<H, Load, kBf16><<<blocks, kThreads, smem, stream>>>(
+  fwd_tc_kernel<H, Load, kBf16><<<blocks, kTcThreads, smem, stream>>>(
       w, TcImages::forward<kBf16>(w, tc_fwd, w.hp), load, out, P, wide_rows(wide, w.hp));
   return cudaGetLastError();
 }
@@ -2061,7 +2344,7 @@ struct TcProductsT {
     // chain's rows), which bwd_rows writes only later.
     const size_t hp = w.hp;
     const WideRows wide{s.dpre + base * hp, s.dpre + (stride + base) * hp, kTileRows * hp};
-    fwd_store_tc_kernel<H, Load, kBf16><<<tiles, kThreads, smem, stream>>>(
+    fwd_store_tc_kernel<H, Load, kBf16><<<tiles, kTcThreads, smem, stream>>>(
         w, TcImages::forward<kBf16>(w, s.tc_fwd, w.hp), load, out, P, s.xhat, s.stats, stride,
         base, wide);
     return cudaGetLastError();
@@ -2077,7 +2360,7 @@ struct TcProductsT {
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const int tiles = (P + kTileRows - 1) / kTileRows;
-    bwd_rows_tc_kernel<H, kBf16, InGradT><<<tiles, kThreads, smem, stream>>>(
+    bwd_rows_tc_kernel<H, kBf16, InGradT><<<tiles, kTcThreads, smem, stream>>>(
         w, gout, P, s.xhat, s.stats, s.tc_bwd, s.dpre, s.tpart, dx, dd);
     return cudaGetLastError();
   }

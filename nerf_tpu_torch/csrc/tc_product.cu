@@ -22,7 +22,7 @@ namespace {
 using namespace nerf_mlp;
 
 template <int H, bool kBf16>
-__global__ void __launch_bounds__(kThreads, 1)
+NERF_TC_KERNEL
     tc_linear_kernel(const float* __restrict__ a, int P, int K, const float* __restrict__ img,
                      float* __restrict__ out) {
   extern __shared__ float4 smem4[];
@@ -31,20 +31,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* as = K <= H ? act : act + kTileRows * act_ld<H>();  // [64][round_up4(K)]
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
-  load_tile(as, a, row0, nvalid, K, 1);
-  __syncthreads();
-  float d[H / 4];
-  float acc[kRowsPerWarp][H / 32];
-  tc_zero<H>(d);
-  tc_gemm<H, kBf16>(d, as, round_up4(K), K, img, bbuf);
-  tc_to_rows<H>(d, act, acc);
-  const int lane = threadIdx.x & 31;
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = (threadIdx.x >> 5) * kRowsPerWarp + r;
-    if (row >= nvalid) continue;
+  tc_block<H, kBf16>(bbuf, [&](auto& pipe) {
+    constexpr bool kC = std::decay_t<decltype(pipe)>::kConsumer;
+    if constexpr (kC) load_tile(as, a, row0, nvalid, K, 1);  // tc_gemm starts with a barrier
+    float d[H / 4];
+    float acc[kRowsPerWarp][H / 32];
+    tc_zero<H>(d);
+    tc_gemm<H, kBf16>(pipe, d, as, round_up4(K), K, img);
+    if constexpr (kC) {
+      tc_to_rows<H>(d, act, acc);
+      const int lane = threadIdx.x & 31;
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        const int row = (threadIdx.x >> 5) * kRowsPerWarp + r;
+        if (row >= nvalid) continue;
 #pragma unroll
-    for (int j = 0; j < H / 32; ++j) out[(row0 + row) * H + lane + 32 * j] = acc[r][j];
-  }
+        for (int j = 0; j < H / 32; ++j) out[(row0 + row) * H + lane + 32 * j] = acc[r][j];
+      }
+    }
+  });
 }
 
 template <int H, bool kBf16>
@@ -59,7 +63,7 @@ cudaError_t linear(const float* a, int P, int K, const float* img, float* out,
       tc_linear_kernel<H, kBf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  tc_linear_kernel<H, kBf16><<<(P + kTileRows - 1) / kTileRows, kThreads, smem, stream>>>(
+  tc_linear_kernel<H, kBf16><<<(P + kTileRows - 1) / kTileRows, kTcThreads, smem, stream>>>(
       a, P, K, img, out);
   return cudaGetLastError();
 }

@@ -178,7 +178,7 @@ struct Inputs {
 // fout [R * Sf][1 + c] and scratch [R][4 (Sc + Sf)] are device memory;
 // wide the scratch of a width past 256 (2 x 64 x hp floats a block).
 template <int H, bool kBf16>
-__global__ void __launch_bounds__(kThreads, 1)
+NERF_TC_KERNEL
     union_eval_kernel(Weights w, TcImages im, Inputs<enc_t<kBf16>> in, float* __restrict__ out,
                       int R, int Sc, int Sf, float* fout, float* scratch, WideRows wide) {
   constexpr int HT = col_width<H>();
@@ -194,25 +194,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   // The fine encodings, and each ray's view encoding broadcast to its rows.
   const TileLoadT<enc_t<kBf16>> load{in.xf, in.d, Sf};
 
-  for (int sub = 0; sub < rows; sub += kTileRows) {
-    if constexpr (H > kColBlock)
-      mlp_tile_wide<false, kBf16>(w, im, load, frow0 + sub, min(kTileRows, rows - sub), act, ring,
-                                  bbuf, fout + (frow0 + sub) * ld, ld, nullptr,
-                                  wide.pre + blockIdx.x * wide.stride,
-                                  wide.nrm + blockIdx.x * wide.stride);
-    else
-      mlp_tile_tc<H, false, kBf16>(w, im, load, frow0 + sub, min(kTileRows, rows - sub), act,
-                                   ring, bbuf, fout + (frow0 + sub) * ld, ld);
-    __syncthreads();
-  }
-
-  const int warp = threadIdx.x >> 5;
-  for (int i = warp; i < nrays; i += kWarps) {
-    const int ray = ray0 + i;
-    composite_ray(ray, Sc, Sf, w.c, in.t_c, in.t_f, in.dens_c, in.col_c, __ldg(in.dnorm + ray),
-                  fout + (frow0 + static_cast<size_t>(i) * Sf) * ld,
-                  scratch + static_cast<size_t>(ray) * 4 * (Sc + Sf), out);
-  }
+  tc_block<HT, kBf16>(bbuf, [&](auto& pipe) {
+    for (int sub = 0; sub < rows; sub += kTileRows) {
+      if constexpr (H > kColBlock)
+        mlp_tile_wide<false, kBf16>(pipe, w, im, load, frow0 + sub, min(kTileRows, rows - sub),
+                                    act, ring, fout + (frow0 + sub) * ld, ld, nullptr,
+                                    wide.pre + blockIdx.x * wide.stride,
+                                    wide.nrm + blockIdx.x * wide.stride);
+      else
+        mlp_tile_tc<H, false, kBf16>(pipe, w, im, load, frow0 + sub, min(kTileRows, rows - sub),
+                                     act, ring, fout + (frow0 + sub) * ld, ld);
+      if constexpr (std::decay_t<decltype(pipe)>::kConsumer) tile_sync();
+    }
+    if constexpr (std::decay_t<decltype(pipe)>::kConsumer) {
+      const int warp = threadIdx.x >> 5;
+      for (int i = warp; i < nrays; i += kWarps) {
+        const int ray = ray0 + i;
+        composite_ray(ray, Sc, Sf, w.c, in.t_c, in.t_f, in.dens_c, in.col_c,
+                      __ldg(in.dnorm + ray), fout + (frow0 + static_cast<size_t>(i) * Sf) * ld,
+                      scratch + static_cast<size_t>(ray) * 4 * (Sc + Sf), out);
+      }
+    }
+  });
 }
 
 template <int H, bool kBf16>
@@ -231,7 +234,7 @@ cudaError_t launch(const Weights& w, const float* tcw, const Inputs<enc_t<kBf16>
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const int blocks = num_blocks(R, Sf);
-  union_eval_kernel<H, kBf16><<<blocks, kThreads, smem, stream>>>(
+  union_eval_kernel<H, kBf16><<<blocks, kTcThreads, smem, stream>>>(
       w, TcImages::forward<kBf16>(w, tcw, w.hp), in, out, R, Sc, Sf, fout, scratch,
       wide_rows(wide, w.hp));
   return cudaGetLastError();

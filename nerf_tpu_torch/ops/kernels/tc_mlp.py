@@ -323,13 +323,60 @@ def image_numels(packed, dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
             slabs + per * hidden * sum(round_up_input(w) for w in widths))
 
 
+# The kernels copy each chunk of an image with one bulk copy
+# (``cp.async.bulk``, ``csrc/tc_mlp.cuh``'s ``tc_gemm``), whose global
+# address and size must be multiples of 16 bytes.
+BULK_ALIGN = 16
+
+
+def bulk_copies(packed, backward: bool = False,
+                dtype: torch.dtype = torch.float32) -> list:
+    """``(offset, size)`` in bytes of every chunk the kernels' producer
+    copies from the forward image ``tc_images(packed, dtype=dtype)`` builds
+    (with ``backward``, from the backward image), in image order: the
+    addressing of ``csrc/tc_mlp.cuh``'s ``TcImages`` (``mip_mlp.cuh``'s
+    ``MipImages``), the hidden slabs and ``tc_input_images``.  A chunk is
+    ``kc`` k-values of every row of one operand image (``chunk_of``), hi
+    and lo in TF32; a slab past 256 outputs is ``hp / 256`` images of 256
+    rows (the column blocks), an input slab's backward image one image of
+    ``min(hp, 64)`` rows a pass."""
+    hidden = padded_hidden(hidden_of(packed))
+    esize = 2 if dtype == torch.bfloat16 else 4
+    per = 1 if dtype == torch.bfloat16 else 2
+    kc = chunk_of(dtype)
+
+    def image(n: int, k: int) -> list:
+        return [per * n * kc * esize] * (round_up_chunk(k, dtype) // kc)
+
+    def blocks(n: int, k: int) -> list:
+        return [c for _ in range(max(1, n // COL_BLOCK)) for c in image(min(n, COL_BLOCK), k)]
+
+    widths = [packed[k].shape[0] for k in INPUT_SLABS if k in packed]
+    hidden_slabs = [c for _ in range(packed["whh"].shape[0]) for c in blocks(hidden, hidden)]
+    if backward:
+        rows = min(hidden, INPUT_PAD)
+        sizes = hidden_slabs + [c for w in widths for _ in range(round_up_input(w) // rows)
+                                for c in image(rows, hidden)]
+    else:
+        sizes = [c for w in widths for c in blocks(hidden, w)] + hidden_slabs
+    offsets, at = [], 0
+    for size in sizes:
+        offsets.append((at, size))
+        at += size
+    return offsets
+
+
 def check_images(name: str, packed, tc_fwd: Optional[torch.Tensor],
                  tc_bwd: Optional[torch.Tensor] = None,
                  dtype: torch.dtype = torch.float32) -> None:
     """Raise a ``ValueError`` where operand images built beforehand are not
-    the flat sizes ``tc_images(packed, dtype=dtype)`` gives them (the
-    wrappers' own checks take their device, type and layout)."""
+    the flat sizes ``tc_images(packed, dtype=dtype)`` gives them, or do not
+    start on a ``BULK_ALIGN``-byte boundary (the wrappers' own checks take
+    their device, type and layout)."""
     for key, img, n in zip(("tc_fwd", "tc_bwd"), (tc_fwd, tc_bwd), image_numels(packed, dtype)):
         if img is not None and tuple(img.shape) != (n,):
             raise ValueError(f"{name}: {key} must be tc_mlp.tc_images' [{n}] image of these "
                              f"weights, got {tuple(img.shape)}")
+        if img is not None and img.data_ptr() % BULK_ALIGN:
+            raise ValueError(f"{name}: {key} must start on a {BULK_ALIGN}-byte boundary (the "
+                             f"kernels' bulk copies), got address {img.data_ptr():#x}")

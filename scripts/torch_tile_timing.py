@@ -14,7 +14,9 @@ branch takes the state).  For each width and dtype, each kernel called as a
 user calls its wrapper (the operand images built by the call), on uniform
 inputs in [-1, 1) from a seed:
 
-* K1-fwd at 262,144 and 65,536 rows;
+* K1-fwd at 262,144 and 65,536 rows, each also with its operand image
+  built beforehand (the kernel alone, where the call's own image build
+  and launch weigh less);
 * K4 at a 4000-ray tile of 64 + 128 samples;
 * K1-bwd at 131,072 rows, without and with the encodings' cotangents;
 * K2 at 4096 x 64 and at the conditional trainer's 1024 x 64;
@@ -29,7 +31,8 @@ runs on weights padded to one, past 256 in column blocks (``csrc/tc_mlp.cuh``
 note 11).  ``--colors`` sets the colour outputs (3 by default), and
 ``--samples sc,sf`` the coarse and fine samples of K3, K4 and K9 (64,128).
 ``--outputs PATH`` also saves each call's outputs (``torch.save``, by
-dtype and kernel) to compare two trees' bit for bit.
+dtype and kernel) to compare two trees' bit for bit: ``--compare A B``
+prints, call by call, whether two such files agree bitwise (no GPU).
 
 ``--family mip``: the full-width MipNeRF (hidden 256, 5 layers, 3 + 50
 outputs, random weights from seed 0) with ``encoding_size`` F / 3 for each
@@ -86,6 +89,7 @@ from nerf_tpu_torch.ops.kernels import (  # noqa: E402
     mip_mlp,
     mip_train,
     point_mlp,
+    tc_mlp,
     train_grads,
     union_eval,
 )
@@ -142,11 +146,16 @@ def run(device, s: int, dtype: str, hidden: int = 256, colors: int = 3,
     per_row = classic_flops_per_point(cfg)
     out = {}
     with torch.no_grad():
+        img = tc_mlp.tc_images(packed, dtype=tdt)[0]
         for rows in (262_144, 65_536):
             x, d = rand(rows, xe, enc=True), rand(rows, de, enc=True)
             out[f"K1-fwd {rows}"] = timed(classic_mlp.NAME,
                                           lambda: classic_mlp.classic_mlp_fwd(packed, x, d), 10,
                                           rows * per_row)
+            # The kernel alone: its operand image built once, beforehand.
+            out[f"K1-fwd {rows} image built beforehand"] = timed(
+                classic_mlp.NAME, lambda: classic_mlp.classic_mlp_fwd(packed, x, d, tc_fwd=img),
+                20, rows * per_row)
         rays, (sc, sf) = 4000, samples
         t_c = torch.sort(rand(rays, sc, lo=2.0, hi=6.0), -1).values
         t_f = torch.sort(rand(rays, sf, lo=2.0, hi=6.0), -1).values
@@ -264,6 +273,24 @@ def run_mip(device, features: int, dtype: str, hidden: int = 256, colors: int = 
             "kernels": out}
 
 
+def compare(path_a: str, path_b: str) -> int:
+    """Prints, call by call, whether two ``--outputs`` files hold bitwise
+    the same outputs (and the largest difference where not); one JSON
+    object.  Returns 0 when every output is bitwise the same."""
+    a, b = torch.load(path_a), torch.load(path_b)
+    rows, same = [], len(a) == len(b)
+    for (name_a, ta), (name_b, tb) in zip(a, b):
+        equal = name_a == name_b and len(ta) == len(tb) and all(
+            x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(ta, tb))
+        diff = max((float((x.float() - y.float()).abs().max()) for x, y in zip(ta, tb)
+                    if x.shape == y.shape and x.numel()), default=0.0)
+        rows.append({"kernel": name_a, "bitwise": equal, "max_abs_diff": diff})
+        same = same and equal
+    print(json.dumps({"a": path_a, "b": path_b, "calls": len(rows), "bitwise": same,
+                      "outputs": rows}))
+    return 0 if same else 1
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--widths", default="0,7,32",
@@ -278,7 +305,11 @@ def main() -> int:
                         help="coarse and fine samples of K3, K4 and K9")
     parser.add_argument("--outputs", default=None,
                         help="save each call's outputs to this file (torch.save)")
+    parser.add_argument("--compare", nargs=2, metavar=("A", "B"), default=None,
+                        help="compare two --outputs files bit for bit (no GPU) and exit")
     args = parser.parse_args()
+    if args.compare is not None:
+        return compare(*args.compare)
     if not torch.cuda.is_available():
         print("torch_tile_timing: needs an NVIDIA GPU", file=sys.stderr)
         return 1

@@ -19,7 +19,9 @@ the card, ms/step, rays/s, device time per step by kernel (largest first,
 each MLP pass labelled as ``chip_smoke.PASSES`` names it: K1-bwd's, K2's,
 K3's, K6's and K9's ``fwd_store``, ``bwd_rows`` and ``wgrad`` and K1-fwd's
 tile run their products as 3xTF32 on the tensor cores) and the device's
-idle share (1 - busy / span of the first to the last kernel); ``--out``
+idle share (1 - busy / span of the first to the last kernel); the spans
+of user annotations on the device's timeline (``Optimizer.step``'s) are
+reported apart and counted in neither; ``--out``
 also writes them as JSON.  With ``--compute-dtype bfloat16`` it profiles
 the same steps in compute_dtype bfloat16 (every pass a bf16 ``wgmma``).
 With ``--data-parallel`` it profiles the reuse, coarse-only and mip steps
@@ -99,13 +101,21 @@ def profile_steps(name, warm, run, n_rays, steps) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    by_name = defaultdict(float)
+    # Device events are kernels (and copies) or the spans of user
+    # annotations on the device's timeline (``Optimizer.step``'s, say), which
+    # cover kernels already counted: only the first count as busy time, the
+    # annotations are reported apart.
+    by_name, annotations = defaultdict(float), defaultdict(float)
     start, end = float("inf"), 0.0
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.name] += evt.time_range.elapsed_us()
-            start = min(start, evt.time_range.start)
-            end = max(end, evt.time_range.end)
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(evt, "is_user_annotation", False):
+            annotations[evt.name] += evt.time_range.elapsed_us()
+            continue
+        by_name[evt.name] += evt.time_range.elapsed_us()
+        start = min(start, evt.time_range.start)
+        end = max(end, evt.time_range.end)
     if not by_name:
         raise RuntimeError("the profiler recorded no device time")
     busy_us = sum(by_name.values())
@@ -117,6 +127,7 @@ def profile_steps(name, warm, run, n_rays, steps) -> dict:
         "device_span_ms_per_step": (end - start) / 1e3 / steps,
         "idle_share": 1.0 - busy_us / (end - start),
         "kernels_ms_per_step": dict(list(per_step.items())[:20]),
+        "annotations_ms_per_step": {k: v / 1e3 / steps for k, v in annotations.items()},
     }
     print(f"{name}: {step_ms:.2f} ms/step (host clock), {result['rays_per_s']:.0f} rays/s; "
           f"device busy {result['device_busy_ms_per_step']:.2f} ms, span "
@@ -124,6 +135,8 @@ def profile_steps(name, warm, run, n_rays, steps) -> dict:
     for kernel, ms in list(per_step.items())[:20]:
         label = chip_smoke.pass_label(kernel)
         print(f"  {ms:9.3f} ms  {f'[{label}] ' if label else ''}{kernel[:110]}")
+    for span, ms in result["annotations_ms_per_step"].items():
+        print(f"  {ms:9.3f} ms  (annotation, not summed) {span[:100]}")
     return result
 
 

@@ -2655,3 +2655,80 @@ def test_sample_parallel_reuse_step_at_one_rank_is_the_step_without_a_mesh(cuda)
     torch.testing.assert_close(loss, ref_loss.detach(), rtol=1e-5, atol=0)
     for name, g in ref.items():
         assert float((grads[name] - g).norm() / g.norm()) <= 1e-4, name
+
+
+# The edges of the row-tile pipeline (csrc/tc_mlp.cuh note 2): a producer
+# warp copies every product's B chunks through a ring of mbarrier-guarded
+# slots, across products, epilogues and a block's sub-tiles, and the
+# consumers lend it its buffers where a wide head stages weights there.
+# Tiles with one valid row, blocks with fewer sub-tiles than their
+# neighbours, one ray a block, a padded tile and column blocks, in both
+# dtypes, each against its plain version at the tolerances of its other
+# cases.
+EDGE_HIDDEN = (48, 256, 512)
+
+
+def edge_close(got, ref, compute, tol):
+    if compute == "float32":
+        torch.testing.assert_close(got, ref, **tol)
+    else:
+        assert rel_l2(got, ref) <= BF16_FWD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", EDGE_HIDDEN)
+def test_pipeline_edge_tiles(cuda, hidden, compute):
+    """K1-fwd on 129 rows (two 64-row tiles and one of a single row: an
+    odd number of blocks), K4 on 37 rays of 64 + 128 samples (two rays a
+    block: 19 blocks, the last with one ray and half the sub-tiles) and on
+    5 rays of 64 + 384 (one ray a block, seven sub-tiles)."""
+    cfg, packed = width_packed(cuda, hidden, True)
+    enc = (lambda t: t.bfloat16()) if compute == "bfloat16" else (lambda t: t)
+    x, d, _ = k1_inputs(cfg, packed, cuda, rays=1, s=129, seed=hidden + 7)
+    x, d = enc(x), enc(d)
+    before = _build.launch_counts[classic_mlp.NAME]
+    out = classic_mlp.classic_mlp_fwd(packed, x, d)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[classic_mlp.NAME] == before + 1
+    edge_close(out, classic_mlp.classic_mlp_fwd_plain(packed, x, d), compute, K1_TOL)
+    for rays, sc, sf in ((37, 64, 128), (5, 64, 384)):
+        args = list(union_args(cfg, packed, cuda, rays=rays, sc=sc, sf=sf, seed=rays))
+        args[1], args[2] = enc(args[1]), enc(args[2])
+        before = _build.launch_counts[union_eval.NAME]
+        got = union_eval.union_eval(*args)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[union_eval.NAME] == before + 1
+        for g, r in zip(got, union_eval.union_eval_plain(*args)):
+            edge_close(g, r, compute, K4_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rays,sc,sf,hidden", [(1, 7, 129, 48), (1, 7, 129, 256),
+                                               (1, 7, 129, 512), (2047, 64, 128, 256)])
+def test_pipeline_edge_steps(cuda, rays, sc, sf, hidden, compute):
+    """K3 (its fwd_store, bwd_rows and wgrad passes) on one ray of 7 + 129
+    samples (129 fine rows: three tiles, the last of one row) at every kind
+    of width, and on 2047 rays of 64 + 128 (an odd number of rays, 4094
+    tiles); float32 on fine rows away from the ReLU kinks, bf16 on bfloat16
+    encodings."""
+    cfg, packed = width_packed(cuda, hidden, True)
+    if compute == "float32":
+        a = fine_inputs(cfg, cuda, rays=rays, sc=sc, sf=sf, seed=hidden, packed=packed)
+    else:
+        a = bf16(fine_inputs(cfg, cuda, rays=rays, sc=sc, sf=sf, seed=hidden))
+    before = _build.launch_counts[fine_stage_train.NAME]
+    loss, grads, (gdc, gcc) = fine_stage_train.fine_stage_train(packed, **a, loss_weight=0.5)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[fine_stage_train.NAME] == before + 1
+    r_loss, ref, (r_gdc, r_gcc) = fine_stage_train.fine_stage_train_plain(packed, **a,
+                                                                          loss_weight=0.5)
+    got, want = {**grads, "g_dens_c": gdc, "g_col_c": gcc}, {**ref, "g_dens_c": r_gdc,
+                                                             "g_col_c": r_gcc}
+    if compute == "float32":
+        torch.testing.assert_close(loss, r_loss, rtol=LOSS_RTOL, atol=0)
+        assert_grads_close(got, want)
+    else:
+        assert rel_l2(loss, r_loss) <= BF16_FWD
+        assert_bf16_grads(got, want)
