@@ -276,13 +276,26 @@
    (hidden_size=48)``, ``(hidden_size=512)`` and 16 colours (the frame
    tile, the fused step and K7, K6, K5-fwd and K5-bwd against plain,
    timed).  Prints the phase's wall time.
-22. Prints the kernels' JSON line (each row with its float32 bound and
+22. The weight-gradient pass (``csrc/tc_mlp.cuh``'s
+   ``wgrad_tc_kernel``): K2 at 4096 x 64, K9 at 2048 x (64 + 128), the
+   reuse step's K3 (2048 x 128) and K1-bwd (2048 x 64) and K6 at 4096 x 63,
+   on uniform inputs from seed 0, one call of each profiled in each dtype
+   (``torch.profiler``, the kernels named by ``pass_label``): the pass's
+   device time beside its FLOP floor (3xTF32 or bf16 rate) and its
+   chain-bytes floor (xhat and dpre read once at the memory rate), and the
+   other passes' times; and ``torch.mm`` over K2's twelve products in
+   float32 (TF32 off) and bf16, timed as the pass's yardstick and used
+   nowhere in the port.
+23. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
    each, ``products``: how its MLP products run, and since which slice,
    ``cli_launches``: its launches in phase 14, ``dp_launches``: in phase
    18a, ``sp_launches``: in phase 19a, and its bf16 entries from phases 15, 16 and 17, ``bf16_ms``,
-   ``bf16_bound_ms``, ``bf16_launches`` and the rest), the card line,
-   then, last, the device line.
+   ``bf16_bound_ms``, ``bf16_launches`` and the rest; the training
+   kernels' ``wgrad_ms``, ``bf16_wgrad_ms``, their floors and shares of
+   them from phase 22, and on K2's row ``wgrad_library_ms`` and
+   ``bf16_wgrad_library_ms``: null where a kernel runs no such pass), the
+   card line, then, last, the device line.
 
 The classic model is the full-width ClassicNeRF (hidden 256, 60 + 36
 encoding widths, 638,468 parameters) with random weights from seed 0.  Its density
@@ -331,7 +344,7 @@ from nerf_tpu_torch.cli import render as render_cli
 from nerf_tpu_torch.cli import train_conditional, train_tiny_nerf
 from nerf_tpu_torch.data import RayBank, synthesize_scene
 from nerf_tpu_torch.data.scenes import spherical_poses
-from nerf_tpu_torch.ops import sampling
+from nerf_tpu_torch.ops import compositing, sampling
 from nerf_tpu_torch.ops.cameras import pose_to_rays
 from nerf_tpu_torch.ops.kernels import (
     _build,
@@ -3468,6 +3481,156 @@ def classic_every_case(device, bank, case: str, dtype: str, card: str) -> None:
                + 2 * weight_bytes + 8)
 
 
+# Phase 22: the weight-gradient pass (csrc/tc_mlp.cuh's wgrad_tc_kernel)
+# inside the training kernels that run it on the main paths, and torch.mm
+# over K2's products as its yardstick.
+WGRAD_ROW_KEYS = ("wgrad_ms", "wgrad_flop_floor_ms", "wgrad_bytes_floor_ms",
+                  "wgrad_share_of_flop_floor", "wgrad_share_of_bytes_floor",
+                  "bf16_wgrad_ms", "bf16_wgrad_flop_floor_ms", "bf16_wgrad_share_of_flop_floor",
+                  "bf16_wgrad_share_of_bytes_floor", "wgrad_library_ms", "bf16_wgrad_library_ms")
+
+
+def profiled_passes(call) -> dict:
+    """Device ms of one call of ``call`` by pass (``pass_label``), after a
+    warm-up call: ``torch.profiler``'s kernels, each named by its pass."""
+    call()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    passes = collections.Counter()
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            passes[pass_label(evt.name).split(",")[0] or "other"] += evt.time_range.elapsed_us() / 1e3
+    check(passes["wgrad"] > 0, f"the profiler recorded the wgrad pass ({dict(passes)})")
+    return dict(passes)
+
+
+def wgrad_cases(device, dtype: str) -> dict:
+    """name -> (kernel calls, rows, products, chain bytes) of the training
+    kernels at the main paths' shapes: K2 at 4096 x 64, K9 at 2048 x (64 +
+    128), the reuse step's K3 at 2048 x 128 and K1-bwd at 2048 x 64, and K6
+    at 4096 x 63, on uniform inputs from seed 0 (the full-width models)."""
+    bf16 = dtype == "bfloat16"
+    tdt = torch.bfloat16 if bf16 else torch.float32
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def rand(*shape, lo=-1.0, hi=1.0, enc=False):
+        out = torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+        return out.to(tdt) if enc else out
+
+    cfg = ClassicNeRFConfig(normalize_position=6.0, compute_dtype=dtype)
+    model = ClassicNeRF(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    packed = classic_mlp.pack_classic_params(model.mlp.requires_grad_(False))
+    xe, de, hp, layers = cfg.x_encoding_dim, cfg.d_encoding_dim, 256, 10
+
+    def classic(rows):
+        prods = tc_mlp.classic_wgrad_products(xe, de, hp, layers, rows, tdt)
+        return prods, (2 * layers - 1) * hp * 4 * rows
+
+    cases = {}
+    rays, s = 4096, 64
+    t = torch.sort(rand(rays, s, lo=2.0, hi=6.0), -1).values
+    k2 = dict(x_enc=rand(rays, s, xe, enc=True),
+              d_enc=rand(rays, 1, de, enc=True).expand(rays, s, de).contiguous(),
+              dists=compositing.distances_from_tvals(t, rand(rays, 3)).contiguous(),
+              noise=rand(rays, s), pixels=rand(rays, 3, lo=0.0, hi=1.0))
+    cases[train_grads.NAME] = (
+        lambda: train_grads.classic_train_grads(packed, **k2, num_samples=s), rays * s,
+        *classic(rays * s))
+    rays, sc, sf = 2048, 64, 128
+    batch = {"rays_o": rand(rays, 3, lo=-0.5, hi=0.5), "rays_d": rand(rays, 3),
+             "pixels": rand(rays, 3, lo=0.0, hi=1.0)}
+    draws = sampling.draw_step(gen, TRAIN_RENDER, rays, device)
+    k9 = mega_train.mega_inputs(model, batch, draws)
+    cases[mega_train.NAME] = (lambda: mega_train.mega_train(packed, *k9), rays * (sc + sf),
+                              *classic(rays * (sc + sf)))
+    t_c = torch.sort(rand(rays, sc, lo=2.0, hi=6.0), -1).values
+    t_f = torch.sort(rand(rays, sf, lo=2.0, hi=6.0), -1).values
+    k3 = dict(x_enc=rand(rays, sf, xe, enc=True),
+              d_enc=rand(rays, 1, de, enc=True).expand(rays, sf, de).contiguous(),
+              t_coarse=t_c, t_fine=t_f, dens_c=rand(rays, sc, 1, lo=-3.0, hi=6.0),
+              col_c=rand(rays, sc, 3, lo=-3.0, hi=3.0), dnorm=rand(rays, lo=0.5, hi=2.0),
+              noise_f=rand(rays, sf), pixels=rand(rays, 3, lo=0.0, hi=1.0))
+    cases[fine_stage_train.NAME] = (lambda: fine_stage_train.fine_stage_train(packed, **k3),
+                                    rays * sf, *classic(rays * sf))
+    rows = rays * sc
+    x1, d1, g1 = rand(rows, xe, enc=True), rand(rows, de, enc=True), rand(rows, 4)
+    cases[classic_mlp.BWD_NAME] = (
+        lambda: classic_mlp.classic_mlp_bwd(packed, x1, d1, g1, input_grads=False), rows,
+        *classic(rows))
+    mcfg = MipNeRFConfig()
+    mip = MipNeRF(mcfg, generator=torch.Generator().manual_seed(0), device=device)
+    mpacked = mip_mlp.pack_mip_params(mip.mlp.requires_grad_(False))
+    rays, n = 4096, 63
+    points = torch.cumsum(rand(rays, n, 3, lo=0.0, hi=1.0), dim=1)
+    k6 = (rand(rays, n, mcfg.feature_dim).to(tdt),
+          compositing.distances_from_points(points).contiguous(), rand(rays, n),
+          rand(rays, mcfg.color_outputs, lo=0.0, hi=1.0),
+          torch.randint(0, mcfg.segmentation_outputs, (rays,), generator=gen, device=device))
+    mlayers, outputs = mpacked["b"].shape[0], mpacked["w_out"].shape[1]
+    mprods = tc_mlp.mip_wgrad_products(mcfg.feature_dim, hp, mlayers, outputs, rays * n, tdt)
+    cases[mip_train.TRAIN_NAME] = (
+        lambda: mip_train.mip_train_grads(mpacked, *k6, mcfg.color_outputs, SEG_WEIGHT),
+        rays * n, mprods, (2 * mlayers * hp + outputs) * 4 * rays * n)
+    return cases
+
+
+def wgrad_library_ms(device, dtype: str, rows: int = 4096 * 64) -> float:
+    """One ``torch.mm`` a product over K2's product list (x^T dpre twice,
+    d^T dpre, nine h^T dpre at hidden 256), float32 with TF32 off or
+    bf16: the pass's yardstick, timed by CUDA events; used nowhere in the
+    port."""
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    gen = torch.Generator(device=device).manual_seed(1)
+    prods = tc_mlp.classic_wgrad_products(60, 36, 256, 10, rows, tdt)
+    ops = [(torch.rand(rows, p.M, generator=gen, device=device).to(tdt),
+            torch.rand(rows, p.n, generator=gen, device=device).to(tdt)) for p in prods]
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def call():
+        for a, b in ops:
+            torch.mm(a.t(), b)
+
+    return cuda_ms(call, iters=5)
+
+
+def wgrad_phase(device, card: str) -> dict:
+    """Phase 22: for K2, K9, K3 and K1-bwd (the reuse step) and K6, one
+    profiled call in each dtype: the wgrad pass's device time beside its
+    two floors (its FLOPs at the 3xTF32 or the bf16 rate; its float32
+    chain, xhat and dpre read once, at the memory rate) and each other
+    pass's time; and the yardstick, torch.mm over K2's products.  Returns
+    each row's WGRAD_ROW_KEYS."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        bf16 = dtype == "bfloat16"
+        lib_ms = wgrad_library_ms(device, dtype)
+        print(f"wgrad yardstick, torch.mm over K2's 12 products at 262,144 points, {dtype}"
+              f"{' (TF32 off)' if not bf16 else ''}: {lib_ms:.3f} ms ({card})", flush=True)
+        with torch.no_grad():
+            for name, (call, rows, prods, chain_bytes) in wgrad_cases(device, dtype).items():
+                passes = profiled_passes(call)
+                flops = 2 * rows * sum(p.M * p.n for p in prods)
+                flop_floor = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS) * 1e3
+                bytes_floor = chain_bytes / PEAK_BYTES_PER_S * 1e3
+                ms = passes["wgrad"]
+                print(f"  {name} {dtype}: wgrad {ms:.3f} ms of {sum(passes.values()):.3f} "
+                      f"(FLOP floor {flop_floor:.3f} ms, share {flop_floor / ms:.3f}; chain-bytes "
+                      f"floor {bytes_floor:.3f} ms, share {bytes_floor / ms:.3f}); passes "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in sorted(passes.items())), flush=True)
+                row = out.setdefault(name, dict.fromkeys(WGRAD_ROW_KEYS))
+                prefix = "bf16_" if bf16 else ""
+                row[f"{prefix}wgrad_ms"] = ms
+                row[f"{prefix}wgrad_share_of_flop_floor"] = flop_floor / ms
+                row[f"{prefix}wgrad_share_of_bytes_floor"] = bytes_floor / ms
+                row[f"{prefix}wgrad_flop_floor_ms"] = flop_floor
+                row["wgrad_bytes_floor_ms"] = bytes_floor
+                if name == train_grads.NAME:
+                    row[f"{prefix}wgrad_library_ms"] = lib_ms
+    return out
+
+
 def every_shape_phase(device, bank, mip_bank, card: str) -> None:
     """Phase 21: ``classic_every_case`` at every case of
     ``EVERY_CLASSIC_CASES`` and phase 20's ``mip_wide_case`` at every case
@@ -4229,14 +4392,16 @@ def main() -> int:
     sp_launches = mesh_phase(device, bank, mip_keep["bank"], card)
     mip_wide_phase(device, mip_keep["bank"], card)
     every_shape_phase(device, bank, mip_keep["bank"], card)
+    wgrad = wgrad_phase(device, card)
 
-    # 22. Result lines.
+    # 23. Result lines.
     kernels = [kernel_row(name, launches, **row) for name, (launches, row) in rows.items()]
     for row in kernels:
         row["cli_launches"] = cli_launches.get(row["name"], 0)
         row["dp_launches"] = dp_launches.get(row["name"], 0)
         row["sp_launches"] = sp_launches.get(row["name"], 0)
         row.update(bf16.get(row["name"], dict.fromkeys(BF16_ROW_KEYS)))
+        row.update(wgrad.get(row["name"], dict.fromkeys(WGRAD_ROW_KEYS)))
     print("each kernel's time beside its share of the 3xTF32 (float32) and bf16 bounds:")
     for row in kernels:
         bf16_ms, bf16_bound = row.get("bf16_ms"), row.get("bf16_bound_ms")

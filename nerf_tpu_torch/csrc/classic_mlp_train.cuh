@@ -25,8 +25,15 @@
 //      row of a per-tile partials buffer.  Optionally the input cotangents
 //      dx, dd.
 //   3. wgrad: dW = h_in^T dpre for every weight slab (the WProds below):
-//      128 x 128 output tiles, the points split into S chunks, each chunk's
-//      tile written to its own partials slab.
+//      128 x 128 output tiles, the points cut into S splits (wgrad_k_chunk),
+//      each split's tile written to its own partials slab.  A block walks
+//      its split in chunks of 32 points: a copier warp brings each chunk's
+//      raw rows with bulk copies a few chunks ahead, a staging warpgroup
+//      transposes them into the tensor cores' operand order, and two
+//      consumer warpgroups keep two chunks of products in flight, each
+//      chunk summed in a fresh accumulator and added to a float32 sum in
+//      chunk order (tc_mlp.cuh's wgrad_tc_kernel, 230,400 bytes of shared
+//      memory: one block an SM).
 //   4. colsum: the partials summed in a fixed order (two stages), so the
 //      gradients are the same from run to run (no atomics).
 //
@@ -232,8 +239,16 @@ __device__ void layer_bwd(float (&acc)[kRowsPerWarp][H / 32], int i,
 // ---------------------------------------------------------------------------
 
 constexpr int kWT = 128;  // output tile edge
-constexpr int kWK = 16;   // points per staged step
+constexpr int kWK = 16;   // a split's points are a multiple of this (wgrad_k_chunk)
 constexpr int kMaxProds = 12;  // products of one wgrad launch
+
+// The points of each of the `splits` splits of P (the last may hold fewer):
+// every launcher of wgrad splits the points so, and the chunks of kWgK
+// points (tc_mlp.cuh) start at each split's first point.
+__host__ inline int wgrad_k_chunk(int P, int splits) {
+  const int k = (P + splits - 1) / splits;
+  return (k + kWK - 1) / kWK * kWK;
+}
 
 // One weight slab's product.  The left operand is the raw encoding a
 // ([rows / div][a_ld], g == nullptr) or a layer's output rebuilt from its
@@ -353,9 +368,9 @@ cudaError_t launch_mlp_backward(const Weights& w, const void* xv, const void* dv
   int total_tiles = 0;
   for (int i = 0; i < n; ++i) total_tiles += prods.p[i].tiles_m * prods.p[i].tiles_n;
   const size_t wf = wgrad_floats(w, hp);
-  int k_chunk = (P + s.splits - 1) / s.splits;
-  k_chunk = (k_chunk + kWK - 1) / kWK * kWK;
-  if ((err = Products::wgrad(prods, total_tiles, P, k_chunk, s, wf, stream)) != cudaSuccess)
+  const int k_chunk = wgrad_k_chunk(P, s.splits);
+  if ((err = Products::wgrad(prods, total_tiles, P, k_chunk, s, wf, stream, L * PP, hp)) !=
+      cudaSuccess)
     return err;
   if ((err = colsum(s.wpart, s.splits, wf, grads, s.tmp, stream)) != cudaSuccess) return err;
   return colsum(s.tpart, tiles, tile_floats(w, hp), grads + wf, s.tmp, stream);

@@ -547,8 +547,10 @@ struct MipTcT {
   }
 
   static cudaError_t wgrad(const WProds& prods, int total_tiles, int P, int k_chunk,
-                           const Scratch& s, size_t wfloats, cudaStream_t stream) {
-    return TcProductsT<kBf16>::wgrad(prods, total_tiles, P, k_chunk, s, wfloats, stream);
+                           const Scratch& s, size_t wfloats, cudaStream_t stream,
+                           long long chain_rows, int chain_cols) {
+    return TcProductsT<kBf16>::wgrad(prods, total_tiles, P, k_chunk, s, wfloats, stream,
+                                     chain_rows, chain_cols);
   }
 };
 using MipTc = MipTcT<false>;
@@ -575,8 +577,7 @@ cudaError_t launch_mip_backward(const MipWeights& w, const void* xv, const float
   auto xhat = [&](int layer) { return s.xhat + layer * PP * hp; };
   auto dpre = [&](int layer) { return s.dpre + layer * PP * hp; };
   const size_t wf = mip_wgrad_floats(w, hp);
-  int k_chunk = (P + s.splits - 1) / s.splits;
-  k_chunk = (k_chunk + kWK - 1) / kWK * kWK;
+  const int k_chunk = wgrad_k_chunk(P, s.splits);
   // The L + 1 products go to wgrad in groups of kMaxProds, one launch each:
   // each product writes its own slab of every split's partials, so the
   // grouping moves no sum.
@@ -584,7 +585,8 @@ cudaError_t launch_mip_backward(const MipWeights& w, const void* xv, const float
   auto flush = [&]() {
     int total_tiles = 0;
     for (int i = 0; i < prods.n; ++i) total_tiles += prods.p[i].tiles_m * prods.p[i].tiles_n;
-    const cudaError_t e = Products::wgrad(prods, total_tiles, P, k_chunk, s, wf, stream);
+    const cudaError_t e =
+        Products::wgrad(prods, total_tiles, P, k_chunk, s, wf, stream, L * PP, hp);
     prods.n = 0;
     return e;
   };

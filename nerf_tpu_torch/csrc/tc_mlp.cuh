@@ -48,9 +48,10 @@
 //    images pad N with zero rows to a multiple of kTcInPad = 64 and hold
 //    each pass of tc_in_cols<H>() rows (64, or H below 64) as its own
 //    image (tc_input_grad).  wgrad's dW = h_in^T dpre sums over the
-//    points while both are stored [P][H]: A (h_in) is read straight from
-//    the raw rows into register fragments, B (dpre) transposed into the
-//    swizzled order in the pass that splits it.
+//    points while both are stored [P][H]: its staging warpgroup transposes
+//    a chunk of 32 points of both into the K-major swizzled order (split
+//    in TF32, rounded in bf16) and the products read both from shared
+//    memory (wgmma SS).
 // 2. Shared memory (227 KB a block; one 256 x 256 float32 slab is 256 KB)
 //    and the pipeline of B: the weights stream chunk by chunk through a
 //    ring in the 128 KB of tc_bbuf_floats<256>() (tc_block, tc_gemm): 4
@@ -73,7 +74,9 @@
 //    and K4's tile) and the mip forward tile 219,136 (with the encodings'
 //    ring, note 9; K4's fine outputs and compositing scratch lie in device
 //    memory), bwd_rows 207,872 (its colsum scratch beside the ring, which
-//    prefetches through the epilogues), wgrad 136,192; the mip bwd_rows
+//    prefetches through the epilogues), wgrad 230,400 (three raw chunks of
+//    32 KB and two operand images of 64 KB in float32, six and two of 16 KB
+//    in bf16: pass 3 below); the mip bwd_rows
 //    210,944 (with a [64][16] chunk of the head's output cotangents and the
 //    colsum scratch).  Where a wide head stages its weights through the
 //    ring's buffers (the mip heads, past 256 a head of more than kFewOutputs
@@ -101,7 +104,9 @@
 // 5. The chain (xhat, dpre: ~4 GB each at 393,216 rows) stays float32 in
 //    global memory: no hi/lo copy, no extra pass.  wgrad keeps the tiles of
 //    one chunk of points adjacent in launch order (blockIdx.x runs over the
-//    output tiles first), so the re-reads of a chunk hit L2.
+//    output tiles first), so the re-reads of a chunk hit L2; its copier
+//    warp brings each chunk's rows (a TMA box of the chain, a bulk copy of
+//    the encodings) up to three (bf16: six) chunks ahead.
 // 6. Registers: the forward and bwd_rows hold H / 4 accumulator floats a
 //    thread (64 at H = 256; an m64n128 product per warpgroup) plus the A
 //    fragments and B descriptors of a batch (TF32: two chunks, 32 + 16;
@@ -110,15 +115,20 @@
 //    warpgroup, so the 384-thread block starts at 168 a thread; the
 //    producer warpgroup drops to kTcProducerRegs = 40 and the consumers
 //    rise to kTcConsumerRegs = 232 (setmaxnreg), against the 255 a
-//    256-thread block had.  wgrad holds 64 accumulators, their 64-float
-//    float32 sum and one chunk's A fragments (32).
+//    256-thread block had.  wgrad's block is 512 threads (kWgThreads: two
+//    consumer and two staging warpgroups, 128 registers a thread at
+//    launch): its consumers hold two chunks' accumulators (2 x 64) and
+//    their 64-float float32 sum, no fragments (both operands come from
+//    shared memory), at kWgConsumerRegs = 200; its staging warpgroups
+//    (copies and transform) run at kWgStagingRegs = 56.
 // 7. The tensor cores accumulate with truncation below the accumulator's
 //    leading bits (scripts/torch_tc_accuracy.py: a K = 256 product within
 //    about 3e-6 of the largest entry against 7e-7 for float32, its error
 //    biased toward zero).  Over the few hundred products of a row tile that
 //    is within the kernels' tolerances; wgrad's sums over thousands of
 //    points would drift, so each 32-point chunk's products go to a fresh
-//    accumulator that is then added to a float32 sum.
+//    accumulator that is then added to a float32 sum, in chunk order (two
+//    chunks' accumulators in flight).
 // 8. 3xTF32 rounds otherwise than SIMT float32: rows within rounding of a
 //    ReLU kink and fine samples in bins of ~1e-5 mass move, as the checks
 //    of K1-K9 already allow (card tests draw rows away from kinks; K9's
@@ -164,10 +174,11 @@
 //    takes three of k = 8 for half the values), at 989 TFLOP/s dense.  The
 //    rounding points are the JAX package's _dot, _dot_t and _dot_tn: the A
 //    fragments are rounded from the float32 tiles as they are loaded
-//    (cvt.rn.bf16x2.f32: the activation tile, the encodings, dpre and
-//    wgrad's rebuilt h_in stay float32 in memory, note 2), the B operands
-//    come from bf16 images of the weights (tc_mlp.py::operand_image with
-//    dtype bfloat16) or, in wgrad, from dpre rounded as it is transposed;
+//    (cvt.rn.bf16x2.f32: the activation tile, the encodings and dpre stay
+//    float32 in memory, note 2), the B operands come from bf16 images of
+//    the weights (tc_mlp.py::operand_image with dtype bfloat16); wgrad
+//    rounds both its operands, the rebuilt h_in and dpre, as its staging
+//    warpgroup transposes them;
 //    the SIMT heads round h, W and the output cotangents (head<H, true>,
 //    head_bwd<H, true>; the mip head_wide and head_dh likewise).  Everything else (LayerNorm and its statistics,
 //    biases, ReLU masks, compositing, losses, the chain, every sum of
@@ -236,6 +247,8 @@
 // The products are deterministic: a fixed order of wgmma per k-chunk, no
 // atomics; wgrad's partials go through colsum's fixed order as before.
 #pragma once
+
+#include <cuda.h>
 
 #include <cstdint>
 
@@ -396,7 +409,9 @@ __device__ __forceinline__ void fence_regs(uint64_t (&d)[B][S]) {
 // A[g][q + 4], a3 = A[g + 8][q + 4] of the warp's 16 rows; g = lane / 4,
 // q = lane % 4) and B from shared memory; d += A B.  One overload per N in
 // 16, 32, 64, 128 (d holds N / 2 floats), and the all-shared m64n128k8,
-// d = A B + (scale_d ? d : 0).
+// d = A B + (scale_d ? d : 0), its descriptors a + kA and b + kB (kA, kB
+// in 16-byte units, added in the instruction's own block so that a
+// chunk's products hold two descriptors rather than sixteen).
 __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
@@ -452,15 +467,17 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+template <int kA, int kB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %66, 0;\n"
+      "add.s64 da, %64, %67;\nadd.s64 db, %65, %68;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1;\n}\n"
+      "}, da, db, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -469,7 +486,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kA), "n"(kB));
+}
+
+template <int kA, int kB>
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %66, 0;\n"
+      "add.s64 da, %64, %67;\nadd.s64 db, %65, %68;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, da, db, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kA), "n"(kB));
 }
 
 // The bf16 products (note 10): m64nNk16 with A from registers (a0 = A[g][2q,
@@ -667,6 +706,16 @@ __device__ __forceinline__ void mbar_arrive_if_zero(uint32_t bar, uint32_t lead)
       "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 0;\n"
       "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
       "r"(lead)
+      : "memory");
+}
+// The arrival of each warp's lane 0 unless `skip`, the lane read in the
+// instruction's own block (no register holds it beside live accumulators;
+// a predicate, no branch, as mbar_arrive_if_zero).
+__device__ __forceinline__ void mbar_arrive_lane0(uint32_t bar, uint32_t skip) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b32 l;\nmov.u32 l, %%laneid;\nor.b32 l, l, %1;\n"
+      "setp.eq.u32 p, l, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(skip)
       : "memory");
 }
 // The producer's arrival on a full barrier, with the bytes the copy brings.
@@ -1972,309 +2021,543 @@ NERF_TC_KERNEL
 // Pass 3: dW = h_in^T dpre on the tensor cores.
 // ---------------------------------------------------------------------------
 
-// Shared memory of wgrad_tc_kernel: two stages of the raw operands as
-// loaded ([2 operands][kWgK points][kWgLd], a row padded to kWgLd floats so
-// the transposing reads are free of bank conflicts) and two images of B
-// ([hi, lo][kWT x kWgK]), 136,192 bytes with the alignment slack.
-constexpr int kWgLd = kWT + 8;
-constexpr int kWgRawFloats = 2 * kWgK * kWgLd;
-constexpr int kWgImgFloats = 2 * kWT * kWgK;
-// kBf16: where a buffer's spare half holds a chunk's bf16 encoding pairs
-// ([kWgK][64] words; the bf16 image of B takes its first quarter).
-constexpr int kWgWordsOff = kWgImgFloats / 2;
-constexpr size_t kWgradTcSmem = 2 * (kWgRawFloats + kWgImgFloats) * sizeof(float) + kSmemAlign;
+// A block of kWgThreads threads owns one 128 x 128 output tile of a product
+// over one split of the points (blockIdx.x: the products' tiles, in order,
+// so the tiles of one chunk of points run together and share its rows in
+// L2; blockIdx.y: the split) and walks the split's chunks of kWgK = 32
+// points through two rings in shared memory:
+//   * raw: wg_raw_slots() slots, each one chunk's rows as stored (A's, then
+//     B's, 16 KB each), copied by the first warp of the staging warpgroups
+//     (WgOperand::plan: one TMA box of 32 rows x 128 columns from a tensor
+//     map of the chain, one bulk copy of a chunk's contiguous rows, or one
+//     bulk copy a point), each completed on its full mbarrier: up to
+//     wg_raw_slots() chunks in flight ahead of the transform (3 in float32,
+//     6 in bf16);
+//   * images: kWgImgSlots = 2 slots of a chunk's operands in the K-major
+//     swizzled order wgmma reads from shared memory (TF32: A and B each as
+//     hi and lo, rows of 32 values in the 128-byte swizzle, 64 KB; bf16: A
+//     and B rounded, rows of 32 values in the 64-byte swizzle, 16 KB),
+//     written by the staging warpgroups (ready mbarrier) and released by
+//     both consumer warpgroups once the products that read them have
+//     retired (free mbarrier).
+// The two staging warpgroups transform each chunk, thread (half, r) taking
+// row r of A (h = xhat g + beta, relu(h) in the mip order, 0 past M and
+// past the split's points) and of B at 16 of the chunk's points: loads from
+// the raw slot with a warp's lanes on 32 consecutive columns, all 16 in
+// flight, and 16-byte stores into the image with a quarter-warp's lanes on
+// eight rows of one swizzle atom, both free of bank conflicts.  They run a
+// chunk ahead of the products, so neither the copies nor the transform sit
+// between two chunks' products.  The two consumer warpgroups only issue products,
+// warpgroup wg its 64 rows of A against all 128 columns of B, with A and B
+// both from shared memory (wgmma SS: no fragments in registers, so no
+// instruction defines a product's input while products are in flight).
+// Each chunk's products go to a fresh accumulator, d0 and d1 in turn;
+// after issuing chunk c a warpgroup waits for chunk c - 1's (wgmma_wait1)
+// and adds them to the float32 sum acc: two chunks of products in flight
+// and the sum in chunk order (the tensor cores add with truncation below
+// the accumulator's leading bits, so a sum over thousands of points in one
+// accumulator drifts: measured 1e-5 of the largest entry at 1000 points;
+// note 7).  No barrier of the whole block runs in the chunk loop.  TF32:
+// four k-steps of 8 points a chunk, three products each (hi hi, hi lo, lo
+// hi); bf16 (note 10): two k-steps of 16 points, one product each.  The
+// operand values, the products of each k-step in this order, the chunks of
+// 32 from each split's first point and the sum in chunk order fix the
+// gradients' bits: change any of them and the bits change.
+constexpr int kWgThreads = 512;  // two consumer and two staging warpgroups
+constexpr int kWgStaging = 256;  // the staging warpgroups' threads
+constexpr int kWgRawBytes = 2 * kWgK * kWT * 4;  // A's rows, then B's: 32 points x 128 floats each
+constexpr int kWgImgSlots = 2;
+template <bool kBf16>
+__host__ __device__ constexpr int wg_raw_slots() { return kBf16 ? 6 : 3; }
+template <bool kBf16>
+__host__ __device__ constexpr int wg_img_bytes() {
+  return kBf16 ? 2 * kWT * kWgK * 2 : 4 * kWT * kWgK * 4;
+}
+// 230,400 bytes in either dtype, with the alignment slack: one block an SM.
+template <bool kBf16>
+__host__ __device__ constexpr size_t wgrad_tc_smem() {
+  return static_cast<size_t>(wg_raw_slots<kBf16>()) * kWgRawBytes +
+         static_cast<size_t>(kWgImgSlots) * wg_img_bytes<kBf16>() + kSmemAlign;
+}
+// The registers: 512 threads start at 128; the staging warpgroups drop to
+// 56 and the consumers (acc, d0, d1: 192 floats) rise to 200 (2 x 128 x 56
+// + 2 x 128 x 200 = 65,536).
+constexpr int kWgStagingRegs = 56;
+constexpr int kWgConsumerRegs = 200;
 
-// A block of 256 threads owns one 128 x 128 output tile over one chunk of
-// points; warpgroup wg takes the tile's rows 64 wg .. 64 wg + 63 (M) and
-// all 128 columns (N) as one m64n128 accumulator.  A = h_in^T and B =
-// dpre are stored [P][M] and [P][N], and TF32 wgmma wants both K-major
-// (points contiguous).  Per 32-point chunk:
-//   1. cp.async copies the chunk's raw rows of both operands (128 columns,
-//      16 bytes a copy where the rows allow it, else 4; zero-filled past P
-//      and past M or N) one chunk ahead, so no load's latency is waited
-//      for;
-//   2. B is transposed out of the raw stage, split into hi and lo and
-//      stored in the 128-byte-swizzled K-major order (the 32 lanes of a
-//      store hit 32 banks), into the image the products of two chunks ago
-//      have released;
-//   3. A needs no image: each thread loads its m64n128k8 A fragments (rows
-//      g, g + 8 of its warp, points q, q + 4 of each k-step) straight from
-//      the raw rows (free of bank conflicts), rebuilds h = xhat g + beta
-//      (relu for the mip order) and splits them in registers;
-//   4. the chunk's 12 products are issued and left running while the next
-//      chunk is copied and transformed; before the next products, this
-//      chunk's partial sum is added to a float32 sum (the tensor cores add
-//      with truncation below the accumulator's leading bits, so a sum over
-//      thousands of points in one accumulator drifts: measured 1e-5 of the
-//      largest entry at 1000 points).
-// One block an SM (the float32 sum beside the accumulators).
-// kBf16 (note 10): B's image holds dpre rounded to bf16, 64 bytes (32
-// points) a row in the 64-byte swizzle, a quarter of a TF32 image's
-// buffer; the A fragments are h_in rounded as they are built; two k-steps
-// of 16 points a chunk, one bf16 product each.  A raw encoding marked
-// a_bf16 is copied as it is stored, bf16 pairs by cp.async into the spare
-// half of the chunk's image buffer (kWgWords), and widened into the raw
-// stage beside step 2 (exact); an odd width, whose pairs are not 4-byte
-// aligned, is loaded and widened synchronously.
+// Up to two float32 buffers [rows][cols] whose rows the pass reads through
+// TMA tensor maps (boxes of kWgK rows x kWT columns, zero past the
+// buffer's edges): the chain's xhat and dpre in the MLP launchers, the two
+// operands in tc_product.cu.
+struct WgMaps {
+  CUtensorMap map[2];
+  const float* base[2];
+  long long rows[2];
+  int cols[2];
+  int n;
+};
+
+// Appends a map of base [rows][cols] to m where TMA can read it (16-byte
+// aligned base and rows); otherwise the pass copies those rows another way.
+inline cudaError_t wg_add_map(WgMaps& m, const float* base, long long rows, int cols) {
+  if (m.n == 2 || reinterpret_cast<uintptr_t>(base) % 16 != 0 || cols % 4 != 0 || rows < 1)
+    return cudaSuccess;
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(float)};
+  const cuuint32_t box[2] = {kWT, kWgK}, steps[2] = {1, 1};
+  if (encode(&m.map[m.n], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base), dims,
+             strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) !=
+      CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  m.base[m.n] = base;
+  m.rows[m.n] = rows;
+  m.cols[m.n] = cols;
+  ++m.n;
+  return cudaSuccess;
+}
+
+// How a chunk of one operand reaches shared memory (WgOperand::plan; the
+// copier warp and the transform compute the same, tc_mlp.py::wgrad_copies
+// mirrors it):
+//   kWgChunk: the tile spans the rows and the chunk's rows row(p0) ..
+//     row(p0 + valid - 1) are contiguous (a row a point, or a ray's row
+//     for its points), their start and bytes 16-byte aligned: one bulk
+//     copy, slot row row(p) - row0, ld elements apart;
+//   kWgTma: the operand lies in a mapped buffer (the chain past 128
+//     columns): one TMA box, slot row p - p0, kWT floats apart;
+//   kWgRows: every row start and the tile's width 16-byte aligned: one bulk
+//     copy of the tile's columns a point, slot row p - p0, kWT apart;
+//   kWgDirect: none of these (a bf16 encoding of 36 values, 72 bytes a
+//     row, read per ray; a float32 one of 702; a chunk whose bytes are no
+//     multiple of 16): no copy, the transform reads device memory.
+enum WgMode : int { kWgChunk = 0, kWgTma = 1, kWgRows = 2, kWgDirect = 3 };
+struct WgCopy {
+  int mode;
+  int ld;          // elements between two slot rows
+  uint32_t bytes;  // bytes the chunk's copies bring
+  int row0;        // kWgChunk: the first row copied; kWgTma: the box's first row
+};
+
+__device__ __forceinline__ void tma_copy_2d(uint32_t dst, const CUtensorMap* map, int col, int row,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// One operand of a block's product: the tile's columns col0 .. col0 + width
+// - 1 of rows ld elements apart, es bytes an element; point p reads row p,
+// or WProd's per-ray row; map >= 0: its rows are rows map_row .. of mapped
+// buffer `map`.
+struct WgOperand {
+  const char* base;
+  int es, ld, col0, width, div, split, div2;
+  int map, map_row;
+
+  __device__ int row(int p) const {
+    if (div == 1) return p;  // no division on the common path
+    return split > 0 && p >= split ? (p - split) / div2 : p / div;
+  }
+  // The copy plan of the chunk of `valid` points from p0.
+  __device__ WgCopy plan(int p0, int valid) const {
+    const bool base16 = reinterpret_cast<uintptr_t>(base) % 16 == 0;
+    const size_t row_bytes = static_cast<size_t>(ld) * es;
+    const int last = p0 + valid - 1;
+    const bool straddle = div != 1 && split > 0 && p0 < split && last >= split;
+    if (base16 && !straddle && col0 == 0 && width == ld) {
+      const int r0 = row(p0);
+      const size_t bytes = static_cast<size_t>(row(last) - r0 + 1) * row_bytes;
+      if (r0 * row_bytes % 16 == 0 && bytes % 16 == 0)
+        return {kWgChunk, ld, static_cast<uint32_t>(bytes), r0};
+    }
+    if (map >= 0) return {kWgTma, kWT, static_cast<uint32_t>(kWgK * kWT * 4), map_row + p0};
+    if (base16 && row_bytes % 16 == 0 && col0 * es % 16 == 0 && width * es % 16 == 0)
+      return {kWgRows, kWT, static_cast<uint32_t>(valid * width * es), 0};
+    return {kWgDirect, kWT, 0u, 0};
+  }
+  // The copier warp's copies of the chunk into dst, completed on bar.
+  __device__ void copy(const WgCopy& cp, const WgMaps& maps, int p0, int valid, char* dst,
+                       uint32_t bar, int lane) const {
+    if (cp.mode == kWgChunk) {
+      if (lane == 0)
+        bulk_copy(smem_u32(dst), base + static_cast<size_t>(cp.row0) * ld * es, cp.bytes, bar);
+    } else if (cp.mode == kWgTma) {
+      if (lane == 0) tma_copy_2d(smem_u32(dst), &maps.map[map], col0, cp.row0, bar);
+    } else if (cp.mode == kWgRows && lane < valid) {  // lane: the point (kWgK = 32)
+      bulk_copy(smem_u32(dst + lane * kWT * es),
+                base + (static_cast<size_t>(row(p0 + lane)) * ld + col0) * es, width * es, bar);
+    }
+  }
+};
+
+// Column r of an operand at the kN points pl0 .. of the chunk as floats
+// (bf16 widened exactly) on the plans whose rows are not a fixed stride
+// apart: kWgChunk with rows per ray (point pl at slot element rows[pl] +
+// r) and kWgDirect (device memory: point pl's row rows[pl], or p0 + pl
+// where rows is null).  rows: the copier warp's table for the chunk
+// (wg_rows), so no point's row is divided out here.
+template <int kN, bool kVolatile>
+__device__ __forceinline__ void wg_listed(const WgOperand& op, const WgCopy& cp, const char* slot,
+                                          const int* rows, int p0, int valid, int pl0, int r,
+                                          bool ok, float (&v)[kN]) {
+  // Past the valid points (rows not written for this chunk) and past the
+  // tile's width, the reads stay in bounds: the slot's first element, the
+  // operand's first.  kVolatile (float32, whose transform has fewer spare
+  // registers): each value's address is formed and loaded in turn, the
+  // loads volatile so the compiler does not hoist them together; bf16 lets
+  // it overlap them.
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const bool in = ok && pl0 + k < valid;
+    uint32_t bits;
+    if (cp.mode == kWgChunk) {
+      const int e = in ? rows[pl0 + k] + r : 0;
+      if constexpr (kVolatile) {
+        const uint32_t at = smem_u32(slot) + static_cast<uint32_t>(e * op.es);
+        if (op.es == 2)
+          asm volatile("ld.shared.u16 %0, [%1];\n" : "=r"(bits) : "r"(at));
+        else
+          asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(bits) : "r"(at));
+      } else {
+        bits = op.es == 2 ? reinterpret_cast<const uint16_t*>(slot)[e]
+                          : reinterpret_cast<const uint32_t*>(slot)[e];
+      }
+    } else {
+      const int row = rows != nullptr ? rows[pl0 + k] : p0 + pl0 + k;
+      const size_t e = in ? static_cast<size_t>(row) * op.ld + op.col0 + r : 0;
+      const char* at = op.base + e * op.es;
+      if constexpr (kVolatile) {
+        if (op.es == 2)
+          asm volatile("ld.global.nc.u16 %0, [%1];\n" : "=r"(bits) : "l"(at));
+        else
+          asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(bits) : "l"(at));
+      } else {
+        bits = op.es == 2 ? __ldg(reinterpret_cast<const unsigned short*>(at))
+                          : __ldg(reinterpret_cast<const unsigned int*>(at));
+      }
+    }
+    v[k] = __uint_as_float(op.es == 2 ? bits << 16 : bits);
+  }
+}
+
+// Group e of row r of an operand's image: TF32 (kG = 4 points), the hi
+// array at im and the lo array kWT x kWgK floats after it, 16-byte group e
+// of row r at e ^ (r % 8) (128-byte swizzle), word j point 4 e + j; bf16 (kG
+// = 8), one array, group e at e ^ ((r / 2) % 4) (64-byte swizzle), word j
+// points 8 e + 2 j and + 1.
+template <bool kBf16, int kG>
+__device__ __forceinline__ void wg_store(char* im, int r, int e, const float (&v)[kG]) {
+  if constexpr (kBf16) {
+    uint32_t* row = reinterpret_cast<uint32_t*>(im) + r * (kWgK / 2);
+    *reinterpret_cast<uint4*>(row + ((e ^ ((r >> 1) & 3)) << 2)) =
+        make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]), pack_bf16x2(v[4], v[5]),
+                   pack_bf16x2(v[6], v[7]));
+  } else {
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split_tf32(v[j], hi[j], lo[j]);
+    float* at = reinterpret_cast<float*>(im) + r * kWgK + ((e ^ (r & 7)) << 2);
+    *reinterpret_cast<uint4*>(at) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(at + kWT * kWgK) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// A block's operands and A's rebuild, written once by its first thread and
+// read from shared memory where needed, so the staging warpgroups (56
+// registers a thread) hold none of them.
+struct WgBlock {
+  WgOperand a, b;
+  const float* g;  // A's LayerNorm scale and bias at the tile's rows (nullptr: a raw encoding)
+  const float* beta;
+  int relu;        // the mip order: relu(xhat g + beta)
+};
+
+// This thread's half of the points (16 (half) .. + 15) of row r of one
+// operand of the chunk in the raw slot, copied by plan cp, into the image
+// im: A rebuilt (kA: h = xhat g + beta, relu in the mip order, 0 past M and
+// past the valid points), B as stored.  The 16 loads are issued before any
+// value is used.
+template <bool kBf16, bool kA, bool kRelu = false>
+__device__ __forceinline__ void wg_transform_operand(const WgOperand& op, const WgCopy& cp,
+                                                     const int* rows, int p0, int valid,
+                                                     const char* slot, char* im, int r, int half,
+                                                     bool ok, float g, float beta) {
+  constexpr int kG = kBf16 ? 8 : 4;  // points of a 16-byte group of the image
+  constexpr int kN = kWgK / 2;       // this thread's points
+  const int pl0 = kN * half;
+  float v[kN];
+  const int es = op.es, ld = cp.ld;
+  if (cp.mode == kWgTma || (cp.mode == kWgRows && es == 4)) {  // rows kWT floats apart
+    const float* s = reinterpret_cast<const float*>(slot) + pl0 * kWT + r;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) v[k] = s[k * kWT];
+  } else if (cp.mode == kWgRows) {  // the same, bf16
+    const uint16_t* s = reinterpret_cast<const uint16_t*>(slot) + pl0 * kWT + r;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) v[k] = __uint_as_float(static_cast<uint32_t>(s[k * kWT]) << 16);
+  } else if (cp.mode == kWgChunk && op.div == 1 && es == 4) {  // a row a point, ld apart
+    const float* s = reinterpret_cast<const float*>(slot) + pl0 * ld + r;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) v[k] = s[k * ld];
+  } else if (cp.mode == kWgChunk && op.div == 1) {  // the same, bf16
+    const uint16_t* s = reinterpret_cast<const uint16_t*>(slot) + pl0 * ld + r;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) v[k] = __uint_as_float(static_cast<uint32_t>(s[k * ld]) << 16);
+  } else {
+    wg_listed<kN, !kBf16>(op, cp, slot, op.div == 1 ? nullptr : rows, p0, valid, pl0, r, ok, v);
+  }
+#pragma unroll
+  for (int k = 0; k < kN; ++k) {
+    const bool in = ok && pl0 + k < valid;
+    if constexpr (kA) {
+      const float h = in ? fmaf(v[k], g, beta) : 0.f;
+      v[k] = kRelu ? fmaxf(h, 0.f) : h;
+    } else {
+      v[k] = in ? v[k] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kN / kG; ++i) {
+    float w[kG];
+#pragma unroll
+    for (int j = 0; j < kG; ++j) w[j] = v[kG * i + j];
+    wg_store<kBf16, kG>(im, r, pl0 / kG + i, w);
+  }
+}
+
+// The named barrier of the staging warpgroups (tile_sync is barrier 1).
+__device__ __forceinline__ void wg_staging_sync() {
+  asm volatile("bar.sync 2, %0;\n" ::"n"(kWgStaging) : "memory");
+}
+
+// The operand of a product as the pass reads it, with its mapped buffer.
+__device__ __forceinline__ WgOperand wg_operand(const WgMaps& maps, const void* p, int es, int ld,
+                                                int col0, int size, int div, int split,
+                                                int div2) {
+  WgOperand op{static_cast<const char*>(p), es, ld, col0, min(kWT, size - col0), div, split, div2,
+               -1, 0};
+  for (int i = 0; i < maps.n; ++i) {
+    const long long off = static_cast<long long>(reinterpret_cast<uintptr_t>(p)) -
+                          static_cast<long long>(reinterpret_cast<uintptr_t>(maps.base[i]));
+    const long long row_bytes = 4ll * ld;
+    if (es == 4 && div == 1 && ld == maps.cols[i] && off >= 0 && off % row_bytes == 0 &&
+        off / row_bytes < maps.rows[i]) {
+      op.map = i;
+      op.map_row = static_cast<int>(off / row_bytes);
+    }
+  }
+  return op;
+}
+
 template <bool kBf16 = false>
-__global__ void __launch_bounds__(256, 1)
-    wgrad_tc_kernel(WProds prods, int P, int k_chunk, float* __restrict__ wpart,
-                    size_t wfloats) {
+__global__ void __launch_bounds__(kWgThreads, 1)
+    wgrad_tc_kernel(const __grid_constant__ WgMaps maps, WProds prods, int P, int k_chunk,
+                    float* __restrict__ wpart, size_t wfloats) {
+  constexpr int kRawSlots = wg_raw_slots<kBf16>();
+  constexpr int kImgBytes = wg_img_bytes<kBf16>();
+  constexpr int kImgSlots = kWgImgSlots;
   extern __shared__ float4 smem4[];
-  float* raw = tc_smem_base(smem4);    // [2 stages][A, B][kWgK][kWgLd]
-  float* img = raw + 2 * kWgRawFloats;  // [2 buffers][B hi, B lo][kWT][kWgK]
+  // [kRawSlots][A, B][kWgK][kWT], 1024-byte aligned: an offset from the
+  // shared array (not an integer cast), so the compiler keeps its accesses
+  // 32-bit shared ones.
+  char* raw = reinterpret_cast<char*>(smem4);
+  raw += (kSmemAlign - (smem_u32(raw) & (kSmemAlign - 1))) & (kSmemAlign - 1);
+  char* img = raw + kRawSlots * kWgRawBytes;                  // [kImgSlots][image]
+  __shared__ __align__(8) uint64_t bars[kRawSlots + 2 * kImgSlots];
+  const uint32_t b0 = smem_u32(bars);
+  auto wg_full = [&](int s) { return b0 + 8 * s; };                // raw slot s landed
+  auto wg_ready = [&](int s) { return b0 + 8 * (kRawSlots + s); };  // image s written
+  auto wg_free = [&](int s) { return b0 + 8 * (kRawSlots + kImgSlots + s); };  // image s read
+
   int t = blockIdx.x, pi = 0;
   while (t >= prods.p[pi].tiles_m * prods.p[pi].tiles_n) {
     t -= prods.p[pi].tiles_m * prods.p[pi].tiles_n;
     ++pi;
   }
-  const WProd pr = prods.p[pi];
-  const int N = pr.n;
-  const int m0 = (t / pr.tiles_n) * kWT, n0 = (t % pr.tiles_n) * kWT;
   const int k_begin = blockIdx.y * k_chunk;
   const int k_end = min(P, k_begin + k_chunk);
-  const int chunks = (k_end - k_begin + kWgK - 1) / kWgK;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = tid >> 7;
-  const int g = lane >> 2, q = lane & 3;
+  const int chunks = max(0, (k_end - k_begin + kWgK - 1) / kWgK);
+  __shared__ WgBlock blk;
+  __shared__ int rows[kRawSlots][kWgK];  // A's per-ray rows of the chunks in the raw slots
+  __shared__ WgCopy plans[kRawSlots][2];  // the copy plans of the chunks in the raw slots
 
-  // Step 1.  The row of A that point p reads (the view encodings are per
-  // ray: WProd::div, split).
-  auto a_row = [&](int p) {
-    if (pr.div == 1) return p;  // no division on the common path
-    const int r1 = p / pr.div, r2 = (p - pr.split) / pr.div2;
-    return pr.split > 0 && p >= pr.split ? r2 : r1;
-  };
-  const bool vec = pr.a_ld % 4 == 0 && pr.M % 4 == 0 && N % 4 == 0;
-  // kBf16: a bf16 encoding of even width, copied as pairs (see above).
-  const bool a_pairs = kBf16 && pr.a_bf16 && pr.a_ld % 2 == 0 && pr.M % 2 == 0;
-  auto copy_raw = [&](int c) {
-    float* dst_a = raw + (c & 1) * kWgRawFloats;
-    float* dst_b = dst_a + kWgK * kWgLd;
-    const int p0 = k_begin + c * kWgK;
-    if constexpr (kBf16) {
-      if (pr.a_bf16) {  // bf16 A; B as the float32 path copies it
-        const __nv_bfloat16* a16 = reinterpret_cast<const __nv_bfloat16*>(pr.a);
-        if (a_pairs) {  // thread tid: pair tid % 64 (columns 2 j, 2 j + 1)
-          float* words = img + (c & 1) * kWgImgFloats + kWgWordsOff;
-          const int j = tid & 63;
-          const bool a_col = m0 + 2 * j < pr.M;
-#pragma unroll
-          for (int e = 0; e < kWgK * 64 / kThreads; ++e) {
-            const int pl = (tid >> 6) + e * (kThreads / 64), p = p0 + pl;
-            const bool va = p < k_end && a_col;
-            cp_async4(words + pl * 64 + j,
-                      reinterpret_cast<const float*>(
-                          a16 + (va ? static_cast<size_t>(a_row(p)) * pr.a_ld + m0 + 2 * j : 0)),
-                      va);
-          }
-        } else {  // an odd width: thread tid takes column tid % 128
-          const int col = tid % kWT;
-          const bool a_col = m0 + col < pr.M;
-#pragma unroll 4
-          for (int e = 0; e < kWgK * kWT / kThreads; ++e) {
-            const int pl = tid / kWT + e * (kThreads / kWT), p = p0 + pl;
-            dst_a[pl * kWgLd + col] =
-                p < k_end && a_col
-                    ? ldg_f32(a16 + static_cast<size_t>(a_row(p)) * pr.a_ld + m0 + col)
-                    : 0.f;
-          }
-        }
-        const int col = 4 * (tid & 31);  // B: 16-byte copies (N is the hidden width)
-        const bool b_col = n0 + col < N;
-#pragma unroll
-        for (int e = 0; e < kWgK * 32 / kThreads; ++e) {
-          const int pl = (tid >> 5) + e * (kThreads / 32), p = p0 + pl;
-          const bool vb = p < k_end && b_col;
-          cp_async16(reinterpret_cast<float4*>(dst_b + pl * kWgLd + col),
-                     reinterpret_cast<const float4*>(
-                         pr.b + static_cast<size_t>(vb ? p : 0) * N + (vb ? n0 + col : 0)),
-                     vb);
-        }
-        asm volatile("cp.async.commit_group;\n" ::);
-        return;
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRawSlots; ++s) mbar_init(wg_full(s), 1);
+    for (int s = 0; s < kImgSlots; ++s) {
+      mbar_init(wg_ready(s), 1);
+      mbar_init(wg_free(s), 2 * 4);  // every consumer warp
     }
-    if (vec) {  // 16-byte copies: thread tid takes columns 4 (tid % 32) ..
-      const int col = 4 * (tid & 31);
-      const bool a_col = m0 + col < pr.M, b_col = n0 + col < N;
-#pragma unroll
-      for (int e = 0; e < kWgK * 32 / kThreads; ++e) {
-        const int pl = (tid >> 5) + e * (kThreads / 32), p = p0 + pl;
-        const bool in_k = p < k_end;
-        const bool va = in_k && a_col, vb = in_k && b_col;
-        cp_async16(reinterpret_cast<float4*>(dst_a + pl * kWgLd + col),
-                   reinterpret_cast<const float4*>(
-                       pr.a + static_cast<size_t>(va ? a_row(p) : 0) * pr.a_ld + (va ? m0 + col : 0)),
-                   va);
-        cp_async16(reinterpret_cast<float4*>(dst_b + pl * kWgLd + col),
-                   reinterpret_cast<const float4*>(
-                       pr.b + static_cast<size_t>(vb ? p : 0) * N + (vb ? n0 + col : 0)),
-                   vb);
-      }
-    } else {  // 4-byte copies: thread tid takes column tid % 128
-      const int col = tid % kWT;
-      const bool a_col = m0 + col < pr.M, b_col = n0 + col < N;
-#pragma unroll 4
-      for (int e = 0; e < kWgK * kWT / kThreads; ++e) {
-        const int pl = tid / kWT + e * (kThreads / kWT), p = p0 + pl;
-        const bool in_k = p < k_end;
-        const bool va = in_k && a_col, vb = in_k && b_col;
-        cp_async4(dst_a + pl * kWgLd + col,
-                  pr.a + static_cast<size_t>(va ? a_row(p) : 0) * pr.a_ld + (va ? m0 + col : 0),
-                  va);
-        cp_async4(dst_b + pl * kWgLd + col,
-                  pr.b + static_cast<size_t>(vb ? p : 0) * N + (vb ? n0 + col : 0), vb);
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-  };
-
-  // Step 2: the thread's two columns x, x + 8 and its points 4 e + lane % 4
-  // (e < 8); value (e, h) goes to row x + 8 h of the image, 16-byte group
-  // e ^ (x % 8) (the 128-byte swizzle), word lane % 4.
-  const int x = warp * 16 + g;
-  auto transform_b = [&](int c) {
-    const float* rb = raw + (c & 1) * kWgRawFloats + kWgK * kWgLd;
-    float* im = img + (c & 1) * kWgImgFloats;
-    if constexpr (kBf16) {
-      // Row n of the bf16 image is 16 words; word 4 e + q holds points 8 e
-      // + 2 q and + 1, in group e ^ ((n / 2) % 4) (the 64-byte swizzle).
-      uint32_t* im32 = reinterpret_cast<uint32_t*>(im);
-#pragma unroll
-      for (int e = 0; e < kWgK / 8; ++e) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int n = x + 8 * h, p = 8 * e + 2 * q;
-          im32[n * 16 + ((e ^ ((n >> 1) & 3)) << 2) + q] =
-              pack_bf16x2(rb[p * kWgLd + n], rb[(p + 1) * kWgLd + n]);
-        }
-      }
-      return;
-    }
-#pragma unroll
-    for (int e = 0; e < kWgK / 4; ++e) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int at = (x + 8 * h) * kWgK + ((e ^ (x & 7)) << 2) + q;
-        uint32_t hi, lo;
-        split_tf32(rb[(4 * e + q) * kWgLd + x + 8 * h], hi, lo);
-        im[at] = __uint_as_float(hi);
-        im[kWT * kWgK + at] = __uint_as_float(lo);
-      }
-    }
-  };
-  // kBf16, a_pairs: chunk c's bf16 pairs -> floats of its raw A stage.
-  auto widen_a = [&](int c) {
-    const uint32_t* words =
-        reinterpret_cast<const uint32_t*>(img + (c & 1) * kWgImgFloats + kWgWordsOff);
-    float* a = raw + (c & 1) * kWgRawFloats;
-    for (int i = tid; i < kWgK * 64; i += kThreads) {
-      const uint32_t w = words[i];
-      *reinterpret_cast<float2*>(a + (i >> 6) * kWgLd + 2 * (i & 63)) =
-          make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-    }
-  };
-
-  // Step 3: this thread's A rows (tile rows 64 wg + 16 (warp % 4) + g, + 8).
-  const int ar = 64 * wg + 16 * (warp & 3) + g;
-  float ga[2], ba[2];
-  bool a_ok[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = m0 + ar + 8 * h;
-    a_ok[h] = m < pr.M;
-    ga[h] = a_ok[h] && pr.g != nullptr ? __ldg(pr.g + m) : 1.f;
-    ba[h] = a_ok[h] && pr.g != nullptr ? __ldg(pr.beta + m) : 0.f;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const WProd pr = prods.p[pi];
+    const int m0 = (t / pr.tiles_n) * kWT, n0 = (t % pr.tiles_n) * kWT;
+    blk.a = wg_operand(maps, pr.a, kBf16 && pr.a_bf16 ? 2 : 4, pr.a_ld, m0, pr.M, pr.div,
+                       pr.split, pr.div2);
+    blk.b = wg_operand(maps, pr.b, 4, pr.n, n0, pr.n, 1, 0, 1);
+    blk.g = pr.g == nullptr ? nullptr : pr.g + m0;
+    blk.beta = pr.g == nullptr ? nullptr : pr.beta + m0;
+    blk.relu = pr.relu;
   }
-  // Both warpgroups run the products, also where this one's rows all lie
-  // past M (an encoding's slab): a branch around them would serialize
-  // every wgmma of the kernel.
-  float d[64], acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  // A fragments of the chunk in flight: kept allocated until it retires,
-  // so the next chunk's staging runs beside its products.
-  constexpr int kSteps = kBf16 ? kWgK / 16 : kWgK / 8;
-  uint32_t ahi[kSteps][4], alo[kBf16 ? 1 : kSteps][4];
-  auto issue = [&](int c) {
-    const float* ra = raw + (c & 1) * kWgRawFloats;
-    const int valid = k_end - (k_begin + c * kWgK);  // points of this chunk
-    if constexpr (kBf16) {
-      auto h_in = [&](int p, int h) {  // point p of this thread's row h, 0 where none
-        float v = fmaf(ra[p * kWgLd + ar + 8 * h], ga[h], ba[h]);
-        v = a_ok[h] && p < valid ? v : 0.f;  // a select, not a branch (see tc_gemm)
-        return pr.relu ? fmaxf(v, 0.f) : v;
-      };
-#pragma unroll
-      for (int s = 0; s < kSteps; ++s) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {  // a_j: row g + 8 (j & 1), points p, p + 1
-          const int p = 16 * s + 2 * q + 8 * (j >> 1), h = j & 1;
-          ahi[s][j] = pack_bf16x2(h_in(p, h), h_in(p + 1, h));
-        }
+  __syncthreads();
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // The staging warpgroups: the first warp copies chunk c into raw slot c %
+  // kRawSlots, kRawSlots chunks ahead; all eight warps transform each chunk
+  // into image slot c % kImgSlots once both consumer warpgroups have
+  // retired the products that last read it, thread s taking row s % 128 of
+  // A and of B at points 16 (s / 128) .. + 15.
+  if (__shfl_sync(kFull, tid >> 8, 0) == 1) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kWgStagingRegs));
+    const int st = tid - kWgStaging, r = st & (kWT - 1), half = st >> 7;
+    const bool copier = st < 32;
+    auto wg_copy = [&](int c) {  // chunk c into its slot, by the copier warp
+      const int slot = c % kRawSlots;
+      const int p0 = k_begin + c * kWgK, valid = min(kWgK, k_end - p0);
+      const WgCopy ca = blk.a.plan(p0, valid), cb = blk.b.plan(p0, valid);
+      // The plans and A's per-ray rows (wg_listed), for the transform, before
+      // the barrier's arrival.
+      if (blk.a.div != 1 && lane < valid) {
+        const int row = blk.a.row(p0 + lane);
+        rows[slot][lane] = ca.mode == kWgChunk ? (row - ca.row0) * blk.a.ld : row;
       }
-      const float* b = img + (c & 1) * kWgImgFloats;
-#pragma unroll
-      for (int i = 0; i < 64; ++i) d[i] = 0.f;
-      fence_regs(d);
+      __syncwarp();
+      if (lane == 0) {
+        plans[slot][0] = ca;
+        plans[slot][1] = cb;
+        mbar_expect_tx(wg_full(slot), ca.bytes + cb.bytes);
+      }
+      __syncwarp();
+      char* dst = raw + slot * kWgRawBytes;
+      blk.a.copy(ca, maps, p0, valid, dst, wg_full(slot), lane);
+      blk.b.copy(cb, maps, p0, valid, dst + kWgRawBytes / 2, wg_full(slot), lane);
+    };
+    const bool a_ok = r < blk.a.width, b_ok = r < blk.b.width;
+    // Chunk c from raw slot rs into image slot is.
+    auto wg_transform = [&](int c, int rs, int is) {
+      const int p0 = k_begin + c * kWgK, valid = min(kWgK, k_end - p0);
+      const char* slot = raw + rs * kWgRawBytes;
+      char* im = img + is * kImgBytes;
+      // A's LayerNorm scale and bias at row r, read again each chunk (L1
+      // hits; volatile, so no register holds them across the loop).
+      float ga = 1.f, ba = 0.f;
+      if (a_ok && blk.g != nullptr) {
+        asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(ga) : "l"(blk.g + r));
+        asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(ba) : "l"(blk.beta + r));
+      }
+      if (blk.relu)
+        wg_transform_operand<kBf16, true, true>(blk.a, plans[rs][0], rows[rs], p0, valid, slot,
+                                                im, r, half, a_ok, ga, ba);
+      else
+        wg_transform_operand<kBf16, true>(blk.a, plans[rs][0], rows[rs], p0, valid, slot, im, r,
+                                          half, a_ok, ga, ba);
+      wg_transform_operand<kBf16, false>(blk.b, plans[rs][1], nullptr, p0, valid,
+                                         slot + kWgRawBytes / 2, im + kImgBytes / 2, r, half,
+                                         b_ok, 1.f, 0.f);
+    };
+    if (copier)
+      for (int c = 0; c < min(chunks, kRawSlots); ++c) wg_copy(c);
+    for (int c = 0; c < chunks; ++c) {
+      const int rs = c % kRawSlots, is = c % kImgSlots;
+      mbar_wait(wg_full(rs), (c / kRawSlots) & 1);
+      mbar_wait(wg_free(is), ((c / kImgSlots) & 1) ^ 1);  // the first round passes
+      wg_transform(c, rs, is);
+      fence_async_smem();  // the image's stores before the products read them
+      wg_staging_sync();   // every row written; raw slot rs read
+      if (st == 0) mbar_arrive(wg_ready(is));
+      if (copier && c + kRawSlots < chunks) wg_copy(c + kRawSlots);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kWgConsumerRegs));
+
+  // The consumers: warpgroup wg's 64 rows of A (the image's rows 64 wg ..)
+  // against all 128 columns of B, chunk after chunk.
+  const int wg = tid >> 7;
+  auto wg_issue = [&](int is, float (&d)[64]) {  // image slot is into d, cleared first
+    // The descriptors of A's and B's first arrays; the others lie whole
+    // arrays (kWT x kWgK values) and k-steps (32 bytes) from them.
+    const char* im = img + is * kImgBytes;
+    constexpr int kArr = kWT * kWgK * (kBf16 ? 2 : 4) / 16;  // an array, in 16-byte units
+    if constexpr (kBf16) {
+      const uint64_t a = smem_desc_sw64(reinterpret_cast<const float*>(im) + wg * 64 * (kWgK / 2));
+      const uint64_t b = smem_desc_sw64(reinterpret_cast<const float*>(im + kImgBytes / 2));
       wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < kSteps; ++s) wgmma_rs_bf16(d, ahi[s], smem_desc_sw64(b + 8 * s));
+      wgmma_ss_bf16<0, 0>(d, a, b, 0);
+      wgmma_ss_bf16<2, 2>(d, a, b, 1);
       wgmma_commit();
     } else {
-#pragma unroll
-      for (int s = 0; s < kWgK / 8; ++s) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {  // a_j: row g + 8 (j & 1), point q + 4 (j >> 1)
-          const int p = 8 * s + q + 4 * (j >> 1), h = j & 1;
-          float v = fmaf(ra[p * kWgLd + ar + 8 * h], ga[h], ba[h]);
-          v = a_ok[h] && p < valid ? v : 0.f;  // a select, not a branch (see tc_gemm)
-          if (pr.relu) v = fmaxf(v, 0.f);
-          split_tf32(v, ahi[s][j], alo[s][j]);
-        }
-      }
-      const float* b_hi = img + (c & 1) * kWgImgFloats;
-      const float* b_lo = b_hi + kWT * kWgK;
-#pragma unroll
-      for (int i = 0; i < 64; ++i) d[i] = 0.f;
-      fence_regs(d);
+      const uint64_t a = smem_desc_sw128(reinterpret_cast<const float*>(im) + wg * 64 * kWgK);
+      const uint64_t b = smem_desc_sw128(reinterpret_cast<const float*>(im + kImgBytes / 2));
       wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < kWgK / 8; ++s) {
-        const uint64_t bh = smem_desc_sw128(b_hi + 8 * s), bl = smem_desc_sw128(b_lo + 8 * s);
-        wgmma_rs(d, ahi[s], bh);
-        wgmma_rs(d, ahi[s], bl);
-        wgmma_rs(d, alo[s], bh);
-      }
+      // k-step s: hi hi, hi lo, lo hi (lo: the next array).
+      wgmma_ss<0, 0>(d, a, b, 0);
+      wgmma_ss<0, kArr>(d, a, b, 1);
+      wgmma_ss<kArr, 0>(d, a, b, 1);
+      wgmma_ss<2, 2>(d, a, b, 1);
+      wgmma_ss<2, kArr + 2>(d, a, b, 1);
+      wgmma_ss<kArr + 2, 2>(d, a, b, 1);
+      wgmma_ss<4, 4>(d, a, b, 1);
+      wgmma_ss<4, kArr + 4>(d, a, b, 1);
+      wgmma_ss<kArr + 4, 4>(d, a, b, 1);
+      wgmma_ss<6, 6>(d, a, b, 1);
+      wgmma_ss<6, kArr + 6>(d, a, b, 1);
+      wgmma_ss<kArr + 6, 6>(d, a, b, 1);
       wgmma_commit();
     }
   };
-  auto retire = [&]() {  // the products in flight are done: add their sum
-    wgmma_wait0();
-    fence_regs(d);
-    fence_regs(ahi);
-    if constexpr (!kBf16) fence_regs(alo);
+  float acc[64], d0[64], d1[64];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += d[i];
+  for (int i = 0; i < 64; ++i) acc[i] = d0[i] = d1[i] = 0.f;
+  // Chunk c into d once staged; chunk c - 1's products (in dprev) retire,
+  // release their image slot and join the sum.
+  auto body = [&](int c, float (&d)[64], float (&dprev)[64]) {
+    const int is = c % kImgSlots;
+    mbar_wait(wg_ready(is), (c / kImgSlots) & 1);
+    wg_issue(is, d);
+    wgmma_wait1();
+    fence_regs(dprev);
+    mbar_arrive_lane0(wg_free((c + kImgSlots - 1) % kImgSlots), static_cast<uint32_t>(c == 0));
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += dprev[i];
   };
-
-  if (chunks > 0) copy_raw(0);
-  for (int c = 0; c < chunks; ++c) {
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    // Chunk c's raw rows have landed for every thread; every thread is
-    // done with chunk c - 1's raw rows, whose stage the next copy reuses.
-    __syncthreads();
-    if (c + 1 < chunks) copy_raw(c + 1);
-    // Image c & 1 was last read by chunk c - 2's products, retired before
-    // the previous barrier.
-    transform_b(c);
-    if (a_pairs) widen_a(c);
-    fence_async_smem();
-    __syncthreads();
-    if (c > 0) retire();
-    issue(c);
+  // Pairs of chunks, so that d0 and d1 are named at compile time.
+  int c = 0;
+  for (; c + 1 < chunks; c += 2) {
+    body(c, d0, d1);
+    body(c + 1, d1, d0);
   }
-  if (chunks > 0) retire();
+  if (c < chunks) {
+    body(c, d0, d1);
+    wgmma_wait0();
+    fence_regs(d0);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += d0[i];
+  } else {
+    wgmma_wait0();
+    fence_regs(d1);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += d1[i];  // 0 where no chunk ran
+  }
+
+  const WProd pr = prods.p[pi];
+  const int N = pr.n, m0 = blk.a.col0, n0 = blk.b.col0;
+  const int g = lane >> 2, q = lane & 3, ar = 64 * wg + 16 * (warp & 3) + g;
   float* out = wpart + blockIdx.y * wfloats + pr.out_off;
 #pragma unroll
   for (int hrow = 0; hrow < 2; ++hrow) {
@@ -2311,6 +2594,22 @@ cudaError_t launch_fwd(const Weights& w, const Load& load, float* out, int P,
   const int blocks = (P + kTileRows - 1) / kTileRows;
   fwd_tc_kernel<H, Load, kBf16><<<blocks, kTcThreads, smem, stream>>>(
       w, TcImages::forward<kBf16>(w, tc_fwd, w.hp), load, out, P, wide_rows(wide, w.hp));
+  return cudaGetLastError();
+}
+
+// Pass 3 over `splits` splits of P points (wgrad_k_chunk's k_chunk each),
+// the partials to wpart [splits][wfloats].
+template <bool kBf16>
+cudaError_t launch_wgrad(const WgMaps& maps, const WProds& prods, int total_tiles, int P,
+                         int k_chunk, int splits, float* wpart, size_t wfloats,
+                         cudaStream_t stream) {
+  constexpr size_t smem = wgrad_tc_smem<kBf16>();
+  cudaError_t err = cudaFuncSetAttribute(wgrad_tc_kernel<kBf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  wgrad_tc_kernel<kBf16><<<dim3(total_tiles, splits), kWgThreads, smem, stream>>>(
+      maps, prods, P, k_chunk, wpart, wfloats);
   return cudaGetLastError();
 }
 
@@ -2365,15 +2664,19 @@ struct TcProductsT {
     return cudaGetLastError();
   }
 
+  // The chain's xhat and dpre hold chain_rows rows of chain_cols floats
+  // each (the launchers' L x P rows of the padded width): the pass reads
+  // the products' rows that lie in them through tensor maps (WgMaps).
   static cudaError_t wgrad(const WProds& prods, int total_tiles, int P, int k_chunk,
-                           const Scratch& s, size_t wfloats, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(wgrad_tc_kernel<kBf16>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(kWgradTcSmem));
+                           const Scratch& s, size_t wfloats, cudaStream_t stream,
+                           long long chain_rows = 0, int chain_cols = 0) {
+    WgMaps maps{};
+    cudaError_t err = cudaSuccess;
+    if (chain_rows > 0 && (err = wg_add_map(maps, s.xhat, chain_rows, chain_cols)) == cudaSuccess)
+      err = wg_add_map(maps, s.dpre, chain_rows, chain_cols);
     if (err != cudaSuccess) return err;
-    wgrad_tc_kernel<kBf16><<<dim3(total_tiles, s.splits), 256, kWgradTcSmem, stream>>>(
-        prods, P, k_chunk, s.wpart, wfloats);
-    return cudaGetLastError();
+    return launch_wgrad<kBf16>(maps, prods, total_tiles, P, k_chunk, s.splits, s.wpart, wfloats,
+                               stream);
   }
 };
 using TcProducts = TcProductsT<false>;

@@ -8,8 +8,10 @@
 //     operand image of W^T, tc_mlp.py::operand_image).  A's tile sits in
 //     the activation tile where it fits (K <= H), as a hidden layer's
 //     input does, else beside it.
-//   tc_wgrad: out [M][N] = a^T b for a [P][M], b [P][N] through
-//     wgrad_tc_kernel (one product, the points in one chunk).
+//   tc_wgrad: out [splits][M][N], split k's partial of a^T b over its points
+//     (wgrad_k_chunk) for b [P][N] and a's rows as WProd reads them (row p
+//     of a [P][M] with div 1; p / div, and (p - split) / div2 for p >=
+//     split > 0: the per-ray rows), through wgrad_tc_kernel (one product).
 //   tc_linear_bf16, tc_wgrad_bf16: the same as bf16 products (note 10 of
 //     tc_mlp.cuh): a and b float32, rounded to bf16 as the kernels round
 //     them; img a bf16 image (operand_image with dtype bfloat16).
@@ -83,17 +85,23 @@ int linear_at(const float* a, const float* img, float* out, int P, int K, int hi
 }
 
 template <bool kBf16>
-int wgrad_at(const float* a, const float* b, float* out, int P, int M, int N, void* stream) {
+int wgrad_at(const float* a, const float* b, float* out, int P, int M, int N, int splits,
+             int div, int split, int div2, void* stream) {
+  if (splits < 1 || div < 1 || div2 < 1) return static_cast<int>(cudaErrorInvalidValue);
   WProds prods{};
-  prods.p[0] = WProd{a, nullptr, nullptr, b, M, M, N, 1, 0, 0, (M + kWT - 1) / kWT,
-                     (N + kWT - 1) / kWT};
+  prods.p[0] = WProd{a, nullptr, nullptr, b, M, M, N, div, 0, 0, (M + kWT - 1) / kWT,
+                     (N + kWT - 1) / kWT, split, div2};
   prods.n = 1;
-  Scratch s{};
-  s.wpart = out;
-  s.splits = 1;
-  return static_cast<int>(TcProductsT<kBf16>::wgrad(
-      prods, prods.p[0].tiles_m * prods.p[0].tiles_n, P, P, s, static_cast<size_t>(M) * N,
-      static_cast<cudaStream_t>(stream)));
+  // a and b read through tensor maps where TMA can (as the MLP launchers
+  // map the chain), by bulk copies or from device memory otherwise.
+  WgMaps maps{};
+  cudaError_t err = cudaSuccess;
+  if (div == 1 && (err = wg_add_map(maps, a, P, M)) == cudaSuccess)
+    err = wg_add_map(maps, b, P, N);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_wgrad<kBf16>(
+      maps, prods, prods.p[0].tiles_m * prods.p[0].tiles_n, P, wgrad_k_chunk(P, splits), splits,
+      out, static_cast<size_t>(M) * N, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -104,8 +112,8 @@ extern "C" int tc_linear(const float* a, const float* img, float* out, int P, in
 }
 
 extern "C" int tc_wgrad(const float* a, const float* b, float* out, int P, int M, int N,
-                        void* stream) {
-  return wgrad_at<false>(a, b, out, P, M, N, stream);
+                        int splits, int div, int split, int div2, void* stream) {
+  return wgrad_at<false>(a, b, out, P, M, N, splits, div, split, div2, stream);
 }
 
 extern "C" int tc_linear_bf16(const float* a, const void* img, float* out, int P, int K,
@@ -114,6 +122,6 @@ extern "C" int tc_linear_bf16(const float* a, const void* img, float* out, int P
 }
 
 extern "C" int tc_wgrad_bf16(const float* a, const float* b, float* out, int P, int M, int N,
-                             void* stream) {
-  return wgrad_at<true>(a, b, out, P, M, N, stream);
+                             int splits, int div, int split, int div2, void* stream) {
+  return wgrad_at<true>(a, b, out, P, M, N, splits, div, split, div2, stream);
 }

@@ -98,9 +98,10 @@ ARGTYPES = {
     # tc_fwd tc_bwd stream
     "mega_train": (_P,) * 14 + (_I,) * 9 + _WEIGHT_ARGS + (_P,) * 12 + (_I,) + (_P,) * 3,
     # The tensor-core products alone (csrc/tc_product.cu, for the card
-    # tests): a img out P K hidden stream; a b out P M N stream.
+    # tests): a img out P K hidden stream; a b out P M N splits div split
+    # div2 stream.
     "tc_linear": (_P,) * 3 + (_I,) * 3 + (_P,),
-    "tc_wgrad": (_P,) * 3 + (_I,) * 3 + (_P,),
+    "tc_wgrad": (_P,) * 3 + (_I,) * 7 + (_P,),
 }
 # The kernels' bf16 entry points, <name>_bf16, whose arguments are
 # <name>'s (the images bfloat16, and the encodings or the mip features,

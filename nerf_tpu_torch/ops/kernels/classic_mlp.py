@@ -396,6 +396,24 @@ def train_scratch(packed: Packed, n_rows: int, device: torch.device) -> Dict[str
                        *flat_grad_numels(packed), device)
 
 
+# The weight-gradient pass's blocks (``csrc/tc_mlp.cuh``'s
+# ``wgrad_tc_kernel``: 230,400 bytes of shared memory, so one an SM) and
+# the waves of them a launch is cut into.
+WGRAD_BLOCKS_PER_SM = 1
+WGRAD_WAVES = 8
+
+
+def wgrad_splits(prod_tiles: int, n_rows: int, sms: int) -> int:
+    """The splits of the points of the weight-gradient pass: enough that
+    its ``prod_tiles`` output tiles, one block a tile and split, fill
+    ``WGRAD_WAVES`` waves of ``WGRAD_BLOCKS_PER_SM`` blocks on each of the
+    card's ``sms`` SMs, at most 64 (``COLSUM_GROUPS``: the partials' sum
+    stays one stage a split) and no more than one per 1024 rows.  The
+    classic and the mip scratch take theirs from here (``scratch_for``)."""
+    waves = WGRAD_WAVES * WGRAD_BLOCKS_PER_SM * sms // prod_tiles
+    return max(1, min(COLSUM_GROUPS, waves, math.ceil(n_rows / 1024)))
+
+
 def scratch_for(
     layers: int, hidden: int, cols: int, n_rows: int, prod_tiles: int, wfloats: int,
     tfloats: int, device: torch.device,
@@ -403,12 +421,12 @@ def scratch_for(
     """Global scratch of the MLP backward passes for ``n_rows`` rows
     (``csrc/classic_mlp_train.cuh``): the stored chain (xhat and
     statistics), every layer's dpre, the split weight-gradient partials
-    (``wfloats`` each), the per-tile partials (``tfloats`` each), the sum's
-    staging buffer, the MLP output (``cols`` wide) and the flat gradient.  The points are split so that
-    the weight-gradient product's ``prod_tiles`` output tiles, in blocks of
-    which two run on each SM at a time, fill about four waves."""
+    (``wfloats`` each; ``wgrad_splits`` of them for the product's
+    ``prod_tiles`` output tiles), the per-tile partials (``tfloats`` each),
+    the sum's staging buffer, the MLP output (``cols`` wide) and the flat
+    gradient."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = max(1, min(64, 8 * sms // prod_tiles, math.ceil(n_rows / 1024)))
+    splits = wgrad_splits(prod_tiles, n_rows, sms)
     tiles = math.ceil(n_rows / TILE_ROWS)
 
     def buf(*shape):

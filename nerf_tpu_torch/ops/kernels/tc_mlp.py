@@ -50,7 +50,7 @@ the 16-byte group ``j`` (8 values) of row ``n`` at ``j ^ ((n // 2) % 4)``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -380,3 +380,203 @@ def check_images(name: str, packed, tc_fwd: Optional[torch.Tensor],
         if img is not None and img.data_ptr() % BULK_ALIGN:
             raise ValueError(f"{name}: {key} must start on a {BULK_ALIGN}-byte boundary (the "
                              f"kernels' bulk copies), got address {img.data_ptr():#x}")
+
+
+# The weight-gradient pass (``csrc/tc_mlp.cuh``'s ``wgrad_tc_kernel``):
+# 128 x 128 output tiles, the points cut into ``splits`` splits of
+# ``wgrad_k_chunk`` points, each walked in chunks of 32 points, every
+# chunk's products summed in a fresh accumulator and added to a float32 sum
+# in chunk order.
+WGRAD_TILE = 128  # kWT
+WGRAD_CHUNK = 32  # kWgK
+WGRAD_SPLIT_STEP = 16  # kWK: a split's points are a multiple of this
+WGRAD_RAW_SLOTS = {torch.float32: 3, torch.bfloat16: 6}  # wg_raw_slots: raw chunks in flight
+WGRAD_IMG_SLOTS = 2  # kWgImgSlots: operand images
+
+
+def wgrad_k_chunk(points: int, splits: int) -> int:
+    """The points of each split (``wgrad_k_chunk`` in
+    ``csrc/classic_mlp_train.cuh``; the last split may hold fewer, or
+    none)."""
+    k = -(-points // splits)
+    return -(-k // WGRAD_SPLIT_STEP) * WGRAD_SPLIT_STEP
+
+
+class WgradProduct(NamedTuple):
+    """One weight slab's product as the launchers hand it to the pass
+    (``WProd``): ``dW [M][n] = A^T B`` with ``A`` the ``a`` rows ``[.][a_ld]``
+    (``a_es`` bytes an element; point ``p`` reads row ``p``, or ``p // div``
+    and, for ``p >= split > 0``, ``(p - split) // div2``) and ``B`` the ``b``
+    rows ``[P][n]`` (float32).  ``a_base`` and ``b_base``: the operands'
+    byte offsets from a 16-byte-aligned allocation; ``a_map`` and ``b_map``:
+    the operand lies in the chain (xhat, dpre), which the launchers map for
+    TMA as ``chain_rows`` rows of ``a_ld`` (``n``) floats."""
+
+    slab: str
+    a: str
+    a_ld: int
+    M: int
+    n: int
+    div: int
+    relu: bool
+    split: int
+    div2: int
+    a_es: int
+    a_base: int
+    b: str
+    b_base: int
+    a_map: bool
+    b_map: bool
+    chain_rows: int
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.M // WGRAD_TILE) * -(-self.n // WGRAD_TILE)
+
+
+def classic_wgrad_products(xe: int, de: int, hidden: int, layers: int, points: int,
+                           dtype: torch.dtype = torch.float32, d_div: int = 1,
+                           d_split: int = 0, d_div2: int = 1) -> list:
+    """``launch_mlp_backward``'s products (``csrc/classic_mlp_train.cuh``) at
+    the padded hidden width ``hidden``: w0 and wx on the x encodings, wd on
+    the view encodings (``de`` > 0; rows per ray with ``d_div``, K9's two
+    stages with ``d_split``), then each hidden slab on the xhat rows of the
+    layer below; the encodings in ``dtype``, the chain float32."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    layer = points * hidden * 4  # bytes of one layer's rows of xhat or dpre
+    rows = layers * points
+    prods = [WgradProduct("w0", "x", xe, xe, hidden, 1, False, 0, 1, es, 0, "dpre0", 0,
+                          False, True, rows),
+             WgradProduct("wx", "x", xe, xe, hidden, 1, False, 0, 1, es, 0, "dpre4", 4 * layer,
+                          False, True, rows)]
+    if de:
+        prods.append(WgradProduct("wd_in", "d", de, de, hidden, d_div, False, d_split, d_div2,
+                                  es, 0, "dpre8", 8 * layer, False, True, rows))
+    prods += [WgradProduct(f"whh{k}", f"xhat{k}", hidden, hidden, hidden, 1, False, 0, 1, 4,
+                           k * layer, f"dpre{k + 1}", (k + 1) * layer, True, True, rows)
+              for k in range(layers - 1)]
+    return prods
+
+
+def mip_wgrad_products(features: int, hidden: int, layers: int, outputs: int, points: int,
+                       dtype: torch.dtype = torch.float32) -> list:
+    """``launch_mip_backward``'s products (``csrc/mip_mlp.cuh``): w_in on the
+    features, each hidden slab and the head on relu(xhat g + beta) of the
+    layer below (the mip order), the head against the output cotangents."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    layer = points * hidden * 4
+    rows = layers * points
+    prods = [WgradProduct("w_in", "x", features, features, hidden, 1, False, 0, 1, es, 0,
+                          "dpre0", 0, False, True, rows)]
+    prods += [WgradProduct(f"whh{k}", f"xhat{k}", hidden, hidden, hidden, 1, True, 0, 1, 4,
+                           k * layer, f"dpre{k + 1}", (k + 1) * layer, True, True, rows)
+              for k in range(layers - 1)]
+    prods.append(WgradProduct("w_out", f"xhat{layers - 1}", hidden, hidden, outputs, 1, True, 0,
+                              1, 4, (layers - 1) * layer, "gout", 0, True, False, rows))
+    return prods
+
+
+def wgrad_row(p: int, div: int, split: int, div2: int) -> int:
+    """The row of A that point ``p`` reads (``WgOperand::row``)."""
+    if div == 1:
+        return p
+    return (p - split) // div2 if 0 < split <= p else p // div
+
+
+def wgrad_copy_plan(base: int, es: int, ld: int, col0: int, width: int, div: int, split: int,
+                    div2: int, mapped: bool, p0: int, valid: int) -> Tuple[str, int, int, int]:
+    """``(mode, ld, bytes, row0)`` of the chunk of ``valid`` points from
+    ``p0`` of one operand (``WgOperand::plan``): ``"chunk"``, the tile
+    spans the rows and the chunk's rows ``row0 ..`` are contiguous (a row a
+    point, or per ray), one bulk copy, slot rows ``ld`` elements apart;
+    ``"tma"``, the operand lies in a mapped chain buffer, one box of 32 rows
+    x ``WGRAD_TILE`` floats from buffer row ``row0`` (the operand's first
+    row in the buffer plus ``p0``); ``"rows"``, one bulk copy of the tile's
+    columns a point; ``"direct"``, no copy (a row start, the tile's width or
+    the chunk's bytes off the 16-byte rule), the transform reads device
+    memory."""
+    row_bytes = ld * es
+    aligned = base % BULK_ALIGN == 0
+    last = p0 + valid - 1
+    straddle = div != 1 and 0 < split and p0 < split <= last
+    if aligned and not straddle and col0 == 0 and width == ld:
+        r0 = wgrad_row(p0, div, split, div2)
+        nbytes = (wgrad_row(last, div, split, div2) - r0 + 1) * row_bytes
+        if r0 * row_bytes % BULK_ALIGN == 0 and nbytes % BULK_ALIGN == 0:
+            return "chunk", ld, nbytes, r0
+    if mapped:
+        return "tma", WGRAD_TILE, WGRAD_CHUNK * WGRAD_TILE * 4, base // row_bytes + p0
+    if (aligned and row_bytes % BULK_ALIGN == 0 and col0 * es % BULK_ALIGN == 0
+            and width * es % BULK_ALIGN == 0):
+        return "rows", WGRAD_TILE, valid * width * es, 0
+    return "direct", WGRAD_TILE, 0, 0
+
+
+def wgrad_copies(products: list, points: int, splits: int) -> list:
+    """The copier warp's copies of every chunk of every block of one launch
+    of the pass over ``products`` (``wgrad_tc_kernel``'s ``wg_copy``): one
+    dict a block, chunk and operand with the block's product index
+    ``prod``, output tile ``(tm, tn)``, ``split``, ``chunk``, ``operand``
+    (``"a"`` or ``"b"``), the chunk's first point ``p0`` and ``valid``
+    points, the tile's first column ``col0`` and ``width``, the operand's
+    element size ``es``, row stride ``ld``, ``base`` and row map (``div``,
+    ``split_at``, ``div2``), the plan's ``mode``, the slot's row stride
+    ``slot_ld``, ``bytes`` and ``row0``, and ``copies``: ``(slot offset,
+    global byte offset, size)`` of each bulk copy (the global offset from
+    the operand's allocation, its ``base`` included), or, for ``"tma"``,
+    ``box``: ``(first row, first column, rows, columns)`` of the mapped
+    buffer (``map_rows`` rows of ``ld`` floats)."""
+    k_chunk = wgrad_k_chunk(points, splits)
+    out = []
+    for i, pr in enumerate(products):
+        tiles_n = -(-pr.n // WGRAD_TILE)
+        for t in range(pr.tiles):
+            tm, tn = divmod(t, tiles_n)
+            ops = {"a": (pr.a_base, pr.a_es, pr.a_ld, tm * WGRAD_TILE, pr.M, pr.div, pr.split,
+                         pr.div2, pr.a_map),
+                   "b": (pr.b_base, 4, pr.n, tn * WGRAD_TILE, pr.n, 1, 0, 1, pr.b_map)}
+            for s in range(splits):
+                begin, end = s * k_chunk, min(points, (s + 1) * k_chunk)
+                for c, p0 in enumerate(range(begin, end, WGRAD_CHUNK)):
+                    valid = min(WGRAD_CHUNK, end - p0)
+                    for name, (base, es, ld, col0, size, div, split, div2, mapped) in ops.items():
+                        width = min(WGRAD_TILE, size - col0)
+                        mapped = mapped and es == 4 and div == 1 and ld % 4 == 0
+                        mode, slot_ld, nbytes, row0 = wgrad_copy_plan(
+                            base, es, ld, col0, width, div, split, div2, mapped, p0, valid)
+                        box = None
+                        if mode == "chunk":
+                            copies = [(0, base + row0 * ld * es, nbytes)]
+                        elif mode == "rows":
+                            copies = [(pl * WGRAD_TILE * es,
+                                       base + (wgrad_row(p0 + pl, div, split, div2) * ld + col0)
+                                       * es, width * es) for pl in range(valid)]
+                        else:
+                            copies = []
+                            if mode == "tma":
+                                box = (row0, col0, WGRAD_CHUNK, WGRAD_TILE)
+                        out.append(dict(prod=i, tm=tm, tn=tn, split=s, chunk=c, operand=name,
+                                        p0=p0, valid=valid, col0=col0, width=width, es=es,
+                                        ld=ld, base=base, div=div, split_at=split, div2=div2,
+                                        mode=mode, slot_ld=slot_ld, bytes=nbytes, row0=row0,
+                                        copies=copies, box=box, map_rows=pr.chain_rows))
+    return out
+
+
+def wgrad_emulated(a: torch.Tensor, b: torch.Tensor, splits: int, matmul=tc_matmul) -> torch.Tensor:
+    """``a^T b`` summed as the pass sums it: each chunk of ``WGRAD_CHUNK``
+    points of each split (``wgrad_k_chunk`` points) through ``matmul`` (the
+    3xTF32 emulation by default, ``bf16_matmul`` for bf16) into a fresh
+    partial, the partials added to the split's float32 sum in chunk order,
+    and the splits' sums added in split order (``colsum``'s order at up to
+    ``COLSUM_GROUPS`` splits).  ``a`` is A's rows expanded to one a point."""
+    points = a.shape[0]
+    k_chunk = wgrad_k_chunk(points, splits)
+    total = torch.zeros(a.shape[1], b.shape[1], dtype=torch.float32, device=a.device)
+    for s in range(splits):
+        part = torch.zeros_like(total)
+        for p0 in range(s * k_chunk, min(points, (s + 1) * k_chunk), WGRAD_CHUNK):
+            p1 = min(p0 + WGRAD_CHUNK, (s + 1) * k_chunk, points)
+            part = part + matmul(a[p0:p1].t(), b[p0:p1])
+        total = total + part
+    return total

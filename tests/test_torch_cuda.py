@@ -1698,7 +1698,7 @@ def test_tc_wgrad_is_the_3xtf32_product(cuda, m, n, points):
     a, b = rand(gen, points, m), rand(gen, points, n)
     out = torch.empty((m, n), device=cuda)
     err = tc_product("tc_wgrad")(a.data_ptr(), b.data_ptr(), out.data_ptr(), points, m, n,
-                                 torch.cuda.current_stream(cuda).cuda_stream)
+                                 1, 1, 0, 1, torch.cuda.current_stream(cuda).cuda_stream)
     _build.check_launch("tc_wgrad", err)
     torch.cuda.synchronize()
     exact = a.double().t() @ b.double()
@@ -1706,6 +1706,94 @@ def test_tc_wgrad_is_the_3xtf32_product(cuda, m, n, points):
     emulated = tc_mlp.tc_matmul(a.cpu().t(), b.cpu()).to(cuda)
     assert float((out - emulated).abs().max()) <= 1e-6 * scale * points ** 0.5
     assert float((out.double() - exact).abs().max()) <= 1e-5 * scale
+
+
+# The weight-gradient pass keeps this many chunks of raw rows in flight
+# (csrc/tc_mlp.cuh wg_raw_slots: 3 in float32, 6 in bf16): a chunk dropped
+# or doubled where the ring wraps moves a sum by a chunk's products, far
+# past these bounds at any of these point counts.
+WGRAD_RING = {"tc_wgrad": 3, "tc_wgrad_bf16": 6}
+WGRAD_POINTS = ("1", "31", "33", "ring-1", "ring+1", "10007", "65536")
+
+
+def wgrad_points(name: str, points: str) -> int:
+    chunks = 32 * WGRAD_RING[name]
+    return {"ring-1": chunks - 1, "ring+1": chunks + 1}.get(points) or int(points)
+
+
+def check_wgrad_splits(name, a_full, b, out, splits):
+    """Each split's partial of a^T b (``tc_mlp.wgrad_k_chunk`` points each)
+    against the same points' product: the CPU emulation's arithmetic on the
+    card (3xTF32, or the bf16-rounded operands) within 1e-6 sqrt(points) of
+    its largest entry, and exactly 0 for a split with no points."""
+    points = a_full.shape[0]
+    k = tc_mlp.wgrad_k_chunk(points, splits)
+    for s in range(splits):
+        a_s, b_s = a_full[s * k:(s + 1) * k], b[s * k:(s + 1) * k]
+        if a_s.shape[0] == 0:
+            assert torch.count_nonzero(out[s]) == 0
+            continue
+        if name == "tc_wgrad":
+            want = tc_mlp.tc_matmul(a_s.t(), b_s).double()
+        else:
+            want = tc_mlp.bf16_round(a_s).double().t() @ tc_mlp.bf16_round(b_s).double()
+        scale = float(want.abs().max())
+        assert float((out[s].double() - want).abs().max()) <= 1e-6 * scale * a_s.shape[0] ** 0.5
+
+
+def run_wgrad(cuda, name, a, b, points, m, n, splits, div=1, split=0, div2=1):
+    out = torch.full((splits, m, n), float("nan"), device=cuda)
+    err = tc_product(name)(a.data_ptr(), b.data_ptr(), out.data_ptr(), points, m, n, splits,
+                           div, split, div2, torch.cuda.current_stream(cuda).cuda_stream)
+    _build.check_launch(name, err)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tc_wgrad", "tc_wgrad_bf16"])
+@pytest.mark.parametrize("splits", [1, 3, 25])
+@pytest.mark.parametrize("points", WGRAD_POINTS)
+@pytest.mark.parametrize("m,n", [(60, 256), (256, 128), (36, 54)])
+def test_tc_wgrad_chunks_and_splits(cuda, m, n, points, splits, name):
+    """The weight-gradient pass at point counts around its chunk of 32 and
+    its ring of raw chunks, and at 25 splits (K2's): every split's partial
+    against its points' product.  The shapes take each copy plan: 60 x 256
+    (the x encodings' product: one bulk copy a chunk of A, a copy a point
+    of B), 256 x 128 (a hidden product in two row tiles) and 36 x 54 (the
+    view encodings against a 54-wide head: B's 216-byte rows, read from
+    device memory where a chunk's bytes are no multiple of 16)."""
+    points = wgrad_points(name, points)
+    gen = torch.Generator(device=cuda).manual_seed(m + n + points + splits)
+    a, b = rand(gen, points, m), rand(gen, points, n)
+    out = run_wgrad(cuda, name, a, b, points, m, n, splits)
+    check_wgrad_splits(name, a, b, out, splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tc_wgrad", "tc_wgrad_bf16"])
+@pytest.mark.parametrize("rows", ["per_ray", "k9_split"])
+@pytest.mark.parametrize("splits", [1, 3, 25])
+@pytest.mark.parametrize("m", [36, 37])
+def test_tc_wgrad_per_ray_rows(cuda, m, rows, splits, name):
+    """A's rows read per ray: K3's view encodings (point p reads row p /
+    64), and K9's two stages (p < 64 R reads p / 64, p >= 64 R reads (p -
+    64 R) / 128), each held against the product of the expanded rows; 37
+    columns (148-byte rows) leave no bulk copy and are read in the
+    kernel."""
+    rays, n = 157, 256
+    gen = torch.Generator(device=cuda).manual_seed(rays + splits + len(rows) + m)
+    a = rand(gen, rays, m)
+    p = torch.arange(rays * (64 if rows == "per_ray" else 192), device=cuda)
+    if rows == "per_ray":
+        div, split, div2, index = 64, 0, 1, p // 64
+    else:
+        div, split, div2 = 64, 64 * rays, 128
+        index = torch.where(p >= split, (p - split) // div2, p // div)
+    points = p.numel()
+    b = rand(gen, points, n)
+    out = run_wgrad(cuda, name, a, b, points, m, n, splits, div, split, div2)
+    check_wgrad_splits(name, a[index], b, out, splits)
 
 
 @pytest.mark.cuda
@@ -1991,7 +2079,7 @@ def test_tc_wgrad_bf16_is_the_bf16_product(cuda, m, n, points):
     a, b = rand(gen, points, m), rand(gen, points, n)
     out = torch.empty((m, n), device=cuda)
     err = tc_product("tc_wgrad_bf16")(a.data_ptr(), b.data_ptr(), out.data_ptr(), points, m, n,
-                                      torch.cuda.current_stream(cuda).cuda_stream)
+                                      1, 1, 0, 1, torch.cuda.current_stream(cuda).cuda_stream)
     _build.check_launch("tc_wgrad_bf16", err)
     torch.cuda.synchronize()
     exact = tc_mlp.bf16_round(a).double().t() @ tc_mlp.bf16_round(b).double()
