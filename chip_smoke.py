@@ -35,7 +35,13 @@
 6. Holds K1-bwd, K2 and K3 against their plain versions on the inputs the
    trainer gave them (K1-bwd with random cotangents, as the reuse step
    calls it, and once with the encodings' cotangents, both on the tensor
-   cores), with their times and bounds.
+   cores), with their times and bounds.  Since slice 22 the reuse step's
+   forward keeps the chain (``classic_mlp_fwd_chain``, counted as K1-fwd)
+   and hands it to K1-bwd: the step must have handed it, the kept
+   forward's outputs must be ``fwd_tc_kernel``'s bit for bit and the
+   plain version's within K1's tolerance, K1-bwd from the chain must be
+   the recomputing call bit for bit, and its time (the row's ``ms``) is
+   taken from the chain, the recomputing call's printed beside it.
 7. Mip serving (slice 3): holds K7 (``mip_eval``) against its plain version
    on the first 4000-ray tile of the frame, then renders one 400x400 frame
    of 64 log-bbox fenceposts (63 intervals) through ``MipNeRF.render_image``
@@ -277,23 +283,32 @@
    tile, the fused step and K7, K6, K5-fwd and K5-bwd against plain,
    timed).  Prints the phase's wall time.
 22. The weight-gradient pass (``csrc/tc_mlp.cuh``'s
-   ``wgrad_tc_kernel``): K2 at 4096 x 64, K9 at 2048 x (64 + 128), the
-   reuse step's K3 (2048 x 128) and K1-bwd (2048 x 64) and K6 at 4096 x 63,
-   on uniform inputs from seed 0, one call of each profiled in each dtype
-   (``torch.profiler``, the kernels named by ``pass_label``): the pass's
+   ``wgrad_tc_kernel``) and, since slice 22, the row pass (``bwd_rows``):
+   K2 at 4096 x 64, K9 at 2048 x (64 + 128), the reuse step's K3 (2048 x
+   128) and K1-bwd (2048 x 64, from the chain its forward kept, as the
+   step calls it: no ``fwd_store`` may run) and K6 at 4096 x 63, on
+   uniform inputs from seed 0, one call of each profiled in each dtype
+   (``torch.profiler``, the kernels named by ``pass_label``): each pass's
    device time beside its FLOP floor (3xTF32 or bf16 rate) and its
-   chain-bytes floor (xhat and dpre read once at the memory rate), and the
-   other passes' times; and ``torch.mm`` over K2's twelve products in
-   float32 (TF32 off) and bf16, timed as the pass's yardstick and used
-   nowhere in the port.
+   chain-bytes floor (``wgrad``: xhat and dpre read once; ``bwd_rows``:
+   xhat read and dpre written, at the memory rate), and the other passes'
+   times; the forward that keeps the chain (``classic_mlp_fwd_chain``,
+   K1-fwd on the training path) at the reuse step's 2048 x 64 rows, timed
+   beside its bound (its FLOP at the 3xTF32 or bf16 rate, or its bytes
+   with the chain it writes); and ``torch.mm`` over K2's twelve products
+   in float32 (TF32 off) and bf16, timed as the weight pass's yardstick
+   and used nowhere in the port.
 23. Prints the kernels' JSON line (each row with its float32 bound and
    its 3xTF32 tensor-core bound, ``bound_tc_ms``, the achieved share of
    each, ``products``: how its MLP products run, and since which slice,
    ``cli_launches``: its launches in phase 14, ``dp_launches``: in phase
    18a, ``sp_launches``: in phase 19a, and its bf16 entries from phases 15, 16 and 17, ``bf16_ms``,
    ``bf16_bound_ms``, ``bf16_launches`` and the rest; the training
-   kernels' ``wgrad_ms``, ``bf16_wgrad_ms``, their floors and shares of
-   them from phase 22, and on K2's row ``wgrad_library_ms`` and
+   kernels' ``wgrad_ms``, ``bf16_wgrad_ms``, ``bwd_rows_ms``,
+   ``bf16_bwd_rows_ms``, their floors and shares of them from phase 22,
+   K1-bwd's ``reuse_recomputes`` (whether the reuse route runs the forward
+   again: false), K1-fwd's ``train_route_ms``, ``bf16_train_route_ms`` and
+   their bounds (the chain-keeping forward of phase 22), and on K2's row ``wgrad_library_ms`` and
    ``bf16_wgrad_library_ms``: null where a kernel runs no such pass), the
    card line, then, last, the device line.
 
@@ -906,8 +921,9 @@ def training(device, cfg: ClassicNeRFConfig):
 
 def without_images(kwargs: dict) -> dict:
     """A recorded call's keyword arguments without the operand images the
-    step built beforehand: the call is repeated with its own."""
-    return {k: v for k, v in kwargs.items() if k not in ("tc_fwd", "tc_bwd")}
+    step built beforehand and the chain its forward kept (K1-bwd's): the
+    call is repeated with its own."""
+    return {k: v for k, v in kwargs.items() if k not in ("tc_fwd", "tc_bwd", "chain")}
 
 
 def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
@@ -921,7 +937,18 @@ def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
     args, kwargs = store["classic_mlp_bwd"]
     check(without_images(kwargs) == {"input_grads": False},
           "the reuse step asks K1-bwd for no encoding cotangents")
+    check(isinstance(kwargs.get("chain"), dict) and "xhat" in kwargs["chain"],
+          "the reuse step hands K1-bwd the chain its forward kept (no forward run again)")
     packed, x, d, _ = args
+    # The forward that keeps the chain (K1-fwd on the training path), on the
+    # recorded arguments as they stand now (the heads' packed slabs are the
+    # parameters themselves, which the optimizer has moved since): its
+    # outputs are the serving tile's bit for bit, and the plain version's.
+    out, chain = classic_mlp.classic_mlp_fwd_chain(packed, x, d)
+    check(torch.equal(out, classic_mlp.classic_mlp_fwd(packed, x, d)),
+          "the chain-keeping forward's outputs are fwd_tc_kernel's bit for bit")
+    print("the reuse step's K1-fwd, keeping the chain, against plain:")
+    compare("classic_mlp_fwd", [out], [classic_mlp.classic_mlp_fwd_plain(packed, x, d)])
     weight_bytes = tensor_bytes(*packed.values())
     gen = torch.Generator(device=device).manual_seed(8)
     g_out = torch.rand((x.shape[0], 4), generator=gen, device=device) * 2 - 1
@@ -935,15 +962,25 @@ def kernels_against_plain(store: dict, cfg: ClassicNeRFConfig, device) -> dict:
               f"classic_mlp_bwd with input_grads={input_grads} ran its {policy} passes")
         ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads)
         err = compare_grads("classic_mlp_bwd", named(got), named(ref))
+        # The reuse step's route: from the kept chain, bitwise the above.
+        stored = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads, chain=chain)
+        check(all(torch.equal(a, b) for a, b in zip(
+            named(stored).values(), named(got).values())),
+            f"K1-bwd from the kept chain is the recomputing route bit for bit "
+            f"(input_grads={input_grads})")
         ms[input_grads] = cuda_ms(
+            lambda: classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads, chain=chain),
+            iters=5)
+        recompute_ms = cuda_ms(
             lambda: classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads), iters=5)
         print(f"classic_mlp_bwd at {x.shape[0]} points, input_grads={input_grads} ({policy}): "
-              f"{ms[input_grads]:.3f} ms")
+              f"{ms[input_grads]:.3f} ms from the kept chain, {recompute_ms:.3f} ms recomputing "
+              f"the forward")
     plain_ms = cuda_ms(
         lambda: classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, False), iters=3)
     rows["classic_mlp_bwd"] = dict(
         max_abs=err, ms=ms[False], plain_ms=plain_ms,
-        flops=train_kernel_flops(cfg, x.shape[0], 1),
+        flops=train_kernel_flops(cfg, x.shape[0], 1) - x.shape[0] * classic_flops_per_point(cfg),
         nbytes=tensor_bytes(x, d, g_out, *got[:2]) + 2 * weight_bytes)
 
     args, kwargs = store["classic_train_grads"]
@@ -2237,6 +2274,12 @@ def bf16_kernels(device, cfg, model, pose, store: dict, frame_launches: dict, ou
     got = on_route(classic_mlp.BWD_NAME, call)
     ref = classic_mlp.classic_mlp_bwd_plain(pk, x, d, g_out, False)
     err = check_bf16_grads(classic_mlp.BWD_NAME, got[2], ref[2])
+    # The step's route, from the chain its forward keeps: bitwise the above,
+    # and the row's time.
+    _, chain = classic_mlp.classic_mlp_fwd_chain(pk, x, d)
+    stored = lambda: classic_mlp.classic_mlp_bwd(pk, x, d, g_out, False, chain=chain)  # noqa: E731
+    check(all(torch.equal(a, b) for a, b in zip(stored()[2].values(), got[2].values())),
+          "bf16 K1-bwd from the kept chain is the recomputing route bit for bit")
     f32 = classic_mlp.classic_mlp_bwd(pk, x.float(), d.float(), g_out, False)[2]
     f32_err = rel_l2([f32[k] for k in ref[2]], [ref[2][k] for k in ref[2]])
     print(f"{classic_mlp.BWD_NAME} control: the float32 kernel on the same inputs, relative L2 "
@@ -2245,10 +2288,11 @@ def bf16_kernels(device, cfg, model, pose, store: dict, frame_launches: dict, ou
           f"{classic_mlp.BWD_NAME}: the float32 kernel fails the bf16 check (control)")
     out[classic_mlp.BWD_NAME].update(bf16_row(
         classic_mlp.BWD_NAME, out[classic_mlp.BWD_NAME]["bf16_launches"], err,
-        cuda_ms(call, iters=5),
+        cuda_ms(stored, iters=5),
         cuda_ms(lambda: classic_mlp.classic_mlp_bwd_plain(pk, x, d, g_out, False), iters=3),
-        train_kernel_flops(cfg, x.shape[0], 1), tensor_bytes(x, d, g_out) + 2 * weight_bytes,
-        x.shape[0]))
+        train_kernel_flops(cfg, x.shape[0], 1) - x.shape[0] * classic_flops_per_point(cfg),
+        tensor_bytes(x, d, g_out) + 2 * weight_bytes, x.shape[0]))
+    del chain
 
     args, kwargs = store["classic_train_grads"]
     check(args[1].dtype == torch.bfloat16, "the bf16 coarse step hands K2 bfloat16 encodings")
@@ -3487,7 +3531,13 @@ def classic_every_case(device, bank, case: str, dtype: str, card: str) -> None:
 WGRAD_ROW_KEYS = ("wgrad_ms", "wgrad_flop_floor_ms", "wgrad_bytes_floor_ms",
                   "wgrad_share_of_flop_floor", "wgrad_share_of_bytes_floor",
                   "bf16_wgrad_ms", "bf16_wgrad_flop_floor_ms", "bf16_wgrad_share_of_flop_floor",
-                  "bf16_wgrad_share_of_bytes_floor", "wgrad_library_ms", "bf16_wgrad_library_ms")
+                  "bf16_wgrad_share_of_bytes_floor", "wgrad_library_ms", "bf16_wgrad_library_ms",
+                  "bwd_rows_ms", "bwd_rows_flop_floor_ms", "bwd_rows_bytes_floor_ms",
+                  "bwd_rows_share_of_flop_floor", "bwd_rows_share_of_bytes_floor",
+                  "bf16_bwd_rows_ms", "bf16_bwd_rows_flop_floor_ms",
+                  "bf16_bwd_rows_share_of_flop_floor", "bf16_bwd_rows_share_of_bytes_floor",
+                  "reuse_recomputes", "train_route_ms", "train_route_bound_ms",
+                  "bf16_train_route_ms", "bf16_train_route_bound_ms")
 
 
 def profiled_passes(call) -> dict:
@@ -3501,16 +3551,24 @@ def profiled_passes(call) -> dict:
     passes = collections.Counter()
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            passes[pass_label(evt.name).split(",")[0] or "other"] += evt.time_range.elapsed_us() / 1e3
-    check(passes["wgrad"] > 0, f"the profiler recorded the wgrad pass ({dict(passes)})")
+            # The mip passes' labels name the pass after "mip ".
+            label = pass_label(evt.name).split(",")[0].removeprefix("mip ").split(" (")[0]
+            passes[label or "other"] += evt.time_range.elapsed_us() / 1e3
+    check(passes["wgrad"] > 0 and passes["bwd_rows"] > 0,
+          f"the profiler recorded the wgrad and bwd_rows passes ({dict(passes)})")
     return dict(passes)
 
 
 def wgrad_cases(device, dtype: str) -> dict:
-    """name -> (kernel calls, rows, products, chain bytes) of the training
-    kernels at the main paths' shapes: K2 at 4096 x 64, K9 at 2048 x (64 +
-    128), the reuse step's K3 at 2048 x 128 and K1-bwd at 2048 x 64, and K6
-    at 4096 x 63, on uniform inputs from seed 0 (the full-width models)."""
+    """name -> (kernel calls, rows, products, chain bytes, the row pass's
+    multiply-adds a row and chain bytes) of the training kernels at the
+    main paths' shapes: K2 at 4096 x 64, K9 at 2048 x (64 + 128), the reuse
+    step's K3 at 2048 x 128 and K1-bwd at 2048 x 64 (from the chain its
+    forward kept, as the step calls it), and K6 at 4096 x 63, on uniform
+    inputs from seed 0 (the full-width models).  The row pass's products:
+    dh = dpre W^T of every hidden slab and the heads' input cotangents (no
+    encodings' cotangents on these paths); its chain: xhat read and dpre
+    written, float32, every layer."""
     bf16 = dtype == "bfloat16"
     tdt = torch.bfloat16 if bf16 else torch.float32
     gen = torch.Generator(device=device).manual_seed(0)
@@ -3526,7 +3584,8 @@ def wgrad_cases(device, dtype: str) -> dict:
 
     def classic(rows):
         prods = tc_mlp.classic_wgrad_products(xe, de, hp, layers, rows, tdt)
-        return prods, (2 * layers - 1) * hp * 4 * rows
+        return (prods, (2 * layers - 1) * hp * 4 * rows, (layers - 1) * hp * hp + 4 * hp,
+                2 * layers * hp * 4 * rows)
 
     cases = {}
     rays, s = 4096, 64
@@ -3556,9 +3615,17 @@ def wgrad_cases(device, dtype: str) -> dict:
                                     rays * sf, *classic(rays * sf))
     rows = rays * sc
     x1, d1, g1 = rand(rows, xe, enc=True), rand(rows, de, enc=True), rand(rows, 4)
+    fwd_chain = lambda: classic_mlp.classic_mlp_fwd_chain(packed, x1, d1)  # noqa: E731
+    _, chain = fwd_chain()
+    # K1-fwd on the training path: the forward that keeps the chain, its
+    # bytes the encodings, the outputs and the chain (xhat and statistics).
+    cases[classic_mlp.NAME] = (
+        fwd_chain, rows, rows * classic_flops_per_point(cfg),
+        tensor_bytes(x1, d1) + rows * (4 * 4 + layers * (hp + 2) * 4)
+        + tensor_bytes(*packed.values()))
     cases[classic_mlp.BWD_NAME] = (
-        lambda: classic_mlp.classic_mlp_bwd(packed, x1, d1, g1, input_grads=False), rows,
-        *classic(rows))
+        lambda: classic_mlp.classic_mlp_bwd(packed, x1, d1, g1, input_grads=False, chain=chain),
+        rows, *classic(rows))
     mcfg = MipNeRFConfig()
     mip = MipNeRF(mcfg, generator=torch.Generator().manual_seed(0), device=device)
     mpacked = mip_mlp.pack_mip_params(mip.mlp.requires_grad_(False))
@@ -3572,7 +3639,8 @@ def wgrad_cases(device, dtype: str) -> dict:
     mprods = tc_mlp.mip_wgrad_products(mcfg.feature_dim, hp, mlayers, outputs, rays * n, tdt)
     cases[mip_train.TRAIN_NAME] = (
         lambda: mip_train.mip_train_grads(mpacked, *k6, mcfg.color_outputs, SEG_WEIGHT),
-        rays * n, mprods, (2 * mlayers * hp + outputs) * 4 * rays * n)
+        rays * n, mprods, (2 * mlayers * hp + outputs) * 4 * rays * n,
+        (mlayers - 1) * hp * hp + outputs * hp, 2 * mlayers * hp * 4 * rays * n)
     return cases
 
 
@@ -3599,9 +3667,11 @@ def wgrad_phase(device, card: str) -> dict:
     """Phase 22: for K2, K9, K3 and K1-bwd (the reuse step) and K6, one
     profiled call in each dtype: the wgrad pass's device time beside its
     two floors (its FLOPs at the 3xTF32 or the bf16 rate; its float32
-    chain, xhat and dpre read once, at the memory rate) and each other
-    pass's time; and the yardstick, torch.mm over K2's products.  Returns
-    each row's WGRAD_ROW_KEYS."""
+    chain, xhat and dpre read once, at the memory rate), the bwd_rows
+    pass's beside its own two (slice 22: its products; xhat read and dpre
+    written) and each other pass's time; whether K1-bwd on the reuse route
+    runs the forward again (it must not); and the yardstick, torch.mm over
+    K2's products.  Returns each row's WGRAD_ROW_KEYS."""
     out = {}
     for dtype in ("float32", "bfloat16"):
         bf16 = dtype == "bfloat16"
@@ -3609,10 +3679,24 @@ def wgrad_phase(device, card: str) -> dict:
         print(f"wgrad yardstick, torch.mm over K2's 12 products at 262,144 points, {dtype}"
               f"{' (TF32 off)' if not bf16 else ''}: {lib_ms:.3f} ms ({card})", flush=True)
         with torch.no_grad():
-            for name, (call, rows, prods, chain_bytes) in wgrad_cases(device, dtype).items():
+            cases = wgrad_cases(device, dtype)
+            call, rows, flops, nbytes = cases.pop(classic_mlp.NAME)
+            ms = cuda_ms(call, iters=5)
+            rate = PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS
+            bound_ms = max(flops / rate * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3)
+            print(f"  {classic_mlp.NAME} on the training path (classic_mlp_fwd_chain, "
+                  f"{rows} rows) {dtype}: {ms:.3f} ms, bound {bound_ms:.3f} ms "
+                  f"({bound_ms / ms:.3f} of it; FLOP at {rate / 1e12:.0f} TFLOP/s or bytes with "
+                  f"the chain at 3.35 TB/s)", flush=True)
+            row = out.setdefault(classic_mlp.NAME, dict.fromkeys(WGRAD_ROW_KEYS))
+            prefix = "bf16_" if bf16 else ""
+            row[f"{prefix}train_route_ms"] = ms
+            row[f"{prefix}train_route_bound_ms"] = bound_ms
+            for name, case in cases.items():
+                call, rows, prods, chain_bytes, row_macs, row_bytes = case
                 passes = profiled_passes(call)
-                flops = 2 * rows * sum(p.M * p.n for p in prods)
-                flop_floor = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS) * 1e3
+                rate = PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS
+                flop_floor = 2 * rows * sum(p.M * p.n for p in prods) / rate * 1e3
                 bytes_floor = chain_bytes / PEAK_BYTES_PER_S * 1e3
                 ms = passes["wgrad"]
                 print(f"  {name} {dtype}: wgrad {ms:.3f} ms of {sum(passes.values()):.3f} "
@@ -3626,6 +3710,21 @@ def wgrad_phase(device, card: str) -> dict:
                 row[f"{prefix}wgrad_share_of_bytes_floor"] = bytes_floor / ms
                 row[f"{prefix}wgrad_flop_floor_ms"] = flop_floor
                 row["wgrad_bytes_floor_ms"] = bytes_floor
+                ms = passes["bwd_rows"]
+                flop_floor = 2 * rows * row_macs / rate * 1e3
+                bytes_floor = row_bytes / PEAK_BYTES_PER_S * 1e3
+                print(f"  {name} {dtype}: bwd_rows {ms:.3f} ms (FLOP floor {flop_floor:.3f} ms, "
+                      f"share {flop_floor / ms:.3f}; chain-bytes floor {bytes_floor:.3f} ms, "
+                      f"share {bytes_floor / ms:.3f})", flush=True)
+                row[f"{prefix}bwd_rows_ms"] = ms
+                row[f"{prefix}bwd_rows_flop_floor_ms"] = flop_floor
+                row[f"{prefix}bwd_rows_share_of_flop_floor"] = flop_floor / ms
+                row[f"{prefix}bwd_rows_share_of_bytes_floor"] = bytes_floor / ms
+                row["bwd_rows_bytes_floor_ms"] = bytes_floor
+                if name == classic_mlp.BWD_NAME:
+                    row["reuse_recomputes"] = passes.get("fwd_store", 0.0) > 0
+                    check(not row["reuse_recomputes"],
+                          f"K1-bwd from the kept chain runs no forward ({dtype})")
                 if name == train_grads.NAME:
                     row[f"{prefix}wgrad_library_ms"] = lib_ms
     return out

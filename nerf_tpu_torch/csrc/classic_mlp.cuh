@@ -37,7 +37,6 @@ constexpr int kTileRows = 64;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = kTileRows / kWarps;
-constexpr int kChunk = 16;  // head rows (outputs) staged at a time (mip_mlp.cuh's head_dh)
 constexpr float kLnEps = 1e-5f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -144,36 +143,6 @@ __device__ inline void load_tile(float* dst, const T* __restrict__ src,
     dst[i] = (r < nvalid && k < width)
                  ? ldg_f32(src + ((row0 + r) / div) * width + k)
                  : 0.f;
-  }
-}
-
-// acc += A[rows of this warp, k0:k0+kc4] @ wbuf[0:kc4, 0:H], wbuf the
-// staged weight chunk with row stride WLD; with kBf16 both operands
-// rounded to bfloat16.
-template <int H, int WLD, bool kBf16 = false>
-__device__ __forceinline__ void chunk_fma(float (&acc)[kRowsPerWarp][H / 32],
-                                          const float* a_rows, int lda, int k0, int kc4,
-                                          const float* wbuf) {
-  constexpr int kCols = H / 32;
-  const int lane = threadIdx.x & 31;
-  for (int kk = 0; kk < kc4; kk += 4) {
-    float4 a[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-      a[r] = *reinterpret_cast<const float4*>(a_rows + r * lda + k0 + kk);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float w[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) w[j] = operand<kBf16>(wbuf[(kk + q) * WLD + lane + 32 * j]);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float av =
-            operand<kBf16>(q == 0 ? a[r].x : q == 1 ? a[r].y : q == 2 ? a[r].z : a[r].w);
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[r][j] = fmaf(av, w[j], acc[r][j]);
-      }
-    }
   }
 }
 

@@ -226,7 +226,10 @@ __device__ void layer_bwd(float (&acc)[kRowsPerWarp][H / 32], int i,
                            : 0.f;
       acc[r][j] = dp;
       s_b[j] += dp;
-      if (row < nvalid) dpre[at * H + lane + 32 * j] = dp;
+      // dpre is never null (both row passes store it here); ptxas lays the
+      // classic pass out better with the test than without
+      // (scripts/torch_bwd_rows_split.py's no_null_test, PERF.md section 5).
+      if (dpre != nullptr && row < nvalid) dpre[at * H + lane + 32 * j] = dp;
     }
   }
   tile_colsum<H>(s_b, red, part_b + i * H);

@@ -20,9 +20,10 @@
 //     (layer_epilogue<kLnFirst>), and the head as a register-tiled float32
 //     product (head_wide) over 64-column blocks of any width; with kSave it
 //     stores every layer's xhat and (1/sigma, -mu/sigma) for the backward;
-//   * bwd_rows: the head's input cotangent (head_dh, float32, the output
-//     cotangents and the head's weights staged a chunk of 16 outputs at a
-//     time, so any head width takes the same bytes), then per layer the
+//   * bwd_rows: the head's input cotangent on the tensor cores (a tc_gemm
+//     on the image of w_out as it stands, [H][O], the output cotangents
+//     staged through the activation tile H columns at a time, so any head
+//     width takes the same bytes; past 256 head_dh_rows), then per layer the
 //     mask on the rebuilt LayerNorm output xhat * g + beta > 0 and the
 //     LayerNorm backward (layer_bwd<kLnFirst>), and dh = dpre @ W^T as
 //     tc_gemm on the slabs' backward images (mip_bwd_rows_tc_kernel, which
@@ -38,8 +39,8 @@
 // kernels and MipTcT; tc_mlp.cuh note 10): the features arrive as bfloat16
 // (staged as the pairs they are), the products are bf16 wgmma on bf16
 // images (tc_gemm<N, true>), and the head rounds its operands as head<H,
-// true> does: head_wide rounds h and W, head_dh the output cotangents and
-// W (their b_out sums stay float32).  wgrad is TcProductsT<true>'s, on the
+// true> does: head_wide rounds h and W, the head's backward product the
+// output cotangents and W (its b_out sums stay float32).  wgrad is TcProductsT<true>'s, on the
 // bf16 raw features (WProd::a_bf16), and K5-bwd's features' cotangent is
 // written as bfloat16, the features' dtype.
 #pragma once
@@ -90,7 +91,7 @@ __host__ __device__ inline size_t mip_tile_floats(const MipWeights& w, int H) {
 // and output; instead h goes through act (each warp its own rows, row
 // stride LD = act_ld<H>(), at which other warps may still be reading their
 // rows of act) and each lane accumulates columns c0 + lane and c0 + 32 +
-// lane of a 64-column block, W staged through wbuf (kChunk x H floats) in
+// lane of a 64-column block, W staged through wbuf (16 x H floats) in
 // chunks of H / 4 rows x 64 columns, read once per block; any n takes
 // ceil(n / 64) blocks.  kBf16: h and W rounded to bfloat16 as they are
 // staged (the JAX package's _dot on the head).
@@ -98,7 +99,7 @@ template <int H, int LD, bool kBf16 = false>
 __device__ void head_wide(const float (&h)[kRowsPerWarp][H / 32], float* act, float* wbuf,
                           const float* __restrict__ W, const float* __restrict__ bias, int n,
                           float* out, int nvalid) {
-  constexpr int kRows = H / 4;  // W rows per staged chunk: kRows * 64 = kChunk * H floats
+  constexpr int kRows = H / 4;  // W rows per staged chunk: kRows * 64 = 16 * H floats
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   float* a_rows = act + warp * kRowsPerWarp * LD;
 #pragma unroll
@@ -299,56 +300,28 @@ NERF_TC_KERNEL
   mip_fwd_tc_block<H, false, kBf16>(w, im, x, out, P, nullptr, nullptr, wide);
 }
 
-// acc += gout[tile rows, 0:O] @ W^T for this warp's rows, and the tile's
-// column sums of gout to p_bout: the head's input cotangent and its b_out
-// partials, W (row-major [H, O]) the head's weights.  Per chunk of kChunk
-// outputs the chunk's output cotangents go through gs ([64][kChunk], zero
-// past the valid rows and past O) and W^T's chunk through wbuf (kChunk rows
-// of H + 1 floats, the padding against bank conflicts of the transposing
-// stores), each read once per block, so every head width takes the same
-// shared memory.  Ends with a barrier of the tile's threads.  kBf16: the output
-// cotangents and W rounded to bfloat16 in the product (the JAX package's
-// _dot_t on the head); the b_out sums stay float32.
-template <int H, bool kBf16 = false>
-__device__ void head_dh(float (&acc)[kRowsPerWarp][H / 32], const float* __restrict__ gout,
-                        int O, size_t row0, int nvalid, const float* __restrict__ W,
-                        float* wbuf, float* gs, float* p_bout) {
-  const float* a_rows = gs + (threadIdx.x >> 5) * kRowsPerWarp * kChunk;
-  for (int q0 = 0; q0 < O; q0 += kChunk) {
-    for (int i = threadIdx.x; i < kTileRows * kChunk; i += kThreads) {
-      const int r = i / kChunk, q = q0 + i % kChunk;
-      gs[i] = r < nvalid && q < O ? gout[(row0 + r) * O + q] : 0.f;
-    }
-    for (int i = threadIdx.x; i < kChunk * H; i += kThreads) {
-      const int j = i / kChunk, qq = i % kChunk;
-      wbuf[qq * (H + 1) + j] = q0 + qq < O ? __ldg(W + static_cast<size_t>(j) * O + q0 + qq) : 0.f;
-    }
-    tile_sync();
-    if (threadIdx.x < kChunk && q0 + static_cast<int>(threadIdx.x) < O) {
-      float s = 0.f;
-      for (int r = 0; r < kTileRows; ++r) s += gs[r * kChunk + threadIdx.x];
-      p_bout[q0 + threadIdx.x] = s;
-    }
-    chunk_fma<H, H + 1, kBf16>(acc, a_rows, kChunk, 0, min(kChunk, round_up4(O - q0)), wbuf);
-    tile_sync();
-  }
-}
+// The k-values of each product of the head's input cotangent: a constant
+// (a K known only at run time puts the batches' guards on a divergent path
+// beside the wgmma, and ptxas then serializes every product of the kernel,
+// C7520), which both image chunks (16 and 32 values) divide; w_out's image
+// pads its K = O to a multiple of it (tc_mlp.py::HEAD_K).
+constexpr int kHeadK = 32;
 
-// Bytes of shared memory of mip_bwd_rows_tc_kernel: the B chunks (also the
-// head's transposed weight chunks, lent by the pipe before the first
-// product), the activation tile, a chunk of the output cotangents, the
-// colsum scratch (kWarps x H floats) and the alignment slack, at every head
-// width.
+// Bytes of shared memory of mip_bwd_rows_tc_kernel: the B chunks, the
+// activation tile (which also stages the head's output cotangents, H
+// columns at a time), the colsum scratch (kWarps x H floats) and the
+// alignment slack, at every head width.
 template <int H>
 __host__ constexpr size_t mip_bwd_rows_tc_smem() {
   constexpr int HT = col_width<H>();
   return (static_cast<size_t>(tc_bbuf_floats<HT>()) + static_cast<size_t>(kTileRows) * act_ld<HT>() +
-          (H > kColBlock ? kEncRingFloats : static_cast<size_t>(kTileRows) * kChunk + kWarps * H)) *
+          (H > kColBlock ? kEncRingFloats : static_cast<size_t>(kWarps) * H)) *
              sizeof(float) +
          kSmemAlign;
 }
 
-// head_dh over rows in device memory (tc_mlp.cuh note 11): dh [64][hp] =
+// The head's input cotangent past hidden 256, over rows in device memory
+// (tc_mlp.cuh note 11), SIMT: dh [64][hp] =
 // gout[tile rows, 0:O] @ W^T for the tile's valid rows (kBf16 rounds gout
 // and W), and the tile's column sums of gout to p_bout.  A thread a
 // column, its 64 rows' sums in registers; the output cotangents staged
@@ -425,12 +398,17 @@ __device__ void mip_bwd_rows_wide(Pipe& pipe, const MipWeights& w, const float* 
 // From the output cotangents gout [P][O] down through the layers, storing
 // every layer's dpre and the tile's column sums (b, g, beta, b_out) to its
 // row of tpart, with the hidden products dh = dpre W^T on the tensor
-// cores (bwd_rows_tc_kernel's order, tc_mlp.cuh): bwd is the backward
-// images, the hidden slabs' (the packed [in][out] slabs, 2 H H floats each)
-// then w_in's, from which the features' cotangent dx [P][F] is written when
-// not null (K5-bwd; K6 asks for none).  One block an SM.  kBf16: bf16
-// images and products, the head's input cotangent rounded (head_dh), dx
-// bfloat16 (note 10).
+// cores (bwd_rows_tc_kernel's order, tc_mlp.cuh): bwd is the
+// backward images, the hidden slabs' (the packed [in][out] slabs, 2 H H
+// floats each), then w_in's, from which the features' cotangent dx [P][F]
+// is written when not null (K5-bwd; K6 asks for none), then w_out's (the
+// head's [H][O] as it stands, K = O zero-padded to a multiple of
+// kHeadK).  The head's input cotangent dh = gout W_out^T is a tc_gemm too:
+// the tile's output cotangents staged into the activation tile H columns
+// at a time (zero past the valid rows and past O), one product a kHeadK
+// of them, their b_out sums taken from there.  One block a tile.
+// kBf16: bf16 images and products (the head's operands rounded as the
+// JAX package's _dot_t rounds them), dx bfloat16 (note 10).
 template <int H, bool kBf16 = false>
 NERF_TC_KERNEL
     mip_bwd_rows_tc_kernel(MipWeights w, const float* __restrict__ gout, int P,
@@ -438,7 +416,7 @@ NERF_TC_KERNEL
                            float* dpre, float* tpart, void* dx) {
   extern __shared__ float4 smem4[];
   constexpr int HT = col_width<H>();
-  float* bbuf = tc_smem_base(smem4);         // B chunks, or the head's chunks (lent)
+  float* bbuf = tc_smem_base(smem4);         // the B chunks' ring
   float* act = bbuf + tc_bbuf_floats<HT>();  // dpre of the current layer
   if constexpr (H > kColBlock) {
     tc_block<HT, kBf16>(bbuf, [&](auto& pipe) {
@@ -446,24 +424,53 @@ NERF_TC_KERNEL
                                act + kTileRows * act_ld<kColBlock>());
     });
   } else {
-  float* gs = act + kTileRows * act_ld<H>();  // [64][kChunk] output cotangents
-  float* red = gs + kTileRows * kChunk;       // [kWarps][H] colsum scratch
-  const int L = w.L;
+  float* red = act + kTileRows * act_ld<H>();  // [kWarps][H] colsum scratch
+  constexpr int ld = act_ld<H>();
+  const int L = w.L, O = w.O;
   const size_t slab = tc_image_floats<kBf16>(H, H), PP = static_cast<size_t>(P);
   const size_t row0 = static_cast<size_t>(blockIdx.x) * kTileRows;
   const int nvalid = min(kTileRows, P - static_cast<int>(row0));
   float* p_b = tpart + blockIdx.x * mip_tile_floats(w, H);
   float* p_g = p_b + L * H;
   float* p_beta = p_g + L * H;
+  float* p_bout = p_beta + L * H;
+  const float* img_win = tc_input_images<kBf16>(bwd, L - 1, H);
+  const float* img_wout = img_win + tc_input_image_floats<kBf16>(w.F, H);
 
   tc_block<HT, kBf16>(bbuf, [&](auto& pipe) {
     constexpr bool kC = std::decay_t<decltype(pipe)>::kConsumer;
     float acc[kRowsPerWarp][H / 32];
     float d[H / 4];
-    if constexpr (kC) zero<H>(acc);
-    pipe.lend([&] {
-      head_dh<H, kBf16>(acc, gout, w.O, row0, nvalid, w.w_out, pipe.buf, gs, p_beta + L * H);
-    });
+    // The head: dh = gout[tile rows, 0:O] @ W_out^T, H output columns
+    // staged at a time (zero past O up to a multiple of kHeadK), each
+    // kHeadK of them one product.
+    tc_zero<H>(d);
+    for (int q0 = 0; q0 < O; q0 += H) {
+      const int kq = min(H, O - q0), kpad = (kq + kHeadK - 1) / kHeadK * kHeadK;
+      if constexpr (kC) {
+        tile_sync();  // act's last readers are done
+        for (int i = threadIdx.x; i < kTileRows * kpad; i += kThreads) {
+          const int r = i / kpad, q = i - r * kpad;
+          act[r * ld + q] = r < nvalid && q < kq ? gout[(row0 + r) * O + q0 + q] : 0.f;
+        }
+      }
+      // Each starts with a barrier of the consumers (act written) and ends
+      // with one.
+      for (int k0 = 0; k0 < kq; k0 += kHeadK)
+        tc_gemm<H, kBf16>(pipe, d, act + k0, ld, kHeadK,
+                          img_wout + tc_image_floats<kBf16>(H, q0 + k0));
+      if constexpr (kC) {
+        if (static_cast<int>(threadIdx.x) < kq) {
+          float s = 0.f;
+          for (int r = 0; r < kTileRows; ++r) s += act[r * ld + threadIdx.x];
+          p_bout[q0 + threadIdx.x] = s;
+        }
+      }
+    }
+    if constexpr (kC) {
+      tile_sync();  // the b_out sums' reads of act are done
+      tc_to_rows<H>(d, act, acc);
+    }
     for (int i = L - 1; i >= 0; --i) {
       if constexpr (kC)
         layer_bwd<H, true>(acc, i, w.g + i * H, w.beta + i * H, w.h, w.inv_h, PP, row0, nvalid,
@@ -476,8 +483,8 @@ NERF_TC_KERNEL
     }
     // The features' cotangent dx = dpre_0 @ w_in^T, from the stored dpre.
     if (dx != nullptr)
-      tc_input_grad<H, kBf16>(pipe, act, dpre, PP, row0, nvalid, 0,
-                              tc_input_images<kBf16>(bwd, L - 1, H), -1, nullptr, w.F, dx);
+      tc_input_grad<H, kBf16>(pipe, act, dpre, PP, row0, nvalid, 0, img_win, -1, nullptr, w.F,
+                              dx);
   });
   }
 }

@@ -76,14 +76,18 @@
 //    memory), bwd_rows 207,872 (its colsum scratch beside the ring, which
 //    prefetches through the epilogues), wgrad 230,400 (three raw chunks of
 //    32 KB and two operand images of 64 KB in float32, six and two of 16 KB
-//    in bf16: pass 3 below); the mip bwd_rows
-//    210,944 (with a [64][16] chunk of the head's output cotangents and the
-//    colsum scratch).  Where a wide head stages its weights through the
-//    ring's buffers (the mip heads, past 256 a head of more than kFewOutputs
-//    outputs) the consumers borrow them (TcPipe::lend) and the producer
-//    waits.  The input cotangents add nothing to either bwd_rows: their A
-//    rows (dpre) and their outputs pass through the activation tile, their
-//    B chunks (2 x 64 x 16 floats) through the ring.
+//    in bf16: pass 3 below); the mip bwd_rows 206,848 (the head's output
+//    cotangents staged through the activation tile, the colsum scratch).
+//    Both row passes store dpre from registers (by bulk stores from the
+//    activation tile, each pass was slower: scripts/torch_bwd_rows_split.py's
+//    bulk_stores).  Where a wide head stages its
+//    weights through the ring's buffers (the mip forward heads, past 256 a
+//    head of more than kFewOutputs outputs) the consumers borrow them
+//    (TcPipe::lend) and the producer waits; the mip head's input cotangent
+//    up to 256 is a product on the tensor cores (mip_bwd_rows_tc_kernel),
+//    which lends nothing.  The input cotangents add nothing to either
+//    bwd_rows: their A rows (dpre) and their outputs pass through the
+//    activation tile, their B chunks (2 x 64 x 16 floats) through the ring.
 // 3. Accumulators and LayerNorm: in a wgmma accumulator a row's values sit
 //    in a quad of one warp and, here, in both warpgroups (each takes H / 2
 //    columns).  Each product's accumulators go once through the activation
@@ -91,15 +95,22 @@
 //    classic_mlp.cuh, so the epilogues (layer_epilogue, head, layer_bwd,
 //    head_bwd) run unchanged: two-pass mean and variance as warp
 //    reductions, and xhat and dpre stored coalesced, 32 consecutive floats
-//    a warp.  That costs one 64 x H x 4 B round trip through shared memory
-//    a layer against 64 x H x H x 6 FLOP of tensor-core work.
+//    a warp.  That costs
+//    one 64 x H x 4 B round trip through shared memory a layer against 64 x
+//    H x H x 6 FLOP of tensor-core work (nothing in the float32 row pass,
+//    18 % of K6's bf16 one: scripts/torch_bwd_rows_split.py).  A row pass
+//    with a 64-row tile a warpgroup (m64n256, the epilogue in the
+//    accumulator layout, two tiles in flight; scripts/bwd_rows_two_tiles.cu)
+//    ran 1.6x slower than this one at H = 256 whatever its ring schedule:
+//    its epilogue spills and its products wait on their A rows.
 // 4. Widths not a multiple of 16: the images pad K with zeros; A fragments
 //    past the width read 0.  The density and colour heads stay SIMT (head,
-//    head_bwd), and so do the mip 54-wide head's forward and input
-//    cotangent (head_wide, head_dh, mip_mlp.cuh; its weights staged through
-//    the B chunk buffers once the last product has retired); its dW is a
-//    wgrad product with N = 54, the columns past N zero in the B image and
-//    each stored alone where N is odd.  Tails of P are zero-filled (the
+//    head_bwd), and so does the mip 54-wide head's forward (head_wide,
+//    mip_mlp.cuh; its weights staged through the B chunk buffers once the
+//    last product has retired); its input cotangent is a tc_gemm on the
+//    image of w_out (K = 54 padded to 64; past 256 head_dh_rows, SIMT), its
+//    dW a wgrad product with N = 54, the columns past N zero in the B image
+//    and each stored alone where N is odd.  Tails of P are zero-filled (the
 //    encodings' slabs).
 // 5. The chain (xhat, dpre: ~4 GB each at 393,216 rows) stays float32 in
 //    global memory: no hi/lo copy, no extra pass.  wgrad keeps the tiles of
@@ -115,7 +126,9 @@
 //    warpgroup, so the 384-thread block starts at 168 a thread; the
 //    producer warpgroup drops to kTcProducerRegs = 40 and the consumers
 //    rise to kTcConsumerRegs = 232 (setmaxnreg), against the 255 a
-//    256-thread block had.  wgrad's block is 512 threads (kWgThreads: two
+//    256-thread block had.  An m64n256 accumulator a warpgroup (128
+//    floats a thread) leaves too few for its epilogue: about 1 KB a thread
+//    spills (scripts/bwd_rows_two_tiles.cu).  wgrad's block is 512 threads (kWgThreads: two
 //    consumer and two staging warpgroups, 128 registers a thread at
 //    launch): its consumers hold two chunks' accumulators (2 x 64) and
 //    their 64-float float32 sum, no fragments (both operands come from
@@ -180,7 +193,9 @@
 //    rounds both its operands, the rebuilt h_in and dpre, as its staging
 //    warpgroup transposes them;
 //    the SIMT heads round h, W and the output cotangents (head<H, true>,
-//    head_bwd<H, true>; the mip head_wide and head_dh likewise).  Everything else (LayerNorm and its statistics,
+//    head_bwd<H, true>; the mip head_wide and head_dh_rows likewise; the
+//    mip head's tc_gemm rounds its fragments and reads a bf16 image of
+//    w_out).  Everything else (LayerNorm and its statistics,
 //    biases, ReLU masks, compositing, losses, the chain, every sum of
 //    partials) is float32, as in JAX.  The encodings cross device memory
 //    as bf16 (TileLoadT<__nv_bfloat16>'s slabs, wgrad's bf16 raw rows;

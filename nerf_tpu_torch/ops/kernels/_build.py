@@ -60,8 +60,11 @@ ARGTYPES = {
     # R Sf: the blocks union_eval launches (its wide scratch's tiles)
     "union_eval_blocks": (_I,) * 2,
     # x d gout dx dd grads P xe de hidden c, weights,
-    # xhat stats dpre wpart tpart tmp out splits tc_fwd tc_bwd stream
-    "classic_mlp_bwd": (_P,) * 6 + (_I,) * 5 + _WEIGHT_ARGS + (_P,) * 7 + (_I,) + (_P,) * 3,
+    # xhat stats dpre wpart tpart tmp out splits stored tc_fwd tc_bwd stream
+    "classic_mlp_bwd": (_P,) * 6 + (_I,) * 5 + _WEIGHT_ARGS + (_P,) * 7 + (_I,) * 2 + (_P,) * 3,
+    # x d out P xe de hidden c, weights, xhat stats dpre tc_fwd stream (the
+    # forward that keeps the chain for classic_mlp_bwd, in its library)
+    "classic_mlp_fwd_store": (_P,) * 3 + (_I,) * 5 + _WEIGHT_ARGS + (_P,) * 5,
     # x d dists noise pix loss grads weights_out R S xe de hidden c white
     # loss_weight, weights, xhat stats dpre wpart tpart tmp out gout
     # ray_loss splits tc_fwd tc_bwd stream
@@ -109,13 +112,15 @@ ARGTYPES = {
 # float32 and its scratch encodings are bfloat16; K9's coarse, view and
 # scratch encodings are bfloat16).
 BF16 = KERNELS
-ARGTYPES.update({f"{name}_bf16": ARGTYPES[name] for name in BF16 + ("tc_linear", "tc_wgrad")})
+ARGTYPES.update({f"{name}_bf16": ARGTYPES[name]
+                 for name in BF16 + ("tc_linear", "tc_wgrad", "classic_mlp_fwd_store")})
 # Functions of a library other than its own name.
 FUNCTIONS = {
     "tc_product": ("tc_linear", "tc_wgrad", "tc_linear_bf16", "tc_wgrad_bf16"),
     **{name: (name,) + ((f"{name}_bf16",) if name in BF16 else ()) for name in KERNELS},
 }
 FUNCTIONS["union_eval"] += ("union_eval_blocks",)
+FUNCTIONS["classic_mlp_bwd"] += ("classic_mlp_fwd_store", "classic_mlp_fwd_store_bf16")
 
 
 def nvcc_path() -> str:

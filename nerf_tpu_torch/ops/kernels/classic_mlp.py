@@ -247,6 +247,21 @@ def route(name: str, bf16: bool) -> Tuple[str, str]:
     return (f"{name}_bf16", "tc_bf16") if bf16 else (name, "tc")
 
 
+def _fwd_checks(name: str, packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor],
+                tc_fwd: Optional[torch.Tensor]) -> torch.device:
+    """The forward wrappers' argument checks; returns the device."""
+    has_view = "wd_in" in packed
+    if has_view != (d_enc is not None):
+        raise ValueError(f"{name}: d_enc must be given iff the weights have a view branch")
+    device = check_inputs(name, packed, {"x_enc": x_enc, "d_enc": d_enc, "tc_fwd": tc_fwd})
+    tc_mlp.check_images(name, packed, tc_fwd, dtype=x_enc.dtype)
+    if x_enc.ndim != 2 or x_enc.shape[1] != packed["w0"].shape[0]:
+        raise ValueError(f"{name}: x_enc must be [P, {packed['w0'].shape[0]}], got {tuple(x_enc.shape)}")
+    if has_view and (d_enc.ndim != 2 or d_enc.shape != (x_enc.shape[0], packed["wd_in"].shape[0])):
+        raise ValueError(f"{name}: d_enc must be [P, {packed['wd_in'].shape[0]}], got {tuple(d_enc.shape)}")
+    return device
+
+
 def classic_mlp_fwd(
     packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor] = None,
     tc_fwd: Optional[torch.Tensor] = None, tc_bwd: Optional[torch.Tensor] = None,
@@ -260,35 +275,28 @@ def classic_mlp_fwd(
     every encoding width.  ``tc_fwd`` is the weights' forward operand image
     (``tc_mlp.tc_images(packed)[0]``) built beforehand, else the call
     builds it.  When autograd records and an input requires grad, the call
-    runs as ``ClassicMLPFunction``, whose
-    backward is ``classic_mlp_bwd`` (K1-bwd), given ``tc_fwd`` and
-    ``tc_bwd``.  bfloat16 encodings (and ``tc_fwd``) run
-    ``compute_dtype="bfloat16"``: ``classic_mlp_fwd_bf16``.
+    runs as ``ClassicMLPFunction``, whose forward keeps the chain
+    (``classic_mlp_fwd_chain``) and whose backward is ``classic_mlp_bwd``
+    (K1-bwd) from it, given ``tc_fwd`` and ``tc_bwd``.  bfloat16 encodings
+    (and ``tc_fwd``) run ``compute_dtype="bfloat16"``:
+    ``classic_mlp_fwd_bf16``.
     """
     if torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (x_enc, d_enc, *packed.values())
     ):
         return ClassicMLPFunction.apply(
             (tc_fwd, tc_bwd), x_enc, d_enc, *[packed.get(k) for k in PACK_ORDER])
-    has_view = "wd_in" in packed
-    if has_view != (d_enc is not None):
-        raise ValueError(f"{NAME}: d_enc must be given iff the weights have a view branch")
-    device = check_inputs(NAME, packed, {"x_enc": x_enc, "d_enc": d_enc, "tc_fwd": tc_fwd})
-    dtype = x_enc.dtype
-    tc_mlp.check_images(NAME, packed, tc_fwd, dtype=dtype)
-    hidden = packed["w0"].shape[1]
-    cols = 1 + packed["w_col"].shape[1]
-    if x_enc.ndim != 2 or x_enc.shape[1] != packed["w0"].shape[0]:
-        raise ValueError(f"{NAME}: x_enc must be [P, {packed['w0'].shape[0]}], got {tuple(x_enc.shape)}")
-    if has_view and (d_enc.ndim != 2 or d_enc.shape != (x_enc.shape[0], packed["wd_in"].shape[0])):
-        raise ValueError(f"{NAME}: d_enc must be [P, {packed['wd_in'].shape[0]}], got {tuple(d_enc.shape)}")
+    device = _fwd_checks(NAME, packed, x_enc, d_enc, tc_fwd)
     if device.type == "cpu":
         return classic_mlp_fwd_plain(packed, x_enc, d_enc)
+    dtype = x_enc.dtype
+    hidden = packed["w0"].shape[1]
+    cols = 1 + packed["w_col"].shape[1]
     n_points = x_enc.shape[0]
     out = torch.empty((n_points, cols), dtype=torch.float32, device=device)
     if n_points == 0:
         return out
-    de = d_enc.shape[1] if has_view else 0
+    de = d_enc.shape[1] if d_enc is not None else 0
     kpacked = tc_mlp.pad_packed(packed)
     if tc_fwd is None:
         tc_fwd = tc_mlp.tc_images(kpacked, dtype=dtype)[0]
@@ -306,6 +314,64 @@ def classic_mlp_fwd(
     return out
 
 
+# The C function of the forward that keeps the chain, in K1-bwd's library.
+FWD_STORE_NAME = "classic_mlp_fwd_store"
+
+
+def classic_mlp_fwd_chain(
+    packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor] = None,
+    tc_fwd: Optional[torch.Tensor] = None, input_grads: bool = True,
+) -> Tuple[torch.Tensor, Dict[str, object]]:
+    """``classic_mlp_fwd`` that also keeps what ``classic_mlp_bwd`` needs:
+    ``(out, chain)``.  On the card the forward tile that stores the chain
+    (``csrc/classic_mlp_bwd.cu``'s ``classic_mlp_fwd_store``, counted as
+    K1-fwd): ``chain`` holds every layer's xhat and LayerNorm statistics
+    (and, past hidden 256, the dpre buffer whose first layers hold the
+    tiles' rows), ``out`` is the tile's output.  On the CPU the plain
+    forward run under autograd: ``chain`` holds its graph (the leaves it
+    differentiates, the encodings among them where ``input_grads``).
+    ``classic_mlp_bwd(..., chain=chain)`` then starts from it instead of
+    running the forward again; the caller drops the chain to free it."""
+    device = _fwd_checks(NAME, packed, x_enc, d_enc, tc_fwd)
+    if device.type == "cpu":
+        with torch.enable_grad():
+            leaves = {k: v.detach().requires_grad_(True) for k, v in packed.items()}
+            ins = [None if t is None else t.detach().requires_grad_(input_grads)
+                   for t in (x_enc, d_enc)]
+            out = classic_mlp_fwd_plain(leaves, *ins)
+        return out.detach(), {"graph": (out, *ins, leaves)}
+    dtype = x_enc.dtype
+    kpacked = tc_mlp.pad_packed(packed)
+    n_points = x_enc.shape[0]
+    layers, hidden = kpacked["b"].shape
+    cols = 1 + packed["w_col"].shape[1]
+
+    def buf(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    chain = dict(xhat=buf(layers, n_points, hidden), stats=buf(layers, n_points, 2),
+                 out=buf(n_points, cols))
+    if hidden > tc_mlp.COL_BLOCK:  # the tiles' rows (csrc/tc_mlp.cuh note 11)
+        chain["dpre"] = buf(layers, n_points, hidden)
+    if n_points == 0:
+        return chain["out"], chain
+    if tc_fwd is None:
+        tc_fwd = tc_mlp.tc_images(kpacked, dtype=dtype)[0]
+    fn_name, policy = route(FWD_STORE_NAME, dtype == torch.bfloat16)
+    fn = getattr(_build.load(BWD_NAME), fn_name)
+    err = fn(
+        x_enc.data_ptr(), _build.ptr(d_enc), chain["out"].data_ptr(), n_points,
+        x_enc.shape[1], d_enc.shape[1] if d_enc is not None else 0, packed["w0"].shape[1],
+        cols - 1, *weight_pointers(kpacked), chain["xhat"].data_ptr(),
+        chain["stats"].data_ptr(), _build.ptr(chain.get("dpre")), _build.ptr(tc_fwd),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check_launch(FWD_STORE_NAME, err)
+    _build.launch_counts[NAME] += 1
+    _build.policy_counts[(NAME, policy)] += 1
+    return chain["out"], chain
+
+
 # -- backward (K1-bwd) -------------------------------------------------------
 
 # Order of the flat gradient the backward kernels write: the weight slabs
@@ -315,7 +381,7 @@ FLAT_ORDER = (
     "w_dens", "w_col", "b_dens", "b_col",
 )
 WGRAD_TILE = 128  # output tile edge of the weight-gradient product
-TILE_ROWS = 64  # rows per block of the MLP passes
+TILE_ROWS = tc_mlp.TILE_ROWS  # rows per block of the MLP passes
 COLSUM_GROUPS = 64
 
 
@@ -341,12 +407,24 @@ def packed_grads_plain(
 
 def classic_mlp_bwd_plain(
     packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor], g_out: torch.Tensor,
-    input_grads: bool = True, matmul=None,
+    input_grads: bool = True, matmul=None, chain: Optional[Dict[str, object]] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Packed]:
     """The backward kernel's function in plain PyTorch: the vector-Jacobian
     product of ``classic_mlp_fwd_plain`` with ``g_out [P, 1 + C]``;
     ``matmul`` as in ``classic_mlp_fwd_plain`` (``tc_mlp.tc_matmul_autograd``
-    emulates the tensor-core passes, forward and backward)."""
+    emulates the tensor-core passes, forward and backward).  ``chain``, the
+    plain ``classic_mlp_fwd_chain``'s, is the forward's graph: the products
+    are taken through it rather than through a forward run again (the same
+    operations, so the same gradients bit for bit)."""
+    if chain is not None:
+        out, x, d, leaves = chain["graph"]
+        ins = [t for t in (x, d) if t is not None] if input_grads else []
+        if any(not t.requires_grad for t in ins):
+            raise ValueError(f"{BWD_NAME}: the chain was kept without the encodings' gradients")
+        grads = list(torch.autograd.grad(out, ins + list(leaves.values()), g_out,
+                                         retain_graph=True, allow_unused=True))
+        in_grads = [grads.pop(0) if t is not None and input_grads else None for t in (x, d)]
+        return in_grads[0], in_grads[1], dict(zip(leaves, grads))
     if not input_grads:
         _, d_packed = packed_grads_plain(
             packed, (), lambda w: (classic_mlp_fwd_plain(w, x_enc, d_enc, matmul), g_out)
@@ -383,9 +461,11 @@ def kernel_grads(flat: torch.Tensor, kpacked: Packed, packed: Packed) -> Packed:
     return tc_mlp.unpad_grads(flat_grads_to_packed(flat, kpacked), packed)
 
 
-def train_scratch(packed: Packed, n_rows: int, device: torch.device) -> Dict[str, object]:
+def train_scratch(packed: Packed, n_rows: int, device: torch.device,
+                  given: Optional[Dict[str, object]] = None) -> Dict[str, object]:
     """Global scratch of the classic MLP backward passes for ``n_rows``
-    rows (``scratch_for``), of the kernels' weights ``tc_mlp.pad_packed``."""
+    rows (``scratch_for``), of the kernels' weights ``tc_mlp.pad_packed``;
+    the buffers in ``given`` (a stored chain) are taken as they are."""
     layers, hidden = packed["b"].shape
     xe = packed["w0"].shape[0]
     de = packed["wd_in"].shape[0] if "wd_in" in packed else 0
@@ -393,7 +473,7 @@ def train_scratch(packed: Packed, n_rows: int, device: torch.device) -> Dict[str
     prod_tiles = tiles_n * (2 * math.ceil(xe / WGRAD_TILE) + math.ceil(de / WGRAD_TILE)
                             + (layers - 1) * tiles_n)
     return scratch_for(layers, hidden, 1 + packed["w_col"].shape[1], n_rows, prod_tiles,
-                       *flat_grad_numels(packed), device)
+                       *flat_grad_numels(packed), device, given)
 
 
 # The weight-gradient pass's blocks (``csrc/tc_mlp.cuh``'s
@@ -416,7 +496,7 @@ def wgrad_splits(prod_tiles: int, n_rows: int, sms: int) -> int:
 
 def scratch_for(
     layers: int, hidden: int, cols: int, n_rows: int, prod_tiles: int, wfloats: int,
-    tfloats: int, device: torch.device,
+    tfloats: int, device: torch.device, given: Optional[Dict[str, object]] = None,
 ) -> Dict[str, object]:
     """Global scratch of the MLP backward passes for ``n_rows`` rows
     (``csrc/classic_mlp_train.cuh``): the stored chain (xhat and
@@ -424,19 +504,23 @@ def scratch_for(
     (``wfloats`` each; ``wgrad_splits`` of them for the product's
     ``prod_tiles`` output tiles), the per-tile partials (``tfloats`` each),
     the sum's staging buffer, the MLP output (``cols`` wide) and the flat
-    gradient."""
+    gradient.  Buffers in ``given`` are taken in place of new ones."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     splits = wgrad_splits(prod_tiles, n_rows, sms)
     tiles = math.ceil(n_rows / TILE_ROWS)
+    given = given or {}
 
-    def buf(*shape):
+    def buf(key, *shape):
+        if key in given:
+            return given[key]
         return torch.empty(shape, dtype=torch.float32, device=device)
 
     return dict(
-        xhat=buf(layers, n_rows, hidden), stats=buf(layers, n_rows, 2),
-        dpre=buf(layers, n_rows, hidden), wpart=buf(splits, wfloats),
-        tpart=buf(tiles, tfloats), tmp=buf(COLSUM_GROUPS, max(wfloats, tfloats)),
-        out=buf(n_rows, cols), grads=buf(wfloats + tfloats), splits=splits,
+        xhat=buf("xhat", layers, n_rows, hidden), stats=buf("stats", layers, n_rows, 2),
+        dpre=buf("dpre", layers, n_rows, hidden), wpart=buf("wpart", splits, wfloats),
+        tpart=buf("tpart", tiles, tfloats),
+        tmp=buf("tmp", COLSUM_GROUPS, max(wfloats, tfloats)),
+        out=buf("out", n_rows, cols), grads=buf("grads", wfloats + tfloats), splits=splits,
     )
 
 
@@ -451,13 +535,19 @@ def scratch_pointers(s: Dict[str, object]):
 def classic_mlp_bwd(
     packed: Packed, x_enc: torch.Tensor, d_enc: Optional[torch.Tensor], g_out: torch.Tensor,
     input_grads: bool = True, tc_fwd: Optional[torch.Tensor] = None,
-    tc_bwd: Optional[torch.Tensor] = None,
+    tc_bwd: Optional[torch.Tensor] = None, chain: Optional[Dict[str, object]] = None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Packed]:
     """Backward of ``classic_mlp_fwd``: given ``g_out [P, 1 + C]``, the
     cotangent of its output, returns ``(dx [P, XE], dd [P, DE] or None,
     d_packed)`` with ``d_packed`` the gradient of every packed weight,
     summed over the points.  With ``input_grads=False`` the kernel skips
     the encodings' cotangents and ``dx`` and ``dd`` are ``None``.
+
+    ``chain`` is what ``classic_mlp_fwd_chain`` kept of the forward on the
+    same weights and encodings: the backward starts from it (the kernel's
+    ``stored`` route, no forward run again).  Without it the kernel first
+    runs the forward that stores the chain, as the JAX kernel recomputes
+    its forward.  Both give the same gradients bit for bit.
 
     CPU tensors run ``classic_mlp_bwd_plain``; CUDA tensors launch the
     kernel (raising on what it does not take): the tensor-core passes of
@@ -488,7 +578,13 @@ def classic_mlp_bwd(
         if tuple(t.shape) != shape:
             raise ValueError(f"{BWD_NAME}: {key} must be {shape}, got {tuple(t.shape)}")
     if device.type == "cpu":
-        return classic_mlp_bwd_plain(packed, x_enc, d_enc, g_out, input_grads)
+        return classic_mlp_bwd_plain(packed, x_enc, d_enc, g_out, input_grads, chain=chain)
+    if chain is not None and (
+        "xhat" not in chain or chain["xhat"].shape[1] != n_points
+        or chain["xhat"].device != device
+    ):
+        raise ValueError(f"{BWD_NAME}: chain must be classic_mlp_fwd_chain's on these "
+                         f"{n_points} rows on {device}")
     dx = torch.empty_like(x_enc) if input_grads else None
     dd = torch.empty_like(d_enc) if has_view and input_grads else None
     if n_points == 0:
@@ -498,13 +594,13 @@ def classic_mlp_bwd(
     kpacked = tc_mlp.pad_packed(packed)
     if tc_fwd is None or tc_bwd is None:
         tc_fwd, tc_bwd = tc_mlp.tc_images(kpacked, backward=True, dtype=dtype)
-    s = train_scratch(kpacked, n_points, device)
+    s = train_scratch(kpacked, n_points, device, chain)
     fn = getattr(_build.load(BWD_NAME), fn_name)
     err = fn(
         x_enc.data_ptr(), _build.ptr(d_enc), g_out.data_ptr(), _build.ptr(dx), _build.ptr(dd),
         s["grads"].data_ptr(), n_points, xe, de, hidden, colors,
-        *weight_pointers(kpacked), *scratch_pointers(s), s["splits"], _build.ptr(tc_fwd),
-        _build.ptr(tc_bwd), torch.cuda.current_stream(device).cuda_stream,
+        *weight_pointers(kpacked), *scratch_pointers(s), s["splits"], int(chain is not None),
+        _build.ptr(tc_fwd), _build.ptr(tc_bwd), torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check_launch(BWD_NAME, err)
     _build.launch_counts[BWD_NAME] += 1
@@ -517,21 +613,31 @@ class ClassicMLPFunction(torch.autograd.Function):
     Arguments ``(images, x_enc, d_enc, *weights)``: ``images`` is ``(tc_fwd,
     tc_bwd)``, operand images built beforehand (``None`` where not), the
     weights in ``PACK_ORDER`` (``None`` for an absent ``wd_in``).  The
-    backward recomputes the forward, as the JAX kernel's does."""
+    forward keeps the chain (``classic_mlp_fwd_chain``: on the card the
+    tile that stores every layer's xhat and statistics, 1.34 GB at the
+    reuse step's 131,072 rows, beside the output), and the backward starts
+    from it and drops it (``ctx.chain`` is ``None`` after), so the forward
+    runs once a step; the JAX kernel recomputes it instead, as VMEM cannot
+    hold the chain.  A second backward through a retained graph finds no
+    chain and runs the forward again."""
 
     @staticmethod
     def forward(ctx, images, x_enc, d_enc, *weights):
         ctx.save_for_backward(x_enc, d_enc, *weights)
         ctx.images = images
-        return classic_mlp_fwd(_packed_from_args(weights), x_enc, d_enc, images[0])
+        out, ctx.chain = classic_mlp_fwd_chain(
+            _packed_from_args(weights), x_enc, d_enc, images[0],
+            input_grads=any(ctx.needs_input_grad[1:3]))
+        return out
 
     @staticmethod
     def backward(ctx, g_out):
         x_enc, d_enc, *weights = ctx.saved_tensors
         packed = _packed_from_args(weights)
+        chain, ctx.chain = ctx.chain, None
         dx, dd, d_packed = classic_mlp_bwd(
             packed, x_enc, d_enc, g_out.contiguous(),
             input_grads=any(ctx.needs_input_grad[1:3]), tc_fwd=ctx.images[0],
-            tc_bwd=ctx.images[1],
+            tc_bwd=ctx.images[1], chain=chain,
         )
         return (None, dx, dd, *[d_packed.get(k) for k in PACK_ORDER])

@@ -262,6 +262,22 @@ def operand_image_blocks(b: torch.Tensor, dtype: torch.dtype = torch.float32) ->
 INPUT_SLABS = ("w0", "wx", "wd_in", "w_in")
 
 
+# The head slab whose input cotangent runs on the tensor cores (the mip
+# ``w_out``; the classic heads' 1 + 3 outputs stay SIMT), after the input
+# slabs in the backward image, its K (the outputs) zero-padded to a
+# multiple of HEAD_K (``kHeadK`` in ``csrc/mip_mlp.cuh``: each product of
+# the head takes 32 k-values).
+HEAD_SLABS = ("w_out",)
+HEAD_K = 32
+
+
+def head_image(w: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The backward image of a head slab ``w [H, O]`` as it stands (K = O
+    zero-padded to a multiple of ``HEAD_K``)."""
+    return operand_image_blocks(F.pad(w, (0, -(-w.shape[1] // HEAD_K) * HEAD_K - w.shape[1])),
+                                dtype)
+
+
 def forward_slabs(packed) -> dict:
     """The packed weights' slabs as the forward's B operands, ``[out][in]``:
     the classic ``w0 [H, XE]``, ``wx [H, XE]``, ``wd_in [H, DE]`` (with the
@@ -295,7 +311,10 @@ def tc_images(packed, backward: bool = False,
     ``TcImages`` and ``csrc/mip_mlp.cuh``'s ``MipImages`` read).  With
     ``backward`` also ``bwd_rows``' B operands: the hidden slabs (the
     packed ``[in][out]`` slabs), then the input slabs in the same order
-    (``input_image``, for the input cotangents); else ``None``.  ``dtype``
+    (``input_image``, for the input cotangents), then for the mip weights
+    the head's ``w_out [H, O]`` as it stands, the B operand of the head's
+    input cotangent ``dh = g_out w_out^T`` (``head_image``: K = O
+    zero-padded to a multiple of 32, 54 -> 64); else ``None``.  ``dtype``
     bfloat16 builds the bf16 images of ``compute_dtype="bfloat16"``.  The
     weights are padded to the width the kernels run (``pad_packed``), and a
     slab past 256 outputs is held as its column blocks' images
@@ -308,7 +327,9 @@ def tc_images(packed, backward: bool = False,
         bwd = None
         if backward:
             bwd = torch.cat([operand_image_blocks(packed["whh"], dtype).reshape(-1)]
-                            + [input_image(packed[k], dtype) for k in INPUT_SLABS if k in packed])
+                            + [input_image(packed[k], dtype) for k in INPUT_SLABS if k in packed]
+                            + [head_image(packed[k], dtype) for k in HEAD_SLABS
+                               if k in packed])
         return torch.cat(fwd), bwd
 
 
@@ -317,10 +338,12 @@ def image_numels(packed, dtype: torch.dtype = torch.float32) -> Tuple[int, int]:
     backward=True, dtype=dtype)`` builds (floats, or bfloat16 values)."""
     hidden = padded_hidden(hidden_of(packed))
     widths = [packed[k].shape[0] for k in INPUT_SLABS if k in packed]
+    heads = [-(-packed[k].shape[1] // HEAD_K) * HEAD_K for k in HEAD_SLABS if k in packed]
     per = 1 if dtype == torch.bfloat16 else 2  # hi and lo in TF32
     slabs = packed["whh"].shape[0] * per * hidden * hidden
     return (per * hidden * sum(round_up_chunk(w, dtype) for w in widths) + slabs,
-            slabs + per * hidden * sum(round_up_input(w) for w in widths))
+            slabs + per * hidden * sum(round_up_input(w) for w in widths)
+            + per * hidden * sum(round_up_chunk(o, dtype) for o in heads))
 
 
 # The kernels copy each chunk of an image with one bulk copy
@@ -357,6 +380,8 @@ def bulk_copies(packed, backward: bool = False,
         rows = min(hidden, INPUT_PAD)
         sizes = hidden_slabs + [c for w in widths for _ in range(round_up_input(w) // rows)
                                 for c in image(rows, hidden)]
+        sizes += [c for k in HEAD_SLABS if k in packed
+                  for c in blocks(hidden, -(-packed[k].shape[1] // HEAD_K) * HEAD_K)]
     else:
         sizes = [c for w in widths for c in blocks(hidden, w)] + hidden_slabs
     offsets, at = [], 0
@@ -580,3 +605,175 @@ def wgrad_emulated(a: torch.Tensor, b: torch.Tensor, splits: int, matmul=tc_matm
             part = part + matmul(a[p0:p1].t(), b[p0:p1])
         total = total + part
     return total
+
+
+# The row pass of the MLP backward (``csrc/tc_mlp.cuh``'s
+# ``bwd_rows_tc_kernel``, ``csrc/mip_mlp.cuh``'s ``mip_bwd_rows_tc_kernel``):
+# one block a 64-row tile, its column sums in the tile's row of the
+# partials, which ``colsum`` sums.
+TILE_ROWS = 64  # kTileRows
+WARPS = 8  # kWarps: the consumer warps of a tile, 8 rows each
+COLSUM_GROUPS = 64  # kColsumGroups: colsum's first stage
+TC_STAGES = 4  # kTcStages
+ENC_RING_FLOATS = TC_STAGES * TILE_ROWS * 20  # kEncRingFloats
+SMEM_ALIGN = 1024  # kSmemAlign
+SMEM_LIMIT = 232_448  # the shared memory a block may opt in to
+
+
+def colsum_groups(rows: int) -> list:
+    """The partials' rows (one a tile) that each group of ``colsum``'s
+    first stage sums, in order (``colsum_kernel`` in
+    ``csrc/classic_mlp_train.cuh``): at most 64 groups, group ``g`` the
+    rows ``g T / G .. (g + 1) T / G - 1``; its second stage sums the
+    groups in order."""
+    tiles = -(-rows // TILE_ROWS)
+    groups = min(tiles, COLSUM_GROUPS)
+    return [range(g * tiles // groups, (g + 1) * tiles // groups) for g in range(groups)]
+
+
+def bwd_rows_smem(hidden: int, dtype: torch.dtype = torch.float32, colors: int = 3,
+                  mip: bool = False) -> int:
+    """Bytes of shared memory of the row pass at a (padded) hidden width,
+    ``bwd_rows_tc_smem`` / ``mip_bwd_rows_tc_smem``: the ring of B chunks
+    (the same bytes in either dtype: a bf16 chunk fills half a TF32 slot),
+    the activation tile ``[64][H + 4]`` (which also stages the mip head's
+    output cotangents), the colsum scratch ``[8][H]`` (past 256 the
+    encodings' ring in its place, the tile width 256), the classic heads'
+    output cotangents ``[64][1 + colors]`` and the alignment slack.
+    ``dtype`` does not change it."""
+    width = min(hidden, COL_BLOCK)
+    floats = TC_STAGES * 2 * width * CHUNK + TILE_ROWS * (width + 4)
+    floats += ENC_RING_FLOATS if hidden > COL_BLOCK else WARPS * hidden
+    if not mip:
+        floats += TILE_ROWS * (1 + colors)
+    return 4 * floats + SMEM_ALIGN
+
+
+def _row_sums(v: torch.Tensor) -> torch.Tensor:
+    """Each row's sum as ``layer_bwd`` takes it: lane ``l`` sums columns
+    ``l + 32 j`` in ``j`` order, then ``warp_sum``'s butterfly (lanes xor
+    16, 8, 4, 2, 1).  ``v [P, H]``, H a multiple of 32; returns ``[P]``."""
+    lanes = torch.zeros(v.shape[0], 32, dtype=v.dtype, device=v.device)
+    for j in range(v.shape[1] // 32):
+        lanes = lanes + v[:, 32 * j:32 * j + 32]
+    idx = torch.arange(32, device=v.device)
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, idx ^ o]
+    return lanes[:, 0]
+
+
+def _col_sums(v: torch.Tensor, rows: int) -> torch.Tensor:
+    """The column sums of ``v [P, N]`` (zero past the rows) as the row pass
+    and ``colsum`` take them: each warp's 8 rows in order, the 8 warps'
+    partials in order (a tile's sum, its row of the partials), then
+    ``colsum``'s two stages over the tiles' rows (``colsum_groups``)."""
+    tiles = -(-rows // TILE_ROWS)
+    v = torch.nn.functional.pad(v, (0, 0, 0, tiles * TILE_ROWS - rows))
+    v = v.reshape(tiles, WARPS, TILE_ROWS // WARPS, -1)
+    warp = torch.zeros_like(v[:, :, 0])
+    for r in range(TILE_ROWS // WARPS):
+        warp = warp + v[:, :, r]
+    tile = torch.zeros_like(warp[:, 0])
+    for w in range(WARPS):
+        tile = tile + warp[:, w]
+    out = torch.zeros_like(tile[0])
+    for group in colsum_groups(rows):
+        s = torch.zeros_like(tile[0])
+        for t in group:
+            s = s + tile[t]
+        out = out + s
+    return out
+
+
+def bwd_rows_emulated(packed, xhat: torch.Tensor, stats: torch.Tensor, g_out: torch.Tensor,
+                      mip: bool = False, matmul=tc_matmul) -> dict:
+    """The row pass in float32 on the CPU, in the kernels' order: from the
+    output cotangents ``g_out [P, O]`` and the chain the forward stored
+    (``xhat [L, P, H]``, ``stats [L, P, 2]`` = (1/sigma, -mu/sigma)), the
+    heads' input cotangent (classic: SIMT float32, the outputs in order;
+    mip: ``matmul``), then per layer the LayerNorm and ReLU backward (the
+    classic order, or ``mip``'s LayerNorm first) with the row sums as
+    ``_row_sums`` takes them, and ``dh = dpre W^T`` through ``matmul`` (the
+    3xTF32 emulation by default).  Returns ``dpre [L, P, H]`` and the
+    column sums ``b``, ``g``, ``beta`` ``[L, H]`` (``_col_sums``: the tile,
+    then ``colsum``'s order) and the mip ``b_out``.  The classic
+    heads' weight gradients and the input cotangents are left out (the
+    heads' dW is the same column sum of ``h * g_out``).  Unpadded widths:
+    ``H`` a multiple of 32."""
+    layers, rows, hidden = xhat.shape
+    inv_h = torch.tensor(1.0 / hidden, dtype=torch.float32)
+    g, beta = packed["g"], packed["beta"]
+    dpre = torch.zeros_like(xhat)
+    sums = {k: torch.zeros(layers, hidden) for k in ("b", "g", "beta")}
+    if mip:
+        acc = matmul(g_out, packed["w_out"].t())
+        out = {"b_out": _col_sums(g_out, rows)}
+    else:
+        def head(cols, w, acc):
+            for q in range(cols.shape[1]):
+                acc = torch.addcmul(acc, cols[:, q:q + 1], w[:, q][None, :])
+            return acc
+        acc = head(g_out[:, 1:], packed["w_col"], torch.zeros(rows, hidden))
+        if "wd_in" not in packed:
+            acc = head(g_out[:, :1], packed["w_dens"], acc)
+        out = {}
+    for i in range(layers - 1, -1, -1):
+        xh, inv, thr = xhat[i], stats[i, :, 0:1], stats[i, :, 1:2]
+        dy = acc
+        if mip:
+            dy = torch.where(xh * g[i] + beta[i] > 0, acc, torch.zeros_like(acc))
+        sums["beta"][i] = _col_sums(dy, rows)
+        sums["g"][i] = _col_sums(dy * xh, rows)
+        dxh = dy * g[i]
+        m1 = (_row_sums(dxh) * inv_h)[:, None]
+        m2 = (_row_sums(dxh * xh) * inv_h)[:, None]
+        dp = inv * (dxh - m1 - xh * m2)
+        if not mip:
+            dp = torch.where(xh > thr, dp, torch.zeros_like(dp))
+        dpre[i] = dp
+        sums["b"][i] = _col_sums(dp, rows)
+        if i == 0:
+            break
+        acc = matmul(dp, packed["whh"][i - 1].t())
+        if not mip and i == 8:
+            acc = torch.addcmul(acc, g_out[:, :1], packed["w_dens"][:, 0][None, :])
+    return {"dpre": dpre, **sums, **out}
+
+
+def chain_plain(packed, x: torch.Tensor, d: Optional[torch.Tensor] = None,
+                mip: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The chain the forward stores, in float32 on the CPU: every layer's
+    ``xhat [L, P, H]`` and ``(1/sigma, -mu/sigma) [L, P, 2]``, for the
+    classic weights on encodings ``x`` (+ ``d``) or the mip ones on
+    features ``x`` (``mip``)."""
+    xh, st = [], []
+
+    def norm(a):
+        mu = a.mean(-1, keepdim=True)
+        var = ((a - mu) ** 2).mean(-1, keepdim=True)
+        inv = torch.rsqrt(var + 1e-5)
+        xh.append((a - mu) * inv)
+        st.append(torch.cat([inv, -mu * inv], -1))
+        return xh[-1]
+
+    layers = packed["b"].shape[0]
+    if mip:
+        h = x
+        for i in range(layers):
+            w = packed["w_in"] if i == 0 else packed["whh"][i - 1]
+            h = torch.relu(norm(h @ w + packed["b"][i]) * packed["g"][i] + packed["beta"][i])
+        return torch.stack(xh), torch.stack(st)
+
+    def layer(i, pre):
+        return norm(torch.relu(pre + packed["b"][i])) * packed["g"][i] + packed["beta"][i]
+
+    whh = packed["whh"]
+    h = layer(0, x @ packed["w0"])
+    for i in range(1, layers):
+        pre = h @ whh[i - 1]
+        if i == 4:
+            pre = pre + x @ packed["wx"]
+        if i == 8:
+            pre = pre + d @ packed["wd_in"]
+        h = layer(i, pre)
+    return torch.stack(xh), torch.stack(st)

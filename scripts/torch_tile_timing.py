@@ -19,6 +19,10 @@ inputs in [-1, 1) from a seed:
   and launch weigh less);
 * K4 at a 4000-ray tile of 64 + 128 samples;
 * K1-bwd at 131,072 rows, without and with the encodings' cotangents;
+  where the tree has it (slice 22), the reuse step's route: the forward
+  that keeps the chain (counted as K1-fwd) and K1-bwd from that chain,
+  without and with the cotangents (its bound the direct call's less one
+  forward);
 * K2 at 4096 x 64 and at the conditional trainer's 1024 x 64;
 * K3 at 2048 x (64 + 128);
 * K8-fwd and K8-bwd (with the raw inputs' cotangents) at 262,144 points,
@@ -111,16 +115,17 @@ def tensors_of(out) -> list:
     return []
 
 
-def timed(name: str, fn, iters: int, flops: float) -> dict:
+def timed(name: str, fn, iters: int, flops: float, key: str = None) -> dict:
     """The mean ms of ``fn`` beside its operations' bounds: 3xTF32 (FLOP at
     165 TFLOP/s) and bf16 (989 TFLOP/s); with ``--outputs`` the first
-    call's outputs are kept in SAVE."""
+    call's outputs are kept in SAVE (under ``key``, by default the kernel's
+    name)."""
     bounds = {"bound_3xtf32_ms": flops / chip_smoke.PEAK_3XTF32_FLOPS * 1e3,
               "bound_bf16_ms": flops / chip_smoke.PEAK_BF16_FLOPS * 1e3}
     _build.policy_counts.clear()
     try:
         if KEEP_OUTPUTS:
-            SAVE.append((name, tensors_of(fn())))
+            SAVE.append((key or name, tensors_of(fn())))
         ms = chip_smoke.cuda_ms(fn, iters=iters)
     except ValueError as e:
         return {"ms": None, "error": str(e).split(",")[0], **bounds}
@@ -172,6 +177,22 @@ def run(device, s: int, dtype: str, hidden: int = 256, colors: int = 3,
                 classic_mlp.BWD_NAME,
                 lambda: classic_mlp.classic_mlp_bwd(packed, x, d, g, input_grads=grads), 5,
                 train_kernel_flops(cfg, rows, 1, input_grads=grads))
+        # The reuse step's route (a tree that has it): the forward that keeps
+        # the chain, counted as K1-fwd, and K1-bwd from the chain.
+        if hasattr(classic_mlp, "classic_mlp_fwd_chain"):
+            fwd, bwd = tc_mlp.tc_images(packed, backward=True, dtype=tdt)
+            _, chain = classic_mlp.classic_mlp_fwd_chain(packed, x, d, fwd)
+            out[f"K1-fwd {rows} keeping the chain"] = timed(
+                classic_mlp.NAME, lambda: classic_mlp.classic_mlp_fwd_chain(packed, x, d, fwd)[0],
+                10, rows * per_row, key="K1-fwd keeping the chain")
+            for grads in (False, True):
+                out[f"K1-bwd {rows} input_grads={grads} from the chain"] = timed(
+                    classic_mlp.BWD_NAME,
+                    lambda: classic_mlp.classic_mlp_bwd(packed, x, d, g, grads, fwd, bwd,
+                                                        chain=chain), 5,
+                    train_kernel_flops(cfg, rows, 1, input_grads=grads) - rows * per_row,
+                    key=f"K1-bwd from the chain input_grads={grads}")
+            del chain
         for rays, s_ in ((4096, 64), (1024, 64)):
             t = torch.sort(rand(rays, s_, lo=2.0, hi=6.0), -1).values
             a = dict(x_enc=rand(rays, s_, xe, enc=True),
@@ -276,18 +297,29 @@ def run_mip(device, features: int, dtype: str, hidden: int = 256, colors: int = 
 def compare(path_a: str, path_b: str) -> int:
     """Prints, call by call, whether two ``--outputs`` files hold bitwise
     the same outputs (and the largest difference where not); one JSON
-    object.  Returns 0 when every output is bitwise the same."""
-    a, b = torch.load(path_a), torch.load(path_b)
-    rows, same = [], len(a) == len(b)
-    for (name_a, ta), (name_b, tb) in zip(a, b):
-        equal = name_a == name_b and len(ta) == len(tb) and all(
+    object.  Calls are matched by their key and its count (the n-th call of
+    a kernel in each); a call only one tree makes is listed apart.  Returns
+    0 when every call both made is bitwise the same."""
+    def keyed(saved):
+        seen, out = {}, {}
+        for key, tensors in saved:
+            seen[key] = seen.get(key, 0) + 1
+            out[f"{key} #{seen[key]}"] = tensors
+        return out
+
+    a, b = keyed(torch.load(path_a)), keyed(torch.load(path_b))
+    rows, same = [], True
+    for key in [k for k in a if k in b]:
+        ta, tb = a[key], b[key]
+        equal = len(ta) == len(tb) and all(
             x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(ta, tb))
         diff = max((float((x.float() - y.float()).abs().max()) for x, y in zip(ta, tb)
                     if x.shape == y.shape and x.numel()), default=0.0)
-        rows.append({"kernel": name_a, "bitwise": equal, "max_abs_diff": diff})
+        rows.append({"kernel": key, "bitwise": equal, "max_abs_diff": diff})
         same = same and equal
     print(json.dumps({"a": path_a, "b": path_b, "calls": len(rows), "bitwise": same,
-                      "outputs": rows}))
+                      "only_in_a": [k for k in a if k not in b],
+                      "only_in_b": [k for k in b if k not in a], "outputs": rows}))
     return 0 if same else 1
 
 

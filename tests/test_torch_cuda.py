@@ -2820,3 +2820,182 @@ def test_pipeline_edge_steps(cuda, rays, sc, sf, hidden, compute):
     else:
         assert rel_l2(loss, r_loss) <= BF16_FWD
         assert_bf16_grads(got, want)
+
+
+# -- slice 22: the row pass's mip head on the tensor cores, K1-bwd from the kept chain --
+
+# Rows of the row pass: one tile, its tails, a whole wave of 132 tiles and
+# one tile either side of it, and 201 tiles (200 and 17 rows: the colsum's
+# 64 groups of unequal length).  At 65,536 rows see below.
+BWD_ROWS_POINTS = [1, 63, 64, 65, 132 * 64 - 64, 132 * 64 + 64, 200 * 64 + 17]
+
+
+def rays_of(points):
+    """(rays, samples) covering exactly ``points`` rows."""
+    s = next(s for s in (64, 63, 17, 1) if points % s == 0)
+    return points // s, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("points", BWD_ROWS_POINTS)
+def test_bwd_rows_tiles_match_plain(cuda, points):
+    """K1-bwd (with and without the encodings' cotangents) and K5-bwd (with
+    the features' cotangent, its head's input cotangent on the tensor
+    cores) at the full width, against plain at
+    GRAD_ATOL on rows away from the ReLU kinks, K1-bwd bitwise
+    repeatable."""
+    cfg, packed = packed_weights("full_width", cuda)
+    rays, s = rays_of(points)
+    x, d, g_out = k1_inputs(cfg, packed, cuda, rays, s, seed=points)
+    for input_grads in (True, False):
+        got = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads)
+        again = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads)
+        ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads)
+        torch.cuda.synchronize()
+        named = lambda r: r[2] | ({"dx": r[0], "dd": r[1]} if input_grads else {})  # noqa: E731
+        assert_grads_close(named(got), named(ref))
+        assert all(torch.equal(a, b) for a, b in zip(named(got).values(), named(again).values()))
+    mcfg, mpacked = mip_packed("full_width", cuda)
+    gen = torch.Generator(device=cuda).manual_seed(points)
+    g_out = rand(gen, points, mcfg.num_outputs)
+    feat = mip_rows_away_from_kinks(mpacked, gen, rays, s, mcfg.feature_dim).reshape(points, -1)
+    dx, got = mip_mlp.mip_mlp_bwd(mpacked, feat, g_out, input_grads=True)
+    rdx, ref = mip_mlp.mip_mlp_bwd_plain(mpacked, feat, g_out, input_grads=True)
+    torch.cuda.synchronize()
+    assert_grads_close(got | {"dx": dx}, ref | {"dx": rdx})
+
+
+# At 65,536 rows the 1e-5 margin from the kinks that the rows are drawn
+# with (under float32) no longer keeps every row's ReLU decisions the same
+# under the kernels' forward: its 3xTF32 products sum on the tensor cores,
+# which truncate below the accumulator's leading bits (csrc/tc_mlp.cuh note
+# 7), and plain float32 with 3xTF32 products (tc_mlp.tc_matmul) does not
+# take those branches either.  scripts/torch_bwd_rows_precision.py counts
+# the rows: 2 of 65,536 and 7 of 262,144, every other row's masks equal to
+# float64's.  So there the rows where the kernel's forward takes another
+# branch are counted and set aside, and the rest held against plain.
+MAX_KINK_ROWS = 16
+
+
+def classic_relu_masks(packed, x, d):
+    """Each layer's ReLU mask (pre-activation > 0), ``[L, P, H]``, as
+    ``classic_mlp_fwd_plain`` computes the forward in float32."""
+    masks = []
+
+    def layer(i, pre):
+        pre = pre + packed["b"][i]
+        masks.append(pre > 0)
+        a = torch.relu(pre)
+        return F.layer_norm(a, a.shape[-1:], packed["g"][i], packed["beta"][i], 1e-5)
+
+    whh = packed["whh"]
+    h = layer(0, x @ packed["w0"])
+    for i in range(1, whh.shape[0] + 1):
+        pre = h @ whh[i - 1]
+        if i == 4:
+            pre = pre + x @ packed["wx"]
+        if i == 8:
+            pre = pre + d @ packed["wd_in"]
+        h = layer(i, pre)
+    return torch.stack(masks)
+
+
+@pytest.mark.cuda
+def test_bwd_rows_at_65536_rows_match_plain_off_the_kernels_kinks(cuda):
+    """K1-bwd (with and without the encodings' cotangents) and K5-bwd (with
+    the features' cotangent) over 65,536 rows (1024 tiles): the rows where
+    the kernel's forward takes another ReLU branch than plain float32's
+    (K1: from the chain its forward keeps, xhat > -mu/sigma; K5: the rows
+    whose features' cotangent departs from plain's by more than GRAD_ATOL
+    of its largest entry) are at most MAX_KINK_ROWS; on the other rows
+    both match plain at GRAD_ATOL and are bitwise repeatable."""
+    cfg, packed = packed_weights("full_width", cuda)
+    x, d, g_out = k1_inputs(cfg, packed, cuda, 1024, 64, seed=65_536)
+    with torch.no_grad():
+        _, chain = classic_mlp.classic_mlp_fwd_chain(packed, x, d)
+        kernel = chain["xhat"] > chain["stats"][..., 1:]
+        flipped = (kernel != classic_relu_masks(packed, x, d)).any(-1).any(0)
+        del chain, kernel
+    assert int(flipped.sum()) <= MAX_KINK_ROWS
+    keep = ~flipped
+    x, d, g_out = x[keep].contiguous(), d[keep].contiguous(), g_out[keep].contiguous()
+    for input_grads in (True, False):
+        got = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads)
+        again = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads)
+        ref = classic_mlp.classic_mlp_bwd_plain(packed, x, d, g_out, input_grads)
+        torch.cuda.synchronize()
+        named = lambda r: r[2] | ({"dx": r[0], "dd": r[1]} if input_grads else {})  # noqa: E731
+        assert_grads_close(named(got), named(ref))
+        assert all(torch.equal(a, b) for a, b in zip(named(got).values(), named(again).values()))
+    mcfg, mpacked = mip_packed("full_width", cuda)
+    gen = torch.Generator(device=cuda).manual_seed(65_536)
+    mg = rand(gen, 65_536, mcfg.num_outputs)
+    feat = mip_rows_away_from_kinks(mpacked, gen, 1024, 64, mcfg.feature_dim).reshape(65_536, -1)
+    dx, _ = mip_mlp.mip_mlp_bwd(mpacked, feat, mg, input_grads=True)
+    rdx, _ = mip_mlp.mip_mlp_bwd_plain(mpacked, feat, mg, input_grads=True)
+    flipped = (dx - rdx).abs().amax(-1) > GRAD_ATOL * float(rdx.abs().max())
+    assert int(flipped.sum()) <= MAX_KINK_ROWS
+    feat, mg = feat[~flipped].contiguous(), mg[~flipped].contiguous()
+    dx, got = mip_mlp.mip_mlp_bwd(mpacked, feat, mg, input_grads=True)
+    dx2, again = mip_mlp.mip_mlp_bwd(mpacked, feat, mg, input_grads=True)
+    rdx, ref = mip_mlp.mip_mlp_bwd_plain(mpacked, feat, mg, input_grads=True)
+    torch.cuda.synchronize()
+    assert_grads_close(got | {"dx": dx}, ref | {"dx": rdx})
+    assert torch.equal(dx, dx2) and all(torch.equal(got[k], again[k]) for k in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rays", [3, 1024])
+def test_mip_train_grads_head_on_tensor_cores(cuda, rays):
+    """K6 at 3 and 1024 rays x 63 rows (64,512 rows: 1008 tiles), seg
+    weight 0.1, its head's input cotangent on the tensor cores, against
+    plain and bitwise repeatable."""
+    cfg, packed = mip_packed("full_width", cuda)
+    a = mip_inputs(cfg, cuda, rays=rays, rows=63, packed=packed)
+    args = (packed, a["features"], a["dists"], a["noise"], a["pixels"], a["labels"],
+            cfg.color_outputs, 0.1)
+    got, again = mip_train.mip_train_grads(*args), mip_train.mip_train_grads(*args)
+    ref = mip_train.mip_train_grads_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], rtol=LOSS_RTOL, atol=0)
+    torch.testing.assert_close(got[1], ref[1], rtol=LOSS_RTOL, atol=0)
+    assert_grads_close(got[2], ref[2])
+    assert all(torch.equal(got[2][k], again[2][k]) for k in got[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden", [256, 48, 512])
+def test_stored_chain_route_is_the_recompute_bitwise_on_card(cuda, hidden, compute):
+    """K1-bwd from the chain ``classic_mlp_fwd_chain`` kept is the
+    recomputing route bit for bit (with and without the encodings'
+    cotangents; past 256 the tiles' rows in the kept dpre buffer), the
+    kept forward's outputs are ``fwd_tc_kernel``'s, and under autograd
+    ``ClassicMLPFunction`` launches K1-fwd once and K1-bwd once, gives the
+    direct call's gradients bit for bit and releases the chain."""
+    cfg, packed = width_packed(cuda, hidden, True)
+    x, d, g_out = k1_inputs(cfg, packed, cuda, rays=5, s=67, seed=hidden)
+    if compute == "bfloat16":
+        x, d = x.to(torch.bfloat16), d.to(torch.bfloat16)
+    out, chain = classic_mlp.classic_mlp_fwd_chain(packed, x, d)
+    assert torch.equal(out, classic_mlp.classic_mlp_fwd(packed, x, d))
+    for input_grads in (True, False):
+        stored = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads, chain=chain)
+        direct = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads)
+        torch.cuda.synchronize()
+        assert (stored[0] is None) == (not input_grads)
+        if input_grads:
+            assert torch.equal(stored[0], direct[0]) and torch.equal(stored[1], direct[1])
+        assert all(torch.equal(stored[2][k], direct[2][k]) for k in direct[2])
+    leaves = {k: v.clone().requires_grad_(True) for k, v in packed.items()}
+    _build.launch_counts.clear()
+    y = classic_mlp.classic_mlp_fwd(leaves, x, d)
+    node = y.grad_fn
+    assert isinstance(node.chain, dict)
+    y.backward(g_out)
+    torch.cuda.synchronize()
+    assert node.chain is None
+    assert _build.launch_counts == {classic_mlp.NAME: 1, classic_mlp.BWD_NAME: 1}
+    assert torch.equal(y.detach(), out)
+    _, _, direct = classic_mlp.classic_mlp_bwd(packed, x, d, g_out, input_grads=False)
+    assert all(torch.equal(leaves[k].grad, direct[k]) for k in direct)

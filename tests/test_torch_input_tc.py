@@ -212,7 +212,9 @@ def test_input_images_round_trip_bitwise_with_zero_padding(hidden):
     ``wd_in`` (or the mip ``w_in``) as packed, ``[in][out]``: each slab's
     hi and lo parts bitwise, zero rows up to a multiple of 64, each pass of
     ``min(H, 64)`` rows its own image, and every element where
-    ``tc_gemm``'s 64-byte-swizzle descriptors read it; the sizes are
+    ``tc_gemm``'s 64-byte-swizzle descriptors read it; then, for the mip
+    weights, the head's ``w_out [H, O]`` as it stands (the B operand of the
+    head's input cotangent on the tensor cores), bitwise; the sizes are
     ``image_numels``'."""
     for packed, layers in input_slab_cases(hidden):
         with torch.no_grad():
@@ -239,6 +241,10 @@ def test_input_images_round_trip_bitwise_with_zero_padding(hidden):
                     assert img[off] == want_hi[nn, kk] and img[off + rows * tc_mlp.CHUNK] == \
                         want_lo[nn, kk]
             at += size
+        for name in [k for k in tc_mlp.HEAD_SLABS if k in packed]:
+            img = tc_mlp.head_image(packed[name])
+            assert torch.equal(bwd[at:at + img.numel()], img), name
+            at += img.numel()
         assert at == bwd.numel()
 
 
